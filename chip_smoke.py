@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -17,6 +17,17 @@ the exit code is not 0. No JAX is imported.
            embeddings agree with the same weights run in f32 on the CPU
 5. timing  median encode time per batch of 64 tiles and of 64 texts, and the
            median latency of a 64-tile request through the server
+6. kernel-train  the training attention kernels (forward with logsumexp,
+           backward with the bias gradient) against their plain versions at
+           the two batch-256 training shapes and one f32 shape
+7. train-check  one ViT-B-32 train step's loss and gradients at batch 32 on
+           the card (bf16, kernels) against the CPU (f32, plain path), on the
+           same weights, batch and augmentation draws
+8. train   the ViT-B-32 spatial train step (bf16, batch 256, full depth, the
+           workload of ``python -m spatial_clip_tpu_torch.bench``): 3 warmup
+           and 10 timed steps, finite losses and gradient norms, 24 forward
+           and 24 backward attention launches per step; median step ms,
+           pairs/s and peak device memory
 
 Then one JSON line with the kernels, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
@@ -38,6 +49,27 @@ import numpy as np
 KERNEL_TOL = {"bfloat16": 2e-2, "float32": 1e-5}  # bf16: ~1 output ulp at |o| < 4
 MIN_COSINE = 0.99  # served bf16 embeddings vs the f32 CPU plain path
 LAYERS = 12  # ViT-B-32: 12 blocks in each tower, one attention launch each
+TRAIN_BATCH, CHECK_BATCH = 256, 32
+WARMUP_STEPS, TIMED_STEPS = 3, 10
+MAX_LOSS_REL_ERR = 2e-2  # one bf16 train step's loss vs the f32 CPU step
+MIN_GRAD_COSINE = 0.99  # its flattened gradient vs the f32 CPU step's
+
+
+def train_tol(dtype, ref):
+    """Training kernels vs their plain versions. f32: summation order only.
+    bf16: both round at the same points, so they differ where an f32 sum in
+    another order lands on the other side of a bf16 rounding: one bf16 step
+    (2^-8) of the output's largest magnitude (dq sums L terms, so its
+    magnitude, not 1, sets the step)."""
+    import torch
+
+    scale = ref.abs().max().item()
+    return 2e-5 * max(1.0, scale) if dtype == torch.float32 else 2 ** -8 * scale
+
+
+def cosine(a, b) -> float:
+    a, b = a.double().flatten(), b.double().flatten()
+    return float((a @ b) / (a.norm() * b.norm()))
 
 
 def median_ms(fn, reps: int = 7, inner: int = 20) -> float:
@@ -125,7 +157,12 @@ def main() -> int:
     from spatial_clip_tpu_torch.models.transformer import causal_mask
     from spatial_clip_tpu_torch.models.transforms import normalize_batch
     from spatial_clip_tpu_torch.ops import cuda_build
-    from spatial_clip_tpu_torch.ops.fused_attention import fused_attention, reference_attention
+    from spatial_clip_tpu_torch.ops.fused_attention import (
+        fused_attention,
+        fused_attention_bwd,
+        fused_attention_lse,
+        reference_attention,
+    )
     from spatial_clip_tpu_torch.serve import EmbeddingService, make_handler
 
     # 1. device
@@ -192,7 +229,8 @@ def main() -> int:
         texts70 = [f"spatial transcriptomics spot {i} with gene {i * 7 % 97} expressed"
                    for i in range(70)]
         tiles = np.random.default_rng(0).integers(0, 256, (5, 224, 224, 3), dtype=np.uint8)
-        fused_attention.launches = 0
+        for counter in (fused_attention, fused_attention_lse, fused_attention_bwd):
+            counter.launches = 0
         replies = {
             "text3": post(port, "/embed_text", json.dumps({"texts": texts})),
             "text70": post(port, "/embed_text",
@@ -205,6 +243,8 @@ def main() -> int:
         batches = 1 + 2 + 1 + 1  # 70 texts at batch 64 take two
         if launches != LAYERS * batches:
             raise AssertionError(f"[serve] {launches} kernel launches, want {LAYERS * batches}")
+        if fused_attention_lse.launches or fused_attention_bwd.launches:
+            raise AssertionError("[serve] serving launched a training kernel")
         emb = {k: embeddings(r) for k, r in replies.items()}
         for k, n in (("text3", 3), ("text70", 70), ("image5", 5), ("image5_json", 5)):
             check_embeddings(k, emb[k], n, dim)
@@ -253,7 +293,12 @@ def main() -> int:
         thread.join(timeout=30)
         service.close()
 
+    train_rows = kernel_train_phase()
+    trainer = train_check_phase()
+    train = train_phase(trainer)
+
     image = kernel_rows["image"]
+    at_train = "qkv (256, 50, 2304) bf16, no mask (image tower, batch 256)"
     print(json.dumps({"kernels": [{
         "name": "fused_attention_fwd",
         "route": "cuda",
@@ -264,10 +309,181 @@ def main() -> int:
         "ms": image["ms"],
         "plain_ms": image["plain_ms"],
         "at": "qkv (64, 50, 2304) bf16, no mask (image tower, batch 64)",
+    }, {
+        "name": "fused_attention_fwd_lse",
+        "route": "cuda",
+        "source": "spatial_clip_tpu_torch/csrc/fused_attention_fwd.cu",
+        "replaces": "spatial_clip_tpu/ops/fused_attention.py:350",
+        "launches": train["lse_launches"],
+        "max_abs_err": max(r["fwd_err"] for r in train_rows.values()),
+        "ms": train_rows["image"]["fwd_ms"],
+        "plain_ms": train_rows["image"]["fwd_plain_ms"],
+        "at": at_train,
+    }, {
+        "name": "fused_attention_bwd",
+        "route": "cuda",
+        "source": "spatial_clip_tpu_torch/csrc/fused_attention_bwd.cu",
+        "replaces": "spatial_clip_tpu/ops/fused_attention.py:436",
+        "launches": train["bwd_launches"],
+        "max_abs_err": max(r["bwd_err"] for r in train_rows.values()),
+        "ms": train_rows["image"]["bwd_ms"],
+        "plain_ms": train_rows["image"]["bwd_plain_ms"],
+        "at": at_train,
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0
+
+
+def kernel_train_phase() -> dict:
+    """6. The training kernels against their plain versions on the card."""
+    import torch
+
+    from spatial_clip_tpu_torch.models.transformer import causal_mask
+    from spatial_clip_tpu_torch.ops.fused_attention import (
+        fused_attention_bwd,
+        fused_attention_lse,
+        reference_attention_bwd,
+        reference_attention_lse,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cases = [  # name, B, L, D, heads, causal, dtype
+        ("image", TRAIN_BATCH, 50, 768, 12, False, torch.bfloat16),
+        ("text", TRAIN_BATCH, 77, 512, 8, True, torch.bfloat16),
+        ("f32", 8, 77, 512, 8, True, torch.float32),
+    ]
+    rows = {}
+    for name, B, L, D, H, causal, dtype in cases:
+        qkv = torch.randn((B, L, 3 * D), generator=gen, device="cuda").to(dtype)
+        g = torch.randn((B, L, D), generator=gen, device="cuda").to(dtype)
+        mask = causal_mask(L, device="cuda") if causal else None
+        out, lse = fused_attention_lse(qkv, mask, H)
+        dqkv, db = fused_attention_bwd(qkv, mask, lse, g, H)
+        want_out, want_lse = reference_attention_lse(qkv, mask, H)
+        want_dqkv, want_db = reference_attention_bwd(qkv, mask, want_lse, g, H)
+        torch.cuda.synchronize()
+        checks = {  # name: (error, tolerance)
+            "out": (out.float() - want_out.float(), train_tol(dtype, want_out.float())),
+            "lse": (lse - want_lse, 1e-5 * max(1.0, want_lse.abs().max().item())),
+            "dqkv": (dqkv.float() - want_dqkv.float(), train_tol(dtype, want_dqkv.float())),
+            "db": (db - want_db, train_tol(dtype, want_db) + 1e-4),
+        }
+        errs = {k: (d.abs().max().item(), tol) for k, (d, tol) in checks.items()}
+        bad = {k: v for k, v in errs.items() if not v[0] <= v[1]}
+        if bad:
+            raise AssertionError(f"[kernel-train] {name}: max abs err over tolerance {bad}")
+        row = dict(
+            fwd_err=max(errs["out"][0], errs["lse"][0]),
+            bwd_err=max(errs["dqkv"][0], errs["db"][0]),
+            fwd_ms=median_ms(lambda: fused_attention_lse(qkv, mask, H)),
+            fwd_plain_ms=median_ms(lambda: reference_attention_lse(qkv, mask, H)),
+            bwd_ms=median_ms(lambda: fused_attention_bwd(qkv, mask, lse, g, H)),
+            bwd_plain_ms=median_ms(lambda: reference_attention_bwd(qkv, mask, lse, g, H)),
+        )
+        rows[name] = row
+        print(f"[kernel-train] {name} qkv {tuple(qkv.shape)} {str(dtype)[6:]} "
+              f"mask={'causal' if causal else 'none'}: max abs err (tol) " + ", ".join(
+                  f"{k} {e:.3g} ({t:.3g})" for k, (e, t) in errs.items())
+              + f"; fwd_lse kernel {row['fwd_ms']:.4f} ms vs plain {row['fwd_plain_ms']:.4f} ms"
+              f"; bwd kernel {row['bwd_ms']:.4f} ms vs plain {row['bwd_plain_ms']:.4f} ms",
+              flush=True)
+    return rows
+
+
+def train_check_phase():
+    """7. One train step's loss and gradients, card (bf16, kernels) vs CPU
+    (f32, plain path), on the same weights, batch and augmentation draws.
+    Returns the card's trainer for phase 8."""
+    import torch
+
+    from spatial_clip_tpu_torch.bench import make_trainer, synthetic_batch
+    from spatial_clip_tpu_torch.models.transforms import AugmentDraws
+
+    t0 = time.perf_counter()
+    card = make_trainer("ViT-B-32", device="cuda")
+    cpu = make_trainer("ViT-B-32", device="cpu", precision="fp32")  # same f32 weights
+    card_state, cpu_state = card.init_state(), cpu.init_state()
+    batch = synthetic_batch(cpu.model, CHECK_BATCH, seed=1, device="cpu")
+    rng = np.random.default_rng(2)
+    draws = AugmentDraws(*(torch.from_numpy(d) for d in (
+        rng.random(CHECK_BATCH) < 0.5,
+        (1.0 + rng.uniform(-0.2, 0.2, CHECK_BATCH)).astype(np.float32),
+        (1.0 + rng.uniform(-0.2, 0.2, CHECK_BATCH)).astype(np.float32))))
+    loss_card, _, grad_card = card.forward_backward(
+        card_state, {k: v.cuda() for k, v in batch.items()},
+        AugmentDraws(*(d.cuda() for d in draws)))
+    loss_cpu, _, grad_cpu = cpu.forward_backward(cpu_state, batch, draws)
+    grad_card = grad_card.float().cpu()
+    rel = abs(loss_card.item() - loss_cpu.item()) / abs(loss_cpu.item())
+    cos_all = cosine(grad_card, grad_cpu)
+    # the qkv-bias gradients the backward kernel produces, by part (the key
+    # part is zero in exact math: softmax ignores a per-row constant)
+    by_card, by_cpu = card_state.by_name(grad_card), cpu_state.by_name(grad_cpu)
+    biases = [k for k in card_state.order if k.endswith("attn.in_proj_bias")]
+    cos_bias = {p: cosine(torch.cat([by_card[k].view(3, -1)[i] for k in biases]),
+                          torch.cat([by_cpu[k].view(3, -1)[i] for k in biases]))
+                for i, p in enumerate("qkv")}
+    finite = torch.isfinite(grad_card).all().item() and np.isfinite(loss_card.item())
+    if not (finite and rel <= MAX_LOSS_REL_ERR and cos_all >= MIN_GRAD_COSINE
+            and min(cos_bias["q"], cos_bias["v"]) >= MIN_GRAD_COSINE):
+        raise AssertionError(
+            f"[train-check] loss card {loss_card.item()} cpu {loss_cpu.item()} (rel {rel}), "
+            f"grad cosine {cos_all}, qkv-bias grad cosine {cos_bias}, finite {finite}")
+    print(f"[train-check] ViT-B-32 batch {CHECK_BATCH}, one step, same weights/batch/draws: "
+          f"loss card bf16 {loss_card.item():.6f} vs CPU f32 {loss_cpu.item():.6f} "
+          f"(rel err {rel:.3g} <= {MAX_LOSS_REL_ERR}); flattened gradient cosine "
+          f"{cos_all:.6f} (>= {MIN_GRAD_COSINE}); qkv-bias gradient cosine q "
+          f"{cos_bias['q']:.6f} v {cos_bias['v']:.6f} (k {cos_bias['k']:.3f}: zero in exact "
+          f"math); {time.perf_counter() - t0:.1f} s", flush=True)
+    del cpu, cpu_state
+    return card
+
+
+def train_phase(trainer) -> dict:
+    """8. The main training path: the bench workload's train step at batch 256."""
+    import torch
+
+    from spatial_clip_tpu_torch.bench import synthetic_batch
+    from spatial_clip_tpu_torch.ops.fused_attention import (
+        fused_attention,
+        fused_attention_bwd,
+        fused_attention_lse,
+    )
+
+    state = trainer.init_state()
+    batch = synthetic_batch(trainer.model, TRAIN_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for counter in (fused_attention, fused_attention_lse, fused_attention_bwd):
+        counter.launches = 0
+    step_ms, history = [], []
+    for _ in range(WARMUP_STEPS + TIMED_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        history.append((metrics["loss"], metrics["grad_norm"]))
+    counts = (fused_attention.launches, fused_attention_lse.launches,
+              fused_attention_bwd.launches)
+    peak = torch.cuda.max_memory_allocated()
+    steps = WARMUP_STEPS + TIMED_STEPS
+    want = (0, 2 * LAYERS * steps, 2 * LAYERS * steps)
+    if counts != want:
+        raise AssertionError(f"[train] launches (fwd, fwd_lse, bwd) {counts}, want {want}")
+    losses = [float(l) for l, _ in history]
+    norms = [float(n) for _, n in history]
+    if not all(np.isfinite(losses + norms)):
+        raise AssertionError(f"[train] non-finite loss or grad norm: {losses} {norms}")
+    med = statistics.median(step_ms[WARMUP_STEPS:])
+    print(f"[train] ViT-B-32 bf16 batch {TRAIN_BATCH}, 12+12 layers, bench workload: "
+          f"{steps} steps, launches fwd_lse {counts[1]} bwd {counts[2]} "
+          f"(= 2 x {LAYERS} per step, inference fwd {counts[0]}); losses finite "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, grad norms finite {norms[0]:.4f} -> "
+          f"{norms[-1]:.4f}; median step {med:.3f} ms over {TIMED_STEPS} "
+          f"({TRAIN_BATCH * 1e3 / med:.1f} pairs/s); max_memory_allocated "
+          f"{peak / 2 ** 30:.3f} GiB", flush=True)
+    return {"lse_launches": counts[1], "bwd_launches": counts[2], "step_ms": med}
 
 
 if __name__ == "__main__":

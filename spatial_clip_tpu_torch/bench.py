@@ -1,0 +1,117 @@
+"""Train-step throughput of the spatial CLIP trainer on one CUDA GPU.
+
+    python -m spatial_clip_tpu_torch.bench [--model ViT-B-32] [--batch 256]
+        [--steps 20] [--windows 3] [--warmup 3] [--profile]
+
+The workload of the repository's ``bench.py``, run by the port: ViT-B-32 in
+bf16 with f32 parameters, batch 256, on-device flip + color jitter 0.2 and
+normalization of uint8 tiles, the spatial loss with the logit scale capped
+at 50 and k=6 neighbors drawn from [-1, B), AdamW with warmup 10 and 10,000
+total steps, seed 0. The synthetic batch is made once and stays on the
+device. After ``--warmup`` steps it times ``--windows`` windows of
+``--steps`` steps, each closed by ``torch.cuda.synchronize()``, and prints
+one JSON line: pairs/sec/chip from the median window, with ``global_batch``,
+``n_chips``, ``step_ms``, ``window_ms`` and the last ``loss``. ``--profile``
+adds the device time of one step by kernel family (torch.profiler).
+Needs a CUDA GPU: there is no CPU fallback.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import time
+
+import numpy as np
+import torch
+
+from spatial_clip_tpu_torch.losses import make_loss
+from spatial_clip_tpu_torch.models.factory import create_model
+from spatial_clip_tpu_torch.train.loop import Trainer, TrainerConfig
+
+NEIGHBORS = 6
+
+
+def synthetic_batch(model, batch: int, seed: int = 0, device="cuda"):
+    """The benchmark's batch, made with numpy from ``seed`` and moved to the
+    device once: uint8 tiles, token ids, tile ids 0..B-1, k neighbor ids in
+    [-1, B) and their weights in [0, 1)."""
+    rng = np.random.default_rng(seed)
+    size = int(model.cfg.vision_cfg.size)
+    t = model.cfg.text_cfg
+    tile_ids = np.arange(batch, dtype=np.int64)
+    host = {
+        "images": rng.integers(0, 255, (batch, size, size, 3), dtype=np.uint8),
+        "texts": rng.integers(0, t.vocab_size, (batch, t.context_length), dtype=np.int64),
+        "image_tile_ids": tile_ids,
+        "text_tile_ids": tile_ids.copy(),
+        "neighbor_tile_ids": rng.integers(-1, batch, (batch, NEIGHBORS)).astype(np.int64),
+        "neighbor_alphas": rng.uniform(0, 1, (batch, NEIGHBORS)).astype(np.float32),
+    }
+    return {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+
+
+def make_trainer(model_name: str = "ViT-B-32", seed: int = 0, device="cuda",
+                 precision: str = "bf16"):
+    """The benchmark's model (bf16 compute, f32 parameters) and trainer."""
+    model = create_model(model_name, precision=precision, seed=seed, device=device,
+                         training=True)
+    cfg = TrainerConfig(warmup_steps=10, total_steps=10_000, augment=True, color_jitter=0.2,
+                        log_every=10_000, seed=seed)
+    return Trainer(model, loss=make_loss("spatial", cap_logit_scale=50.0), config=cfg)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--model", default="ViT-B-32")
+    ap.add_argument("--batch", type=int, default=256)
+    ap.add_argument("--steps", type=int, default=20, help="steps per timed window")
+    ap.add_argument("--windows", type=int, default=3)
+    ap.add_argument("--warmup", type=int, default=3)
+    ap.add_argument("--profile", action="store_true",
+                    help="also print the device time of one step by kernel family")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("spatial_clip_tpu_torch.bench needs a CUDA GPU")
+    trainer = make_trainer(args.model)
+    state = trainer.init_state()
+    batch = synthetic_batch(trainer.model, args.batch)
+    for _ in range(args.warmup):
+        state, metrics = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    window_ms = []
+    for _ in range(args.windows):
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            state, metrics = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        window_ms.append((time.perf_counter() - t0) * 1e3 / args.steps)
+    step_ms = statistics.median(window_ms)
+    pairs_per_sec = args.batch * 1e3 / step_ms
+    report = {
+        "metric": f"HEST tile-spot pairs/sec/chip ({args.model} spatial train step)",
+        "value": pairs_per_sec,
+        "unit": "pairs/sec/chip",
+        "detail": {
+            "model": args.model,
+            "device": torch.cuda.get_device_name(0),
+            "global_batch": args.batch,
+            "n_chips": 1,
+            "step_ms": step_ms,
+            "window_ms": window_ms,
+            "loss": float(metrics["loss"]),
+        },
+    }
+    if args.profile:
+        from spatial_clip_tpu_torch.profile_serving import profile_encode
+
+        def step():
+            nonlocal state
+            state, _ = trainer.train_step(state, batch)
+
+        report["detail"]["profile"] = profile_encode(step, reps=3)
+    print(json.dumps(report))
+
+
+if __name__ == "__main__":
+    main()

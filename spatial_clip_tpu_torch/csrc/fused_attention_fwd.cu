@@ -1,9 +1,15 @@
 // Fused multi-head attention forward over a raw fused-qkv tensor (Hopper, sm_90a).
 //
-// Replaces the TPU kernel `_fwd_kernel` in spatial_clip_tpu/ops/fused_attention.py
-// (launched by `_attn_fwd_impl` through pl.pallas_call), which serves every
-// attention of the CLIP towers at inference: softmax(q k^T * hd^-1/2 + mask) v
-// per head, read straight from the (B, L, 3D) output of the qkv GEMM.
+// Replaces two TPU kernels in spatial_clip_tpu/ops/fused_attention.py:
+//   - `_fwd_kernel` (launched by `_attn_fwd_impl` through pl.pallas_call), which
+//     serves every attention of the CLIP towers at inference:
+//     softmax(q k^T * hd^-1/2 + mask) v per head, read straight from the
+//     (B, L, 3D) output of the qkv GEMM;
+//   - `_fwd_kernel_lse` (launched by `_fwd_pallas_lse`), the training forward:
+//     the same context plus each row's logsumexp
+//     lse = log(max(sum e, 1e-30)) + row max, f32, laid out (heads, B, L), which
+//     the backward (fused_attention_bwd.cu) uses to rebuild p = exp(s - lse).
+//   One kernel with an option: a null `lse` pointer writes no logsumexp.
 //
 // What should bound it on an H100 is memory. At the serving shapes (image
 // tower B=64, L=50, 12 heads of 64; text tower B=64, L=77, 8 heads of 64,
@@ -35,8 +41,8 @@
 // accumulated in f32, then o * (1 / max(sum e, 1e-30)), cast to the input
 // dtype. Tensor cores and TMA are left for later work.
 //
-// C interface (bound with ctypes; the caller allocates `out`, passes 16-byte
-// aligned contiguous tensors and PyTorch's current stream). Returns
+// C interface (bound with ctypes; the caller allocates `out` and `lse`, passes
+// 16-byte aligned contiguous tensors and PyTorch's current stream). Returns
 // cudaGetLastError() after the launch.
 
 #include <cuda_bf16.h>
@@ -45,57 +51,22 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_common.cuh"
+
 namespace {
+
+using sc::from_f32;
+using sc::load_f32;
+using sc::store_from_f32;
+using sc::to_f32;
+using sc::Vec;
+using sc::warp_max;
+using sc::warp_sum;
 
 constexpr int kWarps = 8;
 constexpr int kRows = 2;  // query rows per warp pass
 constexpr int kMaxSeq = 256;
 constexpr int kMaxKeysPerLane = kMaxSeq / 32;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// N consecutive elements of T as one aligned vector access.
-template <typename T, int N>
-struct alignas(sizeof(T) * N) Vec {
-  T v[N];
-};
-
-template <typename T, int N>
-__device__ __forceinline__ void load_f32(const T* p, float (&out)[N]) {
-  const Vec<T, N> x = *reinterpret_cast<const Vec<T, N>*>(p);
-#pragma unroll
-  for (int k = 0; k < N; ++k) out[k] = to_f32(x.v[k]);
-}
-
-template <typename T, int N>
-__device__ __forceinline__ void store_from_f32(T* p, const float (&in)[N]) {
-  Vec<T, N> x;
-#pragma unroll
-  for (int k = 0; k < N; ++k) x.v[k] = from_f32<T>(in[k]);
-  *reinterpret_cast<Vec<T, N>*>(p) = x;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
 
 template <typename T, int HD>
 struct Layout {
@@ -115,7 +86,8 @@ struct Layout {
 template <typename T, int HD>
 __global__ void __launch_bounds__(kWarps * 32)
 attn_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
-                T* __restrict__ out, int seq, int heads, float scale) {
+                T* __restrict__ out, float* __restrict__ lse, int seq, int heads,
+                float scale) {
   using Ly = Layout<T, HD>;
   constexpr int kChunk = Ly::kChunk;
   constexpr int kDpl = Ly::kDimsPerLane;
@@ -217,7 +189,10 @@ attn_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
           e_w[r * seq_pad + j] = to_f32(from_f32<T>(e));  // the PV dot takes e in v's dtype
         }
       }
-      inv[r] = 1.f / fmaxf(warp_sum(sum), 1e-30f);
+      const float sigma = fmaxf(warp_sum(sum), 1e-30f);
+      inv[r] = 1.f / sigma;
+      if (lse != nullptr && lane == 0 && i0 + r < seq)
+        lse[(size_t(h) * (gridDim.x / heads) + b) * seq + i] = logf(sigma) + row_max;
     }
     __syncwarp();
 
@@ -260,24 +235,24 @@ attn_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
 }
 
 template <typename T, int HD>
-cudaError_t launch(const void* qkv, const float* mask, void* out, int batch, int seq,
-                   int heads, float scale, cudaStream_t stream) {
+cudaError_t launch(const void* qkv, const float* mask, void* out, float* lse, int batch,
+                   int seq, int heads, float scale, cudaStream_t stream) {
   const size_t smem = Layout<T, HD>::smem_bytes(seq);
   cudaError_t err = cudaFuncSetAttribute(
       attn_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
   attn_fwd_kernel<T, HD><<<batch * heads, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(qkv), mask, static_cast<T*>(out), seq, heads, scale);
+      static_cast<const T*>(qkv), mask, static_cast<T*>(out), lse, seq, heads, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_hd(const void* qkv, const float* mask, void* out, int batch, int seq,
-                        int heads, int head_dim, float scale, cudaStream_t stream) {
+cudaError_t dispatch_hd(const void* qkv, const float* mask, void* out, float* lse, int batch,
+                        int seq, int heads, int head_dim, float scale, cudaStream_t stream) {
   switch (head_dim) {
-    case 32: return launch<T, 32>(qkv, mask, out, batch, seq, heads, scale, stream);
-    case 64: return launch<T, 64>(qkv, mask, out, batch, seq, heads, scale, stream);
-    case 128: return launch<T, 128>(qkv, mask, out, batch, seq, heads, scale, stream);
+    case 32: return launch<T, 32>(qkv, mask, out, lse, batch, seq, heads, scale, stream);
+    case 64: return launch<T, 64>(qkv, mask, out, lse, batch, seq, heads, scale, stream);
+    case 128: return launch<T, 128>(qkv, mask, out, lse, batch, seq, heads, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -285,17 +260,20 @@ cudaError_t dispatch_hd(const void* qkv, const float* mask, void* out, int batch
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. mask: (seq, seq) f32 additive mask or null.
-extern "C" int sc_attention_fwd(const void* qkv, const void* mask, void* out, int batch,
-                                int seq, int heads, int head_dim, int dtype, float scale,
-                                void* stream) {
+// lse: (heads, batch, seq) f32 output, or null for none.
+extern "C" int sc_attention_fwd(const void* qkv, const void* mask, void* out, void* lse,
+                                int batch, int seq, int heads, int head_dim, int dtype,
+                                float scale, void* stream) {
   if (batch < 1 || heads < 1 || seq < 1 || seq > kMaxSeq) return int(cudaErrorInvalidValue);
   if ((reinterpret_cast<uintptr_t>(qkv) | reinterpret_cast<uintptr_t>(out)) % 16 != 0)
     return int(cudaErrorMisalignedAddress);
   const float* m = static_cast<const float*>(mask);
+  float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return int(dispatch_hd<float>(qkv, m, out, batch, seq, heads, head_dim, scale, s));
-    case 1: return int(dispatch_hd<__nv_bfloat16>(qkv, m, out, batch, seq, heads, head_dim, scale, s));
+    case 0: return int(dispatch_hd<float>(qkv, m, out, l, batch, seq, heads, head_dim, scale, s));
+    case 1:
+      return int(dispatch_hd<__nv_bfloat16>(qkv, m, out, l, batch, seq, heads, head_dim, scale, s));
     default: return int(cudaErrorInvalidValue);
   }
 }

@@ -29,13 +29,19 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Te
 
 
 class CLIP(nn.Module):
-    def __init__(self, cfg: CLIPCfg, dtype=torch.float32, device=None):
+    """``dtype`` is the compute dtype. ``param_dtype`` (default: ``dtype``)
+    stores the matrices and embeddings; a model built ``training`` checks
+    that the attention backward kernel takes both towers' geometry."""
+
+    def __init__(self, cfg: CLIPCfg, dtype=torch.float32, device=None, param_dtype=None,
+                 training: bool = False):
         super().__init__()
         check_ported(cfg)
         self.cfg, self.dtype = cfg, dtype
         v, t = cfg.vision_cfg, cfg.text_cfg
         act = quick_gelu if cfg.quick_gelu else gelu_tanh
-        common = dict(ln_stats=cfg.ln_impl, act=act, dtype=dtype, device=device)
+        common = dict(ln_stats=cfg.ln_impl, act=act, dtype=dtype,
+                      param_dtype=param_dtype or dtype, device=device, training=training)
         self.visual = VisionTransformer(
             v.size, v.patch_size, v.width, v.layers, v.heads, v.mlp_ratio,
             cfg.embed_dim, ls_init_value=v.ls_init_value, no_ln_pre=v.no_ln_pre,
@@ -66,7 +72,8 @@ class CLIP(nn.Module):
 
     def encode_text(self, text: torch.Tensor, normalize: bool = True) -> torch.Tensor:
         """text: (B, context_length) token ids."""
-        x = self.token_embedding(text) + self.positional_embedding
+        x = (self.token_embedding(text).to(self.dtype)
+             + self.positional_embedding.to(self.dtype))  # as TextTransformer.embed
         x = self.transformer(x, self.attn_mask)
         feats = text_head(x, text, self.ln_final, self.text_projection,
                           self.text_pool_type, self.text_final_ln_after_pool)

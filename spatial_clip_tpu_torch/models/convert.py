@@ -5,6 +5,10 @@
 port's :class:`~spatial_clip_tpu_torch.models.clip.CLIP` loads. For the keys
 ``spatial_clip_tpu.models.convert.jax_to_torch_state_dict`` exports, keys and
 values are the same; it also maps layer-scale and a biased text projection.
+
+:func:`from_jax_train_state` maps a JAX ``TrainState`` (parameters and the
+Adam moments, with numpy leaves) to the port's
+:class:`~spatial_clip_tpu_torch.train.loop.TrainState`.
 """
 from __future__ import annotations
 
@@ -23,6 +27,14 @@ def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
         else:
             flat[key] = np.asarray(v)
     return flat
+
+
+def _to_f32(tree):
+    """Nested dicts of arrays (bfloat16 ones included, which torch cannot
+    take from numpy) as float32 numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: _to_f32(v) for k, v in tree.items()}
+    return np.asarray(tree).astype(np.float32)
 
 
 def from_jax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -82,3 +94,37 @@ def from_jax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         raise NotImplementedError(
             f"JAX params with no counterpart in spatial_clip_tpu_torch: {sorted(flat)}")
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}  # own, writable copies
+
+
+def find_adam_state(opt_state):
+    """The Adam state (``count``, ``mu``, ``nu``) inside an optax chain's
+    state, nested tuples included."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return opt_state
+    if isinstance(opt_state, tuple):
+        for part in opt_state:
+            found = find_adam_state(part)
+            if found is not None:
+                return found
+    return None
+
+
+def from_jax_train_state(state, seed: int = 42, device=None):
+    """The port's TrainState from a JAX ``TrainState``: ``params`` and the
+    Adam moments ``mu``/``nu`` go through :func:`from_jax_params`'s key map
+    and transposes (the moments keep their storage dtype: bfloat16 where
+    the JAX state stores bfloat16); Adam's ``count`` and the ``step`` are
+    copied. The augmentation generator is seeded with ``seed``: JAX's random
+    key has no counterpart."""
+    from spatial_clip_tpu_torch.train.loop import TrainState
+
+    adam = find_adam_state(state.opt_state)
+    leaf = np.asarray(adam.mu["logit_scale"]).dtype
+    mu_dtype = torch.bfloat16 if leaf.name == "bfloat16" else torch.float32
+    leaf = np.asarray(adam.nu["logit_scale"]).dtype
+    nu_dtype = torch.bfloat16 if leaf.name == "bfloat16" else torch.float32
+    return TrainState.create(
+        from_jax_params(_to_f32(state.params)), from_jax_params(_to_f32(adam.mu)),
+        from_jax_params(_to_f32(adam.nu)), count=int(np.asarray(adam.count)),
+        step=int(np.asarray(state.step)), mu_dtype=mu_dtype, nu_dtype=nu_dtype, seed=seed,
+        device=device)

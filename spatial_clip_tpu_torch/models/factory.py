@@ -1,9 +1,12 @@
 """Model and tokenizer factory (counterpart of ``spatial_clip_tpu.models.factory``).
 
-``create_model`` returns the CLIP ``nn.Module`` in eval mode on ``device``,
-its weights drawn from ``seed`` with the distributions the JAX package's
-flax initializers use (the values differ: the two frameworks' generators
-differ). The repository holds no pretrained checkpoint, so ``pretrained`` is
+``create_model`` returns the CLIP ``nn.Module`` on ``device``, its weights
+drawn from ``seed`` with the distributions the JAX package's flax
+initializers use (the values differ: the two frameworks' generators differ).
+For serving (the default) the model is in eval mode with its weights stored
+in the compute dtype and no grad; with ``training=True`` it is in train mode
+with float32 parameters that require grad, cast to the compute dtype at
+each use, as the JAX package trains. The repository holds no pretrained checkpoint, so ``pretrained`` is
 not ported; weights from the JAX package load with
 ``model.load_state_dict(convert.from_jax_params(params))``.
 """
@@ -24,6 +27,7 @@ from spatial_clip_tpu_torch.models.tokenizer import (
     SimpleTokenizer,
 )
 from spatial_clip_tpu_torch.models.transformer import (
+    Dense,
     LayerNorm,
     LayerScale,
     MultiHeadAttention,
@@ -60,7 +64,7 @@ def init_weights(model: CLIP, seed: int = 0) -> None:
         p.copy_(torch.randn(p.shape, generator=g) * std)
 
     for name, mod in model.named_modules():
-        if isinstance(mod, nn.Linear):
+        if isinstance(mod, Dense):
             lecun(mod.weight, mod.in_features)
             mod.bias.zero_()
         elif isinstance(mod, MultiHeadAttention):
@@ -80,7 +84,7 @@ def init_weights(model: CLIP, seed: int = 0) -> None:
     normal(model.visual.proj, v_width ** -0.5)
     normal(model.token_embedding.weight, cfg.text_cfg.width ** -0.5)
     normal(model.positional_embedding, 0.01)
-    if not isinstance(model.text_projection, nn.Linear):
+    if not isinstance(model.text_projection, Dense):
         normal(model.text_projection, cfg.text_cfg.width ** -0.5)
     model.logit_scale.fill_(cfg.init_logit_scale)
     if model.logit_bias is not None:
@@ -89,21 +93,28 @@ def init_weights(model: CLIP, seed: int = 0) -> None:
 
 def create_model(model_name: str, pretrained: Optional[str] = None,
                  precision: str = "bf16", seed: int = 0, device="cuda",
-                 **cfg_overrides) -> CLIP:
+                 training: bool = False, **cfg_overrides) -> CLIP:
     """Build a CLIP model. ``cfg_overrides`` are CLIPCfg fields, with
     ``vision_cfg``/``text_cfg`` dicts merged into the JSON config. The model
-    carries ``cfg``, ``model_name`` and ``preprocess_cfg``."""
+    carries ``cfg``, ``model_name`` and ``preprocess_cfg``. ``training``
+    gives float32 parameters that require grad, in train mode; the weights
+    drawn from a seed are the same either way (then rounded to the compute
+    dtype for serving)."""
     if pretrained:
         raise NotImplementedError(
             f"pretrained={pretrained!r} is not ported to spatial_clip_tpu_torch")
     if precision not in PRECISION_DTYPES:
         raise ValueError(f"unknown precision {precision!r}: {sorted(PRECISION_DTYPES)}")
     cfg = resolve_clip_cfg(model_name, **cfg_overrides)
-    model = CLIP(cfg, dtype=PRECISION_DTYPES[precision], device=torch.device(device))
+    dtype = PRECISION_DTYPES[precision]
+    model = CLIP(cfg, dtype=dtype, device=torch.device(device),
+                 param_dtype=torch.float32 if training else dtype, training=training)
     init_weights(model, seed)
     model.model_name = model_name
     model.preprocess_cfg = PreprocessCfg(
         size=cfg.vision_cfg.image_size, mean=OPENAI_DATASET_MEAN, std=OPENAI_DATASET_STD)
+    if training:
+        return model.train().requires_grad_(True)
     return model.eval().requires_grad_(False)
 
 

@@ -1,12 +1,19 @@
-"""ViT and text transformer towers (inference).
+"""ViT and text transformer towers, for serving and for training.
 
-Counterpart of ``spatial_clip_tpu.models.transformer`` on its serving path:
+Counterpart of ``spatial_clip_tpu.models.transformer`` on its main path:
 dense projections, one-pass or two-pass LayerNorm, and attention through
-the fused attention kernel (``ops.fused_attention``). Parameters carry
+the fused attention kernels (``ops.fused_attention``). Parameters carry
 open_clip's names and layouts (``attn.in_proj_weight`` is (3D, D),
-``conv1.weight`` is OIHW). Matrices and embeddings are stored in the
-compute dtype; LayerNorm parameters and the logit scale stay float32, as
-the JAX towers cast them. Images are NHWC, as in the JAX package.
+``conv1.weight`` is OIHW). Matrices, embeddings and layer-scales are stored
+in ``param_dtype`` and cast to the compute ``dtype`` at each use, as the
+JAX towers cast their f32 parameters: a serving model stores them in the
+compute dtype (the cast is then a no-op), a training model in float32.
+LayerNorm parameters and the logit scale are always float32. Images are
+NHWC, as in the JAX package.
+
+With grad enabled, attention runs through :class:`QKVAttention`, whose
+forward saves the logsumexp and whose backward is the hand-written
+backward kernel; without grad it is the inference kernel alone.
 """
 from __future__ import annotations
 
@@ -16,9 +23,15 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.nn.utils import skip_init
 
-from spatial_clip_tpu_torch.ops.fused_attention import HEAD_DIMS, fused_attention, supported
+from spatial_clip_tpu_torch.ops.fused_attention import (
+    HEAD_DIMS,
+    bwd_smem_bytes,
+    bwd_supported,
+    fused_attention,
+    qkv_attention,
+    supported,
+)
 
 gelu_tanh = functools.partial(F.gelu, approximate="tanh")  # flax nn.gelu
 
@@ -33,8 +46,18 @@ def _param(*shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(*shape, dtype=dtype, device=device))
 
 
-def _linear(n_in: int, n_out: int, dtype, device) -> nn.Linear:
-    return skip_init(nn.Linear, n_in, n_out, dtype=dtype, device=device)
+class Dense(nn.Module):
+    """``x W^T + b`` with W (out, in) and b stored in ``param_dtype`` and cast
+    to ``dtype`` at each use (flax ``nn.Dense(dtype, param_dtype)``)."""
+
+    def __init__(self, n_in: int, n_out: int, dtype, param_dtype, device):
+        super().__init__()
+        self.in_features, self.out_features, self.dtype = n_in, n_out, dtype
+        self.weight = _param(n_out, n_in, dtype=param_dtype, device=device)
+        self.bias = _param(n_out, dtype=param_dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(self.dtype), self.bias.to(self.dtype))
 
 
 class LayerNorm(nn.Module):
@@ -63,19 +86,20 @@ class LayerNorm(nn.Module):
 
 
 class LayerScale(nn.Module):
-    def __init__(self, width: int, dtype, device):
+    def __init__(self, width: int, dtype, param_dtype, device):
         super().__init__()
-        self.gamma = _param(width, dtype=dtype, device=device)
+        self.dtype = dtype
+        self.gamma = _param(width, dtype=param_dtype, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x * self.gamma
+        return x * self.gamma.to(self.dtype)
 
 
 class MLP(nn.Module):
-    def __init__(self, width: int, hidden: int, act: Callable, dtype, device):
+    def __init__(self, width: int, hidden: int, act: Callable, dtype, param_dtype, device):
         super().__init__()
-        self.c_fc = _linear(width, hidden, dtype, device)
-        self.c_proj = _linear(hidden, width, dtype, device)
+        self.c_fc = Dense(width, hidden, dtype, param_dtype, device)
+        self.c_proj = Dense(hidden, width, dtype, param_dtype, device)
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -84,22 +108,40 @@ class MLP(nn.Module):
 
 class MultiHeadAttention(nn.Module):
     """Fused-qkv attention: one (B, L, 3D) GEMM, then the fused attention
-    kernel on that raw output, then the output projection."""
+    kernel on that raw output, then the output projection.
 
-    def __init__(self, width: int, heads: int, dtype, device):
+    With grad enabled the GEMM and the attention run as one
+    :class:`QKVAttention` (forward with logsumexp, hand-written backward);
+    otherwise the inference kernel runs alone. Built for training
+    (``seq_len`` given), it checks that the backward kernel takes the
+    geometry."""
+
+    def __init__(self, width: int, heads: int, dtype, param_dtype, device,
+                 seq_len: Optional[int] = None):
         super().__init__()
         if not supported(heads, width):
             raise NotImplementedError(
                 f"heads={heads} over width={width}: the attention kernel takes "
                 f"head_dim in {HEAD_DIMS}")
-        self.heads = heads
-        self.in_proj_weight = _param(3 * width, width, dtype=dtype, device=device)
-        self.in_proj_bias = _param(3 * width, dtype=dtype, device=device)
-        self.out_proj = _linear(width, width, dtype, device)
+        if seq_len is not None and not bwd_supported(heads, width, seq_len, dtype):
+            raise NotImplementedError(
+                f"training attention over L={seq_len}, head_dim={width // heads} in "
+                f"{dtype}: the backward kernel needs "
+                f"{bwd_smem_bytes(seq_len, width // heads, dtype)} B of shared memory "
+                "per block, more than a block has")
+        self.heads, self.dtype = heads, dtype
+        self.in_proj_weight = _param(3 * width, width, dtype=param_dtype, device=device)
+        self.in_proj_bias = _param(3 * width, dtype=param_dtype, device=device)
+        self.out_proj = Dense(width, width, dtype, param_dtype, device)
 
     def forward(self, x: torch.Tensor, attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
-        return self.out_proj(fused_attention(qkv, attn_mask, self.heads))
+        w, b = self.in_proj_weight, self.in_proj_bias
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad or b.requires_grad):
+            ctx = qkv_attention(x, w, b, attn_mask, self.heads)
+        else:
+            qkv = F.linear(x, w.to(self.dtype), b.to(self.dtype))
+            ctx = fused_attention(qkv, attn_mask, self.heads)
+        return self.out_proj(ctx)
 
 
 class ResidualBlock(nn.Module):
@@ -108,15 +150,17 @@ class ResidualBlock(nn.Module):
     def __init__(self, width: int, heads: int, mlp_ratio: float = 4.0,
                  ls_init_value: Optional[float] = None, norm_eps: float = 1e-5,
                  ln_stats: str = "onepass", act: Callable = gelu_tanh,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, param_dtype=None, device=None,
+                 seq_len: Optional[int] = None):
         super().__init__()
+        param_dtype = param_dtype or dtype
         self.ln_1 = LayerNorm(width, norm_eps, ln_stats, dtype, device)
-        self.attn = MultiHeadAttention(width, heads, dtype, device)
+        self.attn = MultiHeadAttention(width, heads, dtype, param_dtype, device, seq_len)
         self.ln_2 = LayerNorm(width, norm_eps, ln_stats, dtype, device)
-        self.mlp = MLP(width, int(width * mlp_ratio), act, dtype, device)
+        self.mlp = MLP(width, int(width * mlp_ratio), act, dtype, param_dtype, device)
         scaled = ls_init_value is not None
-        self.ls_1 = LayerScale(width, dtype, device) if scaled else nn.Identity()
-        self.ls_2 = LayerScale(width, dtype, device) if scaled else nn.Identity()
+        self.ls_1 = LayerScale(width, dtype, param_dtype, device) if scaled else nn.Identity()
+        self.ls_2 = LayerScale(width, dtype, param_dtype, device) if scaled else nn.Identity()
 
     def forward(self, x: torch.Tensor, attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = x + self.ls_1(self.attn(self.ln_1(x), attn_mask))
@@ -140,18 +184,19 @@ class PatchEmbed(nn.Module):
     conv's OIHW kernel; patches flatten in (ph, pw, C) order, as in JAX."""
 
     def __init__(self, patch_size: int, width: int, channels: int = 3, dtype=torch.float32,
-                 device=None):
+                 param_dtype=None, device=None):
         super().__init__()
-        self.patch_size = patch_size
-        self.weight = _param(width, channels, patch_size, patch_size, dtype=dtype, device=device)
+        self.patch_size, self.dtype = patch_size, dtype
+        self.weight = _param(width, channels, patch_size, patch_size,
+                             dtype=param_dtype or dtype, device=device)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         B, H, W, C = images.shape
         p = self.patch_size
         gh, gw = H // p, W // p
-        patches = images.to(self.weight.dtype).reshape(B, gh, p, gw, p, C)
+        patches = images.to(self.dtype).reshape(B, gh, p, gw, p, C)
         patches = patches.permute(0, 1, 3, 2, 4, 5).reshape(B, gh * gw, p * p * C)
-        return patches @ self.weight.permute(2, 3, 1, 0).reshape(p * p * C, -1)
+        return patches @ self.weight.to(self.dtype).permute(2, 3, 1, 0).reshape(p * p * C, -1)
 
 
 class VisionTransformer(nn.Module):
@@ -162,23 +207,29 @@ class VisionTransformer(nn.Module):
                  ls_init_value: Optional[float] = None, no_ln_pre: bool = False,
                  final_ln_after_pool: bool = False, pool_type: str = "tok",
                  norm_eps: float = 1e-5, ln_stats: str = "onepass",
-                 act: Callable = gelu_tanh, dtype=torch.float32, device=None):
+                 act: Callable = gelu_tanh, dtype=torch.float32, param_dtype=None,
+                 device=None, training: bool = False):
         super().__init__()
         if pool_type not in ("tok", "avg", "none"):
             raise ValueError(f"unknown vision pool_type {pool_type!r}")
-        self.pool_type = pool_type
+        param_dtype = param_dtype or dtype
+        self.pool_type, self.dtype = pool_type, dtype
         self.final_ln_after_pool = final_ln_after_pool
         n_patches = (image_size // patch_size) ** 2
-        self.conv1 = PatchEmbed(patch_size, width, dtype=dtype, device=device)
-        self.class_embedding = _param(width, dtype=dtype, device=device)
-        self.positional_embedding = _param(n_patches + 1, width, dtype=dtype, device=device)
+        self.conv1 = PatchEmbed(patch_size, width, dtype=dtype, param_dtype=param_dtype,
+                                device=device)
+        self.class_embedding = _param(width, dtype=param_dtype, device=device)
+        self.positional_embedding = _param(n_patches + 1, width, dtype=param_dtype,
+                                           device=device)
         self.ln_pre = (nn.Identity() if no_ln_pre
                        else LayerNorm(width, norm_eps, ln_stats, dtype, device))
         self.transformer = Transformer(
             width, layers, heads, mlp_ratio=mlp_ratio, ls_init_value=ls_init_value,
-            norm_eps=norm_eps, ln_stats=ln_stats, act=act, dtype=dtype, device=device)
+            norm_eps=norm_eps, ln_stats=ln_stats, act=act, dtype=dtype,
+            param_dtype=param_dtype, device=device,
+            seq_len=n_patches + 1 if training else None)
         self.ln_post = LayerNorm(width, norm_eps, ln_stats, dtype, device)
-        self.proj = _param(width, output_dim, dtype=dtype, device=device)
+        self.proj = _param(width, output_dim, dtype=param_dtype, device=device)
 
     def _pool(self, x: torch.Tensor) -> torch.Tensor:
         if self.pool_type == "avg":
@@ -189,14 +240,14 @@ class VisionTransformer(nn.Module):
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         x = self.conv1(images)
-        cls = self.class_embedding.expand(x.shape[0], 1, -1)
-        x = torch.cat([cls, x], dim=1) + self.positional_embedding
+        cls = self.class_embedding.to(self.dtype).expand(x.shape[0], 1, -1)
+        x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(self.dtype)
         x = self.transformer(self.ln_pre(x))
         if self.final_ln_after_pool:
             pooled = self.ln_post(self._pool(x))
         else:
             pooled = self._pool(self.ln_post(x))
-        return pooled @ self.proj
+        return pooled @ self.proj.to(self.dtype)
 
 
 def text_global_pool(x: torch.Tensor, tokens: torch.Tensor, pool_type: str) -> torch.Tensor:
@@ -219,14 +270,14 @@ def causal_mask(seq_len: int, device=None) -> torch.Tensor:
 
 def text_head(x: torch.Tensor, text: torch.Tensor, ln_final: nn.Module, projection,
               pool_type: str, final_ln_after_pool: bool) -> torch.Tensor:
-    """Final LN + pool + projection (a matrix, or a Linear when proj_bias)."""
+    """Final LN + pool + projection (a matrix, or a Dense when proj_bias)."""
     if final_ln_after_pool:
         pooled = ln_final(text_global_pool(x, text, pool_type))
     else:
         pooled = text_global_pool(ln_final(x), text, pool_type)
-    if isinstance(projection, nn.Linear):
+    if isinstance(projection, Dense):
         return projection(pooled)
-    return pooled @ projection
+    return pooled @ projection.to(pooled.dtype)
 
 
 class TextTransformer(nn.Module):
@@ -237,25 +288,38 @@ class TextTransformer(nn.Module):
                  ls_init_value: Optional[float] = None, no_causal_mask: bool = False,
                  pool_type: str = "argmax", final_ln_after_pool: bool = False,
                  proj_bias: bool = False, norm_eps: float = 1e-5, ln_stats: str = "onepass",
-                 act: Callable = gelu_tanh, dtype=torch.float32, device=None):
+                 act: Callable = gelu_tanh, dtype=torch.float32, param_dtype=None,
+                 device=None, training: bool = False):
         super().__init__()
-        self.pool_type = pool_type
+        param_dtype = param_dtype or dtype
+        self.pool_type, self.dtype = pool_type, dtype
         self.final_ln_after_pool = final_ln_after_pool
-        self.token_embedding = skip_init(nn.Embedding, vocab_size, width, dtype=dtype,
-                                         device=device)
-        self.positional_embedding = _param(context_length, width, dtype=dtype, device=device)
+        self.token_embedding = nn.Embedding(vocab_size, width, dtype=param_dtype, device=device,
+                                            _weight=torch.empty(vocab_size, width,
+                                                                dtype=param_dtype, device=device))
+        self.positional_embedding = _param(context_length, width, dtype=param_dtype,
+                                           device=device)
         self.transformer = Transformer(
             width, layers, heads, mlp_ratio=mlp_ratio, ls_init_value=ls_init_value,
-            norm_eps=norm_eps, ln_stats=ln_stats, act=act, dtype=dtype, device=device)
+            norm_eps=norm_eps, ln_stats=ln_stats, act=act, dtype=dtype,
+            param_dtype=param_dtype, device=device,
+            seq_len=context_length if training else None)
         self.ln_final = LayerNorm(width, norm_eps, ln_stats, dtype, device)
-        self.text_projection = (_linear(width, output_dim, dtype, device) if proj_bias
-                                else _param(width, output_dim, dtype=dtype, device=device))
+        self.text_projection = (Dense(width, output_dim, dtype, param_dtype, device) if proj_bias
+                                else _param(width, output_dim, dtype=param_dtype, device=device))
         self.register_buffer(
             "attn_mask", None if no_causal_mask else causal_mask(context_length, device),
             persistent=False)
 
+    def embed(self, text: torch.Tensor) -> torch.Tensor:
+        """Token + positional embedding in the compute dtype. The f32 table
+        of a training model is gathered, then cast: the same values as
+        casting the whole table first, as flax does, at a fraction of the
+        bytes."""
+        return (self.token_embedding(text).to(self.dtype)
+                + self.positional_embedding.to(self.dtype))
+
     def forward(self, text: torch.Tensor) -> torch.Tensor:
-        x = self.token_embedding(text) + self.positional_embedding
-        x = self.transformer(x, self.attn_mask)
+        x = self.transformer(self.embed(text), self.attn_mask)
         return text_head(x, text, self.ln_final, self.text_projection, self.pool_type,
                          self.final_ln_after_pool)

@@ -1,11 +1,13 @@
 """Build and load the package's hand-written CUDA kernels.
 
 The sources in ``spatial_clip_tpu_torch/csrc/*.cu`` have a plain C interface.
-At first use they are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
-shared library under ``build/kernels/`` at the repository root, named by a
-hash of the sources, so an edited source is rebuilt and an unchanged one is
-reused. The library is loaded with :mod:`ctypes`. Nothing here runs at import
-time: CPU-only installs import the package freely and never reach ``nvcc``.
+At first use each is compiled with ``nvcc`` for Hopper (``sm_90a``), all at
+once in parallel, and the objects are linked into one shared library under
+``build/kernels/`` at the repository root, named by a hash of the sources
+(``*.cu`` and the ``*.cuh`` they include), so an edited source is rebuilt and
+an unchanged one is reused. The library is loaded with :mod:`ctypes`.
+Nothing here runs at import time: CPU-only installs import the package
+freely and never reach ``nvcc``.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -32,9 +34,13 @@ def _sources():
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
+def _headers():
+    return sorted(CSRC_DIR.glob("*.cuh"))
+
+
 def _source_hash(sources) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in [*sources, *_headers()]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -61,14 +67,30 @@ def build() -> Path:
     if lib.is_file():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+    tag = f"{lib.stem}.{os.getpid()}"
+    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    jobs = [(src, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for src, obj in zip(sources, objects)]  # one nvcc per source, all at once
+    reports, failed = [], []
+    for src, proc in jobs:
+        out, _ = proc.communicate(timeout=900)
+        reports.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"nvcc {src.name} failed ({proc.returncode}):\n{out[-4000:]}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr[-4000:]}")
+    link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objects)],
+                          capture_output=True, text=True, timeout=300)
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr[-4000:]}")
     # ptxas's register / shared-memory / spill report for each kernel
-    lib.with_suffix(".ptxas.txt").write_text(proc.stderr)
+    lib.with_suffix(".ptxas.txt").write_text("\n".join(reports))
     os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
     return lib
 
@@ -79,12 +101,22 @@ def library() -> ctypes.CDLL:
     with _lock:
         if _library is None:
             lib = ctypes.CDLL(str(build()))
+            ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.sc_attention_fwd.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # qkv, mask, out
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, L, H, hd
-                ctypes.c_int, ctypes.c_float, ctypes.c_void_p,  # dtype, scale, stream
+                ptr, ptr, ptr, ptr,  # qkv, mask, out, lse
+                i32, i32, i32, i32,  # B, L, H, hd
+                i32, ctypes.c_float, ptr,  # dtype, scale, stream
             ]
-            lib.sc_attention_fwd.restype = ctypes.c_int
+            lib.sc_attention_fwd.restype = i32
+            lib.sc_attention_bwd.argtypes = [
+                ptr, ptr, ptr, ptr,  # qkv, mask, lse, dout
+                ptr, ptr, ptr,  # dqkv, db partials, db
+                i32, i32, i32, i32,  # B, L, H, hd
+                i32, ctypes.c_float, ptr,  # dtype, scale, stream
+            ]
+            lib.sc_attention_bwd.restype = i32
+            lib.sc_attention_bwd_smem_bytes.argtypes = [i32, i32, i32]
+            lib.sc_attention_bwd_smem_bytes.restype = ctypes.c_size_t
             lib.sc_cuda_error_string.argtypes = [ctypes.c_int]
             lib.sc_cuda_error_string.restype = ctypes.c_char_p
             _library = lib

@@ -1,29 +1,66 @@
-"""Fused multi-head attention forward over a raw fused-qkv tensor.
+"""Fused multi-head attention over a raw fused-qkv tensor, forward and backward.
 
-Counterpart of ``spatial_clip_tpu/ops/fused_attention.py``: the forward of
-``fused_attention`` (its ``_attn_fwd_impl`` -> ``_fwd_kernel``). On a CUDA
-tensor :func:`fused_attention` launches the hand-written kernel in
-``csrc/fused_attention_fwd.cu``; on a CPU tensor it runs
-:func:`reference_attention`, the plain PyTorch version of the same math.
-It never falls back from one to the other: a CUDA tensor either goes
-through the kernel or raises.
+Counterpart of ``spatial_clip_tpu/ops/fused_attention.py``:
+
+- :func:`fused_attention`: the inference forward (``_attn_fwd_impl`` ->
+  ``_fwd_kernel``);
+- :func:`fused_attention_lse`: the training forward that also returns each
+  row's logsumexp (``_fwd_pallas_lse`` -> ``_fwd_kernel_lse``);
+- :func:`fused_attention_bwd`: the backward from that logsumexp, with the
+  qkv-bias gradient (``_bwd_pallas3_db_lse`` -> ``_bwd_kernel3_db_lse``);
+- :class:`QKVAttention`: the qkv projection and attention as one autograd
+  function (``qkv_attention`` and its custom VJP), whose backward is the
+  kernel above plus the dx and dW GEMMs.
+
+On a CUDA tensor each wrapper launches its hand-written kernel
+(``csrc/fused_attention_fwd.cu``, ``csrc/fused_attention_bwd.cu``); on a CPU
+tensor it runs its plain PyTorch version (``reference_attention``,
+``reference_attention_lse``, ``reference_attention_bwd``), which has the TPU
+kernel's math. It never falls back from one to the other: a CUDA tensor
+either goes through the kernel or raises.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from spatial_clip_tpu_torch.ops import cuda_build
 
 HEAD_DIMS = (32, 64, 128)
 MAX_SEQ = 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the backward's block geometry (csrc/fused_attention_bwd.cu BwdLayout)
+_BWD_WARPS, _BWD_ROWS = 8, 2
+MAX_SMEM_BYTES = 232448  # 227 KB: the most shared memory a block may use on sm_90
 
 
 def supported(heads: int, width: int) -> bool:
-    """Whether the kernel takes ``heads`` heads over ``width`` channels."""
+    """Whether the forward kernels take ``heads`` heads over ``width`` channels."""
     return width % heads == 0 and width // heads in HEAD_DIMS
+
+
+def bwd_smem_bytes(seq: int, head_dim: int, dtype: torch.dtype) -> int:
+    """Shared memory one block of the backward kernel needs: Q, K, V and do
+    of one (batch, head) in the input dtype with 16-byte padded rows, the p
+    and ds tiles (seq x seq rounded up to 8), and f32 per-warp rows and db
+    partials. Mirrors ``sc_attention_bwd_smem_bytes``."""
+    item = torch.empty((), dtype=dtype).element_size()
+    stride = head_dim + 16 // item
+    seq_pad = (seq + 7) // 8 * 8
+    warp_floats = _BWD_ROWS * (2 * head_dim + seq_pad)
+    return ((4 * seq * stride + 2 * seq * seq_pad) * item
+            + (_BWD_WARPS * warp_floats + _BWD_WARPS * 3 * head_dim) * 4)
+
+
+def bwd_supported(heads: int, width: int, seq: int, dtype: torch.dtype) -> bool:
+    """Whether the backward kernel takes this geometry: a forward head_dim,
+    1 <= seq <= 256, and one (batch, head) within a block's shared memory.
+    The longest L taken, for head_dim 32 / 64 / 128: bf16 192 / 166 / 122,
+    f32 130 / 106 / 72."""
+    return (supported(heads, width) and 1 <= seq <= MAX_SEQ and dtype in _DTYPE_CODES
+            and bwd_smem_bytes(seq, width // heads, dtype) <= MAX_SMEM_BYTES)
 
 
 def _check(qkv: torch.Tensor, mask: Optional[torch.Tensor], heads: int) -> None:
@@ -50,23 +87,103 @@ def _check(qkv: torch.Tensor, mask: Optional[torch.Tensor], heads: int) -> None:
             raise ValueError("mask must be contiguous and on qkv's device")
 
 
+def _check_kernel_device(*tensors: torch.Tensor) -> None:
+    """The kernels' own requirements, on a tensor that is not on the CPU."""
+    if tensors[0].device.type != "cuda":
+        raise ValueError(f"no kernel for device {tensors[0].device}")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("qkv must be 16-byte aligned (the kernel reads 16-byte vectors)")
+
+
+def _split_heads(qkv: torch.Tensor, heads: int):
+    """(B, L, 3D) -> q, k, v as f32 (B, H, L, hd)."""
+    B, L, three_d = qkv.shape
+    hd = three_d // 3 // heads
+    return qkv.float().view(B, L, 3, heads, hd).permute(2, 0, 3, 1, 4)
+
+
+def _scores(q, k, mask, hd):
+    s = torch.matmul(q, k.transpose(-1, -2)) * hd ** -0.5
+    return s if mask is None else s + mask
+
+
+def _softmax_pv(qkv, mask, heads):
+    """The forward's f32 math per head: (o, sigma, row max), o already
+    scaled by 1/sigma, (B, H, L, .)."""
+    q, k, v = _split_heads(qkv, heads)
+    s = _scores(q, k, mask, q.shape[-1])
+    row_max = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - row_max)
+    sigma = e.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return torch.matmul(e.to(qkv.dtype).float(), v) * (1.0 / sigma), sigma, row_max
+
+
+def _merge_heads(o: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    B, H, L, hd = o.shape
+    return o.to(dtype).transpose(1, 2).reshape(B, L, H * hd)
+
+
 def reference_attention(qkv: torch.Tensor, mask: Optional[torch.Tensor],
                         heads: int) -> torch.Tensor:
     """Plain PyTorch version with the TPU kernel's math (``_one_head_fwd``):
     f32 scores ``q k^T * hd^-1/2 + mask``, row max subtracted,
     ``e = exp(s - max)``, ``o = (e in v's dtype) v`` in f32, then
     ``o * 1/max(sum e, 1e-30)`` cast to the input dtype. Returns (B, L, D)."""
+    return _merge_heads(_softmax_pv(qkv, mask, heads)[0], qkv.dtype)
+
+
+def reference_attention_lse(qkv: torch.Tensor, mask: Optional[torch.Tensor],
+                            heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`reference_attention` and each row's logsumexp, as
+    ``_one_head_fwd(want_lse=True)`` computes it:
+    ``lse = log(max(sum e, 1e-30)) + max``. Returns the context (B, L, D)
+    and lse (H, B, L) f32."""
+    o, sigma, row_max = _softmax_pv(qkv, mask, heads)
+    lse = (torch.log(sigma) + row_max)[..., 0].transpose(0, 1).contiguous()
+    return _merge_heads(o, qkv.dtype), lse
+
+
+def reference_attention_bwd(qkv: torch.Tensor, mask: Optional[torch.Tensor],
+                            lse: torch.Tensor, g: torch.Tensor,
+                            heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version with the TPU kernel's math (``_bwd_compute``
+    with the saved lse): ``p = exp(s - lse)``, ``dv = (p in the input
+    dtype)^T do``, ``dp = do v^T``, ``ds = p (dp - sum_j dp p) hd^-1/2`` in
+    the input dtype, ``dq = ds k``, ``dk = ds^T q``, all dots in f32 and
+    dq/dk/dv cast to the input dtype. Returns dqkv in qkv's (B, L, 3D)
+    layout and db (3D,) f32, the sum over (B, L) of the cast dqkv."""
+    B, L, three_d = qkv.shape
+    hd = three_d // 3 // heads
+    dtype = qkv.dtype
+    q, k, v = _split_heads(qkv, heads)
+    do = g.to(dtype).float().view(B, L, heads, hd).transpose(1, 2)
+    s = _scores(q, k, mask, hd)
+    p = torch.exp(s - lse.transpose(0, 1).unsqueeze(-1))
+    dv = torch.matmul(p.to(dtype).float().transpose(-1, -2), do)
+    dp = torch.matmul(do, v.transpose(-1, -2))
+    ds = (p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * hd ** -0.5).to(dtype).float()
+    dq = torch.matmul(ds, k)
+    dk = torch.matmul(ds.transpose(-1, -2), q)
+    dqkv = torch.stack([dq, dk, dv]).to(dtype)  # (3, B, H, L, hd)
+    dqkv = dqkv.permute(1, 3, 0, 2, 4).reshape(B, L, three_d)
+    return dqkv, dqkv.float().sum(dim=(0, 1))
+
+
+def _fwd(qkv, mask, heads, lse: Optional[torch.Tensor]) -> torch.Tensor:
+    """Launch the forward kernel (writes ``lse`` unless it is None)."""
     B, L, three_d = qkv.shape
     D = three_d // 3
     hd = D // heads
-    q, k, v = qkv.float().view(B, L, 3, heads, hd).permute(2, 0, 3, 1, 4)
-    s = torch.matmul(q, k.transpose(-1, -2)) * hd ** -0.5
-    if mask is not None:
-        s = s + mask
-    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    sigma = e.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    o = torch.matmul(e.to(qkv.dtype).float(), v) * (1.0 / sigma)
-    return o.to(qkv.dtype).transpose(1, 2).reshape(B, L, D)
+    lib = cuda_build.library()
+    out = torch.empty((B, L, D), dtype=qkv.dtype, device=qkv.device)
+    with torch.cuda.device(qkv.device):
+        err = lib.sc_attention_fwd(
+            qkv.data_ptr(), None if mask is None else mask.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), B, L, heads, hd,
+            _DTYPE_CODES[qkv.dtype], hd ** -0.5,
+            torch.cuda.current_stream(qkv.device).cuda_stream)
+    cuda_build.check(lib, err, "fused_attention_fwd launch")
+    return out
 
 
 def fused_attention(qkv: torch.Tensor, mask: Optional[torch.Tensor],
@@ -82,23 +199,123 @@ def fused_attention(qkv: torch.Tensor, mask: Optional[torch.Tensor],
     _check(qkv, mask, heads)
     if qkv.device.type == "cpu":
         return reference_attention(qkv, mask, heads)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"no kernel for device {qkv.device}")
-    if qkv.data_ptr() % 16:
-        raise ValueError("qkv must be 16-byte aligned (the kernel reads 16-byte vectors)")
-    B, L, three_d = qkv.shape
-    D = three_d // 3
-    hd = D // heads
-    lib = cuda_build.library()
-    out = torch.empty((B, L, D), dtype=qkv.dtype, device=qkv.device)
-    with torch.cuda.device(qkv.device):
-        err = lib.sc_attention_fwd(
-            qkv.data_ptr(), None if mask is None else mask.data_ptr(),
-            out.data_ptr(), B, L, heads, hd, _DTYPE_CODES[qkv.dtype],
-            hd ** -0.5, torch.cuda.current_stream(qkv.device).cuda_stream)
-    cuda_build.check(lib, err, "fused_attention_fwd launch")
+    _check_kernel_device(qkv)
+    out = _fwd(qkv, mask, heads, None)
     fused_attention.launches += 1
     return out
 
 
+def fused_attention_lse(qkv: torch.Tensor, mask: Optional[torch.Tensor],
+                        heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`fused_attention` that also returns each row's logsumexp of the
+    scaled, masked scores: lse (heads, B, L) f32, the residual
+    :func:`fused_attention_bwd` rebuilds the probabilities from. Counts each
+    kernel launch in ``fused_attention_lse.launches``."""
+    _check(qkv, mask, heads)
+    if qkv.device.type == "cpu":
+        return reference_attention_lse(qkv, mask, heads)
+    _check_kernel_device(qkv)
+    B, L, three_d = qkv.shape
+    lse = torch.empty((heads, B, L), dtype=torch.float32, device=qkv.device)
+    out = _fwd(qkv, mask, heads, lse)
+    fused_attention_lse.launches += 1
+    return out, lse
+
+
+def fused_attention_bwd(qkv: torch.Tensor, mask: Optional[torch.Tensor],
+                        lse: torch.Tensor, g: torch.Tensor,
+                        heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Backward of :func:`fused_attention_lse`: given the cotangent ``g`` of
+    the context (B, L, D), returns dqkv (qkv's shape and dtype) and db (3D,)
+    f32, the gradient of a bias added to qkv. Takes the geometries
+    :func:`bwd_supported` names and raises ValueError on any other. Counts
+    each kernel launch in ``fused_attention_bwd.launches``."""
+    _check(qkv, mask, heads)
+    B, L, three_d = qkv.shape
+    D = three_d // 3
+    if not bwd_supported(heads, D, L, qkv.dtype):
+        raise ValueError(
+            f"backward geometry L={L} head_dim={D // heads} {qkv.dtype} needs "
+            f"{bwd_smem_bytes(L, D // heads, qkv.dtype)} B of shared memory per block, "
+            f"over {MAX_SMEM_BYTES}")
+    if lse.shape != (heads, B, L) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"lse must be contiguous float32 {(heads, B, L)}; got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    if g.shape != (B, L, D):
+        raise ValueError(f"g must be {(B, L, D)}; got {tuple(g.shape)}")
+    if lse.device != qkv.device or g.device != qkv.device:
+        raise ValueError("lse and g must be on qkv's device")
+    g = g.to(qkv.dtype).contiguous()
+    if qkv.device.type == "cpu":
+        return reference_attention_bwd(qkv, mask, lse, g, heads)
+    _check_kernel_device(qkv, g)
+    hd = D // heads
+    dqkv = torch.empty_like(qkv)
+    db_part = torch.empty((B, three_d), dtype=torch.float32, device=qkv.device)
+    db = torch.empty((three_d,), dtype=torch.float32, device=qkv.device)
+    lib = cuda_build.library()
+    with torch.cuda.device(qkv.device):
+        err = lib.sc_attention_bwd(
+            qkv.data_ptr(), None if mask is None else mask.data_ptr(), lse.data_ptr(),
+            g.data_ptr(), dqkv.data_ptr(), db_part.data_ptr(), db.data_ptr(),
+            B, L, heads, hd, _DTYPE_CODES[qkv.dtype], hd ** -0.5,
+            torch.cuda.current_stream(qkv.device).cuda_stream)
+    cuda_build.check(lib, err, "fused_attention_bwd launch")
+    fused_attention_bwd.launches += 1
+    return dqkv, db
+
+
 fused_attention.launches = 0
+fused_attention_lse.launches = 0
+fused_attention_bwd.launches = 0
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b summed in f32 and returned in f32 (JAX's dot_general with
+    ``preferred_element_type=float32``)."""
+    if a.dtype == torch.float32:
+        return a @ b
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class QKVAttention(torch.autograd.Function):
+    """``qkv = x W^T + b`` in x's dtype, then :func:`fused_attention_lse`;
+    the counterpart of ``qkv_attention`` and its custom VJP.
+
+    Backward: :func:`fused_attention_bwd` gives dqkv and db; then
+    ``dx = dqkv W`` (in x's dtype) and ``dW = dqkv^T x`` (summed in f32,
+    returned in W's dtype) are GEMMs, as the JAX package leaves them to XLA.
+    The mask gets no gradient.
+    """
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, mask, heads: int):
+        w = weight.to(x.dtype)
+        qkv = F.linear(x, w, bias.to(x.dtype))
+        out, lse = fused_attention_lse(qkv, mask, heads)
+        ctx.save_for_backward(x, w, qkv, mask, lse)
+        ctx.heads = heads
+        ctx.param_dtypes = (weight.dtype, bias.dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, qkv, mask, lse = ctx.saved_tensors
+        dqkv, db = fused_attention_bwd(qkv, mask, lse, g, ctx.heads)
+        flat = dqkv.view(-1, dqkv.shape[-1])
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.matmul(dqkv, w)
+        if ctx.needs_input_grad[1]:
+            dw = _mm_f32(flat.t(), x.reshape(flat.shape[0], -1)).to(ctx.param_dtypes[0])
+        return dx, dw, db.to(ctx.param_dtypes[1]), None, None
+
+
+def qkv_attention(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                  mask: Optional[torch.Tensor], heads: int) -> torch.Tensor:
+    """Fused qkv projection + multi-head attention with the hand-written
+    backward. x: (B, L, Din) in the compute dtype; weight (3D, Din) and bias
+    (3D,) in any dtype (cast to x's at use). Returns the context (B, L, D)."""
+    return QKVAttention.apply(x.contiguous(), weight, bias, mask, heads)

@@ -25,6 +25,7 @@ from spatial_clip_tpu_torch.models.transforms import normalize_batch
 
 FAMILIES = (  # first match wins; matched against the lower-cased kernel name
     ("attention (fused_attention_fwd)", ("attn_fwd_kernel",)),
+    ("attention backward (fused_attention_bwd)", ("attn_bwd_kernel", "db_reduce_kernel")),
     ("gemm", ("gemm", "sm90_xmma", "cutlass", "cublas", "nvjet", "matmul")),
     ("reduce (LayerNorm stats, pooling)", ("reduce",)),
     ("elementwise (LayerNorm affine, GELU, residual, casts)", ("elementwise", "vectorized")),
@@ -56,7 +57,8 @@ def _busy_ms(intervals) -> float:
 
 
 def profile_encode(fn, reps: int = 5) -> dict:
-    """Wall time unprofiled (median of 20), then device time under the profiler."""
+    """Wall time of ``fn`` unprofiled (median of 20), then device time under
+    the profiler (also used for the train step, by ``bench --profile``)."""
     for _ in range(3):
         fn()
     walls = []

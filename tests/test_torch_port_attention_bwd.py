@@ -1,0 +1,230 @@
+"""The port's training attention (forward with logsumexp, backward with the
+bias gradient, and the qkv-projection autograd function) against the JAX
+package's Pallas kernels.
+
+On the CPU the port's wrappers run their plain PyTorch versions; the JAX
+kernels run in Pallas interpret mode, as tests/test_fused_attention.py runs
+them. The same numpy inputs go to both. Batches are 2, 4 or 8: at B=3 the
+JAX package's ``_lse_ok`` sends the backward down its recompute path.
+
+f32 tolerances: the context and lse at atol 1e-5 (both sides compute f32
+scores, the row max, exp and the sums, in other orders); dqkv at atol 2e-5
+and db at atol 2e-4 (dq and dk sum L products of O(1) terms, db sums B*L
+of those); the projection's dx, dW, db at rtol 1e-4 / atol 1e-4.
+"""
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from spatial_clip_tpu.ops import fused_attention as jfa
+from spatial_clip_tpu_torch.ops.fused_attention import (
+    QKVAttention,
+    bwd_smem_bytes,
+    bwd_supported,
+    fused_attention_bwd,
+    fused_attention_lse,
+    qkv_attention,
+    reference_attention,
+    reference_attention_bwd,
+    reference_attention_lse,
+)
+
+# the geometries of tests/test_fused_attention.py (hd 64, 128, 32), masked
+# and unmasked, then the two training shapes at a small batch: the image
+# tower (L=50, 12 heads) and the causal text tower (L=77, 8 heads)
+GEOMETRIES = [
+    *[(B, L, D, H, causal) for (B, L, D, H) in [(4, 11, 128, 2), (2, 17, 384, 3), (2, 9, 256, 8)]
+      for causal in (False, True)],
+    (2, 50, 768, 12, False),
+    (8, 77, 512, 8, True),
+]
+
+
+def _mask(L, causal):
+    if not causal:
+        return None
+    return np.triu(np.full((L, L), np.finfo(np.float32).min, np.float32), k=1)
+
+
+def _inputs(seed, B, L, D, causal):
+    rng = np.random.default_rng(seed)
+    qkv = rng.normal(size=(B, L, 3 * D)).astype(np.float32)
+    g = rng.normal(size=(B, L, D)).astype(np.float32)
+    return qkv, _mask(L, causal), g
+
+
+def _jmask(mask, L):
+    return jnp.zeros((L, L), jnp.float32) if mask is None else jnp.asarray(mask)
+
+
+def _t(x):
+    return None if x is None else torch.from_numpy(np.array(x))
+
+
+def _jax_bwd(qkv, mask, lse, g, H):
+    """JAX's (3, B, L, D) cotangent and (n_groups, 3, lanes) bias grad in the
+    port's layouts: dqkv (B, L, 3D) and db (3D,)."""
+    B, L, three_d = qkv.shape
+    d3, db_raw = jfa._bwd_pallas3_db_lse(
+        jnp.asarray(qkv), _jmask(mask, L), jnp.asarray(lse), jnp.asarray(g), H, True)
+    dqkv = np.asarray(jnp.transpose(d3, (1, 2, 0, 3)).reshape(B, L, three_d))
+    return dqkv, np.asarray(jnp.transpose(db_raw, (1, 0, 2)).reshape(-1))
+
+
+@pytest.mark.parametrize("B,L,D,H,causal", GEOMETRIES)
+def test_forward_lse_matches_jax_kernel_f32(B, L, D, H, causal):
+    qkv, mask, _ = _inputs(B * L + D, B, L, D, causal)
+    want_out, want_lse = jfa._fwd_pallas_lse(jnp.asarray(qkv), _jmask(mask, L), H, True)
+    out, lse = fused_attention_lse(_t(qkv), _t(mask), H)
+    assert out.shape == (B, L, D) and lse.shape == (H, B, L) and lse.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_out), atol=1e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), atol=1e-5)
+    assert torch.equal(out, reference_attention(_t(qkv), _t(mask), H))
+
+
+@pytest.mark.parametrize("B,L,D,H,causal", GEOMETRIES)
+def test_backward_matches_jax_kernel_f32(B, L, D, H, causal):
+    qkv, mask, g = _inputs(B * L + D + 1, B, L, D, causal)
+    _, lse = jfa._fwd_pallas_lse(jnp.asarray(qkv), _jmask(mask, L), H, True)
+    lse = np.asarray(lse)
+    want_dqkv, want_db = _jax_bwd(qkv, mask, lse, g, H)
+    dqkv, db = fused_attention_bwd(_t(qkv), _t(mask), _t(lse), _t(g), H)
+    assert dqkv.shape == qkv.shape and db.shape == (3 * D,) and db.dtype == torch.float32
+    np.testing.assert_allclose(dqkv.numpy(), want_dqkv, atol=2e-5)
+    np.testing.assert_allclose(db.numpy(), want_db, atol=2e-4)
+    np.testing.assert_allclose(db.numpy(), dqkv.sum(dim=(0, 1)).numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("B,L,D,H,causal", [(2, 50, 768, 12, False), (4, 77, 512, 8, True)])
+def test_training_shapes_match_jax_kernel_bf16(B, L, D, H, causal):
+    """bf16 in and out, f32 statistics. The context and dqkv are one bf16
+    step (2^-8 relative) apart at most where sums run in another order; lse
+    is f32 from bf16-exact inputs; db sums B*L rounded values."""
+    qkv, mask, g = _inputs(5, B, L, D, causal)
+    qkv_b, g_b = jnp.asarray(qkv, jnp.bfloat16), jnp.asarray(g, jnp.bfloat16)
+    want_out, want_lse = jfa._fwd_pallas_lse(qkv_b, _jmask(mask, L), H, True)
+    d3, db_raw = jfa._bwd_pallas3_db_lse(qkv_b, _jmask(mask, L), want_lse, g_b, H, True)
+    want_dqkv = np.asarray(jnp.transpose(d3, (1, 2, 0, 3)).reshape(B, L, 3 * D), np.float32)
+    want_db = np.asarray(jnp.transpose(db_raw, (1, 0, 2)).reshape(-1))
+
+    tq = torch.from_numpy(np.array(qkv_b.astype(jnp.float32))).bfloat16()
+    tg = torch.from_numpy(np.array(g_b.astype(jnp.float32))).bfloat16()
+    out, lse = fused_attention_lse(tq, _t(mask), H)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(want_out, np.float32),
+                               atol=1e-2, rtol=1e-2)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), atol=1e-5, rtol=1e-6)
+    dqkv, db = fused_attention_bwd(tq, _t(mask), _t(want_lse), tg, H)
+    assert dqkv.dtype == torch.bfloat16
+    np.testing.assert_allclose(dqkv.float().numpy(), want_dqkv, atol=2e-2, rtol=2e-2)
+    np.testing.assert_allclose(db.numpy(), want_db, atol=5e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("B,L,D,H,causal", [(4, 11, 128, 2, True), (2, 50, 768, 12, False)])
+def test_qkv_attention_grads_match_jax(B, L, D, H, causal):
+    """The projection-fused autograd function against jax.grad of
+    ``qkv_attention`` with the interpret-mode kernels: the context, dx, dW
+    and the bias gradient that the backward kernel produces."""
+    rng = np.random.default_rng(B + L)
+    din = D // 2 if D > 128 else D
+    x = rng.normal(size=(B, L, din)).astype(np.float32)
+    w = (rng.normal(size=(din, 3 * D)) * din ** -0.5).astype(np.float32)  # flax (in, out)
+    b = (rng.normal(size=(3 * D,)) * 0.1).astype(np.float32)
+    g = rng.normal(size=(B, L, D)).astype(np.float32)
+    mask = _mask(L, causal)
+    jm = None if mask is None else jnp.asarray(mask)
+
+    def f(x_, w_, b_):
+        return jnp.sum(jfa.qkv_attention(x_, w_, b_, jm, H, True) * g)
+
+    want_out = np.asarray(jfa.qkv_attention(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+                                            jm, H, True))
+    want = [np.asarray(t) for t in jax.grad(f, argnums=(0, 1, 2))(x, w, b)]
+
+    tx = torch.from_numpy(x).requires_grad_()
+    tw = torch.from_numpy(np.ascontiguousarray(w.T)).requires_grad_()  # torch (out, in)
+    tb = torch.from_numpy(b).requires_grad_()
+    out = qkv_attention(tx, tw, tb, _t(mask), H)
+    (out * torch.from_numpy(g)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), want_out, atol=1e-5)
+    np.testing.assert_allclose(tx.grad.numpy(), want[0], atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(tw.grad.numpy().T, want[1], atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(tb.grad.numpy(), want[2], atol=1e-4, rtol=1e-4)
+
+
+def test_qkv_attention_matches_autograd_of_plain_math():
+    """Against torch autograd of the plain math (F.linear + softmax
+    attention) in f64: the hand-written backward (in f32) is the true
+    gradient, at atol/rtol 1e-4."""
+    rng = np.random.default_rng(3)
+    B, L, D, H = 2, 9, 128, 2
+    x = torch.from_numpy(rng.normal(size=(B, L, D))).requires_grad_()
+    w = torch.from_numpy(rng.normal(size=(3 * D, D)) * D ** -0.5).requires_grad_()
+    b = torch.from_numpy(rng.normal(size=(3 * D,))).requires_grad_()
+    g = torch.from_numpy(rng.normal(size=(B, L, D)))
+    mask = torch.from_numpy(_mask(L, True).astype(np.float64))
+
+    q, k, v = torch.nn.functional.linear(x, w, b).view(B, L, 3, H, D // H).permute(2, 0, 3, 1, 4)
+    p = torch.softmax(q @ k.transpose(-1, -2) * (D // H) ** -0.5 + mask, dim=-1)
+    want = torch.autograd.grad(((p @ v).transpose(1, 2).reshape(B, L, D) * g).sum(), (x, w, b))
+
+    got = torch.autograd.grad(
+        (qkv_attention(x.float(), w.float(), b.float(), mask.float(), H) * g.float()).sum(),
+        (x, w, b))
+    for a, e in zip(got, want):
+        torch.testing.assert_close(a.double(), e, atol=1e-4, rtol=1e-4)
+
+
+def test_cpu_path_is_the_plain_version_and_counts_nothing():
+    qkv, mask, g = _inputs(0, 2, 9, 128, True)
+    before = (fused_attention_lse.launches, fused_attention_bwd.launches)
+    out, lse = fused_attention_lse(_t(qkv), _t(mask), 2)
+    dqkv, db = fused_attention_bwd(_t(qkv), _t(mask), lse, _t(g), 2)
+    assert (fused_attention_lse.launches, fused_attention_bwd.launches) == before
+    want_out, want_lse = reference_attention_lse(_t(qkv), _t(mask), 2)
+    want_dqkv, want_db = reference_attention_bwd(_t(qkv), _t(mask), want_lse, _t(g), 2)
+    for a, e in ((out, want_out), (lse, want_lse), (dqkv, want_dqkv), (db, want_db)):
+        assert torch.equal(a, e)
+
+
+def test_backward_geometry_set():
+    """The training geometries are in the backward's set in both dtypes;
+    what a block's shared memory cannot hold is not."""
+    for width, heads in ((768, 12), (512, 8)):
+        for L in (50, 77):
+            for dtype in (torch.bfloat16, torch.float32):
+                assert bwd_supported(heads, width, L, dtype)
+    assert not bwd_supported(2, 256, 73, torch.float32)  # hd 128, f32
+    assert bwd_supported(2, 256, 72, torch.float32)
+    assert not bwd_supported(2, 96, 16, torch.float32)  # hd 48
+    assert bwd_smem_bytes(77, 64, torch.bfloat16) == 88448
+
+
+@pytest.mark.parametrize("make,why", [
+    (lambda: (torch.zeros(2, 80, 768), None, torch.zeros(2, 2, 80), torch.zeros(2, 80, 256)),
+     "shared memory"),  # hd 128 f32 at L=80
+    (lambda: (torch.zeros(2, 9, 384), None, torch.zeros(2, 9, 2), torch.zeros(2, 9, 128)),
+     "lse"),
+    (lambda: (torch.zeros(2, 9, 384), None, torch.zeros(2, 2, 9), torch.zeros(2, 9, 64)),
+     "g must be"),
+    (lambda: (torch.zeros(2, 9, 384), None, torch.zeros(2, 2, 9, dtype=torch.float64),
+              torch.zeros(2, 9, 128)), "lse"),
+])
+def test_backward_rejects_what_the_kernel_does_not_take(make, why):
+    qkv, mask, lse, g = make()
+    before = fused_attention_bwd.launches
+    with pytest.raises(ValueError, match=why):
+        fused_attention_bwd(qkv, mask, lse, g, 2)
+    assert fused_attention_bwd.launches == before
+
+
+def test_mask_gets_no_gradient():
+    x = torch.zeros(2, 9, 128, requires_grad=True)
+    mask = torch.from_numpy(_mask(9, True)).requires_grad_()
+    out = QKVAttention.apply(x, torch.zeros(384, 128), torch.zeros(384), mask, 2)
+    out.sum().backward()
+    assert mask.grad is None and x.grad is not None

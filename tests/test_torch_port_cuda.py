@@ -1,5 +1,5 @@
-"""The port on the card: the CUDA kernel against its plain PyTorch version,
-and a tower on the card against the same tower on the CPU.
+"""The port on the card: the CUDA kernels against their plain PyTorch
+versions, a tower and a train step on the card against the same on the CPU.
 
 Needs an NVIDIA GPU with nvcc; skips without one. The tests directory's
 conftest imports jax, which the GPU machine may lack, so run this file as
@@ -51,6 +51,73 @@ def test_kernel_matches_plain_version(device, B, L, D, H, causal, dtype, atol):
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
 
 
+BWD_CASES = [  # B, L, D, H, causal, dtype: the training shapes, then hd 32 / 64 / 128
+    (256, 50, 768, 12, False, torch.bfloat16),
+    (256, 77, 512, 8, True, torch.bfloat16),
+    (8, 50, 768, 12, False, torch.float32),
+    (8, 77, 512, 8, True, torch.float32),
+    (4, 11, 128, 2, True, torch.float32),
+    (2, 17, 384, 3, False, torch.float32),
+    (2, 9, 256, 8, True, torch.float32),
+    (2, 72, 256, 2, True, torch.float32),  # the longest f32 hd 128 sequence taken
+    (2, 166, 256, 4, True, torch.bfloat16),  # the longest bf16 hd 64 sequence taken
+    (2, 122, 512, 4, False, torch.bfloat16),  # the longest bf16 hd 128 sequence taken
+    (3, 1, 256, 4, False, torch.float32),  # one token, odd batch
+]
+
+
+def _tol(dtype, ref):
+    """f32: summation order only. bf16: the kernel and its plain version
+    round at the same points, so they differ where an f32 sum in another
+    order lands on the other side of a bf16 rounding: one bf16 step (2^-8)
+    of the largest magnitude in the output."""
+    if dtype == torch.float32:
+        return 2e-5 * max(1.0, ref.abs().max().item())
+    return 2 ** -8 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("B,L,D,H,causal,dtype", BWD_CASES)
+def test_lse_and_bwd_kernels_match_plain_version(device, B, L, D, H, causal, dtype):
+    from spatial_clip_tpu_torch.ops.fused_attention import (
+        fused_attention_bwd,
+        fused_attention_lse,
+        reference_attention_bwd,
+        reference_attention_lse,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(B * L + D)
+    qkv = torch.randn((B, L, 3 * D), generator=gen, device=device).to(dtype)
+    g = torch.randn((B, L, D), generator=gen, device=device).to(dtype)
+    mask = causal_mask(L, device=device) if causal else None
+    before = (fused_attention_lse.launches, fused_attention_bwd.launches)
+    out, lse = fused_attention_lse(qkv, mask, H)
+    dqkv, db = fused_attention_bwd(qkv, mask, lse, g, H)
+    torch.cuda.synchronize()
+    assert (fused_attention_lse.launches, fused_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    want_out, want_lse = reference_attention_lse(qkv, mask, H)
+    want_dqkv, want_db = reference_attention_bwd(qkv, mask, want_lse, g, H)
+    torch.testing.assert_close(out.float(), want_out.float(), rtol=0,
+                               atol=_tol(dtype, want_out.float()))
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-5)
+    torch.testing.assert_close(dqkv.float(), want_dqkv.float(), rtol=0,
+                               atol=_tol(dtype, want_dqkv.float()))
+    torch.testing.assert_close(db, want_db, rtol=0, atol=_tol(dtype, want_db) + 1e-4)
+    again, db_again = fused_attention_bwd(qkv, mask, lse, g, H)
+    assert torch.equal(db, db_again) and torch.equal(dqkv, again)  # deterministic
+
+
+def test_bwd_smem_formula_matches_kernel(device):
+    from spatial_clip_tpu_torch.ops import cuda_build
+    from spatial_clip_tpu_torch.ops.fused_attention import bwd_smem_bytes
+
+    lib = cuda_build.library()
+    for L in (1, 9, 50, 77, 166, 256):
+        for hd in (32, 64, 128):
+            for code, dtype in ((0, torch.float32), (1, torch.bfloat16)):
+                assert lib.sc_attention_bwd_smem_bytes(L, hd, code) == bwd_smem_bytes(L, hd, dtype)
+
+
 def test_cuda_tensor_never_falls_back(device):
     with pytest.raises(ValueError, match="head geometry"):
         fused_attention(torch.zeros(2, 9, 96, device=device), None, 2)
@@ -59,6 +126,12 @@ def test_cuda_tensor_never_falls_back(device):
     shifted = torch.zeros(2 * 9 * 384 + 1, dtype=torch.bfloat16, device=device)[1:]
     with pytest.raises(ValueError, match="16-byte aligned"):
         fused_attention(shifted.view(2, 9, 384), None, 2)
+    from spatial_clip_tpu_torch.ops.fused_attention import fused_attention_bwd
+
+    with pytest.raises(ValueError, match="shared memory"):  # hd 128 f32 at L=80
+        fused_attention_bwd(torch.zeros(2, 80, 768, device=device), None,
+                            torch.zeros(2, 2, 80, device=device),
+                            torch.zeros(2, 80, 256, device=device), 2)
 
 
 def test_tower_on_card_matches_cpu(device):
@@ -77,3 +150,58 @@ def test_tower_on_card_matches_cpu(device):
     assert fused_attention.launches == before + 2 * 2  # 2 layers per tower
     torch.testing.assert_close(img, want_img, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(txt, want_txt, atol=1e-4, rtol=1e-4)
+
+
+def test_train_step_on_card_matches_cpu(device):
+    """Widened ViT-Test in f32: two Trainer steps (lr is 0 at the first) on
+    the card, through the training kernels, against the CPU's plain path.
+    Loss and gradient norm at rtol 1e-4, parameters at atol 1e-5 (updates
+    are ~1e-3), Adam moments (bf16) at rtol 2^-7 + 2e-3 of their largest
+    entry."""
+    from spatial_clip_tpu_torch.losses import make_loss
+    from spatial_clip_tpu_torch.models.transforms import AugmentDraws
+    from spatial_clip_tpu_torch.ops.fused_attention import fused_attention_bwd, fused_attention_lse
+    from spatial_clip_tpu_torch.train.loop import Trainer, TrainerConfig
+
+    wide = dict(vision_cfg=dict(width=128, heads=2), text_cfg=dict(width=128, heads=2))
+    cfg = TrainerConfig(learning_rate=1e-3, warmup_steps=1, total_steps=10, augment=True,
+                        color_jitter=0.2, seed=0)
+    rng = np.random.default_rng(5)
+    B = 8
+    batch = {
+        "images": torch.from_numpy(rng.integers(0, 256, (B, 32, 32, 3), np.uint8)),
+        "texts": torch.from_numpy(rng.integers(0, 512, (B, 16))),
+        "image_tile_ids": torch.arange(B), "text_tile_ids": torch.arange(B),
+        "neighbor_tile_ids": torch.from_numpy(rng.integers(-1, B, (B, 4))),
+        "neighbor_alphas": torch.from_numpy(rng.uniform(0, 1, (B, 4)).astype(np.float32)),
+    }
+    draws = AugmentDraws(torch.from_numpy(rng.random(B) < 0.5),
+                         torch.from_numpy(rng.uniform(0.8, 1.2, B).astype(np.float32)),
+                         torch.from_numpy(rng.uniform(0.8, 1.2, B).astype(np.float32)))
+    runs = {}
+    for dev in ("cpu", device):
+        trainer = Trainer(create_model("ViT-Test", precision="fp32", device=dev, training=True,
+                                       **wide), make_loss("spatial", cap_logit_scale=50.0), cfg)
+        state = trainer.init_state()
+        before = (fused_attention_lse.launches, fused_attention_bwd.launches)
+        metrics = []
+        for _ in range(2):
+            state, m = trainer.train_step(
+                state, {k: v.to(dev) for k, v in batch.items()},
+                AugmentDraws(*(d.to(dev) for d in draws)))
+            metrics.append({k: float(v) for k, v in m.items()})
+        launches = (fused_attention_lse.launches - before[0],
+                    fused_attention_bwd.launches - before[1])
+        runs[str(dev)] = (state, metrics, launches)
+    (cpu_state, cpu_m, cpu_n), (gpu_state, gpu_m, gpu_n) = runs["cpu"], runs[str(device)]
+    assert cpu_n == (0, 0) and gpu_n == (2 * 2 * 2, 2 * 2 * 2)  # 2 towers x 2 layers x 2 steps
+    for want, got in zip(cpu_m, gpu_m):
+        for k in ("loss", "grad_norm", "logit_scale"):
+            assert got[k] == pytest.approx(want[k], rel=1e-4), k
+    for k, want in cpu_state.params.items():
+        torch.testing.assert_close(gpu_state.params[k].detach().cpu(), want.detach(),
+                                   atol=1e-5, rtol=0)
+        for name in ("mu", "nu"):
+            w = getattr(cpu_state, name)[k].float()
+            torch.testing.assert_close(getattr(gpu_state, name)[k].float().cpu(), w,
+                                       rtol=2 ** -7, atol=2e-3 * w.abs().max().item())
