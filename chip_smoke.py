@@ -9,8 +9,10 @@ the exit code is not 0. No JAX is imported.
 
 1. device  the card's name and power limit, as nvidia-smi reports them
 2. build   the CUDA kernels, compiled from spatial_clip_tpu_torch/csrc
-3. kernel  each kernel against its plain PyTorch version at the serving
-           shapes: max abs error against the stated tolerance, median times
+3. kernel  the inference attention kernel against its plain PyTorch version
+           at the serving shapes (batch 64) and at phase 11's microbatch
+           (1024, pass 1 and evaluate): max abs error against the stated
+           tolerance, median times
 4. serve   the ViT-B-32 embedding server (bf16, batch 64) on 127.0.0.1
            answers text and raw-image requests; every attention of the run
            went through the kernel (12 launches per encoder batch), and the
@@ -19,7 +21,8 @@ the exit code is not 0. No JAX is imported.
            median latency of a 64-tile request through the server
 6. kernel-train  the training attention kernels (forward with logsumexp,
            backward with the bias gradient) against their plain versions at
-           the two batch-256 training shapes and one f32 shape
+           the two towers' shapes at batch 256 (phase 8) and at microbatch
+           1024 (phase 11's pass 2), and one f32 shape
 7. train-check  one ViT-B-32 train step's loss and gradients at batch 32 on
            the card (bf16, kernels) against the CPU (f32, plain path), on the
            same weights, batch and augmentation draws
@@ -28,9 +31,25 @@ the exit code is not 0. No JAX is imported.
            and 10 timed steps, finite losses and gradient norms, 24 forward
            and 24 backward attention launches per step; median step ms,
            pairs/s and peak device memory
+9. kernel-loss  the fused spatial cross-entropy kernels (forward, dq, dK)
+           against their plain versions in f32 at B = N = 1024, 2048 and a
+           ragged 1000 x 1999 (D 512, k 6, scale 50, -1 neighbors, one
+           duplicated column id); errors, times and bound shares
+10. loss-check  one ViT-B-32 step at batch 32 with grad_accum=2 (cached) and
+           the fused loss, card (bf16, kernels) vs CPU (f32, plain path), on
+           the same weights, batch and draws; and the fused loss against the
+           dense one on the same f32 features on the card
+11. train-large  Trainer.fit on ViT-B-32 bf16 at global batch 2048 = 2 x 1024
+           (cached accumulation, fused loss capped at 50, k 6) from numpy
+           batches: 4 steps, exact kernel launch counts per step, finite
+           losses and gradient norms, then Trainer.evaluate on 2 batches of
+           1024; median step ms, pairs/s, peak memory, eval R@1
 
-Then one JSON line with the kernels, the nvidia-smi line, and last
-``{"ok": true, "device": {...}}``.
+Phases 3 and 6 also time PyTorch's scaled_dot_product_attention
+(efficient-attention backend) at the kernels' shapes as a yardstick; the
+port never calls it. Then one JSON line with the kernels (each with its
+launches on the main path, error, time, plain time, bound and library
+time), the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -53,6 +72,67 @@ TRAIN_BATCH, CHECK_BATCH = 256, 32
 WARMUP_STEPS, TIMED_STEPS = 3, 10
 MAX_LOSS_REL_ERR = 2e-2  # one bf16 train step's loss vs the f32 CPU step
 MIN_GRAD_COSINE = 0.99  # its flattened gradient vs the f32 CPU step's
+LARGE_MICRO, LARGE_ACCUM, LARGE_STEPS = 1024, 2, 4  # spatial_v2_multi_chip's 2048 on one card
+NEIGHBORS = 6
+# the least time the card could take: H100 SXM, NVIDIA's data sheet
+HBM_BYTES_PER_S, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
+
+
+def bound(n_bytes: float, flops: float, peak_flops: float):
+    """(bound ms, what bounds it): the larger of bytes over the memory rate
+    and operations over the peak rate of their type."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / peak_flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attention_bound(qkv, heads: int, kind: str):
+    """Bound of an attention kernel at qkv's shape: each input read once,
+    each output written once; the dots at the bf16 tensor-core peak (f32:
+    the CUDA cores' peak, TF32 being other arithmetic).
+    kind: 'fwd' (qkv -> out), 'fwd_lse' (+ lse), 'bwd' (qkv, do, lse ->
+    dqkv, db)."""
+    import torch
+
+    B, L, three_d = qkv.shape
+    D, item = three_d // 3, qkv.element_size()
+    hd = D // heads
+    dots = 2 * B * heads * L * L * hd  # one L x L x hd product
+    lse = 4 * heads * B * L
+    peak = BF16_FLOPS if qkv.dtype == torch.bfloat16 else F32_FLOPS
+    if kind == "fwd":
+        return bound(B * L * (three_d + D) * item, 2 * dots, peak)
+    if kind == "fwd_lse":
+        return bound(B * L * (three_d + D) * item + lse, 2 * dots, peak)
+    return bound(B * L * (2 * three_d + D) * item + lse + 4 * three_d, 5 * dots, peak)
+
+
+def sdpa_ms(qkv, mask, heads: int) -> dict:
+    """PyTorch's scaled_dot_product_attention with the efficient-attention
+    backend (additive mask, logsumexp kept when grad is on) on q, k, v cut
+    from qkv beforehand: forward, forward with lse (inputs that require
+    grad), and backward = forward+backward minus forward with lse (no bias
+    gradient). A yardstick only."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    B, L, three_d = qkv.shape
+    q, k, v = (t.contiguous() for t in
+               qkv.view(B, L, 3, heads, three_d // 3 // heads).permute(2, 0, 3, 1, 4))
+    bias = None if mask is None else mask.to(qkv.dtype)
+    g = torch.randn_like(q)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=bias)
+        return torch.autograd.grad(out, (qg, kg, vg), g)
+
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        with torch.no_grad():
+            fwd = median_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias))
+        fwd_lse = median_ms(lambda: F.scaled_dot_product_attention(qg, kg, vg, attn_mask=bias))
+        both = median_ms(fwd_bwd)
+    return {"fwd": fwd, "fwd_lse": fwd_lse, "bwd": both - fwd_lse}
 
 
 def train_tol(dtype, ref):
@@ -192,6 +272,8 @@ def main() -> int:
     cases = [  # name, B, L, D, heads, causal, dtype
         ("image", 64, 50, 768, 12, False, torch.bfloat16),
         ("text", 64, 77, 512, 8, True, torch.bfloat16),
+        ("image_large", LARGE_MICRO, 50, 768, 12, False, torch.bfloat16),
+        ("text_large", LARGE_MICRO, 77, 512, 8, True, torch.bfloat16),
         ("f32", 3, 17, 256, 4, False, torch.float32),
     ]
     kernel_rows = {}
@@ -208,11 +290,14 @@ def main() -> int:
         ms = median_ms(lambda: fused_attention(qkv, mask, H))
         plain_ms = median_ms(lambda: reference_attention(qkv, mask, H))
         gbs = (qkv.numel() + out.numel()) * qkv.element_size() / ms / 1e6
-        kernel_rows[name] = dict(err=err, ms=ms, plain_ms=plain_ms)
+        bound_ms, bound_by = attention_bound(qkv, H, "fwd")
+        library_ms = sdpa_ms(qkv, mask, H)["fwd"]
+        kernel_rows[name] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                 bound_by=bound_by, library_ms=library_ms)
         print(f"[kernel] fused_attention_fwd {name} qkv {tuple(qkv.shape)} {str(dtype)[6:]} "
               f"mask={'causal' if causal else 'none'}: max abs err {err:.3g} (tol {tol:g}); "
-              f"kernel {ms:.4f} ms ({gbs:.0f} GB/s of qkv+out) vs plain {plain_ms:.4f} ms",
-              flush=True)
+              f"kernel {ms:.4f} ms ({gbs:.0f} GB/s of qkv+out) vs plain {plain_ms:.4f} ms, "
+              f"SDPA {library_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by})", flush=True)
 
     # 4. serve: the port's main path, through its HTTP entry points
     from http.server import ThreadingHTTPServer
@@ -296,10 +381,15 @@ def main() -> int:
     train_rows = kernel_train_phase()
     trainer = train_check_phase()
     train = train_phase(trainer)
+    model = trainer.model  # ViT-B-32 bf16, f32 parameters from seed 0
+    del trainer
+    loss_rows = kernel_loss_phase()
+    loss_check_phase(model)
+    large = train_large_phase(model)
 
     image = kernel_rows["image"]
     at_train = "qkv (256, 50, 2304) bf16, no mask (image tower, batch 256)"
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "fused_attention_fwd",
         "route": "cuda",
         "source": "spatial_clip_tpu_torch/csrc/fused_attention_fwd.cu",
@@ -308,28 +398,47 @@ def main() -> int:
         "max_abs_err": max(r["err"] for r in kernel_rows.values()),
         "ms": image["ms"],
         "plain_ms": image["plain_ms"],
+        "bound_ms": image["bound_ms"],
+        "bound_by": image["bound_by"],
+        "library_ms": image["library_ms"],
         "at": "qkv (64, 50, 2304) bf16, no mask (image tower, batch 64)",
-    }, {
-        "name": "fused_attention_fwd_lse",
-        "route": "cuda",
-        "source": "spatial_clip_tpu_torch/csrc/fused_attention_fwd.cu",
-        "replaces": "spatial_clip_tpu/ops/fused_attention.py:350",
-        "launches": train["lse_launches"],
-        "max_abs_err": max(r["fwd_err"] for r in train_rows.values()),
-        "ms": train_rows["image"]["fwd_ms"],
-        "plain_ms": train_rows["image"]["fwd_plain_ms"],
-        "at": at_train,
-    }, {
-        "name": "fused_attention_bwd",
-        "route": "cuda",
-        "source": "spatial_clip_tpu_torch/csrc/fused_attention_bwd.cu",
-        "replaces": "spatial_clip_tpu/ops/fused_attention.py:436",
-        "launches": train["bwd_launches"],
-        "max_abs_err": max(r["bwd_err"] for r in train_rows.values()),
-        "ms": train_rows["image"]["bwd_ms"],
-        "plain_ms": train_rows["image"]["bwd_plain_ms"],
-        "at": at_train,
-    }]}))
+    }]
+    for name, part, line, launch_key in (
+            ("fused_attention_fwd_lse", "fwd", 350, "lse_launches"),
+            ("fused_attention_bwd", "bwd", 436, "bwd_launches")):
+        row = train_rows["image"]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"spatial_clip_tpu_torch/csrc/fused_attention_{part}.cu",
+            "replaces": f"spatial_clip_tpu/ops/fused_attention.py:{line}",
+            "launches": train[launch_key],
+            "max_abs_err": max(r[f"{part}_err"] for r in train_rows.values()),
+            "ms": row[f"{part}_ms"],
+            "plain_ms": row[f"{part}_plain_ms"],
+            "bound_ms": row[f"{part}_bound_ms"],
+            "bound_by": row[f"{part}_bound_by"],
+            "library_ms": row[f"{part}_library_ms"],
+            "at": at_train,
+        })
+    main_shape = loss_rows[f"{LARGE_MICRO * LARGE_ACCUM}"]
+    for part, line in (("fwd", 50), ("dq", 114), ("dk", 158)):
+        kernels.append({
+            "name": f"fused_spatial_ce_{part}",
+            "route": "cuda",
+            "source": "spatial_clip_tpu_torch/csrc/fused_spatial_ce.cu",
+            "replaces": f"spatial_clip_tpu/ops/fused_contrastive.py:{line}",
+            "launches": large[part],
+            "max_abs_err": max(r[f"{part}_err"] for r in loss_rows.values()),
+            "ms": main_shape[f"{part}_ms"],
+            "plain_ms": main_shape[f"{part}_plain_ms"],
+            "bound_ms": main_shape[f"{part}_bound_ms"],
+            "bound_by": main_shape[f"{part}_bound_by"],
+            "library_ms": None,  # no one PyTorch call computes this loss
+            "at": f"q, K ({LARGE_MICRO * LARGE_ACCUM}, 512) f32, k {NEIGHBORS} (cached "
+                  f"accumulation {LARGE_ACCUM} x {LARGE_MICRO})",
+        })
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0
@@ -351,6 +460,8 @@ def kernel_train_phase() -> dict:
     cases = [  # name, B, L, D, heads, causal, dtype
         ("image", TRAIN_BATCH, 50, 768, 12, False, torch.bfloat16),
         ("text", TRAIN_BATCH, 77, 512, 8, True, torch.bfloat16),
+        ("image_large", LARGE_MICRO, 50, 768, 12, False, torch.bfloat16),
+        ("text_large", LARGE_MICRO, 77, 512, 8, True, torch.bfloat16),
         ("f32", 8, 77, 512, 8, True, torch.float32),
     ]
     rows = {}
@@ -381,13 +492,19 @@ def kernel_train_phase() -> dict:
             bwd_ms=median_ms(lambda: fused_attention_bwd(qkv, mask, lse, g, H)),
             bwd_plain_ms=median_ms(lambda: reference_attention_bwd(qkv, mask, lse, g, H)),
         )
+        library = sdpa_ms(qkv, mask, H)
+        row.update(fwd_library_ms=library["fwd_lse"], bwd_library_ms=library["bwd"])
+        (row["fwd_bound_ms"], row["fwd_bound_by"]), (row["bwd_bound_ms"], row["bwd_bound_by"]) = (
+            attention_bound(qkv, H, "fwd_lse"), attention_bound(qkv, H, "bwd"))
         rows[name] = row
         print(f"[kernel-train] {name} qkv {tuple(qkv.shape)} {str(dtype)[6:]} "
               f"mask={'causal' if causal else 'none'}: max abs err (tol) " + ", ".join(
                   f"{k} {e:.3g} ({t:.3g})" for k, (e, t) in errs.items())
-              + f"; fwd_lse kernel {row['fwd_ms']:.4f} ms vs plain {row['fwd_plain_ms']:.4f} ms"
-              f"; bwd kernel {row['bwd_ms']:.4f} ms vs plain {row['bwd_plain_ms']:.4f} ms",
-              flush=True)
+              + f"; fwd_lse kernel {row['fwd_ms']:.4f} ms vs plain {row['fwd_plain_ms']:.4f} ms,"
+              f" SDPA {row['fwd_library_ms']:.4f} ms, bound {row['fwd_bound_ms']:.4f} ms"
+              f" ({row['fwd_bound_by']}); bwd kernel {row['bwd_ms']:.4f} ms vs plain "
+              f"{row['bwd_plain_ms']:.4f} ms, SDPA {row['bwd_library_ms']:.4f} ms, bound "
+              f"{row['bwd_bound_ms']:.4f} ms ({row['bwd_bound_by']})", flush=True)
     return rows
 
 
@@ -484,6 +601,258 @@ def train_phase(trainer) -> dict:
           f"({TRAIN_BATCH * 1e3 / med:.1f} pairs/s); max_memory_allocated "
           f"{peak / 2 ** 30:.3f} GiB", flush=True)
     return {"lse_launches": counts[1], "bwd_launches": counts[2], "step_ms": med}
+
+
+def ce_inputs(B: int, N: int, D: int = 512, seed: int = 0):
+    """The fused loss kernels' inputs as the loss builds them, on the card:
+    unit rows, unique column ids but one duplicated, each row's own id (rows
+    past N take random columns), neighbor ids from the column ids with a 20%
+    -1 share, weights in [0, 1), scale 50."""
+    import torch
+
+    from spatial_clip_tpu_torch.ops.fused_contrastive import prepare_inputs
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.nn.functional.normalize(torch.randn((B, D), generator=gen, device="cuda"), dim=1)
+    kmat = torch.nn.functional.normalize(torch.randn((N, D), generator=gen, device="cuda"), dim=1)
+    col_ids = torch.randperm(10 * N, generator=gen, device="cuda")[:N]
+    col_ids[N // 2] = col_ids[0]
+    gt = (torch.arange(B, device="cuda") if B <= N
+          else torch.randint(0, N, (B,), generator=gen, device="cuda"))
+    picks = col_ids[torch.randint(0, N, (B, NEIGHBORS), generator=gen, device="cuda")]
+    nbr = torch.where(torch.rand((B, NEIGHBORS), generator=gen, device="cuda") < 0.8, picks, -1)
+    alphas = torch.rand((B, NEIGHBORS), generator=gen, device="cuda")
+    return prepare_inputs(q, kmat, col_ids, gt, nbr, alphas, torch.tensor(50.0, device="cuda"))
+
+
+def kernel_loss_phase() -> dict:
+    """9. The fused spatial cross-entropy kernels against their plain
+    versions on the card, f32 with TF32 off. Tolerances from f32 summation
+    order: loss, lse, mass 1e-5 max(1, |ref|); dq, dK 1e-5 max|ref| + 1e-7;
+    dscale 1e-4 relative."""
+    import torch
+
+    from spatial_clip_tpu_torch.ops import fused_contrastive as fc
+
+    rows = {}
+    for B, N in ((1024, 1024), (2048, 2048), (1000, 1999)):
+        inputs = ce_inputs(B, N)
+        g = torch.full((B,), 1.0 / B, device="cuda")  # the cotangent of the loss's mean
+        loss, lse, mass = fc.spatial_ce_fwd(*inputs)
+        dq, dscale = fc.spatial_ce_dq(*inputs, lse, mass, g)
+        dk = fc.spatial_ce_dk(*inputs, lse, mass, g)
+        want = fc.reference_spatial_ce_fwd(*inputs)
+        want_dq, want_ds = fc.reference_spatial_ce_dq(*inputs, lse, mass, g)
+        want_dk = fc.reference_spatial_ce_dk(*inputs, lse, mass, g)
+        torch.cuda.synchronize()
+        errs = {}  # name: (max abs err, is it within the tolerance)
+        for name, got, ref in zip(("loss", "lse", "mass"), (loss, lse, mass), want):
+            d = (got - ref).abs()
+            errs[name] = (d.max().item(), bool((d <= 1e-5 * ref.abs().clamp_min(1.0)).all()))
+        for name, got, ref in (("dq", dq, want_dq), ("dk", dk, want_dk)):
+            d = (got - ref).abs().max().item()
+            errs[name] = (d, d <= 1e-5 * ref.abs().max().item() + 1e-7)
+        d = abs(dscale.item() - want_ds.item())
+        errs["dscale"] = (d, d <= 1e-4 * abs(want_ds.item()))
+        bad = {k: v[0] for k, v in errs.items() if not v[1]}
+        if bad:
+            raise AssertionError(f"[kernel-loss] B={B} N={N}: over tolerance {bad}")
+        D = inputs[0].shape[1]
+        ids = 4 * (B + N + 2 * B * NEIGHBORS) + 4  # ids, neighbor ids and weights, scale
+        row = {
+            "fwd_err": max(errs[k][0] for k in ("loss", "lse", "mass")),
+            "dq_err": max(errs["dq"][0], errs["dscale"][0]),
+            "dk_err": errs["dk"][0],
+            "fwd_ms": median_ms(lambda: fc.spatial_ce_fwd(*inputs)),
+            "fwd_plain_ms": median_ms(lambda: fc.reference_spatial_ce_fwd(*inputs)),
+            "dq_ms": median_ms(lambda: fc.spatial_ce_dq(*inputs, lse, mass, g)),
+            "dq_plain_ms": median_ms(lambda: fc.reference_spatial_ce_dq(*inputs, lse, mass, g)),
+            "dk_ms": median_ms(lambda: fc.spatial_ce_dk(*inputs, lse, mass, g)),
+            "dk_plain_ms": median_ms(lambda: fc.reference_spatial_ce_dk(*inputs, lse, mass, g)),
+        }
+        in_bytes = 4 * (B + N) * D + ids
+        for part, n_bytes, flops in (
+                ("fwd", in_bytes + 3 * 4 * B, 2 * B * N * D),  # -> loss, lse, mass
+                ("dq", in_bytes + 3 * 4 * B + 4 * B * D + 4, 4 * B * N * D),  # z again, dz K
+                ("dk", in_bytes + 3 * 4 * B + 4 * N * D, 4 * B * N * D)):
+            row[f"{part}_bound_ms"], row[f"{part}_bound_by"] = bound(n_bytes, flops, F32_FLOPS)
+        rows[f"{N}" if B == N else f"{B}x{N}"] = row
+        print(f"[kernel-loss] fused spatial CE B={B} N={N} D={D} k={NEIGHBORS} f32: max abs err "
+              + ", ".join(f"{k} {e:.3g}" for k, (e, _) in errs.items())
+              + " (within tolerance); " + "; ".join(
+                  f"{p} kernel {row[p + '_ms']:.4f} ms vs plain {row[p + '_plain_ms']:.4f} ms, "
+                  f"bound {row[p + '_bound_ms']:.4f} ms ({row[p + '_bound_by']}, share "
+                  f"{row[p + '_bound_ms'] / row[p + '_ms']:.3f})" for p in ("fwd", "dq", "dk")),
+              flush=True)
+    return rows
+
+
+def accum_trainer(model, grad_accum: int, **cfg):
+    """The large-batch configuration's trainer: the bench workload's
+    augmentation and schedule, cached accumulation, the fused spatial loss
+    capped at 50."""
+    from spatial_clip_tpu_torch.losses import make_loss
+    from spatial_clip_tpu_torch.train.loop import Trainer, TrainerConfig
+
+    config = TrainerConfig(warmup_steps=10, total_steps=10_000, augment=True, color_jitter=0.2,
+                           seed=0, grad_accum=grad_accum, grad_accum_mode="cached", **cfg)
+    return Trainer(model, make_loss("spatial", cap_logit_scale=50.0, use_fused_kernel=True),
+                   config)
+
+
+def loss_counters():
+    from spatial_clip_tpu_torch.ops import fused_contrastive as fc
+
+    return fc.spatial_ce_fwd, fc.spatial_ce_dq, fc.spatial_ce_dk
+
+
+def loss_check_phase(model) -> None:
+    """10. One step with grad_accum=2 and the fused loss at batch 32, card
+    (bf16, kernels) vs CPU (f32, plain path), same weights, batch and draws;
+    then the fused loss against the dense one on f32 features on the card."""
+    import torch
+
+    from spatial_clip_tpu_torch import create_model
+    from spatial_clip_tpu_torch.bench import synthetic_batch
+    from spatial_clip_tpu_torch.losses import make_loss
+    from spatial_clip_tpu_torch.models.transforms import AugmentDraws
+
+    t0 = time.perf_counter()
+    card = accum_trainer(model, 2)
+    cpu = accum_trainer(create_model("ViT-B-32", precision="fp32", seed=0, device="cpu",
+                                     training=True), 2)
+    card_state, cpu_state = card.init_state(), cpu.init_state()
+    batch = synthetic_batch(cpu.model, CHECK_BATCH, seed=3, device="cpu")
+    rng = np.random.default_rng(4)
+    draws = AugmentDraws(*(torch.from_numpy(d) for d in (
+        rng.random(CHECK_BATCH) < 0.5,
+        (1.0 + rng.uniform(-0.2, 0.2, CHECK_BATCH)).astype(np.float32),
+        (1.0 + rng.uniform(-0.2, 0.2, CHECK_BATCH)).astype(np.float32))))
+    for counter in loss_counters():
+        counter.launches = 0
+    loss_card, logits, grad_card = card.forward_backward(
+        card_state, {k: v.cuda() for k, v in batch.items()},
+        AugmentDraws(*(d.cuda() for d in draws)))
+    counts = [c.launches for c in loss_counters()]
+    loss_cpu, _, grad_cpu = cpu.forward_backward(cpu_state, batch, draws)
+    rel = abs(loss_card.item() - loss_cpu.item()) / abs(loss_cpu.item())
+    cos = cosine(grad_card.float().cpu(), grad_cpu)
+    finite = bool(torch.isfinite(grad_card).all()) and np.isfinite(loss_card.item())
+    if not (finite and rel <= MAX_LOSS_REL_ERR and cos >= MIN_GRAD_COSINE
+            and counts == [4, 4, 4] and logits.shape == (CHECK_BATCH, CHECK_BATCH)):
+        raise AssertionError(
+            f"[loss-check] loss card {loss_card.item()} cpu {loss_cpu.item()} (rel {rel}), "
+            f"grad cosine {cos}, finite {finite}, loss launches (fwd, dq, dk) {counts}")
+    del cpu, cpu_state, card_state, grad_card, grad_cpu
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    n = LARGE_MICRO
+    img, txt = (torch.nn.functional.normalize(torch.randn((n, 512), generator=gen,
+                                                         device="cuda"), dim=1)
+                for _ in range(2))
+    ids = torch.randperm(10 * n, generator=gen, device="cuda")[:n]  # unique
+    spatial = dict(image_tile_ids=ids, text_tile_ids=ids,
+                   neighbor_tile_ids=torch.where(
+                       torch.rand((n, NEIGHBORS), generator=gen, device="cuda") < 0.8,
+                       ids[torch.randint(0, n, (n, NEIGHBORS), generator=gen, device="cuda")], -1),
+                   neighbor_alphas=torch.rand((n, NEIGHBORS), generator=gen, device="cuda"))
+    scale = torch.tensor(100.0, device="cuda")  # above the cap
+    fused, dense = (make_loss("spatial", cap_logit_scale=50.0, use_fused_kernel=f)(
+        image_features=img, text_features=txt, logit_scale=scale, **spatial)["contrastive_loss"]
+        .item() for f in (True, False))
+    fused_rel = abs(fused - dense) / abs(dense)
+    if not fused_rel <= 1e-5:
+        raise AssertionError(f"[loss-check] fused loss {fused} vs dense {dense} (rel {fused_rel})")
+    print(f"[loss-check] ViT-B-32 batch {CHECK_BATCH}, grad_accum 2 cached, fused loss, one step, "
+          f"same weights/batch/draws: loss card bf16 {loss_card.item():.6f} vs CPU f32 "
+          f"{loss_cpu.item():.6f} (rel err {rel:.3g} <= {MAX_LOSS_REL_ERR}); flattened gradient "
+          f"cosine {cos:.6f} (>= {MIN_GRAD_COSINE}); loss launches fwd/dq/dK {counts}; fused vs "
+          f"dense loss on f32 features ({n} x 512, unique ids) {fused:.7f} vs {dense:.7f} (rel "
+          f"{fused_rel:.3g} <= 1e-5); {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+class StepLog:
+    """A fit logger that keeps what it is given."""
+
+    def __init__(self):
+        self.records = []
+
+    def log(self, step, metrics):
+        self.records.append((step, metrics))
+
+
+def train_large_phase(model) -> dict:
+    """11. Trainer.fit at spatial_v2_multi_chip's global batch (2048) on one
+    card as 2 x 1024 cached, from numpy batches, then Trainer.evaluate."""
+    import torch
+
+    from spatial_clip_tpu_torch.ops.fused_attention import (
+        fused_attention,
+        fused_attention_bwd,
+        fused_attention_lse,
+    )
+
+    batch = LARGE_MICRO * LARGE_ACCUM
+    trainer = accum_trainer(model, LARGE_ACCUM, log_every=1)
+    rng = np.random.default_rng(6)
+    size, t = int(model.cfg.vision_cfg.size), model.cfg.text_cfg
+    tile_ids = np.arange(batch, dtype=np.int64)
+    host = {  # made once; fit copies it to the card at every step
+        "images": rng.integers(0, 255, (batch, size, size, 3), dtype=np.uint8),
+        "texts": rng.integers(0, t.vocab_size, (batch, t.context_length), dtype=np.int64),
+        "image_tile_ids": tile_ids,
+        "text_tile_ids": tile_ids.copy(),
+        "neighbor_tile_ids": rng.integers(-1, batch, (batch, NEIGHBORS)).astype(np.int64),
+        "neighbor_alphas": rng.uniform(0, 1, (batch, NEIGHBORS)).astype(np.float32),
+    }
+    attention = (fused_attention, fused_attention_lse, fused_attention_bwd)
+    counters = (*attention, *loss_counters())
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for counter in counters:
+        counter.launches = 0
+    steps = StepLog()
+    t0 = time.perf_counter()
+    state, last = trainer.fit(lambda: (host for _ in range(LARGE_STEPS)), logger=steps)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = [c.launches for c in counters]
+    peak = torch.cuda.max_memory_allocated()
+    per_step = [2 * LAYERS * LARGE_ACCUM] * 3 + [2 * LARGE_ACCUM] * 3  # 2 towers, 2 directions
+    if counts != [n * LARGE_STEPS for n in per_step] or state.step != LARGE_STEPS:
+        raise AssertionError(f"[train-large] launches (attn fwd, fwd_lse, bwd, loss fwd, dq, dK) "
+                             f"{counts}, want {[n * LARGE_STEPS for n in per_step]}")
+    losses = [m["train/loss"] for _, m in steps.records]
+    norms = [m["train/grad_norm"] for _, m in steps.records]
+    if len(losses) != LARGE_STEPS or not all(np.isfinite(losses + norms)):
+        raise AssertionError(f"[train-large] losses {losses}, grad norms {norms}")
+    step_ms = [batch * 1e3 / m["train/pairs_per_sec"] for _, m in steps.records]
+
+    for counter in counters:
+        counter.launches = 0
+    halves = [{k: v[i * LARGE_MICRO:(i + 1) * LARGE_MICRO] for k, v in host.items()}
+              for i in range(2)]
+    val = trainer.evaluate(state, iter(halves))
+    eval_counts = [c.launches for c in counters]
+    want_eval = [2 * LAYERS * 2, 0, 0, 2 * 2, 0, 0]
+    if eval_counts != want_eval or not np.isfinite(val["loss"]) or val["num_samples"] != batch:
+        raise AssertionError(f"[train-large] evaluate: launches {eval_counts} (want {want_eval}),"
+                             f" metrics {val}")
+    med = statistics.median(step_ms[1:])
+    print(f"[train-large] ViT-B-32 bf16, Trainer.fit at global batch {batch} = {LARGE_ACCUM} x "
+          f"{LARGE_MICRO} cached, fused spatial loss (cap 50, k {NEIGHBORS}), numpy batches: "
+          f"{LARGE_STEPS} steps in {fit_s:.1f} s; launches per step attention fwd "
+          f"{counts[0] // LARGE_STEPS} fwd_lse {counts[1] // LARGE_STEPS} bwd "
+          f"{counts[2] // LARGE_STEPS}, loss fwd {counts[3] // LARGE_STEPS} dq "
+          f"{counts[4] // LARGE_STEPS} dK {counts[5] // LARGE_STEPS}; losses "
+          f"{[round(x, 4) for x in losses]}, grad norms {[round(x, 4) for x in norms]}; median "
+          f"step {med:.1f} ms over steps 2-{LARGE_STEPS} ({batch * 1e3 / med:.1f} pairs/s; all: "
+          f"{[round(x, 1) for x in step_ms]}); max_memory_allocated {peak / 2 ** 30:.3f} GiB; "
+          f"evaluate 2 x {LARGE_MICRO}: launches attention fwd {eval_counts[0]}, loss fwd "
+          f"{eval_counts[3]}; loss {val['loss']:.4f}, R@1 {val['R@1']:.4f}, image_to_text_R@1 "
+          f"{val['image_to_text_R@1']:.4f}", flush=True)
+    return {"fwd": counts[3], "dq": counts[4], "dk": counts[5], "step_ms": med}
 
 
 if __name__ == "__main__":

@@ -50,24 +50,20 @@ class LossFn:
 def make_loss(kind: str = "clip", **options) -> LossFn:
     """Build a loss by name: ``clip`` or ``spatial`` (with the JAX package's
     options ``cap_logit_scale``, ``temp_reg_weight``, ``float32_logits``,
-    ``neighbor_alpha_scale``; ``use_fused_kernel=True`` raises, its kernel
-    is not ported yet)."""
+    ``neighbor_alpha_scale``, ``use_fused_kernel``)."""
     kind = kind.lower()
     if kind in ("clip", "cliploss"):
         fn = functools.partial(
             clip_loss, float32_logits=bool(options.get("float32_logits", True)))
         return LossFn("clip", fn, _BASE_ARGS, options)
     if kind in ("spatial", "spatial_multi_positive", "globalmappingmultipositive"):
-        if options.get("use_fused_kernel"):
-            raise NotImplementedError(
-                "use_fused_kernel=True: the fused spatial cross-entropy kernel "
-                "(ops/fused_contrastive.py) is not ported to spatial_clip_tpu_torch yet")
         fn = functools.partial(
             spatial_loss,
             cap_logit_scale=options.get("cap_logit_scale"),
             temp_reg_weight=float(options.get("temp_reg_weight", 0.0) or 0.0),
             float32_logits=bool(options.get("float32_logits", True)),
             neighbor_alpha_scale=float(options.get("neighbor_alpha_scale", 1.0) or 1.0),
+            use_fused_kernel=bool(options.get("use_fused_kernel", False)),
         )
         return LossFn("spatial", fn, _SPATIAL_ARGS, options)
     if kind in _UNPORTED:

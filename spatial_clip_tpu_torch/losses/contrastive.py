@@ -2,8 +2,9 @@
 
 - :func:`clip_loss`: symmetric InfoNCE.
 - :func:`spatial_loss`: multi-positive spatial CLIP loss with soft neighbor
-  labels, its dense path (the (B, N) label matrices are built from tile ids
-  on the device).
+  labels: the dense path (the (B, N) label matrices are built from tile ids
+  on the device) and the fused path (``use_fused_kernel``, the kernels of
+  ``ops/fused_contrastive.py``, O(B) memory).
 
 Only the single-process case (the JAX package's ``axis_name=None``) is
 ported: the inputs are the whole batch.
@@ -14,6 +15,8 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+
+from spatial_clip_tpu_torch.ops.fused_contrastive import fused_spatial_ce
 
 
 def _apply_logit_scale(z: torch.Tensor, logit_scale: torch.Tensor,
@@ -73,13 +76,28 @@ def spatial_loss(image_features: torch.Tensor, text_features: torch.Tensor,
     """Multi-positive spatial contrastive loss: soft cross-entropy against
     the L1-normalized neighbor labels in both directions, plus the optional
     temperature regularizer ``temp_reg_weight * gap^2`` with
-    ``gap = E_p[z] - E_q[z]`` averaged over the two directions."""
-    if use_fused_kernel:
-        raise NotImplementedError(
-            "use_fused_kernel=True: the fused spatial cross-entropy kernel "
-            "(ops/fused_contrastive.py) is not ported to spatial_clip_tpu_torch yet")
+    ``gap = E_p[z] - E_q[z]`` averaged over the two directions.
+
+    ``use_fused_kernel`` (taken only without ``temp_reg_weight`` and
+    ``logit_bias``, as in the JAX package) runs :func:`fused_spatial_ce`,
+    which builds the labels from tile ids inside the kernels: the diagonal
+    is matched by tile id, so a duplicated id weighs 1 on every column that
+    carries it, and neighbor ids < 0 are not masked (they match no column).
+    It equals the dense path when the tile ids are unique."""
     B = image_features.shape[0]
     ground_truth = torch.arange(B, device=image_features.device)
+    if use_fused_kernel and temp_reg_weight == 0.0 and logit_bias is None:
+        s_eff = logit_scale
+        if cap_logit_scale is not None:
+            s_eff = logit_scale + (torch.clamp(logit_scale, max=cap_logit_scale)
+                                   - logit_scale).detach()
+        alphas = neighbor_alphas.float() * neighbor_alpha_scale
+        nbr = neighbor_tile_ids.to(torch.int32)
+        loss_i = fused_spatial_ce(image_features, text_features, text_tile_ids.to(torch.int32),
+                                  ground_truth, nbr, alphas, s_eff).mean()
+        loss_t = fused_spatial_ce(text_features, image_features, image_tile_ids.to(torch.int32),
+                                  ground_truth, nbr, alphas, s_eff).mean()
+        return {"contrastive_loss": 0.5 * (loss_i + loss_t)}
     labels_i = build_spatial_soft_labels(text_tile_ids, ground_truth, neighbor_tile_ids,
                                          neighbor_alphas, neighbor_alpha_scale)
     labels_t = build_spatial_soft_labels(image_tile_ids, ground_truth, neighbor_tile_ids,

@@ -117,6 +117,29 @@ def library() -> ctypes.CDLL:
             lib.sc_attention_bwd.restype = i32
             lib.sc_attention_bwd_smem_bytes.argtypes = [i32, i32, i32]
             lib.sc_attention_bwd_smem_bytes.restype = ctypes.c_size_t
+            ce_inputs = [ptr] * 7  # q, kmat, col_ids, gt_ids, nbr, alphas, scale
+            ce_scratch = [ptr, ctypes.c_size_t]  # scratch and its f32 elements
+            ce_sizes = [i32] * 4  # B, N, D, k
+            lib.sc_spatial_ce_scratch.argtypes = [i32, i32, i32, i32,  # kind, B, N, D
+                                                  ctypes.POINTER(ctypes.c_size_t)]
+            lib.sc_spatial_ce_scratch.restype = i32
+            lib.sc_spatial_ce_fwd.argtypes = [
+                *ce_inputs, *ce_scratch, ptr, ptr, ptr,  # loss, lse, mass
+                *ce_sizes, ptr,  # stream
+            ]
+            lib.sc_spatial_ce_fwd.restype = i32
+            lib.sc_spatial_ce_dq.argtypes = [
+                *ce_inputs, ptr, ptr, ptr,  # lse, mass, g
+                *ce_scratch, ptr, ptr,  # dq, dscale
+                *ce_sizes, ptr,
+            ]
+            lib.sc_spatial_ce_dq.restype = i32
+            lib.sc_spatial_ce_dk.argtypes = [
+                *ce_inputs, ptr, ptr, ptr,  # lse, mass, g
+                *ce_scratch, ptr,  # dk
+                *ce_sizes, ptr,
+            ]
+            lib.sc_spatial_ce_dk.restype = i32
             lib.sc_cuda_error_string.argtypes = [ctypes.c_int]
             lib.sc_cuda_error_string.restype = ctypes.c_char_p
             _library = lib

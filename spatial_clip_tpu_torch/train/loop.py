@@ -1,25 +1,31 @@
-"""The spatial CLIP train step (counterpart of ``spatial_clip_tpu.train.loop``).
+"""The spatial CLIP trainer (counterpart of ``spatial_clip_tpu.train.loop``).
 
-One :meth:`Trainer.train_step` does what the JAX package's jitted step does
-with ``grad_accum == 1``: normalize (and augment) the uint8 tiles on the
-device, run both towers, compute the loss and its gradient, run the AdamW
-chain, clamp the logit scale to ``[0, ln 100]``, and return the step
-metrics. PyTorch runs eagerly, so there is no jit; the optimizer updates the
-state in place. Nothing in a step waits for the device: the metrics come
-back as device scalars (``lr`` as a float).
+One :meth:`Trainer.train_step` does what the JAX package's jitted step does:
+normalize (and augment) the uint8 tiles on the device, run both towers,
+compute the loss and its gradient (with ``grad_accum > 1``, accumulated over
+microbatches in ``cached`` or ``simple`` mode), run the AdamW chain, clamp
+the logit scale to ``[0, ln 100]``, and return the step metrics.
+:meth:`Trainer.fit` drives it over iterators of numpy batches with
+validation, and :meth:`Trainer.evaluate` computes the full-split retrieval
+metrics. PyTorch runs eagerly, so there is no jit; the optimizer updates
+the state in place. Nothing in a step waits for the device: the metrics
+come back as device scalars (``lr`` as a float).
 
-Not ported, and raising NotImplementedError: gradient accumulation,
-master weights, a bf16 gradient dtype, optimizers other than AdamW, frozen
-towers, a distillation teacher, a device mesh, checkpoints, ``fit`` and
-``evaluate``. The JAX package's ``scan_steps`` and ``compiler_options`` are
-XLA dispatch knobs with no counterpart here.
+Not ported, and raising NotImplementedError: master weights, a bf16
+gradient dtype, optimizers other than AdamW, frozen towers, a distillation
+teacher, a device mesh and checkpoints (``ckpt_dir``, ``resume``). The JAX
+package's ``scan_steps`` and ``compiler_options`` are XLA dispatch knobs
+with no counterpart here.
 """
 from __future__ import annotations
 
+import logging
 import math
+import time
 from dataclasses import dataclass, field as dfield
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 from torch.func import functional_call
@@ -31,8 +37,14 @@ from spatial_clip_tpu_torch.models.transforms import (
     draw_augment,
     normalize_batch,
 )
-from spatial_clip_tpu_torch.train.metrics import recall_at_k
+from spatial_clip_tpu_torch.train.metrics import (
+    ContrastiveMetrics,
+    clip_retrieval_metrics,
+    recall_at_k,
+)
 from spatial_clip_tpu_torch.train.optim import AdamW, decay_mask, make_schedule, moment_dtype
+
+log = logging.getLogger(__name__)
 
 LOGIT_SCALE_MAX = math.log(100.0)
 
@@ -76,8 +88,10 @@ class TrainerConfig:
 
 
 def _unported(cfg: TrainerConfig) -> None:
+    if cfg.grad_accum_mode not in ("cached", "simple"):
+        raise ValueError(f"grad_accum_mode must be 'cached' or 'simple'; got "
+                         f"{cfg.grad_accum_mode!r}")
     for name, bad in (
-        ("grad_accum", cfg.grad_accum > 1),
         ("master_weights", cfg.master_weights),
         ("grad_dtype", cfg.grad_dtype is not None),
         ("opt", (cfg.opt or "adamw").lower() not in ("adamw", "adam")),
@@ -164,11 +178,12 @@ class Trainer:
     """Train step over a CLIP model built with ``create_model(...,
     training=True)`` (f32 parameters, train mode, grad on).
 
-    Batches are dicts of tensors on the model's device with the JAX
-    package's schema: ``images`` (B, H, W, 3) uint8 (or already normalized
-    floats), ``texts`` (B, L) token ids, ``image_tile_ids``,
-    ``text_tile_ids`` (B,), ``neighbor_tile_ids`` (B, k) (-1 pads),
-    ``neighbor_alphas`` (B, k)."""
+    Batches have the JAX package's schema: ``images`` (B, H, W, 3) uint8
+    (or already normalized floats), ``texts`` (B, L) token ids,
+    ``image_tile_ids``, ``text_tile_ids`` (B,), ``neighbor_tile_ids`` (B, k)
+    (-1 pads), ``neighbor_alphas`` (B, k): tensors on the model's device
+    for :meth:`train_step`, numpy arrays for :meth:`fit` and
+    :meth:`evaluate`."""
 
     def __init__(self, model: nn.Module, loss: Optional[LossFn] = None,
                  config: Optional[TrainerConfig] = None, mesh=None, teacher=None):
@@ -199,36 +214,111 @@ class Trainer:
         return TrainState.create(params, zeros, zeros, mu_dtype=self.mu_dtype,
                                  nu_dtype=self.nu_dtype, seed=self.cfg.seed)
 
-    def prepare_images(self, images: torch.Tensor, generator: Optional[torch.Generator] = None,
+    def prepare_images(self, images: torch.Tensor,
                        draws: Optional[AugmentDraws] = None) -> torch.Tensor:
         """uint8 tiles -> normalized model input on the device, augmented
-        when the config says so (with ``draws``, or new ones from
-        ``generator``). Float images are only cast."""
-        model, cfg = self.model, self.cfg
+        with ``draws`` when given. Float images are only cast."""
+        model = self.model
         if images.dtype != torch.uint8:
             return images.to(model.dtype)
         pp = model.preprocess_cfg
-        if not cfg.augment:
-            return normalize_batch(images, pp.mean, pp.std, model.dtype)
         if draws is None:
-            draws = draw_augment(images.shape[0], cfg.horizontal_flip_prob, cfg.color_jitter,
-                                 generator=generator, device=images.device)
+            return normalize_batch(images, pp.mean, pp.std, model.dtype)
         return augment_normalize_batch(images, draws, pp.mean, pp.std, model.dtype)
+
+    def _features(self, params, batch, draws: Optional[AugmentDraws]) -> Dict[str, torch.Tensor]:
+        images = self.prepare_images(batch["images"], draws)
+        return functional_call(self.model, params, (images, batch["texts"]))
+
+    @staticmethod
+    def _flat_grad(state: TrainState, loss: torch.Tensor) -> torch.Tensor:
+        grads = torch.autograd.grad(loss, [state.params[k] for k in state.order],
+                                    materialize_grads=True)  # zeros for an unused parameter
+        return torch.cat([g.reshape(-1) for g in grads])
+
+    @staticmethod
+    def _logits(img: torch.Tensor, txt: torch.Tensor, logit_scale: torch.Tensor):
+        with torch.no_grad():
+            return (img @ txt.T) * logit_scale
 
     def forward_backward(self, state: TrainState, batch: Dict[str, torch.Tensor],
                          draws: Optional[AugmentDraws] = None):
         """Loss, in-batch logits and the flat f32 gradient (laid out as
-        ``state.flat['params']``) of one batch at the state's parameters."""
-        images = self.prepare_images(batch["images"], state.generator, draws)
-        features = functional_call(self.model, state.params, (images, batch["texts"]))
-        loss = self.loss(**{**batch, **features})["contrastive_loss"]
-        grads = torch.autograd.grad(loss, [state.params[k] for k in state.order],
-                                    materialize_grads=True)  # zeros for an unused parameter
-        flat_grad = torch.cat([g.reshape(-1) for g in grads])
-        with torch.no_grad():
-            logits = (features["image_features"] @ features["text_features"].T
-                      ) * features["logit_scale"]
-        return loss.detach(), logits, flat_grad
+        ``state.flat['params']``) of one batch at the state's parameters.
+
+        When the config augments, the augmentation draws (``draws``, or new
+        ones from the state's generator) cover the whole batch; with
+        ``grad_accum > 1`` each microbatch takes its rows of them. ``cached`` mode: pass 1 embeds
+        every microbatch without grad; pass 2 re-embeds one microbatch at a
+        time with grad, splices its features into the cached (B, D)
+        matrices and backprops the full-batch loss, adding the gradients in
+        f32. As in the JAX package, the logit scale's gradient is thereby
+        summed ``grad_accum`` times, the loss is the last microbatch's, and
+        the logits cover the full batch. ``simple`` mode averages the
+        microbatches' gradients and losses; the logits are the last
+        microbatch's."""
+        cfg = self.cfg
+        images = batch["images"]
+        if not (cfg.augment and images.dtype == torch.uint8):
+            draws = None
+        elif draws is None:
+            draws = draw_augment(images.shape[0], cfg.horizontal_flip_prob, cfg.color_jitter,
+                                 generator=state.generator, device=images.device)
+        accum = max(1, cfg.grad_accum)
+        if accum == 1:
+            features = self._features(state.params, batch, draws)
+            loss = self.loss(**{**batch, **features})["contrastive_loss"]
+            logits = self._logits(features["image_features"], features["text_features"],
+                                  features["logit_scale"])
+            return loss.detach(), logits, self._flat_grad(state, loss)
+        if images.shape[0] % accum:
+            raise ValueError(f"batch of {images.shape[0]} does not split into "
+                             f"grad_accum={accum} microbatches")
+        mb = images.shape[0] // accum
+        parts = [slice(j * mb, (j + 1) * mb) for j in range(accum)]
+        mbs = [{k: v[sl] for k, v in batch.items()} for sl in parts]
+        mb_draws = [None if draws is None else AugmentDraws(
+            *(None if d is None else d[sl] for d in draws)) for sl in parts]
+        if cfg.grad_accum_mode == "simple":
+            return self._simple_accum(state, mbs, mb_draws)
+        return self._cached_accum(state, batch, mbs, mb_draws, parts)
+
+    def _cached_accum(self, state, batch, mbs, mb_draws, parts):
+        with torch.no_grad():  # pass 1: attention takes the inference kernel
+            feats = [self._features(state.params, m, d) for m, d in zip(mbs, mb_draws)]
+        all_img = torch.cat([f["image_features"] for f in feats])
+        all_txt = torch.cat([f["text_features"] for f in feats])
+        del feats
+        grads = None
+        for m, d, sl in zip(mbs, mb_draws, parts):
+            f = self._features(state.params, m, d)
+            inputs = {
+                **batch,
+                "image_features": all_img.slice_scatter(
+                    f["image_features"].to(all_img.dtype), 0, sl.start, sl.stop),
+                "text_features": all_txt.slice_scatter(
+                    f["text_features"].to(all_txt.dtype), 0, sl.start, sl.stop),
+                "logit_scale": f["logit_scale"],
+            }
+            if "logit_bias" in f:
+                inputs["logit_bias"] = f["logit_bias"]
+            loss = self.loss(**inputs)["contrastive_loss"]
+            g = self._flat_grad(state, loss)
+            grads = g if grads is None else grads.add_(g)
+        logits = self._logits(all_img, all_txt, state.params["logit_scale"].exp())
+        return loss.detach(), logits, grads
+
+    def _simple_accum(self, state, mbs, mb_draws):
+        grads = loss_sum = None
+        for m, d in zip(mbs, mb_draws):
+            features = self._features(state.params, m, d)
+            loss = self.loss(**{**m, **features})["contrastive_loss"]
+            g = self._flat_grad(state, loss)
+            grads = g if grads is None else grads.add_(g)
+            loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
+        logits = self._logits(features["image_features"], features["text_features"],
+                              features["logit_scale"])
+        return loss_sum / len(mbs), logits, grads.div_(len(mbs))
 
     def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor],
                    draws: Optional[AugmentDraws] = None) -> Tuple[TrainState, Dict[str, Any]]:
@@ -256,8 +346,120 @@ class Trainer:
         state.step += 1
         return state, metrics
 
-    def fit(self, *args, **kwargs):
-        raise NotImplementedError("Trainer.fit is not ported to spatial_clip_tpu_torch")
+    # ------------------------------------------------------------------- fit
+    def _device_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """The batch's numpy arrays (not ``raw_text``) on the model's device,
+        copied from pinned memory without blocking the host when that
+        device is a GPU."""
+        device = self.model.logit_scale.device
+        out = {}
+        for k, v in batch.items():
+            if not isinstance(v, np.ndarray) or k == "raw_text":
+                continue
+            t = torch.from_numpy(v)
+            out[k] = (t.pin_memory().to(device, non_blocking=True) if device.type == "cuda"
+                      else t.to(device))
+        return out
 
-    def evaluate(self, *args, **kwargs):
-        raise NotImplementedError("Trainer.evaluate is not ported to spatial_clip_tpu_torch")
+    def fit(self, train_iter_factory: Callable[[], Iterable[Dict[str, Any]]],
+            val_iter_factory: Optional[Callable[[], Iterable[Dict[str, Any]]]] = None,
+            epochs: int = 1, steps_per_epoch: Optional[int] = None,
+            state: Optional[TrainState] = None, logger=None,
+            resume: Optional[str] = None) -> Tuple[TrainState, Dict[str, float]]:
+        """Train for ``epochs`` passes over ``train_iter_factory()`` (numpy
+        batches; at most ``steps_per_epoch`` each), evaluating on
+        ``val_iter_factory()`` after each epoch. Metrics are read back every
+        ``log_every`` steps, with ``epoch``, ``pairs_per_sec`` and
+        ``pairs_per_sec_per_chip`` over the steps since the last read; the
+        ``monitor`` metric picks ``best_step`` and drives early stopping.
+        Returns the state and the last metrics (``val/`` keys included)."""
+        if resume:
+            raise NotImplementedError("resume (checkpoints) is not ported to "
+                                      "spatial_clip_tpu_torch")
+        state = state if state is not None else self.init_state()
+        cfg = self.cfg
+        n_dev = 1
+        last: Dict[str, float] = {}
+        sign = 1.0 if cfg.monitor_mode == "max" else -1.0
+        best_score = -float("inf")
+        stale_evals = 0
+        self.best_step = None
+        for epoch in range(epochs):
+            t_data = t_step = 0.0
+            n_samples = 0
+            t0 = time.perf_counter()
+            for i, batch in enumerate(train_iter_factory()):
+                if steps_per_epoch is not None and i >= steps_per_epoch:
+                    break
+                bsz = int(batch["images"].shape[0])
+                dbatch = self._device_batch(batch)
+                t1 = time.perf_counter()
+                state, metrics = self.train_step(state, dbatch)
+                if cfg.log_every and state.step % cfg.log_every == 0:
+                    metrics = {k: float(v) for k, v in metrics.items()}  # waits for the step
+                    t2 = time.perf_counter()
+                    t_data += t1 - t0
+                    t_step += t2 - t1
+                    n_samples += bsz
+                    pairs_per_sec = n_samples / max(t_data + t_step, 1e-9)
+                    metrics.update({"epoch": epoch, "pairs_per_sec": pairs_per_sec,
+                                    "pairs_per_sec_per_chip": pairs_per_sec / n_dev})
+                    last = metrics
+                    if logger:
+                        logger.log(state.step, {f"train/{k}": v for k, v in metrics.items()})
+                    t_data = t_step = 0.0
+                    n_samples = 0
+                else:
+                    t_data += t1 - t0
+                    n_samples += bsz
+                t0 = time.perf_counter()
+            if val_iter_factory is not None:
+                val_metrics = self.evaluate(state, val_iter_factory())
+                last.update({f"val/{k}": v for k, v in val_metrics.items()})
+                if logger:
+                    logger.log(state.step, {f"val/{k}": v for k, v in val_metrics.items()})
+                score = val_metrics.get(cfg.monitor)
+                if score is not None:
+                    if sign * score > best_score:
+                        best_score = sign * score
+                        stale_evals = 0
+                        self.best_step = state.step
+                    else:
+                        stale_evals += 1
+                        if cfg.early_stop_patience and stale_evals >= cfg.early_stop_patience:
+                            log.info("Early stopping at step %d (no %s improvement for %d evals)",
+                                     state.step, cfg.monitor, stale_evals)
+                            break
+        return state, last
+
+    # ------------------------------------------------------------------ eval
+    def evaluate(self, state: TrainState,
+                 val_iter: Iterable[Dict[str, Any]]) -> Dict[str, float]:
+        """Full-split retrieval eval without grad or augmentation: the mean
+        of the batches' losses, the in-batch R@1/5/10 over all rows, the
+        bidirectional ``clip_retrieval_metrics`` of the features gathered
+        over the split, and ``num_samples``."""
+        metrics = ContrastiveMetrics()
+        losses: List[float] = []
+        img_feats, txt_feats = [], []
+        mstate = metrics.init(self.model.logit_scale.device)
+        with torch.no_grad():
+            for batch in val_iter:
+                dbatch = self._device_batch(batch)
+                features = self._features(state.params, dbatch, None)  # no augmentation
+                losses.append(float(self.loss(**{**dbatch, **features})["contrastive_loss"]))
+                img, txt = features["image_features"], features["text_features"]
+                img_feats.append(img.float().cpu().numpy())
+                txt_feats.append(txt.float().cpu().numpy())
+                logits = self._logits(img, txt, features["logit_scale"])
+                mstate = metrics.update(
+                    mstate, logits, torch.arange(logits.shape[0], device=logits.device))
+        if not losses:
+            log.warning("evaluation split produced zero batches (split smaller than batch size?)")
+            return {}
+        result = {"loss": float(np.mean(losses))}
+        result.update(metrics.compute(mstate))
+        img, txt = np.concatenate(img_feats), np.concatenate(txt_feats)
+        result.update(clip_retrieval_metrics(img, txt))
+        result["num_samples"] = float(len(img))
+        return result

@@ -1,5 +1,6 @@
 """The port on the card: the CUDA kernels against their plain PyTorch
-versions, a tower and a train step on the card against the same on the CPU.
+versions, a tower and train steps (with the fused loss and gradient
+accumulation too) on the card against the same on the CPU.
 
 Needs an NVIDIA GPU with nvcc; skips without one. The tests directory's
 conftest imports jax, which the GPU machine may lack, so run this file as
@@ -205,3 +206,148 @@ def test_train_step_on_card_matches_cpu(device):
             w = getattr(cpu_state, name)[k].float()
             torch.testing.assert_close(getattr(gpu_state, name)[k].float().cpu(), w,
                                        rtol=2 ** -7, atol=2e-3 * w.abs().max().item())
+
+
+# ------------------------------------------------ fused spatial cross-entropy
+
+def _ce_inputs(device, B, N, D=512, k=6, seed=0):
+    """The kernels' inputs as the loss builds them: unit rows, unique column
+    ids but one duplicated, each row's own id (rows past N take random
+    columns), neighbor ids from the column ids with a -1 share, weights in
+    [0, 1), scale 50."""
+    from spatial_clip_tpu_torch.ops.fused_contrastive import prepare_inputs
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = torch.nn.functional.normalize(torch.randn((B, D), generator=gen, device=device), dim=1)
+    kmat = torch.nn.functional.normalize(torch.randn((N, D), generator=gen, device=device), dim=1)
+    col_ids = torch.randperm(10 * N, generator=gen, device=device)[:N]
+    col_ids[N // 2] = col_ids[0]
+    gt = torch.arange(B, device=device) if B <= N else torch.randint(0, N, (B,), device=device)
+    picks = col_ids[torch.randint(0, N, (B, k), generator=gen, device=device)]
+    nbr = torch.where(torch.rand((B, k), generator=gen, device=device) < 0.8, picks, -1)
+    alphas = torch.rand((B, k), generator=gen, device=device)
+    return prepare_inputs(q, kmat, col_ids, gt, nbr, alphas, torch.tensor(50.0, device=device))
+
+
+@pytest.mark.parametrize("B,N", [(1024, 1024), (2048, 2048), (1000, 1999), (5, 3)])
+def test_spatial_ce_kernels_match_plain_versions(device, B, N):
+    """Each kernel against its plain version on the same inputs, f32
+    summation order only: loss, lse, mass within 1e-5 max(1, |ref|); dq, dK
+    within 1e-5 max|ref| + 1e-7; dscale within 1e-4 relative. Each launch is
+    counted once, and dq, dK and dscale are the same bits on a second run."""
+    from spatial_clip_tpu_torch.ops import fused_contrastive as fc
+
+    inputs = _ce_inputs(device, B, N)
+    g = torch.full((B,), 1.0 / B, device=device)
+    before = (fc.spatial_ce_fwd.launches, fc.spatial_ce_dq.launches, fc.spatial_ce_dk.launches)
+    outs = fc.spatial_ce_fwd(*inputs)
+    dq, ds = fc.spatial_ce_dq(*inputs, outs[1], outs[2], g)
+    dk = fc.spatial_ce_dk(*inputs, outs[1], outs[2], g)
+    torch.cuda.synchronize()
+    assert (fc.spatial_ce_fwd.launches, fc.spatial_ce_dq.launches,
+            fc.spatial_ce_dk.launches) == tuple(n + 1 for n in before)
+    for got, want in zip(outs, fc.reference_spatial_ce_fwd(*inputs)):
+        assert ((got - want).abs() <= 1e-5 * want.abs().clamp_min(1.0)).all()
+    want_dq, want_ds = fc.reference_spatial_ce_dq(*inputs, outs[1], outs[2], g)
+    want_dk = fc.reference_spatial_ce_dk(*inputs, outs[1], outs[2], g)
+    for got, want in ((dq, want_dq), (dk, want_dk)):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * want.abs().max().item() + 1e-7)
+    assert abs(ds.item() - want_ds.item()) <= 1e-4 * abs(want_ds.item())
+    dq2, ds2 = fc.spatial_ce_dq(*inputs, outs[1], outs[2], g)
+    dk2 = fc.spatial_ce_dk(*inputs, outs[1], outs[2], g)
+    assert torch.equal(dq, dq2) and torch.equal(ds, ds2) and torch.equal(dk, dk2)
+
+
+def test_spatial_ce_takes_its_widest_dim_and_refuses_wider(device):
+    """At D = MAX_DIM the backward's 32 x D accumulator still fits a block's
+    shared memory (the launch would fail otherwise)."""
+    from spatial_clip_tpu_torch.ops import fused_contrastive as fc
+
+    inputs = _ce_inputs(device, 40, 70, D=fc.MAX_DIM)
+    loss, lse, mass = fc.spatial_ce_fwd(*inputs)
+    g = torch.ones(40, device=device)
+    dk = fc.spatial_ce_dk(*inputs, lse, mass, g)
+    torch.testing.assert_close(dk, fc.reference_spatial_ce_dk(*inputs, lse, mass, g),
+                               rtol=0, atol=1e-5 * dk.abs().max().item() + 1e-7)
+    wide = _ce_inputs(device, 4, 4, D=fc.MAX_DIM + 1)
+    with pytest.raises(ValueError, match="D <="):
+        fc.spatial_ce_fwd(*wide)
+
+
+def test_grad_accum_fused_step_on_card_matches_cpu(device):
+    """Widened ViT-Test in f32, two Trainer steps with grad_accum=2 (cached)
+    and the fused loss on the card, through the attention and loss
+    kernels, against the CPU's plain path: loss and gradient norm at rtol
+    1e-4, parameters at atol 1e-5. Per step on the card: 2 loss forwards,
+    dq and dK launches per microbatch."""
+    from spatial_clip_tpu_torch.losses import make_loss
+    from spatial_clip_tpu_torch.ops import fused_contrastive as fc
+    from spatial_clip_tpu_torch.train.loop import Trainer, TrainerConfig
+
+    wide = dict(vision_cfg=dict(width=128, heads=2), text_cfg=dict(width=128, heads=2))
+    cfg = TrainerConfig(learning_rate=1e-3, warmup_steps=1, total_steps=10, augment=False,
+                        seed=0, grad_accum=2)
+    rng = np.random.default_rng(7)
+    B = 8
+    batch = {
+        "images": torch.from_numpy(rng.integers(0, 256, (B, 32, 32, 3), np.uint8)),
+        "texts": torch.from_numpy(rng.integers(0, 512, (B, 16))),
+        "image_tile_ids": torch.arange(B), "text_tile_ids": torch.arange(B),
+        "neighbor_tile_ids": torch.from_numpy(rng.integers(-1, B, (B, 4))),
+        "neighbor_alphas": torch.from_numpy(rng.uniform(0, 1, (B, 4)).astype(np.float32)),
+    }
+    counters = (fc.spatial_ce_fwd, fc.spatial_ce_dq, fc.spatial_ce_dk)
+    runs = {}
+    for dev in ("cpu", device):
+        trainer = Trainer(create_model("ViT-Test", precision="fp32", device=dev, training=True,
+                                       **wide),
+                          make_loss("spatial", cap_logit_scale=50.0, use_fused_kernel=True), cfg)
+        state = trainer.init_state()
+        before = [c.launches for c in counters]
+        metrics = []
+        for _ in range(2):
+            state, m = trainer.train_step(state, {k: v.to(dev) for k, v in batch.items()})
+            metrics.append({k: float(v) for k, v in m.items()})
+        runs[str(dev)] = (state, metrics, [c.launches - b for c, b in zip(counters, before)])
+    (cpu_state, cpu_m, cpu_n), (gpu_state, gpu_m, gpu_n) = runs["cpu"], runs[str(device)]
+    assert cpu_n == [0, 0, 0] and gpu_n == [2 * 2 * 2] * 3  # 2 directions x 2 microbatches x 2 steps
+    for want, got in zip(cpu_m, gpu_m):
+        for k in ("loss", "grad_norm", "logit_scale"):
+            assert got[k] == pytest.approx(want[k], rel=1e-4), k
+    for k, want in cpu_state.params.items():
+        torch.testing.assert_close(gpu_state.params[k].detach().cpu(), want.detach(),
+                                   atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("kind", ["fwd", "dq", "dk"])
+def test_spatial_ce_entry_refuses_short_scratch(device, kind):
+    """The kernels' source sizes each entry's scratch from its own split of
+    the work; given one element less, the entry refuses to launch."""
+    from spatial_clip_tpu_torch.ops import cuda_build
+    from spatial_clip_tpu_torch.ops import fused_contrastive as fc
+
+    B = N = 1024
+    inputs = _ce_inputs(device, B, N)
+    q, kmat = inputs[0], inputs[1]
+    code = {"fwd": fc.FWD, "dq": fc.DQ, "dk": fc.DK}[kind]
+    scratch = fc._scratch(code, q, kmat)
+    assert scratch.numel() > 0  # B = N = 1024 splits the work on an H100
+    lse, mass, g = torch.ones((3, B), device=device)
+    out = {"fwd": (torch.empty((3, B), device=device).unbind(0), ()),
+           "dq": ((lse, mass, g), (torch.empty_like(q), torch.empty((), device=device))),
+           "dk": ((lse, mass, g), (torch.empty_like(kmat),))}[kind]
+    before, after = ((), out[0]) if kind == "fwd" else out
+    lib = cuda_build.library()
+    err = getattr(lib, f"sc_spatial_ce_{kind}")(
+        *(t.data_ptr() for t in (*inputs, *before)), scratch.data_ptr(), scratch.numel() - 1,
+        *(t.data_ptr() for t in after), B, N, q.shape[1], inputs[4].shape[1],
+        torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+
+
+def test_spatial_ce_cuda_tensor_never_falls_back(device):
+    from spatial_clip_tpu_torch.ops import fused_contrastive as fc
+
+    q, kmat, col_ids, gt, nbr, alphas, scale = _ce_inputs(device, 8, 8)
+    with pytest.raises(ValueError, match="on cuda"):
+        fc.spatial_ce_fwd(q, kmat.cpu(), col_ids, gt, nbr, alphas, scale)

@@ -1,6 +1,7 @@
 """The port's training slice against the JAX package on the same inputs:
 the augment/normalize stage, the losses, the schedules, the optimizer chain,
-the model's loss gradients, and whole train steps.
+the model's loss gradients, whole train steps (with and without gradient
+accumulation), fit and evaluate.
 
 ViT-Test is widened to head_dim 64 (width 128, 2 heads), as the other port
 tests widen it, so both towers take the attention kernels' geometry. Random
@@ -306,10 +307,134 @@ def test_three_train_steps_match_jax_trainer():
                                        atol=2e-3 * np.abs(theirs).max(), err_msg=f"{name} {k}")
 
 
+# ------------------------------------------- gradient accumulation, fit, eval
+
+FUSED_LOSS = dict(cap_logit_scale=50.0, use_fused_kernel=True)
+
+
+def _pair(cfg_kw, loss_kw=FUSED_LOSS):
+    """The JAX Trainer and the port's on the same widened ViT-Test weights."""
+    jb = jax_create_model("ViT-Test", precision="fp32", seed=0, **WIDE)
+    jt = JaxTrainer(jb, loss=jax_make_loss("spatial", **loss_kw),
+                    config=JaxTrainerConfig(**cfg_kw), mesh=make_mesh(devices=jax.devices()[:1]))
+    model = create_model("ViT-Test", precision="fp32", device="cpu", training=True, **WIDE)
+    model.load_state_dict(from_jax_params(jb.params))
+    return jt, Trainer(model, make_loss("spatial", **loss_kw), TrainerConfig(**cfg_kw))
+
+
+@pytest.mark.parametrize("mode", ["cached", "simple"])
+def test_grad_accum_steps_match_jax_trainer(mode):
+    """Three steps at grad_accum=2 (microbatches of 4) with the fused loss,
+    augment=False, against the JAX Trainer, at the tolerances of
+    test_three_train_steps_match_jax_trainer: metrics at rtol 1e-5 and exact
+    R@k (cached: full-batch 8 x 8 logits; simple: the last microbatch's
+    4 x 4), parameters at atol 2e-5 after the three steps."""
+    jt, trainer = _pair(dict(learning_rate=1e-3, warmup_steps=2, total_steps=50, augment=False,
+                             seed=0, grad_accum=2, grad_accum_mode=mode))
+    jstep, jstate = jt.make_train_step(), jt.init_state()
+    state = trainer.init_state()
+    for i in range(3):
+        batch = _batch(20 + i)
+        jstate, jm = jstep(jstate, jt._device_batch(batch))
+        state, m = trainer.train_step(state, _torch_batch(batch))
+        for k in ("loss", "grad_norm", "logit_scale", "lr"):
+            np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=1e-5, atol=1e-12,
+                                       err_msg=f"step {i} {k}")
+        for k in ("R@1", "R@5", "R@10"):
+            assert float(m[k]) == float(jm[k]), (i, k)
+    want = from_jax_train_state(jax.tree.map(np.asarray, jstate))
+    assert (state.count, state.step) == (want.count, want.step) == (3, 3)
+    for k, w in want.params.items():
+        np.testing.assert_allclose(state.params[k].detach().numpy(), w.detach().numpy(),
+                                   atol=2e-5, rtol=0, err_msg=k)
+
+
+def test_cached_accum_reproduces_full_batch_gradient():
+    """accum=4 cached (microbatches of 4 rows, neighbors that cross them)
+    against one full-batch gradient on the same parameters, fused loss, no
+    augmentation: every gradient at rtol 2e-3 / atol 2e-5
+    (tests/test_train_loop.py's tolerances), the logit scale's summed 4
+    times (the reference's quirk); the loss equal at rtol 1e-5 and the
+    logits over the full batch."""
+    model = create_model("ViT-Test", precision="fp32", device="cpu", training=True, **WIDE)
+    batch = _torch_batch(_batch(30, B=16))
+    nbr, rows = batch["neighbor_tile_ids"], torch.arange(16)[:, None]
+    assert ((nbr >= 0) & ((nbr - rows).abs() >= 4)).any()  # crosses microbatches
+    runs = {}
+    for accum in (1, 4):
+        trainer = Trainer(model, make_loss("spatial", **FUSED_LOSS),
+                          TrainerConfig(augment=False, grad_accum=accum))
+        state = trainer.init_state()
+        runs[accum] = (state, *trainer.forward_backward(state, batch))
+    (state, loss_full, _, g_full), (_, loss_acc, logits, g_acc) = runs[1], runs[4]
+    assert logits.shape == (16, 16)
+    np.testing.assert_allclose(loss_acc.item(), loss_full.item(), rtol=1e-5)
+    full, acc = state.by_name(g_full), state.by_name(g_acc)
+    np.testing.assert_allclose(acc["logit_scale"].item(), 4 * full["logit_scale"].item(),
+                               rtol=1e-4)
+    for k in state.order:
+        if k != "logit_scale":
+            np.testing.assert_allclose(acc[k].numpy(), full[k].numpy(), rtol=2e-3, atol=2e-5,
+                                       err_msg=k)
+
+
+def test_batch_that_grad_accum_does_not_split_raises():
+    model = create_model("ViT-Test", precision="fp32", device="cpu", training=True, **WIDE)
+    trainer = Trainer(model, make_loss("spatial"), TrainerConfig(augment=False, grad_accum=3))
+    with pytest.raises(ValueError, match="grad_accum=3"):
+        trainer.train_step(trainer.init_state(), _torch_batch(_batch(0)))
+
+
+def test_fit_and_evaluate_match_jax_fit():
+    """Trainer.fit over two epochs of numpy batches (cached grad_accum=2,
+    fused loss, log_every=1) with validation, against the JAX Trainer's fit
+    on the same batches: every key of the last metrics (timing keys
+    excepted: their values) at rtol 1e-5, the in-batch and full-split
+    retrieval metrics exactly, best_step equal; then evaluate() alone gives
+    the val/ metrics again."""
+    cfg_kw = dict(learning_rate=1e-3, warmup_steps=1, total_steps=20, augment=False, seed=0,
+                  grad_accum=2, log_every=1, monitor="loss", monitor_mode="min")
+    jt, trainer = _pair(cfg_kw)
+    train = [_batch(40 + i) for i in range(3)]
+    val = [_batch(50 + i) for i in range(2)]
+    jstate, want = jt.fit(lambda: iter(train), lambda: iter(val), epochs=2)
+    state, got = trainer.fit(lambda: iter(train), lambda: iter(val), epochs=2)
+    assert set(got) == set(want)
+    assert state.step == int(jstate.step) == 6 and trainer.best_step == jt.best_step
+    assert got["epoch"] == want["epoch"] == 1 and got["val/num_samples"] == 16.0
+    timing = {"pairs_per_sec", "pairs_per_sec_per_chip"}
+    for k in sorted(set(got) - timing):
+        exact = "R@" in k or "rank" in k
+        np.testing.assert_allclose(got[k], float(want[k]), rtol=0 if exact else 1e-5,
+                                   atol=0 if exact else 1e-12, err_msg=k)
+    for k in timing:
+        assert got[k] > 0
+    again = trainer.evaluate(state, iter(val))
+    assert again == {k[4:]: v for k, v in got.items() if k.startswith("val/")}
+
+
+def test_contrastive_metrics_and_retrieval_match_jax():
+    from spatial_clip_tpu.train.metrics import ContrastiveMetrics as JaxMetrics
+    from spatial_clip_tpu.train.metrics import clip_retrieval_metrics as jax_retrieval
+    from spatial_clip_tpu_torch.train.metrics import ContrastiveMetrics, clip_retrieval_metrics
+
+    rng = np.random.default_rng(6)
+    img, txt = rng.normal(size=(2, 12, 8)).astype(np.float32)
+    img[3] = img[4]  # a tie: strict > keeps both ranks
+    ours, theirs = ContrastiveMetrics(), JaxMetrics()
+    s, js = ours.init(), theirs.init()
+    for n in (5, 7):  # k_eff = min(k, n) for the 5-column batch
+        logits = rng.normal(size=(n, n)).astype(np.float32)
+        s = ours.update(s, torch.from_numpy(logits), torch.arange(n))
+        js = theirs.update(js, jnp.asarray(logits), jnp.arange(n))
+    assert ours.compute(s) == theirs.compute(js)
+    assert clip_retrieval_metrics(img, txt) == jax_retrieval(img, txt)
+
+
 # -------------------------------------------------------------- what raises
 
 @pytest.mark.parametrize("field,value", [
-    ("grad_accum", 2), ("master_weights", True), ("grad_dtype", "bf16"), ("opt", "lion"),
+    ("master_weights", True), ("grad_dtype", "bf16"), ("opt", "lion"),
     ("frozen_prefixes", ("visual",)), ("ckpt_dir", "/nonexistent"),
 ])
 def test_unported_trainer_options_raise(field, value):
@@ -319,8 +444,6 @@ def test_unported_trainer_options_raise(field, value):
 
 
 def test_unported_losses_and_serving_models_raise():
-    with pytest.raises(NotImplementedError, match="use_fused_kernel"):
-        make_loss("spatial", use_fused_kernel=True)
     for kind in ("siglip", "coca", "distill", "spatial_ring"):
         with pytest.raises(NotImplementedError, match=kind):
             make_loss(kind)
@@ -328,9 +451,8 @@ def test_unported_losses_and_serving_models_raise():
     with pytest.raises(ValueError, match="training=True"):
         Trainer(serving)
     model = create_model("ViT-Test", precision="fp32", device="meta", training=True, **WIDE)
-    for method in (Trainer(model).fit, Trainer(model).evaluate):
-        with pytest.raises(NotImplementedError):
-            method()
+    with pytest.raises(NotImplementedError, match="resume"):
+        Trainer(model).fit(lambda: iter(()), resume="latest")
 
 
 def test_training_model_checks_backward_geometry():
