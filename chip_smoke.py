@@ -20,9 +20,11 @@ the exit code is not 0. No JAX is imported.
 5. timing  median encode time per batch of 64 tiles and of 64 texts, and the
            median latency of a 64-tile request through the server
 6. kernel-train  the training attention kernels (forward with logsumexp,
-           backward with the bias gradient) against their plain versions at
-           the two towers' shapes at batch 256 (phase 8) and at microbatch
-           1024 (phase 11's pass 2), and one f32 shape
+           backward with the bias gradient, and the backward that recomputes
+           the softmax statistics, which phase 14's ln_gemm_impl setting
+           runs) against their plain versions at the two towers' shapes at
+           batch 256 (phase 8) and at microbatch 1024 (phase 11's pass 2),
+           and one f32 shape
 7. train-check  one ViT-B-32 train step's loss and gradients at batch 32 on
            the card (bf16, kernels) against the CPU (f32, plain path), on the
            same weights, batch and augmentation draws
@@ -44,12 +46,30 @@ the exit code is not 0. No JAX is imported.
            batches: 4 steps, exact kernel launch counts per step, finite
            losses and gradient norms, then Trainer.evaluate on 2 batches of
            1024; median step ms, pairs/s, peak memory, eval R@1
+12. kernel-ln  the LayerNorm kernels (fused_ln forward and backward,
+           fused_ln_dense forward and dx) against their plain versions at the
+           training shapes (batch 256: image (12800, 768), text (19712, 512);
+           image c_fc 768 -> 3072, image qkv 768 -> 2304, text c_fc 512 ->
+           2048, text qkv 512 -> 1536) and at ragged row counts (one f32);
+           dgamma/dbeta the same
+           bits on a rerun; F.layer_norm and F.linear(F.layer_norm) timed as
+           yardsticks
+13. ln-check  under ln_impl='pallas' and under ln_gemm_impl='pallas' with
+           attn_impl='pallas': phase 7's card-vs-CPU step at batch 32, and 64
+           tiles and 64 texts encoded in bf16 against the f32 CPU plain path
+           (per-row cosine, exact launches per encode)
+14. train-ln  phase 8's bench workload under each of the two settings:
+           exact launches per step (51 + 51 fused_ln and 24 + 24 attention
+           forward-lse and backward; 48 + 48 fused_ln_dense and 24 + 24
+           attention inference forward and recompute backward), finite
+           losses, median step ms beside phase 8's, peak memory
 
 Phases 3 and 6 also time PyTorch's scaled_dot_product_attention
-(efficient-attention backend) at the kernels' shapes as a yardstick; the
-port never calls it. Then one JSON line with the kernels (each with its
-launches on the main path, error, time, plain time, bound and library
-time), the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+(efficient-attention backend) at the kernels' shapes as a yardstick, and
+phase 12 PyTorch's LayerNorm and linear layers; the port never calls them.
+Then one JSON line with the kernels (each with its launches on the main
+path, error, time, plain time, bound and library time), the nvidia-smi
+line, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -90,7 +110,7 @@ def attention_bound(qkv, heads: int, kind: str):
     each output written once; the dots at the bf16 tensor-core peak (f32:
     the CUDA cores' peak, TF32 being other arithmetic).
     kind: 'fwd' (qkv -> out), 'fwd_lse' (+ lse), 'bwd' (qkv, do, lse ->
-    dqkv, db)."""
+    dqkv, db), 'bwd_recompute' (qkv, do -> dqkv)."""
     import torch
 
     B, L, three_d = qkv.shape
@@ -103,6 +123,8 @@ def attention_bound(qkv, heads: int, kind: str):
         return bound(B * L * (three_d + D) * item, 2 * dots, peak)
     if kind == "fwd_lse":
         return bound(B * L * (three_d + D) * item + lse, 2 * dots, peak)
+    if kind == "bwd_recompute":
+        return bound(B * L * (2 * three_d + D) * item, 5 * dots, peak)
     return bound(B * L * (2 * three_d + D) * item + lse + 4 * three_d, 5 * dots, peak)
 
 
@@ -136,8 +158,8 @@ def sdpa_ms(qkv, mask, heads: int) -> dict:
 
 
 def train_tol(dtype, ref):
-    """Training kernels vs their plain versions. f32: summation order only.
-    bf16: both round at the same points, so they differ where an f32 sum in
+    """Training and LayerNorm kernels vs their plain versions. f32:
+    summation order only. bf16: both round at the same points, so they differ where an f32 sum in
     another order lands on the other side of a bf16 rounding: one bf16 step
     (2^-8) of the output's largest magnitude (dq sums L terms, so its
     magnitude, not 1, sets the step)."""
@@ -386,6 +408,10 @@ def main() -> int:
     loss_rows = kernel_loss_phase()
     loss_check_phase(model)
     large = train_large_phase(model)
+    del model
+    ln_rows = kernel_ln_phase()
+    ln_check_phase()
+    ln_train = train_ln_phase(train["step_ms"])
 
     image = kernel_rows["image"]
     at_train = "qkv (256, 50, 2304) bf16, no mask (image tower, batch 256)"
@@ -421,6 +447,21 @@ def main() -> int:
             "library_ms": row[f"{part}_library_ms"],
             "at": at_train,
         })
+    row = train_rows["image"]
+    kernels.append({
+        "name": "fused_attention_bwd_recompute",
+        "route": "cuda",
+        "source": "spatial_clip_tpu_torch/csrc/fused_attention_bwd.cu",
+        "replaces": "spatial_clip_tpu/ops/fused_attention.py:379",
+        "launches": ln_train["ln_gemm_impl=pallas"]["counts"][7],
+        "max_abs_err": max(r["bwd_re_err"] for r in train_rows.values()),
+        "ms": row["bwd_re_ms"],
+        "plain_ms": row["bwd_re_plain_ms"],
+        "bound_ms": row["bwd_re_bound_ms"],
+        "bound_by": row["bwd_re_bound_by"],
+        "library_ms": row["bwd_re_library_ms"],
+        "at": at_train,
+    })
     main_shape = loss_rows[f"{LARGE_MICRO * LARGE_ACCUM}"]
     for part, line in (("fwd", 50), ("dq", 114), ("dk", 158)):
         kernels.append({
@@ -438,6 +479,32 @@ def main() -> int:
             "at": f"q, K ({LARGE_MICRO * LARGE_ACCUM}, 512) f32, k {NEIGHBORS} (cached "
                   f"accumulation {LARGE_ACCUM} x {LARGE_MICRO})",
         })
+    ln_kernels = (  # name, family, TPU kernel line, main shape, part, setting, counter, at
+        ("fused_ln_fwd", "fused_ln", 48, "image", "fwd", "ln_impl=pallas", 0,
+         "x (12800, 768) bf16 (image tower, batch 256)"),
+        ("fused_ln_bwd", "fused_ln", 60, "image", "bwd", "ln_impl=pallas", 1,
+         "x, dy (12800, 768) bf16 (image tower, batch 256)"),
+        ("fused_ln_dense_fwd", "fused_ln_dense", 50, "image_fc", "fwd", "ln_gemm_impl=pallas", 2,
+         "x (12800, 768) -> 3072 bf16 (image c_fc, batch 256)"),
+        ("fused_ln_dense_bwd_dx", "fused_ln_dense", 65, "image_fc", "bwd", "ln_gemm_impl=pallas",
+         3, "x (12800, 768), g (12800, 3072) bf16 (image c_fc, batch 256)"),
+    )
+    for name, family, line, shape, part, setting, index, at in ln_kernels:
+        row = ln_rows[family][shape]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"spatial_clip_tpu_torch/csrc/{family}.cu",
+            "replaces": f"spatial_clip_tpu/ops/{family}.py:{line}",
+            "launches": ln_train[setting]["counts"][index],
+            "max_abs_err": max(r[f"{part}_err"] for r in ln_rows[family].values()),
+            "ms": row[f"{part}_ms"],
+            "plain_ms": row[f"{part}_plain_ms"],
+            "bound_ms": row[f"{part}_bound_ms"],
+            "bound_by": row[f"{part}_bound_by"],
+            "library_ms": row[f"{part}_library_ms"],
+            "at": at,
+        })
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
@@ -451,6 +518,7 @@ def kernel_train_phase() -> dict:
     from spatial_clip_tpu_torch.models.transformer import causal_mask
     from spatial_clip_tpu_torch.ops.fused_attention import (
         fused_attention_bwd,
+        fused_attention_bwd_recompute,
         fused_attention_lse,
         reference_attention_bwd,
         reference_attention_lse,
@@ -471,14 +539,18 @@ def kernel_train_phase() -> dict:
         mask = causal_mask(L, device="cuda") if causal else None
         out, lse = fused_attention_lse(qkv, mask, H)
         dqkv, db = fused_attention_bwd(qkv, mask, lse, g, H)
+        dqkv_re = fused_attention_bwd_recompute(qkv, mask, g, H)
         want_out, want_lse = reference_attention_lse(qkv, mask, H)
         want_dqkv, want_db = reference_attention_bwd(qkv, mask, want_lse, g, H)
+        want_re = reference_attention_bwd(qkv, mask, None, g, H)[0]
         torch.cuda.synchronize()
         checks = {  # name: (error, tolerance)
             "out": (out.float() - want_out.float(), train_tol(dtype, want_out.float())),
             "lse": (lse - want_lse, 1e-5 * max(1.0, want_lse.abs().max().item())),
             "dqkv": (dqkv.float() - want_dqkv.float(), train_tol(dtype, want_dqkv.float())),
             "db": (db - want_db, train_tol(dtype, want_db) + 1e-4),
+            "dqkv_recompute": (dqkv_re.float() - want_re.float(),
+                               train_tol(dtype, want_re.float())),
         }
         errs = {k: (d.abs().max().item(), tol) for k, (d, tol) in checks.items()}
         bad = {k: v for k, v in errs.items() if not v[0] <= v[1]}
@@ -491,11 +563,16 @@ def kernel_train_phase() -> dict:
             fwd_plain_ms=median_ms(lambda: reference_attention_lse(qkv, mask, H)),
             bwd_ms=median_ms(lambda: fused_attention_bwd(qkv, mask, lse, g, H)),
             bwd_plain_ms=median_ms(lambda: reference_attention_bwd(qkv, mask, lse, g, H)),
+            bwd_re_err=errs["dqkv_recompute"][0],
+            bwd_re_ms=median_ms(lambda: fused_attention_bwd_recompute(qkv, mask, g, H)),
+            bwd_re_plain_ms=median_ms(lambda: reference_attention_bwd(qkv, mask, None, g, H)),
         )
         library = sdpa_ms(qkv, mask, H)
-        row.update(fwd_library_ms=library["fwd_lse"], bwd_library_ms=library["bwd"])
+        row.update(fwd_library_ms=library["fwd_lse"], bwd_library_ms=library["bwd"],
+                   bwd_re_library_ms=library["bwd"])
         (row["fwd_bound_ms"], row["fwd_bound_by"]), (row["bwd_bound_ms"], row["bwd_bound_by"]) = (
             attention_bound(qkv, H, "fwd_lse"), attention_bound(qkv, H, "bwd"))
+        row["bwd_re_bound_ms"], row["bwd_re_bound_by"] = attention_bound(qkv, H, "bwd_recompute")
         rows[name] = row
         print(f"[kernel-train] {name} qkv {tuple(qkv.shape)} {str(dtype)[6:]} "
               f"mask={'causal' if causal else 'none'}: max abs err (tol) " + ", ".join(
@@ -504,22 +581,24 @@ def kernel_train_phase() -> dict:
               f" SDPA {row['fwd_library_ms']:.4f} ms, bound {row['fwd_bound_ms']:.4f} ms"
               f" ({row['fwd_bound_by']}); bwd kernel {row['bwd_ms']:.4f} ms vs plain "
               f"{row['bwd_plain_ms']:.4f} ms, SDPA {row['bwd_library_ms']:.4f} ms, bound "
-              f"{row['bwd_bound_ms']:.4f} ms ({row['bwd_bound_by']})", flush=True)
+              f"{row['bwd_bound_ms']:.4f} ms ({row['bwd_bound_by']}); recompute bwd kernel "
+              f"{row['bwd_re_ms']:.4f} ms vs plain {row['bwd_re_plain_ms']:.4f} ms, bound "
+              f"{row['bwd_re_bound_ms']:.4f} ms ({row['bwd_re_bound_by']})", flush=True)
     return rows
 
 
-def train_check_phase():
-    """7. One train step's loss and gradients, card (bf16, kernels) vs CPU
-    (f32, plain path), on the same weights, batch and augmentation draws.
-    Returns the card's trainer for phase 8."""
+def train_check_phase(label: str = "train-check", **settings):
+    """7 (and 13 under ``settings``). One train step's loss and gradients,
+    card (bf16, kernels) vs CPU (f32, plain path), on the same weights,
+    batch and augmentation draws. Returns the card's trainer."""
     import torch
 
     from spatial_clip_tpu_torch.bench import make_trainer, synthetic_batch
     from spatial_clip_tpu_torch.models.transforms import AugmentDraws
 
     t0 = time.perf_counter()
-    card = make_trainer("ViT-B-32", device="cuda")
-    cpu = make_trainer("ViT-B-32", device="cpu", precision="fp32")  # same f32 weights
+    card = make_trainer("ViT-B-32", device="cuda", **settings)
+    cpu = make_trainer("ViT-B-32", device="cpu", precision="fp32", **settings)  # same weights
     card_state, cpu_state = card.init_state(), cpu.init_state()
     batch = synthetic_batch(cpu.model, CHECK_BATCH, seed=1, device="cpu")
     rng = np.random.default_rng(2)
@@ -545,9 +624,10 @@ def train_check_phase():
     if not (finite and rel <= MAX_LOSS_REL_ERR and cos_all >= MIN_GRAD_COSINE
             and min(cos_bias["q"], cos_bias["v"]) >= MIN_GRAD_COSINE):
         raise AssertionError(
-            f"[train-check] loss card {loss_card.item()} cpu {loss_cpu.item()} (rel {rel}), "
+            f"[{label}] loss card {loss_card.item()} cpu {loss_cpu.item()} (rel {rel}), "
             f"grad cosine {cos_all}, qkv-bias grad cosine {cos_bias}, finite {finite}")
-    print(f"[train-check] ViT-B-32 batch {CHECK_BATCH}, one step, same weights/batch/draws: "
+    print(f"[{label}] ViT-B-32{settings or ''} batch {CHECK_BATCH}, one step, same "
+          f"weights/batch/draws: "
           f"loss card bf16 {loss_card.item():.6f} vs CPU f32 {loss_cpu.item():.6f} "
           f"(rel err {rel:.3g} <= {MAX_LOSS_REL_ERR}); flattened gradient cosine "
           f"{cos_all:.6f} (>= {MIN_GRAD_COSINE}); qkv-bias gradient cosine q "
@@ -853,6 +933,264 @@ def train_large_phase(model) -> dict:
           f"{eval_counts[3]}; loss {val['loss']:.4f}, R@1 {val['R@1']:.4f}, image_to_text_R@1 "
           f"{val['image_to_text_R@1']:.4f}", flush=True)
     return {"fwd": counts[3], "dq": counts[4], "dk": counts[5], "step_ms": med}
+
+
+LN_SETTINGS = {  # phases 13-14: the two fused LayerNorm settings
+    "ln_impl=pallas": dict(ln_impl="pallas"),
+    "ln_gemm_impl=pallas": dict(ln_gemm_impl="pallas", attn_impl="pallas"),
+}
+
+
+def library_fwd_bwd_ms(fwd, inputs, grad_out) -> tuple:
+    """(forward ms, backward ms) of a PyTorch composition: the backward is
+    forward+backward minus forward, through autograd on ``inputs``."""
+    import torch
+
+    with torch.no_grad():
+        fwd_ms = median_ms(fwd)
+    both = median_ms(lambda: torch.autograd.grad(fwd(), inputs, grad_out))
+    return fwd_ms, both - fwd_ms
+
+
+def kernel_ln_phase() -> dict:
+    """12. The four LayerNorm kernels against their plain versions on the
+    card at the main path's shapes and one ragged shape each; dgamma/dbeta
+    (f32, at 1e-5 max|ref|) the same bits on a second run. Library
+    yardsticks: F.layer_norm forward and its autograd backward; for the LN
+    -> GEMM kernels the two calls F.linear(F.layer_norm(x)) and their
+    backward to x."""
+    import torch
+    import torch.nn.functional as F
+
+    from spatial_clip_tpu_torch.ops import fused_ln as fl
+    from spatial_clip_tpu_torch.ops import fused_ln_dense as fd
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rows = {"fused_ln": {}, "fused_ln_dense": {}}
+    for name, R, D, dtype in (("image", TRAIN_BATCH * 50, 768, torch.bfloat16),
+                              ("text", TRAIN_BATCH * 77, 512, torch.bfloat16),
+                              ("ragged_f32", 1001, 384, torch.float32)):
+        x = (torch.randn((R, D), generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+        gamma = 1 + 0.1 * torch.randn((D,), generator=gen, device="cuda")
+        beta = 0.1 * torch.randn((D,), generator=gen, device="cuda")
+        dy = torch.randn((R, D), generator=gen, device="cuda").to(dtype)
+        y = fl.fused_ln_fwd(x, gamma, beta, 1e-5)
+        dx, dg, db = fl.fused_ln_bwd(x, gamma, dy, 1e-5)
+        _, dg2, db2 = fl.fused_ln_bwd(x, gamma, dy, 1e-5)
+        want_y = fl.reference_ln_fwd(x, gamma, beta, 1e-5)
+        want_dx, want_dg, want_db = fl.reference_ln_bwd(x, gamma, dy, 1e-5)
+        torch.cuda.synchronize()
+        checks = {  # name: (error, tolerance)
+            "y": ((y.float() - want_y.float()).abs().max().item(), train_tol(dtype, want_y.float())),
+            "dx": ((dx.float() - want_dx.float()).abs().max().item(),
+                   train_tol(dtype, want_dx.float())),
+            "dgamma": ((dg - want_dg).abs().max().item(), 1e-5 * want_dg.abs().max().item()),
+            "dbeta": ((db - want_db).abs().max().item(), 1e-5 * want_db.abs().max().item()),
+        }
+        bad = {k: v for k, v in checks.items() if not v[0] <= v[1]}
+        same_bits = torch.equal(dg, dg2) and torch.equal(db, db2)
+        if bad or not same_bits:
+            raise AssertionError(f"[kernel-ln] fused_ln {name}: over tolerance {bad}, "
+                                 f"dgamma/dbeta same bits on a rerun: {same_bits}")
+        xg = x.detach().requires_grad_()
+        gl, bl = (t.to(dtype).requires_grad_() for t in (gamma, beta))
+        lib_fwd, lib_bwd = library_fwd_bwd_ms(lambda: F.layer_norm(xg, (D,), gl, bl, 1e-5),
+                                              (xg, gl, bl), dy)
+        item = x.element_size()
+        row = dict(
+            fwd_err=checks["y"][0], bwd_err=max(checks[k][0] for k in ("dx", "dgamma", "dbeta")),
+            fwd_ms=median_ms(lambda: fl.fused_ln_fwd(x, gamma, beta, 1e-5)),
+            fwd_plain_ms=median_ms(lambda: fl.reference_ln_fwd(x, gamma, beta, 1e-5)),
+            bwd_ms=median_ms(lambda: fl.fused_ln_bwd(x, gamma, dy, 1e-5)),
+            bwd_plain_ms=median_ms(lambda: fl.reference_ln_bwd(x, gamma, dy, 1e-5)),
+            fwd_library_ms=lib_fwd, bwd_library_ms=lib_bwd)
+        # fwd: x in, y out, gamma/beta; bwd: x, dy in, dx out, gamma in, dgamma/dbeta out
+        (row["fwd_bound_ms"], row["fwd_bound_by"]) = bound(2 * R * D * item + 8 * D,
+                                                           8 * R * D, F32_FLOPS)
+        (row["bwd_bound_ms"], row["bwd_bound_by"]) = bound(3 * R * D * item + 12 * D,
+                                                           14 * R * D, F32_FLOPS)
+        rows["fused_ln"][name] = row
+        print(f"[kernel-ln] fused_ln {name} x ({R}, {D}) {str(dtype)[6:]}: max abs err (tol) "
+              + ", ".join(f"{k} {e:.3g} ({t:.3g})" for k, (e, t) in checks.items())
+              + f", dgamma/dbeta same bits on a rerun; fwd kernel {row['fwd_ms']:.4f} ms vs "
+              f"plain {row['fwd_plain_ms']:.4f}, F.layer_norm {lib_fwd:.4f}, bound "
+              f"{row['fwd_bound_ms']:.4f} ({row['fwd_bound_by']}); bwd kernel "
+              f"{row['bwd_ms']:.4f} ms vs plain {row['bwd_plain_ms']:.4f}, F.layer_norm "
+              f"backward {lib_bwd:.4f}, bound {row['bwd_bound_ms']:.4f} ({row['bwd_bound_by']})",
+              flush=True)
+
+    for name, R, K, N, dtype in (("image_fc", TRAIN_BATCH * 50, 768, 3072, torch.bfloat16),
+                                 ("image_qkv", TRAIN_BATCH * 50, 768, 2304, torch.bfloat16),
+                                 ("text_fc", TRAIN_BATCH * 77, 512, 2048, torch.bfloat16),
+                                 ("text_qkv", TRAIN_BATCH * 77, 512, 1536, torch.bfloat16),
+                                 ("ragged", 1000, 512, 1408, torch.bfloat16),
+                                 ("ragged_f32", 333, 256, 384, torch.float32)):
+        x = (torch.randn((R, K), generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+        gamma = 1 + 0.1 * torch.randn((K,), generator=gen, device="cuda")
+        beta = 0.1 * torch.randn((K,), generator=gen, device="cuda")
+        weight = torch.randn((N, K), generator=gen, device="cuda") / K ** 0.5
+        bias = 0.1 * torch.randn((N,), generator=gen, device="cuda")
+        g = torch.randn((R, N), generator=gen, device="cuda").to(dtype)
+        w1, b1 = fd._fold(gamma, beta, weight, bias, dtype)
+        y, xhat = fd.ln_dense_fwd(x, w1, b1, 1e-5)
+        dx = fd.ln_dense_bwd_dx(x, g, w1, 1e-5)
+        want_y, want_xhat = fd.reference_ln_dense_fwd(x, w1, b1, 1e-5)
+        want_dx = fd.reference_ln_dense_bwd_dx(x, g, w1, 1e-5)
+        torch.cuda.synchronize()
+        checks = {k: ((got.float() - want.float()).abs().max().item(),
+                      train_tol(dtype, want.float()))
+                  for k, got, want in (("y", y, want_y), ("xhat", xhat, want_xhat),
+                                       ("dx", dx, want_dx))}
+        bad = {k: v for k, v in checks.items() if not v[0] <= v[1]}
+        if bad:
+            raise AssertionError(f"[kernel-ln] fused_ln_dense {name}: over tolerance {bad}")
+        xg = x.detach().requires_grad_()
+        gl, bl, wl, biasl = (t.to(dtype) for t in (gamma, beta, weight, bias))
+        lib_fwd, lib_bwd = library_fwd_bwd_ms(
+            lambda: F.linear(F.layer_norm(xg, (K,), gl, bl, 1e-5), wl, biasl), (xg,), g)
+        item, peak = x.element_size(), BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+        row = dict(
+            fwd_err=max(checks["y"][0], checks["xhat"][0]), bwd_err=checks["dx"][0],
+            fwd_ms=median_ms(lambda: fd.ln_dense_fwd(x, w1, b1, 1e-5)),
+            fwd_plain_ms=median_ms(lambda: fd.reference_ln_dense_fwd(x, w1, b1, 1e-5)),
+            bwd_ms=median_ms(lambda: fd.ln_dense_bwd_dx(x, g, w1, 1e-5)),
+            bwd_plain_ms=median_ms(lambda: fd.reference_ln_dense_bwd_dx(x, g, w1, 1e-5)),
+            fwd_library_ms=lib_fwd, bwd_library_ms=lib_bwd)
+        # fwd: x, W', b' in; y, xhat out. dx: x, g, W' in; dx out
+        (row["fwd_bound_ms"], row["fwd_bound_by"]) = bound(
+            (2 * R * K + N * K + R * N) * item + 4 * N, 2 * R * K * N, peak)
+        (row["bwd_bound_ms"], row["bwd_bound_by"]) = bound(
+            (2 * R * K + N * K + R * N) * item, 2 * R * K * N, peak)
+        rows["fused_ln_dense"][name] = row
+        print(f"[kernel-ln] fused_ln_dense {name} x ({R}, {K}) -> {N} {str(dtype)[6:]}: max abs "
+              "err (tol) " + ", ".join(f"{k} {e:.3g} ({t:.3g})" for k, (e, t) in checks.items())
+              + f"; fwd kernel {row['fwd_ms']:.4f} ms vs plain {row['fwd_plain_ms']:.4f}, "
+              f"F.linear(F.layer_norm) {lib_fwd:.4f}, bound {row['fwd_bound_ms']:.4f} "
+              f"({row['fwd_bound_by']}, share {row['fwd_bound_ms'] / row['fwd_ms']:.3f}); dx "
+              f"kernel {row['bwd_ms']:.4f} ms vs plain {row['bwd_plain_ms']:.4f}, their "
+              f"backward to x {lib_bwd:.4f}, bound {row['bwd_bound_ms']:.4f} "
+              f"({row['bwd_bound_by']}, share {row['bwd_bound_ms'] / row['bwd_ms']:.3f})",
+              flush=True)
+    return rows
+
+
+def ln_counters():
+    from spatial_clip_tpu_torch.ops import fused_ln as fl
+    from spatial_clip_tpu_torch.ops import fused_ln_dense as fd
+    from spatial_clip_tpu_torch.ops.fused_attention import (
+        fused_attention,
+        fused_attention_bwd,
+        fused_attention_bwd_recompute,
+        fused_attention_lse,
+    )
+
+    return (fl.fused_ln_fwd, fl.fused_ln_bwd, fd.ln_dense_fwd, fd.ln_dense_bwd_dx,
+            fused_attention, fused_attention_lse, fused_attention_bwd,
+            fused_attention_bwd_recompute)
+
+
+def ln_check_phase() -> None:
+    """13. Under each fused LayerNorm setting: one ViT-B-32 train step at
+    batch 32, card (bf16, kernels) vs CPU (f32, plain path), under phase 7's
+    limits; and 64 tiles and 64 texts encoded on the card (bf16 serving
+    model) against the f32 CPU plain path, per-row cosine >= MIN_COSINE."""
+    import torch
+
+    from spatial_clip_tpu_torch import create_model
+    from spatial_clip_tpu_torch.models.factory import get_tokenizer
+    from spatial_clip_tpu_torch.models.transforms import normalize_batch
+
+    tiles = np.random.default_rng(13).integers(0, 256, (64, 224, 224, 3), dtype=np.uint8)
+    texts = [f"tile {i}: EPCAM KRT{i % 20} in stroma" for i in range(64)]
+    ids = torch.from_numpy(get_tokenizer("ViT-B-32")(texts)).long()
+    # per encode of 64 (image, text): fused_ln fwd, fused_ln_dense fwd, inference attention
+    want = {"ln_impl=pallas": ((26, 0, 12), (25, 0, 12)),
+            "ln_gemm_impl=pallas": ((0, 24, 12), (0, 24, 12))}
+    for label, settings in LN_SETTINGS.items():
+        train_check_phase(f"ln-check {label}", **settings)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        card = create_model("ViT-B-32", precision="bf16", seed=0, device="cuda", **settings)
+        cpu = create_model("ViT-B-32", precision="fp32", seed=0, device="cpu", **settings)
+        counters = ln_counters()
+        got, counts = {}, []
+        with torch.inference_mode():
+            for kind, fn, arg in (("image", "encode_image", normalize_batch(
+                    torch.from_numpy(tiles).cuda(), dtype=torch.bfloat16)),
+                                  ("text", "encode_text", ids.cuda())):
+                for c in counters:
+                    c.launches = 0
+                got[kind] = getattr(card, fn)(arg).float().cpu()
+                counts.append(tuple(counters[i].launches for i in (0, 2, 4)))
+            ref = {"image": cpu.encode_image(normalize_batch(torch.from_numpy(tiles))),
+                   "text": cpu.encode_text(ids)}
+        cos = {k: (got[k] * ref[k]).sum(-1).min().item() for k in got}
+        finite = all(torch.isfinite(v).all().item() for v in got.values())
+        if tuple(counts) != want[label] or min(cos.values()) < MIN_COSINE or not finite:
+            raise AssertionError(f"[ln-check {label}] encode launches (ln, ln_dense, attention) "
+                                 f"{counts} (want {want[label]}), min cosine {cos}, finite "
+                                 f"{finite}")
+        print(f"[ln-check {label}] encode 64 tiles / 64 texts, bf16 card vs f32 CPU plain path: "
+              f"min cosine image {cos['image']:.5f} text {cos['text']:.5f} (>= {MIN_COSINE}); "
+              f"launches (fused_ln, fused_ln_dense, attention) image {counts[0]} text "
+              f"{counts[1]}; {time.perf_counter() - t0:.1f} s", flush=True)
+        del card, cpu
+
+
+def train_ln_phase(default_step_ms: float) -> dict:
+    """14. The bench workload (ViT-B-32 bf16, batch 256) under each fused
+    LayerNorm setting: 3 warmup and 10 timed steps, exact launches per
+    step, finite losses and gradient norms; median step beside phase 8's."""
+    import torch
+
+    from spatial_clip_tpu_torch.bench import make_trainer, synthetic_batch
+
+    per_step = {  # fused_ln fwd, bwd, fused_ln_dense fwd, dx, attention fwd, fwd_lse, bwd,
+        # recompute bwd
+        "ln_impl=pallas": (51, 51, 0, 0, 0, 2 * LAYERS, 2 * LAYERS, 0),
+        "ln_gemm_impl=pallas": (0, 0, 4 * LAYERS, 4 * LAYERS, 2 * LAYERS, 0, 0, 2 * LAYERS),
+    }
+    steps = WARMUP_STEPS + TIMED_STEPS
+    out = {}
+    for label, settings in LN_SETTINGS.items():
+        torch.cuda.empty_cache()
+        trainer = make_trainer("ViT-B-32", device="cuda", **settings)
+        state = trainer.init_state()
+        batch = synthetic_batch(trainer.model, TRAIN_BATCH)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counters = ln_counters()
+        for c in counters:
+            c.launches = 0
+        step_ms, history = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            state, metrics = trainer.train_step(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            history.append((float(metrics["loss"]), float(metrics["grad_norm"])))
+        counts = tuple(c.launches for c in counters)
+        peak = torch.cuda.max_memory_allocated()
+        want = tuple(n * steps for n in per_step[label])
+        if counts != want:
+            raise AssertionError(f"[train-ln {label}] launches (ln fwd, ln bwd, ln_dense fwd, dx, "
+                                 f"attention fwd, fwd_lse, bwd, recompute bwd) {counts}, want "
+                                 f"{want}")
+        values = [v for pair in history for v in pair]
+        if not all(np.isfinite(values)):
+            raise AssertionError(f"[train-ln {label}] non-finite loss or grad norm: {history}")
+        med = statistics.median(step_ms[WARMUP_STEPS:])
+        out[label] = {"counts": counts, "step_ms": med}
+        print(f"[train-ln {label}] ViT-B-32 bf16 batch {TRAIN_BATCH}: {steps} steps, launches per "
+              f"step (ln fwd, ln bwd, ln_dense fwd, dx, attention fwd, fwd_lse, bwd, recompute "
+              f"bwd) "
+              f"{tuple(c // steps for c in counts)}; losses finite {history[0][0]:.4f} -> "
+              f"{history[-1][0]:.4f}, grad norms {history[0][1]:.4f} -> {history[-1][1]:.4f}; "
+              f"median step {med:.3f} ms ({TRAIN_BATCH * 1e3 / med:.1f} pairs/s) vs phase 8's "
+              f"default {default_step_ms:.3f} ms ({TRAIN_BATCH * 1e3 / default_step_ms:.1f} "
+              f"pairs/s); max_memory_allocated {peak / 2 ** 30:.3f} GiB", flush=True)
+        del trainer, state, batch
+    return out
 
 
 if __name__ == "__main__":

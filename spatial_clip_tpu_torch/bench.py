@@ -52,10 +52,11 @@ def synthetic_batch(model, batch: int, seed: int = 0, device="cuda"):
 
 
 def make_trainer(model_name: str = "ViT-B-32", seed: int = 0, device="cuda",
-                 precision: str = "bf16"):
-    """The benchmark's model (bf16 compute, f32 parameters) and trainer."""
+                 precision: str = "bf16", **cfg_overrides):
+    """The benchmark's model (bf16 compute, f32 parameters) and trainer;
+    ``cfg_overrides`` (e.g. ``ln_impl='pallas'``) go to ``create_model``."""
     model = create_model(model_name, precision=precision, seed=seed, device=device,
-                         training=True)
+                         training=True, **cfg_overrides)
     cfg = TrainerConfig(warmup_steps=10, total_steps=10_000, augment=True, color_jitter=0.2,
                         log_every=10_000, seed=seed)
     return Trainer(model, loss=make_loss("spatial", cap_logit_scale=50.0), config=cfg)

@@ -1,15 +1,25 @@
-// Fused multi-head attention backward from the saved logsumexp, with the
-// qkv-bias gradient (Hopper, sm_90a).
+// Fused multi-head attention backward (Hopper, sm_90a), in two options:
 //
-// Replaces the TPU kernel `_bwd_kernel3_db_lse` in
-// spatial_clip_tpu/ops/fused_attention.py (launched by `_bwd_pallas3_db_lse`
-// through pl.pallas_call), the backward of every attention of the CLIP towers
-// in training. Given the raw (B, L, 3D) qkv, the additive mask, the forward's
-// per-row logsumexp (heads, B, L) and the context's cotangent do (B, L, D), it
-// writes dqkv in qkv's own (B, L, 3D) layout and db = the f32 sum over (B, L)
-// of dqkv, the gradient of the qkv bias. The math is the TPU kernel's
-// (`_bwd_compute` with lse), per head:
-//   s  = q k^T * hd^-1/2 + mask (f32),  p = exp(s - lse)
+//   - from the saved logsumexp, with the qkv-bias gradient: replaces the TPU
+//     kernel `_bwd_kernel3_db_lse` in spatial_clip_tpu/ops/fused_attention.py
+//     (launched by `_bwd_pallas3_db_lse` through pl.pallas_call), the
+//     backward of every attention of the CLIP towers in training;
+//   - recompute, no bias gradient: replaces the TPU kernel `_bwd_kernel`
+//     (launched by `_bwd_pallas`), the backward of `fused_attention`'s custom
+//     VJP, which the towers reach under attn_impl='pallas' where the qkv
+//     comes from the fused LayerNorm -> qkv projection. It takes no
+//     logsumexp: the softmax statistics are recomputed from the scores.
+//
+// Given the raw (B, L, 3D) qkv, the additive mask, (first option) the
+// forward's per-row logsumexp (heads, B, L) and the context's cotangent do
+// (B, L, D), it writes dqkv in qkv's own (B, L, 3D) layout (the TPU kernel's
+// dq, dk, dv concatenated) and (first option) db = the f32 sum over (B, L) of
+// dqkv, the gradient of the qkv bias. The math is the TPU kernels'
+// (`_bwd_compute`), per head:
+//   s  = q k^T * hd^-1/2 + mask (f32)
+//   p  = exp(s - lse)                               (saved logsumexp)
+//   p  = e / max(sum_j e, 1e-30), e = exp(s - max_j s)   (recompute,
+//                                                         `_p_from_scores`)
 //   dv = (p rounded to the input dtype)^T do
 //   dp = do v^T,  r_i = sum_j dp_ij p_ij   (from f32 dp and p, not from the
 //                                           rounded output as in FlashAttention)
@@ -30,22 +40,26 @@
 //     reading the same 16-byte column chunk of 8 different rows hit 8 bank
 //     groups;
 //   - phase 1, a warp per two query rows: each lane owns keys
-//     j = lane + 32 t and computes s and dp for both rows, p and the row term
-//     with warp sums, then ds; p and ds (rounded to the input dtype) go to
-//     two L x L tiles in shared memory, and the warp forms dq for its rows
-//     (each lane owns hd/32 output dims) and writes it;
+//     j = lane + 32 t and computes s and dp for both rows, p (the recompute
+//     option: the row max and sum by warp reductions) and the row term with
+//     warp sums, then ds; p and ds (rounded to the input dtype) go to two
+//     L x L tiles in shared memory, and the warp forms dq for its rows (each
+//     lane owns hd/32 output dims) and writes it;
 //   - phase 2, after a block barrier, a warp per four key rows: dk and dv are
 //     column sums over the p and ds tiles against Q and do;
-//   - db: each block sums its rounded dq/dk/dv over its rows in a fixed order
-//     and writes one partial per batch row; a second small kernel adds the
-//     B partials of each column in a fixed order. The result is deterministic
-//     (the same bits every run), which atomicAdd into one (3D,) vector is not.
-// The shared-memory footprint sets the geometries it takes (see
-// sc_attention_bwd_smem_bytes; the Python wrapper mirrors the formula).
+//   - db (first option): each block sums its rounded dq/dk/dv over its rows
+//     in a fixed order and writes one partial per batch row; a second small
+//     kernel adds the B partials of each column in a fixed order. The result
+//     is deterministic (the same bits every run), which atomicAdd into one
+//     (3D,) vector is not.
+// The shared-memory footprint, the same for both options, sets the
+// geometries it takes (see sc_attention_bwd_smem_bytes; the Python wrapper
+// mirrors the formula).
 //
-// C interface (bound with ctypes; the caller allocates dqkv, the (B, 3D) f32
-// partials and db, passes 16-byte aligned contiguous tensors and PyTorch's
-// current stream). Returns cudaGetLastError() after the launches.
+// C interface (bound with ctypes; the caller allocates dqkv and, for the
+// first option, the (B, 3D) f32 partials and db, passes 16-byte aligned
+// contiguous tensors and PyTorch's current stream). Returns
+// cudaGetLastError() after the launches.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,6 +77,7 @@ using sc::load_f32;
 using sc::round_to;
 using sc::store_from_f32;
 using sc::to_f32;
+using sc::warp_max;
 using sc::warp_sum;
 
 constexpr int kWarps = 8;
@@ -91,7 +106,10 @@ struct BwdLayout {
   }
 };
 
-template <typename T, int HD>
+// kRecompute: p from the scores' own max and sum, lse and db_part unused
+// (`_bwd_kernel`); otherwise p from lse, and db partials written
+// (`_bwd_kernel3_db_lse`).
+template <typename T, int HD, bool kRecompute>
 __global__ void __launch_bounds__(kWarps * 32)
 attn_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
                 const float* __restrict__ lse, const T* __restrict__ dout,
@@ -114,7 +132,7 @@ attn_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
   T* dq_g = dqkv + size_t(b) * seq * row + size_t(h) * HD;
   T* dk_g = dq_g + width;
   T* dv_g = dq_g + 2 * width;
-  const float* lse_g = lse + (size_t(h) * batch + b) * seq;
+  const float* lse_g = kRecompute ? nullptr : lse + (size_t(h) * batch + b) * seq;
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -206,15 +224,37 @@ attn_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       const int i = min(i0 + r, seq - 1);
-      const float lse_i = lse_g[i];
-      float term = 0.f;
+      float row_max = -INFINITY;
 #pragma unroll
       for (int t = 0; t < kMaxKeysPerLane; ++t) {
         const int j = lane + 32 * t;
         if (j < seq) {
           float acc = s[r][t] * scale;
           if (mask != nullptr) acc += mask[i * seq + j];
-          const float p = expf(acc - lse_i);
+          s[r][t] = acc;
+          row_max = fmaxf(row_max, acc);
+        }
+      }
+      float shift, denom = 1.f;
+      if constexpr (kRecompute) {
+        shift = warp_max(row_max);
+        float sum = 0.f;
+#pragma unroll
+        for (int t = 0; t < kMaxKeysPerLane; ++t) {
+          if (lane + 32 * t < seq) {
+            s[r][t] = expf(s[r][t] - shift);
+            sum += s[r][t];
+          }
+        }
+        denom = fmaxf(warp_sum(sum), 1e-30f);
+      } else {
+        shift = lse_g[i];
+      }
+      float term = 0.f;
+#pragma unroll
+      for (int t = 0; t < kMaxKeysPerLane; ++t) {
+        if (lane + 32 * t < seq) {
+          const float p = kRecompute ? s[r][t] / denom : expf(s[r][t] - shift);
           s[r][t] = p;
           term = fmaf(dp[r][t], p, term);
         }
@@ -320,19 +360,21 @@ attn_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
   }
 
   // db: this block's column sums, warps added in a fixed order
+  if constexpr (!kRecompute) {
 #pragma unroll
-  for (int k = 0; k < kDpl; ++k) {
-    db_s[(warp * 3 + 0) * HD + lane * kDpl + k] = dbq[k];
-    db_s[(warp * 3 + 1) * HD + lane * kDpl + k] = dbk[k];
-    db_s[(warp * 3 + 2) * HD + lane * kDpl + k] = dbv[k];
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < 3 * HD; idx += blockDim.x) {
-    float acc = 0.f;
+    for (int k = 0; k < kDpl; ++k) {
+      db_s[(warp * 3 + 0) * HD + lane * kDpl + k] = dbq[k];
+      db_s[(warp * 3 + 1) * HD + lane * kDpl + k] = dbk[k];
+      db_s[(warp * 3 + 2) * HD + lane * kDpl + k] = dbv[k];
+    }
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < 3 * HD; idx += blockDim.x) {
+      float acc = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) acc += db_s[w * 3 * HD + idx];
-    const int part = idx / HD;
-    db_part[size_t(b) * row + size_t(part) * width + size_t(h) * HD + idx % HD] = acc;
+      for (int w = 0; w < kWarps; ++w) acc += db_s[w * 3 * HD + idx];
+      const int part = idx / HD;
+      db_part[size_t(b) * row + size_t(part) * width + size_t(h) * HD + idx % HD] = acc;
+    }
   }
 }
 
@@ -359,20 +401,21 @@ db_reduce_kernel(const float* __restrict__ part, float* __restrict__ db, int bat
   }
 }
 
-template <typename T, int HD>
+// db_part and db null: the recompute option (lse unused too).
+template <typename T, int HD, bool kRecompute>
 cudaError_t launch(const void* qkv, const float* mask, const float* lse, const void* dout,
                    void* dqkv, float* db_part, float* db, int batch, int seq, int heads,
                    float scale, cudaStream_t stream) {
   const size_t smem = BwdLayout<T, HD>::smem_bytes(seq);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_bwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_kernel<T, HD, kRecompute>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  attn_bwd_kernel<T, HD><<<batch * heads, kWarps * 32, smem, stream>>>(
+  attn_bwd_kernel<T, HD, kRecompute><<<batch * heads, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(qkv), mask, lse, static_cast<const T*>(dout),
       static_cast<T*>(dqkv), db_part, seq, heads, scale);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess || kRecompute) return err;
   const int n = 3 * heads * HD;
   db_reduce_kernel<<<(n + kReduceCols - 1) / kReduceCols, dim3(kReduceCols, kReduceRows), 0,
                      stream>>>(db_part, db, batch, n);
@@ -389,21 +432,45 @@ size_t smem_for(int seq, int head_dim) {
   }
 }
 
-template <typename T>
+template <typename T, bool kRecompute>
 cudaError_t dispatch_hd(const void* qkv, const float* mask, const float* lse, const void* dout,
                         void* dqkv, float* db_part, float* db, int batch, int seq, int heads,
                         int head_dim, float scale, cudaStream_t stream) {
   switch (head_dim) {
     case 32:
-      return launch<T, 32>(qkv, mask, lse, dout, dqkv, db_part, db, batch, seq, heads, scale,
-                           stream);
+      return launch<T, 32, kRecompute>(qkv, mask, lse, dout, dqkv, db_part, db, batch, seq,
+                                       heads, scale, stream);
     case 64:
-      return launch<T, 64>(qkv, mask, lse, dout, dqkv, db_part, db, batch, seq, heads, scale,
-                           stream);
+      return launch<T, 64, kRecompute>(qkv, mask, lse, dout, dqkv, db_part, db, batch, seq,
+                                       heads, scale, stream);
     case 128:
-      return launch<T, 128>(qkv, mask, lse, dout, dqkv, db_part, db, batch, seq, heads, scale,
-                            stream);
+      return launch<T, 128, kRecompute>(qkv, mask, lse, dout, dqkv, db_part, db, batch, seq,
+                                        heads, scale, stream);
     default: return cudaErrorInvalidValue;
+  }
+}
+
+template <bool kRecompute>
+int dispatch(const void* qkv, const void* mask, const void* lse, const void* dout, void* dqkv,
+             void* db_part, void* db, int batch, int seq, int heads, int head_dim, int dtype,
+             float scale, void* stream) {
+  if (batch < 1 || heads < 1 || seq < 1 || seq > kMaxSeq) return int(cudaErrorInvalidValue);
+  if ((reinterpret_cast<uintptr_t>(qkv) | reinterpret_cast<uintptr_t>(dout) |
+       reinterpret_cast<uintptr_t>(dqkv)) % 16 != 0)
+    return int(cudaErrorMisalignedAddress);
+  const float* m = static_cast<const float*>(mask);
+  const float* l = static_cast<const float*>(lse);
+  float* part = static_cast<float*>(db_part);
+  float* d = static_cast<float*>(db);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return int(dispatch_hd<float, kRecompute>(qkv, m, l, dout, dqkv, part, d, batch, seq,
+                                                heads, head_dim, scale, s));
+    case 1:
+      return int(dispatch_hd<__nv_bfloat16, kRecompute>(qkv, m, l, dout, dqkv, part, d, batch,
+                                                        seq, heads, head_dim, scale, s));
+    default: return int(cudaErrorInvalidValue);
   }
 }
 
@@ -423,22 +490,14 @@ extern "C" int sc_attention_bwd(const void* qkv, const void* mask, const void* l
                                 const void* dout, void* dqkv, void* db_part, void* db,
                                 int batch, int seq, int heads, int head_dim, int dtype,
                                 float scale, void* stream) {
-  if (batch < 1 || heads < 1 || seq < 1 || seq > kMaxSeq) return int(cudaErrorInvalidValue);
-  if ((reinterpret_cast<uintptr_t>(qkv) | reinterpret_cast<uintptr_t>(dout) |
-       reinterpret_cast<uintptr_t>(dqkv)) % 16 != 0)
-    return int(cudaErrorMisalignedAddress);
-  const float* m = static_cast<const float*>(mask);
-  const float* l = static_cast<const float*>(lse);
-  float* part = static_cast<float*>(db_part);
-  float* d = static_cast<float*>(db);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return int(dispatch_hd<float>(qkv, m, l, dout, dqkv, part, d, batch, seq, heads, head_dim,
-                                    scale, s));
-    case 1:
-      return int(dispatch_hd<__nv_bfloat16>(qkv, m, l, dout, dqkv, part, d, batch, seq, heads,
-                                            head_dim, scale, s));
-    default: return int(cudaErrorInvalidValue);
-  }
+  return dispatch<false>(qkv, mask, lse, dout, dqkv, db_part, db, batch, seq, heads, head_dim,
+                         dtype, scale, stream);
+}
+
+// The recompute option: as sc_attention_bwd with no lse and no db; writes dqkv.
+extern "C" int sc_attention_bwd_recompute(const void* qkv, const void* mask, const void* dout,
+                                          void* dqkv, int batch, int seq, int heads,
+                                          int head_dim, int dtype, float scale, void* stream) {
+  return dispatch<true>(qkv, mask, nullptr, dout, dqkv, nullptr, nullptr, batch, seq, heads,
+                        head_dim, dtype, scale, stream);
 }

@@ -41,7 +41,8 @@ class CLIP(nn.Module):
         v, t = cfg.vision_cfg, cfg.text_cfg
         act = quick_gelu if cfg.quick_gelu else gelu_tanh
         common = dict(ln_stats=cfg.ln_impl, act=act, dtype=dtype,
-                      param_dtype=param_dtype or dtype, device=device, training=training)
+                      param_dtype=param_dtype or dtype, device=device, training=training,
+                      attn_impl=cfg.attn_impl, ln_gemm_impl=cfg.ln_gemm_impl)
         self.visual = VisionTransformer(
             v.size, v.patch_size, v.width, v.layers, v.heads, v.mlp_ratio,
             cfg.embed_dim, ls_init_value=v.ls_init_value, no_ln_pre=v.no_ln_pre,

@@ -84,11 +84,14 @@ class CLIPCfg:
     text_cfg: TextCfg = field(default_factory=TextCfg)
     gene_cfg: Optional[Dict[str, Any]] = None
     multimodal_cfg: Optional[Dict[str, Any]] = None
+    # auto | pallas3 (the qkv GEMM and attention as one autograd function) |
+    # pallas (with ln_gemm_impl='pallas': ln_1 -> qkv fused, then attention)
     attn_impl: str = "auto"
     zip_towers: str = "off"
     mlp_impl: str = "dense"
-    ln_gemm_impl: str = "dense"
-    ln_impl: str = "onepass"  # onepass (f32 E[x^2]-E[x]^2) | fp32 (two-pass)
+    ln_gemm_impl: str = "dense"  # dense | pallas (ln_2 -> c_fc, ln_1 -> qkv fused)
+    # onepass (f32 E[x^2]-E[x]^2) | fp32 (two-pass) | pallas (the fused_ln kernels)
+    ln_impl: str = "onepass"
     init_logit_scale: float = 2.6592  # ln(1/0.07)
     init_logit_bias: Optional[float] = None
     quick_gelu: bool = False
@@ -111,11 +114,11 @@ def check_ported(cfg: CLIPCfg) -> None:
     unported = [
         ("gene_cfg", cfg.gene_cfg, cfg.gene_cfg is not None),
         ("multimodal_cfg", cfg.multimodal_cfg, cfg.multimodal_cfg is not None),
-        ("attn_impl", cfg.attn_impl, cfg.attn_impl not in ("auto", "pallas")),
+        ("attn_impl", cfg.attn_impl, cfg.attn_impl not in ("auto", "pallas", "pallas3")),
         ("zip_towers", cfg.zip_towers, cfg.zip_towers not in ("off", "auto")),
         ("mlp_impl", cfg.mlp_impl, cfg.mlp_impl != "dense"),
-        ("ln_gemm_impl", cfg.ln_gemm_impl, cfg.ln_gemm_impl != "dense"),
-        ("ln_impl", cfg.ln_impl, cfg.ln_impl not in ("onepass", "fp32")),
+        ("ln_gemm_impl", cfg.ln_gemm_impl, cfg.ln_gemm_impl not in ("dense", "pallas")),
+        ("ln_impl", cfg.ln_impl, cfg.ln_impl not in ("onepass", "fp32", "pallas")),
         ("vision_cfg.timm_model_name", v.timm_model_name, v.timm_model_name is not None),
         ("vision_cfg.layers", v.layers, isinstance(v.layers, (list, tuple))),
         ("vision_cfg.qk_norm", v.qk_norm, v.qk_norm),

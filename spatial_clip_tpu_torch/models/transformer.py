@@ -2,8 +2,13 @@
 
 Counterpart of ``spatial_clip_tpu.models.transformer`` on its main path:
 dense projections, one-pass or two-pass LayerNorm, and attention through
-the fused attention kernels (``ops.fused_attention``). Parameters carry
-open_clip's names and layouts (``attn.in_proj_weight`` is (3D, D),
+the fused attention kernels (``ops.fused_attention``). Two LayerNorm
+settings route through kernels of their own, with the JAX towers' gates:
+``ln_impl='pallas'`` sends every LayerNorm whose width is a multiple of 128
+through ``ops.fused_ln`` (others take two-pass statistics), and
+``ln_gemm_impl='pallas'`` fuses each block's ln_2 -> c_fc, and with
+``attn_impl='pallas'`` its ln_1 -> qkv, into ``ops.fused_ln_dense``.
+Parameters carry open_clip's names and layouts (``attn.in_proj_weight`` is (3D, D),
 ``conv1.weight`` is OIHW). Matrices, embeddings and layer-scales are stored
 in ``param_dtype`` and cast to the compute ``dtype`` at each use, as the
 JAX towers cast their f32 parameters: a serving model stores them in the
@@ -13,7 +18,11 @@ NHWC, as in the JAX package.
 
 With grad enabled, attention runs through :class:`QKVAttention`, whose
 forward saves the logsumexp and whose backward is the hand-written
-backward kernel; without grad it is the inference kernel alone.
+backward kernel; without grad it is the inference kernel alone. Where
+ln_1 -> qkv is fused, attention takes the fused kernel's qkv, as JAX's
+``fused_attention`` does: :class:`FusedAttention` with grad (the inference
+forward, and the backward that recomputes the softmax statistics, the
+counterpart of ``_bwd_kernel``), the inference kernel alone without.
 """
 from __future__ import annotations
 
@@ -24,8 +33,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from spatial_clip_tpu_torch.ops import fused_ln, fused_ln_dense
 from spatial_clip_tpu_torch.ops.fused_attention import (
     HEAD_DIMS,
+    FusedAttention,
     bwd_smem_bytes,
     bwd_supported,
     fused_attention,
@@ -60,12 +71,30 @@ class Dense(nn.Module):
         return F.linear(x, self.weight.to(self.dtype), self.bias.to(self.dtype))
 
 
-class LayerNorm(nn.Module):
-    """LayerNorm with f32 statistics and f32 affine, output in ``dtype``.
+def _ln_apply(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float,
+              dtype, stats: str = "fp32") -> torch.Tensor:
+    """Functional LayerNorm with f32 statistics and f32 affine, output in
+    ``dtype`` (JAX's ``_ln_apply`` and ``LayerNorm``). ``stats='onepass'``:
+    mean and E[x^2] in one pass, var = max(E[x^2] - mean^2, 0);
+    ``'pallas'``: the fused_ln kernels where the width is a multiple of
+    128, else two-pass; anything else, ``'fp32'`` the default: two-pass
+    (x - mean)^2."""
+    if stats == "pallas" and fused_ln.supported(x.shape[-1]):
+        shape = x.shape
+        y = fused_ln.fused_layer_norm(x.reshape(-1, shape[-1]).to(dtype), weight, bias, eps)
+        return y.view(shape)
+    xa = x.float()
+    mean = xa.mean(dim=-1, keepdim=True)
+    if stats == "onepass":
+        var = ((xa * xa).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0.0)
+    else:
+        var = (xa - mean).square().mean(dim=-1, keepdim=True)
+    return ((xa - mean) * torch.rsqrt(var + eps) * weight + bias).to(dtype)
 
-    ``stats='onepass'`` is the JAX default: mean and E[x^2] in one pass,
-    var = max(E[x^2] - mean^2, 0). ``stats='fp32'`` is the two-pass
-    (x - mean)^2 form."""
+
+class LayerNorm(nn.Module):
+    """LayerNorm with f32 statistics and f32 affine, output in ``dtype``;
+    ``stats`` as in :func:`_ln_apply` (``onepass`` is the JAX default)."""
 
     def __init__(self, width: int, eps: float = 1e-5, stats: str = "onepass",
                  dtype=torch.float32, device=None):
@@ -75,14 +104,11 @@ class LayerNorm(nn.Module):
         self.bias = _param(width, dtype=torch.float32, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xa = x.float()
-        mean = xa.mean(dim=-1, keepdim=True)
-        if self.stats == "onepass":
-            var = ((xa * xa).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0.0)
-        else:
-            var = (xa - mean).square().mean(dim=-1, keepdim=True)
-        y = (xa - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
-        return y.to(self.dtype)
+        return _ln_apply(x, self.weight, self.bias, self.eps, self.dtype, self.stats)
+
+    def args(self):
+        """(weight, bias, eps): the pre-LN a fused projection applies itself."""
+        return self.weight, self.bias, self.eps
 
 
 class LayerScale(nn.Module):
@@ -102,7 +128,18 @@ class MLP(nn.Module):
         self.c_proj = Dense(hidden, width, dtype, param_dtype, device)
         self.act = act
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, ln=None) -> torch.Tensor:
+        """``ln = (weight, bias, eps)``: x is the raw residual stream and its
+        pre-LN is fused into c_fc where JAX's gate allows, else applied
+        two-pass here."""
+        if ln is not None:
+            fc = self.c_fc
+            if fused_ln_dense.supported(fc.in_features, fc.out_features):
+                shape = x.shape
+                h = fused_ln_dense.fused_ln_dense(x.reshape(-1, shape[-1]).to(fc.dtype), *ln[:2],
+                                                  fc.weight, fc.bias, ln[2])
+                return self.c_proj(self.act(h.view(*shape[:-1], fc.out_features)))
+            x = _ln_apply(x, *ln, fc.dtype)
         return self.c_proj(self.act(self.c_fc(x)))
 
 
@@ -114,10 +151,11 @@ class MultiHeadAttention(nn.Module):
     :class:`QKVAttention` (forward with logsumexp, hand-written backward);
     otherwise the inference kernel runs alone. Built for training
     (``seq_len`` given), it checks that the backward kernel takes the
-    geometry."""
+    geometry. ``impl='pallas'`` fuses a pre-LN handed to :meth:`forward`
+    into the qkv projection."""
 
     def __init__(self, width: int, heads: int, dtype, param_dtype, device,
-                 seq_len: Optional[int] = None):
+                 seq_len: Optional[int] = None, impl: str = "auto"):
         super().__init__()
         if not supported(heads, width):
             raise NotImplementedError(
@@ -129,13 +167,28 @@ class MultiHeadAttention(nn.Module):
                 f"{dtype}: the backward kernel needs "
                 f"{bwd_smem_bytes(seq_len, width // heads, dtype)} B of shared memory "
                 "per block, more than a block has")
-        self.heads, self.dtype = heads, dtype
+        self.heads, self.dtype, self.impl = heads, dtype, impl
         self.in_proj_weight = _param(3 * width, width, dtype=param_dtype, device=device)
         self.in_proj_bias = _param(3 * width, dtype=param_dtype, device=device)
         self.out_proj = Dense(width, width, dtype, param_dtype, device)
 
-    def forward(self, x: torch.Tensor, attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, attn_mask: Optional[torch.Tensor] = None,
+                ln=None) -> torch.Tensor:
+        """``ln = (weight, bias, eps)``: x is the raw residual stream; its
+        pre-LN is fused into the qkv projection under ``impl='pallas'``
+        where JAX's gate allows, else applied two-pass here."""
         w, b = self.in_proj_weight, self.in_proj_bias
+        if ln is not None:
+            B, L, D = x.shape
+            if self.impl == "pallas" and fused_ln_dense.supported(D, 3 * D):
+                qkv = fused_ln_dense.fused_ln_dense(x.reshape(-1, D).to(self.dtype), *ln[:2],
+                                                    w, b, ln[2]).view(B, L, 3 * D)
+                if torch.is_grad_enabled() and qkv.requires_grad:
+                    ctx = FusedAttention.apply(qkv, attn_mask, self.heads)
+                else:
+                    ctx = fused_attention(qkv, attn_mask, self.heads)
+                return self.out_proj(ctx)
+            x = _ln_apply(x, *ln, self.dtype)
         if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad or b.requires_grad):
             ctx = qkv_attention(x, w, b, attn_mask, self.heads)
         else:
@@ -145,17 +198,25 @@ class MultiHeadAttention(nn.Module):
 
 
 class ResidualBlock(nn.Module):
-    """Pre-LN block: x + ls_1(attn(ln_1(x))), then x + ls_2(mlp(ln_2(x)))."""
+    """Pre-LN block: x + ls_1(attn(ln_1(x))), then x + ls_2(mlp(ln_2(x))).
+
+    ``ln_gemm_impl='pallas'`` hands ln_1 and ln_2 to the attention and the
+    MLP to fuse into their projections, as JAX does when ``ln_stats`` is
+    ``fp32`` or ``onepass`` (under ``pallas`` nothing fuses). The LayerNorm
+    modules stay, holding the parameters under the same names."""
 
     def __init__(self, width: int, heads: int, mlp_ratio: float = 4.0,
                  ls_init_value: Optional[float] = None, norm_eps: float = 1e-5,
                  ln_stats: str = "onepass", act: Callable = gelu_tanh,
                  dtype=torch.float32, param_dtype=None, device=None,
-                 seq_len: Optional[int] = None):
+                 seq_len: Optional[int] = None, attn_impl: str = "auto",
+                 ln_gemm_impl: str = "dense"):
         super().__init__()
         param_dtype = param_dtype or dtype
+        self.fuse_ln = ln_gemm_impl == "pallas" and ln_stats in ("fp32", "onepass")
         self.ln_1 = LayerNorm(width, norm_eps, ln_stats, dtype, device)
-        self.attn = MultiHeadAttention(width, heads, dtype, param_dtype, device, seq_len)
+        self.attn = MultiHeadAttention(width, heads, dtype, param_dtype, device, seq_len,
+                                       attn_impl)
         self.ln_2 = LayerNorm(width, norm_eps, ln_stats, dtype, device)
         self.mlp = MLP(width, int(width * mlp_ratio), act, dtype, param_dtype, device)
         scaled = ls_init_value is not None
@@ -163,6 +224,9 @@ class ResidualBlock(nn.Module):
         self.ls_2 = LayerScale(width, dtype, param_dtype, device) if scaled else nn.Identity()
 
     def forward(self, x: torch.Tensor, attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.fuse_ln:
+            x = x + self.ls_1(self.attn(x, attn_mask, ln=self.ln_1.args()))
+            return x + self.ls_2(self.mlp(x, ln=self.ln_2.args()))
         x = x + self.ls_1(self.attn(self.ln_1(x), attn_mask))
         return x + self.ls_2(self.mlp(self.ln_2(x)))
 
@@ -208,7 +272,8 @@ class VisionTransformer(nn.Module):
                  final_ln_after_pool: bool = False, pool_type: str = "tok",
                  norm_eps: float = 1e-5, ln_stats: str = "onepass",
                  act: Callable = gelu_tanh, dtype=torch.float32, param_dtype=None,
-                 device=None, training: bool = False):
+                 device=None, training: bool = False, attn_impl: str = "auto",
+                 ln_gemm_impl: str = "dense"):
         super().__init__()
         if pool_type not in ("tok", "avg", "none"):
             raise ValueError(f"unknown vision pool_type {pool_type!r}")
@@ -227,7 +292,8 @@ class VisionTransformer(nn.Module):
             width, layers, heads, mlp_ratio=mlp_ratio, ls_init_value=ls_init_value,
             norm_eps=norm_eps, ln_stats=ln_stats, act=act, dtype=dtype,
             param_dtype=param_dtype, device=device,
-            seq_len=n_patches + 1 if training else None)
+            seq_len=n_patches + 1 if training else None, attn_impl=attn_impl,
+            ln_gemm_impl=ln_gemm_impl)
         self.ln_post = LayerNorm(width, norm_eps, ln_stats, dtype, device)
         self.proj = _param(width, output_dim, dtype=param_dtype, device=device)
 
@@ -289,7 +355,8 @@ class TextTransformer(nn.Module):
                  pool_type: str = "argmax", final_ln_after_pool: bool = False,
                  proj_bias: bool = False, norm_eps: float = 1e-5, ln_stats: str = "onepass",
                  act: Callable = gelu_tanh, dtype=torch.float32, param_dtype=None,
-                 device=None, training: bool = False):
+                 device=None, training: bool = False, attn_impl: str = "auto",
+                 ln_gemm_impl: str = "dense"):
         super().__init__()
         param_dtype = param_dtype or dtype
         self.pool_type, self.dtype = pool_type, dtype
@@ -303,7 +370,8 @@ class TextTransformer(nn.Module):
             width, layers, heads, mlp_ratio=mlp_ratio, ls_init_value=ls_init_value,
             norm_eps=norm_eps, ln_stats=ln_stats, act=act, dtype=dtype,
             param_dtype=param_dtype, device=device,
-            seq_len=context_length if training else None)
+            seq_len=context_length if training else None, attn_impl=attn_impl,
+            ln_gemm_impl=ln_gemm_impl)
         self.ln_final = LayerNorm(width, norm_eps, ln_stats, dtype, device)
         self.text_projection = (Dense(width, output_dim, dtype, param_dtype, device) if proj_bias
                                 else _param(width, output_dim, dtype=param_dtype, device=device))

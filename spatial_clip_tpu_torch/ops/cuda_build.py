@@ -19,12 +19,17 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+# the kernels' dtype argument, as every C entry point reads it
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lock = threading.Lock()
 _library = None
@@ -115,6 +120,12 @@ def library() -> ctypes.CDLL:
                 i32, ctypes.c_float, ptr,  # dtype, scale, stream
             ]
             lib.sc_attention_bwd.restype = i32
+            lib.sc_attention_bwd_recompute.argtypes = [
+                ptr, ptr, ptr, ptr,  # qkv, mask, dout, dqkv
+                i32, i32, i32, i32,  # B, L, H, hd
+                i32, ctypes.c_float, ptr,  # dtype, scale, stream
+            ]
+            lib.sc_attention_bwd_recompute.restype = i32
             lib.sc_attention_bwd_smem_bytes.argtypes = [i32, i32, i32]
             lib.sc_attention_bwd_smem_bytes.restype = ctypes.c_size_t
             ce_inputs = [ptr] * 7  # q, kmat, col_ids, gt_ids, nbr, alphas, scale
@@ -140,6 +151,24 @@ def library() -> ctypes.CDLL:
                 *ce_sizes, ptr,
             ]
             lib.sc_spatial_ce_dk.restype = i32
+            f32 = ctypes.c_float
+            lib.sc_layer_norm_fwd.argtypes = [ptr, ptr, ptr, ptr,  # x, gamma, beta, y
+                                              i32, i32, i32, f32, ptr]  # R, D, dtype, eps, stream
+            lib.sc_layer_norm_fwd.restype = i32
+            lib.sc_layer_norm_bwd.argtypes = [ptr, ptr, ptr, ptr,  # x, gamma, dy, dx
+                                              ptr, ptr,  # partials, dgamma|dbeta
+                                              i32, i32, i32, f32, ptr]
+            lib.sc_layer_norm_bwd.restype = i32
+            lib.sc_layer_norm_bwd_blocks.argtypes = [i32]
+            lib.sc_layer_norm_bwd_blocks.restype = i32
+            lib.sc_layer_norm_max_width.argtypes = []
+            lib.sc_layer_norm_max_width.restype = i32
+            lib.sc_ln_dense_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr,  # x, w1, b1, y, xhat
+                                            i32, i32, i32, i32, f32, ptr]  # R, K, N, dtype, eps
+            lib.sc_ln_dense_fwd.restype = i32
+            lib.sc_ln_dense_bwd_dx.argtypes = [ptr, ptr, ptr, ptr,  # x, g, w1, dx
+                                               i32, i32, i32, i32, f32, ptr]
+            lib.sc_ln_dense_bwd_dx.restype = i32
             lib.sc_cuda_error_string.argtypes = [ctypes.c_int]
             lib.sc_cuda_error_string.restype = ctypes.c_char_p
             _library = lib

@@ -8,9 +8,16 @@ Counterpart of ``spatial_clip_tpu/ops/fused_attention.py``:
   row's logsumexp (``_fwd_pallas_lse`` -> ``_fwd_kernel_lse``);
 - :func:`fused_attention_bwd`: the backward from that logsumexp, with the
   qkv-bias gradient (``_bwd_pallas3_db_lse`` -> ``_bwd_kernel3_db_lse``);
+- :func:`fused_attention_bwd_recompute`: the backward that recomputes the
+  softmax statistics from the scores, without the bias gradient
+  (``_bwd_pallas`` -> ``_bwd_kernel``);
 - :class:`QKVAttention`: the qkv projection and attention as one autograd
   function (``qkv_attention`` and its custom VJP), whose backward is the
-  kernel above plus the dx and dW GEMMs.
+  saved-logsumexp kernel plus the dx and dW GEMMs;
+- :class:`FusedAttention`: attention over a given qkv as one autograd
+  function (``fused_attention`` and its custom VJP): the inference forward,
+  and the recompute backward. The towers reach it where the fused LayerNorm
+  -> qkv projection makes qkv.
 
 On a CUDA tensor each wrapper launches its hand-written kernel
 (``csrc/fused_attention_fwd.cu``, ``csrc/fused_attention_bwd.cu``); on a CPU
@@ -30,7 +37,6 @@ from spatial_clip_tpu_torch.ops import cuda_build
 
 HEAD_DIMS = (32, 64, 128)
 MAX_SEQ = 256
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the backward's block geometry (csrc/fused_attention_bwd.cu BwdLayout)
 _BWD_WARPS, _BWD_ROWS = 8, 2
 MAX_SMEM_BYTES = 232448  # 227 KB: the most shared memory a block may use on sm_90
@@ -59,7 +65,7 @@ def bwd_supported(heads: int, width: int, seq: int, dtype: torch.dtype) -> bool:
     1 <= seq <= 256, and one (batch, head) within a block's shared memory.
     The longest L taken, for head_dim 32 / 64 / 128: bf16 192 / 166 / 122,
     f32 130 / 106 / 72."""
-    return (supported(heads, width) and 1 <= seq <= MAX_SEQ and dtype in _DTYPE_CODES
+    return (supported(heads, width) and 1 <= seq <= MAX_SEQ and dtype in cuda_build.DTYPE_CODES
             and bwd_smem_bytes(seq, width // heads, dtype) <= MAX_SMEM_BYTES)
 
 
@@ -74,7 +80,7 @@ def _check(qkv: torch.Tensor, mask: Optional[torch.Tensor], heads: int) -> None:
             f"must be one of {HEAD_DIMS}")
     if not 1 <= L <= MAX_SEQ or B < 1:
         raise ValueError(f"sequence length {L} (batch {B}) outside 1..{MAX_SEQ}")
-    if qkv.dtype not in _DTYPE_CODES:
+    if qkv.dtype not in cuda_build.DTYPE_CODES:
         raise ValueError(f"qkv dtype {qkv.dtype} not taken (float32 or bfloat16)")
     if not qkv.is_contiguous():
         raise ValueError("qkv must be contiguous")
@@ -144,21 +150,27 @@ def reference_attention_lse(qkv: torch.Tensor, mask: Optional[torch.Tensor],
 
 
 def reference_attention_bwd(qkv: torch.Tensor, mask: Optional[torch.Tensor],
-                            lse: torch.Tensor, g: torch.Tensor,
+                            lse: Optional[torch.Tensor], g: torch.Tensor,
                             heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version with the TPU kernel's math (``_bwd_compute``
-    with the saved lse): ``p = exp(s - lse)``, ``dv = (p in the input
-    dtype)^T do``, ``dp = do v^T``, ``ds = p (dp - sum_j dp p) hd^-1/2`` in
-    the input dtype, ``dq = ds k``, ``dk = ds^T q``, all dots in f32 and
-    dq/dk/dv cast to the input dtype. Returns dqkv in qkv's (B, L, 3D)
-    layout and db (3D,) f32, the sum over (B, L) of the cast dqkv."""
+    """Plain PyTorch version with the TPU kernels' math (``_bwd_compute``):
+    ``p = exp(s - lse)`` from the saved lse, or with ``lse=None`` recomputed
+    as ``_p_from_scores`` does, ``e / max(sum e, 1e-30)`` with
+    ``e = exp(s - max s)``; then ``dv = (p in the input dtype)^T do``,
+    ``dp = do v^T``, ``ds = p (dp - sum_j dp p) hd^-1/2`` in the input
+    dtype, ``dq = ds k``, ``dk = ds^T q``, all dots in f32 and dq/dk/dv cast
+    to the input dtype. Returns dqkv in qkv's (B, L, 3D) layout and db (3D,)
+    f32, the sum over (B, L) of the cast dqkv."""
     B, L, three_d = qkv.shape
     hd = three_d // 3 // heads
     dtype = qkv.dtype
     q, k, v = _split_heads(qkv, heads)
     do = g.to(dtype).float().view(B, L, heads, hd).transpose(1, 2)
     s = _scores(q, k, mask, hd)
-    p = torch.exp(s - lse.transpose(0, 1).unsqueeze(-1))
+    if lse is None:
+        e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        p = e / e.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    else:
+        p = torch.exp(s - lse.transpose(0, 1).unsqueeze(-1))
     dv = torch.matmul(p.to(dtype).float().transpose(-1, -2), do)
     dp = torch.matmul(do, v.transpose(-1, -2))
     ds = (p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * hd ** -0.5).to(dtype).float()
@@ -180,7 +192,7 @@ def _fwd(qkv, mask, heads, lse: Optional[torch.Tensor]) -> torch.Tensor:
         err = lib.sc_attention_fwd(
             qkv.data_ptr(), None if mask is None else mask.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), B, L, heads, hd,
-            _DTYPE_CODES[qkv.dtype], hd ** -0.5,
+            cuda_build.DTYPE_CODES[qkv.dtype], hd ** -0.5,
             torch.cuda.current_stream(qkv.device).cuda_stream)
     cuda_build.check(lib, err, "fused_attention_fwd launch")
     return out
@@ -222,14 +234,8 @@ def fused_attention_lse(qkv: torch.Tensor, mask: Optional[torch.Tensor],
     return out, lse
 
 
-def fused_attention_bwd(qkv: torch.Tensor, mask: Optional[torch.Tensor],
-                        lse: torch.Tensor, g: torch.Tensor,
-                        heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Backward of :func:`fused_attention_lse`: given the cotangent ``g`` of
-    the context (B, L, D), returns dqkv (qkv's shape and dtype) and db (3D,)
-    f32, the gradient of a bias added to qkv. Takes the geometries
-    :func:`bwd_supported` names and raises ValueError on any other. Counts
-    each kernel launch in ``fused_attention_bwd.launches``."""
+def _check_bwd(qkv, mask, g, heads) -> torch.Tensor:
+    """The backward kernels' checks; returns g in qkv's dtype, contiguous."""
     _check(qkv, mask, heads)
     B, L, three_d = qkv.shape
     D = three_d // 3
@@ -238,14 +244,29 @@ def fused_attention_bwd(qkv: torch.Tensor, mask: Optional[torch.Tensor],
             f"backward geometry L={L} head_dim={D // heads} {qkv.dtype} needs "
             f"{bwd_smem_bytes(L, D // heads, qkv.dtype)} B of shared memory per block, "
             f"over {MAX_SMEM_BYTES}")
+    if g.shape != (B, L, D):
+        raise ValueError(f"g must be {(B, L, D)}; got {tuple(g.shape)}")
+    if g.device != qkv.device:
+        raise ValueError("g must be on qkv's device")
+    return g.to(qkv.dtype).contiguous()
+
+
+def fused_attention_bwd(qkv: torch.Tensor, mask: Optional[torch.Tensor],
+                        lse: torch.Tensor, g: torch.Tensor,
+                        heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Backward of :func:`fused_attention_lse`: given the cotangent ``g`` of
+    the context (B, L, D), returns dqkv (qkv's shape and dtype) and db (3D,)
+    f32, the gradient of a bias added to qkv. Takes the geometries
+    :func:`bwd_supported` names and raises ValueError on any other. Counts
+    each kernel launch in ``fused_attention_bwd.launches``."""
+    g = _check_bwd(qkv, mask, g, heads)
+    B, L, three_d = qkv.shape
+    D = three_d // 3
     if lse.shape != (heads, B, L) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous float32 {(heads, B, L)}; got "
                          f"{lse.dtype} {tuple(lse.shape)}")
-    if g.shape != (B, L, D):
-        raise ValueError(f"g must be {(B, L, D)}; got {tuple(g.shape)}")
-    if lse.device != qkv.device or g.device != qkv.device:
-        raise ValueError("lse and g must be on qkv's device")
-    g = g.to(qkv.dtype).contiguous()
+    if lse.device != qkv.device:
+        raise ValueError("lse must be on qkv's device")
     if qkv.device.type == "cpu":
         return reference_attention_bwd(qkv, mask, lse, g, heads)
     _check_kernel_device(qkv, g)
@@ -258,16 +279,43 @@ def fused_attention_bwd(qkv: torch.Tensor, mask: Optional[torch.Tensor],
         err = lib.sc_attention_bwd(
             qkv.data_ptr(), None if mask is None else mask.data_ptr(), lse.data_ptr(),
             g.data_ptr(), dqkv.data_ptr(), db_part.data_ptr(), db.data_ptr(),
-            B, L, heads, hd, _DTYPE_CODES[qkv.dtype], hd ** -0.5,
+            B, L, heads, hd, cuda_build.DTYPE_CODES[qkv.dtype], hd ** -0.5,
             torch.cuda.current_stream(qkv.device).cuda_stream)
     cuda_build.check(lib, err, "fused_attention_bwd launch")
     fused_attention_bwd.launches += 1
     return dqkv, db
 
 
+def fused_attention_bwd_recompute(qkv: torch.Tensor, mask: Optional[torch.Tensor],
+                                  g: torch.Tensor, heads: int) -> torch.Tensor:
+    """Backward of :func:`fused_attention` that recomputes the softmax
+    statistics from the scores (no saved logsumexp): given the cotangent
+    ``g`` of the context (B, L, D), returns dqkv (qkv's shape and dtype).
+    Takes the geometries :func:`bwd_supported` names and raises ValueError on
+    any other. Counts each kernel launch in
+    ``fused_attention_bwd_recompute.launches``."""
+    g = _check_bwd(qkv, mask, g, heads)
+    if qkv.device.type == "cpu":
+        return reference_attention_bwd(qkv, mask, None, g, heads)[0]
+    _check_kernel_device(qkv, g)
+    B, L, three_d = qkv.shape
+    hd = three_d // 3 // heads
+    dqkv = torch.empty_like(qkv)
+    lib = cuda_build.library()
+    with torch.cuda.device(qkv.device):
+        err = lib.sc_attention_bwd_recompute(
+            qkv.data_ptr(), None if mask is None else mask.data_ptr(), g.data_ptr(),
+            dqkv.data_ptr(), B, L, heads, hd, cuda_build.DTYPE_CODES[qkv.dtype], hd ** -0.5,
+            torch.cuda.current_stream(qkv.device).cuda_stream)
+    cuda_build.check(lib, err, "fused_attention_bwd_recompute launch")
+    fused_attention_bwd_recompute.launches += 1
+    return dqkv
+
+
 fused_attention.launches = 0
 fused_attention_lse.launches = 0
 fused_attention_bwd.launches = 0
+fused_attention_bwd_recompute.launches = 0
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -311,6 +359,25 @@ class QKVAttention(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             dw = _mm_f32(flat.t(), x.reshape(flat.shape[0], -1)).to(ctx.param_dtypes[0])
         return dx, dw, db.to(ctx.param_dtypes[1]), None, None
+
+
+class FusedAttention(torch.autograd.Function):
+    """:func:`fused_attention` over a qkv made elsewhere (the fused LayerNorm
+    -> qkv projection), with :func:`fused_attention_bwd_recompute` as its
+    backward; dqkv flows back to what made qkv. The counterpart of
+    ``fused_attention``'s custom VJP (``_attn_fwd`` -> ``_fwd_kernel``,
+    ``_attn_bwd`` -> ``_bwd_kernel``). The mask gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, qkv, mask, heads: int):
+        ctx.save_for_backward(qkv, mask)
+        ctx.heads = heads
+        return fused_attention(qkv, mask, heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, mask = ctx.saved_tensors
+        return fused_attention_bwd_recompute(qkv, mask, g, ctx.heads), None, None
 
 
 def qkv_attention(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,

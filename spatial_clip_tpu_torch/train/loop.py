@@ -23,7 +23,7 @@ import logging
 import math
 import time
 from dataclasses import dataclass, field as dfield
-from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -104,16 +104,24 @@ def _unported(cfg: TrainerConfig) -> None:
                 "spatial_clip_tpu_torch")
 
 
+_ALIGN = 4  # f32 elements: every parameter's view starts on a 16-byte boundary
+
+
 def _flat_layout(params: Dict[str, torch.Tensor]):
     """Names in flat-buffer order (the decayed parameters first), each with
-    its offset, the total size, and the number of decayed elements."""
+    its offset, the total size, and the number of elements up to the end of
+    the last decayed parameter. Offsets are rounded up to ``_ALIGN``
+    elements, so the kernels can read 16-byte vectors of any parameter; the
+    gaps hold zeros in every flat buffer."""
     decay = decay_mask(params)
     order = [k for k in params if decay[k]] + [k for k in params if not decay[k]]
-    offsets, off = {}, 0
+    offsets, off, n_decay = {}, 0, 0
     for k in order:
+        off = -(-off // _ALIGN) * _ALIGN
         offsets[k] = off
         off += params[k].numel()
-    n_decay = sum(params[k].numel() for k in order if decay[k])
+        if decay[k]:
+            n_decay = off
     return order, offsets, off, n_decay
 
 
@@ -122,7 +130,7 @@ def _pack(tensors: Dict[str, torch.Tensor], layout, dtype, device, leaf: bool = 
     offsets, and views of it under the same names (leaves that require
     grad, for the parameters)."""
     order, offsets, total, _ = layout
-    flat = torch.empty(total, dtype=dtype, device=device)
+    flat = torch.zeros(total, dtype=dtype, device=device)
     views = {}
     for k in tensors:
         t = tensors[k]
@@ -150,6 +158,7 @@ class TrainState:
     flat: Dict[str, torch.Tensor]
     n_decay: int
     order: Tuple[str, ...]
+    offsets: Dict[str, int]
 
     @classmethod
     def create(cls, params: Dict[str, torch.Tensor], mu: Dict[str, torch.Tensor],
@@ -164,14 +173,25 @@ class TrainState:
         return cls(step=step, params=p_views, mu=m_views, nu=n_views, count=count,
                    generator=torch.Generator(device=device).manual_seed(seed),
                    flat={"params": p_flat, "mu": m_flat, "nu": n_flat},
-                   n_decay=layout[3], order=tuple(layout[0]))
+                   n_decay=layout[3], order=tuple(layout[0]), offsets=layout[1])
 
     def by_name(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Views of a flat buffer laid out as ``flat['params']`` (such as the
         gradient of :meth:`Trainer.forward_backward`), by parameter name."""
-        sizes = [self.params[k].numel() for k in self.order]
-        return {k: v.view(self.params[k].shape)
-                for k, v in zip(self.order, flat.split(sizes))}
+        return {k: flat[self.offsets[k]:self.offsets[k] + p.numel()].view(p.shape)
+                for k, p in ((k, self.params[k]) for k in self.order)}
+
+    def flatten(self, tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+        """One flat buffer laid out as ``flat['params']`` from a tensor per
+        parameter, in ``order``, with zeros in the alignment gaps."""
+        zeros = tensors[0].new_zeros(_ALIGN - 1)
+        pieces, end = [], 0
+        for k, t in zip(self.order, tensors):
+            if self.offsets[k] > end:
+                pieces.append(zeros[:self.offsets[k] - end])
+            pieces.append(t.reshape(-1))
+            end = self.offsets[k] + t.numel()
+        return torch.cat(pieces)
 
 
 class Trainer:
@@ -234,7 +254,7 @@ class Trainer:
     def _flat_grad(state: TrainState, loss: torch.Tensor) -> torch.Tensor:
         grads = torch.autograd.grad(loss, [state.params[k] for k in state.order],
                                     materialize_grads=True)  # zeros for an unused parameter
-        return torch.cat([g.reshape(-1) for g in grads])
+        return state.flatten(grads)
 
     @staticmethod
     def _logits(img: torch.Tensor, txt: torch.Tensor, logit_scale: torch.Tensor):

@@ -1,6 +1,6 @@
 """The port's training attention (forward with logsumexp, backward with the
-bias gradient, and the qkv-projection autograd function) against the JAX
-package's Pallas kernels.
+bias gradient, the recompute backward, and the qkv-projection and
+fused-qkv autograd functions) against the JAX package's Pallas kernels.
 
 On the CPU the port's wrappers run their plain PyTorch versions; the JAX
 kernels run in Pallas interpret mode, as tests/test_fused_attention.py runs
@@ -10,7 +10,8 @@ JAX package's ``_lse_ok`` sends the backward down its recompute path.
 f32 tolerances: the context and lse at atol 1e-5 (both sides compute f32
 scores, the row max, exp and the sums, in other orders); dqkv at atol 2e-5
 and db at atol 2e-4 (dq and dk sum L products of O(1) terms, db sums B*L
-of those); the projection's dx, dW, db at rtol 1e-4 / atol 1e-4.
+of those), for both backward kernels; the projection's dx, dW, db at rtol
+1e-4 / atol 1e-4.
 """
 from __future__ import annotations
 
@@ -22,10 +23,13 @@ import torch
 
 from spatial_clip_tpu.ops import fused_attention as jfa
 from spatial_clip_tpu_torch.ops.fused_attention import (
+    FusedAttention,
     QKVAttention,
     bwd_smem_bytes,
     bwd_supported,
+    fused_attention,
     fused_attention_bwd,
+    fused_attention_bwd_recompute,
     fused_attention_lse,
     qkv_attention,
     reference_attention,
@@ -97,6 +101,54 @@ def test_backward_matches_jax_kernel_f32(B, L, D, H, causal):
     np.testing.assert_allclose(dqkv.numpy(), want_dqkv, atol=2e-5)
     np.testing.assert_allclose(db.numpy(), want_db, atol=2e-4)
     np.testing.assert_allclose(db.numpy(), dqkv.sum(dim=(0, 1)).numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("B,L,D,H,causal", GEOMETRIES)
+def test_recompute_backward_matches_jax_kernel_f32(B, L, D, H, causal):
+    """The recompute backward (no saved lse, no db) against ``_bwd_pallas``
+    (``_bwd_kernel``) in interpret mode; with the lse pair's dqkv it agrees
+    too, as the two compute one gradient."""
+    qkv, mask, g = _inputs(B * L + D + 2, B, L, D, causal)
+    want = np.asarray(jfa._bwd_pallas(jnp.asarray(qkv), _jmask(mask, L), jnp.asarray(g), H, True))
+    dqkv = fused_attention_bwd_recompute(_t(qkv), _t(mask), _t(g), H)
+    assert dqkv.shape == qkv.shape and dqkv.dtype == torch.float32
+    np.testing.assert_allclose(dqkv.numpy(), want, atol=2e-5)
+    _, lse = reference_attention_lse(_t(qkv), _t(mask), H)
+    np.testing.assert_allclose(
+        dqkv.numpy(), reference_attention_bwd(_t(qkv), _t(mask), lse, _t(g), H)[0].numpy(),
+        atol=2e-5)
+
+
+@pytest.mark.parametrize("B,L,D,H,causal", [(2, 50, 768, 12, False), (4, 77, 512, 8, True)])
+def test_recompute_backward_training_shapes_match_jax_kernel_bf16(B, L, D, H, causal):
+    """bf16 in and out at the towers' shapes: dqkv within one bf16 step
+    (2^-8 relative) of ``_bwd_kernel``'s where f32 sums run in another
+    order."""
+    qkv, mask, g = _inputs(6, B, L, D, causal)
+    qkv_b, g_b = jnp.asarray(qkv, jnp.bfloat16), jnp.asarray(g, jnp.bfloat16)
+    want = np.asarray(jfa._bwd_pallas(qkv_b, _jmask(mask, L), g_b, H, True), np.float32)
+    tq = torch.from_numpy(np.array(qkv_b.astype(jnp.float32))).bfloat16()
+    tg = torch.from_numpy(np.array(g_b.astype(jnp.float32))).bfloat16()
+    dqkv = fused_attention_bwd_recompute(tq, _t(mask), tg, H)
+    assert dqkv.dtype == torch.bfloat16
+    np.testing.assert_allclose(dqkv.float().numpy(), want, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("B,L,D,H,causal", [(4, 11, 128, 2, True), (2, 50, 768, 12, False)])
+def test_fused_attention_grads_match_jax(B, L, D, H, causal):
+    """:class:`FusedAttention` (inference forward, recompute backward)
+    against jax.grad of ``fused_attention`` with the interpret-mode kernels,
+    whose custom VJP runs ``_fwd_kernel`` and ``_bwd_kernel``."""
+    qkv, mask, g = _inputs(B + L + 7, B, L, D, causal)
+    jm = _jmask(mask, L)
+    want_out = np.asarray(jfa.fused_attention(jnp.asarray(qkv), jm, H, True))
+    want = np.asarray(jax.grad(lambda q: jnp.sum(jfa.fused_attention(q, jm, H, True) * g))(
+        jnp.asarray(qkv)))
+    tq = _t(qkv).requires_grad_()
+    out = FusedAttention.apply(tq, _t(mask), H)
+    (out * _t(g)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), want_out, atol=1e-5)
+    np.testing.assert_allclose(tq.grad.numpy(), want, atol=2e-5)
 
 
 @pytest.mark.parametrize("B,L,D,H,causal", [(2, 50, 768, 12, False), (4, 77, 512, 8, True)])
@@ -181,13 +233,18 @@ def test_qkv_attention_matches_autograd_of_plain_math():
 
 def test_cpu_path_is_the_plain_version_and_counts_nothing():
     qkv, mask, g = _inputs(0, 2, 9, 128, True)
-    before = (fused_attention_lse.launches, fused_attention_bwd.launches)
+    counters = (fused_attention, fused_attention_lse, fused_attention_bwd,
+                fused_attention_bwd_recompute)
+    before = tuple(c.launches for c in counters)
     out, lse = fused_attention_lse(_t(qkv), _t(mask), 2)
     dqkv, db = fused_attention_bwd(_t(qkv), _t(mask), lse, _t(g), 2)
-    assert (fused_attention_lse.launches, fused_attention_bwd.launches) == before
+    dqkv_re = fused_attention_bwd_recompute(_t(qkv), _t(mask), _t(g), 2)
+    assert tuple(c.launches for c in counters) == before
     want_out, want_lse = reference_attention_lse(_t(qkv), _t(mask), 2)
     want_dqkv, want_db = reference_attention_bwd(_t(qkv), _t(mask), want_lse, _t(g), 2)
-    for a, e in ((out, want_out), (lse, want_lse), (dqkv, want_dqkv), (db, want_db)):
+    want_re = reference_attention_bwd(_t(qkv), _t(mask), None, _t(g), 2)[0]
+    for a, e in ((out, want_out), (lse, want_lse), (dqkv, want_dqkv), (db, want_db),
+                 (dqkv_re, want_re)):
         assert torch.equal(a, e)
 
 
@@ -228,3 +285,15 @@ def test_mask_gets_no_gradient():
     out = QKVAttention.apply(x, torch.zeros(384, 128), torch.zeros(384), mask, 2)
     out.sum().backward()
     assert mask.grad is None and x.grad is not None
+    qkv = torch.zeros(2, 9, 384, requires_grad=True)
+    FusedAttention.apply(qkv, mask, 2).sum().backward()
+    assert mask.grad is None and qkv.grad is not None
+
+
+def test_recompute_backward_rejects_what_the_kernel_does_not_take():
+    before = fused_attention_bwd_recompute.launches
+    with pytest.raises(ValueError, match="shared memory"):  # hd 128 f32 at L=80
+        fused_attention_bwd_recompute(torch.zeros(2, 80, 768), None, torch.zeros(2, 80, 256), 2)
+    with pytest.raises(ValueError, match="g must be"):
+        fused_attention_bwd_recompute(torch.zeros(2, 9, 384), None, torch.zeros(2, 9, 64), 2)
+    assert fused_attention_bwd_recompute.launches == before

@@ -108,6 +108,31 @@ def test_lse_and_bwd_kernels_match_plain_version(device, B, L, D, H, causal, dty
     assert torch.equal(db, db_again) and torch.equal(dqkv, again)  # deterministic
 
 
+@pytest.mark.parametrize("B,L,D,H,causal,dtype", BWD_CASES)
+def test_recompute_bwd_kernel_matches_plain_version(device, B, L, D, H, causal, dtype):
+    """The recompute backward (no saved lse, no db) against its plain
+    version; the same bits on a second run."""
+    from spatial_clip_tpu_torch.ops.fused_attention import (
+        fused_attention_bwd_recompute,
+        reference_attention_bwd,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(B * L + D + 1)
+    qkv = torch.randn((B, L, 3 * D), generator=gen, device=device).to(dtype)
+    g = torch.randn((B, L, D), generator=gen, device=device).to(dtype)
+    mask = causal_mask(L, device=device) if causal else None
+    before = fused_attention_bwd_recompute.launches
+    dqkv = fused_attention_bwd_recompute(qkv, mask, g, H)
+    again = fused_attention_bwd_recompute(qkv, mask, g, H)
+    torch.cuda.synchronize()
+    assert fused_attention_bwd_recompute.launches == before + 2
+    want = reference_attention_bwd(qkv, mask, None, g, H)[0]
+    assert dqkv.dtype == dtype and dqkv.shape == qkv.shape
+    torch.testing.assert_close(dqkv.float(), want.float(), rtol=0,
+                               atol=_tol(dtype, want.float()))
+    assert torch.equal(dqkv, again)
+
+
 def test_bwd_smem_formula_matches_kernel(device):
     from spatial_clip_tpu_torch.ops import cuda_build
     from spatial_clip_tpu_torch.ops.fused_attention import bwd_smem_bytes
@@ -127,12 +152,22 @@ def test_cuda_tensor_never_falls_back(device):
     shifted = torch.zeros(2 * 9 * 384 + 1, dtype=torch.bfloat16, device=device)[1:]
     with pytest.raises(ValueError, match="16-byte aligned"):
         fused_attention(shifted.view(2, 9, 384), None, 2)
-    from spatial_clip_tpu_torch.ops.fused_attention import fused_attention_bwd
+    from spatial_clip_tpu_torch.ops.fused_attention import (
+        fused_attention_bwd,
+        fused_attention_bwd_recompute,
+    )
 
     with pytest.raises(ValueError, match="shared memory"):  # hd 128 f32 at L=80
         fused_attention_bwd(torch.zeros(2, 80, 768, device=device), None,
                             torch.zeros(2, 2, 80, device=device),
                             torch.zeros(2, 80, 256, device=device), 2)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_attention_bwd_recompute(torch.zeros(2, 80, 768, device=device), None,
+                                      torch.zeros(2, 80, 256, device=device), 2)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fused_attention_bwd_recompute(shifted.view(2, 9, 384), None,
+                                      torch.zeros(2, 9, 128, dtype=torch.bfloat16,
+                                                  device=device), 2)
 
 
 def test_tower_on_card_matches_cpu(device):
@@ -351,3 +386,138 @@ def test_spatial_ce_cuda_tensor_never_falls_back(device):
     q, kmat, col_ids, gt, nbr, alphas, scale = _ce_inputs(device, 8, 8)
     with pytest.raises(ValueError, match="on cuda"):
         fc.spatial_ce_fwd(q, kmat.cpu(), col_ids, gt, nbr, alphas, scale)
+
+
+# ------------------------------------------------------- the LayerNorm kernels
+
+@pytest.mark.parametrize("R,D,dtype", [
+    (256 * 50, 768, torch.bfloat16), (256 * 77, 512, torch.bfloat16),
+    (1001, 384, torch.float32), (77, 128, torch.bfloat16), (3, 1024, torch.float32),
+])
+def test_fused_ln_kernels_match_plain_versions(device, R, D, dtype):
+    """Forward and backward against their plain versions, ragged rows
+    included; dgamma/dbeta (f32 sums over the rows) at 1e-5 of their
+    largest entry and the same bits on a second run."""
+    from spatial_clip_tpu_torch.ops import fused_ln as fl
+
+    gen = torch.Generator(device=device).manual_seed(R + D)
+    x = (torch.randn((R, D), generator=gen, device=device) * 2 + 0.5).to(dtype)
+    gamma = 1 + 0.1 * torch.randn((D,), generator=gen, device=device)
+    beta = 0.1 * torch.randn((D,), generator=gen, device=device)
+    dy = torch.randn((R, D), generator=gen, device=device).to(dtype)
+    before = (fl.fused_ln_fwd.launches, fl.fused_ln_bwd.launches)
+    y = fl.fused_ln_fwd(x, gamma, beta, 1e-5)
+    dx, dg, db = fl.fused_ln_bwd(x, gamma, dy, 1e-5)
+    dx2, dg2, db2 = fl.fused_ln_bwd(x, gamma, dy, 1e-5)
+    torch.cuda.synchronize()
+    assert (fl.fused_ln_fwd.launches, fl.fused_ln_bwd.launches) == (before[0] + 1, before[1] + 2)
+    assert torch.equal(dg, dg2) and torch.equal(db, db2) and torch.equal(dx, dx2)
+    want_y = fl.reference_ln_fwd(x, gamma, beta, 1e-5)
+    want_dx, want_dg, want_db = fl.reference_ln_bwd(x, gamma, dy, 1e-5)
+    assert y.dtype == dx.dtype == dtype
+    for got, want, tol in ((y, want_y, _tol(dtype, want_y.float())),
+                           (dx, want_dx, _tol(dtype, want_dx.float())),
+                           (dg, want_dg, 1e-5 * want_dg.abs().max().item()),
+                           (db, want_db, 1e-5 * want_db.abs().max().item())):
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("R,K,N,dtype", [
+    (256 * 50, 768, 3072, torch.bfloat16), (256 * 50, 768, 2304, torch.bfloat16),
+    (256 * 77, 512, 2048, torch.bfloat16), (256 * 77, 512, 1536, torch.bfloat16),
+    (1000, 512, 1408, torch.bfloat16),
+    (77, 128, 384, torch.bfloat16),
+    (333, 256, 384, torch.float32), (5, 1024, 128, torch.float32),
+])
+def test_ln_dense_kernels_match_plain_versions(device, R, K, N, dtype):
+    """Forward (y, xhat) and dx against their plain versions, with the
+    products computed in the kernel; ragged rows included."""
+    from spatial_clip_tpu_torch.ops import fused_ln_dense as fd
+
+    gen = torch.Generator(device=device).manual_seed(R + K + N)
+    x = (torch.randn((R, K), generator=gen, device=device) * 2 + 0.5).to(dtype)
+    gamma = 1 + 0.1 * torch.randn((K,), generator=gen, device=device)
+    beta = 0.1 * torch.randn((K,), generator=gen, device=device)
+    weight = torch.randn((N, K), generator=gen, device=device) / K ** 0.5
+    bias = 0.1 * torch.randn((N,), generator=gen, device=device)
+    g = torch.randn((R, N), generator=gen, device=device).to(dtype)
+    w1, b1 = fd._fold(gamma, beta, weight, bias, dtype)
+    before = (fd.ln_dense_fwd.launches, fd.ln_dense_bwd_dx.launches)
+    y, xhat = fd.ln_dense_fwd(x, w1, b1, 1e-5)
+    dx = fd.ln_dense_bwd_dx(x, g, w1, 1e-5)
+    torch.cuda.synchronize()
+    assert (fd.ln_dense_fwd.launches, fd.ln_dense_bwd_dx.launches) == (before[0] + 1,
+                                                                       before[1] + 1)
+    want_y, want_xhat = fd.reference_ln_dense_fwd(x, w1, b1, 1e-5)
+    want_dx = fd.reference_ln_dense_bwd_dx(x, g, w1, 1e-5)
+    for got, want in ((y, want_y), (xhat, want_xhat), (dx, want_dx)):
+        assert got.dtype == dtype and got.shape == want.shape
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=_tol(dtype, want.float()))
+
+
+def test_ln_kernels_refuse_what_they_do_not_take(device):
+    from spatial_clip_tpu_torch.ops import fused_ln as fl
+    from spatial_clip_tpu_torch.ops import fused_ln_dense as fd
+
+    ones = torch.ones(1152, device=device)
+    with pytest.raises(ValueError, match="width 1152"):
+        fl.fused_ln_fwd(torch.zeros(4, 1152, device=device), ones, ones, 1e-5)
+    with pytest.raises(ValueError, match="width 96"):
+        fl.fused_ln_bwd(torch.zeros(4, 96, device=device), ones[:96], torch.zeros(4, 96,
+                                                                                device=device), 1e-5)
+    shifted = torch.zeros(4 * 128 + 1, dtype=torch.bfloat16, device=device)[1:].view(4, 128)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fl.fused_ln_fwd(shifted, ones[:128], ones[:128], 1e-5)
+    with pytest.raises(ValueError, match="K=1152"):
+        fd.ln_dense_fwd(torch.zeros(4, 1152, device=device), torch.zeros(128, 1152, device=device),
+                        torch.zeros(128, device=device), 1e-5)
+    with pytest.raises(ValueError, match="N=200"):
+        fd.ln_dense_bwd_dx(torch.zeros(4, 128, device=device), torch.zeros(4, 200, device=device),
+                           torch.zeros(200, 128, device=device), 1e-5)
+
+
+@pytest.mark.parametrize("setting,launches", [
+    (dict(ln_impl="pallas"), (11, 11, 0, 0, 0)),
+    (dict(ln_gemm_impl="pallas", attn_impl="pallas"), (0, 0, 8, 8, 4)),
+])
+def test_ln_settings_on_card_match_cpu(device, setting, launches):
+    """Widened ViT-Test in f32 under each fused LayerNorm setting: loss and
+    gradients of one forward+backward on the card (the kernels) against the
+    CPU (plain versions), at rtol 1e-4 / atol 1e-5 + 1e-4 of each
+    gradient's largest entry, with exact launch counts (fused_ln fwd, bwd,
+    fused_ln_dense fwd, dx, recompute attention backward)."""
+    from spatial_clip_tpu_torch.losses import make_loss
+    from spatial_clip_tpu_torch.ops import fused_ln as fl
+    from spatial_clip_tpu_torch.ops import fused_ln_dense as fd
+    from spatial_clip_tpu_torch.ops.fused_attention import fused_attention_bwd_recompute
+
+    wide = dict(vision_cfg=dict(width=128, heads=2), text_cfg=dict(width=128, heads=2))
+    rng = np.random.default_rng(7)
+    B = 4
+    u8 = torch.from_numpy(rng.integers(0, 256, (B, 32, 32, 3), np.uint8))
+    ids = torch.from_numpy(rng.integers(0, 512, (B, 16)))
+    spatial = dict(image_tile_ids=torch.arange(B), text_tile_ids=torch.arange(B),
+                   neighbor_tile_ids=torch.from_numpy(rng.integers(-1, B, (B, 4))),
+                   neighbor_alphas=torch.from_numpy(rng.uniform(0, 1, (B, 4)).astype(np.float32)))
+    loss_fn = make_loss("spatial", cap_logit_scale=50.0)
+    runs = {}
+    counters = (fl.fused_ln_fwd, fl.fused_ln_bwd, fd.ln_dense_fwd, fd.ln_dense_bwd_dx,
+                fused_attention_bwd_recompute)
+    for dev in ("cpu", device):
+        model = create_model("ViT-Test", precision="fp32", device=dev, training=True, **wide,
+                             **setting)
+        for c in counters:
+            c.launches = 0
+        feats = model(normalize_batch(u8.to(dev)), ids.to(dev))
+        loss = loss_fn(**feats, **{k: v.to(dev) for k, v in spatial.items()})["contrastive_loss"]
+        loss.backward()
+        torch.cuda.synchronize()
+        runs[str(dev)] = (loss.item(), {k: p.grad.cpu() for k, p in model.named_parameters()},
+                          tuple(c.launches for c in counters))
+    (loss_cpu, g_cpu, n_cpu), (loss_gpu, g_gpu, n_gpu) = runs["cpu"], runs[str(device)]
+    assert n_cpu == (0,) * 5 and n_gpu == launches
+    assert loss_gpu == pytest.approx(loss_cpu, rel=1e-4)
+    for k, w in g_cpu.items():
+        torch.testing.assert_close(g_gpu[k], w, rtol=1e-4,
+                                   atol=1e-5 + 1e-4 * w.abs().max().item(), msg=k)

@@ -156,7 +156,7 @@ def test_vit_b_32_layout_matches_jax_export():
 @pytest.mark.parametrize("overrides,field", [
     (dict(attn_impl="einsum"), "attn_impl"),
     (dict(mlp_impl="int8"), "mlp_impl"),
-    (dict(ln_gemm_impl="pallas"), "ln_gemm_impl"),
+    (dict(ln_gemm_impl="int8"), "ln_gemm_impl"),  # 'pallas' is ported
     (dict(ln_impl="compute"), "ln_impl"),
     (dict(zip_towers="on"), "zip_towers"),
     (dict(vision_cfg=dict(qk_norm=True)), "vision_cfg.qk_norm"),

@@ -174,6 +174,32 @@ def test_schedules_match_optax_step_by_step(name, kw):
         assert got(0) == 0.0
 
 
+def test_flat_layout_aligns_every_parameter():
+    """Every parameter's view starts on a 16-byte boundary (the kernels read
+    16-byte vectors of gamma and beta); the gaps hold zeros in each flat
+    buffer and in a flattened gradient; by_name inverts flatten."""
+    shapes = {"a": (6, 5), "b": (5,), "c": (3, 2, 4), "logit_scale": (), "d": (7,)}
+    params = {k: torch.randn(s) for k, s in shapes.items()}
+    state = TrainState.create(params, {k: torch.ones(s) for k, s in shapes.items()},
+                              {k: torch.ones(s) for k, s in shapes.items()})
+    assert state.order == ("a", "c", "b", "logit_scale", "d")
+    assert state.n_decay == 32 + 24  # c starts at 32, after a's 30 and a gap of 2
+    for name, views in (("params", state.params), ("mu", state.mu), ("nu", state.nu)):
+        flat = state.flat[name]
+        covered = torch.zeros(flat.numel(), dtype=torch.bool)
+        for k, v in views.items():
+            assert state.offsets[k] % 4 == 0 and v.data_ptr() % 8 == 0, (name, k)
+            covered[state.offsets[k]:state.offsets[k] + v.numel()] = True
+        assert (flat[~covered] == 0).all() and int((~covered).sum()) == 2 + 3 + 3
+    assert all(v.data_ptr() % 16 == 0 for v in state.params.values())
+    grads = [torch.randn(shapes[k]) for k in state.order]
+    flat = state.flatten(grads)
+    assert flat.shape == state.flat["params"].shape
+    back = state.by_name(flat)
+    for k, g in zip(state.order, grads):
+        assert torch.equal(back[k], g)
+
+
 @pytest.mark.parametrize("mu,nu", [("bf16", "bf16"), (None, None), (None, "bf16")])
 def test_optimizer_chain_matches_make_optimizer(mu, nu):
     """clip -> Adam (f32 math, moments stored in mu/nu dtype) -> masked decay
@@ -197,7 +223,7 @@ def test_optimizer_chain_matches_make_optimizer(mu, nu):
                  for k, s in shapes.items()}  # step 1 is clipped
         updates, jstate = tx.update(grads, jstate, jparams)
         jparams = optax.apply_updates(jparams, updates)
-        flat = torch.cat([torch.from_numpy(grads[k]).reshape(-1) for k in state.order])
+        flat = state.flatten([torch.from_numpy(grads[k]) for k in state.order])
         state.count, _ = opt.update(state.flat["params"], flat, state.flat["mu"],
                                     state.flat["nu"], state.count, state.n_decay)
     adam = find_adam_state(jstate)
