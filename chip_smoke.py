@@ -20,11 +20,13 @@ the exit code is not 0. No JAX is imported.
 5. timing  median encode time per batch of 64 tiles and of 64 texts, and the
            median latency of a 64-tile request through the server
 6. kernel-train  the training attention kernels (forward with logsumexp,
-           backward with the bias gradient, and the backward that recomputes
+           backward with the bias gradient, the backward that recomputes
            the softmax statistics, which phase 14's ln_gemm_impl setting
-           runs) against their plain versions at the two towers' shapes at
-           batch 256 (phase 8) and at microbatch 1024 (phase 11's pass 2),
-           and one f32 shape
+           runs, and the recompute backward with the bias gradient, which
+           phase 18's batches take) against their plain versions at the two
+           towers' shapes at batch 256 (phase 8) and at microbatch 1024
+           (phase 11's pass 2), and one f32 shape; db the same bits on a
+           rerun
 7. train-check  one ViT-B-32 train step's loss and gradients at batch 32 on
            the card (bf16, kernels) against the CPU (f32, plain path), on the
            same weights, batch and augmentation draws
@@ -63,10 +65,29 @@ the exit code is not 0. No JAX is imported.
            forward-lse and backward; 48 + 48 fused_ln_dense and 24 + 24
            attention inference forward and recompute backward), finite
            losses, median step ms beside phase 8's, peak memory
+15. kernel-mlp  the fused MLP kernel against its plain version at the
+           training shapes (batch 256: image (12800, 768 -> 3072 -> 768),
+           text (19712, 512 -> 2048 -> 512)), the serving shapes (batch 64),
+           a ragged R = 1000 and one f32 shape; F.linear(F.gelu(F.linear))
+           timed as its yardstick
+16. mlp-check  under mlp_impl='pallas': phase 7's card-vs-CPU step at batch
+           32, and the embedding server (bf16, batch 64) started with the
+           setting answering 64 raw tiles and 64 texts against the f32 CPU
+           plain path (per-row cosine), exactly 12 fused MLP launches per
+           encoder batch
+17. train-mlp  phase 8's bench workload under mlp_impl='pallas': exactly 24
+           fused MLP and 24 + 24 attention launches per step, finite losses
+           and gradient norms, median step ms beside phase 8's, peak memory
+18. route-check  JAX's attention-backward routes: the card-vs-CPU step at
+           batch 12 (no lse saved: 24 inference forward and 24 recompute
+           with db launches), the same at batch 32 under BWD_FUSE='none' (24
+           forward-lse and 24 recompute no-db launches), and three timed
+           steps at batch 100 on the recompute-with-db route
 
 Phases 3 and 6 also time PyTorch's scaled_dot_product_attention
-(efficient-attention backend) at the kernels' shapes as a yardstick, and
-phase 12 PyTorch's LayerNorm and linear layers; the port never calls them.
+(efficient-attention backend) at the kernels' shapes as a yardstick, phase
+12 PyTorch's LayerNorm and linear layers, and phase 15 its linear and GELU;
+the port never calls them.
 Then one JSON line with the kernels (each with its launches on the main
 path, error, time, plain time, bound and library time), the nvidia-smi
 line, and last ``{"ok": true, "device": {...}}``.
@@ -110,7 +131,8 @@ def attention_bound(qkv, heads: int, kind: str):
     each output written once; the dots at the bf16 tensor-core peak (f32:
     the CUDA cores' peak, TF32 being other arithmetic).
     kind: 'fwd' (qkv -> out), 'fwd_lse' (+ lse), 'bwd' (qkv, do, lse ->
-    dqkv, db), 'bwd_recompute' (qkv, do -> dqkv)."""
+    dqkv, db), 'bwd_recompute' (qkv, do -> dqkv), 'bwd_recompute_db' (qkv,
+    do -> dqkv, db)."""
     import torch
 
     B, L, three_d = qkv.shape
@@ -125,6 +147,8 @@ def attention_bound(qkv, heads: int, kind: str):
         return bound(B * L * (three_d + D) * item + lse, 2 * dots, peak)
     if kind == "bwd_recompute":
         return bound(B * L * (2 * three_d + D) * item, 5 * dots, peak)
+    if kind == "bwd_recompute_db":
+        return bound(B * L * (2 * three_d + D) * item + 4 * three_d, 5 * dots, peak)
     return bound(B * L * (2 * three_d + D) * item + lse + 4 * three_d, 5 * dots, peak)
 
 
@@ -412,6 +436,10 @@ def main() -> int:
     ln_rows = kernel_ln_phase()
     ln_check_phase()
     ln_train = train_ln_phase(train["step_ms"])
+    mlp_rows = kernel_mlp_phase()
+    mlp_check_phase()
+    mlp_train = train_mlp_phase(train["step_ms"])
+    routes = route_check_phase()
 
     image = kernel_rows["image"]
     at_train = "qkv (256, 50, 2304) bf16, no mask (image tower, batch 256)"
@@ -462,6 +490,24 @@ def main() -> int:
         "library_ms": row["bwd_re_library_ms"],
         "at": at_train,
     })
+    for name, line, part, launches in (  # JAX's _bwd_kernel3 is the recompute entry's work
+            ("fused_attention_bwd_recompute (BWD_FUSE=none)", 390, "re",
+             routes["none_launches"]),
+            ("fused_attention_bwd_recompute_db", 404, "rd", routes["db_launches"])):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "spatial_clip_tpu_torch/csrc/fused_attention_bwd.cu",
+            "replaces": f"spatial_clip_tpu/ops/fused_attention.py:{line}",
+            "launches": launches,
+            "max_abs_err": max(r[f"bwd_{part}_err"] for r in train_rows.values()),
+            "ms": row[f"bwd_{part}_ms"],
+            "plain_ms": row[f"bwd_{part}_plain_ms"],
+            "bound_ms": row[f"bwd_{part}_bound_ms"],
+            "bound_by": row[f"bwd_{part}_bound_by"],
+            "library_ms": row[f"bwd_{part}_library_ms"],
+            "at": at_train,
+        })
     main_shape = loss_rows[f"{LARGE_MICRO * LARGE_ACCUM}"]
     for part, line in (("fwd", 50), ("dq", 114), ("dk", 158)):
         kernels.append({
@@ -505,6 +551,21 @@ def main() -> int:
             "library_ms": row[f"{part}_library_ms"],
             "at": at,
         })
+    image_mlp = mlp_rows["image"]
+    kernels.append({
+        "name": "fused_mlp_fwd",
+        "route": "cuda",
+        "source": "spatial_clip_tpu_torch/csrc/fused_mlp.cu",
+        "replaces": "spatial_clip_tpu/ops/fused_mlp.py:28",
+        "launches": mlp_train["launches"],
+        "max_abs_err": max(r["err"] for r in mlp_rows.values()),
+        "ms": image_mlp["ms"],
+        "plain_ms": image_mlp["plain_ms"],
+        "bound_ms": image_mlp["bound_ms"],
+        "bound_by": image_mlp["bound_by"],
+        "library_ms": image_mlp["library_ms"],
+        "at": "x (12800, 768) -> 3072 -> 768 bf16 (image tower MLP, batch 256)",
+    })
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
@@ -519,6 +580,7 @@ def kernel_train_phase() -> dict:
     from spatial_clip_tpu_torch.ops.fused_attention import (
         fused_attention_bwd,
         fused_attention_bwd_recompute,
+        fused_attention_bwd_recompute_db,
         fused_attention_lse,
         reference_attention_bwd,
         reference_attention_lse,
@@ -540,9 +602,11 @@ def kernel_train_phase() -> dict:
         out, lse = fused_attention_lse(qkv, mask, H)
         dqkv, db = fused_attention_bwd(qkv, mask, lse, g, H)
         dqkv_re = fused_attention_bwd_recompute(qkv, mask, g, H)
+        dqkv_rd, db_rd = fused_attention_bwd_recompute_db(qkv, mask, g, H)
+        db_rd_again = fused_attention_bwd_recompute_db(qkv, mask, g, H)[1]
         want_out, want_lse = reference_attention_lse(qkv, mask, H)
         want_dqkv, want_db = reference_attention_bwd(qkv, mask, want_lse, g, H)
-        want_re = reference_attention_bwd(qkv, mask, None, g, H)[0]
+        want_re, want_db_re = reference_attention_bwd(qkv, mask, None, g, H)
         torch.cuda.synchronize()
         checks = {  # name: (error, tolerance)
             "out": (out.float() - want_out.float(), train_tol(dtype, want_out.float())),
@@ -551,11 +615,16 @@ def kernel_train_phase() -> dict:
             "db": (db - want_db, train_tol(dtype, want_db) + 1e-4),
             "dqkv_recompute": (dqkv_re.float() - want_re.float(),
                                train_tol(dtype, want_re.float())),
+            "dqkv_recompute_db": (dqkv_rd.float() - want_re.float(),
+                                  train_tol(dtype, want_re.float())),
+            "db_recompute_db": (db_rd - want_db_re, train_tol(dtype, want_db_re) + 1e-4),
         }
         errs = {k: (d.abs().max().item(), tol) for k, (d, tol) in checks.items()}
         bad = {k: v for k, v in errs.items() if not v[0] <= v[1]}
-        if bad:
-            raise AssertionError(f"[kernel-train] {name}: max abs err over tolerance {bad}")
+        if bad or not torch.equal(db_rd, db_rd_again):
+            raise AssertionError(f"[kernel-train] {name}: max abs err over tolerance {bad}; "
+                                 f"recompute-with-db db the same bits on a rerun: "
+                                 f"{torch.equal(db_rd, db_rd_again)}")
         row = dict(
             fwd_err=max(errs["out"][0], errs["lse"][0]),
             bwd_err=max(errs["dqkv"][0], errs["db"][0]),
@@ -566,13 +635,18 @@ def kernel_train_phase() -> dict:
             bwd_re_err=errs["dqkv_recompute"][0],
             bwd_re_ms=median_ms(lambda: fused_attention_bwd_recompute(qkv, mask, g, H)),
             bwd_re_plain_ms=median_ms(lambda: reference_attention_bwd(qkv, mask, None, g, H)),
+            bwd_rd_err=max(errs["dqkv_recompute_db"][0], errs["db_recompute_db"][0]),
+            bwd_rd_ms=median_ms(lambda: fused_attention_bwd_recompute_db(qkv, mask, g, H)),
         )
+        row["bwd_rd_plain_ms"] = row["bwd_re_plain_ms"]  # one plain version returns both
         library = sdpa_ms(qkv, mask, H)
         row.update(fwd_library_ms=library["fwd_lse"], bwd_library_ms=library["bwd"],
-                   bwd_re_library_ms=library["bwd"])
+                   bwd_re_library_ms=library["bwd"], bwd_rd_library_ms=library["bwd"])
         (row["fwd_bound_ms"], row["fwd_bound_by"]), (row["bwd_bound_ms"], row["bwd_bound_by"]) = (
             attention_bound(qkv, H, "fwd_lse"), attention_bound(qkv, H, "bwd"))
         row["bwd_re_bound_ms"], row["bwd_re_bound_by"] = attention_bound(qkv, H, "bwd_recompute")
+        row["bwd_rd_bound_ms"], row["bwd_rd_bound_by"] = attention_bound(qkv, H,
+                                                                         "bwd_recompute_db")
         rows[name] = row
         print(f"[kernel-train] {name} qkv {tuple(qkv.shape)} {str(dtype)[6:]} "
               f"mask={'causal' if causal else 'none'}: max abs err (tol) " + ", ".join(
@@ -583,14 +657,17 @@ def kernel_train_phase() -> dict:
               f"{row['bwd_plain_ms']:.4f} ms, SDPA {row['bwd_library_ms']:.4f} ms, bound "
               f"{row['bwd_bound_ms']:.4f} ms ({row['bwd_bound_by']}); recompute bwd kernel "
               f"{row['bwd_re_ms']:.4f} ms vs plain {row['bwd_re_plain_ms']:.4f} ms, bound "
-              f"{row['bwd_re_bound_ms']:.4f} ms ({row['bwd_re_bound_by']})", flush=True)
+              f"{row['bwd_re_bound_ms']:.4f} ms ({row['bwd_re_bound_by']}); recompute bwd with "
+              f"db kernel {row['bwd_rd_ms']:.4f} ms, bound {row['bwd_rd_bound_ms']:.4f} ms "
+              f"({row['bwd_rd_bound_by']}), db the same bits on a rerun", flush=True)
     return rows
 
 
-def train_check_phase(label: str = "train-check", **settings):
-    """7 (and 13 under ``settings``). One train step's loss and gradients,
-    card (bf16, kernels) vs CPU (f32, plain path), on the same weights,
-    batch and augmentation draws. Returns the card's trainer."""
+def train_check_phase(label: str = "train-check", batch_size: int = CHECK_BATCH, **settings):
+    """7 (and 13, 16, 18 under ``settings`` or another batch). One train
+    step's loss and gradients, card (bf16, kernels) vs CPU (f32, plain
+    path), on the same weights, batch and augmentation draws. Returns the
+    card's trainer."""
     import torch
 
     from spatial_clip_tpu_torch.bench import make_trainer, synthetic_batch
@@ -600,12 +677,12 @@ def train_check_phase(label: str = "train-check", **settings):
     card = make_trainer("ViT-B-32", device="cuda", **settings)
     cpu = make_trainer("ViT-B-32", device="cpu", precision="fp32", **settings)  # same weights
     card_state, cpu_state = card.init_state(), cpu.init_state()
-    batch = synthetic_batch(cpu.model, CHECK_BATCH, seed=1, device="cpu")
+    batch = synthetic_batch(cpu.model, batch_size, seed=1, device="cpu")
     rng = np.random.default_rng(2)
     draws = AugmentDraws(*(torch.from_numpy(d) for d in (
-        rng.random(CHECK_BATCH) < 0.5,
-        (1.0 + rng.uniform(-0.2, 0.2, CHECK_BATCH)).astype(np.float32),
-        (1.0 + rng.uniform(-0.2, 0.2, CHECK_BATCH)).astype(np.float32))))
+        rng.random(batch_size) < 0.5,
+        (1.0 + rng.uniform(-0.2, 0.2, batch_size)).astype(np.float32),
+        (1.0 + rng.uniform(-0.2, 0.2, batch_size)).astype(np.float32))))
     loss_card, _, grad_card = card.forward_backward(
         card_state, {k: v.cuda() for k, v in batch.items()},
         AugmentDraws(*(d.cuda() for d in draws)))
@@ -626,7 +703,7 @@ def train_check_phase(label: str = "train-check", **settings):
         raise AssertionError(
             f"[{label}] loss card {loss_card.item()} cpu {loss_cpu.item()} (rel {rel}), "
             f"grad cosine {cos_all}, qkv-bias grad cosine {cos_bias}, finite {finite}")
-    print(f"[{label}] ViT-B-32{settings or ''} batch {CHECK_BATCH}, one step, same "
+    print(f"[{label}] ViT-B-32{settings or ''} batch {batch_size}, one step, same "
           f"weights/batch/draws: "
           f"loss card bf16 {loss_card.item():.6f} vs CPU f32 {loss_cpu.item():.6f} "
           f"(rel err {rel:.3g} <= {MAX_LOSS_REL_ERR}); flattened gradient cosine "
@@ -639,8 +716,6 @@ def train_check_phase(label: str = "train-check", **settings):
 
 def train_phase(trainer) -> dict:
     """8. The main training path: the bench workload's train step at batch 256."""
-    import torch
-
     from spatial_clip_tpu_torch.bench import synthetic_batch
     from spatial_clip_tpu_torch.ops.fused_attention import (
         fused_attention,
@@ -648,30 +723,14 @@ def train_phase(trainer) -> dict:
         fused_attention_lse,
     )
 
-    state = trainer.init_state()
     batch = synthetic_batch(trainer.model, TRAIN_BATCH)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for counter in (fused_attention, fused_attention_lse, fused_attention_bwd):
-        counter.launches = 0
-    step_ms, history = [], []
-    for _ in range(WARMUP_STEPS + TIMED_STEPS):
-        t0 = time.perf_counter()
-        state, metrics = trainer.train_step(state, batch)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        history.append((metrics["loss"], metrics["grad_norm"]))
-    counts = (fused_attention.launches, fused_attention_lse.launches,
-              fused_attention_bwd.launches)
-    peak = torch.cuda.max_memory_allocated()
     steps = WARMUP_STEPS + TIMED_STEPS
+    counts, step_ms, history, peak = timed_steps(
+        "train", trainer, batch, steps, (fused_attention, fused_attention_lse, fused_attention_bwd))
     want = (0, 2 * LAYERS * steps, 2 * LAYERS * steps)
     if counts != want:
         raise AssertionError(f"[train] launches (fwd, fwd_lse, bwd) {counts}, want {want}")
-    losses = [float(l) for l, _ in history]
-    norms = [float(n) for _, n in history]
-    if not all(np.isfinite(losses + norms)):
-        raise AssertionError(f"[train] non-finite loss or grad norm: {losses} {norms}")
+    losses, norms = [l for l, _ in history], [n for _, n in history]
     med = statistics.median(step_ms[WARMUP_STEPS:])
     print(f"[train] ViT-B-32 bf16 batch {TRAIN_BATCH}, 12+12 layers, bench workload: "
           f"{steps} steps, launches fwd_lse {counts[1]} bwd {counts[2]} "
@@ -1155,30 +1214,14 @@ def train_ln_phase(default_step_ms: float) -> dict:
     for label, settings in LN_SETTINGS.items():
         torch.cuda.empty_cache()
         trainer = make_trainer("ViT-B-32", device="cuda", **settings)
-        state = trainer.init_state()
         batch = synthetic_batch(trainer.model, TRAIN_BATCH)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        counters = ln_counters()
-        for c in counters:
-            c.launches = 0
-        step_ms, history = [], []
-        for _ in range(steps):
-            t0 = time.perf_counter()
-            state, metrics = trainer.train_step(state, batch)
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-            history.append((float(metrics["loss"]), float(metrics["grad_norm"])))
-        counts = tuple(c.launches for c in counters)
-        peak = torch.cuda.max_memory_allocated()
+        counts, step_ms, history, peak = timed_steps(f"train-ln {label}", trainer, batch, steps,
+                                                     ln_counters())
         want = tuple(n * steps for n in per_step[label])
         if counts != want:
             raise AssertionError(f"[train-ln {label}] launches (ln fwd, ln bwd, ln_dense fwd, dx, "
                                  f"attention fwd, fwd_lse, bwd, recompute bwd) {counts}, want "
                                  f"{want}")
-        values = [v for pair in history for v in pair]
-        if not all(np.isfinite(values)):
-            raise AssertionError(f"[train-ln {label}] non-finite loss or grad norm: {history}")
         med = statistics.median(step_ms[WARMUP_STEPS:])
         out[label] = {"counts": counts, "step_ms": med}
         print(f"[train-ln {label}] ViT-B-32 bf16 batch {TRAIN_BATCH}: {steps} steps, launches per "
@@ -1189,8 +1232,252 @@ def train_ln_phase(default_step_ms: float) -> dict:
               f"median step {med:.3f} ms ({TRAIN_BATCH * 1e3 / med:.1f} pairs/s) vs phase 8's "
               f"default {default_step_ms:.3f} ms ({TRAIN_BATCH * 1e3 / default_step_ms:.1f} "
               f"pairs/s); max_memory_allocated {peak / 2 ** 30:.3f} GiB", flush=True)
-        del trainer, state, batch
+        del trainer, batch
     return out
+
+
+def kernel_mlp_phase() -> dict:
+    """15. The fused MLP kernel against its plain version on the card at the
+    training shapes (batch 256), the serving shapes (batch 64), a ragged R
+    and one f32 shape, with the weights in x's dtype (a serving model's; a
+    training model's are cast per use before the launch). Yardstick: the
+    three calls F.linear(F.gelu(F.linear(x, W1, b1), tanh), W2, b2)."""
+    import torch
+    import torch.nn.functional as F
+
+    from spatial_clip_tpu_torch.ops import fused_mlp as fm
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    rows = {}
+    for name, R, W, H, dtype in (("image", TRAIN_BATCH * 50, 768, 3072, torch.bfloat16),
+                                 ("text", TRAIN_BATCH * 77, 512, 2048, torch.bfloat16),
+                                 ("image_serve", 64 * 50, 768, 3072, torch.bfloat16),
+                                 ("text_serve", 64 * 77, 512, 2048, torch.bfloat16),
+                                 ("ragged", 1000, 768, 3072, torch.bfloat16),
+                                 ("f32", 333, 256, 1024, torch.float32)):
+        x = torch.randn((R, W), generator=gen, device="cuda").to(dtype)
+        w1 = (torch.randn((H, W), generator=gen, device="cuda") / W ** 0.5).to(dtype)
+        b1 = (0.1 * torch.randn((H,), generator=gen, device="cuda")).to(dtype)
+        w2 = (torch.randn((W, H), generator=gen, device="cuda") / H ** 0.5).to(dtype)
+        b2 = (0.1 * torch.randn((W,), generator=gen, device="cuda")).to(dtype)
+        out = fm.fused_mlp_fwd(x, w1, b1, w2, b2)
+        want = fm.reference_mlp_fwd(x, w1, b1, w2, b2)
+        torch.cuda.synchronize()
+        err, tol = (out.float() - want.float()).abs().max().item(), train_tol(dtype, want.float())
+        if not (err <= tol and torch.isfinite(out).all().item()):
+            raise AssertionError(f"[kernel-mlp] {name}: max abs err {err} > {tol} or non-finite")
+        peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+        row = dict(
+            err=err,
+            ms=median_ms(lambda: fm.fused_mlp_fwd(x, w1, b1, w2, b2)),
+            plain_ms=median_ms(lambda: fm.reference_mlp_fwd(x, w1, b1, w2, b2)),
+            library_ms=median_ms(lambda: F.linear(F.gelu(F.linear(x, w1, b1), approximate="tanh"),
+                                                  w2, b2)))
+        # x, W1, b1, W2, b2 in; out; two products of 2 R W H operations each
+        row["bound_ms"], row["bound_by"] = bound(
+            (2 * R * W + 2 * W * H + H + W) * x.element_size(), 4 * R * W * H, peak)
+        rows[name] = row
+        print(f"[kernel-mlp] fused_mlp {name} x ({R}, {W}) -> {H} -> {W} {str(dtype)[6:]}: max abs "
+              f"err {err:.3g} (tol {tol:.3g}); kernel {row['ms']:.4f} ms vs plain "
+              f"{row['plain_ms']:.4f}, F.linear(F.gelu(F.linear)) {row['library_ms']:.4f}, bound "
+              f"{row['bound_ms']:.4f} ({row['bound_by']}, share "
+              f"{row['bound_ms'] / row['ms']:.3f})", flush=True)
+    return rows
+
+
+def mlp_check_phase() -> None:
+    """16. Under mlp_impl='pallas': phase 7's card-vs-CPU step at batch 32;
+    then the embedding server (bf16, batch 64) started with the setting
+    answers 64 raw tiles and 64 texts, each one encoder batch of exactly 12
+    fused MLP (and 12 attention) launches, against the same weights in f32
+    on the CPU (plain path), per-row cosine >= MIN_COSINE; and phase 5's
+    encode timings under the setting."""
+    import torch
+    from http.server import ThreadingHTTPServer
+
+    from spatial_clip_tpu_torch import create_model
+    from spatial_clip_tpu_torch.models.transforms import normalize_batch
+    from spatial_clip_tpu_torch.ops import fused_mlp as fm
+    from spatial_clip_tpu_torch.ops.fused_attention import fused_attention
+    from spatial_clip_tpu_torch.serve import EmbeddingService, make_handler
+
+    train_check_phase("mlp-check", mlp_impl="pallas")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    service = EmbeddingService("ViT-B-32", precision="bf16", batch_size=64, device="cuda",
+                               mlp_impl="pallas")
+    service.warmup()
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(service))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    port = server.server_address[1]
+    tiles = np.random.default_rng(16).integers(0, 256, (64, 224, 224, 3), dtype=np.uint8)
+    texts = [f"spot {i}: EPCAM KRT{i % 20} in tumor stroma" for i in range(64)]
+    try:
+        got, counts = {}, {}
+        for kind, path, body in (
+                ("image", "/embed_image_raw", tiles.tobytes()),
+                ("text", "/embed_text", json.dumps({"texts": texts, "encoding": "b64_f32"}))):
+            fm.fused_mlp_fwd.launches = fused_attention.launches = 0
+            got[kind] = embeddings(post(port, path, body))
+            counts[kind] = (fm.fused_mlp_fwd.launches, fused_attention.launches)
+        model = service.model  # phase 5's timings under the setting
+        x64 = normalize_batch(torch.from_numpy(tiles).cuda(), dtype=model.dtype)
+        ids64 = torch.from_numpy(get_tokenizer_ids(texts)).cuda()
+        with torch.inference_mode():
+            img_ms = host_median_ms(lambda: model.encode_image(x64))
+            txt_ms = host_median_ms(lambda: model.encode_text(ids64))
+        del model, x64, ids64
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        service.close()
+    dim = int(service.model.cfg.embed_dim)
+    del service
+    reference = create_model("ViT-B-32", precision="fp32", seed=0, device="cpu", mlp_impl="pallas")
+    with torch.inference_mode():
+        want = {"image": reference.encode_image(normalize_batch(torch.from_numpy(tiles))).numpy(),
+                "text": reference.encode_text(
+                    torch.from_numpy(get_tokenizer_ids(texts))).numpy()}
+    for kind in got:
+        check_embeddings(f"mlp-check {kind}", got[kind], 64, dim)
+    cos = {k: float((got[k] * want[k]).sum(-1).min()) for k in got}
+    if counts != {"image": (LAYERS, LAYERS), "text": (LAYERS, LAYERS)} or \
+            min(cos.values()) < MIN_COSINE:
+        raise AssertionError(f"[mlp-check] launches (fused_mlp, attention) per encoder batch "
+                             f"{counts}, min cosine vs f32 CPU {cos}")
+    print(f"[mlp-check] server with mlp_impl='pallas' (ViT-B-32 bf16, batch 64): POST "
+          f"/embed_image_raw 64 tiles and /embed_text 64 texts, 200 OK, finite, unit norm; "
+          f"launches (fused_mlp, attention) per encoder batch image {counts['image']} text "
+          f"{counts['text']}; min cosine vs f32 CPU plain path image {cos['image']:.5f} text "
+          f"{cos['text']:.5f} (>= {MIN_COSINE}); encode_image 64 tiles {img_ms:.3f} ms, "
+          f"encode_text 64 texts {txt_ms:.3f} ms (phase 5's timing); "
+          f"{time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+def get_tokenizer_ids(texts):
+    from spatial_clip_tpu_torch.models.factory import get_tokenizer
+
+    return np.asarray(get_tokenizer("ViT-B-32")(texts), dtype=np.int64)
+
+
+def timed_steps(label: str, trainer, batch, steps: int, counters):
+    """``steps`` train steps from a fresh state, each ending in a
+    synchronize, with every counter set to 0 first; fails on a non-finite
+    loss or gradient norm. Returns (launch counts, step ms, (loss, grad
+    norm) per step, peak memory)."""
+    import torch
+
+    state = trainer.init_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    step_ms, history = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        history.append((float(metrics["loss"]), float(metrics["grad_norm"])))
+    if not all(np.isfinite([v for pair in history for v in pair])):
+        raise AssertionError(f"[{label}] non-finite loss or grad norm: {history}")
+    return (tuple(c.launches for c in counters), step_ms, history,
+            torch.cuda.max_memory_allocated())
+
+
+def attention_counters():
+    from spatial_clip_tpu_torch.ops import fused_attention as fa
+
+    return (fa.fused_attention, fa.fused_attention_lse, fa.fused_attention_bwd,
+            fa.fused_attention_bwd_recompute_db, fa.fused_attention_bwd_recompute)
+
+
+def train_mlp_phase(default_step_ms: float) -> dict:
+    """17. The bench workload (ViT-B-32 bf16, batch 256) under
+    mlp_impl='pallas': 3 warmup and 10 timed steps, exactly 24 fused MLP
+    and 24 + 24 attention (forward-lse, backward) launches per step, finite
+    losses and gradient norms; median step beside phase 8's."""
+    import torch
+
+    from spatial_clip_tpu_torch.bench import make_trainer, synthetic_batch
+    from spatial_clip_tpu_torch.ops import fused_mlp as fm
+
+    torch.cuda.empty_cache()
+    trainer = make_trainer("ViT-B-32", device="cuda", mlp_impl="pallas")
+    batch = synthetic_batch(trainer.model, TRAIN_BATCH)
+    steps = WARMUP_STEPS + TIMED_STEPS
+    counters = (fm.fused_mlp_fwd, *attention_counters())
+    counts, step_ms, history, peak = timed_steps("train-mlp", trainer, batch, steps, counters)
+    want = tuple(n * steps for n in (2 * LAYERS, 0, 2 * LAYERS, 2 * LAYERS, 0, 0))
+    if counts != want:
+        raise AssertionError(f"[train-mlp] launches (fused_mlp, attention fwd, fwd_lse, bwd, "
+                             f"recompute-with-db bwd, recompute bwd) {counts}, want {want}")
+    med = statistics.median(step_ms[WARMUP_STEPS:])
+    print(f"[train-mlp mlp_impl=pallas] ViT-B-32 bf16 batch {TRAIN_BATCH}: {steps} steps, launches "
+          f"per step (fused_mlp, attention fwd, fwd_lse, bwd, recompute-with-db bwd, recompute "
+          f"bwd) {tuple(c // steps for c in counts)}; losses finite {history[0][0]:.4f} -> "
+          f"{history[-1][0]:.4f}, grad norms {history[0][1]:.4f} -> {history[-1][1]:.4f}; median "
+          f"step {med:.3f} ms ({TRAIN_BATCH * 1e3 / med:.1f} pairs/s) vs phase 8's default "
+          f"{default_step_ms:.3f} ms ({TRAIN_BATCH * 1e3 / default_step_ms:.1f} pairs/s); "
+          f"max_memory_allocated {peak / 2 ** 30:.3f} GiB", flush=True)
+    del trainer, batch
+    return {"launches": counts[0], "step_ms": med}
+
+
+ROUTE_BATCH = 100  # not a multiple of 8: JAX's _lse_ok fails, no lse is saved
+
+
+def route_check_phase() -> dict:
+    """18. JAX's attention-backward routes on the card: the card-vs-CPU step
+    at batch 12 (``_lse_ok`` fails: the inference forward and the recompute
+    backward with db, 24 each, no forward-lse), the step at batch 32 under
+    BWD_FUSE='none' (24 forward-lse and 24 recompute no-db), with exact
+    launch counts; then 1 warmup and 3 timed steps of the bench workload at
+    batch 100 on the recompute-with-db route."""
+    import torch
+
+    from spatial_clip_tpu_torch.bench import make_trainer, synthetic_batch
+    from spatial_clip_tpu_torch.ops import fused_attention as fa
+
+    counters = attention_counters()
+    counts = {}
+    for label, batch_size, fuse, want in (
+            ("recompute-with-db", 12, "db", (2 * LAYERS, 0, 0, 2 * LAYERS, 0)),
+            ("BWD_FUSE=none", CHECK_BATCH, "none", (0, 2 * LAYERS, 0, 0, 2 * LAYERS))):
+        torch.cuda.empty_cache()
+        previous, fa.BWD_FUSE = fa.BWD_FUSE, fuse
+        for c in counters:
+            c.launches = 0
+        try:
+            train_check_phase(f"route-check {label}", batch_size)
+        finally:
+            fa.BWD_FUSE = previous
+        counts[label] = tuple(c.launches for c in counters)
+        if counts[label] != want:
+            raise AssertionError(f"[route-check {label}] launches (attention fwd, fwd_lse, bwd, "
+                                 f"recompute-with-db bwd, recompute bwd) {counts[label]}, want "
+                                 f"{want}")
+    torch.cuda.empty_cache()
+    trainer = make_trainer("ViT-B-32", device="cuda")
+    batch = synthetic_batch(trainer.model, ROUTE_BATCH)
+    launches, step_ms, history, peak = timed_steps(f"route-check batch {ROUTE_BATCH}", trainer,
+                                                   batch, 4, counters)
+    want = tuple(4 * n for n in (2 * LAYERS, 0, 0, 2 * LAYERS, 0))
+    if launches != want:
+        raise AssertionError(f"[route-check batch {ROUTE_BATCH}] launches {launches}, want {want}")
+    med = statistics.median(step_ms[1:])
+    print(f"[route-check] launches (attention fwd, fwd_lse, bwd, recompute-with-db bwd, recompute "
+          f"bwd): batch 12 {counts['recompute-with-db']}, batch {CHECK_BATCH} BWD_FUSE=none "
+          f"{counts['BWD_FUSE=none']}; batch {ROUTE_BATCH} (no lse saved), 4 steps {launches}: "
+          f"losses {[round(l, 4) for l, _ in history]}, median of steps 2-4 {med:.3f} ms "
+          f"({ROUTE_BATCH * 1e3 / med:.1f} pairs/s; all {[round(t, 1) for t in step_ms]}); "
+          f"max_memory_allocated {peak / 2 ** 30:.3f} GiB", flush=True)
+    del trainer, batch
+    return {"db_launches": launches[3], "none_launches": counts["BWD_FUSE=none"][4],
+            "step_ms": med}
 
 
 if __name__ == "__main__":

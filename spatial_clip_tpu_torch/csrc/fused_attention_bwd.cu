@@ -1,19 +1,27 @@
-// Fused multi-head attention backward (Hopper, sm_90a), in two options:
+// Fused multi-head attention backward (Hopper, sm_90a), in three options of
+// one kernel, set by two switches: where p comes from (the saved logsumexp,
+// or recomputed from the scores' own max and sum) and whether the qkv-bias
+// gradient db is computed.
 //
-//   - from the saved logsumexp, with the qkv-bias gradient: replaces the TPU
-//     kernel `_bwd_kernel3_db_lse` in spatial_clip_tpu/ops/fused_attention.py
+//   - saved logsumexp, with db (`sc_attention_bwd`): replaces the TPU kernel
+//     `_bwd_kernel3_db_lse` in spatial_clip_tpu/ops/fused_attention.py
 //     (launched by `_bwd_pallas3_db_lse` through pl.pallas_call), the
 //     backward of every attention of the CLIP towers in training;
-//   - recompute, no bias gradient: replaces the TPU kernel `_bwd_kernel`
+//   - recompute, no db (`sc_attention_bwd_recompute`): replaces `_bwd_kernel`
 //     (launched by `_bwd_pallas`), the backward of `fused_attention`'s custom
 //     VJP, which the towers reach under attn_impl='pallas' where the qkv
-//     comes from the fused LayerNorm -> qkv projection. It takes no
-//     logsumexp: the softmax statistics are recomputed from the scores.
+//     comes from the fused LayerNorm -> qkv projection; and `_bwd_kernel3`
+//     (launched by `_bwd_pallas3`), `qkv_attention`'s backward under
+//     BWD_FUSE='none', which computes the same dq, dk, dv in another layout;
+//   - recompute, with db (`sc_attention_bwd_recompute_db`): replaces
+//     `_bwd_kernel3_db` (launched by `_bwd_pallas3_db`), `qkv_attention`'s
+//     backward for a batch whose forward saved no logsumexp (`_lse_ok`
+//     fails: a batch that is not a multiple of 8 and is larger than 4).
 //
-// Given the raw (B, L, 3D) qkv, the additive mask, (first option) the
+// Given the raw (B, L, 3D) qkv, the additive mask, (saved option) the
 // forward's per-row logsumexp (heads, B, L) and the context's cotangent do
 // (B, L, D), it writes dqkv in qkv's own (B, L, 3D) layout (the TPU kernel's
-// dq, dk, dv concatenated) and (first option) db = the f32 sum over (B, L) of
+// dq, dk, dv concatenated) and (db options) db = the f32 sum over (B, L) of
 // dqkv, the gradient of the qkv bias. The math is the TPU kernels'
 // (`_bwd_compute`), per head:
 //   s  = q k^T * hd^-1/2 + mask (f32)
@@ -47,17 +55,17 @@
 //     lane owns hd/32 output dims) and writes it;
 //   - phase 2, after a block barrier, a warp per four key rows: dk and dv are
 //     column sums over the p and ds tiles against Q and do;
-//   - db (first option): each block sums its rounded dq/dk/dv over its rows
+//   - db (db options): each block sums its rounded dq/dk/dv over its rows
 //     in a fixed order and writes one partial per batch row; a second small
 //     kernel adds the B partials of each column in a fixed order. The result
 //     is deterministic (the same bits every run), which atomicAdd into one
 //     (3D,) vector is not.
-// The shared-memory footprint, the same for both options, sets the
+// The shared-memory footprint, the same for every option, sets the
 // geometries it takes (see sc_attention_bwd_smem_bytes; the Python wrapper
 // mirrors the formula).
 //
-// C interface (bound with ctypes; the caller allocates dqkv and, for the
-// first option, the (B, 3D) f32 partials and db, passes 16-byte aligned
+// C interface (bound with ctypes; the caller allocates dqkv and, for the db
+// options, the (B, 3D) f32 partials and db, passes 16-byte aligned
 // contiguous tensors and PyTorch's current stream). Returns
 // cudaGetLastError() after the launches.
 
@@ -106,10 +114,9 @@ struct BwdLayout {
   }
 };
 
-// kRecompute: p from the scores' own max and sum, lse and db_part unused
-// (`_bwd_kernel`); otherwise p from lse, and db partials written
-// (`_bwd_kernel3_db_lse`).
-template <typename T, int HD, bool kRecompute>
+// kRecompute: p from the scores' own max and sum, lse unused; otherwise p
+// from lse. kDb: db partials written; otherwise db_part unused.
+template <typename T, int HD, bool kRecompute, bool kDb>
 __global__ void __launch_bounds__(kWarps * 32)
 attn_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
                 const float* __restrict__ lse, const T* __restrict__ dout,
@@ -360,7 +367,7 @@ attn_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
   }
 
   // db: this block's column sums, warps added in a fixed order
-  if constexpr (!kRecompute) {
+  if constexpr (kDb) {
 #pragma unroll
     for (int k = 0; k < kDpl; ++k) {
       db_s[(warp * 3 + 0) * HD + lane * kDpl + k] = dbq[k];
@@ -401,21 +408,22 @@ db_reduce_kernel(const float* __restrict__ part, float* __restrict__ db, int bat
   }
 }
 
-// db_part and db null: the recompute option (lse unused too).
-template <typename T, int HD, bool kRecompute>
+// lse null when kRecompute; db_part and db null unless kDb.
+template <typename T, int HD, bool kRecompute, bool kDb>
 cudaError_t launch(const void* qkv, const float* mask, const float* lse, const void* dout,
                    void* dqkv, float* db_part, float* db, int batch, int seq, int heads,
                    float scale, cudaStream_t stream) {
   const size_t smem = BwdLayout<T, HD>::smem_bytes(seq);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_kernel<T, HD, kRecompute>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  auto kernel = attn_bwd_kernel<T, HD, kRecompute, kDb>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  attn_bwd_kernel<T, HD, kRecompute><<<batch * heads, kWarps * 32, smem, stream>>>(
+  kernel<<<batch * heads, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(qkv), mask, lse, static_cast<const T*>(dout),
       static_cast<T*>(dqkv), db_part, seq, heads, scale);
   err = cudaGetLastError();
-  if (err != cudaSuccess || kRecompute) return err;
+  if (err != cudaSuccess || !kDb) return err;
   const int n = 3 * heads * HD;
   db_reduce_kernel<<<(n + kReduceCols - 1) / kReduceCols, dim3(kReduceCols, kReduceRows), 0,
                      stream>>>(db_part, db, batch, n);
@@ -432,25 +440,25 @@ size_t smem_for(int seq, int head_dim) {
   }
 }
 
-template <typename T, bool kRecompute>
+template <typename T, bool kRecompute, bool kDb>
 cudaError_t dispatch_hd(const void* qkv, const float* mask, const float* lse, const void* dout,
                         void* dqkv, float* db_part, float* db, int batch, int seq, int heads,
                         int head_dim, float scale, cudaStream_t stream) {
   switch (head_dim) {
     case 32:
-      return launch<T, 32, kRecompute>(qkv, mask, lse, dout, dqkv, db_part, db, batch, seq,
-                                       heads, scale, stream);
+      return launch<T, 32, kRecompute, kDb>(qkv, mask, lse, dout, dqkv, db_part, db, batch,
+                                            seq, heads, scale, stream);
     case 64:
-      return launch<T, 64, kRecompute>(qkv, mask, lse, dout, dqkv, db_part, db, batch, seq,
-                                       heads, scale, stream);
+      return launch<T, 64, kRecompute, kDb>(qkv, mask, lse, dout, dqkv, db_part, db, batch,
+                                            seq, heads, scale, stream);
     case 128:
-      return launch<T, 128, kRecompute>(qkv, mask, lse, dout, dqkv, db_part, db, batch, seq,
-                                        heads, scale, stream);
+      return launch<T, 128, kRecompute, kDb>(qkv, mask, lse, dout, dqkv, db_part, db, batch,
+                                             seq, heads, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <bool kRecompute>
+template <bool kRecompute, bool kDb>
 int dispatch(const void* qkv, const void* mask, const void* lse, const void* dout, void* dqkv,
              void* db_part, void* db, int batch, int seq, int heads, int head_dim, int dtype,
              float scale, void* stream) {
@@ -465,11 +473,12 @@ int dispatch(const void* qkv, const void* mask, const void* lse, const void* dou
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return int(dispatch_hd<float, kRecompute>(qkv, m, l, dout, dqkv, part, d, batch, seq,
-                                                heads, head_dim, scale, s));
+      return int(dispatch_hd<float, kRecompute, kDb>(qkv, m, l, dout, dqkv, part, d, batch,
+                                                     seq, heads, head_dim, scale, s));
     case 1:
-      return int(dispatch_hd<__nv_bfloat16, kRecompute>(qkv, m, l, dout, dqkv, part, d, batch,
-                                                        seq, heads, head_dim, scale, s));
+      return int(dispatch_hd<__nv_bfloat16, kRecompute, kDb>(qkv, m, l, dout, dqkv, part, d,
+                                                             batch, seq, heads, head_dim, scale,
+                                                             s));
     default: return int(cudaErrorInvalidValue);
   }
 }
@@ -490,7 +499,7 @@ extern "C" int sc_attention_bwd(const void* qkv, const void* mask, const void* l
                                 const void* dout, void* dqkv, void* db_part, void* db,
                                 int batch, int seq, int heads, int head_dim, int dtype,
                                 float scale, void* stream) {
-  return dispatch<false>(qkv, mask, lse, dout, dqkv, db_part, db, batch, seq, heads, head_dim,
+  return dispatch<false, true>(qkv, mask, lse, dout, dqkv, db_part, db, batch, seq, heads, head_dim,
                          dtype, scale, stream);
 }
 
@@ -498,6 +507,17 @@ extern "C" int sc_attention_bwd(const void* qkv, const void* mask, const void* l
 extern "C" int sc_attention_bwd_recompute(const void* qkv, const void* mask, const void* dout,
                                           void* dqkv, int batch, int seq, int heads,
                                           int head_dim, int dtype, float scale, void* stream) {
-  return dispatch<true>(qkv, mask, nullptr, dout, dqkv, nullptr, nullptr, batch, seq, heads,
-                        head_dim, dtype, scale, stream);
+  return dispatch<true, false>(qkv, mask, nullptr, dout, dqkv, nullptr, nullptr, batch, seq,
+                               heads, head_dim, dtype, scale, stream);
+}
+
+// The recompute option with db: as sc_attention_bwd with no lse; writes dqkv,
+// db_part and db.
+extern "C" int sc_attention_bwd_recompute_db(const void* qkv, const void* mask,
+                                             const void* dout, void* dqkv, void* db_part,
+                                             void* db, int batch, int seq, int heads,
+                                             int head_dim, int dtype, float scale,
+                                             void* stream) {
+  return dispatch<true, true>(qkv, mask, nullptr, dout, dqkv, db_part, db, batch, seq, heads,
+                              head_dim, dtype, scale, stream);
 }

@@ -42,7 +42,8 @@ class CLIP(nn.Module):
         act = quick_gelu if cfg.quick_gelu else gelu_tanh
         common = dict(ln_stats=cfg.ln_impl, act=act, dtype=dtype,
                       param_dtype=param_dtype or dtype, device=device, training=training,
-                      attn_impl=cfg.attn_impl, ln_gemm_impl=cfg.ln_gemm_impl)
+                      attn_impl=cfg.attn_impl, ln_gemm_impl=cfg.ln_gemm_impl,
+                      mlp_impl=cfg.mlp_impl)
         self.visual = VisionTransformer(
             v.size, v.patch_size, v.width, v.layers, v.heads, v.mlp_ratio,
             cfg.embed_dim, ls_init_value=v.ls_init_value, no_ln_pre=v.no_ln_pre,

@@ -88,7 +88,7 @@ class CLIPCfg:
     # pallas (with ln_gemm_impl='pallas': ln_1 -> qkv fused, then attention)
     attn_impl: str = "auto"
     zip_towers: str = "off"
-    mlp_impl: str = "dense"
+    mlp_impl: str = "dense"  # dense | pallas (the fused MLP kernel); int8 is not ported
     ln_gemm_impl: str = "dense"  # dense | pallas (ln_2 -> c_fc, ln_1 -> qkv fused)
     # onepass (f32 E[x^2]-E[x]^2) | fp32 (two-pass) | pallas (the fused_ln kernels)
     ln_impl: str = "onepass"
@@ -116,7 +116,7 @@ def check_ported(cfg: CLIPCfg) -> None:
         ("multimodal_cfg", cfg.multimodal_cfg, cfg.multimodal_cfg is not None),
         ("attn_impl", cfg.attn_impl, cfg.attn_impl not in ("auto", "pallas", "pallas3")),
         ("zip_towers", cfg.zip_towers, cfg.zip_towers not in ("off", "auto")),
-        ("mlp_impl", cfg.mlp_impl, cfg.mlp_impl != "dense"),
+        ("mlp_impl", cfg.mlp_impl, cfg.mlp_impl not in ("dense", "pallas")),
         ("ln_gemm_impl", cfg.ln_gemm_impl, cfg.ln_gemm_impl not in ("dense", "pallas")),
         ("ln_impl", cfg.ln_impl, cfg.ln_impl not in ("onepass", "fp32", "pallas")),
         ("vision_cfg.timm_model_name", v.timm_model_name, v.timm_model_name is not None),

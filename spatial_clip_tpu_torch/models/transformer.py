@@ -8,7 +8,10 @@ settings route through kernels of their own, with the JAX towers' gates:
 through ``ops.fused_ln`` (others take two-pass statistics), and
 ``ln_gemm_impl='pallas'`` fuses each block's ln_2 -> c_fc, and with
 ``attn_impl='pallas'`` its ln_1 -> qkv, into ``ops.fused_ln_dense``.
-Parameters carry open_clip's names and layouts (``attn.in_proj_weight`` is (3D, D),
+``mlp_impl='pallas'`` sends each block's MLP through ``ops.fused_mlp``
+where JAX's gate allows (tanh GELU, hidden a multiple of 512, width a
+multiple of 128, c_fc not already fused with its LayerNorm). Parameters
+carry open_clip's names and layouts (``attn.in_proj_weight`` is (3D, D),
 ``conv1.weight`` is OIHW). Matrices, embeddings and layer-scales are stored
 in ``param_dtype`` and cast to the compute ``dtype`` at each use, as the
 JAX towers cast their f32 parameters: a serving model stores them in the
@@ -17,12 +20,13 @@ LayerNorm parameters and the logit scale are always float32. Images are
 NHWC, as in the JAX package.
 
 With grad enabled, attention runs through :class:`QKVAttention`, whose
-forward saves the logsumexp and whose backward is the hand-written
-backward kernel; without grad it is the inference kernel alone. Where
-ln_1 -> qkv is fused, attention takes the fused kernel's qkv, as JAX's
-``fused_attention`` does: :class:`FusedAttention` with grad (the inference
-forward, and the backward that recomputes the softmax statistics, the
-counterpart of ``_bwd_kernel``), the inference kernel alone without.
+forward saves the logsumexp where JAX's does and whose backward is one of
+the hand-written backward kernels, picked as JAX picks it; without grad it
+is the inference kernel alone. Where ln_1 -> qkv is fused, attention
+takes the fused kernel's qkv, as JAX's ``fused_attention`` does:
+:class:`FusedAttention` with grad (the inference forward, and the backward
+that recomputes the softmax statistics, the counterpart of
+``_bwd_kernel``), the inference kernel alone without.
 """
 from __future__ import annotations
 
@@ -33,7 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from spatial_clip_tpu_torch.ops import fused_ln, fused_ln_dense
+from spatial_clip_tpu_torch.ops import fused_ln, fused_ln_dense, fused_mlp
 from spatial_clip_tpu_torch.ops.fused_attention import (
     HEAD_DIMS,
     FusedAttention,
@@ -122,25 +126,36 @@ class LayerScale(nn.Module):
 
 
 class MLP(nn.Module):
-    def __init__(self, width: int, hidden: int, act: Callable, dtype, param_dtype, device):
+    """c_fc -> act -> c_proj. ``impl='pallas'`` runs the three as the fused
+    MLP kernel where JAX's gate allows: the tanh GELU, hidden a multiple of
+    512, width a multiple of 128."""
+
+    def __init__(self, width: int, hidden: int, act: Callable, dtype, param_dtype, device,
+                 impl: str = "dense"):
         super().__init__()
         self.c_fc = Dense(width, hidden, dtype, param_dtype, device)
         self.c_proj = Dense(hidden, width, dtype, param_dtype, device)
-        self.act = act
+        self.act, self.impl = act, impl
 
     def forward(self, x: torch.Tensor, ln=None) -> torch.Tensor:
         """``ln = (weight, bias, eps)``: x is the raw residual stream and its
         pre-LN is fused into c_fc where JAX's gate allows, else applied
         two-pass here."""
+        fc, proj = self.c_fc, self.c_proj
         if ln is not None:
-            fc = self.c_fc
             if fused_ln_dense.supported(fc.in_features, fc.out_features):
                 shape = x.shape
                 h = fused_ln_dense.fused_ln_dense(x.reshape(-1, shape[-1]).to(fc.dtype), *ln[:2],
                                                   fc.weight, fc.bias, ln[2])
-                return self.c_proj(self.act(h.view(*shape[:-1], fc.out_features)))
+                return proj(self.act(h.view(*shape[:-1], fc.out_features)))
             x = _ln_apply(x, *ln, fc.dtype)
-        return self.c_proj(self.act(self.c_fc(x)))
+        if (self.impl == "pallas" and self.act is gelu_tanh
+                and fused_mlp.supported(fc.in_features, fc.out_features)):
+            shape = x.shape
+            out = fused_mlp.fused_mlp(x.reshape(-1, shape[-1]).to(fc.dtype), fc.weight, fc.bias,
+                                      proj.weight, proj.bias)
+            return out.view(shape)
+        return proj(self.act(fc(x)))
 
 
 class MultiHeadAttention(nn.Module):
@@ -148,8 +163,9 @@ class MultiHeadAttention(nn.Module):
     kernel on that raw output, then the output projection.
 
     With grad enabled the GEMM and the attention run as one
-    :class:`QKVAttention` (forward with logsumexp, hand-written backward);
-    otherwise the inference kernel runs alone. Built for training
+    :class:`QKVAttention` (the forward, with the logsumexp where JAX saves
+    it, and the hand-written backward JAX's routing picks); otherwise the
+    inference kernel runs alone. Built for training
     (``seq_len`` given), it checks that the backward kernel takes the
     geometry. ``impl='pallas'`` fuses a pre-LN handed to :meth:`forward`
     into the qkv projection."""
@@ -203,14 +219,15 @@ class ResidualBlock(nn.Module):
     ``ln_gemm_impl='pallas'`` hands ln_1 and ln_2 to the attention and the
     MLP to fuse into their projections, as JAX does when ``ln_stats`` is
     ``fp32`` or ``onepass`` (under ``pallas`` nothing fuses). The LayerNorm
-    modules stay, holding the parameters under the same names."""
+    modules stay, holding the parameters under the same names.
+    ``mlp_impl`` goes to the MLP."""
 
     def __init__(self, width: int, heads: int, mlp_ratio: float = 4.0,
                  ls_init_value: Optional[float] = None, norm_eps: float = 1e-5,
                  ln_stats: str = "onepass", act: Callable = gelu_tanh,
                  dtype=torch.float32, param_dtype=None, device=None,
                  seq_len: Optional[int] = None, attn_impl: str = "auto",
-                 ln_gemm_impl: str = "dense"):
+                 ln_gemm_impl: str = "dense", mlp_impl: str = "dense"):
         super().__init__()
         param_dtype = param_dtype or dtype
         self.fuse_ln = ln_gemm_impl == "pallas" and ln_stats in ("fp32", "onepass")
@@ -218,7 +235,7 @@ class ResidualBlock(nn.Module):
         self.attn = MultiHeadAttention(width, heads, dtype, param_dtype, device, seq_len,
                                        attn_impl)
         self.ln_2 = LayerNorm(width, norm_eps, ln_stats, dtype, device)
-        self.mlp = MLP(width, int(width * mlp_ratio), act, dtype, param_dtype, device)
+        self.mlp = MLP(width, int(width * mlp_ratio), act, dtype, param_dtype, device, mlp_impl)
         scaled = ls_init_value is not None
         self.ls_1 = LayerScale(width, dtype, param_dtype, device) if scaled else nn.Identity()
         self.ls_2 = LayerScale(width, dtype, param_dtype, device) if scaled else nn.Identity()
@@ -273,7 +290,7 @@ class VisionTransformer(nn.Module):
                  norm_eps: float = 1e-5, ln_stats: str = "onepass",
                  act: Callable = gelu_tanh, dtype=torch.float32, param_dtype=None,
                  device=None, training: bool = False, attn_impl: str = "auto",
-                 ln_gemm_impl: str = "dense"):
+                 ln_gemm_impl: str = "dense", mlp_impl: str = "dense"):
         super().__init__()
         if pool_type not in ("tok", "avg", "none"):
             raise ValueError(f"unknown vision pool_type {pool_type!r}")
@@ -293,7 +310,7 @@ class VisionTransformer(nn.Module):
             norm_eps=norm_eps, ln_stats=ln_stats, act=act, dtype=dtype,
             param_dtype=param_dtype, device=device,
             seq_len=n_patches + 1 if training else None, attn_impl=attn_impl,
-            ln_gemm_impl=ln_gemm_impl)
+            ln_gemm_impl=ln_gemm_impl, mlp_impl=mlp_impl)
         self.ln_post = LayerNorm(width, norm_eps, ln_stats, dtype, device)
         self.proj = _param(width, output_dim, dtype=param_dtype, device=device)
 
@@ -356,7 +373,7 @@ class TextTransformer(nn.Module):
                  proj_bias: bool = False, norm_eps: float = 1e-5, ln_stats: str = "onepass",
                  act: Callable = gelu_tanh, dtype=torch.float32, param_dtype=None,
                  device=None, training: bool = False, attn_impl: str = "auto",
-                 ln_gemm_impl: str = "dense"):
+                 ln_gemm_impl: str = "dense", mlp_impl: str = "dense"):
         super().__init__()
         param_dtype = param_dtype or dtype
         self.pool_type, self.dtype = pool_type, dtype
@@ -371,7 +388,7 @@ class TextTransformer(nn.Module):
             norm_eps=norm_eps, ln_stats=ln_stats, act=act, dtype=dtype,
             param_dtype=param_dtype, device=device,
             seq_len=context_length if training else None, attn_impl=attn_impl,
-            ln_gemm_impl=ln_gemm_impl)
+            ln_gemm_impl=ln_gemm_impl, mlp_impl=mlp_impl)
         self.ln_final = LayerNorm(width, norm_eps, ln_stats, dtype, device)
         self.text_projection = (Dense(width, output_dim, dtype, param_dtype, device) if proj_bias
                                 else _param(width, output_dim, dtype=param_dtype, device=device))

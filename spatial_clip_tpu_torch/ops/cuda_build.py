@@ -126,6 +126,13 @@ def library() -> ctypes.CDLL:
                 i32, ctypes.c_float, ptr,  # dtype, scale, stream
             ]
             lib.sc_attention_bwd_recompute.restype = i32
+            lib.sc_attention_bwd_recompute_db.argtypes = [
+                ptr, ptr, ptr, ptr,  # qkv, mask, dout, dqkv
+                ptr, ptr,  # db partials, db
+                i32, i32, i32, i32,  # B, L, H, hd
+                i32, ctypes.c_float, ptr,  # dtype, scale, stream
+            ]
+            lib.sc_attention_bwd_recompute_db.restype = i32
             lib.sc_attention_bwd_smem_bytes.argtypes = [i32, i32, i32]
             lib.sc_attention_bwd_smem_bytes.restype = ctypes.c_size_t
             ce_inputs = [ptr] * 7  # q, kmat, col_ids, gt_ids, nbr, alphas, scale
@@ -169,6 +176,11 @@ def library() -> ctypes.CDLL:
             lib.sc_ln_dense_bwd_dx.argtypes = [ptr, ptr, ptr, ptr,  # x, g, w1, dx
                                                i32, i32, i32, i32, f32, ptr]
             lib.sc_ln_dense_bwd_dx.restype = i32
+            lib.sc_mlp_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,  # x, w1, b1, w2, b2, out
+                                       i32, i32, i32, i32, ptr]  # R, W, H, dtype, stream
+            lib.sc_mlp_fwd.restype = i32
+            lib.sc_mlp_max_width.argtypes = []
+            lib.sc_mlp_max_width.restype = i32
             lib.sc_cuda_error_string.argtypes = [ctypes.c_int]
             lib.sc_cuda_error_string.restype = ctypes.c_char_p
             _library = lib

@@ -10,10 +10,15 @@ Counterpart of ``spatial_clip_tpu/ops/fused_attention.py``:
   qkv-bias gradient (``_bwd_pallas3_db_lse`` -> ``_bwd_kernel3_db_lse``);
 - :func:`fused_attention_bwd_recompute`: the backward that recomputes the
   softmax statistics from the scores, without the bias gradient
-  (``_bwd_pallas`` -> ``_bwd_kernel``);
+  (``_bwd_pallas`` -> ``_bwd_kernel``, and ``_bwd_pallas3`` ->
+  ``_bwd_kernel3``, which computes the same in another layout);
+- :func:`fused_attention_bwd_recompute_db`: the recompute backward with the
+  bias gradient (``_bwd_pallas3_db`` -> ``_bwd_kernel3_db``);
 - :class:`QKVAttention`: the qkv projection and attention as one autograd
-  function (``qkv_attention`` and its custom VJP), whose backward is the
-  saved-logsumexp kernel plus the dx and dW GEMMs;
+  function (``qkv_attention`` and its custom VJP), routed as JAX routes it:
+  the forward saves the logsumexp where :func:`lse_ok` holds, and the
+  backward is picked by :data:`BWD_FUSE` and whether an lse was saved, plus
+  the dx and dW GEMMs;
 - :class:`FusedAttention`: attention over a given qkv as one autograd
   function (``fused_attention`` and its custom VJP): the inference forward,
   and the recompute backward. The towers reach it where the fused LayerNorm
@@ -40,6 +45,39 @@ MAX_SEQ = 256
 # the backward's block geometry (csrc/fused_attention_bwd.cu BwdLayout)
 _BWD_WARPS, _BWD_ROWS = 8, 2
 MAX_SMEM_BYTES = 232448  # 227 KB: the most shared memory a block may use on sm_90
+
+# QKVAttention's backward, read at backward time as JAX reads its
+# ``BWD_FUSE``: 'db' (the default) computes the qkv-bias gradient in the
+# kernel; 'none' takes the no-db kernel and sums dqkv in f32 outside it;
+# 'dxdb' (the dx GEMM in the kernel too) is not ported.
+BWD_FUSE = "db"
+
+# JAX's batch-block caps (``FWD_BLOCK_CAP``, ``_bwd_cap``); lse_ok only
+_FWD_BLOCK_CAP = 32
+_SHORT_SEQ = 128
+
+
+def _pick_block_b(B: int, cap: int) -> int:
+    for bb in (64, 32, 16, 8, 4, 2, 1):
+        if bb <= cap and B % bb == 0:
+            return bb
+    return 1
+
+
+def lse_ok(B: int, L: int) -> bool:
+    """Whether JAX's ``qkv_attention`` saves the logsumexp for a batch of B
+    sequences of length L (``_lse_ok``, with ``_pick_block_b`` and
+    ``_bwd_cap`` at their defaults): the TPU kernels' lse block needs a
+    batch block that is a multiple of 8 or the whole batch, in the forward's
+    grid and the backward's. It reproduces JAX's routing and means nothing
+    for the card: a batch that is not a multiple of 8 and is larger than 4
+    (3, 6, 12, 100, ...) fails it, and JAX then trains it through the
+    recompute backward with db."""
+    for cap in (_FWD_BLOCK_CAP, 64 if L <= _SHORT_SEQ else 32):
+        bb = _pick_block_b(B, cap)
+        if bb % 8 != 0 and bb != B:
+            return False
+    return True
 
 
 def supported(heads: int, width: int) -> bool:
@@ -312,10 +350,39 @@ def fused_attention_bwd_recompute(qkv: torch.Tensor, mask: Optional[torch.Tensor
     return dqkv
 
 
+def fused_attention_bwd_recompute_db(qkv: torch.Tensor, mask: Optional[torch.Tensor],
+                                     g: torch.Tensor,
+                                     heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`fused_attention_bwd_recompute` that also returns db (3D,) f32,
+    the gradient of a bias added to qkv, summed in the kernel over the cast
+    dqkv in a fixed order as :func:`fused_attention_bwd` sums it. Counts
+    each kernel launch in ``fused_attention_bwd_recompute_db.launches``."""
+    g = _check_bwd(qkv, mask, g, heads)
+    if qkv.device.type == "cpu":
+        return reference_attention_bwd(qkv, mask, None, g, heads)
+    _check_kernel_device(qkv, g)
+    B, L, three_d = qkv.shape
+    hd = three_d // 3 // heads
+    dqkv = torch.empty_like(qkv)
+    db_part = torch.empty((B, three_d), dtype=torch.float32, device=qkv.device)
+    db = torch.empty((three_d,), dtype=torch.float32, device=qkv.device)
+    lib = cuda_build.library()
+    with torch.cuda.device(qkv.device):
+        err = lib.sc_attention_bwd_recompute_db(
+            qkv.data_ptr(), None if mask is None else mask.data_ptr(), g.data_ptr(),
+            dqkv.data_ptr(), db_part.data_ptr(), db.data_ptr(), B, L, heads, hd,
+            cuda_build.DTYPE_CODES[qkv.dtype], hd ** -0.5,
+            torch.cuda.current_stream(qkv.device).cuda_stream)
+    cuda_build.check(lib, err, "fused_attention_bwd_recompute_db launch")
+    fused_attention_bwd_recompute_db.launches += 1
+    return dqkv, db
+
+
 fused_attention.launches = 0
 fused_attention_lse.launches = 0
 fused_attention_bwd.launches = 0
 fused_attention_bwd_recompute.launches = 0
+fused_attention_bwd_recompute_db.launches = 0
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -329,20 +396,29 @@ def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 class QKVAttention(torch.autograd.Function):
-    """``qkv = x W^T + b`` in x's dtype, then :func:`fused_attention_lse`;
-    the counterpart of ``qkv_attention`` and its custom VJP.
+    """``qkv = x W^T + b`` in x's dtype, then attention; the counterpart of
+    ``qkv_attention`` and its custom VJP, with JAX's routing.
 
-    Backward: :func:`fused_attention_bwd` gives dqkv and db; then
-    ``dx = dqkv W`` (in x's dtype) and ``dW = dqkv^T x`` (summed in f32,
-    returned in W's dtype) are GEMMs, as the JAX package leaves them to XLA.
-    The mask gets no gradient.
+    Forward (``_qkv_attn_fwd``): where :func:`lse_ok` holds,
+    :func:`fused_attention_lse`, saving the lse; otherwise the inference
+    :func:`fused_attention`, saving none. Backward (``_qkv_attn_bwd``), by
+    :data:`BWD_FUSE` at backward time: 'db' with a saved lse,
+    :func:`fused_attention_bwd`; 'db' without,
+    :func:`fused_attention_bwd_recompute_db`; otherwise (JAX's 'none')
+    :func:`fused_attention_bwd_recompute` and db the f32 sum of dqkv over
+    (B, L); 'dxdb' raises. Then ``dx = dqkv W`` (in x's dtype) and
+    ``dW = dqkv^T x`` (summed in f32, returned in W's dtype) are GEMMs, as
+    the JAX package leaves them to XLA. The mask gets no gradient.
     """
 
     @staticmethod
     def forward(ctx, x, weight, bias, mask, heads: int):
         w = weight.to(x.dtype)
         qkv = F.linear(x, w, bias.to(x.dtype))
-        out, lse = fused_attention_lse(qkv, mask, heads)
+        if lse_ok(qkv.shape[0], qkv.shape[1]):
+            out, lse = fused_attention_lse(qkv, mask, heads)
+        else:
+            out, lse = fused_attention(qkv, mask, heads), None
         ctx.save_for_backward(x, w, qkv, mask, lse)
         ctx.heads = heads
         ctx.param_dtypes = (weight.dtype, bias.dtype)
@@ -351,7 +427,17 @@ class QKVAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w, qkv, mask, lse = ctx.saved_tensors
-        dqkv, db = fused_attention_bwd(qkv, mask, lse, g, ctx.heads)
+        if BWD_FUSE == "dxdb":
+            raise NotImplementedError(
+                "BWD_FUSE='dxdb' (the dx GEMM inside the attention backward, "
+                "attention_variants._bwd_kernel3_dx) is not ported to spatial_clip_tpu_torch")
+        if BWD_FUSE == "db" and lse is not None:
+            dqkv, db = fused_attention_bwd(qkv, mask, lse, g, ctx.heads)
+        elif BWD_FUSE == "db":
+            dqkv, db = fused_attention_bwd_recompute_db(qkv, mask, g, ctx.heads)
+        else:
+            dqkv = fused_attention_bwd_recompute(qkv, mask, g, ctx.heads)
+            db = dqkv.float().sum(dim=(0, 1))
         flat = dqkv.view(-1, dqkv.shape[-1])
         dx = dw = None
         if ctx.needs_input_grad[0]:

@@ -6,7 +6,7 @@ One process serves one card. Requests are cut into chunks of at most
 ``ThreadingHTTPServer``: no TLS, no auth; put a real ingress in front of it
 for anything public.
 
-    python -m spatial_clip_tpu_torch.serve --model ViT-B-32 --port 8764
+    python -m spatial_clip_tpu_torch.serve --model ViT-B-32 --port 8764 [--mlp-impl pallas]
     curl -X POST localhost:8764/embed_text -d '{"texts": ["a cat"]}'
 
 Endpoints:
@@ -385,6 +385,8 @@ def main(argv=None):
     ap.add_argument("--batch-size", type=int, default=64)
     ap.add_argument("--precision", default="bf16")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mlp-impl", default="dense",
+                    help="dense | pallas (the fused MLP kernel); int8 is not ported")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8764)
     ap.add_argument("--max-body-bytes", type=int, default=32 * 2 ** 20)
@@ -396,7 +398,7 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     service = EmbeddingService(args.model, batch_size=args.batch_size,
                                precision=args.precision, device=args.device,
-                               max_inflight=args.max_inflight)
+                               max_inflight=args.max_inflight, mlp_impl=args.mlp_impl)
     if not args.no_warmup:
         service.warmup()
         service.metrics.reset_window()

@@ -4,8 +4,11 @@ fused-qkv autograd functions) against the JAX package's Pallas kernels.
 
 On the CPU the port's wrappers run their plain PyTorch versions; the JAX
 kernels run in Pallas interpret mode, as tests/test_fused_attention.py runs
-them. The same numpy inputs go to both. Batches are 2, 4 or 8: at B=3 the
-JAX package's ``_lse_ok`` sends the backward down its recompute path.
+them. The same numpy inputs go to both. The kernel tests take batches of 2,
+4 or 8. JAX's routing is covered, not avoided: at B=3 and B=12 the JAX
+package's ``_lse_ok`` fails and ``qkv_attention`` trains through its
+recompute backward with db, and so does the port's ``QKVAttention``, with
+the launches counted per route; ``BWD_FUSE='none'`` is held on both sides.
 
 f32 tolerances: the context and lse at atol 1e-5 (both sides compute f32
 scores, the row max, exp and the sums, in other orders); dqkv at atol 2e-5
@@ -22,6 +25,7 @@ import pytest
 import torch
 
 from spatial_clip_tpu.ops import fused_attention as jfa
+from spatial_clip_tpu_torch.ops import fused_attention as pfa
 from spatial_clip_tpu_torch.ops.fused_attention import (
     FusedAttention,
     QKVAttention,
@@ -30,7 +34,9 @@ from spatial_clip_tpu_torch.ops.fused_attention import (
     fused_attention,
     fused_attention_bwd,
     fused_attention_bwd_recompute,
+    fused_attention_bwd_recompute_db,
     fused_attention_lse,
+    lse_ok,
     qkv_attention,
     reference_attention,
     reference_attention_bwd,
@@ -234,17 +240,18 @@ def test_qkv_attention_matches_autograd_of_plain_math():
 def test_cpu_path_is_the_plain_version_and_counts_nothing():
     qkv, mask, g = _inputs(0, 2, 9, 128, True)
     counters = (fused_attention, fused_attention_lse, fused_attention_bwd,
-                fused_attention_bwd_recompute)
+                fused_attention_bwd_recompute, fused_attention_bwd_recompute_db)
     before = tuple(c.launches for c in counters)
     out, lse = fused_attention_lse(_t(qkv), _t(mask), 2)
     dqkv, db = fused_attention_bwd(_t(qkv), _t(mask), lse, _t(g), 2)
     dqkv_re = fused_attention_bwd_recompute(_t(qkv), _t(mask), _t(g), 2)
+    dqkv_re_db, db_re = fused_attention_bwd_recompute_db(_t(qkv), _t(mask), _t(g), 2)
     assert tuple(c.launches for c in counters) == before
     want_out, want_lse = reference_attention_lse(_t(qkv), _t(mask), 2)
     want_dqkv, want_db = reference_attention_bwd(_t(qkv), _t(mask), want_lse, _t(g), 2)
-    want_re = reference_attention_bwd(_t(qkv), _t(mask), None, _t(g), 2)[0]
+    want_re, want_db_re = reference_attention_bwd(_t(qkv), _t(mask), None, _t(g), 2)
     for a, e in ((out, want_out), (lse, want_lse), (dqkv, want_dqkv), (db, want_db),
-                 (dqkv_re, want_re)):
+                 (dqkv_re, want_re), (dqkv_re_db, want_re), (db_re, want_db_re)):
         assert torch.equal(a, e)
 
 
@@ -297,3 +304,124 @@ def test_recompute_backward_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="g must be"):
         fused_attention_bwd_recompute(torch.zeros(2, 9, 384), None, torch.zeros(2, 9, 64), 2)
     assert fused_attention_bwd_recompute.launches == before
+
+
+# ------------------------------------------------------------ JAX's routing
+
+@pytest.mark.parametrize("L", [50, 77, 200])
+def test_lse_ok_is_jax_rule(L):
+    """The port's copy of ``_lse_ok`` (with ``_pick_block_b`` and
+    ``_bwd_cap``) gives JAX's answer for every batch of 1..130."""
+    for B in range(1, 131):
+        assert lse_ok(B, L) == jfa._lse_ok(np.zeros((B, L, 3), np.float32), 1), B
+    assert [B for B in range(1, 20) if not lse_ok(B, 50)] == [3, 5, 6, 7, 9, 10, 11, 12, 13, 14,
+                                                              15, 17, 18, 19]
+
+
+@pytest.mark.parametrize("B,L,D,H,causal", [(2, 17, 384, 3, False), (3, 9, 256, 8, True),
+                                            (2, 50, 768, 12, False)])
+def test_recompute_db_backward_matches_jax_kernel_f32(B, L, D, H, causal):
+    """The recompute backward with db against ``_bwd_pallas3_db``
+    (``_bwd_kernel3_db``) in interpret mode, its (3, B, L, D) cotangent and
+    (n_groups, 3, lanes) bias gradient reordered to the port's layouts."""
+    qkv, mask, g = _inputs(B * L + D + 3, B, L, D, causal)
+    d3, db_raw = jfa._bwd_pallas3_db(jnp.asarray(qkv), _jmask(mask, L), jnp.asarray(g), H, True)
+    want_dqkv = np.asarray(jnp.transpose(d3, (1, 2, 0, 3)).reshape(B, L, 3 * D))
+    want_db = np.asarray(jnp.transpose(db_raw, (1, 0, 2)).reshape(-1))
+    dqkv, db = fused_attention_bwd_recompute_db(_t(qkv), _t(mask), _t(g), H)
+    assert dqkv.shape == qkv.shape and db.shape == (3 * D,) and db.dtype == torch.float32
+    np.testing.assert_allclose(dqkv.numpy(), want_dqkv, atol=2e-5)
+    np.testing.assert_allclose(db.numpy(), want_db, atol=2e-4)
+    assert torch.equal(dqkv, fused_attention_bwd_recompute(_t(qkv), _t(mask), _t(g), H))
+
+
+ROUTES = ("fused_attention", "fused_attention_lse", "fused_attention_bwd",
+          "fused_attention_bwd_recompute_db", "fused_attention_bwd_recompute")
+
+
+def _count_routes(monkeypatch):
+    """Counts the calls of each attention wrapper that QKVAttention picks."""
+    calls = dict.fromkeys(ROUTES, 0)
+
+    def counted(name, fn):
+        def wrapper(*a):
+            calls[name] += 1
+            return fn(*a)
+        return wrapper
+
+    for name in ROUTES:
+        monkeypatch.setattr(pfa, name, counted(name, getattr(pfa, name)))
+    return calls
+
+
+def _qkv_attention_vs_jax(B, L, D, H, causal):
+    """QKVAttention's context and its x, W, b gradients against jax.grad of
+    ``qkv_attention`` with the interpret-mode kernels, at rtol/atol 1e-4."""
+    rng = np.random.default_rng(B * L + D)
+    din = D // 2 if D > 128 else D
+    x = rng.normal(size=(B, L, din)).astype(np.float32)
+    w = (rng.normal(size=(din, 3 * D)) * din ** -0.5).astype(np.float32)  # flax (in, out)
+    b = (rng.normal(size=(3 * D,)) * 0.1).astype(np.float32)
+    g = rng.normal(size=(B, L, D)).astype(np.float32)
+    mask = _mask(L, causal)
+    jm = None if mask is None else jnp.asarray(mask)
+
+    def f(x_, w_, b_):
+        return jnp.sum(jfa.qkv_attention(x_, w_, b_, jm, H, True) * g)
+
+    want_out = np.asarray(jfa.qkv_attention(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+                                            jm, H, True))
+    want = [np.asarray(t) for t in jax.grad(f, argnums=(0, 1, 2))(x, w, b)]
+    tx = torch.from_numpy(x).requires_grad_()
+    tw = torch.from_numpy(np.ascontiguousarray(w.T)).requires_grad_()
+    tb = torch.from_numpy(b).requires_grad_()
+    out = qkv_attention(tx, tw, tb, _t(mask), H)
+    (out * torch.from_numpy(g)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), want_out, atol=1e-5)
+    for name, a, e in (("dx", tx.grad, want[0]), ("dW", tw.grad.t(), want[1]),
+                       ("db", tb.grad, want[2])):
+        np.testing.assert_allclose(a.numpy(), e, atol=1e-4, rtol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("B,L,D,H,causal", [(3, 11, 128, 2, True), (3, 50, 768, 12, False),
+                                            (12, 17, 384, 3, False), (12, 77, 512, 8, True)])
+def test_qkv_attention_recompute_db_route_matches_jax(B, L, D, H, causal, monkeypatch):
+    """At B = 3 and 12 JAX's forward saves no lse and its backward is
+    ``_bwd_kernel3_db``: the port's forward is the inference kernel's and its
+    backward the recompute-with-db kernel's, once each."""
+    assert not lse_ok(B, L)
+    calls = _count_routes(monkeypatch)
+    _qkv_attention_vs_jax(B, L, D, H, causal)
+    assert calls == {"fused_attention": 1, "fused_attention_lse": 0, "fused_attention_bwd": 0,
+                     "fused_attention_bwd_recompute_db": 1, "fused_attention_bwd_recompute": 0}
+
+
+@pytest.fixture
+def bwd_fuse_none():
+    """BWD_FUSE='none' in both packages for one test, restored after."""
+    prev = jfa.BWD_FUSE, pfa.BWD_FUSE
+    jfa.BWD_FUSE = pfa.BWD_FUSE = "none"
+    yield
+    jfa.BWD_FUSE, pfa.BWD_FUSE = prev
+
+
+@pytest.mark.parametrize("B,L,D,H,causal", [(4, 11, 128, 2, True), (12, 17, 384, 3, False)])
+def test_qkv_attention_bwd_fuse_none_matches_jax(B, L, D, H, causal, bwd_fuse_none,
+                                                 monkeypatch):
+    """Under BWD_FUSE='none' both backwards take the recompute, no-db kernel
+    (``_bwd_kernel3``) whether or not the forward saved an lse, and db is
+    the f32 sum of dqkv over (B, L)."""
+    calls = _count_routes(monkeypatch)
+    _qkv_attention_vs_jax(B, L, D, H, causal)
+    saved = lse_ok(B, L)
+    assert calls == {"fused_attention": int(not saved), "fused_attention_lse": int(saved),
+                     "fused_attention_bwd": 0, "fused_attention_bwd_recompute_db": 0,
+                     "fused_attention_bwd_recompute": 1}
+
+
+def test_bwd_fuse_dxdb_is_not_ported(monkeypatch):
+    monkeypatch.setattr(pfa, "BWD_FUSE", "dxdb")
+    x = torch.zeros(2, 9, 128, requires_grad=True)
+    out = QKVAttention.apply(x, torch.zeros(384, 128), torch.zeros(384), None, 2)
+    with pytest.raises(NotImplementedError, match="_bwd_kernel3_dx"):
+        out.sum().backward()

@@ -521,3 +521,158 @@ def test_ln_settings_on_card_match_cpu(device, setting, launches):
     for k, w in g_cpu.items():
         torch.testing.assert_close(g_gpu[k], w, rtol=1e-4,
                                    atol=1e-5 + 1e-4 * w.abs().max().item(), msg=k)
+
+
+# ------------------------------- the recompute-with-db backward and its routes
+
+@pytest.mark.parametrize("B,L,D,H,causal,dtype", BWD_CASES)
+def test_recompute_db_bwd_kernel_matches_plain_version(device, B, L, D, H, causal, dtype):
+    """The recompute backward with db against its plain version; db the same
+    bits on a second run, and dqkv the no-db option's bits."""
+    from spatial_clip_tpu_torch.ops.fused_attention import (
+        fused_attention_bwd_recompute,
+        fused_attention_bwd_recompute_db,
+        reference_attention_bwd,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(B * L + D + 2)
+    qkv = torch.randn((B, L, 3 * D), generator=gen, device=device).to(dtype)
+    g = torch.randn((B, L, D), generator=gen, device=device).to(dtype)
+    mask = causal_mask(L, device=device) if causal else None
+    before = fused_attention_bwd_recompute_db.launches
+    dqkv, db = fused_attention_bwd_recompute_db(qkv, mask, g, H)
+    again, db_again = fused_attention_bwd_recompute_db(qkv, mask, g, H)
+    torch.cuda.synchronize()
+    assert fused_attention_bwd_recompute_db.launches == before + 2
+    want, want_db = reference_attention_bwd(qkv, mask, None, g, H)
+    assert dqkv.dtype == dtype and db.dtype == torch.float32 and db.shape == (3 * D,)
+    torch.testing.assert_close(dqkv.float(), want.float(), rtol=0, atol=_tol(dtype, want.float()))
+    torch.testing.assert_close(db, want_db, rtol=0, atol=_tol(dtype, want_db) + 1e-4)
+    assert torch.equal(db, db_again) and torch.equal(dqkv, again)
+    assert torch.equal(dqkv, fused_attention_bwd_recompute(qkv, mask, g, H))
+
+
+@pytest.mark.parametrize("B,fuse,launches", [
+    (8, "db", (0, 1, 1, 0, 0)), (12, "db", (1, 0, 0, 1, 0)),
+    (8, "none", (0, 1, 0, 0, 1)), (12, "none", (1, 0, 0, 0, 1)),
+])
+def test_qkv_attention_routes_on_card(device, B, fuse, launches, monkeypatch):
+    """QKVAttention in f32 on the card against the CPU: JAX's routing by
+    batch (lse saved at 8, not at 12) and BWD_FUSE, with exact launches of
+    (inference fwd, fwd_lse, bwd, recompute-with-db bwd, recompute bwd);
+    context at 1e-5, dx / dW / db at rtol/atol 1e-4."""
+    from spatial_clip_tpu_torch.ops import fused_attention as fa
+
+    monkeypatch.setattr(fa, "BWD_FUSE", fuse)
+    rng = np.random.default_rng(B)
+    L, D, H = 50, 768, 12
+    host = [torch.from_numpy(a) for a in (
+        rng.normal(size=(B, L, 384)).astype(np.float32),
+        (rng.normal(size=(3 * D, 384)) * 384 ** -0.5).astype(np.float32),
+        (rng.normal(size=(3 * D,)) * 0.1).astype(np.float32),
+        rng.normal(size=(B, L, D)).astype(np.float32))]
+    counters = (fa.fused_attention, fa.fused_attention_lse, fa.fused_attention_bwd,
+                fa.fused_attention_bwd_recompute_db, fa.fused_attention_bwd_recompute)
+    runs = {}
+    for dev in ("cpu", device):
+        x, w, b = (t.clone().to(dev).requires_grad_() for t in host[:3])
+        before = [c.launches for c in counters]
+        out = fa.qkv_attention(x, w, b, None, H)
+        (out * host[3].to(dev)).sum().backward()
+        torch.cuda.synchronize()
+        runs[str(dev)] = ([t.detach().cpu() for t in (out, x.grad, w.grad, b.grad)],
+                          tuple(c.launches - n for c, n in zip(counters, before)))
+    (want, n_cpu), (got, n_gpu) = runs["cpu"], runs[str(device)]
+    assert n_cpu == (0,) * 5 and n_gpu == launches
+    torch.testing.assert_close(got[0], want[0], atol=1e-5, rtol=0)
+    for a, e in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, e, atol=1e-4, rtol=1e-4)
+
+
+# ------------------------------------------------------------- the fused MLP
+
+@pytest.mark.parametrize("R,W,H,dtype", [
+    (256 * 50, 768, 3072, torch.bfloat16), (256 * 77, 512, 2048, torch.bfloat16),
+    (64 * 50, 768, 3072, torch.bfloat16), (64 * 77, 512, 2048, torch.bfloat16),
+    (1000, 768, 3072, torch.bfloat16), (77, 1024, 4096, torch.bfloat16),
+    (40, 2048, 512, torch.bfloat16), (333, 256, 1024, torch.float32),
+    (5, 128, 512, torch.float32), (40, 2048, 512, torch.float32),
+])
+def test_fused_mlp_kernel_matches_plain_version(device, R, W, H, dtype):
+    """The forward against its plain version with f32 parameters cast per
+    use, as a training model holds them: the image and text towers' MLP at
+    batch 256 and 64, a ragged R, widths cut into column splits (1024,
+    2048), and f32 on the CUDA cores; one launch each, the same bits on a
+    rerun."""
+    from spatial_clip_tpu_torch.ops import fused_mlp as fm
+
+    gen = torch.Generator(device=device).manual_seed(R + W + H)
+    x = torch.randn((R, W), generator=gen, device=device).to(dtype)
+    fc_w = torch.randn((H, W), generator=gen, device=device) / W ** 0.5
+    fc_b = 0.1 * torch.randn((H,), generator=gen, device=device)
+    proj_w = torch.randn((W, H), generator=gen, device=device) / H ** 0.5
+    proj_b = 0.1 * torch.randn((W,), generator=gen, device=device)
+    before = fm.fused_mlp_fwd.launches
+    out = fm.fused_mlp_fwd(x, fc_w, fc_b, proj_w, proj_b)
+    again = fm.fused_mlp_fwd(x, fc_w, fc_b, proj_w, proj_b)
+    torch.cuda.synchronize()
+    assert fm.fused_mlp_fwd.launches == before + 2
+    want = fm.reference_mlp_fwd(x, fc_w, fc_b, proj_w, proj_b)
+    assert out.dtype == dtype and out.shape == (R, W) and torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=_tol(dtype, want.float()))
+    assert torch.equal(out, again)
+
+
+def test_fused_mlp_refuses_what_it_does_not_take(device):
+    from spatial_clip_tpu_torch.ops import fused_mlp as fm
+
+    def args(R, W, H, dtype=torch.bfloat16):
+        return (torch.zeros(R, W, dtype=dtype, device=device),
+                torch.zeros(H, W, device=device), torch.zeros(H, device=device),
+                torch.zeros(W, H, device=device), torch.zeros(W, device=device))
+
+    before = fm.fused_mlp_fwd.launches
+    with pytest.raises(ValueError, match="W=2176"):
+        fm.fused_mlp_fwd(*args(4, 2176, 512))
+    with pytest.raises(ValueError, match="H=96"):
+        fm.fused_mlp_fwd(*args(4, 128, 96))
+    shifted = torch.zeros(4 * 128 + 1, dtype=torch.bfloat16, device=device)[1:].view(4, 128)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fm.fused_mlp_fwd(shifted, *args(4, 128, 512)[1:])
+    assert fm.fused_mlp_fwd.launches == before
+
+
+def test_mlp_pallas_on_card_matches_cpu(device):
+    """Widened ViT-Test in f32 under mlp_impl='pallas': loss and gradients of
+    one forward+backward on the card (the fused MLP kernel) against the CPU
+    (its plain version), at rtol 1e-4 / atol 1e-5 + 1e-4 of each gradient's
+    largest entry; one fused_mlp launch per block (2 + 2)."""
+    from spatial_clip_tpu_torch.losses import make_loss
+    from spatial_clip_tpu_torch.ops import fused_mlp as fm
+
+    wide = dict(vision_cfg=dict(width=128, heads=2), text_cfg=dict(width=128, heads=2))
+    rng = np.random.default_rng(8)
+    B = 4
+    u8 = torch.from_numpy(rng.integers(0, 256, (B, 32, 32, 3), np.uint8))
+    ids = torch.from_numpy(rng.integers(0, 512, (B, 16)))
+    spatial = dict(image_tile_ids=torch.arange(B), text_tile_ids=torch.arange(B),
+                   neighbor_tile_ids=torch.from_numpy(rng.integers(-1, B, (B, 4))),
+                   neighbor_alphas=torch.from_numpy(rng.uniform(0, 1, (B, 4)).astype(np.float32)))
+    loss_fn = make_loss("spatial", cap_logit_scale=50.0)
+    runs = {}
+    for dev in ("cpu", device):
+        model = create_model("ViT-Test", precision="fp32", device=dev, training=True, **wide,
+                             mlp_impl="pallas")
+        before = fm.fused_mlp_fwd.launches
+        feats = model(normalize_batch(u8.to(dev)), ids.to(dev))
+        loss = loss_fn(**feats, **{k: v.to(dev) for k, v in spatial.items()})["contrastive_loss"]
+        loss.backward()
+        torch.cuda.synchronize()
+        runs[str(dev)] = (loss.item(), {k: p.grad.cpu() for k, p in model.named_parameters()},
+                          fm.fused_mlp_fwd.launches - before)
+    (loss_cpu, g_cpu, n_cpu), (loss_gpu, g_gpu, n_gpu) = runs["cpu"], runs[str(device)]
+    assert n_cpu == 0 and n_gpu == 4
+    assert loss_gpu == pytest.approx(loss_cpu, rel=1e-4)
+    for k, w in g_cpu.items():
+        torch.testing.assert_close(g_gpu[k], w, rtol=1e-4,
+                                   atol=1e-5 + 1e-4 * w.abs().max().item(), msg=k)
