@@ -83,11 +83,35 @@ the exit code is not 0. No JAX is imported.
            with db launches), the same at batch 32 under BWD_FUSE='none' (24
            forward-lse and 24 recompute no-db launches), and three timed
            steps at batch 100 on the recompute-with-db route
+19. kernel-pair  the zipped dual-tower kernels (both towers' inference
+           forward, both towers' recompute backward without db) against their
+           plain versions and, bit for bit, against the two single-tower
+           launches, at the ViT-B-32 towers (image (B, 50, 2304), text (B, 77,
+           1536) causal, bf16) at batch 256 and 64, and one f32 pair with
+           unequal head dims (128 and 32); timed beside the two single-tower
+           launches
+20. zip-check  under zip_towers='on': phase 7's card-vs-CPU step at batch
+           32 with exactly 12 pair forward and 12 pair backward launches and
+           no single-tower attention launch; then 64 tiles and 64 texts
+           through CLIP.forward(images, text) in bf16 against the f32 CPU
+           plain path (per-row cosine, 12 pair forward launches)
+21. train-zip  phase 8's bench workload under zip_towers='on': exactly 12 +
+           12 pair launches per step and no single-tower attention launch,
+           finite losses and gradient norms, median step ms beside phase 8's,
+           peak memory
+22. kernel-block  the block-fused attention half (fused_block_attn) against
+           its plain version at the towers' shapes (image (B, 50, 768), 12
+           heads; text (B, 77, 512), 8 heads, causal; B 256 and 64) and one
+           f32 shape, the same bits on a rerun; timed beside the unfused half
+           (one-pass LayerNorm, cuBLAS and the attention kernel) and the same
+           with SDPA; then ``spatial_clip_tpu_torch.bench_block`` for both
+           towers (its main path: 12 chained layers, block vs unfused mean
+           relative difference < 0.05, ms per layer of both)
 
-Phases 3 and 6 also time PyTorch's scaled_dot_product_attention
+Phases 3, 6 and 19 also time PyTorch's scaled_dot_product_attention
 (efficient-attention backend) at the kernels' shapes as a yardstick, phase
-12 PyTorch's LayerNorm and linear layers, and phase 15 its linear and GELU;
-the port never calls them.
+12 PyTorch's LayerNorm and linear layers, phase 15 its linear and GELU, and
+phase 22 the unfused half with SDPA; the port never calls them.
 Then one JSON line with the kernels (each with its launches on the main
 path, error, time, plain time, bound and library time), the nvidia-smi
 line, and last ``{"ok": true, "device": {...}}``.
@@ -440,6 +464,10 @@ def main() -> int:
     mlp_check_phase()
     mlp_train = train_mlp_phase(train["step_ms"])
     routes = route_check_phase()
+    pair_rows = kernel_pair_phase()
+    zip_check_phase()
+    zip_train = train_zip_phase(train["step_ms"])
+    block_rows, block_launches = kernel_block_phase()
 
     image = kernel_rows["image"]
     at_train = "qkv (256, 50, 2304) bf16, no mask (image tower, batch 256)"
@@ -565,6 +593,40 @@ def main() -> int:
         "bound_by": image_mlp["bound_by"],
         "library_ms": image_mlp["library_ms"],
         "at": "x (12800, 768) -> 3072 -> 768 bf16 (image tower MLP, batch 256)",
+    })
+    pair = pair_rows["256"]
+    for name, part, line, launches in (
+            ("fused_attention_pair_fwd", "fwd", 106, zip_train["fwd_launches"]),
+            ("fused_attention_pair_bwd", "bwd", 119, zip_train["bwd_launches"])):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "spatial_clip_tpu_torch/csrc/attention_pair.cu",
+            "replaces": f"spatial_clip_tpu/ops/attention_pair.py:{line}",
+            "launches": launches,
+            "max_abs_err": max(r[f"{part}_err"] for r in pair_rows.values()),
+            "ms": pair[f"{part}_ms"],
+            "plain_ms": pair[f"{part}_plain_ms"],
+            "bound_ms": pair[f"{part}_bound_ms"],
+            "bound_by": pair[f"{part}_bound_by"],
+            "library_ms": pair[f"{part}_library_ms"],
+            "at": "qkv (256, 50, 2304) no mask with (256, 77, 1536) causal, bf16 (both towers, "
+                  "batch 256)",
+        })
+    block = block_rows["image_256"]
+    kernels.append({
+        "name": "fused_block_attn",
+        "route": "cuda",
+        "source": "spatial_clip_tpu_torch/csrc/fused_block.cu",
+        "replaces": "spatial_clip_tpu/ops/fused_block.py:45",
+        "launches": block_launches,
+        "max_abs_err": max(r["err"] for r in block_rows.values()),
+        "ms": block["ms"],
+        "plain_ms": block["plain_ms"],
+        "bound_ms": block["bound_ms"],
+        "bound_by": block["bound_by"],
+        "library_ms": block["library_ms"],
+        "at": "x (256, 50, 768) bf16, 12 heads (image tower's attention half, batch 256)",
     })
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -1478,6 +1540,259 @@ def route_check_phase() -> dict:
     del trainer, batch
     return {"db_launches": launches[3], "none_launches": counts["BWD_FUSE=none"][4],
             "step_ms": med}
+
+
+def zip_counters():
+    from spatial_clip_tpu_torch.ops import attention_pair as ap
+
+    return (ap.fused_attention_pair, ap.fused_attention_pair_bwd, *attention_counters())
+
+
+def sum_bounds(*bounds):
+    """The bound of two kernels' work done in one launch: their bounds added,
+    bound by what bounds the larger."""
+    return sum(ms for ms, _ in bounds), max(bounds)[1]
+
+
+def kernel_pair_phase() -> dict:
+    """19. The pair kernels against their plain versions (forward at
+    KERNEL_TOL as phase 3; backward at train_tol as phase 6) and bit for bit
+    against the single-tower launches (the inference forward with no lse,
+    the recompute backward without db); timed beside those two launches and
+    beside SDPA on each tower."""
+    import torch
+
+    from spatial_clip_tpu_torch.models.transformer import causal_mask
+    from spatial_clip_tpu_torch.ops import attention_pair as ap
+    from spatial_clip_tpu_torch.ops.fused_attention import (
+        fused_attention,
+        fused_attention_bwd_recompute,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    cases = [  # name, B, (La, Da, Ha, causal), (Lb, Db, Hb, causal), dtype
+        ("256", TRAIN_BATCH, (50, 768, 12, False), (77, 512, 8, True), torch.bfloat16),
+        ("64", 64, (50, 768, 12, False), (77, 512, 8, True), torch.bfloat16),
+        ("f32", 3, (17, 256, 2, False), (26, 128, 4, True), torch.float32),
+    ]
+    rows = {}
+    for name, B, (La, Da, Ha, ca), (Lb, Db, Hb, cb), dtype in cases:
+        qa = torch.randn((B, La, 3 * Da), generator=gen, device="cuda").to(dtype)
+        qb = torch.randn((B, Lb, 3 * Db), generator=gen, device="cuda").to(dtype)
+        ga = torch.randn((B, La, Da), generator=gen, device="cuda").to(dtype)
+        gb = torch.randn((B, Lb, Db), generator=gen, device="cuda").to(dtype)
+        ma = causal_mask(La, device="cuda") if ca else None
+        mb = causal_mask(Lb, device="cuda") if cb else None
+        oa, ob = ap.fused_attention_pair(qa, ma, qb, mb, Ha, Hb)
+        da, db = ap.fused_attention_pair_bwd(qa, ma, ga, qb, mb, gb, Ha, Hb)
+        singles = (fused_attention(qa, ma, Ha), fused_attention(qb, mb, Hb),
+                   fused_attention_bwd_recompute(qa, ma, ga, Ha),
+                   fused_attention_bwd_recompute(qb, mb, gb, Hb))
+        want = (*ap.reference_attention_pair(qa, ma, qb, mb, Ha, Hb),
+                *ap.reference_attention_pair_bwd(qa, ma, ga, qb, mb, gb, Ha, Hb))
+        torch.cuda.synchronize()
+        same_bits = [torch.equal(got, single) for got, single in zip((oa, ob, da, db), singles)]
+        errs = {}
+        for k, got, ref in zip(("ctx_a", "ctx_b", "dqkv_a", "dqkv_b"), (oa, ob, da, db), want):
+            tol = (KERNEL_TOL[str(dtype).split(".")[-1]] if k.startswith("ctx")
+                   else train_tol(dtype, ref.float()))
+            errs[k] = ((got.float() - ref.float()).abs().max().item(), tol)
+        bad = {k: v for k, v in errs.items() if not v[0] <= v[1]}
+        if bad or not all(same_bits):
+            raise AssertionError(f"[kernel-pair] {name}: over tolerance {bad}; equal to the single-"
+                                 f"tower launches (ctx_a, ctx_b, dqkv_a, dqkv_b) {same_bits}")
+        lib_a, lib_b = sdpa_ms(qa, ma, Ha), sdpa_ms(qb, mb, Hb)
+        row = dict(
+            fwd_err=max(errs["ctx_a"][0], errs["ctx_b"][0]),
+            bwd_err=max(errs["dqkv_a"][0], errs["dqkv_b"][0]),
+            fwd_ms=median_ms(lambda: ap.fused_attention_pair(qa, ma, qb, mb, Ha, Hb)),
+            fwd_single_ms=median_ms(lambda: (fused_attention(qa, ma, Ha),
+                                             fused_attention(qb, mb, Hb))),
+            fwd_plain_ms=median_ms(lambda: ap.reference_attention_pair(qa, ma, qb, mb, Ha, Hb)),
+            bwd_ms=median_ms(lambda: ap.fused_attention_pair_bwd(qa, ma, ga, qb, mb, gb, Ha, Hb)),
+            bwd_single_ms=median_ms(lambda: (fused_attention_bwd_recompute(qa, ma, ga, Ha),
+                                             fused_attention_bwd_recompute(qb, mb, gb, Hb))),
+            bwd_plain_ms=median_ms(lambda: ap.reference_attention_pair_bwd(
+                qa, ma, ga, qb, mb, gb, Ha, Hb)),
+            fwd_library_ms=lib_a["fwd"] + lib_b["fwd"], bwd_library_ms=lib_a["bwd"] + lib_b["bwd"])
+        row["fwd_bound_ms"], row["fwd_bound_by"] = sum_bounds(attention_bound(qa, Ha, "fwd"),
+                                                              attention_bound(qb, Hb, "fwd"))
+        row["bwd_bound_ms"], row["bwd_bound_by"] = sum_bounds(
+            attention_bound(qa, Ha, "bwd_recompute"), attention_bound(qb, Hb, "bwd_recompute"))
+        rows[name] = row
+        print(f"[kernel-pair] {name}: qkv {tuple(qa.shape)} + {tuple(qb.shape)} {str(dtype)[6:]}: "
+              "max abs err (tol) "
+              + ", ".join(f"{k} {e:.3g} ({t:.3g})" for k, (e, t) in errs.items())
+              + "; each tower bit for bit its single-tower launch's; "
+              + "; ".join(f"{p} pair {row[p + '_ms']:.4f} ms vs two single launches "
+                          f"{row[p + '_single_ms']:.4f}, plain {row[p + '_plain_ms']:.4f}, SDPA "
+                          f"{row[p + '_library_ms']:.4f}, bound {row[p + '_bound_ms']:.4f} "
+                          f"({row[p + '_bound_by']})" for p in ("fwd", "bwd")), flush=True)
+    return rows
+
+
+def zip_check_phase() -> None:
+    """20. Under zip_towers='on': phase 7's card-vs-CPU step at batch 32
+    with exact launches (12 pair forward, 12 pair backward, no single-tower
+    attention); then 64 tiles and 64 texts through CLIP.forward(images,
+    text), the bf16 card against the f32 CPU plain path (per-row cosine), 12
+    pair forward launches."""
+    import torch
+
+    from spatial_clip_tpu_torch import create_model
+    from spatial_clip_tpu_torch.models.transforms import normalize_batch
+
+    counters = zip_counters()
+    for c in counters:
+        c.launches = 0
+    torch.cuda.empty_cache()
+    train_check_phase("zip-check", zip_towers="on")
+    step = tuple(c.launches for c in counters)
+    if step != (LAYERS, LAYERS, 0, 0, 0, 0, 0):
+        raise AssertionError(f"[zip-check] step launches (pair fwd, pair bwd, attention fwd, "
+                             f"fwd_lse, bwd, recompute-with-db bwd, recompute bwd) {step}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tiles = np.random.default_rng(20).integers(0, 256, (64, 224, 224, 3), dtype=np.uint8)
+    ids = torch.from_numpy(get_tokenizer_ids(
+        [f"spot {i}: EPCAM KRT{i % 20} near stroma" for i in range(64)]))
+    card = create_model("ViT-B-32", precision="bf16", seed=0, device="cuda", zip_towers="on")
+    cpu = create_model("ViT-B-32", precision="fp32", seed=0, device="cpu", zip_towers="on")
+    for c in counters:
+        c.launches = 0
+    with torch.inference_mode():
+        got = card(normalize_batch(torch.from_numpy(tiles).cuda(), dtype=torch.bfloat16),
+                   ids.cuda())
+        got = {k: got[k].float().cpu() for k in ("image_features", "text_features")}
+        encode = tuple(c.launches for c in counters)
+        ref = cpu(normalize_batch(torch.from_numpy(tiles)), ids)
+    cos = {k: (got[k] * ref[k]).sum(-1).min().item() for k in got}
+    finite = all(torch.isfinite(v).all().item() for v in got.values())
+    if encode != (LAYERS, 0, 0, 0, 0, 0, 0) or min(cos.values()) < MIN_COSINE or not finite:
+        raise AssertionError(f"[zip-check] forward launches {encode}, min cosine {cos}, finite "
+                             f"{finite}")
+    print(f"[zip-check] zip_towers='on': step launches (pair fwd, pair bwd, single-tower "
+          f"attention x5) {step}; CLIP.forward(64 tiles, 64 texts) bf16 card vs f32 CPU plain "
+          f"path: min cosine image {cos['image_features']:.5f} text {cos['text_features']:.5f} "
+          f"(>= {MIN_COSINE}), launches {encode}; {time.perf_counter() - t0:.1f} s", flush=True)
+    del card, cpu
+
+
+def train_zip_phase(default_step_ms: float) -> dict:
+    """21. The bench workload (ViT-B-32 bf16, batch 256) under
+    zip_towers='on': 3 warmup and 10 timed steps, exactly 12 pair forward
+    and 12 pair backward launches per step and no single-tower attention
+    launch, finite losses and gradient norms; median step beside phase 8's."""
+    import torch
+
+    from spatial_clip_tpu_torch.bench import make_trainer, synthetic_batch
+
+    torch.cuda.empty_cache()
+    trainer = make_trainer("ViT-B-32", device="cuda", zip_towers="on")
+    batch = synthetic_batch(trainer.model, TRAIN_BATCH)
+    steps = WARMUP_STEPS + TIMED_STEPS
+    counts, step_ms, history, peak = timed_steps("train-zip", trainer, batch, steps,
+                                                 zip_counters())
+    want = tuple(n * steps for n in (LAYERS, LAYERS, 0, 0, 0, 0, 0))
+    if counts != want:
+        raise AssertionError(f"[train-zip] launches (pair fwd, pair bwd, attention fwd, fwd_lse, "
+                             f"bwd, recompute-with-db bwd, recompute bwd) {counts}, want {want}")
+    med = statistics.median(step_ms[WARMUP_STEPS:])
+    print(f"[train-zip zip_towers=on] ViT-B-32 bf16 batch {TRAIN_BATCH}: {steps} steps, launches "
+          f"per step (pair fwd, pair bwd, single-tower attention x5) "
+          f"{tuple(c // steps for c in counts)}; losses finite {history[0][0]:.4f} -> "
+          f"{history[-1][0]:.4f}, grad norms {history[0][1]:.4f} -> {history[-1][1]:.4f}; median "
+          f"step {med:.3f} ms ({TRAIN_BATCH * 1e3 / med:.1f} pairs/s) vs phase 8's default "
+          f"{default_step_ms:.3f} ms ({TRAIN_BATCH * 1e3 / default_step_ms:.1f} pairs/s); "
+          f"max_memory_allocated {peak / 2 ** 30:.3f} GiB", flush=True)
+    del trainer, batch
+    return {"fwd_launches": counts[0], "bwd_launches": counts[1], "step_ms": med}
+
+
+def kernel_block_phase():
+    """22. fused_block_attn against reference_block_attn (bf16: one bf16 step
+    at the largest output magnitude; f32: 2e-5 max(1, |ref|)), the same bits
+    on a rerun; timed beside the unfused half (bench_block's shipped arm:
+    one-pass LayerNorm, cuBLAS, the attention kernel, cuBLAS, the residual)
+    and that arm with SDPA in place of the kernel (the library yardstick).
+    Then bench_block for both towers, the kernel's main path, with its
+    launches counted. Returns (rows, launches)."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+
+    from spatial_clip_tpu_torch import bench_block
+    from spatial_clip_tpu_torch.models.transformer import causal_mask
+    from spatial_clip_tpu_torch.ops import fused_block as fb
+
+    def sdpa(qkv, mask, heads):  # the shipped arm's attention, as SDPA
+        B, L, three_d = qkv.shape
+        q, k, v = qkv.view(B, L, 3, heads, three_d // 3 // heads).permute(2, 0, 3, 1, 4)
+        ctx = F.scaled_dot_product_attention(
+            q, k, v, attn_mask=None if mask is None else mask.to(qkv.dtype))
+        return ctx.transpose(1, 2).reshape(B, L, three_d // 3)
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    rows = {}
+    for name, B, L, D, H, causal, dtype in (
+            ("image_256", TRAIN_BATCH, 50, 768, 12, False, torch.bfloat16),
+            ("text_256", TRAIN_BATCH, 77, 512, 8, True, torch.bfloat16),
+            ("image_64", 64, 50, 768, 12, False, torch.bfloat16),
+            ("text_64", 64, 77, 512, 8, True, torch.bfloat16),
+            ("f32", 8, 26, 256, 4, True, torch.float32)):
+        x = torch.randn((B, L, D), generator=gen, device="cuda").to(dtype)
+        p = dict(lng=1 + 0.05 * torch.randn((D,), generator=gen, device="cuda"),
+                 lnb=0.05 * torch.randn((D,), generator=gen, device="cuda"),
+                 wqkv=(torch.randn((3 * D, D), generator=gen, device="cuda") / D ** 0.5).to(dtype),
+                 bqkv=0.02 * torch.randn((3 * D,), generator=gen, device="cuda"),
+                 wout=(torch.randn((D, D), generator=gen, device="cuda") / D ** 0.5).to(dtype),
+                 bout=0.02 * torch.randn((D,), generator=gen, device="cuda"))
+        args = (x, p["lng"], p["lnb"], p["wqkv"], p["bqkv"], p["wout"], p["bout"])
+        mask = causal_mask(L, device="cuda") if causal else None
+        with torch.no_grad():
+            out, again = fb.fused_block_attn(*args, mask, H), fb.fused_block_attn(*args, mask, H)
+            ref = fb.reference_block_attn(*args, mask, H).float()
+            torch.cuda.synchronize()
+            peak = ref.abs().max().item()
+            tol = (2e-5 * max(1.0, peak) if dtype == torch.float32
+                   else 2.0 ** (math.floor(math.log2(peak)) - 7))
+            err = (out.float() - ref).abs().max().item()
+            if not (err <= tol and torch.equal(out, again) and torch.isfinite(out).all().item()):
+                raise AssertionError(f"[kernel-block] {name}: max abs err {err} (tol {tol}), the "
+                                     f"same bits on a rerun {torch.equal(out, again)}")
+            row = dict(
+                err=err,
+                ms=median_ms(lambda: fb.fused_block_attn(*args, mask, H)),
+                plain_ms=median_ms(lambda: fb.reference_block_attn(*args, mask, H)),
+                unfused_ms=median_ms(lambda: bench_block.shipped_layer(x, p, mask, H)),
+                library_ms=median_ms(lambda: bench_block.shipped_layer(x, p, mask, H, sdpa)))
+        item = x.element_size()
+        flops = 2 * B * L * D * 4 * D + 4 * B * L * L * D  # qkv and out GEMMs; q k^T and p v
+        n_bytes = (2 * B * L * D + 4 * D * D) * item + 4 * 6 * D  # x, out, weights; f32 vectors
+        row["bound_ms"], row["bound_by"] = bound(
+            n_bytes, flops, BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+        rows[name] = row
+        print(f"[kernel-block] fused_block_attn {name} x ({B}, {L}, {D}) {H} heads "
+              f"{'causal' if causal else 'no mask'} {str(dtype)[6:]}: max abs err {err:.3g} (tol "
+              f"{tol:.3g}), the same bits on a rerun; kernel {row['ms']:.4f} ms vs plain "
+              f"{row['plain_ms']:.4f}, unfused (LN, cuBLAS, attention kernel) "
+              f"{row['unfused_ms']:.4f}, unfused with SDPA {row['library_ms']:.4f}; bound "
+              f"{row['bound_ms']:.4f} ({row['bound_by']}, share {row['bound_ms'] / row['ms']:.3f})",
+              flush=True)
+    fb.fused_block_attn.launches = 0
+    for tower in ("image", "text"):
+        r = bench_block.run_tower(tower, TRAIN_BATCH, rounds=2, reps=2)
+        print(f"[kernel-block] bench_block --tower {tower} --batch {TRAIN_BATCH} --rounds 2 --reps "
+              f"2: block vs shipped mean rel diff {r['rel_diff']:.3g} (< "
+              f"{bench_block.MAX_REL_DIFF}); ms per layer block {r['block']['all']} shipped "
+              f"{r['shipped']['all']}", flush=True)
+    launches = fb.fused_block_attn.launches
+    want = 2 * 3 * bench_block.LAYERS * 2  # towers x (parity run + 2 rounds) x layers x reps
+    if launches != want:
+        raise AssertionError(f"[kernel-block] bench_block launched the kernel {launches} times, "
+                             f"want {want}")
+    return rows, launches
 
 
 if __name__ == "__main__":

@@ -2,6 +2,9 @@
 
     python -m spatial_clip_tpu_torch.bench [--model ViT-B-32] [--batch 256]
         [--steps 20] [--windows 3] [--warmup 3] [--profile]
+        [--zip-towers off|auto|on] [--attn-impl auto|pallas|pallas3]
+        [--ln-impl onepass|fp32|pallas] [--ln-gemm-impl dense|pallas]
+        [--mlp-impl dense|pallas]
 
 The workload of the repository's ``bench.py``, run by the port: ViT-B-32 in
 bf16 with f32 parameters, batch 256, on-device flip + color jitter 0.2 and
@@ -12,7 +15,9 @@ device. After ``--warmup`` steps it times ``--windows`` windows of
 ``--steps`` steps, each closed by ``torch.cuda.synchronize()``, and prints
 one JSON line: pairs/sec/chip from the median window, with ``global_batch``,
 ``n_chips``, ``step_ms``, ``window_ms`` and the last ``loss``. ``--profile``
-adds the device time of one step by kernel family (torch.profiler).
+adds the device time of one step by kernel family (torch.profiler). The
+model settings (``--zip-towers`` and the four ``--*-impl``) go to
+``create_model``; left out, each keeps the model config's value.
 Needs a CUDA GPU: there is no CPU fallback.
 """
 from __future__ import annotations
@@ -30,6 +35,14 @@ from spatial_clip_tpu_torch.models.factory import create_model
 from spatial_clip_tpu_torch.train.loop import Trainer, TrainerConfig
 
 NEIGHBORS = 6
+# the model settings the command line passes to create_model, with their values
+MODEL_SETTINGS = {
+    "zip_towers": ("off", "auto", "on"),
+    "attn_impl": ("auto", "pallas", "pallas3"),
+    "ln_impl": ("onepass", "fp32", "pallas"),
+    "ln_gemm_impl": ("dense", "pallas"),
+    "mlp_impl": ("dense", "pallas"),
+}
 
 
 def synthetic_batch(model, batch: int, seed: int = 0, device="cuda"):
@@ -71,10 +84,13 @@ def main(argv=None):
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--profile", action="store_true",
                     help="also print the device time of one step by kernel family")
+    for flag, choices in MODEL_SETTINGS.items():
+        ap.add_argument(f"--{flag.replace('_', '-')}", choices=choices, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("spatial_clip_tpu_torch.bench needs a CUDA GPU")
-    trainer = make_trainer(args.model)
+    settings = {k: getattr(args, k) for k in MODEL_SETTINGS if getattr(args, k) is not None}
+    trainer = make_trainer(args.model, **settings)
     state = trainer.init_state()
     batch = synthetic_batch(trainer.model, args.batch)
     for _ in range(args.warmup):
@@ -95,6 +111,7 @@ def main(argv=None):
         "unit": "pairs/sec/chip",
         "detail": {
             "model": args.model,
+            "settings": settings,
             "device": torch.cuda.get_device_name(0),
             "global_batch": args.batch,
             "n_chips": 1,

@@ -4,6 +4,11 @@ Laid out as open_clip's ``CLIP``: the image tower under ``visual.*`` and the
 text tower's modules at the top level (``transformer.*``,
 ``token_embedding.weight``, ``text_projection``, ...), so its state dict has
 the keys ``spatial_clip_tpu.models.convert.jax_to_torch_state_dict`` exports.
+
+Under ``zip_towers='on'`` (where :func:`zip_ready` holds), a forward given
+both images and text runs the two towers in lockstep (:meth:`CLIP.encode_pair`):
+each layer's image and text attention is one launch of the pair kernel
+(``ops.attention_pair``), forward and backward.
 """
 from __future__ import annotations
 
@@ -20,6 +25,37 @@ from spatial_clip_tpu_torch.models.transformer import (
     quick_gelu,
     text_head,
 )
+from spatial_clip_tpu_torch.ops.attention_pair import PairAttention, pair_supported
+
+
+def zip_ready(cfg: CLIPCfg) -> bool:
+    """Whether a forward given images and text zips the towers: JAX's
+    ``CLIP._zip_ready``, clause by clause, from the configuration alone.
+    'off' never zips; any block feature the zip stages do not run (qk-norm,
+    scaled-cosine, a LayerNorm fused into a projection, attention other
+    than the fused kernel) or unequal depths run the towers apart. JAX also
+    refuses ``remat``; the port has no rematerialization, so no clause."""
+    z = cfg.zip_towers
+    if z == "off":
+        return False
+    v, t = cfg.vision_cfg, cfg.text_cfg
+    if (v.timm_model_name or isinstance(v.layers, (list, tuple)) or cfg.gene_cfg is not None
+            or t.hf_config is not None or t.hf_model_name):
+        return False
+    if v.layers != t.layers:
+        return False
+    if v.qk_norm or v.scaled_cosine or t.qk_norm:
+        return False
+    if cfg.ln_gemm_impl != "dense":
+        return False
+    if cfg.attn_impl not in ("auto", "pallas"):
+        return False
+    if not pair_supported(v.heads, v.width, t.heads, t.width):
+        return False
+    # JAX zips under 'auto' only on a TPU backend, where each kernel call is
+    # a synchronous boundary the pair halves; on the card 'auto' runs the
+    # towers apart and 'on' asks for the pair
+    return z != "auto"
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
@@ -72,22 +108,48 @@ class CLIP(nn.Module):
         feats = self.visual(images)
         return l2_normalize(feats) if normalize else feats
 
+    def _text_embed(self, text: torch.Tensor) -> torch.Tensor:
+        """Token + positional embedding, as TextTransformer.embed."""
+        return (self.token_embedding(text).to(self.dtype)
+                + self.positional_embedding.to(self.dtype))
+
+    def _text_head(self, x: torch.Tensor, text: torch.Tensor) -> torch.Tensor:
+        return text_head(x, text, self.ln_final, self.text_projection, self.text_pool_type,
+                         self.text_final_ln_after_pool)
+
     def encode_text(self, text: torch.Tensor, normalize: bool = True) -> torch.Tensor:
         """text: (B, context_length) token ids."""
-        x = (self.token_embedding(text).to(self.dtype)
-             + self.positional_embedding.to(self.dtype))  # as TextTransformer.embed
-        x = self.transformer(x, self.attn_mask)
-        feats = text_head(x, text, self.ln_final, self.text_projection,
-                          self.text_pool_type, self.text_final_ln_after_pool)
+        feats = self._text_head(self.transformer(self._text_embed(text), self.attn_mask), text)
         return l2_normalize(feats) if normalize else feats
+
+    def _zip_ready(self) -> bool:
+        return zip_ready(self.cfg)
+
+    def encode_pair(self, images: torch.Tensor, text: torch.Tensor, normalize: bool = True):
+        """Both towers with each layer's image and text attention as one
+        launch (JAX's ``encode_pair``): the same math as
+        :meth:`encode_image` and :meth:`encode_text`. Returns (image
+        features, text features)."""
+        xa, xb = self.visual.embed(images), self._text_embed(text)
+        for ba, bb in zip(self.visual.transformer.resblocks, self.transformer.resblocks):
+            ca, cb = PairAttention.apply(ba.attn_qkv(xa), None, bb.attn_qkv(xb), self.attn_mask,
+                                         ba.attn.heads, bb.attn.heads)
+            xa, xb = ba.attn_finish(xa, ca), bb.attn_finish(xb, cb)
+        img, txt = self.visual.head(xa), self._text_head(xb, text)
+        if normalize:
+            img, txt = l2_normalize(img), l2_normalize(txt)
+        return img, txt
 
     def forward(self, images: Optional[torch.Tensor] = None,
                 text: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         out: Dict[str, torch.Tensor] = {}
-        if images is not None:
-            out["image_features"] = self.encode_image(images)
-        if text is not None:
-            out["text_features"] = self.encode_text(text)
+        if images is not None and text is not None and self._zip_ready():
+            out["image_features"], out["text_features"] = self.encode_pair(images, text)
+        else:
+            if images is not None:
+                out["image_features"] = self.encode_image(images)
+            if text is not None:
+                out["text_features"] = self.encode_text(text)
         out["logit_scale"] = self.logit_scale.exp()
         if self.logit_bias is not None:
             out["logit_bias"] = self.logit_bias

@@ -87,6 +87,8 @@ class CLIPCfg:
     # auto | pallas3 (the qkv GEMM and attention as one autograd function) |
     # pallas (with ln_gemm_impl='pallas': ln_1 -> qkv fused, then attention)
     attn_impl: str = "auto"
+    # off | auto (JAX zips only on a TPU: the towers run apart here) | on (each
+    # layer's image and text attention as one pair-kernel launch)
     zip_towers: str = "off"
     mlp_impl: str = "dense"  # dense | pallas (the fused MLP kernel); int8 is not ported
     ln_gemm_impl: str = "dense"  # dense | pallas (ln_2 -> c_fc, ln_1 -> qkv fused)
@@ -115,7 +117,7 @@ def check_ported(cfg: CLIPCfg) -> None:
         ("gene_cfg", cfg.gene_cfg, cfg.gene_cfg is not None),
         ("multimodal_cfg", cfg.multimodal_cfg, cfg.multimodal_cfg is not None),
         ("attn_impl", cfg.attn_impl, cfg.attn_impl not in ("auto", "pallas", "pallas3")),
-        ("zip_towers", cfg.zip_towers, cfg.zip_towers not in ("off", "auto")),
+        ("zip_towers", cfg.zip_towers, cfg.zip_towers not in ("off", "auto", "on")),
         ("mlp_impl", cfg.mlp_impl, cfg.mlp_impl not in ("dense", "pallas")),
         ("ln_gemm_impl", cfg.ln_gemm_impl, cfg.ln_gemm_impl not in ("dense", "pallas")),
         ("ln_impl", cfg.ln_impl, cfg.ln_impl not in ("onepass", "fp32", "pallas")),

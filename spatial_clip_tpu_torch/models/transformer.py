@@ -27,6 +27,11 @@ takes the fused kernel's qkv, as JAX's ``fused_attention`` does:
 :class:`FusedAttention` with grad (the inference forward, and the backward
 that recomputes the softmax statistics, the counterpart of
 ``_bwd_kernel``), the inference kernel alone without.
+
+Each block also runs as two stages around its attention
+(:meth:`ResidualBlock.attn_qkv`, :meth:`ResidualBlock.attn_finish`), and
+the image tower as ``embed`` / ``head`` around its blocks, so that
+``CLIP.encode_pair`` can run both towers' layer-i attention as one launch.
 """
 from __future__ import annotations
 
@@ -247,6 +252,19 @@ class ResidualBlock(nn.Module):
         x = x + self.ls_1(self.attn(self.ln_1(x), attn_mask))
         return x + self.ls_2(self.mlp(self.ln_2(x)))
 
+    def attn_qkv(self, x: torch.Tensor) -> torch.Tensor:
+        """Zip-path stage 1 (JAX's ``attn_qkv``): ln_1, then the fused qkv
+        projection in the compute dtype. The zipped driver calls it only on a
+        block whose LayerNorms are not fused into the projections."""
+        a = self.attn
+        return F.linear(self.ln_1(x), a.in_proj_weight.to(a.dtype), a.in_proj_bias.to(a.dtype))
+
+    def attn_finish(self, x: torch.Tensor, ctx: torch.Tensor) -> torch.Tensor:
+        """Zip-path stage 2 (JAX's ``attn_finish``): the output projection,
+        ls_1 and the residual, then ln_2, the MLP, ls_2 and the residual."""
+        x = x + self.ls_1(self.attn.out_proj(ctx))
+        return x + self.ls_2(self.mlp(self.ln_2(x)))
+
 
 class Transformer(nn.Module):
     def __init__(self, width: int, layers: int, heads: int, **block_kw):
@@ -321,16 +339,24 @@ class VisionTransformer(nn.Module):
             return x[:, 0]
         return x.mean(dim=1)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def embed(self, images: torch.Tensor) -> torch.Tensor:
+        """Patchify, class and positional embedding, ln_pre: the rows the
+        blocks take."""
         x = self.conv1(images)
         cls = self.class_embedding.to(self.dtype).expand(x.shape[0], 1, -1)
         x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(self.dtype)
-        x = self.transformer(self.ln_pre(x))
+        return self.ln_pre(x)
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        """Pool, ln_post and the projection, after the blocks."""
         if self.final_ln_after_pool:
             pooled = self.ln_post(self._pool(x))
         else:
             pooled = self._pool(self.ln_post(x))
         return pooled @ self.proj.to(self.dtype)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        return self.head(self.transformer(self.embed(images)))
 
 
 def text_global_pool(x: torch.Tensor, tokens: torch.Tensor, pool_type: str) -> torch.Tensor:

@@ -179,6 +179,23 @@ def library() -> ctypes.CDLL:
             lib.sc_mlp_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,  # x, w1, b1, w2, b2, out
                                        i32, i32, i32, i32, ptr]  # R, W, H, dtype, stream
             lib.sc_mlp_fwd.restype = i32
+            pair_tower = [ptr, ptr, ptr, i32, i32, i32]  # qkv, mask, out, L, H, hd
+            lib.sc_attention_pair_fwd.argtypes = [*pair_tower, *pair_tower,
+                                                  i32, i32, f32, f32, ptr]  # B, dtype, scales
+            lib.sc_attention_pair_fwd.restype = i32
+            pair_tower_bwd = [ptr, ptr, ptr, ptr, i32, i32, i32]  # qkv, mask, g, dqkv, L, H, hd
+            lib.sc_attention_pair_bwd.argtypes = [*pair_tower_bwd, *pair_tower_bwd,
+                                                  i32, i32, f32, f32, ptr]
+            lib.sc_attention_pair_bwd.restype = i32
+            lib.sc_block_attn_fwd.argtypes = [
+                ptr, ptr, ptr, ptr,  # x, gamma, beta, W_qkv
+                ptr, ptr, ptr, ptr,  # b_qkv, W_out, b_out, mask
+                ptr, i32, i32, i32, i32,  # out, B, L, D, heads
+                i32, f32, f32, ptr,  # dtype, eps, scale, stream
+            ]
+            lib.sc_block_attn_fwd.restype = i32
+            lib.sc_block_attn_smem_bytes.argtypes = [i32, i32, i32, i32]  # L, D, heads, dtype
+            lib.sc_block_attn_smem_bytes.restype = ctypes.c_size_t
             lib.sc_mlp_max_width.argtypes = []
             lib.sc_mlp_max_width.restype = i32
             lib.sc_cuda_error_string.argtypes = [ctypes.c_int]

@@ -9,6 +9,8 @@ conftest imports jax, which the GPU machine may lack, so run this file as
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -676,3 +678,141 @@ def test_mlp_pallas_on_card_matches_cpu(device):
     for k, w in g_cpu.items():
         torch.testing.assert_close(g_gpu[k], w, rtol=1e-4,
                                    atol=1e-5 + 1e-4 * w.abs().max().item(), msg=k)
+
+
+PAIR_CASES = [  # (B, La, Da, Ha, Lb, Db, Hb, dtype): the ViT-B-32 towers, unequal head dims
+    (64, 50, 768, 12, 77, 512, 8, torch.bfloat16),
+    (256, 50, 768, 12, 77, 512, 8, torch.bfloat16),
+    (3, 17, 256, 2, 26, 128, 4, torch.float32),  # hd 128 with hd 32
+    (4, 26, 384, 12, 17, 256, 2, torch.bfloat16),  # hd 32 with hd 128
+]
+
+
+@pytest.mark.parametrize("B,La,Da,Ha,Lb,Db,Hb,dtype", PAIR_CASES)
+def test_pair_kernels_equal_single_tower_launches(device, B, La, Da, Ha, Lb, Db, Hb, dtype):
+    """The pair forward and backward give each tower exactly the bits of its
+    single-tower launch (the inference forward; the recompute backward
+    without db), one launch each way; and they agree with the plain
+    versions."""
+    from spatial_clip_tpu_torch.ops import attention_pair as ap
+    from spatial_clip_tpu_torch.ops.fused_attention import fused_attention_bwd_recompute
+
+    gen = torch.Generator(device=device).manual_seed(B + La + Lb)
+    qa = torch.randn((B, La, 3 * Da), generator=gen, device=device).to(dtype)
+    qb = torch.randn((B, Lb, 3 * Db), generator=gen, device=device).to(dtype)
+    ga = torch.randn((B, La, Da), generator=gen, device=device).to(dtype)
+    gb = torch.randn((B, Lb, Db), generator=gen, device=device).to(dtype)
+    mb = causal_mask(Lb, device=device)
+    before = (ap.fused_attention_pair.launches, ap.fused_attention_pair_bwd.launches)
+    oa, ob = ap.fused_attention_pair(qa, None, qb, mb, Ha, Hb)
+    da, db = ap.fused_attention_pair_bwd(qa, None, ga, qb, mb, gb, Ha, Hb)
+    torch.cuda.synchronize()
+    assert (ap.fused_attention_pair.launches, ap.fused_attention_pair_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(oa, fused_attention(qa, None, Ha))
+    assert torch.equal(ob, fused_attention(qb, mb, Hb))
+    assert torch.equal(da, fused_attention_bwd_recompute(qa, None, ga, Ha))
+    assert torch.equal(db, fused_attention_bwd_recompute(qb, mb, gb, Hb))
+    want = (*ap.reference_attention_pair(qa, None, qb, mb, Ha, Hb),
+            *ap.reference_attention_pair_bwd(qa, None, ga, qb, mb, gb, Ha, Hb))
+    for got, ref in zip((oa, ob, da, db), want):
+        torch.testing.assert_close(got.float(), ref.float(), rtol=0, atol=_tol(dtype, ref.float()))
+
+
+def test_zipped_tower_on_card_matches_cpu(device):
+    """Widened ViT-Test in f32 under zip_towers='on': loss and gradients of
+    one forward+backward on the card (the pair kernels) against the CPU
+    (their plain versions), rtol 1e-4 / atol 1e-5 + 1e-4 of each gradient's
+    largest entry; one pair launch per layer each way (2 + 2), no
+    single-tower attention launch."""
+    from spatial_clip_tpu_torch.losses import make_loss
+    from spatial_clip_tpu_torch.ops import attention_pair as ap
+    from spatial_clip_tpu_torch.ops import fused_attention as fa
+
+    wide = dict(vision_cfg=dict(width=128, heads=2), text_cfg=dict(width=128, heads=2))
+    rng = np.random.default_rng(9)
+    B = 4
+    u8 = torch.from_numpy(rng.integers(0, 256, (B, 32, 32, 3), np.uint8))
+    ids = torch.from_numpy(rng.integers(0, 512, (B, 16)))
+    spatial = dict(image_tile_ids=torch.arange(B), text_tile_ids=torch.arange(B),
+                   neighbor_tile_ids=torch.from_numpy(rng.integers(-1, B, (B, 4))),
+                   neighbor_alphas=torch.from_numpy(rng.uniform(0, 1, (B, 4)).astype(np.float32)))
+    loss_fn = make_loss("spatial", cap_logit_scale=50.0)
+    counters = (ap.fused_attention_pair, ap.fused_attention_pair_bwd, fa.fused_attention,
+                fa.fused_attention_lse, fa.fused_attention_bwd, fa.fused_attention_bwd_recompute,
+                fa.fused_attention_bwd_recompute_db)
+    runs = {}
+    for dev in ("cpu", device):
+        model = create_model("ViT-Test", precision="fp32", device=dev, training=True, **wide,
+                             zip_towers="on")
+        before = [c.launches for c in counters]
+        feats = model(normalize_batch(u8.to(dev)), ids.to(dev))
+        loss = loss_fn(**feats, **{k: v.to(dev) for k, v in spatial.items()})["contrastive_loss"]
+        loss.backward()
+        torch.cuda.synchronize()
+        runs[str(dev)] = (loss.item(), {k: p.grad.cpu() for k, p in model.named_parameters()},
+                          [c.launches - n for c, n in zip(counters, before)])
+    (loss_cpu, g_cpu, n_cpu), (loss_gpu, g_gpu, n_gpu) = runs["cpu"], runs[str(device)]
+    assert n_cpu == [0] * 7 and n_gpu == [2, 2, 0, 0, 0, 0, 0]
+    assert loss_gpu == pytest.approx(loss_cpu, rel=1e-4)
+    for k, w in g_cpu.items():
+        torch.testing.assert_close(g_gpu[k], w, rtol=1e-4,
+                                   atol=1e-5 + 1e-4 * w.abs().max().item(), msg=k)
+
+
+BLOCK_CASES = [  # B, L, D, heads, causal, dtype
+    (64, 50, 768, 12, False, torch.bfloat16),
+    (64, 77, 512, 8, True, torch.bfloat16),
+    (3, 17, 256, 4, False, torch.float32),
+    (2, 26, 384, 12, True, torch.bfloat16),  # hd 32: a half-filled qkv pass
+    (2, 33, 512, 4, False, torch.float32),  # hd 128
+]
+
+
+@pytest.mark.parametrize("B,L,D,H,causal,dtype", BLOCK_CASES)
+def test_block_kernel_matches_plain_version(device, B, L, D, H, causal, dtype):
+    """fused_block_attn against reference_block_attn, one launch, the same
+    bits on a rerun. f32: 2e-5 max(1, |ref|). bf16: one bf16 step (ulp) at
+    the largest output magnitude: the kernel and the plain version round h,
+    qkv, the context and the output at the same points, so an f32 sum in
+    another order flips an output's last bit at most, and outputs near the
+    largest (the residual stream, up to ~5) have steps of 2^-5."""
+    from spatial_clip_tpu_torch.ops import fused_block as fb
+
+    gen = torch.Generator(device=device).manual_seed(B * L + D)
+    x = torch.randn((B, L, D), generator=gen, device=device).to(dtype)
+    args = (x, 1 + 0.05 * torch.randn((D,), generator=gen, device=device),
+            0.05 * torch.randn((D,), generator=gen, device=device),
+            (torch.randn((3 * D, D), generator=gen, device=device) / D ** 0.5).to(dtype),
+            0.02 * torch.randn((3 * D,), generator=gen, device=device),
+            (torch.randn((D, D), generator=gen, device=device) / D ** 0.5).to(dtype),
+            0.02 * torch.randn((D,), generator=gen, device=device),
+            causal_mask(L, device=device) if causal else None)
+    before = fb.fused_block_attn.launches
+    with torch.no_grad():
+        out = fb.fused_block_attn(*args, H)
+        again = fb.fused_block_attn(*args, H)
+    torch.cuda.synchronize()
+    assert fb.fused_block_attn.launches == before + 2
+    assert out.dtype == dtype and out.shape == (B, L, D) and torch.isfinite(out).all()
+    assert torch.equal(out, again)
+    ref = fb.reference_block_attn(*args, H).float()
+    peak = ref.abs().max().item()
+    tol = (2e-5 * max(1.0, peak) if dtype == torch.float32
+           else 2.0 ** (math.floor(math.log2(peak)) - 7))
+    torch.testing.assert_close(out.float(), ref, rtol=0, atol=tol)
+    with pytest.raises(NotImplementedError, match="forward only"):
+        fb.fused_block_attn(x.detach().requires_grad_(), *args[1:], H)
+
+
+def test_block_smem_formula_matches_kernel(device):
+    """fused_block.smem_bytes mirrors sc_block_attn_smem_bytes at the towers'
+    geometries and at the limits supported() draws."""
+    from spatial_clip_tpu_torch.ops import cuda_build
+    from spatial_clip_tpu_torch.ops import fused_block as fb
+
+    lib = cuda_build.library()
+    for L, D, H in ((50, 768, 12), (77, 512, 8), (17, 256, 4), (26, 384, 12), (33, 512, 4),
+                    (128, 256, 2), (1, 1024, 8)):
+        for dtype, code in cuda_build.DTYPE_CODES.items():
+            assert fb.smem_bytes(L, D, H, dtype) == lib.sc_block_attn_smem_bytes(L, D, H, code)

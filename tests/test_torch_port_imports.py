@@ -53,7 +53,8 @@ def test_import_pulls_in_no_jax():
         "import spatial_clip_tpu_torch, spatial_clip_tpu_torch.serve, "
         "spatial_clip_tpu_torch.ops.fused_attention, spatial_clip_tpu_torch.ops.fused_contrastive, "
         "spatial_clip_tpu_torch.ops.fused_ln, spatial_clip_tpu_torch.ops.fused_ln_dense, "
-        "spatial_clip_tpu_torch.ops.fused_mlp, "
+        "spatial_clip_tpu_torch.ops.fused_mlp, spatial_clip_tpu_torch.ops.attention_pair, "
+        "spatial_clip_tpu_torch.ops.fused_block, spatial_clip_tpu_torch.bench_block, "
         "spatial_clip_tpu_torch.models.convert, "
         "spatial_clip_tpu_torch.losses, spatial_clip_tpu_torch.train.loop, "
         "spatial_clip_tpu_torch.train.optim, spatial_clip_tpu_torch.train.metrics, "
