@@ -107,8 +107,30 @@ the exit code is not 0. No JAX is imported.
            with SDPA; then ``spatial_clip_tpu_torch.bench_block`` for both
            towers (its main path: 12 chained layers, block vs unfused mean
            relative difference < 0.05, ms per layer of both)
+23. kernel-layouts  the eight layout kernels (interleaved, slab, seq-major
+           with a bias, split; forward and recompute backward) against their
+           plain versions at batch 256 (image (256, 50, 2304) no mask, text
+           (256, 77, 1536) causal, bf16) and one f32 shape, and bit for bit
+           against the standard launches on the same data (interleaved vs
+           the standard kernels after the permutation, split vs [q|k|v],
+           seq-major vs the standard kernels on qkv_nb + b rounded to the
+           dtype with db within f32 tolerance of the recompute-with-db db,
+           slab vs the group kernels), the same bits on a rerun; timed beside
+           the standard launch and SDPA. The slab kernels have no model path:
+           their launches are those of this phase's timed runs
+24. layouts-check  under attn_impl 'pallas_inter' (also with
+           ln_gemm_impl='pallas'), 'pallas_t' and 'pallas_split': phase 7's
+           card-vs-CPU step at batch 32, and CLIP.forward on 64 tiles and 64
+           texts in bf16 against the f32 CPU plain path (per-row cosine),
+           with exact launches per route (24 + 24 of the setting's own
+           kernels a step, 24 forward an encode, none of the others)
+25. train-layouts  phase 8's bench workload under each of the three
+           settings: exactly 24 forward and 24 backward launches of the
+           setting's own kernels per step and none of the standard attention
+           kernels, finite losses and gradient norms, median step ms beside
+           phase 8's, peak memory
 
-Phases 3, 6 and 19 also time PyTorch's scaled_dot_product_attention
+Phases 3, 6, 19 and 23 also time PyTorch's scaled_dot_product_attention
 (efficient-attention backend) at the kernels' shapes as a yardstick, phase
 12 PyTorch's LayerNorm and linear layers, phase 15 its linear and GELU, and
 phase 22 the unfused half with SDPA; the port never calls them.
@@ -468,6 +490,9 @@ def main() -> int:
     zip_check_phase()
     zip_train = train_zip_phase(train["step_ms"])
     block_rows, block_launches = kernel_block_phase()
+    layout_rows, slab_launches = kernel_layouts_phase()
+    layouts_check_phase()
+    layout_train = train_layouts_phase(train["step_ms"])
 
     image = kernel_rows["image"]
     at_train = "qkv (256, 50, 2304) bf16, no mask (image tower, batch 256)"
@@ -628,6 +653,24 @@ def main() -> int:
         "library_ms": block["library_ms"],
         "at": "x (256, 50, 768) bf16, 12 heads (image tower's attention half, batch 256)",
     })
+    launches = {**{k: n for setting in layout_train.values() for k, n in setting.items()},
+                **slab_launches}
+    for name, replaces in LAYOUT_KERNELS.items():
+        row = layout_rows["image"][name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "spatial_clip_tpu_torch/csrc/attention_layouts.cu",
+            "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": max(r[name]["err"] for r in layout_rows.values()),
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "at": at_train,
+        })
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
@@ -1793,6 +1836,253 @@ def kernel_block_phase():
         raise AssertionError(f"[kernel-block] bench_block launched the kernel {launches} times, "
                              f"want {want}")
     return rows, launches
+
+
+LAYOUT_KERNELS = {  # phase 23's entries: the TPU kernel each replaces
+    "fused_attention_inter": "spatial_clip_tpu/ops/fused_attention.py:671",
+    "fused_attention_inter_bwd": "spatial_clip_tpu/ops/attention_variants.py:185",
+    "fused_attention_slab": "spatial_clip_tpu/ops/attention_variants.py:131",
+    "fused_attention_slab_bwd": "spatial_clip_tpu/ops/attention_variants.py:144",
+    "fused_attention_t_fwd": "spatial_clip_tpu/ops/attention_variants.py:485",
+    "fused_attention_t_bwd": "spatial_clip_tpu/ops/attention_variants.py:502",
+    "fused_attention_split_fwd": "spatial_clip_tpu/ops/attention_variants.py:826",
+    "fused_attention_split_bwd": "spatial_clip_tpu/ops/attention_variants.py:855",
+}
+
+
+def kernel_layouts_phase():
+    """23. Each layout entry against its plain version (train_tol) and bit
+    for bit against the standard launch on the same data, the same bits on
+    a rerun; timed beside that standard launch, its plain version and SDPA.
+    The slab kernels' counters are set to 0 before the timed runs and read
+    after them: those runs are their main path. Returns (rows by case and
+    entry, slab launches)."""
+    import torch
+
+    from spatial_clip_tpu_torch.models.transformer import causal_mask
+    from spatial_clip_tpu_torch.ops import attention_variants as av
+    from spatial_clip_tpu_torch.ops import fused_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    rows = {}
+    timed = {}
+    for name, B, L, D, H, causal, dtype in (
+            ("image", TRAIN_BATCH, 50, 768, 12, False, torch.bfloat16),
+            ("text", TRAIN_BATCH, 77, 512, 8, True, torch.bfloat16),
+            ("f32", 8, 77, 512, 8, True, torch.float32)):
+        qkv = torch.randn((B, L, 3 * D), generator=gen, device="cuda").to(dtype)
+        g = torch.randn((B, L, D), generator=gen, device="cuda").to(dtype)
+        bias = (0.3 * torch.randn((3 * D,), generator=gen, device="cuda")).to(dtype)
+        mask = causal_mask(L, device="cuda") if causal else None
+        perm = torch.tensor(av.interleave_perm(H, D // H), device="cuda")
+        qkv_i = qkv.index_select(-1, perm)
+        qkv_t = qkv.transpose(0, 1)  # the no-bias GEMM output's view, as the model passes it
+        with_b = qkv + bias
+        q, k, v = (t.contiguous() for t in qkv.chunk(3, dim=-1))  # [q|k|v] is qkv
+        # entry: (its call, its plain version, the standard launch it must equal, how the
+        # entry's output maps onto that launch's)
+        entries = {
+            "fused_attention_inter": (
+                lambda: av.fused_attention_inter(qkv_i, mask, H),
+                lambda: av.reference_attention_inter(qkv_i, mask, H),
+                lambda: fa.fused_attention(qkv, mask, H), lambda out: out),
+            "fused_attention_inter_bwd": (
+                lambda: av.fused_attention_inter_bwd(qkv_i, mask, g, H),
+                lambda: av.reference_attention_inter_bwd(qkv_i, mask, g, H),
+                lambda: fa.fused_attention_bwd_recompute(qkv, mask, g, H),
+                lambda out: out.index_select(-1, torch.argsort(perm))),
+            "fused_attention_slab": (
+                lambda: av.fused_attention_slab(qkv, mask, H),
+                lambda: fa.reference_attention(qkv, mask, H),
+                lambda: fa.fused_attention(qkv, mask, H), lambda out: out),
+            "fused_attention_slab_bwd": (
+                lambda: av.fused_attention_slab_bwd(qkv, mask, g, H),
+                lambda: fa.reference_attention_bwd(qkv, mask, None, g, H)[0],
+                lambda: fa.fused_attention_bwd_recompute(qkv, mask, g, H), lambda out: out),
+            "fused_attention_t_fwd": (
+                lambda: av.fused_attention_t_fwd(qkv_t, bias, mask, H),
+                lambda: av.reference_attention_t(qkv_t, bias, mask, H),
+                lambda: fa.fused_attention(with_b, mask, H), lambda out: out),
+            "fused_attention_t_bwd": (
+                lambda: av.fused_attention_t_bwd(qkv_t, bias, mask, g, H),
+                lambda: av.reference_attention_t_bwd(qkv_t, bias, mask, g, H),
+                lambda: fa.fused_attention_bwd_recompute_db(with_b, mask, g, H), lambda out: out),
+            "fused_attention_split_fwd": (
+                lambda: av.fused_attention_split_fwd(q, k, v, mask, H),
+                lambda: av.reference_attention_split(q, k, v, mask, H),
+                lambda: fa.fused_attention(qkv, mask, H), lambda out: out),
+            "fused_attention_split_bwd": (
+                lambda: av.fused_attention_split_bwd(q, k, v, mask, g, H),
+                lambda: av.reference_attention_split_bwd(q, k, v, mask, g, H),
+                lambda: fa.fused_attention_bwd_recompute(qkv, mask, g, H),
+                lambda out: torch.cat(out, dim=-1)),
+        }
+        library = sdpa_ms(qkv, mask, H)
+        case = {}
+        for entry, (run, plain, standard, as_standard) in entries.items():
+            got, again, want, std = run(), run(), plain(), standard()
+            torch.cuda.synchronize()
+            got_t = got if isinstance(got, tuple) else (got,)
+            want_t = want if isinstance(want, tuple) else (want,)
+            # each output at phase 6's tolerance; t_bwd's f32 db as phase 6's db
+            errs = [((a.float() - b.float()).abs().max().item(),
+                     train_tol(dtype, b.float()) + (1e-4 if b.dim() == 1 else 0.0))
+                    for a, b in zip(got_t, want_t)]
+            err, tol = max(errs)  # the largest error, beside its output's tolerance
+            within = all(e <= t for e, t in errs)
+            same_rerun = all(torch.equal(a, b) for a, b in
+                             zip(got_t, again if isinstance(again, tuple) else (again,)))
+            mapped = as_standard(got)
+            if entry == "fused_attention_t_bwd":  # dqkv bit for bit, db within f32 tolerance
+                db_tol = train_tol(torch.float32, std[1]) + 1e-4
+                equal = (torch.equal(mapped[0], std[0])
+                         and (mapped[1] - std[1]).abs().max().item() <= db_tol)
+            else:
+                equal = torch.equal(mapped, std)
+            finite = all(torch.isfinite(a).all().item() for a in got_t)
+            if not (within and same_rerun and equal and finite):
+                raise AssertionError(
+                    f"[kernel-layouts] {entry} {name}: max abs err, tol {errs}, the same "
+                    f"bits on a rerun {same_rerun}, equal to the standard launch {equal}, finite "
+                    f"{finite}")
+            bwd = entry.endswith("_bwd")
+            item, three_d = qkv.element_size(), 3 * D
+            n_bytes = B * L * ((2 * three_d + D) if bwd else (three_d + D)) * item
+            if entry.startswith("fused_attention_t"):
+                n_bytes += three_d * item + (4 * three_d if bwd else 0)  # the bias, db
+            dots = 2 * B * H * L * L * (D // H)
+            bound_ms, bound_by = bound(n_bytes, (5 if bwd else 2) * dots,
+                                       BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+            case[entry] = dict(err=err, tol=tol, bound_ms=bound_ms, bound_by=bound_by,
+                               library_ms=library["bwd" if bwd else "fwd"],
+                               plain_ms=median_ms(plain), standard_ms=median_ms(standard))
+            timed[entry] = run
+        slab = (av.fused_attention_slab, av.fused_attention_slab_bwd)
+        for c in slab:
+            c.launches = 0
+        for entry, run in timed.items():
+            case[entry]["ms"] = median_ms(run)
+        for c, entry in zip(slab, ("fused_attention_slab", "fused_attention_slab_bwd")):
+            case[entry]["timed_launches"] = c.launches
+        rows[name] = case
+        print(f"[kernel-layouts] {name} qkv {tuple(qkv.shape)} {str(dtype)[6:]} "
+              f"mask={'causal' if causal else 'none'}: every entry equal to its standard launch "
+              f"(t_bwd db within f32 tolerance), the same bits on a rerun; " + "; ".join(
+                  f"{e[len('fused_attention_'):]} err {r['err']:.3g} (tol {r['tol']:.3g}) "
+                  f"{r['ms']:.4f} ms vs standard {r['standard_ms']:.4f}, plain "
+                  f"{r['plain_ms']:.4f}, SDPA {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
+                  f"({r['bound_by']})" for e, r in case.items()), flush=True)
+    slab_launches = {e: sum(r[e]["timed_launches"] for r in rows.values())
+                     for e in ("fused_attention_slab", "fused_attention_slab_bwd")}
+    return rows, slab_launches
+
+
+LAYOUT_SETTINGS = {  # phases 24-25: label -> (create_model overrides, its kernels)
+    "pallas_inter": (dict(attn_impl="pallas_inter"),
+                     ("fused_attention_inter", "fused_attention_inter_bwd")),
+    "pallas_inter+ln_gemm": (dict(attn_impl="pallas_inter", ln_gemm_impl="pallas"),
+                             ("fused_attention_inter", "fused_attention_inter_bwd")),
+    "pallas_t": (dict(attn_impl="pallas_t"), ("fused_attention_t_fwd", "fused_attention_t_bwd")),
+    "pallas_split": (dict(attn_impl="pallas_split"),
+                     ("fused_attention_split_fwd", "fused_attention_split_bwd")),
+}
+
+
+def layout_counters():
+    """The six model-path layout wrappers, then the standard attention
+    wrappers and the pair wrappers: name -> wrapper."""
+    from spatial_clip_tpu_torch.ops import attention_pair as ap
+    from spatial_clip_tpu_torch.ops import attention_variants as av
+
+    names = [n for n in LAYOUT_KERNELS if "slab" not in n]
+    out = {n: getattr(av, n) for n in names}
+    for c in (*attention_counters(), ap.fused_attention_pair, ap.fused_attention_pair_bwd):
+        out[c.__name__] = c
+    return out
+
+
+def layouts_check_phase() -> None:
+    """24. Under each layout setting: phase 7's card-vs-CPU step at batch 32
+    (24 forward and 24 backward launches of the setting's own kernels, none
+    of any other attention kernel), and CLIP.forward on 64 tiles and 64
+    texts in bf16 against the f32 CPU plain path, per-row cosine >=
+    MIN_COSINE, 24 forward launches."""
+    import torch
+
+    from spatial_clip_tpu_torch import create_model
+    from spatial_clip_tpu_torch.models.transforms import normalize_batch
+
+    tiles = np.random.default_rng(24).integers(0, 256, (64, 224, 224, 3), dtype=np.uint8)
+    ids = torch.from_numpy(get_tokenizer_ids(
+        [f"spot {i}: EPCAM KRT{i % 20} beside stroma" for i in range(64)]))
+    counters = layout_counters()
+    for label, (settings, own) in LAYOUT_SETTINGS.items():
+        torch.cuda.empty_cache()
+        for c in counters.values():
+            c.launches = 0
+        train_check_phase(f"layouts-check {label}", **settings)
+        step = {n: c.launches for n, c in counters.items() if c.launches}
+        t0 = time.perf_counter()
+        card = create_model("ViT-B-32", precision="bf16", seed=0, device="cuda", **settings)
+        cpu = create_model("ViT-B-32", precision="fp32", seed=0, device="cpu", **settings)
+        for c in counters.values():
+            c.launches = 0
+        with torch.inference_mode():
+            got = card(normalize_batch(torch.from_numpy(tiles).cuda(), dtype=torch.bfloat16),
+                       ids.cuda())
+            got = {k: got[k].float().cpu() for k in ("image_features", "text_features")}
+            encode = {n: c.launches for n, c in counters.items() if c.launches}
+            ref = cpu(normalize_batch(torch.from_numpy(tiles)), ids)
+        cos = {k: (got[k] * ref[k]).sum(-1).min().item() for k in got}
+        finite = all(torch.isfinite(v).all().item() for v in got.values())
+        want_step = {own[0]: 2 * LAYERS, own[1]: 2 * LAYERS}
+        if (step != want_step or encode != {own[0]: 2 * LAYERS} or min(cos.values()) < MIN_COSINE
+                or not finite):
+            raise AssertionError(f"[layouts-check {label}] step launches {step} (want "
+                                 f"{want_step}), encode launches {encode}, min cosine {cos}, "
+                                 f"finite {finite}")
+        print(f"[layouts-check {label}] step launches {step}, nothing else; CLIP.forward(64 "
+              f"tiles, 64 texts) bf16 card vs f32 CPU plain path: min cosine image "
+              f"{cos['image_features']:.5f} text {cos['text_features']:.5f} (>= {MIN_COSINE}), "
+              f"launches {encode}; {time.perf_counter() - t0:.1f} s", flush=True)
+        del card, cpu
+
+
+def train_layouts_phase(default_step_ms: float) -> dict:
+    """25. The bench workload (ViT-B-32 bf16, batch 256) under each of the
+    three layout settings: 3 warmup and 10 timed steps, exactly 24 forward
+    and 24 backward launches of the setting's own kernels per step and none
+    of any other attention kernel, finite losses and gradient norms; median
+    step beside phase 8's. Returns label -> {kernel name: launches}."""
+    import torch
+
+    from spatial_clip_tpu_torch.bench import make_trainer, synthetic_batch
+
+    counters = layout_counters()
+    steps = WARMUP_STEPS + TIMED_STEPS
+    out = {}
+    for label in ("pallas_inter", "pallas_t", "pallas_split"):
+        settings, own = LAYOUT_SETTINGS[label]
+        torch.cuda.empty_cache()
+        trainer = make_trainer("ViT-B-32", device="cuda", **settings)
+        batch = synthetic_batch(trainer.model, TRAIN_BATCH)
+        counts, step_ms, history, peak = timed_steps(f"train-layouts {label}", trainer, batch,
+                                                     steps, tuple(counters.values()))
+        got = {n: c for n, c in zip(counters, counts) if c}
+        want = {own[0]: 2 * LAYERS * steps, own[1]: 2 * LAYERS * steps}
+        if got != want:
+            raise AssertionError(f"[train-layouts {label}] launches {got}, want {want}")
+        med = statistics.median(step_ms[WARMUP_STEPS:])
+        out[label] = got
+        print(f"[train-layouts {label}] ViT-B-32 bf16 batch {TRAIN_BATCH}: {steps} steps, "
+              f"launches per step {({n: c // steps for n, c in got.items()})}, no other "
+              f"attention kernel; losses finite {history[0][0]:.4f} -> {history[-1][0]:.4f}, "
+              f"grad norms {history[0][1]:.4f} -> {history[-1][1]:.4f}; median step "
+              f"{med:.3f} ms ({TRAIN_BATCH * 1e3 / med:.1f} pairs/s) vs phase 8's default "
+              f"{default_step_ms:.3f} ms ({TRAIN_BATCH * 1e3 / default_step_ms:.1f} pairs/s); "
+              f"max_memory_allocated {peak / 2 ** 30:.3f} GiB", flush=True)
+        del trainer, batch
+    return out
 
 
 if __name__ == "__main__":

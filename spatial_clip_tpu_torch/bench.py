@@ -2,7 +2,8 @@
 
     python -m spatial_clip_tpu_torch.bench [--model ViT-B-32] [--batch 256]
         [--steps 20] [--windows 3] [--warmup 3] [--profile]
-        [--zip-towers off|auto|on] [--attn-impl auto|pallas|pallas3]
+        [--zip-towers off|auto|on]
+        [--attn-impl auto|pallas|pallas3|pallas_inter|pallas_t|pallas_split]
         [--ln-impl onepass|fp32|pallas] [--ln-gemm-impl dense|pallas]
         [--mlp-impl dense|pallas]
 
@@ -38,7 +39,7 @@ NEIGHBORS = 6
 # the model settings the command line passes to create_model, with their values
 MODEL_SETTINGS = {
     "zip_towers": ("off", "auto", "on"),
-    "attn_impl": ("auto", "pallas", "pallas3"),
+    "attn_impl": ("auto", "pallas", "pallas3", "pallas_inter", "pallas_t", "pallas_split"),
     "ln_impl": ("onepass", "fp32", "pallas"),
     "ln_gemm_impl": ("dense", "pallas"),
     "mlp_impl": ("dense", "pallas"),

@@ -1,8 +1,12 @@
-// The attention backward's body for one head of one sequence, as a device
-// function that a kernel calls with the (batch, head) it runs:
+// The attention backward's body for one head of one sequence, as device
+// functions that a kernel calls with the (batch, head) it runs:
 //   - fused_attention_bwd.cu: one tower, one block per (batch, head), in its
 //     three options (saved lse with db, recompute, recompute with db);
-//   - attention_pair.cu: two towers in one grid, the recompute no-db option.
+//   - attention_pair.cu: two towers in one grid, the recompute no-db option;
+//   - attention_layouts.cu: the recompute options over the interleaved,
+//     split, seq-major (with a bias added at load) and slab layouts.
+// attn_bwd_head takes its operands by pointer and row stride;
+// attn_bwd_block is the standard (batch, seq, 3 heads HD) layout's caller.
 // The design and the math are described in fused_attention_bwd.cu. A block of
 // kWarps warps runs it; the caller hands it BwdLayout<T, HD>::smem_bytes(seq)
 // bytes of shared memory, 16-byte aligned.
@@ -45,31 +49,30 @@ struct BwdLayout {
   }
 };
 
-// Head h of sequence b of a (batch, seq, 3 heads HD) qkv tensor: dq, dk, dv
-// of that head into dqkv and (kDb) its db partial row b. kRecompute: p from
-// the scores' own max and sum, lse unused; otherwise p from lse (heads,
-// batch, seq). kDb: db partials written; otherwise db_part unused.
-template <typename T, int HD, bool kRecompute, bool kDb>
-__device__ __forceinline__ void attn_bwd_block(const T* __restrict__ qkv,
-                                               const float* __restrict__ mask,
-                                               const float* __restrict__ lse,
-                                               const T* __restrict__ dout, T* __restrict__ dqkv,
-                                               float* __restrict__ db_part, int b, int h,
-                                               int batch, int seq, int heads, float scale,
-                                               unsigned char* smem) {
+// One head of one sequence: row i of q, k and v at q_g, k_g, v_g + i *
+// in_stride, and of the context's cotangent at do_g + i * do_stride (16-byte
+// aligned rows); row i of dq, dk and dv to dq_g, dk_g, dv_g + i *
+// out_stride. kRecompute: p from the scores' own max and sum, lse_g unused;
+// otherwise p from lse_g[i]. kDb: the head's db partial (the f32 column sums
+// of the rounded dq, dk, dv) to db_g, db_g + db_stride, db_g + 2 *
+// db_stride; otherwise db_g unused. kBias: bq, bk, bv (HD values each, in
+// T, 16-byte aligned) are added to q, k and v as they are staged, each sum
+// rounded to T (the TPU kernel's q_ref + bq_ref). The pointers carry no
+// __restrict__: attn_bwd_block's qualified parameters give the standard
+// kernels the aliasing facts they had before the body took pointers.
+template <typename T, int HD, bool kRecompute, bool kDb, bool kBias = false>
+__device__ __forceinline__ void attn_bwd_head(const T* q_g, const T* k_g, const T* v_g,
+                                              size_t in_stride, const T* bq, const T* bk,
+                                              const T* bv, const float* mask, const float* lse_g,
+                                              const T* do_g, size_t do_stride, T* dq_g, T* dk_g,
+                                              T* dv_g, size_t out_stride, float* db_g,
+                                              size_t db_stride, int seq, float scale,
+                                              unsigned char* smem) {
   using Ly = BwdLayout<T, HD>;
   constexpr int kChunk = Ly::kChunk;
   constexpr int kStride = Ly::kStride;
   constexpr int kDpl = Ly::kDpl;
   constexpr int kChunksPerRow = HD / kChunk;
-  const int width = heads * HD;
-  const size_t row = 3 * size_t(width);
-  const T* q_g = qkv + size_t(b) * seq * row + size_t(h) * HD;
-  const T* do_g = dout + size_t(b) * seq * width + size_t(h) * HD;
-  T* dq_g = dqkv + size_t(b) * seq * row + size_t(h) * HD;
-  T* dk_g = dq_g + width;
-  T* dv_g = dq_g + 2 * width;
-  const float* lse_g = kRecompute ? nullptr : lse + (size_t(h) * batch + b) * seq;
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -90,11 +93,17 @@ __device__ __forceinline__ void attn_bwd_block(const T* __restrict__ qkv,
     const int j = idx / kChunksPerRow;
     const int c = idx % kChunksPerRow;
     const int so = j * kStride + c * kChunk;
-    const size_t go = j * row + c * kChunk;
-    copy_vec<T, kChunk>(q_s + so, q_g + go);
-    copy_vec<T, kChunk>(k_s + so, q_g + width + go);
-    copy_vec<T, kChunk>(v_s + so, q_g + 2 * width + go);
-    copy_vec<T, kChunk>(do_s + so, do_g + size_t(j) * width + c * kChunk);
+    const size_t go = j * in_stride + c * kChunk;
+    if constexpr (kBias) {
+      copy_vec_bias<T, kChunk>(q_s + so, q_g + go, bq + c * kChunk);
+      copy_vec_bias<T, kChunk>(k_s + so, k_g + go, bk + c * kChunk);
+      copy_vec_bias<T, kChunk>(v_s + so, v_g + go, bv + c * kChunk);
+    } else {
+      copy_vec<T, kChunk>(q_s + so, q_g + go);
+      copy_vec<T, kChunk>(k_s + so, k_g + go);
+      copy_vec<T, kChunk>(v_s + so, v_g + go);
+    }
+    copy_vec<T, kChunk>(do_s + so, do_g + j * do_stride + c * kChunk);
   }
   for (int j = seq + lane; j < seq_pad; j += 32) {
 #pragma unroll
@@ -247,7 +256,7 @@ __device__ __forceinline__ void attn_bwd_block(const T* __restrict__ qkv,
           dq[r][k] = round_to<T>(dq[r][k]);
           dbq[k] += dq[r][k];
         }
-        store_from_f32<T, kDpl>(dq_g + i * row + lane * kDpl, dq[r]);
+        store_from_f32<T, kDpl>(dq_g + i * out_stride + lane * kDpl, dq[r]);
       }
     }
     __syncwarp();  // q_w / do_w / ds_w are rewritten by this warp's next pass
@@ -290,8 +299,8 @@ __device__ __forceinline__ void attn_bwd_block(const T* __restrict__ qkv,
           dbk[k] += dk[r][k];
           dbv[k] += dv[r][k];
         }
-        store_from_f32<T, kDpl>(dk_g + j * row + lane * kDpl, dk[r]);
-        store_from_f32<T, kDpl>(dv_g + j * row + lane * kDpl, dv[r]);
+        store_from_f32<T, kDpl>(dk_g + j * out_stride + lane * kDpl, dk[r]);
+        store_from_f32<T, kDpl>(dv_g + j * out_stride + lane * kDpl, dv[r]);
       }
     }
   }
@@ -309,10 +318,34 @@ __device__ __forceinline__ void attn_bwd_block(const T* __restrict__ qkv,
       float acc = 0.f;
 #pragma unroll
       for (int w = 0; w < kWarps; ++w) acc += db_s[w * 3 * HD + idx];
-      const int part = idx / HD;
-      db_part[size_t(b) * row + size_t(part) * width + size_t(h) * HD + idx % HD] = acc;
+      db_g[size_t(idx / HD) * db_stride + idx % HD] = acc;
     }
   }
+}
+
+// Head h of sequence b of a (batch, seq, 3 heads HD) qkv tensor: dq, dk, dv
+// of that head into dqkv (qkv's layout) and (kDb) its db partial into row b
+// of db_part (batch, 3 heads HD). lse (heads, batch, seq) unless kRecompute;
+// dout (batch, seq, heads HD).
+template <typename T, int HD, bool kRecompute, bool kDb>
+__device__ __forceinline__ void attn_bwd_block(const T* __restrict__ qkv,
+                                               const float* __restrict__ mask,
+                                               const float* __restrict__ lse,
+                                               const T* __restrict__ dout, T* __restrict__ dqkv,
+                                               float* __restrict__ db_part, int b, int h,
+                                               int batch, int seq, int heads, float scale,
+                                               unsigned char* smem) {
+  const int width = heads * HD;
+  const size_t row = 3 * size_t(width);
+  const size_t head = size_t(b) * seq * row + size_t(h) * HD;
+  const T* q_g = qkv + head;
+  T* dq_g = dqkv + head;
+  attn_bwd_head<T, HD, kRecompute, kDb>(
+      q_g, q_g + width, q_g + 2 * width, row, nullptr, nullptr, nullptr, mask,
+      kRecompute ? nullptr : lse + (size_t(h) * batch + b) * seq,
+      dout + size_t(b) * seq * width + size_t(h) * HD, width, dq_g, dq_g + width,
+      dq_g + 2 * width, row, kDb ? db_part + size_t(b) * row + size_t(h) * HD : nullptr, width,
+      seq, scale, smem);
 }
 
 }  // namespace bwd

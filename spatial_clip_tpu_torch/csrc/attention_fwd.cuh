@@ -3,7 +3,9 @@
 //   - fused_attention_fwd.cu: one tower, one block per (batch, head);
 //   - attention_pair.cu: two towers in one grid;
 //   - fused_block.cu: one head of a block's attention half, with q, k and v
-//     in shared memory.
+//     in shared memory;
+//   - attention_layouts.cu: the interleaved, split, seq-major (with a bias
+//     added at load) and slab layouts of the same attention.
 // The design and the math are described in fused_attention_fwd.cu. A block of
 // kWarps warps runs it; the caller hands it Layout<T, HD>::smem_bytes(seq)
 // bytes of shared memory, 16-byte aligned.
@@ -42,14 +44,17 @@ struct Layout {
 
 // One head of one sequence: row i of q, k and v at q_g, k_g, v_g + i *
 // in_stride (16-byte aligned rows); row i of the context to out_g + i *
-// out_stride; lse_g[i] = the row's logsumexp unless lse_g is null.
-template <typename T, int HD>
+// out_stride; lse_g[i] = the row's logsumexp unless lse_g is null. kBias:
+// bq, bk, bv (HD values each, in T, 16-byte aligned) are added to q, k and v
+// as they are read, each sum rounded to T (the TPU kernel's q_ref + bq_ref).
+template <typename T, int HD, bool kBias = false>
 __device__ __forceinline__ void attn_fwd_head(const T* __restrict__ q_g, const T* __restrict__ k_g,
                                               const T* __restrict__ v_g, size_t in_stride,
                                               const float* __restrict__ mask,
                                               T* __restrict__ out_g, size_t out_stride,
                                               float* __restrict__ lse_g, int seq, float scale,
-                                              unsigned char* smem) {
+                                              unsigned char* smem, const T* bq = nullptr,
+                                              const T* bk = nullptr, const T* bv = nullptr) {
   using Ly = Layout<T, HD>;
   constexpr int kChunk = Ly::kChunk;
   constexpr int kDpl = Ly::kDimsPerLane;
@@ -65,8 +70,19 @@ __device__ __forceinline__ void attn_fwd_head(const T* __restrict__ q_g, const T
   for (int idx = threadIdx.x; idx < seq * kChunksPerRow; idx += blockDim.x) {
     const int j = idx / kChunksPerRow;
     const int c = idx % kChunksPerRow;
-    *reinterpret_cast<Vec<T, kChunk>*>(k_s + j * Ly::kStrideK + c * kChunk) =
-        *reinterpret_cast<const Vec<T, kChunk>*>(k_g + j * in_stride + c * kChunk);
+    if constexpr (kBias) {
+      copy_vec_bias<T, kChunk>(k_s + j * Ly::kStrideK + c * kChunk,
+                               k_g + j * in_stride + c * kChunk, bk + c * kChunk);
+    } else {
+      *reinterpret_cast<Vec<T, kChunk>*>(k_s + j * Ly::kStrideK + c * kChunk) =
+          *reinterpret_cast<const Vec<T, kChunk>*>(k_g + j * in_stride + c * kChunk);
+    }
+  }
+  // this lane's dims of the q and v biases
+  Vec<T, kDpl> bq_l, bv_l;
+  if constexpr (kBias) {
+    bq_l = *reinterpret_cast<const Vec<T, kDpl>*>(bq + lane * kDpl);
+    bv_l = *reinterpret_cast<const Vec<T, kDpl>*>(bv + lane * kDpl);
   }
   for (int j = seq + lane; j < seq_pad; j += 32) {
 #pragma unroll
@@ -81,7 +97,11 @@ __device__ __forceinline__ void attn_fwd_head(const T* __restrict__ q_g, const T
     for (int r = 0; r < kRows; ++r) {
       const int i = min(i0 + r, seq - 1);
       float qv[kDpl];
-      load_f32<T, kDpl>(q_g + i * in_stride + lane * kDpl, qv);
+      if constexpr (kBias) {
+        load_f32_bias<T, kDpl>(q_g + i * in_stride + lane * kDpl, bq_l, qv);
+      } else {
+        load_f32<T, kDpl>(q_g + i * in_stride + lane * kDpl, qv);
+      }
 #pragma unroll
       for (int k = 0; k < kDpl; ++k) q_w[r * HD + lane * kDpl + k] = qv[k];
     }
@@ -164,7 +184,11 @@ __device__ __forceinline__ void attn_fwd_head(const T* __restrict__ q_g, const T
       for (int jj = 0; jj < 4; ++jj) {
         if (j0 + jj < seq) {
           float v[kDpl];
-          load_f32<T, kDpl>(v_g + (j0 + jj) * in_stride + lane * kDpl, v);
+          if constexpr (kBias) {
+            load_f32_bias<T, kDpl>(v_g + (j0 + jj) * in_stride + lane * kDpl, bv_l, v);
+          } else {
+            load_f32<T, kDpl>(v_g + (j0 + jj) * in_stride + lane * kDpl, v);
+          }
 #pragma unroll
           for (int r = 0; r < kRows; ++r)
 #pragma unroll

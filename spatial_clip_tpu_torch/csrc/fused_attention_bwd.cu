@@ -57,9 +57,9 @@
 //     column sums over the p and ds tiles against Q and do;
 //   - db (db options): each block sums its rounded dq/dk/dv over its rows
 //     in a fixed order and writes one partial per batch row; a second small
-//     kernel adds the B partials of each column in a fixed order. The result
-//     is deterministic (the same bits every run), which atomicAdd into one
-//     (3D,) vector is not.
+//     kernel (attention_db.cuh) adds the B partials of each column in a fixed
+//     order. The result is deterministic (the same bits every run), which
+//     atomicAdd into one (3D,) vector is not.
 // The shared-memory footprint, the same for every option, sets the
 // geometries it takes (see sc_attention_bwd_smem_bytes; the Python wrapper
 // mirrors the formula).
@@ -78,6 +78,7 @@
 #include <stdint.h>
 
 #include "attention_bwd.cuh"
+#include "attention_db.cuh"
 
 namespace {
 
@@ -99,29 +100,6 @@ attn_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
                                                   gridDim.x / heads, seq, heads, scale, smem);
 }
 
-// db[c] = sum over b of part[b][c], b in a fixed order: 8 strided partial sums
-// per column, then added in order.
-constexpr int kReduceCols = 32;
-constexpr int kReduceRows = 8;
-
-__global__ void __launch_bounds__(kReduceCols * kReduceRows)
-db_reduce_kernel(const float* __restrict__ part, float* __restrict__ db, int batch, int n) {
-  __shared__ float acc_s[kReduceRows][kReduceCols + 1];
-  const int c = blockIdx.x * kReduceCols + threadIdx.x;
-  float acc = 0.f;
-  if (c < n) {
-    for (int b = threadIdx.y; b < batch; b += kReduceRows) acc += part[size_t(b) * n + c];
-  }
-  acc_s[threadIdx.y][threadIdx.x] = acc;
-  __syncthreads();
-  if (threadIdx.y == 0 && c < n) {
-    float total = 0.f;
-#pragma unroll
-    for (int y = 0; y < kReduceRows; ++y) total += acc_s[y][threadIdx.x];
-    db[c] = total;
-  }
-}
-
 // lse null when kRecompute; db_part and db null unless kDb.
 template <typename T, int HD, bool kRecompute, bool kDb>
 cudaError_t launch(const void* qkv, const float* mask, const float* lse, const void* dout,
@@ -138,10 +116,7 @@ cudaError_t launch(const void* qkv, const float* mask, const float* lse, const v
       static_cast<T*>(dqkv), db_part, seq, heads, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || !kDb) return err;
-  const int n = 3 * heads * HD;
-  db_reduce_kernel<<<(n + kReduceCols - 1) / kReduceCols, dim3(kReduceCols, kReduceRows), 0,
-                     stream>>>(db_part, db, batch, n);
-  return cudaGetLastError();
+  return sc::bwd::db_reduce(db_part, db, batch, 3 * heads * HD, stream);
 }
 
 template <typename T>

@@ -85,7 +85,8 @@ class CLIPCfg:
     gene_cfg: Optional[Dict[str, Any]] = None
     multimodal_cfg: Optional[Dict[str, Any]] = None
     # auto | pallas3 (the qkv GEMM and attention as one autograd function) |
-    # pallas (with ln_gemm_impl='pallas': ln_1 -> qkv fused, then attention)
+    # pallas (with ln_gemm_impl='pallas': ln_1 -> qkv fused, then attention) |
+    # pallas_inter | pallas_t | pallas_split (other layouts of the kernels)
     attn_impl: str = "auto"
     # off | auto (JAX zips only on a TPU: the towers run apart here) | on (each
     # layer's image and text attention as one pair-kernel launch)
@@ -116,7 +117,8 @@ def check_ported(cfg: CLIPCfg) -> None:
     unported = [
         ("gene_cfg", cfg.gene_cfg, cfg.gene_cfg is not None),
         ("multimodal_cfg", cfg.multimodal_cfg, cfg.multimodal_cfg is not None),
-        ("attn_impl", cfg.attn_impl, cfg.attn_impl not in ("auto", "pallas", "pallas3")),
+        ("attn_impl", cfg.attn_impl, cfg.attn_impl not in ("auto", "pallas", "pallas3", "pallas_inter",
+                                                          "pallas_t", "pallas_split")),
         ("zip_towers", cfg.zip_towers, cfg.zip_towers not in ("off", "auto", "on")),
         ("mlp_impl", cfg.mlp_impl, cfg.mlp_impl not in ("dense", "pallas")),
         ("ln_gemm_impl", cfg.ln_gemm_impl, cfg.ln_gemm_impl not in ("dense", "pallas")),

@@ -10,7 +10,12 @@ through ``ops.fused_ln`` (others take two-pass statistics), and
 ``attn_impl='pallas'`` its ln_1 -> qkv, into ``ops.fused_ln_dense``.
 ``mlp_impl='pallas'`` sends each block's MLP through ``ops.fused_mlp``
 where JAX's gate allows (tanh GELU, hidden a multiple of 512, width a
-multiple of 128, c_fc not already fused with its LayerNorm). Parameters
+multiple of 128, c_fc not already fused with its LayerNorm). Three
+``attn_impl`` settings run other layouts of the attention kernels
+(``ops.attention_variants``): ``'pallas_inter'`` (the qkv weight's rows
+permuted into head-group order; its ln_1 -> qkv fuses as ``'pallas'``'s
+does), ``'pallas_t'`` (the bias added inside the kernels) and
+``'pallas_split'`` (three slice projections). Parameters
 carry open_clip's names and layouts (``attn.in_proj_weight`` is (3D, D),
 ``conv1.weight`` is OIHW). Matrices, embeddings and layer-scales are stored
 in ``param_dtype`` and cast to the compute ``dtype`` at each use, as the
@@ -42,7 +47,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from spatial_clip_tpu_torch.ops import fused_ln, fused_ln_dense, fused_mlp
+from spatial_clip_tpu_torch.ops import attention_variants, fused_ln, fused_ln_dense, fused_mlp
 from spatial_clip_tpu_torch.ops.fused_attention import (
     HEAD_DIMS,
     FusedAttention,
@@ -172,8 +177,17 @@ class MultiHeadAttention(nn.Module):
     it, and the hand-written backward JAX's routing picks); otherwise the
     inference kernel runs alone. Built for training
     (``seq_len`` given), it checks that the backward kernel takes the
-    geometry. ``impl='pallas'`` fuses a pre-LN handed to :meth:`forward`
-    into the qkv projection."""
+    geometry. ``impl='pallas'`` and ``'pallas_inter'`` fuse a pre-LN handed
+    to :meth:`forward` into the qkv projection. The layouts, routed in JAX's
+    order (``Attention.__call__``): ``'pallas_inter'`` projects with the
+    weight and bias rows permuted (:func:`attention_variants.permute_rows`)
+    and runs :class:`FusedAttention` interleaved; ``'pallas_t'`` projects
+    without the bias and runs :class:`attention_variants.FusedAttentionT`
+    with it; ``'pallas_split'`` makes q, k and v with three slices of the
+    one stored weight and runs :class:`attention_variants.FusedAttentionSplit`.
+    The parameters stay in the standard [q|k|v] order under every setting."""
+
+    LAYOUTS = ("pallas_inter", "pallas_t", "pallas_split")
 
     def __init__(self, width: int, heads: int, dtype, param_dtype, device,
                  seq_len: Optional[int] = None, impl: str = "auto"):
@@ -188,6 +202,12 @@ class MultiHeadAttention(nn.Module):
                 f"{dtype}: the backward kernel needs "
                 f"{bwd_smem_bytes(seq_len, width // heads, dtype)} B of shared memory "
                 "per block, more than a block has")
+        if impl in self.LAYOUTS and attention_variants.heads_per_block(heads,
+                                                                       width // heads) is None:
+            raise NotImplementedError(
+                f"attn_impl={impl!r} with heads={heads}, head_dim={width // heads}: JAX's "
+                "heads_per_block finds no head group there and JAX runs its einsum attention, "
+                "which is not ported")
         self.heads, self.dtype, self.impl = heads, dtype, impl
         self.in_proj_weight = _param(3 * width, width, dtype=param_dtype, device=device)
         self.in_proj_bias = _param(3 * width, dtype=param_dtype, device=device)
@@ -196,26 +216,47 @@ class MultiHeadAttention(nn.Module):
     def forward(self, x: torch.Tensor, attn_mask: Optional[torch.Tensor] = None,
                 ln=None) -> torch.Tensor:
         """``ln = (weight, bias, eps)``: x is the raw residual stream; its
-        pre-LN is fused into the qkv projection under ``impl='pallas'``
-        where JAX's gate allows, else applied two-pass here."""
+        pre-LN is fused into the qkv projection under ``impl='pallas'`` or
+        ``'pallas_inter'`` where JAX's gate allows, else applied two-pass
+        here."""
         w, b = self.in_proj_weight, self.in_proj_bias
+        impl, heads, dtype = self.impl, self.heads, self.dtype
+        width = w.shape[1]
+        if impl == "pallas_inter":
+            w, b = (attention_variants.permute_rows(t, heads, width // heads) for t in (w, b))
         if ln is not None:
             B, L, D = x.shape
-            if self.impl == "pallas" and fused_ln_dense.supported(D, 3 * D):
-                qkv = fused_ln_dense.fused_ln_dense(x.reshape(-1, D).to(self.dtype), *ln[:2],
+            if impl in ("pallas", "pallas_inter") and fused_ln_dense.supported(D, 3 * D):
+                qkv = fused_ln_dense.fused_ln_dense(x.reshape(-1, D).to(dtype), *ln[:2],
                                                     w, b, ln[2]).view(B, L, 3 * D)
-                if torch.is_grad_enabled() and qkv.requires_grad:
-                    ctx = FusedAttention.apply(qkv, attn_mask, self.heads)
-                else:
-                    ctx = fused_attention(qkv, attn_mask, self.heads)
-                return self.out_proj(ctx)
-            x = _ln_apply(x, *ln, self.dtype)
+                return self.out_proj(self._attend(qkv, attn_mask, impl == "pallas_inter"))
+            x = _ln_apply(x, *ln, dtype)
+        if impl == "pallas_inter":
+            qkv = F.linear(x, w.to(dtype), b.to(dtype))
+            return self.out_proj(self._attend(qkv, attn_mask, True))
+        if impl == "pallas_t":
+            qkv_nb = F.linear(x.to(dtype), w.to(dtype))
+            ctx = attention_variants.fused_attention_t(qkv_nb, b.to(dtype)[None], attn_mask, heads)
+            return self.out_proj(ctx)
+        if impl == "pallas_split":
+            # three slices of the one stored weight; their gradients land in its rows
+            q, k, v = (F.linear(x, wt, bt) for wt, bt in zip(w.to(dtype).chunk(3),
+                                                              b.to(dtype).chunk(3)))
+            return self.out_proj(attention_variants.fused_attention_split(q, k, v, attn_mask,
+                                                                          heads))
         if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad or b.requires_grad):
-            ctx = qkv_attention(x, w, b, attn_mask, self.heads)
+            ctx = qkv_attention(x, w, b, attn_mask, heads)
         else:
-            qkv = F.linear(x, w.to(self.dtype), b.to(self.dtype))
-            ctx = fused_attention(qkv, attn_mask, self.heads)
+            qkv = F.linear(x, w.to(dtype), b.to(dtype))
+            ctx = fused_attention(qkv, attn_mask, heads)
         return self.out_proj(ctx)
+
+    def _attend(self, qkv: torch.Tensor, attn_mask, interleaved: bool) -> torch.Tensor:
+        """Attention over a qkv made here: :class:`FusedAttention` with grad,
+        the inference kernel alone without."""
+        if torch.is_grad_enabled() and qkv.requires_grad:
+            return FusedAttention.apply(qkv, attn_mask, self.heads, interleaved)
+        return fused_attention(qkv, attn_mask, self.heads, interleaved)
 
 
 class ResidualBlock(nn.Module):

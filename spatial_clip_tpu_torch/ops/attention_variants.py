@@ -1,0 +1,451 @@
+"""Other layouts of the fused attention kernels, forward and backward.
+
+Counterpart of ``spatial_clip_tpu/ops/attention_variants.py`` and of the
+interleaved branch of ``spatial_clip_tpu/ops/fused_attention.py``. The math
+is the standard kernels' (``fused_attention`` and
+``fused_attention_bwd_recompute``); only where q, k and v live differs:
+
+- interleaved (``attn_impl='pallas_inter'``): qkv's columns in
+  :func:`interleave_perm` order. :func:`fused_attention_inter` replaces
+  ``_attn_fwd_impl`` -> ``_fwd_kernel`` with the interleaved BlockSpecs and
+  :func:`fused_attention_inter_bwd` ``_bwd_pallas`` -> ``_bwd_kernel_inter``;
+  ``fused_attention.fused_attention(..., interleaved=True)`` and
+  ``FusedAttention`` reach them. :func:`permute_rows` permutes the port's
+  (3D, Din) qkv weight and its bias into that order, with a gather as its
+  backward (JAX's ``permute_columns``);
+- seq-major with a bias (``attn_impl='pallas_t'``): :func:`fused_attention_t`
+  / :class:`FusedAttentionT` over the no-bias qkv GEMM output, the bias
+  added inside the kernels (``_fwd_pallas_t`` -> ``_fwd_kernel_t``,
+  ``_bwd_pallas_t`` -> ``_bwd_kernel_t``), db from the backward kernel, and
+  dq, dk, dv written as the column blocks of one dqkv;
+- split (``attn_impl='pallas_split'``): :func:`fused_attention_split` /
+  :class:`FusedAttentionSplit` over three (B, L, D) arrays
+  (``_split_fwd_impl`` / ``_split_bwd_impl``);
+- slab: :func:`fused_attention_slab` and :func:`fused_attention_slab_bwd`,
+  the standard layout with one block per sequence (``_fwd_pallas_slab`` /
+  ``_bwd_pallas_slab``). JAX selects it with the module global
+  ``KERNEL_VARIANT``, which the port does not carry, so no model path
+  reaches these two.
+
+On a CUDA tensor each wrapper launches its kernel in
+``csrc/attention_layouts.cu``, which runs the standard kernels' bodies; on a
+CPU tensor it runs its plain PyTorch version, the standard plain version
+(``reference_attention``, ``reference_attention_bwd``) on the operand put
+back in the standard layout. A CUDA tensor either goes through the kernel or
+raises. Each wrapper counts its launches in ``<wrapper>.launches``.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from spatial_clip_tpu_torch.ops import cuda_build
+from spatial_clip_tpu_torch.ops.fused_attention import (
+    _check,
+    _check_bwd,
+    _check_geometry,
+    _check_kernel_device,
+    _check_mask,
+    bwd_smem_bytes,
+    bwd_supported,
+    reference_attention,
+    reference_attention_bwd,
+)
+
+LANES = 128  # the TPU's lane width, which the interleaved order is cut by
+
+
+def heads_per_block(heads: int, head_dim: int, lanes: Optional[int] = None) -> Optional[int]:
+    """Heads per lane group, as JAX's ``heads_per_block`` picks them: the
+    largest count that divides ``heads`` and fills a multiple of 128 lanes
+    within ``lanes`` (128 when None); None where no count does (JAX then
+    falls back to its einsum attention, which the port does not have)."""
+    lanes = lanes or LANES
+    if head_dim >= 128:
+        return 1 if head_dim % 128 == 0 else None
+    if 128 % head_dim != 0:
+        return None
+    hpb = min(lanes // head_dim, heads)
+    while hpb > 1 and (heads % hpb != 0 or (hpb * head_dim) % 128 != 0):
+        hpb -= 1
+    if heads % hpb != 0 or (hpb * head_dim) % 128 != 0:
+        return None
+    return hpb
+
+
+def interleave_perm(heads: int, head_dim: int) -> list:
+    """The order that turns standard [q|k|v] rows (of the port's (3D, Din)
+    weight, or columns of qkv) into [q_g0|k_g0|v_g0|q_g1|...], with head
+    groups of :func:`heads_per_block` heads at 128 lanes."""
+    hpb = heads_per_block(heads, head_dim)
+    if hpb is None:
+        raise NotImplementedError(
+            f"heads={heads} head_dim={head_dim}: no interleaved layout (JAX's heads_per_block "
+            "is None there and JAX runs its einsum attention, which is not ported)")
+    lanes = hpb * head_dim
+    D = heads * head_dim
+    perm = []
+    for j in range(D // lanes):
+        for part in range(3):
+            base = part * D + j * lanes
+            perm.extend(range(base, base + lanes))
+    return perm
+
+
+def inverse_perm(perm) -> tuple:
+    inv = [0] * len(perm)
+    for i, p in enumerate(perm):
+        inv[p] = i
+    return tuple(inv)
+
+
+@functools.lru_cache(maxsize=None)
+def _perm_tensors(heads: int, head_dim: int, device: torch.device):
+    perm = interleave_perm(heads, head_dim)
+    return (torch.tensor(perm, dtype=torch.long, device=device),
+            torch.tensor(inverse_perm(perm), dtype=torch.long, device=device))
+
+
+class _PermuteRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, perm, inv):
+        ctx.save_for_backward(inv)
+        return w.index_select(0, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        (inv,) = ctx.saved_tensors
+        return g.index_select(0, inv), None, None
+
+
+def permute_rows(w: torch.Tensor, heads: int, head_dim: int) -> torch.Tensor:
+    """``w`` (3D, ...) with its rows in :func:`interleave_perm` order; the
+    gradient is gathered back with the inverse order (JAX's
+    ``permute_columns``, on the port's (out, in) weight layout)."""
+    perm, inv = _perm_tensors(heads, head_dim, w.device)
+    return _PermuteRows.apply(w, perm, inv)
+
+
+def _launch(entry: str, device: torch.device, *args) -> None:
+    lib = cuda_build.library()
+    with torch.cuda.device(device):
+        err = getattr(lib, f"sc_attention_{entry}")(
+            *args, torch.cuda.current_stream(device).cuda_stream)
+    cuda_build.check(lib, err, f"attention {entry} launch")
+
+
+def _dims(B, L, D, heads, dtype):
+    hd = D // heads
+    return B, L, heads, hd, cuda_build.DTYPE_CODES[dtype], hd ** -0.5
+
+
+def _ptr(mask):
+    return None if mask is None else mask.data_ptr()
+
+
+# ---------------------------------------------------------------- interleaved
+
+def _check_inter(qkv, heads) -> int:
+    D = qkv.shape[-1] // 3
+    hpb = heads_per_block(heads, D // heads)
+    if hpb is None:
+        raise ValueError(f"head geometry heads={heads} width={D} has no interleaved layout")
+    return hpb
+
+
+def reference_attention_inter(qkv: torch.Tensor, mask: Optional[torch.Tensor],
+                              heads: int) -> torch.Tensor:
+    """Plain version: :func:`reference_attention` on qkv put back in the
+    standard column order."""
+    _, inv = _perm_tensors(heads, qkv.shape[-1] // 3 // heads, qkv.device)
+    return reference_attention(qkv.index_select(-1, inv), mask, heads)
+
+
+def reference_attention_inter_bwd(qkv, mask, g, heads: int) -> torch.Tensor:
+    """Plain version: the recompute backward (:func:`reference_attention_bwd`
+    with ``lse=None``) in the standard order, dqkv put in the interleaved one."""
+    perm, inv = _perm_tensors(heads, qkv.shape[-1] // 3 // heads, qkv.device)
+    dqkv = reference_attention_bwd(qkv.index_select(-1, inv), mask, None, g, heads)[0]
+    return dqkv.index_select(-1, perm)
+
+
+def fused_attention_inter(qkv: torch.Tensor, mask: Optional[torch.Tensor],
+                          heads: int) -> torch.Tensor:
+    """The inference forward over an interleaved qkv (B, L, 3D), contiguous,
+    float32 or bfloat16. Returns the context (B, L, D), standard order."""
+    _check(qkv, mask, heads)
+    hpb = _check_inter(qkv, heads)
+    if qkv.device.type == "cpu":
+        return reference_attention_inter(qkv, mask, heads)
+    _check_kernel_device(qkv)
+    B, L, three_d = qkv.shape
+    out = qkv.new_empty((B, L, three_d // 3))
+    B, L, H, hd, code, scale = _dims(B, L, three_d // 3, heads, qkv.dtype)
+    _launch("inter_fwd", qkv.device, qkv.data_ptr(), _ptr(mask), out.data_ptr(), B, L, H, hd,
+            hpb, code, scale)
+    fused_attention_inter.launches += 1
+    return out
+
+
+def fused_attention_inter_bwd(qkv: torch.Tensor, mask: Optional[torch.Tensor], g: torch.Tensor,
+                              heads: int) -> torch.Tensor:
+    """Backward of :func:`fused_attention_inter` that recomputes the softmax
+    statistics: dqkv in qkv's (interleaved) order, no bias gradient."""
+    g = _check_bwd(qkv, mask, g, heads)
+    hpb = _check_inter(qkv, heads)
+    if qkv.device.type == "cpu":
+        return reference_attention_inter_bwd(qkv, mask, g, heads)
+    _check_kernel_device(qkv, g)
+    dqkv = torch.empty_like(qkv)
+    B, L, H, hd, code, scale = _dims(*qkv.shape[:2], qkv.shape[2] // 3, heads, qkv.dtype)
+    _launch("inter_bwd", qkv.device, qkv.data_ptr(), _ptr(mask), g.data_ptr(), dqkv.data_ptr(),
+            B, L, H, hd, hpb, code, scale)
+    fused_attention_inter_bwd.launches += 1
+    return dqkv
+
+
+# ----------------------------------------------------------------------- slab
+
+def fused_attention_slab(qkv: torch.Tensor, mask: Optional[torch.Tensor],
+                         heads: int) -> torch.Tensor:
+    """:func:`fused_attention` over one block per sequence (JAX's
+    ``_fwd_pallas_slab``); its bits on the card, its plain version here."""
+    _check(qkv, mask, heads)
+    if qkv.device.type == "cpu":
+        return reference_attention(qkv, mask, heads)
+    _check_kernel_device(qkv)
+    B, L, three_d = qkv.shape
+    out = qkv.new_empty((B, L, three_d // 3))
+    _launch("slab_fwd", qkv.device, qkv.data_ptr(), _ptr(mask), out.data_ptr(),
+            *_dims(B, L, three_d // 3, heads, qkv.dtype))
+    fused_attention_slab.launches += 1
+    return out
+
+
+def fused_attention_slab_bwd(qkv: torch.Tensor, mask: Optional[torch.Tensor], g: torch.Tensor,
+                             heads: int) -> torch.Tensor:
+    """The recompute backward over one block per sequence (JAX's
+    ``_bwd_pallas_slab``): dqkv in qkv's layout, no bias gradient."""
+    g = _check_bwd(qkv, mask, g, heads)
+    if qkv.device.type == "cpu":
+        return reference_attention_bwd(qkv, mask, None, g, heads)[0]
+    _check_kernel_device(qkv, g)
+    dqkv = torch.empty_like(qkv)
+    _launch("slab_bwd", qkv.device, qkv.data_ptr(), _ptr(mask), g.data_ptr(), dqkv.data_ptr(),
+            *_dims(*qkv.shape[:2], qkv.shape[2] // 3, heads, qkv.dtype))
+    fused_attention_slab_bwd.launches += 1
+    return dqkv
+
+
+# ------------------------------------------------------------------ seq-major
+
+def _check_t(qkv_t: torch.Tensor, bias: torch.Tensor, mask, heads: int) -> torch.Tensor:
+    """The seq-major wrappers' checks; returns the bias as a contiguous (3D,)
+    vector in qkv_t's dtype."""
+    if qkv_t.dim() != 3 or qkv_t.shape[-1] % 3:
+        raise ValueError(f"qkv_t must be (L, B, 3*D); got {tuple(qkv_t.shape)}")
+    L, B, three_d = qkv_t.shape
+    # the kernel's strides are these two layouts': seq-major contiguous, or
+    # the transposed view of a contiguous (B, L, 3D) tensor
+    if qkv_t.stride() not in ((B * three_d, three_d, 1), (three_d, L * three_d, 1)):
+        raise ValueError(f"qkv_t strides {qkv_t.stride()}: want a contiguous (L, B, 3D) tensor "
+                         "or the transpose(0, 1) view of a contiguous (B, L, 3D) one")
+    _check_geometry(B, L, three_d // 3, heads, qkv_t.dtype)
+    _check_mask(mask, L, qkv_t.device)
+    if bias.numel() != three_d or bias.device != qkv_t.device:
+        raise ValueError(f"bias must hold {three_d} values on qkv_t's device; got "
+                         f"{tuple(bias.shape)}")
+    return bias.reshape(three_d).to(qkv_t.dtype).contiguous()
+
+
+def _with_bias(qkv_t, bias):
+    """(B, L, 3D): the no-bias qkv plus the bias, each sum rounded to the
+    input dtype as the kernel rounds it."""
+    return (qkv_t.transpose(0, 1) + bias).contiguous()
+
+
+def reference_attention_t(qkv_t, bias, mask, heads: int) -> torch.Tensor:
+    """Plain version: :func:`reference_attention` on ``qkv_t + bias`` (in
+    the input dtype), put back in (B, L, 3D) order."""
+    return reference_attention(_with_bias(qkv_t, bias), mask, heads)
+
+
+def reference_attention_t_bwd(qkv_t, bias, mask, g, heads: int):
+    """Plain version: the recompute backward with db on ``qkv_t + bias``;
+    returns dqkv = [dq|dk|dv] (B, L, 3D) and db (3D,) f32, the sum of the
+    rounded dq, dk and dv over (B, L)."""
+    return reference_attention_bwd(_with_bias(qkv_t, bias), mask, None, g, heads)
+
+
+def fused_attention_t_fwd(qkv_t: torch.Tensor, bias: torch.Tensor,
+                          mask: Optional[torch.Tensor], heads: int) -> torch.Tensor:
+    """The inference forward over the seq-major no-bias qkv: qkv_t (L, B,
+    3D), contiguous or the ``transpose(0, 1)`` view of a contiguous (B, L,
+    3D) tensor; bias (3D) or (1, 3D), cast to qkv_t's dtype and added to q,
+    k and v in that dtype. Returns the context (B, L, D)."""
+    bias = _check_t(qkv_t, bias, mask, heads)
+    if qkv_t.device.type == "cpu":
+        return reference_attention_t(qkv_t, bias, mask, heads)
+    _check_kernel_device(qkv_t, bias)
+    L, B, three_d = qkv_t.shape
+    out = qkv_t.new_empty((B, L, three_d // 3))
+    _launch("t_fwd", qkv_t.device, qkv_t.data_ptr(), qkv_t.stride(0), qkv_t.stride(1),
+            bias.data_ptr(), _ptr(mask), out.data_ptr(),
+            *_dims(B, L, three_d // 3, heads, qkv_t.dtype))
+    fused_attention_t_fwd.launches += 1
+    return out
+
+
+def fused_attention_t_bwd(qkv_t: torch.Tensor, bias: torch.Tensor, mask: Optional[torch.Tensor],
+                          g: torch.Tensor, heads: int):
+    """Backward of :func:`fused_attention_t_fwd` that recomputes the softmax
+    statistics from ``qkv_t + bias``: returns dqkv (B, L, 3D) in qkv_t's
+    dtype, whose column blocks are the TPU kernel's three standard (B, L, D)
+    outputs dq, dk, dv (the kernel writes them there, so no concatenation is
+    made), and db (3D,) f32, summed in a fixed order."""
+    bias = _check_t(qkv_t, bias, mask, heads)
+    L, B, three_d = qkv_t.shape
+    D = three_d // 3
+    if not bwd_supported(heads, D, L, qkv_t.dtype):
+        raise ValueError(f"backward geometry L={L} head_dim={D // heads} {qkv_t.dtype} needs "
+                         f"{bwd_smem_bytes(L, D // heads, qkv_t.dtype)} B of shared memory")
+    if g.shape != (B, L, D) or g.device != qkv_t.device:
+        raise ValueError(f"g must be {(B, L, D)} on qkv_t's device; got {tuple(g.shape)}")
+    g = g.to(qkv_t.dtype).contiguous()
+    if qkv_t.device.type == "cpu":
+        return reference_attention_t_bwd(qkv_t, bias, mask, g, heads)
+    _check_kernel_device(qkv_t, bias, g)
+    dqkv = qkv_t.new_empty((B, L, three_d))
+    db_part = torch.empty((B, three_d), dtype=torch.float32, device=qkv_t.device)
+    db = torch.empty((three_d,), dtype=torch.float32, device=qkv_t.device)
+    _launch("t_bwd", qkv_t.device, qkv_t.data_ptr(), qkv_t.stride(0), qkv_t.stride(1),
+            bias.data_ptr(), _ptr(mask), g.data_ptr(), dqkv.data_ptr(), db_part.data_ptr(),
+            db.data_ptr(), *_dims(B, L, D, heads, qkv_t.dtype))
+    fused_attention_t_bwd.launches += 1
+    return dqkv, db
+
+
+class FusedAttentionT(torch.autograd.Function):
+    """Attention over the no-bias qkv GEMM output (B, L, 3D) with the bias
+    (1, 3D) added in the kernels (JAX's ``fused_attention_t`` and its custom
+    VJP): the kernels take its ``transpose(0, 1)`` view, so nothing is
+    copied. The backward returns dqkv = [dq|dk|dv] and db in the bias's shape
+    and dtype, as ``_attn_t_bwd`` does (the kernel writes dq, dk and dv in
+    place in dqkv); the mask gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, qkv_nb, bias, mask, heads: int):
+        ctx.save_for_backward(qkv_nb, bias, mask)
+        ctx.heads = heads
+        return fused_attention_t_fwd(qkv_nb.transpose(0, 1), bias, mask, heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv_nb, bias, mask = ctx.saved_tensors
+        dqkv, db = fused_attention_t_bwd(qkv_nb.transpose(0, 1), bias, mask, g, ctx.heads)
+        return dqkv, db.to(bias.dtype).view(bias.shape), None, None
+
+
+def fused_attention_t(qkv_nb: torch.Tensor, bias: torch.Tensor, mask: Optional[torch.Tensor],
+                      heads: int) -> torch.Tensor:
+    """:class:`FusedAttentionT` on a contiguous (B, L, 3D) no-bias qkv."""
+    return FusedAttentionT.apply(qkv_nb.contiguous(), bias, mask, heads)
+
+
+# ---------------------------------------------------------------------- split
+
+def _check_split(q, k, v, mask, heads) -> None:
+    if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"q, k, v must be (B, L, D) of one shape; got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if len({t.dtype for t in (q, k, v)}) != 1 or len({t.device for t in (q, k, v)}) != 1:
+        raise ValueError("q, k, v must share one dtype and device")
+    if not all(t.is_contiguous() for t in (q, k, v)):
+        raise ValueError("q, k, v must be contiguous")
+    B, L, D = q.shape
+    _check_geometry(B, L, D, heads, q.dtype)
+    _check_mask(mask, L, q.device)
+
+
+def reference_attention_split(q, k, v, mask, heads: int) -> torch.Tensor:
+    """Plain version: :func:`reference_attention` on [q|k|v]."""
+    return reference_attention(torch.cat([q, k, v], dim=-1), mask, heads)
+
+
+def reference_attention_split_bwd(q, k, v, mask, g, heads: int):
+    """Plain version: the recompute backward on [q|k|v]; dq, dk, dv apart."""
+    dqkv = reference_attention_bwd(torch.cat([q, k, v], dim=-1), mask, None, g, heads)[0]
+    return tuple(t.contiguous() for t in dqkv.chunk(3, dim=-1))
+
+
+def fused_attention_split_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              mask: Optional[torch.Tensor], heads: int) -> torch.Tensor:
+    """The inference forward over separate q, k, v, each (B, L, D),
+    contiguous. Returns the context (B, L, D)."""
+    _check_split(q, k, v, mask, heads)
+    if q.device.type == "cpu":
+        return reference_attention_split(q, k, v, mask, heads)
+    _check_kernel_device(q, k, v)
+    out = torch.empty_like(q)
+    _launch("split_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
+            out.data_ptr(), *_dims(*q.shape, heads, q.dtype))
+    fused_attention_split_fwd.launches += 1
+    return out
+
+
+def fused_attention_split_bwd(q, k, v, mask: Optional[torch.Tensor], g: torch.Tensor,
+                              heads: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Backward of :func:`fused_attention_split_fwd` that recomputes the
+    softmax statistics: dq, dk, dv apart, in q's dtype, no bias gradient."""
+    _check_split(q, k, v, mask, heads)
+    B, L, D = q.shape
+    if not bwd_supported(heads, D, L, q.dtype):
+        raise ValueError(f"backward geometry L={L} head_dim={D // heads} {q.dtype} needs "
+                         f"{bwd_smem_bytes(L, D // heads, q.dtype)} B of shared memory")
+    if g.shape != (B, L, D) or g.device != q.device:
+        raise ValueError(f"g must be {(B, L, D)} on q's device; got {tuple(g.shape)}")
+    g = g.to(q.dtype).contiguous()
+    if q.device.type == "cpu":
+        return reference_attention_split_bwd(q, k, v, mask, g, heads)
+    _check_kernel_device(q, k, v, g)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    _launch("split_bwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
+            g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *_dims(B, L, D, heads, q.dtype))
+    fused_attention_split_bwd.launches += 1
+    return dq, dk, dv
+
+
+class FusedAttentionSplit(torch.autograd.Function):
+    """Attention over separate q, k, v (JAX's ``fused_attention_split`` and
+    its custom VJP): the backward returns dq, dk and dv apart, so no dqkv is
+    assembled; the mask gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, heads: int):
+        ctx.save_for_backward(q, k, v, mask)
+        ctx.heads = heads
+        return fused_attention_split_fwd(q, k, v, mask, heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, mask = ctx.saved_tensors
+        return (*fused_attention_split_bwd(q, k, v, mask, g, ctx.heads), None, None)
+
+
+def fused_attention_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          mask: Optional[torch.Tensor], heads: int) -> torch.Tensor:
+    """:class:`FusedAttentionSplit` on contiguous q, k, v."""
+    return FusedAttentionSplit.apply(q.contiguous(), k.contiguous(), v.contiguous(), mask, heads)
+
+
+fused_attention_inter.launches = 0
+fused_attention_inter_bwd.launches = 0
+fused_attention_slab.launches = 0
+fused_attention_slab_bwd.launches = 0
+fused_attention_t_fwd.launches = 0
+fused_attention_t_bwd.launches = 0
+fused_attention_split_fwd.launches = 0
+fused_attention_split_bwd.launches = 0

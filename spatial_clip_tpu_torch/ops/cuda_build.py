@@ -196,6 +196,21 @@ def library() -> ctypes.CDLL:
             lib.sc_block_attn_fwd.restype = i32
             lib.sc_block_attn_smem_bytes.argtypes = [i32, i32, i32, i32]  # L, D, heads, dtype
             lib.sc_block_attn_smem_bytes.restype = ctypes.c_size_t
+            i64, dims = ctypes.c_longlong, [i32, i32, i32, i32]  # B, L, H, hd
+            tail = [i32, f32, ptr]  # dtype, scale, stream
+            lib.sc_attention_inter_fwd.argtypes = [ptr, ptr, ptr, *dims, i32, *tail]  # hpb
+            lib.sc_attention_inter_bwd.argtypes = [ptr, ptr, ptr, ptr, *dims, i32, *tail]
+            lib.sc_attention_split_fwd.argtypes = [ptr] * 5 + [*dims, *tail]  # q, k, v, mask, out
+            lib.sc_attention_split_bwd.argtypes = [ptr] * 8 + [*dims, *tail]  # .., dout, dq, dk, dv
+            lib.sc_attention_t_fwd.argtypes = [ptr, i64, i64, ptr, ptr, ptr, *dims, *tail]
+            lib.sc_attention_t_bwd.argtypes = [ptr, i64, i64, ptr, ptr, ptr,  # .., bias, mask, dout
+                                               ptr, ptr, ptr,  # dqkv, db partials, db
+                                               *dims, *tail]
+            lib.sc_attention_slab_fwd.argtypes = [ptr, ptr, ptr, *dims, *tail]
+            lib.sc_attention_slab_bwd.argtypes = [ptr, ptr, ptr, ptr, *dims, *tail]
+            for name in ("inter_fwd", "inter_bwd", "split_fwd", "split_bwd", "t_fwd", "t_bwd",
+                         "slab_fwd", "slab_bwd"):
+                getattr(lib, f"sc_attention_{name}").restype = i32
             lib.sc_mlp_max_width.argtypes = []
             lib.sc_mlp_max_width.restype = i32
             lib.sc_cuda_error_string.argtypes = [ctypes.c_int]

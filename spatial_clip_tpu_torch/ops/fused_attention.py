@@ -22,7 +22,11 @@ Counterpart of ``spatial_clip_tpu/ops/fused_attention.py``:
 - :class:`FusedAttention`: attention over a given qkv as one autograd
   function (``fused_attention`` and its custom VJP): the inference forward,
   and the recompute backward. The towers reach it where the fused LayerNorm
-  -> qkv projection makes qkv.
+  -> qkv projection makes qkv, and under ``attn_impl='pallas_inter'``.
+
+``interleaved=True`` (JAX's ``fused_attention(..., interleaved)``) takes qkv
+with its columns in ``attention_variants.interleave_perm`` order and routes
+to that module's interleaved kernels, which count their own launches.
 
 On a CUDA tensor each wrapper launches its hand-written kernel
 (``csrc/fused_attention_fwd.cu``, ``csrc/fused_attention_bwd.cu``); on a CPU
@@ -107,28 +111,36 @@ def bwd_supported(heads: int, width: int, seq: int, dtype: torch.dtype) -> bool:
             and bwd_smem_bytes(seq, width // heads, dtype) <= MAX_SMEM_BYTES)
 
 
-def _check(qkv: torch.Tensor, mask: Optional[torch.Tensor], heads: int) -> None:
-    if qkv.dim() != 3 or qkv.shape[-1] % 3:
-        raise ValueError(f"qkv must be (B, L, 3*D); got {tuple(qkv.shape)}")
-    B, L, three_d = qkv.shape
-    D = three_d // 3
+def _check_geometry(B: int, L: int, D: int, heads: int, dtype: torch.dtype) -> None:
+    """The head geometry, sequence length and dtype the kernels take."""
     if heads < 1 or D % heads or D // heads not in HEAD_DIMS:
         raise ValueError(
             f"head geometry heads={heads} width={D} is not taken: head_dim "
             f"must be one of {HEAD_DIMS}")
     if not 1 <= L <= MAX_SEQ or B < 1:
         raise ValueError(f"sequence length {L} (batch {B}) outside 1..{MAX_SEQ}")
-    if qkv.dtype not in cuda_build.DTYPE_CODES:
-        raise ValueError(f"qkv dtype {qkv.dtype} not taken (float32 or bfloat16)")
-    if not qkv.is_contiguous():
-        raise ValueError("qkv must be contiguous")
+    if dtype not in cuda_build.DTYPE_CODES:
+        raise ValueError(f"qkv dtype {dtype} not taken (float32 or bfloat16)")
+
+
+def _check_mask(mask: Optional[torch.Tensor], L: int, device: torch.device) -> None:
     if mask is not None:
         if mask.shape != (L, L) or mask.dtype != torch.float32:
             raise ValueError(
                 f"mask must be a float32 ({L}, {L}) additive mask; got "
                 f"{mask.dtype} {tuple(mask.shape)}")
-        if mask.device != qkv.device or not mask.is_contiguous():
+        if mask.device != device or not mask.is_contiguous():
             raise ValueError("mask must be contiguous and on qkv's device")
+
+
+def _check(qkv: torch.Tensor, mask: Optional[torch.Tensor], heads: int) -> None:
+    if qkv.dim() != 3 or qkv.shape[-1] % 3:
+        raise ValueError(f"qkv must be (B, L, 3*D); got {tuple(qkv.shape)}")
+    B, L, three_d = qkv.shape
+    _check_geometry(B, L, three_d // 3, heads, qkv.dtype)
+    if not qkv.is_contiguous():
+        raise ValueError("qkv must be contiguous")
+    _check_mask(mask, L, qkv.device)
 
 
 def _check_kernel_device(*tensors: torch.Tensor) -> None:
@@ -237,15 +249,20 @@ def _fwd(qkv, mask, heads, lse: Optional[torch.Tensor]) -> torch.Tensor:
 
 
 def fused_attention(qkv: torch.Tensor, mask: Optional[torch.Tensor],
-                    heads: int) -> torch.Tensor:
+                    heads: int, interleaved: bool = False) -> torch.Tensor:
     """Multi-head self-attention over a fused qkv tensor.
 
     qkv: (B, L, 3*D) contiguous, float32 or bfloat16; head h of q, k and v
     sits at columns ``h*hd:(h+1)*hd`` of the three D-wide blocks.
     mask: (L, L) additive float32 mask, or None. Returns the context
     (B, L, D) in qkv's dtype. Counts each kernel launch in
-    ``fused_attention.launches``.
+    ``fused_attention.launches``. ``interleaved``: qkv's columns are in
+    ``interleave_perm`` order (``attention_variants.fused_attention_inter``).
     """
+    if interleaved:
+        from spatial_clip_tpu_torch.ops import attention_variants
+
+        return attention_variants.fused_attention_inter(qkv, mask, heads)
     _check(qkv, mask, heads)
     if qkv.device.type == "cpu":
         return reference_attention(qkv, mask, heads)
@@ -325,13 +342,20 @@ def fused_attention_bwd(qkv: torch.Tensor, mask: Optional[torch.Tensor],
 
 
 def fused_attention_bwd_recompute(qkv: torch.Tensor, mask: Optional[torch.Tensor],
-                                  g: torch.Tensor, heads: int) -> torch.Tensor:
+                                  g: torch.Tensor, heads: int,
+                                  interleaved: bool = False) -> torch.Tensor:
     """Backward of :func:`fused_attention` that recomputes the softmax
     statistics from the scores (no saved logsumexp): given the cotangent
     ``g`` of the context (B, L, D), returns dqkv (qkv's shape and dtype).
     Takes the geometries :func:`bwd_supported` names and raises ValueError on
     any other. Counts each kernel launch in
-    ``fused_attention_bwd_recompute.launches``."""
+    ``fused_attention_bwd_recompute.launches``. ``interleaved``: qkv and
+    dqkv in ``interleave_perm`` order
+    (``attention_variants.fused_attention_inter_bwd``)."""
+    if interleaved:
+        from spatial_clip_tpu_torch.ops import attention_variants
+
+        return attention_variants.fused_attention_inter_bwd(qkv, mask, g, heads)
     g = _check_bwd(qkv, mask, g, heads)
     if qkv.device.type == "cpu":
         return reference_attention_bwd(qkv, mask, None, g, heads)[0]
@@ -449,21 +473,24 @@ class QKVAttention(torch.autograd.Function):
 
 class FusedAttention(torch.autograd.Function):
     """:func:`fused_attention` over a qkv made elsewhere (the fused LayerNorm
-    -> qkv projection), with :func:`fused_attention_bwd_recompute` as its
-    backward; dqkv flows back to what made qkv. The counterpart of
+    -> qkv projection, or the interleaved projection), with
+    :func:`fused_attention_bwd_recompute` as its backward; dqkv flows back to
+    what made qkv, in qkv's column order. The counterpart of
     ``fused_attention``'s custom VJP (``_attn_fwd`` -> ``_fwd_kernel``,
-    ``_attn_bwd`` -> ``_bwd_kernel``). The mask gets no gradient."""
+    ``_attn_bwd`` -> ``_bwd_kernel``, or ``_bwd_kernel_inter`` when
+    ``interleaved``). The mask gets no gradient."""
 
     @staticmethod
-    def forward(ctx, qkv, mask, heads: int):
+    def forward(ctx, qkv, mask, heads: int, interleaved: bool = False):
         ctx.save_for_backward(qkv, mask)
-        ctx.heads = heads
-        return fused_attention(qkv, mask, heads)
+        ctx.heads, ctx.interleaved = heads, interleaved
+        return fused_attention(qkv, mask, heads, interleaved)
 
     @staticmethod
     def backward(ctx, g):
         qkv, mask = ctx.saved_tensors
-        return fused_attention_bwd_recompute(qkv, mask, g, ctx.heads), None, None
+        dqkv = fused_attention_bwd_recompute(qkv, mask, g, ctx.heads, ctx.interleaved)
+        return dqkv, None, None, None
 
 
 def qkv_attention(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,

@@ -24,10 +24,12 @@ from spatial_clip_tpu_torch.models.factory import create_model, get_tokenizer
 from spatial_clip_tpu_torch.models.transforms import normalize_batch
 
 FAMILIES = (  # first match wins; matched against the lower-cased kernel name
-    # the attention families hold the zip path's pair kernels (attention_pair.cu) too
-    ("attention (fused_attention_fwd)", ("attn_fwd_kernel", "attn_pair_fwd_kernel")),
+    # the attention families hold the zip path's pair kernels (attention_pair.cu) and
+    # the layouts' kernels (attention_layouts.cu) too
+    ("attention (fused_attention_fwd)", ("attn_fwd_kernel", "attn_pair_fwd_kernel",
+                                         "attn_layout_fwd_kernel")),
     ("attention backward (fused_attention_bwd)", ("attn_bwd_kernel", "attn_pair_bwd_kernel",
-                                                  "db_reduce_kernel")),
+                                                  "attn_layout_bwd_kernel", "db_reduce_kernel")),
     ("gemm", ("gemm", "sm90_xmma", "cutlass", "cublas", "nvjet", "matmul")),
     ("reduce (LayerNorm stats, pooling)", ("reduce",)),
     ("elementwise (LayerNorm affine, GELU, residual, casts)", ("elementwise", "vectorized")),

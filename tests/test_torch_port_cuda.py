@@ -816,3 +816,166 @@ def test_block_smem_formula_matches_kernel(device):
                     (128, 256, 2), (1, 1024, 8)):
         for dtype, code in cuda_build.DTYPE_CODES.items():
             assert fb.smem_bytes(L, D, H, dtype) == lib.sc_block_attn_smem_bytes(L, D, H, code)
+
+
+LAYOUT_CASES = [  # B, L, D, H, causal, dtype: the ViT-B-32 towers, hd 32 / 128, long L
+    (256, 50, 768, 12, False, torch.bfloat16),
+    (256, 77, 512, 8, True, torch.bfloat16),
+    (8, 77, 512, 8, True, torch.float32),
+    (3, 17, 384, 12, False, torch.bfloat16),  # hd 32, 4 heads a group
+    (2, 26, 256, 2, True, torch.float32),  # hd 128, one head a group
+    (2, 166, 256, 4, True, torch.bfloat16),  # the longest bf16 hd 64 backward
+]
+
+
+@pytest.mark.parametrize("B,L,D,H,causal,dtype", LAYOUT_CASES)
+def test_layout_kernels_match_plain_and_standard(device, B, L, D, H, causal, dtype):
+    """The eight layout entries against their plain versions (_tol), one
+    launch each, and bit for bit against the standard launches on the same
+    data: interleaved vs the standard kernels on the permuted columns, split
+    vs [q|k|v], seq-major (contiguous and the transposed view) vs the
+    standard kernels on qkv_nb + b rounded to the dtype, with db within f32
+    tolerance of the recompute-with-db db (dq, dk, dv come as the column
+    blocks of one dqkv), slab vs the group kernels; the same bits on a
+    rerun."""
+    from spatial_clip_tpu_torch.ops import attention_variants as av
+    from spatial_clip_tpu_torch.ops.fused_attention import (
+        fused_attention_bwd_recompute,
+        fused_attention_bwd_recompute_db,
+        reference_attention_bwd,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(B * L + D + H)
+    qkv = torch.randn((B, L, 3 * D), generator=gen, device=device).to(dtype)
+    g = torch.randn((B, L, D), generator=gen, device=device).to(dtype)
+    bias = (0.3 * torch.randn((3 * D,), generator=gen, device=device)).to(dtype)
+    mask = causal_mask(L, device=device) if causal else None
+    std_out = fused_attention(qkv, mask, H)
+    std_d = fused_attention_bwd_recompute(qkv, mask, g, H)
+    ref_out = reference_attention(qkv, mask, H).float()
+    ref_d = reference_attention_bwd(qkv, mask, None, g, H)[0].float()
+    entries = (av.fused_attention_inter, av.fused_attention_inter_bwd, av.fused_attention_slab,
+               av.fused_attention_slab_bwd, av.fused_attention_t_fwd, av.fused_attention_t_bwd,
+               av.fused_attention_split_fwd, av.fused_attention_split_bwd)
+    before = [e.launches for e in entries]
+
+    perm = torch.tensor(av.interleave_perm(H, D // H), device=device)
+    qkv_i = qkv.index_select(-1, perm)
+    inter = (av.fused_attention_inter(qkv_i, mask, H),
+             av.fused_attention_inter_bwd(qkv_i, mask, g, H))
+    slab = av.fused_attention_slab(qkv, mask, H), av.fused_attention_slab_bwd(qkv, mask, g, H)
+    qkv_nb = qkv
+    with_b = qkv_nb + bias
+    t_out = av.fused_attention_t_fwd(qkv_nb.transpose(0, 1), bias, mask, H)
+    t_d, db = av.fused_attention_t_bwd(qkv_nb.transpose(0, 1), bias, mask, g, H)
+    q, k, v = (t.contiguous() for t in qkv.chunk(3, dim=-1))
+    split = (av.fused_attention_split_fwd(q, k, v, mask, H),
+             av.fused_attention_split_bwd(q, k, v, mask, g, H))
+    torch.cuda.synchronize()
+    assert [e.launches - n for e, n in zip(entries, before)] == [1] * 8
+    assert torch.equal(inter[0], std_out) and torch.equal(inter[1], std_d.index_select(-1, perm))
+    assert torch.equal(slab[0], std_out) and torch.equal(slab[1], std_d)
+    assert torch.equal(split[0], std_out) and torch.equal(torch.cat(split[1], -1), std_d)
+    assert torch.equal(t_out, fused_attention(with_b, mask, H))
+    assert torch.equal(t_d, fused_attention_bwd_recompute(with_b, mask, g, H))
+    db_std = fused_attention_bwd_recompute_db(with_b, mask, g, H)[1]
+    torch.testing.assert_close(db, db_std, rtol=0, atol=_tol(torch.float32, db_std) + 1e-4)
+    seq_major = qkv_nb.transpose(0, 1).contiguous()
+    assert torch.equal(av.fused_attention_t_fwd(seq_major, bias, mask, H), t_out)
+    again = av.fused_attention_t_bwd(seq_major, bias, mask, g, H)
+    assert torch.equal(again[0], t_d) and torch.equal(again[1], db)
+    for got, ref in ((inter[0], ref_out), (inter[1], ref_d.index_select(-1, perm)),
+                     (slab[0], ref_out), (slab[1], ref_d), (split[0], ref_out),
+                     (torch.cat(split[1], -1), ref_d)):
+        assert got.dtype == dtype and torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), ref, rtol=0, atol=_tol(dtype, ref))
+    want_t = av.reference_attention_t(qkv_nb.transpose(0, 1), bias, mask, H).float()
+    want_tb = av.reference_attention_t_bwd(qkv_nb.transpose(0, 1), bias, mask, g, H)
+    torch.testing.assert_close(t_out.float(), want_t, rtol=0, atol=_tol(dtype, want_t))
+    torch.testing.assert_close(t_d.float(), want_tb[0].float(), rtol=0,
+                               atol=_tol(dtype, want_tb[0].float()))
+    torch.testing.assert_close(db, want_tb[1], rtol=0, atol=_tol(dtype, want_tb[1]) + 1e-4)
+
+
+def test_layout_kernels_refuse_what_they_do_not_take(device):
+    """Misaligned rows, seq-major strides other than the two layouts', f16,
+    L > 256, a backward over the shared-memory limit and a geometry with no
+    interleaved order raise; a CUDA tensor never falls back to a plain
+    version."""
+    from spatial_clip_tpu_torch.ops import attention_variants as av
+
+    qkv = torch.randn((2, 9, 3 * 256), device=device)
+    g = torch.randn((2, 9, 256), device=device)
+    bias = torch.randn((3 * 256,), device=device)
+    flat = torch.randn((2 * 9 * 768 + 1,), device=device)
+    shifted = flat[1:].view(2, 9, 768)  # 4 bytes off a 16-byte boundary
+    with pytest.raises(ValueError, match="16-byte"):
+        av.fused_attention_slab(shifted, None, 4)
+    with pytest.raises(ValueError, match="16-byte"):
+        av.fused_attention_inter_bwd(shifted, None, g, 4)
+    with pytest.raises(ValueError, match="16-byte"):
+        av.fused_attention_t_fwd(shifted.transpose(0, 1), bias, None, 4)
+    with pytest.raises(ValueError, match="strides"):
+        av.fused_attention_t_fwd(qkv[:, :, :765].transpose(0, 1), bias[:765], None, 4)
+    with pytest.raises(ValueError, match="dtype"):
+        av.fused_attention_split_fwd(*(t.half().contiguous() for t in qkv.chunk(3, -1)), None, 4)
+    with pytest.raises(ValueError, match="sequence length"):
+        av.fused_attention_slab(torch.randn((1, 257, 768), device=device), None, 4)
+    big = torch.randn((1, 200, 3 * 256), device=device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="shared memory"):
+        av.fused_attention_t_bwd(big.transpose(0, 1), bias, None, big[..., :256], 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        av.fused_attention_slab_bwd(big, None, big[..., :256], 4)
+    with pytest.raises(ValueError, match="interleaved"):
+        av.fused_attention_inter(torch.randn((2, 9, 3 * 64), device=device), None, 2)
+    before = av.fused_attention_slab.launches
+    av.fused_attention_slab(qkv, None, 4)
+    assert av.fused_attention_slab.launches == before + 1
+
+
+@pytest.mark.parametrize("setting", [dict(attn_impl="pallas_inter"),
+                                     dict(attn_impl="pallas_inter", ln_gemm_impl="pallas"),
+                                     dict(attn_impl="pallas_t"), dict(attn_impl="pallas_split")],
+                         ids=["inter", "inter_ln_gemm", "t", "split"])
+def test_layout_settings_on_card_match_cpu(device, setting):
+    """Widened ViT-Test in f32 under each layout setting: the loss and every
+    gradient of one forward+backward on the card (the layout kernels) against
+    the CPU (their plain versions), rtol 1e-4 / atol 1e-5 + 1e-4 of each
+    gradient's largest entry; 4 launches of the setting's forward and 4 of
+    its backward, none of the standard attention kernels."""
+    from spatial_clip_tpu_torch.losses import make_loss
+    from spatial_clip_tpu_torch.ops import attention_variants as av
+    from spatial_clip_tpu_torch.ops import fused_attention as fa
+
+    wide = dict(vision_cfg=dict(width=256, heads=4), text_cfg=dict(width=256, heads=8))
+    rng = np.random.default_rng(11)
+    B = 4
+    u8 = torch.from_numpy(rng.integers(0, 256, (B, 32, 32, 3), np.uint8))
+    ids = torch.from_numpy(rng.integers(0, 512, (B, 16)))
+    spatial = dict(image_tile_ids=torch.arange(B), text_tile_ids=torch.arange(B),
+                   neighbor_tile_ids=torch.from_numpy(rng.integers(-1, B, (B, 4))),
+                   neighbor_alphas=torch.from_numpy(rng.uniform(0, 1, (B, 4)).astype(np.float32)))
+    loss_fn = make_loss("spatial", cap_logit_scale=50.0)
+    own = {"pallas_inter": (av.fused_attention_inter, av.fused_attention_inter_bwd),
+           "pallas_t": (av.fused_attention_t_fwd, av.fused_attention_t_bwd),
+           "pallas_split": (av.fused_attention_split_fwd, av.fused_attention_split_bwd)}
+    counters = (*own[setting["attn_impl"]], fa.fused_attention, fa.fused_attention_lse,
+                fa.fused_attention_bwd, fa.fused_attention_bwd_recompute,
+                fa.fused_attention_bwd_recompute_db)
+    runs = {}
+    for dev in ("cpu", device):
+        model = create_model("ViT-Test", precision="fp32", device=dev, training=True, **wide,
+                             **setting)
+        before = [c.launches for c in counters]
+        feats = model(normalize_batch(u8.to(dev)), ids.to(dev))
+        loss = loss_fn(**feats, **{k: v.to(dev) for k, v in spatial.items()})["contrastive_loss"]
+        loss.backward()
+        torch.cuda.synchronize()
+        runs[str(dev)] = (loss.item(), {k: p.grad.cpu() for k, p in model.named_parameters()},
+                          [c.launches - n for c, n in zip(counters, before)])
+    (loss_cpu, g_cpu, n_cpu), (loss_gpu, g_gpu, n_gpu) = runs["cpu"], runs[str(device)]
+    assert n_cpu == [0] * 7 and n_gpu == [4, 4, 0, 0, 0, 0, 0]
+    assert loss_gpu == pytest.approx(loss_cpu, rel=1e-4)
+    for k, w in g_cpu.items():
+        torch.testing.assert_close(g_gpu[k], w, rtol=1e-4,
+                                   atol=1e-5 + 1e-4 * w.abs().max().item(), msg=k)

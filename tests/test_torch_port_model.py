@@ -158,7 +158,7 @@ def test_vit_b_32_layout_matches_jax_export():
     (dict(mlp_impl="int8"), "mlp_impl"),
     (dict(ln_gemm_impl="int8"), "ln_gemm_impl"),  # 'pallas' is ported
     (dict(ln_impl="compute"), "ln_impl"),
-    (dict(attn_impl="pallas_split"), "attn_impl"),
+    (dict(attn_impl="fold"), "attn_impl"),
     (dict(vision_cfg=dict(qk_norm=True)), "vision_cfg.qk_norm"),
     (dict(vision_cfg=dict(scaled_cosine=True)), "vision_cfg.scaled_cosine"),
     (dict(vision_cfg=dict(attentional_pool=True)), "vision_cfg.attentional_pool"),
