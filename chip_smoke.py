@@ -129,11 +129,26 @@ the exit code is not 0. No JAX is imported.
            setting's own kernels per step and none of the standard attention
            kernels, finite losses and gradient norms, median step ms beside
            phase 8's, peak memory
+26. kernel-dx  the attention backward that forms the qkv projection's input
+           gradient dx = dqkv W in the launch (BWD_FUSE='dxdb') against its
+           plain version at batch 256 (image (256, 50, 2304), W (2304, 768),
+           no mask; text (256, 77, 1536), W (1536, 512), causal; bf16) and one
+           f32 shape; dqkv bit for bit the recompute-with-db launch's, db
+           within f32 tolerance of its db, dx and db the same bits on a
+           rerun; timed beside the unfused route (the recompute-with-db
+           kernel and torch.matmul(dqkv, W)) and the library route (SDPA's
+           backward and the cuBLAS dx GEMM), with the bound
+27. dxdb-check, train-dxdb  under BWD_FUSE='dxdb': phase 7's card-vs-CPU
+           step at batch 32, then phase 8's bench workload, each with exactly
+           24 forward-lse and 24 dx launches per step and no other attention
+           backward; finite losses and gradient norms, median step ms beside
+           phase 8's, peak memory
 
-Phases 3, 6, 19 and 23 also time PyTorch's scaled_dot_product_attention
+Phases 3, 6, 19, 23 and 26 also time PyTorch's scaled_dot_product_attention
 (efficient-attention backend) at the kernels' shapes as a yardstick, phase
-12 PyTorch's LayerNorm and linear layers, phase 15 its linear and GELU, and
-phase 22 the unfused half with SDPA; the port never calls them.
+12 PyTorch's LayerNorm and linear layers, phase 15 its linear and GELU,
+phase 22 the unfused half with SDPA, and phase 26 the cuBLAS dx GEMM; the
+port never calls them.
 Then one JSON line with the kernels (each with its launches on the main
 path, error, time, plain time, bound and library time), the nvidia-smi
 line, and last ``{"ok": true, "device": {...}}``.
@@ -172,13 +187,14 @@ def bound(n_bytes: float, flops: float, peak_flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def attention_bound(qkv, heads: int, kind: str):
+def attention_bound(qkv, heads: int, kind: str, din: int = 0):
     """Bound of an attention kernel at qkv's shape: each input read once,
     each output written once; the dots at the bf16 tensor-core peak (f32:
     the CUDA cores' peak, TF32 being other arithmetic).
     kind: 'fwd' (qkv -> out), 'fwd_lse' (+ lse), 'bwd' (qkv, do, lse ->
     dqkv, db), 'bwd_recompute' (qkv, do -> dqkv), 'bwd_recompute_db' (qkv,
-    do -> dqkv, db)."""
+    do -> dqkv, db), 'bwd_dx' (qkv, do, the (3D, din) weight -> dqkv, db and
+    dx (B, L, din); the dx product's 2 B L 3D din operations added)."""
     import torch
 
     B, L, three_d = qkv.shape
@@ -195,6 +211,9 @@ def attention_bound(qkv, heads: int, kind: str):
         return bound(B * L * (2 * three_d + D) * item, 5 * dots, peak)
     if kind == "bwd_recompute_db":
         return bound(B * L * (2 * three_d + D) * item + 4 * three_d, 5 * dots, peak)
+    if kind == "bwd_dx":
+        return bound(B * L * (2 * three_d + D + din) * item + three_d * din * item + 4 * three_d,
+                     5 * dots + 2 * B * L * three_d * din, peak)
     return bound(B * L * (2 * three_d + D) * item + lse + 4 * three_d, 5 * dots, peak)
 
 
@@ -493,6 +512,8 @@ def main() -> int:
     layout_rows, slab_launches = kernel_layouts_phase()
     layouts_check_phase()
     layout_train = train_layouts_phase(train["step_ms"])
+    dx_rows = kernel_dx_phase()
+    dxdb = dxdb_phase(train["step_ms"])
 
     image = kernel_rows["image"]
     at_train = "qkv (256, 50, 2304) bf16, no mask (image tower, batch 256)"
@@ -671,6 +692,23 @@ def main() -> int:
             "library_ms": row["library_ms"],
             "at": at_train,
         })
+    dx = dx_rows["image"]
+    kernels.append({
+        "name": "fused_attention_bwd_dx",
+        "route": "cuda",
+        "source": "spatial_clip_tpu_torch/csrc/attention_dx.cu",
+        "replaces": "spatial_clip_tpu/ops/attention_variants.py:67",
+        "launches": dxdb["launches"],
+        "max_abs_err": max(r["err"] for r in dx_rows.values()),
+        "ms": dx["ms"],
+        "plain_ms": dx["plain_ms"],
+        "bound_ms": dx["bound_ms"],
+        "bound_by": dx["bound_by"],
+        "library_ms": dx["library_ms"],
+        "unfused_ms": dx["unfused_ms"],
+        "at": at_train + ", W (2304, 768); library: SDPA's backward + the cuBLAS dx GEMM; "
+              "unfused: the recompute-with-db kernel + torch.matmul(dqkv, W)",
+    })
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
@@ -2083,6 +2121,133 @@ def train_layouts_phase(default_step_ms: float) -> dict:
               f"max_memory_allocated {peak / 2 ** 30:.3f} GiB", flush=True)
         del trainer, batch
     return out
+
+
+def kernel_dx_phase() -> dict:
+    """26. The dx backward against its plain version (dqkv and db at phase
+    6's tolerances; dx at one bf16 step (ulp) at its largest magnitude, as
+    phase 22: both round dx once from f32 sums in other orders; f32 at 1e-4
+    x max(1, |ref|), the CPU tests' dx tolerance: it sums 3D products in
+    another order, from dqkv entries that differ by their own summation
+    order), dqkv bit for bit and db within f32 tolerance of the
+    recompute-with-db launch on the same data, dx and db the same bits on a
+    rerun; timed beside its plain version, the unfused route, the library
+    route (SDPA's backward and the cuBLAS dx GEMM) and SDPA's backward."""
+    import math
+
+    import torch
+
+    from spatial_clip_tpu_torch.models.transformer import causal_mask
+    from spatial_clip_tpu_torch.ops import attention_variants as av
+    from spatial_clip_tpu_torch.ops import fused_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    rows = {}
+    for name, B, L, D, H, causal, dtype, din in (
+            ("image", TRAIN_BATCH, 50, 768, 12, False, torch.bfloat16, 768),
+            ("text", TRAIN_BATCH, 77, 512, 8, True, torch.bfloat16, 512),
+            ("f32", 3, 17, 256, 4, False, torch.float32, 128)):
+        qkv = torch.randn((B, L, 3 * D), generator=gen, device="cuda").to(dtype)
+        g = torch.randn((B, L, D), generator=gen, device="cuda").to(dtype)
+        w = (torch.randn((3 * D, din), generator=gen, device="cuda") * din ** -0.5).to(dtype)
+        mask = causal_mask(L, device="cuda") if causal else None
+        got = av.fused_attention_bwd_dx(qkv, mask, g, w, H)
+        again = av.fused_attention_bwd_dx(qkv, mask, g, w, H)
+        want = av.reference_attention_bwd_dx(qkv, mask, g, w, H)
+        std_dqkv, std_db = fa.fused_attention_bwd_recompute_db(qkv, mask, g, H)
+        torch.cuda.synchronize()
+        dx_ref = want[1].float()
+        peak = dx_ref.abs().max().item()
+        dx_tol = (1e-4 * max(1.0, peak) if dtype == torch.float32
+                  else 2.0 ** (math.floor(math.log2(peak)) - 7))
+        checks = {  # output: (error, tolerance)
+            "dqkv": ((got[0].float() - want[0].float()).abs().max().item(),
+                     train_tol(dtype, want[0].float())),
+            "dx": ((got[1].float() - dx_ref).abs().max().item(), dx_tol),
+            "db": ((got[2] - want[2]).abs().max().item(), train_tol(dtype, want[2]) + 1e-4),
+        }
+        db_std_err = (got[2] - std_db).abs().max().item()
+        db_std_tol = train_tol(torch.float32, std_db) + 1e-4
+        same_rerun = all(torch.equal(a, b) for a, b in zip(got, again))
+        dqkv_equal = torch.equal(got[0], std_dqkv)
+        finite = all(torch.isfinite(t).all().item() for t in got)
+        if not (all(e <= t for e, t in checks.values()) and db_std_err <= db_std_tol
+                and same_rerun and dqkv_equal and finite):
+            raise AssertionError(
+                f"[kernel-dx] {name}: max abs err, tol {checks}; db vs the recompute-with-db "
+                f"launch's {db_std_err} (tol {db_std_tol}); the same bits on a rerun "
+                f"{same_rerun}; dqkv equal to the recompute-with-db launch's {dqkv_equal}; "
+                f"finite {finite}")
+        library = sdpa_ms(qkv, mask, H)
+        gemm_ms = median_ms(lambda: torch.matmul(std_dqkv, w))
+        bound_ms, bound_by = attention_bound(qkv, H, "bwd_dx", din)
+        row = dict(
+            err=max(e for e, _ in checks.values()),
+            ms=median_ms(lambda: av.fused_attention_bwd_dx(qkv, mask, g, w, H)),
+            plain_ms=median_ms(lambda: av.reference_attention_bwd_dx(qkv, mask, g, w, H)),
+            unfused_ms=median_ms(
+                lambda: torch.matmul(fa.fused_attention_bwd_recompute_db(qkv, mask, g, H)[0], w)),
+            library_ms=library["bwd"] + gemm_ms, sdpa_bwd_ms=library["bwd"], gemm_ms=gemm_ms,
+            bound_ms=bound_ms, bound_by=bound_by)
+        rows[name] = row
+        print(f"[kernel-dx] {name} qkv {tuple(qkv.shape)} W {tuple(w.shape)} {str(dtype)[6:]} "
+              f"mask={'causal' if causal else 'none'}: max abs err (tol) " + ", ".join(
+                  f"{k} {e:.3g} ({t:.3g})" for k, (e, t) in checks.items())
+              + f"; dqkv bit for bit the recompute-with-db launch's, db within {db_std_err:.3g} "
+              f"of its db (tol {db_std_tol:.3g}; equal {torch.equal(got[2], std_db)}), dx and db "
+              f"the same bits on a rerun; kernel {row['ms']:.4f} ms vs plain "
+              f"{row['plain_ms']:.4f} ms, unfused route (recompute-with-db kernel + matmul) "
+              f"{row['unfused_ms']:.4f} ms, library route (SDPA backward "
+              f"{row['sdpa_bwd_ms']:.4f} + cuBLAS dx GEMM {gemm_ms:.4f}) "
+              f"{row['library_ms']:.4f} ms; bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+    return rows
+
+
+def dxdb_phase(default_step_ms: float) -> dict:
+    """27. Under BWD_FUSE='dxdb' (restored after): phase 7's card-vs-CPU step
+    at batch 32 and phase 8's bench workload (3 warmup and 10 timed steps),
+    each with exactly 24 forward-lse and 24 dx launches per step and no
+    other attention kernel; finite losses and gradient norms, median step
+    beside phase 8's. Returns the dx launches of the bench workload."""
+    import torch
+
+    from spatial_clip_tpu_torch.bench import make_trainer, synthetic_batch
+    from spatial_clip_tpu_torch.ops import attention_variants as av
+    from spatial_clip_tpu_torch.ops import fused_attention as fa
+
+    counters = (*attention_counters(), av.fused_attention_bwd_dx)
+    per_step = (0, 2 * LAYERS, 0, 0, 0, 2 * LAYERS)
+    names = "(attention fwd, fwd_lse, bwd, recompute-with-db bwd, recompute bwd, dx bwd)"
+    previous, fa.BWD_FUSE = fa.BWD_FUSE, "dxdb"
+    try:
+        torch.cuda.empty_cache()
+        for c in counters:
+            c.launches = 0
+        train_check_phase("dxdb-check")
+        counts = tuple(c.launches for c in counters)
+        if counts != per_step:
+            raise AssertionError(f"[dxdb-check] launches {names} {counts}, want {per_step}")
+        torch.cuda.empty_cache()
+        trainer = make_trainer("ViT-B-32", device="cuda")
+        batch = synthetic_batch(trainer.model, TRAIN_BATCH)
+        steps = WARMUP_STEPS + TIMED_STEPS
+        counts, step_ms, history, peak = timed_steps("train-dxdb", trainer, batch, steps,
+                                                     counters)
+    finally:
+        fa.BWD_FUSE = previous
+    want = tuple(n * steps for n in per_step)
+    if counts != want:
+        raise AssertionError(f"[train-dxdb] launches {names} {counts}, want {want}")
+    med = statistics.median(step_ms[WARMUP_STEPS:])
+    print(f"[train-dxdb BWD_FUSE=dxdb] ViT-B-32 bf16 batch {TRAIN_BATCH}: {steps} steps, launches "
+          f"per step {names} {tuple(c // steps for c in counts)}; losses finite "
+          f"{history[0][0]:.4f} -> {history[-1][0]:.4f}, grad norms {history[0][1]:.4f} -> "
+          f"{history[-1][1]:.4f}; median step {med:.3f} ms ({TRAIN_BATCH * 1e3 / med:.1f} "
+          f"pairs/s) vs phase 8's default {default_step_ms:.3f} ms "
+          f"({TRAIN_BATCH * 1e3 / default_step_ms:.1f} pairs/s); max_memory_allocated "
+          f"{peak / 2 ** 30:.3f} GiB", flush=True)
+    del trainer, batch
+    return {"launches": counts[-1], "step_ms": med}
 
 
 if __name__ == "__main__":

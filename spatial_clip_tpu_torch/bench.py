@@ -5,7 +5,7 @@
         [--zip-towers off|auto|on]
         [--attn-impl auto|pallas|pallas3|pallas_inter|pallas_t|pallas_split]
         [--ln-impl onepass|fp32|pallas] [--ln-gemm-impl dense|pallas]
-        [--mlp-impl dense|pallas]
+        [--mlp-impl dense|pallas] [--bwd-fuse db|none|dxdb]
 
 The workload of the repository's ``bench.py``, run by the port: ViT-B-32 in
 bf16 with f32 parameters, batch 256, on-device flip + color jitter 0.2 and
@@ -19,7 +19,11 @@ one JSON line: pairs/sec/chip from the median window, with ``global_batch``,
 adds the device time of one step by kernel family (torch.profiler). The
 model settings (``--zip-towers`` and the four ``--*-impl``) go to
 ``create_model``; left out, each keeps the model config's value.
-Needs a CUDA GPU: there is no CPU fallback.
+``--bwd-fuse`` sets ``fused_attention.BWD_FUSE``, the attention backward's
+option (JAX's A/B arms ``^db``, ``^nodx``, ``^dx`` of
+``scripts/ab_step_time.py``): 'db' (the default) the kernel with the bias
+gradient, 'none' the no-db kernel, 'dxdb' the kernel that also forms the
+projection's input gradient. Needs a CUDA GPU: there is no CPU fallback.
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ import torch
 
 from spatial_clip_tpu_torch.losses import make_loss
 from spatial_clip_tpu_torch.models.factory import create_model
+from spatial_clip_tpu_torch.ops import fused_attention
 from spatial_clip_tpu_torch.train.loop import Trainer, TrainerConfig
 
 NEIGHBORS = 6
@@ -87,10 +92,14 @@ def main(argv=None):
                     help="also print the device time of one step by kernel family")
     for flag, choices in MODEL_SETTINGS.items():
         ap.add_argument(f"--{flag.replace('_', '-')}", choices=choices, default=None)
+    ap.add_argument("--bwd-fuse", choices=("db", "none", "dxdb"), default=None,
+                    help="the attention backward's option (fused_attention.BWD_FUSE)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("spatial_clip_tpu_torch.bench needs a CUDA GPU")
     settings = {k: getattr(args, k) for k in MODEL_SETTINGS if getattr(args, k) is not None}
+    if args.bwd_fuse is not None:
+        fused_attention.BWD_FUSE = args.bwd_fuse
     trainer = make_trainer(args.model, **settings)
     state = trainer.init_state()
     batch = synthetic_batch(trainer.model, args.batch)
@@ -112,7 +121,7 @@ def main(argv=None):
         "unit": "pairs/sec/chip",
         "detail": {
             "model": args.model,
-            "settings": settings,
+            "settings": {**settings, "bwd_fuse": fused_attention.BWD_FUSE},
             "device": torch.cuda.get_device_name(0),
             "global_batch": args.batch,
             "n_chips": 1,

@@ -48,6 +48,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from spatial_clip_tpu_torch.ops import attention_variants, fused_ln, fused_ln_dense, fused_mlp
+from spatial_clip_tpu_torch.ops import fused_attention as fa
 from spatial_clip_tpu_torch.ops.fused_attention import (
     HEAD_DIMS,
     FusedAttention,
@@ -177,8 +178,9 @@ class MultiHeadAttention(nn.Module):
     it, and the hand-written backward JAX's routing picks); otherwise the
     inference kernel runs alone. Built for training
     (``seq_len`` given), it checks that the backward kernel takes the
-    geometry. ``impl='pallas'`` and ``'pallas_inter'`` fuse a pre-LN handed
-    to :meth:`forward` into the qkv projection. The layouts, routed in JAX's
+    geometry (under ``BWD_FUSE='dxdb'``, the dx kernel too).
+    ``impl='pallas'`` and ``'pallas_inter'`` fuse a pre-LN handed to
+    :meth:`forward` into the qkv projection. The layouts, routed in JAX's
     order (``Attention.__call__``): ``'pallas_inter'`` projects with the
     weight and bias rows permuted (:func:`attention_variants.permute_rows`)
     and runs :class:`FusedAttention` interleaved; ``'pallas_t'`` projects
@@ -202,6 +204,11 @@ class MultiHeadAttention(nn.Module):
                 f"{dtype}: the backward kernel needs "
                 f"{bwd_smem_bytes(seq_len, width // heads, dtype)} B of shared memory "
                 "per block, more than a block has")
+        if (seq_len is not None and impl not in self.LAYOUTS and fa.BWD_FUSE == "dxdb"
+                and not attention_variants.dx_supported(heads, width, seq_len, width, dtype)):
+            raise NotImplementedError(
+                f"BWD_FUSE='dxdb' over width={width}: the dx kernel takes an input width "
+                "that is a positive multiple of 16")
         if impl in self.LAYOUTS and attention_variants.heads_per_block(heads,
                                                                        width // heads) is None:
             raise NotImplementedError(

@@ -25,14 +25,19 @@ is the standard kernels' (``fused_attention`` and
   the standard layout with one block per sequence (``_fwd_pallas_slab`` /
   ``_bwd_pallas_slab``). JAX selects it with the module global
   ``KERNEL_VARIANT``, which the port does not carry, so no model path
-  reaches these two.
+  reaches these two;
+- dx in the kernel (``BWD_FUSE='dxdb'``): :func:`fused_attention_bwd_dx`,
+  the recompute backward with db that also forms the qkv projection's input
+  gradient dx = dqkv W (``_bwd_pallas3_dx`` -> ``_bwd_kernel3_dx``);
+  ``fused_attention.QKVAttention`` reaches it.
 
 On a CUDA tensor each wrapper launches its kernel in
-``csrc/attention_layouts.cu``, which runs the standard kernels' bodies; on a
-CPU tensor it runs its plain PyTorch version, the standard plain version
-(``reference_attention``, ``reference_attention_bwd``) on the operand put
-back in the standard layout. A CUDA tensor either goes through the kernel or
-raises. Each wrapper counts its launches in ``<wrapper>.launches``.
+``csrc/attention_layouts.cu`` (the dx wrapper: ``csrc/attention_dx.cu``),
+which runs the standard kernels' bodies; on a CPU tensor it runs its plain
+PyTorch version, the standard plain version (``reference_attention``,
+``reference_attention_bwd``) on the operand put back in the standard layout.
+A CUDA tensor either goes through the kernel or raises. Each wrapper counts
+its launches in ``<wrapper>.launches``.
 """
 from __future__ import annotations
 
@@ -441,6 +446,62 @@ def fused_attention_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return FusedAttentionSplit.apply(q.contiguous(), k.contiguous(), v.contiguous(), mask, heads)
 
 
+# ------------------------------------------------------- dx inside the kernel
+
+def dx_supported(heads: int, width: int, seq: int, din: int, dtype: torch.dtype) -> bool:
+    """Whether :func:`fused_attention_bwd_dx`'s kernel takes this geometry:
+    the backward's (:func:`bwd_supported`) and an input width ``din`` that
+    is a positive multiple of 16, the tensor-core tiles' width."""
+    return bwd_supported(heads, width, seq, dtype) and din >= 16 and din % 16 == 0
+
+
+def reference_attention_bwd_dx(qkv: torch.Tensor, mask: Optional[torch.Tensor],
+                               g: torch.Tensor, w: torch.Tensor, heads: int):
+    """Plain version with the TPU kernel's rounding points: dqkv and db of
+    the recompute backward (:func:`reference_attention_bwd` with
+    ``lse=None``), and dx = dqkv W with dq, dk, dv rounded to the input
+    dtype before the product, summed in f32 and rounded to the input dtype
+    once. w is the port's (3D, Din) qkv weight in qkv's dtype. Returns
+    (dqkv (B, L, 3D), dx (B, L, Din), db (3D,) f32)."""
+    dqkv, db = reference_attention_bwd(qkv, mask, None, g, heads)
+    return dqkv, torch.matmul(dqkv.float(), w.float()).to(qkv.dtype), db
+
+
+def fused_attention_bwd_dx(qkv: torch.Tensor, mask: Optional[torch.Tensor], g: torch.Tensor,
+                           w: torch.Tensor, heads: int):
+    """The recompute backward with the bias gradient and the qkv
+    projection's input gradient in one launch: given the context's
+    cotangent g (B, L, D) and the projection's weight w (3D, Din) in qkv's
+    dtype, returns dqkv (qkv's shape and dtype), dx = dqkv W (B, L, Din) in
+    qkv's dtype, and db (3D,) f32. dqkv and db are
+    :func:`fused_attention_bwd_recompute_db`'s. On the card Din must be a
+    positive multiple of 16 (:func:`dx_supported`)."""
+    g = _check_bwd(qkv, mask, g, heads)
+    B, L, three_d = qkv.shape
+    if w.dim() != 2 or w.shape[0] != three_d:
+        raise ValueError(f"w must be (3D, Din) = ({three_d}, Din); got {tuple(w.shape)}")
+    if w.dtype != qkv.dtype or w.device != qkv.device or not w.is_contiguous():
+        raise ValueError(f"w must be contiguous, in qkv's dtype {qkv.dtype} and on its device; "
+                         f"got {w.dtype} on {w.device}")
+    if qkv.device.type == "cpu":
+        return reference_attention_bwd_dx(qkv, mask, g, w, heads)
+    din = w.shape[1]
+    if not dx_supported(heads, three_d // 3, L, din, qkv.dtype):
+        raise ValueError(f"input width Din={din} not taken: the dx kernel's tensor-core tiles "
+                         "need a positive multiple of 16")
+    _check_kernel_device(qkv, g, w)
+    dqkv = torch.empty_like(qkv)
+    dx = qkv.new_empty((B, L, din))
+    db_part = torch.empty((B, three_d), dtype=torch.float32, device=qkv.device)
+    db = torch.empty((three_d,), dtype=torch.float32, device=qkv.device)
+    B, L, H, hd, code, scale = _dims(B, L, three_d // 3, heads, qkv.dtype)
+    _launch("bwd_dx", qkv.device, qkv.data_ptr(), _ptr(mask), g.data_ptr(), w.data_ptr(),
+            dqkv.data_ptr(), dx.data_ptr(), db_part.data_ptr(), db.data_ptr(), B, L, H, hd, din,
+            code, scale)
+    fused_attention_bwd_dx.launches += 1
+    return dqkv, dx, db
+
+
 fused_attention_inter.launches = 0
 fused_attention_inter_bwd.launches = 0
 fused_attention_slab.launches = 0
@@ -449,3 +510,4 @@ fused_attention_t_fwd.launches = 0
 fused_attention_t_bwd.launches = 0
 fused_attention_split_fwd.launches = 0
 fused_attention_split_bwd.launches = 0
+fused_attention_bwd_dx.launches = 0

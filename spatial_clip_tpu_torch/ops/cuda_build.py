@@ -208,8 +208,11 @@ def library() -> ctypes.CDLL:
                                                *dims, *tail]
             lib.sc_attention_slab_fwd.argtypes = [ptr, ptr, ptr, *dims, *tail]
             lib.sc_attention_slab_bwd.argtypes = [ptr, ptr, ptr, ptr, *dims, *tail]
+            lib.sc_attention_bwd_dx.argtypes = [ptr, ptr, ptr, ptr,  # qkv, mask, dout, w
+                                                ptr, ptr, ptr, ptr,  # dqkv, dx, db partials, db
+                                                *dims, i32, *tail]  # .., din
             for name in ("inter_fwd", "inter_bwd", "split_fwd", "split_bwd", "t_fwd", "t_bwd",
-                         "slab_fwd", "slab_bwd"):
+                         "slab_fwd", "slab_bwd", "bwd_dx"):
                 getattr(lib, f"sc_attention_{name}").restype = i32
             lib.sc_mlp_max_width.argtypes = []
             lib.sc_mlp_max_width.restype = i32

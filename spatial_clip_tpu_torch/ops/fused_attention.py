@@ -18,7 +18,9 @@ Counterpart of ``spatial_clip_tpu/ops/fused_attention.py``:
   function (``qkv_attention`` and its custom VJP), routed as JAX routes it:
   the forward saves the logsumexp where :func:`lse_ok` holds, and the
   backward is picked by :data:`BWD_FUSE` and whether an lse was saved, plus
-  the dx and dW GEMMs;
+  the dW GEMM and, outside ``'dxdb'`` (whose kernel,
+  ``attention_variants.fused_attention_bwd_dx``, forms dx itself), the dx
+  GEMM;
 - :class:`FusedAttention`: attention over a given qkv as one autograd
   function (``fused_attention`` and its custom VJP): the inference forward,
   and the recompute backward. The towers reach it where the fused LayerNorm
@@ -53,7 +55,9 @@ MAX_SMEM_BYTES = 232448  # 227 KB: the most shared memory a block may use on sm_
 # QKVAttention's backward, read at backward time as JAX reads its
 # ``BWD_FUSE``: 'db' (the default) computes the qkv-bias gradient in the
 # kernel; 'none' takes the no-db kernel and sums dqkv in f32 outside it;
-# 'dxdb' (the dx GEMM in the kernel too) is not ported.
+# 'dxdb' takes the recompute kernel that forms db and the projection's input
+# gradient dx too (``attention_variants.fused_attention_bwd_dx``), whatever
+# the forward saved.
 BWD_FUSE = "db"
 
 # JAX's batch-block caps (``FWD_BLOCK_CAP``, ``_bwd_cap``); lse_ok only
@@ -426,13 +430,16 @@ class QKVAttention(torch.autograd.Function):
     Forward (``_qkv_attn_fwd``): where :func:`lse_ok` holds,
     :func:`fused_attention_lse`, saving the lse; otherwise the inference
     :func:`fused_attention`, saving none. Backward (``_qkv_attn_bwd``), by
-    :data:`BWD_FUSE` at backward time: 'db' with a saved lse,
-    :func:`fused_attention_bwd`; 'db' without,
+    :data:`BWD_FUSE` at backward time: 'dxdb', whatever was saved,
+    ``attention_variants.fused_attention_bwd_dx``, one launch that returns
+    dqkv, ``dx = dqkv W`` (in qkv's dtype, cast to x's) and db; 'db' with a
+    saved lse, :func:`fused_attention_bwd`; 'db' without,
     :func:`fused_attention_bwd_recompute_db`; otherwise (JAX's 'none')
     :func:`fused_attention_bwd_recompute` and db the f32 sum of dqkv over
-    (B, L); 'dxdb' raises. Then ``dx = dqkv W`` (in x's dtype) and
-    ``dW = dqkv^T x`` (summed in f32, returned in W's dtype) are GEMMs, as
-    the JAX package leaves them to XLA. The mask gets no gradient.
+    (B, L). ``dW = dqkv^T x`` (summed in f32, returned in W's dtype) is a
+    GEMM under every option, and so is ``dx = dqkv W`` (in x's dtype)
+    outside 'dxdb', as the JAX package leaves them to XLA. The mask gets no
+    gradient.
     """
 
     @staticmethod
@@ -451,20 +458,21 @@ class QKVAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w, qkv, mask, lse = ctx.saved_tensors
-        if BWD_FUSE == "dxdb":
-            raise NotImplementedError(
-                "BWD_FUSE='dxdb' (the dx GEMM inside the attention backward, "
-                "attention_variants._bwd_kernel3_dx) is not ported to spatial_clip_tpu_torch")
-        if BWD_FUSE == "db" and lse is not None:
+        fuse, dx, dw = BWD_FUSE, None, None
+        if fuse == "dxdb":
+            from spatial_clip_tpu_torch.ops import attention_variants
+
+            dqkv, dx, db = attention_variants.fused_attention_bwd_dx(qkv, mask, g, w, ctx.heads)
+            dx = dx.to(x.dtype) if ctx.needs_input_grad[0] else None
+        elif fuse == "db" and lse is not None:
             dqkv, db = fused_attention_bwd(qkv, mask, lse, g, ctx.heads)
-        elif BWD_FUSE == "db":
+        elif fuse == "db":
             dqkv, db = fused_attention_bwd_recompute_db(qkv, mask, g, ctx.heads)
         else:
             dqkv = fused_attention_bwd_recompute(qkv, mask, g, ctx.heads)
             db = dqkv.float().sum(dim=(0, 1))
         flat = dqkv.view(-1, dqkv.shape[-1])
-        dx = dw = None
-        if ctx.needs_input_grad[0]:
+        if ctx.needs_input_grad[0] and fuse != "dxdb":
             dx = torch.matmul(dqkv, w)
         if ctx.needs_input_grad[1]:
             dw = _mm_f32(flat.t(), x.reshape(flat.shape[0], -1)).to(ctx.param_dtypes[0])

@@ -417,11 +417,3 @@ def test_qkv_attention_bwd_fuse_none_matches_jax(B, L, D, H, causal, bwd_fuse_no
     assert calls == {"fused_attention": int(not saved), "fused_attention_lse": int(saved),
                      "fused_attention_bwd": 0, "fused_attention_bwd_recompute_db": 0,
                      "fused_attention_bwd_recompute": 1}
-
-
-def test_bwd_fuse_dxdb_is_not_ported(monkeypatch):
-    monkeypatch.setattr(pfa, "BWD_FUSE", "dxdb")
-    x = torch.zeros(2, 9, 128, requires_grad=True)
-    out = QKVAttention.apply(x, torch.zeros(384, 128), torch.zeros(384), None, 2)
-    with pytest.raises(NotImplementedError, match="_bwd_kernel3_dx"):
-        out.sum().backward()

@@ -555,14 +555,16 @@ def test_recompute_db_bwd_kernel_matches_plain_version(device, B, L, D, H, causa
 
 
 @pytest.mark.parametrize("B,fuse,launches", [
-    (8, "db", (0, 1, 1, 0, 0)), (12, "db", (1, 0, 0, 1, 0)),
-    (8, "none", (0, 1, 0, 0, 1)), (12, "none", (1, 0, 0, 0, 1)),
+    (8, "db", (0, 1, 1, 0, 0, 0)), (12, "db", (1, 0, 0, 1, 0, 0)),
+    (8, "none", (0, 1, 0, 0, 1, 0)), (12, "none", (1, 0, 0, 0, 1, 0)),
+    (8, "dxdb", (0, 1, 0, 0, 0, 1)), (12, "dxdb", (1, 0, 0, 0, 0, 1)),
 ])
 def test_qkv_attention_routes_on_card(device, B, fuse, launches, monkeypatch):
     """QKVAttention in f32 on the card against the CPU: JAX's routing by
     batch (lse saved at 8, not at 12) and BWD_FUSE, with exact launches of
-    (inference fwd, fwd_lse, bwd, recompute-with-db bwd, recompute bwd);
-    context at 1e-5, dx / dW / db at rtol/atol 1e-4."""
+    (inference fwd, fwd_lse, bwd, recompute-with-db bwd, recompute bwd, dx
+    bwd); context at 1e-5, dx / dW / db at rtol/atol 1e-4."""
+    from spatial_clip_tpu_torch.ops import attention_variants as av
     from spatial_clip_tpu_torch.ops import fused_attention as fa
 
     monkeypatch.setattr(fa, "BWD_FUSE", fuse)
@@ -574,7 +576,8 @@ def test_qkv_attention_routes_on_card(device, B, fuse, launches, monkeypatch):
         (rng.normal(size=(3 * D,)) * 0.1).astype(np.float32),
         rng.normal(size=(B, L, D)).astype(np.float32))]
     counters = (fa.fused_attention, fa.fused_attention_lse, fa.fused_attention_bwd,
-                fa.fused_attention_bwd_recompute_db, fa.fused_attention_bwd_recompute)
+                fa.fused_attention_bwd_recompute_db, fa.fused_attention_bwd_recompute,
+                av.fused_attention_bwd_dx)
     runs = {}
     for dev in ("cpu", device):
         x, w, b = (t.clone().to(dev).requires_grad_() for t in host[:3])
@@ -585,10 +588,57 @@ def test_qkv_attention_routes_on_card(device, B, fuse, launches, monkeypatch):
         runs[str(dev)] = ([t.detach().cpu() for t in (out, x.grad, w.grad, b.grad)],
                           tuple(c.launches - n for c, n in zip(counters, before)))
     (want, n_cpu), (got, n_gpu) = runs["cpu"], runs[str(device)]
-    assert n_cpu == (0,) * 5 and n_gpu == launches
+    assert n_cpu == (0,) * 6 and n_gpu == launches
     torch.testing.assert_close(got[0], want[0], atol=1e-5, rtol=0)
     for a, e in zip(got[1:], want[1:]):
         torch.testing.assert_close(a, e, atol=1e-4, rtol=1e-4)
+
+
+# The dx backward: the towers at batch 256 (Din = width), f32 hd 128 and 32,
+# and the longest bf16 hd 64 sequence (two row passes) with a Din that leaves
+# part of a 128-column block idle.
+DX_CASES = [(*BWD_CASES[i], din) for i, din in ((0, 768), (1, 512), (5, 192), (6, 96),
+                                                (8, 80))]
+
+
+@pytest.mark.parametrize("B,L,D,H,causal,dtype,din", DX_CASES)
+def test_dx_bwd_kernel_matches_plain_version(device, B, L, D, H, causal, dtype, din):
+    """The dx backward against its plain version: dqkv and db as the other
+    backward entries, dx at one bf16 step (ulp) at its largest magnitude, as
+    the block kernel's test (f32: 1e-4 x max(1, |ref|), the CPU tests' dx
+    tolerance); dqkv the
+    recompute-with-db launch's bits and db within f32 tolerance of its db;
+    the same bits on a second run."""
+    from spatial_clip_tpu_torch.ops.attention_variants import (
+        fused_attention_bwd_dx,
+        reference_attention_bwd_dx,
+    )
+    from spatial_clip_tpu_torch.ops.fused_attention import fused_attention_bwd_recompute_db
+
+    gen = torch.Generator(device=device).manual_seed(B * L + D + din)
+    qkv = torch.randn((B, L, 3 * D), generator=gen, device=device).to(dtype)
+    g = torch.randn((B, L, D), generator=gen, device=device).to(dtype)
+    w = (torch.randn((3 * D, din), generator=gen, device=device) * din ** -0.5).to(dtype)
+    mask = causal_mask(L, device=device) if causal else None
+    before = fused_attention_bwd_dx.launches
+    got = fused_attention_bwd_dx(qkv, mask, g, w, H)
+    again = fused_attention_bwd_dx(qkv, mask, g, w, H)
+    torch.cuda.synchronize()
+    assert fused_attention_bwd_dx.launches == before + 2
+    dqkv, dx, db = got
+    want_dqkv, want_dx, want_db = reference_attention_bwd_dx(qkv, mask, g, w, H)
+    assert dx.dtype == dtype and dx.shape == (B, L, din) and torch.isfinite(dx).all()
+    torch.testing.assert_close(dqkv.float(), want_dqkv.float(), rtol=0,
+                               atol=_tol(dtype, want_dqkv.float()))
+    torch.testing.assert_close(db, want_db, rtol=0, atol=_tol(dtype, want_db) + 1e-4)
+    peak = want_dx.float().abs().max().item()
+    dx_tol = (1e-4 * max(1.0, peak) if dtype == torch.float32
+              else 2.0 ** (math.floor(math.log2(peak)) - 7))
+    torch.testing.assert_close(dx.float(), want_dx.float(), rtol=0, atol=dx_tol)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    rd_dqkv, rd_db = fused_attention_bwd_recompute_db(qkv, mask, g, H)
+    assert torch.equal(dqkv, rd_dqkv)
+    torch.testing.assert_close(db, rd_db, rtol=0, atol=_tol(torch.float32, rd_db) + 1e-4)
 
 
 # ------------------------------------------------------------- the fused MLP
