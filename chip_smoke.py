@@ -8,11 +8,15 @@ PyTorch built for CUDA. Each phase prints one line; any failure raises and
 the exit code is not 0. No JAX is imported.
 
 1. device  the card's name and power limit, as nvidia-smi reports them
-2. build   the CUDA kernels, compiled from spatial_clip_tpu_torch/csrc
+2. build   the CUDA kernels, compiled from spatial_clip_tpu_torch/csrc; ptxas's
+           registers and spills, and for the bf16 attention forward (the
+           tensor-core body) its registers, spills and blocks an SM
 3. kernel  the inference attention kernel against its plain PyTorch version
            at the serving shapes (batch 64) and at phase 11's microbatch
            (1024, pass 1 and evaluate): max abs error against the stated
-           tolerance, median times
+           tolerance, median times; then the bf16 forward with and without
+           lse at the body's tile edges and two-pass lengths
+           (EDGE_LENGTHS, batch 8, hd 64, causal and not)
 4. serve   the ViT-B-32 embedding server (bf16, batch 64) on 127.0.0.1
            answers text and raw-image requests; every attention of the run
            went through the kernel (12 launches per encoder batch), and the
@@ -176,6 +180,7 @@ MAX_LOSS_REL_ERR = 2e-2  # one bf16 train step's loss vs the f32 CPU step
 MIN_GRAD_COSINE = 0.99  # its flattened gradient vs the f32 CPU step's
 LARGE_MICRO, LARGE_ACCUM, LARGE_STEPS = 1024, 2, 4  # spatial_v2_multi_chip's 2048 on one card
 NEIGHBORS = 6
+EDGE_LENGTHS = (1, 15, 16, 17, 50, 63, 64, 65, 77, 128, 129, 200, 256)  # phase 3's extra lengths
 # the least time the card could take: H100 SXM, NVIDIA's data sheet
 HBM_BYTES_PER_S, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 
@@ -215,6 +220,49 @@ def attention_bound(qkv, heads: int, kind: str, din: int = 0):
         return bound(B * L * (2 * three_d + D + din) * item + three_d * din * item + 4 * three_d,
                      5 * dots + 2 * B * L * three_d * din, peak)
     return bound(B * L * (2 * three_d + D) * item + lse + 4 * three_d, 5 * dots, peak)
+
+
+def ptxas_entries(report: str) -> dict:
+    """ptxas -v's report by kernel: mangled name -> (registers, spill store
+    bytes)."""
+    entries = {}
+    for chunk in report.split("Compiling entry function '")[1:]:
+        name = chunk.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spill = re.search(r"(\d+) bytes spill stores", chunk)
+        entries[name] = (int(regs.group(1)) if regs else None, int(spill.group(1)) if spill else 0)
+    return entries
+
+
+def forward_build_report(lib, report: str) -> str:
+    """The bf16 forward instantiations (the tensor-core body): for the
+    standard kernel at each head dim, ptxas's registers and spill stores and
+    the resident blocks an SM at L = 50, 77 and 256
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor); for the pair and layout
+    forwards, their largest registers and spills."""
+    import ctypes
+
+    entries = ptxas_entries(report)
+    parts = []
+    for hd in (32, 64, 128):
+        found = [v for k, v in entries.items() if f"15attn_fwd_kernelI13__nv_bfloat16Li{hd}E" in k]
+        regs, spill = found[0] if found else (None, None)
+        blocks = []
+        for L in (50, 77, 256):
+            r, local, n = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+            err = lib.sc_attention_fwd_occupancy(L, hd, 1, ctypes.byref(r), ctypes.byref(local),
+                                                 ctypes.byref(n))
+            if err:
+                raise RuntimeError(f"sc_attention_fwd_occupancy L={L} hd={hd}: CUDA error {err}")
+            blocks.append(f"L{L} {n.value}")
+        parts.append(f"hd {hd}: {regs if regs is not None else r.value} registers, spill {spill} B, "
+                     f"blocks an SM {', '.join(blocks)}")
+    for kind in ("attn_pair_fwd_kernel", "attn_layout_fwd_kernel"):
+        found = [v for k, v in entries.items() if kind in k and "__nv_bfloat16" in k]
+        if found:
+            parts.append(f"{kind} bf16 x{len(found)}: registers <= {max(v[0] for v in found)}, "
+                         f"spill <= {max(v[1] for v in found)} B")
+    return "; ".join(parts)
 
 
 def sdpa_ms(qkv, mask, heads: int) -> dict:
@@ -353,6 +401,7 @@ def main() -> int:
         fused_attention_bwd,
         fused_attention_lse,
         reference_attention,
+        reference_attention_lse,
     )
     from spatial_clip_tpu_torch.serve import EmbeddingService, make_handler
 
@@ -376,7 +425,8 @@ def main() -> int:
     regs = sorted({int(r) for r in re.findall(r"Used (\d+) registers", report)})
     spills = sum(int(s) for s in re.findall(r"(\d+) bytes spill stores", report))
     print(f"[build] {lib_path.name} from {cuda_build.CSRC_DIR.name}/*.cu in {build_s:.2f} s "
-          f"(nvcc sm_90a); ptxas: registers {regs}, spill stores {spills} B", flush=True)
+          f"(nvcc sm_90a); ptxas: registers {regs}, spill stores {spills} B; bf16 forward "
+          f"(tensor cores): {forward_build_report(cuda_build.library(), report)}", flush=True)
 
     # 3. kernel vs plain version on the card
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -395,9 +445,13 @@ def main() -> int:
         ref = reference_attention(qkv, mask, H)
         torch.cuda.synchronize()
         tol = KERNEL_TOL[str(dtype).split(".")[-1]]
-        err = (out.float() - ref.float()).abs().max().item()
+        diff = out.float() - ref.float()
+        err = diff.abs().max().item()
         if not err <= tol:
             raise AssertionError(f"[kernel] {name}: max abs err {err} > {tol}")
+        # the tensor-core sums round differently from the plain version's in a
+        # few elements: how many, and whether up and down alike
+        same, signed = (diff == 0).float().mean().item(), diff.mean().item()
         ms = median_ms(lambda: fused_attention(qkv, mask, H))
         plain_ms = median_ms(lambda: reference_attention(qkv, mask, H))
         gbs = (qkv.numel() + out.numel()) * qkv.element_size() / ms / 1e6
@@ -406,9 +460,37 @@ def main() -> int:
         kernel_rows[name] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                  bound_by=bound_by, library_ms=library_ms)
         print(f"[kernel] fused_attention_fwd {name} qkv {tuple(qkv.shape)} {str(dtype)[6:]} "
-              f"mask={'causal' if causal else 'none'}: max abs err {err:.3g} (tol {tol:g}); "
+              f"mask={'causal' if causal else 'none'}: max abs err {err:.3g} (tol {tol:g}), "
+              f"{same:.6f} of elements the plain version's bits, mean signed err {signed:.3g}; "
               f"kernel {ms:.4f} ms ({gbs:.0f} GB/s of qkv+out) vs plain {plain_ms:.4f} ms, "
               f"SDPA {library_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+    # the bf16 body's tile edges (16 query rows, 16 keys) and two-pass lengths
+    # (past 80 keys), with and without lse: context at KERNEL_TOL, lse at
+    # phase 6's tolerance, the same context either way
+    edge_errs = {}
+    for L in EDGE_LENGTHS:
+        for causal in (False, True):
+            qkv = torch.randn((8, L, 3 * 256), generator=gen, device="cuda").bfloat16()
+            mask = causal_mask(L, device="cuda") if causal else None
+            out = fused_attention(qkv, mask, 4)
+            out_lse, lse = fused_attention_lse(qkv, mask, 4)
+            want, want_lse = reference_attention_lse(qkv, mask, 4)
+            torch.cuda.synchronize()
+            err = (out.float() - want.float()).abs().max().item()
+            lse_err = (lse - want_lse).abs().max().item()
+            lse_tol = 1e-5 * max(1.0, want_lse.abs().max().item())
+            if not (err <= KERNEL_TOL["bfloat16"] and lse_err <= lse_tol
+                    and torch.equal(out, out_lse)):
+                raise AssertionError(
+                    f"[kernel] edge L={L} causal={causal}: max abs err {err} (tol "
+                    f"{KERNEL_TOL['bfloat16']}), lse {lse_err} (tol {lse_tol}), the same context "
+                    f"with lse {torch.equal(out, out_lse)}")
+            edge_errs[L, causal] = (err, lse_err)
+    kernel_rows["edges"] = dict(err=max(e for e, _ in edge_errs.values()))
+    print(f"[kernel] fused_attention_fwd / _lse bf16 batch 8, 4 heads of 64, L "
+          f"{list(EDGE_LENGTHS)}, causal and not: max abs err {kernel_rows['edges']['err']:.3g} "
+          f"(tol {KERNEL_TOL['bfloat16']:g}), lse {max(e for _, e in edge_errs.values()):.3g} "
+          f"(tol 1e-5 x max(1, |lse|)), the same context with and without lse", flush=True)
 
     # 4. serve: the port's main path, through its HTTP entry points
     from http.server import ThreadingHTTPServer

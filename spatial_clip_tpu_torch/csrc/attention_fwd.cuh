@@ -2,12 +2,23 @@
 // functions that a kernel calls with the (batch, head) it runs:
 //   - fused_attention_fwd.cu: one tower, one block per (batch, head);
 //   - attention_pair.cu: two towers in one grid;
-//   - fused_block.cu: one head of a block's attention half, with q, k and v
-//     in shared memory;
 //   - attention_layouts.cu: the interleaved, split, seq-major (with a bias
-//     added at load) and slab layouts of the same attention.
-// The design and the math are described in fused_attention_fwd.cu. A block of
-// kWarps warps runs it; the caller hands it Layout<T, HD>::smem_bytes(seq)
+//     added at load) and slab layouts of the same attention;
+//   - fused_block.cu: one head of a block's attention half, with q, k and v
+//     in shared memory (the CUDA-core body, simt::attn_fwd_head).
+//
+// Two bodies, picked by the element type alone, never by the shape:
+//   - bf16, every L in 1..256 and hd 32 / 64 / 128: tc::attn_fwd_head, both
+//     products on the tensor cores (mma.sync m16n8k16, bf16 in, f32
+//     accumulate). It replaces the TPU's `_fwd_kernel` and `_fwd_kernel_lse`
+//     (spatial_clip_tpu/ops/fused_attention.py:267, :350) and the layout and
+//     pair kernels built on them;
+//   - f32: simt::attn_fwd_head, on the CUDA cores. TF32 products would miss
+//     the f32 kernels' 1e-5 / 2e-5 tolerances by orders of magnitude, and
+//     3xTF32 is not worth its code while f32 runs on no model path.
+// The math, the design and what bounds each body are described in
+// fused_attention_fwd.cu. A block of threads<T>(seq) threads (at most
+// kMaxThreads<T>) runs a body; the caller hands it smem_bytes<T, HD>(seq)
 // bytes of shared memory, 16-byte aligned.
 #pragma once
 
@@ -16,15 +27,20 @@
 
 #include <math.h>
 #include <stdint.h>
+#include <type_traits>
 
 #include "attention_common.cuh"
 
 namespace sc {
 namespace fwd {
 
-constexpr int kWarps = 8;
-constexpr int kRows = 2;  // query rows per warp pass
 constexpr int kMaxSeq = 256;
+
+namespace simt {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kRows = 2;  // query rows per warp pass
 constexpr int kMaxKeysPerLane = kMaxSeq / 32;
 
 template <typename T, int HD>
@@ -42,11 +58,7 @@ struct Layout {
   }
 };
 
-// One head of one sequence: row i of q, k and v at q_g, k_g, v_g + i *
-// in_stride (16-byte aligned rows); row i of the context to out_g + i *
-// out_stride; lse_g[i] = the row's logsumexp unless lse_g is null. kBias:
-// bq, bk, bv (HD values each, in T, 16-byte aligned) are added to q, k and v
-// as they are read, each sum rounded to T (the TPU kernel's q_ref + bq_ref).
+// One head of one sequence on the CUDA cores, arguments as sc::fwd::attn_fwd_head's.
 template <typename T, int HD, bool kBias = false>
 __device__ __forceinline__ void attn_fwd_head(const T* __restrict__ q_g, const T* __restrict__ k_g,
                                               const T* __restrict__ v_g, size_t in_stride,
@@ -206,6 +218,409 @@ __device__ __forceinline__ void attn_fwd_head(const T* __restrict__ q_g, const T
       }
     }
     __syncwarp();  // q_w / e_w are rewritten by this warp's next pass
+  }
+}
+
+}  // namespace simt
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTile = 16;     // query rows of a warp's m-tile; keys of a chunk
+constexpr int kMaxWarps = 8;  // a block has min(m-tiles, kMaxWarps) warps
+constexpr int kMaxThreads = kMaxWarps * 32;
+// Key chunks whose scores a warp holds in registers from Q K^T to P V (8
+// floats a thread each): 80 keys, the text tower's 77, at hd 32 and 64.
+// Longer rows take the two-pass route.
+template <int HD>
+constexpr int kHold = HD == 128 ? 4 : 5;
+// Blocks of kMaxThreads an SM the launch bounds size registers for: ptxas
+// caps a thread at 65536 / (kMinBlocks * kMaxThreads) registers.
+template <int HD>
+constexpr int kMinBlocks = HD == 128 ? 1 : 2;
+static_assert(kHold<32> <= kMaxWarps && kHold<64> <= kMaxWarps && kHold<128> <= kMaxWarps,
+              "a held score row needs its m-tile on a warp of its own");
+
+__host__ __device__ inline int tiles(int seq) { return (seq + kTile - 1) / kTile; }
+__host__ __device__ inline int threads(int seq) {
+  return 32 * (tiles(seq) < kMaxWarps ? tiles(seq) : kMaxWarps);
+}
+
+// Shared memory: q, k and v of the head as three tiles of rows(seq) rows,
+// each row HD elements and 16 bytes of pad (kStride), rows >= seq zero; then
+// the f32 row max of each query row. With the pad the 8 rows an ldmatrix
+// phase reads start 16 bytes apart modulo 128, in 8 different bank groups.
+template <int HD>
+struct Layout {
+  static constexpr int kStride = HD + 8;
+  static __host__ __device__ int rows(int seq) { return tiles(seq) * kTile; }
+  static __host__ __device__ size_t tile_bytes(int seq) {
+    return size_t(rows(seq)) * kStride * sizeof(bf16);
+  }
+  static __host__ __device__ size_t smem_bytes(int seq) {
+    return 3 * tile_bytes(seq) + size_t(rows(seq)) * sizeof(float);
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from src to shared memory, or 16 zero bytes where !valid (src-size
+// 0: nothing is read).
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// d += a b for one 16 x 8 x 16 tile: a bf16 row-major (4 registers), b bf16
+// column-major (2), d f32 (4).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Starts copying rows [0, rows(seq)) of one operand (row r at src + r *
+// stride) into its tile; rows >= seq are zero-filled.
+template <int HD>
+__device__ __forceinline__ void copy_tile(bf16* tile, const bf16* __restrict__ src,
+                                          size_t stride, int seq) {
+  constexpr int kChunks = HD / 8;  // 16-byte chunks a row
+  const int n = Layout<HD>::rows(seq) * kChunks;
+  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
+    const int r = idx / kChunks, c = idx % kChunks;
+    const bool valid = r < seq;
+    cp_async_16(smem_addr(tile + r * Layout<HD>::kStride + c * 8),
+                valid ? src + r * stride + c * 8 : src, valid);
+  }
+}
+
+// Rows [0, seq) of a tile += bias (HD values), each sum rounded to bf16 by
+// the packed add (add_vec), before any ldmatrix reads them.
+template <int HD>
+__device__ __forceinline__ void add_bias(bf16* tile, const bf16* __restrict__ bias, int seq) {
+  constexpr int kChunks = HD / 8;
+  for (int idx = threadIdx.x; idx < seq * kChunks; idx += blockDim.x) {
+    const int r = idx / kChunks, c = idx % kChunks;
+    auto* p = reinterpret_cast<Vec<bf16, 8>*>(tile + r * Layout<HD>::kStride + c * 8);
+    *p = add_vec<bf16, 8>(*p, *reinterpret_cast<const Vec<bf16, 8>*>(bias + c * 8));
+  }
+}
+
+// The A fragments of query rows [16 mt, 16 mt + 16), all HD columns.
+template <int HD>
+__device__ __forceinline__ void load_q(uint32_t (&qa)[HD / 16][4], const bf16* q_s, int mt,
+                                       int lane) {
+  const uint32_t base =
+      smem_addr(q_s + (mt * kTile + (lane & 15)) * Layout<HD>::kStride + (lane >> 4) * 8);
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) ldmatrix_x4(qa[kk], base + kk * 16 * sizeof(bf16));
+}
+
+// One m-tile's view of the scores: the mask rows of its two accumulator
+// rows, and what every chunk needs.
+struct Rows {
+  const float* mask[2];  // rows g and g + 8 of the m-tile (the last row past seq), or null
+  int seq, t;
+  float scale;
+};
+
+__device__ __forceinline__ Rows tile_rows(const float* __restrict__ mask, int mt, int seq,
+                                          float scale, int lane) {
+  Rows r{{nullptr, nullptr}, seq, lane & 3, scale};
+  if (mask != nullptr) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)  // a padded query row reads the last row; it is never stored
+      r.mask[h] = mask + size_t(min(mt * kTile + (lane >> 2) + 8 * h, seq - 1)) * seq;
+  }
+  return r;
+}
+
+// Scores of the warp's 16 query rows against keys [16 c, 16 c + 16):
+// s[n][e] = (q . k) * scale + mask[i, j] for row i = 16 mt + g + 8 (e / 2)
+// and key j = 16 c + 8 n + 2 t + e % 2 (g = lane / 4, t = lane % 4), the
+// mma accumulator layout; -inf for a key j >= seq, whatever the mask holds.
+// The product is an f32 sum of exact bf16 products; then one rounded
+// multiply and one rounded add, in the TPU kernel's order.
+template <int HD>
+__device__ __forceinline__ void scores(float (&s)[2][4], const uint32_t (&qa)[HD / 16][4],
+                                       const bf16* k_s, const Rows& r, int c, int lane) {
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+  // ldmatrix phases: keys 0-7 / 8-15 of the chunk, columns 0-7 / 8-15 of the k-step
+  const uint32_t base = smem_addr(k_s + (c * kTile + (lane & 7) + ((lane >> 4) << 3)) *
+                                            Layout<HD>::kStride + ((lane >> 3) & 1) * 8);
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    uint32_t b[4];
+    ldmatrix_x4(b, base + kk * 16 * sizeof(bf16));
+    mma_bf16(s[0], qa[kk], b[0], b[1]);
+    mma_bf16(s[1], qa[kk], b[2], b[3]);
+  }
+  const bool edge = (c + 1) * kTile > r.seq;  // the chunk holds keys past seq
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = c * kTile + n * 8 + 2 * r.t + (e & 1);
+      float v = __fmul_rn(s[n][e], r.scale);
+      if (edge && j >= r.seq) {
+        v = -INFINITY;
+      } else if (r.mask[0] != nullptr) {
+        v = __fadd_rn(v, __ldg(r.mask[e >> 1] + j));
+      }
+      s[n][e] = v;
+    }
+}
+
+__device__ __forceinline__ void row_max(float (&mx)[2], const float (&s)[2][4]) {
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+}
+
+// One chunk of P v: e = exp(s - max) (0 for a key past seq, by its
+// predicate), the row sums of the unrounded e, and e rounded to bf16 as the
+// A fragment straight from the accumulator layout, times v's chunk rows.
+template <int HD>
+__device__ __forceinline__ void pv_chunk(float (&o)[HD / 8][4], float (&sum)[2],
+                                         const float (&s)[2][4], const float (&mx)[2],
+                                         uint32_t v_base, int c, int seq, int t) {
+  const bool edge = (c + 1) * kTile > seq;
+  float p[2][4];
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = expf(s[n][e] - mx[e >> 1]);
+      if (edge && c * kTile + n * 8 + 2 * t + (e & 1) >= seq) x = 0.f;
+      sum[e >> 1] += x;
+      p[n][e] = x;
+    }
+  const uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
+                          pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
+#pragma unroll
+  for (int d = 0; d < HD / 8; d += 2) {
+    uint32_t b[4];
+    ldmatrix_x4_trans(b, v_base + (c * kTile * Layout<HD>::kStride + d * 8) * sizeof(bf16));
+    mma_bf16(o[d], pa, b[0], b[1]);
+    mma_bf16(o[d + 1], pa, b[2], b[3]);
+  }
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// One head of one sequence on the tensor cores (bf16), arguments as
+// sc::fwd::attn_fwd_head's; a block of threads(seq) threads or more runs it.
+// A warp takes m-tiles of 16 query rows in turn. Phase A (q, k landed): the
+// scores and each row's max over all keys. Phase B (v landed): e = exp(s -
+// max), the row sums of the unrounded e, P = e rounded to bf16 as the A
+// operand of P v straight from the accumulators. Rows of up to kHold chunks
+// keep their scores in registers from A to B; longer ones recompute them in
+// B (the same bits). No running rescale: every e is taken against the full
+// row's max, as the TPU kernel takes it.
+template <int HD, bool kBias>
+__device__ __forceinline__ void attn_fwd_head(const bf16* __restrict__ q_g,
+                                              const bf16* __restrict__ k_g,
+                                              const bf16* __restrict__ v_g, size_t in_stride,
+                                              const float* __restrict__ mask,
+                                              bf16* __restrict__ out_g, size_t out_stride,
+                                              float* __restrict__ lse_g, int seq, float scale,
+                                              unsigned char* smem, const bf16* bq,
+                                              const bf16* bk, const bf16* bv) {
+  using Ly = Layout<HD>;
+  constexpr int kS = Ly::kStride;
+  constexpr int kDTiles = HD / 8;  // n-tiles of the context
+  const int n_tiles = tiles(seq), rows = n_tiles * kTile;
+  bf16* q_s = reinterpret_cast<bf16*>(smem);
+  bf16* k_s = q_s + rows * kS;
+  bf16* v_s = k_s + rows * kS;
+  float* max_s = reinterpret_cast<float*>(v_s + rows * kS);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, n_warps = blockDim.x / 32;
+  const int g = lane >> 2, t = lane & 3;
+  const bool hold = n_tiles <= kHold<HD> && n_tiles <= n_warps;
+
+  copy_tile<HD>(q_s, q_g, in_stride, seq);
+  copy_tile<HD>(k_s, k_g, in_stride, seq);
+  cp_async_commit();
+  copy_tile<HD>(v_s, v_g, in_stride, seq);
+  cp_async_commit();
+  cp_async_wait<1>();  // this thread's q and k copies
+  __syncthreads();     // everyone's
+  if constexpr (kBias) {
+    add_bias<HD>(q_s, bq, seq);
+    add_bias<HD>(k_s, bk, seq);
+    __syncthreads();
+  }
+
+  uint32_t qa[HD / 16][4];
+  float held[kHold<HD> > 0 ? kHold<HD> : 1][2][4];  // hold: this warp's one m-tile's scores
+  for (int mt = warp; mt < n_tiles; mt += n_warps) {
+    load_q<HD>(qa, q_s, mt, lane);
+    const Rows r = tile_rows(mask, mt, seq, scale, lane);
+    float mx[2] = {-INFINITY, -INFINITY};
+    if (hold) {
+#pragma unroll
+      for (int c = 0; c < kHold<HD>; ++c) {
+        if (c < n_tiles) {
+          scores<HD>(held[c], qa, k_s, r, c, lane);
+          row_max(mx, held[c]);
+        }
+      }
+    } else {
+      for (int c = 0; c < n_tiles; ++c) {
+        float s[2][4];
+        scores<HD>(s, qa, k_s, r, c, lane);
+        row_max(mx, s);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = quad_max(mx[h]);
+      if (t == 0) max_s[mt * kTile + g + 8 * h] = mx[h];
+    }
+  }
+
+  cp_async_wait<0>();
+  __syncthreads();  // v has landed; every row max is written
+  if constexpr (kBias) {
+    add_bias<HD>(v_s, bv, seq);
+    __syncthreads();
+  }
+
+  // ldmatrix.trans phases: keys 0-7 / 8-15 of the chunk, columns 0-7 / 8-15 of a pair of n-tiles
+  const uint32_t v_base = smem_addr(v_s + ((lane & 7) + ((lane >> 3) & 1) * 8) * kS +
+                                    (lane >> 4) * 8);
+  for (int mt = warp; mt < n_tiles; mt += n_warps) {
+    const float mx[2] = {max_s[mt * kTile + g], max_s[mt * kTile + g + 8]};
+    float o[kDTiles][4];
+#pragma unroll
+    for (int d = 0; d < kDTiles; ++d)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
+    float sum[2] = {0.f, 0.f};
+    if (hold) {
+#pragma unroll
+      for (int c = 0; c < kHold<HD>; ++c)
+        if (c < n_tiles) pv_chunk<HD>(o, sum, held[c], mx, v_base, c, seq, t);
+    } else {
+      load_q<HD>(qa, q_s, mt, lane);
+      const Rows r = tile_rows(mask, mt, seq, scale, lane);
+      for (int c = 0; c < n_tiles; ++c) {
+        float s[2][4];
+        scores<HD>(s, qa, k_s, r, c, lane);
+        pv_chunk<HD>(o, sum, s, mx, v_base, c, seq, t);
+      }
+    }
+    // the context rows in bf16, staged in this m-tile's q rows (this warp's
+    // alone, read into registers above), then written out as 16-byte rows
+    bf16* stage = q_s + mt * kTile * kS;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float sigma = fmaxf(quad_sum(sum[h]), 1e-30f);
+      const float inv = 1.f / sigma;
+      const int i = mt * kTile + g + 8 * h;
+      if (lse_g != nullptr && t == 0 && i < seq) lse_g[i] = logf(sigma) + mx[h];
+#pragma unroll
+      for (int d = 0; d < kDTiles; ++d)
+        *reinterpret_cast<uint32_t*>(stage + (g + 8 * h) * kS + d * 8 + 2 * t) =
+            pack_bf16(o[d][2 * h] * inv, o[d][2 * h + 1] * inv);
+    }
+    __syncwarp();
+    constexpr int kChunks = HD / 8;
+    for (int idx = lane; idx < kTile * kChunks; idx += 32) {
+      const int rr = idx / kChunks, cc = idx % kChunks;
+      if (mt * kTile + rr < seq)
+        *reinterpret_cast<uint4*>(out_g + (mt * kTile + rr) * out_stride + cc * 8) =
+            *reinterpret_cast<const uint4*>(stage + rr * kS + cc * 8);
+    }
+  }
+}
+
+}  // namespace tc
+
+// The most threads a block of the forward body for element type T has, and
+// the threads a launch at this length gives it.
+template <typename T>
+constexpr int kMaxThreads = std::is_same_v<T, float> ? simt::kThreads : tc::kMaxThreads;
+template <typename T, int HD>
+constexpr int kMinBlocks = std::is_same_v<T, float> ? 1 : tc::kMinBlocks<HD>;
+template <typename T>
+__host__ __device__ inline int threads(int seq) {
+  if constexpr (std::is_same_v<T, float>) {
+    return simt::kThreads;
+  } else {
+    return tc::threads(seq);
+  }
+}
+
+// Shared memory the forward body for T needs at this length.
+template <typename T, int HD>
+__host__ __device__ inline size_t smem_bytes(int seq) {
+  if constexpr (std::is_same_v<T, float>) {
+    return simt::Layout<T, HD>::smem_bytes(seq);
+  } else {
+    return tc::Layout<HD>::smem_bytes(seq);
+  }
+}
+
+// One head of one sequence: row i of q, k and v at q_g, k_g, v_g + i *
+// in_stride (16-byte aligned rows); row i of the context to out_g + i *
+// out_stride; lse_g[i] = the row's logsumexp unless lse_g is null. kBias:
+// bq, bk, bv (HD values each, in T, 16-byte aligned) are added to q, k and v
+// as they are read, each sum rounded to T (the TPU kernel's q_ref + bq_ref).
+// bf16 runs on the tensor cores, f32 on the CUDA cores.
+template <typename T, int HD, bool kBias = false>
+__device__ __forceinline__ void attn_fwd_head(const T* __restrict__ q_g, const T* __restrict__ k_g,
+                                              const T* __restrict__ v_g, size_t in_stride,
+                                              const float* __restrict__ mask,
+                                              T* __restrict__ out_g, size_t out_stride,
+                                              float* __restrict__ lse_g, int seq, float scale,
+                                              unsigned char* smem, const T* bq = nullptr,
+                                              const T* bk = nullptr, const T* bv = nullptr) {
+  if constexpr (std::is_same_v<T, float>) {
+    simt::attn_fwd_head<T, HD, kBias>(q_g, k_g, v_g, in_stride, mask, out_g, out_stride, lse_g,
+                                      seq, scale, smem, bq, bk, bv);
+  } else {
+    tc::attn_fwd_head<HD, kBias>(q_g, k_g, v_g, in_stride, mask, out_g, out_stride, lse_g, seq,
+                                 scale, smem, bq, bk, bv);
   }
 }
 

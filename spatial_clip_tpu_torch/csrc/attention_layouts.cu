@@ -36,10 +36,12 @@
 // caps, the packed-pair mask and the VMEM limits.
 //
 // What bounds them is what bounds the standard kernels, whose bodies they
-// are: the CUDA cores' instruction rate (see fused_attention_fwd.cu). The
-// seq-major layout adds a bias add per element loaded; the slab grid has B
-// blocks in place of B * heads, so at B = 256 it fills the card's SMs about
-// twice over with a head's work serialized in each.
+// are (see fused_attention_fwd.cu): bytes for the bf16 forward on the tensor
+// cores, the CUDA cores' instruction rate for the backward and the f32
+// forward. The seq-major layout adds the bias to each landed tile before
+// the products read it; the slab grid has B blocks in place of B * heads, so
+// at B = 256 it fills the card's SMs about twice over with a head's work
+// serialized in each.
 //
 // C interface (bound with ctypes; the caller allocates the outputs and, for
 // db, the (B, 3D) f32 partials; every pointer and row 16-byte aligned; the
@@ -59,8 +61,9 @@
 
 namespace {
 
-static_assert(sc::fwd::kWarps == sc::bwd::kWarps, "one block shape for both directions");
-constexpr int kThreads = sc::fwd::kWarps * 32;
+// The forward and backward are separate launches, each with its body's
+// block shape: the forward's by element type and length (sc::fwd::threads).
+constexpr int kBwdThreads = sc::bwd::kWarps * 32;
 constexpr int kMaxSeq = sc::fwd::kMaxSeq;
 constexpr size_t kMaxSmem = sc::bwd::kMaxSmem;
 
@@ -88,7 +91,7 @@ __device__ __forceinline__ size_t column(const Geometry& g, int h) {
 // (batch, head). kBias: bias (3 heads HD, in T) added at load, its part p at
 // bias + p * heads * HD + column(h). The context is (batch, seq, heads HD).
 template <typename T, int HD, bool kSlab, bool kBias>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(sc::fwd::kMaxThreads<T>, (sc::fwd::kMinBlocks<T, HD>))
 attn_layout_fwd_kernel(const Parts<const T> in, const T* __restrict__ bias,
                        const float* __restrict__ mask, T* __restrict__ out, const Geometry g) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -116,7 +119,7 @@ attn_layout_fwd_kernel(const Parts<const T> in, const T* __restrict__ bias,
 // HD). kBias (the seq-major layout): the bias added at load, and each
 // (batch, head) block's db partial to row b of db_part (batch, 3 heads HD).
 template <typename T, int HD, bool kSlab, bool kBias>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBwdThreads)
 attn_layout_bwd_kernel(const Parts<const T> in, const T* __restrict__ bias,
                        const float* __restrict__ mask, const T* __restrict__ dout,
                        const Parts<T> out, float* __restrict__ db_part, const Geometry g) {
@@ -148,12 +151,13 @@ attn_layout_bwd_kernel(const Parts<const T> in, const T* __restrict__ bias,
 template <typename T, int HD, bool kSlab, bool kBias>
 cudaError_t launch_fwd(const Parts<const T>& in, const T* bias, const float* mask, T* out,
                        const Geometry& g, cudaStream_t stream) {
-  const size_t smem = sc::fwd::Layout<T, HD>::smem_bytes(g.seq);
+  const size_t smem = sc::fwd::smem_bytes<T, HD>(g.seq);
   auto kernel = attn_layout_fwd_kernel<T, HD, kSlab, kBias>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<kSlab ? g.batch : g.batch * g.heads, kThreads, smem, stream>>>(in, bias, mask, out, g);
+  const int blocks = kSlab ? g.batch : g.batch * g.heads;
+  kernel<<<blocks, sc::fwd::threads<T>(g.seq), smem, stream>>>(in, bias, mask, out, g);
   return cudaGetLastError();
 }
 
@@ -168,7 +172,7 @@ cudaError_t launch_bwd(const Parts<const T>& in, const T* bias, const float* mas
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<kSlab ? g.batch : g.batch * g.heads, kThreads, smem, stream>>>(
+  kernel<<<kSlab ? g.batch : g.batch * g.heads, kBwdThreads, smem, stream>>>(
       in, bias, mask, dout, out, db_part, g);
   err = cudaGetLastError();
   if (err != cudaSuccess || !kBias) return err;

@@ -14,17 +14,19 @@
 // layer and direction; the work per (batch, head) is unchanged.
 //
 // Each kernel is one grid of B * Ha + B * Hb blocks of the single-tower
-// block shape: block index < B * Ha runs tower a's (b, h) through the
+// block shape of its direction: block index < B * Ha runs tower a's (b, h) through the
 // single-tower body (sc::fwd::attn_fwd_block of attention_fwd.cuh,
 // sc::bwd::attn_bwd_block<.., recompute, no db> of attention_bwd.cuh), the
 // others tower b's. The bodies are the ones fused_attention_fwd.cu and
 // fused_attention_bwd.cu launch, at the same template arguments, so each
 // tower's output is bit for bit what sc_attention_fwd (null lse) and
 // sc_attention_bwd_recompute give: nothing is summed across blocks. What
-// bounds it is therefore what bounds those (instruction issue on the CUDA
-// cores). The towers may have different head dims (template HD_a, HD_b), sequence
-// lengths, masks and head counts, but one batch and one dtype; the dynamic
-// shared memory is the larger of the two towers' needs.
+// bounds it is therefore what bounds those: bytes for the bf16 forward (on
+// the tensor cores, see fused_attention_fwd.cu), instruction issue on the
+// CUDA cores for the backward and the f32 forward. The towers may have
+// different head dims (template HD_a, HD_b), sequence lengths, masks and
+// head counts, but one batch and one dtype; the dynamic shared memory is the
+// larger of the two towers' needs.
 //
 // C interface (bound with ctypes; the caller allocates the outputs, passes
 // 16-byte aligned contiguous tensors and PyTorch's current stream). Returns
@@ -34,6 +36,7 @@
 #include <cuda_runtime.h>
 
 #include <stdint.h>
+#include <algorithm>
 #include <type_traits>
 
 #include "attention_bwd.cuh"
@@ -41,10 +44,17 @@
 
 namespace {
 
-static_assert(sc::fwd::kWarps == sc::bwd::kWarps, "one block shape for both directions");
-constexpr int kThreads = sc::fwd::kWarps * 32;
+// The forward and backward are separate launches, each with its body's
+// block shape: the forward's by element type and length (sc::fwd::threads).
+constexpr int kBwdThreads = sc::bwd::kWarps * 32;
 constexpr int kMaxSeq = sc::fwd::kMaxSeq;
 constexpr size_t kMaxSmem = sc::bwd::kMaxSmem;
+
+// The forward's launch bounds: the smaller of the two bodies' block counts.
+template <typename T, int HDA, int HDB>
+constexpr int kPairMinBlocks = sc::fwd::kMinBlocks<T, HDA> < sc::fwd::kMinBlocks<T, HDB>
+                                   ? sc::fwd::kMinBlocks<T, HDA>
+                                   : sc::fwd::kMinBlocks<T, HDB>;
 
 // One tower's operands. Forward: qkv -> out (the context). Backward: qkv and
 // dout (the context's cotangent) -> out (dqkv).
@@ -59,7 +69,7 @@ struct Tower {
 };
 
 template <typename T, int HDA, int HDB>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(sc::fwd::kMaxThreads<T>, (kPairMinBlocks<T, HDA, HDB>))
 attn_pair_fwd_kernel(const Tower<T> a, const Tower<T> b, int batch) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int blocks_a = batch * a.heads;
@@ -74,7 +84,7 @@ attn_pair_fwd_kernel(const Tower<T> a, const Tower<T> b, int batch) {
 }
 
 template <typename T, int HDA, int HDB>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBwdThreads)
 attn_pair_bwd_kernel(const Tower<T> a, const Tower<T> b, int batch) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int blocks_a = batch * a.heads;
@@ -97,8 +107,8 @@ cudaError_t launch(const Tower<T>& a, const Tower<T>& b, int batch, cudaStream_t
     smem_a = sc::bwd::BwdLayout<T, HDA>::smem_bytes(a.seq);
     smem_b = sc::bwd::BwdLayout<T, HDB>::smem_bytes(b.seq);
   } else {
-    smem_a = sc::fwd::Layout<T, HDA>::smem_bytes(a.seq);
-    smem_b = sc::fwd::Layout<T, HDB>::smem_bytes(b.seq);
+    smem_a = sc::fwd::smem_bytes<T, HDA>(a.seq);
+    smem_b = sc::fwd::smem_bytes<T, HDB>(b.seq);
   }
   const size_t smem = smem_a > smem_b ? smem_a : smem_b;
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
@@ -106,7 +116,9 @@ cudaError_t launch(const Tower<T>& a, const Tower<T>& b, int batch, cudaStream_t
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<batch * (a.heads + b.heads), kThreads, smem, stream>>>(a, b, batch);
+  const int fwd_threads = std::max(sc::fwd::threads<T>(a.seq), sc::fwd::threads<T>(b.seq));
+  const int threads = kBwd ? kBwdThreads : fwd_threads;
+  kernel<<<batch * (a.heads + b.heads), threads, smem, stream>>>(a, b, batch);
   return cudaGetLastError();
 }
 

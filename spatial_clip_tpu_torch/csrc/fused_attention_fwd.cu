@@ -1,49 +1,62 @@
 // Fused multi-head attention forward over a raw fused-qkv tensor (Hopper, sm_90a).
 //
 // Replaces two TPU kernels in spatial_clip_tpu/ops/fused_attention.py:
-//   - `_fwd_kernel` (launched by `_attn_fwd_impl` through pl.pallas_call), which
-//     serves every attention of the CLIP towers at inference:
-//     softmax(q k^T * hd^-1/2 + mask) v per head, read straight from the
-//     (B, L, 3D) output of the qkv GEMM;
-//   - `_fwd_kernel_lse` (launched by `_fwd_pallas_lse`), the training forward:
-//     the same context plus each row's logsumexp
+//   - `_fwd_kernel` (:267, launched by `_attn_fwd_impl` through
+//     pl.pallas_call), which serves every attention of the CLIP towers at
+//     inference: softmax(q k^T * hd^-1/2 + mask) v per head, read straight
+//     from the (B, L, 3D) output of the qkv GEMM;
+//   - `_fwd_kernel_lse` (:350, launched by `_fwd_pallas_lse`), the training
+//     forward: the same context plus each row's logsumexp
 //     lse = log(max(sum e, 1e-30)) + row max, f32, laid out (heads, B, L), which
 //     the backward (fused_attention_bwd.cu) uses to rebuild p = exp(s - lse).
 //   One kernel with an option: a null `lse` pointer writes no logsumexp.
 //
-// What should bound it on an H100 is memory. At the serving shapes (image
-// tower B=64, L=50, 12 heads of 64; text tower B=64, L=77, 8 heads of 64,
-// causal) one call reads ~15-20 MB of qkv and writes ~5 MB of context for
-// under 1 GFLOP, about 25 FLOP/byte against the card's ~295 FLOP/byte
-// balance point. So the design reads qkv from device memory once and writes
-// the context once, and no score matrix ever leaves the SM. Measured on an
-// H100 80GB HBM3 at a 700 W power limit, it runs at ~8% of the card's
-// bandwidth: on the CUDA cores it is bound by
-// instruction issue (~1,400 instructions a warp per pass of two query rows:
-// the two dots, bf16 -> f32 conversions, exp), which tensor cores (mma or
-// wgmma) would cut; staging V as well and prefetching the query rows were
-// tried and gained nothing at these shapes. Operands are read as 16-byte
-// vectors and each read serves two query rows:
-//   - one block per (batch, head). K of that head is staged in shared memory
-//     in the input dtype, rows padded by 16 bytes: the 8 lanes of each
-//     quarter-warp read 16-byte chunks of 8 different rows, which then fall
-//     in 8 different bank groups;
-//   - each warp takes two query rows at a time (rows strided over the
-//     block's warps). Each lane owns keys j = lane + 32 t (t < 8, so
-//     L <= 256) and holds their f32 scores for both rows in registers; the
-//     row max and exp-sum are warp shuffles;
-//   - PV: each lane owns hd/32 consecutive output dims and reads them from
-//     each V row with one vector load, used for both rows. V is read from
-//     global memory: after the first warp it sits in L1, and staging V as
-//     well would not fit at f32, hd=128, L=256.
+// What bounds it on an H100 is memory: at the towers' shapes (image L=50, 12
+// heads of 64; text L=77, 8 heads of 64, causal) a call reads qkv and writes
+// the context at ~25 FLOP a byte against the card's ~295. So qkv is read
+// from device memory once, the context written once, and no score leaves
+// the SM. The body (attention_fwd.cuh) for bf16:
+//   - one block of 4 warps per (batch, head). The head's q, k and v land in
+//     shared memory by 16-byte cp.async copies, rows padded to a multiple of
+//     16 with zero fill (padded v rows must be 0: 0 x garbage could be NaN),
+//     q and k as one group and v as the next, so pass 1 starts before v has
+//     landed. Several blocks an SM keep one head's copies in flight under
+//     another's math;
+//   - a warp takes 16 query rows at a time. q's A fragments stay in
+//     registers; k and v^T fragments come from shared memory by ldmatrix
+//     (.trans for v); both products are mma.sync m16n8k16 bf16 -> f32;
+//   - keys go in chunks of 16, in two passes: pass 1 takes each row's max
+//     over all keys; pass 2 recomputes the scores (the same bits), takes
+//     e = exp(s - max), sums the unrounded e and feeds e rounded to bf16
+//     from the score accumulators straight into P v as the A operand. No
+//     running rescale, and no score row held whole, so one body takes every
+//     L up to 256 and hd up to 128 at the same register count;
+//   - keys past L give e = 0 by a predicate; query rows past L are computed
+//     and never stored; the context goes out through shared memory as
+//     16-byte rows.
+// Registers set how many blocks an SM holds, and so how many heads' copies
+// are in flight: the launch bounds hold hd 32 and 64 to 128 registers a
+// thread (ptxas for sm_90a; hd 64 spills 32 bytes), which leaves 4 blocks an
+// SM at L = 50, 3 at 77 and 2 at 256; hd 128 takes 207, 2 / 1 / 1 blocks
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor on an H100). Holding more
+// keys' scores, or fewer registers, measured slower (bench_fwd.py). On an
+// H100 80GB HBM3 at 700 W the image tower's training forward (batch 256)
+// takes 0.0421 ms against a bytes bound of 0.0237: about 0.56 of the
+// card's bandwidth.
+// The next steps would be TMA boxes with zero fill in place of the cp.async
+// loops, and a persistent grid that issues the next head's copies before
+// this head's math. f32 stays on the CUDA cores (attention_fwd.cuh says
+// why): two query rows a warp pass, keys strided over the lanes, bound there
+// by instruction issue.
+//
 // Math is the TPU kernel's (_one_head_fwd with FAST_SOFTMAX): f32 scores,
-// subtract the row max, e = exp(s - max), o = (e rounded to the input dtype) v
-// accumulated in f32, then o * (1 / max(sum e, 1e-30)), cast to the input
-// dtype. Tensor cores and TMA are left for later work.
+// s * scale + mask in that order, the full row's max, e = exp(s - max) in
+// f32, o = (e rounded to the input dtype) v accumulated in f32, then
+// o * (1 / max(sum e, 1e-30)), cast to the input dtype.
 //
 // The body lives in attention_fwd.cuh as device functions, shared with the
-// two-tower kernel (attention_pair.cu) and the block-fused kernel
-// (fused_block.cu).
+// two-tower kernel (attention_pair.cu) and the layout kernels
+// (attention_layouts.cu).
 //
 // C interface (bound with ctypes; the caller allocates `out` and `lse`, passes
 // 16-byte aligned contiguous tensors and PyTorch's current stream). Returns
@@ -53,18 +66,18 @@
 #include <cuda_runtime.h>
 
 #include <stdint.h>
+#include <type_traits>
 
 #include "attention_fwd.cuh"
 
 namespace {
 
 using sc::fwd::kMaxSeq;
-using sc::fwd::kWarps;
-using sc::fwd::Layout;
+using sc::fwd::kMaxThreads;
 
 // One block per (batch, head); the body is sc::fwd::attn_fwd_block.
 template <typename T, int HD>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kMaxThreads<T>, (sc::fwd::kMinBlocks<T, HD>))
 attn_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
                 T* __restrict__ out, float* __restrict__ lse, int seq, int heads,
                 float scale) {
@@ -76,22 +89,30 @@ attn_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
 template <typename T, int HD>
 cudaError_t launch(const void* qkv, const float* mask, void* out, float* lse, int batch,
                    int seq, int heads, float scale, cudaStream_t stream) {
-  const size_t smem = Layout<T, HD>::smem_bytes(seq);
+  const size_t smem = sc::fwd::smem_bytes<T, HD>(seq);
   cudaError_t err = cudaFuncSetAttribute(
       attn_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  attn_fwd_kernel<T, HD><<<batch * heads, kWarps * 32, smem, stream>>>(
+  attn_fwd_kernel<T, HD><<<batch * heads, sc::fwd::threads<T>(seq), smem, stream>>>(
       static_cast<const T*>(qkv), mask, static_cast<T*>(out), lse, seq, heads, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_hd(const void* qkv, const float* mask, void* out, float* lse, int batch,
-                        int seq, int heads, int head_dim, float scale, cudaStream_t stream) {
-  switch (head_dim) {
-    case 32: return launch<T, 32>(qkv, mask, out, lse, batch, seq, heads, scale, stream);
-    case 64: return launch<T, 64>(qkv, mask, out, lse, batch, seq, heads, scale, stream);
-    case 128: return launch<T, 128>(qkv, mask, out, lse, batch, seq, heads, scale, stream);
+// Calls f with a value of the element type that dtype names (0 = float32, 1 =
+// bfloat16) and std::integral_constant<int, head_dim>.
+template <typename F>
+cudaError_t with_type(int dtype, int head_dim, F&& f) {
+  auto hd = [&](auto zero) {
+    switch (head_dim) {
+      case 32: return f(zero, std::integral_constant<int, 32>{});
+      case 64: return f(zero, std::integral_constant<int, 64>{});
+      case 128: return f(zero, std::integral_constant<int, 128>{});
+      default: return cudaErrorInvalidValue;
+    }
+  };
+  switch (dtype) {
+    case 0: return hd(float{});
+    case 1: return hd(__nv_bfloat16{});
     default: return cudaErrorInvalidValue;
   }
 }
@@ -106,15 +127,46 @@ extern "C" int sc_attention_fwd(const void* qkv, const void* mask, void* out, vo
   if (batch < 1 || heads < 1 || seq < 1 || seq > kMaxSeq) return int(cudaErrorInvalidValue);
   if ((reinterpret_cast<uintptr_t>(qkv) | reinterpret_cast<uintptr_t>(out)) % 16 != 0)
     return int(cudaErrorMisalignedAddress);
-  const float* m = static_cast<const float*>(mask);
-  float* l = static_cast<float*>(lse);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return int(dispatch_hd<float>(qkv, m, out, l, batch, seq, heads, head_dim, scale, s));
-    case 1:
-      return int(dispatch_hd<__nv_bfloat16>(qkv, m, out, l, batch, seq, heads, head_dim, scale, s));
-    default: return int(cudaErrorInvalidValue);
-  }
+  return int(with_type(dtype, head_dim, [&](auto zero, auto hd) {
+    return launch<decltype(zero), decltype(hd)::value>(qkv, static_cast<const float*>(mask), out,
+                                                       static_cast<float*>(lse), batch, seq,
+                                                       heads, scale,
+                                                       static_cast<cudaStream_t>(stream));
+  }));
+}
+
+// Shared memory one block of the forward takes at this geometry, 0 for one
+// it does not take. Mirrored by ops/fused_attention.py fwd_smem_bytes.
+extern "C" size_t sc_attention_fwd_smem_bytes(int seq, int head_dim, int dtype) {
+  if (seq < 1 || seq > kMaxSeq) return 0;
+  size_t bytes = 0;
+  with_type(dtype, head_dim, [&](auto zero, auto hd) {
+    bytes = sc::fwd::smem_bytes<decltype(zero), decltype(hd)::value>(seq);
+    return cudaSuccess;
+  });
+  return bytes;
+}
+
+// The forward kernel's registers a thread, local (spill) bytes a thread and
+// resident blocks an SM at this geometry, for the build report.
+extern "C" int sc_attention_fwd_occupancy(int seq, int head_dim, int dtype, int* regs,
+                                          int* local_bytes, int* blocks_per_sm) {
+  if (seq < 1 || seq > kMaxSeq) return int(cudaErrorInvalidValue);
+  return int(with_type(dtype, head_dim, [&](auto zero, auto hd) {
+    using T = decltype(zero);
+    auto kernel = attn_fwd_kernel<T, decltype(hd)::value>;
+    const size_t smem = sc::fwd::smem_bytes<T, decltype(hd)::value>(seq);
+    cudaFuncAttributes attr{};
+    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel,
+                                                          sc::fwd::threads<T>(seq), smem);
+    *regs = attr.numRegs;
+    *local_bytes = int(attr.localSizeBytes);
+    return err;
+  }));
 }
 
 extern "C" const char* sc_cuda_error_string(int err) {

@@ -9,8 +9,9 @@
 //   - one-pass f32 LayerNorm statistics, var = max(E[x^2] - mean^2, 0),
 //     h = (x - mean) rsqrt(var + eps) gamma + beta, rounded to x's dtype;
 //   - qkv = h W_qkv^T (f32 accumulation) + b_qkv (f32), rounded to x's dtype;
-//   - per head, the inference attention of fused_attention_fwd.cu (the body
-//     in attention_fwd.cuh), its context rounded to x's dtype;
+//   - per head, the inference attention of fused_attention_fwd.cu's math
+//     on the CUDA cores (attention_fwd.cuh's simt body, which takes q, k and
+//     v where they lie in shared memory), its context rounded to x's dtype;
 //   - o = ctx W_out^T (f32 accumulation) + b_out (f32);
 //     out = (x in f32 + o) rounded to x's dtype.
 // The weights come in x's dtype in the port's (out, in) layout: W_qkv (3D, D),
@@ -68,7 +69,7 @@ using sc::WarpRow;
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kWarps = sc::fwd::kWarps;  // the attention body's block shape
+constexpr int kWarps = sc::fwd::simt::kWarps;  // the CUDA-core attention body's block shape
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxSeq = 128;  // rows of a sequence, rounded up to 16
 constexpr int kCols = 64;     // output columns of one product pass
@@ -114,7 +115,7 @@ struct Smem {
     return xs_bytes(seq, d) + kStages * ws_bytes() + cs_bytes(seq) + qs_bytes(seq);
   }
   __host__ __device__ static size_t bytes(int seq, int d) {
-    return attn_offset(seq, d) + sc::fwd::Layout<T, HD>::smem_bytes(seq);
+    return attn_offset(seq, d) + sc::fwd::simt::Layout<T, HD>::smem_bytes(seq);
   }
 };
 
@@ -293,8 +294,8 @@ block_attn_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
       }
     }
     __syncthreads();  // the head's q|k|v tile is complete
-    sc::fwd::attn_fwd_head<T, HD>(qs, qs + HD, qs + 2 * HD, S::qld, mask, out_b + h * HD, d,
-                                  nullptr, seq, scale, attn_smem);
+    sc::fwd::simt::attn_fwd_head<T, HD>(qs, qs + HD, qs + 2 * HD, S::qld, mask, out_b + h * HD,
+                                        d, nullptr, seq, scale, attn_smem);
     __syncthreads();  // the body is done with qs and its own space
   }
 

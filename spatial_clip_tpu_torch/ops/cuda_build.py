@@ -133,6 +133,12 @@ def library() -> ctypes.CDLL:
                 i32, ctypes.c_float, ptr,  # dtype, scale, stream
             ]
             lib.sc_attention_bwd_recompute_db.restype = i32
+            lib.sc_attention_fwd_smem_bytes.argtypes = [i32, i32, i32]  # L, hd, dtype
+            lib.sc_attention_fwd_smem_bytes.restype = ctypes.c_size_t
+            i32p = ctypes.POINTER(i32)
+            lib.sc_attention_fwd_occupancy.argtypes = [i32, i32, i32,  # L, hd, dtype
+                                                       i32p, i32p, i32p]  # regs, local B, blocks
+            lib.sc_attention_fwd_occupancy.restype = i32
             lib.sc_attention_bwd_smem_bytes.argtypes = [i32, i32, i32]
             lib.sc_attention_bwd_smem_bytes.restype = ctypes.c_size_t
             ce_inputs = [ptr] * 7  # q, kmat, col_ids, gt_ids, nbr, alphas, scale

@@ -50,6 +50,10 @@ HEAD_DIMS = (32, 64, 128)
 MAX_SEQ = 256
 # the backward's block geometry (csrc/fused_attention_bwd.cu BwdLayout)
 _BWD_WARPS, _BWD_ROWS = 8, 2
+# the forward's (csrc/attention_fwd.cuh): bf16 on the tensor cores in tiles of
+# 16 query rows and 16 keys; f32 on the CUDA cores, 8 warps of 2 rows a pass
+_FWD_TILE = 16
+_FWD_SIMT_WARPS, _FWD_SIMT_ROWS = 8, 2
 MAX_SMEM_BYTES = 232448  # 227 KB: the most shared memory a block may use on sm_90
 
 # QKVAttention's backward, read at backward time as JAX reads its
@@ -104,6 +108,29 @@ def bwd_smem_bytes(seq: int, head_dim: int, dtype: torch.dtype) -> int:
     warp_floats = _BWD_ROWS * (2 * head_dim + seq_pad)
     return ((4 * seq * stride + 2 * seq * seq_pad) * item
             + (_BWD_WARPS * warp_floats + _BWD_WARPS * 3 * head_dim) * 4)
+
+
+def fwd_rows(seq: int, dtype: torch.dtype) -> int:
+    """Rows of q, k and v the bf16 forward body stages for a sequence of
+    ``seq``: ``seq`` rounded up to a 16-row tile, the rows past it zero (the
+    padded keys as many). The f32 body pads none."""
+    if dtype == torch.bfloat16:
+        return (seq + _FWD_TILE - 1) // _FWD_TILE * _FWD_TILE
+    return seq
+
+
+def fwd_smem_bytes(seq: int, head_dim: int, dtype: torch.dtype) -> int:
+    """Shared memory one block of the forward kernel needs. bf16: the q, k
+    and v tiles of one (batch, head), :func:`fwd_rows` rows of head_dim
+    elements plus 16 bytes of pad, and an f32 row max per row. f32: K in
+    16-byte padded rows, and per warp f32 query rows and a score row padded
+    to 4. Mirrors ``sc_attention_fwd_smem_bytes``."""
+    if dtype == torch.bfloat16:
+        rows = fwd_rows(seq, dtype)
+        return 3 * rows * (head_dim + 8) * 2 + rows * 4
+    seq_pad = (seq + 3) // 4 * 4
+    warp_floats = _FWD_SIMT_ROWS * (head_dim + seq_pad)
+    return seq * (head_dim + 4) * 4 + _FWD_SIMT_WARPS * warp_floats * 4
 
 
 def bwd_supported(heads: int, width: int, seq: int, dtype: torch.dtype) -> bool:

@@ -15,7 +15,17 @@ import torch
 
 from spatial_clip_tpu.ops.fused_attention import fused_attention as jax_fused_attention
 from spatial_clip_tpu.ops.fused_attention import reference_attention as jax_reference
-from spatial_clip_tpu_torch.ops.fused_attention import fused_attention, reference_attention
+from spatial_clip_tpu_torch import bench_fwd
+from spatial_clip_tpu_torch.ops import cuda_build
+from spatial_clip_tpu_torch.ops.fused_attention import (
+    HEAD_DIMS,
+    MAX_SEQ,
+    MAX_SMEM_BYTES,
+    fused_attention,
+    fwd_rows,
+    fwd_smem_bytes,
+    reference_attention,
+)
 
 
 def _inputs(seed, B, L, D, causal):
@@ -104,3 +114,42 @@ def test_rejects_bad_layout_and_mask():
         fused_attention(qkv, torch.zeros(8, 9), 2)
     with pytest.raises(ValueError, match="no kernel for device"):
         fused_attention(qkv.to("meta"), None, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_forward_fits_every_length_it_takes(hd, dtype):
+    """One block's shared memory holds the forward at every length the
+    wrappers take (``fwd_smem_bytes`` mirrors the kernel's formula), and
+    grows with the length."""
+    sizes = [fwd_smem_bytes(L, hd, dtype) for L in range(1, MAX_SEQ + 1)]
+    assert max(sizes) <= MAX_SMEM_BYTES
+    assert sizes == sorted(sizes)
+
+
+@pytest.mark.parametrize("L,rows", [(1, 16), (15, 16), (16, 16), (17, 32), (50, 64), (63, 64),
+                                    (65, 80), (77, 80), (128, 128), (129, 144), (200, 208),
+                                    (256, 256)])
+def test_forward_pads_rows_and_keys_as_the_kernel(L, rows):
+    """The bf16 body stages q, k and v in whole 16-row tiles (the keys padded
+    as the query rows): rows of head_dim elements plus 16 bytes of pad and
+    one f32 row max each. The f32 body pads no rows."""
+    assert fwd_rows(L, torch.bfloat16) == rows
+    for hd in HEAD_DIMS:
+        assert fwd_smem_bytes(L, hd, torch.bfloat16) == 3 * rows * (hd + 8) * 2 + rows * 4
+    assert fwd_rows(L, torch.float32) == L
+
+
+@pytest.mark.parametrize("variant", sorted(bench_fwd.VARIANTS))
+def test_bench_fwd_variants_rewrite_the_source_and_refuse_without_a_gpu(variant):
+    """Each ``bench_fwd`` variant sets its constants in one place of the
+    forward body's header; the script parses its flags, then refuses: no
+    CUDA here."""
+    header = (cuda_build.CSRC_DIR / "attention_fwd.cuh").read_text()
+    for knob, (pattern, form) in bench_fwd.KNOBS.items():
+        assert len(pattern.findall(header)) == 1
+        if knob in bench_fwd.VARIANTS[variant]:
+            line = form.format(*bench_fwd.VARIANTS[variant][knob])
+            assert pattern.findall(pattern.sub(line, header)) == [line]
+    with pytest.raises(SystemExit, match="needs a CUDA GPU"):
+        bench_fwd.main(["--variants", variant, "--batch", "8"])

@@ -54,6 +54,76 @@ def test_kernel_matches_plain_version(device, B, L, D, H, causal, dtype, atol):
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
 
 
+FWD_EDGE_LENGTHS = (1, 15, 16, 17, 50, 63, 64, 65, 77, 128, 129, 200, 256)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("L", FWD_EDGE_LENGTHS)
+def test_bf16_forward_over_tile_edges(device, L, hd, causal):
+    """The bf16 forward body (tensor cores; tiles of 16 query rows and 16
+    keys, two passes over the keys) on each side of a tile edge and past 128
+    keys, at each head dim: the context at chip_smoke phase 3's tolerance
+    (2e-2), lse at phase 6's (1e-5 x max(1, |lse|)); with and without lse
+    the same context, and the same bits on a rerun."""
+    from spatial_clip_tpu_torch.ops.fused_attention import (
+        fused_attention_lse,
+        reference_attention_lse,
+    )
+
+    B, H = 3, 2
+    gen = torch.Generator(device=device).manual_seed(L * hd + causal)
+    qkv = torch.randn((B, L, 3 * H * hd), generator=gen, device=device).to(torch.bfloat16)
+    mask = causal_mask(L, device=device) if causal else None
+    out = fused_attention(qkv, mask, H)
+    out_lse, lse = fused_attention_lse(qkv, mask, H)
+    again = fused_attention(qkv, mask, H)
+    torch.cuda.synchronize()
+    want, want_lse = reference_attention_lse(qkv, mask, H)
+    assert torch.equal(out, again) and torch.equal(out, out_lse)
+    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=2e-2)
+    torch.testing.assert_close(lse, want_lse, rtol=0,
+                               atol=1e-5 * max(1.0, want_lse.abs().max().item()))
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_pair_and_layout_forwards_equal_standard_at_long_length(device, hd):
+    """At L=200 (13 key chunks) the pair forward and the interleaved, slab,
+    split and seq-major forwards give the standard launch's bits."""
+    from spatial_clip_tpu_torch.ops import attention_pair as ap
+    from spatial_clip_tpu_torch.ops import attention_variants as av
+
+    B, L, H = 3, 200, 2
+    D = H * hd
+    gen = torch.Generator(device=device).manual_seed(hd)
+    qkv = torch.randn((B, L, 3 * D), generator=gen, device=device).to(torch.bfloat16)
+    qkv_b = torch.randn((B, 77, 3 * 512), generator=gen, device=device).to(torch.bfloat16)
+    bias = (0.3 * torch.randn((3 * D,), generator=gen, device=device)).to(torch.bfloat16)
+    mask = causal_mask(L, device=device)
+    std = fused_attention(qkv, mask, H)
+    oa, ob = ap.fused_attention_pair(qkv, mask, qkv_b, None, H, 8)
+    perm = torch.tensor(av.interleave_perm(H, hd), device=device)
+    q, k, v = (t.contiguous() for t in qkv.chunk(3, dim=-1))
+    torch.cuda.synchronize()
+    assert torch.equal(oa, std) and torch.equal(ob, fused_attention(qkv_b, None, 8))
+    assert torch.equal(av.fused_attention_inter(qkv.index_select(-1, perm), mask, H), std)
+    assert torch.equal(av.fused_attention_slab(qkv, mask, H), std)
+    assert torch.equal(av.fused_attention_split_fwd(q, k, v, mask, H), std)
+    assert torch.equal(av.fused_attention_t_fwd(qkv.transpose(0, 1), bias, mask, H),
+                       fused_attention(qkv + bias, mask, H))
+
+
+def test_fwd_smem_formula_matches_kernel(device):
+    from spatial_clip_tpu_torch.ops import cuda_build
+    from spatial_clip_tpu_torch.ops.fused_attention import HEAD_DIMS, MAX_SEQ, fwd_smem_bytes
+
+    lib = cuda_build.library()
+    for L in range(1, MAX_SEQ + 1):
+        for hd in HEAD_DIMS:
+            for dtype, code in cuda_build.DTYPE_CODES.items():
+                assert lib.sc_attention_fwd_smem_bytes(L, hd, code) == fwd_smem_bytes(L, hd, dtype)
+
+
 BWD_CASES = [  # B, L, D, H, causal, dtype: the training shapes, then hd 32 / 64 / 128
     (256, 50, 768, 12, False, torch.bfloat16),
     (256, 77, 512, 8, True, torch.bfloat16),

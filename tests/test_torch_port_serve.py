@@ -11,6 +11,7 @@ import io
 import json
 import socket
 import threading
+import time
 from http.client import HTTPConnection
 from http.server import ThreadingHTTPServer
 
@@ -68,6 +69,19 @@ def _request(port, method, path, body=None, headers=None):
         return resp.status, resp.read()
     finally:
         conn.close()
+
+
+def _metrics_once_counted(port, count, deadline_s=5.0):
+    """GET /metrics until ``requests_total`` reaches ``count``. The server
+    records a request after it has written the reply, so the client can read
+    the reply before the request is counted."""
+    end = time.monotonic() + deadline_s
+    while True:
+        status, body = _request(port, "GET", "/metrics")
+        m = json.loads(body)
+        if m["requests_total"] >= count or time.monotonic() > end:
+            return status, m
+        time.sleep(0.01)
 
 
 def _decode_b64(reply):
@@ -131,9 +145,9 @@ def test_healthz_and_metrics(service, server):
     assert status == 200 and health["status"] == "ok"
     assert health["embed_dim"] == 32 and health["batch_size"] == 4
     assert health["device"] == "cpu"
+    before = json.loads(_request(server, "GET", "/metrics")[1])["requests_total"]
     _request(server, "POST", "/embed_text", json.dumps({"texts": ["metrics"]}))
-    status, body = _request(server, "GET", "/metrics")
-    m = json.loads(body)
+    status, m = _metrics_once_counted(server, before + 1)
     assert status == 200 and m["requests_total"] >= 1 and m["latency_ms_p50"] is not None
     status, _ = _request(server, "POST", "/metrics/reset", "{}")
     assert status == 200
