@@ -9,8 +9,9 @@ the exit code is not 0. No JAX is imported.
 
 1. device  the card's name and power limit, as nvidia-smi reports them
 2. build   the CUDA kernels, compiled from spatial_clip_tpu_torch/csrc; ptxas's
-           registers and spills, and for the bf16 attention forward (the
-           tensor-core body) its registers, spills and blocks an SM
+           registers and spills, and for the bf16 attention forward and
+           backward (the tensor-core bodies) their registers, spills and
+           blocks an SM
 3. kernel  the inference attention kernel against its plain PyTorch version
            at the serving shapes (batch 64) and at phase 11's microbatch
            (1024, pass 1 and evaluate): max abs error against the stated
@@ -30,7 +31,12 @@ the exit code is not 0. No JAX is imported.
            phase 18's batches take) against their plain versions at the two
            towers' shapes at batch 256 (phase 8) and at microbatch 1024
            (phase 11's pass 2), and one f32 shape; db the same bits on a
-           rerun
+           rerun; then the bf16 backward in its three options at the
+           tensor-core body's tile edges and longest length
+           (BWD_EDGE_LENGTHS, batch 8, 4 heads of 32 / 64 / 128, causal
+           and not) against the plain version on the same lse, with the
+           share of dqkv elements on the plain version's bits and the mean
+           signed error of each case
 7. train-check  one ViT-B-32 train step's loss and gradients at batch 32 on
            the card (bf16, kernels) against the CPU (f32, plain path), on the
            same weights, batch and augmentation draws
@@ -149,7 +155,8 @@ the exit code is not 0. No JAX is imported.
            phase 8's, peak memory
 
 Phases 3, 6, 19, 23 and 26 also time PyTorch's scaled_dot_product_attention
-(efficient-attention backend) at the kernels' shapes as a yardstick, phase
+(efficient-attention backend) at the kernels' shapes as a yardstick (its
+backward alone, on one retained graph), phase
 12 PyTorch's LayerNorm and linear layers, phase 15 its linear and GELU,
 phase 22 the unfused half with SDPA, and phase 26 the cuBLAS dx GEMM; the
 port never calls them.
@@ -161,6 +168,7 @@ from __future__ import annotations
 
 import base64
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -181,6 +189,8 @@ MIN_GRAD_COSINE = 0.99  # its flattened gradient vs the f32 CPU step's
 LARGE_MICRO, LARGE_ACCUM, LARGE_STEPS = 1024, 2, 4  # spatial_v2_multi_chip's 2048 on one card
 NEIGHBORS = 6
 EDGE_LENGTHS = (1, 15, 16, 17, 50, 63, 64, 65, 77, 128, 129, 200, 256)  # phase 3's extra lengths
+# phase 6's bf16 backward lengths, and the longest each head dim takes
+BWD_EDGE_LENGTHS = (1, 15, 16, 17, 50, 63, 64, 65, 77, 128, 129)
 # the least time the card could take: H100 SXM, NVIDIA's data sheet
 HBM_BYTES_PER_S, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 
@@ -265,15 +275,59 @@ def forward_build_report(lib, report: str) -> str:
     return "; ".join(parts)
 
 
+def backward_build_report(lib, report: str) -> str:
+    """The bf16 backward instantiations (the tensor-core body): for the
+    standard kernel at each head dim, ptxas's registers and spill stores of
+    its three options (saved lse with db, recompute, recompute with db) and
+    the saved-lse kernel's resident blocks an SM at L = 50, 77 and the
+    longest taken (cudaOccupancyMaxActiveBlocksPerMultiprocessor); for the
+    pair, layout and dx backwards, their largest registers and spills."""
+    import ctypes
+
+    import torch
+
+    from spatial_clip_tpu_torch.ops.fused_attention import MAX_SEQ, bwd_supported
+
+    entries = ptxas_entries(report)
+    parts = []
+    for hd in (32, 64, 128):
+        options = []
+        for label, flags in (("lse_db", "Lb0ELb1E"), ("re", "Lb1ELb0E"), ("re_db", "Lb1ELb1E")):
+            found = [v for k, v in entries.items()
+                     if f"15attn_bwd_kernelI13__nv_bfloat16Li{hd}E{flags}" in k]
+            options.append(f"{label} {found[0][0]}/{found[0][1]} B" if found else f"{label} ?")
+        longest = max(L for L in range(1, MAX_SEQ + 1) if bwd_supported(1, hd, L, torch.bfloat16))
+        blocks = []
+        for L in (50, 77, longest):
+            r, local, n = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+            err = lib.sc_attention_bwd_occupancy(L, hd, 1, 0, ctypes.byref(r), ctypes.byref(local),
+                                                 ctypes.byref(n))
+            if err:
+                raise RuntimeError(f"sc_attention_bwd_occupancy L={L} hd={hd}: CUDA error {err}")
+            blocks.append(f"L{L} {n.value}")
+        parts.append(f"hd {hd}: registers/spill {', '.join(options)}; blocks an SM "
+                     f"{', '.join(blocks)}")
+    for kind in ("attn_pair_bwd_kernel", "attn_layout_bwd_kernel", "attn_bwd_dx_kernel"):
+        found = [v for k, v in entries.items() if kind in k and "__nv_bfloat16" in k]
+        if found:
+            parts.append(f"{kind} bf16 x{len(found)}: registers <= {max(v[0] for v in found)}, "
+                         f"spill <= {max(v[1] for v in found)} B")
+    return "; ".join(parts)
+
+
 def sdpa_ms(qkv, mask, heads: int) -> dict:
     """PyTorch's scaled_dot_product_attention with the efficient-attention
     backend (additive mask, logsumexp kept when grad is on) on q, k, v cut
     from qkv beforehand: forward, forward with lse (inputs that require
-    grad), and backward = forward+backward minus forward with lse (no bias
-    gradient). A yardstick only."""
+    grad), the backward alone (``bwd``: ``torch.autograd.grad`` of one
+    retained forward graph; no bias gradient) and, beside it, the noisier
+    difference forward+backward minus forward with lse (``bwd_diff``). A
+    yardstick only."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from spatial_clip_tpu_torch.bench_dx import sdpa_bwd_ms
 
     B, L, three_d = qkv.shape
     q, k, v = (t.contiguous() for t in
@@ -291,7 +345,8 @@ def sdpa_ms(qkv, mask, heads: int) -> dict:
             fwd = median_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias))
         fwd_lse = median_ms(lambda: F.scaled_dot_product_attention(qg, kg, vg, attn_mask=bias))
         both = median_ms(fwd_bwd)
-    return {"fwd": fwd, "fwd_lse": fwd_lse, "bwd": both - fwd_lse}
+    return {"fwd": fwd, "fwd_lse": fwd_lse, "bwd": sdpa_bwd_ms(q, k, v, bias, g),
+            "bwd_diff": both - fwd_lse}
 
 
 def train_tol(dtype, ref):
@@ -304,6 +359,20 @@ def train_tol(dtype, ref):
 
     scale = ref.abs().max().item()
     return 2e-5 * max(1.0, scale) if dtype == torch.float32 else 2 ** -8 * scale
+
+
+def bwd_tol(dtype, ref):
+    """The attention backwards' dqkv vs their plain versions. f32: as
+    train_tol. bf16: one bf16 ulp at the output's largest magnitude,
+    2^(floor(log2 max|ref|) - 7): an f32 sum in another order (the tensor
+    cores' against cuBLAS's) lands an element on the other side of a bf16
+    rounding, one ulp off, and at an element near max|ref| that ulp exceeds
+    2^-8 max|ref| whenever max|ref| is just above a power of two."""
+    import torch
+
+    if dtype == torch.float32:
+        return train_tol(dtype, ref)
+    return 2.0 ** (math.floor(math.log2(ref.abs().max().item())) - 7)
 
 
 def cosine(a, b) -> float:
@@ -426,7 +495,8 @@ def main() -> int:
     spills = sum(int(s) for s in re.findall(r"(\d+) bytes spill stores", report))
     print(f"[build] {lib_path.name} from {cuda_build.CSRC_DIR.name}/*.cu in {build_s:.2f} s "
           f"(nvcc sm_90a); ptxas: registers {regs}, spill stores {spills} B; bf16 forward "
-          f"(tensor cores): {forward_build_report(cuda_build.library(), report)}", flush=True)
+          f"(tensor cores): {forward_build_report(cuda_build.library(), report)}; bf16 backward "
+          f"(tensor cores): {backward_build_report(cuda_build.library(), report)}", flush=True)
 
     # 3. kernel vs plain version on the card
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -623,7 +693,8 @@ def main() -> int:
             "source": f"spatial_clip_tpu_torch/csrc/fused_attention_{part}.cu",
             "replaces": f"spatial_clip_tpu/ops/fused_attention.py:{line}",
             "launches": train[launch_key],
-            "max_abs_err": max(r[f"{part}_err"] for r in train_rows.values()),
+            "max_abs_err": max(r[f"{part}_err"] for r in train_rows.values()
+                               if f"{part}_err" in r),  # the edge sweep has no fwd_err
             "ms": row[f"{part}_ms"],
             "plain_ms": row[f"{part}_plain_ms"],
             "bound_ms": row[f"{part}_bound_ms"],
@@ -836,12 +907,12 @@ def kernel_train_phase() -> dict:
         checks = {  # name: (error, tolerance)
             "out": (out.float() - want_out.float(), train_tol(dtype, want_out.float())),
             "lse": (lse - want_lse, 1e-5 * max(1.0, want_lse.abs().max().item())),
-            "dqkv": (dqkv.float() - want_dqkv.float(), train_tol(dtype, want_dqkv.float())),
+            "dqkv": (dqkv.float() - want_dqkv.float(), bwd_tol(dtype, want_dqkv.float())),
             "db": (db - want_db, train_tol(dtype, want_db) + 1e-4),
             "dqkv_recompute": (dqkv_re.float() - want_re.float(),
-                               train_tol(dtype, want_re.float())),
+                               bwd_tol(dtype, want_re.float())),
             "dqkv_recompute_db": (dqkv_rd.float() - want_re.float(),
-                                  train_tol(dtype, want_re.float())),
+                                  bwd_tol(dtype, want_re.float())),
             "db_recompute_db": (db_rd - want_db_re, train_tol(dtype, want_db_re) + 1e-4),
         }
         errs = {k: (d.abs().max().item(), tol) for k, (d, tol) in checks.items()}
@@ -866,7 +937,8 @@ def kernel_train_phase() -> dict:
         row["bwd_rd_plain_ms"] = row["bwd_re_plain_ms"]  # one plain version returns both
         library = sdpa_ms(qkv, mask, H)
         row.update(fwd_library_ms=library["fwd_lse"], bwd_library_ms=library["bwd"],
-                   bwd_re_library_ms=library["bwd"], bwd_rd_library_ms=library["bwd"])
+                   bwd_re_library_ms=library["bwd"], bwd_rd_library_ms=library["bwd"],
+                   bwd_library_diff_ms=library["bwd_diff"])
         (row["fwd_bound_ms"], row["fwd_bound_by"]), (row["bwd_bound_ms"], row["bwd_bound_by"]) = (
             attention_bound(qkv, H, "fwd_lse"), attention_bound(qkv, H, "bwd"))
         row["bwd_re_bound_ms"], row["bwd_re_bound_by"] = attention_bound(qkv, H, "bwd_recompute")
@@ -879,13 +951,90 @@ def kernel_train_phase() -> dict:
               + f"; fwd_lse kernel {row['fwd_ms']:.4f} ms vs plain {row['fwd_plain_ms']:.4f} ms,"
               f" SDPA {row['fwd_library_ms']:.4f} ms, bound {row['fwd_bound_ms']:.4f} ms"
               f" ({row['fwd_bound_by']}); bwd kernel {row['bwd_ms']:.4f} ms vs plain "
-              f"{row['bwd_plain_ms']:.4f} ms, SDPA {row['bwd_library_ms']:.4f} ms, bound "
+              f"{row['bwd_plain_ms']:.4f} ms, SDPA bwd {row['bwd_library_ms']:.4f} ms (retained "
+              f"graph; fwd+bwd less fwd {row['bwd_library_diff_ms']:.4f}), bound "
               f"{row['bwd_bound_ms']:.4f} ms ({row['bwd_bound_by']}); recompute bwd kernel "
               f"{row['bwd_re_ms']:.4f} ms vs plain {row['bwd_re_plain_ms']:.4f} ms, bound "
               f"{row['bwd_re_bound_ms']:.4f} ms ({row['bwd_re_bound_by']}); recompute bwd with "
               f"db kernel {row['bwd_rd_ms']:.4f} ms, bound {row['bwd_rd_bound_ms']:.4f} ms "
               f"({row['bwd_rd_bound_by']}), db the same bits on a rerun", flush=True)
+    rows["edges"] = bwd_edges_phase()
     return rows
+
+
+def bwd_edges_phase() -> dict:
+    """6 (continued). The bf16 backward body (tensor cores: 16-row query and
+    key tiles, two passes) in its three options on each side of a tile edge
+    and at the longest length each head dim takes, causal and not, batch 8,
+    4 heads of 32 / 64 / 128: dqkv at bwd_tol and db at train_tol + 1e-4
+    against the plain version on the same lse, db the same bits on a rerun.
+    Prints each case's share of dqkv elements on the plain version's bits
+    and mean signed error. Returns the largest error of each option."""
+    import torch
+
+    from spatial_clip_tpu_torch.models.transformer import causal_mask
+    from spatial_clip_tpu_torch.ops.fused_attention import (
+        MAX_SEQ,
+        bwd_supported,
+        fused_attention_bwd,
+        fused_attention_bwd_recompute,
+        fused_attention_bwd_recompute_db,
+        fused_attention_lse,
+        reference_attention_bwd,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    B, H = 8, 4
+    worst = {"bwd_err": 0.0, "bwd_re_err": 0.0, "bwd_rd_err": 0.0}
+    n_cases = 0
+    for hd in (32, 64, 128):
+        longest = max(L for L in range(1, MAX_SEQ + 1) if bwd_supported(H, H * hd, L,
+                                                                        torch.bfloat16))
+        for L in (*BWD_EDGE_LENGTHS, longest):
+            for causal in (False, True):
+                qkv = torch.randn((B, L, 3 * H * hd), generator=gen, device="cuda").bfloat16()
+                g = torch.randn((B, L, H * hd), generator=gen, device="cuda").bfloat16()
+                mask = causal_mask(L, device="cuda") if causal else None
+                lse = fused_attention_lse(qkv, mask, H)[1]
+                want = {"bwd": reference_attention_bwd(qkv, mask, lse, g, H)}
+                want["bwd_re"] = want["bwd_rd"] = reference_attention_bwd(qkv, mask, None, g, H)
+                got = {"bwd": (fused_attention_bwd(qkv, mask, lse, g, H),
+                               fused_attention_bwd(qkv, mask, lse, g, H)[1]),
+                       "bwd_re": ((fused_attention_bwd_recompute(qkv, mask, g, H), None), None),
+                       "bwd_rd": (fused_attention_bwd_recompute_db(qkv, mask, g, H),
+                                  fused_attention_bwd_recompute_db(qkv, mask, g, H)[1])}
+                torch.cuda.synchronize()
+                parts = []
+                for key, ((dqkv, db), db_again) in got.items():
+                    want_dqkv, want_db = want[key]
+                    diff = dqkv.float() - want_dqkv.float()
+                    err, tol = diff.abs().max().item(), bwd_tol(torch.bfloat16,
+                                                                want_dqkv.float())
+                    ok = err <= tol and torch.isfinite(dqkv.float()).all().item()
+                    if db is not None:
+                        db_err = (db - want_db).abs().max().item()
+                        ok = (ok and db_err <= train_tol(torch.bfloat16, want_db) + 1e-4
+                              and torch.equal(db, db_again))
+                        err = max(err, db_err)
+                    if not ok:
+                        raise AssertionError(
+                            f"[kernel-train] bf16 bwd edge {key} hd={hd} L={L} causal={causal}: "
+                            f"dqkv err {diff.abs().max().item()} (tol {tol}), db err "
+                            f"{None if db is None else (db - want_db).abs().max().item()}, db "
+                            f"the same bits on a rerun {db is None or torch.equal(db, db_again)}")
+                    worst[f"{key}_err"] = max(worst[f"{key}_err"], err)
+                    parts.append(f"{key} err {err:.3g} (tol {tol:.3g}) bits "
+                                 f"{(diff == 0).float().mean().item():.6f} signed "
+                                 f"{diff.mean().item():.3g}")
+                n_cases += 1
+                print(f"[kernel-train] bf16 bwd edge hd {hd} L {L} "
+                      f"{'causal' if causal else 'none'}: " + "; ".join(parts), flush=True)
+    print(f"[kernel-train] bf16 backward over {n_cases} edge cases (batch {B}, {H} heads of "
+          f"32 / 64 / 128, L {list(BWD_EDGE_LENGTHS)} and the longest taken, causal and not), "
+          f"three options: max err saved lse {worst['bwd_err']:.3g}, recompute "
+          f"{worst['bwd_re_err']:.3g}, recompute with db {worst['bwd_rd_err']:.3g}, each within "
+          f"tolerance; db the same bits on a rerun", flush=True)
+    return worst
 
 
 def train_check_phase(label: str = "train-check", batch_size: int = CHECK_BATCH, **settings):
@@ -1719,7 +1868,7 @@ def sum_bounds(*bounds):
 
 def kernel_pair_phase() -> dict:
     """19. The pair kernels against their plain versions (forward at
-    KERNEL_TOL as phase 3; backward at train_tol as phase 6) and bit for bit
+    KERNEL_TOL as phase 3; backward at bwd_tol as phase 6) and bit for bit
     against the single-tower launches (the inference forward with no lse,
     the recompute backward without db); timed beside those two launches and
     beside SDPA on each tower."""
@@ -1758,7 +1907,7 @@ def kernel_pair_phase() -> dict:
         errs = {}
         for k, got, ref in zip(("ctx_a", "ctx_b", "dqkv_a", "dqkv_b"), (oa, ob, da, db), want):
             tol = (KERNEL_TOL[str(dtype).split(".")[-1]] if k.startswith("ctx")
-                   else train_tol(dtype, ref.float()))
+                   else bwd_tol(dtype, ref.float()))
             errs[k] = ((got.float() - ref.float()).abs().max().item(), tol)
         bad = {k: v for k, v in errs.items() if not v[0] <= v[1]}
         if bad or not all(same_bits):
@@ -1880,7 +2029,6 @@ def kernel_block_phase():
     and that arm with SDPA in place of the kernel (the library yardstick).
     Then bench_block for both towers, the kernel's main path, with its
     launches counted. Returns (rows, launches)."""
-    import math
 
     import torch
     import torch.nn.functional as F
@@ -1971,9 +2119,9 @@ LAYOUT_KERNELS = {  # phase 23's entries: the TPU kernel each replaces
 
 
 def kernel_layouts_phase():
-    """23. Each layout entry against its plain version (train_tol) and bit
-    for bit against the standard launch on the same data, the same bits on
-    a rerun; timed beside that standard launch, its plain version and SDPA.
+    """23. Each layout entry against its plain version (train_tol; dqkv
+    bwd_tol) and bit for bit against the standard launch on the same data,
+    the same bits on a rerun; timed beside that standard launch, its plain version and SDPA.
     The slab kernels' counters are set to 0 before the timed runs and read
     after them: those runs are their main path. Returns (rows by case and
     entry, slab launches)."""
@@ -2044,9 +2192,12 @@ def kernel_layouts_phase():
             torch.cuda.synchronize()
             got_t = got if isinstance(got, tuple) else (got,)
             want_t = want if isinstance(want, tuple) else (want,)
-            # each output at phase 6's tolerance; t_bwd's f32 db as phase 6's db
+            # each output at phase 6's tolerance (dqkv bwd_tol, t_bwd's f32 db
+            # train_tol + 1e-4), the contexts at train_tol
             errs = [((a.float() - b.float()).abs().max().item(),
-                     train_tol(dtype, b.float()) + (1e-4 if b.dim() == 1 else 0.0))
+                     train_tol(dtype, b.float()) + 1e-4 if b.dim() == 1
+                     else bwd_tol(dtype, b.float()) if entry.endswith("_bwd")
+                     else train_tol(dtype, b.float()))
                     for a, b in zip(got_t, want_t)]
             err, tol = max(errs)  # the largest error, beside its output's tolerance
             within = all(e <= t for e, t in errs)
@@ -2215,7 +2366,6 @@ def kernel_dx_phase() -> dict:
     recompute-with-db launch on the same data, dx and db the same bits on a
     rerun; timed beside its plain version, the unfused route, the library
     route (SDPA's backward and the cuBLAS dx GEMM) and SDPA's backward."""
-    import math
 
     import torch
 
@@ -2240,11 +2390,10 @@ def kernel_dx_phase() -> dict:
         torch.cuda.synchronize()
         dx_ref = want[1].float()
         peak = dx_ref.abs().max().item()
-        dx_tol = (1e-4 * max(1.0, peak) if dtype == torch.float32
-                  else 2.0 ** (math.floor(math.log2(peak)) - 7))
+        dx_tol = 1e-4 * max(1.0, peak) if dtype == torch.float32 else bwd_tol(dtype, dx_ref)
         checks = {  # output: (error, tolerance)
             "dqkv": ((got[0].float() - want[0].float()).abs().max().item(),
-                     train_tol(dtype, want[0].float())),
+                     bwd_tol(dtype, want[0].float())),
             "dx": ((got[1].float() - dx_ref).abs().max().item(), dx_tol),
             "db": ((got[2] - want[2]).abs().max().item(), train_tol(dtype, want[2]) + 1e-4),
         }

@@ -95,6 +95,21 @@ def median_ms(fn, reps: int = 7, inner: int = 20) -> float:
     return statistics.median(times)
 
 
+def sdpa_bwd_ms(q, k, v, bias, g) -> float:
+    """PyTorch's scaled_dot_product_attention backward alone (efficient-
+    attention backend, additive ``bias`` or None): ``torch.autograd.grad`` of
+    one retained forward graph on q, k, v (SDPA's (B, heads, L, hd) layout)
+    with the cotangent g; no bias gradient. A yardstick, used nowhere in the
+    package's path."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=bias)
+        return median_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), g, retain_graph=True))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tower", choices=("image", "text", "both"), default="both")

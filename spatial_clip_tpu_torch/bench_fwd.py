@@ -9,9 +9,10 @@ The forward body (``csrc/attention_fwd.cuh``, launched by
 Q K^T to P V when the row has at most ``kHold`` chunks of 16 keys, and
 recomputes them otherwise; its launch bounds size registers for
 ``kMinBlocks`` blocks an SM. This script builds one copy of that source per
-variant, with those constants changed (``VARIANTS``: each knob's value at hd
-128 and at hd 32 / 64), all at once in parallel under ``build/bench_fwd/``;
-``package`` is the source as it is.
+variant, with those constants at hd 32 and 64 set by nvcc ``-D`` (``KNOBS``:
+the macro whose ``#ifndef`` default in the header each knob overrides;
+``VARIANTS``: each knob's value; hd 128 keeps the package's), all at once in
+parallel under ``build/bench_fwd/``; ``package`` is the source as it is.
 
 For each tower's shape (image: (B, 50, 2304), no mask; text: (B, 77, 1536),
 causal; bf16, inputs from ``torch.Generator`` seed 0) and each batch, it
@@ -28,7 +29,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import re
 import shutil
 import subprocess
 
@@ -42,47 +42,54 @@ from spatial_clip_tpu_torch.ops import cuda_build
 from spatial_clip_tpu_torch.ops.fused_attention import fused_attention, fused_attention_lse
 
 TOWERS = {"image": (50, 768, 12, False), "text": (77, 512, 8, True)}  # L, D, heads, causal
-KNOBS = {  # constant: (pattern, replacement format) in csrc/attention_fwd.cuh
-    "hold": (re.compile(r"constexpr int kHold = HD == 128 \? \d+ : \d+;"),
-             "constexpr int kHold = HD == 128 ? {} : {};"),
-    "min_blocks": (re.compile(r"constexpr int kMinBlocks = HD == 128 \? \d+ : \d+;"),
-                   "constexpr int kMinBlocks = HD == 128 ? {} : {};"),
-}
-VARIANTS = {  # name: {knob: (its value at hd 128, at hd 32 / 64)}; the package's otherwise
+HEADER = "attention_fwd.cuh"
+KNOBS = {"hold": "SC_FWD_HOLD", "min_blocks": "SC_FWD_MIN_BLOCKS"}  # knob: its macro in HEADER
+VARIANTS = {  # name: {knob: its value at hd 32 and 64}; the package's otherwise
     "package": {},
-    "min_blocks1": {"min_blocks": (1, 1)},
-    "min_blocks3": {"min_blocks": (1, 3)},
-    "hold8": {"hold": (4, 8)},
-    "two_pass": {"hold": (0, 0)},
-    "two_pass_min_blocks3": {"hold": (0, 0), "min_blocks": (1, 3)},
+    "min_blocks1": {"min_blocks": 1},
+    "min_blocks3": {"min_blocks": 3},
+    "hold8": {"hold": 8},
+    "two_pass": {"hold": 0},
+    "two_pass_min_blocks3": {"hold": 0, "min_blocks": 3},
 }
 HBM_BYTES_PER_S = 3.35e12
 
 
-def build(names):
-    """name -> loaded library of each copy of csrc/fused_attention_fwd.cu."""
-    header = (cuda_build.CSRC_DIR / "attention_fwd.cuh").read_text()
-    for pattern, _ in KNOBS.values():
-        if len(pattern.findall(header)) != 1:
-            raise RuntimeError(f"attention_fwd.cuh: expected one {pattern.pattern!r}")
-    root = cuda_build.BUILD_DIR.parent / "bench_fwd"
+def parse_variants(text: str, variants: dict) -> list:
+    """The comma-separated names of ``--variants``, each a key of
+    ``variants``, in order and without repeats."""
+    names = [n.strip() for n in text.split(",") if n.strip()]
+    unknown = [n for n in names if n not in variants]
+    if unknown or not names:
+        raise ValueError(f"variants {unknown or text!r}: choose from {', '.join(variants)}")
+    return list(dict.fromkeys(names))
+
+
+def design_flags(header: str, knobs: dict, values: dict) -> list:
+    """nvcc's ``-D`` flags that set each knob of ``values`` (knob: its value
+    at hd 32 and 64); every knob's macro must have one ``#ifndef`` default in
+    ``header``, or the flag would set nothing."""
+    for macro in knobs.values():
+        if header.count(f"#ifndef {macro}\n") != 1:
+            raise RuntimeError(f"expected one '#ifndef {macro}'")
+    return [f"-D{knobs[knob]}={int(value)}" for knob, value in values.items()]
+
+
+def build_copies(source_name: str, flags: dict, functions, root_name: str):
+    """name -> loaded library of one build of ``csrc/<source_name>`` per entry
+    of ``flags`` (name -> its extra nvcc flags), compiled with the package's
+    nvcc flags, all at once in parallel, under ``build/<root_name>/``; each
+    copy's ``functions`` take the package library's argtypes."""
+    root = cuda_build.BUILD_DIR.parent / root_name
     shutil.rmtree(root, ignore_errors=True)
     jobs = {}
-    for name in names:
-        text = header
-        for knob, values in VARIANTS[name].items():
-            pattern, form = KNOBS[knob]
-            text = pattern.sub(form.format(*values), text)
+    for name, extra in flags.items():
         d = root / name
         d.mkdir(parents=True)
-        for h in cuda_build.CSRC_DIR.glob("*.cuh"):
-            shutil.copy(h, d / h.name)
-        (d / "attention_fwd.cuh").write_text(text)
-        shutil.copy(cuda_build.CSRC_DIR / "fused_attention_fwd.cu", d / "fused_attention_fwd.cu")
         jobs[name] = subprocess.Popen(
-            [cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
-             str(d / "fused_attention_fwd.cu")], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)
+            [cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, *extra, "-shared", "-o",
+             str(d / "lib.so"), str(cuda_build.CSRC_DIR / source_name)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     package = cuda_build.library()
     libs = {}
     for name, proc in jobs.items():
@@ -90,11 +97,20 @@ def build(names):
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc {name} failed:\n{out[-4000:]}")
         lib = ctypes.CDLL(str(root / name / "lib.so"))
-        for fn in ("sc_attention_fwd", "sc_attention_fwd_occupancy"):
+        for fn in functions:
             getattr(lib, fn).argtypes = getattr(package, fn).argtypes
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
     return libs
+
+
+def build(names):
+    """name -> loaded library of each copy of csrc/fused_attention_fwd.cu."""
+    header = (cuda_build.CSRC_DIR / HEADER).read_text()
+    return build_copies(
+        "fused_attention_fwd.cu",
+        {name: design_flags(header, KNOBS, VARIANTS[name]) for name in names},
+        ("sc_attention_fwd", "sc_attention_fwd_occupancy"), "bench_fwd")
 
 
 def occupancy(lib, seq: int, hd: int) -> dict:
@@ -114,8 +130,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("spatial_clip_tpu_torch.bench_fwd needs a CUDA GPU")
-    names = args.variants.split(",")
-    libs = build(names)
+    libs = build(parse_variants(args.variants, VARIANTS))
     gen = torch.Generator(device="cuda").manual_seed(0)
     for B in (int(b) for b in args.batch.split(",")):
         for tower, (L, D, H, causal) in TOWERS.items():

@@ -40,13 +40,14 @@
 // 12 heads of 64, Din 768; text tower L=77, 8 heads, Din 512, causal) the
 // call moves ~161-163 MB (qkv, do, W in; dqkv, dx out) for 40-51 GFLOP
 // (11 B H L^2 hd + 6 B L D Din), which at 989 TFLOP/s bf16 and 3.35 TB/s
-// is a balance of the two (0.05 ms either way). This first version is far
-// from it: the attention body runs on the CUDA cores, and every block reads
-// all of W (3.5 MB at the image tower) and, once per 128 columns of dx, its
-// own dqkv rows from L2, ~1.25 GB a call at the image tower. On an H100 SXM
-// the two phases take about as long each (PERF.md), and the product's time
-// follows those L2 bytes (~1.8 TB/s), not its pipeline depth. wgmma, TMA and
-// a cluster sharing W are later work.
+// is a balance of the two (0.05 ms either way). This version is far from
+// it: every block reads all of W (3.5 MB at the image tower) and, once per
+// 128 columns of dx, its own dqkv rows from L2, ~1.25 GB a call at the image
+// tower, and the product's time follows those L2 bytes (~1.8 TB/s), not its
+// pipeline depth (PERF.md). The attention body is the standard kernel's
+// (bf16 on the tensor cores) at 8 warps whatever L: its sums are fixed by
+// its tiles, not its warps. wgmma, TMA and a cluster sharing W are later
+// work.
 //
 // C interface (bound with ctypes; the caller allocates dqkv, dx, the (B, 3D)
 // f32 db partials and db, passes 16-byte aligned contiguous tensors and
@@ -65,13 +66,12 @@
 namespace {
 
 using namespace nvcuda;
-using sc::bwd::BwdLayout;
 using sc::bwd::kMaxSeq;
 using sc::bwd::kMaxSmem;
-using sc::bwd::kWarps;
 
 using bf16 = __nv_bfloat16;
 
+constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kBN = 128;  // dx columns a pass: 8 warps x 16 (bf16), 16 threads x 8 (f32)
 
@@ -293,7 +293,7 @@ __device__ void dx_product(const float* d3, const float* __restrict__ w, float* 
 
 template <typename T, int HD>
 size_t smem_bytes(int seq) {
-  const size_t body = BwdLayout<T, HD>::smem_bytes(seq), dx = DxTile<T, HD>::bytes();
+  const size_t body = sc::bwd::smem_bytes<T, HD>(seq), dx = DxTile<T, HD>::bytes();
   return body > dx ? body : dx;
 }
 
@@ -341,24 +341,6 @@ cudaError_t launch(const void* qkv, const float* mask, const void* dout, const v
   return sc::bwd::db_reduce(db_part, db, batch, 3 * heads * HD, stream);
 }
 
-template <typename T>
-cudaError_t dispatch_hd(const void* qkv, const float* mask, const void* dout, const void* w,
-                        void* dqkv, void* dx, float* db_part, float* db, int batch, int seq,
-                        int heads, int head_dim, int din, float scale, cudaStream_t stream) {
-  switch (head_dim) {
-    case 32:
-      return launch<T, 32>(qkv, mask, dout, w, dqkv, dx, db_part, db, batch, seq, heads, din,
-                           scale, stream);
-    case 64:
-      return launch<T, 64>(qkv, mask, dout, w, dqkv, dx, db_part, db, batch, seq, heads, din,
-                           scale, stream);
-    case 128:
-      return launch<T, 128>(qkv, mask, dout, w, dqkv, dx, db_part, db, batch, seq, heads, din,
-                            scale, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 bool aligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
@@ -378,17 +360,10 @@ extern "C" int sc_attention_bwd_dx(const void* qkv, const void* mask, const void
   const void* ptrs[] = {qkv, dout, w, dqkv, dx, db_part, db};
   for (const void* p : ptrs)
     if (!aligned(p)) return int(cudaErrorMisalignedAddress);
-  const float* m = static_cast<const float*>(mask);
-  float* part = static_cast<float*>(db_part);
-  float* d = static_cast<float*>(db);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return int(dispatch_hd<float>(qkv, m, dout, w, dqkv, dx, part, d, batch, seq, heads,
-                                    head_dim, din, scale, s));
-    case 1:
-      return int(dispatch_hd<bf16>(qkv, m, dout, w, dqkv, dx, part, d, batch, seq, heads,
-                                   head_dim, din, scale, s));
-    default: return int(cudaErrorInvalidValue);
-  }
+  return int(sc::with_type(dtype, head_dim, [&](auto zero, auto hd) {
+    return launch<decltype(zero), decltype(hd)::value>(
+        qkv, static_cast<const float*>(mask), dout, w, dqkv, dx, static_cast<float*>(db_part),
+        static_cast<float*>(db), batch, seq, heads, din, scale,
+        static_cast<cudaStream_t>(stream));
+  }));
 }

@@ -225,36 +225,41 @@ __device__ __forceinline__ void attn_fwd_head(const T* __restrict__ q_g, const T
 
 namespace tc {
 
-using bf16 = __nv_bfloat16;
+using namespace ::sc::mma;
 
-constexpr int kTile = 16;     // query rows of a warp's m-tile; keys of a chunk
-constexpr int kMaxWarps = 8;  // a block has min(m-tiles, kMaxWarps) warps
+// A block has min(m-tiles, kMaxWarps) warps; each takes m-tiles of kTile
+// query rows (sc::mma) in turn.
+constexpr int kMaxWarps = 8;
 constexpr int kMaxThreads = kMaxWarps * 32;
 // Key chunks whose scores a warp holds in registers from Q K^T to P V (8
-// floats a thread each): 80 keys, the text tower's 77, at hd 32 and 64.
-// Longer rows take the two-pass route.
+// floats a thread each) at hd 32 and 64: 80 keys, the text tower's 77. Four
+// at hd 128. Longer rows take the two-pass route.
+#ifndef SC_FWD_HOLD
+#define SC_FWD_HOLD 5
+#endif
 template <int HD>
-constexpr int kHold = HD == 128 ? 4 : 5;
-// Blocks of kMaxThreads an SM the launch bounds size registers for: ptxas
-// caps a thread at 65536 / (kMinBlocks * kMaxThreads) registers.
+constexpr int kHold = HD == 128 ? 4 : SC_FWD_HOLD;
+// Blocks of kMaxThreads an SM the launch bounds size registers for at hd 32
+// and 64 (one at hd 128): ptxas caps a thread at 65536 / (kMinBlocks *
+// kMaxThreads) registers.
+#ifndef SC_FWD_MIN_BLOCKS
+#define SC_FWD_MIN_BLOCKS 2
+#endif
 template <int HD>
-constexpr int kMinBlocks = HD == 128 ? 1 : 2;
+constexpr int kMinBlocks = HD == 128 ? 1 : SC_FWD_MIN_BLOCKS;
 static_assert(kHold<32> <= kMaxWarps && kHold<64> <= kMaxWarps && kHold<128> <= kMaxWarps,
               "a held score row needs its m-tile on a warp of its own");
 
-__host__ __device__ inline int tiles(int seq) { return (seq + kTile - 1) / kTile; }
 __host__ __device__ inline int threads(int seq) {
   return 32 * (tiles(seq) < kMaxWarps ? tiles(seq) : kMaxWarps);
 }
 
-// Shared memory: q, k and v of the head as three tiles of rows(seq) rows,
-// each row HD elements and 16 bytes of pad (kStride), rows >= seq zero; then
-// the f32 row max of each query row. With the pad the 8 rows an ldmatrix
-// phase reads start 16 bytes apart modulo 128, in 8 different bank groups.
+// Shared memory: q, k and v of the head as three tiles of rows(seq) rows
+// of kStride<HD> elements (sc::mma), rows >= seq zero; then the f32 row max
+// of each query row.
 template <int HD>
 struct Layout {
-  static constexpr int kStride = HD + 8;
-  static __host__ __device__ int rows(int seq) { return tiles(seq) * kTile; }
+  static constexpr int kStride = ::sc::mma::kStride<HD>;
   static __host__ __device__ size_t tile_bytes(int seq) {
     return size_t(rows(seq)) * kStride * sizeof(bf16);
   }
@@ -262,145 +267,6 @@ struct Layout {
     return 3 * tile_bytes(seq) + size_t(rows(seq)) * sizeof(float);
   }
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from src to shared memory, or 16 zero bytes where !valid (src-size
-// 0: nothing is read).
-__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// d += a b for one 16 x 8 x 16 tile: a bf16 row-major (4 registers), b bf16
-// column-major (2), d f32 (4).
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Starts copying rows [0, rows(seq)) of one operand (row r at src + r *
-// stride) into its tile; rows >= seq are zero-filled.
-template <int HD>
-__device__ __forceinline__ void copy_tile(bf16* tile, const bf16* __restrict__ src,
-                                          size_t stride, int seq) {
-  constexpr int kChunks = HD / 8;  // 16-byte chunks a row
-  const int n = Layout<HD>::rows(seq) * kChunks;
-  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
-    const int r = idx / kChunks, c = idx % kChunks;
-    const bool valid = r < seq;
-    cp_async_16(smem_addr(tile + r * Layout<HD>::kStride + c * 8),
-                valid ? src + r * stride + c * 8 : src, valid);
-  }
-}
-
-// Rows [0, seq) of a tile += bias (HD values), each sum rounded to bf16 by
-// the packed add (add_vec), before any ldmatrix reads them.
-template <int HD>
-__device__ __forceinline__ void add_bias(bf16* tile, const bf16* __restrict__ bias, int seq) {
-  constexpr int kChunks = HD / 8;
-  for (int idx = threadIdx.x; idx < seq * kChunks; idx += blockDim.x) {
-    const int r = idx / kChunks, c = idx % kChunks;
-    auto* p = reinterpret_cast<Vec<bf16, 8>*>(tile + r * Layout<HD>::kStride + c * 8);
-    *p = add_vec<bf16, 8>(*p, *reinterpret_cast<const Vec<bf16, 8>*>(bias + c * 8));
-  }
-}
-
-// The A fragments of query rows [16 mt, 16 mt + 16), all HD columns.
-template <int HD>
-__device__ __forceinline__ void load_q(uint32_t (&qa)[HD / 16][4], const bf16* q_s, int mt,
-                                       int lane) {
-  const uint32_t base =
-      smem_addr(q_s + (mt * kTile + (lane & 15)) * Layout<HD>::kStride + (lane >> 4) * 8);
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) ldmatrix_x4(qa[kk], base + kk * 16 * sizeof(bf16));
-}
-
-// One m-tile's view of the scores: the mask rows of its two accumulator
-// rows, and what every chunk needs.
-struct Rows {
-  const float* mask[2];  // rows g and g + 8 of the m-tile (the last row past seq), or null
-  int seq, t;
-  float scale;
-};
-
-__device__ __forceinline__ Rows tile_rows(const float* __restrict__ mask, int mt, int seq,
-                                          float scale, int lane) {
-  Rows r{{nullptr, nullptr}, seq, lane & 3, scale};
-  if (mask != nullptr) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h)  // a padded query row reads the last row; it is never stored
-      r.mask[h] = mask + size_t(min(mt * kTile + (lane >> 2) + 8 * h, seq - 1)) * seq;
-  }
-  return r;
-}
-
-// Scores of the warp's 16 query rows against keys [16 c, 16 c + 16):
-// s[n][e] = (q . k) * scale + mask[i, j] for row i = 16 mt + g + 8 (e / 2)
-// and key j = 16 c + 8 n + 2 t + e % 2 (g = lane / 4, t = lane % 4), the
-// mma accumulator layout; -inf for a key j >= seq, whatever the mask holds.
-// The product is an f32 sum of exact bf16 products; then one rounded
-// multiply and one rounded add, in the TPU kernel's order.
-template <int HD>
-__device__ __forceinline__ void scores(float (&s)[2][4], const uint32_t (&qa)[HD / 16][4],
-                                       const bf16* k_s, const Rows& r, int c, int lane) {
-#pragma unroll
-  for (int n = 0; n < 2; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-  // ldmatrix phases: keys 0-7 / 8-15 of the chunk, columns 0-7 / 8-15 of the k-step
-  const uint32_t base = smem_addr(k_s + (c * kTile + (lane & 7) + ((lane >> 4) << 3)) *
-                                            Layout<HD>::kStride + ((lane >> 3) & 1) * 8);
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    uint32_t b[4];
-    ldmatrix_x4(b, base + kk * 16 * sizeof(bf16));
-    mma_bf16(s[0], qa[kk], b[0], b[1]);
-    mma_bf16(s[1], qa[kk], b[2], b[3]);
-  }
-  const bool edge = (c + 1) * kTile > r.seq;  // the chunk holds keys past seq
-#pragma unroll
-  for (int n = 0; n < 2; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int j = c * kTile + n * 8 + 2 * r.t + (e & 1);
-      float v = __fmul_rn(s[n][e], r.scale);
-      if (edge && j >= r.seq) {
-        v = -INFINITY;
-      } else if (r.mask[0] != nullptr) {
-        v = __fadd_rn(v, __ldg(r.mask[e >> 1] + j));
-      }
-      s[n][e] = v;
-    }
-}
 
 __device__ __forceinline__ void row_max(float (&mx)[2], const float (&s)[2][4]) {
 #pragma unroll
@@ -427,24 +293,9 @@ __device__ __forceinline__ void pv_chunk(float (&o)[HD / 8][4], float (&sum)[2],
       sum[e >> 1] += x;
       p[n][e] = x;
     }
-  const uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
-                          pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
-#pragma unroll
-  for (int d = 0; d < HD / 8; d += 2) {
-    uint32_t b[4];
-    ldmatrix_x4_trans(b, v_base + (c * kTile * Layout<HD>::kStride + d * 8) * sizeof(bf16));
-    mma_bf16(o[d], pa, b[0], b[1]);
-    mma_bf16(o[d + 1], pa, b[2], b[3]);
-  }
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+  uint32_t pa[4];
+  pack_a(pa, p);
+  acc_rows<HD>(o, pa, v_base, c);
 }
 
 // One head of one sequence on the tensor cores (bf16), arguments as
@@ -493,7 +344,7 @@ __device__ __forceinline__ void attn_fwd_head(const bf16* __restrict__ q_g,
   uint32_t qa[HD / 16][4];
   float held[kHold<HD> > 0 ? kHold<HD> : 1][2][4];  // hold: this warp's one m-tile's scores
   for (int mt = warp; mt < n_tiles; mt += n_warps) {
-    load_q<HD>(qa, q_s, mt, lane);
+    load_a<HD>(qa, q_s, mt, lane);
     const Rows r = tile_rows(mask, mt, seq, scale, lane);
     float mx[2] = {-INFINITY, -INFINITY};
     if (hold) {
@@ -525,9 +376,7 @@ __device__ __forceinline__ void attn_fwd_head(const bf16* __restrict__ q_g,
     __syncthreads();
   }
 
-  // ldmatrix.trans phases: keys 0-7 / 8-15 of the chunk, columns 0-7 / 8-15 of a pair of n-tiles
-  const uint32_t v_base = smem_addr(v_s + ((lane & 7) + ((lane >> 3) & 1) * 8) * kS +
-                                    (lane >> 4) * 8);
+  const uint32_t v_base = trans_base<HD>(v_s, lane);
   for (int mt = warp; mt < n_tiles; mt += n_warps) {
     const float mx[2] = {max_s[mt * kTile + g], max_s[mt * kTile + g + 8]};
     float o[kDTiles][4];
@@ -541,7 +390,7 @@ __device__ __forceinline__ void attn_fwd_head(const bf16* __restrict__ q_g,
       for (int c = 0; c < kHold<HD>; ++c)
         if (c < n_tiles) pv_chunk<HD>(o, sum, held[c], mx, v_base, c, seq, t);
     } else {
-      load_q<HD>(qa, q_s, mt, lane);
+      load_a<HD>(qa, q_s, mt, lane);
       const Rows r = tile_rows(mask, mt, seq, scale, lane);
       for (int c = 0; c < n_tiles; ++c) {
         float s[2][4];

@@ -36,9 +36,9 @@
 // caps, the packed-pair mask and the VMEM limits.
 //
 // What bounds them is what bounds the standard kernels, whose bodies they
-// are (see fused_attention_fwd.cu): bytes for the bf16 forward on the tensor
-// cores, the CUDA cores' instruction rate for the backward and the f32
-// forward. The seq-major layout adds the bias to each landed tile before
+// are (see fused_attention_fwd.cu and fused_attention_bwd.cu): bytes for
+// bf16, both bodies on the tensor cores; the CUDA cores' instruction rate
+// for f32. The seq-major layout adds the bias to each landed tile before
 // the products read it; the slab grid has B blocks in place of B * heads, so
 // at B = 256 it fills the card's SMs about twice over with a head's work
 // serialized in each.
@@ -62,8 +62,8 @@
 namespace {
 
 // The forward and backward are separate launches, each with its body's
-// block shape: the forward's by element type and length (sc::fwd::threads).
-constexpr int kBwdThreads = sc::bwd::kWarps * 32;
+// block shape by element type and length (sc::fwd::threads,
+// sc::bwd::threads).
 constexpr int kMaxSeq = sc::fwd::kMaxSeq;
 constexpr size_t kMaxSmem = sc::bwd::kMaxSmem;
 
@@ -119,7 +119,7 @@ attn_layout_fwd_kernel(const Parts<const T> in, const T* __restrict__ bias,
 // HD). kBias (the seq-major layout): the bias added at load, and each
 // (batch, head) block's db partial to row b of db_part (batch, 3 heads HD).
 template <typename T, int HD, bool kSlab, bool kBias>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(sc::bwd::kMaxThreads<T>, (sc::bwd::kMinBlocks<T, HD>))
 attn_layout_bwd_kernel(const Parts<const T> in, const T* __restrict__ bias,
                        const float* __restrict__ mask, const T* __restrict__ dout,
                        const Parts<T> out, float* __restrict__ db_part, const Geometry g) {
@@ -166,40 +166,17 @@ template <typename T, int HD, bool kSlab, bool kBias>
 cudaError_t launch_bwd(const Parts<const T>& in, const T* bias, const float* mask,
                        const T* dout, const Parts<T>& out, float* db_part, float* db,
                        const Geometry& g, cudaStream_t stream) {
-  const size_t smem = sc::bwd::BwdLayout<T, HD>::smem_bytes(g.seq);
+  const size_t smem = sc::bwd::smem_bytes<T, HD>(g.seq);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   auto kernel = attn_layout_bwd_kernel<T, HD, kSlab, kBias>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<kSlab ? g.batch : g.batch * g.heads, kBwdThreads, smem, stream>>>(
+  kernel<<<kSlab ? g.batch : g.batch * g.heads, sc::bwd::threads<T>(g.seq), smem, stream>>>(
       in, bias, mask, dout, out, db_part, g);
   err = cudaGetLastError();
   if (err != cudaSuccess || !kBias) return err;
   return sc::bwd::db_reduce(db_part, db, g.batch, 3 * g.heads * HD, stream);
-}
-
-// Calls f with std::integral_constant<int, head_dim> for a head dim the
-// kernels take.
-template <typename F>
-cudaError_t with_head_dim(int head_dim, F&& f) {
-  switch (head_dim) {
-    case 32: return f(std::integral_constant<int, 32>{});
-    case 64: return f(std::integral_constant<int, 64>{});
-    case 128: return f(std::integral_constant<int, 128>{});
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// Calls f with a value of the element type that dtype names (0 = float32, 1 =
-// bfloat16).
-template <typename F>
-cudaError_t with_dtype(int dtype, F&& f) {
-  switch (dtype) {
-    case 0: return f(float{});
-    case 1: return f(__nv_bfloat16{});
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 bool aligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
@@ -239,14 +216,12 @@ template <bool kSlab, bool kBias>
 int run_fwd(const void* q, const void* k, const void* v, size_t stride_l, size_t stride_b,
             const void* bias, const void* mask, void* out, const Geometry& g, int head_dim,
             int dtype, void* stream) {
-  return int(with_dtype(dtype, [&](auto zero) {
+  return int(sc::with_type(dtype, head_dim, [&](auto zero, auto hd) {
     using T = decltype(zero);
-    return with_head_dim(head_dim, [&](auto hd) {
-      return launch_fwd<T, decltype(hd)::value, kSlab, kBias>(
-          parts_in<T>(q, k, v, stride_l, stride_b), static_cast<const T*>(bias),
-          static_cast<const float*>(mask), static_cast<T*>(out), g,
-          static_cast<cudaStream_t>(stream));
-    });
+    return launch_fwd<T, decltype(hd)::value, kSlab, kBias>(
+        parts_in<T>(q, k, v, stride_l, stride_b), static_cast<const T*>(bias),
+        static_cast<const float*>(mask), static_cast<T*>(out), g,
+        static_cast<cudaStream_t>(stream));
   }));
 }
 
@@ -255,15 +230,13 @@ int run_bwd(const void* q, const void* k, const void* v, size_t stride_l, size_t
             const void* bias, const void* mask, const void* dout, void* dq, void* dk, void* dv,
             size_t out_stride_l, size_t out_stride_b, void* db_part, void* db,
             const Geometry& g, int head_dim, int dtype, void* stream) {
-  return int(with_dtype(dtype, [&](auto zero) {
+  return int(sc::with_type(dtype, head_dim, [&](auto zero, auto hd) {
     using T = decltype(zero);
-    return with_head_dim(head_dim, [&](auto hd) {
-      return launch_bwd<T, decltype(hd)::value, kSlab, kBias>(
-          parts_in<T>(q, k, v, stride_l, stride_b), static_cast<const T*>(bias),
-          static_cast<const float*>(mask), static_cast<const T*>(dout),
-          parts_out<T>(dq, dk, dv, out_stride_l, out_stride_b), static_cast<float*>(db_part),
-          static_cast<float*>(db), g, static_cast<cudaStream_t>(stream));
-    });
+    return launch_bwd<T, decltype(hd)::value, kSlab, kBias>(
+        parts_in<T>(q, k, v, stride_l, stride_b), static_cast<const T*>(bias),
+        static_cast<const float*>(mask), static_cast<const T*>(dout),
+        parts_out<T>(dq, dk, dv, out_stride_l, out_stride_b), static_cast<float*>(db_part),
+        static_cast<float*>(db), g, static_cast<cudaStream_t>(stream));
   }));
 }
 

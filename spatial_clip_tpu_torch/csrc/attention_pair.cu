@@ -21,9 +21,11 @@
 // fused_attention_bwd.cu launch, at the same template arguments, so each
 // tower's output is bit for bit what sc_attention_fwd (null lse) and
 // sc_attention_bwd_recompute give: nothing is summed across blocks. What
-// bounds it is therefore what bounds those: bytes for the bf16 forward (on
-// the tensor cores, see fused_attention_fwd.cu), instruction issue on the
-// CUDA cores for the backward and the f32 forward. The towers may have
+// bounds it is therefore what bounds those: bytes for bf16 (both bodies on
+// the tensor cores, see fused_attention_fwd.cu and fused_attention_bwd.cu),
+// instruction issue on the CUDA cores for f32. Each tower's blocks take the
+// larger tower's warp count; a body's sums are fixed by its tiles, not by
+// its warps, so the bits do not move. The towers may have
 // different head dims (template HD_a, HD_b), sequence lengths, masks and
 // head counts, but one batch and one dtype; the dynamic shared memory is the
 // larger of the two towers' needs.
@@ -45,16 +47,20 @@
 namespace {
 
 // The forward and backward are separate launches, each with its body's
-// block shape: the forward's by element type and length (sc::fwd::threads).
-constexpr int kBwdThreads = sc::bwd::kWarps * 32;
+// block shape by element type and length (sc::fwd::threads,
+// sc::bwd::threads): the larger tower's.
 constexpr int kMaxSeq = sc::fwd::kMaxSeq;
 constexpr size_t kMaxSmem = sc::bwd::kMaxSmem;
 
-// The forward's launch bounds: the smaller of the two bodies' block counts.
+// The launch bounds: the smaller of the two bodies' block counts.
 template <typename T, int HDA, int HDB>
 constexpr int kPairMinBlocks = sc::fwd::kMinBlocks<T, HDA> < sc::fwd::kMinBlocks<T, HDB>
                                    ? sc::fwd::kMinBlocks<T, HDA>
                                    : sc::fwd::kMinBlocks<T, HDB>;
+template <typename T, int HDA, int HDB>
+constexpr int kPairBwdMinBlocks = sc::bwd::kMinBlocks<T, HDA> < sc::bwd::kMinBlocks<T, HDB>
+                                      ? sc::bwd::kMinBlocks<T, HDA>
+                                      : sc::bwd::kMinBlocks<T, HDB>;
 
 // One tower's operands. Forward: qkv -> out (the context). Backward: qkv and
 // dout (the context's cotangent) -> out (dqkv).
@@ -84,7 +90,7 @@ attn_pair_fwd_kernel(const Tower<T> a, const Tower<T> b, int batch) {
 }
 
 template <typename T, int HDA, int HDB>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(sc::bwd::kMaxThreads<T>, (kPairBwdMinBlocks<T, HDA, HDB>))
 attn_pair_bwd_kernel(const Tower<T> a, const Tower<T> b, int batch) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int blocks_a = batch * a.heads;
@@ -104,8 +110,8 @@ template <typename T, int HDA, int HDB, bool kBwd>
 cudaError_t launch(const Tower<T>& a, const Tower<T>& b, int batch, cudaStream_t stream) {
   size_t smem_a, smem_b;
   if constexpr (kBwd) {
-    smem_a = sc::bwd::BwdLayout<T, HDA>::smem_bytes(a.seq);
-    smem_b = sc::bwd::BwdLayout<T, HDB>::smem_bytes(b.seq);
+    smem_a = sc::bwd::smem_bytes<T, HDA>(a.seq);
+    smem_b = sc::bwd::smem_bytes<T, HDB>(b.seq);
   } else {
     smem_a = sc::fwd::smem_bytes<T, HDA>(a.seq);
     smem_b = sc::fwd::smem_bytes<T, HDB>(b.seq);
@@ -116,8 +122,8 @@ cudaError_t launch(const Tower<T>& a, const Tower<T>& b, int batch, cudaStream_t
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  const int fwd_threads = std::max(sc::fwd::threads<T>(a.seq), sc::fwd::threads<T>(b.seq));
-  const int threads = kBwd ? kBwdThreads : fwd_threads;
+  const int threads = kBwd ? std::max(sc::bwd::threads<T>(a.seq), sc::bwd::threads<T>(b.seq))
+                           : std::max(sc::fwd::threads<T>(a.seq), sc::fwd::threads<T>(b.seq));
   kernel<<<batch * (a.heads + b.heads), threads, smem, stream>>>(a, b, batch);
   return cudaGetLastError();
 }

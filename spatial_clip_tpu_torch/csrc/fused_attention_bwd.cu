@@ -39,33 +39,41 @@
 // What bounds it on an H100: at the training shapes (image tower B=256, L=50,
 // 12 heads of 64; text tower B=256, L=77, 8 heads of 64, causal) one call
 // reads ~20 MB (qkv, do) and writes ~15 MB (dqkv) for ~5 GFLOP of dots, ~140
-// FLOP/byte: on the tensor cores it would be memory bound, on the CUDA cores
-// it is bound by instruction issue. This first version runs the dots on the
-// CUDA cores (tensor cores, TMA and wgmma are later work) and is built so
-// that nothing but the inputs and outputs touches device memory:
-//   - one block per (batch, head). Q, K, V and do of that head are staged in
-//     shared memory in the input dtype, rows padded by 16 bytes so that lanes
-//     reading the same 16-byte column chunk of 8 different rows hit 8 bank
-//     groups;
-//   - phase 1, a warp per two query rows: each lane owns keys
-//     j = lane + 32 t and computes s and dp for both rows, p (the recompute
-//     option: the row max and sum by warp reductions) and the row term with
-//     warp sums, then ds; p and ds (rounded to the input dtype) go to two
-//     L x L tiles in shared memory, and the warp forms dq for its rows (each
-//     lane owns hd/32 output dims) and writes it;
-//   - phase 2, after a block barrier, a warp per four key rows: dk and dv are
-//     column sums over the p and ds tiles against Q and do;
-//   - db (db options): each block sums its rounded dq/dk/dv over its rows
-//     in a fixed order and writes one partial per batch row; a second small
-//     kernel (attention_db.cuh) adds the B partials of each column in a fixed
-//     order. The result is deterministic (the same bits every run), which
-//     atomicAdd into one (3D,) vector is not.
+// FLOP/byte: on the tensor cores it is memory bound (a bound of ~0.04 ms).
+// So qkv and do are read from device memory once, dqkv written once, and no
+// score leaves the SM. The body (attention_bwd.cuh) for bf16:
+//   - one block per (batch, head), a warp per 16-row tile up to 8. The
+//     head's q, k, v and do land in shared memory by 16-byte cp.async
+//     copies, rows padded by 16 bytes and zero-filled up to a multiple of 16
+//     (a zero do or v row keeps 0 x garbage from making a NaN);
+//   - the five products run on the tensor cores (mma.sync m16n8k16, bf16 in,
+//     f32 accumulate), their operands by ldmatrix (.trans where the
+//     contraction runs over rows); p and ds feed dq, dv and dk straight from
+//     the accumulators as A operands;
+//   - two passes keep no L x L tile: a query-major pass forms s, dp, p (the
+//     recompute option: the row max and clamped sum), r, ds and dq, and
+//     keeps the row statistics and r per row in shared memory; a key-major
+//     pass recomputes s^T and dp^T (the same products and roundings, so
+//     expected to match the first pass) and forms dv and dk. Rows of up to
+//     kHold key chunks keep s and dp in registers through the first pass.
+//     So shared memory is four padded L x hd tiles and 3 + 12 hd / 16 bytes
+//     a row: every L up to 256 at hd 32 and 64, up to 192 at hd 128;
+//   - db (db options): each 16-row tile's column sums of its rounded dq, dk
+//     and dv, added in tile order into one partial per block; a second small
+//     kernel (attention_db.cuh) adds the B partials of each column in a
+//     fixed order. Every sum is fixed by its tile, whichever warp runs it,
+//     so the result is the same bits every run and in every grid that runs
+//     the body (pair, layouts, dx), which atomicAdd would not be.
+// f32 keeps the CUDA-core body (attention_bwd.cuh simt::): phase 1 a warp per
+// two query rows (each lane owns keys j = lane + 32 t), p and ds as two
+// L x L tiles in shared memory, phase 2 a warp per four key rows.
 // The shared-memory footprint, the same for every option, sets the
 // geometries it takes (see sc_attention_bwd_smem_bytes; the Python wrapper
 // mirrors the formula).
 //
-// The body lives in attention_bwd.cuh as a device function, shared with the
-// two-tower kernel (attention_pair.cu).
+// The body lives in attention_bwd.cuh as device functions, shared with the
+// two-tower kernel (attention_pair.cu), the layout kernels
+// (attention_layouts.cu) and the dx kernel (attention_dx.cu).
 //
 // C interface (bound with ctypes; the caller allocates dqkv and, for the db
 // options, the (B, 3D) f32 partials and db, passes 16-byte aligned
@@ -76,20 +84,20 @@
 #include <cuda_runtime.h>
 
 #include <stdint.h>
+#include <type_traits>
 
 #include "attention_bwd.cuh"
 #include "attention_db.cuh"
 
 namespace {
 
-using sc::bwd::BwdLayout;
 using sc::bwd::kMaxSeq;
 using sc::bwd::kMaxSmem;
-using sc::bwd::kWarps;
+using sc::bwd::kMaxThreads;
 
 // One block per (batch, head); the body is sc::bwd::attn_bwd_block.
 template <typename T, int HD, bool kRecompute, bool kDb>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kMaxThreads<T>, (sc::bwd::kMinBlocks<T, HD>))
 attn_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
                 const float* __restrict__ lse, const T* __restrict__ dout,
                 T* __restrict__ dqkv, float* __restrict__ db_part, int seq, int heads,
@@ -105,46 +113,18 @@ template <typename T, int HD, bool kRecompute, bool kDb>
 cudaError_t launch(const void* qkv, const float* mask, const float* lse, const void* dout,
                    void* dqkv, float* db_part, float* db, int batch, int seq, int heads,
                    float scale, cudaStream_t stream) {
-  const size_t smem = BwdLayout<T, HD>::smem_bytes(seq);
+  const size_t smem = sc::bwd::smem_bytes<T, HD>(seq);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   auto kernel = attn_bwd_kernel<T, HD, kRecompute, kDb>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<batch * heads, kWarps * 32, smem, stream>>>(
+  kernel<<<batch * heads, sc::bwd::threads<T>(seq), smem, stream>>>(
       static_cast<const T*>(qkv), mask, lse, static_cast<const T*>(dout),
       static_cast<T*>(dqkv), db_part, seq, heads, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || !kDb) return err;
   return sc::bwd::db_reduce(db_part, db, batch, 3 * heads * HD, stream);
-}
-
-template <typename T>
-size_t smem_for(int seq, int head_dim) {
-  switch (head_dim) {
-    case 32: return BwdLayout<T, 32>::smem_bytes(seq);
-    case 64: return BwdLayout<T, 64>::smem_bytes(seq);
-    case 128: return BwdLayout<T, 128>::smem_bytes(seq);
-    default: return 0;
-  }
-}
-
-template <typename T, bool kRecompute, bool kDb>
-cudaError_t dispatch_hd(const void* qkv, const float* mask, const float* lse, const void* dout,
-                        void* dqkv, float* db_part, float* db, int batch, int seq, int heads,
-                        int head_dim, float scale, cudaStream_t stream) {
-  switch (head_dim) {
-    case 32:
-      return launch<T, 32, kRecompute, kDb>(qkv, mask, lse, dout, dqkv, db_part, db, batch,
-                                            seq, heads, scale, stream);
-    case 64:
-      return launch<T, 64, kRecompute, kDb>(qkv, mask, lse, dout, dqkv, db_part, db, batch,
-                                            seq, heads, scale, stream);
-    case 128:
-      return launch<T, 128, kRecompute, kDb>(qkv, mask, lse, dout, dqkv, db_part, db, batch,
-                                             seq, heads, scale, stream);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 template <bool kRecompute, bool kDb>
@@ -155,21 +135,12 @@ int dispatch(const void* qkv, const void* mask, const void* lse, const void* dou
   if ((reinterpret_cast<uintptr_t>(qkv) | reinterpret_cast<uintptr_t>(dout) |
        reinterpret_cast<uintptr_t>(dqkv)) % 16 != 0)
     return int(cudaErrorMisalignedAddress);
-  const float* m = static_cast<const float*>(mask);
-  const float* l = static_cast<const float*>(lse);
-  float* part = static_cast<float*>(db_part);
-  float* d = static_cast<float*>(db);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return int(dispatch_hd<float, kRecompute, kDb>(qkv, m, l, dout, dqkv, part, d, batch,
-                                                     seq, heads, head_dim, scale, s));
-    case 1:
-      return int(dispatch_hd<__nv_bfloat16, kRecompute, kDb>(qkv, m, l, dout, dqkv, part, d,
-                                                             batch, seq, heads, head_dim, scale,
-                                                             s));
-    default: return int(cudaErrorInvalidValue);
-  }
+  return int(sc::with_type(dtype, head_dim, [&](auto zero, auto hd) {
+    return launch<decltype(zero), decltype(hd)::value, kRecompute, kDb>(
+        qkv, static_cast<const float*>(mask), static_cast<const float*>(lse), dout, dqkv,
+        static_cast<float*>(db_part), static_cast<float*>(db), batch, seq, heads, scale,
+        static_cast<cudaStream_t>(stream));
+  }));
 }
 
 }  // namespace
@@ -177,7 +148,12 @@ int dispatch(const void* qkv, const void* mask, const void* lse, const void* dou
 // Shared memory one block of the backward needs, in bytes (0 for a head_dim it
 // does not take). dtype: 0 = float32, 1 = bfloat16.
 extern "C" size_t sc_attention_bwd_smem_bytes(int seq, int head_dim, int dtype) {
-  return dtype == 0 ? smem_for<float>(seq, head_dim) : smem_for<__nv_bfloat16>(seq, head_dim);
+  size_t bytes = 0;
+  sc::with_type(dtype, head_dim, [&](auto zero, auto hd) {
+    bytes = sc::bwd::smem_bytes<decltype(zero), decltype(hd)::value>(seq);
+    return cudaSuccess;
+  });
+  return bytes;
 }
 
 // qkv: (batch, seq, 3 * heads * head_dim); mask: (seq, seq) f32 additive or null;
@@ -188,8 +164,8 @@ extern "C" int sc_attention_bwd(const void* qkv, const void* mask, const void* l
                                 const void* dout, void* dqkv, void* db_part, void* db,
                                 int batch, int seq, int heads, int head_dim, int dtype,
                                 float scale, void* stream) {
-  return dispatch<false, true>(qkv, mask, lse, dout, dqkv, db_part, db, batch, seq, heads, head_dim,
-                         dtype, scale, stream);
+  return dispatch<false, true>(qkv, mask, lse, dout, dqkv, db_part, db, batch, seq, heads,
+                               head_dim, dtype, scale, stream);
 }
 
 // The recompute option: as sc_attention_bwd with no lse and no db; writes dqkv.
@@ -209,4 +185,35 @@ extern "C" int sc_attention_bwd_recompute_db(const void* qkv, const void* mask,
                                              void* stream) {
   return dispatch<true, true>(qkv, mask, nullptr, dout, dqkv, db_part, db, batch, seq, heads,
                               head_dim, dtype, scale, stream);
+}
+
+// The backward kernel's registers a thread, local (spill) bytes a thread and
+// resident blocks an SM at this geometry, for the build report. option: 0 =
+// saved lse with db (sc_attention_bwd), 1 = recompute, 2 = recompute with db.
+extern "C" int sc_attention_bwd_occupancy(int seq, int head_dim, int dtype, int option,
+                                          int* regs, int* local_bytes, int* blocks_per_sm) {
+  if (seq < 1 || seq > kMaxSeq || option < 0 || option > 2) return int(cudaErrorInvalidValue);
+  auto query = [&](auto kernel, int threads, size_t smem) {
+    if (smem > kMaxSmem) return cudaErrorInvalidValue;
+    cudaFuncAttributes attr{};
+    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, threads, smem);
+    *regs = attr.numRegs;
+    *local_bytes = int(attr.localSizeBytes);
+    return err;
+  };
+  return int(sc::with_type(dtype, head_dim, [&](auto zero, auto hd) {
+    using T = decltype(zero);
+    constexpr int HD = decltype(hd)::value;
+    const int threads = sc::bwd::threads<T>(seq);
+    const size_t smem = sc::bwd::smem_bytes<T, HD>(seq);
+    switch (option) {
+      case 0: return query(attn_bwd_kernel<T, HD, false, true>, threads, smem);
+      case 1: return query(attn_bwd_kernel<T, HD, true, false>, threads, smem);
+      default: return query(attn_bwd_kernel<T, HD, true, true>, threads, smem);
+    }
+  }));
 }

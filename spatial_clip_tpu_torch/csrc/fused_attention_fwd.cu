@@ -98,25 +98,6 @@ cudaError_t launch(const void* qkv, const float* mask, void* out, float* lse, in
   return cudaGetLastError();
 }
 
-// Calls f with a value of the element type that dtype names (0 = float32, 1 =
-// bfloat16) and std::integral_constant<int, head_dim>.
-template <typename F>
-cudaError_t with_type(int dtype, int head_dim, F&& f) {
-  auto hd = [&](auto zero) {
-    switch (head_dim) {
-      case 32: return f(zero, std::integral_constant<int, 32>{});
-      case 64: return f(zero, std::integral_constant<int, 64>{});
-      case 128: return f(zero, std::integral_constant<int, 128>{});
-      default: return cudaErrorInvalidValue;
-    }
-  };
-  switch (dtype) {
-    case 0: return hd(float{});
-    case 1: return hd(__nv_bfloat16{});
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. mask: (seq, seq) f32 additive mask or null.
@@ -127,7 +108,7 @@ extern "C" int sc_attention_fwd(const void* qkv, const void* mask, void* out, vo
   if (batch < 1 || heads < 1 || seq < 1 || seq > kMaxSeq) return int(cudaErrorInvalidValue);
   if ((reinterpret_cast<uintptr_t>(qkv) | reinterpret_cast<uintptr_t>(out)) % 16 != 0)
     return int(cudaErrorMisalignedAddress);
-  return int(with_type(dtype, head_dim, [&](auto zero, auto hd) {
+  return int(sc::with_type(dtype, head_dim, [&](auto zero, auto hd) {
     return launch<decltype(zero), decltype(hd)::value>(qkv, static_cast<const float*>(mask), out,
                                                        static_cast<float*>(lse), batch, seq,
                                                        heads, scale,
@@ -140,7 +121,7 @@ extern "C" int sc_attention_fwd(const void* qkv, const void* mask, void* out, vo
 extern "C" size_t sc_attention_fwd_smem_bytes(int seq, int head_dim, int dtype) {
   if (seq < 1 || seq > kMaxSeq) return 0;
   size_t bytes = 0;
-  with_type(dtype, head_dim, [&](auto zero, auto hd) {
+  sc::with_type(dtype, head_dim, [&](auto zero, auto hd) {
     bytes = sc::fwd::smem_bytes<decltype(zero), decltype(hd)::value>(seq);
     return cudaSuccess;
   });
@@ -152,7 +133,7 @@ extern "C" size_t sc_attention_fwd_smem_bytes(int seq, int head_dim, int dtype) 
 extern "C" int sc_attention_fwd_occupancy(int seq, int head_dim, int dtype, int* regs,
                                           int* local_bytes, int* blocks_per_sm) {
   if (seq < 1 || seq > kMaxSeq) return int(cudaErrorInvalidValue);
-  return int(with_type(dtype, head_dim, [&](auto zero, auto hd) {
+  return int(sc::with_type(dtype, head_dim, [&](auto zero, auto hd) {
     using T = decltype(zero);
     auto kernel = attn_fwd_kernel<T, decltype(hd)::value>;
     const size_t smem = sc::fwd::smem_bytes<T, decltype(hd)::value>(seq);

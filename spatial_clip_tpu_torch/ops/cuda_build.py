@@ -141,6 +141,9 @@ def library() -> ctypes.CDLL:
             lib.sc_attention_fwd_occupancy.restype = i32
             lib.sc_attention_bwd_smem_bytes.argtypes = [i32, i32, i32]
             lib.sc_attention_bwd_smem_bytes.restype = ctypes.c_size_t
+            lib.sc_attention_bwd_occupancy.argtypes = [i32, i32, i32, i32,  # L, hd, dtype, option
+                                                       i32p, i32p, i32p]  # regs, local B, blocks
+            lib.sc_attention_bwd_occupancy.restype = i32
             ce_inputs = [ptr] * 7  # q, kmat, col_ids, gt_ids, nbr, alphas, scale
             ce_scratch = [ptr, ctypes.c_size_t]  # scratch and its f32 elements
             ce_sizes = [i32] * 4  # B, N, D, k

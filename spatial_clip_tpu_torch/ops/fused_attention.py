@@ -48,12 +48,11 @@ from spatial_clip_tpu_torch.ops import cuda_build
 
 HEAD_DIMS = (32, 64, 128)
 MAX_SEQ = 256
-# the backward's block geometry (csrc/fused_attention_bwd.cu BwdLayout)
-_BWD_WARPS, _BWD_ROWS = 8, 2
-# the forward's (csrc/attention_fwd.cuh): bf16 on the tensor cores in tiles of
-# 16 query rows and 16 keys; f32 on the CUDA cores, 8 warps of 2 rows a pass
-_FWD_TILE = 16
-_FWD_SIMT_WARPS, _FWD_SIMT_ROWS = 8, 2
+# the bodies' block geometry (csrc/attention_fwd.cuh, csrc/attention_bwd.cuh):
+# bf16 on the tensor cores in tiles of 16 query rows and 16 keys; f32 on the
+# CUDA cores, 8 warps of 2 query rows a pass (the backward's phase 1)
+_TILE = 16
+_SIMT_WARPS, _SIMT_ROWS = 8, 2
 MAX_SMEM_BYTES = 232448  # 227 KB: the most shared memory a block may use on sm_90
 
 # QKVAttention's backward, read at backward time as JAX reads its
@@ -98,24 +97,31 @@ def supported(heads: int, width: int) -> bool:
 
 
 def bwd_smem_bytes(seq: int, head_dim: int, dtype: torch.dtype) -> int:
-    """Shared memory one block of the backward kernel needs: Q, K, V and do
-    of one (batch, head) in the input dtype with 16-byte padded rows, the p
-    and ds tiles (seq x seq rounded up to 8), and f32 per-warp rows and db
-    partials. Mirrors ``sc_attention_bwd_smem_bytes``."""
+    """Shared memory one block of the backward kernel needs, in every
+    option. bf16: q, k, v and do of one (batch, head) as four tiles of
+    :func:`fwd_rows` rows of head_dim elements plus 16 bytes of pad, three
+    f32 values a row (the softmax statistics and the row term r), and the
+    f32 column sums of each 16-row tile's dq, dk and dv (db). f32: Q, K, V
+    and do in 16-byte padded rows, the p and ds tiles (seq x seq rounded up
+    to 8), and f32 per-warp rows and db partials. Mirrors
+    ``sc_attention_bwd_smem_bytes``."""
+    if dtype == torch.bfloat16:
+        rows = fwd_rows(seq, dtype)
+        return 4 * rows * (head_dim + 8) * 2 + 3 * rows * 4 + rows // _TILE * 3 * head_dim * 4
     item = torch.empty((), dtype=dtype).element_size()
     stride = head_dim + 16 // item
     seq_pad = (seq + 7) // 8 * 8
-    warp_floats = _BWD_ROWS * (2 * head_dim + seq_pad)
+    warp_floats = _SIMT_ROWS * (2 * head_dim + seq_pad)
     return ((4 * seq * stride + 2 * seq * seq_pad) * item
-            + (_BWD_WARPS * warp_floats + _BWD_WARPS * 3 * head_dim) * 4)
+            + (_SIMT_WARPS * warp_floats + _SIMT_WARPS * 3 * head_dim) * 4)
 
 
 def fwd_rows(seq: int, dtype: torch.dtype) -> int:
-    """Rows of q, k and v the bf16 forward body stages for a sequence of
-    ``seq``: ``seq`` rounded up to a 16-row tile, the rows past it zero (the
-    padded keys as many). The f32 body pads none."""
+    """Rows of each operand the bf16 bodies (forward and backward) stage for
+    a sequence of ``seq``: ``seq`` rounded up to a 16-row tile, the rows past
+    it zero (the padded keys as many). The f32 bodies pad none."""
     if dtype == torch.bfloat16:
-        return (seq + _FWD_TILE - 1) // _FWD_TILE * _FWD_TILE
+        return (seq + _TILE - 1) // _TILE * _TILE
     return seq
 
 
@@ -129,14 +135,14 @@ def fwd_smem_bytes(seq: int, head_dim: int, dtype: torch.dtype) -> int:
         rows = fwd_rows(seq, dtype)
         return 3 * rows * (head_dim + 8) * 2 + rows * 4
     seq_pad = (seq + 3) // 4 * 4
-    warp_floats = _FWD_SIMT_ROWS * (head_dim + seq_pad)
-    return seq * (head_dim + 4) * 4 + _FWD_SIMT_WARPS * warp_floats * 4
+    warp_floats = _SIMT_ROWS * (head_dim + seq_pad)
+    return seq * (head_dim + 4) * 4 + _SIMT_WARPS * warp_floats * 4
 
 
 def bwd_supported(heads: int, width: int, seq: int, dtype: torch.dtype) -> bool:
     """Whether the backward kernel takes this geometry: a forward head_dim,
     1 <= seq <= 256, and one (batch, head) within a block's shared memory.
-    The longest L taken, for head_dim 32 / 64 / 128: bf16 192 / 166 / 122,
+    The longest L taken, for head_dim 32 / 64 / 128: bf16 256 / 256 / 192,
     f32 130 / 106 / 72."""
     return (supported(heads, width) and 1 <= seq <= MAX_SEQ and dtype in cuda_build.DTYPE_CODES
             and bwd_smem_bytes(seq, width // heads, dtype) <= MAX_SMEM_BYTES)

@@ -142,14 +142,17 @@ def test_forward_pads_rows_and_keys_as_the_kernel(L, rows):
 
 @pytest.mark.parametrize("variant", sorted(bench_fwd.VARIANTS))
 def test_bench_fwd_variants_rewrite_the_source_and_refuse_without_a_gpu(variant):
-    """Each ``bench_fwd`` variant sets its constants in one place of the
-    forward body's header; the script parses its flags, then refuses: no
-    CUDA here."""
-    header = (cuda_build.CSRC_DIR / "attention_fwd.cuh").read_text()
-    for knob, (pattern, form) in bench_fwd.KNOBS.items():
-        assert len(pattern.findall(header)) == 1
-        if knob in bench_fwd.VARIANTS[variant]:
-            line = form.format(*bench_fwd.VARIANTS[variant][knob])
-            assert pattern.findall(pattern.sub(line, header)) == [line]
+    """Each ``bench_fwd`` variant sets its constants through nvcc ``-D``, each
+    a macro with one ``#ifndef`` default in the forward body's header (a flag
+    for a macro the header lacks is refused); the script parses its flags,
+    then refuses: no CUDA here."""
+    header = (cuda_build.CSRC_DIR / bench_fwd.HEADER).read_text()
+    values = bench_fwd.VARIANTS[variant]
+    assert bench_fwd.design_flags(header, bench_fwd.KNOBS, values) == [
+        f"-D{bench_fwd.KNOBS[knob]}={value}" for knob, value in values.items()]
+    for macro in bench_fwd.KNOBS.values():
+        assert header.count(f"#ifndef {macro}\n") == 1 and header.count(macro) == 3
+        with pytest.raises(RuntimeError, match=macro):
+            bench_fwd.design_flags(header.replace(macro, "SC_OTHER"), bench_fwd.KNOBS, values)
     with pytest.raises(SystemExit, match="needs a CUDA GPU"):
         bench_fwd.main(["--variants", variant, "--batch", "8"])

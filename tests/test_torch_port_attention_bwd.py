@@ -25,6 +25,8 @@ import pytest
 import torch
 
 from spatial_clip_tpu.ops import fused_attention as jfa
+from spatial_clip_tpu_torch import bench_backward
+from spatial_clip_tpu_torch.ops import cuda_build
 from spatial_clip_tpu_torch.ops import fused_attention as pfa
 from spatial_clip_tpu_torch.ops.fused_attention import (
     FusedAttention,
@@ -265,7 +267,64 @@ def test_backward_geometry_set():
     assert not bwd_supported(2, 256, 73, torch.float32)  # hd 128, f32
     assert bwd_supported(2, 256, 72, torch.float32)
     assert not bwd_supported(2, 96, 16, torch.float32)  # hd 48
-    assert bwd_smem_bytes(77, 64, torch.bfloat16) == 88448
+    assert bwd_smem_bytes(77, 64, torch.bfloat16) == 50880
+
+
+@pytest.mark.parametrize("L,rows,bf16_bytes", [(50, 64, 40704), (77, 80, 50880), (256, 256, 162816)])
+def test_bf16_backward_smem_formula(L, rows, bf16_bytes):
+    """The bf16 (tensor-core) body at hd 64: q, k, v and do in four tiles of
+    whole 16-row tiles of 64 + 8 elements, three f32 values a row and three
+    f32 column sums of 64 a tile. The f32 (CUDA-core) body's formula is
+    unchanged: Q, K, V, do in 16-byte padded rows, the p and ds tiles, f32
+    warp rows and db partials."""
+    assert bwd_smem_bytes(L, 64, torch.bfloat16) == bf16_bytes == (
+        4 * rows * 72 * 2 + 3 * rows * 4 + rows // 16 * 3 * 64 * 4)
+    seq_pad = (L + 7) // 8 * 8
+    assert bwd_smem_bytes(L, 64, torch.float32) == (
+        (4 * L * 68 + 2 * L * seq_pad) * 4 + (8 * 2 * (128 + seq_pad) + 8 * 3 * 64) * 4)
+    assert bwd_smem_bytes(77, 64, torch.float32) == 152512
+
+
+@pytest.mark.parametrize("hd,took,longest", [(32, 192, 256), (64, 166, 256), (128, 122, 192)])
+def test_bf16_backward_takes_every_length_it_took(hd, took, longest):
+    """Every bf16 length the CUDA-core body took (192 / 166 / 122 at hd 32 /
+    64 / 128) is still taken, so no model that trained starts to raise; the
+    tensor-core body takes up to ``longest`` and refuses what its shared
+    memory cannot hold."""
+    for L in range(1, took + 1):
+        assert bwd_supported(2, 2 * hd, L, torch.bfloat16)
+    assert max(L for L in range(1, 257) if bwd_supported(2, 2 * hd, L, torch.bfloat16)) == longest
+    assert not bwd_supported(2, 2 * hd, 257, torch.bfloat16)
+    if longest < 256:
+        assert bwd_smem_bytes(longest + 1, hd, torch.bfloat16) > pfa.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("variant", sorted(bench_backward.VARIANTS))
+def test_bench_backward_parses_variants_and_refuses_without_a_gpu(variant):
+    """Each ``bench_backward`` variant sets its constants through nvcc
+    ``-D``, each a macro with one ``#ifndef`` default in the backward body's
+    header (a flag for a macro the header lacks is refused); ``--variants``
+    takes known names in order without repeats and refuses others; the
+    script then refuses: no CUDA here."""
+    header = (cuda_build.CSRC_DIR / bench_backward.HEADER).read_text()
+    knobs, variants = bench_backward.KNOBS, bench_backward.VARIANTS
+    assert bench_backward.design_flags(header, knobs, variants[variant]) == [
+        f"-D{knobs[knob]}={value}" for knob, value in variants[variant].items()]
+    for macro in knobs.values():
+        assert header.count(f"#ifndef {macro}\n") == 1 and header.count(macro) == 3
+        with pytest.raises(RuntimeError, match=macro):
+            bench_backward.design_flags(header.replace(macro, "SC_OTHER"), knobs,
+                                        variants[variant])
+    assert bench_backward.parse_variants(f" {variant},package,{variant}", variants) == list(
+        dict.fromkeys([variant, "package"]))
+    with pytest.raises(ValueError, match="choose from"):
+        bench_backward.parse_variants(f"{variant},no_such_variant", variants)
+    with pytest.raises(ValueError, match="choose from"):
+        bench_backward.parse_variants(",", variants)
+    with pytest.raises(ValueError, match="choose from"):
+        bench_backward.main(["--variants", "no_such_variant"])
+    with pytest.raises(SystemExit, match="needs a CUDA GPU"):
+        bench_backward.main(["--variants", variant, "--batch", "8"])
 
 
 @pytest.mark.parametrize("make,why", [

@@ -133,8 +133,10 @@ BWD_CASES = [  # B, L, D, H, causal, dtype: the training shapes, then hd 32 / 64
     (2, 17, 384, 3, False, torch.float32),
     (2, 9, 256, 8, True, torch.float32),
     (2, 72, 256, 2, True, torch.float32),  # the longest f32 hd 128 sequence taken
-    (2, 166, 256, 4, True, torch.bfloat16),  # the longest bf16 hd 64 sequence taken
-    (2, 122, 512, 4, False, torch.bfloat16),  # the longest bf16 hd 128 sequence taken
+    (2, 166, 256, 4, True, torch.bfloat16),  # the CUDA-core body's longest bf16 hd 64
+    (2, 122, 512, 4, False, torch.bfloat16),  # the CUDA-core body's longest bf16 hd 128
+    (2, 256, 256, 4, True, torch.bfloat16),  # the longest bf16 hd 64 sequence taken
+    (2, 192, 512, 4, False, torch.bfloat16),  # the longest bf16 hd 128 sequence taken
     (3, 1, 256, 4, False, torch.float32),  # one token, odd batch
 ]
 
@@ -147,6 +149,17 @@ def _tol(dtype, ref):
     if dtype == torch.float32:
         return 2e-5 * max(1.0, ref.abs().max().item())
     return 2 ** -8 * ref.abs().max().item()
+
+
+def _bwd_tol(dtype, ref):
+    """The attention backwards' dqkv. f32: as _tol. bf16: one bf16 ulp at
+    the largest magnitude, 2^(floor(log2 max|ref|) - 7): the tensor cores'
+    f32 sums, in another order than cuBLAS's, land an element on the other
+    side of a bf16 rounding, and near max|ref| that ulp exceeds 2^-8 max|ref|
+    whenever max|ref| is just above a power of two."""
+    if dtype == torch.float32:
+        return _tol(dtype, ref)
+    return 2.0 ** (math.floor(math.log2(ref.abs().max().item())) - 7)
 
 
 @pytest.mark.parametrize("B,L,D,H,causal,dtype", BWD_CASES)
@@ -174,7 +187,7 @@ def test_lse_and_bwd_kernels_match_plain_version(device, B, L, D, H, causal, dty
                                atol=_tol(dtype, want_out.float()))
     torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-5)
     torch.testing.assert_close(dqkv.float(), want_dqkv.float(), rtol=0,
-                               atol=_tol(dtype, want_dqkv.float()))
+                               atol=_bwd_tol(dtype, want_dqkv.float()))
     torch.testing.assert_close(db, want_db, rtol=0, atol=_tol(dtype, want_db) + 1e-4)
     again, db_again = fused_attention_bwd(qkv, mask, lse, g, H)
     assert torch.equal(db, db_again) and torch.equal(dqkv, again)  # deterministic
@@ -201,19 +214,112 @@ def test_recompute_bwd_kernel_matches_plain_version(device, B, L, D, H, causal, 
     want = reference_attention_bwd(qkv, mask, None, g, H)[0]
     assert dqkv.dtype == dtype and dqkv.shape == qkv.shape
     torch.testing.assert_close(dqkv.float(), want.float(), rtol=0,
-                               atol=_tol(dtype, want.float()))
+                               atol=_bwd_tol(dtype, want.float()))
     assert torch.equal(dqkv, again)
 
 
 def test_bwd_smem_formula_matches_kernel(device):
+    """``bwd_smem_bytes`` mirrors ``sc_attention_bwd_smem_bytes`` at every
+    length and head dim, for both bodies (the bf16 tensor-core one: four
+    16-row-padded tiles, three f32 values a row, the tiles' db sums)."""
     from spatial_clip_tpu_torch.ops import cuda_build
-    from spatial_clip_tpu_torch.ops.fused_attention import bwd_smem_bytes
+    from spatial_clip_tpu_torch.ops.fused_attention import MAX_SEQ, bwd_smem_bytes
 
     lib = cuda_build.library()
-    for L in (1, 9, 50, 77, 166, 256):
+    for L in range(1, MAX_SEQ + 1):
         for hd in (32, 64, 128):
             for code, dtype in ((0, torch.float32), (1, torch.bfloat16)):
                 assert lib.sc_attention_bwd_smem_bytes(L, hd, code) == bwd_smem_bytes(L, hd, dtype)
+
+
+BWD_EDGE_LENGTHS = (1, 15, 16, 17, 50, 63, 64, 65, 77, 128, 129, "longest")
+
+
+@pytest.mark.parametrize("option", ["lse_db", "recompute", "recompute_db"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("L", BWD_EDGE_LENGTHS)
+def test_bf16_backward_over_tile_edges(device, L, hd, causal, option):
+    """The bf16 backward body (tensor cores; 16-row query and key tiles, two
+    passes, rows of up to kHold key chunks held) on each side of a tile edge
+    and at the longest length it takes, at each head dim, in each option:
+    dqkv at _bwd_tol (one bf16 ulp at max|ref|), db at _tol + 1e-4 against
+    the plain version on the same lse, and the same bits on a rerun."""
+    from spatial_clip_tpu_torch.ops.fused_attention import (
+        MAX_SEQ,
+        bwd_supported,
+        fused_attention_bwd,
+        fused_attention_bwd_recompute,
+        fused_attention_bwd_recompute_db,
+        fused_attention_lse,
+        reference_attention_bwd,
+    )
+
+    B, H = 3, 2
+    if L == "longest":
+        L = max(n for n in range(1, MAX_SEQ + 1) if bwd_supported(H, H * hd, n, torch.bfloat16))
+    gen = torch.Generator(device=device).manual_seed(L * hd + causal)
+    qkv = torch.randn((B, L, 3 * H * hd), generator=gen, device=device).to(torch.bfloat16)
+    g = torch.randn((B, L, H * hd), generator=gen, device=device).to(torch.bfloat16)
+    mask = causal_mask(L, device=device) if causal else None
+    lse = fused_attention_lse(qkv, mask, H)[1]
+    run = {"lse_db": lambda: fused_attention_bwd(qkv, mask, lse, g, H),
+           "recompute": lambda: (fused_attention_bwd_recompute(qkv, mask, g, H), None),
+           "recompute_db": lambda: fused_attention_bwd_recompute_db(qkv, mask, g, H)}[option]
+    (dqkv, db), (again, db_again) = run(), run()
+    torch.cuda.synchronize()
+    want, want_db = reference_attention_bwd(qkv, mask, lse if option == "lse_db" else None, g, H)
+    assert torch.equal(dqkv, again) and torch.isfinite(dqkv.float()).all()
+    torch.testing.assert_close(dqkv.float(), want.float(), rtol=0,
+                               atol=_bwd_tol(torch.bfloat16, want.float()))
+    if db is not None:
+        assert torch.equal(db, db_again)
+        torch.testing.assert_close(db, want_db, rtol=0,
+                                   atol=_tol(torch.bfloat16, want_db) + 1e-4)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_pair_layout_dx_backwards_equal_standard_at_long_length(device, hd):
+    """At L=180 (12 key chunks, more than the block's 8 warps and than
+    kHold) the pair backward (each tower in a block of the larger tower's
+    warps), the interleaved, slab, split and seq-major backwards (the last
+    with db within f32 tolerance) and the dx kernel's dqkv (8 warps, heads
+    in turn) give the standard launches' bits."""
+    from spatial_clip_tpu_torch.ops import attention_pair as ap
+    from spatial_clip_tpu_torch.ops import attention_variants as av
+    from spatial_clip_tpu_torch.ops.fused_attention import (
+        fused_attention_bwd_recompute,
+        fused_attention_bwd_recompute_db,
+    )
+
+    B, L, H = 3, 180, 2
+    D = H * hd
+    gen = torch.Generator(device=device).manual_seed(hd + 1)
+    qkv = torch.randn((B, L, 3 * D), generator=gen, device=device).to(torch.bfloat16)
+    g = torch.randn((B, L, D), generator=gen, device=device).to(torch.bfloat16)
+    qkv_b = torch.randn((B, 77, 3 * 512), generator=gen, device=device).to(torch.bfloat16)
+    g_b = torch.randn((B, 77, 512), generator=gen, device=device).to(torch.bfloat16)
+    w = (0.05 * torch.randn((3 * D, 64), generator=gen, device=device)).to(torch.bfloat16)
+    bias = (0.3 * torch.randn((3 * D,), generator=gen, device=device)).to(torch.bfloat16)
+    mask = causal_mask(L, device=device)
+    std = fused_attention_bwd_recompute(qkv, mask, g, H)
+    std_db = fused_attention_bwd_recompute_db(qkv, mask, g, H)
+    da, db_ = ap.fused_attention_pair_bwd(qkv_b, None, g_b, qkv, mask, g, 8, H)
+    perm = torch.tensor(av.interleave_perm(H, hd), device=device)
+    q, k, v = (t.contiguous() for t in qkv.chunk(3, dim=-1))
+    dx_out = av.fused_attention_bwd_dx(qkv, mask, g, w, H)
+    torch.cuda.synchronize()
+    assert torch.equal(db_, std) and torch.equal(da, fused_attention_bwd_recompute(
+        qkv_b, None, g_b, 8))
+    assert torch.equal(av.fused_attention_inter_bwd(qkv.index_select(-1, perm), mask, g, H),
+                       std.index_select(-1, perm))
+    assert torch.equal(av.fused_attention_slab_bwd(qkv, mask, g, H), std)
+    assert torch.equal(torch.cat(av.fused_attention_split_bwd(q, k, v, mask, g, H), -1), std)
+    t_d, t_db = av.fused_attention_t_bwd(qkv.transpose(0, 1), bias, mask, g, H)
+    with_b = fused_attention_bwd_recompute_db(qkv + bias, mask, g, H)
+    assert torch.equal(t_d, with_b[0])
+    torch.testing.assert_close(t_db, with_b[1], rtol=0, atol=_tol(torch.float32, with_b[1]) + 1e-4)
+    assert torch.equal(dx_out[0], std_db[0])
 
 
 def test_cuda_tensor_never_falls_back(device):
@@ -618,7 +724,8 @@ def test_recompute_db_bwd_kernel_matches_plain_version(device, B, L, D, H, causa
     assert fused_attention_bwd_recompute_db.launches == before + 2
     want, want_db = reference_attention_bwd(qkv, mask, None, g, H)
     assert dqkv.dtype == dtype and db.dtype == torch.float32 and db.shape == (3 * D,)
-    torch.testing.assert_close(dqkv.float(), want.float(), rtol=0, atol=_tol(dtype, want.float()))
+    torch.testing.assert_close(dqkv.float(), want.float(), rtol=0,
+                               atol=_bwd_tol(dtype, want.float()))
     torch.testing.assert_close(db, want_db, rtol=0, atol=_tol(dtype, want_db) + 1e-4)
     assert torch.equal(db, db_again) and torch.equal(dqkv, again)
     assert torch.equal(dqkv, fused_attention_bwd_recompute(qkv, mask, g, H))
@@ -699,7 +806,7 @@ def test_dx_bwd_kernel_matches_plain_version(device, B, L, D, H, causal, dtype, 
     want_dqkv, want_dx, want_db = reference_attention_bwd_dx(qkv, mask, g, w, H)
     assert dx.dtype == dtype and dx.shape == (B, L, din) and torch.isfinite(dx).all()
     torch.testing.assert_close(dqkv.float(), want_dqkv.float(), rtol=0,
-                               atol=_tol(dtype, want_dqkv.float()))
+                               atol=_bwd_tol(dtype, want_dqkv.float()))
     torch.testing.assert_close(db, want_db, rtol=0, atol=_tol(dtype, want_db) + 1e-4)
     peak = want_dx.float().abs().max().item()
     dx_tol = (1e-4 * max(1.0, peak) if dtype == torch.float32
@@ -835,8 +942,8 @@ def test_pair_kernels_equal_single_tower_launches(device, B, La, Da, Ha, Lb, Db,
     assert torch.equal(db, fused_attention_bwd_recompute(qb, mb, gb, Hb))
     want = (*ap.reference_attention_pair(qa, None, qb, mb, Ha, Hb),
             *ap.reference_attention_pair_bwd(qa, None, ga, qb, mb, gb, Ha, Hb))
-    for got, ref in zip((oa, ob, da, db), want):
-        torch.testing.assert_close(got.float(), ref.float(), rtol=0, atol=_tol(dtype, ref.float()))
+    for got, ref, tol in zip((oa, ob, da, db), want, (_tol, _tol, _bwd_tol, _bwd_tol)):
+        torch.testing.assert_close(got.float(), ref.float(), rtol=0, atol=tol(dtype, ref.float()))
 
 
 def test_zipped_tower_on_card_matches_cpu(device):
@@ -944,7 +1051,7 @@ LAYOUT_CASES = [  # B, L, D, H, causal, dtype: the ViT-B-32 towers, hd 32 / 128,
     (8, 77, 512, 8, True, torch.float32),
     (3, 17, 384, 12, False, torch.bfloat16),  # hd 32, 4 heads a group
     (2, 26, 256, 2, True, torch.float32),  # hd 128, one head a group
-    (2, 166, 256, 4, True, torch.bfloat16),  # the longest bf16 hd 64 backward
+    (2, 166, 256, 4, True, torch.bfloat16),  # a long bf16 hd 64 backward (12 key tiles)
 ]
 
 
@@ -1004,16 +1111,17 @@ def test_layout_kernels_match_plain_and_standard(device, B, L, D, H, causal, dty
     assert torch.equal(av.fused_attention_t_fwd(seq_major, bias, mask, H), t_out)
     again = av.fused_attention_t_bwd(seq_major, bias, mask, g, H)
     assert torch.equal(again[0], t_d) and torch.equal(again[1], db)
-    for got, ref in ((inter[0], ref_out), (inter[1], ref_d.index_select(-1, perm)),
-                     (slab[0], ref_out), (slab[1], ref_d), (split[0], ref_out),
-                     (torch.cat(split[1], -1), ref_d)):
+    for got, ref, tol in ((inter[0], ref_out, _tol),
+                          (inter[1], ref_d.index_select(-1, perm), _bwd_tol),
+                          (slab[0], ref_out, _tol), (slab[1], ref_d, _bwd_tol),
+                          (split[0], ref_out, _tol), (torch.cat(split[1], -1), ref_d, _bwd_tol)):
         assert got.dtype == dtype and torch.isfinite(got).all()
-        torch.testing.assert_close(got.float(), ref, rtol=0, atol=_tol(dtype, ref))
+        torch.testing.assert_close(got.float(), ref, rtol=0, atol=tol(dtype, ref))
     want_t = av.reference_attention_t(qkv_nb.transpose(0, 1), bias, mask, H).float()
     want_tb = av.reference_attention_t_bwd(qkv_nb.transpose(0, 1), bias, mask, g, H)
     torch.testing.assert_close(t_out.float(), want_t, rtol=0, atol=_tol(dtype, want_t))
     torch.testing.assert_close(t_d.float(), want_tb[0].float(), rtol=0,
-                               atol=_tol(dtype, want_tb[0].float()))
+                               atol=_bwd_tol(dtype, want_tb[0].float()))
     torch.testing.assert_close(db, want_tb[1], rtol=0, atol=_tol(dtype, want_tb[1]) + 1e-4)
 
 
@@ -1042,10 +1150,10 @@ def test_layout_kernels_refuse_what_they_do_not_take(device):
     with pytest.raises(ValueError, match="sequence length"):
         av.fused_attention_slab(torch.randn((1, 257, 768), device=device), None, 4)
     big = torch.randn((1, 200, 3 * 256), device=device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="shared memory"):  # bf16 hd 128 past L=192
+        av.fused_attention_t_bwd(big.transpose(0, 1), bias, None, big[..., :256], 2)
     with pytest.raises(ValueError, match="shared memory"):
-        av.fused_attention_t_bwd(big.transpose(0, 1), bias, None, big[..., :256], 4)
-    with pytest.raises(ValueError, match="shared memory"):
-        av.fused_attention_slab_bwd(big, None, big[..., :256], 4)
+        av.fused_attention_slab_bwd(big, None, big[..., :256], 2)
     with pytest.raises(ValueError, match="interleaved"):
         av.fused_attention_inter(torch.randn((2, 9, 3 * 64), device=device), None, 2)
     before = av.fused_attention_slab.launches

@@ -186,9 +186,10 @@ def test_dx_geometry_set():
         for dtype in (torch.bfloat16, torch.float32):
             assert dx_supported(heads, width, seq, width, dtype)
     assert dx_supported(2, 128, 166, 16, torch.bfloat16)
+    assert dx_supported(2, 128, 256, 16, torch.bfloat16)
     assert not dx_supported(2, 128, 11, 100, torch.bfloat16)
     assert not dx_supported(2, 128, 11, 0, torch.float32)
-    assert not dx_supported(2, 128, 167, 128, torch.bfloat16)
+    assert not dx_supported(2, 256, 193, 128, torch.bfloat16)  # hd 128
     assert not dx_supported(2, 128, 107, 128, torch.float32)
 
 
