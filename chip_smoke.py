@@ -11,7 +11,8 @@ the exit code is not 0. No JAX is imported.
 2. build   the CUDA kernels, compiled from spatial_clip_tpu_torch/csrc; ptxas's
            registers and spills, and for the bf16 attention forward and
            backward (the tensor-core bodies) their registers, spills and
-           blocks an SM
+           blocks an SM; for the wgmma forwards (fused MLP, LN -> dense)
+           their registers, spills and any wgmma ptxas serialized
 3. kernel  the inference attention kernel against its plain PyTorch version
            at the serving shapes (batch 64) and at phase 11's microbatch
            (1024, pass 1 and evaluate): max abs error against the stated
@@ -65,7 +66,10 @@ the exit code is not 0. No JAX is imported.
            2048, text qkv 512 -> 1536) and at ragged row counts (one f32);
            dgamma/dbeta the same
            bits on a rerun; F.layer_norm and F.linear(F.layer_norm) timed as
-           yardsticks
+           yardsticks; then the bf16 fused_ln_dense forward (wgmma) at the
+           row tile's and cluster's edges (GEMM_EDGE_ROWS), every K to 1024
+           and N past whole 256-column tiles, the same bits on a rerun and
+           its launches counted on the wgmma route
 13. ln-check  under ln_impl='pallas' and under ln_gemm_impl='pallas' with
            attn_impl='pallas': phase 7's card-vs-CPU step at batch 32, and 64
            tiles and 64 texts encoded in bf16 against the f32 CPU plain path
@@ -79,7 +83,11 @@ the exit code is not 0. No JAX is imported.
            training shapes (batch 256: image (12800, 768 -> 3072 -> 768),
            text (19712, 512 -> 2048 -> 512)), the serving shapes (batch 64),
            a ragged R = 1000 and one f32 shape; F.linear(F.gelu(F.linear))
-           timed as its yardstick
+           timed as its yardstick; each bf16 launch plan; then the bf16
+           forward (wgmma) at the row tile's and cluster's edges
+           (GEMM_EDGE_ROWS), every width it takes (2048: x streamed) and
+           hidden sizes that are multiples of 512, the same bits on a rerun
+           and its launches counted per route
 16. mlp-check  under mlp_impl='pallas': phase 7's card-vs-CPU step at batch
            32, and the embedding server (bf16, batch 64) started with the
            setting answering 64 raw tiles and 64 texts against the f32 CPU
@@ -191,6 +199,9 @@ NEIGHBORS = 6
 EDGE_LENGTHS = (1, 15, 16, 17, 50, 63, 64, 65, 77, 128, 129, 200, 256)  # phase 3's extra lengths
 # phase 6's bf16 backward lengths, and the longest each head dim takes
 BWD_EDGE_LENGTHS = (1, 15, 16, 17, 50, 63, 64, 65, 77, 128, 129)
+# phases 12 and 15: rows at the wgmma forwards' row-tile (64) and cluster
+# (2 x 64) edges
+GEMM_EDGE_ROWS = (1, 63, 64, 65, 127, 128, 129, 255, 257, 1000)
 # the least time the card could take: H100 SXM, NVIDIA's data sheet
 HBM_BYTES_PER_S, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 
@@ -312,6 +323,24 @@ def backward_build_report(lib, report: str) -> str:
         if found:
             parts.append(f"{kind} bf16 x{len(found)}: registers <= {max(v[0] for v in found)}, "
                          f"spill <= {max(v[1] for v in found)} B")
+    return "; ".join(parts)
+
+
+def gemm_build_report(report: str) -> str:
+    """The bf16 wgmma forwards (fused MLP, LN -> dense): ptxas's registers
+    and spill stores of each instantiation (the MLP's are its launch-level
+    count: its consumers take 232 a thread by setmaxnreg), and how many
+    ptxas said it had to serialize the wgmma of."""
+    entries = ptxas_entries(report)
+    parts = []
+    for kind in ("mlp_fwd_kernel_bf16", "ln_dense_fwd_kernel_bf16"):
+        found = {k: v for k, v in entries.items() if kind in k}
+        serialized = sum(1 for line in report.splitlines()
+                         if "wgmma.mma_async instructions are serialized" in line and kind in line)
+        if found:
+            parts.append(f"{kind} x{len(found)}: registers <= {max(v[0] for v in found.values())}, "
+                         f"spill <= {max(v[1] for v in found.values())} B, wgmma serialized in "
+                         f"{serialized}")
     return "; ".join(parts)
 
 
@@ -496,7 +525,8 @@ def main() -> int:
     print(f"[build] {lib_path.name} from {cuda_build.CSRC_DIR.name}/*.cu in {build_s:.2f} s "
           f"(nvcc sm_90a); ptxas: registers {regs}, spill stores {spills} B; bf16 forward "
           f"(tensor cores): {forward_build_report(cuda_build.library(), report)}; bf16 backward "
-          f"(tensor cores): {backward_build_report(cuda_build.library(), report)}", flush=True)
+          f"(tensor cores): {backward_build_report(cuda_build.library(), report)}; wgmma "
+          f"forwards: {gemm_build_report(report)}", flush=True)
 
     # 3. kernel vs plain version on the card
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -770,7 +800,8 @@ def main() -> int:
             "source": f"spatial_clip_tpu_torch/csrc/{family}.cu",
             "replaces": f"spatial_clip_tpu/ops/{family}.py:{line}",
             "launches": ln_train[setting]["counts"][index],
-            "max_abs_err": max(r[f"{part}_err"] for r in ln_rows[family].values()),
+            "max_abs_err": max(r[f"{part}_err"] for r in ln_rows[family].values()
+                               if f"{part}_err" in r),
             "ms": row[f"{part}_ms"],
             "plain_ms": row[f"{part}_plain_ms"],
             "bound_ms": row[f"{part}_bound_ms"],
@@ -778,6 +809,12 @@ def main() -> int:
             "library_ms": row[f"{part}_library_ms"],
             "at": at,
         })
+        if name == "fused_ln_dense_fwd":  # the wgmma forward: every main-path shape
+            kernels[-1]["ms_by_shape"] = {k: r["fwd_ms"] for k, r in ln_rows[family].items()
+                                          if "fwd_ms" in r}
+            kernels[-1]["library_ms_by_shape"] = {k: r["fwd_library_ms"]
+                                                  for k, r in ln_rows[family].items()
+                                                  if "fwd_library_ms" in r}
     image_mlp = mlp_rows["image"]
     kernels.append({
         "name": "fused_mlp_fwd",
@@ -785,13 +822,16 @@ def main() -> int:
         "source": "spatial_clip_tpu_torch/csrc/fused_mlp.cu",
         "replaces": "spatial_clip_tpu/ops/fused_mlp.py:28",
         "launches": mlp_train["launches"],
-        "max_abs_err": max(r["err"] for r in mlp_rows.values()),
+        "max_abs_err": max(r["err"] for r in mlp_rows.values() if "err" in r),
         "ms": image_mlp["ms"],
         "plain_ms": image_mlp["plain_ms"],
         "bound_ms": image_mlp["bound_ms"],
         "bound_by": image_mlp["bound_by"],
         "library_ms": image_mlp["library_ms"],
         "at": "x (12800, 768) -> 3072 -> 768 bf16 (image tower MLP, batch 256)",
+        "ms_by_shape": {k: r["ms"] for k, r in mlp_rows.items() if "ms" in r},
+        "library_ms_by_shape": {k: r["library_ms"] for k, r in mlp_rows.items()
+                                if "library_ms" in r},
     })
     pair = pair_rows["256"]
     for name, part, line, launches in (
@@ -1504,7 +1544,55 @@ def kernel_ln_phase() -> dict:
               f"backward to x {lib_bwd:.4f}, bound {row['bwd_bound_ms']:.4f} "
               f"({row['bwd_bound_by']}, share {row['bwd_bound_ms'] / row['bwd_ms']:.3f})",
               flush=True)
+    rows["fused_ln_dense"]["edges"] = ln_dense_edges()
     return rows
+
+
+def ln_dense_edges() -> dict:
+    """Phase 12's sweep of the bf16 LN -> dense forward (wgmma) at the row
+    tile's and cluster's edges, every K it takes to 1024 and N past a whole
+    number of 256-column tiles: y and xhat within one bf16 step of the
+    plain version, the same bits on a rerun, two launches on the wgmma
+    route each."""
+    import torch
+
+    from spatial_clip_tpu_torch.ops import fused_ln_dense as fd
+
+    gen = torch.Generator(device="cuda").manual_seed(120)
+    worst = 0.0
+    shapes = [(R, K, N) for R in GEMM_EDGE_ROWS
+              for K, N in ((128, 384), (256, 128), (512, 1408), (768, 1152), (1024, 640))]
+    before = fd.ln_dense_fwd.routes["tc"]
+    for R, K, N in shapes:
+        x = (torch.randn((R, K), generator=gen, device="cuda") * 2 + 0.5).bfloat16()
+        gamma = 1 + 0.1 * torch.randn((K,), generator=gen, device="cuda")
+        beta = 0.1 * torch.randn((K,), generator=gen, device="cuda")
+        weight = torch.randn((N, K), generator=gen, device="cuda") / K ** 0.5
+        bias = 0.1 * torch.randn((N,), generator=gen, device="cuda")
+        w1, b1 = fd._fold(gamma, beta, weight, bias, torch.bfloat16)
+        y, xhat = fd.ln_dense_fwd(x, w1, b1, 1e-5)
+        y2, xhat2 = fd.ln_dense_fwd(x, w1, b1, 1e-5)
+        want_y, want_xhat = fd.reference_ln_dense_fwd(x, w1, b1, 1e-5)
+        torch.cuda.synchronize()
+        for got, want in ((y, want_y), (xhat, want_xhat)):
+            err, tol = (got.float() - want.float()).abs().max().item(), train_tol(
+                torch.bfloat16, want.float())
+            if not err <= tol:
+                raise AssertionError(f"[kernel-ln] fused_ln_dense edge R={R} K={K} N={N}: max "
+                                     f"abs err {err} > {tol}")
+            worst = max(worst, err / tol)
+        if not (torch.equal(y, y2) and torch.equal(xhat, xhat2)):
+            raise AssertionError(f"[kernel-ln] fused_ln_dense edge R={R} K={K} N={N}: other "
+                                 "bits on a rerun")
+    launched = fd.ln_dense_fwd.routes["tc"] - before
+    if launched != 2 * len(shapes):
+        raise AssertionError(f"[kernel-ln] fused_ln_dense edges: {launched} wgmma launches, "
+                             f"want {2 * len(shapes)}")
+    print(f"[kernel-ln] fused_ln_dense fwd bf16 edges: R {list(GEMM_EDGE_ROWS)} x (K, N) "
+          f"(128, 384) (256, 128) (512, 1408) (768, 1152) (1024, 640): {len(shapes)} shapes "
+          f"within tolerance (worst err / tol {worst:.3f}), the same bits on a rerun, {launched} "
+          "launches on the wgmma route", flush=True)
+    return {"shapes": len(shapes), "worst_err_over_tol": worst}
 
 
 def ln_counters():
@@ -1650,13 +1738,61 @@ def kernel_mlp_phase() -> dict:
         # x, W1, b1, W2, b2 in; out; two products of 2 R W H operations each
         row["bound_ms"], row["bound_by"] = bound(
             (2 * R * W + 2 * W * H + H + W) * x.element_size(), 4 * R * W * H, peak)
+        if dtype == torch.bfloat16:
+            row["plan"] = fm.mlp_plan(R, W, H)
         rows[name] = row
         print(f"[kernel-mlp] fused_mlp {name} x ({R}, {W}) -> {H} -> {W} {str(dtype)[6:]}: max abs "
               f"err {err:.3g} (tol {tol:.3g}); kernel {row['ms']:.4f} ms vs plain "
               f"{row['plain_ms']:.4f}, F.linear(F.gelu(F.linear)) {row['library_ms']:.4f}, bound "
               f"{row['bound_ms']:.4f} ({row['bound_by']}, share "
-              f"{row['bound_ms'] / row['ms']:.3f})", flush=True)
+              f"{row['bound_ms'] / row['ms']:.3f}); plan {row.get('plan')}", flush=True)
+    rows["edges"] = mlp_edges()
     return rows
+
+
+def mlp_edges() -> dict:
+    """Phase 15's sweep of the bf16 fused MLP forward (wgmma) at the row
+    tile's and cluster's edges, every width it takes (2048: x streamed
+    through the ring) and hidden sizes that are multiples of 512: within
+    one bf16 step of the plain version, the same bits on a rerun, two
+    launches on each shape's route."""
+    import torch
+
+    from spatial_clip_tpu_torch.ops import fused_mlp as fm
+
+    gen = torch.Generator(device="cuda").manual_seed(150)
+    worst = 0.0
+    shapes = [(R, W, H) for R in GEMM_EDGE_ROWS
+              for W, H in ((128, 512), (256, 1024), (512, 2048), (768, 1536), (1024, 512),
+                           (2048, 1024))]
+    before = dict(fm.fused_mlp_fwd.routes)
+    want_routes = {"x_resident": 0, "x_streamed": 0}
+    for R, W, H in shapes:
+        x = torch.randn((R, W), generator=gen, device="cuda").bfloat16()
+        w1 = (torch.randn((H, W), generator=gen, device="cuda") / W ** 0.5).bfloat16()
+        b1 = (0.1 * torch.randn((H,), generator=gen, device="cuda")).bfloat16()
+        w2 = (torch.randn((W, H), generator=gen, device="cuda") / H ** 0.5).bfloat16()
+        b2 = (0.1 * torch.randn((W,), generator=gen, device="cuda")).bfloat16()
+        out = fm.fused_mlp_fwd(x, w1, b1, w2, b2)
+        again = fm.fused_mlp_fwd(x, w1, b1, w2, b2)
+        want = fm.reference_mlp_fwd(x, w1, b1, w2, b2)
+        torch.cuda.synchronize()
+        err, tol = (out.float() - want.float()).abs().max().item(), train_tol(torch.bfloat16,
+                                                                              want.float())
+        if not (err <= tol and torch.equal(out, again)):
+            raise AssertionError(f"[kernel-mlp] edge R={R} W={W} H={H}: max abs err {err} (tol "
+                                 f"{tol}), the same bits on a rerun {torch.equal(out, again)}")
+        worst = max(worst, err / tol)
+        want_routes["x_resident" if W <= fm.X_RESIDENT_WIDTH else "x_streamed"] += 2
+    got_routes = {k: fm.fused_mlp_fwd.routes[k] - before[k] for k in want_routes}
+    if got_routes != want_routes:
+        raise AssertionError(f"[kernel-mlp] edges: launches by route {got_routes}, want "
+                             f"{want_routes}")
+    print(f"[kernel-mlp] fused_mlp bf16 edges: R {list(GEMM_EDGE_ROWS)} x (W, H) (128, 512) "
+          f"(256, 1024) (512, 2048) (768, 1536) (1024, 512) (2048, 1024): {len(shapes)} shapes "
+          f"within tolerance (worst err / tol {worst:.3f}), the same bits on a rerun, launches "
+          f"by route {got_routes}", flush=True)
+    return {"shapes": len(shapes), "worst_err_over_tol": worst, "routes": got_routes}
 
 
 def mlp_check_phase() -> None:

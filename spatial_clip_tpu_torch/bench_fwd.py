@@ -75,20 +75,22 @@ def design_flags(header: str, knobs: dict, values: dict) -> list:
     return [f"-D{knobs[knob]}={int(value)}" for knob, value in values.items()]
 
 
-def build_copies(source_name: str, flags: dict, functions, root_name: str):
+def build_copies(source_name: str, flags: dict, functions, root_name: str, sources=None):
     """name -> loaded library of one build of ``csrc/<source_name>`` per entry
     of ``flags`` (name -> its extra nvcc flags), compiled with the package's
     nvcc flags, all at once in parallel, under ``build/<root_name>/``; each
-    copy's ``functions`` take the package library's argtypes."""
+    copy's ``functions`` take the package library's argtypes. ``sources``
+    (name -> a path) builds that entry from another copy of the source."""
     root = cuda_build.BUILD_DIR.parent / root_name
     shutil.rmtree(root, ignore_errors=True)
     jobs = {}
     for name, extra in flags.items():
         d = root / name
         d.mkdir(parents=True)
+        src = (sources or {}).get(name, cuda_build.CSRC_DIR / source_name)
         jobs[name] = subprocess.Popen(
             [cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, *extra, "-shared", "-o",
-             str(d / "lib.so"), str(cuda_build.CSRC_DIR / source_name)],
+             str(d / "lib.so"), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     package = cuda_build.library()
     libs = {}

@@ -4,7 +4,10 @@ The same dataclasses and JSON resolution as ``spatial_clip_tpu.models.config``,
 reading that package's ``model_configs/*.json`` in place, by path.
 :func:`check_ported` names any field whose feature this package does not
 implement yet, so that no configuration is silently served with a
-different architecture.
+different architecture. Unlike the JAX package, a JSON key that no
+dataclass carries is not dropped unseen: :meth:`CLIPCfg.from_dict` records
+it in ``CLIPCfg.dropped``, and :func:`check_ported` refuses it unless it is
+one of :data:`IGNORED_KEYS`.
 """
 from __future__ import annotations
 
@@ -19,9 +22,29 @@ REFERENCE_MODELS_DIR = Path(__file__).resolve().parents[2] / "spatial_clip_tpu" 
 CONFIG_DIR = REFERENCE_MODELS_DIR / "model_configs"
 
 
+# JSON keys that no dataclass carries and that change nothing this package
+# builds: open_clip's CustomTextCLIP flag (the same function here), and the
+# settings of features refused on their own (a timm trunk, the attentional
+# pooler, a Hugging Face text tower).
+IGNORED_KEYS = frozenset({
+    "custom_text",
+    "vision_cfg.timm_model_pretrained", "vision_cfg.timm_pool", "vision_cfg.timm_proj",
+    "vision_cfg.timm_proj_bias", "vision_cfg.timm_drop", "vision_cfg.timm_drop_path",
+    "vision_cfg.attn_pooler_queries", "vision_cfg.attn_pooler_heads",
+    "text_cfg.hf_pooler_type", "text_cfg.hf_proj_type",
+})
+# the text pool types text_global_pool computes, as the JAX towers do
+TEXT_POOL_TYPES = ("argmax", "last", "first", "avg", "none")
+
+
 def _filter_kwargs(cls, cfg: Dict[str, Any]) -> Dict[str, Any]:
     names = {f.name for f in dataclasses.fields(cls)}
     return {k: v for k, v in cfg.items() if k in names}
+
+
+def _dropped_keys(cls, cfg: Dict[str, Any], prefix: str = "") -> Tuple[str, ...]:
+    names = {f.name for f in dataclasses.fields(cls)}
+    return tuple(prefix + k for k in cfg if k not in names)
 
 
 @dataclass
@@ -31,6 +54,9 @@ class VisionCfg:
     width: int = 768
     layers: int = 12
     heads: Optional[int] = None  # default width // 64
+    # open_clip's head width (its heads = width // head_width); the towers
+    # take heads, and check_ported refuses a head_width that disagrees
+    head_width: Optional[int] = None
     mlp_ratio: float = 4.0
     ls_init_value: Optional[float] = None
     patch_dropout: float = 0.0
@@ -69,6 +95,7 @@ class TextCfg:
     no_causal_mask: bool = False
     final_ln_after_pool: bool = False
     pool_type: str = "argmax"  # argmax | last | first | avg | none
+    eos_id: Optional[int] = None  # the token that pool_type 'eos' pools (not ported)
     qk_norm: bool = False
     proj_bias: bool = False
     norm_eps: float = 1e-5
@@ -98,21 +125,31 @@ class CLIPCfg:
     init_logit_scale: float = 2.6592  # ln(1/0.07)
     init_logit_bias: Optional[float] = None
     quick_gelu: bool = False
+    # the JSON keys from_dict found no field for ("vision_cfg.<key>", ...)
+    dropped: Tuple[str, ...] = ()
 
     @classmethod
     def from_dict(cls, cfg: Dict[str, Any]) -> "CLIPCfg":
         cfg = dict(cfg)
         vision = cfg.pop("vision_cfg", {}) or {}
         text = cfg.pop("text_cfg", {}) or {}
+        dropped = (_dropped_keys(cls, cfg) + _dropped_keys(VisionCfg, vision, "vision_cfg.")
+                   + _dropped_keys(TextCfg, text, "text_cfg."))
         return cls(
             vision_cfg=VisionCfg(**_filter_kwargs(VisionCfg, vision)),
             text_cfg=TextCfg(**_filter_kwargs(TextCfg, text)),
-            **_filter_kwargs(cls, cfg),
+            **{**_filter_kwargs(cls, cfg), "dropped": dropped},
         )
 
 
 def check_ported(cfg: CLIPCfg) -> None:
-    """Raise NotImplementedError naming the first field this port lacks."""
+    """Raise NotImplementedError naming the first field this port lacks:
+    an unported feature, a ``head_width`` that disagrees with ``heads``
+    (open_clip builds width // head_width heads; these towers build
+    ``heads``), a text ``pool_type`` outside :data:`TEXT_POOL_TYPES`
+    (``'eos'``), or a dropped JSON key outside :data:`IGNORED_KEYS` (the
+    SigLIP text towers' ``norm_kwargs`` / ``act_kwargs``, a tokenizer's
+    ``tokenizer_kwargs``)."""
     v, t = cfg.vision_cfg, cfg.text_cfg
     unported = [
         ("gene_cfg", cfg.gene_cfg, cfg.gene_cfg is not None),
@@ -136,11 +173,19 @@ def check_ported(cfg: CLIPCfg) -> None:
         ("text_cfg.hf_config", t.hf_config, t.hf_config is not None),
         ("text_cfg.qk_norm", t.qk_norm, t.qk_norm),
         ("text_cfg.embed_cls", t.embed_cls, t.embed_cls),
+        ("vision_cfg.head_width", v.head_width,
+         v.head_width is not None and v.head_width * v.heads != v.width),
+        ("text_cfg.pool_type", t.pool_type, t.pool_type not in TEXT_POOL_TYPES),
     ]
     for name, value, bad in unported:
         if bad:
             raise NotImplementedError(
                 f"{name}={value!r} is not ported to spatial_clip_tpu_torch")
+    for key in cfg.dropped:
+        if key not in IGNORED_KEYS:
+            raise NotImplementedError(
+                f"{key} is not ported to spatial_clip_tpu_torch (no field carries it, and it "
+                "changes the function)")
 
 
 def list_model_configs() -> list:

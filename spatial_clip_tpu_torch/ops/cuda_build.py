@@ -225,6 +225,10 @@ def library() -> ctypes.CDLL:
                 getattr(lib, f"sc_attention_{name}").restype = i32
             lib.sc_mlp_max_width.argtypes = []
             lib.sc_mlp_max_width.restype = i32
+            lib.sc_mlp_plan.argtypes = [i32, i32, i32, i32p]  # R, W, H, plan[6]
+            lib.sc_mlp_plan.restype = i32
+            lib.sc_ln_dense_fwd_plan.argtypes = [i32, i32, i32, i32p]  # R, K, N, plan[5]
+            lib.sc_ln_dense_fwd_plan.restype = i32
             lib.sc_cuda_error_string.argtypes = [ctypes.c_int]
             lib.sc_cuda_error_string.restype = ctypes.c_char_p
             _library = lib

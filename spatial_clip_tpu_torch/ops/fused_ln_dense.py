@@ -19,6 +19,7 @@ on a CPU tensor it runs its plain PyTorch version (``reference_ln_dense_fwd``,
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
@@ -112,7 +113,8 @@ def ln_dense_fwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                  eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (R, K) and the folded W' (N, K) in one dtype, b' (N,) float32.
     Returns y (R, N) and xhat (R, K) in x's dtype. Counts each kernel
-    launch in ``ln_dense_fwd.launches``."""
+    launch in ``ln_dense_fwd.launches`` and in ``ln_dense_fwd.routes`` by
+    its body: ``tc`` (bf16, wgmma) or ``f32`` (CUDA cores)."""
     _check(x, b1, w1)
     if b1.shape != (w1.shape[0],) or b1.dtype != torch.float32:
         raise ValueError(f"b1 must be float32 ({w1.shape[0]},); got {b1.dtype} "
@@ -129,7 +131,19 @@ def ln_dense_fwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
             cuda_build.DTYPE_CODES[x.dtype], eps, torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(lib, err, "ln_dense_fwd launch")
     ln_dense_fwd.launches += 1
+    ln_dense_fwd.routes["tc" if x.dtype == torch.bfloat16 else "f32"] += 1
     return y, xhat
+
+
+def ln_dense_fwd_plan(R: int, K: int, N: int) -> dict:
+    """The bf16 forward kernel's launch plan at this shape, from the kernel
+    library (needs the card's build): its units (row pairs x 256-column
+    tiles), the clusters of its persistent grid, the stages of each
+    consumer's ring, cluster size and CTAs."""
+    lib = cuda_build.library()
+    plan = (ctypes.c_int * 5)()
+    cuda_build.check(lib, lib.sc_ln_dense_fwd_plan(R, K, N, plan), "sc_ln_dense_fwd_plan")
+    return dict(zip(("units", "clusters", "stages", "cluster", "ctas"), plan))
 
 
 def ln_dense_bwd_dx(x: torch.Tensor, g: torch.Tensor, w1: torch.Tensor,
@@ -156,6 +170,7 @@ def ln_dense_bwd_dx(x: torch.Tensor, g: torch.Tensor, w1: torch.Tensor,
 
 
 ln_dense_fwd.launches = 0
+ln_dense_fwd.routes = {"tc": 0, "f32": 0}
 ln_dense_bwd_dx.launches = 0
 
 

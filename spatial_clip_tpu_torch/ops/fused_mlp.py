@@ -18,6 +18,7 @@ the kernel or raises.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -27,6 +28,10 @@ from spatial_clip_tpu_torch.ops import cuda_build
 from spatial_clip_tpu_torch.ops.fused_attention import _mm_f32
 
 _gelu = functools.partial(F.gelu, approximate="tanh")  # jax.nn.gelu(approximate=True)
+
+# The widest W whose x tile the bf16 kernel keeps in shared memory
+# (``tc::kMaxResidentWidth``); a wider x streams through the weight ring.
+X_RESIDENT_WIDTH = 1024
 
 
 def supported(width: int, hidden: int) -> bool:
@@ -68,7 +73,8 @@ def fused_mlp_fwd(x: torch.Tensor, fc_w: torch.Tensor, fc_b: torch.Tensor,
     proj_b (W,) in any float dtype, cast to x's at use. Returns (R, W) in
     x's dtype (no residual). The kernel takes W a multiple of 128 up to its
     widest and H a multiple of 64, any R. Counts each kernel launch in
-    ``fused_mlp_fwd.launches``."""
+    ``fused_mlp_fwd.launches`` and in ``fused_mlp_fwd.routes`` by the body it
+    takes (:func:`_route`)."""
     _check(x, fc_w, fc_b, proj_w, proj_b)
     if x.device.type == "cpu":
         return reference_mlp_fwd(x, fc_w, fc_b, proj_w, proj_b)
@@ -91,10 +97,35 @@ def fused_mlp_fwd(x: torch.Tensor, fc_w: torch.Tensor, fc_b: torch.Tensor,
             torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(lib, err, "fused_mlp_fwd launch")
     fused_mlp_fwd.launches += 1
+    fused_mlp_fwd.routes[_route(W, x.dtype)] += 1
     return out
 
 
+def _route(W: int, dtype: torch.dtype) -> str:
+    """The kernel body a launch takes: ``f32`` (CUDA cores), ``x_resident``
+    (bf16, x held in shared memory) or ``x_streamed`` (bf16, W past
+    :data:`X_RESIDENT_WIDTH`)."""
+    if dtype == torch.float32:
+        return "f32"
+    return "x_resident" if W <= X_RESIDENT_WIDTH else "x_streamed"
+
+
 fused_mlp_fwd.launches = 0
+fused_mlp_fwd.routes = {"x_resident": 0, "x_streamed": 0, "f32": 0}
+
+
+def mlp_plan(R: int, W: int, H: int) -> dict:
+    """The bf16 kernel's launch plan at this shape, from the kernel library
+    (needs the card's build): 128-column output blocks a CTA owns, column
+    splits, the weight ring's stages, whether x stays in shared memory,
+    cluster size and CTAs."""
+    lib = cuda_build.library()
+    plan = (ctypes.c_int * 6)()
+    cuda_build.check(lib, lib.sc_mlp_plan(R, W, H, plan), "sc_mlp_plan")
+    keys = ("output_blocks", "splits", "stages", "x_resident", "cluster", "ctas")
+    out = dict(zip(keys, plan))
+    out["x_resident"] = bool(out["x_resident"])
+    return out
 
 
 class FusedMLP(torch.autograd.Function):

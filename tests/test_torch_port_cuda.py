@@ -634,6 +634,58 @@ def test_ln_dense_kernels_match_plain_versions(device, R, K, N, dtype):
                                    atol=_tol(dtype, want.float()))
 
 
+TILE_EDGE_ROWS = (1, 63, 64, 65, 127, 128, 129, 255, 257, 1000)
+
+
+@pytest.mark.parametrize("R", TILE_EDGE_ROWS)
+@pytest.mark.parametrize("K,N", [(128, 384), (256, 128), (512, 1408), (768, 1152), (1024, 640)])
+def test_ln_dense_fwd_tile_edges(device, R, K, N):
+    """The bf16 forward (wgmma, 64-row CTAs in clusters of two, 256-column
+    output tiles) at every edge of the row tile and of the cluster, each
+    width it takes to 1024, and N past a whole number of column tiles:
+    y and xhat within one bf16 step of the plain version, the same bits on
+    a rerun, one launch on the wgmma route each."""
+    from spatial_clip_tpu_torch.ops import fused_ln_dense as fd
+
+    gen = torch.Generator(device=device).manual_seed(R * 7 + K + N)
+    x = (torch.randn((R, K), generator=gen, device=device) * 2 + 0.5).bfloat16()
+    gamma = 1 + 0.1 * torch.randn((K,), generator=gen, device=device)
+    beta = 0.1 * torch.randn((K,), generator=gen, device=device)
+    weight = torch.randn((N, K), generator=gen, device=device) / K ** 0.5
+    bias = 0.1 * torch.randn((N,), generator=gen, device=device)
+    w1, b1 = fd._fold(gamma, beta, weight, bias, torch.bfloat16)
+    before = (fd.ln_dense_fwd.launches, fd.ln_dense_fwd.routes["tc"])
+    y, xhat = fd.ln_dense_fwd(x, w1, b1, 1e-5)
+    y2, xhat2 = fd.ln_dense_fwd(x, w1, b1, 1e-5)
+    torch.cuda.synchronize()
+    assert (fd.ln_dense_fwd.launches, fd.ln_dense_fwd.routes["tc"]) == (before[0] + 2,
+                                                                       before[1] + 2)
+    assert torch.equal(y, y2) and torch.equal(xhat, xhat2)
+    want_y, want_xhat = fd.reference_ln_dense_fwd(x, w1, b1, 1e-5)
+    for got, want in ((y, want_y), (xhat, want_xhat)):
+        assert got.shape == want.shape and torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=_tol(torch.bfloat16, want.float()))
+
+
+def test_ln_dense_fwd_plan_covers_every_tile(device):
+    """The forward's plan: its units are the row pairs times the 256-column
+    tiles, its persistent grid one cluster of two a unit up to one CTA an
+    SM, and each consumer's ring 3 stages deep or more up to K 768 (2 at K
+    1024)."""
+    from spatial_clip_tpu_torch.ops import fused_ln_dense as fd
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for R, K, N in ((256 * 50, 768, 3072), (256 * 77, 512, 1536), (1, 128, 128),
+                    (1000, 1024, 1152)):
+        plan = fd.ln_dense_fwd_plan(R, K, N)
+        pairs = -(-(-(-R // 64)) // plan["cluster"])
+        assert plan["units"] == pairs * -(-N // 256)
+        assert plan["clusters"] == min(sms // plan["cluster"], plan["units"])
+        assert plan["ctas"] == plan["clusters"] * plan["cluster"]
+        assert plan["stages"] >= (3 if K <= 768 else 2)
+
+
 def test_ln_kernels_refuse_what_they_do_not_take(device):
     from spatial_clip_tpu_torch.ops import fused_ln as fl
     from spatial_clip_tpu_torch.ops import fused_ln_dense as fd
@@ -824,7 +876,8 @@ def test_dx_bwd_kernel_matches_plain_version(device, B, L, D, H, causal, dtype, 
     (256 * 50, 768, 3072, torch.bfloat16), (256 * 77, 512, 2048, torch.bfloat16),
     (64 * 50, 768, 3072, torch.bfloat16), (64 * 77, 512, 2048, torch.bfloat16),
     (1000, 768, 3072, torch.bfloat16), (77, 1024, 4096, torch.bfloat16),
-    (40, 2048, 512, torch.bfloat16), (333, 256, 1024, torch.float32),
+    (40, 2048, 512, torch.bfloat16), (100, 640, 576, torch.bfloat16),
+    (333, 256, 1024, torch.float32),
     (5, 128, 512, torch.float32), (40, 2048, 512, torch.float32),
 ])
 def test_fused_mlp_kernel_matches_plain_version(device, R, W, H, dtype):
@@ -850,6 +903,39 @@ def test_fused_mlp_kernel_matches_plain_version(device, R, W, H, dtype):
     assert out.dtype == dtype and out.shape == (R, W) and torch.isfinite(out).all()
     torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=_tol(dtype, want.float()))
     assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("R", TILE_EDGE_ROWS)
+@pytest.mark.parametrize("W,H", [(128, 512), (256, 1024), (512, 2048), (768, 1536), (1024, 512),
+                                 (2048, 1024)])
+def test_fused_mlp_tile_edges(device, R, W, H):
+    """The bf16 forward (wgmma, 64-row CTAs in clusters of two, 128-column
+    output blocks) at every edge of the row tile and of the cluster, each
+    width it takes (2048: x streamed through the ring), hidden sizes that
+    are multiples of 512: within one bf16 step
+    of the plain version, the same bits on a rerun, each launch counted on
+    its route."""
+    from spatial_clip_tpu_torch.ops import fused_mlp as fm
+
+    gen = torch.Generator(device=device).manual_seed(R * 11 + W + H)
+    x = torch.randn((R, W), generator=gen, device=device).bfloat16()
+    w1 = (torch.randn((H, W), generator=gen, device=device) / W ** 0.5).bfloat16()
+    b1 = (0.1 * torch.randn((H,), generator=gen, device=device)).bfloat16()
+    w2 = (torch.randn((W, H), generator=gen, device=device) / H ** 0.5).bfloat16()
+    b2 = (0.1 * torch.randn((W,), generator=gen, device=device)).bfloat16()
+    route = "x_resident" if W <= fm.X_RESIDENT_WIDTH else "x_streamed"
+    before = (fm.fused_mlp_fwd.launches, fm.fused_mlp_fwd.routes[route])
+    out = fm.fused_mlp_fwd(x, w1, b1, w2, b2)
+    again = fm.fused_mlp_fwd(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert (fm.fused_mlp_fwd.launches, fm.fused_mlp_fwd.routes[route]) == (before[0] + 2,
+                                                                           before[1] + 2)
+    assert fm.mlp_plan(R, W, H)["x_resident"] == (route == "x_resident")
+    assert torch.equal(out, again)
+    want = fm.reference_mlp_fwd(x, w1, b1, w2, b2)
+    assert out.shape == (R, W) and torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), want.float(), rtol=0,
+                               atol=_tol(torch.bfloat16, want.float()))
 
 
 def test_fused_mlp_refuses_what_it_does_not_take(device):
