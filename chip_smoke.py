@@ -66,10 +66,13 @@ the exit code is not 0. No JAX is imported.
            2048, text qkv 512 -> 1536) and at ragged row counts (one f32);
            dgamma/dbeta the same
            bits on a rerun; F.layer_norm and F.linear(F.layer_norm) timed as
-           yardsticks; then the bf16 fused_ln_dense forward (wgmma) at the
-           row tile's and cluster's edges (GEMM_EDGE_ROWS), every K to 1024
-           and N past whole 256-column tiles, the same bits on a rerun and
-           its launches counted on the wgmma route
+           yardsticks (the fused_ln forward and F.layer_norm also on the
+           card's clock alone over copies of x past the L2: cold), with each
+           kernel's share of its bound; then the bf16 fused_ln_dense forward
+           and dx (wgmma) at the row tiles' and clusters' edges
+           (GEMM_EDGE_ROWS), every K to 1024 and N past whole 256-column
+           tiles, the same bits on a rerun, the dx plan's tiles and K-group,
+           and their launches counted on the wgmma route
 13. ln-check  under ln_impl='pallas' and under ln_gemm_impl='pallas' with
            attn_impl='pallas': phase 7's card-vs-CPU step at batch 32, and 64
            tiles and 64 texts encoded in bf16 against the f32 CPU plain path
@@ -327,13 +330,14 @@ def backward_build_report(lib, report: str) -> str:
 
 
 def gemm_build_report(report: str) -> str:
-    """The bf16 wgmma forwards (fused MLP, LN -> dense): ptxas's registers
-    and spill stores of each instantiation (the MLP's are its launch-level
-    count: its consumers take 232 a thread by setmaxnreg), and how many
-    ptxas said it had to serialize the wgmma of."""
+    """The bf16 wgmma kernels (fused MLP, LN -> dense forward and dx):
+    ptxas's registers and spill stores of each instantiation (the MLP's and
+    the dx's are their launch-level count: their consumers take 232 / 240 a
+    thread by setmaxnreg), and how many ptxas said it had to serialize the
+    wgmma of."""
     entries = ptxas_entries(report)
     parts = []
-    for kind in ("mlp_fwd_kernel_bf16", "ln_dense_fwd_kernel_bf16"):
+    for kind in ("mlp_fwd_kernel_bf16", "ln_dense_fwd_kernel_bf16", "ln_dense_dx_kernel_bf16"):
         found = {k: v for k, v in entries.items() if kind in k}
         serialized = sum(1 for line in report.splitlines()
                          if "wgmma.mma_async instructions are serialized" in line and kind in line)
@@ -526,7 +530,7 @@ def main() -> int:
           f"(nvcc sm_90a); ptxas: registers {regs}, spill stores {spills} B; bf16 forward "
           f"(tensor cores): {forward_build_report(cuda_build.library(), report)}; bf16 backward "
           f"(tensor cores): {backward_build_report(cuda_build.library(), report)}; wgmma "
-          f"forwards: {gemm_build_report(report)}", flush=True)
+          f"kernels: {gemm_build_report(report)}", flush=True)
 
     # 3. kernel vs plain version on the card
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -809,12 +813,15 @@ def main() -> int:
             "library_ms": row[f"{part}_library_ms"],
             "at": at,
         })
-        if name == "fused_ln_dense_fwd":  # the wgmma forward: every main-path shape
-            kernels[-1]["ms_by_shape"] = {k: r["fwd_ms"] for k, r in ln_rows[family].items()
-                                          if "fwd_ms" in r}
-            kernels[-1]["library_ms_by_shape"] = {k: r["fwd_library_ms"]
+        if family == "fused_ln_dense":  # the wgmma kernels: every main-path shape
+            kernels[-1]["ms_by_shape"] = {k: r[f"{part}_ms"] for k, r in ln_rows[family].items()
+                                          if f"{part}_ms" in r}
+            kernels[-1]["library_ms_by_shape"] = {k: r[f"{part}_library_ms"]
                                                   for k, r in ln_rows[family].items()
-                                                  if "fwd_library_ms" in r}
+                                                  if f"{part}_library_ms" in r}
+        if name == "fused_ln_fwd":  # on the card's clock, x past the L2
+            kernels[-1]["cold_ms"] = row["fwd_cold_ms"]
+            kernels[-1]["library_cold_ms"] = row["fwd_library_cold_ms"]
     image_mlp = mlp_rows["image"]
     kernels.append({
         "name": "fused_mlp_fwd",
@@ -1435,6 +1442,7 @@ def kernel_ln_phase() -> dict:
     import torch
     import torch.nn.functional as F
 
+    from spatial_clip_tpu_torch.bench_gemm import cold_copies, cold_ms
     from spatial_clip_tpu_torch.ops import fused_ln as fl
     from spatial_clip_tpu_torch.ops import fused_ln_dense as fd
 
@@ -1482,15 +1490,26 @@ def kernel_ln_phase() -> dict:
                                                            8 * R * D, F32_FLOPS)
         (row["bwd_bound_ms"], row["bwd_bound_by"]) = bound(3 * R * D * item + 12 * D,
                                                            14 * R * D, F32_FLOPS)
+        # cold: the card's clock alone, over copies of x (and y) past the L2
+        copies = cold_copies(2 * R * D * item)
+        xs = [x] + [x.clone() for _ in range(copies - 1)]
+        row["fwd_cold_ms"] = cold_ms(lambda i: fl.fused_ln_fwd(xs[i], gamma, beta, 1e-5), copies)
+        gd, bd = gamma.to(dtype), beta.to(dtype)
+        row["fwd_library_cold_ms"] = cold_ms(lambda i: F.layer_norm(xs[i], (D,), gd, bd, 1e-5),
+                                             copies)
+        del xs
         rows["fused_ln"][name] = row
         print(f"[kernel-ln] fused_ln {name} x ({R}, {D}) {str(dtype)[6:]}: max abs err (tol) "
               + ", ".join(f"{k} {e:.3g} ({t:.3g})" for k, (e, t) in checks.items())
               + f", dgamma/dbeta same bits on a rerun; fwd kernel {row['fwd_ms']:.4f} ms vs "
               f"plain {row['fwd_plain_ms']:.4f}, F.layer_norm {lib_fwd:.4f}, bound "
-              f"{row['fwd_bound_ms']:.4f} ({row['fwd_bound_by']}); bwd kernel "
+              f"{row['fwd_bound_ms']:.4f} ({row['fwd_bound_by']}, share "
+              f"{row['fwd_bound_ms'] / row['fwd_ms']:.3f}); cold ({copies} copies) kernel "
+              f"{row['fwd_cold_ms']:.4f} ms (share {row['fwd_bound_ms'] / row['fwd_cold_ms']:.3f})"
+              f" vs F.layer_norm {row['fwd_library_cold_ms']:.4f}; bwd kernel "
               f"{row['bwd_ms']:.4f} ms vs plain {row['bwd_plain_ms']:.4f}, F.layer_norm "
-              f"backward {lib_bwd:.4f}, bound {row['bwd_bound_ms']:.4f} ({row['bwd_bound_by']})",
-              flush=True)
+              f"backward {lib_bwd:.4f}, bound {row['bwd_bound_ms']:.4f} ({row['bwd_bound_by']}, "
+              f"share {row['bwd_bound_ms'] / row['bwd_ms']:.3f})", flush=True)
 
     for name, R, K, N, dtype in (("image_fc", TRAIN_BATCH * 50, 768, 3072, torch.bfloat16),
                                  ("image_qkv", TRAIN_BATCH * 50, 768, 2304, torch.bfloat16),
@@ -1545,6 +1564,7 @@ def kernel_ln_phase() -> dict:
               f"({row['bwd_bound_by']}, share {row['bwd_bound_ms'] / row['bwd_ms']:.3f})",
               flush=True)
     rows["fused_ln_dense"]["edges"] = ln_dense_edges()
+    rows["fused_ln_dense"]["dx_edges"] = ln_dense_dx_edges()
     return rows
 
 
@@ -1592,6 +1612,53 @@ def ln_dense_edges() -> dict:
           f"(128, 384) (256, 128) (512, 1408) (768, 1152) (1024, 640): {len(shapes)} shapes "
           f"within tolerance (worst err / tol {worst:.3f}), the same bits on a rerun, {launched} "
           "launches on the wgmma route", flush=True)
+    return {"shapes": len(shapes), "worst_err_over_tol": worst}
+
+
+def ln_dense_dx_edges() -> dict:
+    """Phase 12's sweep of the bf16 LN -> dense dx (wgmma, K-groups of CTAs
+    owning 128 rows) at the row tile's and cluster's edges, every K it
+    takes (128 ... 1024, so every K-group size and units a CTA) and N of 3
+    to 5 g tiles: dx within one bf16 step of the plain version, the same
+    bits on a rerun, the plan's row tiles and K-group as the wrapper's
+    constants say, two launches on the wgmma route each."""
+    import torch
+
+    from spatial_clip_tpu_torch.ops import fused_ln_dense as fd
+
+    gen = torch.Generator(device="cuda").manual_seed(121)
+    worst = 0.0
+    shapes = [(R, K, 384 + 128 * (K // 128 % 3)) for R in GEMM_EDGE_ROWS
+              for K in range(128, 1025, 128)]
+    before = fd.ln_dense_bwd_dx.routes["tc"]
+    for R, K, N in shapes:
+        x = (torch.randn((R, K), generator=gen, device="cuda") * 2 + 0.5).bfloat16()
+        g = torch.randn((R, N), generator=gen, device="cuda").bfloat16()
+        w1 = (torch.randn((N, K), generator=gen, device="cuda") / K ** 0.5).bfloat16()
+        dx = fd.ln_dense_bwd_dx(x, g, w1, 1e-5)
+        dx2 = fd.ln_dense_bwd_dx(x, g, w1, 1e-5)
+        want = fd.reference_ln_dense_bwd_dx(x, g, w1, 1e-5)
+        torch.cuda.synchronize()
+        err, tol = (dx.float() - want.float()).abs().max().item(), train_tol(torch.bfloat16,
+                                                                             want.float())
+        if not err <= tol:
+            raise AssertionError(f"[kernel-ln] fused_ln_dense dx edge R={R} K={K} N={N}: max abs "
+                                 f"err {err} > {tol}")
+        worst = max(worst, err / tol)
+        if not torch.equal(dx, dx2):
+            raise AssertionError(f"[kernel-ln] fused_ln_dense dx edge R={R} K={K} N={N}: other "
+                                 "bits on a rerun")
+        plan = fd.ln_dense_bwd_dx_plan(R, K, N)
+        if (plan["row_tiles"], plan["k_parts"]) != (-(-R // fd.DX_ROW_TILE), fd.dx_k_parts(K)):
+            raise AssertionError(f"[kernel-ln] fused_ln_dense dx edge R={R} K={K}: plan {plan}")
+    launched = fd.ln_dense_bwd_dx.routes["tc"] - before
+    if launched != 2 * len(shapes):
+        raise AssertionError(f"[kernel-ln] fused_ln_dense dx edges: {launched} wgmma launches, "
+                             f"want {2 * len(shapes)}")
+    print(f"[kernel-ln] fused_ln_dense dx bf16 edges: R {list(GEMM_EDGE_ROWS)} x K 128..1024 "
+          f"(N 384 / 512 / 640): {len(shapes)} shapes within tolerance (worst err / tol "
+          f"{worst:.3f}), the same bits on a rerun, plans as the wrapper's constants say, "
+          f"{launched} launches on the wgmma route", flush=True)
     return {"shapes": len(shapes), "worst_err_over_tol": worst}
 
 

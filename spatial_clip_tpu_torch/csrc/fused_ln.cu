@@ -20,7 +20,11 @@
 // owns the 16-byte vectors l, l + 32, ...; D <= 1024), so the statistics, the
 // normalization and the backward's two row means take warp shuffles and no
 // second trip to memory. Rows need no padding: a warp past the last row
-// returns.
+// returns. The forward's grid is persistent (one wave, SC_LN_FWD_BLOCKS
+// blocks an SM): each warp keeps gamma and beta in registers for all of its
+// rows (at D 768: 48 f32 a lane; one row a warp reloaded them per row, 79
+// MB of L1 / L2 reads beside 39 MB of x and y at the image tower) and holds
+// the next row's loads in flight while it normalizes this one.
 //
 // dgamma / dbeta, one accumulator resident across the TPU's sequential grid,
 // are made deterministic here: a fixed number of blocks (set by R alone, see
@@ -42,14 +46,21 @@
 #include "attention_common.cuh"
 #include "layer_norm_common.cuh"
 
+// Design constant of the forward, set by nvcc -D for
+// `python -m spatial_clip_tpu_torch.bench_gemm`:
+#ifndef SC_LN_FWD_BLOCKS
+#define SC_LN_FWD_BLOCKS 4  // most resident blocks an SM of the persistent grid
+#endif
+
 namespace {
 
+using sc::load_f32;
 using sc::load_f32s;
 using sc::store_from_f32;
 using sc::warp_sum;
 using sc::WarpRow;
 
-constexpr int kFwdWarps = 8;  // rows per forward block
+constexpr int kFwdWarps = 8;  // warps per forward block
 constexpr int kBwdWarps = 4;  // rows in flight per backward block
 constexpr int kBwdMaxBlocks = 4 * 132;  // about one wave of the backward on an H100
 
@@ -58,30 +69,60 @@ int bwd_blocks(int rows) {
   return need < kBwdMaxBlocks ? need : kBwdMaxBlocks;
 }
 
+// A persistent warp walks rows r, r + W, ... (W the grid's warps): gamma
+// and beta are loaded once into registers, and the next row's 16-byte loads
+// of x are issued before this row's statistics, so two rows are in flight
+// a warp. The arithmetic is WarpRow::one_pass's, lane for lane, so y keeps
+// the one-row-a-warp kernel's bits.
 template <typename T, int VECS>
-__global__ void __launch_bounds__(kFwdWarps * 32)
+__global__ void __launch_bounds__(kFwdWarps * 32, 1)
 ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
               const float* __restrict__ beta, T* __restrict__ y, int rows, int width,
               float eps) {
   using Row = WarpRow<T, VECS>;
   constexpr int kVec = Row::kVec;
   const int lane = threadIdx.x % 32;
-  const int r = blockIdx.x * kFwdWarps + threadIdx.x / 32;
+  const int stride = gridDim.x * kFwdWarps;
+  int r = blockIdx.x * kFwdWarps + threadIdx.x / 32;
   if (r >= rows) return;
-  Row row;
-  row.load(x + size_t(r) * width, width, lane);
-  float mean;
-  const float rstd = row.one_pass(width, eps, &mean);
+  uint4 raw[VECS];  // the next row's 16-byte vectors of x, as loaded
+#pragma unroll
+  for (int t = 0; t < VECS; ++t) {
+    const int c = Row::col(t, lane);
+    raw[t] = c < width ? *reinterpret_cast<const uint4*>(x + size_t(r) * width + c)
+                       : make_uint4(0, 0, 0, 0);
+  }
+  float g[VECS][kVec], b[VECS][kVec];
 #pragma unroll
   for (int t = 0; t < VECS; ++t) {
     const int c = Row::col(t, lane);
     if (c >= width) continue;
-    float g[kVec], b[kVec], out[kVec];
-    load_f32s<kVec>(gamma + c, g);
-    load_f32s<kVec>(beta + c, b);
+    load_f32s<kVec>(gamma + c, g[t]);
+    load_f32s<kVec>(beta + c, b[t]);
+  }
+  for (; r < rows; r += stride) {
+    Row row;
 #pragma unroll
-    for (int e = 0; e < kVec; ++e) out[e] = (row.v[t][e] - mean) * rstd * g[e] + b[e];
-    store_from_f32<T, kVec>(y + size_t(r) * width + c, out);
+    for (int t = 0; t < VECS; ++t) load_f32<T, kVec>(reinterpret_cast<const T*>(&raw[t]), row.v[t]);
+    const int next = r + stride;
+    if (next < rows) {  // the next row's loads, in flight from here
+#pragma unroll
+      for (int t = 0; t < VECS; ++t) {
+        const int c = Row::col(t, lane);
+        if (c < width) raw[t] = *reinterpret_cast<const uint4*>(x + size_t(next) * width + c);
+      }
+    }
+    float mean;
+    const float rstd = row.one_pass(width, eps, &mean);
+#pragma unroll
+    for (int t = 0; t < VECS; ++t) {
+      const int c = Row::col(t, lane);
+      if (c >= width) continue;
+      float out[kVec];
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) out[e] = (row.v[t][e] - mean) * rstd * g[t][e] + b[t][e];
+      store_from_f32<T, kVec>(y + size_t(r) * width + c, out);
+    }
   }
 }
 
@@ -190,10 +231,33 @@ column_sum_kernel(const float* __restrict__ part, float* __restrict__ out, int n
   }
 }
 
+// The forward's persistent grid: at most SC_LN_FWD_BLOCKS resident blocks
+// an SM (fewer if its registers do not fit; asked once per instantiation),
+// and then as few warps as give every warp the same number of rows within
+// one.
+template <typename T, int VECS>
+int fwd_blocks(int rows) {
+  static long most = 0;  // warps of one full wave
+  if (most == 0) {
+    int device = 0, sms = 0, per_sm = 0;
+    if (cudaGetDevice(&device) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ln_fwd_kernel<T, VECS>,
+                                                      kFwdWarps * 32, 0) != cudaSuccess ||
+        per_sm < 1)
+      return 0;
+    most = long(sms) * (per_sm < SC_LN_FWD_BLOCKS ? per_sm : SC_LN_FWD_BLOCKS) * kFwdWarps;
+  }
+  const long per_warp = (rows + most - 1) / most;
+  const long warps = (rows + per_warp - 1) / per_warp;
+  return int((warps + kFwdWarps - 1) / kFwdWarps);
+}
+
 template <typename T, int VECS>
 cudaError_t launch_fwd(const void* x, const float* gamma, const float* beta, void* y, int rows,
                        int width, float eps, cudaStream_t stream) {
-  const int blocks = (rows + kFwdWarps - 1) / kFwdWarps;
+  const int blocks = fwd_blocks<T, VECS>(rows);
+  if (blocks < 1) return cudaErrorInvalidValue;
   ln_fwd_kernel<T, VECS><<<blocks, kFwdWarps * 32, 0, stream>>>(
       static_cast<const T*>(x), gamma, beta, static_cast<T*>(y), rows, width, eps);
   return cudaGetLastError();

@@ -1,14 +1,19 @@
 // Hopper (sm_90a) building blocks of the bf16 GEMM kernels that feed
 // warpgroup products from TMA rings (fused_mlp.cu, fused_ln_dense.cu):
-//   - mbarriers: init, arrive (local or on a peer CTA of the cluster), the
-//     transaction-count arrive that a TMA load completes, the parity wait;
+//   - mbarriers: init, arrive (local or on a peer CTA of the cluster, the
+//     latter also with release at the cluster's scope), the
+//     transaction-count arrive that a TMA load completes, the parity wait
+//     (also with acquire at the cluster's scope); stores into a peer CTA's
+//     shared memory;
 //   - TMA: 2-D tiled loads into shared memory, plain or multicast to every
 //     CTA of a cluster, 2-D tiled stores from it, and the host side that
 //     encodes a tensor map through the driver entry point the runtime hands
 //     out (no -lcuda);
-//   - wgmma: shared-memory descriptors of a K-major tile in the 128-byte
-//     swizzle that the TMA writes, m64n64k16 / m64n128k16 bf16 -> f32, and
-//     the fence / commit / wait around them;
+//   - wgmma: shared-memory descriptors of a K-major tile and of an MN-major
+//     B (its output columns contiguous) in the 128-byte swizzle that the TMA
+//     writes, m64n64k16 / m64n128k16 / m64n256k16 bf16 -> f32 (B K-major
+//     or, for the wider two, MN-major), and the fence / commit / wait around
+//     them;
 //   - the cluster's rank and barrier, named barriers, setmaxnreg.
 //
 // Tile layout: a tile is R rows of 64 bf16 (128 bytes), 8-row groups 1024
@@ -68,6 +73,29 @@ __device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t rank
       : "memory");
 }
 
+// Arrives on the barrier at bar's offset in CTA `rank` of the cluster with
+// release semantics at the cluster's scope: this thread's earlier writes
+// (st_cluster included) are visible to a thread whose mbar_wait_cluster sees
+// the phase complete.
+__device__ __forceinline__ void mbar_arrive_release_cluster(uint64_t* bar, uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [remote];\n}\n" ::"r"(smem_u32(bar)),
+      "r"(rank)
+      : "memory");
+}
+
+// Stores v at p's offset in the shared memory of the cluster's CTA `rank`.
+__device__ __forceinline__ void st_cluster(float* p, uint32_t rank, float v) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "st.shared::cluster.f32 [remote], %2;\n}\n" ::"r"(smem_u32(p)),
+      "r"(rank), "f"(v)
+      : "memory");
+}
+
 // Whether the barrier's phase of this parity has completed (the hardware
 // suspends the thread for a while before it answers no).
 __device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
@@ -85,6 +113,21 @@ __device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
 // Waits for the completion of the barrier's phase of this parity.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   while (!mbar_try_wait(bar, parity)) {
+  }
+}
+
+// As mbar_wait, with acquire semantics at the cluster's scope (pairs with
+// mbar_arrive_release_cluster from a peer CTA).
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
   }
 }
 
@@ -154,6 +197,16 @@ __device__ __forceinline__ uint64_t wgmma_desc(uint32_t smem_addr) {
          (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
 }
 
+// Descriptor of an MN-major B in swizzled tiles: the tile's rows run along
+// the contraction, its 64 columns are 64 output columns, 8-row groups 1024
+// bytes apart (SBO); the next 64 output columns start `block_bytes` further
+// on (LBO). Moving 16 rows along the contraction adds 2048 bytes to the
+// start address.
+__device__ __forceinline__ uint64_t wgmma_desc_mn(uint32_t smem_addr, uint32_t block_bytes) {
+  return uint64_t((smem_addr & 0x3FFFF) >> 4) | (uint64_t((block_bytes >> 4) & 0x3FFF) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -194,7 +247,10 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a, uint
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
-// As wgmma_m64n64k16 with B 128 x 16 (64 registers a thread).
+// As wgmma_m64n64k16 with B 128 x 16 (64 registers a thread); kMnB 1 reads
+// B MN-major (wgmma_desc_mn: B's 128 output columns contiguous along each
+// contraction row), 0 K-major.
+template <int kMnB = 0>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uint64_t b,
                                                  int accumulate) {
   asm volatile(
@@ -204,7 +260,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uin
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
@@ -216,7 +272,49 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uin
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(accumulate));
+      : "l"(a), "l"(b), "r"(accumulate), "n"(kMnB));
+}
+
+// As wgmma_m64n128k16<kMnB> with B 256 x 16 (128 registers a thread: d[64
+// u + ...] is the m64n128 layout of output columns [128 u, +128)).
+template <int kMnB = 0>
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t a, uint64_t b,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(accumulate), "n"(kMnB));
 }
 
 // ------------------------------------------------ cluster, barriers, registers

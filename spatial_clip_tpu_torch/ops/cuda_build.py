@@ -229,6 +229,8 @@ def library() -> ctypes.CDLL:
             lib.sc_mlp_plan.restype = i32
             lib.sc_ln_dense_fwd_plan.argtypes = [i32, i32, i32, i32p]  # R, K, N, plan[5]
             lib.sc_ln_dense_fwd_plan.restype = i32
+            lib.sc_ln_dense_bwd_dx_plan.argtypes = [i32, i32, i32, i32p]  # R, K, N, plan[7]
+            lib.sc_ln_dense_bwd_dx_plan.restype = i32
             lib.sc_cuda_error_string.argtypes = [ctypes.c_int]
             lib.sc_cuda_error_string.restype = ctypes.c_char_p
             _library = lib

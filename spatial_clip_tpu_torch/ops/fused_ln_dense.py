@@ -29,6 +29,18 @@ from spatial_clip_tpu_torch.ops.fused_attention import _mm_f32
 from spatial_clip_tpu_torch.ops.fused_ln import check_kernel_width
 
 
+# The bf16 dx kernel's tiling (csrc/fused_ln_dense.cu, namespace dxtc): a
+# K-group of CTAs owns DX_ROW_TILE rows, each CTA up to 3 units of 128 of
+# the K columns.
+DX_ROW_TILE = 128
+
+
+def dx_k_parts(k: int) -> int:
+    """The CTAs of the bf16 dx kernel's K-group at width k (``Split``)."""
+    units = k // 128
+    return 1 if units <= 3 else 2 if units <= 6 else 4
+
+
 def supported(k: int, n: int) -> bool:
     """The JAX package's gate (``_fused_ln_ok``): 128-aligned dims and a
     weight of at most 7 MiB in bf16."""
@@ -150,7 +162,8 @@ def ln_dense_bwd_dx(x: torch.Tensor, g: torch.Tensor, w1: torch.Tensor,
                     eps: float) -> torch.Tensor:
     """dx (R, K) in x's dtype for ``y = normalize(x) W'^T + const`` given
     g (R, N), all three in one dtype. Counts each kernel launch in
-    ``ln_dense_bwd_dx.launches``."""
+    ``ln_dense_bwd_dx.launches`` and in ``ln_dense_bwd_dx.routes`` by its
+    body: ``tc`` (bf16, wgmma) or ``f32`` (CUDA cores)."""
     _check(x, g, w1)
     if g.shape != (x.shape[0], w1.shape[0]) or g.dtype != x.dtype:
         raise ValueError(f"g must be {x.dtype} {(x.shape[0], w1.shape[0])}; got {g.dtype} "
@@ -166,12 +179,26 @@ def ln_dense_bwd_dx(x: torch.Tensor, g: torch.Tensor, w1: torch.Tensor,
             cuda_build.DTYPE_CODES[x.dtype], eps, torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(lib, err, "ln_dense_bwd_dx launch")
     ln_dense_bwd_dx.launches += 1
+    ln_dense_bwd_dx.routes["tc" if x.dtype == torch.bfloat16 else "f32"] += 1
     return dx
+
+
+def ln_dense_bwd_dx_plan(R: int, K: int, N: int) -> dict:
+    """The bf16 dx kernel's launch plan at this shape, from the kernel
+    library (needs the card's build): its 128-row tiles, clusters, the
+    stages of its W' ring, cluster size, CTAs, the CTAs that split each
+    tile's K columns (``k_parts``) and the 128-column units a CTA holds."""
+    lib = cuda_build.library()
+    plan = (ctypes.c_int * 7)()
+    cuda_build.check(lib, lib.sc_ln_dense_bwd_dx_plan(R, K, N, plan), "sc_ln_dense_bwd_dx_plan")
+    return dict(zip(("row_tiles", "clusters", "stages", "cluster", "ctas", "k_parts", "units"),
+                    plan))
 
 
 ln_dense_fwd.launches = 0
 ln_dense_fwd.routes = {"tc": 0, "f32": 0}
 ln_dense_bwd_dx.launches = 0
+ln_dense_bwd_dx.routes = {"tc": 0, "f32": 0}
 
 
 class FusedLNDense(torch.autograd.Function):

@@ -24,12 +24,24 @@ from spatial_clip_tpu_torch.models.factory import create_model, get_tokenizer
 from spatial_clip_tpu_torch.models.transforms import normalize_batch
 
 FAMILIES = (  # first match wins; matched against the lower-cased kernel name
-    # the attention families hold the zip path's pair kernels (attention_pair.cu) and
-    # the layouts' kernels (attention_layouts.cu) too
+    # the port's own kernels (csrc/), a family each; the attention families hold the zip
+    # path's pair kernels (attention_pair.cu) and the layouts' kernels
+    # (attention_layouts.cu) too
     ("attention (fused_attention_fwd)", ("attn_fwd_kernel", "attn_pair_fwd_kernel",
                                          "attn_layout_fwd_kernel")),
     ("attention backward (fused_attention_bwd)", ("attn_bwd_kernel", "attn_pair_bwd_kernel",
                                                   "attn_layout_bwd_kernel", "db_reduce_kernel")),
+    ("attention backward with dx (attention_dx)", ("attn_bwd_dx_kernel",)),
+    ("block attention (fused_block)", ("block_attn_kernel",)),
+    ("fused_ln forward (fused_ln)", ("ln_fwd_kernel",)),
+    ("fused_ln backward (fused_ln)", ("ln_bwd_kernel", "column_sum_kernel")),
+    ("LN -> dense forward (fused_ln_dense)", ("ln_dense_fwd_kernel",)),
+    ("LN -> dense dx (fused_ln_dense)", ("ln_dense_dx_kernel",)),
+    ("fused MLP forward (fused_mlp)", ("mlp_fwd_kernel",)),
+    ("fused spatial CE (fused_spatial_ce)", ("ce_fwd_kernel", "ce_fwd_combine_kernel",
+                                             "ce_bwd_kernel", "sum_splits_kernel",
+                                             "dscale_kernel")),
+    # PyTorch's and the libraries' kernels
     ("gemm", ("gemm", "sm90_xmma", "cutlass", "cublas", "nvjet", "matmul")),
     ("reduce (LayerNorm stats, pooling)", ("reduce",)),
     ("elementwise (LayerNorm affine, GELU, residual, casts)", ("elementwise", "vectorized")),

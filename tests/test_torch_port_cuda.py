@@ -686,6 +686,77 @@ def test_ln_dense_fwd_plan_covers_every_tile(device):
         assert plan["stages"] >= (3 if K <= 768 else 2)
 
 
+@pytest.mark.parametrize("R", TILE_EDGE_ROWS)
+@pytest.mark.parametrize("K", range(128, 1025, 128))
+def test_ln_dense_bwd_dx_tile_edges(device, R, K):
+    """The bf16 dx (wgmma; K-groups of 1, 2 or 4 CTAs owning 128 rows, up to
+    3 units of 128 columns a CTA) at every edge of the row tile and of the
+    cluster and every K it takes, N of 3 to 5 g tiles: within one bf16
+    step of the plain version, the same bits on a rerun, one launch on the
+    wgmma route each."""
+    from spatial_clip_tpu_torch.ops import fused_ln_dense as fd
+
+    N = 384 + 128 * (K // 128 % 3)
+    gen = torch.Generator(device=device).manual_seed(R * 11 + K)
+    x = (torch.randn((R, K), generator=gen, device=device) * 2 + 0.5).bfloat16()
+    g = torch.randn((R, N), generator=gen, device=device).bfloat16()
+    w1 = (torch.randn((N, K), generator=gen, device=device) / K ** 0.5).bfloat16()
+    before = (fd.ln_dense_bwd_dx.launches, fd.ln_dense_bwd_dx.routes["tc"])
+    dx = fd.ln_dense_bwd_dx(x, g, w1, 1e-5)
+    dx2 = fd.ln_dense_bwd_dx(x, g, w1, 1e-5)
+    torch.cuda.synchronize()
+    assert (fd.ln_dense_bwd_dx.launches, fd.ln_dense_bwd_dx.routes["tc"]) == (before[0] + 2,
+                                                                             before[1] + 2)
+    assert torch.equal(dx, dx2)
+    want = fd.reference_ln_dense_bwd_dx(x, g, w1, 1e-5)
+    assert dx.shape == want.shape and torch.isfinite(dx).all()
+    torch.testing.assert_close(dx.float(), want.float(), rtol=0,
+                               atol=_tol(torch.bfloat16, want.float()))
+
+
+def test_ln_dense_bwd_dx_plan_covers_every_tile(device):
+    """The dx's plan: a 128-row tile a K-group of dx_k_parts(K) CTAs, up to
+    3 units of 128 columns a CTA, K-groups along the rows in clusters of at
+    most 8 CTAs, and a W' ring of 4 stages or more (x lands in four)."""
+    from spatial_clip_tpu_torch.ops import fused_ln_dense as fd
+
+    for R, K, N in ((256 * 50, 768, 3072), (256 * 77, 512, 1536), (1, 128, 128),
+                    (1000, 1024, 1152), (300, 384, 256), (257, 640, 384), (129, 896, 128)):
+        plan = fd.ln_dense_bwd_dx_plan(R, K, N)
+        assert plan["row_tiles"] == -(-R // fd.DX_ROW_TILE)
+        assert plan["k_parts"] == fd.dx_k_parts(K)
+        assert plan["cluster"] % plan["k_parts"] == 0 and plan["cluster"] <= 8
+        groups = plan["cluster"] // plan["k_parts"]
+        assert plan["clusters"] == -(-plan["row_tiles"] // groups)
+        assert plan["ctas"] == plan["clusters"] * plan["cluster"]
+        assert plan["units"] <= 3 and plan["units"] * plan["k_parts"] >= K // 128
+        assert plan["stages"] >= 4
+
+
+@pytest.mark.parametrize("R", [1, 9, 1000, 4225, 33797])
+@pytest.mark.parametrize("D,dtype", [(768, torch.bfloat16), (1024, torch.bfloat16),
+                                     (384, torch.float32), (1024, torch.float32)])
+def test_fused_ln_fwd_over_the_persistent_walk(device, R, D, dtype):
+    """The fused LayerNorm forward's persistent grid (one wave of warps, each
+    walking rows r, r + W, ... with the next row's loads in flight) at row
+    counts below, near and many times one wave: within tolerance of the
+    plain version, the same bits on a rerun, one launch each."""
+    from spatial_clip_tpu_torch.ops import fused_ln as fl
+
+    gen = torch.Generator(device=device).manual_seed(R + D)
+    x = (torch.randn((R, D), generator=gen, device=device) * 2 + 0.5).to(dtype)
+    gamma = 1 + 0.1 * torch.randn((D,), generator=gen, device=device)
+    beta = 0.1 * torch.randn((D,), generator=gen, device=device)
+    before = fl.fused_ln_fwd.launches
+    y = fl.fused_ln_fwd(x, gamma, beta, 1e-5)
+    y2 = fl.fused_ln_fwd(x, gamma, beta, 1e-5)
+    torch.cuda.synchronize()
+    assert fl.fused_ln_fwd.launches == before + 2
+    assert torch.equal(y, y2) and y.dtype == dtype
+    want = fl.reference_ln_fwd(x, gamma, beta, 1e-5)
+    torch.testing.assert_close(y.float(), want.float(), rtol=0, atol=_tol(dtype, want.float()))
+
+
 def test_ln_kernels_refuse_what_they_do_not_take(device):
     from spatial_clip_tpu_torch.ops import fused_ln as fl
     from spatial_clip_tpu_torch.ops import fused_ln_dense as fd

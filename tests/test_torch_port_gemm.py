@@ -1,6 +1,7 @@
-"""The wgmma forwards' surroundings on the CPU: ``bench_gemm``'s variants
-and flags, the fused MLP's and LN -> dense's wrapper checks, launch routes
-and the constants the wrappers mirror from the CUDA sources.
+"""The wgmma kernels' and the fused LayerNorm forward's surroundings on the
+CPU: ``bench_gemm``'s variants and flags, the fused MLP's, LN -> dense's
+(forward and dx) and fused_ln's wrapper checks, launch routes and the
+constants the wrappers mirror from the CUDA sources.
 
 The kernels themselves run only on the card (``tests/test_torch_port_cuda.py``,
 ``chip_smoke.py`` phases 12 and 15); here the wrappers take their plain
@@ -17,6 +18,7 @@ import torch
 
 from spatial_clip_tpu_torch import bench_gemm
 from spatial_clip_tpu_torch.ops import cuda_build
+from spatial_clip_tpu_torch.ops import fused_ln as fl
 from spatial_clip_tpu_torch.ops import fused_ln_dense as fd
 from spatial_clip_tpu_torch.ops import fused_mlp as fm
 
@@ -47,13 +49,16 @@ def test_bench_gemm_variants_rewrite_the_source_and_refuse_without_a_gpu(variant
                     bench_gemm.variant_flags(kernel, [variant], text.replace(macro, "SC_OTHER"))
     assert touched >= 1  # every variant changes at least one kernel
     with pytest.raises(SystemExit, match="needs a CUDA GPU"):
-        bench_gemm.main(["--variants", variant, "--kernels", "mlp,ln_dense"])
+        bench_gemm.main(["--variants", variant, "--kernels", ",".join(bench_gemm.SOURCES)])
 
 
 @pytest.mark.parametrize("argv,error", [
     (["--variants", "package,nope"], ValueError),
     (["--kernels", "mlp,attention"], ValueError),
     (["--parent", "build/parent", "--kernels", "ln_dense"], SystemExit),
+    (["--kernels", "ln_dense_dx,ln_bwd"], ValueError),
+    (["--parent", "build/parent", "--kernels", "ln_dense_dx,ln_fwd"], SystemExit),
+    (["--variants", "dx_cluster4,ln_blocks1", "--kernels", "ln_fwd"], SystemExit),
 ])
 def test_bench_gemm_parses_its_flags(argv, error):
     with pytest.raises(error):
@@ -122,3 +127,74 @@ def test_the_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="no kernel for device meta"):
         fd.ln_dense_fwd(xf.to("meta"), w1.to("meta"), b1.to("meta"), 1e-5)
     assert (fm.fused_mlp_fwd.launches, fd.ln_dense_fwd.launches) == before
+
+
+def _source_int(text: str, pattern: str) -> int:
+    return int(re.search(pattern, text).group(1))
+
+
+def test_the_dx_plan_mirrors_the_kernel_source():
+    """``DX_ROW_TILE`` is the dx kernel's ``kRows`` and ``dx_k_parts`` its
+    ``Split``: up to 3 units of 128 columns a CTA (K 384: one CTA, 768:
+    two, 1024: four); the cluster's default row groups are one of the sizes
+    ``bench_gemm`` times; the dx counts its launches by route."""
+    src = (cuda_build.CSRC_DIR / "fused_ln_dense.cu").read_text()
+    dxtc = src[src.index("namespace dxtc {"):src.index("}  // namespace dxtc")]
+    assert _source_int(dxtc, r"constexpr int kRows = (\d+);") == fd.DX_ROW_TILE
+    assert _source_int(dxtc, r"constexpr int kMaxParts = (\d+);") == max(
+        fd.dx_k_parts(k) for k in range(128, 1025, 128))
+    assert "parts = units <= 3 ? 1 : units <= 6 ? 2 : 4;" in dxtc
+    assert [fd.dx_k_parts(k) for k in range(128, 1025, 128)] == [1, 1, 1, 2, 2, 2, 4, 4]
+    assert _source_int(src, r"#define SC_LND_DX_CLUSTER (\d+)") in {
+        v["dx_cluster"] for v in bench_gemm.VARIANTS.values() if "dx_cluster" in v}
+    assert set(fd.ln_dense_bwd_dx.routes) == {"tc", "f32"}
+
+
+def test_the_dx_and_ln_forward_wrappers_take_their_plain_versions_on_the_cpu():
+    """On the CPU, ``ln_dense_bwd_dx`` and ``fused_ln_fwd`` return their plain
+    versions' bits and count no launch and no route."""
+    before = (fd.ln_dense_bwd_dx.launches, dict(fd.ln_dense_bwd_dx.routes),
+              fl.fused_ln_fwd.launches)
+    rng = np.random.default_rng(3)
+    t = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    for dtype in (torch.float32, torch.bfloat16):
+        x, g, w1 = t(7, 256).to(dtype), t(7, 384).to(dtype), (t(384, 256) / 16).to(dtype)
+        assert torch.equal(fd.ln_dense_bwd_dx(x, g, w1, 1e-5),
+                           fd.reference_ln_dense_bwd_dx(x, g, w1, 1e-5))
+        gamma, beta = 1 + 0.1 * t(256), 0.1 * t(256)
+        assert torch.equal(fl.fused_ln_fwd(x, gamma, beta, 1e-5),
+                           fl.reference_ln_fwd(x, gamma, beta, 1e-5))
+    assert before == (fd.ln_dense_bwd_dx.launches, fd.ln_dense_bwd_dx.routes,
+                      fl.fused_ln_fwd.launches)
+
+
+def test_the_dx_and_ln_forward_wrappers_refuse_what_the_kernels_do_not_take():
+    """Shape and dtype checks raise on any device; a tensor on neither the
+    CPU nor a card (meta) reaches the kernel path and is refused there, with
+    no launch or route counted."""
+    x, g, w1 = torch.zeros(4, 256), torch.zeros(4, 384), torch.zeros(384, 256)
+    before = (fd.ln_dense_bwd_dx.launches, dict(fd.ln_dense_bwd_dx.routes),
+              fl.fused_ln_fwd.launches)
+    with pytest.raises(ValueError, match="g must be"):
+        fd.ln_dense_bwd_dx(x, torch.zeros(4, 128), w1, 1e-5)
+    with pytest.raises(ValueError, match="share a dtype"):
+        fd.ln_dense_bwd_dx(x, g, w1.bfloat16(), 1e-5)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        fd.ln_dense_bwd_dx(x.to("meta"), g.to("meta"), w1.to("meta"), 1e-5)
+    ones = torch.ones(256)
+    with pytest.raises(ValueError, match="gamma / beta"):
+        fl.fused_ln_fwd(x, ones[:128], ones, 1e-5)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        fl.fused_ln_fwd(x.to("meta"), ones.to("meta"), ones.to("meta"), 1e-5)
+    assert before == (fd.ln_dense_bwd_dx.launches, fd.ln_dense_bwd_dx.routes,
+                      fl.fused_ln_fwd.launches)
+
+
+@pytest.mark.parametrize("copies_bytes,copies", [(39_321_600, 4), (40_370_176, 4),
+                                                 (200_000_000, 2), (1_000_000, 150)])
+def test_bench_gemm_cold_timing_rotates_past_the_l2(copies_bytes, copies):
+    """The cold timing rotates over enough copies of a call's inputs and
+    outputs to hold three times the 50 MB L2 (the image and text towers'
+    LayerNorm at batch 256: 4 copies of 39 / 40 MB), two at least."""
+    assert bench_gemm.cold_copies(copies_bytes) == copies
+    assert copies * copies_bytes >= bench_gemm.COLD_BYTES or copies == 2
