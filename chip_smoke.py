@@ -49,7 +49,10 @@ the exit code is not 0. No JAX is imported.
 9. kernel-loss  the fused spatial cross-entropy kernels (forward, dq, dK)
            against their plain versions in f32 at B = N = 1024, 2048 and a
            ragged 1000 x 1999 (D 512, k 6, scale 50, -1 neighbors, one
-           duplicated column id); errors, times and bound shares
+           duplicated column id); errors, times, bound shares and the
+           backward's plan; then the backward's edges (D 1, 65, 511, 513,
+           1536 x (B, N) (1, 1), (63, 2049), (2049, 63) x k 0 and 16), dq,
+           dK and dscale the same bits on a rerun
 10. loss-check  one ViT-B-32 step at batch 32 with grad_accum=2 (cached) and
            the fused loss, card (bf16, kernels) vs CPU (f32, plain path), on
            the same weights, batch and draws; and the fused loss against the
@@ -66,9 +69,9 @@ the exit code is not 0. No JAX is imported.
            2048, text qkv 512 -> 1536) and at ragged row counts (one f32);
            dgamma/dbeta the same
            bits on a rerun; F.layer_norm and F.linear(F.layer_norm) timed as
-           yardsticks (the fused_ln forward and F.layer_norm also on the
-           card's clock alone over copies of x past the L2: cold), with each
-           kernel's share of its bound; then the bf16 fused_ln_dense forward
+           yardsticks (the fused_ln forward and backward and F.layer_norm's
+           also on the card's clock alone, warm and over copies past the L2:
+           cold), with each kernel's share of its bound; then the bf16 fused_ln_dense forward
            and dx (wgmma) at the row tiles' and clusters' edges
            (GEMM_EDGE_ROWS), every K to 1024 and N past whole 256-column
            tiles, the same bits on a rerun, the dx plan's tiles and K-group,
@@ -158,7 +161,10 @@ the exit code is not 0. No JAX is imported.
            within f32 tolerance of its db, dx and db the same bits on a
            rerun; timed beside the unfused route (the recompute-with-db
            kernel and torch.matmul(dqkv, W)) and the library route (SDPA's
-           backward and the cuBLAS dx GEMM), with the bound
+           backward and the cuBLAS dx GEMM), with the bound, its share and
+           the product's plan; then the bf16 product's edges (L 1..256 x hd
+           32 / 64 / 128 x causal and not, B 1..257, Din 16..1024, 1-3
+           heads), dqkv bit for bit and the same bits on a rerun
 27. dxdb-check, train-dxdb  under BWD_FUSE='dxdb': phase 7's card-vs-CPU
            step at batch 32, then phase 8's bench workload, each with exactly
            24 forward-lse and 24 dx launches per step and no other attention
@@ -322,7 +328,9 @@ def backward_build_report(lib, report: str) -> str:
         parts.append(f"hd {hd}: registers/spill {', '.join(options)}; blocks an SM "
                      f"{', '.join(blocks)}")
     for kind in ("attn_pair_bwd_kernel", "attn_layout_bwd_kernel", "attn_bwd_dx_kernel"):
-        found = [v for k, v in entries.items() if kind in k and "__nv_bfloat16" in k]
+        # the dx kernel's bf16 instantiations are templated on the head dim alone
+        found = [v for k, v in entries.items()
+                 if kind in k and ("__nv_bfloat16" in k or f"{kind}ILi" in k)]
         if found:
             parts.append(f"{kind} bf16 x{len(found)}: registers <= {max(v[0] for v in found)}, "
                          f"spill <= {max(v[1] for v in found)} B")
@@ -330,14 +338,15 @@ def backward_build_report(lib, report: str) -> str:
 
 
 def gemm_build_report(report: str) -> str:
-    """The bf16 wgmma kernels (fused MLP, LN -> dense forward and dx):
-    ptxas's registers and spill stores of each instantiation (the MLP's and
-    the dx's are their launch-level count: their consumers take 232 / 240 a
-    thread by setmaxnreg), and how many ptxas said it had to serialize the
-    wgmma of."""
+    """The bf16 wgmma kernels (fused MLP, LN -> dense forward and dx, the
+    attention dx's product): ptxas's registers and spill stores of each
+    instantiation (the MLP's and the LN -> dense dx's are their launch-level
+    count: their consumers take 232 / 240 a thread by setmaxnreg), and how
+    many ptxas said it had to serialize the wgmma of."""
     entries = ptxas_entries(report)
     parts = []
-    for kind in ("mlp_fwd_kernel_bf16", "ln_dense_fwd_kernel_bf16", "ln_dense_dx_kernel_bf16"):
+    for kind in ("mlp_fwd_kernel_bf16", "ln_dense_fwd_kernel_bf16", "ln_dense_dx_kernel_bf16",
+                 "attn_bwd_dx_kernelILi"):
         found = {k: v for k, v in entries.items() if kind in k}
         serialized = sum(1 for line in report.splitlines()
                          if "wgmma.mma_async instructions are serialized" in line and kind in line)
@@ -822,6 +831,10 @@ def main() -> int:
         if name == "fused_ln_fwd":  # on the card's clock, x past the L2
             kernels[-1]["cold_ms"] = row["fwd_cold_ms"]
             kernels[-1]["library_cold_ms"] = row["fwd_library_cold_ms"]
+        if name == "fused_ln_bwd":  # on the card's clock alone, warm and past the L2
+            kernels[-1].update(ms=row["bwd_device_ms"], library_ms=row["bwd_library_device_ms"],
+                               cold_ms=row["bwd_cold_ms"],
+                               library_cold_ms=row["bwd_library_cold_ms"])
     image_mlp = mlp_rows["image"]
     kernels.append({
         "name": "fused_mlp_fwd",
@@ -1163,11 +1176,11 @@ def train_phase(trainer) -> dict:
     return {"lse_launches": counts[1], "bwd_launches": counts[2], "step_ms": med}
 
 
-def ce_inputs(B: int, N: int, D: int = 512, seed: int = 0):
+def ce_inputs(B: int, N: int, D: int = 512, seed: int = 0, k: int = NEIGHBORS):
     """The fused loss kernels' inputs as the loss builds them, on the card:
     unit rows, unique column ids but one duplicated, each row's own id (rows
-    past N take random columns), neighbor ids from the column ids with a 20%
-    -1 share, weights in [0, 1), scale 50."""
+    past N take random columns), k neighbor ids from the column ids with a
+    20% -1 share, weights in [0, 1), scale 50."""
     import torch
 
     from spatial_clip_tpu_torch.ops.fused_contrastive import prepare_inputs
@@ -1179,50 +1192,113 @@ def ce_inputs(B: int, N: int, D: int = 512, seed: int = 0):
     col_ids[N // 2] = col_ids[0]
     gt = (torch.arange(B, device="cuda") if B <= N
           else torch.randint(0, N, (B,), generator=gen, device="cuda"))
-    picks = col_ids[torch.randint(0, N, (B, NEIGHBORS), generator=gen, device="cuda")]
-    nbr = torch.where(torch.rand((B, NEIGHBORS), generator=gen, device="cuda") < 0.8, picks, -1)
-    alphas = torch.rand((B, NEIGHBORS), generator=gen, device="cuda")
+    picks = col_ids[torch.randint(0, N, (B, k), generator=gen, device="cuda")]
+    nbr = torch.where(torch.rand((B, k), generator=gen, device="cuda") < 0.8, picks, -1)
+    alphas = torch.rand((B, k), generator=gen, device="cuda")
     return prepare_inputs(q, kmat, col_ids, gt, nbr, alphas, torch.tensor(50.0, device="cuda"))
+
+
+def ce_check(inputs, label: str, isolated: bool = True) -> tuple:
+    """The fused loss kernels on ``inputs`` against their plain versions
+    (phase 9's tolerances), dq, dK and dscale the same bits on a rerun. Each
+    chain runs whole: the kernels' backward takes the kernels' lse and
+    mass, the plain backward the plain forward's, so both are exactly 0
+    where the gradient is (a row of one column: fed the kernels' lse, the
+    plain backward would return the rounding difference of its z from the
+    kernels'). With ``isolated`` the backward kernels are also held against
+    the plain backward on the same inputs, the kernels' lse and mass (keys
+    ``dq_iso``, ``dk_iso``, ``dscale_iso``). Returns (outputs, lse, mass, g,
+    errs: name -> (max abs err, the worst error over its tolerance,
+    elementwise for loss, lse, mass))."""
+    import torch
+
+    from spatial_clip_tpu_torch.ops import fused_contrastive as fc
+
+    B = inputs[0].shape[0]
+    g = torch.full((B,), 1.0 / B, device="cuda")  # the cotangent of the loss's mean
+    loss, lse, mass = fc.spatial_ce_fwd(*inputs)
+    dq, dscale = fc.spatial_ce_dq(*inputs, lse, mass, g)
+    dk = fc.spatial_ce_dk(*inputs, lse, mass, g)
+    dq2, dscale2 = fc.spatial_ce_dq(*inputs, lse, mass, g)
+    dk2 = fc.spatial_ce_dk(*inputs, lse, mass, g)
+    want = fc.reference_spatial_ce_fwd(*inputs)
+    errs = {}  # name: (max abs err, worst err / tol)
+    for name, got, ref in zip(("loss", "lse", "mass"), (loss, lse, mass), want):
+        d = (got - ref).abs()
+        errs[name] = (d.max().item(), (d / (1e-5 * ref.abs().clamp_min(1.0))).max().item())
+    feeds = {"": want[1:]} | ({"_iso": (lse, mass)} if isolated else {})
+    for tag, (ref_lse, ref_mass) in feeds.items():
+        want_dq, want_ds = fc.reference_spatial_ce_dq(*inputs, ref_lse, ref_mass, g)
+        want_dk = fc.reference_spatial_ce_dk(*inputs, ref_lse, ref_mass, g)
+        for name, got, ref in (("dq", dq, want_dq), ("dk", dk, want_dk)):
+            d = (got - ref).abs().max().item()
+            errs[name + tag] = (d, d / (1e-5 * ref.abs().max().item() + 1e-7))
+        d = abs(dscale.item() - want_ds.item())
+        errs["dscale" + tag] = (d, d / (1e-4 * abs(want_ds.item())) if want_ds.item() else
+                                (float("inf") if d else 0.0))
+    bad = {k: v for k, v in errs.items() if not v[1] <= 1.0}
+    rerun = torch.equal(dq, dq2) and torch.equal(dscale, dscale2) and torch.equal(dk, dk2)
+    finite = all(torch.isfinite(t).all().item() for t in (loss, dq, dk, dscale))
+    if bad or not rerun or not finite:
+        raise AssertionError(f"[kernel-loss] {label}: over tolerance {bad}; the same bits on a "
+                             f"rerun {rerun}; finite {finite}")
+    return (loss, dq, dk), lse, mass, g, errs
+
+
+# phase 9's edges of the backward's tiles, clusters and splits: one column, an
+# odd width, either side of two 256-column slices, the widest D; B != N with
+# tails past every tile and split; 0 and 16 neighbors
+CE_EDGE_DIMS = (1, 65, 511, 513, 1536)
+CE_EDGE_SIZES = ((1, 1), (63, 2049), (2049, 63))
+
+
+def ce_edges() -> dict:
+    """Phase 9's sweep of the loss kernels' edges: every D of CE_EDGE_DIMS
+    at every (B, N) of CE_EDGE_SIZES with 0 and 16 neighbors, each within
+    phase 9's tolerances and the same bits on a rerun."""
+    from spatial_clip_tpu_torch.ops import fused_contrastive as fc
+
+    worst, plans = {}, set()
+    for D in CE_EDGE_DIMS:
+        for B, N in CE_EDGE_SIZES:
+            for k in (0, 16):
+                _, _, _, _, errs = ce_check(ce_inputs(B, N, D, seed=D + k, k=k),
+                                            f"edge B={B} N={N} D={D} k={k}", isolated=False)
+                for name, (e, ratio) in errs.items():
+                    worst[name] = max(worst.get(name, 0.0), ratio)
+                    worst[name + "_err"] = max(worst.get(name + "_err", 0.0), e)
+                p = fc.kernel_plan(fc.DQ, B, N, D)
+                plans.add((p["slices"], p["splits"]))
+    cases = len(CE_EDGE_DIMS) * len(CE_EDGE_SIZES) * 2
+    print(f"[kernel-loss] edges: D {list(CE_EDGE_DIMS)} x (B, N) {list(CE_EDGE_SIZES)} x k "
+          f"(0, 16), {cases} cases: within tolerance, dq, dK and dscale the same bits on a "
+          f"rerun; worst err / tol " + ", ".join(f"{k} {v:.3f}" for k, v in worst.items()
+                                                  if not k.endswith("_err"))
+          + f"; dq plans (slices, splits) {sorted(plans)}", flush=True)
+    return {"fwd_err": max(worst[k + "_err"] for k in ("loss", "lse", "mass")),
+            "dq_err": max(worst["dq_err"], worst["dscale_err"]), "dk_err": worst["dk_err"]}
 
 
 def kernel_loss_phase() -> dict:
     """9. The fused spatial cross-entropy kernels against their plain
     versions on the card, f32 with TF32 off. Tolerances from f32 summation
     order: loss, lse, mass 1e-5 max(1, |ref|); dq, dK 1e-5 max|ref| + 1e-7;
-    dscale 1e-4 relative."""
-    import torch
-
+    dscale 1e-4 relative; dq, dK and dscale the same bits on a rerun; each
+    chain whole, and the backward kernels also against the plain backward
+    on the kernels' lse and mass (ce_check). Then the kernels' edges
+    (ce_edges), where a row of one column occurs, as whole chains only."""
     from spatial_clip_tpu_torch.ops import fused_contrastive as fc
 
     rows = {}
     for B, N in ((1024, 1024), (2048, 2048), (1000, 1999)):
         inputs = ce_inputs(B, N)
-        g = torch.full((B,), 1.0 / B, device="cuda")  # the cotangent of the loss's mean
-        loss, lse, mass = fc.spatial_ce_fwd(*inputs)
-        dq, dscale = fc.spatial_ce_dq(*inputs, lse, mass, g)
-        dk = fc.spatial_ce_dk(*inputs, lse, mass, g)
-        want = fc.reference_spatial_ce_fwd(*inputs)
-        want_dq, want_ds = fc.reference_spatial_ce_dq(*inputs, lse, mass, g)
-        want_dk = fc.reference_spatial_ce_dk(*inputs, lse, mass, g)
-        torch.cuda.synchronize()
-        errs = {}  # name: (max abs err, is it within the tolerance)
-        for name, got, ref in zip(("loss", "lse", "mass"), (loss, lse, mass), want):
-            d = (got - ref).abs()
-            errs[name] = (d.max().item(), bool((d <= 1e-5 * ref.abs().clamp_min(1.0)).all()))
-        for name, got, ref in (("dq", dq, want_dq), ("dk", dk, want_dk)):
-            d = (got - ref).abs().max().item()
-            errs[name] = (d, d <= 1e-5 * ref.abs().max().item() + 1e-7)
-        d = abs(dscale.item() - want_ds.item())
-        errs["dscale"] = (d, d <= 1e-4 * abs(want_ds.item()))
-        bad = {k: v[0] for k, v in errs.items() if not v[1]}
-        if bad:
-            raise AssertionError(f"[kernel-loss] B={B} N={N}: over tolerance {bad}")
+        _, lse, mass, g, errs = ce_check(inputs, f"B={B} N={N}")
         D = inputs[0].shape[1]
         ids = 4 * (B + N + 2 * B * NEIGHBORS) + 4  # ids, neighbor ids and weights, scale
         row = {
             "fwd_err": max(errs[k][0] for k in ("loss", "lse", "mass")),
-            "dq_err": max(errs["dq"][0], errs["dscale"][0]),
-            "dk_err": errs["dk"][0],
+            "dq_err": max(errs[k][0] for k in ("dq", "dscale", "dq_iso", "dscale_iso")),
+            "dk_err": max(errs["dk"][0], errs["dk_iso"][0]),
             "fwd_ms": median_ms(lambda: fc.spatial_ce_fwd(*inputs)),
             "fwd_plain_ms": median_ms(lambda: fc.reference_spatial_ce_fwd(*inputs)),
             "dq_ms": median_ms(lambda: fc.spatial_ce_dq(*inputs, lse, mass, g)),
@@ -1237,13 +1313,16 @@ def kernel_loss_phase() -> dict:
                 ("dk", in_bytes + 3 * 4 * B + 4 * N * D, 4 * B * N * D)):
             row[f"{part}_bound_ms"], row[f"{part}_bound_by"] = bound(n_bytes, flops, F32_FLOPS)
         rows[f"{N}" if B == N else f"{B}x{N}"] = row
+        plan = fc.kernel_plan(fc.DQ, B, N, D)
         print(f"[kernel-loss] fused spatial CE B={B} N={N} D={D} k={NEIGHBORS} f32: max abs err "
               + ", ".join(f"{k} {e:.3g}" for k, (e, _) in errs.items())
-              + " (within tolerance); " + "; ".join(
+              + " (within tolerance, dq, dK, dscale the same bits on a rerun); " + "; ".join(
                   f"{p} kernel {row[p + '_ms']:.4f} ms vs plain {row[p + '_plain_ms']:.4f} ms, "
                   f"bound {row[p + '_bound_ms']:.4f} ms ({row[p + '_bound_by']}, share "
-                  f"{row[p + '_bound_ms'] / row[p + '_ms']:.3f})" for p in ("fwd", "dq", "dk")),
+                  f"{row[p + '_bound_ms'] / row[p + '_ms']:.3f})" for p in ("fwd", "dq", "dk"))
+              + f"; backward plan (slices, splits) ({plan['slices']}, {plan['splits']})",
               flush=True)
+    rows["edges"] = ce_edges()
     return rows
 
 
@@ -1442,7 +1521,7 @@ def kernel_ln_phase() -> dict:
     import torch
     import torch.nn.functional as F
 
-    from spatial_clip_tpu_torch.bench_gemm import cold_copies, cold_ms
+    from spatial_clip_tpu_torch.bench_gemm import cold_copies, cold_ms, device_ms
     from spatial_clip_tpu_torch.ops import fused_ln as fl
     from spatial_clip_tpu_torch.ops import fused_ln_dense as fd
 
@@ -1498,6 +1577,22 @@ def kernel_ln_phase() -> dict:
         row["fwd_library_cold_ms"] = cold_ms(lambda i: F.layer_norm(xs[i], (D,), gd, bd, 1e-5),
                                              copies)
         del xs
+        # the backward on the card's clock alone: warm, and cold over copies of
+        # x, dy and dx past the L2; F.layer_norm's backward on retained graphs
+        copies = cold_copies(3 * R * D * item)
+        xs = [x] + [x.clone() for _ in range(copies - 1)]
+        dys = [dy] + [dy.clone() for _ in range(copies - 1)]
+        row["bwd_device_ms"] = device_ms(lambda: fl.fused_ln_bwd(x, gamma, dy, 1e-5))
+        row["bwd_cold_ms"] = cold_ms(lambda i: fl.fused_ln_bwd(xs[i], gamma, dys[i], 1e-5),
+                                     copies)
+        xgs = [t.detach().requires_grad_() for t in xs]
+        outs = [F.layer_norm(t, (D,), gl, bl, 1e-5) for t in xgs]
+        row["bwd_library_device_ms"] = device_ms(
+            lambda: torch.autograd.grad(outs[0], (xgs[0], gl, bl), dy, retain_graph=True))
+        row["bwd_library_cold_ms"] = cold_ms(
+            lambda i: torch.autograd.grad(outs[i], (xgs[i], gl, bl), dys[i], retain_graph=True),
+            copies)
+        del xs, dys, xgs, outs
         rows["fused_ln"][name] = row
         print(f"[kernel-ln] fused_ln {name} x ({R}, {D}) {str(dtype)[6:]}: max abs err (tol) "
               + ", ".join(f"{k} {e:.3g} ({t:.3g})" for k, (e, t) in checks.items())
@@ -1508,8 +1603,12 @@ def kernel_ln_phase() -> dict:
               f"{row['fwd_cold_ms']:.4f} ms (share {row['fwd_bound_ms'] / row['fwd_cold_ms']:.3f})"
               f" vs F.layer_norm {row['fwd_library_cold_ms']:.4f}; bwd kernel "
               f"{row['bwd_ms']:.4f} ms vs plain {row['bwd_plain_ms']:.4f}, F.layer_norm "
-              f"backward {lib_bwd:.4f}, bound {row['bwd_bound_ms']:.4f} ({row['bwd_bound_by']}, "
-              f"share {row['bwd_bound_ms'] / row['bwd_ms']:.3f})", flush=True)
+              f"backward {lib_bwd:.4f} (host-fed), bound {row['bwd_bound_ms']:.4f} "
+              f"({row['bwd_bound_by']}); on the card's clock kernel {row['bwd_device_ms']:.4f} ms "
+              f"(share {row['bwd_bound_ms'] / row['bwd_device_ms']:.3f}) vs F.layer_norm "
+              f"backward {row['bwd_library_device_ms']:.4f}, cold kernel "
+              f"{row['bwd_cold_ms']:.4f} (share {row['bwd_bound_ms'] / row['bwd_cold_ms']:.3f}) "
+              f"vs {row['bwd_library_cold_ms']:.4f}", flush=True)
 
     for name, R, K, N, dtype in (("image_fc", TRAIN_BATCH * 50, 768, 3072, torch.bfloat16),
                                  ("image_qkv", TRAIN_BATCH * 50, 768, 2304, torch.bfloat16),
@@ -2633,8 +2732,85 @@ def kernel_dx_phase() -> dict:
               f"{row['plain_ms']:.4f} ms, unfused route (recompute-with-db kernel + matmul) "
               f"{row['unfused_ms']:.4f} ms, library route (SDPA backward "
               f"{row['sdpa_bwd_ms']:.4f} + cuBLAS dx GEMM {gemm_ms:.4f}) "
-              f"{row['library_ms']:.4f} ms; bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+              f"{row['library_ms']:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}, share "
+              f"{bound_ms / row['ms']:.3f})" + (
+                  "" if dtype == torch.float32 else
+                  f"; plan {av.dx_kernel_plan(L, H, D // H, din)}"), flush=True)
+    rows["edges"] = dx_edges()
     return rows
+
+
+# phase 26's edges of the bf16 product's row tiles (64), row groups (128),
+# column passes (128 / 256), 64-deep K stages and cluster (2 sequences)
+DX_EDGE_BATCHES = (1, 2, 3, 5, 257)
+DX_EDGE_DINS = (16, 48, 80, 112, 144, 512, 768, 1024)
+
+
+def dx_edges() -> dict:
+    """Phase 26's sweep of the dx kernel's edges in bf16: every L of
+    EDGE_LENGTHS at hd 32 / 64 / 128 (as far as the backward's shared
+    memory takes it), causal and not, with B, Din and 1-3 heads cycling
+    through DX_EDGE_BATCHES, DX_EDGE_DINS: dx within one bf16 ulp at
+    max|ref| of the plain version, dqkv bit for bit the recompute-with-db
+    launch's, db within f32 tolerance of its db and of the plain version's,
+    dqkv, dx and db the same bits on a rerun, all finite."""
+    import torch
+
+    from spatial_clip_tpu_torch.models.transformer import causal_mask
+    from spatial_clip_tpu_torch.ops import attention_variants as av
+    from spatial_clip_tpu_torch.ops import fused_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(260)
+    worst, cases, plans = {"dx": 0.0, "db": 0.0}, 0, set()
+    worst_err = 0.0
+    for hd in (32, 64, 128):
+        for L in EDGE_LENGTHS:
+            for causal in (False, True):
+                B = DX_EDGE_BATCHES[cases % len(DX_EDGE_BATCHES)]
+                din = DX_EDGE_DINS[cases % len(DX_EDGE_DINS)]
+                H = 1 + cases % 3
+                if not av.dx_supported(H, H * hd, L, din, torch.bfloat16):
+                    continue
+                cases += 1
+                D = H * hd
+                qkv = torch.randn((B, L, 3 * D), generator=gen, device="cuda").bfloat16()
+                g = torch.randn((B, L, D), generator=gen, device="cuda").bfloat16()
+                w = (torch.randn((3 * D, din), generator=gen, device="cuda")
+                     * din ** -0.5).bfloat16()
+                mask = causal_mask(L, device="cuda") if causal else None
+                got = av.fused_attention_bwd_dx(qkv, mask, g, w, H)
+                again = av.fused_attention_bwd_dx(qkv, mask, g, w, H)
+                want = av.reference_attention_bwd_dx(qkv, mask, g, w, H)
+                std_dqkv, std_db = fa.fused_attention_bwd_recompute_db(qkv, mask, g, H)
+                torch.cuda.synchronize()
+                dx_err = (got[1].float() - want[1].float()).abs().max().item()
+                dx_tol = bwd_tol(torch.bfloat16, want[1].float())
+                db_err = max((got[2] - std_db).abs().max().item() /
+                             (train_tol(torch.float32, std_db) + 1e-4),
+                             (got[2] - want[2]).abs().max().item() /
+                             (train_tol(torch.bfloat16, want[2]) + 1e-4))
+                ok = (dx_err <= dx_tol and db_err <= 1.0 and torch.equal(got[0], std_dqkv)
+                      and all(torch.equal(a, b) for a, b in zip(got, again))
+                      and all(torch.isfinite(t.float()).all().item() for t in got))
+                if not ok:
+                    raise AssertionError(
+                        f"[kernel-dx] edge B={B} L={L} hd={hd} heads={H} Din={din} "
+                        f"causal={causal}: dx err {dx_err} (tol {dx_tol}), db err / tol "
+                        f"{db_err}, dqkv equal to the recompute-with-db launch's "
+                        f"{torch.equal(got[0], std_dqkv)}, the same bits on a rerun "
+                        f"{all(torch.equal(a, b) for a, b in zip(got, again))}")
+                worst["dx"] = max(worst["dx"], dx_err / dx_tol if dx_tol else 0.0)
+                worst["db"] = max(worst["db"], db_err)
+                worst_err = max(worst_err, dx_err)
+                p = av.dx_kernel_plan(L, H, hd, din)
+                plans.add((p["mt"], p["groups"], p["stages"]))
+    print(f"[kernel-dx] edges: bf16 L {list(EDGE_LENGTHS)} x hd (32, 64, 128) x causal and not "
+          f"({cases} cases the backward takes), B {list(DX_EDGE_BATCHES)}, Din "
+          f"{list(DX_EDGE_DINS)}, 1-3 heads: dx within one bf16 ulp at max|ref| (worst err / "
+          f"tol {worst['dx']:.3f}), db within f32 tolerance (worst {worst['db']:.3f}), dqkv bit "
+          f"for bit the recompute-with-db launch's, the same bits on a rerun; plans (m64 tiles, "
+          f"row groups, stages) {sorted(plans)}", flush=True)
+    return {"err": worst_err}
 
 
 def dxdb_phase(default_step_ms: float) -> dict:

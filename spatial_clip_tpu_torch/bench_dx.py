@@ -9,10 +9,11 @@ The kernel of ``attention_variants.fused_attention_bwd_dx``
 body) and then the block's dx rows (the product). This script builds three
 copies of that source with the package's nvcc flags, in parallel, under
 ``build/bench_dx/``: ``kernel`` as it is, ``body`` without the product and
-``product`` without the body (each reads what the buffers hold), with the
-bf16 product's pipeline ``--stages`` deep (the source's own depth when left
-out). For each tower's training shape (image: (B, 50, 2304), W (2304, 768),
-no mask; text: (B, 77, 1536), W (1536, 512), causal; bf16, inputs from
+``product`` without the body (each reads what the buffers hold), with at
+most ``--stages`` stages in the bf16 product's ring (nvcc
+``-DSC_DX_MAX_STAGES``; the source's own when left out). For each tower's
+training shape (image: (B, 50, 2304), W (2304, 768), no mask; text: (B,
+77, 1536), W (1536, 512), causal; bf16, inputs from
 ``torch.Generator`` seed 0) it times the three with CUDA events beside the
 package's launch, and prints one JSON object per tower: ms of each, the
 package kernel's, and the card. It checks that the ``kernel`` copy gives the
@@ -23,7 +24,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import re
 import shutil
 import statistics
 import subprocess
@@ -38,9 +38,9 @@ TOWERS = {  # name: (L, D, heads, Din, causal)
     "image": (50, 768, 12, 768, False),
     "text": (77, 512, 8, 512, True),
 }
-PRODUCT = "  dx_product<HD>("
+PRODUCT = "  dxtc::dx_product_tc<HD>("
 HEAD_LOOP = "  for (int h = 0; h < heads; ++h) {"
-STAGES = re.compile(r"static constexpr int kStages = \d+;")
+STAGES = "SC_DX_MAX_STAGES"
 
 
 def build(stages):
@@ -49,10 +49,11 @@ def build(stages):
     for anchor in (PRODUCT, HEAD_LOOP):
         if text.count(anchor) != 1:
             raise RuntimeError(f"attention_dx.cu: expected one {anchor.strip()!r}")
-    if stages is not None:
-        text = STAGES.sub(f"static constexpr int kStages = {stages};", text)
+    if text.count(f"#ifndef {STAGES}\n") != 1:
+        raise RuntimeError(f"attention_dx.cu: expected one '#ifndef {STAGES}'")
+    extra = [] if stages is None else [f"-D{STAGES}={int(stages)}"]
     copies = {"kernel": text,
-              "body": text.replace(PRODUCT, "  if (false) dx_product<HD>("),
+              "body": text.replace(PRODUCT, "  if (false) dxtc::dx_product_tc<HD>("),
               "product": text.replace(HEAD_LOOP, "  for (int h = 0; h < 0; ++h) {")}
     root = cuda_build.BUILD_DIR.parent / "bench_dx"
     shutil.rmtree(root, ignore_errors=True)
@@ -64,9 +65,9 @@ def build(stages):
             shutil.copy(header, d / header.name)
         (d / "attention_dx.cu").write_text(source)
         jobs[name] = subprocess.Popen(
-            [cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
-             str(d / "attention_dx.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)
+            [cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, *extra, "-shared", "-o",
+             str(d / "lib.so"), str(d / "attention_dx.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     argtypes = cuda_build.library().sc_attention_bwd_dx.argtypes
     libs = {}
     for name, proc in jobs.items():

@@ -1,18 +1,23 @@
-"""The bf16 wgmma kernels' and the fused LayerNorm forward's design constants
-timed side by side, on one CUDA GPU.
+"""The hand-written kernels' design constants timed side by side, beside their
+parent's sources, on one CUDA GPU.
 
     python -m spatial_clip_tpu_torch.bench_gemm [--variants package,cluster1,...]
-        [--kernels mlp,ln_dense,ln_dense_dx,ln_fwd] [--parent DIR]
+        [--kernels mlp,ln_dense,ln_dense_dx,ln_fwd,attn_dx,ce_dq,ce_dk,ln_bwd]
+        [--parent DIR]
 
 The kernels: the fused MLP forward (``mlp``, ``csrc/fused_mlp.cu``), the
 LayerNorm -> dense forward and data gradient (``ln_dense``, ``ln_dense_dx``,
-``csrc/fused_ln_dense.cu``), which feed wgmma from TMA rings, and the fused
-LayerNorm forward (``ln_fwd``, ``csrc/fused_ln.cu``), a persistent row walk.
-Their design constants are ``#ifndef`` macros in the sources (``KNOBS``:
-each knob's macro per kernel) that nvcc ``-D`` sets: the cluster size (CTAs
-along the rows that share each weight tile through a TMA multicast), the
-most 128-column output blocks an MLP CTA owns (and so its column splits),
-the most ring stages, and the LayerNorm forward's resident blocks an SM.
+``csrc/fused_ln_dense.cu``), which feed wgmma from TMA rings, the fused
+LayerNorm forward and backward (``ln_fwd``, ``ln_bwd``, ``csrc/fused_ln.cu``),
+the attention backward that forms dx = dqkv W in the launch (``attn_dx``,
+``csrc/attention_dx.cu``, its product on wgmma) and the fused spatial
+cross-entropy's dq and dK (``ce_dq``, ``ce_dk``, ``csrc/fused_spatial_ce.cu``,
+f32 on the CUDA cores). Their design constants are ``#ifndef`` macros in
+the sources (``KNOBS``: each knob's macro per kernel) that nvcc ``-D`` sets:
+the cluster size (CTAs that share each weight tile through a TMA
+multicast), the most 128-column output blocks an MLP CTA owns (and so its
+column splits), the most ring stages and the LayerNorm forward's resident
+blocks an SM.
 This script builds one copy of each source per variant (``VARIANTS``;
 ``package`` is the source as it is), all at once in parallel under
 ``build/bench_gemm/``. ``--parent DIR`` also builds the kernels' sources
@@ -21,30 +26,37 @@ times them beside.
 
 At the main path's shapes (the MLP of the image and text towers at batch 256
 and 64; ln_2 -> c_fc and ln_1 -> qkv of both towers at batch 256, forward
-and dx; each tower's LayerNorm at batch 256; bf16, inputs from
-``torch.Generator`` seed 0) it times every copy with CUDA events beside the
-library calls that compute the same function
-(``F.linear(F.gelu(F.linear(x)))``; ``F.linear(F.layer_norm(x))`` and its
-backward to x on a retained graph; ``F.layer_norm``) and prints one JSON
-object per kernel and shape: ms of each, the host's microseconds to enqueue
-one launch of each (the tensor maps are encoded per call), the package's
-launch plan, the bound (the larger of the bytes at 3.35 TB/s and the
-products at 989 TFLOP/s bf16, or the LayerNorm's arithmetic at 67 TFLOP/s
-f32) and the card. The dx and the LayerNorm forward are timed on the
+and dx; each tower's LayerNorm at batch 256, forward and backward; each
+tower's attention with dx at batch 256; the loss at B = N = 1024 and 2048,
+D 512, f32; bf16 elsewhere, inputs from ``torch.Generator`` seed 0) it times
+every copy with CUDA events beside the library calls that compute the same
+function (``F.linear(F.gelu(F.linear(x)))``; ``F.linear(F.layer_norm(x))``
+and its backward to x on a retained graph; ``F.layer_norm`` and its
+backward on a retained graph; SDPA's backward and the cuBLAS dx GEMM) and,
+for the newer kernels, beside their plain versions (and the dx kernel's
+unfused route, the recompute-with-db kernel and ``torch.matmul``), and
+prints one JSON object per kernel and shape: ms of each, the host's
+microseconds to enqueue one launch of each, the package's launch plan, the
+bound (the larger of the bytes at 3.35 TB/s and the products at 989
+TFLOP/s bf16, or 67 TFLOP/s f32) with the share of it, and the card. The
+dx kernels, the LayerNorm kernels and the loss's backward are timed on the
 card's clock alone (their launches queued behind a spin, so the host's
 enqueue is not in it), and so are their library calls; the LayerNorm
-forward and ``F.layer_norm`` both warm (the same input back to back) and
-cold (over copies of x and y that together exceed the 50 MB L2). Every copy
-must give the package launch's bits: the variants change the schedule,
-never the sums; the parent's LN -> dense (forward and dx) and MLP kernels
-are held to the plain version's tolerance, the parent's LayerNorm forward
-to the package's bits. Needs a CUDA GPU and nvcc: there is no CPU fallback.
+kernels and their library calls both warm (the same input back to back)
+and cold (over copies that together exceed the 50 MB L2). Every copy must
+give the package launch's bits: the variants change the schedule, never
+the sums; the parent's kernels are held to the plain version's tolerance
+where their sums differ (the attention dx's dqkv, the parent's LayerNorm
+kernels: the package's bits). Needs a CUDA GPU and nvcc: there is no CPU
+fallback.
 """
 from __future__ import annotations
 
 import argparse
+import ctypes
 import itertools
 import json
+import math
 import time
 from pathlib import Path
 
@@ -53,21 +65,35 @@ import torch.nn.functional as F
 
 from spatial_clip_tpu_torch.bench_dx import median_ms
 from spatial_clip_tpu_torch.bench_fwd import build_copies, design_flags, parse_variants
+from spatial_clip_tpu_torch.models.transformer import causal_mask
+from spatial_clip_tpu_torch.ops import attention_variants as av
 from spatial_clip_tpu_torch.ops import cuda_build
+from spatial_clip_tpu_torch.ops import fused_attention as fa
+from spatial_clip_tpu_torch.ops import fused_contrastive as fc
 from spatial_clip_tpu_torch.ops import fused_ln as fl
 from spatial_clip_tpu_torch.ops import fused_ln_dense as fd
 from spatial_clip_tpu_torch.ops import fused_mlp as fm
 
 SOURCES = {"mlp": "fused_mlp.cu", "ln_dense": "fused_ln_dense.cu",
-           "ln_dense_dx": "fused_ln_dense.cu", "ln_fwd": "fused_ln.cu"}
+           "ln_dense_dx": "fused_ln_dense.cu", "ln_fwd": "fused_ln.cu",
+           "attn_dx": "attention_dx.cu", "ce_dq": "fused_spatial_ce.cu",
+           "ce_dk": "fused_spatial_ce.cu", "ln_bwd": "fused_ln.cu"}
 FUNCTIONS = {"mlp": ("sc_mlp_fwd",), "ln_dense": ("sc_ln_dense_fwd",),
-             "ln_dense_dx": ("sc_ln_dense_bwd_dx",), "ln_fwd": ("sc_layer_norm_fwd",)}
+             "ln_dense_dx": ("sc_ln_dense_bwd_dx",), "ln_fwd": ("sc_layer_norm_fwd",),
+             "attn_dx": ("sc_attention_bwd_dx",),
+             "ce_dq": ("sc_spatial_ce_dq", "sc_spatial_ce_scratch"),
+             "ce_dk": ("sc_spatial_ce_dk", "sc_spatial_ce_scratch"),
+             "ln_bwd": ("sc_layer_norm_bwd", "sc_layer_norm_bwd_blocks")}
 KNOBS = {  # kernel: {knob: its macro in the kernel's source}
     "mlp": {"cluster": "SC_MLP_CLUSTER", "max_nb": "SC_MLP_MAX_NB",
             "stages": "SC_MLP_MAX_STAGES"},
     "ln_dense": {"cluster": "SC_LND_CLUSTER", "stages": "SC_LND_MAX_STAGES"},
     "ln_dense_dx": {"dx_cluster": "SC_LND_DX_CLUSTER", "dx_stages": "SC_LND_DX_MAX_STAGES"},
     "ln_fwd": {"ln_blocks": "SC_LN_FWD_BLOCKS"},
+    "attn_dx": {"attn_cluster": "SC_DX_CLUSTER", "attn_stages": "SC_DX_MAX_STAGES"},
+    "ce_dq": {},
+    "ce_dk": {},
+    "ln_bwd": {},
 }
 VARIANTS = {  # name: {knob: value}; a knob a kernel lacks leaves it as the package
     "package": {},
@@ -84,6 +110,10 @@ VARIANTS = {  # name: {knob: value}; a knob a kernel lacks leaves it as the pack
     "dx_stages4": {"dx_stages": 4},
     "ln_blocks1": {"ln_blocks": 1},
     "ln_blocks2": {"ln_blocks": 2},
+    "attn_cluster1": {"attn_cluster": 1},
+    "attn_cluster4": {"attn_cluster": 4},
+    "attn_stages2": {"attn_stages": 2},
+    "attn_stages3": {"attn_stages": 3},
 }
 SHAPES = {  # kernel: {name: (R, width, hidden or N)}; ln_fwd: (R, width, 0)
     "mlp": {"image": (256 * 50, 768, 3072), "text": (256 * 77, 512, 2048),
@@ -91,8 +121,13 @@ SHAPES = {  # kernel: {name: (R, width, hidden or N)}; ln_fwd: (R, width, 0)
     "ln_dense": {"image_fc": (256 * 50, 768, 3072), "image_qkv": (256 * 50, 768, 2304),
                  "text_fc": (256 * 77, 512, 2048), "text_qkv": (256 * 77, 512, 1536)},
     "ln_fwd": {"image": (256 * 50, 768, 0), "text": (256 * 77, 512, 0)},
+    # attn_dx: (B, L, D, heads, causal, Din); ce: (B, N, D)
+    "attn_dx": {"image": (256, 50, 768, 12, False, 768), "text": (256, 77, 512, 8, True, 512)},
+    "ce_dq": {"1024": (1024, 1024, 512), "2048": (2048, 2048, 512)},
 }
 SHAPES["ln_dense_dx"] = SHAPES["ln_dense"]
+SHAPES["ln_bwd"] = SHAPES["ln_fwd"]
+SHAPES["ce_dk"] = SHAPES["ce_dq"]
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
@@ -346,8 +381,214 @@ def bench_ln_fwd(libs: dict, gen) -> None:
                           "device": torch.cuda.get_device_name(0)}), flush=True)
 
 
+def sdpa_bwd_device_ms(qkv, mask, heads: int) -> float:
+    """PyTorch's scaled_dot_product_attention backward alone (efficient-
+    attention backend, the mask additive, no bias gradient) on one retained
+    graph over q, k, v cut from qkv, on the card's clock. A yardstick, used
+    nowhere in the package's path."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    B, L, three_d = qkv.shape
+    q, k, v = (t.contiguous().requires_grad_() for t in
+               qkv.view(B, L, 3, heads, three_d // 3 // heads).permute(2, 0, 3, 1, 4))
+    bias = None if mask is None else mask.to(qkv.dtype)
+    g = torch.randn_like(q)
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        out = F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+        return device_ms(lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True))
+
+
+def bench_attn_dx(libs: dict, gen) -> None:
+    for shape, (B, L, D, H, causal, din) in SHAPES["attn_dx"].items():
+        hd = D // H
+        qkv = torch.randn((B, L, 3 * D), generator=gen, device="cuda").bfloat16()
+        g = torch.randn((B, L, D), generator=gen, device="cuda").bfloat16()
+        w = (torch.randn((3 * D, din), generator=gen, device="cuda") * din ** -0.5).bfloat16()
+        mask = causal_mask(L, device="cuda") if causal else None
+        outs = (torch.empty_like(qkv), qkv.new_empty((B, L, din)),
+                torch.empty((B, 3 * D), device="cuda"), torch.empty((3 * D,), device="cuda"))
+
+        def launch(lib):
+            err = lib.sc_attention_bwd_dx(
+                qkv.data_ptr(), None if mask is None else mask.data_ptr(), g.data_ptr(),
+                w.data_ptr(), *(t.data_ptr() for t in outs), B, L, H, hd, din, 1, hd ** -0.5,
+                torch.cuda.current_stream().cuda_stream)
+            cuda_build.check(cuda_build.library(), err, "bench_gemm launch")
+
+        want = av.fused_attention_bwd_dx(qkv, mask, g, w, H)
+        plain = av.reference_attention_bwd_dx(qkv, mask, g, w, H)
+        peak = plain[1].float().abs().max().item()
+        tol = 2.0 ** (math.floor(math.log2(peak)) - 7)  # one bf16 ulp at max|ref|
+        report = {}
+        for name, lib in libs.items():
+            launch(lib)
+            torch.cuda.synchronize()
+            same = torch.equal(outs[0], want[0])  # dqkv: the same body in every copy
+            if name == "parent":
+                err = (outs[1].float() - plain[1].float()).abs().max().item()
+                if not (same and err <= tol):
+                    raise AssertionError(f"attn_dx {shape}: the parent's dx is {err} off (tol "
+                                         f"{tol}) or its dqkv has other bits")
+            elif not (same and torch.equal(outs[1], want[1]) and torch.equal(outs[3], want[2])):
+                raise AssertionError(f"attn_dx {shape}: copy {name} differs from the package")
+            report[name] = device_ms(lambda lib=lib: launch(lib))
+        report["package_launch"] = device_ms(lambda: av.fused_attention_bwd_dx(qkv, mask, g, w, H))
+        host = {name: host_us(lambda lib=lib: launch(lib)) for name, lib in libs.items()}
+        dqkv = want[0]
+        gemm = device_ms(lambda: torch.matmul(dqkv, w))
+        sdpa = sdpa_bwd_device_ms(qkv, mask, H)
+        unfused = device_ms(
+            lambda: torch.matmul(fa.fused_attention_bwd_recompute_db(qkv, mask, g, H)[0], w))
+        three_d = 3 * D
+        n_bytes = B * L * (2 * three_d + D + din) * 2 + three_d * din * 2 + 4 * three_d
+        flops = 5 * 2 * B * H * L * L * hd + 2 * B * L * three_d * din
+        bound = bound_ms(n_bytes, flops)
+        print(json.dumps({"kernel": "fused_attention_bwd_dx", "shape": shape, "B": B, "L": L,
+                          "D": D, "heads": H, "din": din, "ms": report,
+                          "plain_ms": device_ms(
+                              lambda: av.reference_attention_bwd_dx(qkv, mask, g, w, H),
+                              reps=3, inner=3),
+                          "unfused_ms": unfused, "library_ms": sdpa + gemm,
+                          "sdpa_bwd_ms": sdpa, "gemm_ms": gemm, "host_us": host,
+                          "bound_ms": bound, "share": bound / report["package_launch"],
+                          "plan": av.dx_kernel_plan(L, H, hd, din),
+                          "device": torch.cuda.get_device_name(0)}), flush=True)
+
+
+def ce_bench_inputs(B: int, N: int, D: int, gen):
+    """The loss kernels' inputs as chip_smoke's phase 9 builds them: unit
+    rows, unique column ids but one duplicated, each row's own id, six
+    neighbor ids from the column ids with a 20% -1 share, weights in [0, 1),
+    scale 50."""
+    q = F.normalize(torch.randn((B, D), generator=gen, device="cuda"), dim=1)
+    kmat = F.normalize(torch.randn((N, D), generator=gen, device="cuda"), dim=1)
+    col_ids = torch.randperm(10 * N, generator=gen, device="cuda")[:N]
+    col_ids[N // 2] = col_ids[0]
+    gt = torch.arange(B, device="cuda") % N
+    picks = col_ids[torch.randint(0, N, (B, 6), generator=gen, device="cuda")]
+    nbr = torch.where(torch.rand((B, 6), generator=gen, device="cuda") < 0.8, picks, -1)
+    alphas = torch.rand((B, 6), generator=gen, device="cuda")
+    return fc.prepare_inputs(q, kmat, col_ids, gt, nbr, alphas, torch.tensor(50.0, device="cuda"))
+
+
+def bench_ce(kernel: str, libs: dict, gen) -> None:
+    kind, dk = (fc.DK, True) if kernel == "ce_dk" else (fc.DQ, False)
+    for shape, (B, N, D) in SHAPES[kernel].items():
+        inputs = ce_bench_inputs(B, N, D, gen)
+        g = torch.full((B,), 1.0 / B, device="cuda")
+        _, lse, mass = fc.spatial_ce_fwd(*inputs)
+        out = torch.empty_like(inputs[1] if dk else inputs[0])
+        dscale = torch.empty((), device="cuda")
+        scratch = {}
+        for name, lib in libs.items():
+            n = ctypes.c_size_t()
+            cuda_build.check(cuda_build.library(),
+                             lib.sc_spatial_ce_scratch(kind, B, N, D, ctypes.byref(n)),
+                             "bench_gemm scratch size")
+            scratch[name] = torch.empty((max(1, n.value),), device="cuda")
+
+        def launch(name, lib):
+            ptrs = [t.data_ptr() for t in (*inputs, lse, mass, g)]
+            tail = [out.data_ptr()] + ([] if dk else [dscale.data_ptr()])
+            fn = lib.sc_spatial_ce_dk if dk else lib.sc_spatial_ce_dq
+            err = fn(*ptrs, scratch[name].data_ptr(), scratch[name].numel(), *tail, B, N, D,
+                     inputs[4].shape[1], torch.cuda.current_stream().cuda_stream)
+            cuda_build.check(cuda_build.library(), err, "bench_gemm launch")
+
+        entry = fc.spatial_ce_dk if dk else fc.spatial_ce_dq
+        reference = fc.reference_spatial_ce_dk if dk else fc.reference_spatial_ce_dq
+        want = entry(*inputs, lse, mass, g)
+        plain = reference(*inputs, lse, mass, g)
+        want_out = want if dk else want[0]
+        plain_out = plain if dk else plain[0]
+        tol = 1e-5 * plain_out.abs().max().item() + 1e-7
+        report = {}
+        for name, lib in libs.items():
+            launch(name, lib)
+            torch.cuda.synchronize()
+            if name == "parent":
+                err = (out - plain_out).abs().max().item()
+                if not err <= tol:
+                    raise AssertionError(f"{kernel} {shape}: the parent's kernel is {err} off "
+                                         f"(tol {tol})")
+            elif not (torch.equal(out, want_out) and (dk or torch.equal(dscale, want[1]))):
+                raise AssertionError(f"{kernel} {shape}: copy {name} differs from the package")
+            report[name] = device_ms(lambda name=name, lib=lib: launch(name, lib))
+        report["package_launch"] = device_ms(lambda: entry(*inputs, lse, mass, g))
+        plain_ms = device_ms(lambda: reference(*inputs, lse, mass, g))
+        ids = 4 * (B + N + 2 * B * inputs[4].shape[1]) + 4
+        n_bytes = 4 * (B + N) * D + ids + 3 * 4 * B + 4 * (N if dk else B) * D + (0 if dk else 4)
+        bound = bound_ms(n_bytes, 4 * B * N * D, F32_FLOPS)
+        print(json.dumps({"kernel": f"fused_spatial_ce_{kernel[3:]}", "shape": shape, "B": B,
+                          "N": N, "D": D, "ms": report, "plain_ms": plain_ms,
+                          "library_ms": None, "bound_ms": bound,
+                          "share": bound / report["package_launch"],
+                          "plan": fc.kernel_plan(kind, B, N, D),
+                          "device": torch.cuda.get_device_name(0)}), flush=True)
+
+
+def bench_ln_bwd(libs: dict, gen) -> None:
+    for shape, (R, D, _) in SHAPES["ln_bwd"].items():
+        n_bytes = 3 * R * D * 2 + 12 * D  # x, dy in, dx out; gamma in, dgamma, dbeta out
+        copies = cold_copies(3 * R * D * 2)
+        xs = [(torch.randn((R, D), generator=gen, device="cuda") * 2 + 0.5).bfloat16()
+              for _ in range(copies)]
+        dys = [torch.randn((R, D), generator=gen, device="cuda").bfloat16()
+               for _ in range(copies)]
+        dxs = [torch.empty_like(xs[0]) for _ in range(copies)]
+        gamma = 1 + 0.1 * torch.randn((D,), generator=gen, device="cuda")
+        lib0 = cuda_build.library()
+        part = torch.empty((lib0.sc_layer_norm_bwd_blocks(R), 2 * D), device="cuda")
+        dgdb = torch.empty((2 * D,), device="cuda")
+
+        def launch(lib, i=0):
+            err = lib.sc_layer_norm_bwd(xs[i].data_ptr(), gamma.data_ptr(), dys[i].data_ptr(),
+                                        dxs[i].data_ptr(), part.data_ptr(), dgdb.data_ptr(), R, D,
+                                        1, 1e-5, torch.cuda.current_stream().cuda_stream)
+            cuda_build.check(cuda_build.library(), err, "bench_gemm launch")
+
+        want = fl.fused_ln_bwd(xs[0], gamma, dys[0], 1e-5)
+        report, cold = {}, {}
+        for name, lib in libs.items():
+            if lib.sc_layer_norm_bwd_blocks(R) != part.shape[0]:
+                raise AssertionError(f"ln_bwd {shape}: copy {name} takes other partials")
+            launch(lib)
+            torch.cuda.synchronize()
+            if not (torch.equal(dxs[0], want[0]) and torch.equal(dgdb[:D], want[1])
+                    and torch.equal(dgdb[D:], want[2])):
+                raise AssertionError(f"ln_bwd {shape}: copy {name} differs from the package")
+            report[name] = device_ms(lambda lib=lib: launch(lib))
+            cold[name] = cold_ms(lambda i, lib=lib: launch(lib, i), copies)
+        report["package_launch"] = device_ms(lambda: fl.fused_ln_bwd(xs[0], gamma, dys[0], 1e-5))
+        host = {name: host_us(lambda lib=lib: launch(lib)) for name, lib in libs.items()}
+        # the library: F.layer_norm's backward to x, gamma and beta on retained graphs
+        gl, bl = (gamma.bfloat16().requires_grad_(), torch.zeros_like(gamma).bfloat16()
+                  .requires_grad_())
+        xg = [x.detach().requires_grad_() for x in xs]
+        ys = [F.layer_norm(x, (D,), gl, bl, 1e-5) for x in xg]
+        library = device_ms(
+            lambda: torch.autograd.grad(ys[0], (xg[0], gl, bl), dys[0], retain_graph=True))
+        turn = itertools.cycle(range(copies))
+
+        def library_cold():
+            i = next(turn)
+            return torch.autograd.grad(ys[i], (xg[i], gl, bl), dys[i], retain_graph=True)
+
+        library_cold_ms = device_ms(library_cold, inner=4 * copies)
+        del ys
+        bound = bound_ms(n_bytes, 14 * R * D, F32_FLOPS)  # chip_smoke phase 12's count
+        print(json.dumps({"kernel": "fused_ln_bwd", "shape": shape, "R": R, "D": D,
+                          "ms": report, "cold_ms": cold, "cold_copies": copies,
+                          "library_ms": library, "library_cold_ms": library_cold_ms,
+                          "host_us": host, "bound_ms": bound,
+                          "share_cold": bound / cold["package"] if "package" in cold else None,
+                          "device": torch.cuda.get_device_name(0)}), flush=True)
+
+
 BENCHES = {"mlp": bench_mlp, "ln_dense": bench_ln_dense, "ln_dense_dx": bench_ln_dense_dx,
-           "ln_fwd": bench_ln_fwd}
+           "ln_fwd": bench_ln_fwd, "attn_dx": bench_attn_dx,
+           "ce_dq": lambda libs, gen: bench_ce("ce_dq", libs, gen),
+           "ce_dk": lambda libs, gen: bench_ce("ce_dk", libs, gen), "ln_bwd": bench_ln_bwd}
 
 
 def main(argv=None):

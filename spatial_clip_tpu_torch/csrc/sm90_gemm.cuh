@@ -5,16 +5,20 @@
 //     transaction-count arrive that a TMA load completes, the parity wait
 //     (also with acquire at the cluster's scope); stores into a peer CTA's
 //     shared memory;
-//   - TMA: 2-D tiled loads into shared memory, plain or multicast to every
-//     CTA of a cluster, 2-D tiled stores from it, and the host side that
-//     encodes a tensor map through the driver entry point the runtime hands
-//     out (no -lcuda);
+//   - TMA: 2-D and 3-D tiled loads into shared memory, plain or (2-D)
+//     multicast to every CTA of a cluster, bulk copies of contiguous rows,
+//     2-D tiled stores from it, the
+//     proxy fence that lets a TMA load read rows the kernel has just
+//     stored, and the host side that encodes a tensor map through the
+//     driver entry point the runtime hands out (no -lcuda);
 //   - wgmma: shared-memory descriptors of a K-major tile and of an MN-major
 //     B (its output columns contiguous) in the 128-byte swizzle that the TMA
 //     writes, m64n64k16 / m64n128k16 / m64n256k16 bf16 -> f32 (B K-major
 //     or, for the wider two, MN-major), and the fence / commit / wait around
 //     them;
-//   - the cluster's rank and barrier, named barriers, setmaxnreg.
+//   - the cluster's rank and barrier (whole, or split into its arrive and
+//     wait), vector stores into a peer CTA's shared memory, named barriers,
+//     setmaxnreg.
 //
 // Tile layout: a tile is R rows of 64 bf16 (128 bytes), 8-row groups 1024
 // bytes apart, the 16-byte chunk c of row r stored at chunk c ^ (r % 8)
@@ -96,6 +100,18 @@ __device__ __forceinline__ void st_cluster(float* p, uint32_t rank, float v) {
       : "memory");
 }
 
+// Stores (a, b, c, d) at p's offset (16-byte aligned) in the shared memory
+// of the cluster's CTA `rank`.
+__device__ __forceinline__ void st_cluster_v4(float* p, uint32_t rank, float a, float b, float c,
+                                              float d) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "st.shared::cluster.v4.f32 [remote], {%2, %3, %4, %5};\n}\n" ::"r"(smem_u32(p)),
+      "r"(rank), "f"(a), "f"(b), "f"(c), "f"(d)
+      : "memory");
+}
+
 // Whether the barrier's phase of this parity has completed (the hardware
 // suspends the thread for a while before it answers no).
 __device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
@@ -147,6 +163,28 @@ __device__ __forceinline__ void tma_load(const CUtensorMap* map, void* dst, uint
       : "memory");
 }
 
+// `bytes` (a multiple of 16) from global src to shared dst, both 16-byte
+// aligned, as one bulk copy; completes `bytes` on bar.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The box at (c0 inner, c1, c2 outer) of a 3-D map into dst; completes
+// `bytes` on bar. Coordinates past an edge read as zeros.
+__device__ __forceinline__ void tma_load_3d(const CUtensorMap* map, void* dst, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // The box into dst's offset in every CTA of `mask`, completing on bar's
 // offset in each.
 __device__ __forceinline__ void tma_load_multicast(const CUtensorMap* map, void* dst, uint64_t* bar,
@@ -185,6 +223,12 @@ __device__ __forceinline__ void tma_store_wait() {
 // async-proxy reads of it (wgmma operands, TMA stores).
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Orders this thread's generic-proxy writes to global memory before later
+// async-proxy reads of it (a TMA load of rows the kernel has just stored).
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
 // ------------------------------------------------------------------ wgmma
@@ -331,6 +375,17 @@ __device__ __forceinline__ void cluster_sync() {
                    : "memory");
 }
 
+// The two halves of cluster_sync, for work between them: every thread
+// arrives (release: its earlier writes, st_cluster included, are visible to
+// the CTAs that wait) and later waits (acquire) for every thread of the
+// cluster to have arrived. Each thread alternates the two.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 // The first `threads` threads of the CTA (whole warps) on barrier `id` (1..15).
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
@@ -356,11 +411,13 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 
 // ------------------------------------------------------------------- host
 
-// A row-major bf16 matrix (rows, cols), row stride cols, read as boxes of
-// 64 columns x box_rows rows in the 128-byte swizzle; reads past either
-// edge return zeros. Returns a CUDA error code (0: success).
-inline cudaError_t make_tile_map(CUtensorMap* map, const void* base, int rows, int cols,
-                                 int box_rows) {
+// A bf16 tensor of `outer` blocks of (rows, cols), row-major, as a tensor
+// map of 64-column x box_rows-row boxes (of one block) in the 128-byte
+// swizzle, 2-D when outer is 0; reads past any edge (a row >= rows, a block
+// >= outer) return zeros, so a box never reaches into the next block's rows.
+// Returns a CUDA error code.
+inline cudaError_t encode_tile_map(CUtensorMap* map, const void* base, int outer, int rows,
+                                   int cols, int box_rows) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -380,15 +437,24 @@ inline cudaError_t make_tile_map(CUtensorMap* map, const void* base, int rows, i
     if (status != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
     encode = reinterpret_cast<Encode>(fn);
   }
-  const cuuint64_t dims[2] = {cuuint64_t(cols), cuuint64_t(rows)};
-  const cuuint64_t strides[1] = {cuuint64_t(cols) * 2};
-  const cuuint32_t box[2] = {cuuint32_t(kTileK), cuuint32_t(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+  const cuuint32_t rank = outer > 0 ? 3 : 2;
+  const cuuint64_t dims[3] = {cuuint64_t(cols), cuuint64_t(rows), cuuint64_t(outer)};
+  const cuuint64_t strides[2] = {cuuint64_t(cols) * 2, cuuint64_t(cols) * 2 * cuuint64_t(rows)};
+  const cuuint32_t box[3] = {cuuint32_t(kTileK), cuuint32_t(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
                               dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                               CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A row-major bf16 matrix (rows, cols), row stride cols, read as boxes of
+// 64 columns x box_rows rows in the 128-byte swizzle; reads past either
+// edge return zeros. Returns a CUDA error code (0: success).
+inline cudaError_t make_tile_map(CUtensorMap* map, const void* base, int rows, int cols,
+                                 int box_rows) {
+  return encode_tile_map(map, base, 0, rows, cols, box_rows);
 }
 
 // Launches kernel on grid x block with `smem` dynamic bytes, in clusters of

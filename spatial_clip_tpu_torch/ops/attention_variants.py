@@ -41,6 +41,7 @@ its launches in ``<wrapper>.launches``.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Optional, Tuple
 
@@ -453,6 +454,48 @@ def dx_supported(heads: int, width: int, seq: int, din: int, dtype: torch.dtype)
     the backward's (:func:`bwd_supported`) and an input width ``din`` that
     is a positive multiple of 16, the tensor-core tiles' width."""
     return bwd_supported(heads, width, seq, dtype) and din >= 16 and din % 16 == 0
+
+
+# The bf16 dx product's design constants (csrc/attention_dx.cu's SC_DX_CLUSTER
+# and SC_DX_MAX_STAGES), its stage depth (kDepth), the shared memory a CTA may
+# take with a second on an SM (228 KB less 1 KB reserved for each), and the
+# names of its plan's fields.
+DX_CLUSTER, DX_MAX_STAGES, DX_DEPTH = 2, 4, 64
+DX_TWO_PER_SM = (233472 - 2 * 1024) // 2
+DX_PLAN_KEYS = ("mt", "groups", "nc", "passes", "n_k", "box_rows", "stages", "cluster", "smem")
+
+
+def dx_plan(seq: int, heads: int, head_dim: int, din: int, cluster: int = DX_CLUSTER,
+            max_stages: int = DX_MAX_STAGES) -> dict:
+    """The bf16 dx product's plan at these shapes (mirrors
+    ``dxtc::Plan``): row groups of up to 128 rows, ``mt`` m64 tiles each (1
+    at L <= 64, else 2), each in ``passes`` of ``nc = 256 / mt`` dx columns
+    over ``n_k`` 64-deep stages of K = 3 heads head_dim; W landed in boxes of
+    ``box_rows`` rows, every ``cluster``-th by each CTA of a cluster; as many
+    ring stages (2 to ``max_stages``) as fit beside the body's two blocks an
+    SM or in its own shared memory; ``smem`` the launch's dynamic bytes."""
+    k = 3 * heads * head_dim
+    mt = 1 if seq <= 64 else 2
+    nc = 256 // mt
+    blocks = nc // 64
+    stage = (mt + blocks) * 64 * DX_DEPTH * 2
+    body = bwd_smem_bytes(seq, head_dim, torch.bfloat16)
+    room, fixed = max(body, DX_TWO_PER_SM), 1024 + 16 * max_stages
+    fit = (room - fixed) // stage if room > fixed else 0
+    stages = 2 if fit < 2 else min(fit, max_stages)
+    return dict(mt=mt, groups=-(-seq // 128), nc=nc, passes=-(-din // nc), n_k=-(-k // DX_DEPTH),
+                box_rows=DX_DEPTH * blocks // max(blocks, cluster), stages=stages, cluster=cluster,
+                smem=max(body, 1024 + stages * (stage + 16)))
+
+
+def dx_kernel_plan(seq: int, heads: int, head_dim: int, din: int) -> dict:
+    """:func:`dx_plan` as the kernel library computes it (needs the card's
+    build): the plan the bf16 launch runs."""
+    lib = cuda_build.library()
+    plan = (ctypes.c_int * len(DX_PLAN_KEYS))()
+    cuda_build.check(lib, lib.sc_attention_bwd_dx_plan(seq, heads, head_dim, din, plan),
+                     "sc_attention_bwd_dx_plan")
+    return dict(zip(DX_PLAN_KEYS, plan))
 
 
 def reference_attention_bwd_dx(qkv: torch.Tensor, mask: Optional[torch.Tensor],

@@ -150,6 +150,8 @@ def library() -> ctypes.CDLL:
             lib.sc_spatial_ce_scratch.argtypes = [i32, i32, i32, i32,  # kind, B, N, D
                                                   ctypes.POINTER(ctypes.c_size_t)]
             lib.sc_spatial_ce_scratch.restype = i32
+            lib.sc_spatial_ce_plan.argtypes = [i32, i32, i32, i32, i32p]  # kind, B, N, D, plan[8]
+            lib.sc_spatial_ce_plan.restype = i32
             lib.sc_spatial_ce_fwd.argtypes = [
                 *ce_inputs, *ce_scratch, ptr, ptr, ptr,  # loss, lse, mass
                 *ce_sizes, ptr,  # stream
@@ -223,6 +225,8 @@ def library() -> ctypes.CDLL:
             for name in ("inter_fwd", "inter_bwd", "split_fwd", "split_bwd", "t_fwd", "t_bwd",
                          "slab_fwd", "slab_bwd", "bwd_dx"):
                 getattr(lib, f"sc_attention_{name}").restype = i32
+            lib.sc_attention_bwd_dx_plan.argtypes = [i32, i32, i32, i32, i32p]  # L, H, hd, din
+            lib.sc_attention_bwd_dx_plan.restype = i32
             lib.sc_mlp_max_width.argtypes = []
             lib.sc_mlp_max_width.restype = i32
             lib.sc_mlp_plan.argtypes = [i32, i32, i32, i32p]  # R, W, H, plan[6]

@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from spatial_clip_tpu_torch.ops import cuda_build
 
-MAX_DIM = 1536  # the widest feature dim one block's dK / dq accumulator fits
+MAX_DIM = 1536  # the widest feature dim the kernels take: a cluster of three 512-column slices
 MAX_NEIGHBORS = 16
 FWD, DQ, DK = 0, 1, 2  # the kinds of csrc/fused_spatial_ce.cu's sc_spatial_ce_scratch
 
@@ -127,6 +127,44 @@ def reference_spatial_ce(q, kmat, col_ids, gt, nbr, alphas, scale) -> torch.Tens
 
 
 # ----------------------------------------------------------------- wrappers
+
+# The kernels' tiles (csrc/fused_spatial_ce.cu, one walk for all three
+# entries): the rows a CTA owns, its columns of D, the rows of a tile, the
+# bytes of its shared memory before the cluster's partial z
+# (sizeof(walk::Smem)) and of one slice's partial z; the names of a plan's
+# fields.
+OWN, COLS, TILE = 32, 512, 32
+SMEM, Z_SLICE_BYTES = 212416, OWN * TILE * 4
+MAX_SMEM = 232448  # 227 KB, the most a block may use on sm_90
+PLAN_KEYS = ("own", "tile", "blocks", "slices", "splits", "per", "smem", "resident")
+
+
+def plan(kind: int, B: int, N: int, D: int, resident: int) -> dict:
+    """How entry ``kind`` cuts its work (mirrors ``make_plan``): ``blocks``
+    row blocks of ``own`` owned rows (q rows for the forward and dq, K rows
+    for dK), each ``slices`` CTAs of 512 columns of D (a cluster, which
+    exchanges partial z), and the other side's tiles of ``tile`` rows cut
+    into ``splits`` ranges of ``per`` tiles, as many as fill one wave of the
+    ``resident`` CTAs the card holds; ``smem`` a CTA's dynamic shared
+    memory."""
+    n_own, n_other = (N, B) if kind == DK else (B, N)
+    slices = -(-D // COLS)
+    blocks, tiles = -(-n_own // OWN), -(-n_other // TILE)
+    want = min(tiles, max(1, resident // (blocks * slices)))
+    per = -(-tiles // want)
+    return dict(own=OWN, tile=TILE, blocks=blocks, slices=slices, splits=-(-tiles // per),
+                per=per, smem=SMEM + (slices * Z_SLICE_BYTES if slices > 1 else 0),
+                resident=resident)
+
+
+def kernel_plan(kind: int, B: int, N: int, D: int) -> dict:
+    """:func:`plan` as the kernel library computes it on the current card
+    (needs the card's build), with the resident CTAs it read."""
+    lib = cuda_build.library()
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    cuda_build.check(lib, lib.sc_spatial_ce_plan(kind, B, N, D, out), "sc_spatial_ce_plan")
+    return dict(zip(PLAN_KEYS, out))
+
 
 def _scratch(kind: int, q: torch.Tensor, kmat: torch.Tensor) -> torch.Tensor:
     """The f32 scratch that entry ``kind`` takes at these shapes on q's card.

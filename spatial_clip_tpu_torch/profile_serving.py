@@ -38,9 +38,8 @@ FAMILIES = (  # first match wins; matched against the lower-cased kernel name
     ("LN -> dense forward (fused_ln_dense)", ("ln_dense_fwd_kernel",)),
     ("LN -> dense dx (fused_ln_dense)", ("ln_dense_dx_kernel",)),
     ("fused MLP forward (fused_mlp)", ("mlp_fwd_kernel",)),
-    ("fused spatial CE (fused_spatial_ce)", ("ce_fwd_kernel", "ce_fwd_combine_kernel",
-                                             "ce_bwd_kernel", "sum_splits_kernel",
-                                             "dscale_kernel")),
+    ("fused spatial CE (fused_spatial_ce)", ("spatial_ce_kernel", "ce_fwd_combine_kernel",
+                                             "sum_splits_kernel", "dscale_kernel")),
     # PyTorch's and the libraries' kernels
     ("gemm", ("gemm", "sm90_xmma", "cutlass", "cublas", "nvjet", "matmul")),
     ("reduce (LayerNorm stats, pooling)", ("reduce",)),

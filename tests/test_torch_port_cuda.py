@@ -346,6 +346,31 @@ def test_cuda_tensor_never_falls_back(device):
         fused_attention_bwd_recompute(shifted.view(2, 9, 384), None,
                                       torch.zeros(2, 9, 128, dtype=torch.bfloat16,
                                                   device=device), 2)
+    from spatial_clip_tpu_torch.ops import attention_variants as av
+
+    qkv = torch.zeros(2, 9, 384, dtype=torch.bfloat16, device=device)
+    g = torch.zeros(2, 9, 128, dtype=torch.bfloat16, device=device)
+    with pytest.raises(ValueError, match="on its device"):
+        av.fused_attention_bwd_dx(qkv, None, g, torch.zeros(384, 128, dtype=torch.bfloat16), 2)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        av.fused_attention_bwd_dx(qkv, None, g, torch.zeros(384, 24, dtype=torch.bfloat16,
+                                                            device=device), 2)
+
+
+def test_dx_bwd_failed_launch_raises(device, monkeypatch):
+    """A dx launch the kernels' source refuses (a head dim it has no body
+    for) raises; it never gives way to the plain version."""
+    from spatial_clip_tpu_torch.ops import attention_variants as av
+
+    qkv = torch.zeros(2, 9, 384, dtype=torch.bfloat16, device=device)
+    g = torch.zeros(2, 9, 128, dtype=torch.bfloat16, device=device)
+    w = torch.zeros(384, 128, dtype=torch.bfloat16, device=device)
+    real = av._dims
+    monkeypatch.setattr(av, "_dims", lambda *a: (lambda d: (*d[:3], 48, *d[4:]))(real(*a)))
+    before = av.fused_attention_bwd_dx.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        av.fused_attention_bwd_dx(qkv, None, g, w, 2)
+    assert av.fused_attention_bwd_dx.launches == before
 
 
 def test_tower_on_card_matches_cpu(device):
@@ -471,9 +496,62 @@ def test_spatial_ce_kernels_match_plain_versions(device, B, N):
     assert torch.equal(dq, dq2) and torch.equal(ds, ds2) and torch.equal(dk, dk2)
 
 
+CE_EDGE_DIMS = (1, 65, 511, 513, 1536)
+CE_EDGE_SIZES = ((1, 1), (63, 2049), (2049, 63))
+
+
+@pytest.mark.parametrize("B,N", CE_EDGE_SIZES)
+@pytest.mark.parametrize("D", CE_EDGE_DIMS)
+def test_spatial_ce_kernel_edges(device, D, B, N):
+    """The kernels at their edges: one column, an odd width, either side of
+    one 512-column slice (no cluster, a cluster of 2), the widest D (a
+    cluster of 3), B != N with tails past every tile and split, 0 and 16
+    neighbors; phase 9's tolerances, dq, dK and dscale the same bits on a
+    rerun. Each chain runs whole (the plain backward on the plain
+    forward's lse and mass): at a row of one column the gradient is exactly
+    0 in both."""
+    from spatial_clip_tpu_torch.ops import fused_contrastive as fc
+
+    for k in (0, 16):
+        inputs = _ce_inputs(device, B, N, D=D, k=k, seed=D + k)
+        g = torch.full((B,), 1.0 / B, device=device)
+        outs = fc.spatial_ce_fwd(*inputs)
+        dq, ds = fc.spatial_ce_dq(*inputs, outs[1], outs[2], g)
+        dk = fc.spatial_ce_dk(*inputs, outs[1], outs[2], g)
+        dq2, ds2 = fc.spatial_ce_dq(*inputs, outs[1], outs[2], g)
+        dk2 = fc.spatial_ce_dk(*inputs, outs[1], outs[2], g)
+        torch.cuda.synchronize()
+        plain = fc.reference_spatial_ce_fwd(*inputs)
+        for got, want in zip(outs, plain):
+            assert ((got - want).abs() <= 1e-5 * want.abs().clamp_min(1.0)).all()
+        want_dq, want_ds = fc.reference_spatial_ce_dq(*inputs, plain[1], plain[2], g)
+        want_dk = fc.reference_spatial_ce_dk(*inputs, plain[1], plain[2], g)
+        for got, want in ((dq, want_dq), (dk, want_dk)):
+            torch.testing.assert_close(got, want, rtol=0,
+                                       atol=1e-5 * want.abs().max().item() + 1e-7)
+        assert abs(ds.item() - want_ds.item()) <= 1e-4 * abs(want_ds.item())
+        assert torch.equal(dq, dq2) and torch.equal(ds, ds2) and torch.equal(dk, dk2)
+
+
+def test_spatial_ce_plan_covers_every_tile(device):
+    """Each entry's plan on this card is the one ``fc.plan`` mirrors at the
+    resident CTAs the card reports (the CPU tests hold the mirror to cover
+    every tile), at the main and edge shapes."""
+    from spatial_clip_tpu_torch.ops import fused_contrastive as fc
+
+    shapes = [(1024, 1024, 512), (2048, 2048, 512), (1000, 1999, 512)]
+    shapes += [(B, N, D) for D in CE_EDGE_DIMS for B, N in CE_EDGE_SIZES]
+    for B, N, D in shapes:
+        for kind in (fc.FWD, fc.DQ, fc.DK):
+            got = fc.kernel_plan(kind, B, N, D)
+            assert got["resident"] >= 1
+            assert got == fc.plan(kind, B, N, D, got["resident"]), (kind, B, N, D)
+
+
 def test_spatial_ce_takes_its_widest_dim_and_refuses_wider(device):
-    """At D = MAX_DIM the backward's 32 x D accumulator still fits a block's
-    shared memory (the launch would fail otherwise)."""
+    """At D = MAX_DIM the backward's cluster of three CTAs, each with the
+    cluster's partial z, still fits a block's shared memory (the launch
+    would fail otherwise)."""
     from spatial_clip_tpu_torch.ops import fused_contrastive as fc
 
     inputs = _ce_inputs(device, 40, 70, D=fc.MAX_DIM)
@@ -558,12 +636,28 @@ def test_spatial_ce_entry_refuses_short_scratch(device, kind):
     assert err != 0
 
 
-def test_spatial_ce_cuda_tensor_never_falls_back(device):
+def test_spatial_ce_cuda_tensor_never_falls_back(device, monkeypatch):
+    """A CUDA input never reaches a plain version: a CPU operand beside it
+    is refused, and an entry whose launch the kernels' source refuses (here
+    a short scratch, for the clustered backward entries too) raises."""
     from spatial_clip_tpu_torch.ops import fused_contrastive as fc
 
     q, kmat, col_ids, gt, nbr, alphas, scale = _ce_inputs(device, 8, 8)
     with pytest.raises(ValueError, match="on cuda"):
         fc.spatial_ce_fwd(q, kmat.cpu(), col_ids, gt, nbr, alphas, scale)
+    inputs = _ce_inputs(device, 64, 96, D=768)  # a cluster of 2
+    loss, lse, mass = fc.spatial_ce_fwd(*inputs)
+    g = torch.ones(64, device=device)
+    for entry in (fc.spatial_ce_dq, fc.spatial_ce_dk):
+        with pytest.raises(ValueError, match="on cuda"):
+            entry(*inputs, lse.cpu(), mass, g)
+    monkeypatch.setattr(fc, "_scratch",
+                        lambda kind, q, kmat: torch.empty((0,), device=q.device))
+    for entry in (fc.spatial_ce_dq, fc.spatial_ce_dk):
+        before = entry.launches
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            entry(*inputs, lse, mass, g)
+        assert entry.launches == before
 
 
 # ------------------------------------------------------- the LayerNorm kernels
@@ -939,6 +1033,62 @@ def test_dx_bwd_kernel_matches_plain_version(device, B, L, D, H, causal, dtype, 
     rd_dqkv, rd_db = fused_attention_bwd_recompute_db(qkv, mask, g, H)
     assert torch.equal(dqkv, rd_dqkv)
     torch.testing.assert_close(db, rd_db, rtol=0, atol=_tol(torch.float32, rd_db) + 1e-4)
+
+
+DX_EDGE_LENGTHS = (1, 15, 16, 17, 50, 63, 64, 65, 77, 128, 129, 200, 256)
+DX_EDGE_BATCHES = (1, 2, 3, 5, 257)
+DX_EDGE_DINS = (16, 48, 80, 112, 144, 512, 768, 1024)
+
+
+@pytest.mark.parametrize("L", DX_EDGE_LENGTHS)
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_dx_bwd_kernel_tile_edges(device, hd, L):
+    """The bf16 dx kernel at its product's edges (the 64-row tiles and
+    128-row groups, 128 / 256-column passes, 64-deep K stages, clusters of
+    2 sequences with a batch not a multiple of them): causal and not, with
+    B, Din and 1-3 heads cycling through their edges; dx within one bf16
+    ulp at max|ref| of the plain version, dqkv the recompute-with-db
+    launch's bits, db within f32 tolerance of its db, the same bits on a
+    rerun."""
+    from spatial_clip_tpu_torch.ops import attention_variants as av
+    from spatial_clip_tpu_torch.ops.fused_attention import fused_attention_bwd_recompute_db
+
+    i = DX_EDGE_LENGTHS.index(L) + 13 * (hd // 64)
+    for causal in (False, True):
+        i += 1
+        B, din, H = DX_EDGE_BATCHES[i % 5], DX_EDGE_DINS[i % 8], 1 + i % 3
+        if not av.dx_supported(H, H * hd, L, din, torch.bfloat16):
+            continue
+        D = H * hd
+        gen = torch.Generator(device=device).manual_seed(i)
+        qkv = torch.randn((B, L, 3 * D), generator=gen, device=device).bfloat16()
+        g = torch.randn((B, L, D), generator=gen, device=device).bfloat16()
+        w = (torch.randn((3 * D, din), generator=gen, device=device) * din ** -0.5).bfloat16()
+        mask = causal_mask(L, device=device) if causal else None
+        got = av.fused_attention_bwd_dx(qkv, mask, g, w, H)
+        again = av.fused_attention_bwd_dx(qkv, mask, g, w, H)
+        want = av.reference_attention_bwd_dx(qkv, mask, g, w, H)
+        rd_dqkv, rd_db = fused_attention_bwd_recompute_db(qkv, mask, g, H)
+        torch.cuda.synchronize()
+        assert got[1].shape == (B, L, din) and torch.isfinite(got[1].float()).all()
+        torch.testing.assert_close(got[1].float(), want[1].float(), rtol=0,
+                                   atol=_bwd_tol(torch.bfloat16, want[1].float()))
+        assert torch.equal(got[0], rd_dqkv)
+        torch.testing.assert_close(got[2], rd_db, rtol=0,
+                                   atol=_tol(torch.float32, rd_db) + 1e-4)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_dx_bwd_plan_covers_every_tile(device):
+    """The bf16 launch's plan is the one ``dx_plan`` mirrors (which the CPU
+    tests hold to cover every tile) at every edge geometry it takes."""
+    from spatial_clip_tpu_torch.ops import attention_variants as av
+
+    for hd in (32, 64, 128):
+        for L in DX_EDGE_LENGTHS:
+            for H, din in ((1, 16), (3, 144), (12, 768), (8, 512)):
+                if av.dx_supported(H, H * hd, L, din, torch.bfloat16):
+                    assert av.dx_kernel_plan(L, H, hd, din) == av.dx_plan(L, H, hd, din)
 
 
 # ------------------------------------------------------------- the fused MLP

@@ -17,6 +17,7 @@ in other orders of dqkv entries that may sit one step apart).
 from __future__ import annotations
 
 import math
+import re
 
 import jax
 import jax.numpy as jnp
@@ -100,6 +101,118 @@ def test_plain_version_matches_jax_kernel_bf16():
     peak = np.abs(want_dx).max()
     np.testing.assert_allclose(dx.float().numpy(), want_dx, rtol=0,
                                atol=2.0 ** (math.floor(math.log2(peak)) - 7))
+
+
+# the bf16 product's edges (csrc/attention_dx.cu): one row, L past one and two
+# 64-row tiles, hd 32 and 128, Din 16 / 48 / 144 (within one, past one and
+# past two 64-column tiles of W, short of a 128-column pass)
+DX_EDGES = [(3, 1, 128, 4, False, 16), (2, 65, 128, 1, True, 48),
+            (2, 129, 128, 4, True, 144), (1, 65, 256, 2, False, 144)]
+
+
+@pytest.mark.parametrize("B,L,D,H,causal,din", DX_EDGES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_version_matches_jax_kernel_at_the_product_edges(dtype, B, L, D, H, causal, din):
+    """The plain version the card's kernel is held to, against JAX's
+    interpret-mode kernel at the product's edge shapes, at the tolerances
+    of the two tests above (f32: dqkv atol 2e-5, db 2e-4, dx rtol / atol
+    1e-4; bf16: dqkv one bf16 step of its largest magnitude, db atol 5e-2
+    rtol 1e-2, dx one bf16 ulp at its largest magnitude)."""
+    qkv, mask, g = _inputs(B * L + din, B, L, D, causal)
+    w = _weight(din + 1, din, 3 * D)
+    if dtype == "float32":
+        want_dqkv, want_dx, want_db = _jax_bwd_dx(qkv, mask, g, w, H)
+        dqkv, dx, db = fused_attention_bwd_dx(_t(qkv), _t(mask), _t(g), _t(w.T).contiguous(), H)
+        np.testing.assert_allclose(dqkv.numpy(), want_dqkv, atol=2e-5)
+        np.testing.assert_allclose(db.numpy(), want_db, atol=2e-4)
+        np.testing.assert_allclose(dx.numpy(), want_dx, rtol=1e-4, atol=1e-4)
+        return
+    bf = [jnp.asarray(a).astype(jnp.bfloat16) for a in (qkv, g, w)]
+    want_dqkv, want_dx, want_db = _jax_bwd_dx(bf[0], mask, bf[1], bf[2], H)
+    to_bf = [torch.from_numpy(a).to(torch.bfloat16) for a in (qkv, g, w.T.copy())]
+    dqkv, dx, db = fused_attention_bwd_dx(to_bf[0], _t(mask), to_bf[1], to_bf[2], H)
+    assert dx.shape == (B, L, din) and dx.dtype == torch.bfloat16
+    np.testing.assert_allclose(dqkv.float().numpy(), want_dqkv, rtol=0,
+                               atol=2 ** -8 * np.abs(want_dqkv).max())
+    np.testing.assert_allclose(db.numpy(), want_db, atol=5e-2, rtol=1e-2)
+    peak = np.abs(want_dx).max()
+    np.testing.assert_allclose(dx.float().numpy(), want_dx, rtol=0,
+                               atol=2.0 ** (math.floor(math.log2(peak)) - 7))
+
+
+PLAN_LENGTHS = (1, 15, 16, 17, 50, 63, 64, 65, 77, 128, 129, 200, 256)
+
+
+@pytest.mark.parametrize("L", PLAN_LENGTHS)
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_the_product_plan_covers_every_tile(hd, L):
+    """For every geometry the bf16 kernel takes, at each cluster size
+    ``bench_gemm`` times: the row groups (one or two m64 tiles) cover L,
+    the passes cover Din, the 64-deep stages cover K = 3D, each CTA of a cluster
+    lands an equal share of a stage's W boxes, the ring has 2 to
+    ``DX_MAX_STAGES`` stages, and the shared memory holds the body and the
+    ring (1024 bytes of alignment, a full and an empty barrier a stage)
+    within a block's 227 KB, and within two blocks an SM wherever the body
+    is."""
+    for heads, din in ((1, 16), (2, 48), (3, 144), (8, 512), (12, 768), (4, 1024)):
+        if not dx_supported(heads, heads * hd, L, din, torch.bfloat16):
+            continue
+        body = pfa.bwd_smem_bytes(L, hd, torch.bfloat16)
+        depth = pav.DX_DEPTH
+        for cluster in (1, 2, 4):
+            p = pav.dx_plan(L, heads, hd, din, cluster=cluster)
+            assert p["mt"] == (1 if L <= 64 else 2) and p["nc"] * p["mt"] == 256
+            assert p["groups"] * 128 >= L > (p["groups"] - 1) * 128
+            assert p["mt"] * 64 >= min(L, 128)
+            assert p["passes"] * p["nc"] >= din > (p["passes"] - 1) * p["nc"]
+            k = 3 * heads * hd
+            assert p["n_k"] * depth >= k > (p["n_k"] - 1) * depth
+            blocks = p["nc"] // 64
+            boxes = blocks * depth // p["box_rows"]
+            assert boxes >= cluster and boxes % cluster == 0
+            assert 2 <= p["stages"] <= pav.DX_MAX_STAGES
+            ring = 1024 + p["stages"] * ((p["mt"] + blocks) * 128 * depth + 16)
+            assert p["smem"] == max(body, ring) <= 232448
+            if body <= pav.DX_TWO_PER_SM:
+                assert p["smem"] <= pav.DX_TWO_PER_SM
+
+
+@pytest.mark.parametrize("tower,geometry,want", [
+    ("image", (50, 12, 64, 768),
+     dict(mt=1, groups=1, nc=256, passes=3, n_k=36, box_rows=64, stages=2, cluster=2)),
+    ("text", (77, 8, 64, 512),
+     dict(mt=2, groups=1, nc=128, passes=4, n_k=24, box_rows=64, stages=3, cluster=2)),
+])
+def test_the_product_plan_at_the_towers(tower, geometry, want):
+    """ViT-B-32's towers (L, heads, hd, Din) at the package's constants:
+    the image tower's one 64-row tile in 3 passes of 256 columns, the
+    text's two 64-row tiles in 4 passes of 128, 64-deep stages of 40 / 32
+    KB, 2 / 3 of them in the ring beside the body's second block an SM."""
+    p = pav.dx_plan(*geometry)
+    assert {k: p[k] for k in want} == want
+    stage = (p["mt"] + p["nc"] // 64) * 64 * pav.DX_DEPTH * 2
+    assert stage == {"image": 40960, "text": 32768}[tower]
+    assert p["smem"] == 1024 + p["stages"] * (stage + 16) <= pav.DX_TWO_PER_SM
+
+
+def test_the_product_plan_mirrors_the_kernel_source():
+    """``dx_plan``'s constants are the kernel source's: the design
+    constants' defaults (the cluster one of the sizes ``bench_gemm``
+    times), the 64-deep stages, 128-row groups, two blocks' share of an
+    SM."""
+    from pathlib import Path
+
+    from spatial_clip_tpu_torch import bench_gemm
+
+    src = (Path(pav.__file__).parents[1] / "csrc" / "attention_dx.cu").read_text()
+    assert int(re.search(r"#define SC_DX_CLUSTER (\d+)", src).group(1)) == pav.DX_CLUSTER
+    assert int(re.search(r"#define SC_DX_MAX_STAGES (\d+)", src).group(1)) == pav.DX_MAX_STAGES
+    assert "constexpr int kDepth = 64;" in src and pav.DX_DEPTH == 64
+    assert "constexpr int kGroupRows = 128;" in src
+    assert "constexpr size_t kTwoPerSm = (233472 - 2 * 1024) / 2;" in src
+    assert pav.DX_TWO_PER_SM == (233472 - 2 * 1024) // 2
+    assert {1, 4} <= {v["attn_cluster"] for v in bench_gemm.VARIANTS.values()
+                      if "attn_cluster" in v}
 
 
 @pytest.fixture
@@ -215,14 +328,30 @@ def test_wrapper_checks_the_weight():
             fused_attention_bwd_dx(qkv, mask, g, w, 2)
 
 
-@pytest.mark.parametrize("module,argv", [("bench", ["--bwd-fuse", "dxdb"]),
-                                         ("bench_dx", ["--tower", "text"])])
+@pytest.mark.parametrize("module,argv", [
+    ("bench", ["--bwd-fuse", "dxdb"]), ("bench_dx", ["--tower", "text"]),
+    ("bench_dx", ["--stages", "3"]),
+    ("bench_gemm", ["--kernels", "attn_dx", "--variants", "package,attn_cluster1,attn_stages2"]),
+])
 def test_entry_points_take_their_flags_and_refuse_without_a_gpu(module, argv):
-    """``bench --bwd-fuse`` and ``bench_dx`` parse their flags, then refuse:
-    no CUDA here. BWD_FUSE is left as it was."""
+    """``bench --bwd-fuse``, ``bench_dx`` (its ring's stages too) and
+    ``bench_gemm``'s dx kernel with its design constants parse their flags,
+    then refuse: no CUDA here. BWD_FUSE is left as it was."""
     import importlib
 
     before = pfa.BWD_FUSE
     with pytest.raises(SystemExit, match="needs a CUDA GPU"):
         importlib.import_module(f"spatial_clip_tpu_torch.{module}").main(argv)
     assert pfa.BWD_FUSE == before
+
+
+def test_bench_dx_anchors_are_in_the_source():
+    """``bench_dx``'s body and product copies patch the source at one head
+    loop and one product call, and set the ring's depth by its macro."""
+    from pathlib import Path
+
+    from spatial_clip_tpu_torch import bench_dx
+
+    src = (Path(pav.__file__).parents[1] / "csrc" / "attention_dx.cu").read_text()
+    assert src.count(bench_dx.PRODUCT) == 1 and src.count(bench_dx.HEAD_LOOP) == 1
+    assert src.count(f"#ifndef {bench_dx.STAGES}\n") == 1

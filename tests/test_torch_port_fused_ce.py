@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import functools
 import math
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -42,7 +44,7 @@ def _case(B, N, D, k, scale, dupes, seed=0):
     col_ids = rng.permutation(10_000)[:N].astype(np.int32)
     if dupes:
         col_ids[N // 2:N // 2 + 4] = col_ids[:4]
-    gt = rng.permutation(N)[:B].astype(np.int32)
+    gt = (rng.permutation(N)[:B] if B <= N else rng.integers(0, N, B)).astype(np.int32)
     nbr = np.where(rng.uniform(size=(B, k)) < 0.7, col_ids[rng.integers(0, N, (B, k))],
                    -1).astype(np.int32)
     alphas = rng.uniform(-0.2, 1.0, (B, k)).astype(np.float32)
@@ -110,6 +112,93 @@ def test_plain_kernel_versions_match_jax_residuals_and_vjp(name):
     for got, want in zip(fc.spatial_ce_fwd(*inputs), (loss, lse, mass)):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
     torch.testing.assert_close(fc.spatial_ce_dk(*inputs, lse, mass, tg), dk, rtol=0, atol=0)
+
+
+# the card kernels' edges: one column, an odd width, widths either side of
+# one 512-column slice, B != N with tails past every tile, 0 and 16 neighbors
+EDGE_CASES = {  # B, N, D, k, scale, duplicates
+    "d1": (5, 7, 1, 1, 10.0, False),
+    "d65_k16": (40, 19, 65, 16, 10.0, True),
+    "d511": (19, 45, 511, 3, 7.0, False),
+    "d513_k0": (70, 33, 513, 0, 7.0, False),
+    "b_lt_n_k16": (33, 70, 65, 16, 20.0, False),
+}
+
+
+@pytest.mark.parametrize("name", EDGE_CASES)
+def test_plain_kernel_versions_match_jax_at_the_edges(name):
+    """The plain versions the card's kernels are held to, against JAX's
+    interpret-mode kernels at the kernels' edge shapes: loss, lse and mass
+    at rtol 2e-5 (atol 2e-5), dq, dK and dscale of the VJP at rtol 1e-4
+    (atol 1e-6): f32 summation order only. JAX's interpret mode takes no
+    zero-size block, so at k = 0 it gets one neighbor of id -1 and weight
+    0, which matches no column: the same labels."""
+    B, N, D, k, scale, dupes = EDGE_CASES[name]
+    q, K, col_ids, gt, nbr, alphas, s = _case(B, N, D, k, scale, dupes, seed=4)
+    jnbr, jalphas = ((nbr, alphas) if k else
+                     (np.full((B, 1), -1, np.int32), np.zeros((B, 1), np.float32)))
+    ids = tuple(jnp.asarray(a) for a in (col_ids, gt, jnbr, jalphas))
+    g = np.random.default_rng(5).uniform(0.1, 1.0, B).astype(np.float32)
+    w_loss, w_lse, w_mass = jax_fc._fwd_impl(jnp.asarray(q), jnp.asarray(K), *ids,
+                                             jnp.float32(s), 16, 32, True)
+    _, vjp = jax.vjp(lambda a, b, c: JAX_FUSED(a, b, *ids, c),
+                     jnp.asarray(q), jnp.asarray(K), jnp.float32(s))
+    w_dq, w_dk, w_ds = vjp(jnp.asarray(g))
+
+    inputs = fc.prepare_inputs(*_torch(q, K, col_ids, gt, nbr, alphas, s))
+    assert inputs[4].shape == (B, k)
+    loss, lse, mass = fc.spatial_ce_fwd(*inputs)
+    for got, want in ((loss, w_loss), (lse, np.asarray(w_lse)[:B, 0]),
+                      (mass, np.asarray(w_mass)[:B, 0])):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+    tg = torch.from_numpy(g)
+    dq, ds = fc.spatial_ce_dq(*inputs, lse, mass, tg)
+    dk = fc.spatial_ce_dk(*inputs, lse, mass, tg)
+    assert dq.shape == (B, D) and dk.shape == (N, D)
+    np.testing.assert_allclose(dq.numpy(), np.asarray(w_dq), rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(dk.numpy(), np.asarray(w_dk), rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(ds.item(), float(w_ds), rtol=1e-4)
+
+
+PLAN_SHAPES = [(1, 1, 1), (63, 2049, 65), (2049, 63, 513), (1024, 1024, 512),
+               (2048, 2048, 512), (1000, 1999, 512), (300, 700, 1536), (129, 257, 511)]
+
+
+@pytest.mark.parametrize("B,N,D", PLAN_SHAPES)
+@pytest.mark.parametrize("kind", [fc.FWD, fc.DQ, fc.DK])
+def test_the_plan_covers_every_tile(kind, B, N, D):
+    """At any resident count the plan's row blocks cover the owned rows,
+    its slices (a cluster of one CTA per 512 columns, at most 8) cover D,
+    its splits cover the other side's tiles with none empty and fill at
+    most one wave, and its shared memory fits a block (227 KB)."""
+    n_own, n_other = (N, B) if kind == fc.DK else (B, N)
+    for resident in (1, 102, 117, 132, 264):
+        p = fc.plan(kind, B, N, D, resident)
+        assert (p["own"], p["tile"]) == (fc.OWN, fc.TILE)
+        assert p["blocks"] * p["own"] >= n_own > (p["blocks"] - 1) * p["own"]
+        tiles = -(-n_other // p["tile"])
+        assert p["splits"] * p["per"] >= tiles > (p["splits"] - 1) * p["per"]
+        if p["splits"] > 1:  # more than one split only while a wave holds them
+            assert p["blocks"] * p["slices"] * (p["splits"] - 1) < resident
+        assert p["slices"] * fc.COLS >= D > (p["slices"] - 1) * fc.COLS and p["slices"] <= 8
+        assert p["smem"] == fc.SMEM + (p["slices"] * fc.Z_SLICE_BYTES if p["slices"] > 1 else 0)
+        assert p["smem"] <= fc.MAX_SMEM
+
+
+def test_the_plan_mirrors_the_kernel_source():
+    """The tiles of :func:`fc.plan` are the kernel source's, and its
+    shared memory the size the source asserts of ``walk::Smem``."""
+    src = (Path(fc.__file__).parents[1] / "csrc" / "fused_spatial_ce.cu").read_text()
+    walk = src[src.index("namespace walk {"):src.index("}  // namespace walk")]
+
+    def const(text, name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+    assert (const(walk, "kOwn"), const(walk, "kCols"), const(walk, "kTile")) == (
+        fc.OWN, fc.COLS, fc.TILE)
+    assert const(src, "kMaxDim") == fc.MAX_DIM
+    assert f"constexpr size_t kMaxSmem = {fc.MAX_SMEM};" in src
+    assert f"static_assert(sizeof(Smem) == {fc.SMEM}," in walk
 
 
 def test_reference_spatial_ce_matches_jax():

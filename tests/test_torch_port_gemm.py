@@ -1,7 +1,9 @@
 """The wgmma kernels' and the fused LayerNorm forward's surroundings on the
-CPU: ``bench_gemm``'s variants and flags, the fused MLP's, LN -> dense's
-(forward and dx) and fused_ln's wrapper checks, launch routes and the
-constants the wrappers mirror from the CUDA sources.
+CPU: ``bench_gemm``'s variants and flags (its kernels: these, the
+attention dx, the fused loss's dq and dK and the fused_ln backward), the
+fused MLP's, LN -> dense's (forward and dx) and fused_ln's wrapper checks,
+launch routes and the constants the wrappers mirror from the CUDA
+sources.
 
 The kernels themselves run only on the card (``tests/test_torch_port_cuda.py``,
 ``chip_smoke.py`` phases 12 and 15); here the wrappers take their plain
@@ -56,7 +58,11 @@ def test_bench_gemm_variants_rewrite_the_source_and_refuse_without_a_gpu(variant
     (["--variants", "package,nope"], ValueError),
     (["--kernels", "mlp,attention"], ValueError),
     (["--parent", "build/parent", "--kernels", "ln_dense"], SystemExit),
-    (["--kernels", "ln_dense_dx,ln_bwd"], ValueError),
+    (["--kernels", "ln_dense_dx,ln_nope"], ValueError),
+    (["--kernels", "attn_dx,ce_dq,ce_dk,ln_bwd"], SystemExit),
+    (["--parent", "build/parent", "--kernels", "attn_dx,ce_dk", "--variants",
+      "package,attn_cluster4,attn_stages2"], SystemExit),
+    (["--kernels", "attn_dx", "--variants", "package,attn_cluster3"], ValueError),
     (["--parent", "build/parent", "--kernels", "ln_dense_dx,ln_fwd"], SystemExit),
     (["--variants", "dx_cluster4,ln_blocks1", "--kernels", "ln_fwd"], SystemExit),
 ])
