@@ -11,8 +11,10 @@ the exit code is not 0. No JAX is imported.
 2. build   the CUDA kernels, compiled from spatial_clip_tpu_torch/csrc; ptxas's
            registers and spills, and for the bf16 attention forward and
            backward (the tensor-core bodies) their registers, spills and
-           blocks an SM; for the wgmma forwards (fused MLP, LN -> dense)
-           their registers, spills and any wgmma ptxas serialized
+           blocks an SM; for the wgmma kernels (fused MLP, LN -> dense, the
+           attention dx, the block half) their registers, spills and any
+           wgmma ptxas serialized; the fused_ln backward's at D 512 / 768 /
+           1024 and its blocks an SM
 3. kernel  the inference attention kernel against its plain PyTorch version
            at the serving shapes (batch 64) and at phase 11's microbatch
            (1024, pass 1 and evaluate): max abs error against the stated
@@ -68,10 +70,12 @@ the exit code is not 0. No JAX is imported.
            image c_fc 768 -> 3072, image qkv 768 -> 2304, text c_fc 512 ->
            2048, text qkv 512 -> 1536) and at ragged row counts (one f32);
            dgamma/dbeta the same
-           bits on a rerun; F.layer_norm and F.linear(F.layer_norm) timed as
-           yardsticks (the fused_ln forward and backward and F.layer_norm's
-           also on the card's clock alone, warm and over copies past the L2:
-           cold), with each kernel's share of its bound; then the bf16 fused_ln_dense forward
+           bits on a rerun (and the backward's dx); F.layer_norm and
+           F.linear(F.layer_norm) timed as yardsticks (the fused_ln forward
+           and backward and F.layer_norm's also on the card's clock alone,
+           warm and over copies past the L2: cold), with each kernel's share
+           of its bound; the fused_ln backward at its one-wave grid's edges
+           (LN_BWD_EDGE_*); then the bf16 fused_ln_dense forward
            and dx (wgmma) at the row tiles' and clusters' edges
            (GEMM_EDGE_ROWS), every K to 1024 and N past whole 256-column
            tiles, the same bits on a rerun, the dx plan's tiles and K-group,
@@ -126,11 +130,16 @@ the exit code is not 0. No JAX is imported.
 22. kernel-block  the block-fused attention half (fused_block_attn) against
            its plain version at the towers' shapes (image (B, 50, 768), 12
            heads; text (B, 77, 512), 8 heads, causal; B 256 and 64) and one
-           f32 shape, the same bits on a rerun; timed beside the unfused half
+           f32 shape, the same bits on a rerun, each head's context in the
+           bf16 workspace bit for bit sc_attention_fwd on the kernel's q|k|v;
+           timed (also on the card's clock) beside the unfused half
            (one-pass LayerNorm, cuBLAS and the attention kernel) and the same
-           with SDPA; then ``spatial_clip_tpu_torch.bench_block`` for both
-           towers (its main path: 12 chained layers, block vs unfused mean
-           relative difference < 0.05, ms per layer of both)
+           with SDPA, with the weight bytes a CTA lands; then the bf16 kernel
+           at its tiles' edges (BLOCK_EDGE_*: L 1..128, D 128..1024, hd 32 /
+           64 / 128, causal and not, B 1 / 3 / 257); then
+           ``spatial_clip_tpu_torch.bench_block`` for both towers (its main
+           path: 12 chained layers, block vs unfused mean relative
+           difference < 0.05, ms per layer of both)
 23. kernel-layouts  the eight layout kernels (interleaved, slab, seq-major
            with a bias, split; forward and recompute backward) against their
            plain versions at batch 256 (image (256, 50, 2304) no mask, text
@@ -346,7 +355,7 @@ def gemm_build_report(report: str) -> str:
     entries = ptxas_entries(report)
     parts = []
     for kind in ("mlp_fwd_kernel_bf16", "ln_dense_fwd_kernel_bf16", "ln_dense_dx_kernel_bf16",
-                 "attn_bwd_dx_kernelILi"):
+                 "attn_bwd_dx_kernelILi", "block_attn_kernel_bf16"):
         found = {k: v for k, v in entries.items() if kind in k}
         serialized = sum(1 for line in report.splitlines()
                          if "wgmma.mma_async instructions are serialized" in line and kind in line)
@@ -354,6 +363,24 @@ def gemm_build_report(report: str) -> str:
             parts.append(f"{kind} x{len(found)}: registers <= {max(v[0] for v in found.values())}, "
                          f"spill <= {max(v[1] for v in found.values())} B, wgmma serialized in "
                          f"{serialized}")
+    return "; ".join(parts)
+
+
+def ln_bwd_build_report(lib) -> str:
+    """The bf16 fused_ln backward at D 512, 768 and 1024: its registers and
+    spill (local) bytes a thread and the blocks of 8 warps an SM holds (the
+    occupancy its one-wave grid is sized for)."""
+    import ctypes
+
+    parts = []
+    for D in (512, 768, 1024):
+        r, local, n = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        err = lib.sc_layer_norm_bwd_occupancy(D, 1, ctypes.byref(r), ctypes.byref(local),
+                                              ctypes.byref(n))
+        if err:
+            raise RuntimeError(f"sc_layer_norm_bwd_occupancy D={D}: CUDA error {err}")
+        parts.append(f"D {D}: {r.value} registers, local {local.value} B, {n.value} blocks "
+                     f"({8 * n.value} warps) an SM")
     return "; ".join(parts)
 
 
@@ -539,7 +566,8 @@ def main() -> int:
           f"(nvcc sm_90a); ptxas: registers {regs}, spill stores {spills} B; bf16 forward "
           f"(tensor cores): {forward_build_report(cuda_build.library(), report)}; bf16 backward "
           f"(tensor cores): {backward_build_report(cuda_build.library(), report)}; wgmma "
-          f"kernels: {gemm_build_report(report)}", flush=True)
+          f"kernels: {gemm_build_report(report)}; fused_ln backward: "
+          f"{ln_bwd_build_report(cuda_build.library())}", flush=True)
 
     # 3. kernel vs plain version on the card
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -879,13 +907,20 @@ def main() -> int:
         "source": "spatial_clip_tpu_torch/csrc/fused_block.cu",
         "replaces": "spatial_clip_tpu/ops/fused_block.py:45",
         "launches": block_launches,
-        "max_abs_err": max(r["err"] for r in block_rows.values()),
+        "max_abs_err": max(r["err"] for k, r in block_rows.items() if k != "edges"),
         "ms": block["ms"],
         "plain_ms": block["plain_ms"],
         "bound_ms": block["bound_ms"],
         "bound_by": block["bound_by"],
         "library_ms": block["library_ms"],
-        "at": "x (256, 50, 768) bf16, 12 heads (image tower's attention half, batch 256)",
+        "device_ms": block["device_ms"],
+        "unfused_ms": block["unfused_ms"],
+        "ms_by_shape": {k: r["device_ms"] for k, r in block_rows.items() if "device_ms" in r},
+        "unfused_ms_by_shape": {k: r["unfused_device_ms"] for k, r in block_rows.items()
+                                if "unfused_device_ms" in r},
+        "edge_cases": block_rows["edges"]["cases"],
+        "at": "x (256, 50, 768) bf16, 12 heads (image tower's attention half, batch 256); "
+              "library: the unfused half with SDPA; unfused: with the attention kernel",
     })
     launches = {**{k: n for setting in layout_train.values() for k, n in setting.items()},
                 **slab_launches}
@@ -1522,6 +1557,7 @@ def kernel_ln_phase() -> dict:
     import torch.nn.functional as F
 
     from spatial_clip_tpu_torch.bench_gemm import cold_copies, cold_ms, device_ms
+    from spatial_clip_tpu_torch.ops import cuda_build
     from spatial_clip_tpu_torch.ops import fused_ln as fl
     from spatial_clip_tpu_torch.ops import fused_ln_dense as fd
 
@@ -1536,7 +1572,7 @@ def kernel_ln_phase() -> dict:
         dy = torch.randn((R, D), generator=gen, device="cuda").to(dtype)
         y = fl.fused_ln_fwd(x, gamma, beta, 1e-5)
         dx, dg, db = fl.fused_ln_bwd(x, gamma, dy, 1e-5)
-        _, dg2, db2 = fl.fused_ln_bwd(x, gamma, dy, 1e-5)
+        dx2, dg2, db2 = fl.fused_ln_bwd(x, gamma, dy, 1e-5)
         want_y = fl.reference_ln_fwd(x, gamma, beta, 1e-5)
         want_dx, want_dg, want_db = fl.reference_ln_bwd(x, gamma, dy, 1e-5)
         torch.cuda.synchronize()
@@ -1548,10 +1584,12 @@ def kernel_ln_phase() -> dict:
             "dbeta": ((db - want_db).abs().max().item(), 1e-5 * want_db.abs().max().item()),
         }
         bad = {k: v for k, v in checks.items() if not v[0] <= v[1]}
-        same_bits = torch.equal(dg, dg2) and torch.equal(db, db2)
+        same_bits = torch.equal(dg, dg2) and torch.equal(db, db2) and torch.equal(dx, dx2)
         if bad or not same_bits:
             raise AssertionError(f"[kernel-ln] fused_ln {name}: over tolerance {bad}, "
-                                 f"dgamma/dbeta same bits on a rerun: {same_bits}")
+                                 f"dx, dgamma/dbeta same bits on a rerun: {same_bits}")
+        partials = cuda_build.library().sc_layer_norm_bwd_blocks(
+            R, D, cuda_build.DTYPE_CODES[dtype])
         xg = x.detach().requires_grad_()
         gl, bl = (t.to(dtype).requires_grad_() for t in (gamma, beta))
         lib_fwd, lib_bwd = library_fwd_bwd_ms(lambda: F.layer_norm(xg, (D,), gl, bl, 1e-5),
@@ -1596,7 +1634,7 @@ def kernel_ln_phase() -> dict:
         rows["fused_ln"][name] = row
         print(f"[kernel-ln] fused_ln {name} x ({R}, {D}) {str(dtype)[6:]}: max abs err (tol) "
               + ", ".join(f"{k} {e:.3g} ({t:.3g})" for k, (e, t) in checks.items())
-              + f", dgamma/dbeta same bits on a rerun; fwd kernel {row['fwd_ms']:.4f} ms vs "
+              + f", dx, dgamma/dbeta same bits on a rerun; fwd kernel {row['fwd_ms']:.4f} ms vs "
               f"plain {row['fwd_plain_ms']:.4f}, F.layer_norm {lib_fwd:.4f}, bound "
               f"{row['fwd_bound_ms']:.4f} ({row['fwd_bound_by']}, share "
               f"{row['fwd_bound_ms'] / row['fwd_ms']:.3f}); cold ({copies} copies) kernel "
@@ -1608,7 +1646,9 @@ def kernel_ln_phase() -> dict:
               f"(share {row['bwd_bound_ms'] / row['bwd_device_ms']:.3f}) vs F.layer_norm "
               f"backward {row['bwd_library_device_ms']:.4f}, cold kernel "
               f"{row['bwd_cold_ms']:.4f} (share {row['bwd_bound_ms'] / row['bwd_cold_ms']:.3f}) "
-              f"vs {row['bwd_library_cold_ms']:.4f}", flush=True)
+              f"vs {row['bwd_library_cold_ms']:.4f}; backward grid {partials} blocks (one "
+              f"partial row each)", flush=True)
+    rows["fused_ln"]["bwd_edges"] = ln_bwd_edges()
 
     for name, R, K, N, dtype in (("image_fc", TRAIN_BATCH * 50, 768, 3072, torch.bfloat16),
                                  ("image_qkv", TRAIN_BATCH * 50, 768, 2304, torch.bfloat16),
@@ -1665,6 +1705,47 @@ def kernel_ln_phase() -> dict:
     rows["fused_ln_dense"]["edges"] = ln_dense_edges()
     rows["fused_ln_dense"]["dx_edges"] = ln_dense_dx_edges()
     return rows
+
+
+# phase 12's fused_ln backward grid edges: one row, either side of a
+# warp's 32 lanes' row counts, more rows than one wave's warps; widths
+# whose lanes hold 1 to 4 vectors
+LN_BWD_EDGE_ROWS = (1, 31, 33, 5000)
+LN_BWD_EDGE_WIDTHS = (128, 384, 640, 1024)
+
+
+def ln_bwd_edges() -> dict:
+    """12. The fused_ln backward (bf16) at its one-wave grid's edges
+    (LN_BWD_EDGE_ROWS x LN_BWD_EDGE_WIDTHS): dx at one bf16 step of
+    max|ref|, dgamma / dbeta at 1e-5 max|ref|, all three the same bits on a
+    rerun. Returns the largest error."""
+    import torch
+
+    from spatial_clip_tpu_torch.ops import fused_ln as fl
+
+    gen = torch.Generator(device="cuda").manual_seed(1212)
+    worst = 0.0
+    for R in LN_BWD_EDGE_ROWS:
+        for D in LN_BWD_EDGE_WIDTHS:
+            x = (torch.randn((R, D), generator=gen, device="cuda") * 2 + 0.5).bfloat16()
+            gamma = 1 + 0.1 * torch.randn((D,), generator=gen, device="cuda")
+            dy = torch.randn((R, D), generator=gen, device="cuda").bfloat16()
+            got = fl.fused_ln_bwd(x, gamma, dy, 1e-5)
+            again = fl.fused_ln_bwd(x, gamma, dy, 1e-5)
+            want = fl.reference_ln_bwd(x, gamma, dy, 1e-5)
+            torch.cuda.synchronize()
+            errs = [(g.float() - w.float()).abs().max().item() for g, w in zip(got, want)]
+            tols = [train_tol(torch.bfloat16, want[0].float())] + [
+                1e-5 * w.abs().max().item() for w in want[1:]]
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            if not (all(e <= t for e, t in zip(errs, tols)) and same):
+                raise AssertionError(f"[kernel-ln] fused_ln_bwd edge R={R} D={D}: errors {errs} "
+                                     f"(tol {tols}), the same bits on a rerun {same}")
+            worst = max(worst, errs[0])
+    print(f"[kernel-ln] fused_ln_bwd bf16 grid edges R {list(LN_BWD_EDGE_ROWS)} x D "
+          f"{list(LN_BWD_EDGE_WIDTHS)}: dx max abs err {worst:.3g} (one bf16 step of max|ref|), "
+          "dgamma/dbeta within 1e-5 max|ref|, all the same bits on a rerun", flush=True)
+    return dict(bwd_err=worst)
 
 
 def ln_dense_edges() -> dict:
@@ -2323,28 +2404,70 @@ def train_zip_phase(default_step_ms: float) -> dict:
     return {"fwd_launches": counts[0], "bwd_launches": counts[1], "step_ms": med}
 
 
+# phase 22's edges of the bf16 block half: lengths at the 16-row boxes, the
+# one- and two-tile row splits and the longest; every width 128..1024 in
+# steps of 128 at each head dim; batches of 1, 3 and past a cluster (257)
+BLOCK_EDGE_LENGTHS = (1, 16, 17, 50, 63, 64, 65, 77, 128)
+BLOCK_EDGE_WIDTHS = tuple(range(128, 1025, 128))
+BLOCK_EDGE_BATCHES = (1, 3, 257)
+
+
+def block_check(fb, fused_attention, args, mask, H, label: str) -> tuple:
+    """fused_block_attn (with its workspace) against reference_block_attn:
+    bf16 one bf16 ulp at max|ref| (2^(floor(log2 max) - 7)), f32 2e-5
+    max(1, |ref|), finite, the same bits on a rerun; in bf16 each head's
+    context in the workspace bit for bit sc_attention_fwd on the kernel's
+    q|k|v, and that q|k|v within one bf16 ulp of the plain version's.
+    Returns (error, tolerance)."""
+    import torch
+
+    x = args[0]
+    B, L, D = x.shape
+    ws = (torch.empty((fb.workspace_numel(B, L, D),), dtype=x.dtype, device="cuda")
+          if x.dtype == torch.bfloat16 else None)
+    out = fb.fused_block_attn(*args, mask, H, workspace=ws)
+    again = fb.fused_block_attn(*args, mask, H)
+    ref = fb.reference_block_attn(*args, mask, H).float()
+    torch.cuda.synchronize()
+    peak = ref.abs().max().item()
+    tol = (2e-5 * max(1.0, peak) if x.dtype == torch.float32
+           else 2.0 ** (math.floor(math.log2(peak)) - 7))
+    err = (out.float() - ref).abs().max().item()
+    ok = err <= tol and torch.equal(out, again) and torch.isfinite(out).all().item()
+    extra = ""
+    if ws is not None:
+        qkv, ctx = fb.split_workspace(ws, B, L, D)
+        want_qkv = fb.reference_block_qkv(*args[:5]).float()
+        qkv_tol = 2.0 ** (math.floor(math.log2(want_qkv.abs().max().item())) - 7)
+        qkv_err = (qkv.float() - want_qkv).abs().max().item()
+        same_ctx = torch.equal(ctx, fused_attention(qkv, mask, H))
+        ok = ok and same_ctx and qkv_err <= qkv_tol
+        extra = (f", q|k|v {qkv_err:.3g} (tol {qkv_tol:.3g}), each head's context "
+                 f"sc_attention_fwd's bits: {same_ctx}")
+    if not ok:
+        raise AssertionError(f"[kernel-block] {label}: max abs err {err} (tol {tol}), the same "
+                             f"bits on a rerun {torch.equal(out, again)}{extra}")
+    return err, tol
+
+
 def kernel_block_phase():
-    """22. fused_block_attn against reference_block_attn (bf16: one bf16 step
-    at the largest output magnitude; f32: 2e-5 max(1, |ref|)), the same bits
-    on a rerun; timed beside the unfused half (bench_block's shipped arm:
-    one-pass LayerNorm, cuBLAS, the attention kernel, cuBLAS, the residual)
-    and that arm with SDPA in place of the kernel (the library yardstick).
-    Then bench_block for both towers, the kernel's main path, with its
-    launches counted. Returns (rows, launches)."""
+    """22. fused_block_attn against reference_block_attn (block_check) at the
+    towers' shapes; timed (median_ms and on the card's clock) beside the
+    plain version, the unfused half (bench_block's shipped arm: one-pass
+    LayerNorm, cuBLAS, the attention kernel, cuBLAS, the residual) and that
+    arm with SDPA in place of the kernel (the library yardstick), with the
+    weight bytes each CTA lands and its plan; then the bf16 kernel at its
+    tiles' edges (BLOCK_EDGE_*, causal and not); then bench_block for both
+    towers, the kernel's main path, with its launches counted. Returns
+    (rows, launches)."""
 
     import torch
-    import torch.nn.functional as F
 
     from spatial_clip_tpu_torch import bench_block
+    from spatial_clip_tpu_torch.bench_gemm import block_bound_ms, block_inputs, device_ms
     from spatial_clip_tpu_torch.models.transformer import causal_mask
     from spatial_clip_tpu_torch.ops import fused_block as fb
-
-    def sdpa(qkv, mask, heads):  # the shipped arm's attention, as SDPA
-        B, L, three_d = qkv.shape
-        q, k, v = qkv.view(B, L, 3, heads, three_d // 3 // heads).permute(2, 0, 3, 1, 4)
-        ctx = F.scaled_dot_product_attention(
-            q, k, v, attn_mask=None if mask is None else mask.to(qkv.dtype))
-        return ctx.transpose(1, 2).reshape(B, L, three_d // 3)
+    from spatial_clip_tpu_torch.ops.fused_attention import fused_attention
 
     gen = torch.Generator(device="cuda").manual_seed(22)
     rows = {}
@@ -2354,45 +2477,47 @@ def kernel_block_phase():
             ("image_64", 64, 50, 768, 12, False, torch.bfloat16),
             ("text_64", 64, 77, 512, 8, True, torch.bfloat16),
             ("f32", 8, 26, 256, 4, True, torch.float32)):
-        x = torch.randn((B, L, D), generator=gen, device="cuda").to(dtype)
-        p = dict(lng=1 + 0.05 * torch.randn((D,), generator=gen, device="cuda"),
-                 lnb=0.05 * torch.randn((D,), generator=gen, device="cuda"),
-                 wqkv=(torch.randn((3 * D, D), generator=gen, device="cuda") / D ** 0.5).to(dtype),
-                 bqkv=0.02 * torch.randn((3 * D,), generator=gen, device="cuda"),
-                 wout=(torch.randn((D, D), generator=gen, device="cuda") / D ** 0.5).to(dtype),
-                 bout=0.02 * torch.randn((D,), generator=gen, device="cuda"))
+        x, p = block_inputs(B, L, D, gen, dtype)
         args = (x, p["lng"], p["lnb"], p["wqkv"], p["bqkv"], p["wout"], p["bout"])
         mask = causal_mask(L, device="cuda") if causal else None
         with torch.no_grad():
-            out, again = fb.fused_block_attn(*args, mask, H), fb.fused_block_attn(*args, mask, H)
-            ref = fb.reference_block_attn(*args, mask, H).float()
-            torch.cuda.synchronize()
-            peak = ref.abs().max().item()
-            tol = (2e-5 * max(1.0, peak) if dtype == torch.float32
-                   else 2.0 ** (math.floor(math.log2(peak)) - 7))
-            err = (out.float() - ref).abs().max().item()
-            if not (err <= tol and torch.equal(out, again) and torch.isfinite(out).all().item()):
-                raise AssertionError(f"[kernel-block] {name}: max abs err {err} (tol {tol}), the "
-                                     f"same bits on a rerun {torch.equal(out, again)}")
+            err, tol = block_check(fb, fused_attention, args, mask, H, name)
+            ws = (torch.empty((fb.workspace_numel(B, L, D),), dtype=dtype, device="cuda")
+                  if dtype == torch.bfloat16 else None)
             row = dict(
                 err=err,
-                ms=median_ms(lambda: fb.fused_block_attn(*args, mask, H)),
+                ms=median_ms(lambda: fb.fused_block_attn(*args, mask, H, workspace=ws)),
                 plain_ms=median_ms(lambda: fb.reference_block_attn(*args, mask, H)),
                 unfused_ms=median_ms(lambda: bench_block.shipped_layer(x, p, mask, H)),
-                library_ms=median_ms(lambda: bench_block.shipped_layer(x, p, mask, H, sdpa)))
+                library_ms=median_ms(
+                    lambda: bench_block.shipped_layer(x, p, mask, H, bench_block.sdpa_attention)),
+                device_ms=device_ms(lambda: fb.fused_block_attn(*args, mask, H, workspace=ws)),
+                unfused_device_ms=device_ms(lambda: bench_block.shipped_layer(x, p, mask, H)))
         item = x.element_size()
-        flops = 2 * B * L * D * 4 * D + 4 * B * L * L * D  # qkv and out GEMMs; q k^T and p v
-        n_bytes = (2 * B * L * D + 4 * D * D) * item + 4 * 6 * D  # x, out, weights; f32 vectors
-        row["bound_ms"], row["bound_by"] = bound(
-            n_bytes, flops, BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+        row["bound_ms"] = block_bound_ms(B, L, D, item,
+                                         BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+        flops = 2 * B * L * D * 4 * D + 4 * B * L * L * D
+        n_bytes = (2 * B * L * D + 4 * D * D) * item + 4 * 6 * D
+        row["bound_by"] = bound(n_bytes, flops, BF16_FLOPS if dtype == torch.bfloat16
+                                else F32_FLOPS)[1]
+        plan = ""
+        if dtype == torch.bfloat16:
+            row["plan"] = fb.kernel_plan(L, D, H)
+            landed, from_l2 = fb.weight_bytes(row["plan"])
+            row["weight_bytes_from_plan"] = dict(landed=landed, from_l2=from_l2, ctas=B)
+            plan = (f"; plan {row['plan']}; from that plan (not measured): W landed "
+                    f"{landed / 1e6:.3f} MB a CTA ({from_l2 / 1e6:.3f} MB of it from L2), "
+                    f"{B * from_l2 / 1e9:.3f} GB from L2 a launch")
         rows[name] = row
         print(f"[kernel-block] fused_block_attn {name} x ({B}, {L}, {D}) {H} heads "
               f"{'causal' if causal else 'no mask'} {str(dtype)[6:]}: max abs err {err:.3g} (tol "
-              f"{tol:.3g}), the same bits on a rerun; kernel {row['ms']:.4f} ms vs plain "
-              f"{row['plain_ms']:.4f}, unfused (LN, cuBLAS, attention kernel) "
-              f"{row['unfused_ms']:.4f}, unfused with SDPA {row['library_ms']:.4f}; bound "
-              f"{row['bound_ms']:.4f} ({row['bound_by']}, share {row['bound_ms'] / row['ms']:.3f})",
-              flush=True)
+              f"{tol:.3g}), the same bits on a rerun; kernel {row['ms']:.4f} ms (card's clock "
+              f"{row['device_ms']:.4f}) vs plain {row['plain_ms']:.4f}, unfused (LN, cuBLAS, "
+              f"attention kernel) {row['unfused_ms']:.4f} (card's clock "
+              f"{row['unfused_device_ms']:.4f}), unfused with SDPA {row['library_ms']:.4f}; bound "
+              f"{row['bound_ms']:.4f} ({row['bound_by']}, share "
+              f"{row['bound_ms'] / row['device_ms']:.3f} on the card's clock){plan}", flush=True)
+    rows["edges"] = block_edges()
     fb.fused_block_attn.launches = 0
     for tower in ("image", "text"):
         r = bench_block.run_tower(tower, TRAIN_BATCH, rounds=2, reps=2)
@@ -2406,6 +2531,46 @@ def kernel_block_phase():
         raise AssertionError(f"[kernel-block] bench_block launched the kernel {launches} times, "
                              f"want {want}")
     return rows, launches
+
+
+def block_edges() -> dict:
+    """22. The bf16 kernel at its tiles' edges: every BLOCK_EDGE_LENGTHS x
+    BLOCK_EDGE_WIDTHS x head dim 32 / 64 / 128 x causal and not that
+    supported() takes, the batch cycling through BLOCK_EDGE_BATCHES, each
+    held to block_check. Returns the largest error relative to its
+    tolerance."""
+    import torch
+
+    from spatial_clip_tpu_torch.bench_gemm import block_inputs
+    from spatial_clip_tpu_torch.models.transformer import causal_mask
+    from spatial_clip_tpu_torch.ops import fused_block as fb
+    from spatial_clip_tpu_torch.ops.fused_attention import fused_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(2222)
+    n, skipped, worst = 0, [], 0.0
+    for L in BLOCK_EDGE_LENGTHS:
+        for D in BLOCK_EDGE_WIDTHS:
+            for hd in (32, 64, 128):
+                H = D // hd
+                if not fb.supported(L, D, H, torch.bfloat16):
+                    skipped.append((L, D, hd))
+                    continue
+                for causal in (False, True):
+                    B = BLOCK_EDGE_BATCHES[n % len(BLOCK_EDGE_BATCHES)]
+                    x, p = block_inputs(B, L, D, gen)
+                    args = (x, p["lng"], p["lnb"], p["wqkv"], p["bqkv"], p["wout"], p["bout"])
+                    mask = causal_mask(L, device="cuda") if causal else None
+                    with torch.no_grad():
+                        err, tol = block_check(fb, fused_attention, args, mask, H,
+                                               f"edge B={B} L={L} D={D} hd={hd} causal={causal}")
+                    worst = max(worst, err / tol)
+                    n += 1
+    print(f"[kernel-block] bf16 edges: {n} cases (L {list(BLOCK_EDGE_LENGTHS)} x D "
+          f"{BLOCK_EDGE_WIDTHS[0]}..{BLOCK_EDGE_WIDTHS[-1]} x hd 32/64/128 x causal and not, B "
+          f"{list(BLOCK_EDGE_BATCHES)} in turn), each within one bf16 ulp at max|ref| (worst "
+          f"{worst:.3g} of it), the same bits on a rerun, each head's context sc_attention_fwd's "
+          f"bits; not taken (L, D, hd): {skipped}", flush=True)
+    return dict(err=worst, cases=n)
 
 
 LAYOUT_KERNELS = {  # phase 23's entries: the TPU kernel each replaces

@@ -77,6 +77,18 @@ def shipped_layer(x, p, mask, heads: int, attention=fused_attention):
     return (x.float() + o.float()).to(x.dtype)
 
 
+def sdpa_attention(qkv, mask, heads: int):
+    """The unfused half's attention as PyTorch's scaled_dot_product_attention
+    on q, k, v cut from qkv (the additive mask in qkv's dtype): a yardstick
+    for :func:`shipped_layer`'s ``attention``, used nowhere in the port's
+    path."""
+    B, L, three_d = qkv.shape
+    q, k, v = qkv.view(B, L, 3, heads, three_d // 3 // heads).permute(2, 0, 3, 1, 4)
+    ctx = F.scaled_dot_product_attention(
+        q, k, v, attn_mask=None if mask is None else mask.to(qkv.dtype))
+    return ctx.transpose(1, 2).reshape(B, L, three_d // 3)
+
+
 def block_layer(x, p, mask, heads: int):
     return fused_block_attn(x, p["lng"], p["lnb"], p["wqkv"], p["bqkv"], p["wout"], p["bout"],
                             mask, heads)

@@ -2,7 +2,7 @@
 parent's sources, on one CUDA GPU.
 
     python -m spatial_clip_tpu_torch.bench_gemm [--variants package,cluster1,...]
-        [--kernels mlp,ln_dense,ln_dense_dx,ln_fwd,attn_dx,ce_dq,ce_dk,ln_bwd]
+        [--kernels mlp,ln_dense,ln_dense_dx,ln_fwd,attn_dx,ce_dq,ce_dk,ln_bwd,block]
         [--parent DIR]
 
 The kernels: the fused MLP forward (``mlp``, ``csrc/fused_mlp.cu``), the
@@ -12,12 +12,15 @@ LayerNorm forward and backward (``ln_fwd``, ``ln_bwd``, ``csrc/fused_ln.cu``),
 the attention backward that forms dx = dqkv W in the launch (``attn_dx``,
 ``csrc/attention_dx.cu``, its product on wgmma) and the fused spatial
 cross-entropy's dq and dK (``ce_dq``, ``ce_dk``, ``csrc/fused_spatial_ce.cu``,
-f32 on the CUDA cores). Their design constants are ``#ifndef`` macros in
-the sources (``KNOBS``: each knob's macro per kernel) that nvcc ``-D`` sets:
-the cluster size (CTAs that share each weight tile through a TMA
-multicast), the most 128-column output blocks an MLP CTA owns (and so its
-column splits), the most ring stages and the LayerNorm forward's resident
-blocks an SM.
+f32 on the CUDA cores) and the block-fused attention half (``block``,
+``csrc/fused_block.cu``, wgmma products and the tensor-core attention body).
+Their design constants are ``#ifndef`` macros in the sources (``KNOBS``:
+each knob's macro per kernel) that nvcc ``-D`` sets: the cluster size (CTAs
+that share each weight tile through a TMA multicast), the most 128-column
+output blocks an MLP CTA owns (and so its column splits), the most ring
+stages, the sequences a block-half CTA owns, the LayerNorm kernels'
+resident blocks an SM and the rows the LayerNorm backward has in flight a
+warp.
 This script builds one copy of each source per variant (``VARIANTS``;
 ``package`` is the source as it is), all at once in parallel under
 ``build/bench_gemm/``. ``--parent DIR`` also builds the kernels' sources
@@ -28,13 +31,16 @@ At the main path's shapes (the MLP of the image and text towers at batch 256
 and 64; ln_2 -> c_fc and ln_1 -> qkv of both towers at batch 256, forward
 and dx; each tower's LayerNorm at batch 256, forward and backward; each
 tower's attention with dx at batch 256; the loss at B = N = 1024 and 2048,
-D 512, f32; bf16 elsewhere, inputs from ``torch.Generator`` seed 0) it times
+D 512, f32; each tower's attention half at batch 256 and 64; bf16
+elsewhere, inputs from ``torch.Generator`` seed 0) it times
 every copy with CUDA events beside the library calls that compute the same
 function (``F.linear(F.gelu(F.linear(x)))``; ``F.linear(F.layer_norm(x))``
 and its backward to x on a retained graph; ``F.layer_norm`` and its
-backward on a retained graph; SDPA's backward and the cuBLAS dx GEMM) and,
-for the newer kernels, beside their plain versions (and the dx kernel's
-unfused route, the recompute-with-db kernel and ``torch.matmul``), and
+backward on a retained graph; SDPA's backward and the cuBLAS dx GEMM; the
+unfused attention half with SDPA) and, for the newer kernels, beside their
+plain versions (and the dx kernel's unfused route, the recompute-with-db
+kernel and ``torch.matmul``; the block half's unfused half,
+``bench_block.shipped_layer``), and
 prints one JSON object per kernel and shape: ms of each, the host's
 microseconds to enqueue one launch of each, the package's launch plan, the
 bound (the larger of the bytes at 3.35 TB/s and the products at 989
@@ -43,11 +49,15 @@ dx kernels, the LayerNorm kernels and the loss's backward are timed on the
 card's clock alone (their launches queued behind a spin, so the host's
 enqueue is not in it), and so are their library calls; the LayerNorm
 kernels and their library calls both warm (the same input back to back)
-and cold (over copies that together exceed the 50 MB L2). Every copy must
+and cold (over copies that together exceed the 50 MB L2); so is the block
+half, with its plain version, unfused half and SDPA arm. Every copy must
 give the package launch's bits: the variants change the schedule, never
-the sums; the parent's kernels are held to the plain version's tolerance
-where their sums differ (the attention dx's dqkv, the parent's LayerNorm
-kernels: the package's bits). Needs a CUDA GPU and nvcc: there is no CPU
+the sums, except the LayerNorm backward's at another wave size, whose
+dgamma / dbeta sum other partial rows; those and the parent's kernels are
+held to the plain version's tolerance where their sums differ (the
+attention dx's dqkv, the LayerNorm backward's dgamma / dbeta and the
+parent's block half; the LayerNorm backward's dx must keep the package's
+bits). Needs a CUDA GPU and nvcc: there is no CPU
 fallback.
 """
 from __future__ import annotations
@@ -63,12 +73,14 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
+from spatial_clip_tpu_torch import bench_block
 from spatial_clip_tpu_torch.bench_dx import median_ms
 from spatial_clip_tpu_torch.bench_fwd import build_copies, design_flags, parse_variants
 from spatial_clip_tpu_torch.models.transformer import causal_mask
 from spatial_clip_tpu_torch.ops import attention_variants as av
 from spatial_clip_tpu_torch.ops import cuda_build
 from spatial_clip_tpu_torch.ops import fused_attention as fa
+from spatial_clip_tpu_torch.ops import fused_block as fb
 from spatial_clip_tpu_torch.ops import fused_contrastive as fc
 from spatial_clip_tpu_torch.ops import fused_ln as fl
 from spatial_clip_tpu_torch.ops import fused_ln_dense as fd
@@ -77,13 +89,20 @@ from spatial_clip_tpu_torch.ops import fused_mlp as fm
 SOURCES = {"mlp": "fused_mlp.cu", "ln_dense": "fused_ln_dense.cu",
            "ln_dense_dx": "fused_ln_dense.cu", "ln_fwd": "fused_ln.cu",
            "attn_dx": "attention_dx.cu", "ce_dq": "fused_spatial_ce.cu",
-           "ce_dk": "fused_spatial_ce.cu", "ln_bwd": "fused_ln.cu"}
+           "ce_dk": "fused_spatial_ce.cu", "ln_bwd": "fused_ln.cu", "block": "fused_block.cu"}
 FUNCTIONS = {"mlp": ("sc_mlp_fwd",), "ln_dense": ("sc_ln_dense_fwd",),
              "ln_dense_dx": ("sc_ln_dense_bwd_dx",), "ln_fwd": ("sc_layer_norm_fwd",),
              "attn_dx": ("sc_attention_bwd_dx",),
              "ce_dq": ("sc_spatial_ce_dq", "sc_spatial_ce_scratch"),
              "ce_dk": ("sc_spatial_ce_dk", "sc_spatial_ce_scratch"),
-             "ln_bwd": ("sc_layer_norm_bwd", "sc_layer_norm_bwd_blocks")}
+             "ln_bwd": ("sc_layer_norm_bwd", "sc_layer_norm_bwd_blocks"),
+             "block": ("sc_block_attn_fwd",)}
+# the parent's entries whose C signature this tree changed
+PARENT_ARGTYPES = {
+    "sc_layer_norm_bwd_blocks": [ctypes.c_int],  # rows
+    "sc_block_attn_fwd": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5  # .., out, B, L, D, heads, dtype
+    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p],  # eps, scale, stream
+}
 KNOBS = {  # kernel: {knob: its macro in the kernel's source}
     "mlp": {"cluster": "SC_MLP_CLUSTER", "max_nb": "SC_MLP_MAX_NB",
             "stages": "SC_MLP_MAX_STAGES"},
@@ -93,7 +112,8 @@ KNOBS = {  # kernel: {knob: its macro in the kernel's source}
     "attn_dx": {"attn_cluster": "SC_DX_CLUSTER", "attn_stages": "SC_DX_MAX_STAGES"},
     "ce_dq": {},
     "ce_dk": {},
-    "ln_bwd": {},
+    "ln_bwd": {"ln_bwd_blocks": "SC_LN_BWD_BLOCKS", "ln_bwd_depth": "SC_LN_BWD_DEPTH"},
+    "block": {"block_cluster": "SC_BLOCK_CLUSTER", "block_stages": "SC_BLOCK_MAX_STAGES"},
 }
 VARIANTS = {  # name: {knob: value}; a knob a kernel lacks leaves it as the package
     "package": {},
@@ -114,6 +134,14 @@ VARIANTS = {  # name: {knob: value}; a knob a kernel lacks leaves it as the pack
     "attn_cluster4": {"attn_cluster": 4},
     "attn_stages2": {"attn_stages": 2},
     "attn_stages3": {"attn_stages": 3},
+    "ln_bwd_blocks2": {"ln_bwd_blocks": 2},
+    "ln_bwd_b2d2": {"ln_bwd_blocks": 2, "ln_bwd_depth": 2},
+    "ln_bwd_depth2": {"ln_bwd_depth": 2},
+    "ln_bwd_depth4": {"ln_bwd_depth": 4},
+    "block_cluster1": {"block_cluster": 1},
+    "block_cluster4": {"block_cluster": 4},
+    "block_stages2": {"block_stages": 2},
+    "block_stages8": {"block_stages": 8},
 }
 SHAPES = {  # kernel: {name: (R, width, hidden or N)}; ln_fwd: (R, width, 0)
     "mlp": {"image": (256 * 50, 768, 3072), "text": (256 * 77, 512, 2048),
@@ -124,6 +152,9 @@ SHAPES = {  # kernel: {name: (R, width, hidden or N)}; ln_fwd: (R, width, 0)
     # attn_dx: (B, L, D, heads, causal, Din); ce: (B, N, D)
     "attn_dx": {"image": (256, 50, 768, 12, False, 768), "text": (256, 77, 512, 8, True, 512)},
     "ce_dq": {"1024": (1024, 1024, 512), "2048": (2048, 2048, 512)},
+    # block: (B, L, D, heads, causal)
+    "block": {"image_256": (256, 50, 768, 12, False), "text_256": (256, 77, 512, 8, True),
+              "image_64": (64, 50, 768, 12, False), "text_64": (64, 77, 512, 8, True)},
 }
 SHAPES["ln_dense_dx"] = SHAPES["ln_dense"]
 SHAPES["ln_bwd"] = SHAPES["ln_fwd"]
@@ -155,7 +186,12 @@ def build(kernel: str, names, parent: Path | None) -> dict:
     if parent is not None:
         flags["parent"] = []
         sources["parent"] = parent / "spatial_clip_tpu_torch" / "csrc" / source
-    return build_copies(source, flags, FUNCTIONS[kernel], f"bench_gemm/{kernel}", sources)
+    libs = build_copies(source, flags, FUNCTIONS[kernel], f"bench_gemm/{kernel}", sources)
+    if "parent" in libs:
+        for fn in FUNCTIONS[kernel]:
+            if fn in PARENT_ARGTYPES:
+                getattr(libs["parent"], fn).argtypes = PARENT_ARGTYPES[fn]
+    return libs
 
 
 def host_us(launch, n: int = 200) -> float:
@@ -537,30 +573,40 @@ def bench_ln_bwd(libs: dict, gen) -> None:
                for _ in range(copies)]
         dxs = [torch.empty_like(xs[0]) for _ in range(copies)]
         gamma = 1 + 0.1 * torch.randn((D,), generator=gen, device="cuda")
-        lib0 = cuda_build.library()
-        part = torch.empty((lib0.sc_layer_norm_bwd_blocks(R), 2 * D), device="cuda")
         dgdb = torch.empty((2 * D,), device="cuda")
+        parts = {name: torch.empty((lib.sc_layer_norm_bwd_blocks(R) if name == "parent" else
+                                    lib.sc_layer_norm_bwd_blocks(R, D, 1), 2 * D), device="cuda")
+                 for name, lib in libs.items()}
 
-        def launch(lib, i=0):
+        def launch(name, lib, i=0):
             err = lib.sc_layer_norm_bwd(xs[i].data_ptr(), gamma.data_ptr(), dys[i].data_ptr(),
-                                        dxs[i].data_ptr(), part.data_ptr(), dgdb.data_ptr(), R, D,
-                                        1, 1e-5, torch.cuda.current_stream().cuda_stream)
+                                        dxs[i].data_ptr(), parts[name].data_ptr(),
+                                        dgdb.data_ptr(), R, D, 1, 1e-5,
+                                        torch.cuda.current_stream().cuda_stream)
             cuda_build.check(cuda_build.library(), err, "bench_gemm launch")
 
         want = fl.fused_ln_bwd(xs[0], gamma, dys[0], 1e-5)
+        plain = fl.reference_ln_bwd(xs[0], gamma, dys[0], 1e-5)
         report, cold = {}, {}
         for name, lib in libs.items():
-            if lib.sc_layer_norm_bwd_blocks(R) != part.shape[0]:
-                raise AssertionError(f"ln_bwd {shape}: copy {name} takes other partials")
-            launch(lib)
+            launch(name, lib)
             torch.cuda.synchronize()
-            if not (torch.equal(dxs[0], want[0]) and torch.equal(dgdb[:D], want[1])
-                    and torch.equal(dgdb[D:], want[2])):
+            if parts[name].shape[0] != parts["package"].shape[0]:
+                # another grid (the parent's, or another wave size): dx the same
+                # bits; dgamma / dbeta summed over other partial rows
+                errs = [(dgdb[D * j:D * (j + 1)] - plain[1 + j]).abs().max().item()
+                        / plain[1 + j].abs().max().item() for j in (0, 1)]
+                if not (torch.equal(dxs[0], want[0]) and max(errs) <= 1e-5):
+                    raise AssertionError(f"ln_bwd {shape}: copy {name}'s dx has other bits or "
+                                         f"its dgamma / dbeta are {errs} off (tol 1e-5 x max)")
+            elif not (torch.equal(dxs[0], want[0]) and torch.equal(dgdb[:D], want[1])
+                      and torch.equal(dgdb[D:], want[2])):
                 raise AssertionError(f"ln_bwd {shape}: copy {name} differs from the package")
-            report[name] = device_ms(lambda lib=lib: launch(lib))
-            cold[name] = cold_ms(lambda i, lib=lib: launch(lib, i), copies)
+            report[name] = device_ms(lambda name=name, lib=lib: launch(name, lib))
+            cold[name] = cold_ms(lambda i, name=name, lib=lib: launch(name, lib, i), copies)
         report["package_launch"] = device_ms(lambda: fl.fused_ln_bwd(xs[0], gamma, dys[0], 1e-5))
-        host = {name: host_us(lambda lib=lib: launch(lib)) for name, lib in libs.items()}
+        host = {name: host_us(lambda name=name, lib=lib: launch(name, lib))
+                for name, lib in libs.items()}
         # the library: F.layer_norm's backward to x, gamma and beta on retained graphs
         gl, bl = (gamma.bfloat16().requires_grad_(), torch.zeros_like(gamma).bfloat16()
                   .requires_grad_())
@@ -582,13 +628,96 @@ def bench_ln_bwd(libs: dict, gen) -> None:
                           "library_ms": library, "library_cold_ms": library_cold_ms,
                           "host_us": host, "bound_ms": bound,
                           "share_cold": bound / cold["package"] if "package" in cold else None,
+                          "partial_rows": {name: t.shape[0] for name, t in parts.items()},
+                          "device": torch.cuda.get_device_name(0)}), flush=True)
+
+
+def block_inputs(B: int, L: int, D: int, gen, dtype=torch.bfloat16):
+    """The attention half's inputs as chip_smoke's phase 22 draws them: x,
+    then bench_block's parameter dict (f32 LayerNorm parameters and biases,
+    weights in dtype in the port's (out, in) layout)."""
+    x = torch.randn((B, L, D), generator=gen, device="cuda").to(dtype)
+    p = dict(lng=1 + 0.05 * torch.randn((D,), generator=gen, device="cuda"),
+             lnb=0.05 * torch.randn((D,), generator=gen, device="cuda"),
+             wqkv=(torch.randn((3 * D, D), generator=gen, device="cuda") / D ** 0.5).to(dtype),
+             bqkv=0.02 * torch.randn((3 * D,), generator=gen, device="cuda"),
+             wout=(torch.randn((D, D), generator=gen, device="cuda") / D ** 0.5).to(dtype),
+             bout=0.02 * torch.randn((D,), generator=gen, device="cuda"))
+    return x, p
+
+
+def block_bound_ms(B: int, L: int, D: int, item: int = 2, peak: float = BF16_FLOPS) -> float:
+    """The attention half's bound: x and out, both weights and the f32
+    vectors moved once; the two products and the attention's two."""
+    flops = 2 * B * L * D * 4 * D + 4 * B * L * L * D
+    return bound_ms((2 * B * L * D + 4 * D * D) * item + 4 * 6 * D, flops, peak)
+
+
+def bench_fused_block(libs: dict, gen) -> None:
+    for shape, (B, L, D, H, causal) in SHAPES["block"].items():
+        x, p = block_inputs(B, L, D, gen)
+        mask = causal_mask(L, device="cuda") if causal else None
+        args = (x, p["lng"], p["lnb"], p["wqkv"], p["bqkv"], p["wout"], p["bout"])
+        ws = torch.empty((fb.workspace_numel(B, L, D),), dtype=x.dtype, device="cuda")
+        qkv, ctx = (t.data_ptr() for t in fb.split_workspace(ws, B, L, D))
+        out = torch.empty_like(x)
+
+        def launch(name, lib, refused_ok=False):
+            work = [] if name == "parent" else [qkv, ctx]
+            err = lib.sc_block_attn_fwd(*(t.data_ptr() for t in args),
+                                        None if mask is None else mask.data_ptr(), *work,
+                                        out.data_ptr(), B, L, D, H, 1, 1e-5, (D // H) ** -0.5,
+                                        torch.cuda.current_stream().cuda_stream)
+            if refused_ok and err == 1:  # cudaErrorInvalidValue: the copy's plan does not fit
+                return False
+            cuda_build.check(cuda_build.library(), err, "bench_gemm launch")
+            return True
+
+        with torch.no_grad():
+            want = fb.fused_block_attn(*args, mask, H)
+            plain = fb.reference_block_attn(*args, mask, H)
+            peak = plain.float().abs().max().item()
+            tol = 2.0 ** (math.floor(math.log2(peak)) - 7)  # one bf16 ulp at max|ref|
+            report = {}
+            for name, lib in libs.items():
+                if not launch(name, lib, refused_ok=name not in ("package", "parent")):
+                    report[name] = None  # a variant whose shared memory does not fit here
+                    continue
+                torch.cuda.synchronize()
+                if name == "parent":
+                    err = (out.float() - plain.float()).abs().max().item()
+                    if not err <= tol:
+                        raise AssertionError(f"block {shape}: the parent's kernel is {err} off "
+                                             f"(tol {tol})")
+                elif not torch.equal(out, want):
+                    raise AssertionError(f"block {shape}: copy {name} differs from the package")
+                report[name] = device_ms(lambda name=name, lib=lib: launch(name, lib))
+            report["package_launch"] = device_ms(
+                lambda: fb.fused_block_attn(*args, mask, H, workspace=ws))
+            host = {name: host_us(lambda name=name, lib=lib: launch(name, lib))
+                    for name, lib in libs.items() if report[name] is not None}
+            unfused = device_ms(lambda: bench_block.shipped_layer(x, p, mask, H))
+            library = device_ms(
+                lambda: bench_block.shipped_layer(x, p, mask, H, bench_block.sdpa_attention))
+            plain_ms = device_ms(lambda: fb.reference_block_attn(*args, mask, H), reps=3, inner=3)
+        bound = block_bound_ms(B, L, D)
+        kplan = fb.kernel_plan(L, D, H)
+        landed, from_l2 = fb.weight_bytes(kplan)
+        print(json.dumps({"kernel": "fused_block_attn", "shape": shape, "B": B, "L": L, "D": D,
+                          "heads": H, "ms": report, "plain_ms": plain_ms, "unfused_ms": unfused,
+                          "library_ms": library, "host_us": host, "bound_ms": bound,
+                          "share": bound / report["package_launch"],
+                          "weight_bytes_a_cta_from_plan": {"landed": landed,
+                                                           "from_l2": from_l2},
+                          "plan": kplan,
                           "device": torch.cuda.get_device_name(0)}), flush=True)
 
 
 BENCHES = {"mlp": bench_mlp, "ln_dense": bench_ln_dense, "ln_dense_dx": bench_ln_dense_dx,
            "ln_fwd": bench_ln_fwd, "attn_dx": bench_attn_dx,
            "ce_dq": lambda libs, gen: bench_ce("ce_dq", libs, gen),
-           "ce_dk": lambda libs, gen: bench_ce("ce_dk", libs, gen), "ln_bwd": bench_ln_bwd}
+           "ce_dk": lambda libs, gen: bench_ce("ce_dk", libs, gen), "ln_bwd": bench_ln_bwd,
+           "block": bench_fused_block}
 
 
 def main(argv=None):

@@ -221,12 +221,15 @@ __device__ __forceinline__ Rows tile_rows(const float* __restrict__ mask, int mt
 
 // Starts copying rows [0, rows(seq)) of one operand (row r at src + r *
 // stride) into its tile of kStride<HD> rows; rows >= seq are zero-filled.
+// The block's threads share the copies, or threads [0, size) of a part of
+// it, this one its `rank`-th.
 template <int HD>
 __device__ __forceinline__ void copy_tile(bf16* tile, const bf16* __restrict__ src,
-                                          size_t stride, int seq) {
+                                          size_t stride, int seq, int rank = threadIdx.x,
+                                          int size = blockDim.x) {
   constexpr int kChunks = HD / 8;  // 16-byte chunks a row
   const int n = rows(seq) * kChunks;
-  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
+  for (int idx = rank; idx < n; idx += size) {
     const int r = idx / kChunks, c = idx % kChunks;
     const bool valid = r < seq;
     cp_async_16(smem_addr(tile + r * kStride<HD> + c * 8), valid ? src + r * stride + c * 8 : src,
@@ -235,11 +238,13 @@ __device__ __forceinline__ void copy_tile(bf16* tile, const bf16* __restrict__ s
 }
 
 // Rows [0, seq) of a tile += bias (HD values), each sum rounded to bf16 by
-// the packed add (add_vec), before any ldmatrix reads them.
+// the packed add (add_vec), before any ldmatrix reads them; the threads
+// shared as copy_tile shares them.
 template <int HD>
-__device__ __forceinline__ void add_bias(bf16* tile, const bf16* __restrict__ bias, int seq) {
+__device__ __forceinline__ void add_bias(bf16* tile, const bf16* __restrict__ bias, int seq,
+                                         int rank = threadIdx.x, int size = blockDim.x) {
   constexpr int kChunks = HD / 8;
-  for (int idx = threadIdx.x; idx < seq * kChunks; idx += blockDim.x) {
+  for (int idx = rank; idx < seq * kChunks; idx += size) {
     const int r = idx / kChunks, c = idx % kChunks;
     auto* p = reinterpret_cast<Vec<bf16, 8>*>(tile + r * kStride<HD> + c * 8);
     *p = add_vec<bf16, 8>(*p, *reinterpret_cast<const Vec<bf16, 8>*>(bias + c * 8));

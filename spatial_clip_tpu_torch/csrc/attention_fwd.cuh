@@ -4,8 +4,10 @@
 //   - attention_pair.cu: two towers in one grid;
 //   - attention_layouts.cu: the interleaved, split, seq-major (with a bias
 //     added at load) and slab layouts of the same attention;
-//   - fused_block.cu: one head of a block's attention half, with q, k and v
-//     in shared memory (the CUDA-core body, simt::attn_fwd_head).
+//   - fused_block.cu: the heads of a block's attention half, from its q|k|v
+//     workspace (bf16: three heads at once at L <= 64 and two at L <= 96,
+//     each on 4 or 6 of the block's 12 warps; f32: the CUDA-core body on q,
+//     k and v in shared memory, simt::attn_fwd_head).
 //
 // Two bodies, picked by the element type alone, never by the shape:
 //   - bf16, every L in 1..256 and hd 32 / 64 / 128: tc::attn_fwd_head, both
@@ -254,6 +256,15 @@ __host__ __device__ inline int threads(int seq) {
   return 32 * (tiles(seq) < kMaxWarps ? tiles(seq) : kMaxWarps);
 }
 
+// The threads that run one head: the whole block (the default), or a part
+// of it (whole warps) that meets at its own barrier, as a kernel that runs
+// several heads at once hands in.
+struct WholeBlock {
+  __device__ int rank() const { return threadIdx.x; }
+  __device__ int size() const { return blockDim.x; }
+  __device__ void sync() const { __syncthreads(); }
+};
+
 // Shared memory: q, k and v of the head as three tiles of rows(seq) rows
 // of kStride<HD> elements (sc::mma), rows >= seq zero; then the f32 row max
 // of each query row.
@@ -299,7 +310,9 @@ __device__ __forceinline__ void pv_chunk(float (&o)[HD / 8][4], float (&sum)[2],
 }
 
 // One head of one sequence on the tensor cores (bf16), arguments as
-// sc::fwd::attn_fwd_head's; a block of threads(seq) threads or more runs it.
+// sc::fwd::attn_fwd_head's; a group of threads(seq) threads or more runs it
+// (the whole block unless `group` names a part of it; the bits do not
+// depend on the group's size: each m-tile's sums are fixed by the tile).
 // A warp takes m-tiles of 16 query rows in turn. Phase A (q, k landed): the
 // scores and each row's max over all keys. Phase B (v landed): e = exp(s -
 // max), the row sums of the unrounded e, P = e rounded to bf16 as the A
@@ -307,7 +320,7 @@ __device__ __forceinline__ void pv_chunk(float (&o)[HD / 8][4], float (&sum)[2],
 // keep their scores in registers from A to B; longer ones recompute them in
 // B (the same bits). No running rescale: every e is taken against the full
 // row's max, as the TPU kernel takes it.
-template <int HD, bool kBias>
+template <int HD, bool kBias, typename Group = WholeBlock>
 __device__ __forceinline__ void attn_fwd_head(const bf16* __restrict__ q_g,
                                               const bf16* __restrict__ k_g,
                                               const bf16* __restrict__ v_g, size_t in_stride,
@@ -315,7 +328,8 @@ __device__ __forceinline__ void attn_fwd_head(const bf16* __restrict__ q_g,
                                               bf16* __restrict__ out_g, size_t out_stride,
                                               float* __restrict__ lse_g, int seq, float scale,
                                               unsigned char* smem, const bf16* bq,
-                                              const bf16* bk, const bf16* bv) {
+                                              const bf16* bk, const bf16* bv,
+                                              const Group& group = Group()) {
   using Ly = Layout<HD>;
   constexpr int kS = Ly::kStride;
   constexpr int kDTiles = HD / 8;  // n-tiles of the context
@@ -324,21 +338,22 @@ __device__ __forceinline__ void attn_fwd_head(const bf16* __restrict__ q_g,
   bf16* k_s = q_s + rows * kS;
   bf16* v_s = k_s + rows * kS;
   float* max_s = reinterpret_cast<float*>(v_s + rows * kS);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, n_warps = blockDim.x / 32;
+  const int rank = group.rank(), size = group.size();
+  const int warp = rank / 32, lane = threadIdx.x % 32, n_warps = size / 32;
   const int g = lane >> 2, t = lane & 3;
   const bool hold = n_tiles <= kHold<HD> && n_tiles <= n_warps;
 
-  copy_tile<HD>(q_s, q_g, in_stride, seq);
-  copy_tile<HD>(k_s, k_g, in_stride, seq);
+  copy_tile<HD>(q_s, q_g, in_stride, seq, rank, size);
+  copy_tile<HD>(k_s, k_g, in_stride, seq, rank, size);
   cp_async_commit();
-  copy_tile<HD>(v_s, v_g, in_stride, seq);
+  copy_tile<HD>(v_s, v_g, in_stride, seq, rank, size);
   cp_async_commit();
   cp_async_wait<1>();  // this thread's q and k copies
-  __syncthreads();     // everyone's
+  group.sync();        // everyone's
   if constexpr (kBias) {
-    add_bias<HD>(q_s, bq, seq);
-    add_bias<HD>(k_s, bk, seq);
-    __syncthreads();
+    add_bias<HD>(q_s, bq, seq, rank, size);
+    add_bias<HD>(k_s, bk, seq, rank, size);
+    group.sync();
   }
 
   uint32_t qa[HD / 16][4];
@@ -370,10 +385,10 @@ __device__ __forceinline__ void attn_fwd_head(const bf16* __restrict__ q_g,
   }
 
   cp_async_wait<0>();
-  __syncthreads();  // v has landed; every row max is written
+  group.sync();  // v has landed; every row max is written
   if constexpr (kBias) {
-    add_bias<HD>(v_s, bv, seq);
-    __syncthreads();
+    add_bias<HD>(v_s, bv, seq, rank, size);
+    group.sync();
   }
 
   const uint32_t v_base = trans_base<HD>(v_s, lane);

@@ -1,6 +1,6 @@
 // Device helpers shared by the LayerNorm kernels (fused_ln.cu,
-// fused_ln_dense.cu): one row of at most kMaxWidth elements held by a warp in
-// f32 registers, and its one-pass and two-pass statistics.
+// fused_ln_dense.cu, fused_block.cu): one row of at most kMaxWidth elements
+// held by a warp in f32 registers, and its one-pass and two-pass statistics.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -16,6 +16,30 @@ constexpr int kMaxWidth = 1024;
 template <typename T>
 __host__ __device__ constexpr int max_lane_vecs() {
   return kMaxWidth / (32 * (16 / int(sizeof(T))));
+}
+
+// One-pass statistics of a row spread over a warp (WarpRow's layout), its
+// lane's 16-byte vector t handed over by vec(t, x) (zeros past the width):
+// mean and E[x^2] summed together in one fixed order, var = max(E[x^2] -
+// mean^2, 0). Returns 1 / sqrt(var + eps). WarpRow::one_pass, and a kernel
+// that keeps its row elsewhere than in registers, take the same sums.
+template <int VECS, int kVec, typename Vec>
+__device__ __forceinline__ float one_pass_stats(const Vec& vec, int width, float eps,
+                                                float* mean) {
+  float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int t = 0; t < VECS; ++t) {
+    float x[kVec];
+    vec(t, x);
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      s1 += x[e];
+      s2 += x[e] * x[e];
+    }
+  }
+  *mean = warp_sum(s1) / width;
+  const float var = fmaxf(warp_sum(s2) / width - *mean * *mean, 0.f);
+  return rsqrtf(var + eps);
 }
 
 // A row spread over a warp: lane owns the 16-byte vectors lane, lane + 32,
@@ -53,17 +77,12 @@ struct WarpRow {
   // One pass: mean and E[x^2] together, var = max(E[x^2] - mean^2, 0)
   // (the fused_ln TPU kernel's statistics). Returns 1 / sqrt(var + eps).
   __device__ float one_pass(int width, float eps, float* mean) const {
-    float s1 = 0.f, s2 = 0.f;
+    return one_pass_stats<VECS, kVec>(
+        [&](int t, float (&x)[kVec]) {
 #pragma unroll
-    for (int t = 0; t < VECS; ++t)
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) {
-        s1 += v[t][e];
-        s2 += v[t][e] * v[t][e];
-      }
-    *mean = warp_sum(s1) / width;
-    const float var = fmaxf(warp_sum(s2) / width - *mean * *mean, 0.f);
-    return rsqrtf(var + eps);
+          for (int e = 0; e < kVec; ++e) x[e] = v[t][e];
+        },
+        width, eps, mean);
   }
 
   // Two passes: the mean, then mean((x - mean)^2) (the fused_ln_dense TPU

@@ -7,7 +7,7 @@
 //     shared memory;
 //   - TMA: 2-D and 3-D tiled loads into shared memory, plain or (2-D)
 //     multicast to every CTA of a cluster, bulk copies of contiguous rows,
-//     2-D tiled stores from it, the
+//     2-D and 3-D tiled stores from it, the
 //     proxy fence that lets a TMA load read rows the kernel has just
 //     stored, and the host side that encodes a tensor map through the
 //     driver entry point the runtime hands out (no -lcuda);
@@ -205,6 +205,17 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* sr
       "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
           reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+// The box at src (shared memory) to (c0 inner, c1, c2 outer) of a 3-D
+// map's tensor; what lies past the tensor's edges is not written. A bulk
+// group, as tma_store.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 __device__ __forceinline__ void tma_store_commit() {

@@ -177,8 +177,11 @@ def library() -> ctypes.CDLL:
                                               ptr, ptr,  # partials, dgamma|dbeta
                                               i32, i32, i32, f32, ptr]
             lib.sc_layer_norm_bwd.restype = i32
-            lib.sc_layer_norm_bwd_blocks.argtypes = [i32]
+            lib.sc_layer_norm_bwd_blocks.argtypes = [i32, i32, i32]  # rows, width, dtype
             lib.sc_layer_norm_bwd_blocks.restype = i32
+            lib.sc_layer_norm_bwd_occupancy.argtypes = [i32, i32,  # width, dtype
+                                                        i32p, i32p, i32p]  # regs, local B, blocks
+            lib.sc_layer_norm_bwd_occupancy.restype = i32
             lib.sc_layer_norm_max_width.argtypes = []
             lib.sc_layer_norm_max_width.restype = i32
             lib.sc_ln_dense_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr,  # x, w1, b1, y, xhat
@@ -201,12 +204,15 @@ def library() -> ctypes.CDLL:
             lib.sc_block_attn_fwd.argtypes = [
                 ptr, ptr, ptr, ptr,  # x, gamma, beta, W_qkv
                 ptr, ptr, ptr, ptr,  # b_qkv, W_out, b_out, mask
-                ptr, i32, i32, i32, i32,  # out, B, L, D, heads
+                ptr, ptr, ptr,  # the q|k|v and context workspaces, out
+                i32, i32, i32, i32,  # B, L, D, heads
                 i32, f32, f32, ptr,  # dtype, eps, scale, stream
             ]
             lib.sc_block_attn_fwd.restype = i32
             lib.sc_block_attn_smem_bytes.argtypes = [i32, i32, i32, i32]  # L, D, heads, dtype
             lib.sc_block_attn_smem_bytes.restype = ctypes.c_size_t
+            lib.sc_block_attn_plan.argtypes = [i32, i32, i32, i32p]  # L, D, heads, plan[15]
+            lib.sc_block_attn_plan.restype = i32
             i64, dims = ctypes.c_longlong, [i32, i32, i32, i32]  # B, L, H, hd
             tail = [i32, f32, ptr]  # dtype, scale, stream
             lib.sc_attention_inter_fwd.argtypes = [ptr, ptr, ptr, *dims, i32, *tail]  # hpb

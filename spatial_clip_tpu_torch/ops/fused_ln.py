@@ -23,9 +23,24 @@ import torch
 from spatial_clip_tpu_torch.ops import cuda_build
 
 
+# csrc/fused_ln.cu: warps of a backward block, and SC_LN_BWD_BLOCKS, the most
+# resident blocks an SM of its one-wave grid
+BWD_WARPS, BWD_BLOCKS = 8, 1
+
+
 def supported(width: int) -> bool:
     """The JAX package's gate for routing a LayerNorm to the kernel."""
     return width % 128 == 0
+
+
+def bwd_blocks(rows: int, sms: int, per_sm: int) -> int:
+    """Blocks of the backward's grid (``sc_layer_norm_bwd_blocks``): one
+    full wave of at most ``BWD_BLOCKS`` blocks on each of ``sms`` SMs (fewer
+    where the occupancy API gives ``per_sm`` fewer), or one for each
+    ``BWD_WARPS`` rows when there are fewer; block b of nb owns rows [b R /
+    nb, (b + 1) R / nb). Its dgamma / dbeta partials are (blocks, 2 D)
+    f32."""
+    return min(sms * min(per_sm, BWD_BLOCKS), -(-rows // BWD_WARPS))
 
 
 def _one_pass_stats(x: torch.Tensor, eps: float):
@@ -132,14 +147,17 @@ def fused_ln_bwd(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
     dx = torch.empty_like(x)
     lib = _check_kernel_device(x, gamma, dy, dx)
     R, D = x.shape
-    part = torch.empty((lib.sc_layer_norm_bwd_blocks(R), 2 * D), dtype=torch.float32,
-                       device=x.device)
+    code = cuda_build.DTYPE_CODES[x.dtype]
+    with torch.cuda.device(x.device):
+        blocks = lib.sc_layer_norm_bwd_blocks(R, D, code)
+    if blocks < 1:
+        raise RuntimeError(f"fused_ln_bwd: no grid for ({R}, {D}) {x.dtype}")
+    part = torch.empty((blocks, 2 * D), dtype=torch.float32, device=x.device)
     dgdb = torch.empty((2 * D,), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.sc_layer_norm_bwd(
             x.data_ptr(), gamma.data_ptr(), dy.data_ptr(), dx.data_ptr(), part.data_ptr(),
-            dgdb.data_ptr(), R, D, cuda_build.DTYPE_CODES[x.dtype], eps,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            dgdb.data_ptr(), R, D, code, eps, torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(lib, err, "fused_ln_bwd launch")
     fused_ln_bwd.launches += 1
     return dx, dgdb[:D], dgdb[D:]

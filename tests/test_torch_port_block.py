@@ -23,7 +23,7 @@ import torch
 from spatial_clip_tpu.ops.fused_block import fused_block_attn as jax_fused_block_attn
 from spatial_clip_tpu_torch import bench_block
 from spatial_clip_tpu_torch.ops import fused_block as fb
-from spatial_clip_tpu_torch.ops.fused_attention import reference_attention
+from spatial_clip_tpu_torch.ops.fused_attention import fwd_smem_bytes, reference_attention
 
 SHAPES = [  # tests/test_fused_block.py:28-32: (B, L, D, heads), causal
     ((4, 8, 256, 4), False),
@@ -114,11 +114,16 @@ def test_wrapper_checks_and_geometries():
     assert not fb.supported(129, 512, 8, torch.bfloat16)  # L past 128
     assert not fb.supported(16, 96, 3, torch.bfloat16)  # width not a multiple of 64
     assert not fb.supported(16, 256, 16, torch.bfloat16)  # head dim 16
-    # the image shape's bytes: normalized rows, 2 weight chunks, the product
-    # tile, the head's q|k|v tile and the attention body's
+    # the image shape's bf16 bytes: the 1024-byte alignment, the A slabs (12
+    # K-tiles of 64 rows x 128 B), two warpgroups' two 64 x 64 staging tiles,
+    # 3 ring stages of 256 W rows x 64 columns, the 9 mbarriers
     assert fb.smem_bytes(50, 768, 12, torch.bfloat16) == (
-        64 * 776 * 2 + 2 * 64 * 72 * 2 + 64 * 68 * 4 + 50 * 192 * 2 + 50 * 72 * 2
-        + 8 * 2 * (64 + 52) * 4)
+        1024 + 12 * 64 * 128 + 2 * 2 * 8192 + 3 * 256 * 64 * 2 + 9 * 8)
+    # an f32 shape's: normalized rows, 2 weight chunks, the product tile, the
+    # head's q|k|v tile and the attention body's
+    assert fb.smem_bytes(17, 256, 4, torch.float32) == (
+        32 * 260 * 4 + 2 * 64 * 68 * 4 + 32 * 68 * 4 + fb._round_up(17 * 192 * 4)
+        + 17 * 68 * 4 + 8 * 2 * (64 + 20) * 4)
 
 
 def test_bench_block_draws_and_arms_agree():
@@ -151,3 +156,145 @@ def test_bench_block_draws_and_arms_agree():
             bench_block.main(["--tower", "text", "--rounds", "1"])
         with pytest.raises(RuntimeError, match="needs a CUDA GPU"):
             bench_block.run_tower("image")
+
+
+def test_the_block_plan_mirrors_the_kernel_source():
+    """``plan``'s constants are the kernel source's: the design constants'
+    defaults (each a size ``bench_gemm`` also times another value of), the
+    64-deep stages, 16-row boxes of x and the context, 128 rows a CTA at
+    most, the 227 KB a block may take."""
+    import re
+    from pathlib import Path
+
+    from spatial_clip_tpu_torch import bench_gemm
+
+    src = (Path(fb.__file__).parents[1] / "csrc" / "fused_block.cu").read_text()
+    for macro, value in (("SC_BLOCK_CLUSTER", fb.CLUSTER), ("SC_BLOCK_MAX_STAGES", fb.MAX_STAGES)):
+        assert int(re.search(rf"#define {macro} (\d+)", src).group(1)) == value
+    assert "constexpr int kDepth = 64;" in src and fb.DEPTH == 64
+    assert "constexpr int kBoxRows = 16;" in src and fb.BOX_ROWS == 16
+    assert "constexpr int kMaxSeq = 128;" in src and fb.MAX_SEQ == 128
+    assert "constexpr int kThreads = kConsumers + 128;" in src and fb.WARPS == 12
+    assert "constexpr size_t kMaxSmem = 232448;" in src
+    knobs = bench_gemm.KNOBS["block"]
+    assert set(knobs.values()) == {"SC_BLOCK_CLUSTER", "SC_BLOCK_MAX_STAGES"}
+    tried = {k: {v[k] for v in bench_gemm.VARIANTS.values() if k in v} for k in knobs}
+    assert {1, 4} <= tried["block_cluster"] and {2, 8} <= tried["block_stages"]
+    assert bench_gemm.SHAPES["block"]["image_256"] == (256, 50, 768, 12, False)
+
+
+def test_the_block_plan_keys_mirror_the_c_entry():
+    """``PLAN_KEYS`` names, in order, the values ``sc_block_attn_plan``
+    writes, so ``kernel_plan`` reads the plan the launch runs; ``plan``
+    returns the same keys."""
+    import re
+    from pathlib import Path
+
+    src = (Path(fb.__file__).parents[1] / "csrc" / "fused_block.cu").read_text()
+    entry = src[src.index('extern "C" int sc_block_attn_plan'):]
+    n, body = re.search(r"const int values\[(\d+)\] = \{([^}]*)\};", entry).groups()
+    fields = [re.sub(r"^int\((.*)\)$", r"\1", f.strip()) for f in body.split(",")]
+    names = ["cluster" if f == "blk::kCluster" else f.removeprefix("p.") for f in fields]
+    assert int(n) == len(names) == len(fb.PLAN_KEYS)
+    assert tuple(names) == fb.PLAN_KEYS
+    assert f"for (int i = 0; i < {n}; ++i) plan[i] = values[i];" in entry
+    assert tuple(fb.plan(77, 512, 8)) == fb.PLAN_KEYS
+
+
+BLOCK_EDGE_LENGTHS = (1, 16, 17, 50, 63, 64, 65, 77, 128)
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("L", BLOCK_EDGE_LENGTHS)
+def test_block_plan_at_the_tiles_edges(L, hd):
+    """At every width from 64 to 1024 the bf16 plan's tiles cover the CTA's
+    sequence (its rows rounded up to 16, one or two m64 tiles), its passes
+    cover every output column, the A region holds the slabs with the pad the
+    last m64 tile reads past them and the attention body's space, and the
+    ring has at least two stages within 227 KB wherever ``supported`` takes
+    the geometry. ``supported`` takes every geometry the f32-staged design
+    took (its shared memory formula, below), and every width at L <= 80."""
+    for D in range(max(64, hd), 1025, 64):
+        if D % hd:
+            continue
+        H = D // hd
+        for cluster in (1, 2, 4):
+            p = fb.plan(L, D, H, cluster=cluster)
+            assert p["rp"] % 16 == 0 and L <= p["rp"] < L + 16 and p["rp"] <= 128
+            assert (p["mt"] - 1) * 64 < p["rp"] <= p["mt"] * 64
+            assert p["nc"] * p["mt"] == 256 and p["n_k"] * 64 == D
+            assert p["qkv_passes"] * p["nc"] >= 3 * D > (p["qkv_passes"] - 1) * p["nc"]
+            assert p["out_passes"] * p["nc"] >= D > (p["out_passes"] - 1) * p["nc"]
+            boxes = max(p["nc"] // 64, cluster)
+            assert p["box_rows"] * boxes == p["nc"] and p["box_rows"] % 16 == 0
+            assert p["slab"] == p["rp"] * 128 and p["a_region"] % 1024 == 0
+            assert p["a_region"] >= p["n_k"] * p["slab"] + p["mt"] * 8192 - p["slab"]
+            body = fwd_smem_bytes(L, hd, torch.bfloat16)
+            assert p["a_region"] >= p["head_groups"] * body
+            fits = [g for g in (3, 2) if -(-L // 16) <= 12 // g and g * body <= p["a_region"]]
+            assert p["head_groups"] == (fits[0] if fits else 1)
+            assert 2 <= p["stages"] <= fb.MAX_STAGES and p["st_tiles"] in (1, 2)
+            assert p["smem"] == (1024 + p["a_region"] + 2 * p["st_tiles"] * 8192
+                                 + p["stages"] * p["stage_bytes"] + 8 * (2 * p["stages"] + 3))
+        took = _staged_smem_bytes(L, D, H) <= fb.MAX_SMEM_BYTES
+        if took or L <= 80:
+            assert fb.supported(L, D, H, torch.bfloat16), (L, D, H)
+        if fb.supported(L, D, H, torch.bfloat16):
+            assert fb.smem_bytes(L, D, H, torch.bfloat16) <= fb.MAX_SMEM_BYTES
+
+
+def _staged_smem_bytes(seq, width, heads):
+    """The bf16 shared memory of the design before the wgmma one (normalized
+    rows, two 64 x 64 weight chunks, an f32 product tile, the head's q|k|v
+    tile, the CUDA-core body's space): what it took."""
+    hd, lp = width // heads, (seq + 15) // 16 * 16
+    r = fb._round_up
+    total = (r(lp * (width + 8) * 2) + 2 * r(64 * 72 * 2) + r(lp * 68 * 4)
+             + r(seq * 3 * hd * 2))
+    return total + seq * (hd + 8) * 2 + 8 * 2 * (hd + (seq + 3) // 4 * 4) * 4
+
+
+def test_block_plan_of_the_towers_and_its_weight_bytes():
+    """The towers' plans: the image tower (L 50) one m64 tile of 256-column
+    passes, 12 K stages a pass, 3 stages of 32 KB; the text tower (L 77) two
+    m64 tiles over 80 rows in 128-column passes; the image tower runs three
+    heads at once, the text tower two. Each CTA lands all of both weights,
+    half of them from L2 in a cluster of two."""
+    img = fb.plan(50, 768, 12)
+    assert (img["mt"], img["nc"], img["n_k"], img["qkv_passes"], img["out_passes"],
+            img["st_tiles"], img["stages"], img["stage_bytes"]) == (1, 256, 12, 9, 3, 2, 3, 32768)
+    assert img["head_groups"] == 3 and fb.plan(77, 512, 8)["head_groups"] == 2
+    txt = fb.plan(77, 512, 8)
+    assert (txt["rp"], txt["mt"], txt["nc"], txt["qkv_passes"],
+            txt["out_passes"]) == (80, 2, 128, 12, 4)
+    assert fb.weight_bytes(img) == (4 * 768 * 768 * 2, 2 * 768 * 768 * 2)
+    assert fb.weight_bytes(fb.plan(77, 512, 8, cluster=1)) == (4 * 512 * 512 * 2,) * 2
+
+
+def test_split_workspace_views():
+    """The bf16 kernel's workspace: q|k|v (B, L, 3D) then the context (B, L,
+    D), contiguous views of one buffer, each 16-byte aligned when the buffer
+    is."""
+    B, L, D = 3, 5, 128
+    ws = torch.arange(fb.workspace_numel(B, L, D), dtype=torch.float32)
+    qkv, ctx = fb.split_workspace(ws, B, L, D)
+    assert qkv.shape == (B, L, 3 * D) and ctx.shape == (B, L, D)
+    assert qkv.is_contiguous() and ctx.is_contiguous()
+    assert qkv.data_ptr() == ws.data_ptr() and ctx.data_ptr() % 16 == 0
+    assert ctx.view(-1)[0].item() == B * L * 3 * D
+
+
+def test_reference_block_attn_is_its_qkv_through_the_attention():
+    """The plain version's q|k|v (``reference_block_qkv``) is what its
+    attention reads: the f32 plain version is the JAX kernel's at the test's
+    tolerance, and its qkv rounds once to x's dtype in bf16."""
+    B, L, D, heads = 2, 9, 128, 2
+    args = _port_args(*_inputs(B, L, D, seed=4, causal=True))
+    qkv = fb.reference_block_qkv(*args[:5])
+    ctx = reference_attention(qkv, args[7], heads)
+    o = ctx.view(B * L, D) @ args[5].t() + args[6]
+    np.testing.assert_allclose(fb.reference_block_attn(*args, heads).numpy(),
+                               (args[0] + o.view(B, L, D)).numpy(), atol=1e-5, rtol=0)
+    bf = [a.bfloat16() if a is not None and i in (0, 3, 5) else a for i, a in enumerate(args)]
+    qb = fb.reference_block_qkv(*bf[:5])
+    assert qb.dtype == torch.bfloat16 and qb.shape == (B, L, 3 * D)

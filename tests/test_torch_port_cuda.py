@@ -1300,6 +1300,7 @@ BLOCK_CASES = [  # B, L, D, heads, causal, dtype
     (3, 17, 256, 4, False, torch.float32),
     (2, 26, 384, 12, True, torch.bfloat16),  # hd 32: a half-filled qkv pass
     (2, 33, 512, 4, False, torch.float32),  # hd 128
+    (3, 77, 1024, 32, True, torch.bfloat16),  # one staging tile a warpgroup, two-stage ring
 ]
 
 
@@ -1350,6 +1351,99 @@ def test_block_smem_formula_matches_kernel(device):
                     (128, 256, 2), (1, 1024, 8)):
         for dtype, code in cuda_build.DTYPE_CODES.items():
             assert fb.smem_bytes(L, D, H, dtype) == lib.sc_block_attn_smem_bytes(L, D, H, code)
+
+
+BLOCK_EDGE_LENGTHS = (1, 16, 17, 50, 63, 64, 65, 77, 128)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("L", BLOCK_EDGE_LENGTHS)
+def test_bf16_block_kernel_over_its_tiles_edges(device, L, hd, causal):
+    """The bf16 block half (wgmma products, the tensor-core attention body)
+    at the 16-row boxes' and the m64 tiles' edges, a width from 128 to 1024
+    and a batch of 1, 3 or 257 (past a cluster) in turn: within one bf16 ulp
+    at max|ref| of the plain version, the same bits on a rerun; the
+    workspace's q|k|v within one ulp of the plain version's and each head's
+    context sc_attention_fwd's bits on it."""
+    from spatial_clip_tpu_torch.ops import fused_block as fb
+
+    i = BLOCK_EDGE_LENGTHS.index(L) * 6 + (hd // 32).bit_length() * 2 + causal
+    D = 128 * (1 + i % 8)
+    while not fb.supported(L, D, D // hd, torch.bfloat16):
+        D -= 128
+    B = (1, 3, 257)[i % 3] if D <= 512 else (1, 3)[i % 2]
+    H = D // hd
+    gen = torch.Generator(device=device).manual_seed(i)
+    x = torch.randn((B, L, D), generator=gen, device=device).bfloat16()
+    args = (x, 1 + 0.05 * torch.randn((D,), generator=gen, device=device),
+            0.05 * torch.randn((D,), generator=gen, device=device),
+            (torch.randn((3 * D, D), generator=gen, device=device) / D ** 0.5).bfloat16(),
+            0.02 * torch.randn((3 * D,), generator=gen, device=device),
+            (torch.randn((D, D), generator=gen, device=device) / D ** 0.5).bfloat16(),
+            0.02 * torch.randn((D,), generator=gen, device=device))
+    mask = causal_mask(L, device=device) if causal else None
+    ws = torch.empty((fb.workspace_numel(B, L, D),), dtype=torch.bfloat16, device=device)
+    with torch.no_grad():
+        out = fb.fused_block_attn(*args, mask, H, workspace=ws)
+        again = fb.fused_block_attn(*args, mask, H)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.isfinite(out).all()
+    ref = fb.reference_block_attn(*args, mask, H).float()
+    tol = 2.0 ** (math.floor(math.log2(ref.abs().max().item())) - 7)
+    torch.testing.assert_close(out.float(), ref, rtol=0, atol=tol)
+    qkv, ctx = fb.split_workspace(ws, B, L, D)
+    want_qkv = fb.reference_block_qkv(*args[:5]).float()
+    qkv_tol = 2.0 ** (math.floor(math.log2(want_qkv.abs().max().item())) - 7)
+    torch.testing.assert_close(qkv.float(), want_qkv, rtol=0, atol=qkv_tol)
+    assert torch.equal(ctx, fused_attention(qkv, mask, H))
+
+
+def test_block_plan_matches_kernel(device):
+    """fused_block.plan mirrors sc_block_attn_plan at every edge length,
+    width and head dim the kernel takes."""
+    from spatial_clip_tpu_torch.ops import fused_block as fb
+
+    for L in BLOCK_EDGE_LENGTHS:
+        for D in range(128, 1025, 128):
+            for hd in (32, 64, 128):
+                if fb.supported(L, D, D // hd, torch.bfloat16):
+                    assert fb.plan(L, D, D // hd) == fb.kernel_plan(L, D, D // hd), (L, D, hd)
+
+
+@pytest.mark.parametrize("D", list(range(128, 1025, 128)))
+@pytest.mark.parametrize("R", [1, 31, 33, 5000])
+def test_fused_ln_backward_over_its_grid(device, R, D):
+    """The fused_ln backward's one-wave grid (bf16): one row, row counts on
+    either side of 32, more rows than the wave's warps, every width whose
+    lanes hold 1 to 4 vectors: dx within one bf16 step of the plain
+    version's largest, dgamma / dbeta within 1e-5 of theirs, all the same
+    bits on a rerun; its partial rows are fused_ln.bwd_blocks's count for
+    the card's SMs and the kernel's occupancy."""
+    import ctypes
+
+    from spatial_clip_tpu_torch.ops import cuda_build
+    from spatial_clip_tpu_torch.ops import fused_ln as fl
+
+    gen = torch.Generator(device=device).manual_seed(R * D)
+    x = (torch.randn((R, D), generator=gen, device=device) * 2 + 0.5).bfloat16()
+    gamma = 1 + 0.1 * torch.randn((D,), generator=gen, device=device)
+    dy = torch.randn((R, D), generator=gen, device=device).bfloat16()
+    got = fl.fused_ln_bwd(x, gamma, dy, 1e-5)
+    again = fl.fused_ln_bwd(x, gamma, dy, 1e-5)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = fl.reference_ln_bwd(x, gamma, dy, 1e-5)
+    torch.testing.assert_close(got[0].float(), want[0].float(), rtol=0,
+                               atol=_tol(torch.bfloat16, want[0].float()))
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-5 * w.abs().max().item())
+    lib = cuda_build.library()
+    regs, local, per_sm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    assert lib.sc_layer_norm_bwd_occupancy(D, 1, ctypes.byref(regs), ctypes.byref(local),
+                                           ctypes.byref(per_sm)) == 0
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    assert lib.sc_layer_norm_bwd_blocks(R, D, 1) == fl.bwd_blocks(R, sms, per_sm.value)
 
 
 LAYOUT_CASES = [  # B, L, D, H, causal, dtype: the ViT-B-32 towers, hd 32 / 128, long L

@@ -65,6 +65,12 @@ def test_bench_gemm_variants_rewrite_the_source_and_refuse_without_a_gpu(variant
     (["--kernels", "attn_dx", "--variants", "package,attn_cluster3"], ValueError),
     (["--parent", "build/parent", "--kernels", "ln_dense_dx,ln_fwd"], SystemExit),
     (["--variants", "dx_cluster4,ln_blocks1", "--kernels", "ln_fwd"], SystemExit),
+    (["--kernels", "block"], SystemExit),
+    (["--parent", "build/parent", "--kernels", "block,ln_bwd", "--variants",
+      "package,block_cluster1,block_cluster4,block_stages2,block_stages8,ln_bwd_depth2"],
+     SystemExit),
+    (["--kernels", "block", "--variants", "package,block_cluster3"], ValueError),
+    (["--kernels", "block,blocks"], ValueError),
 ])
 def test_bench_gemm_parses_its_flags(argv, error):
     with pytest.raises(error):
@@ -204,3 +210,37 @@ def test_bench_gemm_cold_timing_rotates_past_the_l2(copies_bytes, copies):
     LayerNorm at batch 256: 4 copies of 39 / 40 MB), two at least."""
     assert bench_gemm.cold_copies(copies_bytes) == copies
     assert copies * copies_bytes >= bench_gemm.COLD_BYTES or copies == 2
+
+
+def test_the_ln_backward_grid_mirrors_the_kernel_source():
+    """``fused_ln.bwd_blocks``'s constants are the source's: 8 warps a
+    block, at most ``SC_LN_BWD_BLOCKS`` blocks an SM (another of the values
+    ``bench_gemm`` times), the launch bounds sized for them, each block a
+    run of rows, rows landing ``SC_LN_BWD_DEPTH`` deep."""
+    src = (cuda_build.CSRC_DIR / "fused_ln.cu").read_text()
+    assert "constexpr int kBwdWarps = 8;" in src and fl.BWD_WARPS == 8
+    assert int(re.search(r"#define SC_LN_BWD_BLOCKS (\d+)", src).group(1)) == fl.BWD_BLOCKS
+    assert "__launch_bounds__(kBwdWarps * 32, SC_LN_BWD_BLOCKS)" in src
+    assert "const int end = int(long(blockIdx.x + 1) * rows / gridDim.x);" in src
+    tried = {v.get("ln_bwd_blocks") for v in bench_gemm.VARIANTS.values()}
+    depths = {v.get("ln_bwd_depth") for v in bench_gemm.VARIANTS.values()}
+    assert 2 in tried and {2, 4} <= depths
+    assert int(re.search(r"#define SC_LN_BWD_DEPTH (\d+)", src).group(1)) == 3
+
+
+@pytest.mark.parametrize("per_sm", [1, 2, 3])
+@pytest.mark.parametrize("rows", [1, 31, 33, 2112, 2113, 4225, 12800, 19712, 100_000])
+def test_the_ln_backward_grid_is_one_even_wave(rows, per_sm):
+    """The backward's grid (``sc_layer_norm_bwd_blocks``) on 132 SMs: one
+    full wave, or a block for each 8 rows when there are fewer; every
+    block's run of rows [b R / nb, (b + 1) R / nb) within one of every
+    other's and never empty, every warp's share within one of its block's
+    other warps'."""
+    blocks = fl.bwd_blocks(rows, 132, per_sm)
+    wave = 132 * min(per_sm, fl.BWD_BLOCKS)
+    assert blocks == min(wave, -(-rows // fl.BWD_WARPS))
+    runs = [(b + 1) * rows // blocks - b * rows // blocks for b in range(blocks)]
+    assert sum(runs) == rows and min(runs) >= 1 and max(runs) - min(runs) <= 1
+    for run in {min(runs), max(runs)}:
+        shares = [len(range(w, run, fl.BWD_WARPS)) for w in range(fl.BWD_WARPS)]
+        assert max(shares) - min(shares) <= 1
