@@ -179,6 +179,24 @@ the exit code is not 0. No JAX is imported.
            24 forward-lse and 24 dx launches per step and no other attention
            backward; finite losses and gradient norms, median step ms beside
            phase 8's, peak memory
+28. entry  the training and evaluation entry points on the repository's
+           configs: ``spatial_clip_tpu_torch.train.entry.train`` (what
+           ``python -m spatial_clip_tpu_torch.train`` runs) with data=synthetic
+           (ViT-B-32 bf16, 224 px, batch 64, full width and depth), 4 steps,
+           one epoch, a checkpoint every 2 steps (2 kept), validation and
+           test; the launches per route of that run (24 forward-lse and 24
+           saved-lse backward a step, 24 inference forwards a val/test batch,
+           none of any other wrapper); a second run built by
+           ``entry.build`` with ``resume=latest`` from step_2 takes batches 2
+           and 3 of the same epoch and ends with the unbroken run's step-4
+           params, mu and nu to the bit; ``spatial_clip_tpu_torch.eval`` on
+           the checkpoints gives the train run's test metrics, with 24
+           inference forwards a test batch; then the step ms and its device
+           busy time (torch.profiler), the loader's wait per batch, fit's
+           pairs/s over its train window (from its logged rates), the idle
+           share that window implies beside the profiled step's busy time
+           (derived, not traced), and a checkpoint's bytes, host-copy and
+           write seconds
 
 Phases 3, 6, 19, 23 and 26 also time PyTorch's scaled_dot_product_attention
 (efficient-attention backend) at the kernels' shapes as a yardstick (its
@@ -187,21 +205,26 @@ backward alone, on one retained graph), phase
 phase 22 the unfused half with SDPA, and phase 26 the cuBLAS dx GEMM; the
 port never calls them.
 Then one JSON line with the kernels (each with its launches on the main
-path, error, time, plain time, bound and library time), the nvidia-smi
-line, and last ``{"ok": true, "device": {...}}``.
+path, error, time, plain time, bound and library time; the three kernels of
+phase 28's path also with its launches there), the nvidia-smi line, and
+last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import base64
+import csv
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from http.client import HTTPConnection
+from pathlib import Path
 
 import numpy as np
 
@@ -737,6 +760,7 @@ def main() -> int:
     layout_train = train_layouts_phase(train["step_ms"])
     dx_rows = kernel_dx_phase()
     dxdb = dxdb_phase(train["step_ms"])
+    entry = entry_phase()
 
     image = kernel_rows["image"]
     at_train = "qkv (256, 50, 2304) bf16, no mask (image tower, batch 256)"
@@ -753,6 +777,7 @@ def main() -> int:
         "bound_by": image["bound_by"],
         "library_ms": image["library_ms"],
         "at": "qkv (64, 50, 2304) bf16, no mask (image tower, batch 64)",
+        "entry_launches": entry["fused_attention_fwd"],
     }]
     for name, part, line, launch_key in (
             ("fused_attention_fwd_lse", "fwd", 350, "lse_launches"),
@@ -772,6 +797,7 @@ def main() -> int:
             "bound_by": row[f"{part}_bound_by"],
             "library_ms": row[f"{part}_library_ms"],
             "at": at_train,
+            "entry_launches": entry[name],
         })
     row = train_rows["image"]
     kernels.append({
@@ -3023,6 +3049,186 @@ def dxdb_phase(default_step_ms: float) -> dict:
           f"{peak / 2 ** 30:.3f} GiB", flush=True)
     del trainer, batch
     return {"launches": counts[-1], "step_ms": med}
+
+
+def every_counter() -> dict:
+    """Every kernel wrapper of the package that counts its launches: name ->
+    wrapper."""
+    import importlib
+
+    out = {}
+    for name in ("fused_attention", "attention_variants", "attention_pair", "fused_block",
+                 "fused_contrastive", "fused_ln", "fused_ln_dense", "fused_mlp"):
+        module = importlib.import_module(f"spatial_clip_tpu_torch.ops.{name}")
+        for attr, fn in vars(module).items():
+            if (callable(fn) and isinstance(getattr(fn, "launches", None), int)
+                    and fn.__module__ == module.__name__):  # each wrapper once, where defined
+                out[f"{name}.{attr}"] = fn
+    return out
+
+
+def read_launches(counters: dict) -> dict:
+    return {k: c.launches for k, c in counters.items() if c.launches}
+
+
+ENTRY_STEPS, ENTRY_BATCH = 4, 64  # configs/data/synthetic.yaml: batch 64, 512 + 128 samples
+
+
+def entry_phase(extra=()) -> dict:
+    """28. The training and evaluation entry points over the repository's
+    configs, on ViT-B-32 (configs/model/spatial_clip.yaml) with
+    data=synthetic, in a temporary root under build/ deleted after;
+    ``extra`` overrides go to every run. Returns the entry run's launches
+    by package kernel name."""
+    import itertools
+
+    import torch
+
+    from spatial_clip_tpu_torch import eval as port_eval
+    from spatial_clip_tpu_torch.profile_serving import profile_encode
+    from spatial_clip_tpu_torch.train import entry
+    from spatial_clip_tpu_torch.train.checkpoints import CheckpointManager
+
+    counters = every_counter()
+    build = Path(__file__).resolve().parent / "build"  # ignored by git, like the kernels' build
+    build.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="entry_", dir=build))
+    try:
+        overrides = ["data=synthetic", "save_ckpt=true", f"trainer.max_steps={ENTRY_STEPS}",
+                     "trainer.epochs=1", "trainer.save_every_steps=2", "trainer.keep_ckpts=2",
+                     "trainer.log_every=1", "test=true", *extra]
+        cfg = entry.compose_train([*overrides, f"paths.root_dir={root / 'run'}"])
+        torch.cuda.empty_cache()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        value, objects = entry.train(cfg)
+        run_s = time.perf_counter() - t0
+        launches = read_launches(counters)
+        val_batches = 2 * (128 // ENTRY_BATCH)  # the val split, then the same split as test
+        want = {"fused_attention.fused_attention_lse": 2 * LAYERS * ENTRY_STEPS,
+                "fused_attention.fused_attention_bwd": 2 * LAYERS * ENTRY_STEPS,
+                "fused_attention.fused_attention": 2 * LAYERS * val_batches}
+        if launches != want:
+            raise AssertionError(f"[entry] train launches {launches}, want {want}")
+        state, metrics = objects["state"], objects["metrics"]
+        ckpt_dir = Path(cfg["paths"]["output_dir"]) / "checkpoints"
+        steps = sorted(p.name for p in ckpt_dir.iterdir())
+        finite = all(np.isfinite(v) for v in metrics.values() if isinstance(v, float))
+        if not (state.step == ENTRY_STEPS and steps == ["step_2", "step_4"] and finite
+                and np.isfinite(value) and metrics["test/num_samples"] == 128.0):
+            raise AssertionError(f"[entry] step {state.step}, checkpoints {steps}, value "
+                                 f"{value}, metrics {metrics}")
+        model = objects["model"]
+        print(f"[entry] python -m spatial_clip_tpu_torch.train {' '.join(overrides)}: "
+              f"{model.model_name} {str(model.dtype)[6:]} batch {ENTRY_BATCH}, "
+              f"{state.step} steps in {run_s:.1f} s (model build, loader, validation, test and "
+              f"checkpoints included); launches {launches}; loss {metrics['loss']:.4f}, val/loss "
+              f"{metrics['val/loss']:.4f}, test/R@1 {metrics['test/R@1']:.4f}; checkpoints "
+              f"{steps}", flush=True)
+
+        # resume=latest from step_2 in a new run: batches 2 and 3 of epoch 0
+        resume_root = root / "resume"
+        rcfg = entry.compose_train([*overrides, "resume=latest",
+                                    f"paths.root_dir={resume_root}"])
+        rdir = Path(rcfg["paths"]["output_dir"]) / "checkpoints"
+        rdir.mkdir(parents=True)
+        shutil.copytree(ckpt_dir / "step_2", rdir / "step_2")
+        run = entry.build(rcfg)
+
+        def rest_of_epoch():
+            loader = run.datamodule.train_dataloader()
+            loader.set_epoch(0)
+            return itertools.islice(loader, 2, None)
+
+        resumed, _ = run.fit(rest_of_epoch, steps_per_epoch=2)
+        diffs = {k: (resumed.flat[k].float() - state.flat[k].float()).abs().max().item()
+                 for k in ("params", "mu", "nu")}
+        same = {k: torch.equal(resumed.flat[k], state.flat[k]) for k in diffs}
+        if not ((resumed.step, resumed.count) == (state.step, state.count)
+                and all(same.values())):
+            raise AssertionError(f"[entry] resumed step {resumed.step} count {resumed.count}, "
+                                 f"the same bits {same}, max abs differences {diffs}")
+        del run, resumed
+        print(f"[entry] resume=latest from step_2 in a new run, batches 2-3 of epoch 0: step "
+              f"{state.step} state the same bits as the unbroken run: {same}", flush=True)
+
+        # eval on the checkpoints: the newest (step_4, written at the epoch's end)
+        torch.cuda.empty_cache()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        got = port_eval.main(["data=synthetic", f"paths.root_dir={root / 'eval'}",
+                              f"ckpt_path={ckpt_dir}", *extra])
+        eval_s = time.perf_counter() - t0
+        eval_launches = read_launches(counters)
+        want_eval = {"fused_attention.fused_attention": LAYERS * 128 // ENTRY_BATCH * 2}
+        test = {k: float(v) for k, v in metrics.items() if k.startswith("test/")}
+        if eval_launches != want_eval or got != test:
+            raise AssertionError(f"[entry] eval launches {eval_launches} (want {want_eval}), "
+                                 f"metrics {got} vs the train run's {test}")
+        print(f"[entry] python -m spatial_clip_tpu_torch.eval data=synthetic "
+              f"ckpt_path=<run>/checkpoints: {len(got)} test metrics equal to the train run's "
+              f"in-memory evaluation (test/loss {got['test/loss']:.6f}); launches "
+              f"{eval_launches}; {eval_s:.1f} s", flush=True)
+
+        # times: the step alone, the loader's wait, a checkpoint's write
+        trainer, dm = objects["trainer"], objects["datamodule"]
+        loader = dm.train_dataloader()
+        loader.set_epoch(1)
+        waits, batches = [], []
+        t0 = time.perf_counter()
+        for batch in itertools.islice(loader, ENTRY_STEPS):
+            waits.append((time.perf_counter() - t0) * 1e3)
+            batches.append(batch)
+            t0 = time.perf_counter()
+        dbatch = trainer._device_batch(batches[0])
+        holder = {"state": state}
+
+        def step():
+            holder["state"], _ = trainer.train_step(holder["state"], dbatch)
+
+        prof = profile_encode(step, reps=3)
+        state = holder["state"]
+        med, busy = prof["wall_ms"], prof["device_busy_ms"]
+        wait = statistics.mean(waits)
+        # fit's train window from its logged rates (log_every=1: one per step,
+        # the loader's wait included)
+        with open(Path(cfg["paths"]["output_dir"]) / "metrics.csv") as f:
+            rates = [float(r["train/pairs_per_sec"]) for r in csv.DictReader(f)
+                     if r.get("train/pairs_per_sec")]
+        fit_s = sum(ENTRY_BATCH / r for r in rates)
+        fit_pps = ENTRY_BATCH * len(rates) / fit_s
+        fit_ms = fit_s * 1e3 / len(rates)
+        mgr = CheckpointManager(root / "bench", keep=1)
+        t0 = time.perf_counter()
+        mgr.save(state, state.step)
+        copy_s = time.perf_counter() - t0
+        mgr.wait()
+        write_s = time.perf_counter() - t0 - copy_s
+        n_bytes = sum(p.stat().st_size for p in (root / "bench").rglob("*") if p.is_file())
+        n_params = sum(p.numel() for p in state.params.values())
+        print(f"[entry-timing] ViT-B-32 bf16 batch {ENTRY_BATCH}, data=synthetic "
+              f"(num_workers 0): train step {med:.3f} ms median of 20 "
+              f"({ENTRY_BATCH * 1e3 / med:.1f} pairs/s the step alone), device busy {busy:.3f} ms "
+              f"a step (idle share of the step {prof['idle_share']:.3f}, "
+              f"{prof['kernels_per_encode']:.0f} kernels; by family "
+              f"{ {k: round(v, 3) for k, v in prof['device_ms_by_family'].items()} }); loader "
+              f"wait {wait:.1f} ms a batch (mean of {len(waits)}: "
+              f"{[round(w, 1) for w in waits]}); fit's train window {len(rates)} steps at "
+              f"{fit_pps:.1f} pairs/s ({fit_ms:.1f} ms a step, the loader included; per step "
+              f"{[round(r, 1) for r in rates]} pairs/s); device idle share of that window "
+              f"derived from the profiled step's busy time, not traced: "
+              f"{1 - busy / fit_ms:.3f}; checkpoint {n_bytes} B (a flat f32 buffer of "
+              f"{state.flat['params'].numel()} elements for {n_params} parameters, + "
+              f"{str(state.flat['mu'].dtype)[6:]} mu and nu): host copy "
+              f"{copy_s:.3f} s, write {write_s:.3f} s ({n_bytes / max(write_s, 1e-9) / 1e9:.2f} "
+              f"GB/s)", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"fused_attention_fwd": launches["fused_attention.fused_attention"],
+            "fused_attention_fwd_lse": launches["fused_attention.fused_attention_lse"],
+            "fused_attention_bwd": launches["fused_attention.fused_attention_bwd"]}
 
 
 if __name__ == "__main__":

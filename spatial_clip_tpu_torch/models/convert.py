@@ -5,6 +5,7 @@
 port's :class:`~spatial_clip_tpu_torch.models.clip.CLIP` loads. For the keys
 ``spatial_clip_tpu.models.convert.jax_to_torch_state_dict`` exports, keys and
 values are the same; it also maps layer-scale and a biased text projection.
+:func:`to_jax_params` is its inverse.
 
 :func:`from_jax_train_state` maps a JAX ``TrainState`` (parameters and the
 Adam moments, with numpy leaves) to the port's
@@ -12,7 +13,7 @@ Adam moments, with numpy leaves) to the port's
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,13 +38,14 @@ def _to_f32(tree):
     return np.asarray(tree).astype(np.float32)
 
 
-def from_jax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    flat = _flatten(params)
-    out: Dict[str, np.ndarray] = {}
+def _key_pairs(has) -> List[Tuple[str, str, Optional[Tuple[int, ...]]]]:
+    """(JAX flat key, state-dict key, transpose from JAX to torch) for every
+    parameter of a CLIP; ``has(jax_key, state_dict_key)`` says whether an
+    optional parameter is present."""
+    pairs = []
 
     def take(jkey: str, tkey: str, transpose=None):
-        v = flat.pop(jkey)
-        out[tkey] = v if transpose is None else v.transpose(transpose)
+        pairs.append((jkey, tkey, transpose))
 
     def take_ln(jprefix: str, tprefix: str):
         take(f"{jprefix}/scale", f"{tprefix}.weight")
@@ -55,7 +57,7 @@ def from_jax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
     def take_blocks(jprefix: str, tprefix: str):
         i = 0
-        while f"{jprefix}/resblocks_{i}/ln_1/scale" in flat:
+        while has(f"{jprefix}/resblocks_{i}/ln_1/scale", f"{tprefix}.resblocks.{i}.ln_1.weight"):
             j, t = f"{jprefix}/resblocks_{i}", f"{tprefix}.resblocks.{i}"
             take_ln(f"{j}/ln_1", f"{t}.ln_1")
             take_ln(f"{j}/ln_2", f"{t}.ln_2")
@@ -65,7 +67,7 @@ def from_jax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             take_dense(f"{j}/mlp/c_fc", f"{t}.mlp.c_fc")
             take_dense(f"{j}/mlp/c_proj", f"{t}.mlp.c_proj")
             for ls in ("ls_1", "ls_2"):
-                if f"{j}/{ls}" in flat:
+                if has(f"{j}/{ls}", f"{t}.{ls}.gamma"):
                     take(f"{j}/{ls}", f"{t}.{ls}.gamma")
             i += 1
 
@@ -73,7 +75,7 @@ def from_jax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     take("visual/conv1/kernel", "visual.conv1.weight", (3, 2, 0, 1))  # HWIO -> OIHW
     take("visual/class_embedding", "visual.class_embedding")
     take("visual/positional_embedding", "visual.positional_embedding")
-    if "visual/ln_pre/scale" in flat:
+    if has("visual/ln_pre/scale", "visual.ln_pre.weight"):
         take_ln("visual/ln_pre", "visual.ln_pre")
     take_ln("visual/ln_post", "visual.ln_post")
     take("visual/proj", "visual.proj")
@@ -82,18 +84,47 @@ def from_jax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     take("text/token_embedding/embedding", "token_embedding.weight")
     take("text/positional_embedding", "positional_embedding")
     take_ln("text/ln_final", "ln_final")
-    if "text/text_projection/kernel" in flat:
+    if has("text/text_projection/kernel", "text_projection.weight"):
         take_dense("text/text_projection", "text_projection")
     else:
         take("text/text_projection", "text_projection")
 
     take("logit_scale", "logit_scale")
-    if "logit_bias" in flat:
+    if has("logit_bias", "logit_bias"):
         take("logit_bias", "logit_bias")
+    return pairs
+
+
+def from_jax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    flat = _flatten(params)
+    out: Dict[str, np.ndarray] = {}
+    for jkey, tkey, transpose in _key_pairs(lambda jkey, tkey: jkey in flat):
+        v = flat.pop(jkey)
+        out[tkey] = v if transpose is None else v.transpose(transpose)
     if flat:
         raise NotImplementedError(
             f"JAX params with no counterpart in spatial_clip_tpu_torch: {sorted(flat)}")
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}  # own, writable copies
+
+
+def to_jax_params(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of :func:`from_jax_params`: this package's state dict as
+    the JAX package's nested params (float32 numpy arrays)."""
+    sd = {k: v.detach().to("cpu", torch.float32).numpy() for k, v in state_dict.items()}
+    nested: Dict[str, Any] = {}
+    for jkey, tkey, transpose in _key_pairs(lambda jkey, tkey: tkey in sd):
+        v = sd.pop(tkey)
+        if transpose is not None:
+            v = v.transpose(np.argsort(transpose))
+        node = nested
+        *parents, leaf = jkey.split("/")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = np.array(v, order="C")
+    if sd:
+        raise NotImplementedError(
+            f"state-dict keys with no counterpart in the JAX package: {sorted(sd)}")
+    return nested
 
 
 def find_adam_state(opt_state):

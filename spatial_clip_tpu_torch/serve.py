@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import io
 import json
 import logging
 import os
@@ -42,7 +43,7 @@ import numpy as np
 import torch
 
 from spatial_clip_tpu_torch.models.factory import create_model, get_tokenizer
-from spatial_clip_tpu_torch.models.transforms import decode_tile, normalize_batch
+from spatial_clip_tpu_torch.models.transforms import HostImageTransform, normalize_batch
 
 log = logging.getLogger(__name__)
 
@@ -178,11 +179,14 @@ class EmbeddingService:
         return self._batched(self._enc_txt, ids)
 
     def embed_images_b64(self, images_b64) -> np.ndarray:
+        from PIL import Image
+
         tiles = np.empty((len(images_b64), self.image_size, self.image_size, 3), np.uint8)
+        transform = HostImageTransform(self.model.preprocess_cfg)
 
         def decode(item):
             i, b = item
-            tiles[i] = decode_tile(base64.b64decode(b), self.model.preprocess_cfg)
+            tiles[i] = transform(Image.open(io.BytesIO(base64.b64decode(b))))
 
         items = list(enumerate(images_b64))
         # Pillow's decode releases the GIL, so a thread pool scales with cores

@@ -6,16 +6,18 @@ compute the loss and its gradient (with ``grad_accum > 1``, accumulated over
 microbatches in ``cached`` or ``simple`` mode), run the AdamW chain, clamp
 the logit scale to ``[0, ln 100]``, and return the step metrics.
 :meth:`Trainer.fit` drives it over iterators of numpy batches with
-validation, and :meth:`Trainer.evaluate` computes the full-split retrieval
-metrics. PyTorch runs eagerly, so there is no jit; the optimizer updates
-the state in place. Nothing in a step waits for the device: the metrics
-come back as device scalars (``lr`` as a float).
+validation and checkpoints (``ckpt_dir``: a save every ``save_every_steps``,
+on each new best ``monitor`` value and at each epoch's end, the newest
+``keep_ckpts`` kept; ``fit(resume=...)`` restores the newest or a given
+step, as the JAX package's fit does), and :meth:`Trainer.evaluate` computes
+the full-split retrieval metrics. PyTorch runs eagerly, so there is no jit;
+the optimizer updates the state in place. Nothing in a step waits for the
+device: the metrics come back as device scalars (``lr`` as a float).
 
 Not ported, and raising NotImplementedError: master weights, a bf16
 gradient dtype, optimizers other than AdamW, frozen towers, a distillation
-teacher, a device mesh and checkpoints (``ckpt_dir``, ``resume``). The JAX
-package's ``scan_steps`` and ``compiler_options`` are XLA dispatch knobs
-with no counterpart here.
+teacher and a device mesh. The JAX package's ``scan_steps`` and
+``compiler_options`` are XLA dispatch knobs with no counterpart here.
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ from spatial_clip_tpu_torch.models.transforms import (
     draw_augment,
     normalize_batch,
 )
+from spatial_clip_tpu_torch.train.checkpoints import CheckpointManager
 from spatial_clip_tpu_torch.train.metrics import (
     ContrastiveMetrics,
     clip_retrieval_metrics,
@@ -96,7 +99,6 @@ def _unported(cfg: TrainerConfig) -> None:
         ("grad_dtype", cfg.grad_dtype is not None),
         ("opt", (cfg.opt or "adamw").lower() not in ("adamw", "adam")),
         ("frozen_prefixes", bool(cfg.frozen_prefixes)),
-        ("ckpt_dir", cfg.ckpt_dir is not None),
     ):
         if bad:
             raise NotImplementedError(
@@ -226,6 +228,7 @@ class Trainer:
         self.optimizer = AdamW(self.schedule, cfg.weight_decay, cfg.betas, cfg.eps,
                                cfg.grad_clip_norm)
         self.mu_dtype, self.nu_dtype = moment_dtype(cfg.mu_dtype), moment_dtype(cfg.nu_dtype)
+        self.ckpt = CheckpointManager(cfg.ckpt_dir, keep=cfg.keep_ckpts) if cfg.ckpt_dir else None
 
     def init_state(self) -> TrainState:
         """The model's current parameters (copied), zero moments, step 0."""
@@ -392,11 +395,24 @@ class Trainer:
         ``log_every`` steps, with ``epoch``, ``pairs_per_sec`` and
         ``pairs_per_sec_per_chip`` over the steps since the last read; the
         ``monitor`` metric picks ``best_step`` and drives early stopping.
-        Returns the state and the last metrics (``val/`` keys included)."""
-        if resume:
-            raise NotImplementedError("resume (checkpoints) is not ported to "
-                                      "spatial_clip_tpu_torch")
+        With ``ckpt_dir``, the state is saved every ``save_every_steps``
+        steps, at each new best ``monitor`` value and at each epoch's end
+        (those two with the last metrics), and the last write is waited for
+        before returning. ``resume`` ("latest" or a step number) restores a
+        checkpoint first, or starts fresh when there is none; as in the JAX
+        package, the epochs then run from the first, on the iterators the
+        factories give. Returns the state and the last metrics (``val/``
+        keys included)."""
         state = state if state is not None else self.init_state()
+        if resume and self.ckpt:
+            try:
+                state, step = self.ckpt.restore(
+                    state, None if resume == "latest" else int(resume))
+                log.info("Resumed from step %d", step)
+            except FileNotFoundError:
+                log.info("No checkpoint found; starting fresh")
+        elif resume:
+            log.warning("resume=%r without ckpt_dir: starting fresh", resume)
         cfg = self.cfg
         n_dev = 1
         last: Dict[str, float] = {}
@@ -432,6 +448,8 @@ class Trainer:
                 else:
                     t_data += t1 - t0
                     n_samples += bsz
+                if self.ckpt and cfg.save_every_steps and state.step % cfg.save_every_steps == 0:
+                    self.ckpt.save(state, state.step)
                 t0 = time.perf_counter()
             if val_iter_factory is not None:
                 val_metrics = self.evaluate(state, val_iter_factory())
@@ -444,12 +462,18 @@ class Trainer:
                         best_score = sign * score
                         stale_evals = 0
                         self.best_step = state.step
+                        if self.ckpt:
+                            self.ckpt.save(state, state.step, last)
                     else:
                         stale_evals += 1
                         if cfg.early_stop_patience and stale_evals >= cfg.early_stop_patience:
                             log.info("Early stopping at step %d (no %s improvement for %d evals)",
                                      state.step, cfg.monitor, stale_evals)
                             break
+            if self.ckpt:
+                self.ckpt.save(state, state.step, last)
+        if self.ckpt:
+            self.ckpt.wait()  # the last write is on disk before fit returns
         return state, last
 
     # ------------------------------------------------------------------ eval

@@ -461,7 +461,7 @@ def test_contrastive_metrics_and_retrieval_match_jax():
 
 @pytest.mark.parametrize("field,value", [
     ("master_weights", True), ("grad_dtype", "bf16"), ("opt", "lion"),
-    ("frozen_prefixes", ("visual",)), ("ckpt_dir", "/nonexistent"),
+    ("frozen_prefixes", ("visual",)),
 ])
 def test_unported_trainer_options_raise(field, value):
     model = create_model("ViT-Test", precision="fp32", device="meta", training=True, **WIDE)
@@ -476,9 +476,6 @@ def test_unported_losses_and_serving_models_raise():
     serving = create_model("ViT-Test", precision="fp32", device="meta", **WIDE)
     with pytest.raises(ValueError, match="training=True"):
         Trainer(serving)
-    model = create_model("ViT-Test", precision="fp32", device="meta", training=True, **WIDE)
-    with pytest.raises(NotImplementedError, match="resume"):
-        Trainer(model).fit(lambda: iter(()), resume="latest")
 
 
 def test_training_model_checks_backward_geometry():
