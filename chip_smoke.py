@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving, training and gene paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -197,6 +197,29 @@ the exit code is not 0. No JAX is imported.
            share that window implies beside the profiled step's busy time
            (derived, not traced), and a checkpoint's bytes, host-copy and
            write seconds
+29. gene-check  path B, the Gene-MLP tower (ViT-B-32-GeneMLP: 5,000 genes
+           -> 1024, 3 blocks, head 512): phase 7's card-vs-CPU step at batch
+           32 under the default LayerNorm and under ln_impl='pallas', with
+           exact launches (12 forward-lse and 12 saved-lse backward; under
+           'pallas' also 27 fused_ln forwards and backwards: the image
+           tower's 26 and the gene tower's ln_final)
+30. gene-train  path B's step at batch 256 (phase 8's workload on
+           ViT-B-32-GeneMLP): exactly 12 + 12 attention launches a step,
+           median step ms beside phase 8's, one step's device busy time
+31. gene-entry  paths A (data=synthetic with model.global_hvg_path: the
+           gene-vocabulary text tower, 5,120 ids) and B (experiment=gene_mlp
+           on the synthetic dataset, batch 256) through phase 28's entry
+           runs, with a generated list of 5,000 genes: exact launches, the
+           resume to the same bits, .eval's test/zero_shot_pcc within 1e-5
+           of a numpy recomputation from the run's gene bank and test image
+           features, the first 256 bank rows against the f32 CPU bank
+           (per-row cosine), the bank's encode ms, the step and a
+           checkpoint's bytes
+32. gene-study  one short arm of each tower of the gene scaling study
+           (gene, linear, text; 1,024 spots, batch 256), and the
+           ImageNet-style zero-shot classifier (ViT-B-32, random weights,
+           1,000 classes x the 80 OpenAI templates) with its first columns
+           held to the f32 CPU classifier and its launches counted
 
 Phases 3, 6, 19, 23 and 26 also time PyTorch's scaled_dot_product_attention
 (efficient-attention backend) at the kernels' shapes as a yardstick (its
@@ -206,7 +229,9 @@ phase 22 the unfused half with SDPA, and phase 26 the cuBLAS dx GEMM; the
 port never calls them.
 Then one JSON line with the kernels (each with its launches on the main
 path, error, time, plain time, bound and library time; the three kernels of
-phase 28's path also with its launches there), the nvidia-smi line, and
+phase 28's path also with its launches there, and they and the fused_ln
+kernels with their launches on the gene paths, phases 29-32), the
+nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -761,6 +786,22 @@ def main() -> int:
     dx_rows = kernel_dx_phase()
     dxdb = dxdb_phase(train["step_ms"])
     entry = entry_phase()
+    gene_check = gene_check_phase()
+    gene_train = gene_train_phase(train["step_ms"])
+    gene_entry = gene_entry_phase()
+    gene_study = gene_study_phase()
+
+    def gene_launches(key: str) -> dict:
+        """A kernel's launches on the gene paths: phase 29's step (path B),
+        phase 30's 13 steps, phase 31's entry runs and evals, by path."""
+        out = {f"path B check {k}": n.get(key, 0) for k, n in gene_check.items()}
+        out["path B 13 steps"] = dict(zip(
+            ("fused_attention.fused_attention", "fused_attention.fused_attention_lse",
+             "fused_attention.fused_attention_bwd"), gene_train["launches"])).get(key, 0)
+        for path in ("A", "B"):
+            for part in ("train", "eval"):
+                out[f"path {path} entry {part}"] = gene_entry[path][f"{part}_launches"].get(key, 0)
+        return out
 
     image = kernel_rows["image"]
     at_train = "qkv (256, 50, 2304) bf16, no mask (image tower, batch 256)"
@@ -778,6 +819,8 @@ def main() -> int:
         "library_ms": image["library_ms"],
         "at": "qkv (64, 50, 2304) bf16, no mask (image tower, batch 64)",
         "entry_launches": entry["fused_attention_fwd"],
+        "gene_launches": {**gene_launches("fused_attention.fused_attention"),
+                          "zero-shot classifier": gene_study["classifier_launches"]},
     }]
     for name, part, line, launch_key in (
             ("fused_attention_fwd_lse", "fwd", 350, "lse_launches"),
@@ -798,6 +841,8 @@ def main() -> int:
             "library_ms": row[f"{part}_library_ms"],
             "at": at_train,
             "entry_launches": entry[name],
+            "gene_launches": gene_launches(
+                f"fused_attention.{name.replace('_fwd_lse', '_lse')}"),
         })
     row = train_rows["image"]
     kernels.append({
@@ -882,6 +927,8 @@ def main() -> int:
             kernels[-1]["library_ms_by_shape"] = {k: r[f"{part}_library_ms"]
                                                   for k, r in ln_rows[family].items()
                                                   if f"{part}_library_ms" in r}
+        if family == "fused_ln":  # the gene tower's ln_final joins the image tower's 26
+            kernels[-1]["gene_launches"] = gene_launches(f"fused_ln.{name}")
         if name == "fused_ln_fwd":  # on the card's clock, x past the L2
             kernels[-1]["cold_ms"] = row["fwd_cold_ms"]
             kernels[-1]["library_cold_ms"] = row["fwd_library_cold_ms"]
@@ -1158,19 +1205,22 @@ def bwd_edges_phase() -> dict:
     return worst
 
 
-def train_check_phase(label: str = "train-check", batch_size: int = CHECK_BATCH, **settings):
-    """7 (and 13, 16, 18 under ``settings`` or another batch). One train
-    step's loss and gradients, card (bf16, kernels) vs CPU (f32, plain
-    path), on the same weights, batch and augmentation draws. Returns the
-    card's trainer."""
+def train_check_phase(label: str = "train-check", batch_size: int = CHECK_BATCH,
+                      model_name: str = "ViT-B-32", want_launches=None, **settings):
+    """7 (and 13, 16, 18 under ``settings`` or another batch, 29 on another
+    model). One train step's loss and gradients, card (bf16, kernels) vs
+    CPU (f32, plain path), on the same weights, batch and augmentation
+    draws; with ``want_launches`` (package kernel name -> count), the card
+    step's launches of every counted wrapper must be exactly those. Returns
+    the card's trainer."""
     import torch
 
     from spatial_clip_tpu_torch.bench import make_trainer, synthetic_batch
     from spatial_clip_tpu_torch.models.transforms import AugmentDraws
 
     t0 = time.perf_counter()
-    card = make_trainer("ViT-B-32", device="cuda", **settings)
-    cpu = make_trainer("ViT-B-32", device="cpu", precision="fp32", **settings)  # same weights
+    card = make_trainer(model_name, device="cuda", **settings)
+    cpu = make_trainer(model_name, device="cpu", precision="fp32", **settings)  # same weights
     card_state, cpu_state = card.init_state(), cpu.init_state()
     batch = synthetic_batch(cpu.model, batch_size, seed=1, device="cpu")
     rng = np.random.default_rng(2)
@@ -1178,9 +1228,15 @@ def train_check_phase(label: str = "train-check", batch_size: int = CHECK_BATCH,
         rng.random(batch_size) < 0.5,
         (1.0 + rng.uniform(-0.2, 0.2, batch_size)).astype(np.float32),
         (1.0 + rng.uniform(-0.2, 0.2, batch_size)).astype(np.float32))))
+    counters = every_counter() if want_launches is not None else {}
+    for c in counters.values():
+        c.launches = 0
     loss_card, _, grad_card = card.forward_backward(
         card_state, {k: v.cuda() for k, v in batch.items()},
         AugmentDraws(*(d.cuda() for d in draws)))
+    launches = read_launches(counters)
+    if want_launches is not None and launches != want_launches:
+        raise AssertionError(f"[{label}] launches {launches}, want {want_launches}")
     loss_cpu, _, grad_cpu = cpu.forward_backward(cpu_state, batch, draws)
     grad_card = grad_card.float().cpu()
     rel = abs(loss_card.item() - loss_cpu.item()) / abs(loss_cpu.item())
@@ -1198,8 +1254,8 @@ def train_check_phase(label: str = "train-check", batch_size: int = CHECK_BATCH,
         raise AssertionError(
             f"[{label}] loss card {loss_card.item()} cpu {loss_cpu.item()} (rel {rel}), "
             f"grad cosine {cos_all}, qkv-bias grad cosine {cos_bias}, finite {finite}")
-    print(f"[{label}] ViT-B-32{settings or ''} batch {batch_size}, one step, same "
-          f"weights/batch/draws: "
+    print(f"[{label}] {model_name}{settings or ''} batch {batch_size}, one step, same "
+          f"weights/batch/draws{'' if want_launches is None else f', launches {launches}'}: "
           f"loss card bf16 {loss_card.item():.6f} vs CPU f32 {loss_cpu.item():.6f} "
           f"(rel err {rel:.3g} <= {MAX_LOSS_REL_ERR}); flattened gradient cosine "
           f"{cos_all:.6f} (>= {MIN_GRAD_COSINE}); qkv-bias gradient cosine q "
@@ -3074,12 +3130,20 @@ def read_launches(counters: dict) -> dict:
 ENTRY_STEPS, ENTRY_BATCH = 4, 64  # configs/data/synthetic.yaml: batch 64, 512 + 128 samples
 
 
-def entry_phase(extra=()) -> dict:
-    """28. The training and evaluation entry points over the repository's
-    configs, on ViT-B-32 (configs/model/spatial_clip.yaml) with
-    data=synthetic, in a temporary root under build/ deleted after;
-    ``extra`` overrides go to every run. Returns the entry run's launches
-    by package kernel name."""
+def entry_phase(label: str = "entry", base=("data=synthetic",), batch: int = ENTRY_BATCH,
+                test_samples: int = 128, want_train=None, want_eval=None,
+                gene_list=None) -> dict:
+    """28 (and 31 on the gene paths). The training and evaluation entry
+    points over the repository's configs with the ``base`` overrides
+    (phase 28: ViT-B-32 of configs/model/spatial_clip.yaml with
+    data=synthetic), in a temporary root under build/ deleted after. The
+    train run's and the eval's launches must be ``want_train`` and
+    ``want_eval`` (package kernel name -> count; by default phase 28's).
+    With ``gene_list`` (an HVG file the base names), ``.eval`` must report
+    test/zero_shot_pcc, equal within PCC_TOL to a numpy recomputation from
+    the run's gene bank and test image features; the bank's first
+    BANK_CHECK rows must hold to the f32 CPU bank by per-row cosine; the
+    bank's encode is timed. Returns the launches and the measurements."""
     import itertools
 
     import torch
@@ -3093,10 +3157,11 @@ def entry_phase(extra=()) -> dict:
     build = Path(__file__).resolve().parent / "build"  # ignored by git, like the kernels' build
     build.mkdir(exist_ok=True)
     root = Path(tempfile.mkdtemp(prefix="entry_", dir=build))
+    out = {}
     try:
-        overrides = ["data=synthetic", "save_ckpt=true", f"trainer.max_steps={ENTRY_STEPS}",
+        overrides = [*base, "save_ckpt=true", f"trainer.max_steps={ENTRY_STEPS}",
                      "trainer.epochs=1", "trainer.save_every_steps=2", "trainer.keep_ckpts=2",
-                     "trainer.log_every=1", "test=true", *extra]
+                     "trainer.log_every=1", "test=true"]
         cfg = entry.compose_train([*overrides, f"paths.root_dir={root / 'run'}"])
         torch.cuda.empty_cache()
         for c in counters.values():
@@ -3105,23 +3170,24 @@ def entry_phase(extra=()) -> dict:
         value, objects = entry.train(cfg)
         run_s = time.perf_counter() - t0
         launches = read_launches(counters)
-        val_batches = 2 * (128 // ENTRY_BATCH)  # the val split, then the same split as test
-        want = {"fused_attention.fused_attention_lse": 2 * LAYERS * ENTRY_STEPS,
-                "fused_attention.fused_attention_bwd": 2 * LAYERS * ENTRY_STEPS,
-                "fused_attention.fused_attention": 2 * LAYERS * val_batches}
+        val_batches = 2 * (test_samples // batch)  # the val split, then the same split as test
+        want = want_train or {
+            "fused_attention.fused_attention_lse": 2 * LAYERS * ENTRY_STEPS,
+            "fused_attention.fused_attention_bwd": 2 * LAYERS * ENTRY_STEPS,
+            "fused_attention.fused_attention": 2 * LAYERS * val_batches}
         if launches != want:
-            raise AssertionError(f"[entry] train launches {launches}, want {want}")
+            raise AssertionError(f"[{label}] train launches {launches}, want {want}")
         state, metrics = objects["state"], objects["metrics"]
         ckpt_dir = Path(cfg["paths"]["output_dir"]) / "checkpoints"
         steps = sorted(p.name for p in ckpt_dir.iterdir())
         finite = all(np.isfinite(v) for v in metrics.values() if isinstance(v, float))
         if not (state.step == ENTRY_STEPS and steps == ["step_2", "step_4"] and finite
-                and np.isfinite(value) and metrics["test/num_samples"] == 128.0):
-            raise AssertionError(f"[entry] step {state.step}, checkpoints {steps}, value "
+                and np.isfinite(value) and metrics["test/num_samples"] == float(test_samples)):
+            raise AssertionError(f"[{label}] step {state.step}, checkpoints {steps}, value "
                                  f"{value}, metrics {metrics}")
         model = objects["model"]
-        print(f"[entry] python -m spatial_clip_tpu_torch.train {' '.join(overrides)}: "
-              f"{model.model_name} {str(model.dtype)[6:]} batch {ENTRY_BATCH}, "
+        print(f"[{label}] python -m spatial_clip_tpu_torch.train {' '.join(overrides)}: "
+              f"{model.model_name} {str(model.dtype)[6:]} batch {batch}, "
               f"{state.step} steps in {run_s:.1f} s (model build, loader, validation, test and "
               f"checkpoints included); launches {launches}; loss {metrics['loss']:.4f}, val/loss "
               f"{metrics['val/loss']:.4f}, test/R@1 {metrics['test/R@1']:.4f}; checkpoints "
@@ -3147,10 +3213,10 @@ def entry_phase(extra=()) -> dict:
         same = {k: torch.equal(resumed.flat[k], state.flat[k]) for k in diffs}
         if not ((resumed.step, resumed.count) == (state.step, state.count)
                 and all(same.values())):
-            raise AssertionError(f"[entry] resumed step {resumed.step} count {resumed.count}, "
+            raise AssertionError(f"[{label}] resumed step {resumed.step} count {resumed.count}, "
                                  f"the same bits {same}, max abs differences {diffs}")
         del run, resumed
-        print(f"[entry] resume=latest from step_2 in a new run, batches 2-3 of epoch 0: step "
+        print(f"[{label}] resume=latest from step_2 in a new run, batches 2-3 of epoch 0: step "
               f"{state.step} state the same bits as the unbroken run: {same}", flush=True)
 
         # eval on the checkpoints: the newest (step_4, written at the epoch's end)
@@ -3158,19 +3224,25 @@ def entry_phase(extra=()) -> dict:
         for c in counters.values():
             c.launches = 0
         t0 = time.perf_counter()
-        got = port_eval.main(["data=synthetic", f"paths.root_dir={root / 'eval'}",
-                              f"ckpt_path={ckpt_dir}", *extra])
+        got = port_eval.main([*base, f"paths.root_dir={root / 'eval'}", f"ckpt_path={ckpt_dir}"])
         eval_s = time.perf_counter() - t0
         eval_launches = read_launches(counters)
-        want_eval = {"fused_attention.fused_attention": LAYERS * 128 // ENTRY_BATCH * 2}
+        want_eval = want_eval or {
+            "fused_attention.fused_attention": LAYERS * test_samples // batch * 2}
         test = {k: float(v) for k, v in metrics.items() if k.startswith("test/")}
-        if eval_launches != want_eval or got != test:
-            raise AssertionError(f"[entry] eval launches {eval_launches} (want {want_eval}), "
-                                 f"metrics {got} vs the train run's {test}")
-        print(f"[entry] python -m spatial_clip_tpu_torch.eval data=synthetic "
+        pcc = got.pop("test/zero_shot_pcc", None)
+        if (eval_launches != want_eval or got != test
+                or (pcc is None) != (gene_list is None)):
+            raise AssertionError(f"[{label}] eval launches {eval_launches} (want {want_eval}), "
+                                 f"metrics {got} vs the train run's {test}, zero_shot_pcc {pcc}")
+        print(f"[{label}] python -m spatial_clip_tpu_torch.eval {' '.join(base)} "
               f"ckpt_path=<run>/checkpoints: {len(got)} test metrics equal to the train run's "
-              f"in-memory evaluation (test/loss {got['test/loss']:.6f}); launches "
+              f"in-memory evaluation (test/loss {got['test/loss']:.6f})"
+              f"{'' if pcc is None else f', test/zero_shot_pcc {pcc!r}'}; launches "
               f"{eval_launches}; {eval_s:.1f} s", flush=True)
+        out.update(train_launches=launches, eval_launches=eval_launches, pcc=pcc)
+        if gene_list is not None:
+            out.update(gene_bank_check(label, objects, gene_list, pcc))
 
         # times: the step alone, the loader's wait, a checkpoint's write
         trainer, dm = objects["trainer"], objects["datamodule"]
@@ -3178,9 +3250,9 @@ def entry_phase(extra=()) -> dict:
         loader.set_epoch(1)
         waits, batches = [], []
         t0 = time.perf_counter()
-        for batch in itertools.islice(loader, ENTRY_STEPS):
+        for b in itertools.islice(loader, ENTRY_STEPS):
             waits.append((time.perf_counter() - t0) * 1e3)
-            batches.append(batch)
+            batches.append(b)
             t0 = time.perf_counter()
         dbatch = trainer._device_batch(batches[0])
         holder = {"state": state}
@@ -3197,8 +3269,8 @@ def entry_phase(extra=()) -> dict:
         with open(Path(cfg["paths"]["output_dir"]) / "metrics.csv") as f:
             rates = [float(r["train/pairs_per_sec"]) for r in csv.DictReader(f)
                      if r.get("train/pairs_per_sec")]
-        fit_s = sum(ENTRY_BATCH / r for r in rates)
-        fit_pps = ENTRY_BATCH * len(rates) / fit_s
+        fit_s = sum(batch / r for r in rates)
+        fit_pps = batch * len(rates) / fit_s
         fit_ms = fit_s * 1e3 / len(rates)
         mgr = CheckpointManager(root / "bench", keep=1)
         t0 = time.perf_counter()
@@ -3208,9 +3280,9 @@ def entry_phase(extra=()) -> dict:
         write_s = time.perf_counter() - t0 - copy_s
         n_bytes = sum(p.stat().st_size for p in (root / "bench").rglob("*") if p.is_file())
         n_params = sum(p.numel() for p in state.params.values())
-        print(f"[entry-timing] ViT-B-32 bf16 batch {ENTRY_BATCH}, data=synthetic "
+        print(f"[{label}-timing] {model.model_name} bf16 batch {batch}, {' '.join(base)} "
               f"(num_workers 0): train step {med:.3f} ms median of 20 "
-              f"({ENTRY_BATCH * 1e3 / med:.1f} pairs/s the step alone), device busy {busy:.3f} ms "
+              f"({batch * 1e3 / med:.1f} pairs/s the step alone), device busy {busy:.3f} ms "
               f"a step (idle share of the step {prof['idle_share']:.3f}, "
               f"{prof['kernels_per_encode']:.0f} kernels; by family "
               f"{ {k: round(v, 3) for k, v in prof['device_ms_by_family'].items()} }); loader "
@@ -3224,11 +3296,269 @@ def entry_phase(extra=()) -> dict:
               f"{str(state.flat['mu'].dtype)[6:]} mu and nu): host copy "
               f"{copy_s:.3f} s, write {write_s:.3f} s ({n_bytes / max(write_s, 1e-9) / 1e9:.2f} "
               f"GB/s)", flush=True)
+        out.update(step_ms=med, busy_ms=busy, ckpt_bytes=n_bytes)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return {"fused_attention_fwd": launches["fused_attention.fused_attention"],
-            "fused_attention_fwd_lse": launches["fused_attention.fused_attention_lse"],
-            "fused_attention_bwd": launches["fused_attention.fused_attention_bwd"]}
+    out.update({"fused_attention_fwd": launches.get("fused_attention.fused_attention", 0),
+                "fused_attention_fwd_lse": launches.get("fused_attention.fused_attention_lse", 0),
+                "fused_attention_bwd": launches.get("fused_attention.fused_attention_bwd", 0)})
+    return out
+
+
+PCC_TOL, BANK_CHECK = 1e-5, 256  # phase 31: numpy recomputation; bank rows held to the CPU
+
+
+def numpy_pcc(features: np.ndarray, bank: np.ndarray, captions, genes) -> float:
+    """The zero-shot gene-expression PCC recomputed in numpy (float64): each
+    row's similarities to the bank against its caption's rank-weighted
+    target (1 - 0.8 r / n, symbols matched exactly), Pearson per row (0
+    where the centred norms' product is at most 1e-6), averaged."""
+    index = {g: i for i, g in enumerate(genes)}
+    target = np.zeros((len(captions), len(genes)))
+    for i, caption in enumerate(captions):
+        words = caption.split()
+        for rank, word in enumerate(words):
+            if word in index:
+                target[i, index[word]] = 1.0 - 0.8 * rank / max(len(words), 1)
+    logits = features.astype(np.float64) @ bank.astype(np.float64).T
+    p = logits - logits.mean(axis=1, keepdims=True)
+    t = target - target.mean(axis=1, keepdims=True)
+    den = np.sqrt((p * p).sum(axis=1)) * np.sqrt((t * t).sum(axis=1))
+    r = np.where(den > 1e-6, (p * t).sum(axis=1) / np.maximum(den, 1e-6), 0.0)
+    return float(r.mean())
+
+
+def gene_bank_check(label: str, objects: dict, gene_list, pcc: float) -> dict:
+    """31. The gene bank of the entry run's final state (step_4, what
+    ``.eval`` restored) and its test images' features on the card: the PCC
+    recomputed in numpy within PCC_TOL of ``.eval``'s, the first BANK_CHECK
+    rows by per-row cosine against the same weights' f32 bank on the CPU,
+    and the bank's encode time (median of 3, host clock ending in a
+    synchronize)."""
+    import torch
+
+    from spatial_clip_tpu_torch.models.clip import CLIP
+    from spatial_clip_tpu_torch.models.transforms import normalize_batch
+    from spatial_clip_tpu_torch.train.evaluate import encode_gene_bank, read_gene_list, run_model
+
+    model, state = objects["model"], objects["state"]
+    tokenizer = objects["datamodule"].tokenizer
+    genes = read_gene_list(gene_list)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bank = encode_gene_bank(model, state.params, tokenizer, genes)
+        times.append((time.perf_counter() - t0) * 1e3)
+    feats, captions = [], []
+    for b in objects["datamodule"].test_dataloader():
+        images = torch.from_numpy(b["images"]).cuda()
+        images = (normalize_batch(images, dtype=model.dtype) if images.dtype == torch.uint8
+                  else images.to(model.dtype))
+        feats.append(run_model(model, state.params, images=images)["image_features"]
+                     .float().cpu().numpy())
+        captions += b["raw_text"]
+    again = numpy_pcc(np.concatenate(feats), bank, captions, genes)
+    cpu = CLIP(model.cfg, dtype=torch.float32, device="cpu")
+    cpu.load_state_dict({k: v.detach().float().cpu() for k, v in state.params.items()})
+    want = encode_gene_bank(cpu, None, tokenizer, genes[:BANK_CHECK])
+    cos = (bank[:BANK_CHECK] * want).sum(-1)
+    if not (abs(again - pcc) <= PCC_TOL and cos.min() >= MIN_COSINE and np.isfinite(bank).all()
+            and bank.shape == (len(genes), model.cfg.embed_dim)):
+        raise AssertionError(f"[{label}] zero_shot_pcc {pcc} vs numpy {again} (tol {PCC_TOL}), "
+                             f"bank {bank.shape} min cosine vs f32 CPU {cos.min()}")
+    print(f"[{label}-pcc] gene bank {bank.shape} ({type(tokenizer).__name__}), encoded in "
+          f"{statistics.median(times):.1f} ms (median of 3: {[round(t, 1) for t in times]}); "
+          f"test/zero_shot_pcc {pcc!r} vs numpy recomputation from the bank and "
+          f"{len(captions)} test image features {again!r} (|diff| {abs(again - pcc):.3g} <= "
+          f"{PCC_TOL}); first {BANK_CHECK} bank rows vs f32 CPU: min cosine {cos.min():.6f} "
+          f"(>= {MIN_COSINE})", flush=True)
+    return {"bank_ms": statistics.median(times), "pcc_numpy": again, "bank_min_cos": cos.min()}
+
+
+GENE_MODEL, NUM_GENES = "ViT-B-32-GeneMLP", 5000  # configs/experiment/gene_mlp.yaml
+
+
+def gene_check_phase() -> dict:
+    """29. Path B, the Gene-MLP tower: phase 7's card-vs-CPU step at batch
+    32 on ViT-B-32-GeneMLP (5,000 genes, 50-gene vectors), under the
+    default LayerNorm and under ln_impl='pallas', with exact launches: the
+    image tower's 12 forward-lse and 12 saved-lse backward, and under
+    'pallas' also 27 fused_ln forwards and backwards (the image tower's 26
+    and the gene tower's ln_final; its block LayerNorms stay two-pass)."""
+    attention = {"fused_attention.fused_attention_lse": LAYERS,
+                 "fused_attention.fused_attention_bwd": LAYERS}
+    ln = {"fused_ln.fused_ln_fwd": 2 * LAYERS + 3, "fused_ln.fused_ln_bwd": 2 * LAYERS + 3}
+    out = {}
+    for setting, want in (("default", attention), ("ln_impl=pallas", {**attention, **ln})):
+        settings = {} if setting == "default" else {"ln_impl": "pallas"}
+        train_check_phase(f"gene-check {setting}", model_name=GENE_MODEL, want_launches=want,
+                          **settings)
+        out[setting] = want
+    return out
+
+
+def gene_train_phase(default_step_ms: float) -> dict:
+    """30. Path B's step at batch 256: phase 8's bench workload on
+    ViT-B-32-GeneMLP (python -m spatial_clip_tpu_torch.bench --model
+    ViT-B-32-GeneMLP): 3 warmup and 10 timed steps with exactly 12 + 12
+    attention launches a step, then one step's device busy time
+    (torch.profiler), beside phase 8's step."""
+    import torch
+
+    from spatial_clip_tpu_torch.bench import make_trainer, synthetic_batch
+    from spatial_clip_tpu_torch.profile_serving import profile_encode
+
+    trainer = make_trainer(GENE_MODEL)
+    batch = synthetic_batch(trainer.model, TRAIN_BATCH)
+    steps = WARMUP_STEPS + TIMED_STEPS
+    counters = attention_counters()
+    counts, step_ms, history, peak = timed_steps("gene-train", trainer, batch, steps, counters)
+    want = (0, LAYERS * steps, LAYERS * steps, 0, 0)
+    if counts != want:
+        raise AssertionError(f"[gene-train] launches (attention fwd, fwd_lse, bwd, recompute-db, "
+                             f"recompute) {counts}, want {want}")
+    med = statistics.median(step_ms[WARMUP_STEPS:])
+    holder = {"state": trainer.init_state()}
+
+    def step():
+        holder["state"], _ = trainer.train_step(holder["state"], batch)
+
+    prof = profile_encode(step, reps=3)
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    print(f"[gene-train] {GENE_MODEL} bf16 batch {TRAIN_BATCH} (gene tower 5000 -> 1024, 3 "
+          f"blocks, head 512; {n_params} parameters): {steps} steps, launches fwd_lse "
+          f"{counts[1]} bwd {counts[2]} (= {LAYERS} per step); losses finite {history[0][0]:.4f} "
+          f"-> {history[-1][0]:.4f}; median step {med:.3f} ms over {TIMED_STEPS} "
+          f"({TRAIN_BATCH * 1e3 / med:.1f} pairs/s) against phase 8's ViT-B-32 "
+          f"{default_step_ms:.3f} ms; profiled: wall {prof['wall_ms']:.3f} ms, device busy "
+          f"{prof['device_busy_ms']:.3f} ms, idle share {prof['idle_share']:.3f}, "
+          f"{prof['kernels_per_encode']:.0f} kernels; by family "
+          f"{ {k: round(v, 3) for k, v in prof['device_ms_by_family'].items()} }; "
+          f"max_memory_allocated {peak / 2 ** 30:.3f} GiB", flush=True)
+    del trainer, batch, holder
+    torch.cuda.empty_cache()
+    return {"step_ms": med, "busy_ms": prof["device_busy_ms"], "launches": counts}
+
+
+GENE_BANK_BATCHES = -(-NUM_GENES // 256)  # evaluate.encode_gene_bank's batch of 256
+
+
+def gene_entry_phase() -> dict:
+    """31. Paths A and B through the entry points, as phase 28 runs
+    data=synthetic, with a generated list of 5,000 genes (GENE0 ...
+    GENE4999; the synthetic dataset's genes are the first 500) as
+    model.global_hvg_path:
+    - path A, the gene-vocabulary text tower: data=synthetic (ViT-B-32,
+      batch 64) with the GeneTokenizer's 5,004 ids padded to 5,120;
+    - path B, experiment=gene_mlp (ViT-B-32-GeneMLP, batch 256) on the
+      synthetic dataset (1,280 samples: 4 steps, one val and one test
+      batch), one loader worker so that the host crops are drawn in order.
+    Each: exact launches, resume to the same bits, .eval with
+    test/zero_shot_pcc checked by gene_bank_check, the step's time and the
+    checkpoint's bytes."""
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    hvg = Path(tempfile.mkdtemp(prefix="hvg_", dir=build)) / "global_hvgs.txt"
+    hvg.write_text("\n".join(f"GENE{i}" for i in range(NUM_GENES)) + "\n")
+    try:
+        a_test = 128  # data=synthetic's 512 samples: 128 val, the test split the same
+        path_a = entry_phase(
+            "gene-entry A", base=("data=synthetic", f"model.global_hvg_path={hvg}"),
+            want_train={
+                "fused_attention.fused_attention_lse": 2 * LAYERS * ENTRY_STEPS,
+                "fused_attention.fused_attention_bwd": 2 * LAYERS * ENTRY_STEPS,
+                "fused_attention.fused_attention": 2 * LAYERS * 2 * (a_test // ENTRY_BATCH)},
+            want_eval={"fused_attention.fused_attention": (
+                2 * LAYERS * a_test // ENTRY_BATCH        # trainer.evaluate on the test split
+                + LAYERS * GENE_BANK_BATCHES              # the bank through the text tower
+                + LAYERS * a_test // ENTRY_BATCH)},       # the PCC's test images
+            gene_list=hvg)
+        b_samples, b_batch = 1280, TRAIN_BATCH
+        b_test = b_samples // 4 // b_batch * b_batch
+        path_b = entry_phase(
+            "gene-entry B", base=("experiment=gene_mlp", "data=synthetic",
+                                  "data.dataset_format=synthetic",
+                                  f"data.dataset_format_kwargs.num_samples={b_samples}",
+                                  f"model.global_hvg_path={hvg}"),
+            batch=b_batch, test_samples=b_test,
+            want_train={
+                "fused_attention.fused_attention_lse": LAYERS * ENTRY_STEPS,
+                "fused_attention.fused_attention_bwd": LAYERS * ENTRY_STEPS,
+                "fused_attention.fused_attention": LAYERS * 2 * (b_test // b_batch)},
+            want_eval={"fused_attention.fused_attention": 2 * LAYERS * b_test // b_batch},
+            gene_list=hvg)
+    finally:
+        shutil.rmtree(hvg.parent, ignore_errors=True)
+    return {"A": path_a, "B": path_b}
+
+
+STUDY_SPOTS, STUDY_CLASSES_CPU = 1024, 4
+
+
+def gene_study_phase() -> dict:
+    """32. One short arm of each tower of the gene scaling study
+    (spatial_clip_tpu_torch.gene_scaling_study: gene, linear and text, 1,024
+    spots at 64 px, one epoch at batch 256, 512 held-out spots), finite
+    losses and metrics; then the ImageNet-style zero-shot classifier on
+    ViT-B-32 (random weights from seed 0, bf16): 1,000 classes x the 80
+    OpenAI templates through the text tower, its first STUDY_CLASSES_CPU
+    columns held to the f32 CPU classifier by cosine, and zero_shot_eval
+    (imagenet_zero_shot_eval's second half) on 2 batches of 64 random
+    tiles with random labels (chance-level top-1 / top-5, no ImageNet
+    data)."""
+    import torch
+
+    from spatial_clip_tpu_torch import create_model, get_tokenizer
+    from spatial_clip_tpu_torch.gene_scaling_study import run_arm
+    from spatial_clip_tpu_torch.ops.fused_attention import fused_attention
+    from spatial_clip_tpu_torch.train.zero_shot import (
+        build_zero_shot_classifier,
+        load_imagenet_metadata,
+        zero_shot_eval,
+    )
+
+    arms = {}
+    for tower in ("gene", "linear", "text"):
+        t0 = time.perf_counter()
+        arm = run_arm(tower, STUDY_SPOTS, 1, TRAIN_BATCH, device="cuda")
+        vals = [v for v in arm["val"].values()] + arm["train_loss_curve"]
+        if not (arm["steps"] == STUDY_SPOTS // TRAIN_BATCH and all(np.isfinite(vals))):
+            raise AssertionError(f"[gene-study] arm {arm}")
+        arms[tower] = arm
+        print(f"[gene-study] arm {tower}: {arm['steps']} steps at batch {TRAIN_BATCH}, loss "
+              f"{arm['train_loss_curve']}, val R@1 {arm['val']['R@1']} loss "
+              f"{arm['val']['loss']} on {arm['val']['num_samples']:.0f} spots; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    names, templates = load_imagenet_metadata("openai")
+    model = create_model("ViT-B-32", precision="bf16", seed=0, device="cuda")
+    tok = get_tokenizer("ViT-B-32")
+    fused_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    clf = build_zero_shot_classifier(model, None, tok, names, templates)
+    clf_s = time.perf_counter() - t0
+    launches = fused_attention.launches
+    want_launches = LAYERS * -(-len(names) // 10)
+    cpu = create_model("ViT-B-32", precision="fp32", seed=0, device="cpu")
+    want = build_zero_shot_classifier(cpu, None, tok, names[:STUDY_CLASSES_CPU], templates)
+    cos = (clf[:, :STUDY_CLASSES_CPU] * want).sum(0)
+    rng = np.random.default_rng(32)
+    loader = [{"images": rng.integers(0, 256, (64, 224, 224, 3), dtype=np.uint8),
+               "label": rng.integers(0, len(names), 64)} for _ in range(2)]
+    res = zero_shot_eval(model, None, clf, loader)
+    if not (clf.shape == (model.cfg.embed_dim, len(names)) and np.isfinite(clf).all()
+            and cos.min() >= MIN_COSINE and launches == want_launches
+            and all(0 <= v <= 1 for v in res.values())):
+        raise AssertionError(f"[gene-study] classifier {clf.shape}, cosine vs CPU {cos}, "
+                             f"launches {launches} (want {want_launches}), eval {res}")
+    print(f"[gene-study] zero-shot classifier ViT-B-32 bf16: {len(names)} classes x "
+          f"{len(templates)} templates in {clf_s:.2f} s, {launches} attention launches "
+          f"(12 a batch of 10 classes), first {STUDY_CLASSES_CPU} columns vs f32 CPU: min cosine "
+          f"{cos.min():.6f} (>= {MIN_COSINE}); zero_shot_eval on 128 random tiles: "
+          f"{res}", flush=True)
+    return {"arms": arms, "classifier_launches": launches, "classifier_s": clf_s}
 
 
 if __name__ == "__main__":

@@ -7,7 +7,8 @@
         [--ln-impl onepass|fp32|pallas] [--ln-gemm-impl dense|pallas]
         [--mlp-impl dense|pallas] [--bwd-fuse db|none|dxdb]
 
-The workload of the repository's ``bench.py``, run by the port: ViT-B-32 in
+The workload of the repository's ``bench.py``, run by the port (``--model
+ViT-B-32-GeneMLP``: with the Gene-MLP tower over 50-gene vectors): ViT-B-32 in
 bf16 with f32 parameters, batch 256, on-device flip + color jitter 0.2 and
 normalization of uint8 tiles, the spatial loss with the logit scale capped
 at 50 and k=6 neighbors drawn from [-1, B), AdamW with warmup 10 and 10,000
@@ -51,17 +52,30 @@ MODEL_SETTINGS = {
 }
 
 
+def gene_vectors(rng, batch: int, num_genes: int, length: int = 50) -> np.ndarray:
+    """Rank-weighted gene vectors (batch, num_genes) f32 as the
+    GeneVectorizer makes them: ``length`` distinct genes a row, the one at
+    rank r weighing 1 - 0.8 r / length."""
+    out = np.zeros((batch, num_genes), dtype=np.float32)
+    weights = 1.0 - 0.8 * np.arange(length) / length
+    for row in out:
+        row[rng.permutation(num_genes)[:length]] = weights
+    return out
+
+
 def synthetic_batch(model, batch: int, seed: int = 0, device="cuda"):
     """The benchmark's batch, made with numpy from ``seed`` and moved to the
-    device once: uint8 tiles, token ids, tile ids 0..B-1, k neighbor ids in
-    [-1, B) and their weights in [0, 1)."""
+    device once: uint8 tiles, token ids (for a Gene-MLP tower, 50-gene
+    rank-weighted vectors), tile ids 0..B-1, k neighbor ids in [-1, B) and
+    their weights in [0, 1)."""
     rng = np.random.default_rng(seed)
     size = int(model.cfg.vision_cfg.size)
-    t = model.cfg.text_cfg
+    t, g = model.cfg.text_cfg, model.cfg.gene_cfg
     tile_ids = np.arange(batch, dtype=np.int64)
     host = {
         "images": rng.integers(0, 255, (batch, size, size, 3), dtype=np.uint8),
-        "texts": rng.integers(0, t.vocab_size, (batch, t.context_length), dtype=np.int64),
+        "texts": (gene_vectors(rng, batch, g.num_genes) if g is not None else
+                  rng.integers(0, t.vocab_size, (batch, t.context_length), dtype=np.int64)),
         "image_tile_ids": tile_ids,
         "text_tile_ids": tile_ids.copy(),
         "neighbor_tile_ids": rng.integers(-1, batch, (batch, NEIGHBORS)).astype(np.int64),

@@ -9,11 +9,15 @@ from typing import Any, Callable, Dict, Optional, Union
 
 from spatial_clip_tpu_torch.data.datasets.parquet_backend import ParquetSpatialDataset
 from spatial_clip_tpu_torch.data.datasets.shard_backend import ShardedSpatialDataset
-from spatial_clip_tpu_torch.data.datasets.synthetic import SyntheticSpatialDataset
+from spatial_clip_tpu_torch.data.datasets.synthetic import (
+    SyntheticExpressionDataset,
+    SyntheticSpatialDataset,
+)
 
 __all__ = [
     "ParquetSpatialDataset",
     "ShardedSpatialDataset",
+    "SyntheticExpressionDataset",
     "SyntheticSpatialDataset",
     "create_spatial_dataset",
 ]

@@ -7,11 +7,11 @@ model and trainer as :mod:`spatial_clip_tpu_torch.train.entry` does, and
 restores ``ckpt_path``: a checkpoint directory (the newest of its
 ``step_*``), one ``step_N`` directory, or a weights file or directory that
 ``create_model(pretrained=...)`` takes. It then runs ``Trainer.evaluate``
-on the test split and writes ``eval_metrics.json`` and the loggers' files
-under ``paths.output_dir``. The device rules and refused keys are the
-training entry's. A configured HVG bank (the zero-shot gene-expression
-PCC of ``train/evaluate.py``) raises NotImplementedError: that module is
-not ported yet (ROADMAP Queue 1 item 2).
+on the test split, adds ``zero_shot_pcc`` (the zero-shot gene-expression
+Pearson correlation, :func:`~spatial_clip_tpu_torch.train.evaluate.zero_shot_gene_expression`)
+when ``model.global_hvg_path`` names an existing HVG list, and writes
+``eval_metrics.json`` and the loggers' files under ``paths.output_dir``.
+The device rules and refused keys are the training entry's.
 """
 from __future__ import annotations
 
@@ -60,10 +60,6 @@ def evaluate(cfg: Dict[str, Any]) -> Dict[str, float]:
 
     dm = build_datamodule(cfg)
     model, pp_train, pp_val, tokenizer, hvg = build_model(cfg, device)
-    if hvg and Path(hvg).exists():
-        raise NotImplementedError(
-            f"model.global_hvg_path={hvg!r}: the zero-shot gene-expression PCC "
-            "(train/evaluate.py) is not ported to spatial_clip_tpu_torch: ROADMAP Queue 1 item 2")
     dm.preprocess_fn = pp_val  # deterministic transforms for eval
     dm.preprocess_fn_val = pp_val
     dm.tokenizer = tokenizer
@@ -79,6 +75,11 @@ def evaluate(cfg: Dict[str, Any]) -> Dict[str, float]:
         state = trainer.init_state()
 
     metrics = trainer.evaluate(state, dm.test_dataloader())
+    if hvg and Path(hvg).exists():
+        from spatial_clip_tpu_torch.train.evaluate import zero_shot_gene_expression
+
+        metrics["zero_shot_pcc"] = zero_shot_gene_expression(
+            model, state.params, tokenizer, hvg, dm.test_dataloader())
     metrics = {f"test/{k}": float(v) for k, v in metrics.items()}
     loggers = make_loggers(cfg.get("logger", {}).get("report_to", "csv,jsonl"), str(out_dir))
     loggers.log(0, metrics)

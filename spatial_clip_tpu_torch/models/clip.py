@@ -4,6 +4,9 @@ Laid out as open_clip's ``CLIP``: the image tower under ``visual.*`` and the
 text tower's modules at the top level (``transformer.*``,
 ``token_embedding.weight``, ``text_projection``, ...), so its state dict has
 the keys ``spatial_clip_tpu.models.convert.jax_to_torch_state_dict`` exports.
+With ``gene_cfg`` set, the Gene-MLP tower (:class:`GeneMLPTower`) replaces
+the text tower under ``text.*`` (``text.embed``, ``text.ln_0``, ...,
+``text.head``), and ``text`` is a rank-weighted gene vector (B, num_genes).
 
 Under ``zip_towers='on'`` (where :func:`zip_ready` holds), a forward given
 both images and text runs the two towers in lockstep (:meth:`CLIP.encode_pair`):
@@ -19,6 +22,7 @@ from torch import nn
 
 from spatial_clip_tpu_torch.models.config import CLIPCfg, check_ported
 from spatial_clip_tpu_torch.models.transformer import (
+    GeneMLPTower,
     TextTransformer,
     VisionTransformer,
     gelu_tanh,
@@ -85,20 +89,28 @@ class CLIP(nn.Module):
             cfg.embed_dim, ls_init_value=v.ls_init_value, no_ln_pre=v.no_ln_pre,
             final_ln_after_pool=v.final_ln_after_pool, pool_type=v.pool_type,
             norm_eps=v.norm_eps, **common)
-        text = TextTransformer(
-            t.context_length, t.vocab_size, t.width, t.heads, t.layers, t.mlp_ratio,
-            cfg.embed_dim, ls_init_value=t.ls_init_value, no_causal_mask=t.no_causal_mask,
-            pool_type=t.pool_type, final_ln_after_pool=t.final_ln_after_pool,
-            proj_bias=t.proj_bias, norm_eps=t.norm_eps, **common)
-        # open_clip's layout: the text tower's modules sit on the model itself
-        self.transformer = text.transformer
-        self.token_embedding = text.token_embedding
-        self.positional_embedding = text.positional_embedding
-        self.ln_final = text.ln_final
-        self.text_projection = text.text_projection
-        self.register_buffer("attn_mask", text.attn_mask, persistent=False)
-        self.text_pool_type = t.pool_type
-        self.text_final_ln_after_pool = t.final_ln_after_pool
+        if cfg.gene_cfg is not None:
+            g = cfg.gene_cfg
+            self.text = GeneMLPTower(
+                g.num_genes, g.width, g.layers, cfg.embed_dim, gene_dropout=g.gene_dropout,
+                norm_eps=g.norm_eps, ln_stats=cfg.ln_impl, dtype=dtype,
+                param_dtype=param_dtype or dtype, device=device)
+        else:
+            self.text = None
+            text = TextTransformer(
+                t.context_length, t.vocab_size, t.width, t.heads, t.layers, t.mlp_ratio,
+                cfg.embed_dim, ls_init_value=t.ls_init_value, no_causal_mask=t.no_causal_mask,
+                pool_type=t.pool_type, final_ln_after_pool=t.final_ln_after_pool,
+                proj_bias=t.proj_bias, norm_eps=t.norm_eps, **common)
+            # open_clip's layout: the text tower's modules sit on the model itself
+            self.transformer = text.transformer
+            self.token_embedding = text.token_embedding
+            self.positional_embedding = text.positional_embedding
+            self.ln_final = text.ln_final
+            self.text_projection = text.text_projection
+            self.register_buffer("attn_mask", text.attn_mask, persistent=False)
+            self.text_pool_type = t.pool_type
+            self.text_final_ln_after_pool = t.final_ln_after_pool
         self.logit_scale = nn.Parameter(torch.empty((), device=device))
         self.logit_bias = (nn.Parameter(torch.empty((), device=device))
                            if cfg.init_logit_bias is not None else None)
@@ -117,9 +129,16 @@ class CLIP(nn.Module):
         return text_head(x, text, self.ln_final, self.text_projection, self.text_pool_type,
                          self.text_final_ln_after_pool)
 
-    def encode_text(self, text: torch.Tensor, normalize: bool = True) -> torch.Tensor:
-        """text: (B, context_length) token ids."""
-        feats = self._text_head(self.transformer(self._text_embed(text), self.attn_mask), text)
+    def encode_text(self, text: torch.Tensor, normalize: bool = True,
+                    gene_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """text: (B, context_length) token ids, or with a gene tower the
+        (B, num_genes) gene vectors, whose genes outside ``gene_keep`` (the
+        trainer's gene-dropout mask) are zeroed."""
+        if self.text is not None:
+            feats = self.text(text, gene_keep)
+        else:
+            feats = self._text_head(self.transformer(self._text_embed(text), self.attn_mask),
+                                    text)
         return l2_normalize(feats) if normalize else feats
 
     def _zip_ready(self) -> bool:
@@ -141,7 +160,8 @@ class CLIP(nn.Module):
         return img, txt
 
     def forward(self, images: Optional[torch.Tensor] = None,
-                text: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                text: Optional[torch.Tensor] = None,
+                gene_keep: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         out: Dict[str, torch.Tensor] = {}
         if images is not None and text is not None and self._zip_ready():
             out["image_features"], out["text_features"] = self.encode_pair(images, text)
@@ -149,7 +169,7 @@ class CLIP(nn.Module):
             if images is not None:
                 out["image_features"] = self.encode_image(images)
             if text is not None:
-                out["text_features"] = self.encode_text(text)
+                out["text_features"] = self.encode_text(text, gene_keep=gene_keep)
         out["logit_scale"] = self.logit_scale.exp()
         if self.logit_bias is not None:
             out["logit_bias"] = self.logit_bias

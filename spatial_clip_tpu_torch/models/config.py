@@ -105,11 +105,22 @@ class TextCfg:
 
 
 @dataclass
+class GeneCfg:
+    """The Gene-MLP tower: a rank-weighted gene-expression vector through an
+    MLP, in place of the text transformer."""
+    num_genes: int = 5000
+    width: int = 1024
+    layers: int = 3
+    gene_dropout: float = 0.0  # train-time gene masking, without rescaling
+    norm_eps: float = 1e-5
+
+
+@dataclass
 class CLIPCfg:
     embed_dim: int = 512
     vision_cfg: VisionCfg = field(default_factory=VisionCfg)
     text_cfg: TextCfg = field(default_factory=TextCfg)
-    gene_cfg: Optional[Dict[str, Any]] = None
+    gene_cfg: Optional[GeneCfg] = None  # if set, replaces the text tower
     multimodal_cfg: Optional[Dict[str, Any]] = None
     # auto | pallas3 (the qkv GEMM and attention as one autograd function) |
     # pallas (with ln_gemm_impl='pallas': ln_1 -> qkv fused, then attention) |
@@ -133,11 +144,14 @@ class CLIPCfg:
         cfg = dict(cfg)
         vision = cfg.pop("vision_cfg", {}) or {}
         text = cfg.pop("text_cfg", {}) or {}
+        gene = cfg.pop("gene_cfg", None)
         dropped = (_dropped_keys(cls, cfg) + _dropped_keys(VisionCfg, vision, "vision_cfg.")
-                   + _dropped_keys(TextCfg, text, "text_cfg."))
+                   + _dropped_keys(TextCfg, text, "text_cfg.")
+                   + _dropped_keys(GeneCfg, gene or {}, "gene_cfg."))
         return cls(
             vision_cfg=VisionCfg(**_filter_kwargs(VisionCfg, vision)),
             text_cfg=TextCfg(**_filter_kwargs(TextCfg, text)),
+            gene_cfg=GeneCfg(**_filter_kwargs(GeneCfg, gene)) if gene else None,
             **{**_filter_kwargs(cls, cfg), "dropped": dropped},
         )
 
@@ -152,7 +166,6 @@ def check_ported(cfg: CLIPCfg) -> None:
     ``tokenizer_kwargs``)."""
     v, t = cfg.vision_cfg, cfg.text_cfg
     unported = [
-        ("gene_cfg", cfg.gene_cfg, cfg.gene_cfg is not None),
         ("multimodal_cfg", cfg.multimodal_cfg, cfg.multimodal_cfg is not None),
         ("attn_impl", cfg.attn_impl, cfg.attn_impl not in ("auto", "pallas", "pallas3", "pallas_inter",
                                                           "pallas_t", "pallas_split")),
@@ -209,10 +222,12 @@ def load_model_config(model_name: str) -> Dict[str, Any]:
 
 
 def resolve_clip_cfg(model_name: str, **overrides) -> CLIPCfg:
-    """JSON config plus overrides; ``vision_cfg``/``text_cfg`` dicts merge."""
+    """JSON config plus overrides; ``vision_cfg``/``text_cfg``/``gene_cfg``/
+    ``multimodal_cfg`` dicts merge."""
     raw = load_model_config(model_name)
     for key, value in overrides.items():
-        if key in ("vision_cfg", "text_cfg") and isinstance(value, dict) \
+        if key in ("vision_cfg", "text_cfg", "gene_cfg", "multimodal_cfg") \
+                and isinstance(value, dict) \
                 and isinstance(raw.get(key), dict):
             raw[key] = {**raw[key], **value}
         else:

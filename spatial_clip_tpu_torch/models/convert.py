@@ -4,7 +4,10 @@
 (nested dicts of arrays) and returns the open_clip-layout state dict the
 port's :class:`~spatial_clip_tpu_torch.models.clip.CLIP` loads. For the keys
 ``spatial_clip_tpu.models.convert.jax_to_torch_state_dict`` exports, keys and
-values are the same; it also maps layer-scale and a biased text projection.
+values are the same; it also maps layer-scale, a biased text projection and
+the Gene-MLP tower, which that exporter leaves out: its flax tree
+``text/embed``, ``text/ln_i``, ``text/fc_i``, ``text/proj_i``,
+``text/ln_final``, ``text/head`` is ``text.embed``, ``text.ln_i``, ... here.
 :func:`to_jax_params` is its inverse.
 
 :func:`from_jax_train_state` maps a JAX ``TrainState`` (parameters and the
@@ -80,14 +83,25 @@ def _key_pairs(has) -> List[Tuple[str, str, Optional[Tuple[int, ...]]]]:
     take_ln("visual/ln_post", "visual.ln_post")
     take("visual/proj", "visual.proj")
 
-    take_blocks("text/transformer", "transformer")
-    take("text/token_embedding/embedding", "token_embedding.weight")
-    take("text/positional_embedding", "positional_embedding")
-    take_ln("text/ln_final", "ln_final")
-    if has("text/text_projection/kernel", "text_projection.weight"):
-        take_dense("text/text_projection", "text_projection")
+    if has("text/embed/kernel", "text.embed.weight"):  # the Gene-MLP tower
+        take_dense("text/embed", "text.embed")
+        i = 0
+        while has(f"text/ln_{i}/scale", f"text.ln_{i}.weight"):
+            take_ln(f"text/ln_{i}", f"text.ln_{i}")
+            take_dense(f"text/fc_{i}", f"text.fc_{i}")
+            take_dense(f"text/proj_{i}", f"text.proj_{i}")
+            i += 1
+        take_ln("text/ln_final", "text.ln_final")
+        take_dense("text/head", "text.head")
     else:
-        take("text/text_projection", "text_projection")
+        take_blocks("text/transformer", "transformer")
+        take("text/token_embedding/embedding", "token_embedding.weight")
+        take("text/positional_embedding", "positional_embedding")
+        take_ln("text/ln_final", "ln_final")
+        if has("text/text_projection/kernel", "text_projection.weight"):
+            take_dense("text/text_projection", "text_projection")
+        else:
+            take("text/text_projection", "text_projection")
 
     take("logit_scale", "logit_scale")
     if has("logit_bias", "logit_bias"):

@@ -19,6 +19,7 @@ and evaluation; :func:`get_tokenizer` takes the JAX package's keywords.
 """
 from __future__ import annotations
 
+import logging
 import math
 from pathlib import Path
 from typing import Dict, Optional, Tuple, Union
@@ -31,6 +32,8 @@ from spatial_clip_tpu_torch.models.config import CLIPCfg, resolve_clip_cfg
 from spatial_clip_tpu_torch.models.constants import OPENAI_DATASET_MEAN, OPENAI_DATASET_STD
 from spatial_clip_tpu_torch.models.tokenizer import (
     DEFAULT_CONTEXT_LENGTH,
+    GeneTokenizer,
+    GeneVectorizer,
     HashTokenizer,
     SimpleTokenizer,
 )
@@ -47,6 +50,8 @@ from spatial_clip_tpu_torch.models.transforms import (
     PreprocessCfg,
     image_transform,
 )
+
+log = logging.getLogger(__name__)
 
 PRECISION_DTYPES = {
     "fp32": torch.float32,
@@ -95,10 +100,11 @@ def init_weights(model: CLIP, seed: int = 0) -> None:
     normal(model.visual.class_embedding, v_width ** -0.5)
     normal(model.visual.positional_embedding, v_width ** -0.5)
     normal(model.visual.proj, v_width ** -0.5)
-    normal(model.token_embedding.weight, cfg.text_cfg.width ** -0.5)
-    normal(model.positional_embedding, 0.01)
-    if not isinstance(model.text_projection, Dense):
-        normal(model.text_projection, cfg.text_cfg.width ** -0.5)
+    if cfg.gene_cfg is None:  # the Gene-MLP tower is Dense and LayerNorm only
+        normal(model.token_embedding.weight, cfg.text_cfg.width ** -0.5)
+        normal(model.positional_embedding, 0.01)
+        if not isinstance(model.text_projection, Dense):
+            normal(model.text_projection, cfg.text_cfg.width ** -0.5)
     model.logit_scale.fill_(cfg.init_logit_scale)
     if model.logit_bias is not None:
         model.logit_bias.fill_(cfg.init_logit_bias)
@@ -228,21 +234,32 @@ def create_model_and_transforms(
 
 def get_tokenizer(model_name: str = "", context_length: Optional[int] = None,
                   gene_vocab=None, bpe_path: Optional[str] = None, **kwargs):
-    """The CLIP byte-BPE tokenizer (from ``bpe_path`` when given), or the
-    hashing tokenizer for architectures whose vocab is smaller than the
-    BPE's (e.g. ViT-Test) or where no merges file is found, at
-    ``context_length`` (default: the model's). Gene vocabularies and
-    Hugging Face tokenizers are not ported."""
+    """The tokenizer of ``model_name``, resolved in the JAX package's order:
+    for a model with a Gene-MLP tower (``gene_cfg``), the
+    :class:`GeneVectorizer` over ``gene_vocab`` (a list or a file; missing
+    raises ValueError, a size other than ``num_genes`` warns); else with
+    ``gene_vocab`` the :class:`GeneTokenizer`; else the CLIP byte-BPE
+    tokenizer (from ``bpe_path`` when given), or the hashing tokenizer for
+    architectures whose vocab is smaller than the BPE's (e.g. ViT-Test) or
+    where no merges file is found, at ``context_length`` (default: the
+    model's). Hugging Face tokenizers are not ported."""
     cfg = resolve_clip_cfg(model_name) if model_name else CLIPCfg()
+    ctx = context_length or cfg.text_cfg.context_length or DEFAULT_CONTEXT_LENGTH
+    if cfg.gene_cfg is not None:
+        if gene_vocab is None:
+            raise ValueError(f"model '{model_name}' uses the gene-MLP tower; pass gene_vocab= "
+                             "(e.g. global_hvgs.txt) to build its vectorizer")
+        vec = GeneVectorizer(gene_vocab)
+        if vec.num_genes != cfg.gene_cfg.num_genes:
+            log.warning("gene vocab size %d != model num_genes %d; pad/truncate applies",
+                        vec.num_genes, cfg.gene_cfg.num_genes)
+        return vec
     if cfg.text_cfg.hf_tokenizer_name or kwargs:
         raise NotImplementedError(
             f"text_cfg.hf_tokenizer_name={cfg.text_cfg.hf_tokenizer_name!r} (keywords "
             f"{sorted(kwargs)}) is not ported to spatial_clip_tpu_torch")
-    if cfg.gene_cfg is not None or gene_vocab is not None:
-        raise NotImplementedError(
-            "gene tokenizers (gene_cfg, gene_vocab) are not ported to spatial_clip_tpu_torch: "
-            "ROADMAP Queue 1 item 5 (the Gene-MLP tower)")
-    ctx = context_length or cfg.text_cfg.context_length or DEFAULT_CONTEXT_LENGTH
+    if gene_vocab is not None:
+        return GeneTokenizer(gene_vocab, context_length=ctx)
     try:
         tok = SimpleTokenizer(bpe_path=bpe_path, context_length=ctx)
     except FileNotFoundError:

@@ -1,10 +1,12 @@
-"""Caption tokenizers: byte-level BPE and the hashing fallback.
+"""Caption tokenizers: byte-level BPE, the hashing fallback, the closed
+gene vocabulary, and the gene vectorizer of the Gene-MLP tower.
 
 Id-for-id the same as ``spatial_clip_tpu.models.tokenizer``'s
-``SimpleTokenizer`` and ``HashTokenizer``. The BPE merges file is read in
-place from the JAX package's data directory (or ``bpe_path=`` /
-``$SPATIAL_CLIP_BPE_PATH``). Tokenizers are callables
-``texts -> np.ndarray[int32] (B, context_length)``.
+``SimpleTokenizer``, ``HashTokenizer`` and ``GeneTokenizer``, and value for
+value its ``GeneVectorizer``. The BPE merges file is read in place from the
+JAX package's data directory (or ``bpe_path=`` / ``$SPATIAL_CLIP_BPE_PATH``).
+Tokenizers are callables ``texts -> np.ndarray[int32] (B, context_length)``;
+the vectorizer gives ``np.ndarray[float32] (B, num_genes)``.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import os
 import re
 from functools import lru_cache
 from pathlib import Path
-from typing import List, Optional, Sequence, Union
+from typing import Iterable, List, Optional, Sequence, Union
 
 import numpy as np
 
@@ -204,3 +206,75 @@ def _pack(tok, texts, context_length) -> np.ndarray:
         ids = [tok.sot_token] + tok.encode(text)[: L - 2] + [tok.eot_token]
         out[i, : len(ids)] = ids
     return out
+
+
+def _read_genes(genes: Union[str, Path, Sequence[str]]) -> List[str]:
+    """A gene list, or the non-blank lines of the file it names."""
+    if isinstance(genes, (str, Path)):
+        with open(genes) as f:
+            return [line.strip() for line in f if line.strip()]
+    return list(genes)
+
+
+class GeneTokenizer:
+    """One token per gene over a closed gene vocabulary (the HVG list):
+    ids 0 <pad>, 1 <sot>, 2 <eot>, 3 <unk>, gene i -> 4 + i, symbols
+    matched upper-cased; ``vocab_size`` padded up to a multiple of
+    ``pad_vocab_to_multiple``."""
+
+    PAD, SOT, EOT, UNK = 0, 1, 2, 3
+    N_SPECIAL = 4
+
+    def __init__(self, genes: Union[str, Path, Sequence[str]],
+                 context_length: int = DEFAULT_CONTEXT_LENGTH,
+                 pad_vocab_to_multiple: int = 128):
+        self.genes = _read_genes(genes)
+        self.gene_to_id = {g.upper(): i + self.N_SPECIAL for i, g in enumerate(self.genes)}
+        self.context_length = context_length
+        m = pad_vocab_to_multiple
+        self.vocab_size = -(-(self.N_SPECIAL + len(self.genes)) // m) * m
+        self.sot_token = self.SOT
+        self.eot_token = self.EOT
+
+    def encode(self, text: str) -> List[int]:
+        return [self.gene_to_id.get(tok.upper(), self.UNK)
+                for tok in whitespace_clean(basic_clean(text)).split(" ") if tok]
+
+    def decode(self, ids: Iterable[int]) -> str:
+        inv = {v: k for k, v in self.gene_to_id.items()}
+        return " ".join(inv[int(i)] for i in ids if int(i) in inv)
+
+    def __call__(self, texts: Union[str, Sequence[str]],
+                 context_length: Optional[int] = None) -> np.ndarray:
+        return _pack(self, texts, context_length)
+
+
+class GeneVectorizer:
+    """Gene sentence -> rank-weighted expression vector (B, num_genes): the
+    Gene-MLP tower's input. The gene at rank r of an n-gene sentence weighs
+    ``1 - 0.8 r / n``, at its index in the gene list (symbols matched
+    upper-cased); a symbol not in the list adds nothing. ``num_genes`` is the
+    list's length, padded up to ``pad_to_multiple`` when given."""
+
+    def __init__(self, genes: Union[str, Path, Sequence[str]], pad_to_multiple: int = 0):
+        self.genes = _read_genes(genes)
+        self.gene_to_idx = {g.upper(): i for i, g in enumerate(self.genes)}
+        n = len(self.genes)
+        if pad_to_multiple:
+            n = -(-n // pad_to_multiple) * pad_to_multiple
+        self.num_genes = n
+        self.context_length = n  # for callers that read a tokenizer's width
+
+    def __call__(self, texts: Union[str, Sequence[str]],
+                 context_length: Optional[int] = None) -> np.ndarray:
+        if isinstance(texts, str):
+            texts = [texts]
+        out = np.zeros((len(texts), self.num_genes), dtype=np.float32)
+        for i, text in enumerate(texts):
+            toks = [t for t in whitespace_clean(basic_clean(text)).split(" ") if t]
+            n = len(toks)
+            for rank, tok in enumerate(toks):
+                idx = self.gene_to_idx.get(tok.upper())
+                if idx is not None:
+                    out[i, idx] = 1.0 - (0.8 * rank / max(n, 1))
+        return out

@@ -33,6 +33,11 @@ takes the fused kernel's qkv, as JAX's ``fused_attention`` does:
 that recomputes the softmax statistics, the counterpart of
 ``_bwd_kernel``), the inference kernel alone without.
 
+:class:`GeneMLPTower` (JAX's ``GeneMLPTower``) takes the place of the text
+tower when the config sets ``gene_cfg``: a rank-weighted gene vector through
+a dense embedding, residual MLP blocks and a head; only its ``ln_final``
+takes ``ln_impl``.
+
 Each block also runs as two stages around its attention
 (:meth:`ResidualBlock.attn_qkv`, :meth:`ResidualBlock.attn_finish`), and
 the image tower as ``embed`` / ``head`` around its blocks, so that
@@ -482,3 +487,51 @@ class TextTransformer(nn.Module):
         x = self.transformer(self.embed(text), self.attn_mask)
         return text_head(x, text, self.ln_final, self.text_projection, self.pool_type,
                          self.final_ln_after_pool)
+
+
+class GeneMLPTower(nn.Module):
+    """Rank-weighted gene-expression vector (B, num_genes) -> (B, output_dim):
+    ``embed`` to ``width``, ``layers`` residual blocks ``x + proj_i(gelu(
+    fc_i(ln_i(x))))`` with a 4x hidden layer and the tanh GELU, then
+    ``ln_final`` and ``head``, as JAX's ``GeneMLPTower``. The vector is cast
+    to the compute dtype before ``embed`` (bf16 rounds the rank weights).
+    The block LayerNorms take two-pass f32 statistics (JAX's ``LayerNorm``
+    default); ``ln_final`` takes ``ln_stats`` (the model's ``ln_impl``, so
+    ``'pallas'`` sends it through the fused_ln kernels at a width that is a
+    multiple of 128). The modules carry the flax names (``embed``, ``ln_i``,
+    ``fc_i``, ``proj_i``, ``ln_final``, ``head``).
+
+    Gene dropout is a ``keep`` mask handed to :meth:`forward` by the trainer
+    (:meth:`draw_keep`, in training only): a dropped gene is zeroed and the
+    rest are not rescaled, unlike ``F.dropout``."""
+
+    def __init__(self, num_genes: int, width: int, layers: int, output_dim: int,
+                 gene_dropout: float = 0.0, norm_eps: float = 1e-5, ln_stats: str = "fp32",
+                 dtype=torch.float32, param_dtype=None, device=None):
+        super().__init__()
+        param_dtype = param_dtype or dtype
+        self.layers, self.gene_dropout, self.dtype = layers, gene_dropout, dtype
+        self.embed = Dense(num_genes, width, dtype, param_dtype, device)
+        for i in range(layers):
+            self.add_module(f"ln_{i}", LayerNorm(width, norm_eps, "fp32", dtype, device))
+            self.add_module(f"fc_{i}", Dense(width, 4 * width, dtype, param_dtype, device))
+            self.add_module(f"proj_{i}", Dense(4 * width, width, dtype, param_dtype, device))
+        self.ln_final = LayerNorm(width, norm_eps, ln_stats, dtype, device)
+        self.head = Dense(width, output_dim, dtype, param_dtype, device)
+
+    def draw_keep(self, shape, generator: torch.Generator, device=None) -> torch.Tensor:
+        """The genes a training step keeps: each independently with
+        probability ``1 - gene_dropout`` (a uniform draw below it)."""
+        u = torch.rand(shape, generator=generator, device=device or generator.device)
+        return u < 1.0 - self.gene_dropout
+
+    def forward(self, gene_vector: torch.Tensor,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if keep is not None:
+            gene_vector = torch.where(keep, gene_vector, torch.zeros_like(gene_vector))
+        x = self.embed(gene_vector.to(self.dtype))
+        for i in range(self.layers):
+            h = getattr(self, f"ln_{i}")(x)
+            h = gelu_tanh(getattr(self, f"fc_{i}")(h))
+            x = x + getattr(self, f"proj_{i}")(h)
+        return self.head(self.ln_final(x))

@@ -67,21 +67,40 @@ def build_datamodule(cfg: Dict[str, Any]):
 def build_model(cfg: Dict[str, Any], device="cuda"):
     """(model for training, train transform, val transform, tokenizer, HVG
     bank path) from ``cfg['model']``, as the JAX package's entry builds
-    them. A gene vocabulary or ``gene_cfg`` (the Gene-MLP tower) raises."""
+    them. The gene vocabulary is ``model.tokenizer.gene_vocab``, or
+    ``model.global_hvg_path`` where that file exists. ``model.gene_cfg`` (or
+    a model JSON with one) builds the Gene-MLP tower over the
+    :class:`GeneVectorizer` of that vocabulary, whose size sets
+    ``num_genes`` (no vocabulary raises ValueError); otherwise a vocabulary
+    makes the text tower's ``vocab_size`` the :class:`GeneTokenizer`'s."""
     from spatial_clip_tpu_torch.models.factory import (
         create_model_and_transforms,
         get_tokenizer,
     )
+    from spatial_clip_tpu_torch.models.tokenizer import GeneVectorizer
 
     mcfg = dict(cfg["model"])
     tok_cfg = mcfg.pop("tokenizer", None) or {}
     hvg = mcfg.pop("global_hvg_path", None)
     model_name = mcfg.pop("model_name")
     gene_vocab = tok_cfg.get("gene_vocab") or (hvg if hvg and Path(hvg).exists() else None)
-    if mcfg.pop("gene_cfg", None):
-        raise NotImplementedError("model.gene_cfg (the Gene-MLP tower) is not ported to "
-                                  "spatial_clip_tpu_torch: ROADMAP Queue 1 item 5")
-    tokenizer = get_tokenizer(model_name, gene_vocab=gene_vocab, bpe_path=tok_cfg.get("bpe_path"))
+    overrides = {}
+    gene_cfg_user = mcfg.pop("gene_cfg", None)
+    if gene_cfg_user:
+        if gene_vocab is None:
+            raise ValueError("model.gene_cfg requires a gene vocab (global_hvg_path)")
+        tokenizer = GeneVectorizer(gene_vocab)
+        overrides["gene_cfg"] = {**dict(gene_cfg_user), "num_genes": int(tokenizer.num_genes)}
+    else:
+        tokenizer = get_tokenizer(model_name, gene_vocab=gene_vocab,
+                                  bpe_path=tok_cfg.get("bpe_path"))
+    if hasattr(tokenizer, "num_genes") and "gene_cfg" not in overrides:
+        # a Gene-MLP tower from the model JSON: the vectorizer sets its input width
+        overrides["gene_cfg"] = {"num_genes": int(tokenizer.num_genes)}
+    elif gene_vocab is not None and hasattr(tokenizer, "vocab_size"):
+        # the gene tokenizer's closed vocabulary sizes the text tower's embedding table
+        overrides["text_cfg"] = {**dict(mcfg.pop("text_cfg", None) or {}),
+                                 "vocab_size": int(tokenizer.vocab_size)}
     model, pp_train, pp_val = create_model_and_transforms(
         model_name,
         pretrained=mcfg.pop("pretrained", None),
@@ -92,6 +111,7 @@ def build_model(cfg: Dict[str, Any], device="cuda"):
         seed=int(cfg.get("seed", 0)),
         device=device,
         training=True,
+        **overrides,
     )
     return model, pp_train, pp_val, tokenizer, hvg
 

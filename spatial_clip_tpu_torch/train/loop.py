@@ -201,7 +201,8 @@ class Trainer:
     training=True)`` (f32 parameters, train mode, grad on).
 
     Batches have the JAX package's schema: ``images`` (B, H, W, 3) uint8
-    (or already normalized floats), ``texts`` (B, L) token ids,
+    (or already normalized floats), ``texts`` (B, L) token ids (for a
+    model with a Gene-MLP tower, (B, num_genes) float gene vectors),
     ``image_tile_ids``, ``text_tile_ids`` (B,), ``neighbor_tile_ids`` (B, k)
     (-1 pads), ``neighbor_alphas`` (B, k): tensors on the model's device
     for :meth:`train_step`, numpy arrays for :meth:`fit` and
@@ -249,9 +250,22 @@ class Trainer:
             return normalize_batch(images, pp.mean, pp.std, model.dtype)
         return augment_normalize_batch(images, draws, pp.mean, pp.std, model.dtype)
 
-    def _features(self, params, batch, draws: Optional[AugmentDraws]) -> Dict[str, torch.Tensor]:
+    def _features(self, params, batch, draws: Optional[AugmentDraws],
+                  gene_keep: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         images = self.prepare_images(batch["images"], draws)
-        return functional_call(self.model, params, (images, batch["texts"]))
+        return functional_call(self.model, params, (images, batch["texts"]),
+                               {"gene_keep": gene_keep})
+
+    def draw_gene_keep(self, state: TrainState, texts: torch.Tensor) -> Optional[torch.Tensor]:
+        """The training step's gene-dropout mask over ``texts`` (B,
+        num_genes), drawn from the state's generator, or None where the
+        model has no Gene-MLP tower with ``gene_dropout`` > 0. JAX draws it
+        only in a training step (``rngs={'dropout': ...}``); evaluation
+        keeps every gene."""
+        tower = self.model.text
+        if tower is None or not tower.gene_dropout > 0:
+            return None
+        return tower.draw_keep(texts.shape, state.generator, texts.device)
 
     @staticmethod
     def _flat_grad(state: TrainState, loss: torch.Tensor) -> torch.Tensor:
@@ -279,7 +293,9 @@ class Trainer:
         summed ``grad_accum`` times, the loss is the last microbatch's, and
         the logits cover the full batch. ``simple`` mode averages the
         microbatches' gradients and losses; the logits are the last
-        microbatch's."""
+        microbatch's. A Gene-MLP tower's gene-dropout mask
+        (:meth:`draw_gene_keep`) is drawn after the augmentation, for the
+        whole batch; each microbatch takes its rows in both passes."""
         cfg = self.cfg
         images = batch["images"]
         if not (cfg.augment and images.dtype == torch.uint8):
@@ -287,9 +303,10 @@ class Trainer:
         elif draws is None:
             draws = draw_augment(images.shape[0], cfg.horizontal_flip_prob, cfg.color_jitter,
                                  generator=state.generator, device=images.device)
+        keep = self.draw_gene_keep(state, batch["texts"])
         accum = max(1, cfg.grad_accum)
         if accum == 1:
-            features = self._features(state.params, batch, draws)
+            features = self._features(state.params, batch, draws, keep)
             loss = self.loss(**{**batch, **features})["contrastive_loss"]
             logits = self._logits(features["image_features"], features["text_features"],
                                   features["logit_scale"])
@@ -302,19 +319,21 @@ class Trainer:
         mbs = [{k: v[sl] for k, v in batch.items()} for sl in parts]
         mb_draws = [None if draws is None else AugmentDraws(
             *(None if d is None else d[sl] for d in draws)) for sl in parts]
+        mb_keep = [None if keep is None else keep[sl] for sl in parts]
         if cfg.grad_accum_mode == "simple":
-            return self._simple_accum(state, mbs, mb_draws)
-        return self._cached_accum(state, batch, mbs, mb_draws, parts)
+            return self._simple_accum(state, mbs, mb_draws, mb_keep)
+        return self._cached_accum(state, batch, mbs, mb_draws, mb_keep, parts)
 
-    def _cached_accum(self, state, batch, mbs, mb_draws, parts):
+    def _cached_accum(self, state, batch, mbs, mb_draws, mb_keep, parts):
         with torch.no_grad():  # pass 1: attention takes the inference kernel
-            feats = [self._features(state.params, m, d) for m, d in zip(mbs, mb_draws)]
+            feats = [self._features(state.params, m, d, k)
+                     for m, d, k in zip(mbs, mb_draws, mb_keep)]
         all_img = torch.cat([f["image_features"] for f in feats])
         all_txt = torch.cat([f["text_features"] for f in feats])
         del feats
         grads = None
-        for m, d, sl in zip(mbs, mb_draws, parts):
-            f = self._features(state.params, m, d)
+        for m, d, k, sl in zip(mbs, mb_draws, mb_keep, parts):
+            f = self._features(state.params, m, d, k)
             inputs = {
                 **batch,
                 "image_features": all_img.slice_scatter(
@@ -331,10 +350,10 @@ class Trainer:
         logits = self._logits(all_img, all_txt, state.params["logit_scale"].exp())
         return loss.detach(), logits, grads
 
-    def _simple_accum(self, state, mbs, mb_draws):
+    def _simple_accum(self, state, mbs, mb_draws, mb_keep):
         grads = loss_sum = None
-        for m, d in zip(mbs, mb_draws):
-            features = self._features(state.params, m, d)
+        for m, d, k in zip(mbs, mb_draws, mb_keep):
+            features = self._features(state.params, m, d, k)
             loss = self.loss(**{**m, **features})["contrastive_loss"]
             g = self._flat_grad(state, loss)
             grads = g if grads is None else grads.add_(g)

@@ -45,9 +45,11 @@ def test_every_builtin_config_that_passes_is_built_with_no_field_dropped(name):
                                   ("vision_cfg.", port_config.VisionCfg,
                                    raw.get("vision_cfg") or {}, cfg.vision_cfg),
                                   ("text_cfg.", port_config.TextCfg, raw.get("text_cfg") or {},
-                                   cfg.text_cfg)):
+                                   cfg.text_cfg),
+                                  ("gene_cfg.", port_config.GeneCfg, raw.get("gene_cfg") or {},
+                                   cfg.gene_cfg)):
         for key, value in sub.items():
-            if prefix == "" and key in ("vision_cfg", "text_cfg"):
+            if prefix == "" and key in ("vision_cfg", "text_cfg", "gene_cfg"):
                 continue
             if key in _fields(cls):
                 got = getattr(obj, key)

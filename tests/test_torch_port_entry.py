@@ -257,8 +257,13 @@ def test_refused_keys_raise(tmp_path, override, key):
 
 def test_no_gpu_raises_and_unported_models_raise(tmp_path, wide_model):
     """With no platform the run wants the GPU and raises without one; ViT-Test
-    as it is (heads of 16), a gene vocabulary and an HVG bank raise."""
+    as it is (heads of 16) raises. A gene vocabulary (either key) builds the
+    gene-vocabulary text tower, and model.gene_cfg with the vocabulary the
+    Gene-MLP tower, as JAX's entry builds them; model.gene_cfg without one
+    raises JAX's ValueError."""
     import torch
+
+    from spatial_clip_tpu_torch.models.transformer import GeneMLPTower
 
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="trainer.platform=cpu"):
@@ -269,10 +274,23 @@ def test_no_gpu_raises_and_unported_models_raise(tmp_path, wide_model):
     hvg = tmp_path / "hvg.txt"
     hvg.write_text("GENE1\nGENE2\n")
     for override in (f"model.tokenizer.gene_vocab={hvg}", f"model.global_hvg_path={hvg}",
-                     "model.gene_cfg={hidden: 8}"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            entry.train(entry.compose_train([*SMOKE, f"paths.root_dir={tmp_path}",
-                                             f"model.model_name={wide_model}", override]))
+                     "model.gene_cfg={width: 8}"):
+        cfg = entry.compose_train([*SMOKE, f"paths.root_dir={tmp_path}",
+                                   f"model.model_name={wide_model}", override])
+        if override.startswith("model.gene_cfg"):
+            with pytest.raises(ValueError, match="requires a gene vocab"):
+                entry.build_model(cfg, "cpu")
+            with pytest.raises(ValueError, match="requires a gene vocab"):
+                jax_train_entry.build_model(jax_compose(CONFIGS, "train", [
+                    "experiment=smoke_synthetic", f"model.model_name={wide_model}", override]))
+            cfg["model"]["global_hvg_path"] = str(hvg)
+            model, _, _, tokenizer, _ = entry.build_model(cfg, "cpu")
+            assert isinstance(model.text, GeneMLPTower) and tokenizer.num_genes == 2
+            assert (model.cfg.gene_cfg.num_genes, model.cfg.gene_cfg.width) == (2, 8)
+            continue
+        model, _, _, tokenizer, _ = entry.build_model(cfg, "cpu")
+        assert model.cfg.gene_cfg is None and tokenizer.vocab_size == 128
+        assert model.token_embedding.weight.shape[0] == 128
 
 
 def test_loggers_write_what_jax_writes(tmp_path):

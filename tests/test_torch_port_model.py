@@ -169,7 +169,7 @@ def test_vit_b_32_layout_matches_jax_export():
     (dict(text_cfg=dict(qk_norm=True)), "text_cfg.qk_norm"),
     (dict(text_cfg=dict(hf_model_name="bert-base")), "text_cfg.hf_model_name"),
     (dict(text_cfg=dict(embed_cls=True)), "text_cfg.embed_cls"),
-    (dict(gene_cfg=dict(num_genes=8)), "gene_cfg"),
+    (dict(gene_cfg=dict(num_genes=8, hidden=4)), "gene_cfg"),  # a key GeneCfg lacks
     (dict(multimodal_cfg=dict(layers=1)), "multimodal_cfg"),
 ])
 def test_unported_options_raise(overrides, field):
