@@ -220,7 +220,29 @@ the exit code is not 0. No JAX is imported.
            ImageNet-style zero-shot classifier (ViT-B-32, random weights,
            1,000 classes x the 80 OpenAI templates) with its first columns
            held to the f32 CPU classifier and its launches counted
-
+33. long-kernels  the key-tiled attention kernels (csrc/attention_long.cu:
+           forward with and without lse, dQ, dK/dV, db) against their plain
+           versions at L 257, 401, 577, 1025 and the first length past each
+           resident limit, hd 32 / 64 / 128, bf16 and f32, causal and not, in
+           the three backward options, at phases 3 and 6's tolerances, dqkv
+           and db the same bits on a rerun; ptxas's registers and spills; each
+           kernel timed at ViT-L-14-336's image tower (batch 32, 16 heads of
+           64, L 577) beside its plain version, its bound and SDPA
+34. vitl-serve  ViT-L-14 (bf16, batch 64) through the server: 64 texts and 64
+           raw tiles, exactly 36 resident forwards, every embedding vs f32 on
+           the CPU by cosine, encode times
+35. vitl14  ViT-L-14: phase 7's card-vs-CPU step at batch 4, then 13 steps at
+           batch 64 with exactly 36 forward-lse and 36 saved-lse backward
+           launches a step (all resident: L 257 and 77), step ms, peak memory
+36. vitl14-336  ViT-L-14-336: the same at batch 2, then 13 steps at batch 32
+           with exactly 24 key-tiled forwards with lse, dQ, dK/dV and db
+           launches a step (L 577) and 12 + 12 resident ones (the text tower)
+37. so400m  ViT-SO400M-14-SigLIP: one forward of 8 tiles and 8 id rows vs f32
+           on the CPU; 27 resident forwards (image, L 257) and 27 calls of the
+           plain route (text, 16 heads of 72: JAX's gate takes einsum)
+38. smoke-synthetic  experiment=smoke_synthetic (ViT-Test, fp32, heads of 16)
+           through .train and .eval on the card: no attention kernel launch,
+           the plain route 2 x 2 a forward
 Phases 3, 6, 19, 23 and 26 also time PyTorch's scaled_dot_product_attention
 (efficient-attention backend) at the kernels' shapes as a yardstick (its
 backward alone, on one retained graph), phase
@@ -228,7 +250,8 @@ backward alone, on one retained graph), phase
 phase 22 the unfused half with SDPA, and phase 26 the cuBLAS dx GEMM; the
 port never calls them.
 Then one JSON line with the kernels (each with its launches on the main
-path, error, time, plain time, bound and library time; the three kernels of
+path, error, time, plain time, bound and library time; the key-tiled
+kernels with their launches in phase 36's steps; the three kernels of
 phase 28's path also with its launches there, and they and the fused_ln
 kernels with their launches on the gene paths, phases 29-32), the
 nvidia-smi line, and
@@ -363,7 +386,7 @@ def backward_build_report(lib, report: str) -> str:
 
     import torch
 
-    from spatial_clip_tpu_torch.ops.fused_attention import MAX_SEQ, bwd_supported
+    from spatial_clip_tpu_torch.ops.fused_attention import bwd_max_seq
 
     entries = ptxas_entries(report)
     parts = []
@@ -373,7 +396,7 @@ def backward_build_report(lib, report: str) -> str:
             found = [v for k, v in entries.items()
                      if f"15attn_bwd_kernelI13__nv_bfloat16Li{hd}E{flags}" in k]
             options.append(f"{label} {found[0][0]}/{found[0][1]} B" if found else f"{label} ?")
-        longest = max(L for L in range(1, MAX_SEQ + 1) if bwd_supported(1, hd, L, torch.bfloat16))
+        longest = min(256, bwd_max_seq(hd, torch.bfloat16))  # the lengths it was held to
         blocks = []
         for L in (50, 77, longest):
             r, local, n = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
@@ -790,6 +813,17 @@ def main() -> int:
     gene_train = gene_train_phase(train["step_ms"])
     gene_entry = gene_entry_phase()
     gene_study = gene_study_phase()
+    long_rows = long_kernel_phase()
+    vitl_serve_phase()
+    long_train_phase("vitl14", "ViT-L-14", VITL_CHECK, VITL_BATCH,
+                     {"fused_attention.fused_attention_lse": 36,
+                      "fused_attention.fused_attention_bwd": 36})
+    vitl336 = long_train_phase("vitl14-336", "ViT-L-14-336", VITL336_CHECK, VITL336_BATCH, {
+        **{f"attention_long.{k}": 24 for k in ("fused_attention_long_lse", "long_bwd_dq",
+                                                "long_bwd_dkdv", "long_db")},
+        "fused_attention.fused_attention_lse": 12, "fused_attention.fused_attention_bwd": 12})
+    so400m_phase()
+    smoke_synthetic_phase()
 
     def gene_launches(key: str) -> dict:
         """A kernel's launches on the gene paths: phase 29's step (path B),
@@ -1030,6 +1064,31 @@ def main() -> int:
         "at": at_train + ", W (2304, 768); library: SDPA's backward + the cuBLAS dx GEMM; "
               "unfused: the recompute-with-db kernel + torch.matmul(dqkv, W)",
     })
+    Bt, Lt, Ht, hdt = LONG_TIMED
+    for name, part, line, key in (
+            ("fused_attention_long_fwd", "fwd", 350, "fused_attention_long_lse"),
+            ("attention_long_bwd_dq", "dq", 436, "long_bwd_dq"),
+            ("attention_long_bwd_dkdv", "dkdv", 436, "long_bwd_dkdv"),
+            ("attention_long_db", "db", 436, "long_db")):
+        row = long_rows[part]
+        worst = long_rows["worst"]["fwd" if part == "fwd" else "db" if part == "db" else "dq"]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "spatial_clip_tpu_torch/csrc/attention_long.cu",
+            "replaces": f"spatial_clip_tpu/ops/fused_attention.py:{line}",
+            "launches": vitl336["launches"][f"attention_long.{key}"],
+            "max_abs_err": max(worst, row["err"]),
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "at": f"qkv ({Bt}, {Lt}, {3 * Ht * hdt}) bf16, no mask (ViT-L-14-336's image tower, "
+                  f"batch {Bt}); launches: phase 36's {VITL_STEPS} steps",
+            **({"bwd_ms": row["bwd_ms"], "bwd_library_ms": row["bwd_library_ms"],
+                "bwd_bound_ms": row["bwd_bound_ms"]} if part == "dq" else {}),
+        })
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
@@ -1142,8 +1201,7 @@ def bwd_edges_phase() -> dict:
 
     from spatial_clip_tpu_torch.models.transformer import causal_mask
     from spatial_clip_tpu_torch.ops.fused_attention import (
-        MAX_SEQ,
-        bwd_supported,
+        bwd_max_seq,
         fused_attention_bwd,
         fused_attention_bwd_recompute,
         fused_attention_bwd_recompute_db,
@@ -1156,8 +1214,7 @@ def bwd_edges_phase() -> dict:
     worst = {"bwd_err": 0.0, "bwd_re_err": 0.0, "bwd_rd_err": 0.0}
     n_cases = 0
     for hd in (32, 64, 128):
-        longest = max(L for L in range(1, MAX_SEQ + 1) if bwd_supported(H, H * hd, L,
-                                                                        torch.bfloat16))
+        longest = min(256, bwd_max_seq(hd, torch.bfloat16))  # phase 33 holds longer ones
         for L in (*BWD_EDGE_LENGTHS, longest):
             for causal in (False, True):
                 qkv = torch.randn((B, L, 3 * H * hd), generator=gen, device="cuda").bfloat16()
@@ -3113,8 +3170,9 @@ def every_counter() -> dict:
     import importlib
 
     out = {}
-    for name in ("fused_attention", "attention_variants", "attention_pair", "fused_block",
-                 "fused_contrastive", "fused_ln", "fused_ln_dense", "fused_mlp"):
+    for name in ("fused_attention", "attention_long", "attention_plain", "attention_variants",
+                 "attention_pair", "fused_block", "fused_contrastive", "fused_ln", "fused_ln_dense",
+                 "fused_mlp"):
         module = importlib.import_module(f"spatial_clip_tpu_torch.ops.{name}")
         for attr, fn in vars(module).items():
             if (callable(fn) and isinstance(getattr(fn, "launches", None), int)
@@ -3559,6 +3617,389 @@ def gene_study_phase() -> dict:
           f"{cos.min():.6f} (>= {MIN_COSINE}); zero_shot_eval on 128 random tiles: "
           f"{res}", flush=True)
     return {"arms": arms, "classifier_launches": launches, "classifier_s": clf_s}
+
+
+
+# phase 33: the key-tiled kernels' lengths (with the first past each resident
+# limit) and the shape they are timed at, ViT-L-14-336's image tower
+LONG_LENGTHS = (257, 401, 577, 1025)
+LONG_TIMED = (32, 577, 16, 64)  # batch, L, heads, head dim
+VITL_BATCH, VITL336_BATCH = 64, 32  # phases 35-36: timed steps
+VITL_CHECK, VITL336_CHECK = 4, 2  # phases 35-36: card vs CPU
+VITL_STEPS = WARMUP_STEPS + TIMED_STEPS
+
+
+def long_bound(qkv, heads: int, kind: str):
+    """Bound of a key-tiled backward kernel at qkv's shape: 'dq' reads q, k,
+    v, do and lse and writes dq and r, three L x L x hd products (s, dp, dq);
+    'dkdv' reads q, k, v, do, lse and r and writes dk and dv, four (s, dp,
+    dv, dk); 'db' reads dqkv and writes db."""
+    import torch
+
+    B, L, three_d = qkv.shape
+    D, item = three_d // 3, qkv.element_size()
+    dots = 2 * B * heads * L * L * (D // heads)
+    stat = 4 * heads * B * L
+    peak = BF16_FLOPS if qkv.dtype == torch.bfloat16 else F32_FLOPS
+    if kind == "dq":
+        return bound(B * L * (three_d + D + D) * item + 2 * stat, 3 * dots, peak)
+    if kind == "dkdv":
+        return bound(B * L * (three_d + D + 2 * D) * item + 2 * stat, 4 * dots, peak)
+    return bound(B * L * three_d * item + 4 * three_d, B * L * three_d, F32_FLOPS)
+
+
+def long_kernel_phase() -> dict:
+    """33. The key-tiled kernels (csrc/attention_long.cu) against their plain
+    versions on the card: the forward with and without lse, the backward
+    from the saved lse with db and the two recompute options, at L 257, 401,
+    577, 1025 and the first length past each resident limit (forward and
+    backward), hd 32 / 64 / 128, bf16 and f32, causal and not (batch 2, 2
+    heads), at phases 3 and 6's tolerances, dqkv and db the same bits on a
+    rerun; ptxas's registers and spills; then each kernel timed at
+    ViT-L-14-336's image tower (LONG_TIMED) beside its plain version, its
+    bound and SDPA."""
+    import torch
+
+    from spatial_clip_tpu_torch.models.transformer import causal_mask
+    from spatial_clip_tpu_torch.ops import attention_long as al
+    from spatial_clip_tpu_torch.ops import cuda_build
+    from spatial_clip_tpu_torch.ops import fused_attention as fa
+
+    lib_path = cuda_build.build()
+    ptxas = ptxas_entries(lib_path.with_suffix(".ptxas.txt").read_text())
+    regs = {k: [v for n, v in ptxas.items() if f"{k}_kernel" in n and "attention_long" in n]
+            for k in ("long_fwd", "long_dq", "long_dkdv", "long_db")}
+    print("[long-kernels] ptxas registers / spill B over the instantiations: " + "; ".join(
+        f"{k} {max(r for r, _ in v)}/{max(s for _, s in v)}" for k, v in regs.items() if v),
+        flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    B, H = 2, 2
+    worst = {"fwd": 0.0, "dq": 0.0, "db": 0.0}
+    n_cases = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for hd in (32, 64, 128):
+            lengths = sorted({*LONG_LENGTHS, fa.fwd_max_seq(hd, dtype) + 1,
+                              fa.bwd_max_seq(hd, dtype) + 1})
+            group = {"fwd": 0.0, "bwd": 0.0, "db": 0.0}
+            for L in lengths:
+                for causal in (False, True):
+                    qkv = torch.randn((B, L, 3 * H * hd), generator=gen, device="cuda").to(dtype)
+                    g = torch.randn((B, L, H * hd), generator=gen, device="cuda").to(dtype)
+                    mask = causal_mask(L, device="cuda") if causal else None
+                    out = al.fused_attention_long(qkv, mask, H)
+                    out_lse, lse = al.fused_attention_long_lse(qkv, mask, H)
+                    got = {"lse": al.fused_attention_long_bwd(qkv, mask, lse, g, H),
+                           "re": al.fused_attention_long_bwd_recompute(qkv, mask, g, H, db=False),
+                           "re_db": al.fused_attention_long_bwd_recompute(qkv, mask, g, H,
+                                                                          db=True)}
+                    again = {"lse": al.fused_attention_long_bwd(qkv, mask, lse, g, H),
+                             "re_db": al.fused_attention_long_bwd_recompute(qkv, mask, g, H,
+                                                                            db=True)}
+                    want_out, want_lse = fa.reference_attention_lse(qkv, mask, H)
+                    want = {"lse": fa.reference_attention_bwd(qkv, mask, lse, g, H)}
+                    want["re"] = want["re_db"] = fa.reference_attention_bwd(qkv, mask, None, g, H)
+                    torch.cuda.synchronize()
+                    tol = KERNEL_TOL[name]
+                    err = (out.float() - want_out.float()).abs().max().item()
+                    lse_err = (lse - want_lse).abs().max().item()
+                    lse_tol = 1e-5 * max(1.0, want_lse.abs().max().item())
+                    bad = []
+                    if not (err <= tol and lse_err <= lse_tol and torch.equal(out, out_lse)):
+                        bad.append(f"fwd err {err} (tol {tol}) lse {lse_err} (tol {lse_tol}) "
+                                   f"the same context with lse {torch.equal(out, out_lse)}")
+                    for key, (dqkv, db) in got.items():
+                        want_dqkv, want_db = want[key]
+                        d_err = (dqkv.float() - want_dqkv.float()).abs().max().item()
+                        d_tol = bwd_tol(dtype, want_dqkv.float())
+                        group["bwd"] = max(group["bwd"], d_err)
+                        if not (d_err <= d_tol and torch.isfinite(dqkv.float()).all().item()):
+                            bad.append(f"{key} dqkv err {d_err} (tol {d_tol})")
+                        if db is not None:
+                            db_err = (db - want_db).abs().max().item()
+                            db_tol = train_tol(dtype, want_db) + 1e-4
+                            group["db"] = max(group["db"], db_err)
+                            same = torch.equal(db, again[key][1]) and torch.equal(
+                                dqkv, again[key][0])
+                            if not (db_err <= db_tol and same):
+                                bad.append(f"{key} db err {db_err} (tol {db_tol}), dqkv and db "
+                                           f"the same bits on a rerun {same}")
+                    if bad:
+                        raise AssertionError(f"[long-kernels] {name} hd {hd} L {L} causal "
+                                             f"{causal}: " + "; ".join(bad))
+                    group["fwd"] = max(group["fwd"], err)
+                    n_cases += 1
+            worst = {"fwd": max(worst["fwd"], group["fwd"]), "dq": max(worst["dq"], group["bwd"]),
+                     "db": max(worst["db"], group["db"])}
+            dq_tol = ("one bf16 ulp at max|ref|" if dtype == torch.bfloat16
+                      else "2e-5 x max(1, |ref|)")
+            print(f"[long-kernels] {name} hd {hd}, batch {B}, {H} heads, L {lengths}, causal "
+                  f"and not: forward max abs err {group['fwd']:.3g} (tol {KERNEL_TOL[name]:g}), "
+                  f"lse within 1e-5 x max(1, |lse|), the same context with and without lse; "
+                  f"backward (saved lse with db, recompute, recompute with db) dqkv max abs err "
+                  f"{group['bwd']:.3g} within {dq_tol}, db {group['db']:.3g}; dqkv and db the "
+                  f"same bits on a rerun", flush=True)
+
+    # times at ViT-L-14-336's image tower, bf16, no mask
+    Bt, L, Ht, hd = LONG_TIMED
+    qkv = torch.randn((Bt, L, 3 * Ht * hd), generator=gen, device="cuda").bfloat16()
+    g = torch.randn((Bt, L, Ht * hd), generator=gen, device="cuda").bfloat16()
+    out, lse = al.fused_attention_long_lse(qkv, None, Ht)
+    dqkv, db = al.fused_attention_long_bwd(qkv, None, lse, g, Ht)
+    r = al.long_bwd_dq(qkv, None, lse, g, Ht, torch.empty_like(qkv))
+    want_out, want_lse = fa.reference_attention_lse(qkv, None, Ht)
+    want_dqkv, want_db = fa.reference_attention_bwd(qkv, None, lse, g, Ht)
+    torch.cuda.synchronize()
+    errs = {"fwd": (out.float() - want_out.float()).abs().max().item(),
+            "dqkv": (dqkv.float() - want_dqkv.float()).abs().max().item(),
+            "r": (r - al.reference_long_r(qkv, None, lse, g, Ht)).abs().max().item(),
+            "db": (db - want_db).abs().max().item()}
+    if not (errs["fwd"] <= KERNEL_TOL["bfloat16"]
+            and errs["dqkv"] <= bwd_tol(torch.bfloat16, want_dqkv.float())
+            and errs["db"] <= train_tol(torch.bfloat16, want_db) + 1e-4):
+        raise AssertionError(f"[long-kernels] timed shape {tuple(qkv.shape)}: errors {errs}")
+    dbuf = torch.empty_like(qkv)
+    D = Ht * hd
+
+    def plain_dq():
+        d = fa.reference_attention_bwd(qkv, None, lse, g, Ht)[0]
+        return d[..., :D], al.reference_long_r(qkv, None, lse, g, Ht)
+
+    library = sdpa_ms(qkv, None, Ht)
+    rows = {
+        "fwd": dict(ms=median_ms(lambda: al.fused_attention_long_lse(qkv, None, Ht)),
+                    plain_ms=median_ms(lambda: fa.reference_attention_lse(qkv, None, Ht), 3, 3),
+                    library_ms=library["fwd_lse"], err=errs["fwd"]),
+        "dq": dict(ms=median_ms(lambda: al.long_bwd_dq(qkv, None, lse, g, Ht, dbuf)),
+                   plain_ms=median_ms(plain_dq, 3, 3), library_ms=None, err=errs["dqkv"]),
+        "dkdv": dict(ms=median_ms(lambda: al.long_bwd_dkdv(qkv, None, lse, r, g, Ht, dbuf)),
+                     plain_ms=median_ms(lambda: fa.reference_attention_bwd(qkv, None, lse, g,
+                                                                           Ht)[0][..., D:], 3, 3),
+                     library_ms=None, err=errs["dqkv"]),
+        "db": dict(ms=median_ms(lambda: al.long_db(dqkv)),
+                   plain_ms=median_ms(lambda: dqkv.float().sum(dim=(0, 1))),
+                   library_ms=median_ms(lambda: torch.sum(dqkv, dim=(0, 1), dtype=torch.float32)),
+                   err=errs["db"]),
+    }
+    rows["fwd"]["bound_ms"], rows["fwd"]["bound_by"] = attention_bound(qkv, Ht, "fwd_lse")
+    for k in ("dq", "dkdv", "db"):
+        rows[k]["bound_ms"], rows[k]["bound_by"] = long_bound(qkv, Ht, k)
+    bwd_ms = median_ms(lambda: al.fused_attention_long_bwd(qkv, None, lse, g, Ht))
+    bwd_bound = attention_bound(qkv, Ht, "bwd")[0]
+    rows["dq"].update(bwd_ms=bwd_ms, bwd_library_ms=library["bwd"], bwd_bound_ms=bwd_bound)
+    print(f"[long-kernels] timed at qkv {tuple(qkv.shape)} bf16, no mask (ViT-L-14-336's image "
+          f"tower, batch {Bt}): " + "; ".join(
+              f"{k} {v['ms']:.4f} ms vs plain {v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} "
+              f"ms ({v['bound_by']}), library "
+              f"{'none' if v['library_ms'] is None else format(v['library_ms'], '.4f') + ' ms'}"
+              for k, v in rows.items())
+          + f"; the whole backward (dQ, dK/dV, db) {bwd_ms:.4f} ms vs SDPA's backward "
+          f"{library['bwd']:.4f} ms (retained graph), bound {bwd_bound:.4f} ms; errors {errs}; "
+          f"{n_cases} cases checked", flush=True)
+    rows["worst"] = worst
+    return rows
+
+
+def vitl_serve_phase() -> dict:
+    """34. ViT-L-14 (bf16, batch 64) through the embedding server on
+    127.0.0.1: 64 texts and 64 raw tiles, exactly 36 resident inference
+    forwards (24 image + 12 text layers; L 257 is within the resident
+    forward's 528 at hd 64) and no other attention; every embedding against
+    the same weights in f32 on the CPU by cosine; encode times."""
+    from http.server import ThreadingHTTPServer
+
+    import torch
+
+    from spatial_clip_tpu_torch import create_model
+    from spatial_clip_tpu_torch.models.transforms import normalize_batch
+    from spatial_clip_tpu_torch.serve import EmbeddingService, make_handler
+
+    t0 = time.perf_counter()
+    service = EmbeddingService("ViT-L-14", precision="bf16", batch_size=VITL_BATCH,
+                               device="cuda")
+    service.warmup()
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(service))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    port = server.server_address[1]
+    counters = every_counter()
+    try:
+        dim = int(service.model.cfg.embed_dim)
+        texts = [f"spatial spot {i}: gene {i * 13 % 101} high in tumor stroma" for i in range(64)]
+        tiles = np.random.default_rng(34).integers(0, 256, (64, 224, 224, 3), dtype=np.uint8)
+        for c in counters.values():
+            c.launches = 0
+        txt = embeddings(post(port, "/embed_text", json.dumps({"texts": texts})))
+        img = embeddings(post(port, "/embed_image_raw", tiles.tobytes()))
+        launches = read_launches(counters)
+        want_launches = {"fused_attention.fused_attention": 24 + 12}
+        check_embeddings("vitl text", txt, 64, dim)
+        check_embeddings("vitl image", img, 64, dim)
+        model, tokenizer = service.model, service.tokenizer
+        x64 = normalize_batch(torch.from_numpy(tiles).cuda(), dtype=model.dtype)
+        ids64 = torch.from_numpy(tokenizer(texts)).long().cuda()
+        with torch.inference_mode():
+            img_ms = host_median_ms(lambda: model.encode_image(x64), reps=5)
+            txt_ms = host_median_ms(lambda: model.encode_text(ids64), reps=5)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        service.close()
+    del service, model
+    torch.cuda.empty_cache()
+    reference = create_model("ViT-L-14", precision="fp32", seed=0, device="cpu")
+    with torch.inference_mode():
+        want_txt = reference.encode_text(torch.from_numpy(tokenizer(texts)).long()).numpy()
+        want_img = reference.encode_image(normalize_batch(torch.from_numpy(tiles))).numpy()
+    cos = {"text": float((txt * want_txt).sum(-1).min()),
+           "image": float((img * want_img).sum(-1).min())}
+    if launches != want_launches or min(cos.values()) < MIN_COSINE:
+        raise AssertionError(f"[vitl-serve] launches {launches} (want {want_launches}), min "
+                             f"cosine vs f32 CPU {cos}")
+    print(f"[vitl-serve] ViT-L-14 bf16 batch {VITL_BATCH} through the server: 64 texts and 64 "
+          f"raw tiles, 200 OK, unit norm, launches {launches} (24 image + 12 text layers, "
+          f"resident at L 257 and 77); min cosine vs f32 CPU text {cos['text']:.5f} image "
+          f"{cos['image']:.5f} (>= {MIN_COSINE}); encode_image 64 tiles {img_ms:.3f} ms, "
+          f"encode_text 64 texts {txt_ms:.3f} ms; {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"launches": launches, "img_ms": img_ms, "txt_ms": txt_ms, "cos": cos}
+
+
+def long_train_phase(label: str, model_name: str, check_batch: int, batch: int,
+                     per_step: dict) -> dict:
+    """35 (ViT-L-14) and 36 (ViT-L-14-336). Phase 7's card-vs-CPU step at
+    ``check_batch`` with exactly ``per_step`` launches, then WARMUP_STEPS +
+    TIMED_STEPS steps at ``batch`` with exactly ``per_step`` launches a step
+    and none of any other wrapper: finite losses and gradient norms, median
+    step ms, pairs/s, peak memory."""
+    import torch
+
+    from spatial_clip_tpu_torch.bench import synthetic_batch
+
+    trainer = train_check_phase(f"{label}-check", batch_size=check_batch, model_name=model_name,
+                                want_launches=per_step)
+    data = synthetic_batch(trainer.model, batch)
+    counters = every_counter()
+    names = list(counters)
+    counts, step_ms, history, peak = timed_steps(label, trainer, data, VITL_STEPS,
+                                                 [counters[k] for k in names])
+    launches = {k: n for k, n in zip(names, counts) if n}
+    want = {k: n * VITL_STEPS for k, n in per_step.items()}
+    if launches != want:
+        raise AssertionError(f"[{label}] launches {launches}, want {want}")
+    med = statistics.median(step_ms[WARMUP_STEPS:])
+    print(f"[{label}] {model_name} bf16 batch {batch}: {VITL_STEPS} steps, launches {launches} "
+          f"(= {VITL_STEPS} x {per_step}); losses finite {history[0][0]:.4f} -> "
+          f"{history[-1][0]:.4f}, grad norms finite; median step {med:.3f} ms over "
+          f"{TIMED_STEPS} ({batch * 1e3 / med:.1f} pairs/s); max_memory_allocated "
+          f"{peak / 2 ** 30:.3f} GiB", flush=True)
+    del trainer, data
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": med, "peak_gib": peak / 2 ** 30}
+
+
+def so400m_phase() -> dict:
+    """37. ViT-SO400M-14-SigLIP (bf16): one forward of 8 tiles and 8 rows of
+    token ids, against the same weights in f32 on the CPU by per-row cosine.
+    The image tower (27 layers, L 257, 18 heads of 64) takes the resident
+    inference kernel, the text tower (27 layers, 16 heads of 72, which JAX's
+    gate groups no heads of) the plain einsum route: exactly 27 and 27."""
+    import torch
+
+    from spatial_clip_tpu_torch import create_model
+    from spatial_clip_tpu_torch.models.transforms import normalize_batch
+
+    t0 = time.perf_counter()
+    name = "ViT-SO400M-14-SigLIP"
+    card = create_model(name, precision="bf16", seed=0, device="cuda")
+    cfg = card.cfg
+    rng = np.random.default_rng(37)
+    tiles = rng.integers(0, 256, (8, cfg.vision_cfg.size, cfg.vision_cfg.size, 3), dtype=np.uint8)
+    ids = torch.from_numpy(rng.integers(0, cfg.text_cfg.vocab_size,
+                                        (8, cfg.text_cfg.context_length)))
+    counters = every_counter()
+    for c in counters.values():
+        c.launches = 0
+    with torch.inference_mode():
+        got = card(normalize_batch(torch.from_numpy(tiles).cuda(), dtype=card.dtype), ids.cuda())
+        torch.cuda.synchronize()
+    launches = read_launches(counters)
+    got = {k: got[k].float().cpu().numpy() for k in ("image_features", "text_features")}
+    del card
+    torch.cuda.empty_cache()
+    cpu = create_model(name, precision="fp32", seed=0, device="cpu")
+    with torch.inference_mode():
+        want = cpu(normalize_batch(torch.from_numpy(tiles)), ids)
+    cos = {k: float((got[k] * want[k].numpy()).sum(-1).min()) for k in got}
+    layers = cfg.vision_cfg.layers
+    want_launches = {"fused_attention.fused_attention": layers,
+                     "attention_plain.plain_attention": cfg.text_cfg.layers}
+    finite = all(np.isfinite(v).all() for v in got.values())
+    if launches != want_launches or min(cos.values()) < MIN_COSINE or not finite:
+        raise AssertionError(f"[so400m] launches {launches} (want {want_launches}), cosine {cos}, "
+                             f"finite {finite}")
+    print(f"[so400m] {name} bf16, 8 tiles and 8 id rows, one forward: launches {launches} "
+          f"(image tower resident at L 257, {cfg.vision_cfg.heads} heads of "
+          f"{cfg.vision_cfg.width // cfg.vision_cfg.heads}; text tower {cfg.text_cfg.heads} heads "
+          f"of {cfg.text_cfg.width // cfg.text_cfg.heads} on the plain route); min cosine vs f32 "
+          f"CPU image {cos['image_features']:.5f} text {cos['text_features']:.5f} (>= "
+          f"{MIN_COSINE}); {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"launches": launches, "cos": cos}
+
+
+def smoke_synthetic_phase() -> dict:
+    """38. ``experiment=smoke_synthetic`` (ViT-Test as it is, fp32, heads of
+    16) through ``spatial_clip_tpu_torch.train`` and ``.eval`` on the card:
+    no attention kernel launches, and the plain route 2 layers x 2 towers a
+    forward, for each train step and each val and test batch."""
+    import torch
+
+    from spatial_clip_tpu_torch import eval as port_eval
+    from spatial_clip_tpu_torch.train import entry
+
+    counters = every_counter()
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="smoke_", dir=build))
+    try:
+        base = ["experiment=smoke_synthetic"]
+        cfg = entry.compose_train([*base, "save_ckpt=true", "test=true",
+                                   f"paths.root_dir={root / 'run'}"])
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        value, objects = entry.train(cfg)
+        run_s = time.perf_counter() - t0
+        launches = read_launches(counters)
+        metrics, state = objects["metrics"], objects["state"]
+        per_forward = 2 * 2  # ViT-Test: 2 layers in each tower
+        batch = int(cfg["data"]["batch_size"])
+        eval_batches = -(-int(metrics["test/num_samples"]) // batch)
+        want = {"attention_plain.plain_attention":
+                per_forward * (state.step + 2 * eval_batches)}  # val, then the same split as test
+        if (launches != want or not np.isfinite(value)
+                or str(objects["model"].dtype) != "torch.float32"):
+            raise AssertionError(f"[smoke-synthetic] train launches {launches} (want {want}), "
+                                 f"value {value}, dtype {objects['model'].dtype}")
+        for c in counters.values():
+            c.launches = 0
+        got = port_eval.main([*base, f"paths.root_dir={root / 'eval'}",
+                              f"ckpt_path={Path(cfg['paths']['output_dir']) / 'checkpoints'}"])
+        eval_launches = read_launches(counters)
+        want_eval = {"attention_plain.plain_attention": per_forward * eval_batches}
+        test = {k: float(v) for k, v in metrics.items() if k.startswith("test/")}
+        if eval_launches != want_eval or got != test:
+            raise AssertionError(f"[smoke-synthetic] eval launches {eval_launches} (want "
+                                 f"{want_eval}), metrics {got} vs {test}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    print(f"[smoke-synthetic] python -m spatial_clip_tpu_torch.train experiment=smoke_synthetic "
+          f"on {torch.cuda.get_device_name(0)}: ViT-Test fp32 (2 heads of 16), {state.step} "
+          f"steps in {run_s:.1f} s, val/loss {metrics['val/loss']:.4f}; launches {launches} (no "
+          f"attention kernel; {per_forward} plain calls a forward); .eval on the checkpoints: "
+          f"launches {eval_launches}, the train run's {len(got)} test metrics", flush=True)
+    return {"train_launches": launches, "eval_launches": eval_launches}
 
 
 if __name__ == "__main__":

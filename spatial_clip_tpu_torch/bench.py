@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from spatial_clip_tpu_torch.losses import make_loss
+from spatial_clip_tpu_torch.models.config import ATTN_IMPLS
 from spatial_clip_tpu_torch.models.factory import create_model
 from spatial_clip_tpu_torch.ops import fused_attention
 from spatial_clip_tpu_torch.train.loop import Trainer, TrainerConfig
@@ -45,7 +46,7 @@ NEIGHBORS = 6
 # the model settings the command line passes to create_model, with their values
 MODEL_SETTINGS = {
     "zip_towers": ("off", "auto", "on"),
-    "attn_impl": ("auto", "pallas", "pallas3", "pallas_inter", "pallas_t", "pallas_split"),
+    "attn_impl": ATTN_IMPLS,
     "ln_impl": ("onepass", "fp32", "pallas"),
     "ln_gemm_impl": ("dense", "pallas"),
     "mlp_impl": ("dense", "pallas"),

@@ -10,19 +10,23 @@
 // attn_bwd_block is the standard (batch, seq, 3 heads HD) layout's caller.
 //
 // Two bodies, picked by the element type alone, never by the shape:
-//   - bf16, every L in 1..256 at hd 32 and 64, 1..192 at hd 128:
+//   - bf16, every L whose q, k, v and do fit a block's shared memory (640 /
+//     352 / 192 at hd 32 / 64 / 128, kMaxSmem):
 //     tc::attn_bwd_head, the five products on the tensor cores (mma.sync
 //     m16n8k16, bf16 in, f32 accumulate). It replaces the TPU's
 //     `_bwd_kernel3_db_lse`, `_bwd_kernel`, `_bwd_kernel3` and
 //     `_bwd_kernel3_db` (spatial_clip_tpu/ops/fused_attention.py:436, :379,
 //     :390, :404) and the pair, layout and dx backwards built on them;
-//   - f32: simt::attn_bwd_head, on the CUDA cores. TF32 products would miss
-//     the f32 kernels' 1e-5 / 2e-5 tolerances.
+//   - f32, L up to 256 (kMaxSimtSeq) where shared memory holds the p and ds
+//     tiles (130 / 106 / 72 at hd 32 / 64 / 128): simt::attn_bwd_head, on
+//     the CUDA cores. TF32 products would miss the f32 kernels' 1e-5 / 2e-5
+//     tolerances.
 // The math and the design are described in fused_attention_bwd.cu. A block
 // of threads<T>(seq) threads runs a body (the tensor-core body takes any
 // whole number of warps, the CUDA-core body exactly simt::kWarps); the
 // caller hands it smem_bytes<T, HD>(seq) bytes of shared memory, 16-byte
-// aligned.
+// aligned. takes<T, HD>(seq) says whether a body takes a length; longer
+// sequences go to the key-tiled kernels of attention_long.cu.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -37,7 +41,9 @@
 namespace sc {
 namespace bwd {
 
-constexpr int kMaxSeq = 256;
+// The f32 body keeps a row's scores in registers, kMaxKeysPerLane a lane:
+// it takes L <= kMaxSimtSeq. The bf16 body keeps none.
+constexpr int kMaxSimtSeq = 256;
 constexpr size_t kMaxSmem = 232448;  // 227 KB, the most a block may use on sm_90
 
 namespace simt {
@@ -46,7 +52,7 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRows = 2;  // query rows per warp pass (phase 1)
 constexpr int kCols = 4;  // key rows per warp pass (phase 2)
-constexpr int kMaxKeysPerLane = kMaxSeq / 32;
+constexpr int kMaxKeysPerLane = kMaxSimtSeq / 32;
 
 template <typename T, int HD>
 struct Layout {
@@ -749,6 +755,15 @@ __host__ __device__ inline size_t smem_bytes(int seq) {
   } else {
     return tc::Layout<HD>::smem_bytes(seq);
   }
+}
+
+// Whether the body for T takes a sequence of seq at HD: its operands within
+// a block's shared memory, and (f32) its scores within the register arrays.
+// Mirrored by ops/fused_attention.py bwd_max_seq.
+template <typename T, int HD>
+__host__ __device__ inline bool takes(int seq) {
+  return seq >= 1 && smem_bytes<T, HD>(seq) <= kMaxSmem &&
+         (!std::is_same_v<T, float> || seq <= kMaxSimtSeq);
 }
 
 // One head of one sequence: row i of q, k and v at q_g, k_g, v_g + i *

@@ -90,7 +90,10 @@
 
 namespace {
 
-using sc::bwd::kMaxSeq;
+// The lengths these kernels take: the bodies' own limits reach further
+// (sc::fwd::takes, sc::bwd::takes), but these kernels are held to L <= 256;
+// longer sequences through them are ROADMAP Queue 2 A1.
+constexpr int kMaxSeq = 256;
 using sc::bwd::kMaxSmem;
 
 using bf16 = __nv_bfloat16;

@@ -10,18 +10,22 @@
 //     k and v in shared memory, simt::attn_fwd_head).
 //
 // Two bodies, picked by the element type alone, never by the shape:
-//   - bf16, every L in 1..256 and hd 32 / 64 / 128: tc::attn_fwd_head, both
+//   - bf16, every L whose q, k and v fit a block's shared memory (944 / 528
+//     / 272 at hd 32 / 64 / 128, kMaxSmem) and hd 32 / 64 / 128: tc::attn_fwd_head, both
 //     products on the tensor cores (mma.sync m16n8k16, bf16 in, f32
 //     accumulate). It replaces the TPU's `_fwd_kernel` and `_fwd_kernel_lse`
 //     (spatial_clip_tpu/ops/fused_attention.py:267, :350) and the layout and
 //     pair kernels built on them;
-//   - f32: simt::attn_fwd_head, on the CUDA cores. TF32 products would miss
-//     the f32 kernels' 1e-5 / 2e-5 tolerances by orders of magnitude, and
+//   - f32, L in 1..256 (kMaxSimtSeq): simt::attn_fwd_head, on the CUDA
+//     cores. TF32 products would miss the f32 kernels' 1e-5 / 2e-5
+//     tolerances by orders of magnitude, and
 //     3xTF32 is not worth its code while f32 runs on no model path.
 // The math, the design and what bounds each body are described in
 // fused_attention_fwd.cu. A block of threads<T>(seq) threads (at most
 // kMaxThreads<T>) runs a body; the caller hands it smem_bytes<T, HD>(seq)
-// bytes of shared memory, 16-byte aligned.
+// bytes of shared memory, 16-byte aligned. takes<T, HD>(seq) says whether a
+// body takes a length; longer sequences go to the key-tiled kernels of
+// attention_long.cu.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -36,14 +40,18 @@
 namespace sc {
 namespace fwd {
 
-constexpr int kMaxSeq = 256;
+// The f32 body keeps a row's scores in registers, kMaxKeysPerLane a lane:
+// it takes L <= kMaxSimtSeq. The bf16 body keeps none; shared memory alone
+// bounds it.
+constexpr int kMaxSimtSeq = 256;
+constexpr size_t kMaxSmem = 232448;  // 227 KB, the most a block may use on sm_90
 
 namespace simt {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRows = 2;  // query rows per warp pass
-constexpr int kMaxKeysPerLane = kMaxSeq / 32;
+constexpr int kMaxKeysPerLane = kMaxSimtSeq / 32;
 
 template <typename T, int HD>
 struct Layout {
@@ -463,6 +471,16 @@ __host__ __device__ inline size_t smem_bytes(int seq) {
   } else {
     return tc::Layout<HD>::smem_bytes(seq);
   }
+}
+
+// Whether the body for T takes a sequence of seq at HD: its q, k and v (f32:
+// its K and warp rows) within a block's shared memory, and (f32) its scores
+// within the register arrays. Mirrored by ops/fused_attention.py
+// fwd_max_seq.
+template <typename T, int HD>
+__host__ __device__ inline bool takes(int seq) {
+  return seq >= 1 && smem_bytes<T, HD>(seq) <= kMaxSmem &&
+         (!std::is_same_v<T, float> || seq <= kMaxSimtSeq);
 }
 
 // One head of one sequence: row i of q, k and v at q_g, k_g, v_g + i *

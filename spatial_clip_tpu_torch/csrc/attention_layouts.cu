@@ -64,7 +64,10 @@ namespace {
 // The forward and backward are separate launches, each with its body's
 // block shape by element type and length (sc::fwd::threads,
 // sc::bwd::threads).
-constexpr int kMaxSeq = sc::fwd::kMaxSeq;
+// The lengths these kernels take: the bodies' own limits reach further
+// (sc::fwd::takes, sc::bwd::takes), but these kernels are held to L <= 256;
+// longer sequences through them are ROADMAP Queue 2 A1.
+constexpr int kMaxSeq = 256;
 constexpr size_t kMaxSmem = sc::bwd::kMaxSmem;
 
 // Three operands (q, k, v, or dq, dk, dv) of one layout: row i of head h of

@@ -49,7 +49,10 @@ namespace {
 // The forward and backward are separate launches, each with its body's
 // block shape by element type and length (sc::fwd::threads,
 // sc::bwd::threads): the larger tower's.
-constexpr int kMaxSeq = sc::fwd::kMaxSeq;
+// The lengths these kernels take: the bodies' own limits reach further
+// (sc::fwd::takes, sc::bwd::takes), but these kernels are held to L <= 256;
+// longer sequences through them are ROADMAP Queue 2 A1.
+constexpr int kMaxSeq = 256;
 constexpr size_t kMaxSmem = sc::bwd::kMaxSmem;
 
 // The launch bounds: the smaller of the two bodies' block counts.

@@ -57,7 +57,8 @@
 //     expected to match the first pass) and forms dv and dk. Rows of up to
 //     kHold key chunks keep s and dp in registers through the first pass.
 //     So shared memory is four padded L x hd tiles and 3 + 12 hd / 16 bytes
-//     a row: every L up to 256 at hd 32 and 64, up to 192 at hd 128;
+//     a row: every L up to 640 / 352 / 192 at hd 32 / 64 / 128; longer
+//     sequences take the key-tiled kernels of attention_long.cu;
 //   - db (db options): each 16-row tile's column sums of its rounded dq, dk
 //     and dv, added in tile order into one partial per block; a second small
 //     kernel (attention_db.cuh) adds the B partials of each column in a
@@ -91,7 +92,6 @@
 
 namespace {
 
-using sc::bwd::kMaxSeq;
 using sc::bwd::kMaxSmem;
 using sc::bwd::kMaxThreads;
 
@@ -113,8 +113,8 @@ template <typename T, int HD, bool kRecompute, bool kDb>
 cudaError_t launch(const void* qkv, const float* mask, const float* lse, const void* dout,
                    void* dqkv, float* db_part, float* db, int batch, int seq, int heads,
                    float scale, cudaStream_t stream) {
+  if (!sc::bwd::takes<T, HD>(seq)) return cudaErrorInvalidValue;
   const size_t smem = sc::bwd::smem_bytes<T, HD>(seq);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
   auto kernel = attn_bwd_kernel<T, HD, kRecompute, kDb>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
@@ -131,7 +131,7 @@ template <bool kRecompute, bool kDb>
 int dispatch(const void* qkv, const void* mask, const void* lse, const void* dout, void* dqkv,
              void* db_part, void* db, int batch, int seq, int heads, int head_dim, int dtype,
              float scale, void* stream) {
-  if (batch < 1 || heads < 1 || seq < 1 || seq > kMaxSeq) return int(cudaErrorInvalidValue);
+  if (batch < 1 || heads < 1 || seq < 1) return int(cudaErrorInvalidValue);
   if ((reinterpret_cast<uintptr_t>(qkv) | reinterpret_cast<uintptr_t>(dout) |
        reinterpret_cast<uintptr_t>(dqkv)) % 16 != 0)
     return int(cudaErrorMisalignedAddress);
@@ -154,6 +154,18 @@ extern "C" size_t sc_attention_bwd_smem_bytes(int seq, int head_dim, int dtype) 
     return cudaSuccess;
   });
   return bytes;
+}
+
+// The longest sequence the backward body takes at this head dim and dtype (0
+// for a geometry it does not take). Mirrored by ops/fused_attention.py
+// bwd_max_seq.
+extern "C" int sc_attention_bwd_max_seq(int head_dim, int dtype) {
+  int longest = 0;
+  sc::with_type(dtype, head_dim, [&](auto zero, auto hd) {
+    while (sc::bwd::takes<decltype(zero), decltype(hd)::value>(longest + 1)) ++longest;
+    return cudaSuccess;
+  });
+  return longest;
 }
 
 // qkv: (batch, seq, 3 * heads * head_dim); mask: (seq, seq) f32 additive or null;
@@ -192,7 +204,7 @@ extern "C" int sc_attention_bwd_recompute_db(const void* qkv, const void* mask,
 // saved lse with db (sc_attention_bwd), 1 = recompute, 2 = recompute with db.
 extern "C" int sc_attention_bwd_occupancy(int seq, int head_dim, int dtype, int option,
                                           int* regs, int* local_bytes, int* blocks_per_sm) {
-  if (seq < 1 || seq > kMaxSeq || option < 0 || option > 2) return int(cudaErrorInvalidValue);
+  if (option < 0 || option > 2) return int(cudaErrorInvalidValue);
   auto query = [&](auto kernel, int threads, size_t smem) {
     if (smem > kMaxSmem) return cudaErrorInvalidValue;
     cudaFuncAttributes attr{};
@@ -208,6 +220,7 @@ extern "C" int sc_attention_bwd_occupancy(int seq, int head_dim, int dtype, int 
   return int(sc::with_type(dtype, head_dim, [&](auto zero, auto hd) {
     using T = decltype(zero);
     constexpr int HD = decltype(hd)::value;
+    if (!sc::bwd::takes<T, HD>(seq)) return cudaErrorInvalidValue;
     const int threads = sc::bwd::threads<T>(seq);
     const size_t smem = sc::bwd::smem_bytes<T, HD>(seq);
     switch (option) {

@@ -30,7 +30,9 @@
 //     e = exp(s - max), sums the unrounded e and feeds e rounded to bf16
 //     from the score accumulators straight into P v as the A operand. No
 //     running rescale, and no score row held whole, so one body takes every
-//     L up to 256 and hd up to 128 at the same register count;
+//     L whose q, k and v fit shared memory (up to 944 / 528 / 272 at hd 32 /
+//     64 / 128) at the same register count; longer sequences take the
+//     key-tiled kernels of attention_long.cu;
 //   - keys past L give e = 0 by a predicate; query rows past L are computed
 //     and never stored; the context goes out through shared memory as
 //     16-byte rows.
@@ -72,7 +74,6 @@
 
 namespace {
 
-using sc::fwd::kMaxSeq;
 using sc::fwd::kMaxThreads;
 
 // One block per (batch, head); the body is sc::fwd::attn_fwd_block.
@@ -89,6 +90,7 @@ attn_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
 template <typename T, int HD>
 cudaError_t launch(const void* qkv, const float* mask, void* out, float* lse, int batch,
                    int seq, int heads, float scale, cudaStream_t stream) {
+  if (!sc::fwd::takes<T, HD>(seq)) return cudaErrorInvalidValue;
   const size_t smem = sc::fwd::smem_bytes<T, HD>(seq);
   cudaError_t err = cudaFuncSetAttribute(
       attn_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
@@ -105,7 +107,7 @@ cudaError_t launch(const void* qkv, const float* mask, void* out, float* lse, in
 extern "C" int sc_attention_fwd(const void* qkv, const void* mask, void* out, void* lse,
                                 int batch, int seq, int heads, int head_dim, int dtype,
                                 float scale, void* stream) {
-  if (batch < 1 || heads < 1 || seq < 1 || seq > kMaxSeq) return int(cudaErrorInvalidValue);
+  if (batch < 1 || heads < 1 || seq < 1) return int(cudaErrorInvalidValue);
   if ((reinterpret_cast<uintptr_t>(qkv) | reinterpret_cast<uintptr_t>(out)) % 16 != 0)
     return int(cudaErrorMisalignedAddress);
   return int(sc::with_type(dtype, head_dim, [&](auto zero, auto hd) {
@@ -119,22 +121,35 @@ extern "C" int sc_attention_fwd(const void* qkv, const void* mask, void* out, vo
 // Shared memory one block of the forward takes at this geometry, 0 for one
 // it does not take. Mirrored by ops/fused_attention.py fwd_smem_bytes.
 extern "C" size_t sc_attention_fwd_smem_bytes(int seq, int head_dim, int dtype) {
-  if (seq < 1 || seq > kMaxSeq) return 0;
   size_t bytes = 0;
   sc::with_type(dtype, head_dim, [&](auto zero, auto hd) {
-    bytes = sc::fwd::smem_bytes<decltype(zero), decltype(hd)::value>(seq);
+    using T = decltype(zero);
+    constexpr int HD = decltype(hd)::value;
+    if (sc::fwd::takes<T, HD>(seq)) bytes = sc::fwd::smem_bytes<T, HD>(seq);
     return cudaSuccess;
   });
   return bytes;
+}
+
+// The longest sequence the forward body takes at this head dim and dtype (0
+// for a geometry it does not take). Mirrored by ops/fused_attention.py
+// fwd_max_seq.
+extern "C" int sc_attention_fwd_max_seq(int head_dim, int dtype) {
+  int longest = 0;
+  sc::with_type(dtype, head_dim, [&](auto zero, auto hd) {
+    while (sc::fwd::takes<decltype(zero), decltype(hd)::value>(longest + 1)) ++longest;
+    return cudaSuccess;
+  });
+  return longest;
 }
 
 // The forward kernel's registers a thread, local (spill) bytes a thread and
 // resident blocks an SM at this geometry, for the build report.
 extern "C" int sc_attention_fwd_occupancy(int seq, int head_dim, int dtype, int* regs,
                                           int* local_bytes, int* blocks_per_sm) {
-  if (seq < 1 || seq > kMaxSeq) return int(cudaErrorInvalidValue);
   return int(sc::with_type(dtype, head_dim, [&](auto zero, auto hd) {
     using T = decltype(zero);
+    if (!sc::fwd::takes<T, decltype(hd)::value>(seq)) return cudaErrorInvalidValue;
     auto kernel = attn_fwd_kernel<T, decltype(hd)::value>;
     const size_t smem = sc::fwd::smem_bytes<T, decltype(hd)::value>(seq);
     cudaFuncAttributes attr{};

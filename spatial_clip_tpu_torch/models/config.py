@@ -35,6 +35,9 @@ IGNORED_KEYS = frozenset({
 })
 # the text pool types text_global_pool computes, as the JAX towers do
 TEXT_POOL_TYPES = ("argmax", "last", "first", "avg", "none")
+# the attn_impl settings the towers take: the kernels' and JAX's plain routes
+ATTN_IMPLS = ("auto", "pallas", "pallas3", "pallas_inter", "pallas_t", "pallas_split",
+              "einsum", "einsum_bf16", "xla", "fold", "fold_bf16")
 
 
 def _filter_kwargs(cls, cfg: Dict[str, Any]) -> Dict[str, Any]:
@@ -124,7 +127,9 @@ class CLIPCfg:
     multimodal_cfg: Optional[Dict[str, Any]] = None
     # auto | pallas3 (the qkv GEMM and attention as one autograd function) |
     # pallas (with ln_gemm_impl='pallas': ln_1 -> qkv fused, then attention) |
-    # pallas_inter | pallas_t | pallas_split (other layouts of the kernels)
+    # pallas_inter | pallas_t | pallas_split (other layouts of the kernels);
+    # each takes JAX's einsum attention where JAX's gate refuses its kernel |
+    # einsum | einsum_bf16 | xla | fold | fold_bf16 (JAX's plain routes)
     attn_impl: str = "auto"
     # off | auto (JAX zips only on a TPU: the towers run apart here) | on (each
     # layer's image and text attention as one pair-kernel launch)
@@ -167,8 +172,7 @@ def check_ported(cfg: CLIPCfg) -> None:
     v, t = cfg.vision_cfg, cfg.text_cfg
     unported = [
         ("multimodal_cfg", cfg.multimodal_cfg, cfg.multimodal_cfg is not None),
-        ("attn_impl", cfg.attn_impl, cfg.attn_impl not in ("auto", "pallas", "pallas3", "pallas_inter",
-                                                          "pallas_t", "pallas_split")),
+        ("attn_impl", cfg.attn_impl, cfg.attn_impl not in ATTN_IMPLS),
         ("zip_towers", cfg.zip_towers, cfg.zip_towers not in ("off", "auto", "on")),
         ("mlp_impl", cfg.mlp_impl, cfg.mlp_impl not in ("dense", "pallas")),
         ("ln_gemm_impl", cfg.ln_gemm_impl, cfg.ln_gemm_impl not in ("dense", "pallas")),

@@ -24,7 +24,11 @@ compute dtype (the cast is then a no-op), a training model in float32.
 LayerNorm parameters and the logit scale are always float32. Images are
 NHWC, as in the JAX package.
 
-With grad enabled, attention runs through :class:`QKVAttention`, whose
+Attention takes the kernels where JAX's gate does, and JAX's plain
+routes (``ops.attention_plain``: 'einsum', 'einsum_bf16', 'xla', 'fold',
+'fold_bf16') where ``attn_impl`` names one or the gate refuses the kernel
+(:class:`MultiHeadAttention`). On the kernels, with grad enabled, attention
+runs through :class:`QKVAttention`, whose
 forward saves the logsumexp where JAX's does and whose backward is one of
 the hand-written backward kernels, picked as JAX picks it; without grad it
 is the inference kernel alone. Where ln_1 -> qkv is fused, attention
@@ -52,13 +56,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from spatial_clip_tpu_torch.ops import attention_variants, fused_ln, fused_ln_dense, fused_mlp
+from spatial_clip_tpu_torch.ops import (
+    attention_plain,
+    attention_variants,
+    fused_ln,
+    fused_ln_dense,
+    fused_mlp,
+)
 from spatial_clip_tpu_torch.ops import fused_attention as fa
 from spatial_clip_tpu_torch.ops.fused_attention import (
     HEAD_DIMS,
     FusedAttention,
-    bwd_smem_bytes,
-    bwd_supported,
     fused_attention,
     qkv_attention,
     supported,
@@ -174,16 +182,40 @@ class MLP(nn.Module):
         return proj(self.act(fc(x)))
 
 
-class MultiHeadAttention(nn.Module):
-    """Fused-qkv attention: one (B, L, 3D) GEMM, then the fused attention
-    kernel on that raw output, then the output projection.
+def attention_route(impl: str, heads: int, width: int) -> str:
+    """The attention a tower runs under ``attn_impl`` at this head geometry,
+    as JAX's ``Attention`` routes it on a TPU: 'kernel' where JAX's gate
+    (``heads_per_block``) takes a kernel setting to its kernel; else the
+    plain route, the setting's own name for the five plain settings and
+    'einsum' for a kernel setting whose gate fails. A mask with a batch
+    dimension also sends the kernel settings to 'einsum', at call time."""
+    if impl in attention_plain.PLAIN_IMPLS:
+        return impl
+    return "kernel" if attention_variants.attention_supported(heads, width) else "einsum"
 
-    With grad enabled the GEMM and the attention run as one
+
+class MultiHeadAttention(nn.Module):
+    """Fused-qkv attention: one (B, L, 3D) GEMM, then attention on that raw
+    output, then the output projection, routed as JAX's ``Attention`` routes
+    it.
+
+    The kernel settings ('auto', 'pallas', 'pallas3' and the layouts) take
+    the kernels where JAX's gate does: its heads_per_block groups the heads
+    (:func:`attention_variants.attention_supported`) and the mask has no
+    batch dimension; elsewhere they take JAX's einsum attention
+    (``ops.attention_plain``), as do 'einsum', 'einsum_bf16' and 'xla' always
+    and 'fold' / 'fold_bf16' by their own projections. A geometry JAX's gate
+    sends to its kernel but the port's kernels do not take (head_dim 16 with
+    a multiple of 8 heads, head_dim 256) raises: ROADMAP Queue 2 A3.
+
+    On the kernels, with grad enabled the GEMM and the attention run as one
     :class:`QKVAttention` (the forward, with the logsumexp where JAX saves
     it, and the hand-written backward JAX's routing picks); otherwise the
-    inference kernel runs alone. Built for training
-    (``seq_len`` given), it checks that the backward kernel takes the
-    geometry (under ``BWD_FUSE='dxdb'``, the dx kernel too).
+    inference kernel runs alone. The wrappers take the resident kernels up
+    to their lengths and the key-tiled ones past them. Built for training
+    (``seq_len`` given), a layout setting checks that its backward kernel
+    takes the length, and under ``BWD_FUSE='dxdb'`` so does the dx kernel
+    (both keep the sequence resident: ROADMAP Queue 2 A1 past it).
     ``impl='pallas'`` and ``'pallas_inter'`` fuse a pre-LN handed to
     :meth:`forward` into the qkv projection. The layouts, routed in JAX's
     order (``Attention.__call__``): ``'pallas_inter'`` projects with the
@@ -199,27 +231,22 @@ class MultiHeadAttention(nn.Module):
     def __init__(self, width: int, heads: int, dtype, param_dtype, device,
                  seq_len: Optional[int] = None, impl: str = "auto"):
         super().__init__()
-        if not supported(heads, width):
+        self.kernel = attention_route(impl, heads, width) == "kernel"
+        head_dim = width // heads
+        if self.kernel and not supported(heads, width):
             raise NotImplementedError(
-                f"heads={heads} over width={width}: the attention kernel takes "
-                f"head_dim in {HEAD_DIMS}")
-        if seq_len is not None and not bwd_supported(heads, width, seq_len, dtype):
-            raise NotImplementedError(
-                f"training attention over L={seq_len}, head_dim={width // heads} in "
-                f"{dtype}: the backward kernel needs "
-                f"{bwd_smem_bytes(seq_len, width // heads, dtype)} B of shared memory "
-                "per block, more than a block has")
-        if (seq_len is not None and impl not in self.LAYOUTS and fa.BWD_FUSE == "dxdb"
-                and not attention_variants.dx_supported(heads, width, seq_len, width, dtype)):
-            raise NotImplementedError(
-                f"BWD_FUSE='dxdb' over width={width}: the dx kernel takes an input width "
-                "that is a positive multiple of 16")
-        if impl in self.LAYOUTS and attention_variants.heads_per_block(heads,
-                                                                       width // heads) is None:
-            raise NotImplementedError(
-                f"attn_impl={impl!r} with heads={heads}, head_dim={width // heads}: JAX's "
-                "heads_per_block finds no head group there and JAX runs its einsum attention, "
-                "which is not ported")
+                f"heads={heads} over width={width}: JAX's gate sends head_dim {head_dim} to its "
+                f"attention kernel, and the port's attention kernels take head_dim in "
+                f"{HEAD_DIMS} (ROADMAP Queue 2 A3)")
+        if self.kernel and seq_len is not None:
+            if impl in self.LAYOUTS:
+                fa.check_resident(seq_len, head_dim, dtype, True, f"attn_impl={impl!r} training")
+            elif fa.BWD_FUSE == "dxdb":
+                fa.check_resident(seq_len, head_dim, dtype, True, "BWD_FUSE='dxdb' training")
+                if not attention_variants.dx_supported(heads, width, seq_len, width, dtype):
+                    raise NotImplementedError(
+                        f"BWD_FUSE='dxdb' over width={width}: the dx kernel takes an input "
+                        "width that is a positive multiple of 16")
         self.heads, self.dtype, self.impl = heads, dtype, impl
         self.in_proj_weight = _param(3 * width, width, dtype=param_dtype, device=device)
         self.in_proj_bias = _param(3 * width, dtype=param_dtype, device=device)
@@ -230,20 +257,40 @@ class MultiHeadAttention(nn.Module):
         """``ln = (weight, bias, eps)``: x is the raw residual stream; its
         pre-LN is fused into the qkv projection under ``impl='pallas'`` or
         ``'pallas_inter'`` where JAX's gate allows, else applied two-pass
-        here."""
+        here. ``attn_mask``: additive, (L, L) or with leading dimensions;
+        leading dimensions that are not all 1 send the kernel settings to
+        the einsum attention, as in JAX."""
         w, b = self.in_proj_weight, self.in_proj_bias
         impl, heads, dtype = self.impl, self.heads, self.dtype
         width = w.shape[1]
-        if impl == "pallas_inter":
-            w, b = (attention_variants.permute_rows(t, heads, width // heads) for t in (w, b))
+        kernel = self.kernel
+        if attn_mask is not None and attn_mask.dim() > 2:
+            if all(n == 1 for n in attn_mask.shape[:-2]):
+                attn_mask = attn_mask.reshape(attn_mask.shape[-2:])
+            else:
+                kernel = False
         if ln is not None:
             B, L, D = x.shape
-            if impl in ("pallas", "pallas_inter") and fused_ln_dense.supported(D, 3 * D):
+            if (kernel and impl in ("pallas", "pallas_inter")
+                    and fused_ln_dense.supported(D, 3 * D)):
+                if impl == "pallas_inter":
+                    w, b = (attention_variants.permute_rows(t, heads, width // heads)
+                            for t in (w, b))
                 qkv = fused_ln_dense.fused_ln_dense(x.reshape(-1, D).to(dtype), *ln[:2],
                                                     w, b, ln[2]).view(B, L, 3 * D)
                 return self.out_proj(self._attend(qkv, attn_mask, impl == "pallas_inter"))
             x = _ln_apply(x, *ln, dtype)
+        if impl in ("fold", "fold_bf16"):
+            out = self.out_proj
+            return attention_plain.fold_attention(
+                x.to(dtype), w.to(dtype), b.to(dtype), out.weight.to(dtype), out.bias.to(dtype),
+                attn_mask, heads, impl)
+        if not kernel:
+            qkv = F.linear(x, w.to(dtype), b.to(dtype))
+            route = impl if impl in attention_plain.PLAIN_IMPLS else "einsum"
+            return self.out_proj(attention_plain.plain_attention(qkv, attn_mask, heads, route))
         if impl == "pallas_inter":
+            w, b = (attention_variants.permute_rows(t, heads, width // heads) for t in (w, b))
             qkv = F.linear(x, w.to(dtype), b.to(dtype))
             return self.out_proj(self._attend(qkv, attn_mask, True))
         if impl == "pallas_t":

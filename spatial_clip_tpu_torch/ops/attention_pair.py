@@ -31,6 +31,7 @@ from spatial_clip_tpu_torch.ops.fused_attention import (
     _check,
     _check_bwd,
     _check_kernel_device,
+    check_resident_qkv,
     reference_attention,
     reference_attention_bwd,
     supported,
@@ -38,8 +39,13 @@ from spatial_clip_tpu_torch.ops.fused_attention import (
 
 
 def pair_supported(heads_a: int, dim_a: int, heads_b: int, dim_b: int) -> bool:
-    """Whether both towers' head geometries are taken (JAX's ``pair_supported``)."""
-    return supported(heads_a, dim_a) and supported(heads_b, dim_b)
+    """Whether both towers' head geometries are taken (JAX's
+    ``pair_supported``: JAX's gate, ``attention_supported``, on each tower)
+    by the pair kernel's head dims."""
+    from spatial_clip_tpu_torch.ops.attention_variants import attention_supported
+
+    return all(attention_supported(h, d) and supported(h, d)
+               for h, d in ((heads_a, dim_a), (heads_b, dim_b)))
 
 
 def _check_pair(qkv_a, qkv_b) -> None:
@@ -85,6 +91,8 @@ def fused_attention_pair(qkv_a: torch.Tensor, mask_a: Optional[torch.Tensor],
     _check(qkv_a, mask_a, heads_a)
     _check(qkv_b, mask_b, heads_b)
     _check_pair(qkv_a, qkv_b)
+    for qkv, heads in ((qkv_a, heads_a), (qkv_b, heads_b)):
+        check_resident_qkv(qkv, heads, False, "fused_attention_pair")
     if qkv_a.device.type == "cpu":
         return reference_attention_pair(qkv_a, mask_a, qkv_b, mask_b, heads_a, heads_b)
     _check_kernel_device(qkv_a, qkv_b)
@@ -111,11 +119,14 @@ def fused_attention_pair_bwd(qkv_a: torch.Tensor, mask_a: Optional[torch.Tensor]
     context's cotangent (cast to qkv's dtype, as ``_pair_bwd_impl`` casts
     it), returns (dqkv_a, dqkv_b), each in its qkv's shape and dtype, with
     the softmax statistics recomputed and no bias gradient. Each tower must
-    fit the backward kernel (``fused_attention.bwd_supported``). Counts each
+    fit the resident backward body (``fused_attention.check_resident``;
+    longer is ROADMAP Queue 2 A1). Counts each
     kernel launch in ``fused_attention_pair_bwd.launches``."""
     g_a = _check_bwd(qkv_a, mask_a, g_a, heads_a)
     g_b = _check_bwd(qkv_b, mask_b, g_b, heads_b)
     _check_pair(qkv_a, qkv_b)
+    for qkv, heads in ((qkv_a, heads_a), (qkv_b, heads_b)):
+        check_resident_qkv(qkv, heads, True, "fused_attention_pair_bwd")
     if qkv_a.device.type == "cpu":
         return reference_attention_pair_bwd(qkv_a, mask_a, g_a, qkv_b, mask_b, g_b, heads_a,
                                             heads_b)

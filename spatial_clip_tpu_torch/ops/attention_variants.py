@@ -54,8 +54,11 @@ from spatial_clip_tpu_torch.ops.fused_attention import (
     _check_geometry,
     _check_kernel_device,
     _check_mask,
+    VARIANT_MAX_SEQ,
     bwd_smem_bytes,
     bwd_supported,
+    check_resident,
+    check_resident_qkv,
     reference_attention,
     reference_attention_bwd,
 )
@@ -67,7 +70,8 @@ def heads_per_block(heads: int, head_dim: int, lanes: Optional[int] = None) -> O
     """Heads per lane group, as JAX's ``heads_per_block`` picks them: the
     largest count that divides ``heads`` and fills a multiple of 128 lanes
     within ``lanes`` (128 when None); None where no count does (JAX then
-    falls back to its einsum attention, which the port does not have)."""
+    falls back to its einsum attention, and so do the port's towers:
+    :func:`attention_supported`)."""
     lanes = lanes or LANES
     if head_dim >= 128:
         return 1 if head_dim % 128 == 0 else None
@@ -81,6 +85,14 @@ def heads_per_block(heads: int, head_dim: int, lanes: Optional[int] = None) -> O
     return hpb
 
 
+def attention_supported(heads: int, width: int) -> bool:
+    """JAX's ``fused_attention.supported``: whether its attention kernels
+    take ``heads`` heads over ``width`` channels. Where this fails, JAX's
+    towers run the einsum attention, and so do the port's."""
+    head_dim = width // heads
+    return heads * head_dim == width and heads_per_block(heads, head_dim) is not None
+
+
 def interleave_perm(heads: int, head_dim: int) -> list:
     """The order that turns standard [q|k|v] rows (of the port's (3D, Din)
     weight, or columns of qkv) into [q_g0|k_g0|v_g0|q_g1|...], with head
@@ -89,7 +101,7 @@ def interleave_perm(heads: int, head_dim: int) -> list:
     if hpb is None:
         raise NotImplementedError(
             f"heads={heads} head_dim={head_dim}: no interleaved layout (JAX's heads_per_block "
-            "is None there and JAX runs its einsum attention, which is not ported)")
+            "is None there, and the towers run the einsum attention instead)")
     lanes = hpb * head_dim
     D = heads * head_dim
     perm = []
@@ -183,6 +195,7 @@ def fused_attention_inter(qkv: torch.Tensor, mask: Optional[torch.Tensor],
     float32 or bfloat16. Returns the context (B, L, D), standard order."""
     _check(qkv, mask, heads)
     hpb = _check_inter(qkv, heads)
+    check_resident_qkv(qkv, heads, False, "fused_attention_inter")
     if qkv.device.type == "cpu":
         return reference_attention_inter(qkv, mask, heads)
     _check_kernel_device(qkv)
@@ -201,6 +214,7 @@ def fused_attention_inter_bwd(qkv: torch.Tensor, mask: Optional[torch.Tensor], g
     statistics: dqkv in qkv's (interleaved) order, no bias gradient."""
     g = _check_bwd(qkv, mask, g, heads)
     hpb = _check_inter(qkv, heads)
+    check_resident_qkv(qkv, heads, True, "fused_attention_inter_bwd")
     if qkv.device.type == "cpu":
         return reference_attention_inter_bwd(qkv, mask, g, heads)
     _check_kernel_device(qkv, g)
@@ -219,6 +233,7 @@ def fused_attention_slab(qkv: torch.Tensor, mask: Optional[torch.Tensor],
     """:func:`fused_attention` over one block per sequence (JAX's
     ``_fwd_pallas_slab``); its bits on the card, its plain version here."""
     _check(qkv, mask, heads)
+    check_resident_qkv(qkv, heads, False, "fused_attention_slab")
     if qkv.device.type == "cpu":
         return reference_attention(qkv, mask, heads)
     _check_kernel_device(qkv)
@@ -235,6 +250,7 @@ def fused_attention_slab_bwd(qkv: torch.Tensor, mask: Optional[torch.Tensor], g:
     """The recompute backward over one block per sequence (JAX's
     ``_bwd_pallas_slab``): dqkv in qkv's layout, no bias gradient."""
     g = _check_bwd(qkv, mask, g, heads)
+    check_resident_qkv(qkv, heads, True, "fused_attention_slab_bwd")
     if qkv.device.type == "cpu":
         return reference_attention_bwd(qkv, mask, None, g, heads)[0]
     _check_kernel_device(qkv, g)
@@ -292,6 +308,8 @@ def fused_attention_t_fwd(qkv_t: torch.Tensor, bias: torch.Tensor,
     3D) tensor; bias (3D) or (1, 3D), cast to qkv_t's dtype and added to q,
     k and v in that dtype. Returns the context (B, L, D)."""
     bias = _check_t(qkv_t, bias, mask, heads)
+    L, _, three_d = qkv_t.shape
+    check_resident(L, three_d // 3 // heads, qkv_t.dtype, False, "fused_attention_t_fwd")
     if qkv_t.device.type == "cpu":
         return reference_attention_t(qkv_t, bias, mask, heads)
     _check_kernel_device(qkv_t, bias)
@@ -314,9 +332,7 @@ def fused_attention_t_bwd(qkv_t: torch.Tensor, bias: torch.Tensor, mask: Optiona
     bias = _check_t(qkv_t, bias, mask, heads)
     L, B, three_d = qkv_t.shape
     D = three_d // 3
-    if not bwd_supported(heads, D, L, qkv_t.dtype):
-        raise ValueError(f"backward geometry L={L} head_dim={D // heads} {qkv_t.dtype} needs "
-                         f"{bwd_smem_bytes(L, D // heads, qkv_t.dtype)} B of shared memory")
+    check_resident(L, D // heads, qkv_t.dtype, True, "fused_attention_t_bwd")
     if g.shape != (B, L, D) or g.device != qkv_t.device:
         raise ValueError(f"g must be {(B, L, D)} on qkv_t's device; got {tuple(g.shape)}")
     g = g.to(qkv_t.dtype).contiguous()
@@ -391,6 +407,7 @@ def fused_attention_split_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The inference forward over separate q, k, v, each (B, L, D),
     contiguous. Returns the context (B, L, D)."""
     _check_split(q, k, v, mask, heads)
+    check_resident(q.shape[1], q.shape[2] // heads, q.dtype, False, "fused_attention_split_fwd")
     if q.device.type == "cpu":
         return reference_attention_split(q, k, v, mask, heads)
     _check_kernel_device(q, k, v)
@@ -407,9 +424,7 @@ def fused_attention_split_bwd(q, k, v, mask: Optional[torch.Tensor], g: torch.Te
     softmax statistics: dq, dk, dv apart, in q's dtype, no bias gradient."""
     _check_split(q, k, v, mask, heads)
     B, L, D = q.shape
-    if not bwd_supported(heads, D, L, q.dtype):
-        raise ValueError(f"backward geometry L={L} head_dim={D // heads} {q.dtype} needs "
-                         f"{bwd_smem_bytes(L, D // heads, q.dtype)} B of shared memory")
+    check_resident(L, D // heads, q.dtype, True, "fused_attention_split_bwd")
     if g.shape != (B, L, D) or g.device != q.device:
         raise ValueError(f"g must be {(B, L, D)} on q's device; got {tuple(g.shape)}")
     g = g.to(q.dtype).contiguous()
@@ -451,9 +466,11 @@ def fused_attention_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def dx_supported(heads: int, width: int, seq: int, din: int, dtype: torch.dtype) -> bool:
     """Whether :func:`fused_attention_bwd_dx`'s kernel takes this geometry:
-    the backward's (:func:`bwd_supported`) and an input width ``din`` that
-    is a positive multiple of 16, the tensor-core tiles' width."""
-    return bwd_supported(heads, width, seq, dtype) and din >= 16 and din % 16 == 0
+    the resident backward's (:func:`bwd_supported`) up to L =
+    VARIANT_MAX_SEQ, and an input width ``din`` that is a positive multiple
+    of 16, the tensor-core tiles' width."""
+    return (bwd_supported(heads, width, seq, dtype) and seq <= VARIANT_MAX_SEQ and din >= 16
+            and din % 16 == 0)
 
 
 # The bf16 dx product's design constants (csrc/attention_dx.cu's SC_DX_CLUSTER
@@ -520,6 +537,7 @@ def fused_attention_bwd_dx(qkv: torch.Tensor, mask: Optional[torch.Tensor], g: t
     :func:`fused_attention_bwd_recompute_db`'s. On the card Din must be a
     positive multiple of 16 (:func:`dx_supported`)."""
     g = _check_bwd(qkv, mask, g, heads)
+    check_resident_qkv(qkv, heads, True, "fused_attention_bwd_dx")
     B, L, three_d = qkv.shape
     if w.dim() != 2 or w.shape[0] != three_d:
         raise ValueError(f"w must be (3D, Din) = ({three_d}, Din); got {tuple(w.shape)}")

@@ -31,14 +31,19 @@ with its columns in ``attention_variants.interleave_perm`` order and routes
 to that module's interleaved kernels, which count their own launches.
 
 On a CUDA tensor each wrapper launches its hand-written kernel
-(``csrc/fused_attention_fwd.cu``, ``csrc/fused_attention_bwd.cu``); on a CPU
-tensor it runs its plain PyTorch version (``reference_attention``,
-``reference_attention_lse``, ``reference_attention_bwd``), which has the TPU
-kernel's math. It never falls back from one to the other: a CUDA tensor
-either goes through the kernel or raises.
+(``csrc/fused_attention_fwd.cu``, ``csrc/fused_attention_bwd.cu``) where the
+resident bodies take the length (:func:`fwd_max_seq`, :func:`bwd_max_seq`:
+one (batch, head) in a block's shared memory), and past it the key-tiled
+kernels of ``csrc/attention_long.cu`` through ``ops.attention_long``, which
+count their own launches; on a CPU tensor it runs its plain PyTorch version
+(``reference_attention``, ``reference_attention_lse``,
+``reference_attention_bwd``), which has the TPU kernel's math at any length.
+It never falls back from one to the other: a CUDA tensor either goes through
+a kernel or raises.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -47,7 +52,13 @@ import torch.nn.functional as F
 from spatial_clip_tpu_torch.ops import cuda_build
 
 HEAD_DIMS = (32, 64, 128)
-MAX_SEQ = 256
+# The resident bodies' lengths (their ``takes`` in csrc/attention_fwd.cuh and
+# csrc/attention_bwd.cuh): the f32 bodies keep a row's scores in registers,
+# 256 keys; shared memory bounds the rest (:func:`fwd_max_seq`,
+# :func:`bwd_max_seq`). The pair, layout and dx kernels, built on the same
+# bodies, are held to VARIANT_MAX_SEQ (their ``kMaxSeq``).
+SIMT_MAX_SEQ = 256
+VARIANT_MAX_SEQ = 256
 # the bodies' block geometry (csrc/attention_fwd.cuh, csrc/attention_bwd.cuh):
 # bf16 on the tensor cores in tiles of 16 query rows and 16 keys; f32 on the
 # CUDA cores, 8 warps of 2 query rows a pass (the backward's phase 1)
@@ -139,13 +150,71 @@ def fwd_smem_bytes(seq: int, head_dim: int, dtype: torch.dtype) -> int:
     return seq * (head_dim + 4) * 4 + _SIMT_WARPS * warp_floats * 4
 
 
+def fwd_takes(seq: int, head_dim: int, dtype: torch.dtype) -> bool:
+    """Whether the resident forward body takes a sequence of ``seq``: one
+    (batch, head) within a block's shared memory and (f32) at most
+    SIMT_MAX_SEQ keys. Mirrors ``sc::fwd::takes``."""
+    return (seq >= 1 and fwd_smem_bytes(seq, head_dim, dtype) <= MAX_SMEM_BYTES
+            and (dtype == torch.bfloat16 or seq <= SIMT_MAX_SEQ))
+
+
+def bwd_takes(seq: int, head_dim: int, dtype: torch.dtype) -> bool:
+    """Whether the resident backward body takes a sequence of ``seq``.
+    Mirrors ``sc::bwd::takes``."""
+    return (seq >= 1 and bwd_smem_bytes(seq, head_dim, dtype) <= MAX_SMEM_BYTES
+            and (dtype == torch.bfloat16 or seq <= SIMT_MAX_SEQ))
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_max_seq(head_dim: int, dtype: torch.dtype) -> int:
+    """The longest sequence the resident forward takes (head_dim 32 / 64 /
+    128: bf16 944 / 528 / 272, f32 256); longer ones take the key-tiled
+    kernels (``ops.attention_long``). Mirrors ``sc_attention_fwd_max_seq``."""
+    seq = 0
+    while fwd_takes(seq + 1, head_dim, dtype):
+        seq += 1
+    return seq
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_max_seq(head_dim: int, dtype: torch.dtype) -> int:
+    """The longest sequence the resident backward takes (head_dim 32 / 64 /
+    128: bf16 640 / 352 / 192, f32 130 / 106 / 72); longer ones take the
+    key-tiled kernels. Mirrors ``sc_attention_bwd_max_seq``."""
+    seq = 0
+    while bwd_takes(seq + 1, head_dim, dtype):
+        seq += 1
+    return seq
+
+
 def bwd_supported(heads: int, width: int, seq: int, dtype: torch.dtype) -> bool:
-    """Whether the backward kernel takes this geometry: a forward head_dim,
-    1 <= seq <= 256, and one (batch, head) within a block's shared memory.
-    The longest L taken, for head_dim 32 / 64 / 128: bf16 256 / 256 / 192,
-    f32 130 / 106 / 72."""
-    return (supported(heads, width) and 1 <= seq <= MAX_SEQ and dtype in cuda_build.DTYPE_CODES
-            and bwd_smem_bytes(seq, width // heads, dtype) <= MAX_SMEM_BYTES)
+    """Whether the resident backward kernel takes this geometry: a forward
+    head_dim, a kernel dtype and 1 <= seq <= :func:`bwd_max_seq`."""
+    return (supported(heads, width) and dtype in cuda_build.DTYPE_CODES
+            and bwd_takes(seq, width // heads, dtype))
+
+
+class ResidentLengthError(NotImplementedError, ValueError):
+    """A kernel that keeps the whole sequence in one block (the pair,
+    layout and dx kernels) refused its length: ROADMAP Queue 2 A1."""
+
+
+def check_resident(L: int, head_dim: int, dtype: torch.dtype, backward: bool,
+                   what: str) -> None:
+    """Raise :class:`ResidentLengthError` where ``what`` (a pair, layout or
+    dx kernel) does not take L: past VARIANT_MAX_SEQ, or past its body's
+    shared memory (:func:`fwd_max_seq` / :func:`bwd_max_seq`)."""
+    limit = min(VARIANT_MAX_SEQ, (bwd_max_seq if backward else fwd_max_seq)(head_dim, dtype))
+    if L > limit:
+        raise ResidentLengthError(
+            f"{what} at sequence length {L}, head_dim={head_dim}, {dtype}: the kernel keeps "
+            f"one (batch, head) in a block's shared memory and takes L <= {limit}; longer "
+            "sequences through it are ROADMAP Queue 2 A1")
+
+
+def check_resident_qkv(qkv: torch.Tensor, heads: int, backward: bool, what: str) -> None:
+    """:func:`check_resident` at a (B, L, 3D) qkv's geometry."""
+    check_resident(qkv.shape[1], qkv.shape[2] // 3 // heads, qkv.dtype, backward, what)
 
 
 def _check_geometry(B: int, L: int, D: int, heads: int, dtype: torch.dtype) -> None:
@@ -154,8 +223,8 @@ def _check_geometry(B: int, L: int, D: int, heads: int, dtype: torch.dtype) -> N
         raise ValueError(
             f"head geometry heads={heads} width={D} is not taken: head_dim "
             f"must be one of {HEAD_DIMS}")
-    if not 1 <= L <= MAX_SEQ or B < 1:
-        raise ValueError(f"sequence length {L} (batch {B}) outside 1..{MAX_SEQ}")
+    if L < 1 or B < 1:
+        raise ValueError(f"sequence length {L} (batch {B}) must be at least 1")
     if dtype not in cuda_build.DTYPE_CODES:
         raise ValueError(f"qkv dtype {dtype} not taken (float32 or bfloat16)")
 
@@ -268,6 +337,20 @@ def reference_attention_bwd(qkv: torch.Tensor, mask: Optional[torch.Tensor],
     return dqkv, dqkv.float().sum(dim=(0, 1))
 
 
+def kernel_route(seq: int, head_dim: int, dtype: torch.dtype, backward: bool = False) -> str:
+    """Which kernels the wrappers launch on a CUDA tensor: 'resident' (one
+    (batch, head) a block, csrc/fused_attention_*.cu) up to
+    :func:`fwd_max_seq` / :func:`bwd_max_seq`, 'long' (the key-tiled
+    kernels, csrc/attention_long.cu) past it."""
+    takes = bwd_takes if backward else fwd_takes
+    return "resident" if takes(seq, head_dim, dtype) else "long"
+
+
+def _resident(qkv: torch.Tensor, heads: int, backward: bool) -> bool:
+    return kernel_route(qkv.shape[1], qkv.shape[2] // 3 // heads, qkv.dtype,
+                        backward) == "resident"
+
+
 def _fwd(qkv, mask, heads, lse: Optional[torch.Tensor]) -> torch.Tensor:
     """Launch the forward kernel (writes ``lse`` unless it is None)."""
     B, L, three_d = qkv.shape
@@ -304,6 +387,10 @@ def fused_attention(qkv: torch.Tensor, mask: Optional[torch.Tensor],
     if qkv.device.type == "cpu":
         return reference_attention(qkv, mask, heads)
     _check_kernel_device(qkv)
+    if not _resident(qkv, heads, False):
+        from spatial_clip_tpu_torch.ops import attention_long
+
+        return attention_long.fused_attention_long(qkv, mask, heads)
     out = _fwd(qkv, mask, heads, None)
     fused_attention.launches += 1
     return out
@@ -319,6 +406,10 @@ def fused_attention_lse(qkv: torch.Tensor, mask: Optional[torch.Tensor],
     if qkv.device.type == "cpu":
         return reference_attention_lse(qkv, mask, heads)
     _check_kernel_device(qkv)
+    if not _resident(qkv, heads, False):
+        from spatial_clip_tpu_torch.ops import attention_long
+
+        return attention_long.fused_attention_long_lse(qkv, mask, heads)
     B, L, three_d = qkv.shape
     lse = torch.empty((heads, B, L), dtype=torch.float32, device=qkv.device)
     out = _fwd(qkv, mask, heads, lse)
@@ -331,11 +422,6 @@ def _check_bwd(qkv, mask, g, heads) -> torch.Tensor:
     _check(qkv, mask, heads)
     B, L, three_d = qkv.shape
     D = three_d // 3
-    if not bwd_supported(heads, D, L, qkv.dtype):
-        raise ValueError(
-            f"backward geometry L={L} head_dim={D // heads} {qkv.dtype} needs "
-            f"{bwd_smem_bytes(L, D // heads, qkv.dtype)} B of shared memory per block, "
-            f"over {MAX_SMEM_BYTES}")
     if g.shape != (B, L, D):
         raise ValueError(f"g must be {(B, L, D)}; got {tuple(g.shape)}")
     if g.device != qkv.device:
@@ -343,25 +429,35 @@ def _check_bwd(qkv, mask, g, heads) -> torch.Tensor:
     return g.to(qkv.dtype).contiguous()
 
 
+def _check_lse(lse: torch.Tensor, qkv: torch.Tensor, heads: int, name: str = "lse") -> None:
+    """A (heads, B, L) f32 row statistic (the lse, or the key-tiled dQ
+    kernel's r) on qkv's device, contiguous."""
+    B, L, _ = qkv.shape
+    if (lse.shape != (heads, B, L) or lse.dtype != torch.float32 or not lse.is_contiguous()
+            or lse.device != qkv.device):
+        raise ValueError(f"{name} must be contiguous float32 {(heads, B, L)} on qkv's device; "
+                         f"got {lse.dtype} {tuple(lse.shape)} on {lse.device}")
+
+
 def fused_attention_bwd(qkv: torch.Tensor, mask: Optional[torch.Tensor],
                         lse: torch.Tensor, g: torch.Tensor,
                         heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Backward of :func:`fused_attention_lse`: given the cotangent ``g`` of
     the context (B, L, D), returns dqkv (qkv's shape and dtype) and db (3D,)
-    f32, the gradient of a bias added to qkv. Takes the geometries
-    :func:`bwd_supported` names and raises ValueError on any other. Counts
-    each kernel launch in ``fused_attention_bwd.launches``."""
+    f32, the gradient of a bias added to qkv. Counts each launch of the
+    resident kernel in ``fused_attention_bwd.launches``; past
+    :func:`bwd_max_seq` the key-tiled kernels run and count their own."""
     g = _check_bwd(qkv, mask, g, heads)
+    _check_lse(lse, qkv, heads)
     B, L, three_d = qkv.shape
     D = three_d // 3
-    if lse.shape != (heads, B, L) or lse.dtype != torch.float32 or not lse.is_contiguous():
-        raise ValueError(f"lse must be contiguous float32 {(heads, B, L)}; got "
-                         f"{lse.dtype} {tuple(lse.shape)}")
-    if lse.device != qkv.device:
-        raise ValueError("lse must be on qkv's device")
     if qkv.device.type == "cpu":
         return reference_attention_bwd(qkv, mask, lse, g, heads)
     _check_kernel_device(qkv, g)
+    if not _resident(qkv, heads, True):
+        from spatial_clip_tpu_torch.ops import attention_long
+
+        return attention_long.fused_attention_long_bwd(qkv, mask, lse, g, heads)
     hd = D // heads
     dqkv = torch.empty_like(qkv)
     db_part = torch.empty((B, three_d), dtype=torch.float32, device=qkv.device)
@@ -384,9 +480,10 @@ def fused_attention_bwd_recompute(qkv: torch.Tensor, mask: Optional[torch.Tensor
     """Backward of :func:`fused_attention` that recomputes the softmax
     statistics from the scores (no saved logsumexp): given the cotangent
     ``g`` of the context (B, L, D), returns dqkv (qkv's shape and dtype).
-    Takes the geometries :func:`bwd_supported` names and raises ValueError on
-    any other. Counts each kernel launch in
-    ``fused_attention_bwd_recompute.launches``. ``interleaved``: qkv and
+    Counts each launch of the resident kernel in
+    ``fused_attention_bwd_recompute.launches``; past :func:`bwd_max_seq` the
+    key-tiled kernels run (the forward for the lse, then the backward) and
+    count their own. ``interleaved``: qkv and
     dqkv in ``interleave_perm`` order
     (``attention_variants.fused_attention_inter_bwd``)."""
     if interleaved:
@@ -397,6 +494,10 @@ def fused_attention_bwd_recompute(qkv: torch.Tensor, mask: Optional[torch.Tensor
     if qkv.device.type == "cpu":
         return reference_attention_bwd(qkv, mask, None, g, heads)[0]
     _check_kernel_device(qkv, g)
+    if not _resident(qkv, heads, True):
+        from spatial_clip_tpu_torch.ops import attention_long
+
+        return attention_long.fused_attention_long_bwd_recompute(qkv, mask, g, heads, db=False)[0]
     B, L, three_d = qkv.shape
     hd = three_d // 3 // heads
     dqkv = torch.empty_like(qkv)
@@ -422,6 +523,10 @@ def fused_attention_bwd_recompute_db(qkv: torch.Tensor, mask: Optional[torch.Ten
     if qkv.device.type == "cpu":
         return reference_attention_bwd(qkv, mask, None, g, heads)
     _check_kernel_device(qkv, g)
+    if not _resident(qkv, heads, True):
+        from spatial_clip_tpu_torch.ops import attention_long
+
+        return attention_long.fused_attention_long_bwd_recompute(qkv, mask, g, heads, db=True)
     B, L, three_d = qkv.shape
     hd = three_d // 3 // heads
     dqkv = torch.empty_like(qkv)

@@ -32,6 +32,8 @@ FAMILIES = (  # first match wins; matched against the lower-cased kernel name
     ("attention backward (fused_attention_bwd)", ("attn_bwd_kernel", "attn_pair_bwd_kernel",
                                                   "attn_layout_bwd_kernel", "db_reduce_kernel")),
     ("attention backward with dx (attention_dx)", ("attn_bwd_dx_kernel",)),
+    ("attention past the resident lengths (attention_long)", (
+        "long_fwd_kernel", "long_dq_kernel", "long_dkdv_kernel", "long_db_kernel")),
     ("block attention (fused_block)", ("block_attn_kernel",)),
     ("fused_ln forward (fused_ln)", ("ln_fwd_kernel",)),
     ("fused_ln backward (fused_ln)", ("ln_bwd_kernel", "column_sum_kernel")),

@@ -19,9 +19,9 @@ from spatial_clip_tpu_torch import bench_fwd
 from spatial_clip_tpu_torch.ops import cuda_build
 from spatial_clip_tpu_torch.ops.fused_attention import (
     HEAD_DIMS,
-    MAX_SEQ,
     MAX_SMEM_BYTES,
     fused_attention,
+    fwd_max_seq,
     fwd_rows,
     fwd_smem_bytes,
     reference_attention,
@@ -92,7 +92,7 @@ def test_cpu_path_is_the_plain_version_and_counts_nothing():
 @pytest.mark.parametrize("shape,heads,dtype,why", [
     ((2, 9, 96), 2, torch.float32, "head geometry"),          # hd = 16
     ((2, 9, 3 * 192), 2, torch.float32, "head geometry"),     # hd = 96
-    ((2, 257, 384), 2, torch.float32, "sequence length"),
+    ((2, 0, 384), 2, torch.float32, "sequence length"),  # any L >= 1 is taken
     ((2, 9, 385), 2, torch.float32, "3\\*D"),
     ((2, 9, 384), 2, torch.float16, "dtype"),
     ((9, 384), 2, torch.float32, "3\\*D"),
@@ -119,12 +119,21 @@ def test_rejects_bad_layout_and_mask():
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("hd", HEAD_DIMS)
 def test_forward_fits_every_length_it_takes(hd, dtype):
-    """One block's shared memory holds the forward at every length the
-    wrappers take (``fwd_smem_bytes`` mirrors the kernel's formula), and
-    grows with the length."""
-    sizes = [fwd_smem_bytes(L, hd, dtype) for L in range(1, MAX_SEQ + 1)]
-    assert max(sizes) <= MAX_SMEM_BYTES
+    """One block's shared memory holds the resident forward at every length
+    up to ``fwd_max_seq`` (``fwd_smem_bytes`` mirrors the kernel's formula),
+    and grows with the length: bf16 up to 944 / 528 / 272 at hd 32 / 64 /
+    128, where the next length is over the block's shared memory; f32 up to
+    the CUDA-core body's 256 keys a row. Longer sequences take the key-tiled
+    kernels."""
+    longest = fwd_max_seq(hd, dtype)
+    sizes = [fwd_smem_bytes(L, hd, dtype) for L in range(1, longest + 2)]
+    assert max(sizes[:-1]) <= MAX_SMEM_BYTES
     assert sizes == sorted(sizes)
+    if dtype == torch.bfloat16:
+        assert longest == {32: 944, 64: 528, 128: 272}[hd]
+        assert sizes[-1] > MAX_SMEM_BYTES
+    else:
+        assert longest == 256 and sizes[-1] <= MAX_SMEM_BYTES
 
 
 @pytest.mark.parametrize("L,rows", [(1, 16), (15, 16), (16, 16), (17, 32), (50, 64), (63, 64),

@@ -289,14 +289,18 @@ def test_bf16_backward_smem_formula(L, rows, bf16_bytes):
 def test_bf16_backward_takes_every_length_it_took(hd, took, longest):
     """Every bf16 length the CUDA-core body took (192 / 166 / 122 at hd 32 /
     64 / 128) is still taken, so no model that trained starts to raise; the
-    tensor-core body takes up to ``longest`` and refuses what its shared
-    memory cannot hold."""
+    tensor-core body takes every length up to 256 it took under the old cap
+    (``longest``), and now up to the shared-memory limit ``bwd_max_seq``
+    (640 / 352 / 192), refusing the next length; longer sequences take the
+    key-tiled kernels."""
     for L in range(1, took + 1):
         assert bwd_supported(2, 2 * hd, L, torch.bfloat16)
     assert max(L for L in range(1, 257) if bwd_supported(2, 2 * hd, L, torch.bfloat16)) == longest
-    assert not bwd_supported(2, 2 * hd, 257, torch.bfloat16)
-    if longest < 256:
-        assert bwd_smem_bytes(longest + 1, hd, torch.bfloat16) > pfa.MAX_SMEM_BYTES
+    limit = {32: 640, 64: 352, 128: 192}[hd]
+    assert pfa.bwd_max_seq(hd, torch.bfloat16) == limit
+    assert bwd_supported(2, 2 * hd, limit, torch.bfloat16)
+    assert not bwd_supported(2, 2 * hd, limit + 1, torch.bfloat16)
+    assert bwd_smem_bytes(limit + 1, hd, torch.bfloat16) > pfa.MAX_SMEM_BYTES
 
 
 @pytest.mark.parametrize("variant", sorted(bench_backward.VARIANTS))
@@ -328,8 +332,8 @@ def test_bench_backward_parses_variants_and_refuses_without_a_gpu(variant):
 
 
 @pytest.mark.parametrize("make,why", [
-    (lambda: (torch.zeros(2, 80, 768), None, torch.zeros(2, 2, 80), torch.zeros(2, 80, 256)),
-     "shared memory"),  # hd 128 f32 at L=80
+    (lambda: (torch.zeros(2, 9, 288), None, torch.zeros(2, 2, 9), torch.zeros(2, 9, 96)),
+     "head geometry"),  # hd 48; hd 128 f32 at L=80 now takes the key-tiled route
     (lambda: (torch.zeros(2, 9, 384), None, torch.zeros(2, 9, 2), torch.zeros(2, 9, 128)),
      "lse"),
     (lambda: (torch.zeros(2, 9, 384), None, torch.zeros(2, 2, 9), torch.zeros(2, 9, 64)),
@@ -358,8 +362,8 @@ def test_mask_gets_no_gradient():
 
 def test_recompute_backward_rejects_what_the_kernel_does_not_take():
     before = fused_attention_bwd_recompute.launches
-    with pytest.raises(ValueError, match="shared memory"):  # hd 128 f32 at L=80
-        fused_attention_bwd_recompute(torch.zeros(2, 80, 768), None, torch.zeros(2, 80, 256), 2)
+    with pytest.raises(ValueError, match="head geometry"):  # hd 48
+        fused_attention_bwd_recompute(torch.zeros(2, 9, 288), None, torch.zeros(2, 9, 96), 2)
     with pytest.raises(ValueError, match="g must be"):
         fused_attention_bwd_recompute(torch.zeros(2, 9, 384), None, torch.zeros(2, 9, 64), 2)
     assert fused_attention_bwd_recompute.launches == before

@@ -10,6 +10,7 @@ conftest imports jax, which the GPU machine may lack, so run this file as
 from __future__ import annotations
 
 import math
+from ctypes import c_int as ctypes_int
 
 import numpy as np
 import pytest
@@ -114,14 +115,20 @@ def test_pair_and_layout_forwards_equal_standard_at_long_length(device, hd):
 
 
 def test_fwd_smem_formula_matches_kernel(device):
+    """``fwd_smem_bytes`` mirrors ``sc_attention_fwd_smem_bytes`` at every
+    length the resident forward takes, up to ``fwd_max_seq`` (the same
+    number as ``sc_attention_fwd_max_seq``), and the entry refuses the next."""
     from spatial_clip_tpu_torch.ops import cuda_build
-    from spatial_clip_tpu_torch.ops.fused_attention import HEAD_DIMS, MAX_SEQ, fwd_smem_bytes
+    from spatial_clip_tpu_torch.ops.fused_attention import HEAD_DIMS, fwd_max_seq, fwd_smem_bytes
 
     lib = cuda_build.library()
-    for L in range(1, MAX_SEQ + 1):
-        for hd in HEAD_DIMS:
-            for dtype, code in cuda_build.DTYPE_CODES.items():
+    for hd in HEAD_DIMS:
+        for dtype, code in cuda_build.DTYPE_CODES.items():
+            longest = fwd_max_seq(hd, dtype)
+            assert lib.sc_attention_fwd_max_seq(hd, code) == longest
+            for L in range(1, longest + 1):
                 assert lib.sc_attention_fwd_smem_bytes(L, hd, code) == fwd_smem_bytes(L, hd, dtype)
+            assert lib.sc_attention_fwd_smem_bytes(longest + 1, hd, code) == 0
 
 
 BWD_CASES = [  # B, L, D, H, causal, dtype: the training shapes, then hd 32 / 64 / 128
@@ -220,15 +227,19 @@ def test_recompute_bwd_kernel_matches_plain_version(device, B, L, D, H, causal, 
 
 def test_bwd_smem_formula_matches_kernel(device):
     """``bwd_smem_bytes`` mirrors ``sc_attention_bwd_smem_bytes`` at every
-    length and head dim, for both bodies (the bf16 tensor-core one: four
-    16-row-padded tiles, three f32 values a row, the tiles' db sums)."""
+    length up to one past ``bwd_max_seq`` (the same number as
+    ``sc_attention_bwd_max_seq``) and head dim, for both bodies (the bf16
+    tensor-core one: four 16-row-padded tiles, three f32 values a row, the
+    tiles' db sums)."""
     from spatial_clip_tpu_torch.ops import cuda_build
-    from spatial_clip_tpu_torch.ops.fused_attention import MAX_SEQ, bwd_smem_bytes
+    from spatial_clip_tpu_torch.ops.fused_attention import bwd_max_seq, bwd_smem_bytes
 
     lib = cuda_build.library()
-    for L in range(1, MAX_SEQ + 1):
-        for hd in (32, 64, 128):
-            for code, dtype in ((0, torch.float32), (1, torch.bfloat16)):
+    for hd in (32, 64, 128):
+        for code, dtype in ((0, torch.float32), (1, torch.bfloat16)):
+            longest = bwd_max_seq(hd, dtype)
+            assert lib.sc_attention_bwd_max_seq(hd, code) == longest
+            for L in range(1, longest + 2):
                 assert lib.sc_attention_bwd_smem_bytes(L, hd, code) == bwd_smem_bytes(L, hd, dtype)
 
 
@@ -242,12 +253,12 @@ BWD_EDGE_LENGTHS = (1, 15, 16, 17, 50, 63, 64, 65, 77, 128, 129, "longest")
 def test_bf16_backward_over_tile_edges(device, L, hd, causal, option):
     """The bf16 backward body (tensor cores; 16-row query and key tiles, two
     passes, rows of up to kHold key chunks held) on each side of a tile edge
-    and at the longest length it takes, at each head dim, in each option:
+    and at the longest length it takes (``bwd_max_seq``), at each head dim,
+    in each option:
     dqkv at _bwd_tol (one bf16 ulp at max|ref|), db at _tol + 1e-4 against
     the plain version on the same lse, and the same bits on a rerun."""
     from spatial_clip_tpu_torch.ops.fused_attention import (
-        MAX_SEQ,
-        bwd_supported,
+        bwd_max_seq,
         fused_attention_bwd,
         fused_attention_bwd_recompute,
         fused_attention_bwd_recompute_db,
@@ -256,8 +267,8 @@ def test_bf16_backward_over_tile_edges(device, L, hd, causal, option):
     )
 
     B, H = 3, 2
-    if L == "longest":
-        L = max(n for n in range(1, MAX_SEQ + 1) if bwd_supported(H, H * hd, n, torch.bfloat16))
+    if L == "longest":  # the resident body's shared-memory limit: 640 / 352 / 192
+        L = bwd_max_seq(hd, torch.bfloat16)
     gen = torch.Generator(device=device).manual_seed(L * hd + causal)
     qkv = torch.randn((B, L, 3 * H * hd), generator=gen, device=device).to(torch.bfloat16)
     g = torch.randn((B, L, H * hd), generator=gen, device=device).to(torch.bfloat16)
@@ -335,13 +346,18 @@ def test_cuda_tensor_never_falls_back(device):
         fused_attention_bwd_recompute,
     )
 
-    with pytest.raises(ValueError, match="shared memory"):  # hd 128 f32 at L=80
-        fused_attention_bwd(torch.zeros(2, 80, 768, device=device), None,
-                            torch.zeros(2, 2, 80, device=device),
-                            torch.zeros(2, 80, 256, device=device), 2)
-    with pytest.raises(ValueError, match="shared memory"):
-        fused_attention_bwd_recompute(torch.zeros(2, 80, 768, device=device), None,
-                                      torch.zeros(2, 80, 256, device=device), 2)
+    from spatial_clip_tpu_torch.ops import attention_long as al
+
+    # hd 128 f32 at L=80, past the resident backward's 72: the key-tiled kernels
+    before = (al.long_bwd_dq.launches, al.long_bwd_dkdv.launches, al.long_db.launches)
+    fused_attention_bwd(torch.zeros(2, 80, 768, device=device), None,
+                        torch.zeros(2, 2, 80, device=device),
+                        torch.zeros(2, 80, 256, device=device), 2)
+    fused_attention_bwd_recompute(torch.zeros(2, 80, 768, device=device), None,
+                                  torch.zeros(2, 80, 256, device=device), 2)
+    torch.cuda.synchronize()
+    assert (al.long_bwd_dq.launches, al.long_bwd_dkdv.launches, al.long_db.launches) == (
+        before[0] + 2, before[1] + 2, before[2] + 1)
     with pytest.raises(ValueError, match="16-byte aligned"):
         fused_attention_bwd_recompute(shifted.view(2, 9, 384), None,
                                       torch.zeros(2, 9, 128, dtype=torch.bfloat16,
@@ -1608,3 +1624,128 @@ def test_layout_settings_on_card_match_cpu(device, setting):
     for k, w in g_cpu.items():
         torch.testing.assert_close(g_gpu[k], w, rtol=1e-4,
                                    atol=1e-5 + 1e-4 * w.abs().max().item(), msg=k)
+
+
+# ------------------------------------ the key-tiled kernels (attention_long.cu)
+
+def _long_lengths(hd, dtype):
+    from spatial_clip_tpu_torch.ops.fused_attention import bwd_max_seq, fwd_max_seq
+
+    return sorted({257, 577, fwd_max_seq(hd, dtype) + 1, bwd_max_seq(hd, dtype) + 1})
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_long_kernels_match_plain_version(device, dtype, hd, causal):
+    """The key-tiled forward (with and without lse) and backward (saved lse
+    with db, recompute, recompute with db) at L 257, 577 and the first
+    length past each resident limit: the forward at 2e-2 (bf16) / 1e-5, lse
+    at 1e-5 x max(1, |lse|), dqkv at _bwd_tol, db at _tol + 1e-4 against
+    the plain version on the same lse; dqkv and db the same bits on a rerun;
+    one launch of each kernel counted a call."""
+    from spatial_clip_tpu_torch.ops import attention_long as al
+    from spatial_clip_tpu_torch.ops.fused_attention import (
+        reference_attention_bwd,
+        reference_attention_lse,
+    )
+
+    B, H = 2, 2
+    for L in _long_lengths(hd, dtype):
+        gen = torch.Generator(device=device).manual_seed(L * hd + causal)
+        qkv = torch.randn((B, L, 3 * H * hd), generator=gen, device=device).to(dtype)
+        g = torch.randn((B, L, H * hd), generator=gen, device=device).to(dtype)
+        mask = causal_mask(L, device=device) if causal else None
+        counters = (al.fused_attention_long, al.fused_attention_long_lse, al.long_bwd_dq,
+                    al.long_bwd_dkdv, al.long_db)
+        before = [c.launches for c in counters]
+        out = al.fused_attention_long(qkv, mask, H)
+        out_lse, lse = al.fused_attention_long_lse(qkv, mask, H)
+        dqkv, db = al.fused_attention_long_bwd(qkv, mask, lse, g, H)
+        assert [c.launches - n for c, n in zip(counters, before)] == [1, 1, 1, 1, 1]
+        again, db_again = al.fused_attention_long_bwd(qkv, mask, lse, g, H)
+        re, _ = al.fused_attention_long_bwd_recompute(qkv, mask, g, H, db=False)
+        re_db, re_db_db = al.fused_attention_long_bwd_recompute(qkv, mask, g, H, db=True)
+        torch.cuda.synchronize()
+        want, want_lse = reference_attention_lse(qkv, mask, H)
+        want_d, want_db = reference_attention_bwd(qkv, mask, lse, g, H)
+        want_re, want_re_db = reference_attention_bwd(qkv, mask, None, g, H)
+        atol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+        torch.testing.assert_close(out.float(), want.float(), atol=atol, rtol=0)
+        assert torch.equal(out, out_lse)
+        torch.testing.assert_close(lse, want_lse, rtol=0,
+                                   atol=1e-5 * max(1.0, want_lse.abs().max().item()))
+        assert torch.equal(dqkv, again) and torch.equal(db, db_again)
+        for got, ref in ((dqkv, want_d), (re, want_re), (re_db, want_re)):
+            torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                                       atol=_bwd_tol(dtype, ref.float()))
+        for got, ref in ((db, want_db), (re_db_db, want_re_db)):
+            torch.testing.assert_close(got, ref, rtol=0, atol=_tol(dtype, ref) + 1e-4)
+
+
+def test_long_kernel_geometry_matches_the_source(device):
+    """``attention_long``'s shared-memory formulas and launch plan against
+    the entries of csrc/attention_long.cu."""
+    from spatial_clip_tpu_torch.ops import attention_long as al
+    from spatial_clip_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.library()
+    plan = (ctypes_int * 4)()
+    assert lib.sc_attention_long_plan(plan) == 0
+    assert list(plan) == [al.BLOCK, al.TC_THREADS, al.SIMT_THREADS, al.DB_ROWS]
+    for hd in (32, 64, 128):
+        for dtype, code in cuda_build.DTYPE_CODES.items():
+            for kind, name in enumerate(al.KINDS):
+                assert lib.sc_attention_long_smem_bytes(kind, hd, code) == al.smem_bytes(
+                    name, hd, dtype)
+
+
+def test_wrappers_route_by_length(device):
+    """``fused_attention`` and the saved-lse backward launch the resident
+    kernels at their limit and the key-tiled ones one past it, each route
+    counted on its own counter."""
+    from spatial_clip_tpu_torch.ops import attention_long as al
+    from spatial_clip_tpu_torch.ops import fused_attention as fa
+
+    H, hd = 2, 64
+    for L, backward in ((fa.fwd_max_seq(hd, torch.bfloat16), False),
+                        (fa.bwd_max_seq(hd, torch.bfloat16), True)):
+        for n, route in ((L, "resident"), (L + 1, "long")):
+            qkv = torch.randn((2, n, 3 * H * hd), device=device).bfloat16()
+            g = torch.randn((2, n, H * hd), device=device).bfloat16()
+            resident = (fa.fused_attention_lse, fa.fused_attention_bwd)
+            long = (al.fused_attention_long_lse, al.long_bwd_dq)
+            before = [c.launches for c in (*resident, *long)]
+            lse = fa.fused_attention_lse(qkv, None, H)[1]
+            if backward:
+                fa.fused_attention_bwd(qkv, None, lse, g, H)
+            torch.cuda.synchronize()
+            delta = [c.launches - b for c, b in zip((*resident, *long), before)]
+            fwd_long = n > fa.fwd_max_seq(hd, torch.bfloat16)
+            bwd_long = backward and route == "long"
+            assert delta == [int(not fwd_long), int(backward and not bwd_long), int(fwd_long),
+                             int(bwd_long)], (n, backward, delta)
+
+
+def test_plain_route_runs_on_the_card(device):
+    """ViT-Test as it is (heads of 16) on the card: 2 + 2 calls of the plain
+    route a forward and no kernel launch; its features against the same
+    weights on the CPU."""
+    from spatial_clip_tpu_torch.ops import attention_plain
+    from spatial_clip_tpu_torch.ops import fused_attention as fa
+
+    card = create_model("ViT-Test", precision="fp32", seed=0, device=device)
+    cpu = create_model("ViT-Test", precision="fp32", seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    images = torch.from_numpy(rng.normal(size=(4, 32, 32, 3)).astype(np.float32))
+    texts = torch.from_numpy(rng.integers(0, 512, (4, 16)))
+    before = (attention_plain.plain_attention.launches, fa.fused_attention.launches)
+    with torch.no_grad():
+        got = card(images.to(device), texts.to(device))
+    torch.cuda.synchronize()
+    assert (attention_plain.plain_attention.launches - before[0],
+            fa.fused_attention.launches - before[1]) == (4, 0)
+    with torch.no_grad():
+        want = cpu(images, texts)
+    for k in ("image_features", "text_features"):
+        torch.testing.assert_close(got[k].cpu(), want[k], atol=1e-5, rtol=0)

@@ -7,10 +7,9 @@
   never imports the JAX package (a fresh interpreter is scanned).
 - ``train(cfg)`` / ``python -m spatial_clip_tpu_torch.train`` and
   ``python -m spatial_clip_tpu_torch.eval`` run ``experiment=smoke_synthetic``
-  on the CPU. ViT-Test's heads are 16 wide, which the port's attention
-  kernels do not take, so the runs name a JSON config of ViT-Test widened
-  to width 128 (2 heads of 64), as the other port tests widen it; both
-  packages read it. Started from the same weights
+  on the CPU with ViT-Test as the experiment names it: its heads are 16
+  wide, which JAX's gate takes to its einsum attention, and so does the
+  port. Started from the same weights
   (``model.pretrained=<JAX params.npz>``, augmentation off: the two
   packages draw flips from different generators), the port's losses and
   val/test metrics match JAX's root ``train.train`` at rtol 1e-5 (rank
@@ -45,17 +44,6 @@ from spatial_clip_tpu_torch.train import entry  # noqa: E402
 
 CONFIGS = ROOT / "configs"
 SMOKE = ("experiment=smoke_synthetic", "trainer.platform=cpu", "trainer.limit_batches=2")
-
-
-@pytest.fixture(scope="module")
-def wide_model(tmp_path_factory):
-    """ViT-Test widened to heads of 64, as a JSON config both packages read."""
-    raw = json.loads((ROOT / "spatial_clip_tpu/models/model_configs/ViT-Test.json").read_text())
-    raw["vision_cfg"].update(width=128, heads=2)
-    raw["text_cfg"].update(width=128, heads=2)
-    path = tmp_path_factory.mktemp("model") / "ViT-Test-wide.json"
-    path.write_text(json.dumps(raw))
-    return str(path)
 
 
 # ------------------------------------------------------------------ compose
@@ -120,14 +108,13 @@ def test_instantiate_partial_and_refusals():
 
 # ------------------------------------------------------------- entry points
 
-def test_train_runs_two_steps_with_checkpoints_and_eval_restores(tmp_path, wide_model):
+def test_train_runs_two_steps_with_checkpoints_and_eval_restores(tmp_path):
     """train(cfg) on the CPU: 2 steps, metrics.csv, results.jsonl and
     step_2; eval on the checkpoint directory, on step_2 itself and on an
     exported weights file gives the train run's test metrics."""
     from spatial_clip_tpu_torch.train.checkpoints import export_torch_state_dict
 
-    cfg = entry.compose_train([*SMOKE, "save_ckpt=true", f"model.model_name={wide_model}",
-                               f"paths.root_dir={tmp_path}"])
+    cfg = entry.compose_train([*SMOKE, "save_ckpt=true", f"paths.root_dir={tmp_path}"])
     value, objects = entry.train(cfg)
     out = Path(cfg["paths"]["output_dir"])
     assert objects["state"].step == 2 and np.isfinite(value)
@@ -140,24 +127,22 @@ def test_train_runs_two_steps_with_checkpoints_and_eval_restores(tmp_path, wide_
     assert want == {f"test/{k}": v for k, v in in_memory.items()}
     export_torch_state_dict(objects["state"].params, tmp_path / "weights.pth")
     for ckpt in (out / "checkpoints", out / "checkpoints" / "step_2", tmp_path / "weights.pth"):
-        got = port_eval.main([*SMOKE[:2], f"model.model_name={wide_model}",
-                              f"paths.root_dir={tmp_path}", f"ckpt_path={ckpt}"])
+        got = port_eval.main([*SMOKE[:2], f"paths.root_dir={tmp_path}", f"ckpt_path={ckpt}"])
         assert got == want, ckpt
     written = json.loads((tmp_path / "logs/eval/runs/smoke_synthetic/eval_metrics.json")
                          .read_text())
     assert written == want
 
 
-def test_train_and_eval_match_jax_entry_points(tmp_path, wide_model):
+def test_train_and_eval_match_jax_entry_points(tmp_path):
     """From the same initial weights (JAX's params.npz), augmentation off:
     the port's and JAX's train(cfg) over 2 steps with validation and test,
     then each package's eval on its own checkpoint."""
-    bundle = jax_create_model(wide_model, precision="fp32", seed=0)
+    bundle = jax_create_model("ViT-Test", precision="fp32", seed=0)
     npz = tmp_path / "init.npz"
     save_params_npz(bundle.params, str(npz))
     common = ["experiment=smoke_synthetic", "trainer.limit_batches=2", "save_ckpt=true",
-              "trainer.augment=false", f"model.model_name={wide_model}",
-              f"model.pretrained={npz}"]
+              "trainer.augment=false", f"model.pretrained={npz}"]
     port_cfg = entry.compose_train([*common, "trainer.platform=cpu",
                                     f"paths.root_dir={tmp_path / 'port'}"])
     jax_cfg = jax_compose(CONFIGS, "train", [*common, "trainer.platform=cpu",
@@ -173,8 +158,7 @@ def test_train_and_eval_match_jax_entry_points(tmp_path, wide_model):
         np.testing.assert_allclose(got[k], float(want[k]), rtol=0 if exact else 1e-5,
                                    atol=0 if exact else 1e-12, err_msg=k)
     np.testing.assert_allclose(value, float(jvalue), rtol=1e-5)
-    eval_args = [f"model.model_name={wide_model}", "experiment=smoke_synthetic",
-                 "trainer.platform=cpu"]
+    eval_args = ["experiment=smoke_synthetic", "trainer.platform=cpu"]
     ours = port_eval.main([*eval_args, f"paths.root_dir={tmp_path / 'port'}",
                            f"ckpt_path={Path(port_cfg['paths']['output_dir']) / 'checkpoints'}"])
     theirs = jax_eval_entry.evaluate(jax_compose(CONFIGS, "eval", [
@@ -188,9 +172,9 @@ def test_train_and_eval_match_jax_entry_points(tmp_path, wide_model):
                                    atol=0 if exact else 1e-12, err_msg=k)
 
 
-def test_module_entry_points_run_on_the_cpu(tmp_path, wide_model):
+def test_module_entry_points_run_on_the_cpu(tmp_path):
     """python -m spatial_clip_tpu_torch.train, then .eval on its checkpoint."""
-    args = [*SMOKE, f"model.model_name={wide_model}", f"paths.root_dir={tmp_path}"]
+    args = [*SMOKE, f"paths.root_dir={tmp_path}"]
     for module, extra in (("spatial_clip_tpu_torch.train", ["save_ckpt=true"]),
                           ("spatial_clip_tpu_torch.eval", [
                               f"ckpt_path={tmp_path}/logs/train/runs/smoke_synthetic/checkpoints"])):
@@ -202,7 +186,7 @@ def test_module_entry_points_run_on_the_cpu(tmp_path, wide_model):
     assert np.isfinite(metrics["test/loss"]) and metrics["test/num_samples"] == 16.0
 
 
-def test_build_resumed_run_takes_the_unbroken_runs_steps(tmp_path, wide_model):
+def test_build_resumed_run_takes_the_unbroken_runs_steps(tmp_path):
     """entry.build with resume=latest, restored from the unbroken run's
     step_2 and fed batches 2-3 of epoch 0, ends with its step-4 params,
     mu and nu to the bit on the CPU, with augmentation on (the flips'
@@ -213,7 +197,7 @@ def test_build_resumed_run_takes_the_unbroken_runs_steps(tmp_path, wide_model):
     import torch
 
     args = [*SMOKE[:2], "trainer.limit_batches=4", "save_ckpt=true",
-            "trainer.save_every_steps=2", f"model.model_name={wide_model}"]
+            "trainer.save_every_steps=2"]
     cfg = entry.compose_train([*args, f"paths.root_dir={tmp_path / 'run'}"])
     _, objects = entry.train(cfg)
     state = objects["state"]
@@ -255,12 +239,14 @@ def test_refused_keys_raise(tmp_path, override, key):
             override]))
 
 
-def test_no_gpu_raises_and_unported_models_raise(tmp_path, wide_model):
-    """With no platform the run wants the GPU and raises without one; ViT-Test
-    as it is (heads of 16) raises. A gene vocabulary (either key) builds the
-    gene-vocabulary text tower, and model.gene_cfg with the vocabulary the
-    Gene-MLP tower, as JAX's entry builds them; model.gene_cfg without one
-    raises JAX's ValueError."""
+def test_no_gpu_raises_and_unported_models_raise(tmp_path):
+    """With no platform the run wants the GPU and raises without one;
+    ViT-Test as it is (heads of 16) builds on the einsum route, and a
+    geometry JAX's gate takes to its kernel that the port's kernels do not
+    take (8 heads of 16: ROADMAP A3) raises naming the head_dim. A gene
+    vocabulary (either key) builds the gene-vocabulary text tower, and
+    model.gene_cfg with the vocabulary the Gene-MLP tower, as JAX's entry
+    builds them; model.gene_cfg without one raises JAX's ValueError."""
     import torch
 
     from spatial_clip_tpu_torch.models.transformer import GeneMLPTower
@@ -269,20 +255,28 @@ def test_no_gpu_raises_and_unported_models_raise(tmp_path, wide_model):
         with pytest.raises(RuntimeError, match="trainer.platform=cpu"):
             entry.train(entry.compose_train(["experiment=smoke_synthetic",
                                              f"paths.root_dir={tmp_path}"]))
-    with pytest.raises(NotImplementedError, match="head_dim"):
-        entry.train(entry.compose_train([*SMOKE, f"paths.root_dir={tmp_path}"]))
+    model = entry.build_model(entry.compose_train([*SMOKE, f"paths.root_dir={tmp_path}"]),
+                              "cpu")[0]
+    assert model.cfg.vision_cfg.width // model.cfg.vision_cfg.heads == 16
+    assert not any(b.attn.kernel for b in model.transformer.resblocks)
+    raw = json.loads((ROOT / "spatial_clip_tpu/models/model_configs/ViT-Test.json").read_text())
+    raw["vision_cfg"].update(width=128, heads=8)
+    a3 = tmp_path / "ViT-Test-8x16.json"
+    a3.write_text(json.dumps(raw))
+    with pytest.raises(NotImplementedError, match="head_dim 16"):
+        entry.train(entry.compose_train([*SMOKE, f"paths.root_dir={tmp_path}",
+                                         f"model.model_name={a3}"]))
     hvg = tmp_path / "hvg.txt"
     hvg.write_text("GENE1\nGENE2\n")
     for override in (f"model.tokenizer.gene_vocab={hvg}", f"model.global_hvg_path={hvg}",
                      "model.gene_cfg={width: 8}"):
-        cfg = entry.compose_train([*SMOKE, f"paths.root_dir={tmp_path}",
-                                   f"model.model_name={wide_model}", override])
+        cfg = entry.compose_train([*SMOKE, f"paths.root_dir={tmp_path}", override])
         if override.startswith("model.gene_cfg"):
             with pytest.raises(ValueError, match="requires a gene vocab"):
                 entry.build_model(cfg, "cpu")
             with pytest.raises(ValueError, match="requires a gene vocab"):
                 jax_train_entry.build_model(jax_compose(CONFIGS, "train", [
-                    "experiment=smoke_synthetic", f"model.model_name={wide_model}", override]))
+                    "experiment=smoke_synthetic", override]))
             cfg["model"]["global_hvg_path"] = str(hvg)
             model, _, _, tokenizer, _ = entry.build_model(cfg, "cpu")
             assert isinstance(model.text, GeneMLPTower) and tokenizer.num_genes == 2

@@ -350,15 +350,29 @@ def test_model_features_and_gradients_match_jax(setting, monkeypatch):
                                    atol=max(1e-5, 1e-4 * np.abs(w).max()), err_msg=k)
 
 
-def test_geometry_without_head_groups_raises():
+def test_geometry_without_head_groups_raises(monkeypatch):
     """JAX runs its einsum attention where heads_per_block finds no group
-    (2 heads of 32); the port has none and refuses the layouts there, naming
-    the geometry, while 'auto' still builds."""
+    (2 heads of 32), and so do the port's towers under every layout and
+    'auto': they build, and their forward runs the plain route (2 + 2 calls)
+    and no kernel wrapper's plain version; the interleaved order itself
+    raises, naming the geometry."""
+    from spatial_clip_tpu_torch.ops import attention_plain
+
     narrow = dict(vision_cfg=dict(width=64, heads=2), text_cfg=dict(width=64, heads=2))
-    for impl in ("pallas_inter", "pallas_t", "pallas_split"):
-        with pytest.raises(NotImplementedError, match="heads=2, head_dim=32"):
-            create_model("ViT-Test", precision="fp32", device="cpu", attn_impl=impl, **narrow)
-    create_model("ViT-Test", precision="fp32", device="cpu", **narrow)
+    with pytest.raises(NotImplementedError, match="heads=2 head_dim=32"):
+        av.interleave_perm(2, 32)
+    rng = np.random.default_rng(0)
+    images = torch.from_numpy(rng.normal(size=(2, 32, 32, 3)).astype(np.float32))
+    texts = torch.from_numpy(rng.integers(0, 512, (2, 16)))
+    calls = _count(monkeypatch)
+    for impl in ("auto", "pallas_inter", "pallas_t", "pallas_split"):
+        model = create_model("ViT-Test", precision="fp32", device="cpu", attn_impl=impl,
+                             **narrow)
+        before = attention_plain.plain_attention.launches
+        with torch.no_grad():
+            model(images, texts)
+        assert attention_plain.plain_attention.launches == before + 4, impl
+    assert calls == _NO_CALLS
 
 
 def test_three_train_steps_match_jax_trainer_pallas_t():

@@ -154,11 +154,11 @@ def test_vit_b_32_layout_matches_jax_export():
 
 
 @pytest.mark.parametrize("overrides,field", [
-    (dict(attn_impl="einsum"), "attn_impl"),
+    (dict(attn_impl="flash"), "attn_impl"),  # the plain routes are ported; an unknown name is not
     (dict(mlp_impl="int8"), "mlp_impl"),
     (dict(ln_gemm_impl="int8"), "ln_gemm_impl"),  # 'pallas' is ported
     (dict(ln_impl="compute"), "ln_impl"),
-    (dict(attn_impl="fold"), "attn_impl"),
+    (dict(attn_impl="fold_fp8"), "attn_impl"),
     (dict(vision_cfg=dict(qk_norm=True)), "vision_cfg.qk_norm"),
     (dict(vision_cfg=dict(scaled_cosine=True)), "vision_cfg.scaled_cosine"),
     (dict(vision_cfg=dict(attentional_pool=True)), "vision_cfg.attentional_pool"),
@@ -178,9 +178,15 @@ def test_unported_options_raise(overrides, field):
 
 
 def test_unsupported_head_geometry_raises():
-    """Plain ViT-Test has head_dim 16, which the attention kernel does not take."""
-    with pytest.raises(NotImplementedError, match="head_dim"):
-        create_model("ViT-Test", precision="fp32", device="meta")
+    """Plain ViT-Test (2 heads of 16) builds: JAX's gate groups no heads
+    there and both packages run the einsum attention. 8 heads of 16 JAX's
+    gate takes to its kernel, which the port's kernels (head_dim 32 / 64 /
+    128) do not take: that raises, naming the head_dim (ROADMAP A3)."""
+    model = create_model("ViT-Test", precision="fp32", device="meta")
+    assert not any(b.attn.kernel for b in model.visual.transformer.resblocks)
+    with pytest.raises(NotImplementedError, match="head_dim 16"):
+        create_model("ViT-Test", precision="fp32", device="meta",
+                     vision_cfg=dict(width=128, heads=8))
 
 
 TOKENIZER_TEXTS = [
