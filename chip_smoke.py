@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and gene paths on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving, training, gene and CLI paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -243,6 +243,33 @@ the exit code is not 0. No JAX is imported.
 38. smoke-synthetic  experiment=smoke_synthetic (ViT-Test, fp32, heads of 16)
            through .train and .eval on the card: no attention kernel launch,
            the plain route 2 x 2 a forward
+39. main-train, embed  ``python -m spatial_clip_tpu_torch.cli.main_train``
+           (ViT-B-32 bf16, 224 px synthetic, batch 64, spatial loss capped at
+           50, 4 steps, the run mirrored with --remote-sync, protocol local):
+           exact launches, results.json, step_4 and the mirror; then
+           ``cli.embed`` on that checkpoint over 512 samples at batch 256
+           (exact launches, the first 32 rows vs the f32 CPU model by cosine,
+           pairs/s)
+40. siglip  a ViT-B-32 JSON with SigLIP's initial scale and bias through
+           ``main_train --siglip`` (4 steps, exact launches), then one step
+           card vs CPU at batch 32
+41. distill  ``main_train --distill-model ViT-L-14`` (student ViT-B-32,
+           batch 64, 4 steps): the student's 24 + 24 training launches and the
+           teacher's 36 inference forwards a step, exactly; one step card vs
+           CPU at batch 4
+42. lit, sgd-check, lion-check  ``main_train --lock-image-tower
+           --lock-image-unlocked-groups 1`` for 3 steps: the frozen parameters
+           the same bits as at init, resblocks_11 moved, a step's grad_norm
+           the whole gradient's (the frozen range counts in the clipping);
+           ``--opt sgd`` and ``--opt lion``: one step card vs CPU (loss,
+           gradient, moment, update)
+43. remat  ViT-L-14-336 at batch 32 with and without ``remat``: the same
+           bits after 2 steps, exact launches (forward-lse doubled), step ms
+           and peak memory; ViT-B-32 at batch 256 under remat
+44. debug  ``.train experiment=smoke_synthetic debug=default`` (a NaN tile
+           then raises FloatingPointError, and without the preset does not),
+           ``debug=profiler`` on data=synthetic (the trace holds the attention
+           kernels), ``cli.sweep --mode grid`` (2 trials, none failed)
 Phases 3, 6, 19, 23 and 26 also time PyTorch's scaled_dot_product_attention
 (efficient-attention backend) at the kernels' shapes as a yardstick (its
 backward alone, on one retained graph), phase
@@ -253,8 +280,9 @@ Then one JSON line with the kernels (each with its launches on the main
 path, error, time, plain time, bound and library time; the key-tiled
 kernels with their launches in phase 36's steps; the three kernels of
 phase 28's path also with its launches there, and they and the fused_ln
-kernels with their launches on the gene paths, phases 29-32), the
-nvidia-smi line, and
+kernels with their launches on the gene paths, phases 29-32; the
+attention forward, forward-lse and backward and the key-tiled forward also
+with their launches in phases 39-43), the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -824,6 +852,12 @@ def main() -> int:
         "fused_attention.fused_attention_lse": 12, "fused_attention.fused_attention_bwd": 12})
     so400m_phase()
     smoke_synthetic_phase()
+    cli = main_train_phase()
+    siglip = siglip_phase()
+    distill = distill_phase()
+    lit = lit_phase()
+    remat = remat_phase()
+    debug_phase()
 
     def gene_launches(key: str) -> dict:
         """A kernel's launches on the gene paths: phase 29's step (path B),
@@ -1089,6 +1123,18 @@ def main() -> int:
             **({"bwd_ms": row["bwd_ms"], "bwd_library_ms": row["bwd_library_ms"],
                 "bwd_bound_ms": row["bwd_bound_ms"]} if part == "dq" else {}),
         })
+    phase_launches = {  # phases 39-43: the CLI and option paths
+        "39 main_train": cli["train_launches"], "39 embed": cli["embed_launches"],
+        "40 siglip": siglip["launches"], "41 distill": distill["launches"],
+        "42 lit": lit["launches"], "43 remat ViT-L-14-336": remat["vitl336"][True]["launches"],
+        "43 remat ViT-B-32": remat["vitb32"]["launches"]}
+    rows = {"fused_attention_fwd": FWD, "fused_attention_fwd_lse": LSE,
+            "fused_attention_bwd": BWD,
+            "fused_attention_long_fwd": "attention_long.fused_attention_long_lse"}
+    for row in kernels:
+        if row["name"] in rows:
+            row["cli_launches"] = {k: n.get(rows[row["name"]], 0)
+                                   for k, n in phase_launches.items()}
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
@@ -4000,6 +4046,520 @@ def smoke_synthetic_phase() -> dict:
           f"attention kernel; {per_forward} plain calls a forward); .eval on the checkpoints: "
           f"launches {eval_launches}, the train run's {len(got)} test metrics", flush=True)
     return {"train_launches": launches, "eval_launches": eval_launches}
+
+
+# ---------------------------------------------------------------------------
+# phases 39-44: the open_clip-style trainer and its options, the other CLIs,
+# activation checkpointing and the debug presets
+
+CLI_BATCH, CLI_STEPS = 64, 4  # phases 39-42: main_train at batch 64
+EMBED_SAMPLES, EMBED_BATCH, EMBED_CHECK = 512, 256, 32  # phase 39's embed; rows held to the CPU
+FWD, LSE, BWD = ("fused_attention.fused_attention", "fused_attention.fused_attention_lse",
+                 "fused_attention.fused_attention_bwd")
+REMAT_STEPS = 4  # phase 43: steps with and without remat (2 for the bits, then timed)
+MIN_SIGN_AGREEMENT = 0.95  # phase 42: Lion's first update, card vs CPU
+
+
+def scratch_root(prefix: str) -> Path:
+    build = Path(__file__).resolve().parent / "build"  # ignored by git
+    build.mkdir(exist_ok=True)
+    return Path(tempfile.mkdtemp(prefix=prefix, dir=build))
+
+
+def cli_argv(root: Path, steps: int = CLI_STEPS, model="ViT-B-32"):
+    """main_train's argv for ``steps`` steps of ViT-B-32 bf16 at 224 px and
+    batch 64 on the synthetic split of 256 samples (its val split: one
+    batch of 64), logs under ``root``."""
+    return ["--model", str(model), "--precision", "bf16", "--dataset-type", "synthetic",
+            "--synthetic-image-size", "224", "--train-num-samples", str(CLI_BATCH * CLI_STEPS),
+            "--steps-per-epoch", str(steps), "--batch-size", str(CLI_BATCH), "--epochs", "1",
+            "--workers", "4", "--seed", "0", "--log-every-n-steps", "1",
+            "--logs", str(root / "logs"), "--name", "run"]
+
+
+def run_main_train(label: str, argv, want: dict):
+    """``cli.main_train.main(argv)`` with every counter at 0 first; the run's
+    launches must be ``want``. Returns (metrics, seconds, launches)."""
+    import torch
+
+    from spatial_clip_tpu_torch.cli import main_train
+
+    counters = every_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    metrics = main_train.main(argv)
+    seconds = time.perf_counter() - t0
+    launches = read_launches(counters)
+    finite = all(np.isfinite(v) for v in metrics.values() if isinstance(v, float))
+    if launches != want or not finite:
+        raise AssertionError(f"[{label}] launches {launches} (want {want}), metrics {metrics}")
+    return metrics, seconds, launches
+
+
+def main_train_phase() -> dict:
+    """39. ``python -m spatial_clip_tpu_torch.cli.main_train`` (ViT-B-32 bf16,
+    batch 64, spatial loss capped at 50, 4 steps, the local mirror): exact
+    launches (24 forward-lse and 24 saved-lse backward a step, 24 inference
+    forwards for the val batch), results.json, step_4 and the mirrored run
+    directory; then ``cli.embed`` on that checkpoint over 512 synthetic
+    samples at batch 256 (24 inference forwards a batch), its first 32 rows
+    of each tower against the f32 CPU model on the same weights and tiles,
+    per-row cosine; pairs/s."""
+    import torch
+
+    from spatial_clip_tpu_torch.cli import embed
+    from spatial_clip_tpu_torch.data.datamodule import collate_spatial
+    from spatial_clip_tpu_torch.data.datasets import create_spatial_dataset
+    from spatial_clip_tpu_torch.models.factory import create_model_and_transforms, get_tokenizer
+    from spatial_clip_tpu_torch.models.transforms import normalize_batch
+
+    root = scratch_root("cli_")
+    try:
+        argv = [*cli_argv(root), "--use-spatial-loss", "--cap-logit-scale", "50",
+                "--remote-sync", str(root / "mirror"), "--remote-sync-protocol", "local"]
+        want = {LSE: 2 * LAYERS * CLI_STEPS, BWD: 2 * LAYERS * CLI_STEPS, FWD: 2 * LAYERS}
+        metrics, run_s, launches = run_main_train("main-train", argv, want)
+        peak = torch.cuda.max_memory_allocated()
+        run = root / "logs" / "run"
+        results = json.loads((run / "results.json").read_text())
+        steps = sorted(p.name for p in (run / "checkpoints").iterdir())
+        mirror = root / "mirror" / "run"
+        mirrored = {str(p.relative_to(mirror)) for p in mirror.rglob("*") if p.is_file()}
+        local = {str(p.relative_to(run)) for p in run.rglob("*") if p.is_file()}
+        if not (steps == [f"step_{CLI_STEPS}"] and set(results) == set(metrics)
+                and f"checkpoints/step_{CLI_STEPS}/state.pt" in mirrored and mirrored == local):
+            raise AssertionError(f"[main-train] checkpoints {steps}, results {sorted(results)}, "
+                                 f"mirror {sorted(mirrored)} vs run {sorted(local)}")
+        print(f"[main-train] python -m spatial_clip_tpu_torch.cli.main_train --model ViT-B-32 "
+              f"--precision bf16 --batch-size {CLI_BATCH} --use-spatial-loss --cap-logit-scale "
+              f"50 --remote-sync <dir> ({CLI_STEPS} steps, synthetic 224 px): launches "
+              f"{launches}; {run_s:.1f} s (model build, loader, validation, checkpoint, sync "
+              f"process included); loss {metrics['loss']:.4f}, val/loss "
+              f"{metrics['val/loss']:.4f}, train pairs/s {metrics['pairs_per_sec']:.1f} (the last "
+              f"step, loader included); max_memory_allocated {peak / 2 ** 30:.3f} GiB; "
+              f"results.json {len(results)} keys, checkpoints {steps}, the mirror holds the "
+              f"run's {len(local)} files", flush=True)
+
+        counters = every_counter()
+        for c in counters.values():
+            c.launches = 0
+        out = root / "emb.npz"
+        t0 = time.perf_counter()
+        stats = embed.main(["--model", "ViT-B-32", "--ckpt", str(run / "checkpoints"),
+                            "--data", str(root), "--dataset-type", "synthetic",
+                            "--synthetic-num-samples", str(EMBED_SAMPLES), "--batch-size",
+                            str(EMBED_BATCH), "--workers", "4", "--out", str(out)])
+        embed_s = time.perf_counter() - t0
+        embed_launches = read_launches(counters)
+        want = {FWD: 2 * LAYERS * EMBED_SAMPLES // EMBED_BATCH}
+        got = np.load(out)
+        if embed_launches != want or got["image_embeddings"].shape != (EMBED_SAMPLES, 512):
+            raise AssertionError(f"[embed] launches {embed_launches} (want {want}), shapes "
+                                 f"{ {k: got[k].shape for k in got.files} }")
+        cpu, _, pp_val = create_model_and_transforms("ViT-B-32", precision="fp32", device="cpu")
+        embed.load_weights(cpu, run / "checkpoints")
+        ds = create_spatial_dataset("synthetic", root, "train", "train", 1, pp_val,
+                                    get_tokenizer("ViT-B-32"), {"num_samples": EMBED_SAMPLES})
+        batch = collate_spatial([ds[i] for i in range(EMBED_CHECK)])
+        with torch.inference_mode():
+            want_img = cpu.encode_image(normalize_batch(torch.from_numpy(batch["images"])))
+            want_txt = cpu.encode_text(torch.from_numpy(batch["texts"]))
+        cos = {"image": float((got["image_embeddings"][:EMBED_CHECK] * want_img.numpy())
+                              .sum(-1).min()),
+               "text": float((got["text_embeddings"][:EMBED_CHECK] * want_txt.numpy())
+                             .sum(-1).min())}
+        if min(cos.values()) < MIN_COSINE or not np.array_equal(got["tile_ids"][:EMBED_CHECK],
+                                                                batch["image_tile_ids"]):
+            raise AssertionError(f"[embed] cosine vs f32 CPU {cos}")
+        print(f"[embed] python -m spatial_clip_tpu_torch.cli.embed --ckpt <run>/checkpoints "
+              f"(step_{CLI_STEPS}, bf16) over {EMBED_SAMPLES} synthetic samples at batch "
+              f"{EMBED_BATCH}: launches {embed_launches}; {stats['pairs_per_sec']} pairs/s as "
+              f"the CLI reports it (host decode and loader included), {embed_s:.1f} s with the "
+              f"model build; first {EMBED_CHECK} rows vs the f32 CPU model on the same "
+              f"weights: min cosine image {cos['image']:.5f} text {cos['text']:.5f} (>= "
+              f"{MIN_COSINE})", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"train_launches": launches, "embed_launches": embed_launches, "cos": cos,
+            "pairs_per_sec": stats["pairs_per_sec"], "run_s": run_s}
+
+
+def option_check(label: str, model_name: str, loss_kind: str, batch_size: int,
+                 loss_kw=None, opts=(None,), teacher_name=None, want_launches=None) -> dict:
+    """One train step of ``model_name`` under an option of the open_clip-style
+    trainer, card (bf16, kernels) vs CPU (f32, plain path), on the same
+    weights, batch and augmentation draws: the loss (rel err <=
+    MAX_LOSS_REL_ERR) and the flattened gradient (cosine >= MIN_GRAD_COSINE);
+    with ``want_launches`` the card step's launches. For each optimizer in
+    ``opts`` (``label`` formatted with its name; the models built once)
+    the whole step runs on both sides (constant lr from step 0) and the
+    optimizer's moment and update are held too: the moment by cosine, SGD's
+    update by cosine, Lion's by the share of entries whose sign agrees (>=
+    MIN_SIGN_AGREEMENT). ``teacher_name``: a frozen teacher, the same seeded
+    weights on both sides. Returns the measurements by optimizer."""
+    import torch
+
+    from spatial_clip_tpu_torch import create_model
+    from spatial_clip_tpu_torch.bench import synthetic_batch
+    from spatial_clip_tpu_torch.losses import make_loss
+    from spatial_clip_tpu_torch.models.transforms import AugmentDraws
+    from spatial_clip_tpu_torch.train.loop import Trainer, TrainerConfig
+
+    t0 = time.perf_counter()
+    models = {device: (create_model(model_name, precision=precision, seed=0, device=device,
+                                    training=True),
+                       None if teacher_name is None else
+                       create_model(teacher_name, precision=precision, seed=1, device=device))
+              for device, precision in (("cuda", "bf16"), ("cpu", "fp32"))}
+    batch = synthetic_batch(models["cpu"][0], batch_size, seed=1, device="cpu")
+    rng = np.random.default_rng(2)
+    draws = AugmentDraws(*(torch.from_numpy(d) for d in (
+        rng.random(batch_size) < 0.5,
+        (1.0 + rng.uniform(-0.2, 0.2, batch_size)).astype(np.float32),
+        (1.0 + rng.uniform(-0.2, 0.2, batch_size)).astype(np.float32))))
+    card_batch = {k: v.cuda() for k, v in batch.items()}
+    card_draws = AugmentDraws(*(d.cuda() for d in draws))
+    results = {}
+    for opt in opts:
+        cfg = TrainerConfig(schedule="const", warmup_steps=0, learning_rate=1e-4, seed=0,
+                            **({"opt": opt} if opt else {}))
+        card, cpu = (Trainer(models[d][0], make_loss(loss_kind, **(loss_kw or {})), cfg,
+                             teacher=models[d][1]) for d in ("cuda", "cpu"))
+        card_state, cpu_state = card.init_state(), cpu.init_state()
+        counters = every_counter()
+        for c in counters.values():
+            c.launches = 0
+        loss_card, _, grad_card = card.forward_backward(card_state, card_batch, card_draws)
+        launches = read_launches(counters)
+        loss_cpu, _, grad_cpu = cpu.forward_backward(cpu_state, batch, draws)
+        rel = abs(loss_card.item() - loss_cpu.item()) / abs(loss_cpu.item())
+        cos = cosine(grad_card.float().cpu(), grad_cpu)
+        out = {"loss_rel_err": rel, "grad_cosine": cos, "launches": launches}
+        ok = (rel <= MAX_LOSS_REL_ERR and cos >= MIN_GRAD_COSINE
+              and (want_launches is None or launches == want_launches))
+        if opt:
+            before = (card_state.flat["params"].to("cpu", torch.float32, copy=True),
+                      cpu_state.flat["params"].clone())
+            card.train_step(card_state, card_batch, card_draws)
+            cpu.train_step(cpu_state, batch, draws)
+            delta_card = card_state.flat["params"].float().cpu() - before[0]
+            delta_cpu = cpu_state.flat["params"] - before[1]
+            out["moment_cosine"] = cosine(card_state.flat["mu"].float().cpu(),
+                                          cpu_state.flat["mu"])
+            if opt == "lion":
+                moved = delta_cpu != 0
+                out["sign_agreement"] = float((torch.sign(delta_card[moved])
+                                               == torch.sign(delta_cpu[moved])).double().mean())
+                ok = ok and out["sign_agreement"] >= MIN_SIGN_AGREEMENT
+            else:
+                out["update_cosine"] = cosine(delta_card, delta_cpu)
+                ok = ok and out["update_cosine"] >= MIN_GRAD_COSINE
+            ok = ok and out["moment_cosine"] >= MIN_GRAD_COSINE
+        name = label.format(opt)
+        if not ok:
+            raise AssertionError(f"[{name}] {out} (want launches {want_launches})")
+        print(f"[{name}] {Path(model_name).name} batch {batch_size}, loss {loss_kind}"
+              f"{'' if not opt else f', opt {opt}'}"
+              f"{'' if teacher_name is None else f', teacher {teacher_name}'}: loss card bf16 "
+              f"{loss_card.item():.6f} vs CPU f32 {loss_cpu.item():.6f} (rel err {rel:.3g} <= "
+              f"{MAX_LOSS_REL_ERR}); gradient cosine {cos:.6f} (>= {MIN_GRAD_COSINE}); launches "
+              f"{launches}"
+              + "".join(f"; {k} {v:.6f}" for k, v in out.items()
+                        if k in ("moment_cosine", "update_cosine", "sign_agreement"))
+              + f"; {time.perf_counter() - t0:.1f} s", flush=True)
+        results[opt] = out
+        del card, cpu, card_state, cpu_state
+        t0 = time.perf_counter()
+    del models
+    torch.cuda.empty_cache()
+    return results
+
+
+def siglip_phase() -> dict:
+    """40. SigLIP: a ViT-B-32 JSON with SigLIP's initial scale and bias
+    (log 10, -10, as ViT-B-16-SigLIP.json) passed to ``--model`` by path;
+    ``main_train --siglip`` for 4 steps (exact launches), then one step card
+    vs CPU at batch 32."""
+    from spatial_clip_tpu_torch.models.config import load_model_config
+
+    root = scratch_root("siglip_")
+    try:
+        config = {**load_model_config("ViT-B-32"), "init_logit_scale": 2.302585,
+                  "init_logit_bias": -10.0}
+        path = root / "ViT-B-32-sigmoid.json"
+        path.write_text(json.dumps(config))
+        want = {LSE: 2 * LAYERS * CLI_STEPS, BWD: 2 * LAYERS * CLI_STEPS, FWD: 2 * LAYERS}
+        metrics, run_s, launches = run_main_train(
+            "siglip", [*cli_argv(root, model=path), "--siglip"], want)
+        print(f"[siglip] main_train --model <ViT-B-32 JSON with init_logit_scale 2.302585, "
+              f"init_logit_bias -10> --siglip, batch {CLI_BATCH}, {CLI_STEPS} steps: launches "
+              f"{launches}; loss {metrics['loss']:.4f}, logit_scale "
+              f"{metrics['logit_scale']:.4f}; {run_s:.1f} s", flush=True)
+        check = option_check("siglip-check", str(path), "siglip", CHECK_BATCH,
+                             want_launches={LSE: 2 * LAYERS, BWD: 2 * LAYERS})[None]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"launches": launches, "check": check}
+
+
+def distill_phase() -> dict:
+    """41. Distillation: student ViT-B-32, teacher ViT-L-14 (seeded
+    weights), ``main_train --distill-model ViT-L-14`` at batch 64 for 4
+    steps: the student's 24 forward-lse and 24 backward a step beside the
+    teacher's 36 inference forwards (24 image + 12 text), and on the val
+    batch 24 + 36 inference forwards; then one step card vs CPU at batch 4."""
+    root = scratch_root("distill_")
+    teacher_fwd = 24 + 12
+    try:
+        want = {LSE: 2 * LAYERS * CLI_STEPS, BWD: 2 * LAYERS * CLI_STEPS,
+                FWD: teacher_fwd * CLI_STEPS + 2 * LAYERS + teacher_fwd}
+        metrics, run_s, launches = run_main_train(
+            "distill", [*cli_argv(root), "--distill-model", "ViT-L-14"], want)
+        print(f"[distill] main_train --distill-model ViT-L-14 (student ViT-B-32), batch "
+              f"{CLI_BATCH}, {CLI_STEPS} steps: launches {launches} (the teacher's "
+              f"{teacher_fwd} inference forwards a step and a val batch); loss "
+              f"{metrics['loss']:.4f}, distill_loss {metrics['distill_loss']:.4f}; "
+              f"{run_s:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check = option_check("distill-check", "ViT-B-32", "distill", 4, teacher_name="ViT-L-14",
+                         want_launches={LSE: 2 * LAYERS, BWD: 2 * LAYERS, FWD: teacher_fwd})[None]
+    return {"launches": launches, "check": check}
+
+
+def lit_phase() -> dict:
+    """42. LiT: ``main_train --lock-image-tower --lock-image-unlocked-groups
+    1`` for 3 steps: every frozen parameter of the checkpoint the same bits
+    as at init (seed 0), ``resblocks_11`` moved; the clipping norm counts
+    the frozen gradients (a step's ``grad_norm`` is the norm of the whole
+    gradient, the frozen range included); then ``--opt sgd`` and ``--opt
+    lion``: one step each card vs CPU."""
+    import torch
+
+    from spatial_clip_tpu_torch import create_model
+    from spatial_clip_tpu_torch.bench import synthetic_batch
+    from spatial_clip_tpu_torch.cli.main_train import _lock_prefixes, parse_args
+    from spatial_clip_tpu_torch.losses import make_loss
+    from spatial_clip_tpu_torch.train.checkpoints import state_file_params
+    from spatial_clip_tpu_torch.train.loop import Trainer, TrainerConfig
+
+    steps = 3
+    root = scratch_root("lit_")
+    lock = ["--lock-image-tower", "--lock-image-unlocked-groups", "1"]
+    try:
+        want = {LSE: 2 * LAYERS * steps, BWD: 2 * LAYERS * steps, FWD: 2 * LAYERS}
+        metrics, run_s, launches = run_main_train(
+            "lit", [*cli_argv(root, steps=steps), *lock], want)
+        trained = state_file_params(root / "logs" / "run" / "checkpoints" / f"step_{steps}")
+        init = create_model("ViT-B-32", precision="bf16", seed=0, device="cuda", training=True)
+        prefixes = _lock_prefixes(init, parse_args(lock))
+        from spatial_clip_tpu_torch.train.optim import freeze_mask
+
+        frozen = {k for k, f in freeze_mask(trained, prefixes).items() if f}
+        start = {k: p.detach().cpu() for k, p in init.named_parameters()}
+        same = {k: torch.equal(trained[k], start[k]) for k in trained}
+        last = [k for k in trained if k.startswith("visual.transformer.resblocks.11.")]
+        if not (all(same[k] for k in frozen) and last and not any(same[k] for k in last)
+                and any(k.startswith("visual.transformer.resblocks.10.") for k in frozen)):
+            raise AssertionError(f"[lit] frozen moved: {[k for k in frozen if not same[k]]}; "
+                                 f"resblocks_11 unmoved: {[k for k in last if same[k]]}")
+        # the clipping norm: the whole gradient's, frozen range included
+        trainer = Trainer(init, make_loss("spatial", cap_logit_scale=50.0),
+                          TrainerConfig(frozen_prefixes=prefixes, seed=0))
+        state = trainer.init_state()
+        batch = synthetic_batch(init, CLI_BATCH)
+        gen = state.generator.get_state()
+        _, _, grads = trainer.forward_backward(state, batch)
+        a, b = state.frozen
+        whole = float(grads.float().norm())
+        unfrozen = float(torch.cat([grads[:a], grads[b:]]).float().norm())
+        state.generator.set_state(gen)
+        _, m = trainer.train_step(state, batch)
+        rel = abs(float(m["grad_norm"]) - whole) / whole
+        if not (rel <= 1e-5 and whole > 1.01 * unfrozen):
+            raise AssertionError(f"[lit] grad_norm {float(m['grad_norm'])}, whole {whole}, "
+                                 f"without the frozen range {unfrozen}")
+        print(f"[lit] main_train {' '.join(lock)}, batch {CLI_BATCH}, {steps} steps: launches "
+              f"{launches}; {len(frozen)} frozen parameters the same bits as at init, the "
+              f"{len(last)} of resblocks_11 moved (JAX's freeze_mask would freeze them too); a "
+              f"step's grad_norm {float(m['grad_norm']):.6f} = the whole gradient's norm "
+              f"{whole:.6f} (rel {rel:.2g}; without the frozen range {unfrozen:.6f}); "
+              f"{run_s:.1f} s", flush=True)
+        del trainer, state, init, grads
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    checks = option_check("{}-check", "ViT-B-32", "spatial", CHECK_BATCH,
+                          loss_kw={"cap_logit_scale": 50.0}, opts=("sgd", "lion"),
+                          want_launches={LSE: 2 * LAYERS, BWD: 2 * LAYERS})
+    return {"launches": launches, "frozen": len(frozen), "checks": checks}
+
+
+def remat_steps(label: str, model_name: str, batch_size: int, remat: bool, steps: int):
+    """``steps`` bench-workload steps of ``model_name`` with or without
+    remat from the seeded state, each ending in a synchronize: the flat
+    buffers after step 2 (copied to the host), the launches of all steps,
+    the median step ms of steps 3 on, the peak memory and (loss, grad norm)
+    per step."""
+    import torch
+
+    from spatial_clip_tpu_torch.bench import make_trainer, synthetic_batch
+
+    torch.cuda.empty_cache()
+    trainer = make_trainer(model_name, remat=remat)
+    data = synthetic_batch(trainer.model, batch_size)
+    state = trainer.init_state()
+    counters = every_counter()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, history, flat = [], [], None
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, data)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        history.append((float(metrics["loss"]), float(metrics["grad_norm"])))
+        if i == 1:
+            flat = {k: v.cpu() for k, v in state.flat.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = read_launches(counters)
+    if not all(np.isfinite([v for pair in history for v in pair])):
+        raise AssertionError(f"[{label}] non-finite loss or grad norm: {history}")
+    del trainer, data, state
+    torch.cuda.empty_cache()
+    return flat, launches, statistics.median(step_ms[2:]), peak, history
+
+
+def remat_phase() -> dict:
+    """43. Activation checkpointing: ViT-L-14-336 at batch 32 (phase 36's
+    step) with and without ``remat``: params, mu and nu after 2 steps the
+    same bits, exact launches (the forward-lse ones doubled by the
+    recompute), step ms and peak memory of both; then ViT-B-32 at batch 256
+    under remat: 48 forward-lse and 24 backward launches a step, step ms
+    and peak memory."""
+    import torch
+
+    out = {}
+    per_step = {"attention_long.fused_attention_long_lse": 24, "attention_long.long_bwd_dq": 24,
+                "attention_long.long_bwd_dkdv": 24, "attention_long.long_db": 24, LSE: 12,
+                BWD: 12}
+    runs = {}
+    for remat in (False, True):
+        want = {k: n * (2 if remat and "lse" in k else 1) * REMAT_STEPS
+                for k, n in per_step.items()}
+        flat, launches, ms, peak, history = remat_steps(
+            "remat", "ViT-L-14-336", VITL336_BATCH, remat, REMAT_STEPS)
+        if launches != want:
+            raise AssertionError(f"[remat] ViT-L-14-336 remat={remat} launches {launches}, "
+                                 f"want {want}")
+        runs[remat] = dict(flat=flat, launches=launches, ms=ms, peak=peak)
+    same = {k: torch.equal(runs[False]["flat"][k], runs[True]["flat"][k])
+            for k in ("params", "mu", "nu")}
+    diffs = {k: (runs[False]["flat"][k].float() - runs[True]["flat"][k].float()).abs().max()
+             .item() for k in same}
+    ratio = runs[True]["ms"] / runs[False]["ms"]
+    print(f"[remat] ViT-L-14-336 bf16 batch {VITL336_BATCH}, {REMAT_STEPS} steps each: "
+          f"without remat {runs[False]['ms']:.3f} ms a step (median of steps 3-"
+          f"{REMAT_STEPS}), {runs[False]['peak']:.3f} GiB; with remat {runs[True]['ms']:.3f} ms "
+          f"({ratio:.3f}x), {runs[True]['peak']:.3f} GiB "
+          f"({runs[True]['peak'] / runs[False]['peak']:.3f}x); "
+          f"launches with remat {runs[True]['launches']}; after 2 steps the same bits "
+          f"{same} (max abs differences {diffs})", flush=True)
+    if not all(same.values()):
+        raise AssertionError(f"[remat] remat and plain differ after 2 steps: {diffs}")
+    out["vitl336"] = {k: {kk: vv for kk, vv in v.items() if kk != "flat"}
+                      for k, v in runs.items()}
+    del runs
+    want = {LSE: 2 * 2 * LAYERS * REMAT_STEPS, BWD: 2 * LAYERS * REMAT_STEPS}
+    _, launches, ms, peak, history = remat_steps("remat-b32", "ViT-B-32", TRAIN_BATCH, True,
+                                                 REMAT_STEPS)
+    if launches != want:
+        raise AssertionError(f"[remat] ViT-B-32 launches {launches}, want {want}")
+    print(f"[remat] ViT-B-32 bf16 batch {TRAIN_BATCH} under remat, {REMAT_STEPS} steps: launches "
+          f"{launches} (forward-lse doubled by the recompute); {ms:.3f} ms a step, "
+          f"{peak:.3f} GiB; losses finite {history[0][0]:.4f} -> {history[-1][0]:.4f}",
+          flush=True)
+    out["vitb32"] = {"launches": launches, "ms": ms, "peak": peak}
+    return out
+
+
+def debug_phase() -> dict:
+    """44. The debug presets and the sweep on the card: ``.train
+    experiment=smoke_synthetic debug=default`` runs, and with its trainer a
+    batch holding a NaN tile raises FloatingPointError (a trainer without
+    the preset takes the same batch to a NaN loss); ``debug=profiler`` on
+    ``data=synthetic`` (ViT-B-32, 2 steps) writes a trace under
+    ``<output_dir>/profile`` whose kernels include the attention forward
+    and backward; ``cli.sweep --mode grid`` runs 2 trials of
+    ``experiment=smoke_synthetic`` and none fails."""
+    import torch
+
+    from spatial_clip_tpu_torch.cli import sweep
+    from spatial_clip_tpu_torch.train import entry
+    from spatial_clip_tpu_torch.train.loop import Trainer
+
+    root = scratch_root("debug_")
+    try:
+        t0 = time.perf_counter()
+        cfg = entry.compose_train(["experiment=smoke_synthetic", "debug=default",
+                                   f"paths.root_dir={root / 'default'}"])
+        _, objects = entry.train(cfg)
+        trainer, state = objects["trainer"], objects["state"]
+        batch = trainer._device_batch(next(iter(objects["datamodule"].train_dataloader())))
+        images = batch["images"].float() / 255.0
+        images[0, 0, 0, 0] = float("nan")
+        nan_batch = {**batch, "images": images}
+        try:
+            trainer.train_step(state, nan_batch)
+            raised = None
+        except FloatingPointError as e:
+            raised = str(e)
+        plain = Trainer(trainer.model, trainer.loss, type(trainer.cfg)(augment=False))
+        _, m = plain.train_step(plain.init_state(), nan_batch)
+        if raised is None or not np.isnan(float(m["loss"])):
+            raise AssertionError(f"[debug] NaN tile under debug=default: {raised}; without: "
+                                 f"loss {float(m['loss'])}")
+        print(f"[debug] .train experiment=smoke_synthetic debug=default on the card: "
+              f"{state.step} steps; a NaN tile then raises FloatingPointError ({raised!r}), "
+              f"without the preset the step runs to loss {float(m['loss'])}; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+        t0 = time.perf_counter()
+        cfg = entry.compose_train(["data=synthetic", "debug=profiler",
+                                   f"paths.root_dir={root / 'profiler'}"])
+        entry.train(cfg)
+        traces = list((Path(cfg["paths"]["output_dir"]) / "profile").glob("*.pt.trace.json"))
+        events = json.loads(traces[0].read_text())["traceEvents"] if len(traces) == 1 else []
+        kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+        attention = sorted({m.group(0) for k in kernels
+                            for m in [re.search(r"attn_(fwd|bwd)_kernel", k)] if m})
+        if attention != ["attn_bwd_kernel", "attn_fwd_kernel"]:
+            raise AssertionError(f"[debug] profiler traces {traces}: {len(kernels)} kernel "
+                                 f"names, attention {attention}")
+        print(f"[debug] .train data=synthetic debug=profiler: trace "
+              f"{traces[0].name} ({traces[0].stat().st_size} B, {len(kernels)} distinct kernel "
+              f"names, the port's attention kernels {attention}); "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+        t0 = time.perf_counter()
+        summary = sweep.main(["--mode", "grid", "--param",
+                              "optimizer.learning_rate=choice:0.001,0.0001", "--out",
+                              str(root / "sweep.json"), "--", "experiment=smoke_synthetic",
+                              f"paths.root_dir={root / 'sweep'}"])
+        results = summary["results"]
+        if len(results) != 2 or any("error" in r for r in results):
+            raise AssertionError(f"[debug] sweep {summary}")
+        print(f"[debug] cli.sweep --mode grid, 2 trials of experiment=smoke_synthetic on the "
+              f"card: values {[round(r['value'], 4) for r in results]}, none failed; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return {"trace_kernels": len(kernels), "attention": attention}
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Dataset factory (counterpart of ``spatial_clip_tpu.data.datasets``): the
-``synthetic``, ``shards``/``shards_v1`` and ``parquet``/``parquet_v1``
-formats. ``csv`` is not ported yet (ROADMAP Queue 1 item 2).
+``synthetic``, ``shards``/``shards_v1``, ``parquet``/``parquet_v1`` and
+``csv`` formats (a ``.csv``/``.tsv`` path, or ``<data_dir>/<split>.csv``).
 """
 from __future__ import annotations
 
@@ -77,9 +77,11 @@ def create_spatial_dataset(
             **kwargs,
         )
     if fmt == "csv":
-        raise NotImplementedError(
-            "dataset_format 'csv' (csv_backend.CsvDataset) is not ported to "
-            "spatial_clip_tpu_torch: ROADMAP Queue 1 item 2")
+        from spatial_clip_tpu_torch.data.datasets.csv_backend import CsvDataset
+
+        path = data_dir if data_dir.suffix in (".csv", ".tsv") else data_dir / f"{split_spec}.csv"
+        return CsvDataset(path, preprocess_fn=preprocess_fn, tokenizer=tokenizer,
+                          k_neighbors=k_neighbors, **kwargs)
     if fmt == "synthetic":
         kwargs.setdefault("num_samples", 256)
         if split_name == "val":

@@ -2,9 +2,9 @@
 ``spatial_clip_tpu.losses``).
 
 :class:`LossFn` names the inputs its loss consumes in ``accepted_args`` and
-ignores everything else, so one train step serves every loss. The ``clip``
-and ``spatial`` kinds are ported; every other kind raises
-NotImplementedError.
+ignores everything else, so one train step serves every loss. The ``clip``,
+``spatial``, ``siglip`` and ``distill`` kinds are ported; ``coca`` and
+``spatial_ring`` raise NotImplementedError naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -17,6 +17,8 @@ import torch
 from spatial_clip_tpu_torch.losses.contrastive import (  # noqa: F401
     build_spatial_soft_labels,
     clip_loss,
+    distill_clip_loss,
+    siglip_loss,
     spatial_loss,
 )
 
@@ -27,7 +29,9 @@ _SPATIAL_ARGS = _BASE_ARGS | {
     "neighbor_tile_ids",
     "neighbor_alphas",
 }
-_UNPORTED = ("spatial_ring", "ring", "coca", "distill", "distill_clip", "siglip", "sigmoid")
+_DISTILL_ARGS = _BASE_ARGS | {"dist_image_features", "dist_text_features", "dist_logit_scale"}
+# kind -> the ROADMAP Queue 1 item that ports it
+_UNPORTED = {"spatial_ring": 7, "ring": 7, "coca": 9}
 
 
 @dataclass(frozen=True)
@@ -48,9 +52,11 @@ class LossFn:
 
 
 def make_loss(kind: str = "clip", **options) -> LossFn:
-    """Build a loss by name: ``clip`` or ``spatial`` (with the JAX package's
+    """Build a loss by name: ``clip``, ``spatial`` (with the JAX package's
     options ``cap_logit_scale``, ``temp_reg_weight``, ``float32_logits``,
-    ``neighbor_alpha_scale``, ``use_fused_kernel``)."""
+    ``neighbor_alpha_scale``, ``use_fused_kernel``), ``distill`` (which
+    also takes the teacher's ``dist_*`` features) or ``siglip``
+    (``dist_impl``)."""
     kind = kind.lower()
     if kind in ("clip", "cliploss"):
         fn = functools.partial(
@@ -66,6 +72,14 @@ def make_loss(kind: str = "clip", **options) -> LossFn:
             use_fused_kernel=bool(options.get("use_fused_kernel", False)),
         )
         return LossFn("spatial", fn, _SPATIAL_ARGS, options)
+    if kind in ("distill", "distill_clip"):
+        fn = functools.partial(
+            distill_clip_loss, float32_logits=bool(options.get("float32_logits", True)))
+        return LossFn("distill", fn, _DISTILL_ARGS, options)
+    if kind in ("siglip", "sigmoid"):
+        fn = functools.partial(siglip_loss, dist_impl=options.get("dist_impl", "shift"))
+        return LossFn("siglip", fn, _BASE_ARGS, options)
     if kind in _UNPORTED:
-        raise NotImplementedError(f"loss kind {kind!r} is not ported to spatial_clip_tpu_torch")
+        raise NotImplementedError(f"loss kind {kind!r} is not ported to spatial_clip_tpu_torch "
+                                  f"(ROADMAP Queue 1 item {_UNPORTED[kind]})")
     raise ValueError(f"unknown loss kind: {kind}")

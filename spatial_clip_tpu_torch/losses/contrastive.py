@@ -5,6 +5,9 @@
   labels: the dense path (the (B, N) label matrices are built from tile ids
   on the device) and the fused path (``use_fused_kernel``, the kernels of
   ``ops/fused_contrastive.py``, O(B) memory).
+- :func:`distill_clip_loss`: InfoNCE plus the soft cross-entropy of the
+  student's logits against a frozen teacher's, both ways.
+- :func:`siglip_loss`: the pairwise sigmoid loss.
 
 Only the single-process case (the JAX package's ``axis_name=None``) is
 ported: the inputs are the whole batch.
@@ -116,3 +119,55 @@ def spatial_loss(image_features: torch.Tensor, text_features: torch.Tensor,
                      + ((p_t * z_t32).sum(dim=1).mean() - (labels_t * z_t32).sum(dim=1).mean()))
         total = total + temp_reg_weight * gap ** 2
     return {"contrastive_loss": total}
+
+
+def distill_clip_loss(image_features: torch.Tensor, text_features: torch.Tensor,
+                      logit_scale: torch.Tensor, dist_image_features: torch.Tensor,
+                      dist_text_features: torch.Tensor, dist_logit_scale: torch.Tensor,
+                      logit_bias: Optional[torch.Tensor] = None,
+                      float32_logits: bool = True) -> Dict[str, torch.Tensor]:
+    """Teacher-student distillation: :func:`clip_loss` plus the mean over
+    rows of the cross-entropy between the teacher's softmax and the
+    student's log-softmax, image -> text and text -> image averaged
+    (``distill_loss``). The teacher's logits carry no gradient."""
+    base = clip_loss(image_features, text_features, logit_scale, logit_bias=logit_bias,
+                     float32_logits=float32_logits)["contrastive_loss"]
+    logits_i = (image_features @ text_features.T * logit_scale).float()
+    logits_t = (text_features @ image_features.T * logit_scale).float()
+    with torch.no_grad():
+        t_logits_i = (dist_image_features @ dist_text_features.T * dist_logit_scale).float()
+        t_logits_t = (dist_text_features @ dist_image_features.T * dist_logit_scale).float()
+
+    def soft_ce(student, teacher):
+        return -(F.softmax(teacher, dim=1) * F.log_softmax(student, dim=1)).sum(1).mean()
+
+    distill = 0.5 * (soft_ce(logits_i, t_logits_i) + soft_ce(logits_t, t_logits_t))
+    return {"contrastive_loss": base + distill, "distill_loss": distill}
+
+
+def _siglip_pair_loss(img: torch.Tensor, txt: torch.Tensor, logit_scale: torch.Tensor,
+                      logit_bias: torch.Tensor, negative_only: bool) -> torch.Tensor:
+    """Sum of the pairwise sigmoid losses of one image block against one
+    text block: label +1 on the diagonal, -1 elsewhere (every pair -1 with
+    ``negative_only``)."""
+    logits = (logit_scale * (img @ txt.T) + logit_bias).float()
+    if negative_only:
+        labels = -torch.ones_like(logits)
+    else:
+        labels = 2.0 * torch.eye(logits.shape[0], logits.shape[1], device=logits.device) - 1.0
+    return -F.logsigmoid(labels * logits).sum()
+
+
+def siglip_loss(image_features: torch.Tensor, text_features: torch.Tensor,
+                logit_scale: torch.Tensor, logit_bias: Optional[torch.Tensor] = None,
+                dist_impl: str = "shift") -> Dict[str, torch.Tensor]:
+    """SigLIP's pairwise sigmoid loss over the batch, divided by the batch
+    size. ``dist_impl`` picks how several processes exchange text blocks;
+    on one process there is nothing to exchange and it has no effect. The
+    model must carry a learned bias (a config with ``init_logit_bias``)."""
+    if logit_bias is None:
+        raise TypeError("the siglip loss needs the model's logit_bias: build the model from a "
+                        "config that sets init_logit_bias")
+    loss = _siglip_pair_loss(image_features, text_features, logit_scale, logit_bias,
+                             negative_only=False)
+    return {"contrastive_loss": loss / image_features.shape[0]}

@@ -32,15 +32,15 @@ from spatial_clip_tpu_torch.models.transformer import (
 from spatial_clip_tpu_torch.ops.attention_pair import PairAttention, pair_supported
 
 
-def zip_ready(cfg: CLIPCfg) -> bool:
+def zip_ready(cfg: CLIPCfg, remat: bool = False) -> bool:
     """Whether a forward given images and text zips the towers: JAX's
-    ``CLIP._zip_ready``, clause by clause, from the configuration alone.
-    'off' never zips; any block feature the zip stages do not run (qk-norm,
-    scaled-cosine, a LayerNorm fused into a projection, attention other
-    than the fused kernel) or unequal depths run the towers apart. JAX also
-    refuses ``remat``; the port has no rematerialization, so no clause."""
+    ``CLIP._zip_ready``, clause by clause, from the configuration and the
+    model's ``remat``. 'off' or ``remat`` never zips; any block feature the
+    zip stages do not run (qk-norm, scaled-cosine, a LayerNorm fused into a
+    projection, attention other than the fused kernel) or unequal depths
+    run the towers apart."""
     z = cfg.zip_towers
-    if z == "off":
+    if z == "off" or remat:
         return False
     v, t = cfg.vision_cfg, cfg.text_cfg
     if (v.timm_model_name or isinstance(v.layers, (list, tuple)) or cfg.gene_cfg is not None
@@ -71,19 +71,20 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Te
 class CLIP(nn.Module):
     """``dtype`` is the compute dtype. ``param_dtype`` (default: ``dtype``)
     stores the matrices and embeddings; a model built ``training`` checks
-    that the attention backward kernel takes both towers' geometry."""
+    that the attention backward kernel takes both towers' geometry;
+    ``remat`` recomputes each transformer block in the backward."""
 
     def __init__(self, cfg: CLIPCfg, dtype=torch.float32, device=None, param_dtype=None,
-                 training: bool = False):
+                 training: bool = False, remat: bool = False):
         super().__init__()
         check_ported(cfg)
-        self.cfg, self.dtype = cfg, dtype
+        self.cfg, self.dtype, self.remat = cfg, dtype, remat
         v, t = cfg.vision_cfg, cfg.text_cfg
         act = quick_gelu if cfg.quick_gelu else gelu_tanh
         common = dict(ln_stats=cfg.ln_impl, act=act, dtype=dtype,
                       param_dtype=param_dtype or dtype, device=device, training=training,
                       attn_impl=cfg.attn_impl, ln_gemm_impl=cfg.ln_gemm_impl,
-                      mlp_impl=cfg.mlp_impl)
+                      mlp_impl=cfg.mlp_impl, remat=remat)
         self.visual = VisionTransformer(
             v.size, v.patch_size, v.width, v.layers, v.heads, v.mlp_ratio,
             cfg.embed_dim, ls_init_value=v.ls_init_value, no_ln_pre=v.no_ln_pre,
@@ -142,7 +143,7 @@ class CLIP(nn.Module):
         return l2_normalize(feats) if normalize else feats
 
     def _zip_ready(self) -> bool:
-        return zip_ready(self.cfg)
+        return zip_ready(self.cfg, self.remat)
 
     def encode_pair(self, images: torch.Tensor, text: torch.Tensor, normalize: bool = True):
         """Both towers with each layer's image and text attention as one

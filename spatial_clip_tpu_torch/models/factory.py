@@ -121,10 +121,8 @@ def create_model(model_name: str, pretrained: Optional[str] = None,
     drawn from a seed are the same either way (then rounded to the compute
     dtype for serving). ``pretrained`` names local weights that replace
     them (:func:`load_checkpoint`). ``force_quick_gelu`` sets the config's
-    ``quick_gelu``; ``remat`` (rematerialization) is not ported."""
-    if remat:
-        raise NotImplementedError("remat=True (rematerialization) is not ported to "
-                                  "spatial_clip_tpu_torch")
+    ``quick_gelu``; ``remat`` recomputes each transformer block in the
+    backward (activation checkpointing)."""
     if precision not in PRECISION_DTYPES:
         raise ValueError(f"unknown precision {precision!r}: {sorted(PRECISION_DTYPES)}")
     if force_quick_gelu:
@@ -132,7 +130,8 @@ def create_model(model_name: str, pretrained: Optional[str] = None,
     cfg = resolve_clip_cfg(model_name, **cfg_overrides)
     dtype = PRECISION_DTYPES[precision]
     model = CLIP(cfg, dtype=dtype, device=torch.device(device),
-                 param_dtype=torch.float32 if training else dtype, training=training)
+                 param_dtype=torch.float32 if training else dtype, training=training,
+                 remat=remat)
     init_weights(model, seed)
     if pretrained:
         load_checkpoint(model, pretrained)

@@ -42,6 +42,12 @@ tower when the config sets ``gene_cfg``: a rank-weighted gene vector through
 a dense embedding, residual MLP blocks and a head; only its ``ln_final``
 takes ``ln_impl``.
 
+With ``remat`` (JAX's ``nn.remat(ResidualBlock)`` with its default policy,
+which saves nothing), each block runs under ``torch.utils.checkpoint``
+(non-reentrant) when grad is enabled: the backward recomputes the block's
+forward, with the same kernels on the same inputs, and keeps only the
+block's input.
+
 Each block also runs as two stages around its attention
 (:meth:`ResidualBlock.attn_qkv`, :meth:`ResidualBlock.attn_finish`), and
 the image tower as ``embed`` / ``head`` around its blocks, so that
@@ -55,6 +61,8 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from spatial_clip_tpu_torch.ops import (
     attention_plain,
@@ -367,15 +375,30 @@ class ResidualBlock(nn.Module):
 
 
 class Transformer(nn.Module):
-    def __init__(self, width: int, layers: int, heads: int, **block_kw):
+    def __init__(self, width: int, layers: int, heads: int, remat: bool = False, **block_kw):
         super().__init__()
+        self.remat = remat
         self.resblocks = nn.ModuleList(
             ResidualBlock(width, heads, **block_kw) for _ in range(layers))
 
     def forward(self, x: torch.Tensor, attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        remat = self.remat and torch.is_grad_enabled()
         for block in self.resblocks:
-            x = block(x, attn_mask)
+            x = _checkpointed(block, x, attn_mask) if remat else block(x, attn_mask)
         return x
+
+
+def _checkpointed(block: nn.Module, x: torch.Tensor, attn_mask) -> torch.Tensor:
+    """``block(x, attn_mask)`` under a non-reentrant checkpoint. The
+    block's parameters go in as inputs and are bound again for the
+    recompute, which runs in the backward: under ``functional_call`` (the
+    trainer's) the module's own attributes then hold other tensors."""
+    names, params = zip(*block.named_parameters())
+
+    def run(x, attn_mask, *params):
+        return functional_call(block, dict(zip(names, params)), (x, attn_mask))
+
+    return checkpoint(run, x, attn_mask, *params, use_reentrant=False)
 
 
 class PatchEmbed(nn.Module):
@@ -408,7 +431,7 @@ class VisionTransformer(nn.Module):
                  norm_eps: float = 1e-5, ln_stats: str = "onepass",
                  act: Callable = gelu_tanh, dtype=torch.float32, param_dtype=None,
                  device=None, training: bool = False, attn_impl: str = "auto",
-                 ln_gemm_impl: str = "dense", mlp_impl: str = "dense"):
+                 ln_gemm_impl: str = "dense", mlp_impl: str = "dense", remat: bool = False):
         super().__init__()
         if pool_type not in ("tok", "avg", "none"):
             raise ValueError(f"unknown vision pool_type {pool_type!r}")
@@ -428,7 +451,7 @@ class VisionTransformer(nn.Module):
             norm_eps=norm_eps, ln_stats=ln_stats, act=act, dtype=dtype,
             param_dtype=param_dtype, device=device,
             seq_len=n_patches + 1 if training else None, attn_impl=attn_impl,
-            ln_gemm_impl=ln_gemm_impl, mlp_impl=mlp_impl)
+            ln_gemm_impl=ln_gemm_impl, mlp_impl=mlp_impl, remat=remat)
         self.ln_post = LayerNorm(width, norm_eps, ln_stats, dtype, device)
         self.proj = _param(width, output_dim, dtype=param_dtype, device=device)
 
@@ -499,7 +522,7 @@ class TextTransformer(nn.Module):
                  proj_bias: bool = False, norm_eps: float = 1e-5, ln_stats: str = "onepass",
                  act: Callable = gelu_tanh, dtype=torch.float32, param_dtype=None,
                  device=None, training: bool = False, attn_impl: str = "auto",
-                 ln_gemm_impl: str = "dense", mlp_impl: str = "dense"):
+                 ln_gemm_impl: str = "dense", mlp_impl: str = "dense", remat: bool = False):
         super().__init__()
         param_dtype = param_dtype or dtype
         self.pool_type, self.dtype = pool_type, dtype
@@ -514,7 +537,7 @@ class TextTransformer(nn.Module):
             norm_eps=norm_eps, ln_stats=ln_stats, act=act, dtype=dtype,
             param_dtype=param_dtype, device=device,
             seq_len=context_length if training else None, attn_impl=attn_impl,
-            ln_gemm_impl=ln_gemm_impl, mlp_impl=mlp_impl)
+            ln_gemm_impl=ln_gemm_impl, mlp_impl=mlp_impl, remat=remat)
         self.ln_final = LayerNorm(width, norm_eps, ln_stats, dtype, device)
         self.text_projection = (Dense(width, output_dim, dtype, param_dtype, device) if proj_bias
                                 else _param(width, output_dim, dtype=param_dtype, device=device))

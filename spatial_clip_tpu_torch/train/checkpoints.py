@@ -16,9 +16,10 @@ carries:
 - ``params``: the flat float32 parameter buffer of
   :class:`~spatial_clip_tpu_torch.train.loop.TrainState` (the alignment gaps
   hold zeros), with ``order``, ``offsets`` and ``shapes``, its layout;
-- ``mu`` and ``nu``: the Adam moments' flat buffers in their storage dtypes
-  (bfloat16 by default);
-- ``count`` (Adam's step count) and ``step`` (the train step's);
+- ``mu`` and ``nu``: the optimizer's moments' flat buffers in their storage
+  dtypes (Adam's in bfloat16 by default; SGD's trace or Lion's moment in
+  ``mu``, f32, with ``nu`` empty);
+- ``count`` (the optimizer's step count) and ``step`` (the train step's);
 - ``generator`` and ``generator_device``: the state of
   ``TrainState.generator``, which draws the augmentations, so that a resumed
   run draws the flips and jitters the unbroken run would have drawn.
@@ -92,6 +93,18 @@ def host_state(state) -> Dict[str, Any]:
         "generator": state.generator.get_state().clone(),
         "generator_device": state.generator.device.type,
     }
+
+
+def state_file_params(path: Union[str, Path]) -> Dict[str, torch.Tensor]:
+    """The parameters in a state file (a ``step_N`` directory or its
+    ``state.pt``), by this package's names, as float32 CPU tensors."""
+    path = Path(path)
+    if path.is_dir():
+        path = path / STATE_FILE
+    host = torch.load(path, map_location="cpu", weights_only=True)
+    flat = host["params"]
+    return {k: flat[off:off + int(np.prod(shape))].view(shape).clone()
+            for k, off, shape in zip(host["order"], host["offsets"], host["shapes"])}
 
 
 def load_host_state(host: Dict[str, Any], target):

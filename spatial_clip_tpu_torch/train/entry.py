@@ -14,9 +14,18 @@ The run goes on the GPU (``cuda``) unless ``trainer.platform=cpu``
 (``configs/trainer/cpu.yaml``) asks for the CPU; with no GPU it raises
 rather than carry on on the CPU. Keys with no counterpart here raise
 NotImplementedError naming the key: ``trainer.platform`` other than
-cpu / gpu / cuda, ``trainer.sim_devices``, ``trainer.scan_steps`` above 1
-(an XLA dispatch knob), ``trainer.profiler``, ``trainer.detect_anomaly``
-and ``model.remat``.
+cpu / gpu / cuda, ``trainer.sim_devices`` (ROADMAP Queue 1 item 7) and
+``trainer.scan_steps`` above 1 (an XLA dispatch knob).
+
+The debug presets' keys (``configs/debug/``): ``trainer.detect_anomaly``
+(JAX's ``jax_debug_nans``) stops the run with FloatingPointError at the
+first step whose loss or gradient holds a NaN, and runs ``fit`` under
+``torch.autograd.set_detect_anomaly``, so a NaN made inside a backward
+function names that function; ``trainer.profiler`` (any value: the
+configs' ``jax`` means on) writes a ``torch.profiler`` trace of ``fit``
+(CPU and, on the GPU, CUDA activity) under ``<output_dir>/profile`` in
+TensorBoard's layout. ``model.remat`` recomputes each block in the
+backward (``create_model(remat=True)``).
 """
 from __future__ import annotations
 
@@ -44,10 +53,6 @@ def resolve_device(cfg: Dict[str, Any]):
         ("trainer.platform", platform, platform is not None and platform not in PLATFORMS),
         ("trainer.sim_devices", tcfg.get("sim_devices"), bool(tcfg.get("sim_devices"))),
         ("trainer.scan_steps", tcfg.get("scan_steps"), int(tcfg.get("scan_steps") or 1) > 1),
-        ("trainer.profiler", tcfg.get("profiler"), bool(tcfg.get("profiler"))),
-        ("trainer.detect_anomaly", tcfg.get("detect_anomaly"), bool(tcfg.get("detect_anomaly"))),
-        ("model.remat", (cfg.get("model") or {}).get("remat"),
-         bool((cfg.get("model") or {}).get("remat"))),
     ]
     for key, value, bad in refused:
         if bad:
@@ -150,6 +155,7 @@ def build_trainer(cfg: Dict[str, Any], model, total_steps: int):
         monitor=checkpoint_cb.get("monitor", "R@1"),
         monitor_mode=checkpoint_cb.get("mode", "max"),
         early_stop_patience=(callbacks.get("early_stopping") or {}).get("patience"),
+        debug_nans=bool(tcfg.get("detect_anomaly")),
     )
     return Trainer(model, loss=loss, config=config)
 
@@ -175,15 +181,39 @@ class Run:
     def fit(self, train_iter=None, steps_per_epoch: Optional[int] = None):
         """``Trainer.fit`` over the run's loaders (or ``train_iter`` with
         ``steps_per_epoch`` in its place), resuming as ``cfg['resume']``
-        says; returns (state, last metrics)."""
-        return self.trainer.fit(
-            train_iter or self.train_iter,
-            self.val_iter,
-            epochs=self.epochs,
-            steps_per_epoch=steps_per_epoch or self.steps_per_epoch,
-            logger=self.loggers,
-            resume=self.cfg.get("resume"),
-        )
+        says, under the debug presets' anomaly mode and profiler; returns
+        (state, last metrics)."""
+        import contextlib
+
+        import torch
+
+        tcfg = self.cfg.get("trainer") or {}
+        with contextlib.ExitStack() as stack:
+            if tcfg.get("detect_anomaly"):
+                stack.enter_context(torch.autograd.set_detect_anomaly(True))
+            if tcfg.get("profiler"):
+                stack.enter_context(self._profile(torch))
+            return self.trainer.fit(
+                train_iter or self.train_iter,
+                self.val_iter,
+                epochs=self.epochs,
+                steps_per_epoch=steps_per_epoch or self.steps_per_epoch,
+                logger=self.loggers,
+                resume=self.cfg.get("resume"),
+            )
+
+    def _profile(self, torch):
+        """A torch.profiler context over ``fit`` that writes its trace under
+        ``<output_dir>/profile`` as TensorBoard's profiler plugin lays it out
+        (``<worker>.<time>.pt.trace.json``)."""
+        from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        log.info("profiler trace goes to %s", self.output_dir / "profile")
+        return profile(activities=activities,
+                       on_trace_ready=tensorboard_trace_handler(str(self.output_dir / "profile")))
 
 
 def build(cfg: Dict[str, Any]) -> Run:

@@ -3,8 +3,12 @@
 One :meth:`Trainer.train_step` does what the JAX package's jitted step does:
 normalize (and augment) the uint8 tiles on the device, run both towers,
 compute the loss and its gradient (with ``grad_accum > 1``, accumulated over
-microbatches in ``cached`` or ``simple`` mode), run the AdamW chain, clamp
-the logit scale to ``[0, ln 100]``, and return the step metrics.
+microbatches in ``cached`` or ``simple`` mode), run the optimizer chain
+(``opt``: AdamW, SGD or Lion; ``frozen_prefixes`` lock parameters, LiT
+style), clamp the logit scale to ``[0, ln 100]``, and return the step
+metrics. With a distillation ``teacher`` (a frozen model), the loss also
+takes the teacher's features of the same batch, normalized with the
+teacher's mean and std and never augmented, as in the JAX package.
 :meth:`Trainer.fit` drives it over iterators of numpy batches with
 validation and checkpoints (``ckpt_dir``: a save every ``save_every_steps``,
 on each new best ``monitor`` value and at each epoch's end, the newest
@@ -14,10 +18,14 @@ the full-split retrieval metrics. PyTorch runs eagerly, so there is no jit;
 the optimizer updates the state in place. Nothing in a step waits for the
 device: the metrics come back as device scalars (``lr`` as a float).
 
+``debug_nans`` is the port's ``jax_debug_nans``: a step whose loss or
+gradient holds a NaN raises FloatingPointError naming the step (an Inf
+passes).
+
 Not ported, and raising NotImplementedError: master weights, a bf16
-gradient dtype, optimizers other than AdamW, frozen towers, a distillation
-teacher and a device mesh. The JAX package's ``scan_steps`` and
-``compiler_options`` are XLA dispatch knobs with no counterpart here.
+gradient dtype (ROADMAP Queue 1 item 4) and a device mesh (item 7). The
+JAX package's ``scan_steps`` and ``compiler_options`` are XLA dispatch
+knobs with no counterpart here.
 """
 from __future__ import annotations
 
@@ -45,7 +53,13 @@ from spatial_clip_tpu_torch.train.metrics import (
     clip_retrieval_metrics,
     recall_at_k,
 )
-from spatial_clip_tpu_torch.train.optim import AdamW, decay_mask, make_schedule, moment_dtype
+from spatial_clip_tpu_torch.train.optim import (
+    decay_mask,
+    freeze_mask,
+    make_optimizer,
+    make_schedule,
+    moment_dtype,
+)
 
 log = logging.getLogger(__name__)
 
@@ -87,6 +101,7 @@ class TrainerConfig:
     monitor_mode: str = "max"
     step_metrics: str = "full"
     early_stop_patience: Optional[int] = None
+    debug_nans: bool = False
     extra: Dict[str, Any] = dfield(default_factory=dict)
 
 
@@ -97,41 +112,47 @@ def _unported(cfg: TrainerConfig) -> None:
     for name, bad in (
         ("master_weights", cfg.master_weights),
         ("grad_dtype", cfg.grad_dtype is not None),
-        ("opt", (cfg.opt or "adamw").lower() not in ("adamw", "adam")),
-        ("frozen_prefixes", bool(cfg.frozen_prefixes)),
     ):
         if bad:
             raise NotImplementedError(
                 f"TrainerConfig.{name}={getattr(cfg, name)!r} is not ported to "
-                "spatial_clip_tpu_torch")
+                "spatial_clip_tpu_torch (ROADMAP Queue 1 item 4)")
 
 
 _ALIGN = 4  # f32 elements: every parameter's view starts on a 16-byte boundary
 
 
-def _flat_layout(params: Dict[str, torch.Tensor]):
+def _flat_layout(params: Dict[str, torch.Tensor], frozen=frozenset()):
     """Names in flat-buffer order (the decayed parameters first), each with
-    its offset, the total size, and the number of elements up to the end of
-    the last decayed parameter. Offsets are rounded up to ``_ALIGN``
-    elements, so the kernels can read 16-byte vectors of any parameter; the
-    gaps hold zeros in every flat buffer."""
+    its offset, the total size, the number of elements up to the end of
+    the last decayed parameter, and the ``[start, end)`` range that holds
+    the ``frozen`` ones (they close the decayed part and open the rest, so
+    one range holds them all; (0, 0) with none). Offsets are rounded up to
+    ``_ALIGN`` elements, so the kernels can read 16-byte vectors of any
+    parameter; the gaps hold zeros in every flat buffer."""
     decay = decay_mask(params)
-    order = [k for k in params if decay[k]] + [k for k in params if not decay[k]]
-    offsets, off, n_decay = {}, 0, 0
+    order = ([k for k in params if decay[k] and k not in frozen]
+             + [k for k in params if decay[k] and k in frozen]
+             + [k for k in params if not decay[k] and k in frozen]
+             + [k for k in params if not decay[k] and k not in frozen])
+    offsets, off, n_decay, frozen_start, frozen_end = {}, 0, 0, None, 0
     for k in order:
         off = -(-off // _ALIGN) * _ALIGN
         offsets[k] = off
         off += params[k].numel()
         if decay[k]:
             n_decay = off
-    return order, offsets, off, n_decay
+        if k in frozen:
+            frozen_start = offsets[k] if frozen_start is None else frozen_start
+            frozen_end = off
+    return order, offsets, off, n_decay, (frozen_start or 0, frozen_end)
 
 
 def _pack(tensors: Dict[str, torch.Tensor], layout, dtype, device, leaf: bool = False):
     """One flat buffer of ``dtype`` holding ``tensors`` at the layout's
     offsets, and views of it under the same names (leaves that require
     grad, for the parameters)."""
-    order, offsets, total, _ = layout
+    order, offsets, total = layout[:3]
     flat = torch.zeros(total, dtype=dtype, device=device)
     views = {}
     for k in tensors:
@@ -145,12 +166,16 @@ def _pack(tensors: Dict[str, torch.Tensor], layout, dtype, device, leaf: bool = 
 
 @dataclass
 class TrainState:
-    """Parameters (f32), Adam moments (in their storage dtypes) and counters.
+    """Parameters (f32), the optimizer's moments (in their storage dtypes)
+    and counters.
 
     ``params``, ``mu`` and ``nu`` map the model's parameter names to views of
     one flat buffer each (``flat``), which the optimizer updates in place.
-    ``count`` is Adam's step count, ``step`` the train step's;
-    ``generator`` draws the augmentations."""
+    An optimizer with one moment (SGD's trace, Lion's moment) keeps it in
+    ``mu``; its ``nu`` is empty (``flat['nu']`` has no element).
+    ``count`` is the optimizer's step count, ``step`` the train step's;
+    ``generator`` draws the augmentations; ``frozen`` is the flat range of
+    the locked parameters."""
     step: int
     params: Dict[str, torch.Tensor]
     mu: Dict[str, torch.Tensor]
@@ -161,21 +186,28 @@ class TrainState:
     n_decay: int
     order: Tuple[str, ...]
     offsets: Dict[str, int]
+    frozen: Tuple[int, int] = (0, 0)
 
     @classmethod
     def create(cls, params: Dict[str, torch.Tensor], mu: Dict[str, torch.Tensor],
-               nu: Dict[str, torch.Tensor], count: int = 0, step: int = 0,
+               nu: Optional[Dict[str, torch.Tensor]], count: int = 0, step: int = 0,
                mu_dtype: torch.dtype = torch.bfloat16, nu_dtype: torch.dtype = torch.bfloat16,
-               seed: int = 42, device=None) -> "TrainState":
-        layout = _flat_layout(params)
+               seed: int = 42, device=None, frozen: Iterable[str] = ()) -> "TrainState":
+        """``nu`` None: an optimizer with one moment. ``frozen``: the names
+        of the locked parameters."""
+        layout = _flat_layout(params, frozenset(frozen))
         device = torch.device(device) if device is not None else next(iter(params.values())).device
         p_flat, p_views = _pack(params, layout, torch.float32, device, leaf=True)
         m_flat, m_views = _pack(mu, layout, mu_dtype, device)
-        n_flat, n_views = _pack(nu, layout, nu_dtype, device)
+        if nu is None:
+            n_flat, n_views = torch.zeros(0, dtype=nu_dtype, device=device), {}
+        else:
+            n_flat, n_views = _pack(nu, layout, nu_dtype, device)
         return cls(step=step, params=p_views, mu=m_views, nu=n_views, count=count,
                    generator=torch.Generator(device=device).manual_seed(seed),
                    flat={"params": p_flat, "mu": m_flat, "nu": n_flat},
-                   n_decay=layout[3], order=tuple(layout[0]), offsets=layout[1])
+                   n_decay=layout[3], order=tuple(layout[0]), offsets=layout[1],
+                   frozen=layout[4])
 
     def by_name(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Views of a flat buffer laid out as ``flat['params']`` (such as the
@@ -206,37 +238,51 @@ class Trainer:
     ``image_tile_ids``, ``text_tile_ids`` (B,), ``neighbor_tile_ids`` (B, k)
     (-1 pads), ``neighbor_alphas`` (B, k): tensors on the model's device
     for :meth:`train_step`, numpy arrays for :meth:`fit` and
-    :meth:`evaluate`."""
+    :meth:`evaluate`.
+
+    ``teacher``: a frozen CLIP model (``create_model(...)`` without
+    ``training``: eval mode, no grad) on the same device, whose features
+    the ``distill`` loss takes."""
 
     def __init__(self, model: nn.Module, loss: Optional[LossFn] = None,
                  config: Optional[TrainerConfig] = None, mesh=None, teacher=None):
-        if mesh is not None or teacher is not None:
+        if mesh is not None:
             raise NotImplementedError(
-                "a device mesh and a distillation teacher are not ported to "
-                "spatial_clip_tpu_torch")
+                "a device mesh is not ported to spatial_clip_tpu_torch (ROADMAP Queue 1 item 7)")
+        if teacher is not None and (teacher.training or any(
+                p.requires_grad for p in teacher.parameters())):
+            raise ValueError("the teacher is a frozen model in eval mode: create_model(...) "
+                             "without training=True")
         params = dict(model.named_parameters())
         if not model.training or any(
                 p.dtype != torch.float32 or not p.requires_grad for p in params.values()):
             raise ValueError("the trainer takes a model with float32 parameters that require "
                              "grad, in train mode: create_model(..., training=True)")
-        self.model = model
+        self.model, self.teacher = model, teacher
         self.loss = loss or make_loss("clip")
         self.cfg = config or TrainerConfig()
         _unported(self.cfg)
         cfg = self.cfg
         self.schedule = make_schedule(cfg.schedule, cfg.learning_rate, cfg.warmup_steps,
                                       cfg.total_steps, **(cfg.extra.get("schedule_kwargs") or {}))
-        self.optimizer = AdamW(self.schedule, cfg.weight_decay, cfg.betas, cfg.eps,
-                               cfg.grad_clip_norm)
-        self.mu_dtype, self.nu_dtype = moment_dtype(cfg.mu_dtype), moment_dtype(cfg.nu_dtype)
+        self.optimizer = make_optimizer(cfg.opt, self.schedule, cfg.weight_decay, cfg.betas,
+                                        cfg.eps, cfg.grad_clip_norm, cfg.momentum)
+        if self.optimizer.moments == ("mu", "nu"):
+            self.mu_dtype, self.nu_dtype = moment_dtype(cfg.mu_dtype), moment_dtype(cfg.nu_dtype)
+        else:  # the JAX Trainer's moment dtypes reach only its AdamW: optax's f32
+            self.mu_dtype = self.nu_dtype = torch.float32
+        frozen = freeze_mask(params, cfg.frozen_prefixes) if cfg.frozen_prefixes else {}
+        self.frozen = frozenset(k for k, f in frozen.items() if f)
         self.ckpt = CheckpointManager(cfg.ckpt_dir, keep=cfg.keep_ckpts) if cfg.ckpt_dir else None
+        self.loss_extras: Dict[str, torch.Tensor] = {}
 
     def init_state(self) -> TrainState:
         """The model's current parameters (copied), zero moments, step 0."""
         params = {k: p.detach() for k, p in self.model.named_parameters()}
         zeros = {k: torch.zeros_like(p) for k, p in params.items()}
-        return TrainState.create(params, zeros, zeros, mu_dtype=self.mu_dtype,
-                                 nu_dtype=self.nu_dtype, seed=self.cfg.seed)
+        return TrainState.create(params, zeros, zeros if "nu" in self.optimizer.moments else None,
+                                 mu_dtype=self.mu_dtype, nu_dtype=self.nu_dtype,
+                                 seed=self.cfg.seed, frozen=self.frozen)
 
     def prepare_images(self, images: torch.Tensor,
                        draws: Optional[AugmentDraws] = None) -> torch.Tensor:
@@ -253,8 +299,32 @@ class Trainer:
     def _features(self, params, batch, draws: Optional[AugmentDraws],
                   gene_keep: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         images = self.prepare_images(batch["images"], draws)
-        return functional_call(self.model, params, (images, batch["texts"]),
-                               {"gene_keep": gene_keep})
+        features = functional_call(self.model, params, (images, batch["texts"]),
+                                   {"gene_keep": gene_keep})
+        if self.teacher is not None:
+            features.update(self._teacher_features(batch))
+        return features
+
+    def _teacher_features(self, batch) -> Dict[str, torch.Tensor]:
+        """The teacher's features of the batch without grad: its own mean
+        and std, no augmentation (so its attention takes the inference
+        forward)."""
+        t, images = self.teacher, batch["images"]
+        with torch.no_grad():
+            if images.dtype == torch.uint8:
+                images = normalize_batch(images, t.preprocess_cfg.mean, t.preprocess_cfg.std,
+                                         t.dtype)
+            out = t(images.to(t.dtype), batch["texts"])
+        return {"dist_image_features": out["image_features"],
+                "dist_text_features": out["text_features"],
+                "dist_logit_scale": out["logit_scale"]}
+
+    def _loss(self, inputs) -> torch.Tensor:
+        """The loss's ``contrastive_loss``; what else it returns (the
+        distill loss's ``distill_loss``) goes to ``loss_extras``, detached."""
+        out = self.loss(**inputs)
+        self.loss_extras = {k: v.detach() for k, v in out.items() if k != "contrastive_loss"}
+        return out["contrastive_loss"]
 
     def draw_gene_keep(self, state: TrainState, texts: torch.Tensor) -> Optional[torch.Tensor]:
         """The training step's gene-dropout mask over ``texts`` (B,
@@ -267,10 +337,16 @@ class Trainer:
             return None
         return tower.draw_keep(texts.shape, state.generator, texts.device)
 
-    @staticmethod
-    def _flat_grad(state: TrainState, loss: torch.Tensor) -> torch.Tensor:
-        grads = torch.autograd.grad(loss, [state.params[k] for k in state.order],
-                                    materialize_grads=True)  # zeros for an unused parameter
+    def _flat_grad(self, state: TrainState, loss: torch.Tensor) -> torch.Tensor:
+        if self.cfg.debug_nans and torch.isnan(loss).item():
+            raise FloatingPointError(f"NaN loss at step {state.step}")
+        try:
+            grads = torch.autograd.grad(loss, [state.params[k] for k in state.order],
+                                        materialize_grads=True)  # zeros for an unused parameter
+        except RuntimeError as e:  # anomaly mode names the backward function that made a NaN
+            if self.cfg.debug_nans and "nan" in str(e).lower():
+                raise FloatingPointError(f"NaN in the backward at step {state.step}: {e}") from e
+            raise
         return state.flatten(grads)
 
     @staticmethod
@@ -307,7 +383,7 @@ class Trainer:
         accum = max(1, cfg.grad_accum)
         if accum == 1:
             features = self._features(state.params, batch, draws, keep)
-            loss = self.loss(**{**batch, **features})["contrastive_loss"]
+            loss = self._loss({**batch, **features})
             logits = self._logits(features["image_features"], features["text_features"],
                                   features["logit_scale"])
             return loss.detach(), logits, self._flat_grad(state, loss)
@@ -322,6 +398,9 @@ class Trainer:
         mb_keep = [None if keep is None else keep[sl] for sl in parts]
         if cfg.grad_accum_mode == "simple":
             return self._simple_accum(state, mbs, mb_draws, mb_keep)
+        if self.teacher is not None:  # as in JAX, whose cached pass never calls the teacher
+            raise NotImplementedError("a distillation teacher under grad_accum > 1 takes "
+                                      "grad_accum_mode='simple'")
         return self._cached_accum(state, batch, mbs, mb_draws, mb_keep, parts)
 
     def _cached_accum(self, state, batch, mbs, mb_draws, mb_keep, parts):
@@ -344,7 +423,7 @@ class Trainer:
             }
             if "logit_bias" in f:
                 inputs["logit_bias"] = f["logit_bias"]
-            loss = self.loss(**inputs)["contrastive_loss"]
+            loss = self._loss(inputs)
             g = self._flat_grad(state, loss)
             grads = g if grads is None else grads.add_(g)
         logits = self._logits(all_img, all_txt, state.params["logit_scale"].exp())
@@ -354,7 +433,7 @@ class Trainer:
         grads = loss_sum = None
         for m, d, k in zip(mbs, mb_draws, mb_keep):
             features = self._features(state.params, m, d, k)
-            loss = self.loss(**{**m, **features})["contrastive_loss"]
+            loss = self._loss({**m, **features})
             g = self._flat_grad(state, loss)
             grads = g if grads is None else grads.add_(g)
             loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
@@ -365,16 +444,21 @@ class Trainer:
     def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor],
                    draws: Optional[AugmentDraws] = None) -> Tuple[TrainState, Dict[str, Any]]:
         """One optimizer step; updates ``state`` in place and returns it with
-        the step metrics: ``loss``, ``logit_scale`` (exp of the clamped
-        parameter), ``lr`` (the schedule at the step before the update),
-        and unless ``step_metrics='light'`` ``grad_norm`` (before clipping)
-        and in-batch ``R@1/5/10``."""
+        the step metrics: ``loss``, what else the loss returned (the distill
+        loss's ``distill_loss``; with ``grad_accum > 1`` the last
+        microbatch's), ``logit_scale`` (exp of the clamped parameter),
+        ``lr`` (the schedule at the step before the update), and unless
+        ``step_metrics='light'`` ``grad_norm`` (before clipping) and
+        in-batch ``R@1/5/10``."""
         cfg = self.cfg
         loss, logits, grads = self.forward_backward(state, batch, draws)
-        metrics: Dict[str, Any] = {"loss": loss}
+        if cfg.debug_nans and torch.isnan(grads).any().item():
+            raise FloatingPointError(f"NaN gradient at step {state.step}")
+        metrics: Dict[str, Any] = {"loss": loss, **self.loss_extras}
         flat = state.flat
         state.count, grad_norm = self.optimizer.update(
-            flat["params"], grads, flat["mu"], flat["nu"], state.count, state.n_decay)
+            flat["params"], grads, flat["mu"], flat["nu"], state.count, state.n_decay,
+            state.frozen)
         with torch.no_grad():
             logit_scale = state.params["logit_scale"]
             logit_scale.clamp_(0.0, cfg.max_logit_scale)
@@ -510,7 +594,7 @@ class Trainer:
             for batch in val_iter:
                 dbatch = self._device_batch(batch)
                 features = self._features(state.params, dbatch, None)  # no augmentation
-                losses.append(float(self.loss(**{**dbatch, **features})["contrastive_loss"]))
+                losses.append(float(self._loss({**dbatch, **features})))
                 img, txt = features["image_features"], features["text_features"]
                 img_feats.append(img.float().cpu().numpy())
                 txt_feats.append(txt.float().cpu().numpy())

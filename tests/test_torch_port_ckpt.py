@@ -287,8 +287,8 @@ def test_strict_loading_and_refusals(tmp_path, jax_bundle):
                         (str(tmp_path / "absent.pt"), FileNotFoundError)):
         with pytest.raises(error):
             create_model("ViT-Test", pretrained=spec, precision="fp32", device="cpu", **WIDE)
-    with pytest.raises(NotImplementedError, match="remat"):
-        create_model("ViT-Test", precision="fp32", device="meta", remat=True, **WIDE)
+    remat = create_model("ViT-Test", precision="fp32", device="meta", remat=True, **WIDE)
+    assert remat.remat and remat.visual.transformer.remat and remat.transformer.remat
 
 
 def test_port_weight_files_load_in_jax(tmp_path, jax_bundle):

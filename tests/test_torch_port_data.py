@@ -199,8 +199,11 @@ def test_parquet_dataset_matches_jax(tmp_path, train):
 
 
 def test_unported_dataset_formats_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="csv"):
-        create_spatial_dataset("csv", tmp_path, "train", "train", 2)
+    """``csv`` builds from ``<data_dir>/<split>.csv`` (its items against
+    JAX's: ``test_torch_port_cli_data.py``); an unknown format raises."""
+    (tmp_path / "train.csv").write_text("filepath\ttitle\na.png\ta tile\n")
+    ds = create_spatial_dataset("csv", tmp_path, "train", "train", 2)
+    assert len(ds) == 1 and ds.captions == ["a tile"] and ds.k_neighbors == 2
     with pytest.raises(ValueError, match="Unknown dataset format"):
         create_spatial_dataset("webdataset", tmp_path, "train", "train", 2)
 

@@ -102,8 +102,8 @@ def test_instantiate_partial_and_refusals():
     assert instantiate({"x": {"_target_": "builtins.dict", "y": 3}}) == {"x": {"y": 3}}
     with pytest.raises(NotImplementedError, match="spatial_clip_tpu.cli.sweep.Sweep"):
         instantiate({"_target_": "spatial_clip_tpu.cli.sweep.Sweep"})
-    with pytest.raises(NotImplementedError, match="CsvDataset"):
-        instantiate({"_target_": "spatial_clip_tpu.data.datasets.csv_backend.CsvDataset"})
+    with pytest.raises(NotImplementedError, match="profiler"):
+        instantiate({"_target_": "spatial_clip_tpu.cli.profiler.main"})
 
 
 # ------------------------------------------------------------- entry points
@@ -224,9 +224,6 @@ def test_build_resumed_run_takes_the_unbroken_runs_steps(tmp_path):
     ("trainer=tpu", "trainer.scan_steps"),  # trainer.platform=cpu overrides its platform
     ("trainer=ddp_sim", "trainer.sim_devices"),
     ("trainer.scan_steps=8", "trainer.scan_steps"),
-    ("debug=profiler", "trainer.profiler"),
-    ("debug=default", "trainer.detect_anomaly"),
-    ("model.remat=true", "model.remat"),
 ])
 def test_refused_keys_raise(tmp_path, override, key):
     cfg = entry.compose_train(["experiment=smoke_synthetic", f"paths.root_dir={tmp_path}",
@@ -237,6 +234,59 @@ def test_refused_keys_raise(tmp_path, override, key):
         port_eval.evaluate(compose(CONFIGS, "eval", [
             "experiment=smoke_synthetic", f"paths.root_dir={tmp_path}", "trainer.platform=cpu",
             override]))
+
+
+@pytest.mark.parametrize("override", ["debug=profiler", "debug=default", "model.remat=true",
+                                      "debug=fdr", "debug=limit", "loss=siglip"])
+def test_debug_presets_and_remat_run(tmp_path, override):
+    """The keys the debug presets and ``model.remat`` set, and the SigLIP
+    loss, run through ``train`` and ``eval``: ``debug=profiler`` writes a
+    torch.profiler trace of ``fit`` under ``<output_dir>/profile``
+    (TensorBoard's layout, with the step's operators in it); ``debug=default``
+    (``detect_anomaly``; ``fdr`` and ``limit`` take it too) runs with the NaN
+    check on, and a batch with a NaN tile then stops its step with
+    FloatingPointError; ``model.remat=true`` ends with the bits of the same
+    run without it; ``loss=siglip`` trains a model whose JSON sets
+    ``init_logit_bias``."""
+    import torch
+
+    from spatial_clip_tpu_torch.models.config import load_model_config
+    from spatial_clip_tpu_torch.models.transforms import normalize_batch
+
+    args = ["experiment=smoke_synthetic", "trainer.platform=cpu", "trainer.limit_batches=2"]
+    if override == "loss=siglip":
+        path = tmp_path / "ViT-Test-sigmoid.json"
+        path.write_text(json.dumps({**load_model_config("ViT-Test"), "init_logit_bias": -10.0}))
+        args.append(f"model.model_name={path}")
+    cfg = entry.compose_train([*args, override, f"paths.root_dir={tmp_path / 'run'}"])
+    _, objects = entry.train(cfg)
+    state, trainer = objects["state"], objects["trainer"]
+    assert state.step == 2 * int(cfg["trainer"]["epochs"])
+    assert trainer.cfg.debug_nans == override.startswith(("debug=default", "debug=fdr",
+                                                          "debug=limit"))
+    if override == "debug=profiler":
+        traces = list((Path(cfg["paths"]["output_dir"]) / "profile").glob("*.pt.trace.json"))
+        assert len(traces) == 1
+        names = {e.get("name", "") for e in json.loads(traces[0].read_text())["traceEvents"]}
+        assert any(n.startswith("aten::") for n in names)
+    elif override.startswith("debug="):
+        batch = next(iter(objects["datamodule"].train_dataloader()))
+        dbatch = trainer._device_batch(batch)
+        images = normalize_batch(dbatch["images"])
+        images[0, 0, 0, 0] = float("nan")
+        with pytest.raises(FloatingPointError, match=f"step {state.step}"):
+            trainer.train_step(state, {**dbatch, "images": images})
+    elif override == "loss=siglip":
+        assert trainer.loss.name == "siglip" and float(objects["model"].logit_bias) == -10.0
+    else:
+        assert objects["model"].remat
+        plain = entry.compose_train([*args, f"paths.root_dir={tmp_path / 'plain'}"])
+        want = entry.train(plain)[1]["state"]
+        for k in ("params", "mu", "nu"):
+            assert torch.equal(state.flat[k], want.flat[k]), k
+    metrics = port_eval.evaluate(compose(CONFIGS, "eval", [
+        *args, f"paths.root_dir={tmp_path / 'eval'}", override]))
+    assert np.isfinite(metrics["test/loss"])
 
 
 def test_no_gpu_raises_and_unported_models_raise(tmp_path):

@@ -64,7 +64,12 @@ def test_import_pulls_in_no_jax():
         "spatial_clip_tpu_torch.data.datamodule, spatial_clip_tpu_torch.data.datasets, "
         "spatial_clip_tpu_torch.data.native_decode, spatial_clip_tpu_torch.train.checkpoints, "
         "spatial_clip_tpu_torch.train.logging_utils, spatial_clip_tpu_torch.train.entry, "
-        "spatial_clip_tpu_torch.eval\n"
+        "spatial_clip_tpu_torch.eval, spatial_clip_tpu_torch.cli.main_train, "
+        "spatial_clip_tpu_torch.cli.embed, spatial_clip_tpu_torch.cli.sweep, "
+        "spatial_clip_tpu_torch.cli.test_datamodule, spatial_clip_tpu_torch.utils.file_sync, "
+        "spatial_clip_tpu_torch.data.resampling, "
+        "spatial_clip_tpu_torch.data.datasets.csv_backend, "
+        "spatial_clip_tpu_torch.data.datasets.imagefolder\n"
         "print(sorted({m.split('.')[0] for m in set(sys.modules) - before}))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=PACKAGE.parent, timeout=120, check=True).stdout

@@ -460,19 +460,43 @@ def test_contrastive_metrics_and_retrieval_match_jax():
 # -------------------------------------------------------------- what raises
 
 @pytest.mark.parametrize("field,value", [
-    ("master_weights", True), ("grad_dtype", "bf16"), ("opt", "lion"),
-    ("frozen_prefixes", ("visual",)),
+    ("master_weights", True), ("grad_dtype", "bf16"),
 ])
 def test_unported_trainer_options_raise(field, value):
     model = create_model("ViT-Test", precision="fp32", device="meta", training=True, **WIDE)
-    with pytest.raises(NotImplementedError, match=field):
+    with pytest.raises(NotImplementedError, match=f"{field}.*item 4"):
         Trainer(model, config=TrainerConfig(**{field: value}))
 
 
+@pytest.mark.parametrize("field,value", [("opt", "lion"), ("frozen_prefixes", ("visual",))])
+def test_ported_trainer_options_build(field, value):
+    """Options that raised before the open_clip-style trainer was ported:
+    ``opt='lion'`` builds Lion over an f32 moment and no second moment,
+    ``frozen_prefixes`` the locked set as one flat range."""
+    from spatial_clip_tpu_torch.train.optim import Lion
+
+    model = create_model("ViT-Test", precision="fp32", device="cpu", training=True, **WIDE)
+    trainer = Trainer(model, config=TrainerConfig(**{field: value}))
+    state = trainer.init_state()
+    if field == "opt":
+        assert isinstance(trainer.optimizer, Lion)
+        assert state.flat["mu"].dtype == torch.float32 and state.flat["nu"].numel() == 0
+    else:
+        assert trainer.frozen == {k for k, _ in model.named_parameters()
+                                  if k.startswith("visual.")}
+        start, end = state.frozen
+        assert sorted(state.order[i] for i, k in enumerate(state.order)
+                      if start <= state.offsets[k] < end) == sorted(trainer.frozen)
+
+
 def test_unported_losses_and_serving_models_raise():
-    for kind in ("siglip", "coca", "distill", "spatial_ring"):
-        with pytest.raises(NotImplementedError, match=kind):
+    """``coca`` and ``spatial_ring`` raise naming their ROADMAP item;
+    ``siglip`` and ``distill`` (ported with the open_clip-style trainer)
+    build."""
+    for kind, item in (("coca", 9), ("spatial_ring", 7)):
+        with pytest.raises(NotImplementedError, match=f"{kind}.*item {item}"):
             make_loss(kind)
+    assert make_loss("siglip").name == "siglip" and make_loss("distill").name == "distill"
     serving = create_model("ViT-Test", precision="fp32", device="meta", **WIDE)
     with pytest.raises(ValueError, match="training=True"):
         Trainer(serving)
