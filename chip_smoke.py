@@ -270,6 +270,26 @@ the exit code is not 0. No JAX is imported.
            then raises FloatingPointError, and without the preset does not),
            ``debug=profiler`` on data=synthetic (the trace holds the attention
            kernels), ``cli.sweep --mode grid`` (2 trials, none failed)
+45. dist-nccl  Trainer(mesh=make_mesh()) on a world-1 NCCL group (ViT-B-32
+           bf16, batch 256, spatial_v2_multi_chip's fused loss capped at 50,
+           k 6, 3 steps): params, mu and nu the same bits as the same steps
+           with no group, the same launches per route; step ms with and
+           without the group, the collectives of a step alone (CUDA events),
+           and alone a world-1 all-reduce of the flat gradient and an
+           all-gather of a (256, 512) bf16 feature block (same bits back)
+46. dist-2rank  two spawned processes on the one card in a gloo group (NCCL
+           takes one rank a device): ViT-B-32 bf16 at global batch 512 = 2 x
+           256, 2 steps of forward_backward + train_step, then Trainer.fit for
+           3 steps from the synthetic datamodule (each rank its rows of the
+           global batches), against the one-process run at 512 on the same
+           weights, batches and draws: loss rel err <= 1e-3, flattened
+           gradient cosine >= 0.9999 and norm ratio within 1e-3 of 1, fit's
+           losses rel err <= 2e-3; both ranks rank 0's params, mu and nu bits
+           after every step; the fused CE launched at B = 256 against N = 512
+           gathered columns; then the gloo all-reduce of the flat gradient
+           and all-gather of a feature block between the ranks (host clock),
+           and in a group of its own (a failed exchange breaks its group)
+           whether gloo's point-to-point exchange takes CUDA tensors
 Phases 3, 6, 19, 23 and 26 also time PyTorch's scaled_dot_product_attention
 (efficient-attention backend) at the kernels' shapes as a yardstick (its
 backward alone, on one retained graph), phase
@@ -282,7 +302,8 @@ kernels with their launches in phase 36's steps; the three kernels of
 phase 28's path also with its launches there, and they and the fused_ln
 kernels with their launches on the gene paths, phases 29-32; the
 attention forward, forward-lse and backward and the key-tiled forward also
-with their launches in phases 39-43), the nvidia-smi line, and
+with their launches in phases 39-43; the fused CE kernels also with their
+launches in phases 45-46), the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -858,6 +879,8 @@ def main() -> int:
     lit = lit_phase()
     remat = remat_phase()
     debug_phase()
+    dist_nccl = dist_nccl_phase()
+    dist_gloo = dist_gloo_phase()
 
     def gene_launches(key: str) -> dict:
         """A kernel's launches on the gene paths: phase 29's step (path B),
@@ -961,6 +984,13 @@ def main() -> int:
             "library_ms": None,  # no one PyTorch call computes this loss
             "at": f"q, K ({LARGE_MICRO * LARGE_ACCUM}, 512) f32, k {NEIGHBORS} (cached "
                   f"accumulation {LARGE_ACCUM} x {LARGE_MICRO})",
+            "dist_launches": {  # phases 45-46: the data-parallel paths
+                f"45 world-1 nccl, {DIST_STEPS} steps (B = N = {DIST_BATCH})":
+                    dist_nccl["launches"].get(f"fused_contrastive.spatial_ce_{part}", 0),
+                f"46 a rank, {DIST2_STEPS} steps x (forward_backward, train_step) (B, N) "
+                f"{dist_gloo['shapes']}": dist_gloo["launches"][("fwd", "dq", "dk").index(part)],
+                f"46 a rank, fit {DIST2_FIT_STEPS} steps":
+                    dist_gloo["fit_launches"][("fwd", "dq", "dk").index(part)]},
         })
     ln_kernels = (  # name, family, TPU kernel line, main shape, part, setting, counter, at
         ("fused_ln_fwd", "fused_ln", 48, "image", "fwd", "ln_impl=pallas", 0,
@@ -4560,6 +4590,366 @@ def debug_phase() -> dict:
         shutil.rmtree(root, ignore_errors=True)
         torch.cuda.empty_cache()
     return {"trace_kernels": len(kernels), "attention": attention}
+
+
+# phases 45-46: data parallelism over a torch.distributed group, on the
+# fused spatial loss of spatial_v2_multi_chip (capped at 50, k 6)
+DIST_BATCH, DIST_STEPS = 256, 3  # 45: a world-1 NCCL group against no group
+DIST2_RANKS, DIST2_STEPS, DIST2_FIT_STEPS = 2, 2, 3  # 46: 512 = 2 x 256, gloo on the card
+# 46's gates vs one process: loss, gradient direction and size, fit's losses
+DIST_LOSS_REL, DIST_MIN_COSINE, DIST_NORM_REL, DIST_FIT_REL = 1e-3, 0.9999, 1e-3, 2e-3
+
+
+def dist_trainer(model, mesh=None, **cfg):
+    """Phases 45-46's trainer: the bench workload's augmentation, the fused
+    spatial loss capped at 50."""
+    from spatial_clip_tpu_torch.losses import make_loss
+    from spatial_clip_tpu_torch.train.loop import Trainer, TrainerConfig
+
+    config = TrainerConfig(warmup_steps=10, total_steps=10_000, augment=True, color_jitter=0.2,
+                           seed=0, **cfg)
+    return Trainer(model, make_loss("spatial", cap_logit_scale=50.0, use_fused_kernel=True),
+                   config, mesh=mesh)
+
+
+def dist_batch(batch: int, seed: int) -> dict:
+    """A ViT-B-32 numpy batch (224 px tiles, 77 token ids), unique tile ids."""
+    rng = np.random.default_rng(seed)
+    tile_ids = np.arange(batch, dtype=np.int64)
+    return {"images": rng.integers(0, 255, (batch, 224, 224, 3), dtype=np.uint8),
+            "texts": rng.integers(0, 49408, (batch, 77), dtype=np.int64),
+            "image_tile_ids": tile_ids, "text_tile_ids": tile_ids.copy(),
+            "neighbor_tile_ids": rng.integers(-1, batch, (batch, NEIGHBORS)).astype(np.int64),
+            "neighbor_alphas": rng.uniform(0, 1, (batch, NEIGHBORS)).astype(np.float32)}
+
+
+def dist_datamodule(batch: int, rank: int = 0, world: int = 1):
+    """The synthetic datamodule at 224 px, ``DIST2_FIT_STEPS`` global batches,
+    the host transform in its deterministic mode (a rank's random crops are
+    its own stream), 4 thread workers."""
+    from spatial_clip_tpu_torch.data.datamodule import SpatialClipDataModule
+    from spatial_clip_tpu_torch.models.factory import get_tokenizer
+    from spatial_clip_tpu_torch.models.transforms import HostImageTransform, PreprocessCfg
+
+    dm = SpatialClipDataModule(batch_size=batch, num_workers=4, dataset_format="synthetic",
+                               dataset_format_kwargs={"num_samples": batch * DIST2_FIT_STEPS,
+                                                      "image_size": 224},
+                               rank=rank, world_size=world)
+    dm.preprocess_fn = dm.preprocess_fn_val = HostImageTransform(PreprocessCfg(size=224))
+    dm.tokenizer = get_tokenizer("ViT-B-32")
+    dm.setup("fit")
+    return dm
+
+
+def same_bits_across_ranks(state, group) -> bool:
+    """Every rank's params, mu and nu equal rank 0's, bit for bit."""
+    import torch
+    import torch.distributed as dist
+
+    from spatial_clip_tpu_torch.parallel.mesh import all_gather_object
+
+    same = True
+    for k in ("params", "mu", "nu"):
+        rank0 = state.flat[k].clone()
+        dist.broadcast(rank0, src=0, group=group)
+        same = same and torch.equal(rank0, state.flat[k])
+    return all(all_gather_object(same, group=group))
+
+
+def dist_nccl_phase() -> dict:
+    """45. Trainer(mesh=...) on a world-1 NCCL group against no group: 3
+    steps of ViT-B-32 bf16 at batch 256, the same params, mu and nu bits,
+    the same launches per route; step ms each way and the collectives' ms a
+    step (the gradient's all-reduce, the four feature and two tile-id
+    all-gathers, the loss's scalar mean)."""
+    import torch
+    import torch.distributed as dist
+
+    from spatial_clip_tpu_torch import create_model
+    from spatial_clip_tpu_torch.parallel.collectives import all_gather
+    from spatial_clip_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    host = [dist_batch(DIST_BATCH, seed=45 + i) for i in range(DIST_STEPS)]
+    counters = every_counter()
+    model = create_model("ViT-B-32", precision="bf16", device="cuda", seed=0, training=True)
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        init_distributed("nccl", 0, 1, store_path=str(Path(tmp) / "store"),
+                         device=torch.device("cuda", 0))
+        try:
+            mesh = make_mesh(device="cuda:0")
+            for label, m in (("no group", None), ("world-1 nccl", mesh)):
+                trainer = dist_trainer(model, m)
+                state = trainer.init_state()
+                for c in counters.values():
+                    c.launches = 0
+                ms, losses = [], []
+                for b in host:
+                    batch = trainer._device_batch(b)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    state, metrics = trainer.train_step(state, batch)
+                    losses.append(float(metrics["loss"]))
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                runs[label] = {"flat": {k: v.clone() for k, v in state.flat.items()},
+                               "launches": read_launches(counters), "ms": ms, "losses": losses}
+                del trainer, state
+            grads = torch.zeros_like(runs["no group"]["flat"]["params"])
+            feats = torch.randn(DIST_BATCH, 512, device="cuda").to(model.dtype)
+            ids = torch.arange(DIST_BATCH, device="cuda")
+            scalar = torch.zeros((), device="cuda")
+
+            def collectives():
+                dist.all_reduce(grads, group=mesh.group)
+                for x in (feats, feats, feats, feats, ids, ids):
+                    all_gather(x, mesh.group)
+                dist.all_reduce(scalar, group=mesh.group)
+
+            coll_ms = median_ms(collectives, reps=5, inner=5)
+            sent = torch.randn_like(grads)
+            reduced, parts = sent.clone(), [torch.empty_like(feats)]
+            dist.all_reduce(reduced, group=mesh.group)
+            dist.all_gather(parts, feats, group=mesh.group)
+            alone_same = torch.equal(reduced, sent) and torch.equal(parts[0], feats)
+            del sent, reduced
+            alone_ms = {"all_reduce": median_ms(lambda: dist.all_reduce(grads, group=mesh.group),
+                                                reps=5, inner=5),
+                        "all_gather": median_ms(lambda: dist.all_gather(parts, feats,
+                                                                        group=mesh.group),
+                                                reps=5, inner=5)}
+        finally:
+            dist.destroy_process_group()
+    plain, grouped = runs["no group"], runs["world-1 nccl"]
+    same = {k: torch.equal(plain["flat"][k], grouped["flat"][k]) for k in plain["flat"]}
+    if not all(same.values()) or plain["launches"] != grouped["launches"]:
+        raise AssertionError(f"[dist-nccl] world-1 NCCL vs no group: same bits {same}, launches "
+                             f"{grouped['launches']} vs {plain['launches']}")
+    if not all(np.isfinite(plain["losses"])) or plain["losses"] != grouped["losses"]:
+        raise AssertionError(f"[dist-nccl] losses {grouped['losses']} vs {plain['losses']}")
+    if not alone_same:
+        raise AssertionError("[dist-nccl] a world-1 all-reduce / all-gather changed the bits")
+    med = {k: statistics.median(r["ms"][1:]) for k, r in runs.items()}
+    print(f"[dist-nccl] ViT-B-32 bf16 batch {DIST_BATCH}, fused spatial loss (cap 50, k "
+          f"{NEIGHBORS}), {DIST_STEPS} steps through Trainer(mesh=make_mesh()) on a world-1 NCCL "
+          f"group: params, mu, nu the same bits as with no group {same}; the same launches "
+          f"{grouped['launches']}; losses {[round(x, 4) for x in grouped['losses']]}; step ms "
+          f"(median of steps 2-{DIST_STEPS}) {med['world-1 nccl']:.3f} with the group vs "
+          f"{med['no group']:.3f} without (all: {[round(x, 1) for x in grouped['ms']]} vs "
+          f"{[round(x, 1) for x in plain['ms']]}); the collectives of a step alone "
+          f"{coll_ms:.4f} ms (CUDA events); alone, the same bits back: an all-reduce of the "
+          f"{grads.numel() * 4} B flat gradient {alone_ms['all_reduce']:.4f} ms, an all-gather "
+          f"of a ({DIST_BATCH}, 512) bf16 block {alone_ms['all_gather']:.4f} ms", flush=True)
+    return {"launches": grouped["launches"], "step_ms": med, "collectives_ms": coll_ms,
+            "alone_ms": alone_ms}
+
+
+def dist_rank(rank: int, spec: dict) -> dict:
+    """46, on each rank: a spawned process driving the one card in a gloo
+    group. 2 steps of forward_backward + train_step on its rows of the
+    global batches (rank 0 saves the global gradients for the parent), then
+    Trainer.fit for 3 steps on its rows of the synthetic datamodule; the
+    fused CE's launches and (B, N) in each; the ranks' bits compared after
+    every step."""
+    import torch
+    import torch.distributed as dist
+
+    from spatial_clip_tpu_torch import create_model
+    from spatial_clip_tpu_torch.losses import contrastive
+    from spatial_clip_tpu_torch.ops import cuda_build
+    from spatial_clip_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda_build.library()  # the parent built it: this loads it
+    shapes = []
+    fused = contrastive.fused_spatial_ce
+
+    def recorded(q, kmat, *rest):
+        shapes.append((q.shape[0], kmat.shape[0]))
+        return fused(q, kmat, *rest)
+
+    contrastive.fused_spatial_ce = recorded
+    model = create_model("ViT-B-32", precision="bf16", device="cuda", seed=0, training=True)
+    model.load_state_dict(torch.load(spec["weights"], map_location="cuda", weights_only=True))
+    mesh = make_mesh(device="cuda:0")
+    world = mesh.size
+    global_batch = DIST_BATCH * world
+    rows = slice(rank * DIST_BATCH, (rank + 1) * DIST_BATCH)
+    trainer = dist_trainer(model, mesh)
+    state = trainer.init_state()
+    counters = loss_counters()
+    for c in counters:
+        c.launches = 0
+    steps = []
+    for i in range(DIST2_STEPS):
+        batch = trainer._device_batch({k: v[rows] for k, v in dist_batch(global_batch,
+                                                                         46 + i).items()})
+        loss, _, grads = trainer.forward_backward(state, batch)
+        if rank == 0:
+            torch.save(grads.cpu(), Path(spec["dir"]) / f"grads_{i}.pt")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, batch)
+        step_loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        steps.append({"fb_loss": float(loss), "loss": step_loss,
+                      "ms": (time.perf_counter() - t0) * 1e3,
+                      "same_bits": same_bits_across_ranks(state, mesh.group)})
+    step_launches, step_shapes = [c.launches for c in counters], sorted(set(shapes))
+    del trainer, state
+    dm = dist_datamodule(global_batch, rank, world)
+    fit_trainer = dist_trainer(model, mesh, log_every=1)
+    log = StepLog()
+    for c in counters:
+        c.launches = 0
+    shapes.clear()
+    t0 = time.perf_counter()
+    fstate, _ = fit_trainer.fit(lambda: dm.train_dataloader(), logger=log,
+                                steps_per_epoch=DIST2_FIT_STEPS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_same = same_bits_across_ranks(fstate, mesh.group)
+    grads = torch.ones_like(fstate.flat["params"])
+    feats = torch.ones(DIST_BATCH, 512, device="cuda", dtype=torch.bfloat16)
+    parts = [torch.empty_like(feats) for _ in range(world)]
+    dist.barrier(group=mesh.group)
+    coll = {"all_reduce_bytes": grads.numel() * 4,
+            "all_reduce_ms": host_median_ms(lambda: dist.all_reduce(grads, group=mesh.group),
+                                            reps=3),
+            "all_gather_ms": host_median_ms(lambda: dist.all_gather(parts, feats,
+                                                                    group=mesh.group), reps=10)}
+    return {"steps": steps, "launches": step_launches, "shapes": step_shapes,
+            "fit_losses": [m["train/loss"] for _, m in log.records],
+            "fit_launches": [c.launches for c in counters], "fit_shapes": sorted(set(shapes)),
+            "fit_s": fit_s, "fit_same_bits": fit_same, "collectives": coll}
+
+
+def gloo_p2p_rank(rank: int) -> str:
+    """46's probe, on each rank: a ring exchange of a CUDA tensor through
+    gloo's point-to-point ops; what happens."""
+    import torch
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    out = torch.empty(8, device="cuda")
+    ops = [dist.P2POp(dist.isend, torch.full((8,), float(rank), device="cuda"),
+                      (rank + 1) % world), dist.P2POp(dist.irecv, out, (rank - 1) % world)]
+    try:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    except RuntimeError as e:
+        return f"raises RuntimeError: {str(e).splitlines()[0][:160]}"
+    return f"runs: received {float(out[0])}"
+
+
+def dist_gloo_phase() -> dict:
+    """46. Two processes on the one card in a gloo group (NCCL takes one rank
+    a device): ViT-B-32 bf16 at global batch 512 = 2 x 256 against the
+    one-process run at 512 on the same weights, batches and draws."""
+    import torch
+
+    from spatial_clip_tpu_torch import create_model
+    from spatial_clip_tpu_torch.parallel.launch import spawn
+
+    global_batch = DIST_BATCH * DIST2_RANKS
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        model = create_model("ViT-B-32", precision="bf16", device="cuda", seed=0, training=True)
+        torch.save(model.state_dict(), Path(tmp) / "weights.pt")
+        trainer = dist_trainer(model)
+        state = trainer.init_state()
+        ref_steps, ref_grads = [], []
+        for i in range(DIST2_STEPS):
+            batch = trainer._device_batch(dist_batch(global_batch, 46 + i))
+            loss, _, grads = trainer.forward_backward(state, batch)
+            ref_grads.append(grads.cpu())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = trainer.train_step(state, batch)
+            step_loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            ref_steps.append({"fb_loss": float(loss), "loss": step_loss,
+                              "ms": (time.perf_counter() - t0) * 1e3})
+        del trainer, state, grads
+        dm = dist_datamodule(global_batch)
+        log = StepLog()
+        dist_trainer(model, log_every=1).fit(lambda: dm.train_dataloader(), logger=log,
+                                             steps_per_epoch=DIST2_FIT_STEPS)
+        ref_fit = [m["train/loss"] for _, m in log.records]
+        del model, dm
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = spawn(dist_rank, DIST2_RANKS, ({"weights": str(Path(tmp) / "weights.pt"),
+                                                "dir": tmp},),
+                      backend="gloo", device="cuda:0", timeout=600)
+        spawn_s = time.perf_counter() - t0
+        cosines, norm_ratios = [], []
+        for i, ref in enumerate(ref_grads):
+            got = torch.load(Path(tmp) / f"grads_{i}.pt", weights_only=True).double()
+            want = ref.double()
+            cosines.append(float(got @ want / (got.norm() * want.norm())))
+            norm_ratios.append(float(got.norm() / want.norm()))
+    try:  # a rank that fails or hangs is the finding, not a fault of the port
+        p2p = spawn(gloo_p2p_rank, DIST2_RANKS, (), backend="gloo", device="cuda:0", timeout=120)
+    except RuntimeError as e:
+        p2p = f"did not finish: {str(e)[:300]}"
+    rel = [abs(r["steps"][i][key] - ref_steps[i][key]) / abs(ref_steps[i][key])
+           for r in ranks for i in range(DIST2_STEPS) for key in ("fb_loss", "loss")]
+    fit_rel = [abs(g - w) / abs(w) for g, w in zip(ranks[0]["fit_losses"], ref_fit)]
+    want_launches = [2 * 2 * DIST2_STEPS] * 3  # 2 directions, forward_backward and train_step
+    want_fit = [2 * DIST2_FIT_STEPS] * 3
+    bad = []
+    if max(rel) > DIST_LOSS_REL:
+        bad.append(f"loss rel err {max(rel):.3g} > {DIST_LOSS_REL}")
+    if min(cosines) < DIST_MIN_COSINE:
+        bad.append(f"gradient cosine {min(cosines):.6f} < {DIST_MIN_COSINE}")
+    if max(abs(r - 1) for r in norm_ratios) > DIST_NORM_REL:
+        bad.append(f"gradient norm ratio {norm_ratios} not within {DIST_NORM_REL} of 1")
+    if len(fit_rel) != DIST2_FIT_STEPS or max(fit_rel) > DIST_FIT_REL:
+        bad.append(f"fit losses {ranks[0]['fit_losses']} vs {ref_fit}")
+    for rank, r in enumerate(ranks):
+        if not (all(s["same_bits"] for s in r["steps"]) and r["fit_same_bits"]):
+            bad.append(f"rank {rank}: not rank 0's bits")
+        if (r["launches"], r["fit_launches"]) != (want_launches, want_fit):
+            bad.append(f"rank {rank}: fused CE launches {r['launches']} / {r['fit_launches']}, "
+                       f"want {want_launches} / {want_fit}")
+        if r["shapes"] != [(DIST_BATCH, global_batch)] or r["fit_shapes"] != r["shapes"]:
+            bad.append(f"rank {rank}: fused CE (B, N) {r['shapes']} / {r['fit_shapes']}")
+    if bad:
+        raise AssertionError("[dist-2rank] " + "; ".join(bad))
+    ms = [s["ms"] for s in ranks[0]["steps"]]
+    print(f"[dist-2rank] ViT-B-32 bf16, global batch {global_batch} = {DIST2_RANKS} x "
+          f"{DIST_BATCH} in {DIST2_RANKS} spawned processes on the one card (gloo over CUDA "
+          f"tensors), fused spatial loss (cap 50, k {NEIGHBORS}), the one-process run at "
+          f"{global_batch} on the same weights, batches and draws: {DIST2_STEPS} steps, loss rel "
+          f"err max {max(rel):.3g} (<= {DIST_LOSS_REL}), flattened gradient cosine "
+          f"{[round(c, 7) for c in cosines]} (>= {DIST_MIN_COSINE}), norm ratio "
+          f"{[round(r, 7) for r in norm_ratios]} (within {DIST_NORM_REL} of 1); every rank "
+          f"rank 0's params, "
+          f"mu, nu bits after each step; fused CE launches per rank (fwd, dq, dK) "
+          f"{ranks[0]['launches']} at (B, N) {ranks[0]['shapes']}; step ms rank 0 "
+          f"{[round(x, 1) for x in ms]} (the gradient's gloo all-reduce through the host "
+          f"included) vs one process {[round(s['ms'], 1) for s in ref_steps]}; Trainer.fit "
+          f"{DIST2_FIT_STEPS} steps from the synthetic datamodule: losses "
+          f"{[round(x, 5) for x in ranks[0]['fit_losses']]} vs {[round(x, 5) for x in ref_fit]} "
+          f"(rel err max {max(fit_rel):.3g} <= {DIST_FIT_REL}), launches "
+          f"{ranks[0]['fit_launches']}, the same bits on both ranks; ranks {spawn_s:.1f} s "
+          f"(fit {ranks[0]['fit_s']:.1f} s), phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    coll = [r["collectives"] for r in ranks]
+    print(f"[dist-2rank] gloo between the {DIST2_RANKS} ranks on CUDA tensors (host clock, a "
+          f"rank each): all-reduce of the {coll[0]['all_reduce_bytes']} B flat gradient "
+          f"{[round(c['all_reduce_ms'], 1) for c in coll]} ms, all-gather of a ({DIST_BATCH}, "
+          f"512) bf16 block {[round(c['all_gather_ms'], 3) for c in coll]} ms; all_gather, "
+          f"all_reduce, broadcast, barrier and the object collectives ran on CUDA tensors; a "
+          f"point-to-point ring exchange of a CUDA tensor (a group of its own): {p2p}",
+          flush=True)
+    return {"launches": ranks[0]["launches"], "fit_launches": ranks[0]["fit_launches"],
+            "shapes": ranks[0]["shapes"], "step_ms": ms, "ref_ms": [s["ms"] for s in ref_steps],
+            "norm_ratios": norm_ratios, "collectives": coll, "p2p": p2p}
+
 
 
 if __name__ == "__main__":

@@ -16,9 +16,11 @@ under ``<logs>/<name>/checkpoints``, ``results.json`` and the run
 directory's mirror (``--remote-sync``).
 
 The run goes on the GPU unless ``--device cpu`` asks for the CPU; with no
-GPU it raises. The run name is taken on this process (the JAX package
-broadcasts it across hosts; multi-GPU is ROADMAP Queue 1 item 7). The
-open_clip trainer's torch-runtime flags (``--torchcompile``,
+GPU it raises. Under ``torchrun`` each process joins the group torchrun
+describes (nccl on the GPU, gloo on the CPU), drives ``cuda:{LOCAL_RANK}``
+and takes its rows of each global batch of ``--batch-size``; the run name
+is rank 0's, broadcast, and only rank 0 writes the logs and checkpoints.
+The open_clip trainer's torch-runtime flags (``--torchcompile``,
 ``--use-bnb-linear``, ...) are accepted and do nothing, with a warning, as
 in the JAX package. ``--force-patch-dropout`` above 0 and ``--scan-steps``
 above 1 raise NotImplementedError.
@@ -270,8 +272,16 @@ def main(args=None):
     from spatial_clip_tpu_torch.train.logging_utils import make_loggers, setup_logging
     from spatial_clip_tpu_torch.train.loop import Trainer, TrainerConfig
 
+    from spatial_clip_tpu_torch.train.entry import join_group
+
     args = parse_args(args)
     device = resolve_device(args.device)
+    mesh = join_group(device)
+    rank = 0
+    if mesh is not None:
+        from spatial_clip_tpu_torch.parallel.mesh import broadcast_object
+
+        device, rank = mesh.device, mesh.rank
     if args.force_patch_dropout:
         raise NotImplementedError("--force-patch-dropout (PatchDropout) is not ported to "
                                   "spatial_clip_tpu_torch (ROADMAP Queue 1 item 6)")
@@ -280,9 +290,11 @@ def main(args=None):
                                   "counterpart in spatial_clip_tpu_torch (ROADMAP Queue 1 "
                                   "item 11)")
     name = args.name or time.strftime("%Y_%m_%d-%H_%M_%S")
+    if mesh is not None:  # every rank's run directory is rank 0's
+        name = broadcast_object(name, group=mesh.group)
     out_dir = Path(args.logs) / name
     out_dir.mkdir(parents=True, exist_ok=True)
-    setup_logging(str(out_dir / "out.log"))
+    setup_logging(str(out_dir / "out.log"), rank=rank)
 
     if args.debug:
         logging.getLogger().setLevel(logging.DEBUG)
@@ -290,7 +302,7 @@ def main(args=None):
         if getattr(args, noop, False):
             log.warning("--%s is a flag of open_clip's torch trainer; accepted, no-op here",
                         noop.replace("_", "-"))
-    if args.copy_codebase:
+    if args.copy_codebase and rank == 0:
         import shutil
 
         import spatial_clip_tpu_torch as pkg
@@ -330,7 +342,8 @@ def main(args=None):
         data_dir=args.train_data or "", k_neighbors=args.k_neighbors,
         batch_size=args.batch_size, num_workers=args.workers, worker_type=args.worker_type,
         dataset_format=fmt, dataset_format_kwargs=format_kwargs,
-        splits={"train": args.train_split, "val": args.val_split}, seed=args.seed)
+        splits={"train": args.train_split, "val": args.val_split}, seed=args.seed,
+        **({"rank": mesh.rank, "world_size": mesh.size} if mesh is not None else {}))
     dm.preprocess_fn, dm.preprocess_fn_val, dm.tokenizer = pp_train, pp_val, tokenizer
     if dtype == "shards" and args.train_data and (" " in args.train_data.strip()):
         # '::'-weighted multi-source syntax: --train-data 'a::2 b::1'
@@ -405,12 +418,12 @@ def main(args=None):
              "cooldown_end_lr": args.lr_cooldown_end}
             if args.lr_scheduler == "const-cooldown" and args.epochs_cooldown else {})},
     )
-    trainer = Trainer(model, loss=loss, config=cfg, teacher=teacher)
+    trainer = Trainer(model, loss=loss, config=cfg, teacher=teacher, mesh=mesh)
     loggers = make_loggers(args.report_to, str(out_dir), wandb_project=args.wandb_project_name,
-                           wandb_notes=args.wandb_notes)
+                           wandb_notes=args.wandb_notes, rank=rank)
 
     sync_proc = None
-    if args.remote_sync:
+    if args.remote_sync and rank == 0:
         from spatial_clip_tpu_torch.utils.file_sync import remote_sync, start_sync_process
 
         remote_run_dir = str(Path(args.remote_sync) / name)
@@ -432,7 +445,8 @@ def main(args=None):
                 zs = {f"{zs_tag}-{k}" if zs_tag != "imagenet" else k: v for k, v in zs.items()}
                 metrics.update(zs)
                 log.info("%s zero-shot: %s", zs_tag, zs)
-        (out_dir / "results.json").write_text(json.dumps(metrics, indent=2, default=float))
+        if rank == 0:
+            (out_dir / "results.json").write_text(json.dumps(metrics, indent=2, default=float))
     finally:
         if sync_proc is not None:
             sync_proc.terminate()

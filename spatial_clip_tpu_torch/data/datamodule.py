@@ -5,11 +5,14 @@ The same constructor surface, model<->data handshake (the entry point
 assigns ``preprocess_fn``/``tokenizer`` before ``setup()``), collate schema,
 loader (thread or spawned process workers, per-worker generator seeding,
 drop-last batches, the shuffle drawn from ``seed + epoch``) and batches
-(numpy dicts) as the JAX package's. The process's rank and the world size,
-which the JAX package reads from ``jax.process_index``/``process_count``,
-are constructor arguments (default 0 and 1): with a world size above 1 each
-rank takes the strided share ``idx[rank::world_size]`` of the permutation
-every rank derives alike.
+(numpy dicts) as the JAX package's. The process's rank and the world size
+are constructor arguments (default 0 and 1). ``batch_size`` is the global
+batch, as in JAX's single-process mesh, which shards it over its devices:
+every rank derives the same permutation and the same global batches, and
+rank r takes the rows ``[r b, (r + 1) b)`` of each, b = batch_size /
+world_size, so a data-parallel run sees the one-process run's batches. (The
+JAX package's multi-host loader means another thing: ``batch_size`` rows a
+process, from its strided share ``idx[pi::pc]`` of the permutation.)
 """
 from __future__ import annotations
 
@@ -113,14 +116,15 @@ class DataLoader:
         self.worker_type = worker_type
         if not 0 <= rank < world_size:
             raise ValueError(f"rank {rank} outside a world of {world_size}")
+        if shard_by_process and world_size > 1 and (batch_size % world_size or not drop_last):
+            raise ValueError(f"a global batch of {batch_size} (drop_last={drop_last}) does not "
+                             f"split over {world_size} ranks: it takes whole batches that the "
+                             "ranks divide")
         self.rank, self.world_size = rank, world_size
         self._epoch = 0
 
     def __len__(self) -> int:
         n = len(self.dataset)
-        if self.shard_by_process:
-            pc = self.world_size
-            n = len(range(self.rank, n, pc)) if pc > 1 else n
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def set_epoch(self, epoch: int):
@@ -132,16 +136,14 @@ class DataLoader:
         n = len(self.dataset)
         idx = np.arange(n)
         if self.shuffle:
-            # every rank derives the SAME permutation, then takes a
-            # disjoint strided slice
+            # every rank derives the SAME permutation and global batches
             rng = np.random.default_rng(self.seed + self._epoch)
             rng.shuffle(idx)
-        if self.shard_by_process:
-            pc, pi = self.world_size, self.rank
-            if pc > 1:
-                idx = idx[pi::pc]  # strided split ~= DistributedSampler
-        nb = len(idx) // self.batch_size if self.drop_last else -(-len(idx) // self.batch_size)
-        return [idx[i * self.batch_size : (i + 1) * self.batch_size] for i in range(nb)]
+        batches = [idx[i * self.batch_size : (i + 1) * self.batch_size] for i in range(len(self))]
+        if self.shard_by_process and self.world_size > 1:
+            b = self.batch_size // self.world_size  # this rank's rows of each global batch
+            batches = [g[self.rank * b : (self.rank + 1) * b] for g in batches]
+        return batches
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         batches = self._index_batches()

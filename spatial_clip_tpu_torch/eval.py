@@ -11,7 +11,9 @@ on the test split, adds ``zero_shot_pcc`` (the zero-shot gene-expression
 Pearson correlation, :func:`~spatial_clip_tpu_torch.train.evaluate.zero_shot_gene_expression`)
 when ``model.global_hvg_path`` names an existing HVG list, and writes
 ``eval_metrics.json`` and the loggers' files under ``paths.output_dir``.
-The device rules and refused keys are the training entry's.
+The device rules and refused keys are the training entry's; it runs in one
+process, also under ``trainer.sim_devices`` (a group's evaluation gathers
+the features and gives the same metrics).
 """
 from __future__ import annotations
 
@@ -50,10 +52,13 @@ def evaluate(cfg: Dict[str, Any]) -> Dict[str, float]:
         build_model,
         build_trainer,
         resolve_device,
+        sim_devices,
     )
     from spatial_clip_tpu_torch.train.logging_utils import make_loggers, setup_logging
 
     device = resolve_device(cfg)
+    if sim_devices(cfg) > 1:
+        log.info("trainer.sim_devices=%d: the evaluation runs in one process", sim_devices(cfg))
     out_dir = Path(cfg["paths"]["output_dir"])
     out_dir.mkdir(parents=True, exist_ok=True)
     setup_logging(str(out_dir / "eval.log"))

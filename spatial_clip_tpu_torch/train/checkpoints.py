@@ -7,7 +7,11 @@ package and open_clip (counterpart of ``spatial_clip_tpu.train.checkpoints``).
 renamed, with all but the newest ``keep`` steps pruned after each write. At
 most one write is in flight on a writer thread; :meth:`~CheckpointManager.wait`
 joins it, and every read waits for it first. ``restore(step=None)`` restores
-the newest step.
+the newest step. Under a process group (``rank``, ``group``) only rank 0
+copies and writes; :meth:`~CheckpointManager.save` and
+:meth:`~CheckpointManager.wait` end in a barrier of the group, so a read
+that follows on any rank finds rank 0's finished write, and every rank
+reads at ``restore``.
 
 The JAX package writes ``state.msgpack`` with flax. This package writes
 ``state.pt`` (``torch.save``, read back with ``weights_only=True``), which
@@ -45,6 +49,7 @@ from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 log = logging.getLogger(__name__)
 
@@ -133,28 +138,42 @@ def load_host_state(host: Dict[str, Any], target):
 
 
 class CheckpointManager:
-    """Step-indexed checkpoints under ``ckpt_dir``, the newest ``keep`` kept."""
+    """Step-indexed checkpoints under ``ckpt_dir``, the newest ``keep`` kept;
+    under a process group, written by rank 0 alone."""
 
-    def __init__(self, ckpt_dir: Union[str, Path], keep: int = 3):
+    def __init__(self, ckpt_dir: Union[str, Path], keep: int = 3, rank: int = 0,
+                 group: Optional[dist.ProcessGroup] = None):
         self.dir = Path(ckpt_dir)
         self.keep = keep
+        self.rank, self.group = rank, group
         self._pool = ThreadPoolExecutor(max_workers=1)
         self._pending: Optional[Future] = None
         self.dir.mkdir(parents=True, exist_ok=True)
 
+    def _barrier(self):
+        if self.group is not None:
+            dist.barrier(group=self.group)
+
     def save(self, state, step: int, metrics: Optional[Dict] = None):
         """Checkpoint ``state`` (a TrainState) at ``step``: the host copy is
         made here, the write runs on the writer thread after any earlier
-        write has finished."""
-        host = host_state(state)
-        self.wait()  # at most one write in flight
-        self._pending = self._pool.submit(self._write, host, step, metrics)
+        write has finished. Collective under a group."""
+        if self.rank == 0:
+            host = host_state(state)
+            self._join()  # at most one write in flight
+            self._pending = self._pool.submit(self._write, host, step, metrics)
+        self._barrier()
 
-    def wait(self):
-        """Block until any in-flight write completes (raising its error)."""
+    def _join(self):
         if self._pending is not None:
             pending, self._pending = self._pending, None
             pending.result()
+
+    def wait(self):
+        """Block until any in-flight write completes (raising its error);
+        collective under a group."""
+        self._join()
+        self._barrier()
 
     def _write(self, host: Dict[str, Any], step: int, metrics: Optional[Dict]):
         target = self.dir / f"step_{step}"

@@ -14,8 +14,22 @@ The run goes on the GPU (``cuda``) unless ``trainer.platform=cpu``
 (``configs/trainer/cpu.yaml``) asks for the CPU; with no GPU it raises
 rather than carry on on the CPU. Keys with no counterpart here raise
 NotImplementedError naming the key: ``trainer.platform`` other than
-cpu / gpu / cuda, ``trainer.sim_devices`` (ROADMAP Queue 1 item 7) and
+cpu / gpu / cuda and ``trainer.multihost`` (ROADMAP Queue 1 item 7), and
 ``trainer.scan_steps`` above 1 (an XLA dispatch knob).
+
+Data parallelism, one process per device over a ``torch.distributed`` group
+(:mod:`spatial_clip_tpu_torch.parallel`), with ``data.batch_size`` the global
+batch the ranks shard:
+
+- ``trainer.sim_devices=N`` with ``trainer.platform=cpu``
+  (``trainer=ddp_sim``), the counterpart of JAX's ``jax_num_cpu_devices``,
+  spawns N processes on the CPU in a gloo group and returns rank 0's
+  result;
+- under ``torchrun --nproc_per_node N -m spatial_clip_tpu_torch.train ...``
+  each process joins the group torchrun describes (nccl on the GPU, gloo
+  on the CPU) and drives ``cuda:{LOCAL_RANK}``.
+
+Only rank 0 writes the log file, the metric loggers and the checkpoints.
 
 The debug presets' keys (``configs/debug/``): ``trainer.detect_anomaly``
 (JAX's ``jax_debug_nans``) stops the run with FloatingPointError at the
@@ -31,6 +45,7 @@ from __future__ import annotations
 
 import logging
 import math
+import os
 import sys
 from dataclasses import dataclass
 from pathlib import Path
@@ -50,17 +65,40 @@ def resolve_device(cfg: Dict[str, Any]):
     tcfg = cfg.get("trainer") or {}
     platform = tcfg.get("platform")
     refused = [
-        ("trainer.platform", platform, platform is not None and platform not in PLATFORMS),
-        ("trainer.sim_devices", tcfg.get("sim_devices"), bool(tcfg.get("sim_devices"))),
-        ("trainer.scan_steps", tcfg.get("scan_steps"), int(tcfg.get("scan_steps") or 1) > 1),
+        ("trainer.platform", platform, platform is not None and platform not in PLATFORMS,
+         " (ROADMAP Queue 1 item 7)"),
+        ("trainer.multihost", tcfg.get("multihost"), bool(tcfg.get("multihost")),
+         " (ROADMAP Queue 1 item 7)"),
+        ("trainer.scan_steps", tcfg.get("scan_steps"), int(tcfg.get("scan_steps") or 1) > 1,
+         " (an XLA dispatch knob; ROADMAP Queue 1 item 11)"),
     ]
-    for key, value, bad in refused:
+    for key, value, bad, why in refused:
         if bad:
-            raise NotImplementedError(f"{key}={value!r} is not ported to spatial_clip_tpu_torch")
+            raise NotImplementedError(f"{key}={value!r} is not ported to spatial_clip_tpu_torch"
+                                      f"{why}")
     device = torch.device(PLATFORMS.get(platform or "cuda"))
+    if sim_devices(cfg) > 1 and device.type != "cpu":
+        raise ValueError("trainer.sim_devices simulates ranks on the CPU: it takes "
+                         "trainer.platform=cpu (on GPUs, run under torchrun)")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA GPU: pass trainer.platform=cpu to run on the CPU")
     return device
+
+
+def sim_devices(cfg: Dict[str, Any]) -> int:
+    """``trainer.sim_devices``: the ranks a CPU run simulates (1: none)."""
+    return int((cfg.get("trainer") or {}).get("sim_devices") or 1)
+
+
+def join_group(device):
+    """The data mesh of this process: the group torchrun describes, or the
+    one a spawning parent made; None for a run of one process. Each rank
+    drives ``cuda:{LOCAL_RANK}`` on the GPU."""
+    from spatial_clip_tpu_torch.parallel.mesh import make_mesh, maybe_init_distributed
+
+    if not maybe_init_distributed("nccl" if device.type == "cuda" else "gloo"):
+        return None
+    return make_mesh(device=None if device.type == "cuda" else device)
 
 
 def build_datamodule(cfg: Dict[str, Any]):
@@ -121,7 +159,7 @@ def build_model(cfg: Dict[str, Any], device="cuda"):
     return model, pp_train, pp_val, tokenizer, hvg
 
 
-def build_trainer(cfg: Dict[str, Any], model, total_steps: int):
+def build_trainer(cfg: Dict[str, Any], model, total_steps: int, mesh=None):
     from spatial_clip_tpu_torch.losses import make_loss
     from spatial_clip_tpu_torch.train.loop import Trainer, TrainerConfig
 
@@ -157,7 +195,7 @@ def build_trainer(cfg: Dict[str, Any], model, total_steps: int):
         early_stop_patience=(callbacks.get("early_stopping") or {}).get("patience"),
         debug_nans=bool(tcfg.get("detect_anomaly")),
     )
-    return Trainer(model, loss=loss, config=config)
+    return Trainer(model, loss=loss, config=config, mesh=mesh)
 
 
 @dataclass
@@ -226,13 +264,20 @@ def build(cfg: Dict[str, Any]) -> Run:
     from spatial_clip_tpu_torch.train.logging_utils import make_loggers, setup_logging
 
     device = resolve_device(cfg)
+    mesh = join_group(device)
+    rank = 0
+    if mesh is not None:
+        device, rank = mesh.device, mesh.rank
     out_dir = Path(cfg["paths"]["output_dir"])
     out_dir.mkdir(parents=True, exist_ok=True)
-    setup_logging(str(out_dir / "train.log"))
+    setup_logging(str(out_dir / "train.log"), rank=rank)
     np.random.seed(int(cfg.get("seed", 42)))
 
-    log.info("Instantiating datamodule and model on %s", device)
+    log.info("Instantiating datamodule and model on %s%s", device,
+             f" (rank {rank} of {mesh.size})" if mesh is not None else "")
     dm = build_datamodule(cfg)
+    if mesh is not None:  # data.batch_size is the global batch; this rank takes its rows
+        dm.rank, dm.world_size = mesh.rank, mesh.size
     model, pp_train, pp_val, tokenizer, hvg = build_model(cfg, device)
 
     # model <-> datamodule handshake
@@ -254,8 +299,9 @@ def build(cfg: Dict[str, Any]) -> Run:
     max_steps = int(tcfg.get("max_steps", -1))
     total_steps = max_steps if max_steps > 0 else epochs * max(steps_per_epoch, 1)
 
-    trainer = build_trainer(cfg, model, total_steps)
-    loggers = make_loggers(cfg.get("logger", {}).get("report_to", "csv"), str(out_dir))
+    trainer = build_trainer(cfg, model, total_steps, mesh)
+    loggers = make_loggers(cfg.get("logger", {}).get("report_to", "csv"), str(out_dir),
+                           rank=rank)
 
     def train_iter():
         loader = dm.train_dataloader()
@@ -279,7 +325,19 @@ def build(cfg: Dict[str, Any]) -> Run:
 def train(cfg: Dict[str, Any]) -> Tuple[Optional[float], Dict[str, Any]]:
     """Run the composed config: returns (the ``optimized_metric``'s value or
     None, the objects built: state, trainer, datamodule, model, metrics,
-    output_dir)."""
+    output_dir). Under ``trainer.sim_devices=N`` the run goes on N spawned
+    ranks, and the objects are rank 0's metrics, output_dir, its final
+    flat parameters (``params``, on the CPU) and ``world_size``."""
+    import torch.distributed as dist
+
+    n = sim_devices(cfg)
+    under_torchrun = int(os.environ.get("WORLD_SIZE", "1")) > 1
+    if n > 1 and not (dist.is_initialized() or under_torchrun):
+        from spatial_clip_tpu_torch.parallel.launch import spawn
+
+        resolve_device(cfg)  # refuse what the ranks would refuse, before spawning them
+        threads = max(1, len(os.sched_getaffinity(0)) // n)
+        return spawn(_train_rank, n, (cfg,), backend="gloo", threads=threads)[0]
     run = build(cfg)
     state, metrics = run.fit()
 
@@ -301,6 +359,16 @@ def train(cfg: Dict[str, Any]) -> Tuple[Optional[float], Dict[str, Any]]:
     }
     log.info("Final metrics: %s", {k: v for k, v in metrics.items() if isinstance(v, float)})
     return value, objects
+
+
+def _train_rank(rank: int, cfg: Dict[str, Any]):
+    """One spawned rank of a ``trainer.sim_devices`` run: what it can send
+    back of :func:`train`'s result."""
+    value, objects = train(cfg)
+    state = objects["state"]
+    return value, {"metrics": objects["metrics"], "output_dir": objects["output_dir"],
+                   "params": state.flat["params"].detach().cpu(), "world_size":
+                   objects["trainer"].world, "rank": rank}
 
 
 def compose_train(overrides) -> Dict[str, Any]:

@@ -5,7 +5,9 @@ The logger stack that ``configs/logger/*`` names: ``metrics.csv``,
 ``results.jsonl``, TensorBoard, and the third-party backends (wandb,
 mlflow, neptune, comet), each skipped with a warning when its package is
 missing, as in the JAX package; and :class:`RankedLogger`, with the
-process's rank passed in.
+process's rank passed in. Under a process group only rank 0 writes:
+:func:`make_loggers` gives the other ranks no writer, and
+:func:`setup_logging` gives them no log file.
 """
 from __future__ import annotations
 
@@ -34,10 +36,10 @@ class RankedLogger(logging.LoggerAdapter):
             self.logger.log(level, msg, *args, **kwargs)
 
 
-def setup_logging(log_file: Optional[str] = None, level=logging.INFO):
-    """Console and file logging."""
+def setup_logging(log_file: Optional[str] = None, level=logging.INFO, rank: int = 0):
+    """Console and (on rank 0) file logging."""
     handlers: List[logging.Handler] = [logging.StreamHandler()]
-    if log_file:
+    if log_file and rank == 0:
         handlers.append(logging.FileHandler(log_file))
     logging.basicConfig(
         level=level,
@@ -121,10 +123,12 @@ def _is_scalar(v) -> bool:
 
 
 def make_loggers(spec: str, out_dir: str, wandb_project: str = None,
-                 wandb_notes: str = None) -> MultiLogger:
+                 wandb_notes: str = None, rank: int = 0) -> MultiLogger:
     """Build loggers from a comma list: 'csv,jsonl,tensorboard' (the
-    configs' ``logger.report_to``)."""
+    configs' ``logger.report_to``); none on a rank other than 0."""
     out = []
+    if rank != 0:
+        return MultiLogger(out)
     os.makedirs(out_dir, exist_ok=True)
     for name in (spec or "csv").split(","):
         name = name.strip().lower()

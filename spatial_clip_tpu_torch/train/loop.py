@@ -22,10 +22,23 @@ device: the metrics come back as device scalars (``lr`` as a float).
 gradient holds a NaN raises FloatingPointError naming the step (an Inf
 passes).
 
+``mesh`` (:func:`spatial_clip_tpu_torch.parallel.mesh.make_mesh`) trains
+data-parallel over a ``torch.distributed`` group, one process per device,
+with the JAX Trainer's global semantics: each rank holds its rows of the
+global batch (rank r the rows ``[r b, (r + 1) b)``), the loss scores them
+against every rank's columns and returns the global loss, and each step's
+flat gradient is all-reduced and averaged once, in a fixed order over the
+whole buffer, before clipping, so every rank holds the same parameter bits
+after every step. The parameters start as rank 0's. The host's random draws
+(augmentation, gene dropout) are made for the global batch from the
+generator every rank seeds alike, and each rank takes its rows, so a
+P-rank step is the one-process step on the global batch. The metrics are
+the global ones; only rank 0 logs and writes checkpoints.
+
 Not ported, and raising NotImplementedError: master weights, a bf16
-gradient dtype (ROADMAP Queue 1 item 4) and a device mesh (item 7). The
-JAX package's ``scan_steps`` and ``compiler_options`` are XLA dispatch
-knobs with no counterpart here.
+gradient dtype (ROADMAP Queue 1 item 4) and a mesh with a ``model`` axis
+(item 7). The JAX package's ``scan_steps`` and ``compiler_options`` are XLA
+dispatch knobs with no counterpart here.
 """
 from __future__ import annotations
 
@@ -37,6 +50,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tupl
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.func import functional_call
 
@@ -47,6 +61,7 @@ from spatial_clip_tpu_torch.models.transforms import (
     draw_augment,
     normalize_batch,
 )
+from spatial_clip_tpu_torch.parallel.collectives import all_gather, rank_size
 from spatial_clip_tpu_torch.train.checkpoints import CheckpointManager
 from spatial_clip_tpu_torch.train.metrics import (
     ContrastiveMetrics,
@@ -242,13 +257,19 @@ class Trainer:
 
     ``teacher``: a frozen CLIP model (``create_model(...)`` without
     ``training``: eval mode, no grad) on the same device, whose features
-    the ``distill`` loss takes."""
+    the ``distill`` loss takes.
+
+    ``mesh``: a data mesh (``parallel.mesh.make_mesh``) over which this
+    process trains data-parallel; the model lives on the mesh's device and
+    the batches hold this rank's rows of the global batch."""
 
     def __init__(self, model: nn.Module, loss: Optional[LossFn] = None,
                  config: Optional[TrainerConfig] = None, mesh=None, teacher=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh is not ported to spatial_clip_tpu_torch (ROADMAP Queue 1 item 7)")
+        if mesh is not None and model.logit_scale.device != mesh.device:
+            raise ValueError(f"the model is on {model.logit_scale.device}, the mesh's device is "
+                             f"{mesh.device}")
+        self.group = mesh.group if mesh is not None else None
+        self.rank, self.world = rank_size(self.group)
         if teacher is not None and (teacher.training or any(
                 p.requires_grad for p in teacher.parameters())):
             raise ValueError("the teacher is a frozen model in eval mode: create_model(...) "
@@ -273,16 +294,26 @@ class Trainer:
             self.mu_dtype = self.nu_dtype = torch.float32
         frozen = freeze_mask(params, cfg.frozen_prefixes) if cfg.frozen_prefixes else {}
         self.frozen = frozenset(k for k, f in frozen.items() if f)
-        self.ckpt = CheckpointManager(cfg.ckpt_dir, keep=cfg.keep_ckpts) if cfg.ckpt_dir else None
+        self.ckpt = (CheckpointManager(cfg.ckpt_dir, keep=cfg.keep_ckpts, rank=self.rank,
+                                       group=self.group) if cfg.ckpt_dir else None)
         self.loss_extras: Dict[str, torch.Tensor] = {}
 
     def init_state(self) -> TrainState:
-        """The model's current parameters (copied), zero moments, step 0."""
+        """The model's current parameters (copied; under a mesh, rank 0's),
+        zero moments, step 0."""
         params = {k: p.detach() for k, p in self.model.named_parameters()}
         zeros = {k: torch.zeros_like(p) for k, p in params.items()}
-        return TrainState.create(params, zeros, zeros if "nu" in self.optimizer.moments else None,
-                                 mu_dtype=self.mu_dtype, nu_dtype=self.nu_dtype,
-                                 seed=self.cfg.seed, frozen=self.frozen)
+        state = TrainState.create(params, zeros, zeros if "nu" in self.optimizer.moments else None,
+                                  mu_dtype=self.mu_dtype, nu_dtype=self.nu_dtype,
+                                  seed=self.cfg.seed, frozen=self.frozen)
+        if self.group is not None:
+            dist.broadcast(state.flat["params"], src=dist.get_global_rank(self.group, 0),
+                           group=self.group)
+        return state
+
+    def _my_rows(self, x: Optional[torch.Tensor], rows: int) -> Optional[torch.Tensor]:
+        """This rank's ``rows`` rows of a global-batch tensor."""
+        return None if x is None else x[self.rank * rows:(self.rank + 1) * rows]
 
     def prepare_images(self, images: torch.Tensor,
                        draws: Optional[AugmentDraws] = None) -> torch.Tensor:
@@ -320,22 +351,27 @@ class Trainer:
                 "dist_logit_scale": out["logit_scale"]}
 
     def _loss(self, inputs) -> torch.Tensor:
-        """The loss's ``contrastive_loss``; what else it returns (the
-        distill loss's ``distill_loss``) goes to ``loss_extras``, detached."""
-        out = self.loss(**inputs)
+        """The loss's ``contrastive_loss`` (under a mesh, the global loss);
+        what else it returns (the distill loss's ``distill_loss``) goes to
+        ``loss_extras``, detached."""
+        out = self.loss(group=self.group, **inputs)
         self.loss_extras = {k: v.detach() for k, v in out.items() if k != "contrastive_loss"}
         return out["contrastive_loss"]
 
     def draw_gene_keep(self, state: TrainState, texts: torch.Tensor) -> Optional[torch.Tensor]:
         """The training step's gene-dropout mask over ``texts`` (B,
-        num_genes), drawn from the state's generator, or None where the
+        num_genes), drawn from the state's generator (under a mesh, for the
+        global batch, of which this rank takes its rows), or None where the
         model has no Gene-MLP tower with ``gene_dropout`` > 0. JAX draws it
         only in a training step (``rngs={'dropout': ...}``); evaluation
         keeps every gene."""
         tower = self.model.text
         if tower is None or not tower.gene_dropout > 0:
             return None
-        return tower.draw_keep(texts.shape, state.generator, texts.device)
+        rows = texts.shape[0]
+        keep = tower.draw_keep((rows * self.world, *texts.shape[1:]), state.generator,
+                               texts.device)
+        return self._my_rows(keep, rows)
 
     def _flat_grad(self, state: TrainState, loss: torch.Tensor) -> torch.Tensor:
         if self.cfg.debug_nans and torch.isnan(loss).item():
@@ -349,18 +385,22 @@ class Trainer:
             raise
         return state.flatten(grads)
 
-    @staticmethod
-    def _logits(img: torch.Tensor, txt: torch.Tensor, logit_scale: torch.Tensor):
+    def _logits(self, img: torch.Tensor, txt: torch.Tensor, logit_scale: torch.Tensor):
+        """In-batch logits over the global batch (every rank's features)."""
         with torch.no_grad():
-            return (img @ txt.T) * logit_scale
+            return (all_gather(img, self.group) @ all_gather(txt, self.group).T) * logit_scale
 
     def forward_backward(self, state: TrainState, batch: Dict[str, torch.Tensor],
-                         draws: Optional[AugmentDraws] = None):
+                         draws: Optional[AugmentDraws] = None, logits: bool = True):
         """Loss, in-batch logits and the flat f32 gradient (laid out as
-        ``state.flat['params']``) of one batch at the state's parameters.
+        ``state.flat['params']``) of one batch at the state's parameters;
+        under a mesh the global ones: the logits over the global batch, the
+        gradient the ranks' mean. ``logits=False`` returns None in their
+        place and skips their product (under a mesh, their all-gathers).
 
         When the config augments, the augmentation draws (``draws``, or new
-        ones from the state's generator) cover the whole batch; with
+        ones from the state's generator) cover the whole batch (under a mesh
+        the global batch, of which each rank takes its rows); with
         ``grad_accum > 1`` each microbatch takes its rows of them. ``cached`` mode: pass 1 embeds
         every microbatch without grad; pass 2 re-embeds one microbatch at a
         time with grad, splices its features into the cached (B, D)
@@ -369,39 +409,52 @@ class Trainer:
         summed ``grad_accum`` times, the loss is the last microbatch's, and
         the logits cover the full batch. ``simple`` mode averages the
         microbatches' gradients and losses; the logits are the last
-        microbatch's. A Gene-MLP tower's gene-dropout mask
+        microbatch's (under a mesh each loss scores the ranks' j-th
+        microbatches together, where one process scores the global batch's
+        j-th). A Gene-MLP tower's gene-dropout mask
         (:meth:`draw_gene_keep`) is drawn after the augmentation, for the
         whole batch; each microbatch takes its rows in both passes."""
         cfg = self.cfg
         images = batch["images"]
+        rows = images.shape[0]
         if not (cfg.augment and images.dtype == torch.uint8):
             draws = None
-        elif draws is None:
-            draws = draw_augment(images.shape[0], cfg.horizontal_flip_prob, cfg.color_jitter,
-                                 generator=state.generator, device=images.device)
+        else:
+            if draws is None:
+                draws = draw_augment(rows * self.world, cfg.horizontal_flip_prob,
+                                     cfg.color_jitter, generator=state.generator,
+                                     device=images.device)
+            draws = AugmentDraws(*(self._my_rows(d, rows) for d in draws))
         keep = self.draw_gene_keep(state, batch["texts"])
         accum = max(1, cfg.grad_accum)
         if accum == 1:
             features = self._features(state.params, batch, draws, keep)
             loss = self._loss({**batch, **features})
-            logits = self._logits(features["image_features"], features["text_features"],
-                                  features["logit_scale"])
-            return loss.detach(), logits, self._flat_grad(state, loss)
-        if images.shape[0] % accum:
-            raise ValueError(f"batch of {images.shape[0]} does not split into "
-                             f"grad_accum={accum} microbatches")
-        mb = images.shape[0] // accum
-        parts = [slice(j * mb, (j + 1) * mb) for j in range(accum)]
-        mbs = [{k: v[sl] for k, v in batch.items()} for sl in parts]
-        mb_draws = [None if draws is None else AugmentDraws(
-            *(None if d is None else d[sl] for d in draws)) for sl in parts]
-        mb_keep = [None if keep is None else keep[sl] for sl in parts]
-        if cfg.grad_accum_mode == "simple":
-            return self._simple_accum(state, mbs, mb_draws, mb_keep)
-        if self.teacher is not None:  # as in JAX, whose cached pass never calls the teacher
-            raise NotImplementedError("a distillation teacher under grad_accum > 1 takes "
-                                      "grad_accum_mode='simple'")
-        return self._cached_accum(state, batch, mbs, mb_draws, mb_keep, parts)
+            grads = self._flat_grad(state, loss)
+            img, txt, scale = (features["image_features"], features["text_features"],
+                               features["logit_scale"])
+        elif rows % accum:
+            raise ValueError(f"batch of {rows} does not split into grad_accum={accum} "
+                             "microbatches")
+        else:
+            mb = rows // accum
+            parts = [slice(j * mb, (j + 1) * mb) for j in range(accum)]
+            mbs = [{k: v[sl] for k, v in batch.items()} for sl in parts]
+            mb_draws = [None if draws is None else AugmentDraws(
+                *(None if d is None else d[sl] for d in draws)) for sl in parts]
+            mb_keep = [None if keep is None else keep[sl] for sl in parts]
+            if cfg.grad_accum_mode == "simple":
+                loss, (img, txt, scale), grads = self._simple_accum(state, mbs, mb_draws, mb_keep)
+            elif self.teacher is not None:  # as in JAX, whose cached pass never calls the teacher
+                raise NotImplementedError("a distillation teacher under grad_accum > 1 takes "
+                                          "grad_accum_mode='simple'")
+            else:
+                loss, (img, txt, scale), grads = self._cached_accum(state, batch, mbs, mb_draws,
+                                                                    mb_keep, parts)
+        if self.group is not None:  # once a step, the whole buffer in one fixed-order reduce
+            dist.all_reduce(grads, op=dist.ReduceOp.SUM, group=self.group)
+            grads.div_(self.world)
+        return loss.detach(), self._logits(img, txt, scale) if logits else None, grads
 
     def _cached_accum(self, state, batch, mbs, mb_draws, mb_keep, parts):
         with torch.no_grad():  # pass 1: attention takes the inference kernel
@@ -426,8 +479,7 @@ class Trainer:
             loss = self._loss(inputs)
             g = self._flat_grad(state, loss)
             grads = g if grads is None else grads.add_(g)
-        logits = self._logits(all_img, all_txt, state.params["logit_scale"].exp())
-        return loss.detach(), logits, grads
+        return loss, (all_img, all_txt, state.params["logit_scale"].exp()), grads
 
     def _simple_accum(self, state, mbs, mb_draws, mb_keep):
         grads = loss_sum = None
@@ -437,21 +489,21 @@ class Trainer:
             g = self._flat_grad(state, loss)
             grads = g if grads is None else grads.add_(g)
             loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
-        logits = self._logits(features["image_features"], features["text_features"],
-                              features["logit_scale"])
-        return loss_sum / len(mbs), logits, grads.div_(len(mbs))
+        last = (features["image_features"], features["text_features"], features["logit_scale"])
+        return loss_sum / len(mbs), last, grads.div_(len(mbs))
 
     def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor],
                    draws: Optional[AugmentDraws] = None) -> Tuple[TrainState, Dict[str, Any]]:
         """One optimizer step; updates ``state`` in place and returns it with
-        the step metrics: ``loss``, what else the loss returned (the distill
-        loss's ``distill_loss``; with ``grad_accum > 1`` the last
-        microbatch's), ``logit_scale`` (exp of the clamped parameter),
-        ``lr`` (the schedule at the step before the update), and unless
-        ``step_metrics='light'`` ``grad_norm`` (before clipping) and
-        in-batch ``R@1/5/10``."""
+        the step metrics (under a mesh, the global ones): ``loss``, what
+        else the loss returned (the distill loss's ``distill_loss``; with
+        ``grad_accum > 1`` the last microbatch's), ``logit_scale`` (exp of
+        the clamped parameter), ``lr`` (the schedule at the step before the
+        update), and unless ``step_metrics='light'`` ``grad_norm`` (before
+        clipping) and in-batch ``R@1/5/10``."""
         cfg = self.cfg
-        loss, logits, grads = self.forward_backward(state, batch, draws)
+        loss, logits, grads = self.forward_backward(state, batch, draws,
+                                                    logits=cfg.step_metrics != "light")
         if cfg.debug_nans and torch.isnan(grads).any().item():
             raise FloatingPointError(f"NaN gradient at step {state.step}")
         metrics: Dict[str, Any] = {"loss": loss, **self.loss_extras}
@@ -505,7 +557,10 @@ class Trainer:
         checkpoint first, or starts fresh when there is none; as in the JAX
         package, the epochs then run from the first, on the iterators the
         factories give. Returns the state and the last metrics (``val/``
-        keys included)."""
+        keys included). Under a mesh every rank runs ``fit`` on its rows of
+        the same global batches; ``pairs_per_sec`` counts the global batch,
+        ``pairs_per_sec_per_chip`` divides it by the ranks, only rank 0
+        logs, and the checkpoint calls are collective (rank 0 writes)."""
         state = state if state is not None else self.init_state()
         if resume and self.ckpt:
             try:
@@ -517,7 +572,8 @@ class Trainer:
         elif resume:
             log.warning("resume=%r without ckpt_dir: starting fresh", resume)
         cfg = self.cfg
-        n_dev = 1
+        n_dev = self.world
+        logger = logger if self.rank == 0 else None
         last: Dict[str, float] = {}
         sign = 1.0 if cfg.monitor_mode == "max" else -1.0
         best_score = -float("inf")
@@ -530,7 +586,7 @@ class Trainer:
             for i, batch in enumerate(train_iter_factory()):
                 if steps_per_epoch is not None and i >= steps_per_epoch:
                     break
-                bsz = int(batch["images"].shape[0])
+                bsz = int(batch["images"].shape[0]) * self.world
                 dbatch = self._device_batch(batch)
                 t1 = time.perf_counter()
                 state, metrics = self.train_step(state, dbatch)
@@ -585,7 +641,9 @@ class Trainer:
         """Full-split retrieval eval without grad or augmentation: the mean
         of the batches' losses, the in-batch R@1/5/10 over all rows, the
         bidirectional ``clip_retrieval_metrics`` of the features gathered
-        over the split, and ``num_samples``."""
+        over the split, and ``num_samples``. Under a mesh each rank passes
+        its rows of the same global batches, the features are gathered over
+        the ranks, and every rank returns the global split's metrics."""
         metrics = ContrastiveMetrics()
         losses: List[float] = []
         img_feats, txt_feats = [], []
@@ -595,10 +653,11 @@ class Trainer:
                 dbatch = self._device_batch(batch)
                 features = self._features(state.params, dbatch, None)  # no augmentation
                 losses.append(float(self._loss({**dbatch, **features})))
-                img, txt = features["image_features"], features["text_features"]
+                img = all_gather(features["image_features"], self.group)
+                txt = all_gather(features["text_features"], self.group)
                 img_feats.append(img.float().cpu().numpy())
                 txt_feats.append(txt.float().cpu().numpy())
-                logits = self._logits(img, txt, features["logit_scale"])
+                logits = (img @ txt.T) * features["logit_scale"]
                 mstate = metrics.update(
                     mstate, logits, torch.arange(logits.shape[0], device=logits.device))
         if not losses:

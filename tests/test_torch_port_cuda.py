@@ -1749,3 +1749,48 @@ def test_plain_route_runs_on_the_card(device):
         want = cpu(images, texts)
     for k in ("image_features", "text_features"):
         torch.testing.assert_close(got[k].cpu(), want[k], atol=1e-5, rtol=0)
+
+
+def test_world_one_nccl_step_keeps_the_bits(device, tmp_path):
+    """Trainer(mesh=make_mesh()) on a world-1 NCCL group: two ViT-B-32 bf16
+    steps at batch 16 with the fused spatial loss give the same params, mu
+    and nu bits and the same fused CE launches as the steps with no group
+    (the group's all-gathers and all-reduce return their inputs' bits)."""
+    import torch.distributed as dist
+
+    from spatial_clip_tpu_torch.losses import make_loss
+    from spatial_clip_tpu_torch.ops import fused_contrastive as fc
+    from spatial_clip_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from spatial_clip_tpu_torch.train.loop import Trainer, TrainerConfig
+
+    rng = np.random.default_rng(19)
+    B = 16
+    ids = torch.arange(B, device=device)
+    batches = [{
+        "images": torch.from_numpy(rng.integers(0, 255, (B, 224, 224, 3), dtype=np.uint8)).to(
+            device),
+        "texts": torch.from_numpy(rng.integers(0, 49408, (B, 77))).to(device),
+        "image_tile_ids": ids, "text_tile_ids": ids,
+        "neighbor_tile_ids": torch.from_numpy(rng.integers(-1, B, (B, 6))).to(device),
+        "neighbor_alphas": torch.from_numpy(rng.uniform(0, 1, (B, 6)).astype(np.float32)).to(
+            device)} for _ in range(2)]
+    model = create_model("ViT-B-32", precision="bf16", device=device, seed=0, training=True)
+    loss = make_loss("spatial", cap_logit_scale=50.0, use_fused_kernel=True)
+    config = TrainerConfig(warmup_steps=1, augment=True, color_jitter=0.2, seed=0)
+    init_distributed("nccl", 0, 1, store_path=str(tmp_path / "store"), device=device)
+    try:
+        runs = []
+        for mesh in (None, make_mesh(device=device)):
+            trainer = Trainer(model, loss, config, mesh=mesh)
+            state = trainer.init_state()
+            before = fc.spatial_ce_fwd.launches
+            for batch in batches:
+                state, _ = trainer.train_step(state, batch)
+            torch.cuda.synchronize()
+            runs.append((state.flat, fc.spatial_ce_fwd.launches - before))
+    finally:
+        dist.destroy_process_group()
+    (plain, n_plain), (grouped, n_grouped) = runs
+    assert n_plain == n_grouped == 4
+    for k in ("params", "mu", "nu"):
+        assert torch.equal(plain[k], grouped[k]), k

@@ -243,24 +243,31 @@ def test_loader_gives_jax_batches(workers, worker_type):
 
 
 def test_loader_rank_takes_its_strided_share():
-    """World size 2: each rank takes idx[rank::2] of the permutation every
-    rank derives; the shares are disjoint and cover every drop-last batch."""
+    """World size 2: every rank derives the one-process permutation and
+    global batches of 6, and rank r takes the rows [3r, 3r + 3) of each, so
+    the ranks' shares are disjoint and together are the one-process
+    batches. (Before data parallelism was ported a rank took the strided
+    share idx[rank::2], JAX's multi-host meaning, which
+    test_torch_port_dist_entry.py pins as a difference.)"""
     from spatial_clip_tpu_torch.data.datasets.synthetic import SyntheticSpatialDataset
 
     ds = SyntheticSpatialDataset(num_samples=36, image_size=4, k_neighbors=2)
-    whole = datamodule.DataLoader(ds, batch_size=6, shuffle=True, seed=3)
-    perm = np.concatenate([b["image_tile_ids"] for b in whole])
+    whole = [b["image_tile_ids"] for b in datamodule.DataLoader(ds, batch_size=6, shuffle=True,
+                                                                seed=3)]
     shares = []
     for rank in (0, 1):
         loader = datamodule.DataLoader(ds, batch_size=6, shuffle=True, seed=3, rank=rank,
                                        world_size=2)
-        assert len(loader) == 3
-        ids = np.concatenate([b["image_tile_ids"] for b in loader])
-        np.testing.assert_array_equal(ids, perm[rank::2])
-        shares.append(ids)
+        assert len(loader) == 6
+        got = [b["image_tile_ids"] for b in loader]
+        for g, w in zip(got, whole):
+            np.testing.assert_array_equal(g, w[3 * rank:3 * rank + 3])
+        shares.append(np.concatenate(got))
     assert not set(shares[0]) & set(shares[1])
     with pytest.raises(ValueError, match="rank"):
         datamodule.DataLoader(ds, batch_size=6, rank=2, world_size=2)
+    with pytest.raises(ValueError, match="split over 4 ranks"):
+        datamodule.DataLoader(ds, batch_size=6, rank=0, world_size=4)
 
 
 def test_datamodule_matches_jax_datamodule():

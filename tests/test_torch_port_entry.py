@@ -222,7 +222,6 @@ def test_build_resumed_run_takes_the_unbroken_runs_steps(tmp_path):
 @pytest.mark.parametrize("override,key", [
     ("trainer.platform=tpu", "trainer.platform"),
     ("trainer=tpu", "trainer.scan_steps"),  # trainer.platform=cpu overrides its platform
-    ("trainer=ddp_sim", "trainer.sim_devices"),
     ("trainer.scan_steps=8", "trainer.scan_steps"),
 ])
 def test_refused_keys_raise(tmp_path, override, key):

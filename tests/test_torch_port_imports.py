@@ -69,7 +69,10 @@ def test_import_pulls_in_no_jax():
         "spatial_clip_tpu_torch.cli.test_datamodule, spatial_clip_tpu_torch.utils.file_sync, "
         "spatial_clip_tpu_torch.data.resampling, "
         "spatial_clip_tpu_torch.data.datasets.csv_backend, "
-        "spatial_clip_tpu_torch.data.datasets.imagefolder\n"
+        "spatial_clip_tpu_torch.data.datasets.imagefolder, "
+        "spatial_clip_tpu_torch.data.datasets.iterable_shards, "
+        "spatial_clip_tpu_torch.parallel.mesh, spatial_clip_tpu_torch.parallel.collectives, "
+        "spatial_clip_tpu_torch.parallel.launch, spatial_clip_tpu_torch.losses.ring\n"
         "print(sorted({m.split('.')[0] for m in set(sys.modules) - before}))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=PACKAGE.parent, timeout=120, check=True).stdout
