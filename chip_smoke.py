@@ -223,11 +223,19 @@ the exit code is not 0. No JAX is imported.
 33. long-kernels  the key-tiled attention kernels (csrc/attention_long.cu:
            forward with and without lse, dQ, dK/dV, db) against their plain
            versions at L 257, 401, 577, 1025 and the first length past each
-           resident limit, hd 32 / 64 / 128, bf16 and f32, causal and not, in
-           the three backward options, at phases 3 and 6's tolerances, dqkv
-           and db the same bits on a rerun; ptxas's registers and spills; each
-           kernel timed at ViT-L-14-336's image tower (batch 32, 16 heads of
-           64, L 577) beside its plain version, its bound and SDPA
+           resident limit (bf16 also at the 128-row tiles' edges 639-1025),
+           hd 32 / 64 / 128, bf16 and f32, no mask, causal, an additive
+           finfo.min mask over the first 130 keys of every row ('prefix'),
+           and that with one row masked in full ('row'), in the three
+           backward options, at phases 3 and 6's tolerances (under 'row' the
+           recompute options held to finite values: a known fault), dqkv
+           and db the same bits on a rerun; ptxas's registers and spills, failing on a
+           spill or a serialized wgmma in the bf16 kernels; each kernel timed
+           at ViT-L-14-336's image tower (batch 32, 16 heads of 64, L 577)
+           beside its plain version, its bound and SDPA (efficient-attention
+           and flash backends, bench_gemm.sdpa_device_ms), the dQ kernel's
+           stats rows bit for bit pack_stats of their lse and r; the f32
+           kernels' times beside SDPA in f32
 34. vitl-serve  ViT-L-14 (bf16, batch 64) through the server: 64 texts and 64
            raw tiles, exactly 36 resident forwards, every embedding vs f32 on
            the CPU by cosine, encode times
@@ -1149,8 +1157,13 @@ def main() -> int:
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
             "at": f"qkv ({Bt}, {Lt}, {3 * Ht * hdt}) bf16, no mask (ViT-L-14-336's image tower, "
-                  f"batch {Bt}); launches: phase 36's {VITL_STEPS} steps",
+                  f"batch {Bt}); launches: phase 36's {VITL_STEPS} steps"
+                  + ("; db from the dQ and dK/dV kernels' partial rows; library: "
+                     "torch.sum of the partial rows" if part == "db" else ""),
+            **({"library_flash_ms": row["library_flash_ms"],
+                "f32": long_rows["f32"]} if part == "fwd" else {}),
             **({"bwd_ms": row["bwd_ms"], "bwd_library_ms": row["bwd_library_ms"],
+                "bwd_library_flash_ms": row["bwd_library_flash_ms"],
                 "bwd_bound_ms": row["bwd_bound_ms"]} if part == "dq" else {}),
         })
     phase_launches = {  # phases 39-43: the CLI and option paths
@@ -3697,8 +3710,11 @@ def gene_study_phase() -> dict:
 
 
 # phase 33: the key-tiled kernels' lengths (with the first past each resident
-# limit) and the shape they are timed at, ViT-L-14-336's image tower
+# limit), the bf16 kernels' 128-row tile edges from 529 to 1025, and the
+# shape they are timed at, ViT-L-14-336's image tower
 LONG_LENGTHS = (257, 401, 577, 1025)
+LONG_TILE_EDGES = tuple(L for k in range(5, 9) for L in (128 * k - 1, 128 * k, 128 * k + 1))
+LONG_MASKS = ("none", "causal", "prefix", "row")
 LONG_TIMED = (32, 577, 16, 64)  # batch, L, heads, head dim
 VITL_BATCH, VITL336_BATCH = 64, 32  # phases 35-36: timed steps
 VITL_CHECK, VITL336_CHECK = 4, 2  # phases 35-36: card vs CPU
@@ -3707,9 +3723,12 @@ VITL_STEPS = WARMUP_STEPS + TIMED_STEPS
 
 def long_bound(qkv, heads: int, kind: str):
     """Bound of a key-tiled backward kernel at qkv's shape: 'dq' reads q, k,
-    v, do and lse and writes dq and r, three L x L x hd products (s, dp, dq);
+    v, do and lse and writes dq and r (bf16: the stats rows, lse and r),
+    three L x L x hd products (s, dp, dq);
     'dkdv' reads q, k, v, do, lse and r and writes dk and dv, four (s, dp,
-    dv, dk); 'db' reads dqkv and writes db."""
+    dv, dk); 'db' reads dqkv and writes db (f32: the two-pass sum); 'db_parts'
+    reads the bf16 kernels' partial rows (one per batch and 128 rows) and
+    writes db."""
     import torch
 
     B, L, three_d = qkv.shape
@@ -3718,10 +3737,35 @@ def long_bound(qkv, heads: int, kind: str):
     stat = 4 * heads * B * L
     peak = BF16_FLOPS if qkv.dtype == torch.bfloat16 else F32_FLOPS
     if kind == "dq":
-        return bound(B * L * (three_d + D + D) * item + 2 * stat, 3 * dots, peak)
+        stats = (3 if qkv.dtype == torch.bfloat16 else 2) * stat
+        return bound(B * L * (three_d + D + D) * item + stats, 3 * dots, peak)
     if kind == "dkdv":
         return bound(B * L * (three_d + D + 2 * D) * item + 2 * stat, 4 * dots, peak)
+    if kind == "db_parts":
+        parts = B * -(-L // 128)
+        return bound(4 * parts * three_d + 4 * three_d, parts * three_d, F32_FLOPS)
     return bound(B * L * three_d * item + 4 * three_d, B * L * three_d, F32_FLOPS)
+
+
+def long_mask(kind: str, L: int, device="cuda"):
+    """Phase 33's masks: None, the causal mask, ('prefix') an additive mask
+    of finfo(f32).min over the first 130 keys of every row, L - 1 if fewer
+    (past the first 128-key tile, as left padding masks), or ('row') that
+    and all of row 1 (a row masked in full): scores near finfo.min, whose
+    exp must be taken as a difference."""
+    import torch
+
+    from spatial_clip_tpu_torch.models.transformer import causal_mask
+
+    if kind == "none":
+        return None
+    if kind == "causal":
+        return causal_mask(L, device=device)
+    mask = torch.zeros((L, L), device=device)
+    mask[:, :min(130, L - 1)] = torch.finfo(torch.float32).min  # a row keeps its last key
+    if kind == "row":
+        mask[1] = torch.finfo(torch.float32).min
+    return mask
 
 
 def long_kernel_phase() -> dict:
@@ -3729,25 +3773,39 @@ def long_kernel_phase() -> dict:
     versions on the card: the forward with and without lse, the backward
     from the saved lse with db and the two recompute options, at L 257, 401,
     577, 1025 and the first length past each resident limit (forward and
-    backward), hd 32 / 64 / 128, bf16 and f32, causal and not (batch 2, 2
+    backward), hd 32 / 64 / 128, bf16 and f32, under LONG_MASKS (batch 2, 2
     heads), at phases 3 and 6's tolerances, dqkv and db the same bits on a
     rerun; ptxas's registers and spills; then each kernel timed at
     ViT-L-14-336's image tower (LONG_TIMED) beside its plain version, its
     bound and SDPA."""
     import torch
 
-    from spatial_clip_tpu_torch.models.transformer import causal_mask
+    from spatial_clip_tpu_torch.bench_gemm import device_ms, sdpa_device_ms
     from spatial_clip_tpu_torch.ops import attention_long as al
     from spatial_clip_tpu_torch.ops import cuda_build
     from spatial_clip_tpu_torch.ops import fused_attention as fa
 
     lib_path = cuda_build.build()
-    ptxas = ptxas_entries(lib_path.with_suffix(".ptxas.txt").read_text())
-    regs = {k: [v for n, v in ptxas.items() if f"{k}_kernel" in n and "attention_long" in n]
-            for k in ("long_fwd", "long_dq", "long_dkdv", "long_db")}
-    print("[long-kernels] ptxas registers / spill B over the instantiations: " + "; ".join(
-        f"{k} {max(r for r, _ in v)}/{max(s for _, s in v)}" for k, v in regs.items() if v),
-        flush=True)
+    report = lib_path.with_suffix(".ptxas.txt").read_text()
+    ptxas = ptxas_entries(report)
+    regs = {k + suffix: [v for n, v in ptxas.items()
+                         if f"{k}_kernel{suffix}" in n and "attention_long" in n]
+            for k, suffix in (("long_fwd", "_tc"), ("long_dq", "_tc"), ("long_dkdv", "_tc"),
+                              ("long_fwd", "_f32"), ("long_dq", "_f32"), ("long_dkdv", "_f32"),
+                              ("long_db", ""))}
+    serialized = sum(1 for line in report.splitlines()
+                     if "wgmma.mma_async instructions are serialized" in line
+                     and "attention_long" in line)
+    tc_spill = max(s_ for k in ("long_fwd_tc", "long_dq_tc", "long_dkdv_tc") for _, s_ in regs[k])
+    print("[long-kernels] ptxas registers / spill B over the hd 32 / 64 / 128 instantiations "
+          "(bf16 wgmma kernels: registers a thread at launch, 384 threads, setmaxnreg 24 / 240): "
+          + "; ".join(f"{k} {[r for r, _ in v]}/{max(s_ for _, s_ in v)}"
+                      for k, v in regs.items() if v)
+          + f"; wgmma serialized in {serialized}", flush=True)
+    # the bf16 kernels' products stay asynchronous and spill nothing
+    if serialized or tc_spill:
+        raise AssertionError(f"[long-kernels] the wgmma kernels: {serialized} serialized, "
+                             f"{tc_spill} B spilled")
     gen = torch.Generator(device="cuda").manual_seed(33)
     B, H = 2, 2
     worst = {"fwd": 0.0, "dq": 0.0, "db": 0.0}
@@ -3756,13 +3814,14 @@ def long_kernel_phase() -> dict:
         name = str(dtype).split(".")[-1]
         for hd in (32, 64, 128):
             lengths = sorted({*LONG_LENGTHS, fa.fwd_max_seq(hd, dtype) + 1,
-                              fa.bwd_max_seq(hd, dtype) + 1})
-            group = {"fwd": 0.0, "bwd": 0.0, "db": 0.0}
+                              fa.bwd_max_seq(hd, dtype) + 1,
+                              *(LONG_TILE_EDGES if dtype == torch.bfloat16 else ())})
+            group = {"fwd": 0.0, "bwd": 0.0, "db": 0.0, "row_fault": 0.0}
             for L in lengths:
-                for causal in (False, True):
+                for kind in LONG_MASKS:
                     qkv = torch.randn((B, L, 3 * H * hd), generator=gen, device="cuda").to(dtype)
                     g = torch.randn((B, L, H * hd), generator=gen, device="cuda").to(dtype)
-                    mask = causal_mask(L, device="cuda") if causal else None
+                    mask = long_mask(kind, L)
                     out = al.fused_attention_long(qkv, mask, H)
                     out_lse, lse = al.fused_attention_long_lse(qkv, mask, H)
                     got = {"lse": al.fused_attention_long_bwd(qkv, mask, lse, g, H),
@@ -3788,33 +3847,44 @@ def long_kernel_phase() -> dict:
                         want_dqkv, want_db = want[key]
                         d_err = (dqkv.float() - want_dqkv.float()).abs().max().item()
                         d_tol = bwd_tol(dtype, want_dqkv.float())
+                        # a row masked in full: the recompute options take p
+                        # = exp(s - lse) = 1 where the plain version's softmax
+                        # is 1 / L (lse = m + log sum keeps no log sum at
+                        # |m| ~ 3e38; ROADMAP Queue 3's open fault), so they
+                        # are held to finite values and their bits alone
+                        fault = kind == "row" and key != "lse"
+                        if fault:
+                            group["row_fault"] = max(group["row_fault"], d_err)
+                            d_err, d_tol = 0.0, math.inf
                         group["bwd"] = max(group["bwd"], d_err)
                         if not (d_err <= d_tol and torch.isfinite(dqkv.float()).all().item()):
                             bad.append(f"{key} dqkv err {d_err} (tol {d_tol})")
                         if db is not None:
-                            db_err = (db - want_db).abs().max().item()
+                            db_err = 0.0 if fault else (db - want_db).abs().max().item()
                             db_tol = train_tol(dtype, want_db) + 1e-4
                             group["db"] = max(group["db"], db_err)
                             same = torch.equal(db, again[key][1]) and torch.equal(
                                 dqkv, again[key][0])
-                            if not (db_err <= db_tol and same):
+                            if not (db_err <= db_tol and same and torch.isfinite(db).all().item()):
                                 bad.append(f"{key} db err {db_err} (tol {db_tol}), dqkv and db "
                                            f"the same bits on a rerun {same}")
                     if bad:
-                        raise AssertionError(f"[long-kernels] {name} hd {hd} L {L} causal "
-                                             f"{causal}: " + "; ".join(bad))
+                        raise AssertionError(f"[long-kernels] {name} hd {hd} L {L} mask "
+                                             f"{kind}: " + "; ".join(bad))
                     group["fwd"] = max(group["fwd"], err)
                     n_cases += 1
             worst = {"fwd": max(worst["fwd"], group["fwd"]), "dq": max(worst["dq"], group["bwd"]),
                      "db": max(worst["db"], group["db"])}
             dq_tol = ("one bf16 ulp at max|ref|" if dtype == torch.bfloat16
                       else "2e-5 x max(1, |ref|)")
-            print(f"[long-kernels] {name} hd {hd}, batch {B}, {H} heads, L {lengths}, causal "
-                  f"and not: forward max abs err {group['fwd']:.3g} (tol {KERNEL_TOL[name]:g}), "
-                  f"lse within 1e-5 x max(1, |lse|), the same context with and without lse; "
-                  f"backward (saved lse with db, recompute, recompute with db) dqkv max abs err "
-                  f"{group['bwd']:.3g} within {dq_tol}, db {group['db']:.3g}; dqkv and db the "
-                  f"same bits on a rerun", flush=True)
+            print(f"[long-kernels] {name} hd {hd}, batch {B}, {H} heads, L {lengths}, masks "
+                  f"{', '.join(LONG_MASKS)}: forward max abs err {group['fwd']:.3g} (tol "
+                  f"{KERNEL_TOL[name]:g}), lse within 1e-5 x max(1, |lse|), the same context "
+                  f"with and without lse; backward (saved lse with db, recompute, recompute with "
+                  f"db) dqkv max abs err {group['bwd']:.3g} within {dq_tol}, db "
+                  f"{group['db']:.3g}; dqkv and db the same bits on a rerun; under 'row' the "
+                  f"recompute options finite, {group['row_fault']:.3g} from the plain softmax "
+                  f"(the open fault of a row masked in full)", flush=True)
 
     # times at ViT-L-14-336's image tower, bf16, no mask
     Bt, L, Ht, hd = LONG_TIMED
@@ -3822,57 +3892,86 @@ def long_kernel_phase() -> dict:
     g = torch.randn((Bt, L, Ht * hd), generator=gen, device="cuda").bfloat16()
     out, lse = al.fused_attention_long_lse(qkv, None, Ht)
     dqkv, db = al.fused_attention_long_bwd(qkv, None, lse, g, Ht)
-    r = al.long_bwd_dq(qkv, None, lse, g, Ht, torch.empty_like(qkv))
+    dbuf = torch.empty_like(qkv)
+    part = torch.empty((al.db_parts(Bt, L), 3 * Ht * hd), device="cuda")
+    stats = al.long_bwd_dq(qkv, None, lse, g, Ht, dbuf, part)
+    al.long_bwd_dkdv(qkv, None, stats, g, Ht, dbuf, part)
     want_out, want_lse = fa.reference_attention_lse(qkv, None, Ht)
     want_dqkv, want_db = fa.reference_attention_bwd(qkv, None, lse, g, Ht)
     torch.cuda.synchronize()
+    lse_k, r_k = stats.unpacked()
     errs = {"fwd": (out.float() - want_out.float()).abs().max().item(),
             "dqkv": (dqkv.float() - want_dqkv.float()).abs().max().item(),
-            "r": (r - al.reference_long_r(qkv, None, lse, g, Ht)).abs().max().item(),
+            "r": (r_k - al.reference_long_r(qkv, None, lse, g, Ht)).abs().max().item(),
             "db": (db - want_db).abs().max().item()}
+    # the rows hold the lse as given, r, and zeros past L
+    stats_same = torch.equal(lse_k, lse) and torch.equal(stats.rows, al.pack_stats(lse_k, r_k))
     if not (errs["fwd"] <= KERNEL_TOL["bfloat16"]
             and errs["dqkv"] <= bwd_tol(torch.bfloat16, want_dqkv.float())
-            and errs["db"] <= train_tol(torch.bfloat16, want_db) + 1e-4):
-        raise AssertionError(f"[long-kernels] timed shape {tuple(qkv.shape)}: errors {errs}")
-    dbuf = torch.empty_like(qkv)
+            and errs["db"] <= train_tol(torch.bfloat16, want_db) + 1e-4 and stats_same):
+        raise AssertionError(f"[long-kernels] timed shape {tuple(qkv.shape)}: errors {errs}, the "
+                             f"dQ kernel's stats rows pack_stats(lse, r) {stats_same}")
     D = Ht * hd
 
     def plain_dq():
         d = fa.reference_attention_bwd(qkv, None, lse, g, Ht)[0]
         return d[..., :D], al.reference_long_r(qkv, None, lse, g, Ht)
 
-    library = sdpa_ms(qkv, None, Ht)
+    # SDPA on the card's clock: the forward with lse, the backward on a retained graph
+    library, flash = ({"fwd_lse": sdpa_device_ms(qkv, Ht, b, False),
+                       "bwd": sdpa_device_ms(qkv, Ht, b, True)} for b in ("efficient", "flash"))
     rows = {
         "fwd": dict(ms=median_ms(lambda: al.fused_attention_long_lse(qkv, None, Ht)),
                     plain_ms=median_ms(lambda: fa.reference_attention_lse(qkv, None, Ht), 3, 3),
-                    library_ms=library["fwd_lse"], err=errs["fwd"]),
-        "dq": dict(ms=median_ms(lambda: al.long_bwd_dq(qkv, None, lse, g, Ht, dbuf)),
+                    library_ms=library["fwd_lse"], library_flash_ms=flash["fwd_lse"],
+                    err=errs["fwd"]),
+        "dq": dict(ms=median_ms(lambda: al.long_bwd_dq(qkv, None, lse, g, Ht, dbuf, part)),
                    plain_ms=median_ms(plain_dq, 3, 3), library_ms=None, err=errs["dqkv"]),
-        "dkdv": dict(ms=median_ms(lambda: al.long_bwd_dkdv(qkv, None, lse, r, g, Ht, dbuf)),
+        "dkdv": dict(ms=median_ms(lambda: al.long_bwd_dkdv(qkv, None, stats, g, Ht, dbuf, part)),
                      plain_ms=median_ms(lambda: fa.reference_attention_bwd(qkv, None, lse, g,
                                                                            Ht)[0][..., D:], 3, 3),
                      library_ms=None, err=errs["dqkv"]),
-        "db": dict(ms=median_ms(lambda: al.long_db(dqkv)),
-                   plain_ms=median_ms(lambda: dqkv.float().sum(dim=(0, 1))),
-                   library_ms=median_ms(lambda: torch.sum(dqkv, dim=(0, 1), dtype=torch.float32)),
-                   err=errs["db"]),
+        # db's reduce is shorter than its wrapper's host enqueue: the card's clock
+        "db": dict(ms=device_ms(lambda: al.long_db(dbuf, part)),
+                   plain_ms=device_ms(lambda: part.sum(dim=0)),
+                   library_ms=device_ms(lambda: torch.sum(part, dim=0)), err=errs["db"]),
     }
     rows["fwd"]["bound_ms"], rows["fwd"]["bound_by"] = attention_bound(qkv, Ht, "fwd_lse")
-    for k in ("dq", "dkdv", "db"):
+    for k in ("dq", "dkdv"):
         rows[k]["bound_ms"], rows[k]["bound_by"] = long_bound(qkv, Ht, k)
+    rows["db"]["bound_ms"], rows["db"]["bound_by"] = long_bound(qkv, Ht, "db_parts")
     bwd_ms = median_ms(lambda: al.fused_attention_long_bwd(qkv, None, lse, g, Ht))
     bwd_bound = attention_bound(qkv, Ht, "bwd")[0]
-    rows["dq"].update(bwd_ms=bwd_ms, bwd_library_ms=library["bwd"], bwd_bound_ms=bwd_bound)
+    rows["dq"].update(bwd_ms=bwd_ms, bwd_library_ms=library["bwd"],
+                      bwd_library_flash_ms=flash["bwd"], bwd_bound_ms=bwd_bound)
     print(f"[long-kernels] timed at qkv {tuple(qkv.shape)} bf16, no mask (ViT-L-14-336's image "
           f"tower, batch {Bt}): " + "; ".join(
               f"{k} {v['ms']:.4f} ms vs plain {v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} "
-              f"ms ({v['bound_by']}), library "
+              f"ms ({v['bound_by']}, share {v['bound_ms'] / v['ms']:.3f}), library "
               f"{'none' if v['library_ms'] is None else format(v['library_ms'], '.4f') + ' ms'}"
               for k, v in rows.items())
-          + f"; the whole backward (dQ, dK/dV, db) {bwd_ms:.4f} ms vs SDPA's backward "
-          f"{library['bwd']:.4f} ms (retained graph), bound {bwd_bound:.4f} ms; errors {errs}; "
-          f"{n_cases} cases checked", flush=True)
+          + f"; SDPA's flash forward with lse {flash['fwd_lse']:.4f} ms; the whole backward "
+          f"(dQ, dK/dV, db) {bwd_ms:.4f} ms vs SDPA's backward {library['bwd']:.4f} ms "
+          f"(efficient-attention, retained graph), {flash['bwd']:.4f} ms (flash), bound "
+          f"{bwd_bound:.4f} ms; errors {errs}; the dQ kernel's stats rows hold the lse bit for "
+          f"bit and are pack_stats of their lse and r; {n_cases} cases checked", flush=True)
+    # the f32 kernels (on the CUDA cores) at the same shape, beside SDPA in f32
+    q32, g32 = qkv.float(), g.float()
+    out32, lse32 = al.fused_attention_long_lse(q32, None, Ht)
+    f32 = {"fwd_ms": median_ms(lambda: al.fused_attention_long_lse(q32, None, Ht), 3, 5),
+           "bwd_ms": median_ms(lambda: al.fused_attention_long_bwd(q32, None, lse32, g32, Ht), 3,
+                               5),
+           "fwd_bound_ms": attention_bound(q32, Ht, "fwd_lse")[0],
+           "bwd_bound_ms": attention_bound(q32, Ht, "bwd")[0]}
+    f32.update(library_fwd_ms=sdpa_device_ms(q32, Ht, "efficient", False),
+               library_bwd_ms=sdpa_device_ms(q32, Ht, "efficient", True))
+    print(f"[long-kernels] f32 at qkv {tuple(q32.shape)}, no mask: forward with lse "
+          f"{f32['fwd_ms']:.4f} ms (bound {f32['fwd_bound_ms']:.4f} ms at the CUDA cores' f32 "
+          f"peak), whole backward {f32['bwd_ms']:.4f} ms (bound {f32['bwd_bound_ms']:.4f} ms); "
+          f"SDPA f32 (efficient-attention) forward with lse {f32['library_fwd_ms']:.4f} ms, "
+          f"backward {f32['library_bwd_ms']:.4f} ms", flush=True)
     rows["worst"] = worst
+    rows["f32"] = f32
     return rows
 
 

@@ -2,7 +2,8 @@
 parent's sources, on one CUDA GPU.
 
     python -m spatial_clip_tpu_torch.bench_gemm [--variants package,cluster1,...]
-        [--kernels mlp,ln_dense,ln_dense_dx,ln_fwd,attn_dx,ce_dq,ce_dk,ln_bwd,block]
+        [--kernels mlp,ln_dense,ln_dense_dx,ln_fwd,attn_dx,ce_dq,ce_dk,ln_bwd,block,
+                   long_fwd,long_bwd]
         [--parent DIR]
 
 The kernels: the fused MLP forward (``mlp``, ``csrc/fused_mlp.cu``), the
@@ -12,8 +13,13 @@ LayerNorm forward and backward (``ln_fwd``, ``ln_bwd``, ``csrc/fused_ln.cu``),
 the attention backward that forms dx = dqkv W in the launch (``attn_dx``,
 ``csrc/attention_dx.cu``, its product on wgmma) and the fused spatial
 cross-entropy's dq and dK (``ce_dq``, ``ce_dk``, ``csrc/fused_spatial_ce.cu``,
-f32 on the CUDA cores) and the block-fused attention half (``block``,
-``csrc/fused_block.cu``, wgmma products and the tensor-core attention body).
+f32 on the CUDA cores), the block-fused attention half (``block``,
+``csrc/fused_block.cu``, wgmma products and the tensor-core attention body)
+and the key-tiled attention past the resident lengths, the forward with lse
+and the whole backward (``long_fwd``, ``long_bwd``, ``csrc/attention_long.cu``,
+bf16 on wgmma fed by TMA; no design knobs, timed beside ``--parent``'s
+kernels and SDPA's efficient-attention and flash backends at ViT-L-14-336's
+image tower).
 Their design constants are ``#ifndef`` macros in the sources (``KNOBS``:
 each knob's macro per kernel) that nvcc ``-D`` sets: the cluster size (CTAs
 that share each weight tile through a TMA multicast), the most 128-column
@@ -89,19 +95,28 @@ from spatial_clip_tpu_torch.ops import fused_mlp as fm
 SOURCES = {"mlp": "fused_mlp.cu", "ln_dense": "fused_ln_dense.cu",
            "ln_dense_dx": "fused_ln_dense.cu", "ln_fwd": "fused_ln.cu",
            "attn_dx": "attention_dx.cu", "ce_dq": "fused_spatial_ce.cu",
-           "ce_dk": "fused_spatial_ce.cu", "ln_bwd": "fused_ln.cu", "block": "fused_block.cu"}
+           "ce_dk": "fused_spatial_ce.cu", "ln_bwd": "fused_ln.cu", "block": "fused_block.cu",
+           "long_fwd": "attention_long.cu", "long_bwd": "attention_long.cu"}
 FUNCTIONS = {"mlp": ("sc_mlp_fwd",), "ln_dense": ("sc_ln_dense_fwd",),
              "ln_dense_dx": ("sc_ln_dense_bwd_dx",), "ln_fwd": ("sc_layer_norm_fwd",),
              "attn_dx": ("sc_attention_bwd_dx",),
              "ce_dq": ("sc_spatial_ce_dq", "sc_spatial_ce_scratch"),
              "ce_dk": ("sc_spatial_ce_dk", "sc_spatial_ce_scratch"),
              "ln_bwd": ("sc_layer_norm_bwd", "sc_layer_norm_bwd_blocks"),
-             "block": ("sc_block_attn_fwd",)}
+             "block": ("sc_block_attn_fwd",), "long_fwd": ("sc_attention_long_fwd",),
+             "long_bwd": ("sc_attention_long_bwd_dq", "sc_attention_long_bwd_dkdv",
+                          "sc_attention_long_db")}
 # the parent's entries whose C signature this tree changed
 PARENT_ARGTYPES = {
     "sc_layer_norm_bwd_blocks": [ctypes.c_int],  # rows
     "sc_block_attn_fwd": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5  # .., out, B, L, D, heads, dtype
     + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p],  # eps, scale, stream
+    # qkv, mask, lse, dout, dqkv, r; B, L, H, hd, dtype; scale, stream (no partials, no stats)
+    "sc_attention_long_bwd_dq": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+    + [ctypes.c_float, ctypes.c_void_p],
+    # qkv, mask, lse, r, dout, dqkv; B, L, H, hd, dtype; scale, stream
+    "sc_attention_long_bwd_dkdv": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+    + [ctypes.c_float, ctypes.c_void_p],
 }
 KNOBS = {  # kernel: {knob: its macro in the kernel's source}
     "mlp": {"cluster": "SC_MLP_CLUSTER", "max_nb": "SC_MLP_MAX_NB",
@@ -114,6 +129,8 @@ KNOBS = {  # kernel: {knob: its macro in the kernel's source}
     "ce_dk": {},
     "ln_bwd": {"ln_bwd_blocks": "SC_LN_BWD_BLOCKS", "ln_bwd_depth": "SC_LN_BWD_DEPTH"},
     "block": {"block_cluster": "SC_BLOCK_CLUSTER", "block_stages": "SC_BLOCK_MAX_STAGES"},
+    "long_fwd": {},
+    "long_bwd": {},
 }
 VARIANTS = {  # name: {knob: value}; a knob a kernel lacks leaves it as the package
     "package": {},
@@ -156,6 +173,9 @@ SHAPES = {  # kernel: {name: (R, width, hidden or N)}; ln_fwd: (R, width, 0)
     "block": {"image_256": (256, 50, 768, 12, False), "text_256": (256, 77, 512, 8, True),
               "image_64": (64, 50, 768, 12, False), "text_64": (64, 77, 512, 8, True)},
 }
+# long_fwd / long_bwd: (B, L, heads, hd), ViT-L-14-336's image tower at batch 32
+SHAPES["long_fwd"] = {"vit_l14_336": (32, 577, 16, 64)}
+SHAPES["long_bwd"] = SHAPES["long_fwd"]
 SHAPES["ln_dense_dx"] = SHAPES["ln_dense"]
 SHAPES["ln_bwd"] = SHAPES["ln_fwd"]
 SHAPES["ce_dk"] = SHAPES["ce_dq"]
@@ -713,11 +733,138 @@ def bench_fused_block(libs: dict, gen) -> None:
                           "device": torch.cuda.get_device_name(0)}), flush=True)
 
 
+def sdpa_device_ms(qkv, heads: int, backend: str, backward: bool) -> float:
+    """SDPA (``backend``: 'efficient' or 'flash') on q, k, v cut from qkv,
+    no mask, on the card's clock: the forward with its logsumexp kept
+    (inputs that require grad), or the backward alone on one retained graph
+    (``backward``). A yardstick, used nowhere in the package's path."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    B, L, three_d = qkv.shape
+    q, k, v = (t.contiguous().requires_grad_() for t in
+               qkv.view(B, L, 3, heads, three_d // 3 // heads).permute(2, 0, 3, 1, 4))
+    g = torch.randn_like(q)
+    kind = {"efficient": SDPBackend.EFFICIENT_ATTENTION, "flash": SDPBackend.FLASH_ATTENTION}
+    with sdpa_kernel(kind[backend]):
+        if not backward:
+            return device_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        out = F.scaled_dot_product_attention(q, k, v)
+        return device_ms(lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True))
+
+
+def bf16_ulp(ref) -> float:
+    """One bf16 ulp at max|ref|: the tolerance of a bf16 output whose f32
+    sums run in another order than the plain version's."""
+    return 2.0 ** (math.floor(math.log2(ref.float().abs().max().item())) - 7)
+
+
+def bench_long_fwd(libs: dict, gen) -> None:
+    for shape, (B, L, H, hd) in SHAPES["long_fwd"].items():
+        qkv = torch.randn((B, L, 3 * H * hd), generator=gen, device="cuda").bfloat16()
+        out = qkv.new_empty((B, L, H * hd))
+        lse = torch.empty((H, B, L), device="cuda")
+
+        def launch(lib):
+            err = lib.sc_attention_long_fwd(qkv.data_ptr(), None, out.data_ptr(), lse.data_ptr(),
+                                            B, L, H, hd, 1, hd ** -0.5,
+                                            torch.cuda.current_stream().cuda_stream)
+            cuda_build.check(cuda_build.library(), err, "bench_gemm launch")
+
+        want_out, want_lse = fa.reference_attention_lse(qkv, None, H)
+        tol = 2e-2  # bf16 context: ~1 output ulp at |o| < 4 (chip_smoke's KERNEL_TOL)
+        report = {}
+        for name, lib in libs.items():
+            launch(lib)
+            torch.cuda.synchronize()
+            err = (out.float() - want_out.float()).abs().max().item()
+            lse_err = (lse - want_lse).abs().max().item()
+            if not (err <= tol and lse_err <= 1e-5 * max(1.0, want_lse.abs().max().item())):
+                raise AssertionError(f"long_fwd {shape}: copy {name} is {err} / lse {lse_err} off")
+            report[name] = device_ms(lambda lib=lib: launch(lib))
+        n_bytes = B * L * 4 * H * hd * 2 + 4 * H * B * L
+        bound = bound_ms(n_bytes, 4 * B * H * L * L * hd)
+        library = {b: sdpa_device_ms(qkv, H, b, False) for b in ("efficient", "flash")}
+        print(json.dumps({"kernel": "attention_long_fwd_lse", "shape": shape, "B": B, "L": L,
+                          "heads": H, "hd": hd, "ms": report,
+                          "plain_ms": device_ms(lambda: fa.reference_attention_lse(qkv, None, H),
+                                                reps=3, inner=3),
+                          "library_ms": library, "bound_ms": bound,
+                          "share": bound / report["package"],
+                          "device": torch.cuda.get_device_name(0)}), flush=True)
+
+
+def bench_long_bwd(libs: dict, gen) -> None:
+    from spatial_clip_tpu_torch.ops import attention_long as al
+
+    for shape, (B, L, H, hd) in SHAPES["long_bwd"].items():
+        qkv = torch.randn((B, L, 3 * H * hd), generator=gen, device="cuda").bfloat16()
+        g = torch.randn((B, L, H * hd), generator=gen, device="cuda").bfloat16()
+        lse = al.fused_attention_long_lse(qkv, None, H)[1]
+        dqkv = torch.empty_like(qkv)
+        r = torch.empty_like(lse)
+        n = 3 * H * hd
+        db = torch.empty((n,), device="cuda")
+        part = torch.empty((al.db_parts(B, L), n), device="cuda")
+        chunks = torch.empty((al.db_chunks(B * L), n), device="cuda")
+        stats = torch.empty((al.stats_rows(B, L, H), 2 * al.BWD_TILE), device="cuda")
+        dims = (B, L, H, hd, 1, hd ** -0.5)
+
+        def launch(name, lib):
+            stream = torch.cuda.current_stream().cuda_stream
+            ptrs = (qkv.data_ptr(), None, lse.data_ptr())
+            if name == "parent":  # dq, dk/dv, then db from dqkv
+                errs = (lib.sc_attention_long_bwd_dq(*ptrs, g.data_ptr(), dqkv.data_ptr(),
+                                                     r.data_ptr(), *dims, stream),
+                        lib.sc_attention_long_bwd_dkdv(*ptrs, r.data_ptr(), g.data_ptr(),
+                                                       dqkv.data_ptr(), *dims, stream),
+                        lib.sc_attention_long_db(dqkv.data_ptr(), chunks.data_ptr(),
+                                                 db.data_ptr(), B * L, n, 1, stream))
+            else:  # dq with its partial rows and stats rows (no r), dk/dv from the stats rows
+                partials = lib.sc_attention_long_db_partials
+                partials.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_void_p]
+                errs = (lib.sc_attention_long_bwd_dq(*ptrs, g.data_ptr(), dqkv.data_ptr(), None,
+                                                     part.data_ptr(), stats.data_ptr(), *dims,
+                                                     stream),
+                        lib.sc_attention_long_bwd_dkdv(qkv.data_ptr(), None, None, None,
+                                                       g.data_ptr(), dqkv.data_ptr(),
+                                                       part.data_ptr(), stats.data_ptr(), *dims,
+                                                       stream),
+                        partials(part.data_ptr(), db.data_ptr(), part.shape[0], n, stream))
+            for err in errs:
+                cuda_build.check(cuda_build.library(), err, "bench_gemm launch")
+
+        want, want_db = fa.reference_attention_bwd(qkv, None, lse, g, H)
+        tol, db_tol = bf16_ulp(want), 2 ** -8 * want_db.abs().max().item() + 1e-4
+        report = {}
+        for name, lib in libs.items():
+            launch(name, lib)
+            torch.cuda.synchronize()
+            err = (dqkv.float() - want.float()).abs().max().item()
+            db_err = (db - want_db).abs().max().item()
+            if not (err <= tol and db_err <= db_tol):
+                raise AssertionError(f"long_bwd {shape}: copy {name}'s dqkv is {err} off (tol "
+                                     f"{tol}), db {db_err} (tol {db_tol})")
+            report[name] = device_ms(lambda name=name, lib=lib: launch(name, lib))
+        three_d = 3 * H * hd
+        n_bytes = B * L * (2 * three_d + H * hd) * 2 + 4 * H * B * L + 4 * three_d
+        bound = bound_ms(n_bytes, 5 * 2 * B * H * L * L * hd)
+        library = {b: sdpa_device_ms(qkv, H, b, True) for b in ("efficient", "flash")}
+        print(json.dumps({"kernel": "attention_long_bwd", "shape": shape, "B": B, "L": L,
+                          "heads": H, "hd": hd, "ms": report,
+                          "plain_ms": device_ms(
+                              lambda: fa.reference_attention_bwd(qkv, None, lse, g, H),
+                              reps=3, inner=3),
+                          "library_ms": library, "bound_ms": bound,
+                          "share": bound / report["package"],
+                          "device": torch.cuda.get_device_name(0)}), flush=True)
+
+
 BENCHES = {"mlp": bench_mlp, "ln_dense": bench_ln_dense, "ln_dense_dx": bench_ln_dense_dx,
            "ln_fwd": bench_ln_fwd, "attn_dx": bench_attn_dx,
            "ce_dq": lambda libs, gen: bench_ce("ce_dq", libs, gen),
            "ce_dk": lambda libs, gen: bench_ce("ce_dk", libs, gen), "ln_bwd": bench_ln_bwd,
-           "block": bench_fused_block}
+           "block": bench_fused_block, "long_fwd": bench_long_fwd, "long_bwd": bench_long_bwd}
 
 
 def main(argv=None):

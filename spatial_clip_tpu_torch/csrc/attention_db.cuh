@@ -21,6 +21,7 @@ db_reduce_kernel(const float* __restrict__ part, float* __restrict__ db, int bat
   const int c = blockIdx.x * kReduceCols + threadIdx.x;
   float acc = 0.f;
   if (c < n) {
+#pragma unroll 4  // loads in flight together; the sum keeps its order
     for (int b = threadIdx.y; b < batch; b += kReduceRows) acc += part[size_t(b) * n + c];
   }
   acc_s[threadIdx.y][threadIdx.x] = acc;

@@ -14,11 +14,14 @@
 //   - wgmma: shared-memory descriptors of a K-major tile and of an MN-major
 //     B (its output columns contiguous) in the 128-byte swizzle that the TMA
 //     writes, m64n64k16 / m64n128k16 / m64n256k16 bf16 -> f32 (B K-major
-//     or, for the wider two, MN-major), and the fence / commit / wait around
-//     them;
+//     or, for the wider two, MN-major), m64n64k16 / m64n128k16 with A from
+//     registers (the
+//     accumulator of an earlier product rounded to bf16, as the attention
+//     kernels of attention_long.cu take P and dS), and the fence / commit /
+//     wait around them;
 //   - the cluster's rank and barrier (whole, or split into its arrive and
-//     wait), vector stores into a peer CTA's shared memory, named barriers,
-//     setmaxnreg.
+//     wait), vector stores into a peer CTA's shared memory, named barriers
+//     (sync, and arrive without waiting), setmaxnreg.
 //
 // Tile layout: a tile is R rows of 64 bf16 (128 bytes), 8-row groups 1024
 // bytes apart, the 16-byte chunk c of row r stored at chunk c ^ (r % 8)
@@ -64,6 +67,13 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t by
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
                "r"(bytes)
                : "memory");
+}
+
+// Arrives on a barrier of this CTA (release: this thread's earlier writes to
+// shared memory are visible to a thread whose mbar_wait sees the phase
+// complete).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
 }
 
 // Arrives on the barrier at bar's offset in the shared memory of the
@@ -372,6 +382,59 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t a, ui
       : "l"(a), "l"(b), "r"(accumulate), "n"(kMnB));
 }
 
+// d (64 x 64 f32, 32 registers a thread) += A (64 x 16, bf16 in registers:
+// a[0] row lane / 4, columns 2 (lane % 4) + (0, 1); a[1] 8 rows on; a[2]
+// 8 columns on; a[3] both, of warp w's rows 16 w ..) B^T, B 64 x 16 in
+// shared memory, MN-major for kMnB 1 (wgmma_desc_mn); d = A B^T where
+// accumulate is 0. d's layout is wgmma_m64n64k16's.
+template <int kMnB>
+__device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(kMnB));
+}
+
+// d (64 x 128 f32, 64 registers a thread) += A (64 x 16, bf16 in registers:
+// a[0] row lane / 4, columns 2 (lane % 4) + (0, 1); a[1] 8 rows on; a[2]
+// 8 columns on; a[3] both, of warp w's rows 16 w ..) B^T, B 128 x 16 in
+// shared memory, MN-major for kMnB 1 (wgmma_desc_mn); d = A B^T where
+// accumulate is 0. d's layout is wgmma_m64n128k16's.
+template <int kMnB>
+__device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64], const uint32_t (&a)[4],
+                                                   uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(kMnB));
+}
+
 // ------------------------------------------------ cluster, barriers, registers
 
 __device__ __forceinline__ uint32_t cluster_rank() {
@@ -400,6 +463,12 @@ __device__ __forceinline__ void cluster_wait() {
 // The first `threads` threads of the CTA (whole warps) on barrier `id` (1..15).
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Arrives on barrier `id` (1..15) for `threads` threads without waiting:
+// with named_sync, one warpgroup hands a turn to another.
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // Moves registers between the warpgroups of a warp-specialized CTA: every

@@ -10,7 +10,13 @@ are constructor arguments (default 0 and 1). ``batch_size`` is the global
 batch, as in JAX's single-process mesh, which shards it over its devices:
 every rank derives the same permutation and the same global batches, and
 rank r takes the rows ``[r b, (r + 1) b)`` of each, b = batch_size /
-world_size, so a data-parallel run sees the one-process run's batches. (The
+world_size, so a data-parallel run sees the one-process run's batches. At
+``num_workers`` 0 it also takes their host random crops: the rank walks
+every row of each global batch in the one-process order and, for the rows
+of other ranks, advances the transform's random state as their crops would
+(the dataset's ``skip_item``, which reads an image's size and not its
+pixels). Workers draw in no fixed order, even in one process; under a group
+their streams differ by rank as well. (The
 JAX package's multi-host loader means another thing: ``batch_size`` rows a
 process, from its strided share ``idx[pi::pc]`` of the permutation.)
 """
@@ -54,7 +60,7 @@ def collate_spatial(items: List[Dict[str, Any]]) -> Dict[str, Any]:
 _WORKER_DATASET = None
 
 
-def _init_worker_dataset(dataset, counter, seed_base):
+def _init_worker_dataset(dataset, counter, seed_base, rank=0):
     # runs once in each pool process; the dataset pickles its index +
     # preprocess/tokenizer state and re-reads shard files lazily per item
     global _WORKER_DATASET
@@ -62,13 +68,15 @@ def _init_worker_dataset(dataset, counter, seed_base):
     # distinct augmentation streams per (worker, epoch): without this every
     # worker forks/spawns with an IDENTICAL copy of the transform RNG, and
     # each epoch's fresh pool replays the same crop/flip sequence (torch
-    # seeds workers base_seed + worker_id for the same reason)
+    # seeds workers base_seed + worker_id for the same reason); the ranks of
+    # a group past the first draw from streams of their own as well
     with counter.get_lock():
         worker_id = counter.value
         counter.value += 1
     pf = getattr(dataset, "preprocess_fn", None)
     if pf is not None and hasattr(pf, "rng"):
-        pf.rng = np.random.default_rng(seed_base + worker_id)
+        seed = seed_base + worker_id
+        pf.rng = np.random.default_rng(seed if rank == 0 else [seed, rank])
 
 
 def _worker_getitem(i: int):
@@ -132,25 +140,59 @@ class DataLoader:
         permutation."""
         self._epoch = epoch
 
-    def _index_batches(self) -> List[np.ndarray]:
+    def _global_batches(self) -> List[np.ndarray]:
         n = len(self.dataset)
         idx = np.arange(n)
         if self.shuffle:
             # every rank derives the SAME permutation and global batches
             rng = np.random.default_rng(self.seed + self._epoch)
             rng.shuffle(idx)
-        batches = [idx[i * self.batch_size : (i + 1) * self.batch_size] for i in range(len(self))]
-        if self.shard_by_process and self.world_size > 1:
-            b = self.batch_size // self.world_size  # this rank's rows of each global batch
-            batches = [g[self.rank * b : (self.rank + 1) * b] for g in batches]
+        return [idx[i * self.batch_size : (i + 1) * self.batch_size] for i in range(len(self))]
+
+    def _sharded(self) -> bool:
+        return self.shard_by_process and self.world_size > 1
+
+    def _own_rows(self) -> slice:
+        """This rank's rows of each global batch."""
+        b = self.batch_size // self.world_size
+        return slice(self.rank * b, (self.rank + 1) * b)
+
+    def _index_batches(self) -> List[np.ndarray]:
+        batches = self._global_batches()
+        if self._sharded():
+            batches = [g[self._own_rows()] for g in batches]
         return batches
 
+    def _rank_items(self, batch: np.ndarray) -> List[Dict[str, Any]]:
+        """This rank's items of a global batch, the host transform's random
+        state advanced over the other ranks' rows in the one-process order
+        (the dataset's ``skip_item``, which every indexed dataset has)."""
+        own = self._own_rows()
+        items = []
+        for pos, i in enumerate(batch):
+            if own.start <= pos < own.stop:
+                items.append(self.dataset[int(i)])
+            else:
+                self.dataset.skip_item(int(i))
+        return items
+
+    def _reseed_threads(self) -> None:
+        """Under a group, the thread workers' shared transform draws from a
+        stream of this rank's (and epoch's): no two ranks share one."""
+        pf = getattr(self.dataset, "preprocess_fn", None)
+        if self._sharded() and pf is not None and hasattr(pf, "rng"):
+            pf.rng = np.random.default_rng([self.seed, self._epoch, self.rank])
+
     def __iter__(self) -> Iterator[Dict[str, Any]]:
-        batches = self._index_batches()
         if self.num_workers <= 0:
-            for b in batches:
+            if self._sharded():
+                for g in self._global_batches():
+                    yield self.collate_fn(self._rank_items(g))
+                return
+            for b in self._index_batches():
                 yield self.collate_fn([self.dataset[int(i)] for i in b])
             return
+        batches = self._index_batches()
 
         if self.worker_type == "process":
             import multiprocessing
@@ -168,10 +210,12 @@ class DataLoader:
                     self.dataset,
                     ctx.Value("i", 0),
                     self.seed + 1009 * (self._epoch + 1),
+                    self.rank if self._sharded() else 0,
                 ),
             )
             getitem = _worker_getitem
         else:
+            self._reseed_threads()
             pool_cm = ThreadPoolExecutor(max_workers=self.num_workers)
             getitem = self.dataset.__getitem__
         with pool_cm as pool:

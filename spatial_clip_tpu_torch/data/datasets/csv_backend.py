@@ -17,6 +17,8 @@ from typing import Callable, Optional, Union
 
 import numpy as np
 
+from spatial_clip_tpu_torch.models.transforms import skip_draws
+
 
 class CsvDataset:
     def __init__(self, input_filename: Union[str, Path], preprocess_fn: Optional[Callable] = None,
@@ -34,12 +36,26 @@ class CsvDataset:
     def __len__(self) -> int:
         return len(self.images)
 
+    def _path(self, idx: int) -> Path:
+        path = Path(self.images[idx])
+        return path if path.is_absolute() else self.root / path
+
+    def skip_item(self, idx: int) -> None:
+        """Advances the host transform's random state as ``self[idx]``
+        would, reading the image's size from its header only (a rank skips
+        the rows of a global batch that other ranks take)."""
+        from PIL import Image
+
+        def size():
+            with Image.open(self._path(idx)) as im:
+                return im.size
+
+        skip_draws(self.preprocess_fn, size)
+
     def __getitem__(self, idx: int) -> dict:
         from PIL import Image
 
-        path = Path(self.images[idx])
-        if not path.is_absolute():
-            path = self.root / path
+        path = self._path(idx)
         img = Image.open(path).convert("RGB")
         image = self.preprocess_fn(img) if self.preprocess_fn else np.asarray(img)
         caption = self.captions[idx]

@@ -14,6 +14,8 @@ from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
 
+from spatial_clip_tpu_torch.models.transforms import skip_draws
+
 _EXTS = {".jpg", ".jpeg", ".png", ".bmp", ".webp"}
 
 
@@ -37,6 +39,18 @@ class ImageFolderDataset:
 
     def __len__(self) -> int:
         return len(self.items)
+
+    def skip_item(self, idx: int) -> None:
+        """Advances the host transform's random state as ``self[idx]``
+        would, reading the image's size from its header only (a rank skips
+        the rows of a global batch that other ranks take)."""
+        from PIL import Image
+
+        def size():
+            with Image.open(self.items[idx][0]) as im:
+                return im.size
+
+        skip_draws(self.preprocess_fn, size)
 
     def __getitem__(self, idx: int) -> Dict:
         from PIL import Image

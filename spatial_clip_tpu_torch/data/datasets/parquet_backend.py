@@ -13,6 +13,8 @@ from typing import Callable, Dict, Optional, Union
 
 import numpy as np
 
+from spatial_clip_tpu_torch.models.transforms import skip_draws
+
 
 class ParquetSpatialDataset:
     def __init__(
@@ -54,6 +56,18 @@ class ParquetSpatialDataset:
 
     def __len__(self) -> int:
         return len(self.tile_ids)
+
+    def skip_item(self, idx: int) -> None:
+        """Advances the host transform's random state as ``self[idx]``
+        would, reading the image's size from its header only (a rank skips
+        the rows of a global batch that other ranks take)."""
+        from PIL import Image
+
+        def size():
+            with Image.open(self.image_paths[idx]) as im:
+                return im.size
+
+        skip_draws(self.preprocess_fn, size)
 
     def __getitem__(self, idx: int) -> Dict:
         from PIL import Image

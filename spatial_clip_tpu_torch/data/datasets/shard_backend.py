@@ -29,6 +29,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
+from spatial_clip_tpu_torch.models.transforms import skip_draws
+
 log = logging.getLogger(__name__)
 
 
@@ -161,6 +163,29 @@ class ShardedSpatialDataset:
     # ------------------------------------------------------------------ items
     def __len__(self) -> int:
         return len(self._entries)
+
+    def skip_item(self, idx: int) -> None:
+        """Advances the host transform's random state as ``self[idx]``
+        would, reading the image's size from the raw tile's npy header or
+        the encoded image's header only (a rank skips the rows of a global
+        batch that other ranks take)."""
+        from PIL import Image
+
+        def size():
+            e = self._entries[idx]
+            if "npy" in e:
+                path, offset, _ = e["npy"]
+                with open(path, "rb") as f:
+                    f.seek(offset)
+                    version = np.lib.format.read_magic(f)
+                    read = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                            else np.lib.format.read_array_header_2_0)
+                    h, w = read(f)[0][:2]
+                return w, h
+            with Image.open(io.BytesIO(self._read_bytes(e["png"]))) as im:
+                return im.size
+
+        skip_draws(self.preprocess_fn, size)
 
     def __getitem__(self, idx: int) -> Dict:
         from PIL import Image

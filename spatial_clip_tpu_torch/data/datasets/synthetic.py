@@ -15,6 +15,8 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from spatial_clip_tpu_torch.models.transforms import skip_draws
+
 _SYNTH_GENES = [f"GENE{i}" for i in range(500)]
 
 
@@ -84,6 +86,12 @@ class SyntheticSpatialDataset:
         img = (img - img.min()) / max(img.max() - img.min(), 1e-6)
         noise = rng.normal(0, 0.05, img.shape)
         return np.clip((img + noise) * 255, 0, 255).astype(np.uint8)
+
+    def skip_item(self, idx: int) -> None:
+        """Advances the host transform's random state as ``self[idx]``
+        would, without rendering the tile (a rank skips the rows of a global
+        batch that other ranks take)."""
+        skip_draws(self.preprocess_fn, lambda: (self.image_size, self.image_size))
 
     def __getitem__(self, idx: int) -> dict:
         rng = np.random.default_rng(self.seed * 100003 + idx)

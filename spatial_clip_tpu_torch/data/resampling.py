@@ -54,3 +54,9 @@ class ResampledDataset:
     def __getitem__(self, idx: int):
         d, i = self._plan[idx]
         return self.datasets[d][i]
+
+    def skip_item(self, idx: int) -> None:
+        """Advances the planned dataset's host transform as ``self[idx]``
+        would (its ``skip_item``)."""
+        d, i = self._plan[idx]
+        self.datasets[d].skip_item(i)

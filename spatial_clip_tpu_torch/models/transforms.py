@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import NamedTuple, Optional, Sequence, Tuple, Union
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -145,9 +145,12 @@ class HostImageTransform:
         self.aug = AugmentationCfg.from_any(aug)
         self.rng = np.random.default_rng(seed)
 
-    def _random_resized_crop(self, img, interp):
-        th, tw = self.cfg.size_tuple
-        w, h = img.size
+    def crop_box(self, size: Tuple[int, int]) -> Optional[Tuple[int, int, int, int]]:
+        """The random resized crop's box (left, top, right, bottom) in an
+        image of ``size`` (width, height), drawn from ``rng`` as torchvision
+        draws it, or None after ten misses (a center crop follows). The
+        draws depend on the size alone."""
+        w, h = size
         area = w * h
         lo, hi = self.aug.scale
         rlo, rhi = self.aug.ratio
@@ -159,7 +162,22 @@ class HostImageTransform:
             if 0 < cw <= w and 0 < ch <= h:
                 left = int(self.rng.integers(0, w - cw + 1))
                 top = int(self.rng.integers(0, h - ch + 1))
-                return img.resize((tw, th), interp, box=(left, top, left + cw, top + ch))
+                return left, top, left + cw, top + ch
+        return None
+
+    def skip(self, size: Tuple[int, int]) -> None:
+        """Advances ``rng`` as a call on an image of ``size`` (width,
+        height) would, without the image: train mode draws one crop box,
+        val mode nothing. A rank of a process group skips so the rows of a
+        global batch that other ranks take."""
+        if self.is_train:
+            self.crop_box(size)
+
+    def _random_resized_crop(self, img, interp):
+        th, tw = self.cfg.size_tuple
+        box = self.crop_box(img.size)
+        if box is not None:
+            return img.resize((tw, th), interp, box=box)
         img = _resize_shortest(img, (th, tw), interp)
         return _center_crop(img, (th, tw))
 
@@ -270,3 +288,12 @@ def augment_normalize_batch(images_u8: torch.Tensor, draws: AugmentDraws,
     scale = c * inv_std
     shift = (mean_px * (b - c) - mean_arr) * inv_std
     return torch.addcmul(shift, x, scale).to(dtype)
+
+
+def skip_draws(preprocess_fn, size: Callable[[], Tuple[int, int]]) -> None:
+    """Advances a host transform's random state as its call on one image
+    would (``HostImageTransform.skip``), reading the image's (width, height)
+    from ``size()`` only when the transform draws: what a dataset's
+    ``skip_item`` does for the rows of a global batch that other ranks take."""
+    if getattr(preprocess_fn, "is_train", False) and hasattr(preprocess_fn, "skip"):
+        preprocess_fn.skip(size())

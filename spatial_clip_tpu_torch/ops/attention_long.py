@@ -1,9 +1,11 @@
 """Attention past the resident kernels' lengths, forward and backward.
 
-The kernels of ``csrc/attention_long.cu`` keep a tile of 64 of a block's own
-rows and stream the other side's rows through shared memory in tiles of 64,
-so they take any length. ``ops.fused_attention``'s wrappers route here on a
-CUDA tensor whose length the resident bodies do not take
+The kernels of ``csrc/attention_long.cu`` keep a tile of a block's own rows
+and stream the other side's rows through shared memory, so they take any
+length: bf16 on wgmma fed by TMA (128 own rows a block, streamed tiles of
+128 keys in the forward and dQ below hd 128, 64 rows otherwise), f32 on the CUDA cores
+(64 and 64). ``ops.fused_attention``'s wrappers route here on a CUDA tensor
+whose length the resident bodies do not take
 (``fused_attention.fwd_max_seq`` / ``bwd_max_seq``); the counterparts of
 ``spatial_clip_tpu/ops/fused_attention.py``'s kernels at those lengths:
 
@@ -11,9 +13,10 @@ CUDA tensor whose length the resident bodies do not take
   inference forward and the forward with the logsumexp (``_fwd_kernel``,
   ``_fwd_kernel_lse``), one kernel (``sc_attention_long_fwd``);
 - :func:`fused_attention_long_bwd`: the backward from the saved lse, with db
-  (``_bwd_kernel3_db_lse``): :func:`long_bwd_dq` (dq and each row's r),
-  :func:`long_bwd_dkdv` (dk and dv), :func:`long_db` (db, a fixed-order
-  column sum of the finished dqkv);
+  (``_bwd_kernel3_db_lse``): :func:`long_bwd_dq` (dq and each row's r, a
+  :class:`RowStats`), :func:`long_bwd_dkdv` (dk and dv), :func:`long_db` (db: in bf16 the
+  fixed-order sum of the partial rows the two kernels write, one a block, in
+  f32 a fixed-order column sum of the finished dqkv);
 - :func:`fused_attention_long_bwd_recompute`: the recompute options
   (``_bwd_kernel``, ``_bwd_kernel3``, ``_bwd_kernel3_db``): the forward with
   lse for the statistics, then the same kernels.
@@ -25,7 +28,7 @@ length; on a CUDA tensor it launches its kernel or raises.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -43,43 +46,140 @@ from spatial_clip_tpu_torch.ops.fused_attention import (
 )
 
 # the launch geometry of csrc/attention_long.cu (sc_attention_long_plan)
-BLOCK = 64  # rows a block owns, and rows of every streamed tile
-TC_THREADS = 128  # bf16: 4 warps, a warp per 16 of the block's rows
+ROWS = 128  # bf16: own rows of a block, two consumer warpgroups of 64
+TC_THREADS = 384  # bf16: producer warpgroup 0, consumer warpgroups 1 and 2
+FWD_KEYS = 128  # bf16: keys of a forward stage
+BWD_TILE = 64  # bf16: rows of a dK/dV stage (query rows) and of a stats row
+MAX_STAGES = 4  # bf16: most stages of a ring
+BLOCK = 64  # f32: own rows of a block, and rows of every streamed tile
 SIMT_THREADS = 256  # f32: 16 x 16 threads, each 4 x 4 of a 64 x 64 score tile
-DB_ROWS = 256  # rows of dqkv one db partial sums
+DB_ROWS = 256  # rows of dqkv one long_db_kernel partial sums (f32)
 KINDS = ("fwd", "dq", "dkdv")  # sc_attention_long_smem_bytes's kind 0 / 1 / 2
+MAX_SMEM = 232448  # 227 KB, the most a block may use on sm_90
 
 
-def tiles(seq: int) -> int:
-    return -(-seq // BLOCK)
+def dq_keys(head_dim: int) -> int:
+    """Keys of a bf16 dQ stage: 128 below hd 128, 64 at hd 128."""
+    return BWD_TILE if head_dim == 128 else 2 * BWD_TILE
 
 
-def blocks(batch: int, seq: int, heads: int) -> int:
-    """Blocks of each kernel's grid: one per (batch, head, 64 rows)."""
-    return batch * heads * tiles(seq)
+def rows(dtype: torch.dtype) -> int:
+    """Own rows of a block of each kernel."""
+    return ROWS if dtype == torch.bfloat16 else BLOCK
+
+
+def tiles(seq: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    return -(-seq // rows(dtype))
+
+
+def blocks(batch: int, seq: int, heads: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Blocks of each kernel's grid: one per (batch, head, own rows)."""
+    return batch * heads * tiles(seq, dtype)
 
 
 def threads(dtype: torch.dtype) -> int:
     return TC_THREADS if dtype == torch.bfloat16 else SIMT_THREADS
 
 
+def tc_layout(kind: str, head_dim: int) -> dict:
+    """A bf16 kernel's shared memory (``make_layout`` in the source): two
+    buffers of an item's own 128-row tiles (forward q; dQ q and do; dK/dV k
+    and v; ``own`` is one buffer), each
+    streamed tile (128 keys in the forward and, below hd 128, in dQ; else 64
+    rows), a
+    stage (two tiles, and in dK/dV 1024 bytes of lse and r), the db staging
+    (8 warps' f32 column sums of dq, or of dk and dv), as many stages as fit
+    up to MAX_STAGES, the mbarriers (two for each own buffer, three a
+    stage); ``total`` is the launch's dynamic
+    shared memory, the base's 1024-byte alignment included, rounded up to
+    128. An operand row is 128 bytes a 64-column block (hd 32 lands one
+    64-column box)."""
+    k = KINDS.index(kind)
+    row = 128 * (2 if head_dim == 128 else 1)
+    own = (1 if k == 0 else 2) * ROWS * row
+    operand = (FWD_KEYS if k == 0 else dq_keys(head_dim) if k == 1 else BWD_TILE) * row
+    stage = 2 * operand + (1024 if k == 2 else 0)
+    db = 0 if k == 0 else (2 if k == 2 else 1) * 8 * head_dim * 4
+    fixed = 1024 + 2 * own + db + 8 * (4 + 3 * MAX_STAGES)
+    stages = min(MAX_STAGES, (MAX_SMEM - fixed) // stage)
+    total = 1024 + 2 * own + stages * stage + db + 8 * (4 + 3 * stages)
+    return dict(own=own, operand=operand, stage=stage, db=db, stages=stages,
+                total=-(-total // 128) * 128)
+
+
 def smem_bytes(kind: str, head_dim: int, dtype: torch.dtype) -> int:
-    """Shared memory of one block of a kernel: its own tiles (forward q; dQ
-    q and do; dK/dV k and v), two stages of the streamed tiles (k and v, or
-    q and do), each BLOCK rows of head_dim elements and 16 bytes of pad, the
-    dK/dV stages' f32 lse and r, and in f32 one 64 x 65 f32 score tile.
-    Mirrors ``sc_attention_long_smem_bytes``."""
-    item = torch.empty((), dtype=dtype).element_size()
-    tile = BLOCK * (head_dim + 16 // item) * item
-    score = BLOCK * (BLOCK + 1) * 4 if dtype == torch.float32 else 0
+    """Dynamic shared memory of one block of a kernel. bf16:
+    :func:`tc_layout`'s total. f32: its own tiles (forward q; dQ q and do;
+    dK/dV k and v), two stages of the streamed tiles (k and v, or q and do),
+    each BLOCK rows of head_dim elements and 16 bytes of pad, the dK/dV
+    stages' f32 lse and r, one 64 x 65 f32 score tile. Mirrors
+    ``sc_attention_long_smem_bytes``."""
+    if dtype == torch.bfloat16:
+        return tc_layout(kind, head_dim)["total"]
+    tile = BLOCK * (head_dim + 4) * 4
     own = {"fwd": 1, "dq": 2, "dkdv": 2}[kind]
     stats = 4 * BLOCK * 4 if kind == "dkdv" else 0
-    return (own + 4) * tile + stats + score
+    return (own + 4) * tile + stats + BLOCK * (BLOCK + 1) * 4
 
 
 def db_chunks(rows: int) -> int:
-    """Partial rows of :func:`long_db`'s first pass."""
+    """Partial rows of :func:`long_db`'s first pass over dqkv (no partials
+    given)."""
     return -(-rows // DB_ROWS)
+
+
+def stats_rows(batch: int, seq: int, heads: int) -> int:
+    """Rows of the bf16 backward's stats: one per (batch, head, BWD_TILE
+    query rows), each BWD_TILE lse values then BWD_TILE r values."""
+    return batch * heads * -(-seq // BWD_TILE)
+
+
+def pack_stats(lse: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """The plain version of the stats rows (:func:`stats_rows`, 2 BWD_TILE
+    f32 each) of lse and r (heads, B, L): the layout the bf16 dQ kernel
+    writes and the dK/dV kernel lands with one bulk copy a query tile; 0
+    past L."""
+    heads, B, L = lse.shape
+    tiles_ = -(-L // BWD_TILE)
+    pad = tiles_ * BWD_TILE - L
+    both = torch.stack([lse, r]).float()  # (2, heads, B, L)
+    both = torch.nn.functional.pad(both, (0, pad)).view(2, heads, B, tiles_, BWD_TILE)
+    return both.permute(2, 1, 3, 0, 4).reshape(B * heads * tiles_, 2 * BWD_TILE).contiguous()
+
+
+def unpack_stats(rows: torch.Tensor, heads: int, batch: int,
+                 seq: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """lse and r (heads, B, L) f32 from stats rows: :func:`pack_stats`
+    undone."""
+    tiles_ = -(-seq // BWD_TILE)
+    both = rows.view(batch, heads, tiles_, 2, BWD_TILE).permute(3, 1, 0, 2, 4)
+    both = both.reshape(2, heads, batch, tiles_ * BWD_TILE)[..., :seq]
+    return both[0].contiguous(), both[1].contiguous()
+
+
+class RowStats(NamedTuple):
+    """What :func:`long_bwd_dq` hands :func:`long_bwd_dkdv`: the lse it
+    was given and each row's r = sum_j dp p. The f32 kernel and the plain
+    version give r as (heads, B, L) f32; the bf16 kernel gives ``rows``
+    instead (r None), one stats row a (batch, head, BWD_TILE query rows),
+    which the dK/dV kernel lands with one bulk copy (:func:`pack_stats`)."""
+
+    lse: torch.Tensor
+    r: Optional[torch.Tensor] = None
+    rows: Optional[torch.Tensor] = None
+
+    def unpacked(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """lse and r (heads, B, L) f32; from the bf16 kernel, as read back
+        from its stats rows."""
+        if self.rows is None:
+            return self.lse, self.r
+        return unpack_stats(self.rows, *self.lse.shape)
+
+
+def db_parts(batch: int, seq: int) -> int:
+    """Partial rows of db the bf16 backward kernels write: one per
+    (sequence, block of ROWS own rows), row ``b * tiles(seq) + t``."""
+    return batch * tiles(seq)
 
 
 def _launch(entry: str, qkv: torch.Tensor, *args) -> None:
@@ -143,6 +243,32 @@ def _check_dqkv(dqkv: torch.Tensor, qkv: torch.Tensor) -> None:
                          f"device; got {dqkv.dtype} {tuple(dqkv.shape)} on {dqkv.device}")
 
 
+def _check_part(part: Optional[torch.Tensor], qkv: torch.Tensor) -> None:
+    """db's partial rows: (db_parts(B, L), 3D) f32 beside a bf16 qkv (the f32
+    kernels write none)."""
+    if part is None:
+        return
+    B, L, three_d = qkv.shape
+    want = (db_parts(B, L), three_d)
+    if qkv.dtype != torch.bfloat16:
+        raise ValueError(f"db partial rows are the bf16 kernels' only; qkv is {qkv.dtype}")
+    if (tuple(part.shape) != want or part.dtype != torch.float32 or not part.is_contiguous()
+            or part.device != qkv.device):
+        raise ValueError(f"part must be a contiguous float32 {want} on qkv's device; got "
+                         f"{part.dtype} {tuple(part.shape)} on {part.device}")
+
+
+def reference_db_parts(dqkv: torch.Tensor, cols: slice) -> torch.Tensor:
+    """The plain version of the partial rows' ``cols``: per (sequence, block
+    of ROWS rows), the f32 column sums of dqkv's values (rounded to its
+    dtype), (db_parts(B, L), len(cols)) f32."""
+    B, L, _ = dqkv.shape
+    d = dqkv[..., cols].float()
+    pad = tiles(L) * ROWS - L
+    d = torch.nn.functional.pad(d, (0, 0, 0, pad))
+    return d.view(B, tiles(L), ROWS, -1).sum(dim=2).reshape(B * tiles(L), -1)
+
+
 def reference_long_r(qkv, mask, lse, g, heads) -> torch.Tensor:
     """The plain version of the dQ kernel's r: ``r_i = sum_j dp_ij p_ij``
     with ``p = exp(s - lse)`` and ``dp = do v^T`` in f32 (the term
@@ -156,59 +282,103 @@ def reference_long_r(qkv, mask, lse, g, heads) -> torch.Tensor:
     return (dp * p).sum(dim=-1).transpose(0, 1).contiguous()
 
 
+def _check_row_stats(stats: RowStats, qkv: torch.Tensor, heads: int) -> None:
+    """The dQ kernel's hand-over beside qkv: on the card in bf16 its stats
+    rows; else lse and r (heads, B, L) f32."""
+    if qkv.device.type == "cpu" or qkv.dtype != torch.bfloat16:
+        _check_lse(stats.lse, qkv, heads)
+        if stats.r is None:
+            raise ValueError("the f32 kernels and the plain versions take r (heads, B, L) f32")
+        _check_lse(stats.r, qkv, heads, "r")
+        return
+    B, L, _ = qkv.shape
+    want, rows = (stats_rows(B, L, heads), 2 * BWD_TILE), stats.rows
+    if (rows is None or tuple(rows.shape) != want or rows.dtype != torch.float32
+            or not rows.is_contiguous() or rows.device != qkv.device):
+        got = None if rows is None else f"{rows.dtype} {tuple(rows.shape)} on {rows.device}"
+        raise ValueError(f"the bf16 kernels hand lse and r over as contiguous float32 stats "
+                         f"rows {want} on qkv's device; got {got}")
+
+
 def long_bwd_dq(qkv: torch.Tensor, mask: Optional[torch.Tensor], lse: torch.Tensor,
-                g: torch.Tensor, heads: int, dqkv: torch.Tensor) -> torch.Tensor:
+                g: torch.Tensor, heads: int, dqkv: torch.Tensor,
+                part: Optional[torch.Tensor] = None) -> RowStats:
     """The dQ kernel: writes dq into the q columns of ``dqkv`` (qkv's shape
-    and dtype) and returns each row's r (heads, B, L) f32, which
-    :func:`long_bwd_dkdv` takes. Counts each launch in
-    ``long_bwd_dq.launches``."""
+    and dtype) and, given ``part`` (bf16 only, see :func:`db_parts`), each
+    block's column sums of its rounded dq rows into part's q columns;
+    returns the lse and each row's r as the :class:`RowStats`
+    :func:`long_bwd_dkdv` takes (the bf16 kernel's as stats rows). Counts
+    each launch in ``long_bwd_dq.launches``."""
     g = _check_bwd(qkv, mask, g, heads)
     _check_lse(lse, qkv, heads)
     _check_dqkv(dqkv, qkv)
+    _check_part(part, qkv)
     D = qkv.shape[-1] // 3
     if qkv.device.type == "cpu":
         dqkv[..., :D] = reference_attention_bwd(qkv, mask, lse, g, heads)[0][..., :D]
-        return reference_long_r(qkv, mask, lse, g, heads)
+        if part is not None:
+            part[:, :D] = reference_db_parts(dqkv, slice(0, D))
+        return RowStats(lse, reference_long_r(qkv, mask, lse, g, heads))
     _check_kernel_device(qkv, g, dqkv)
-    r = torch.empty_like(lse)
+    B, L, _ = qkv.shape
+    if qkv.dtype == torch.bfloat16:
+        stats = RowStats(lse, rows=torch.empty((stats_rows(B, L, heads), 2 * BWD_TILE),
+                                               dtype=torch.float32, device=qkv.device))
+    else:
+        stats = RowStats(lse, r=torch.empty_like(lse))
     _launch("bwd_dq", qkv, qkv.data_ptr(), _ptr(mask), lse.data_ptr(), g.data_ptr(),
-            dqkv.data_ptr(), r.data_ptr(), *_dims(qkv, heads))
+            dqkv.data_ptr(), _ptr(stats.r), _ptr(part), _ptr(stats.rows), *_dims(qkv, heads))
     long_bwd_dq.launches += 1
-    return r
+    return stats
 
 
-def long_bwd_dkdv(qkv: torch.Tensor, mask: Optional[torch.Tensor], lse: torch.Tensor,
-                  r: torch.Tensor, g: torch.Tensor, heads: int, dqkv: torch.Tensor) -> None:
+def long_bwd_dkdv(qkv: torch.Tensor, mask: Optional[torch.Tensor], stats: RowStats,
+                  g: torch.Tensor, heads: int, dqkv: torch.Tensor,
+                  part: Optional[torch.Tensor] = None) -> None:
     """The dK/dV kernel: writes dk and dv into the k and v columns of
-    ``dqkv`` from the lse and :func:`long_bwd_dq`'s r. Counts each launch in
-    ``long_bwd_dkdv.launches``."""
+    ``dqkv`` from :func:`long_bwd_dq`'s :class:`RowStats` (the bf16 kernel
+    reads its stats rows alone), and given ``part`` (bf16 only) each
+    block's column sums of its rounded dk and dv rows into part's k and v
+    columns. Counts each launch in ``long_bwd_dkdv.launches``."""
     g = _check_bwd(qkv, mask, g, heads)
-    _check_lse(lse, qkv, heads)
-    _check_lse(r, qkv, heads, "r")
+    _check_row_stats(stats, qkv, heads)
     _check_dqkv(dqkv, qkv)
+    _check_part(part, qkv)
     D = qkv.shape[-1] // 3
     if qkv.device.type == "cpu":
-        dqkv[..., D:] = reference_attention_bwd(qkv, mask, lse, g, heads)[0][..., D:]
+        dqkv[..., D:] = reference_attention_bwd(qkv, mask, stats.lse, g, heads)[0][..., D:]
+        if part is not None:
+            part[:, D:] = reference_db_parts(dqkv, slice(D, 3 * D))
         return
     _check_kernel_device(qkv, g, dqkv)
-    _launch("bwd_dkdv", qkv, qkv.data_ptr(), _ptr(mask), lse.data_ptr(), r.data_ptr(),
-            g.data_ptr(), dqkv.data_ptr(), *_dims(qkv, heads))
+    lse, r = (None, None) if stats.rows is not None else (stats.lse, stats.r)
+    _launch("bwd_dkdv", qkv, qkv.data_ptr(), _ptr(mask), _ptr(lse), _ptr(r), g.data_ptr(),
+            dqkv.data_ptr(), _ptr(part), _ptr(stats.rows), *_dims(qkv, heads))
     long_bwd_dkdv.launches += 1
 
 
-def long_db(dqkv: torch.Tensor) -> torch.Tensor:
-    """db (3D,) f32: the sum over (B, L) of dqkv's values as f32, in a fixed
-    order (256-row partials, then ``attention_db.cuh``'s reduce), so the
-    same bits on every run. Counts each launch in ``long_db.launches``."""
-    if dqkv.device.type == "cpu":
-        return dqkv.float().sum(dim=(0, 1))
-    _check_kernel_device(dqkv)
+def long_db(dqkv: torch.Tensor, part: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """db (3D,) f32 in a fixed order, so the same bits on every run: given
+    ``part``, the bf16 kernels' partial rows, their sum
+    (``attention_db.cuh``'s reduce); else the sum over (B, L) of dqkv's
+    values as f32 (256-row partials, then the same reduce). Counts each
+    launch in ``long_db.launches``."""
     n = dqkv.shape[-1]
-    rows = dqkv.numel() // n
-    part = torch.empty((db_chunks(rows), n), dtype=torch.float32, device=dqkv.device)
+    if part is not None and (part.dim() != 2 or part.shape[1] != n or part.dtype != torch.float32
+                             or not part.is_contiguous() or part.device != dqkv.device):
+        raise ValueError(f"part must be a contiguous float32 (parts, {n}) on dqkv's device; got "
+                         f"{part.dtype} {tuple(part.shape)} on {part.device}")
+    if dqkv.device.type == "cpu":
+        return dqkv.float().sum(dim=(0, 1)) if part is None else part.sum(dim=0)
+    _check_kernel_device(dqkv)
     db = torch.empty((n,), dtype=torch.float32, device=dqkv.device)
-    _launch("db", dqkv, dqkv.data_ptr(), part.data_ptr(), db.data_ptr(), rows, n,
-            cuda_build.DTYPE_CODES[dqkv.dtype])
+    if part is None:
+        rows = dqkv.numel() // n
+        chunks = torch.empty((db_chunks(rows), n), dtype=torch.float32, device=dqkv.device)
+        _launch("db", dqkv, dqkv.data_ptr(), chunks.data_ptr(), db.data_ptr(), rows, n,
+                cuda_build.DTYPE_CODES[dqkv.dtype])
+    else:
+        _launch("db_partials", dqkv, part.data_ptr(), db.data_ptr(), part.shape[0], n)
     long_db.launches += 1
     return db
 
@@ -218,16 +388,21 @@ def fused_attention_long_bwd(qkv: torch.Tensor, mask: Optional[torch.Tensor],
                              db: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """``fused_attention.fused_attention_bwd`` at any length: dqkv (qkv's
     shape and dtype) and, with ``db``, db (3D,) f32; db is None otherwise.
-    Runs :func:`long_bwd_dq`, :func:`long_bwd_dkdv` and :func:`long_db`."""
+    Runs :func:`long_bwd_dq`, :func:`long_bwd_dkdv` and :func:`long_db`: in
+    bf16 the two kernels write db's partial rows and long_db sums them; in
+    f32 long_db sums dqkv."""
     g = _check_bwd(qkv, mask, g, heads)
     _check_lse(lse, qkv, heads)
     if qkv.device.type == "cpu":
         dqkv, db_ref = reference_attention_bwd(qkv, mask, lse, g, heads)
         return dqkv, db_ref if db else None
     dqkv = torch.empty_like(qkv)
-    r = long_bwd_dq(qkv, mask, lse, g, heads, dqkv)
-    long_bwd_dkdv(qkv, mask, lse, r, g, heads, dqkv)
-    return dqkv, long_db(dqkv) if db else None
+    B, L, three_d = qkv.shape
+    part = (torch.empty((db_parts(B, L), three_d), dtype=torch.float32, device=qkv.device)
+            if db and qkv.dtype == torch.bfloat16 else None)
+    stats = long_bwd_dq(qkv, mask, lse, g, heads, dqkv, part)
+    long_bwd_dkdv(qkv, mask, stats, g, heads, dqkv, part)
+    return dqkv, long_db(dqkv, part) if db else None
 
 
 def fused_attention_long_bwd_recompute(qkv: torch.Tensor, mask: Optional[torch.Tensor],

@@ -150,23 +150,25 @@ def library() -> ctypes.CDLL:
             lib.sc_attention_long_fwd.argtypes = lib.sc_attention_fwd.argtypes
             lib.sc_attention_long_bwd_dq.argtypes = [
                 ptr, ptr, ptr, ptr,  # qkv, mask, lse, dout
-                ptr, ptr,  # dqkv, r
+                ptr, ptr, ptr, ptr,  # dqkv, r, db partial rows or null, stats rows (bf16)
                 i32, i32, i32, i32,  # B, L, H, hd
                 i32, ctypes.c_float, ptr,  # dtype, scale, stream
             ]
             lib.sc_attention_long_bwd_dkdv.argtypes = [
                 ptr, ptr, ptr, ptr, ptr,  # qkv, mask, lse, r, dout
-                ptr,  # dqkv
+                ptr, ptr, ptr,  # dqkv, db partial rows or null, stats rows (bf16)
                 i32, i32, i32, i32,  # B, L, H, hd
                 i32, ctypes.c_float, ptr,  # dtype, scale, stream
             ]
-            lib.sc_attention_long_db.argtypes = [ptr, ptr, ptr,  # dqkv, partials, db
+            lib.sc_attention_long_db.argtypes = [ptr, ptr, ptr,  # dqkv, chunk sums, db
                                                  i32, i32, i32, ptr]  # rows, n, dtype, stream
-            for name in ("fwd", "bwd_dq", "bwd_dkdv", "db"):
+            lib.sc_attention_long_db_partials.argtypes = [ptr, ptr,  # partial rows, db
+                                                          i32, i32, ptr]  # rows, n, stream
+            for name in ("fwd", "bwd_dq", "bwd_dkdv", "db", "db_partials"):
                 getattr(lib, f"sc_attention_long_{name}").restype = i32
             lib.sc_attention_long_smem_bytes.argtypes = [i32, i32, i32]  # kind, hd, dtype
             lib.sc_attention_long_smem_bytes.restype = ctypes.c_size_t
-            lib.sc_attention_long_plan.argtypes = [ctypes.POINTER(i32)]  # plan[4]
+            lib.sc_attention_long_plan.argtypes = [ctypes.POINTER(i32)]  # plan[8]
             lib.sc_attention_long_plan.restype = i32
             ce_inputs = [ptr] * 7  # q, kmat, col_ids, gt_ids, nbr, alphas, scale
             ce_scratch = [ptr, ctypes.c_size_t]  # scratch and its f32 elements

@@ -28,6 +28,32 @@ def digest(state) -> str:
     return h.hexdigest()
 
 
+# ------------------------------------------------------------------ data
+
+def crop_batches(rank: int = 0, world: int = 1, epochs: int = 2) -> list:
+    """The image batches rank ``rank`` of ``world`` loads in ``epochs``
+    epochs: 24 synthetic 40 px tiles under the host transform's random
+    resized crop to 32 px (scale 0.3-1, seed 5), shuffled, global batch 8,
+    num_workers 0."""
+    from spatial_clip_tpu_torch.data.datamodule import DataLoader
+    from spatial_clip_tpu_torch.data.datasets.synthetic import SyntheticSpatialDataset
+    from spatial_clip_tpu_torch.models.transforms import image_transform
+
+    crop = image_transform(32, is_train=True, aug_cfg={"scale": (0.3, 1.0)}, seed=5)
+    ds = SyntheticSpatialDataset(num_samples=24, image_size=40, k_neighbors=2, preprocess_fn=crop)
+    loader = DataLoader(ds, batch_size=8, shuffle=True, seed=3, rank=rank, world_size=world)
+    out = []
+    for epoch in range(epochs):
+        loader.set_epoch(epoch)
+        out.extend(b["images"] for b in loader)
+    return out
+
+
+def crop_rank(rank: int, epochs: int) -> list:
+    """:func:`crop_batches` of this rank of the group."""
+    return crop_batches(rank, dist.get_world_size(), epochs)
+
+
 # ----------------------------------------------------------------- losses
 
 def loss_rank(rank: int, cases, inputs) -> dict:

@@ -1690,14 +1690,80 @@ def test_long_kernel_geometry_matches_the_source(device):
     from spatial_clip_tpu_torch.ops import cuda_build
 
     lib = cuda_build.library()
-    plan = (ctypes_int * 4)()
+    plan = (ctypes_int * 8)()
     assert lib.sc_attention_long_plan(plan) == 0
-    assert list(plan) == [al.BLOCK, al.TC_THREADS, al.SIMT_THREADS, al.DB_ROWS]
+    assert list(plan) == [al.ROWS, al.TC_THREADS, al.FWD_KEYS, al.BWD_TILE, al.MAX_STAGES,
+                          al.BLOCK, al.SIMT_THREADS, al.DB_ROWS]
     for hd in (32, 64, 128):
-        for dtype, code in cuda_build.DTYPE_CODES.items():
-            for kind, name in enumerate(al.KINDS):
+        for kind, name in enumerate(al.KINDS):
+            for dtype, code in cuda_build.DTYPE_CODES.items():
                 assert lib.sc_attention_long_smem_bytes(kind, hd, code) == al.smem_bytes(
                     name, hd, dtype)
+
+
+LONG_TILE_EDGES = tuple(L for k in range(5, 9) for L in (128 * k - 1, 128 * k, 128 * k + 1))
+
+
+def _long_mask(kind, L, device):
+    """None, the causal mask, ('prefix') finfo(f32).min over the first 130
+    keys of every row (past the first 128-key tile, as left padding masks),
+    or ('row') that and all of row 1 (a row masked in full): chip_smoke's
+    long_mask."""
+    if kind == "none":
+        return None
+    if kind == "causal":
+        return causal_mask(L, device=device)
+    mask = torch.zeros((L, L), device=device)
+    mask[:, :min(130, L - 1)] = torch.finfo(torch.float32).min
+    if kind == "row":
+        mask[1] = torch.finfo(torch.float32).min
+    return mask
+
+
+@pytest.mark.parametrize("mask_kind", ["none", "causal", "prefix", "row"])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_long_bf16_kernels_at_tile_edges(device, hd, mask_kind):
+    """The bf16 wgmma kernels at their 128-row items' and 64 / 128-row
+    tiles' edges (L 128 k - 1, 128 k, 128 k + 1 for k 5..8, and the first
+    length past each resident limit), with no mask, the causal mask, a
+    finfo.min mask over a prefix of keys and that with a whole row: the
+    forward with and without lse, the saved-lse backward with db, at phase
+    33's tolerances against the plain version; dqkv and db the same bits on a
+    rerun; the dQ kernel's stats rows hold the lse bit for bit and are
+    ``pack_stats`` of their lse and r."""
+    from spatial_clip_tpu_torch.ops import attention_long as al
+    from spatial_clip_tpu_torch.ops.fused_attention import (
+        bwd_max_seq,
+        fwd_max_seq,
+        reference_attention_bwd,
+        reference_attention_lse,
+    )
+
+    B, H, dtype = 2, 2, torch.bfloat16
+    lengths = sorted({*LONG_TILE_EDGES, fwd_max_seq(hd, dtype) + 1, bwd_max_seq(hd, dtype) + 1})
+    for L in lengths:
+        gen = torch.Generator(device=device).manual_seed(L * hd + len(mask_kind))
+        qkv = torch.randn((B, L, 3 * H * hd), generator=gen, device=device).to(dtype)
+        g = torch.randn((B, L, H * hd), generator=gen, device=device).to(dtype)
+        mask = _long_mask(mask_kind, L, device)
+        out = al.fused_attention_long(qkv, mask, H)
+        out_lse, lse = al.fused_attention_long_lse(qkv, mask, H)
+        dqkv, db = al.fused_attention_long_bwd(qkv, mask, lse, g, H)
+        again, db_again = al.fused_attention_long_bwd(qkv, mask, lse, g, H)
+        stats = al.long_bwd_dq(qkv, mask, lse, g, H, torch.empty_like(qkv))
+        torch.cuda.synchronize()
+        want, want_lse = reference_attention_lse(qkv, mask, H)
+        want_d, want_db = reference_attention_bwd(qkv, mask, lse, g, H)
+        torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=0, msg=f"L {L}")
+        assert torch.equal(out, out_lse), L
+        torch.testing.assert_close(lse, want_lse, rtol=0,
+                                   atol=1e-5 * max(1.0, want_lse.abs().max().item()))
+        torch.testing.assert_close(dqkv.float(), want_d.float(), rtol=0,
+                                   atol=_bwd_tol(dtype, want_d.float()), msg=f"L {L}")
+        torch.testing.assert_close(db, want_db, rtol=0, atol=_tol(dtype, want_db) + 1e-4)
+        assert torch.equal(dqkv, again) and torch.equal(db, db_again), L
+        lse_k, r_k = stats.unpacked()
+        assert torch.equal(lse_k, lse) and torch.equal(stats.rows, al.pack_stats(lse_k, r_k)), L
 
 
 def test_wrappers_route_by_length(device):

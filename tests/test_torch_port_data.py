@@ -175,6 +175,42 @@ def test_shard_dataset_matches_jax(tmp_path, train):
         _same_items(ours[i], theirs[i])
 
 
+@pytest.mark.parametrize("raw", ["png", "npy"])
+def test_shard_skip_item_draws_as_getitem(tmp_path, raw):
+    """A shard dataset's ``skip_item`` (what a rank does with the rows of a
+    global batch that other ranks take) leaves the train transform's random
+    state where ``self[idx]`` leaves it, from the png's or the npy tile's
+    header alone; npy tiles 9 high and 7 wide, so a swapped size draws other
+    boxes."""
+    from spatial_clip_tpu_torch.data.datasets.shard_backend import ShardedSpatialDataset
+
+    if raw == "png":
+        root = _make_shards(tmp_path)
+        samples = ["SAMPLE_A", "SAMPLE_B"]
+    else:
+        root, samples = tmp_path / "processed", ["S"]
+        (root / "S").mkdir(parents=True)
+        with tarfile.open(root / "S" / "S_000000.tar", "w") as tar:
+            for idx in range(4):
+                buf = BytesIO()
+                np.save(buf, np.full((9, 7, 3), idx * 30, np.uint8))
+                for ext, payload in (("npy", buf.getvalue()), ("txt", f"spot {idx}".encode()),
+                                     ("json", json.dumps({"sample_id": "S", "x": idx,
+                                                          "y": 0}).encode())):
+                    info = tarfile.TarInfo(name=f"S_{idx:03d}.{ext}")
+                    info.size = len(payload)
+                    tar.addfile(info, BytesIO(payload))
+    ours = [ShardedSpatialDataset(root, "train", samples, 2, cache_dir=tmp_path / "cache",
+                                  preprocess_fn=tf.image_transform(6, is_train=True, seed=5,
+                                                                   aug_cfg={"scale": (0.3, 1)}))
+            for _ in range(2)]
+    for i in range(len(ours[0])):
+        ours[0][i]
+        ours[1].skip_item(i)
+        assert (ours[0].preprocess_fn.rng.bit_generator.state
+                == ours[1].preprocess_fn.rng.bit_generator.state), i
+
+
 def test_shard_split_specs_resolve_as_jax(tmp_path):
     """A split listing file, a .txt path and a bare directory scan."""
     from spatial_clip_tpu.data.datasets import _resolve_sample_ids as jax_resolve

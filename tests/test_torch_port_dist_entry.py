@@ -16,9 +16,10 @@ from spatial_clip_tpu_torch.parallel.launch import spawn
 from spatial_clip_tpu_torch.train import entry
 from tests.helpers import dist_ranks
 
-# the host transform's random crop always takes the whole 32 px tile: each
-# rank's crop stream is its own (ROADMAP Queue 3), so the runs compare only
-# where the crop draws cannot move the pixels
+# the host transform's random crop always takes the whole 32 px tile: the
+# experiment's loader has no workers, so the ranks take the one-process
+# run's crops (test_ranks_take_the_one_process_runs_random_crops); the runs
+# are compared where the crop draws cannot move the pixels all the same
 WHOLE_CROP = "model.aug_cfg={scale:[1.0,1.0],ratio:[1.0,1.0]}"
 
 
@@ -58,6 +59,43 @@ def test_ddp_sim_gives_the_one_process_runs_losses(tmp_path):
         "experiment=smoke_synthetic", "trainer=ddp_sim", f"paths.root_dir={tmp_path / 'eval'}",
         f"ckpt_path={ckpts}"]))
     assert abs(metrics["test/loss"] - sim["metrics"]["test/loss"]) <= 1e-5
+
+
+def test_ranks_take_the_one_process_runs_random_crops():
+    """Two gloo ranks' loaders at num_workers 0, under the host transform's
+    random resized crop, give rows [r b, (r + 1) b) of the one-process
+    run's image batches bit for bit over two epochs (each rank skips the
+    other's rows through the dataset's ``skip_item``); the crops do move the
+    pixels from batch to batch."""
+    ranks = spawn(dist_ranks.crop_rank, 2, (2,), threads=1)
+    one = dist_ranks.crop_batches(epochs=2)
+    assert len(one) == 6 and [len(r) for r in ranks] == [6, 6]
+    for r, got in enumerate(ranks):
+        for g, want in zip(got, one):
+            assert g.shape == (4, 32, 32, 3) and np.array_equal(g, dist_ranks.rows(want, r, 2))
+    first = [dist_ranks.crop_batches(epochs=1)[0] for _ in range(2)]
+    assert np.array_equal(first[0], first[1]) and not np.array_equal(one[0], one[3])
+
+
+def test_process_workers_draw_streams_by_rank():
+    """A process worker's transform stream: seed_base + worker id at rank 0
+    (the one-process run's), another stream at each later rank of a group."""
+    import multiprocessing
+
+    from spatial_clip_tpu_torch.data import datamodule
+    from spatial_clip_tpu_torch.models.transforms import image_transform
+
+    class Item:
+        def __init__(self):
+            self.preprocess_fn = image_transform(32, is_train=True, seed=0)
+
+    draws = []
+    for rank in (0, 1, 2):
+        item = Item()
+        datamodule._init_worker_dataset(item, multiprocessing.Value("i", 0), 11, rank)
+        draws.append(item.preprocess_fn.rng.integers(1 << 30, size=4))
+    assert np.array_equal(draws[0], np.random.default_rng(11).integers(1 << 30, size=4))
+    assert not np.array_equal(draws[0], draws[1]) and not np.array_equal(draws[1], draws[2])
 
 
 def test_main_train_takes_rank_zeros_run_name(tmp_path):

@@ -66,9 +66,17 @@ def _t(x):
 
 
 def _mask(L, causal):
+    """None, the causal mask, or ('prefix') finfo(f32).min over the first 130
+    keys of every row, past the key-tiled kernels' first 128-key tile: scores
+    near finfo.min, as left padding gives them."""
     if not causal:
         return None
-    return np.triu(np.full((L, L), np.finfo(np.float32).min, np.float32), k=1)
+    low = np.finfo(np.float32).min
+    if causal == "prefix":
+        mask = np.zeros((L, L), np.float32)
+        mask[:, :130] = low
+        return mask
+    return np.triu(np.full((L, L), low, np.float32), k=1)
 
 
 def _jmask(mask, L):
@@ -191,6 +199,7 @@ def test_batched_mask_takes_the_einsum_route_and_leading_ones_do_not():
 # ------------------------------------------ the plain versions past 256 tokens
 
 LONG = [(1, 257, True), (2, 401, False), (1, 577, True)]
+LONG_PREFIX = [(1, 257, "prefix")]
 
 
 def _long_inputs(seed, B, L, H=2, hd=64):
@@ -200,7 +209,7 @@ def _long_inputs(seed, B, L, H=2, hd=64):
     return qkv, g
 
 
-@pytest.mark.parametrize("B,L,causal", LONG)
+@pytest.mark.parametrize("B,L,causal", LONG + LONG_PREFIX)
 def test_long_forward_matches_jax_kernels(B, L, causal):
     """The key-tiled forward's plain version (``fused_attention_long``, and
     through ``fused_attention`` itself) and its lse option against JAX's
@@ -222,7 +231,7 @@ def test_long_forward_matches_jax_kernels(B, L, causal):
     np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), atol=1e-5)
 
 
-@pytest.mark.parametrize("B,L,causal", LONG)
+@pytest.mark.parametrize("B,L,causal", LONG + LONG_PREFIX)
 def test_long_backward_pieces_match_jax_kernel(B, L, causal):
     """The key-tiled backward's pieces on the CPU: the dQ kernel's dq
     columns and r, the dK/dV kernel's k and v columns and the db reduce,
@@ -239,8 +248,8 @@ def test_long_backward_pieces_match_jax_kernel(B, L, causal):
     want_db = np.asarray(jnp.transpose(db_raw, (1, 0, 2)).reshape(-1))
     tq, tm, tl, tg = _t(qkv), _t(mask), _t(lse), _t(g)
     dqkv = torch.full_like(tq, float("nan"))
-    r = al.long_bwd_dq(tq, tm, tl, tg, 2, dqkv)
-    al.long_bwd_dkdv(tq, tm, tl, r, tg, 2, dqkv)
+    stats = al.long_bwd_dq(tq, tm, tl, tg, 2, dqkv)
+    al.long_bwd_dkdv(tq, tm, stats, tg, 2, dqkv)
     db = al.long_db(dqkv)
     np.testing.assert_allclose(dqkv.numpy(), want, atol=2e-5)
     np.testing.assert_allclose(db.numpy(), want_db, atol=2e-4)
@@ -254,7 +263,8 @@ def test_long_backward_pieces_match_jax_kernel(B, L, causal):
     p = torch.softmax(s, dim=-1)
     dp = torch.from_numpy(g.astype(np.float64)).view(B, L, 2, 64).transpose(1, 2) @ v.transpose(
         -1, -2)
-    np.testing.assert_allclose(r.numpy(), (p * dp).sum(-1).transpose(0, 1).numpy(), atol=1e-4)
+    np.testing.assert_allclose(stats.r.numpy(), (p * dp).sum(-1).transpose(0, 1).numpy(),
+                               atol=1e-4)
     re_dqkv, re_db = al.fused_attention_long_bwd_recompute(tq, tm, tg, 2, db=True)
     np.testing.assert_allclose(re_dqkv.numpy(), want, atol=2e-5)
     assert al.fused_attention_long_bwd_recompute(tq, tm, tg, 2, db=False)[1] is None
@@ -454,31 +464,87 @@ def test_patch14_towers_match_jax_forward_and_step(size):
 
 def test_long_kernel_geometry_mirrors_the_source():
     """``attention_long``'s launch geometry and shared-memory formulas
-    against the constants of ``csrc/attention_long.cu``; every geometry fits
-    a block, and the largest (f32, hd 128) within its 227 KB."""
+    against the constants of ``csrc/attention_long.cu``: the bf16 plan (128
+    own rows, 384 threads, 128-key forward stages, 64-row backward stages,
+    at most 4 stages, the setmaxnreg split within the register file), each
+    kind's shared memory and stages at every head dim, db's partial rows;
+    the f32 plan (64 rows, 256 threads); every geometry within 227 KB."""
     src = (cuda_build.CSRC_DIR / "attention_long.cu").read_text()
 
     def const(name):
         return int(re.search(rf"constexpr (?:int|size_t) {name} = (\d+);", src).group(1))
 
-    assert const("kBlock") == al.BLOCK
-    assert const("kTcWarps") * 32 == al.TC_THREADS and const("kSimtThreads") == al.SIMT_THREADS
-    assert const("kDbRows") == al.DB_ROWS and const("kMaxSmem") == pfa.MAX_SMEM_BYTES
+    assert (const("kRows"), const("kTcThreads"), const("kFwdKeys"), const("kBwdTile"),
+            const("kMaxStages")) == (al.ROWS, al.TC_THREADS, al.FWD_KEYS, al.BWD_TILE,
+                                     al.MAX_STAGES)
+    assert 128 * const("kProducerRegs") + 256 * const("kConsumerRegs") <= 65536
+    assert const("kBlock") == al.BLOCK and const("kSimtThreads") == al.SIMT_THREADS
+    assert const("kDbRows") == al.DB_ROWS
+    assert const("kMaxSmem") == al.MAX_SMEM == pfa.MAX_SMEM_BYTES
     assert "constexpr int kPStride = kBlock + 1;" in src
     for dtype in (torch.bfloat16, torch.float32):
         for hd in pfa.HEAD_DIMS:
             sizes = [al.smem_bytes(kind, hd, dtype) for kind in al.KINDS]
             assert max(sizes) <= pfa.MAX_SMEM_BYTES and all(s % 16 == 0 for s in sizes)
+    stages = {(k, hd): al.tc_layout(k, hd)["stages"] for k in al.KINDS for hd in pfa.HEAD_DIMS}
+    assert stages == {(k, hd): 2 if hd == 128 else 4 for k in al.KINDS for hd in pfa.HEAD_DIMS}
+    assert al.smem_bytes("fwd", 64, torch.bfloat16) == 164992
+    assert al.smem_bytes("fwd", 128, torch.bfloat16) == 197760
+    assert al.smem_bytes("dkdv", 128, torch.bfloat16) == 208000
     assert al.smem_bytes("dkdv", 128, torch.float32) == 220416
-    assert al.smem_bytes("fwd", 64, torch.bfloat16) == 46080
-    assert al.blocks(32, 577, 16) == 32 * 16 * 10 and al.threads(torch.bfloat16) == 128
-    assert al.db_chunks(32 * 577) == 73
+    assert al.blocks(32, 577, 16) == 32 * 16 * 5 and al.threads(torch.bfloat16) == 384
+    assert al.blocks(32, 577, 16, torch.float32) == 32 * 16 * 10
+    assert al.threads(torch.float32) == 256
+    assert al.db_parts(32, 577) == 160 and al.db_chunks(32 * 577) == 73
+
+
+def test_long_db_partial_rows_plain_version():
+    """The bf16 backward's db partial rows on the CPU: the dQ wrapper fills
+    the q columns and the dK/dV wrapper the k and v columns of one row per
+    (sequence, 128 own rows), each the column sums of that block's rounded
+    rows; ``long_db`` over them is db (against the sum of dqkv's values,
+    f32 in another order), and a launch is counted by none on the CPU. The
+    stats rows the bf16 dQ kernel hands the dK/dV kernel (``pack_stats``,
+    ``unpack_stats``)."""
+    B, L, H, hd = 2, 130, 2, 32
+    qkv, g = _long_inputs(7, B, L, H, hd)
+    tq, tg = _t(qkv).bfloat16(), _t(g).bfloat16()
+    lse = al.fused_attention_long_lse(tq, None, H)[1]
+    dqkv = torch.empty_like(tq)
+    part = torch.full((al.db_parts(B, L), 3 * H * hd), float("nan"))
+    counters = (al.long_bwd_dq, al.long_bwd_dkdv, al.long_db)
+    before = [c.launches for c in counters]
+    stats = al.long_bwd_dq(tq, None, lse, tg, H, dqkv, part)
+    assert stats.rows is None and stats.unpacked() == (lse, stats.r)
+    al.long_bwd_dkdv(tq, None, stats, tg, H, dqkv, part)
+    db = al.long_db(dqkv, part)
+    assert [c.launches for c in counters] == before
+    assert part.shape == (4, 3 * H * hd) and torch.isfinite(part).all()
+    d = dqkv.float()
+    torch.testing.assert_close(part[1], d[0, 128:].sum(0), rtol=0, atol=1e-5)
+    torch.testing.assert_close(part[2], d[1, :128].sum(0), rtol=1e-6, atol=1e-5)
+    torch.testing.assert_close(db, d.sum(dim=(0, 1)), rtol=1e-6, atol=1e-4)
+    torch.testing.assert_close(db, al.long_db(dqkv), rtol=1e-6, atol=1e-4)
+    # the stats rows: (batch, head, 64-row tile) in order, lse then r, 0 past L
+    lse_s, r_s = torch.randn(2, 1, 70), torch.randn(2, 1, 70)
+    rows = al.pack_stats(lse_s, r_s)
+    assert rows.shape == (al.stats_rows(1, 70, 2), 2 * al.BWD_TILE) == (4, 128)
+    assert torch.equal(rows[2, :64], lse_s[1, 0, :64]) and torch.equal(rows[2, 64:], r_s[1, 0, :64])
+    assert torch.equal(rows[3, :6], lse_s[1, 0, 64:]) and not rows[3, 6:64].any()
+    assert torch.equal(rows[3, 64:70], r_s[1, 0, 64:]) and not rows[3, 70:].any()
+    lse_u, r_u = al.RowStats(lse_s, rows=rows).unpacked()
+    assert torch.equal(lse_u, lse_s) and torch.equal(r_u, r_s)
+    with pytest.raises(ValueError, match="bf16 kernels' only"):
+        al.long_bwd_dq(_t(qkv), None, lse, _t(g), H, torch.empty_like(_t(qkv)), part)
+    with pytest.raises(ValueError, match="part must be"):
+        al.long_bwd_dkdv(tq, None, stats, tg, H, dqkv, part[:3])
 
 
 def test_long_wrappers_check_their_inputs():
     """The key-tiled wrappers refuse what their kernels do not take, on the
     CPU too: a head geometry, an lse or r of the wrong shape, a dqkv buffer
-    of another dtype; a CUDA-less device raises before any launch."""
+    of another dtype, bf16 row statistics off the CPU without stats rows; a
+    CUDA-less device raises before any launch."""
     qkv, g = torch.zeros(2, 9, 384), torch.zeros(2, 9, 128)
     lse = torch.zeros(2, 2, 9)
     with pytest.raises(ValueError, match="head geometry"):
@@ -486,7 +552,14 @@ def test_long_wrappers_check_their_inputs():
     with pytest.raises(ValueError, match="lse must be"):
         al.fused_attention_long_bwd(qkv, None, torch.zeros(2, 9), g, 2)
     with pytest.raises(ValueError, match="r must be"):
-        al.long_bwd_dkdv(qkv, None, lse, torch.zeros(2, 2, 8), g, 2, torch.zeros_like(qkv))
+        al.long_bwd_dkdv(qkv, None, al.RowStats(lse, torch.zeros(2, 2, 8)), g, 2,
+                         torch.zeros_like(qkv))
+    with pytest.raises(ValueError, match="take r"):
+        al.long_bwd_dkdv(qkv, None, al.RowStats(lse), g, 2, torch.zeros_like(qkv))
+    meta = qkv.bfloat16().to("meta")
+    with pytest.raises(ValueError, match="stats rows"):
+        al.long_bwd_dkdv(meta, None, al.RowStats(lse.to("meta"), lse.to("meta")),
+                         g.bfloat16().to("meta"), 2, torch.empty_like(meta))
     with pytest.raises(ValueError, match="dqkv must be"):
         al.long_bwd_dq(qkv, None, lse, g, 2, torch.zeros_like(qkv, dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="no kernel for device meta"):
