@@ -227,9 +227,10 @@ the exit code is not 0. No JAX is imported.
            hd 32 / 64 / 128, bf16 and f32, no mask, causal, an additive
            finfo.min mask over the first 130 keys of every row ('prefix'),
            and that with one row masked in full ('row'), in the three
-           backward options, at phases 3 and 6's tolerances (under 'row' the
-           recompute options held to finite values: a known fault), dqkv
-           and db the same bits on a rerun; ptxas's registers and spills, failing on a
+           backward options, at phases 3 and 6's tolerances (the recompute
+           options from each row's max and log sum kept apart, also held
+           to their plain version), dqkv and db the same bits on a rerun;
+           ptxas's registers and spills, failing on a
            spill or a serialized wgmma in the bf16 kernels; each kernel timed
            at ViT-L-14-336's image tower (batch 32, 16 heads of 64, L 577)
            beside its plain version, its bound and SDPA (efficient-attention
@@ -298,6 +299,23 @@ the exit code is not 0. No JAX is imported.
            and all-gather of a feature block between the ranks (host clock),
            and in a group of its own (a failed exchange breaks its group)
            whether gloo's point-to-point exchange takes CUDA tensors
+47. timm-forward  one config of each timm-style trunk family at full width
+           (TIMM_FORWARD: ConvNeXt, the gap ViT, PE-Core's MAP ViT,
+           MobileCLIP-B's class-token ViT, EVA02, ViTamin, FastViT, Swin):
+           one bf16 forward of 8 tiles and 8 id rows against the same
+           weights in f32 on the CPU by per-row cosine; exactly the text
+           tower's inference kernel launches, and the trunks' and heads'
+           einsum calls (attention_plain.plain_attention in the Transformer
+           stages, head_attention in the heads and the EVA / Swin blocks),
+           counted per wrapper
+48. convnext  convnext_base (bf16): phase 7's card-vs-CPU step at batch 4,
+           then 13 steps at batch 128 with exactly 12 forward-lse and 12
+           saved-lse backward launches a step (the text tower; the trunk
+           has no attention) and none of any other wrapper, step ms, pairs/s
+           and peak memory; 64 raw tiles through the server's
+           /embed_image_raw against f32 on the CPU by cosine (no attention
+           launch); then PE-Core-B-16's card-vs-CPU step at batch 4 (the
+           MAP head's and the einsum trunk's backward on the card)
 Phases 3, 6, 19, 23 and 26 also time PyTorch's scaled_dot_product_attention
 (efficient-attention backend) at the kernels' shapes as a yardstick (its
 backward alone, on one retained graph), phase
@@ -311,7 +329,8 @@ phase 28's path also with its launches there, and they and the fused_ln
 kernels with their launches on the gene paths, phases 29-32; the
 attention forward, forward-lse and backward and the key-tiled forward also
 with their launches in phases 39-43; the fused CE kernels also with their
-launches in phases 45-46), the nvidia-smi line, and
+launches in phases 45-46; the attention forward, forward-lse and backward
+also with their launches in phases 47-48), the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -889,6 +908,8 @@ def main() -> int:
     debug_phase()
     dist_nccl = dist_nccl_phase()
     dist_gloo = dist_gloo_phase()
+    timm_forward = timm_forward_phase()
+    convnext = convnext_phase()
 
     def gene_launches(key: str) -> dict:
         """A kernel's launches on the gene paths: phase 29's step (path B),
@@ -1178,6 +1199,17 @@ def main() -> int:
         if row["name"] in rows:
             row["cli_launches"] = {k: n.get(rows[row["name"]], 0)
                                    for k, n in phase_launches.items()}
+    timm_launches = {  # phases 47-48: the timm-style towers' paths
+        **{f"47 {name}": n for name, n in timm_forward.items()},
+        "48 convnext_base check (batch 4)": convnext["check"],
+        f"48 convnext_base {VITL_STEPS} steps (batch {CONVNEXT_BATCH})": convnext["steps"],
+        "48 convnext_base server (64 tiles)": convnext["serve"],
+        "48 PE-Core-B-16 check (batch 4)": convnext["pe_core"]}
+    for row in kernels:
+        if row["name"] in ("fused_attention_fwd", "fused_attention_fwd_lse",
+                           "fused_attention_bwd"):
+            key = rows[row["name"]]
+            row["timm_launches"] = {k: n.get(key, 0) for k, n in timm_launches.items()}
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
@@ -3816,7 +3848,7 @@ def long_kernel_phase() -> dict:
             lengths = sorted({*LONG_LENGTHS, fa.fwd_max_seq(hd, dtype) + 1,
                               fa.bwd_max_seq(hd, dtype) + 1,
                               *(LONG_TILE_EDGES if dtype == torch.bfloat16 else ())})
-            group = {"fwd": 0.0, "bwd": 0.0, "db": 0.0, "row_fault": 0.0}
+            group = {"fwd": 0.0, "bwd": 0.0, "db": 0.0, "row": 0.0}
             for L in lengths:
                 for kind in LONG_MASKS:
                     qkv = torch.randn((B, L, 3 * H * hd), generator=gen, device="cuda").to(dtype)
@@ -3824,6 +3856,8 @@ def long_kernel_phase() -> dict:
                     mask = long_mask(kind, L)
                     out = al.fused_attention_long(qkv, mask, H)
                     out_lse, lse = al.fused_attention_long_lse(qkv, mask, H)
+                    out_parts, row_max, lsum = al.fused_attention_long_lse(qkv, mask, H,
+                                                                           parts=True)
                     got = {"lse": al.fused_attention_long_bwd(qkv, mask, lse, g, H),
                            "re": al.fused_attention_long_bwd_recompute(qkv, mask, g, H, db=False),
                            "re_db": al.fused_attention_long_bwd_recompute(qkv, mask, g, H,
@@ -3832,6 +3866,7 @@ def long_kernel_phase() -> dict:
                              "re_db": al.fused_attention_long_bwd_recompute(qkv, mask, g, H,
                                                                             db=True)}
                     want_out, want_lse = fa.reference_attention_lse(qkv, mask, H)
+                    _, want_max, want_lsum = al.reference_attention_parts(qkv, mask, H)
                     want = {"lse": fa.reference_attention_bwd(qkv, mask, lse, g, H)}
                     want["re"] = want["re_db"] = fa.reference_attention_bwd(qkv, mask, None, g, H)
                     torch.cuda.synchronize()
@@ -3839,28 +3874,26 @@ def long_kernel_phase() -> dict:
                     err = (out.float() - want_out.float()).abs().max().item()
                     lse_err = (lse - want_lse).abs().max().item()
                     lse_tol = 1e-5 * max(1.0, want_lse.abs().max().item())
+                    parts_err = max((row_max - want_max).abs().max().item(),
+                                    (lsum - want_lsum).abs().max().item())
                     bad = []
-                    if not (err <= tol and lse_err <= lse_tol and torch.equal(out, out_lse)):
-                        bad.append(f"fwd err {err} (tol {tol}) lse {lse_err} (tol {lse_tol}) "
-                                   f"the same context with lse {torch.equal(out, out_lse)}")
+                    if not (err <= tol and lse_err <= lse_tol and torch.equal(out, out_lse)
+                            and parts_err <= lse_tol and torch.equal(out, out_parts)):
+                        bad.append(f"fwd err {err} (tol {tol}) lse {lse_err}, max and log sum "
+                                   f"{parts_err} (tol {lse_tol}) the same context with lse "
+                                   f"{torch.equal(out, out_lse)} and with the parts "
+                                   f"{torch.equal(out, out_parts)}")
                     for key, (dqkv, db) in got.items():
                         want_dqkv, want_db = want[key]
                         d_err = (dqkv.float() - want_dqkv.float()).abs().max().item()
                         d_tol = bwd_tol(dtype, want_dqkv.float())
-                        # a row masked in full: the recompute options take p
-                        # = exp(s - lse) = 1 where the plain version's softmax
-                        # is 1 / L (lse = m + log sum keeps no log sum at
-                        # |m| ~ 3e38; ROADMAP Queue 3's open fault), so they
-                        # are held to finite values and their bits alone
-                        fault = kind == "row" and key != "lse"
-                        if fault:
-                            group["row_fault"] = max(group["row_fault"], d_err)
-                            d_err, d_tol = 0.0, math.inf
+                        if kind == "row" and key != "lse":
+                            group["row"] = max(group["row"], d_err)
                         group["bwd"] = max(group["bwd"], d_err)
                         if not (d_err <= d_tol and torch.isfinite(dqkv.float()).all().item()):
                             bad.append(f"{key} dqkv err {d_err} (tol {d_tol})")
                         if db is not None:
-                            db_err = 0.0 if fault else (db - want_db).abs().max().item()
+                            db_err = (db - want_db).abs().max().item()
                             db_tol = train_tol(dtype, want_db) + 1e-4
                             group["db"] = max(group["db"], db_err)
                             same = torch.equal(db, again[key][1]) and torch.equal(
@@ -3880,11 +3913,11 @@ def long_kernel_phase() -> dict:
             print(f"[long-kernels] {name} hd {hd}, batch {B}, {H} heads, L {lengths}, masks "
                   f"{', '.join(LONG_MASKS)}: forward max abs err {group['fwd']:.3g} (tol "
                   f"{KERNEL_TOL[name]:g}), lse within 1e-5 x max(1, |lse|), the same context "
-                  f"with and without lse; backward (saved lse with db, recompute, recompute with "
-                  f"db) dqkv max abs err {group['bwd']:.3g} within {dq_tol}, db "
-                  f"{group['db']:.3g}; dqkv and db the same bits on a rerun; under 'row' the "
-                  f"recompute options finite, {group['row_fault']:.3g} from the plain softmax "
-                  f"(the open fault of a row masked in full)", flush=True)
+                  f"with and without lse and with the row max and log sum apart (held to "
+                  f"theirs); backward (saved lse with db, recompute, recompute with db) dqkv max "
+                  f"abs err {group['bwd']:.3g} within {dq_tol}, db {group['db']:.3g}; dqkv and "
+                  f"db the same bits on a rerun; under 'row' (a row masked in full) the "
+                  f"recompute options {group['row']:.3g} from the plain softmax", flush=True)
 
     # times at ViT-L-14-336's image tower, bf16, no mask
     Bt, L, Ht, hd = LONG_TIMED
@@ -4120,6 +4153,170 @@ def so400m_phase() -> dict:
           f"CPU image {cos['image_features']:.5f} text {cos['text_features']:.5f} (>= "
           f"{MIN_COSINE}); {time.perf_counter() - t0:.1f} s", flush=True)
     return {"launches": launches, "cos": cos}
+
+
+# phase 47: one config per timm-style trunk family, at full width
+TIMM_FORWARD = ("convnext_base", "vit_medium_patch16_gap_256", "PE-Core-B-16", "MobileCLIP-B",
+                "EVA02-B-16", "ViTamin-B", "MobileCLIP-S1", "swin_base_patch4_window7_224")
+CONVNEXT_BATCH = 128  # phase 48's timed steps
+
+
+def timm_calls(model, training: bool) -> dict:
+    """The attention calls one forward of a model with a timm-style image
+    tower makes, by wrapper: each kernel-route block's inference forward
+    (or, in training, its forward with lse and saved-lse backward), each
+    plain-route block's einsum attention (every Transformer stage of a
+    trunk, whatever attn_impl), and head_attention's calls (a MAP or
+    attention-pool head, each Swin block, each EVA block)."""
+    from spatial_clip_tpu_torch.models import timm_model as tm
+    from spatial_clip_tpu_torch.models.transformer import MultiHeadAttention
+
+    out = {}
+
+    def add(key, n=1):
+        out[key] = out.get(key, 0) + n
+
+    for m in model.modules():
+        if isinstance(m, MultiHeadAttention):
+            if not m.kernel:
+                add("attention_plain.plain_attention")
+            elif training:
+                add(LSE)
+                add(BWD)
+            else:
+                add(FWD)
+        elif isinstance(m, (tm.SwinBlock, tm.MAPHead, tm.AttentionPool2dHead)):
+            add("attention_plain.head_attention")
+        elif isinstance(m, tm.EVATrunk):
+            add("attention_plain.head_attention", m.layers)
+    return out
+
+
+def timm_forward_phase() -> dict:
+    """47. One config of each timm-style trunk family at full width
+    (TIMM_FORWARD), each once in bf16 on the card against the same weights
+    in f32 on the CPU: 8 tiles and 8 id rows, per-row cosine >= MIN_COSINE
+    for both towers, and exactly the launches :func:`timm_calls` counts
+    (the text tower's inference kernel, the trunks' and heads' einsum
+    calls), per wrapper. Returns the launches by config."""
+    import torch
+
+    from spatial_clip_tpu_torch import create_model
+    from spatial_clip_tpu_torch.models.transforms import normalize_batch
+
+    t0 = time.perf_counter()
+    counters = every_counter()
+    out, lines = {}, []
+    for i, name in enumerate(TIMM_FORWARD):
+        card = create_model(name, precision="bf16", seed=0, device="cuda")
+        cfg = card.cfg
+        rng = np.random.default_rng(47 + i)
+        size = cfg.vision_cfg.size
+        tiles = rng.integers(0, 256, (8, size, size, 3), dtype=np.uint8)
+        ids = torch.from_numpy(rng.integers(0, cfg.text_cfg.vocab_size,
+                                            (8, cfg.text_cfg.context_length)))
+        for c in counters.values():
+            c.launches = 0
+        with torch.inference_mode():
+            got = card(normalize_batch(torch.from_numpy(tiles).cuda(), dtype=card.dtype),
+                       ids.cuda())
+            torch.cuda.synchronize()
+        launches = read_launches(counters)
+        want_launches = timm_calls(card, training=False)
+        got = {k: got[k].float().cpu().numpy() for k in ("image_features", "text_features")}
+        del card
+        torch.cuda.empty_cache()
+        cpu = create_model(name, precision="fp32", seed=0, device="cpu")
+        with torch.inference_mode():
+            want = cpu(normalize_batch(torch.from_numpy(tiles)), ids)
+        del cpu
+        cos = {k: float((got[k] * want[k].numpy()).sum(-1).min()) for k in got}
+        finite = all(np.isfinite(v).all() for v in got.values())
+        if launches != want_launches or min(cos.values()) < MIN_COSINE or not finite:
+            raise AssertionError(f"[timm-forward] {name}: launches {launches} (want "
+                                 f"{want_launches}), cosine {cos}, finite {finite}")
+        out[name] = launches
+        lines.append(f"{name} ({cfg.vision_cfg.timm_model_name}, {size} px) image "
+                     f"{cos['image_features']:.5f} text {cos['text_features']:.5f} launches "
+                     f"{launches}")
+    print(f"[timm-forward] bf16 card vs f32 CPU, 8 tiles and 8 id rows each, min per-row "
+          f"cosine (>= {MIN_COSINE}) and exact launches per wrapper: " + "; ".join(lines)
+          + f"; {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def convnext_phase() -> dict:
+    """48. convnext_base (bf16): phase 7's card-vs-CPU step at batch 4 and
+    VITL_STEPS steps at CONVNEXT_BATCH through long_train_phase, with
+    exactly the text tower's 12 forward-lse and 12 saved-lse backward
+    launches a step and none of any other wrapper; 64 raw tiles through the
+    server's /embed_image_raw, each against f32 on the CPU by cosine, no
+    attention launch; then PE-Core-B-16's card-vs-CPU step at batch 4 with
+    its exact launches (the MAP head's and the einsum trunk's backward on
+    the card)."""
+    from http.server import ThreadingHTTPServer
+
+    import torch
+
+    from spatial_clip_tpu_torch import create_model
+    from spatial_clip_tpu_torch.models.transforms import normalize_batch
+    from spatial_clip_tpu_torch.serve import EmbeddingService, make_handler
+
+    t0 = time.perf_counter()
+    name = "convnext_base"
+    per_step = timm_calls(create_model(name, device="meta", training=True), training=True)
+    if per_step != {LSE: 12, BWD: 12}:
+        raise AssertionError(f"[convnext] {name}'s attention a step {per_step}")
+    steps = long_train_phase("convnext", name, 4, CONVNEXT_BATCH, per_step)
+
+    service = EmbeddingService(name, precision="bf16", batch_size=64, device="cuda")
+    service.warmup()
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(service))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    counters = every_counter()
+    try:
+        dim = int(service.model.cfg.embed_dim)
+        tiles = np.random.default_rng(48).integers(0, 256, (64, 224, 224, 3), dtype=np.uint8)
+        for c in counters.values():
+            c.launches = 0
+        img = embeddings(post(server.server_address[1], "/embed_image_raw", tiles.tobytes()))
+        serve_launches = read_launches(counters)
+        check_embeddings("convnext image", img, 64, dim)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        service.close()
+    del service
+    torch.cuda.empty_cache()
+    reference = create_model(name, precision="fp32", seed=0, device="cpu")
+    with torch.inference_mode():
+        want_img = reference.encode_image(normalize_batch(torch.from_numpy(tiles))).numpy()
+    del reference
+    cos = float((img * want_img).sum(-1).min())
+    if serve_launches or cos < MIN_COSINE:
+        raise AssertionError(f"[convnext-serve] launches {serve_launches} (want none), min "
+                             f"cosine vs f32 CPU {cos}")
+    print(f"[convnext-serve] {name} bf16 batch 64 through the server: 64 raw tiles, 200 OK, "
+          f"unit norm, no attention launch; min cosine vs f32 CPU {cos:.5f} (>= {MIN_COSINE})",
+          flush=True)
+
+    pe = "PE-Core-B-16"
+    pe_step = timm_calls(create_model(pe, device="meta", training=True), training=True)
+    trainer = train_check_phase("pe-core-check", batch_size=4, model_name=pe,
+                                want_launches=pe_step)
+    del trainer
+    torch.cuda.empty_cache()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True).stdout.strip().splitlines()[0]
+    print(f"[convnext] phase 48 on {smi}: {name} bf16 batch {CONVNEXT_BATCH} median step "
+          f"{steps['step_ms']:.3f} ms ({CONVNEXT_BATCH * 1e3 / steps['step_ms']:.1f} pairs/s), "
+          f"max_memory_allocated {steps['peak_gib']:.3f} GiB; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return {"check": per_step, "steps": steps["launches"], "serve": serve_launches,
+            "pe_core": pe_step, "step_ms": steps["step_ms"], "peak_gib": steps["peak_gib"]}
 
 
 def smoke_synthetic_phase() -> dict:

@@ -111,13 +111,12 @@ PARENT_ARGTYPES = {
     "sc_layer_norm_bwd_blocks": [ctypes.c_int],  # rows
     "sc_block_attn_fwd": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5  # .., out, B, L, D, heads, dtype
     + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p],  # eps, scale, stream
-    # qkv, mask, lse, dout, dqkv, r; B, L, H, hd, dtype; scale, stream (no partials, no stats)
-    "sc_attention_long_bwd_dq": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-    + [ctypes.c_float, ctypes.c_void_p],
-    # qkv, mask, lse, r, dout, dqkv; B, L, H, hd, dtype; scale, stream
-    "sc_attention_long_bwd_dkdv": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-    + [ctypes.c_float, ctypes.c_void_p],
 }
+# the key-tiled kernels' entries with the row max and log sum kept apart (the
+# recompute options' route); a parent without them runs the recompute
+# options from the lse
+SPLIT_ENTRIES = ("sc_attention_long_fwd_split", "sc_attention_long_bwd_dq_split",
+                 "sc_attention_long_bwd_dkdv_split")
 KNOBS = {  # kernel: {knob: its macro in the kernel's source}
     "mlp": {"cluster": "SC_MLP_CLUSTER", "max_nb": "SC_MLP_MAX_NB",
             "stages": "SC_MLP_MAX_STAGES"},
@@ -801,57 +800,80 @@ def bench_long_bwd(libs: dict, gen) -> None:
         g = torch.randn((B, L, H * hd), generator=gen, device="cuda").bfloat16()
         lse = al.fused_attention_long_lse(qkv, None, H)[1]
         dqkv = torch.empty_like(qkv)
-        r = torch.empty_like(lse)
         n = 3 * H * hd
         db = torch.empty((n,), device="cuda")
         part = torch.empty((al.db_parts(B, L), n), device="cuda")
-        chunks = torch.empty((al.db_chunks(B * L), n), device="cuda")
         stats = torch.empty((al.stats_rows(B, L, H), 2 * al.BWD_TILE), device="cuda")
         dims = (B, L, H, hd, 1, hd ** -0.5)
 
-        def launch(name, lib):
+        out = qkv.new_empty((B, L, H * hd))
+        lse2, lsum = torch.empty_like(lse), torch.empty_like(lse)
+        split_stats = torch.empty((al.stats_rows(B, L, H), al.stat_row(True)), device="cuda")
+        package = cuda_build.library()
+
+        def launch(lib, recompute=False):
+            """The saved-lse backward with db (dq with its partial rows and
+            stats rows, dk/dv from the stats rows, db from the partials); with
+            ``recompute``, the recompute-with-db option: the forward for the
+            statistics first (the row max and log sum apart where the copy
+            has the split entries), then the same kernels given them."""
             stream = torch.cuda.current_stream().cuda_stream
-            ptrs = (qkv.data_ptr(), None, lse.data_ptr())
-            if name == "parent":  # dq, dk/dv, then db from dqkv
-                errs = (lib.sc_attention_long_bwd_dq(*ptrs, g.data_ptr(), dqkv.data_ptr(),
-                                                     r.data_ptr(), *dims, stream),
-                        lib.sc_attention_long_bwd_dkdv(*ptrs, r.data_ptr(), g.data_ptr(),
-                                                       dqkv.data_ptr(), *dims, stream),
-                        lib.sc_attention_long_db(dqkv.data_ptr(), chunks.data_ptr(),
-                                                 db.data_ptr(), B * L, n, 1, stream))
-            else:  # dq with its partial rows and stats rows (no r), dk/dv from the stats rows
-                partials = lib.sc_attention_long_db_partials
-                partials.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_void_p]
-                errs = (lib.sc_attention_long_bwd_dq(*ptrs, g.data_ptr(), dqkv.data_ptr(), None,
-                                                     part.data_ptr(), stats.data_ptr(), *dims,
-                                                     stream),
-                        lib.sc_attention_long_bwd_dkdv(qkv.data_ptr(), None, None, None,
-                                                       g.data_ptr(), dqkv.data_ptr(),
-                                                       part.data_ptr(), stats.data_ptr(), *dims,
-                                                       stream),
-                        partials(part.data_ptr(), db.data_ptr(), part.shape[0], n, stream))
+            partials = lib.sc_attention_long_db_partials
+            partials.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_void_p]
+            split = recompute and all(hasattr(lib, fn) for fn in SPLIT_ENTRIES)
+            lib.sc_attention_long_fwd.argtypes = package.sc_attention_long_fwd.argtypes
+            errs = []
+            if split:
+                for fn in SPLIT_ENTRIES:
+                    getattr(lib, fn).argtypes = getattr(package, fn).argtypes
+                errs.append(lib.sc_attention_long_fwd_split(
+                    qkv.data_ptr(), None, out.data_ptr(), lse2.data_ptr(), lsum.data_ptr(),
+                    *dims, stream))
+                ptrs = (qkv.data_ptr(), None, lse2.data_ptr(), lsum.data_ptr())
+                errs += [lib.sc_attention_long_bwd_dq_split(
+                             *ptrs, g.data_ptr(), dqkv.data_ptr(), None, part.data_ptr(),
+                             split_stats.data_ptr(), *dims, stream),
+                         lib.sc_attention_long_bwd_dkdv_split(
+                             qkv.data_ptr(), None, None, lsum.data_ptr(), None, g.data_ptr(),
+                             dqkv.data_ptr(), part.data_ptr(), split_stats.data_ptr(), *dims,
+                             stream)]
+            else:
+                stat = lse
+                if recompute:
+                    errs.append(lib.sc_attention_long_fwd(qkv.data_ptr(), None, out.data_ptr(),
+                                                          lse2.data_ptr(), *dims, stream))
+                    stat = lse2
+                errs += [lib.sc_attention_long_bwd_dq(
+                             qkv.data_ptr(), None, stat.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
+                             None, part.data_ptr(), stats.data_ptr(), *dims, stream),
+                         lib.sc_attention_long_bwd_dkdv(
+                             qkv.data_ptr(), None, None, None, g.data_ptr(), dqkv.data_ptr(),
+                             part.data_ptr(), stats.data_ptr(), *dims, stream)]
+            errs.append(partials(part.data_ptr(), db.data_ptr(), part.shape[0], n, stream))
             for err in errs:
                 cuda_build.check(cuda_build.library(), err, "bench_gemm launch")
 
         want, want_db = fa.reference_attention_bwd(qkv, None, lse, g, H)
         tol, db_tol = bf16_ulp(want), 2 ** -8 * want_db.abs().max().item() + 1e-4
-        report = {}
+        report, recompute = {}, {}
         for name, lib in libs.items():
-            launch(name, lib)
-            torch.cuda.synchronize()
-            err = (dqkv.float() - want.float()).abs().max().item()
-            db_err = (db - want_db).abs().max().item()
-            if not (err <= tol and db_err <= db_tol):
-                raise AssertionError(f"long_bwd {shape}: copy {name}'s dqkv is {err} off (tol "
-                                     f"{tol}), db {db_err} (tol {db_tol})")
-            report[name] = device_ms(lambda name=name, lib=lib: launch(name, lib))
+            for re_, times in ((False, report), (True, recompute)):
+                launch(lib, re_)
+                torch.cuda.synchronize()
+                err = (dqkv.float() - want.float()).abs().max().item()
+                db_err = (db - want_db).abs().max().item()
+                if not (err <= tol and db_err <= db_tol):
+                    raise AssertionError(f"long_bwd {shape}: copy {name}'s dqkv is {err} off "
+                                         f"(tol {tol}), db {db_err} (tol {db_tol}), recompute "
+                                         f"{re_}")
+                times[name] = device_ms(lambda lib=lib, re_=re_: launch(lib, re_))
         three_d = 3 * H * hd
         n_bytes = B * L * (2 * three_d + H * hd) * 2 + 4 * H * B * L + 4 * three_d
         bound = bound_ms(n_bytes, 5 * 2 * B * H * L * L * hd)
         library = {b: sdpa_device_ms(qkv, H, b, True) for b in ("efficient", "flash")}
         print(json.dumps({"kernel": "attention_long_bwd", "shape": shape, "B": B, "L": L,
-                          "heads": H, "hd": hd, "ms": report,
+                          "heads": H, "hd": hd, "ms": report, "recompute_db_ms": recompute,
                           "plain_ms": device_ms(
                               lambda: fa.reference_attention_bwd(qkv, None, lse, g, H),
                               reps=3, inner=3),

@@ -15,8 +15,11 @@
 //     dqkv (sc_attention_long_db);
 //   - `_bwd_kernel` (:379), `_bwd_kernel3` (:390) and `_bwd_kernel3_db` (:404),
 //     the recompute options: their wrappers (ops/attention_long.py) run
-//     sc_attention_long_fwd for the lse first, then the same kernels (db only
-//     in the db option).
+//     sc_attention_long_fwd_split for each row's max and log sum, kept apart,
+//     then the same kernels through their _split entries (db only in the db
+//     option). JAX's recompute kernels form p from the max and the sum; an
+//     lse of their sum would round to the max in a row a finfo(f32).min mask
+//     masks in full, and give p = 1 where they give 1 / L.
 // A TPU block holds a whole sequence in VMEM, so JAX's kernels have no length
 // cap. A block here has 227 KB of shared memory, which one (batch, head)'s
 // operands outgrow past those lengths; so each kernel here keeps a tile of
@@ -67,7 +70,8 @@
 //     from registers, K MN-major). It writes dq into dqkv and each 64-row
 //     query tile's lse and r as one stats row, which dK/dV lands.
 //   - dK/dV (long_dkdv_kernel_tc): stages of 64 query rows' q and do, with
-//     their lse and r as one 512-byte bulk copy of the tile's stats row (the
+//     their lse and r as one 512-byte bulk copy of the tile's stats row
+//     (768 bytes with the recompute options' log sums; the
 //     (heads, B, L) rows are not 16-byte aligned for a tensor map). S^T = K
 //     Q^T and dP^T = V do^T on wgmma, then dv += P^T do and dk += dS^T q
 //     with P^T and dS^T from registers.
@@ -155,6 +159,11 @@ __host__ __device__ constexpr int col_blocks(int hd) { return hd == 128 ? 2 : 1;
 // Keys of a dQ stage: 128 (S and dP m64n128k16) below hd 128; at hd 128 the
 // dq accumulator leaves registers for 64.
 __host__ __device__ constexpr int dq_keys(int hd) { return hd == 128 ? kBwdTile : 2 * kBwdTile; }
+
+// Floats of a stats row: a query tile's lse (or, split, its rows' max) and
+// r, and split also their log sums; one bulk copy into the stage's
+// 1024-byte slot.
+__host__ __device__ constexpr int stat_row(bool split) { return (split ? 3 : 2) * kBwdTile; }
 
 // Shared memory of a bf16 kernel (kind 0 forward, 1 dQ, 2 dK/dV) at head dim
 // hd, as offsets from a 1024-byte aligned base: two buffers of an item's own
@@ -411,6 +420,19 @@ __device__ __forceinline__ float exp_minus(float x, float c) {
   return y;
 }
 
+// exp(x - c - lo) with the row's statistic in two parts, the row max c and
+// the log of its sum lo, subtracted one after the other: a row an additive
+// mask masks in full has c near finfo(f32).min, where c + lo would round to
+// c and every p to 1 instead of 1 / L. lo = 0 (the saved lse alone) gives
+// exp_minus(x, c)'s bits.
+__device__ __forceinline__ float exp_minus(float x, float c, float lo) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;"
+      : "=f"(y)
+      : "f"(__fmul_rn(__fsub_rn(__fsub_rn(x, c), lo), kLog2e)));
+  return y;
+}
+
 // s * scale (+ mask[row][j]) in the resident order, -inf for a key j at or
 // past seq: this thread's elements of a 64 x N score accumulator whose
 // column 0 is key key0, its rows' mask rows in mrow. A whole tile without
@@ -581,8 +603,8 @@ struct Turns {
 template <int HD>
 __global__ void __launch_bounds__(kTcThreads, 1)
 long_fwd_kernel_tc(const __grid_constant__ CUtensorMap map_qkv, const float* __restrict__ mask,
-                   bf16* __restrict__ out, float* __restrict__ lse, int batch, int seq,
-                   int heads, float scale) {
+                   bf16* __restrict__ out, float* __restrict__ lse, float* __restrict__ lsum,
+                   int batch, int seq, int heads, float scale) {
   using C = Dims<HD>;
   constexpr Layout lay = make_layout(0, HD);
   extern __shared__ unsigned char smem_raw[];
@@ -717,7 +739,14 @@ long_fwd_kernel_tc(const __grid_constant__ CUtensorMap map_qkv, const float* __r
       const float sigma = fmaxf(mma::quad_sum(l[hh]), 1e-30f);
       inv[hh] = 1.f / sigma;
       const int i = row0 + 8 * hh;
-      if (lse != nullptr && t == 0 && i < seq) lse[stat + i] = logf(sigma) + m[hh];
+      if (lse != nullptr && t == 0 && i < seq) {
+        if (lsum == nullptr) {
+          lse[stat + i] = logf(sigma) + m[hh];
+        } else {  // the max and the log of the sum kept apart
+          lse[stat + i] = m[hh];
+          lsum[stat + i] = logf(sigma);
+        }
+      }
     }
 #pragma unroll
     for (int d = 0; d < HD / 8; ++d)
@@ -737,13 +766,15 @@ long_fwd_kernel_tc(const __grid_constant__ CUtensorMap map_qkv, const float* __r
 // and dq. The two consumer warpgroups take turns (Turns) at their products:
 // a turn issues the last step's dq product with this step's S and dP, and
 // the step's elementwise work runs under the other warpgroup's turn.
-template <int HD>
+// kSplit: lse is each row's max and lsum the log of its sum (the recompute
+// options); without it lsum is not read, and the code is the saved-lse one.
+template <int HD, bool kSplit>
 __global__ void __launch_bounds__(kTcThreads, 1)
 long_dq_kernel_tc(const __grid_constant__ CUtensorMap map_qkv,
                   const __grid_constant__ CUtensorMap map_do, const float* __restrict__ mask,
-                  const float* __restrict__ lse, bf16* __restrict__ dqkv,
-                  float* __restrict__ part, float* __restrict__ stats, int batch, int seq,
-                  int heads, float scale) {
+                  const float* __restrict__ lse, const float* __restrict__ lsum,
+                  bf16* __restrict__ dqkv, float* __restrict__ part, float* __restrict__ stats,
+                  int batch, int seq, int heads, float scale) {
   using C = Dims<HD>;
   constexpr Layout lay = make_layout(1, HD);
   constexpr int kKeys = dq_keys(HD);  // keys of a stage
@@ -798,11 +829,12 @@ long_dq_kernel_tc(const __grid_constant__ CUtensorMap map_qkv,
     const int row0 = at.row0 + 64 * c + 16 * warp + (lane >> 2);  // this thread's rows row0, row0 + 8
     const size_t stat = (size_t(at.h) * batch + at.b) * seq;
     const float* mrow[2] = {nullptr, nullptr};
-    float lse_r[2];
+    float lse_r[2], lsum_r[2];
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int i = min(row0 + 8 * hh, seq - 1);  // a padded row reads the last; never stored
       lse_r[hh] = lse[stat + i];
+      lsum_r[hh] = kSplit ? lsum[stat + i] : 0.f;
       if (mask != nullptr) mrow[hh] = mask + size_t(i) * seq;
     }
     float dq[C::kAcc], term[2] = {0.f, 0.f};
@@ -854,10 +886,12 @@ long_dq_kernel_tc(const __grid_constant__ CUtensorMap map_qkv,
         frag_fence(dsf);
         if (step > 0 && lane == 0) sm90::mbar_arrive(&bar.empty[(it0 + step - 1) % lay.stages]);
       };
-      auto probs = [&](int step) {  // p = exp(s - lse), 0 for a key past seq
+      auto probs = [&](int step) {  // p = exp(s - lse - lsum), 0 for a key past seq
         scale_scores<kKeys>(sc, (step % n_kt) * kKeys, seq, scale, mrow, t);
 #pragma unroll
-        for (int e = 0; e < kKeys / 2; ++e) sc[e] = exp_minus(sc[e], lse_r[(e >> 1) & 1]);
+        for (int e = 0; e < kKeys / 2; ++e)
+          sc[e] = kSplit ? exp_minus(sc[e], lse_r[(e >> 1) & 1], lsum_r[(e >> 1) & 1])
+                         : exp_minus(sc[e], lse_r[(e >> 1) & 1]);
       };
       auto dscores = [&]() {  // ds, rounded, into the A fragments of dq += dS K
 #pragma unroll
@@ -899,9 +933,10 @@ long_dq_kernel_tc(const __grid_constant__ CUtensorMap map_qkv,
       for (int hh = 0; hh < 2; ++hh) {
         const int i = row0 + 8 * hh, tile = i / kBwdTile;
         if (tile < n_st) {  // the dK/dV kernel's stats row of query tile `tile`
-          float* row = stats + ((size_t(at.b) * heads + at.h) * n_st + tile) * 2 * kBwdTile;
+          float* row = stats + ((size_t(at.b) * heads + at.h) * n_st + tile) * stat_row(kSplit);
           row[i % kBwdTile] = i < seq ? lse_r[hh] : 0.f;
           row[kBwdTile + i % kBwdTile] = i < seq ? term[hh] : 0.f;
+          if constexpr (kSplit) row[2 * kBwdTile + i % kBwdTile] = i < seq ? lsum_r[hh] : 0.f;
         }
       }
     }
@@ -920,7 +955,7 @@ long_dq_kernel_tc(const __grid_constant__ CUtensorMap map_qkv,
 // consumer warpgroups take turns (Turns) at their products: a turn issues
 // the last query tile's dv and dk products with this tile's S^T and dP^T,
 // and the tile's elementwise work runs under the other warpgroup's turn.
-template <int HD>
+template <int HD, bool kSplit>  // kSplit as long_dq_kernel_tc's
 __global__ void __launch_bounds__(kTcThreads, 1)
 long_dkdv_kernel_tc(const __grid_constant__ CUtensorMap map_qkv,
                     const __grid_constant__ CUtensorMap map_do, const float* __restrict__ mask,
@@ -946,7 +981,7 @@ long_dkdv_kernel_tc(const __grid_constant__ CUtensorMap map_qkv,
       for (int item = blockIdx.x, n = 0; item < n_items; item += gridDim.x, ++n) {
         const Item at(item, seq, heads);
         unsigned char* own = smem + (n & 1) * lay.own;
-        const float* stats_bh = stats + (size_t(at.b) * heads + at.h) * n_it * 2 * kBwdTile;
+        const float* stats_bh = stats + (size_t(at.b) * heads + at.h) * n_it * stat_row(kSplit);
         bar.own_slot(n);
         sm90::mbar_arrive_expect_tx(&bar.own_full[n & 1], lay.own);
         land(&map_qkv, own, &bar.own_full[n & 1], width + at.h * HD, at.row0, at.b, kRows,
@@ -960,11 +995,11 @@ long_dkdv_kernel_tc(const __grid_constant__ CUtensorMap map_qkv,
           unsigned char* st = smem + lay.ring + sl.s * lay.stage;
           sm90::mbar_arrive_expect_tx(&bar.a_full[sl.s], lay.operand);
           land(&map_qkv, st, &bar.a_full[sl.s], at.h * HD, i0, at.b, kBwdTile, C::kNb);
-          sm90::mbar_arrive_expect_tx(&bar.b_full[sl.s], lay.operand + 2 * kBwdTile * 4);
+          sm90::mbar_arrive_expect_tx(&bar.b_full[sl.s], lay.operand + stat_row(kSplit) * 4);
           land(&map_do, st + lay.operand, &bar.b_full[sl.s], at.h * HD, i0, at.b, kBwdTile,
                C::kNb);
-          sm90::bulk_load(st + 2 * lay.operand, stats_bh + size_t(qt) * 2 * kBwdTile,
-                          2 * kBwdTile * 4, &bar.b_full[sl.s]);
+          sm90::bulk_load(st + 2 * lay.operand, stats_bh + size_t(qt) * stat_row(kSplit),
+                          stat_row(kSplit) * 4, &bar.b_full[sl.s]);
         }
       }
     }
@@ -1061,11 +1096,22 @@ long_dkdv_kernel_tc(const __grid_constant__ CUtensorMap map_qkv,
         // p, then ds, in loops of their own: in one loop the registers of
         // hd 128 spill. A thread's two query rows of the tile are 8 i + 2 t
         // and 8 i + 2 t + 1.
+        if constexpr (!kSplit) {
 #pragma unroll
-        for (int i = 0; i < kBwdTile / 8; ++i) {
-          const float2 a = *reinterpret_cast<const float2*>(row + 8 * i + 2 * t);
+          for (int i = 0; i < kBwdTile / 8; ++i) {
+            const float2 a = *reinterpret_cast<const float2*>(row + 8 * i + 2 * t);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) sc[4 * i + e] = exp_minus(sc[4 * i + e], e & 1 ? a.y : a.x);
+            for (int e = 0; e < 4; ++e) sc[4 * i + e] = exp_minus(sc[4 * i + e], e & 1 ? a.y : a.x);
+          }
+        } else {  // the rows' max and log sums, both from the stats row
+#pragma unroll
+          for (int i = 0; i < kBwdTile / 8; ++i) {
+            const float2 a = *reinterpret_cast<const float2*>(row + 8 * i + 2 * t);
+            const float2 lo = *reinterpret_cast<const float2*>(row + 2 * kBwdTile + 8 * i + 2 * t);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              sc[4 * i + e] = exp_minus(sc[4 * i + e], e & 1 ? a.y : a.x, e & 1 ? lo.y : lo.x);
+          }
         }
 #pragma unroll
         for (int i = 0; i < kBwdTile / 8; ++i) {
@@ -1210,8 +1256,8 @@ __device__ __forceinline__ float score(float s, const float* mask_row, int j, in
 template <int HD>
 __device__ __forceinline__ void fwd(const float* q_g, const float* k_g, const float* v_g,
                                     size_t stride, const float* mask, float* out_g,
-                                    size_t out_stride, float* lse_g, int q0, int seq,
-                                    float scale, unsigned char* smem) {
+                                    size_t out_stride, float* lse_g, float* lsum_g, int q0,
+                                    int seq, float scale, unsigned char* smem) {
   constexpr int kS = kRowStride<float, HD>, kC = HD / 16;
   float* q_s = reinterpret_cast<float*>(smem);
   float* ring = q_s + kBlock * kS;  // stage st: k at ring + 2 st kBlock kS, v after it
@@ -1279,7 +1325,14 @@ __device__ __forceinline__ void fwd(const float* q_g, const float* k_g, const fl
     const float inv = 1.f / sigma;
     const int i = q0 + at.ty + 16 * a;
     if (i < seq) {
-      if (lse_g != nullptr && at.tx == 0) lse_g[i] = logf(sigma) + m[a];
+      if (lse_g != nullptr && at.tx == 0) {
+        if (lsum_g == nullptr) {
+          lse_g[i] = logf(sigma) + m[a];
+        } else {  // the max and the log of the sum kept apart
+          lse_g[i] = m[a];
+          lsum_g[i] = logf(sigma);
+        }
+      }
 #pragma unroll
       for (int c = 0; c < kC; ++c) out_g[size_t(i) * out_stride + at.tx + 16 * c] = o[a][c] * inv;
     }
@@ -1289,8 +1342,9 @@ __device__ __forceinline__ void fwd(const float* q_g, const float* k_g, const fl
 template <int HD>
 __device__ __forceinline__ void dq(const float* q_g, const float* k_g, const float* v_g,
                                    size_t stride, const float* mask, const float* lse_g,
-                                   const float* do_g, size_t do_stride, float* dq_g, float* r_g,
-                                   int q0, int seq, float scale, unsigned char* smem) {
+                                   const float* lsum_g, const float* do_g, size_t do_stride,
+                                   float* dq_g, float* r_g, int q0, int seq, float scale,
+                                   unsigned char* smem) {
   constexpr int kS = kRowStride<float, HD>, kC = HD / 16;
   float* q_s = reinterpret_cast<float*>(smem);
   float* do_s = q_s + kBlock * kS;
@@ -1305,12 +1359,13 @@ __device__ __forceinline__ void dq(const float* q_g, const float* k_g, const flo
   copy_rows<float, HD>(ring + kBlock * kS, v_g, stride, 0, seq);
   mma::cp_async_commit();
 
-  float acc[kSimtRows][kC], lse[kSimtRows], term[kSimtRows];
+  float acc[kSimtRows][kC], lse[kSimtRows], lo[kSimtRows], term[kSimtRows];
   const float* mrow[kSimtRows];
 #pragma unroll
   for (int a = 0; a < kSimtRows; ++a) {
     const int i = min(q0 + at.ty + 16 * a, seq - 1);
     lse[a] = lse_g[i];
+    lo[a] = lsum_g == nullptr ? 0.f : lsum_g[i];
     term[a] = 0.f;
     mrow[a] = mask == nullptr ? nullptr : mask + size_t(i) * seq;
 #pragma unroll
@@ -1341,8 +1396,8 @@ __device__ __forceinline__ void dq(const float* q_g, const float* k_g, const flo
     for (int a = 0; a < kSimtRows; ++a)
 #pragma unroll
       for (int b = 0; b < kSimtRows; ++b) {
-        const float p =
-            expf(score(s[a][b], mrow[a], kt * kBlock + at.tx + 16 * b, seq, scale) - lse[a]);
+        const float p = expf(
+            score(s[a][b], mrow[a], kt * kBlock + at.tx + 16 * b, seq, scale) - lse[a] - lo[a]);
         if (!second) {
           term[a] = fmaf(dp[a][b], p, term[a]);
         } else {
@@ -1370,7 +1425,8 @@ __device__ __forceinline__ void dq(const float* q_g, const float* k_g, const flo
 template <int HD>
 __device__ __forceinline__ void dkdv(const float* q_g, const float* k_g, const float* v_g,
                                      size_t stride, const float* mask, const float* lse_g,
-                                     const float* r_g, const float* do_g, size_t do_stride,
+                                     const float* lsum_g, const float* r_g, const float* do_g,
+                                     size_t do_stride,
                                      float* dk_g, float* dv_g, int k0, int seq, float scale,
                                      unsigned char* smem) {
   constexpr int kS = kRowStride<float, HD>, kC = HD / 16;
@@ -1421,7 +1477,8 @@ __device__ __forceinline__ void dkdv(const float* q_g, const float* k_g, const f
       for (int a = 0; a < kSimtRows; ++a) {
         float v = __fmul_rn(s[a][b], scale);
         if (mask != nullptr) v = __fadd_rn(v, __ldg(mask + size_t(min(i, seq - 1)) * seq + key[a]));
-        const float p = expf(v - lse_st[ic]);
+        const float lo = lsum_g == nullptr ? 0.f : __ldg(lsum_g + min(i, seq - 1));
+        const float p = expf(v - lse_st[ic] - lo);
         const float ds = sc::bwd::tc::dscore(p, dp[a][b], r_st[ic], scale);
         s[a][b] = i < seq ? p : 0.f;
         dp[a][b] = i < seq ? ds : 0.f;
@@ -1458,40 +1515,42 @@ __device__ __forceinline__ void dkdv(const float* q_g, const float* k_g, const f
 template <int HD>
 __global__ void __launch_bounds__(kSimtThreads)
 long_fwd_kernel_f32(const float* __restrict__ qkv, const float* __restrict__ mask,
-                    float* __restrict__ out, float* __restrict__ lse, int batch, int seq,
-                    int heads, float scale) {
+                    float* __restrict__ out, float* __restrict__ lse, float* __restrict__ lsum,
+                    int batch, int seq, int heads, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int n_qt = (seq + kBlock - 1) / kBlock;
   const int bh = blockIdx.x / n_qt, q0 = (blockIdx.x % n_qt) * kBlock;
   const Head hd(bh / heads, bh % heads, batch, seq, heads, HD);
   const float* q_g = qkv + hd.q;
   simt::fwd<HD>(q_g, q_g + hd.width, q_g + 2 * hd.width, hd.stride, mask, out + hd.o, hd.width,
-                lse == nullptr ? nullptr : lse + hd.stat, q0, seq, scale, smem);
+                lse == nullptr ? nullptr : lse + hd.stat,
+                lsum == nullptr ? nullptr : lsum + hd.stat, q0, seq, scale, smem);
 }
 
 // One block per (batch, head, 64 query rows): dq into dqkv, r (heads, B, L).
 template <int HD>
 __global__ void __launch_bounds__(kSimtThreads)
 long_dq_kernel_f32(const float* __restrict__ qkv, const float* __restrict__ mask,
-                   const float* __restrict__ lse, const float* __restrict__ dout,
-                   float* __restrict__ dqkv, float* __restrict__ r, int batch, int seq, int heads,
-                   float scale) {
+                   const float* __restrict__ lse, const float* __restrict__ lsum,
+                   const float* __restrict__ dout, float* __restrict__ dqkv, float* __restrict__ r,
+                   int batch, int seq, int heads, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int n_qt = (seq + kBlock - 1) / kBlock;
   const int bh = blockIdx.x / n_qt, q0 = (blockIdx.x % n_qt) * kBlock;
   const Head hd(bh / heads, bh % heads, batch, seq, heads, HD);
   const float* q_g = qkv + hd.q;
   simt::dq<HD>(q_g, q_g + hd.width, q_g + 2 * hd.width, hd.stride, mask, lse + hd.stat,
-               dout + hd.o, hd.width, dqkv + hd.q, r + hd.stat, q0, seq, scale, smem);
+               lsum == nullptr ? nullptr : lsum + hd.stat, dout + hd.o, hd.width, dqkv + hd.q,
+               r + hd.stat, q0, seq, scale, smem);
 }
 
 // One block per (batch, head, 64 keys): dk and dv into dqkv.
 template <int HD>
 __global__ void __launch_bounds__(kSimtThreads)
 long_dkdv_kernel_f32(const float* __restrict__ qkv, const float* __restrict__ mask,
-                     const float* __restrict__ lse, const float* __restrict__ r,
-                     const float* __restrict__ dout, float* __restrict__ dqkv, int batch, int seq,
-                     int heads, float scale) {
+                     const float* __restrict__ lse, const float* __restrict__ lsum,
+                     const float* __restrict__ r, const float* __restrict__ dout,
+                     float* __restrict__ dqkv, int batch, int seq, int heads, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int n_kt = (seq + kBlock - 1) / kBlock;
   const int bh = blockIdx.x / n_kt, k0 = (blockIdx.x % n_kt) * kBlock;
@@ -1499,7 +1558,8 @@ long_dkdv_kernel_f32(const float* __restrict__ qkv, const float* __restrict__ ma
   const float* q_g = qkv + hd.q;
   float* dk_g = dqkv + hd.q + hd.width;
   simt::dkdv<HD>(q_g, q_g + hd.width, q_g + 2 * hd.width, hd.stride, mask, lse + hd.stat,
-                 r + hd.stat, dout + hd.o, hd.width, dk_g, dk_g + hd.width, k0, seq, scale, smem);
+                 lsum == nullptr ? nullptr : lsum + hd.stat, r + hd.stat, dout + hd.o, hd.width,
+                 dk_g, dk_g + hd.width, k0, seq, scale, smem);
 }
 
 // db's first pass: part[y][c] = the f32 sum of dqkv[row][c] over rows [y
@@ -1559,10 +1619,13 @@ cudaError_t tc_maps(CUtensorMap* map_qkv, CUtensorMap* map_do, const void* qkv, 
 
 // dtype: 0 = float32, 1 = bfloat16. qkv (batch, seq, 3 heads head_dim); mask
 // (seq, seq) f32 additive or null; out (batch, seq, heads head_dim); lse
-// (heads, batch, seq) f32, or null for none.
-extern "C" int sc_attention_long_fwd(const void* qkv, const void* mask, void* out, void* lse,
-                                     int batch, int seq, int heads, int head_dim, int dtype,
-                                     float scale, void* stream) {
+// (heads, batch, seq) f32, or null for none. With lsum (lse's shape) as
+// well, lse takes each row's max and lsum the log of its sum, kept apart
+// for the recompute options' backward (exp_minus with lo).
+extern "C" int sc_attention_long_fwd_split(const void* qkv, const void* mask, void* out,
+                                           void* lse, void* lsum, int batch, int seq, int heads,
+                                           int head_dim, int dtype, float scale, void* stream) {
+  if (lsum != nullptr && lse == nullptr) return int(cudaErrorInvalidValue);
   if (!geometry_ok(batch, seq, heads)) return int(cudaErrorInvalidValue);
   if (!aligned(qkv, out)) return int(cudaErrorMisalignedAddress);
   const auto s = static_cast<cudaStream_t>(stream);
@@ -1574,7 +1637,8 @@ extern "C" int sc_attention_long_fwd(const void* qkv, const void* mask, void* ou
       if (err != cudaSuccess) return err;
       long_fwd_kernel_f32<HD><<<batch * heads * tiles(seq, kBlock), kSimtThreads, smem, s>>>(
           static_cast<const float*>(qkv), static_cast<const float*>(mask),
-          static_cast<float*>(out), static_cast<float*>(lse), batch, seq, heads, scale);
+          static_cast<float*>(out), static_cast<float*>(lse), static_cast<float*>(lsum), batch,
+          seq, heads, scale);
     } else {
       constexpr Layout lay = make_layout(0, HD);
       CUtensorMap map_qkv;
@@ -1583,24 +1647,35 @@ extern "C" int sc_attention_long_fwd(const void* qkv, const void* mask, void* ou
       if (err != cudaSuccess) return err;
       tc::long_fwd_kernel_tc<HD><<<tc_grid(batch * heads * tiles(seq, kRows)), kTcThreads, lay.total, s>>>(
           map_qkv, static_cast<const float*>(mask), static_cast<bf16*>(out),
-          static_cast<float*>(lse), batch, seq, heads, scale);
+          static_cast<float*>(lse), static_cast<float*>(lsum), batch, seq, heads, scale);
     }
     return cudaGetLastError();
   }));
+}
+
+extern "C" int sc_attention_long_fwd(const void* qkv, const void* mask, void* out, void* lse,
+                                     int batch, int seq, int heads, int head_dim, int dtype,
+                                     float scale, void* stream) {
+  return sc_attention_long_fwd_split(qkv, mask, out, lse, nullptr, batch, seq, heads, head_dim,
+                                     dtype, scale, stream);
 }
 
 // The dQ kernel: lse (heads, batch, seq) f32; dout (batch, seq, heads
 // head_dim) in qkv's dtype. Writes the q columns of dqkv (qkv's shape). f32
 // writes r (heads, batch, seq) f32 and takes neither part nor stats. bf16
 // takes no r: it writes stats, for each (batch, head, 64-row query tile) in
-// that order one row of 128 f32, the tile's lse then its r (0 past seq),
+// that order one row of 128 f32, the tile's lse then its r (0 past seq;
+// with lsum 192 f32: the max, r, then the log sums),
 // which sc_attention_long_bwd_dkdv lands with one bulk copy; with part
 // non-null also the q columns of part (db_parts rows of 3 heads head_dim
-// f32: row b ceil(seq / 128) + t is block t of sequence b).
-extern "C" int sc_attention_long_bwd_dq(const void* qkv, const void* mask, const void* lse,
-                                        const void* dout, void* dqkv, void* r, void* part,
-                                        void* stats, int batch, int seq, int heads, int head_dim,
-                                        int dtype, float scale, void* stream) {
+// f32: row b ceil(seq / 128) + t is block t of sequence b). With lsum
+// (heads, batch, seq) f32, lse is each row's max and lsum the log of its
+// sum (sc_attention_long_fwd_split): p = exp(s - lse - lsum).
+extern "C" int sc_attention_long_bwd_dq_split(const void* qkv, const void* mask, const void* lse,
+                                              const void* lsum, const void* dout, void* dqkv,
+                                              void* r, void* part, void* stats, int batch,
+                                              int seq, int heads, int head_dim, int dtype,
+                                              float scale, void* stream) {
   if (!geometry_ok(batch, seq, heads)) return int(cudaErrorInvalidValue);
   if (!aligned(qkv, dout, dqkv)) return int(cudaErrorMisalignedAddress);
   const auto s = static_cast<cudaStream_t>(stream);
@@ -1613,33 +1688,51 @@ extern "C" int sc_attention_long_bwd_dq(const void* qkv, const void* mask, const
       if (err != cudaSuccess) return err;
       long_dq_kernel_f32<HD><<<batch * heads * tiles(seq, kBlock), kSimtThreads, smem, s>>>(
           static_cast<const float*>(qkv), static_cast<const float*>(mask),
-          static_cast<const float*>(lse), static_cast<const float*>(dout),
-          static_cast<float*>(dqkv), static_cast<float*>(r), batch, seq, heads, scale);
+          static_cast<const float*>(lse), static_cast<const float*>(lsum),
+          static_cast<const float*>(dout), static_cast<float*>(dqkv), static_cast<float*>(r), batch,
+          seq, heads, scale);
     } else {
       constexpr Layout lay = make_layout(1, HD);
       if (stats == nullptr || r != nullptr || !aligned(stats)) return cudaErrorInvalidValue;
       CUtensorMap map_qkv, map_do;
       cudaError_t err = tc_maps(&map_qkv, &map_do, qkv, dout, batch, seq, heads * HD);
-      if (err == cudaSuccess) err = prepare(tc::long_dq_kernel_tc<HD>, lay.total);
+      auto run = [&](auto split) {
+        constexpr bool kSplit = decltype(split)::value;
+        const cudaError_t e = prepare(tc::long_dq_kernel_tc<HD, kSplit>, lay.total);
+        if (e != cudaSuccess) return e;
+        tc::long_dq_kernel_tc<HD, kSplit>
+            <<<tc_grid(batch * heads * tiles(seq, kRows)), kTcThreads, lay.total, s>>>(
+                map_qkv, map_do, static_cast<const float*>(mask), static_cast<const float*>(lse),
+                static_cast<const float*>(lsum), static_cast<bf16*>(dqkv),
+                static_cast<float*>(part), static_cast<float*>(stats), batch, seq, heads, scale);
+        return cudaSuccess;
+      };
+      if (err == cudaSuccess) err = lsum == nullptr ? run(std::false_type{}) : run(std::true_type{});
       if (err != cudaSuccess) return err;
-      tc::long_dq_kernel_tc<HD><<<tc_grid(batch * heads * tiles(seq, kRows)), kTcThreads, lay.total, s>>>(
-          map_qkv, map_do, static_cast<const float*>(mask), static_cast<const float*>(lse),
-          static_cast<bf16*>(dqkv), static_cast<float*>(part), static_cast<float*>(stats),
-          batch, seq, heads, scale);
     }
     return cudaGetLastError();
   }));
 }
 
+extern "C" int sc_attention_long_bwd_dq(const void* qkv, const void* mask, const void* lse,
+                                        const void* dout, void* dqkv, void* r, void* part,
+                                        void* stats, int batch, int seq, int heads, int head_dim,
+                                        int dtype, float scale, void* stream) {
+  return sc_attention_long_bwd_dq_split(qkv, mask, lse, nullptr, dout, dqkv, r, part, stats, batch,
+                                        seq, heads, head_dim, dtype, scale, stream);
+}
+
 // The dK/dV kernel: f32 reads lse and r (heads, batch, seq) f32 (r from the
 // dQ kernel), bf16 the dQ kernel's stats rows instead. Writes the k and v
 // columns of dqkv; bf16 with part non-null also the k and v columns of part
-// (as sc_attention_long_bwd_dq).
-extern "C" int sc_attention_long_bwd_dkdv(const void* qkv, const void* mask, const void* lse,
-                                          const void* r, const void* dout, void* dqkv,
-                                          void* part, const void* stats, int batch, int seq,
-                                          int heads, int head_dim, int dtype, float scale,
-                                          void* stream) {
+// (as sc_attention_long_bwd_dq). With lsum, lse is each row's max and lsum
+// its log sum: f32 reads both, bf16 neither (its stats rows, written by
+// sc_attention_long_bwd_dq_split, hold the max, r and the log sum).
+extern "C" int sc_attention_long_bwd_dkdv_split(const void* qkv, const void* mask, const void* lse,
+                                                const void* lsum, const void* r, const void* dout,
+                                                void* dqkv, void* part, const void* stats,
+                                                int batch, int seq, int heads, int head_dim,
+                                                int dtype, float scale, void* stream) {
   if (!geometry_ok(batch, seq, heads)) return int(cudaErrorInvalidValue);
   if (!aligned(qkv, dout, dqkv)) return int(cudaErrorMisalignedAddress);
   const auto s = static_cast<cudaStream_t>(stream);
@@ -1652,22 +1745,38 @@ extern "C" int sc_attention_long_bwd_dkdv(const void* qkv, const void* mask, con
       if (err != cudaSuccess) return err;
       long_dkdv_kernel_f32<HD><<<batch * heads * tiles(seq, kBlock), kSimtThreads, smem, s>>>(
           static_cast<const float*>(qkv), static_cast<const float*>(mask),
-          static_cast<const float*>(lse), static_cast<const float*>(r),
-          static_cast<const float*>(dout), static_cast<float*>(dqkv), batch, seq, heads, scale);
+          static_cast<const float*>(lse), static_cast<const float*>(lsum),
+          static_cast<const float*>(r), static_cast<const float*>(dout),
+          static_cast<float*>(dqkv), batch, seq, heads, scale);
     } else {
       constexpr Layout lay = make_layout(2, HD);
       if (stats == nullptr || !aligned(stats)) return cudaErrorInvalidValue;
       CUtensorMap map_qkv, map_do;
       cudaError_t err = tc_maps(&map_qkv, &map_do, qkv, dout, batch, seq, heads * HD);
-      if (err == cudaSuccess) err = prepare(tc::long_dkdv_kernel_tc<HD>, lay.total);
+      auto run = [&](auto split) {
+        constexpr bool kSplit = decltype(split)::value;
+        const cudaError_t e = prepare(tc::long_dkdv_kernel_tc<HD, kSplit>, lay.total);
+        if (e != cudaSuccess) return e;
+        tc::long_dkdv_kernel_tc<HD, kSplit>
+            <<<tc_grid(batch * heads * tiles(seq, kRows)), kTcThreads, lay.total, s>>>(
+                map_qkv, map_do, static_cast<const float*>(mask), static_cast<const float*>(stats),
+                static_cast<bf16*>(dqkv), static_cast<float*>(part), batch, seq, heads, scale);
+        return cudaSuccess;
+      };
+      if (err == cudaSuccess) err = lsum == nullptr ? run(std::false_type{}) : run(std::true_type{});
       if (err != cudaSuccess) return err;
-      tc::long_dkdv_kernel_tc<HD><<<tc_grid(batch * heads * tiles(seq, kRows)), kTcThreads, lay.total,
-                                    s>>>(
-          map_qkv, map_do, static_cast<const float*>(mask), static_cast<const float*>(stats),
-          static_cast<bf16*>(dqkv), static_cast<float*>(part), batch, seq, heads, scale);
     }
     return cudaGetLastError();
   }));
+}
+
+extern "C" int sc_attention_long_bwd_dkdv(const void* qkv, const void* mask, const void* lse,
+                                          const void* r, const void* dout, void* dqkv,
+                                          void* part, const void* stats, int batch, int seq,
+                                          int heads, int head_dim, int dtype, float scale,
+                                          void* stream) {
+  return sc_attention_long_bwd_dkdv_split(qkv, mask, lse, nullptr, r, dout, dqkv, part, stats,
+                                          batch, seq, heads, head_dim, dtype, scale, stream);
 }
 
 // db (n) f32 = the column sums of dqkv (rows, n) in qkv's dtype: part

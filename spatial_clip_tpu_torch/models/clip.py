@@ -4,7 +4,10 @@ Laid out as open_clip's ``CLIP``: the image tower under ``visual.*`` and the
 text tower's modules at the top level (``transformer.*``,
 ``token_embedding.weight``, ``text_projection``, ...), so its state dict has
 the keys ``spatial_clip_tpu.models.convert.jax_to_torch_state_dict`` exports.
-With ``gene_cfg`` set, the Gene-MLP tower (:class:`GeneMLPTower`) replaces
+With ``vision_cfg.timm_model_name`` set, the image tower is the timm-style
+tower (:class:`~spatial_clip_tpu_torch.models.timm_model.TimmStyleTower`,
+JAX's ``clip.py:47-58``), its trunk under ``visual.trunk.*`` and its heads
+beside it. With ``gene_cfg`` set, the Gene-MLP tower (:class:`GeneMLPTower`) replaces
 the text tower under ``text.*`` (``text.embed``, ``text.ln_0``, ...,
 ``text.head``), and ``text`` is a rank-weighted gene vector (B, num_genes).
 
@@ -85,11 +88,19 @@ class CLIP(nn.Module):
                       param_dtype=param_dtype or dtype, device=device, training=training,
                       attn_impl=cfg.attn_impl, ln_gemm_impl=cfg.ln_gemm_impl,
                       mlp_impl=cfg.mlp_impl, remat=remat)
-        self.visual = VisionTransformer(
-            v.size, v.patch_size, v.width, v.layers, v.heads, v.mlp_ratio,
-            cfg.embed_dim, ls_init_value=v.ls_init_value, no_ln_pre=v.no_ln_pre,
-            final_ln_after_pool=v.final_ln_after_pool, pool_type=v.pool_type,
-            norm_eps=v.norm_eps, **common)
+        if v.timm_model_name:
+            from spatial_clip_tpu_torch.models.timm_model import TimmStyleTower
+
+            self.visual = TimmStyleTower(
+                v.timm_model_name, cfg.embed_dim, v.size, pool=v.timm_pool, proj=v.timm_proj,
+                proj_bias=v.timm_proj_bias, drop=v.timm_drop, dtype=dtype,
+                param_dtype=param_dtype or dtype, device=device)
+        else:
+            self.visual = VisionTransformer(
+                v.size, v.patch_size, v.width, v.layers, v.heads, v.mlp_ratio,
+                cfg.embed_dim, ls_init_value=v.ls_init_value, no_ln_pre=v.no_ln_pre,
+                final_ln_after_pool=v.final_ln_after_pool, pool_type=v.pool_type,
+                norm_eps=v.norm_eps, **common)
         if cfg.gene_cfg is not None:
             g = cfg.gene_cfg
             self.text = GeneMLPTower(

@@ -23,13 +23,14 @@ CONFIG_DIR = REFERENCE_MODELS_DIR / "model_configs"
 
 
 # JSON keys that no dataclass carries and that change nothing this package
-# builds: open_clip's CustomTextCLIP flag (the same function here), and the
-# settings of features refused on their own (a timm trunk, the attentional
-# pooler, a Hugging Face text tower).
+# builds: open_clip's CustomTextCLIP flag (the same function here), the timm
+# trunk's pretrained flag and drop path, which the JAX package's timm towers
+# ignore as well (no trunk downloads, none has a drop path), and the settings
+# of features refused on their own (the attentional pooler, a Hugging Face
+# text tower).
 IGNORED_KEYS = frozenset({
     "custom_text",
-    "vision_cfg.timm_model_pretrained", "vision_cfg.timm_pool", "vision_cfg.timm_proj",
-    "vision_cfg.timm_proj_bias", "vision_cfg.timm_drop", "vision_cfg.timm_drop_path",
+    "vision_cfg.timm_model_pretrained", "vision_cfg.timm_drop_path",
     "vision_cfg.attn_pooler_queries", "vision_cfg.attn_pooler_heads",
     "text_cfg.hf_pooler_type", "text_cfg.hf_proj_type",
 })
@@ -73,7 +74,12 @@ class VisionCfg:
     patchify_impl: str = "reshape"
     output_tokens: bool = False
     norm_eps: float = 1e-5
+    # the timm-style tower (models/timm_model.py) when timm_model_name is set
     timm_model_name: Optional[str] = None
+    timm_pool: str = "avg"  # avg | '' | token | map | abs_attn | rot_attn
+    timm_proj: Optional[str] = "linear"  # linear | mlp | none | None / ''
+    timm_proj_bias: bool = False
+    timm_drop: float = 0.0  # dropout before the projection (0 in every built-in config)
 
     def __post_init__(self):
         if self.heads is None:
@@ -163,7 +169,10 @@ class CLIPCfg:
 
 def check_ported(cfg: CLIPCfg) -> None:
     """Raise NotImplementedError naming the first field this port lacks:
-    an unported feature, a ``head_width`` that disagrees with ``heads``
+    an unported feature, a ``timm_model_name`` outside the trunk registry
+    (``timm_model.TRUNKS``; raised as a KeyError too, listing the trunks, as
+    JAX's adapter raises it), a tower dropout (``timm_drop``), a
+    ``head_width`` that disagrees with ``heads``
     (open_clip builds width // head_width heads; these towers build
     ``heads``), a text ``pool_type`` outside :data:`TEXT_POOL_TYPES`
     (``'eos'``), or a dropped JSON key outside :data:`IGNORED_KEYS` (the
@@ -177,7 +186,7 @@ def check_ported(cfg: CLIPCfg) -> None:
         ("mlp_impl", cfg.mlp_impl, cfg.mlp_impl not in ("dense", "pallas")),
         ("ln_gemm_impl", cfg.ln_gemm_impl, cfg.ln_gemm_impl not in ("dense", "pallas")),
         ("ln_impl", cfg.ln_impl, cfg.ln_impl not in ("onepass", "fp32", "pallas")),
-        ("vision_cfg.timm_model_name", v.timm_model_name, v.timm_model_name is not None),
+        ("vision_cfg.timm_drop", v.timm_drop, bool(v.timm_model_name) and v.timm_drop > 0),
         ("vision_cfg.layers", v.layers, isinstance(v.layers, (list, tuple))),
         ("vision_cfg.qk_norm", v.qk_norm, v.qk_norm),
         ("vision_cfg.scaled_cosine", v.scaled_cosine, v.scaled_cosine),
@@ -194,6 +203,13 @@ def check_ported(cfg: CLIPCfg) -> None:
          v.head_width is not None and v.head_width * v.heads != v.width),
         ("text_cfg.pool_type", t.pool_type, t.pool_type not in TEXT_POOL_TYPES),
     ]
+    if v.timm_model_name is not None:
+        from spatial_clip_tpu_torch.models.timm_model import TRUNKS, UnknownTrunkError
+
+        if v.timm_model_name not in TRUNKS:
+            raise UnknownTrunkError(
+                f"vision_cfg.timm_model_name={v.timm_model_name!r} is not ported to "
+                f"spatial_clip_tpu_torch: unknown timm-style trunk; available: {sorted(TRUNKS)}")
     for name, value, bad in unported:
         if bad:
             raise NotImplementedError(

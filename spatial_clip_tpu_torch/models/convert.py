@@ -8,7 +8,17 @@ values are the same; it also maps layer-scale, a biased text projection and
 the Gene-MLP tower, which that exporter leaves out: its flax tree
 ``text/embed``, ``text/ln_i``, ``text/fc_i``, ``text/proj_i``,
 ``text/ln_final``, ``text/head`` is ``text.embed``, ``text.ln_i``, ... here.
-:func:`to_jax_params` is its inverse.
+A timm-style image tower (``models/timm_model.py``) keeps the flax names,
+``/`` as ``.``: ``visual/trunk/stage0_block0/dwconv/kernel`` is
+``visual.trunk.stage0_block0.dwconv.weight`` (HWIO -> OIHW, the depthwise
+(k, k, 1, C) -> (C, 1, k, k)), a Dense kernel (in, out) -> (out, in), a
+LayerNorm's ``scale`` its ``weight``, and a ``Transformer`` inside a trunk
+(``visual/trunk/blocks``, ``.../vit``, ``.../attn_stage``) as the ViT
+tower's blocks are mapped. :func:`to_jax_params` is the inverse.
+
+:func:`from_open_clip_timm` reads the visual half of an open_clip state
+dict whose image tower is a timm ConvNeXt or ViT (``visual.trunk.*``,
+``visual.head.*``) as the JAX package's ``torch_to_jax_params`` does.
 
 :func:`from_jax_train_state` maps a JAX ``TrainState`` (parameters and the
 Adam moments, with numpy leaves) to the port's
@@ -54,8 +64,13 @@ def _key_pairs(has) -> List[Tuple[str, str, Optional[Tuple[int, ...]]]]:
         take(f"{jprefix}/scale", f"{tprefix}.weight")
         take(f"{jprefix}/bias", f"{tprefix}.bias")
 
-    def take_dense(jprefix: str, tprefix: str):  # flax (in, out) -> torch (out, in)
-        take(f"{jprefix}/kernel", f"{tprefix}.weight", (1, 0))
+    def take_dense(jprefix: str, tprefix: str, optional_bias: bool = False):
+        take(f"{jprefix}/kernel", f"{tprefix}.weight", (1, 0))  # flax (in, out) -> torch (out, in)
+        if not optional_bias or has(f"{jprefix}/bias", f"{tprefix}.bias"):
+            take(f"{jprefix}/bias", f"{tprefix}.bias")
+
+    def take_conv(jprefix: str, tprefix: str):  # HWIO -> OIHW
+        take(f"{jprefix}/kernel", f"{tprefix}.weight", (3, 2, 0, 1))
         take(f"{jprefix}/bias", f"{tprefix}.bias")
 
     def take_blocks(jprefix: str, tprefix: str):
@@ -74,14 +89,161 @@ def _key_pairs(has) -> List[Tuple[str, str, Optional[Tuple[int, ...]]]]:
                     take(f"{j}/{ls}", f"{t}.{ls}.gamma")
             i += 1
 
-    take_blocks("visual/transformer", "visual.transformer")
-    take("visual/conv1/kernel", "visual.conv1.weight", (3, 2, 0, 1))  # HWIO -> OIHW
-    take("visual/class_embedding", "visual.class_embedding")
-    take("visual/positional_embedding", "visual.positional_embedding")
-    if has("visual/ln_pre/scale", "visual.ln_pre.weight"):
-        take_ln("visual/ln_pre", "visual.ln_pre")
-    take_ln("visual/ln_post", "visual.ln_post")
-    take("visual/proj", "visual.proj")
+    def present(jkey: str, tkey: str) -> bool:  # a timm trunk's parameter
+        return has(f"visual/trunk/{jkey}", f"visual.trunk.{tkey}")
+
+    def stages(ds_present, take_ds, block_present, take_block):
+        """Stage 0's blocks, then each further stage's downsampling and
+        blocks, while the next is present."""
+        stage = 0
+        while stage == 0 or ds_present(stage):
+            if stage > 0:
+                take_ds(stage)
+            b = 0
+            while block_present(stage, b):
+                take_block(stage, b)
+                b += 1
+            stage += 1
+
+    def take_timm():
+        J, T = "visual/trunk", "visual.trunk"
+
+        def conv(name):  # a trunk-level module or parameter, by its flax name
+            take_conv(f"{J}/{name}", f"{T}.{name}")
+
+        def dense(name):
+            take_dense(f"{J}/{name}", f"{T}.{name}")
+
+        def ln(name):
+            take_ln(f"{J}/{name}", f"{T}.{name}")
+
+        def param(name):
+            take(f"{J}/{name}", f"{T}.{name}")
+
+        def ds(stage):  # ViTamin's and FastViT's downsampling convolutions
+            return present(f"ds_{stage}/kernel", f"ds_{stage}.weight")
+
+        if present("stem_conv/kernel", "stem_conv.weight"):  # ConvNeXt
+            conv("stem_conv")
+            ln("stem_norm")
+
+            def block(s_, b):
+                p_ = f"stage{s_}_block{b}"
+                take_conv(f"{J}/{p_}/dwconv", f"{T}.{p_}.dwconv")
+                take_ln(f"{J}/{p_}/norm", f"{T}.{p_}.norm")
+                take_dense(f"{J}/{p_}/pwconv1", f"{T}.{p_}.pwconv1")
+                take_dense(f"{J}/{p_}/pwconv2", f"{T}.{p_}.pwconv2")
+                take(f"{J}/{p_}/gamma", f"{T}.{p_}.gamma")
+
+            def downsample(s_):
+                ln(f"ds_norm_{s_}")
+                conv(f"ds_conv_{s_}")
+
+            stages(lambda s_: present(f"ds_conv_{s_}/kernel", f"ds_conv_{s_}.weight"), downsample,
+                   lambda s_, b: present(f"stage{s_}_block{b}/gamma", f"stage{s_}_block{b}.gamma"),
+                   block)
+        elif present("stem_conv1/kernel", "stem_conv1.weight"):  # ViTamin
+            conv("stem_conv1")
+            conv("stem_conv2")
+
+            def block(s_, b):
+                p_ = f"stage{s_}_mbconv{b}"
+                take_ln(f"{J}/{p_}/norm", f"{T}.{p_}.norm")
+                for name in ("expand", "dw", "project"):
+                    take_conv(f"{J}/{p_}/{name}", f"{T}.{p_}.{name}")
+
+            stages(ds, lambda s_: conv(f"ds_{s_}"),
+                   lambda s_, b: present(f"stage{s_}_mbconv{b}/norm/scale",
+                                         f"stage{s_}_mbconv{b}.norm.weight"), block)
+            conv("vit_embed")
+            param("pos_embed")
+            take_blocks(f"{J}/vit", f"{T}.vit")
+            ln("norm")
+        elif present("stem1/kernel", "stem1.weight"):  # FastViT
+            conv("stem1")
+            conv("stem2")
+
+            def block(s_, b):
+                p_ = f"stage{s_}_block{b}"
+                for name in ("mix_norm", "ffn_norm"):
+                    take_ln(f"{J}/{p_}/{name}", f"{T}.{p_}.{name}")
+                for name in ("mixer", "ffn_fc", "ffn_proj"):
+                    take_conv(f"{J}/{p_}/{name}", f"{T}.{p_}.{name}")
+
+            stages(ds, lambda s_: conv(f"ds_{s_}"),
+                   lambda s_, b: present(f"stage{s_}_block{b}/mix_norm/scale",
+                                         f"stage{s_}_block{b}.mix_norm.weight"), block)
+            take_blocks(f"{J}/attn_stage", f"{T}.attn_stage")
+            ln("norm")
+        elif present("embed_norm/scale", "embed_norm.weight"):  # Swin
+            conv("patch_embed")
+            ln("embed_norm")
+
+            def block(s_, b):
+                p_ = f"stage{s_}_block{b}"
+                for name in ("norm1", "norm2"):
+                    take_ln(f"{J}/{p_}/{name}", f"{T}.{p_}.{name}")
+                for name in ("qkv", "proj", "mlp_fc", "mlp_proj"):
+                    take_dense(f"{J}/{p_}/{name}", f"{T}.{p_}.{name}")
+                take(f"{J}/{p_}/rel_bias", f"{T}.{p_}.rel_bias")
+
+            def merge(s_):  # patch merging: a LayerNorm and a bias-free Dense
+                ln(f"merge_norm_{s_}")
+                take_dense(f"{J}/merge_{s_}", f"{T}.merge_{s_}", True)
+
+            stages(lambda s_: present(f"merge_{s_}/kernel", f"merge_{s_}.weight"), merge,
+                   lambda s_, b: present(f"stage{s_}_block{b}/norm1/scale",
+                                         f"stage{s_}_block{b}.norm1.weight"), block)
+            ln("norm")
+        elif present("cls_token", "cls_token"):  # EVA
+            conv("patch_embed")
+            param("cls_token")
+            param("pos_embed")
+            i = 0
+            while present(f"blocks_{i}_ln1/scale", f"blocks_{i}_ln1.weight"):
+                for name in ("ln1", "ln2"):
+                    ln(f"blocks_{i}_{name}")
+                for name in ("qkv", "proj", "w1", "w2", "w3"):
+                    dense(f"blocks_{i}_{name}")
+                i += 1
+            ln("norm")
+        else:  # the plain ViT
+            conv("patch_embed")
+            if present("cls", "cls"):
+                param("cls")
+            param("pos_embed")
+            take_blocks(f"{J}/blocks", f"{T}.blocks")
+            ln("norm")
+        if has("visual/attn_pool/probe", "visual.attn_pool.probe"):  # the MAP head
+            take("visual/attn_pool/probe", "visual.attn_pool.probe")
+            for name in ("q", "k", "v", "out", "mlp_fc", "mlp_proj"):
+                take_dense(f"visual/attn_pool/{name}", f"visual.attn_pool.{name}")
+            take_ln("visual/attn_pool/ln", "visual.attn_pool.ln")
+        elif has("visual/attn_pool/q/kernel", "visual.attn_pool.q.weight"):  # attention pool
+            if has("visual/attn_pool/pos_embed", "visual.attn_pool.pos_embed"):
+                take("visual/attn_pool/pos_embed", "visual.attn_pool.pos_embed")
+            for name in ("q", "k", "v", "proj"):
+                take_dense(f"visual/attn_pool/{name}", f"visual.attn_pool.{name}")
+        if has("visual/head_norm/scale", "visual.head_norm.weight"):
+            take_ln("visual/head_norm", "visual.head_norm")
+        for name in ("head_proj", "head_mlp_fc", "head_mlp_proj", "head_fc"):
+            if has(f"visual/{name}/kernel", f"visual.{name}.weight"):
+                take_dense(f"visual/{name}", f"visual.{name}", True)
+
+    if any(present(j, t) for j, t in (("stem_conv/kernel", "stem_conv.weight"),
+                                      ("stem_conv1/kernel", "stem_conv1.weight"),
+                                      ("stem1/kernel", "stem1.weight"),
+                                      ("patch_embed/kernel", "patch_embed.weight"))):
+        take_timm()
+    else:
+        take_blocks("visual/transformer", "visual.transformer")
+        take("visual/conv1/kernel", "visual.conv1.weight", (3, 2, 0, 1))  # HWIO -> OIHW
+        take("visual/class_embedding", "visual.class_embedding")
+        take("visual/positional_embedding", "visual.positional_embedding")
+        if has("visual/ln_pre/scale", "visual.ln_pre.weight"):
+            take_ln("visual/ln_pre", "visual.ln_pre")
+        take_ln("visual/ln_post", "visual.ln_post")
+        take("visual/proj", "visual.proj")
 
     if has("text/embed/kernel", "text.embed.weight"):  # the Gene-MLP tower
         take_dense("text/embed", "text.embed")
@@ -139,6 +301,111 @@ def to_jax_params(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         raise NotImplementedError(
             f"state-dict keys with no counterpart in the JAX package: {sorted(sd)}")
     return nested
+
+
+def from_open_clip_timm(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """An open_clip state dict whose image tower is a timm ConvNeXt
+    (``visual.trunk.stem.0.weight``) or a timm ViT
+    (``visual.trunk.patch_embed.proj.weight``, the SigLIP and gap flavors)
+    in this package's layout. The visual half goes as the JAX package's
+    ``torch_to_jax_params`` (``_convert_convnext_visual``,
+    ``_convert_timm_vit_visual``) takes it to the flax tree, then through
+    :func:`_key_pairs`: timm's ``kv`` of the MAP pool split into k and v, its
+    (1, 1, C) latent and class token reshaped to (1, C) and (C,), ``head.*``
+    to the adapter's heads. The text half (top level, or under ``text.``)
+    and the logit scale and bias keep their names. A visual key the map
+    does not take raises."""
+    src = {k: v.detach().to("cpu", torch.float32).numpy() for k, v in sd.items()}
+    used = set()
+    vis: Dict[str, np.ndarray] = {}
+
+    def get(key):
+        used.add(key)
+        return src[key]
+
+    def lin(tkey, jkey):
+        vis[f"{jkey}/kernel"] = get(f"{tkey}.weight").T
+        if f"{tkey}.bias" in src:
+            vis[f"{jkey}/bias"] = get(f"{tkey}.bias")
+
+    def ln(tkey, jkey):
+        vis[f"{jkey}/scale"] = get(f"{tkey}.weight")
+        vis[f"{jkey}/bias"] = get(f"{tkey}.bias")
+
+    def conv(tkey, jkey):  # OIHW -> HWIO
+        vis[f"{jkey}/kernel"] = get(f"{tkey}.weight").transpose(2, 3, 1, 0)
+        vis[f"{jkey}/bias"] = get(f"{tkey}.bias")
+
+    tr, jt = "visual.trunk", "visual/trunk"
+    if f"{tr}.stem.0.weight" in src:  # ConvNeXt
+        conv(f"{tr}.stem.0", f"{jt}/stem_conv")
+        ln(f"{tr}.stem.1", f"{jt}/stem_norm")
+        s_ = 0
+        while f"{tr}.stages.{s_}.blocks.0.conv_dw.weight" in src:
+            if s_ > 0:
+                ln(f"{tr}.stages.{s_}.downsample.0", f"{jt}/ds_norm_{s_}")
+                conv(f"{tr}.stages.{s_}.downsample.1", f"{jt}/ds_conv_{s_}")
+            b = 0
+            while f"{tr}.stages.{s_}.blocks.{b}.conv_dw.weight" in src:
+                tb, jb = f"{tr}.stages.{s_}.blocks.{b}", f"{jt}/stage{s_}_block{b}"
+                conv(f"{tb}.conv_dw", f"{jb}/dwconv")
+                ln(f"{tb}.norm", f"{jb}/norm")
+                lin(f"{tb}.mlp.fc1", f"{jb}/pwconv1")
+                lin(f"{tb}.mlp.fc2", f"{jb}/pwconv2")
+                vis[f"{jb}/gamma"] = get(f"{tb}.gamma")
+                b += 1
+            s_ += 1
+        if f"{tr}.head.norm.weight" in src:
+            ln(f"{tr}.head.norm", "visual/head_norm")
+    elif f"{tr}.patch_embed.proj.weight" in src:  # the ViT trunks
+        conv(f"{tr}.patch_embed.proj", f"{jt}/patch_embed")
+        pe = get(f"{tr}.pos_embed")
+        vis[f"{jt}/pos_embed"] = pe.reshape(-1, pe.shape[-1])
+        if f"{tr}.cls_token" in src:
+            vis[f"{jt}/cls"] = get(f"{tr}.cls_token").reshape(-1)
+        i = 0
+        while f"{tr}.blocks.{i}.norm1.weight" in src:
+            tb, jb = f"{tr}.blocks.{i}", f"{jt}/blocks/resblocks_{i}"
+            ln(f"{tb}.norm1", f"{jb}/ln_1")
+            ln(f"{tb}.norm2", f"{jb}/ln_2")
+            lin(f"{tb}.attn.qkv", f"{jb}/attn/qkv")  # rows [q; k; v] -> columns [q|k|v]
+            lin(f"{tb}.attn.proj", f"{jb}/attn/out")
+            lin(f"{tb}.mlp.fc1", f"{jb}/mlp/c_fc")
+            lin(f"{tb}.mlp.fc2", f"{jb}/mlp/c_proj")
+            i += 1
+        ln(f"{tr}.norm", f"{jt}/norm")
+        if f"{tr}.attn_pool.latent" in src:  # timm's AttentionPoolLatent (global_pool='map')
+            ap, ja = f"{tr}.attn_pool", "visual/attn_pool"
+            D = src[f"{ap}.latent"].shape[-1]
+            vis[f"{ja}/probe"] = get(f"{ap}.latent").reshape(1, D)
+            lin(f"{ap}.q", f"{ja}/q")
+            kv_w, kv_b = get(f"{ap}.kv.weight"), get(f"{ap}.kv.bias")
+            vis[f"{ja}/k/kernel"], vis[f"{ja}/k/bias"] = kv_w[:D].T, kv_b[:D]
+            vis[f"{ja}/v/kernel"], vis[f"{ja}/v/bias"] = kv_w[D:].T, kv_b[D:]
+            lin(f"{ap}.proj", f"{ja}/out")
+            ln(f"{ap}.norm", f"{ja}/ln")
+            lin(f"{ap}.mlp.fc1", f"{ja}/mlp_fc")
+            lin(f"{ap}.mlp.fc2", f"{ja}/mlp_proj")
+    else:
+        raise ValueError("not an open_clip timm ConvNeXt or ViT state dict")
+    if "visual.head.proj.weight" in src:
+        lin("visual.head.proj", "visual/head_proj")
+    if "visual.head.mlp.fc1.weight" in src:
+        lin("visual.head.mlp.fc1", "visual/head_mlp_fc")
+        lin("visual.head.mlp.fc2", "visual/head_mlp_proj")
+    left = sorted(k for k in src if k.startswith("visual.") and k not in used)
+    if left:
+        raise NotImplementedError(f"open_clip timm keys with no counterpart here: {left}")
+    out = {}
+    for jkey, tkey, transpose in _key_pairs(lambda jkey, tkey: jkey in vis):
+        if jkey in vis:
+            v = vis.pop(jkey)
+            v = v if transpose is None else v.transpose(transpose)
+            out[tkey] = torch.from_numpy(np.array(v))
+    for k, v in sd.items():
+        if not k.startswith("visual."):
+            out[k[len("text."):] if k.startswith("text.") else k] = v
+    return out
 
 
 def find_adam_state(opt_state):

@@ -30,6 +30,7 @@ from torch import nn
 from spatial_clip_tpu_torch.models.clip import CLIP
 from spatial_clip_tpu_torch.models.config import CLIPCfg, resolve_clip_cfg
 from spatial_clip_tpu_torch.models.constants import OPENAI_DATASET_MEAN, OPENAI_DATASET_STD
+from spatial_clip_tpu_torch.models.timm_model import Conv
 from spatial_clip_tpu_torch.models.tokenizer import (
     DEFAULT_CONTEXT_LENGTH,
     GeneTokenizer,
@@ -67,23 +68,35 @@ PRECISION_DTYPES = {
 def init_weights(model: CLIP, seed: int = 0) -> None:
     """Fill every parameter from a CPU generator seeded with ``seed``:
     flax's lecun_normal (truncated normal, std sqrt(1/fan_in)/.8796) for
-    dense and patch kernels, normal(width^-1/2) for embeddings and
+    dense, patch and convolution kernels (fan_in = in / groups x k x k),
+    zero biases, normal(width^-1/2) for embeddings and
     projections, normal(0.01) for the text positions, ones/zeros for
-    LayerNorm, constants for layer-scale and the logit scale/bias."""
+    LayerNorm, constants for layer-scale and the logit scale/bias. A timm
+    tower's other parameters come from its modules' ``init_params``, with
+    JAX's initializers (normal(0.02) for class tokens, positions, the MAP
+    probe and Swin's bias table, normal(C^-1/2) for the attention pool's
+    positions, 1e-6 for ConvNeXt's layer-scale)."""
     g = torch.Generator().manual_seed(seed)
     cfg = model.cfg
 
     def lecun(p: torch.Tensor, fan_in: int) -> None:
+        if p.is_meta:  # nothing to fill: a model on the meta device has shapes only
+            return
         std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
         p.copy_(nn.init.trunc_normal_(torch.empty(p.shape), 0.0, std, -2 * std, 2 * std,
                                       generator=g))
 
     def normal(p: torch.Tensor, std: float) -> None:
-        p.copy_(torch.randn(p.shape, generator=g) * std)
+        if not p.is_meta:
+            p.copy_(torch.randn(p.shape, generator=g) * std)
 
     for name, mod in model.named_modules():
         if isinstance(mod, Dense):
             lecun(mod.weight, mod.in_features)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, Conv):
+            lecun(mod.weight, mod.weight[0].numel())
             mod.bias.zero_()
         elif isinstance(mod, MultiHeadAttention):
             lecun(mod.in_proj_weight, mod.in_proj_weight.shape[1])
@@ -96,10 +109,13 @@ def init_weights(model: CLIP, seed: int = 0) -> None:
             mod.gamma.fill_(tower.ls_init_value)
         elif isinstance(mod, PatchEmbed):
             lecun(mod.weight, mod.weight[0].numel())
-    v_width = cfg.vision_cfg.width
-    normal(model.visual.class_embedding, v_width ** -0.5)
-    normal(model.visual.positional_embedding, v_width ** -0.5)
-    normal(model.visual.proj, v_width ** -0.5)
+        if hasattr(mod, "init_params"):
+            mod.init_params(normal)
+    if not cfg.vision_cfg.timm_model_name:
+        v_width = cfg.vision_cfg.width
+        normal(model.visual.class_embedding, v_width ** -0.5)
+        normal(model.visual.positional_embedding, v_width ** -0.5)
+        normal(model.visual.proj, v_width ** -0.5)
     if cfg.gene_cfg is None:  # the Gene-MLP tower is Dense and LayerNorm only
         normal(model.token_embedding.weight, cfg.text_cfg.width ** -0.5)
         normal(model.positional_embedding, 0.01)
@@ -171,8 +187,9 @@ def resolve_weights(path: Union[str, Path]) -> Path:
 def read_state_dict(path: Union[str, Path]) -> Dict[str, torch.Tensor]:
     """The state dict in a weight file, in this package's (open_clip's) key
     layout: a safetensors or torch file (a ``state_dict`` entry unwrapped,
-    ``module.``/``_orig_mod.`` prefixes stripped), or a JAX-layout
-    ``.npz`` mapped through :func:`convert.from_jax_params`."""
+    ``module.``/``_orig_mod.`` prefixes stripped; an open_clip timm ConvNeXt
+    or ViT image tower mapped through :func:`convert.from_open_clip_timm`),
+    or a JAX-layout ``.npz`` mapped through :func:`convert.from_jax_params`."""
     from spatial_clip_tpu_torch.models.convert import from_jax_params
     from spatial_clip_tpu_torch.train.checkpoints import load_params_npz
 
@@ -197,6 +214,10 @@ def read_state_dict(path: Union[str, Path]) -> Dict[str, torch.Tensor]:
             if k.startswith(prefix):
                 k = k[len(prefix):]
         out[k] = torch.as_tensor(v)
+    if "visual.trunk.stem.0.weight" in out or "visual.trunk.patch_embed.proj.weight" in out:
+        from spatial_clip_tpu_torch.models.convert import from_open_clip_timm
+
+        return from_open_clip_timm(out)  # open_clip's timm ConvNeXt / ViT layout
     return out
 
 

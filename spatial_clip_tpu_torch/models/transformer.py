@@ -95,16 +95,18 @@ def _param(*shape, dtype, device) -> nn.Parameter:
 
 class Dense(nn.Module):
     """``x W^T + b`` with W (out, in) and b stored in ``param_dtype`` and cast
-    to ``dtype`` at each use (flax ``nn.Dense(dtype, param_dtype)``)."""
+    to ``dtype`` at each use (flax ``nn.Dense(dtype, param_dtype)``;
+    ``bias=False`` its ``use_bias=False``)."""
 
-    def __init__(self, n_in: int, n_out: int, dtype, param_dtype, device):
+    def __init__(self, n_in: int, n_out: int, dtype, param_dtype, device, bias: bool = True):
         super().__init__()
         self.in_features, self.out_features, self.dtype = n_in, n_out, dtype
         self.weight = _param(n_out, n_in, dtype=param_dtype, device=device)
-        self.bias = _param(n_out, dtype=param_dtype, device=device)
+        self.bias = _param(n_out, dtype=param_dtype, device=device) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.to(self.dtype), self.bias.to(self.dtype))
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        return F.linear(x, self.weight.to(self.dtype), b)
 
 
 def _ln_apply(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float,

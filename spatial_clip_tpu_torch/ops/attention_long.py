@@ -18,8 +18,11 @@ whose length the resident bodies do not take
   fixed-order sum of the partial rows the two kernels write, one a block, in
   f32 a fixed-order column sum of the finished dqkv);
 - :func:`fused_attention_long_bwd_recompute`: the recompute options
-  (``_bwd_kernel``, ``_bwd_kernel3``, ``_bwd_kernel3_db``): the forward with
-  lse for the statistics, then the same kernels.
+  (``_bwd_kernel``, ``_bwd_kernel3``, ``_bwd_kernel3_db``): the forward for
+  each row's max and log sum, kept apart (``parts``), then the same kernels
+  given both (``lsum``). JAX's recompute kernels form p from the max and the
+  sum; their logsumexp would round to the max in a row that a finfo(f32).min
+  mask masks in full, and p would be 1 where theirs is 1 / L.
 
 Each wrapper counts its launches in ``<wrapper>.launches``, apart from the
 resident kernels' counters. On a CPU tensor each runs its plain PyTorch
@@ -38,7 +41,9 @@ from spatial_clip_tpu_torch.ops.fused_attention import (
     _check_bwd,
     _check_kernel_device,
     _check_lse,
+    _merge_heads,
     _scores,
+    _softmax_pv,
     _split_heads,
     reference_attention,
     reference_attention_bwd,
@@ -128,6 +133,13 @@ def db_chunks(rows: int) -> int:
     return -(-rows // DB_ROWS)
 
 
+def stat_row(split: bool = False) -> int:
+    """f32 values of a stats row: BWD_TILE lse and BWD_TILE r; split (the
+    rows' max in place of lse, for the recompute options), BWD_TILE log
+    sums as well (``stat_row`` in the source)."""
+    return (3 if split else 2) * BWD_TILE
+
+
 def stats_rows(batch: int, seq: int, heads: int) -> int:
     """Rows of the bf16 backward's stats: one per (batch, head, BWD_TILE
     query rows), each BWD_TILE lse values then BWD_TILE r values."""
@@ -150,23 +162,26 @@ def pack_stats(lse: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
 def unpack_stats(rows: torch.Tensor, heads: int, batch: int,
                  seq: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """lse and r (heads, B, L) f32 from stats rows: :func:`pack_stats`
-    undone."""
-    tiles_ = -(-seq // BWD_TILE)
-    both = rows.view(batch, heads, tiles_, 2, BWD_TILE).permute(3, 1, 0, 2, 4)
-    both = both.reshape(2, heads, batch, tiles_ * BWD_TILE)[..., :seq]
+    undone (rows of the split statistics hold the rows' log sums third)."""
+    tiles_, segs = -(-seq // BWD_TILE), rows.shape[1] // BWD_TILE
+    both = rows.view(batch, heads, tiles_, segs, BWD_TILE).permute(3, 1, 0, 2, 4)
+    both = both.reshape(segs, heads, batch, tiles_ * BWD_TILE)[..., :seq]
     return both[0].contiguous(), both[1].contiguous()
 
 
 class RowStats(NamedTuple):
     """What :func:`long_bwd_dq` hands :func:`long_bwd_dkdv`: the lse it
-    was given and each row's r = sum_j dp p. The f32 kernel and the plain
+    was given (with ``lsum``, each row's max and the log of its sum) and
+    each row's r = sum_j dp p. The f32 kernel and the plain
     version give r as (heads, B, L) f32; the bf16 kernel gives ``rows``
     instead (r None), one stats row a (batch, head, BWD_TILE query rows),
-    which the dK/dV kernel lands with one bulk copy (:func:`pack_stats`)."""
+    which the dK/dV kernel lands with one bulk copy (:func:`pack_stats`;
+    with ``lsum`` the row also holds the log sums, :func:`stat_row`)."""
 
     lse: torch.Tensor
     r: Optional[torch.Tensor] = None
     rows: Optional[torch.Tensor] = None
+    lsum: Optional[torch.Tensor] = None
 
     def unpacked(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """lse and r (heads, B, L) f32; from the bf16 kernel, as read back
@@ -200,11 +215,23 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _fwd(qkv, mask, heads, lse: Optional[torch.Tensor]) -> torch.Tensor:
+def _fwd(qkv, mask, heads, lse: Optional[torch.Tensor],
+         lsum: Optional[torch.Tensor] = None) -> torch.Tensor:
     B, L, three_d = qkv.shape
     out = qkv.new_empty((B, L, three_d // 3))
-    _launch("fwd", qkv, qkv.data_ptr(), _ptr(mask), out.data_ptr(), _ptr(lse), *_dims(qkv, heads))
+    _launch("fwd_split", qkv, qkv.data_ptr(), _ptr(mask), out.data_ptr(), _ptr(lse), _ptr(lsum),
+            *_dims(qkv, heads))
     return out
+
+
+def reference_attention_parts(qkv: torch.Tensor, mask: Optional[torch.Tensor],
+                              heads: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of the forward with ``parts``: the context, each
+    row's max and the log of its sum ``log(max(sum e, 1e-30))``, kept apart,
+    (heads, B, L) f32 each."""
+    o, sigma, row_max = _softmax_pv(qkv, mask, heads)
+    stat = lambda t: t[..., 0].transpose(0, 1).contiguous()  # noqa: E731
+    return _merge_heads(o, qkv.dtype), stat(row_max), stat(torch.log(sigma))
 
 
 def fused_attention_long(qkv: torch.Tensor, mask: Optional[torch.Tensor],
@@ -221,19 +248,24 @@ def fused_attention_long(qkv: torch.Tensor, mask: Optional[torch.Tensor],
 
 
 def fused_attention_long_lse(qkv: torch.Tensor, mask: Optional[torch.Tensor],
-                             heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                             heads: int, parts: bool = False):
     """:func:`fused_attention_long` and each row's logsumexp, (heads, B, L)
-    f32 as ``fused_attention_lse`` lays it out. Counts each launch in
+    f32 as ``fused_attention_lse`` lays it out; with ``parts``, the row max
+    and the log of the row sum instead, kept apart: (out, max, lsum), which
+    the backward takes as ``lse`` and ``lsum``. Counts each launch in
     ``fused_attention_long_lse.launches``."""
     _check(qkv, mask, heads)
     if qkv.device.type == "cpu":
+        if parts:
+            return reference_attention_parts(qkv, mask, heads)
         return reference_attention_lse(qkv, mask, heads)
     _check_kernel_device(qkv)
     B, L, _ = qkv.shape
     lse = torch.empty((heads, B, L), dtype=torch.float32, device=qkv.device)
-    out = _fwd(qkv, mask, heads, lse)
+    lsum = torch.empty_like(lse) if parts else None
+    out = _fwd(qkv, mask, heads, lse, lsum)
     fused_attention_long_lse.launches += 1
-    return out, lse
+    return (out, lse, lsum) if parts else (out, lse)
 
 
 def _check_dqkv(dqkv: torch.Tensor, qkv: torch.Tensor) -> None:
@@ -269,15 +301,19 @@ def reference_db_parts(dqkv: torch.Tensor, cols: slice) -> torch.Tensor:
     return d.view(B, tiles(L), ROWS, -1).sum(dim=2).reshape(B * tiles(L), -1)
 
 
-def reference_long_r(qkv, mask, lse, g, heads) -> torch.Tensor:
+def reference_long_r(qkv, mask, lse, g, heads, lsum=None) -> torch.Tensor:
     """The plain version of the dQ kernel's r: ``r_i = sum_j dp_ij p_ij``
-    with ``p = exp(s - lse)`` and ``dp = do v^T`` in f32 (the term
-    ``reference_attention_bwd`` subtracts), (heads, B, L) f32."""
+    with ``p = exp(s - lse)`` (``exp(s - lse - lsum)`` given lsum) and
+    ``dp = do v^T`` in f32 (the term ``reference_attention_bwd`` subtracts),
+    (heads, B, L) f32."""
     B, L, three_d = qkv.shape
     hd = three_d // 3 // heads
     q, k, v = _split_heads(qkv, heads)
     do = g.to(qkv.dtype).float().view(B, L, heads, hd).transpose(1, 2)
-    p = torch.exp(_scores(q, k, mask, hd) - lse.transpose(0, 1).unsqueeze(-1))
+    p = _scores(q, k, mask, hd) - lse.transpose(0, 1).unsqueeze(-1)
+    if lsum is not None:
+        p = p - lsum.transpose(0, 1).unsqueeze(-1)
+    p = torch.exp(p)
     dp = torch.matmul(do, v.transpose(-1, -2))
     return (dp * p).sum(dim=-1).transpose(0, 1).contiguous()
 
@@ -285,6 +321,8 @@ def reference_long_r(qkv, mask, lse, g, heads) -> torch.Tensor:
 def _check_row_stats(stats: RowStats, qkv: torch.Tensor, heads: int) -> None:
     """The dQ kernel's hand-over beside qkv: on the card in bf16 its stats
     rows; else lse and r (heads, B, L) f32."""
+    if stats.lsum is not None:
+        _check_lse(stats.lsum, qkv, heads, "lsum")
     if qkv.device.type == "cpu" or qkv.dtype != torch.bfloat16:
         _check_lse(stats.lse, qkv, heads)
         if stats.r is None:
@@ -292,7 +330,7 @@ def _check_row_stats(stats: RowStats, qkv: torch.Tensor, heads: int) -> None:
         _check_lse(stats.r, qkv, heads, "r")
         return
     B, L, _ = qkv.shape
-    want, rows = (stats_rows(B, L, heads), 2 * BWD_TILE), stats.rows
+    want, rows = (stats_rows(B, L, heads), stat_row(stats.lsum is not None)), stats.rows
     if (rows is None or tuple(rows.shape) != want or rows.dtype != torch.float32
             or not rows.is_contiguous() or rows.device != qkv.device):
         got = None if rows is None else f"{rows.dtype} {tuple(rows.shape)} on {rows.device}"
@@ -302,32 +340,38 @@ def _check_row_stats(stats: RowStats, qkv: torch.Tensor, heads: int) -> None:
 
 def long_bwd_dq(qkv: torch.Tensor, mask: Optional[torch.Tensor], lse: torch.Tensor,
                 g: torch.Tensor, heads: int, dqkv: torch.Tensor,
-                part: Optional[torch.Tensor] = None) -> RowStats:
+                part: Optional[torch.Tensor] = None,
+                lsum: Optional[torch.Tensor] = None) -> RowStats:
     """The dQ kernel: writes dq into the q columns of ``dqkv`` (qkv's shape
     and dtype) and, given ``part`` (bf16 only, see :func:`db_parts`), each
     block's column sums of its rounded dq rows into part's q columns;
     returns the lse and each row's r as the :class:`RowStats`
-    :func:`long_bwd_dkdv` takes (the bf16 kernel's as stats rows). Counts
-    each launch in ``long_bwd_dq.launches``."""
+    :func:`long_bwd_dkdv` takes (the bf16 kernel's as stats rows). Given
+    ``lsum``, ``lse`` is each row's max and lsum the log of its sum
+    (``fused_attention_long_lse(parts=True)``): p = exp(s - lse - lsum).
+    Counts each launch in ``long_bwd_dq.launches``."""
     g = _check_bwd(qkv, mask, g, heads)
     _check_lse(lse, qkv, heads)
+    if lsum is not None:
+        _check_lse(lsum, qkv, heads, "lsum")
     _check_dqkv(dqkv, qkv)
     _check_part(part, qkv)
     D = qkv.shape[-1] // 3
     if qkv.device.type == "cpu":
-        dqkv[..., :D] = reference_attention_bwd(qkv, mask, lse, g, heads)[0][..., :D]
+        dqkv[..., :D] = reference_attention_bwd(qkv, mask, lse, g, heads, lsum)[0][..., :D]
         if part is not None:
             part[:, :D] = reference_db_parts(dqkv, slice(0, D))
-        return RowStats(lse, reference_long_r(qkv, mask, lse, g, heads))
+        return RowStats(lse, reference_long_r(qkv, mask, lse, g, heads, lsum), lsum=lsum)
     _check_kernel_device(qkv, g, dqkv)
     B, L, _ = qkv.shape
     if qkv.dtype == torch.bfloat16:
-        stats = RowStats(lse, rows=torch.empty((stats_rows(B, L, heads), 2 * BWD_TILE),
-                                               dtype=torch.float32, device=qkv.device))
+        stats = RowStats(lse, rows=torch.empty((stats_rows(B, L, heads), stat_row(lsum is not None)),
+                                               dtype=torch.float32, device=qkv.device), lsum=lsum)
     else:
-        stats = RowStats(lse, r=torch.empty_like(lse))
-    _launch("bwd_dq", qkv, qkv.data_ptr(), _ptr(mask), lse.data_ptr(), g.data_ptr(),
-            dqkv.data_ptr(), _ptr(stats.r), _ptr(part), _ptr(stats.rows), *_dims(qkv, heads))
+        stats = RowStats(lse, r=torch.empty_like(lse), lsum=lsum)
+    _launch("bwd_dq_split", qkv, qkv.data_ptr(), _ptr(mask), lse.data_ptr(), _ptr(lsum),
+            g.data_ptr(), dqkv.data_ptr(), _ptr(stats.r), _ptr(part), _ptr(stats.rows),
+            *_dims(qkv, heads))
     long_bwd_dq.launches += 1
     return stats
 
@@ -339,21 +383,24 @@ def long_bwd_dkdv(qkv: torch.Tensor, mask: Optional[torch.Tensor], stats: RowSta
     ``dqkv`` from :func:`long_bwd_dq`'s :class:`RowStats` (the bf16 kernel
     reads its stats rows alone), and given ``part`` (bf16 only) each
     block's column sums of its rounded dk and dv rows into part's k and v
-    columns. Counts each launch in ``long_bwd_dkdv.launches``."""
+    columns; with the stats' ``lsum``, p = exp(s - lse - lsum). Counts each
+    launch in ``long_bwd_dkdv.launches``."""
     g = _check_bwd(qkv, mask, g, heads)
     _check_row_stats(stats, qkv, heads)
     _check_dqkv(dqkv, qkv)
     _check_part(part, qkv)
     D = qkv.shape[-1] // 3
     if qkv.device.type == "cpu":
-        dqkv[..., D:] = reference_attention_bwd(qkv, mask, stats.lse, g, heads)[0][..., D:]
+        dqkv[..., D:] = reference_attention_bwd(qkv, mask, stats.lse, g, heads,
+                                                stats.lsum)[0][..., D:]
         if part is not None:
             part[:, D:] = reference_db_parts(dqkv, slice(D, 3 * D))
         return
     _check_kernel_device(qkv, g, dqkv)
     lse, r = (None, None) if stats.rows is not None else (stats.lse, stats.r)
-    _launch("bwd_dkdv", qkv, qkv.data_ptr(), _ptr(mask), _ptr(lse), _ptr(r), g.data_ptr(),
-            dqkv.data_ptr(), _ptr(part), _ptr(stats.rows), *_dims(qkv, heads))
+    _launch("bwd_dkdv_split", qkv, qkv.data_ptr(), _ptr(mask), _ptr(lse), _ptr(stats.lsum),
+            _ptr(r), g.data_ptr(), dqkv.data_ptr(), _ptr(part), _ptr(stats.rows),
+            *_dims(qkv, heads))
     long_bwd_dkdv.launches += 1
 
 
@@ -385,22 +432,23 @@ def long_db(dqkv: torch.Tensor, part: Optional[torch.Tensor] = None) -> torch.Te
 
 def fused_attention_long_bwd(qkv: torch.Tensor, mask: Optional[torch.Tensor],
                              lse: torch.Tensor, g: torch.Tensor, heads: int,
-                             db: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                             db: bool = True, lsum: Optional[torch.Tensor] = None
+                             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """``fused_attention.fused_attention_bwd`` at any length: dqkv (qkv's
     shape and dtype) and, with ``db``, db (3D,) f32; db is None otherwise.
     Runs :func:`long_bwd_dq`, :func:`long_bwd_dkdv` and :func:`long_db`: in
     bf16 the two kernels write db's partial rows and long_db sums them; in
-    f32 long_db sums dqkv."""
+    f32 long_db sums dqkv. ``lsum``: as :func:`long_bwd_dq` takes it."""
     g = _check_bwd(qkv, mask, g, heads)
     _check_lse(lse, qkv, heads)
     if qkv.device.type == "cpu":
-        dqkv, db_ref = reference_attention_bwd(qkv, mask, lse, g, heads)
+        dqkv, db_ref = reference_attention_bwd(qkv, mask, lse, g, heads, lsum)
         return dqkv, db_ref if db else None
     dqkv = torch.empty_like(qkv)
     B, L, three_d = qkv.shape
     part = (torch.empty((db_parts(B, L), three_d), dtype=torch.float32, device=qkv.device)
             if db and qkv.dtype == torch.bfloat16 else None)
-    stats = long_bwd_dq(qkv, mask, lse, g, heads, dqkv, part)
+    stats = long_bwd_dq(qkv, mask, lse, g, heads, dqkv, part, lsum)
     long_bwd_dkdv(qkv, mask, stats, g, heads, dqkv, part)
     return dqkv, long_db(dqkv, part) if db else None
 
@@ -409,15 +457,18 @@ def fused_attention_long_bwd_recompute(qkv: torch.Tensor, mask: Optional[torch.T
                                        g: torch.Tensor, heads: int, db: bool
                                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The recompute backward at any length (``fused_attention_bwd_recompute``
-    and ``_recompute_db``): the lse from :func:`fused_attention_long_lse`,
-    then :func:`fused_attention_long_bwd`. On the CPU, the plain version that
-    recomputes p from the scores' max and sum."""
+    and ``_recompute_db``): each row's max and log sum, kept apart, from
+    :func:`fused_attention_long_lse` (``parts``), then
+    :func:`fused_attention_long_bwd` given both, so that p is exp(s - max)
+    / sum as JAX's recompute kernels form it, also in a row whose logsumexp
+    would round to its max. On the CPU, the plain version that recomputes p
+    from the scores' max and sum."""
     g = _check_bwd(qkv, mask, g, heads)
     if qkv.device.type == "cpu":
         dqkv, db_ref = reference_attention_bwd(qkv, mask, None, g, heads)
         return dqkv, db_ref if db else None
-    lse = fused_attention_long_lse(qkv, mask, heads)[1]
-    return fused_attention_long_bwd(qkv, mask, lse, g, heads, db)
+    _, row_max, lsum = fused_attention_long_lse(qkv, mask, heads, parts=True)
+    return fused_attention_long_bwd(qkv, mask, row_max, g, heads, db, lsum)
 
 
 fused_attention_long.launches = 0

@@ -10,7 +10,9 @@ the same way (``models.transformer.MultiHeadAttention``). JAX computes these
 with XLA's ops, outside any Pallas kernel, so they have no kernel here
 either: PyTorch's ops run them on the card and on the CPU alike. ``xla`` is
 ``jax.nn.dot_product_attention``, whose counterpart is
-``F.scaled_dot_product_attention``. Each function counts its calls in
+``F.scaled_dot_product_attention``. :func:`head_attention` is the einsum
+attention the timm towers write inline (unequal query and key lengths, a
+bias). Each function counts its calls in
 ``<function>.launches``, as the kernel wrappers count theirs, so that a run
 shows which attention went where.
 """
@@ -58,6 +60,24 @@ def plain_attention(qkv: torch.Tensor, mask: Optional[torch.Tensor], heads: int,
     return out.reshape(B, L, D)
 
 
+def head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
+                   bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """JAX's einsum attention as the timm towers write it inline
+    (``spatial_clip_tpu/models/timm_model.py``: the MAP and attention-pool
+    heads, EVA's and Swin's blocks): q (B, Lq, D), k and v (B, Lk, D) in the
+    compute dtype, scores ``einsum(q * hd^-1/2, k)`` cast to f32, ``bias``
+    (an additive f32 (heads, Lq, Lk), Swin's relative positions) added, the
+    softmax in f32, p cast to the compute dtype, ``einsum(p, v)``. Returns
+    (B, Lq, D)."""
+    B, Lq, D = q.shape
+    hd = D // heads
+    q, k, v = (t.reshape(t.shape[0], t.shape[1], heads, hd) for t in (q, k, v))
+    head_attention.launches += 1
+    out = _softmax_attend(q, k, v, bias, hd ** -0.5, torch.float32, "bqhd,bkhd->bhqk",
+                          "bhqk,bkhd->bqhd")
+    return out.reshape(B, Lq, D)
+
+
 def fold_attention(x: torch.Tensor, w_qkv: torch.Tensor, b_qkv: torch.Tensor,
                    w_out: torch.Tensor, b_out: torch.Tensor, mask: Optional[torch.Tensor],
                    heads: int, impl: str = "fold") -> torch.Tensor:
@@ -80,4 +100,5 @@ def fold_attention(x: torch.Tensor, w_qkv: torch.Tensor, b_qkv: torch.Tensor,
 
 
 plain_attention.launches = 0
+head_attention.launches = 0
 fold_attention.launches = 0

@@ -164,7 +164,25 @@ def library() -> ctypes.CDLL:
                                                  i32, i32, i32, ptr]  # rows, n, dtype, stream
             lib.sc_attention_long_db_partials.argtypes = [ptr, ptr,  # partial rows, db
                                                           i32, i32, ptr]  # rows, n, stream
-            for name in ("fwd", "bwd_dq", "bwd_dkdv", "db", "db_partials"):
+            lib.sc_attention_long_fwd_split.argtypes = [
+                ptr, ptr, ptr, ptr, ptr,  # qkv, mask, out, lse (row max), lsum
+                i32, i32, i32, i32,  # B, L, H, hd
+                i32, ctypes.c_float, ptr,  # dtype, scale, stream
+            ]
+            lib.sc_attention_long_bwd_dq_split.argtypes = [
+                ptr, ptr, ptr, ptr, ptr,  # qkv, mask, lse, lsum, dout
+                ptr, ptr, ptr, ptr,  # dqkv, r, db partial rows or null, stats rows (bf16)
+                i32, i32, i32, i32,  # B, L, H, hd
+                i32, ctypes.c_float, ptr,  # dtype, scale, stream
+            ]
+            lib.sc_attention_long_bwd_dkdv_split.argtypes = [
+                ptr, ptr, ptr, ptr, ptr, ptr,  # qkv, mask, lse, lsum, r, dout
+                ptr, ptr, ptr,  # dqkv, db partial rows or null, stats rows (bf16)
+                i32, i32, i32, i32,  # B, L, H, hd
+                i32, ctypes.c_float, ptr,  # dtype, scale, stream
+            ]
+            for name in ("fwd", "bwd_dq", "bwd_dkdv", "db", "db_partials", "fwd_split",
+                         "bwd_dq_split", "bwd_dkdv_split"):
                 getattr(lib, f"sc_attention_long_{name}").restype = i32
             lib.sc_attention_long_smem_bytes.argtypes = [i32, i32, i32]  # kind, hd, dtype
             lib.sc_attention_long_smem_bytes.restype = ctypes.c_size_t

@@ -307,9 +307,12 @@ def reference_attention_lse(qkv: torch.Tensor, mask: Optional[torch.Tensor],
 
 def reference_attention_bwd(qkv: torch.Tensor, mask: Optional[torch.Tensor],
                             lse: Optional[torch.Tensor], g: torch.Tensor,
-                            heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                            heads: int, lsum: Optional[torch.Tensor] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version with the TPU kernels' math (``_bwd_compute``):
-    ``p = exp(s - lse)`` from the saved lse, or with ``lse=None`` recomputed
+    ``p = exp(s - lse)`` from the saved lse (``exp(s - lse - lsum)`` given
+    ``lsum``: lse then holds each row's max and lsum the log of its sum,
+    kept apart), or with ``lse=None`` recomputed
     as ``_p_from_scores`` does, ``e / max(sum e, 1e-30)`` with
     ``e = exp(s - max s)``; then ``dv = (p in the input dtype)^T do``,
     ``dp = do v^T``, ``ds = p (dp - sum_j dp p) hd^-1/2`` in the input
@@ -325,8 +328,10 @@ def reference_attention_bwd(qkv: torch.Tensor, mask: Optional[torch.Tensor],
     if lse is None:
         e = torch.exp(s - s.amax(dim=-1, keepdim=True))
         p = e / e.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    else:
+    elif lsum is None:
         p = torch.exp(s - lse.transpose(0, 1).unsqueeze(-1))
+    else:
+        p = torch.exp(s - lse.transpose(0, 1).unsqueeze(-1) - lsum.transpose(0, 1).unsqueeze(-1))
     dv = torch.matmul(p.to(dtype).float().transpose(-1, -2), do)
     dp = torch.matmul(do, v.transpose(-1, -2))
     ds = (p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * hd ** -0.5).to(dtype).float()

@@ -1727,10 +1727,13 @@ def test_long_bf16_kernels_at_tile_edges(device, hd, mask_kind):
     tiles' edges (L 128 k - 1, 128 k, 128 k + 1 for k 5..8, and the first
     length past each resident limit), with no mask, the causal mask, a
     finfo.min mask over a prefix of keys and that with a whole row: the
-    forward with and without lse, the saved-lse backward with db, at phase
-    33's tolerances against the plain version; dqkv and db the same bits on a
-    rerun; the dQ kernel's stats rows hold the lse bit for bit and are
-    ``pack_stats`` of their lse and r."""
+    forward with and without lse and with each row's max and log sum kept
+    apart, the saved-lse backward with db and the two recompute options
+    (from the max and log sum: under 'row' p is 1 / L in the row masked in
+    full, as the plain version's softmax gives it), at phase 33's tolerances
+    against the plain version; dqkv and db the same bits on a rerun; the dQ
+    kernel's stats rows hold the lse bit for bit and are ``pack_stats`` of
+    their lse and r."""
     from spatial_clip_tpu_torch.ops import attention_long as al
     from spatial_clip_tpu_torch.ops.fused_attention import (
         bwd_max_seq,
@@ -1751,9 +1754,23 @@ def test_long_bf16_kernels_at_tile_edges(device, hd, mask_kind):
         dqkv, db = al.fused_attention_long_bwd(qkv, mask, lse, g, H)
         again, db_again = al.fused_attention_long_bwd(qkv, mask, lse, g, H)
         stats = al.long_bwd_dq(qkv, mask, lse, g, H, torch.empty_like(qkv))
+        out_parts, row_max, lsum = al.fused_attention_long_lse(qkv, mask, H, parts=True)
+        re, _ = al.fused_attention_long_bwd_recompute(qkv, mask, g, H, db=False)
+        re_db, re_db_db = al.fused_attention_long_bwd_recompute(qkv, mask, g, H, db=True)
         torch.cuda.synchronize()
         want, want_lse = reference_attention_lse(qkv, mask, H)
         want_d, want_db = reference_attention_bwd(qkv, mask, lse, g, H)
+        _, want_max, want_lsum = al.reference_attention_parts(qkv, mask, H)
+        want_re, want_re_db = reference_attention_bwd(qkv, mask, None, g, H)
+        assert torch.equal(out, out_parts), L
+        for got, ref in ((row_max, want_max), (lsum, want_lsum)):
+            torch.testing.assert_close(got, ref, rtol=0,
+                                       atol=1e-5 * max(1.0, want_lse.abs().max().item()))
+        for got in (re, re_db):
+            torch.testing.assert_close(got.float(), want_re.float(), rtol=0,
+                                       atol=_bwd_tol(dtype, want_re.float()), msg=f"L {L}")
+        torch.testing.assert_close(re_db_db, want_re_db, rtol=0,
+                                   atol=_tol(dtype, want_re_db) + 1e-4)
         torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=0, msg=f"L {L}")
         assert torch.equal(out, out_lse), L
         torch.testing.assert_close(lse, want_lse, rtol=0,

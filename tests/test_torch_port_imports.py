@@ -56,7 +56,7 @@ def test_import_pulls_in_no_jax():
         "spatial_clip_tpu_torch.ops.fused_mlp, spatial_clip_tpu_torch.ops.attention_pair, "
         "spatial_clip_tpu_torch.ops.fused_block, spatial_clip_tpu_torch.bench_block, "
         "spatial_clip_tpu_torch.ops.attention_variants, "
-        "spatial_clip_tpu_torch.models.convert, "
+        "spatial_clip_tpu_torch.models.convert, spatial_clip_tpu_torch.models.timm_model, "
         "spatial_clip_tpu_torch.losses, spatial_clip_tpu_torch.train.loop, "
         "spatial_clip_tpu_torch.train.optim, spatial_clip_tpu_torch.train.metrics, "
         "spatial_clip_tpu_torch.bench, spatial_clip_tpu_torch.profile_serving, "

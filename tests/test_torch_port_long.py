@@ -66,15 +66,18 @@ def _t(x):
 
 
 def _mask(L, causal):
-    """None, the causal mask, or ('prefix') finfo(f32).min over the first 130
+    """None, the causal mask, ('prefix') finfo(f32).min over the first 130
     keys of every row, past the key-tiled kernels' first 128-key tile: scores
-    near finfo.min, as left padding gives them."""
+    near finfo.min, as left padding gives them, or ('row') that and all of
+    row 1, a row masked in full (chip_smoke's long_mask)."""
     if not causal:
         return None
     low = np.finfo(np.float32).min
-    if causal == "prefix":
+    if causal in ("prefix", "row"):
         mask = np.zeros((L, L), np.float32)
         mask[:, :130] = low
+        if causal == "row":
+            mask[1] = low
         return mask
     return np.triu(np.full((L, L), low, np.float32), k=1)
 
@@ -200,6 +203,7 @@ def test_batched_mask_takes_the_einsum_route_and_leading_ones_do_not():
 
 LONG = [(1, 257, True), (2, 401, False), (1, 577, True)]
 LONG_PREFIX = [(1, 257, "prefix")]
+LONG_ROW = [(1, 257, "row")]
 
 
 def _long_inputs(seed, B, L, H=2, hd=64):
@@ -231,13 +235,18 @@ def test_long_forward_matches_jax_kernels(B, L, causal):
     np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), atol=1e-5)
 
 
-@pytest.mark.parametrize("B,L,causal", LONG + LONG_PREFIX)
+@pytest.mark.parametrize("B,L,causal", LONG + LONG_PREFIX + LONG_ROW)
 def test_long_backward_pieces_match_jax_kernel(B, L, causal):
     """The key-tiled backward's pieces on the CPU: the dQ kernel's dq
     columns and r, the dK/dV kernel's k and v columns and the db reduce,
     assembled as ``fused_attention_long_bwd`` assembles them, against JAX's
     interpret-mode ``_bwd_pallas3_db_lse`` on JAX's lse; r is the term the
-    plain backward subtracts (``sum_j dp p``)."""
+    plain backward subtracts (``sum_j dp p``). The recompute options, and
+    the pieces given each row's max and log sum apart (the route the
+    recompute options take on the card), against JAX's interpret-mode
+    recompute kernel ``_bwd_pallas3_db`` under the finfo.min masks: in the
+    row masked in full ('row') p is 1 / L, where the lse of the same row
+    (rounded to its max) gives 1."""
     qkv, g = _long_inputs(L + B + 1, B, L)
     mask = _mask(L, causal)
     _, lse = jfa._fwd_pallas_lse(jnp.asarray(qkv), _jmask(mask, L), 2, True)
@@ -251,8 +260,11 @@ def test_long_backward_pieces_match_jax_kernel(B, L, causal):
     stats = al.long_bwd_dq(tq, tm, tl, tg, 2, dqkv)
     al.long_bwd_dkdv(tq, tm, stats, tg, 2, dqkv)
     db = al.long_db(dqkv)
-    np.testing.assert_allclose(dqkv.numpy(), want, atol=2e-5)
-    np.testing.assert_allclose(db.numpy(), want_db, atol=2e-4)
+    # from the lse, the row masked in full takes p = 1 on each of its L keys,
+    # so its dq, dk and dv sum L terms of O(1): 1e-5 of them relative as well
+    rtol = 1e-5 if causal == "row" else 0
+    np.testing.assert_allclose(dqkv.numpy(), want, atol=2e-5, rtol=rtol)
+    np.testing.assert_allclose(db.numpy(), want_db, atol=2e-4, rtol=rtol)
     whole, whole_db = al.fused_attention_long_bwd(tq, tm, tl, tg, 2)
     assert torch.equal(whole, dqkv) and torch.allclose(whole_db, db, atol=1e-4)
     # r against the plain math in f64
@@ -263,11 +275,33 @@ def test_long_backward_pieces_match_jax_kernel(B, L, causal):
     p = torch.softmax(s, dim=-1)
     dp = torch.from_numpy(g.astype(np.float64)).view(B, L, 2, 64).transpose(1, 2) @ v.transpose(
         -1, -2)
-    np.testing.assert_allclose(stats.r.numpy(), (p * dp).sum(-1).transpose(0, 1).numpy(),
-                               atol=1e-4)
+    rows = [i for i in range(L) if not (causal == "row" and i == 1)]  # f64 keeps row 1's q k
+    np.testing.assert_allclose(stats.r.numpy()[..., rows],
+                               (p * dp).sum(-1).transpose(0, 1).numpy()[..., rows], atol=1e-4)
+    want_re, want_re_db = want, want_db
+    if causal in ("prefix", "row"):
+        d3, db_raw = jfa._bwd_pallas3_db(jnp.asarray(qkv), _jmask(mask, L), jnp.asarray(g), 2,
+                                         True)
+        want_re = np.asarray(jnp.transpose(d3, (1, 2, 0, 3)).reshape(qkv.shape))
+        want_re_db = np.asarray(jnp.transpose(db_raw, (1, 0, 2)).reshape(-1))
     re_dqkv, re_db = al.fused_attention_long_bwd_recompute(tq, tm, tg, 2, db=True)
-    np.testing.assert_allclose(re_dqkv.numpy(), want, atol=2e-5)
+    np.testing.assert_allclose(re_dqkv.numpy(), want_re, atol=2e-5)
+    np.testing.assert_allclose(re_db.numpy(), want_re_db, atol=2e-4)
     assert al.fused_attention_long_bwd_recompute(tq, tm, tg, 2, db=False)[1] is None
+    _, row_max, lsum = al.fused_attention_long_lse(tq, tm, 2, parts=True)
+    split, split_db = al.fused_attention_long_bwd(tq, tm, row_max, tg, 2, lsum=lsum)
+    np.testing.assert_allclose(split.numpy(), want_re, atol=2e-5)
+    np.testing.assert_allclose(split_db.numpy(), want_re_db, atol=2e-4)
+    if causal == "row":
+        # row 1's p from the max and log sum apart is 1 / L, as JAX's
+        # recompute kernel forms it; from its lse, which rounds to the max, 1
+        s1 = pfa._scores(*al._split_heads(tq, 2)[:2], tm, 64)[:, :, 1]
+        p_split = torch.exp(s1 - row_max[:, :, 1:2].transpose(0, 1)
+                            - lsum[:, :, 1:2].transpose(0, 1))
+        p_lse = torch.exp(s1 - tl[:, :, 1:2].transpose(0, 1))
+        torch.testing.assert_close(p_split, torch.full_like(p_split, 1.0 / L))
+        assert torch.equal(p_lse, torch.ones_like(p_lse))
+        assert np.abs(re_dqkv.numpy() - want).max() > 1e-2
 
 
 @pytest.mark.parametrize("B,L,causal", [(1, 257, True), (2, 401, False), (1, 577, False)])
