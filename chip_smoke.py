@@ -237,14 +237,15 @@ the exit code is not 0. No JAX is imported.
            and flash backends, bench_gemm.sdpa_device_ms), the dQ kernel's
            stats rows bit for bit pack_stats of their lse and r; the f32
            kernels' times beside SDPA in f32
-34. vitl-serve  ViT-L-14 (bf16, batch 64) through the server: 64 texts and 64
-           raw tiles, exactly 36 resident forwards, every embedding vs f32 on
-           the CPU by cosine, encode times
+34. vitl-serve  ViT-L-14 (bf16, batch 64; in phases 34-36 its image tower at
+           12 of 24 layers, VITL_LAYERS) through the server: 64 texts and 64
+           raw tiles, exactly 12 + 12 resident forwards, every embedding vs
+           f32 on the CPU by cosine, encode times
 35. vitl14  ViT-L-14: phase 7's card-vs-CPU step at batch 4, then 13 steps at
-           batch 64 with exactly 36 forward-lse and 36 saved-lse backward
+           batch 64 with exactly 24 forward-lse and 24 saved-lse backward
            launches a step (all resident: L 257 and 77), step ms, peak memory
 36. vitl14-336  ViT-L-14-336: the same at batch 2, then 13 steps at batch 32
-           with exactly 24 key-tiled forwards with lse, dQ, dK/dV and db
+           with exactly 12 key-tiled forwards with lse, dQ, dK/dV and db
            launches a step (L 577) and 12 + 12 resident ones (the text tower)
 37. so400m  ViT-SO400M-14-SigLIP: one forward of 8 tiles and 8 id rows vs f32
            on the CPU; 27 resident forwards (image, L 257) and 27 calls of the
@@ -316,6 +317,24 @@ the exit code is not 0. No JAX is imported.
            /embed_image_raw against f32 on the CPU by cosine (no attention
            launch); then PE-Core-B-16's card-vs-CPU step at batch 4 (the
            MAP head's and the einsum trunk's backward on the card)
+49. rn-hf-forward  one config of each modified ResNet / Hugging Face tower
+           family at full width and depth (RN_HF_FORWARD: RN50, RN50x64 at
+           448 px, roberta-ViT-B-32, xlm-roberta-base-ViT-B-32,
+           mt5-base-ViT-B-32, nllb-clip-base, nllb-clip-base-siglip;
+           transformers' class defaults): one bf16 forward of 8 tiles and 8
+           id rows (inside each tower's vocab, pad tails of different
+           lengths, one row without) against the same weights in f32 on the
+           CPU by per-row cosine, with exact launches per wrapper (the
+           transformer tower's inference kernel, the RN attention pool's
+           head_attention, each HF layer's encoder_attention)
+50. rn-hf-train  RN50 (bf16) at the bench workload: phase 7's card-vs-CPU
+           step at batch 4, 13 steps at batch 256 with exactly 12 + 12 kernel
+           launches and one head_attention a step, every BatchNorm mean and
+           variance keeping its bits, step ms, pairs/s and peak memory; 64
+           raw tiles through the server against f32 on the CPU by cosine;
+           then xlm-roberta-base-ViT-B-32 the same way (pad tails, dropout
+           0.1 from the step's seed; 12 + 12 image-tower kernel launches and
+           12 encoder_attention calls a step)
 Phases 3, 6, 19, 23 and 26 also time PyTorch's scaled_dot_product_attention
 (efficient-attention backend) at the kernels' shapes as a yardstick (its
 backward alone, on one retained graph), phase
@@ -330,7 +349,7 @@ kernels with their launches on the gene paths, phases 29-32; the
 attention forward, forward-lse and backward and the key-tiled forward also
 with their launches in phases 39-43; the fused CE kernels also with their
 launches in phases 45-46; the attention forward, forward-lse and backward
-also with their launches in phases 47-48), the nvidia-smi line, and
+also with their launches in phases 47-48 and 49-50), the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -892,12 +911,13 @@ def main() -> int:
     long_rows = long_kernel_phase()
     vitl_serve_phase()
     long_train_phase("vitl14", "ViT-L-14", VITL_CHECK, VITL_BATCH,
-                     {"fused_attention.fused_attention_lse": 36,
-                      "fused_attention.fused_attention_bwd": 36})
+                     {"fused_attention.fused_attention_lse": VITL_LAYERS + 12,
+                      "fused_attention.fused_attention_bwd": VITL_LAYERS + 12}, **VITL_CUT)
     vitl336 = long_train_phase("vitl14-336", "ViT-L-14-336", VITL336_CHECK, VITL336_BATCH, {
-        **{f"attention_long.{k}": 24 for k in ("fused_attention_long_lse", "long_bwd_dq",
-                                                "long_bwd_dkdv", "long_db")},
-        "fused_attention.fused_attention_lse": 12, "fused_attention.fused_attention_bwd": 12})
+        **{f"attention_long.{k}": VITL_LAYERS for k in ("fused_attention_long_lse", "long_bwd_dq",
+                                                         "long_bwd_dkdv", "long_db")},
+        "fused_attention.fused_attention_lse": 12, "fused_attention.fused_attention_bwd": 12},
+        **VITL_CUT)
     so400m_phase()
     smoke_synthetic_phase()
     cli = main_train_phase()
@@ -910,6 +930,8 @@ def main() -> int:
     dist_gloo = dist_gloo_phase()
     timm_forward = timm_forward_phase()
     convnext = convnext_phase()
+    rn_hf_forward = rn_hf_forward_phase()
+    rn_hf_train = rn_hf_train_phase()
 
     def gene_launches(key: str) -> dict:
         """A kernel's launches on the gene paths: phase 29's step (path B),
@@ -1178,7 +1200,8 @@ def main() -> int:
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
             "at": f"qkv ({Bt}, {Lt}, {3 * Ht * hdt}) bf16, no mask (ViT-L-14-336's image tower, "
-                  f"batch {Bt}); launches: phase 36's {VITL_STEPS} steps"
+                  f"batch {Bt}); launches: phase 36's {VITL_STEPS} steps (its image tower at "
+                  f"{VITL_LAYERS} of 24 layers)"
                   + ("; db from the dQ and dK/dV kernels' partial rows; library: "
                      "torch.sum of the partial rows" if part == "db" else ""),
             **({"library_flash_ms": row["library_flash_ms"],
@@ -1205,11 +1228,19 @@ def main() -> int:
         f"48 convnext_base {VITL_STEPS} steps (batch {CONVNEXT_BATCH})": convnext["steps"],
         "48 convnext_base server (64 tiles)": convnext["serve"],
         "48 PE-Core-B-16 check (batch 4)": convnext["pe_core"]}
+    rn_hf_launches = {  # phases 49-50: the modified ResNet and Hugging Face towers' paths
+        **{f"49 {name}": n for name, n in rn_hf_forward.items()},
+        **{f"50 {name} check (batch 4)": rn_hf_train[name]["check"]
+           for name in ("RN50", "xlm-roberta-base-ViT-B-32")},
+        **{f"50 {name} {VITL_STEPS} steps (batch {RN_HF_BATCH})": rn_hf_train[name]["launches"]
+           for name in ("RN50", "xlm-roberta-base-ViT-B-32")},
+        "50 RN50 server (64 tiles)": rn_hf_train["serve"]}
     for row in kernels:
         if row["name"] in ("fused_attention_fwd", "fused_attention_fwd_lse",
                            "fused_attention_bwd"):
             key = rows[row["name"]]
             row["timm_launches"] = {k: n.get(key, 0) for k, n in timm_launches.items()}
+            row["rn_hf_launches"] = {k: n.get(key, 0) for k, n in rn_hf_launches.items()}
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
@@ -1397,8 +1428,9 @@ def train_check_phase(label: str = "train-check", batch_size: int = CHECK_BATCH,
     from spatial_clip_tpu_torch.models.transforms import AugmentDraws
 
     t0 = time.perf_counter()
-    card = make_trainer(model_name, device="cuda", **settings)
-    cpu = make_trainer(model_name, device="cpu", precision="fp32", **settings)  # same weights
+    cpu = make_trainer(model_name, device="cpu", precision="fp32", **settings)
+    card = make_trainer(model_name, device="meta", **settings)
+    copy_weights(cpu.model, card.model)  # the same weights, drawn once
     card_state, cpu_state = card.init_state(), cpu.init_state()
     batch = synthetic_batch(cpu.model, batch_size, seed=1, device="cpu")
     rng = np.random.default_rng(2)
@@ -2380,14 +2412,16 @@ def get_tokenizer_ids(texts):
     return np.asarray(get_tokenizer("ViT-B-32")(texts), dtype=np.int64)
 
 
-def timed_steps(label: str, trainer, batch, steps: int, counters):
+def timed_steps(label: str, trainer, batch, steps: int, counters, frozen=()):
     """``steps`` train steps from a fresh state, each ending in a
     synchronize, with every counter set to 0 first; fails on a non-finite
-    loss or gradient norm. Returns (launch counts, step ms, (loss, grad
-    norm) per step, peak memory)."""
+    loss or gradient norm, or where a parameter whose name ends in one of
+    ``frozen`` does not keep its bits. Returns (launch counts, step ms,
+    (loss, grad norm) per step, peak memory)."""
     import torch
 
     state = trainer.init_state()
+    kept = {k: p.detach().clone() for k, p in state.params.items() if k.endswith(tuple(frozen))}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
@@ -2401,6 +2435,10 @@ def timed_steps(label: str, trainer, batch, steps: int, counters):
         history.append((float(metrics["loss"]), float(metrics["grad_norm"])))
     if not all(np.isfinite([v for pair in history for v in pair])):
         raise AssertionError(f"[{label}] non-finite loss or grad norm: {history}")
+    changed = [k for k, v in kept.items() if not torch.equal(state.params[k].detach(), v)]
+    if changed or (frozen and not kept):
+        raise AssertionError(f"[{label}] {len(changed)} of the {len(kept)} parameters ending in "
+                             f"{frozen} changed: {changed[:5]}")
     return (tuple(c.launches for c in counters), step_ms, history,
             torch.cuda.max_memory_allocated())
 
@@ -3749,6 +3787,10 @@ LONG_TILE_EDGES = tuple(L for k in range(5, 9) for L in (128 * k - 1, 128 * k, 1
 LONG_MASKS = ("none", "causal", "prefix", "row")
 LONG_TIMED = (32, 577, 16, 64)  # batch, L, heads, head dim
 VITL_BATCH, VITL336_BATCH = 64, 32  # phases 35-36: timed steps
+# phases 34-36 run ViT-L-14's image tower at 12 of its 24 layers (full
+# width, its text tower whole), to keep the script inside its time limit
+VITL_LAYERS = 12
+VITL_CUT = {"vision_cfg": {"layers": VITL_LAYERS}}
 VITL_CHECK, VITL336_CHECK = 4, 2  # phases 35-36: card vs CPU
 VITL_STEPS = WARMUP_STEPS + TIMED_STEPS
 
@@ -4009,11 +4051,12 @@ def long_kernel_phase() -> dict:
 
 
 def vitl_serve_phase() -> dict:
-    """34. ViT-L-14 (bf16, batch 64) through the embedding server on
-    127.0.0.1: 64 texts and 64 raw tiles, exactly 36 resident inference
-    forwards (24 image + 12 text layers; L 257 is within the resident
-    forward's 528 at hd 64) and no other attention; every embedding against
-    the same weights in f32 on the CPU by cosine; encode times."""
+    """34. ViT-L-14 (bf16, batch 64; its image tower at VITL_LAYERS of 24
+    layers) through the embedding server on 127.0.0.1: 64 texts and 64 raw
+    tiles, exactly VITL_LAYERS + 12 resident inference forwards (L 257 is
+    within the resident forward's 528 at hd 64) and no other attention;
+    every embedding against the same weights in f32 on the CPU by cosine;
+    encode times."""
     from http.server import ThreadingHTTPServer
 
     import torch
@@ -4024,7 +4067,7 @@ def vitl_serve_phase() -> dict:
 
     t0 = time.perf_counter()
     service = EmbeddingService("ViT-L-14", precision="bf16", batch_size=VITL_BATCH,
-                               device="cuda")
+                               device="cuda", **VITL_CUT)
     service.warmup()
     server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(service))
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -4040,7 +4083,7 @@ def vitl_serve_phase() -> dict:
         txt = embeddings(post(port, "/embed_text", json.dumps({"texts": texts})))
         img = embeddings(post(port, "/embed_image_raw", tiles.tobytes()))
         launches = read_launches(counters)
-        want_launches = {"fused_attention.fused_attention": 24 + 12}
+        want_launches = {"fused_attention.fused_attention": VITL_LAYERS + 12}
         check_embeddings("vitl text", txt, 64, dim)
         check_embeddings("vitl image", img, 64, dim)
         model, tokenizer = service.model, service.tokenizer
@@ -4056,7 +4099,7 @@ def vitl_serve_phase() -> dict:
         service.close()
     del service, model
     torch.cuda.empty_cache()
-    reference = create_model("ViT-L-14", precision="fp32", seed=0, device="cpu")
+    reference = create_model("ViT-L-14", precision="fp32", seed=0, device="cpu", **VITL_CUT)
     with torch.inference_mode():
         want_txt = reference.encode_text(torch.from_numpy(tokenizer(texts)).long()).numpy()
         want_img = reference.encode_image(normalize_batch(torch.from_numpy(tiles))).numpy()
@@ -4066,7 +4109,8 @@ def vitl_serve_phase() -> dict:
         raise AssertionError(f"[vitl-serve] launches {launches} (want {want_launches}), min "
                              f"cosine vs f32 CPU {cos}")
     print(f"[vitl-serve] ViT-L-14 bf16 batch {VITL_BATCH} through the server: 64 texts and 64 "
-          f"raw tiles, 200 OK, unit norm, launches {launches} (24 image + 12 text layers, "
+          f"raw tiles, 200 OK, unit norm, launches {launches} ({VITL_LAYERS} image + 12 text "
+          f"layers, "
           f"resident at L 257 and 77); min cosine vs f32 CPU text {cos['text']:.5f} image "
           f"{cos['image']:.5f} (>= {MIN_COSINE}); encode_image 64 tiles {img_ms:.3f} ms, "
           f"encode_text 64 texts {txt_ms:.3f} ms; {time.perf_counter() - t0:.1f} s", flush=True)
@@ -4074,23 +4118,25 @@ def vitl_serve_phase() -> dict:
 
 
 def long_train_phase(label: str, model_name: str, check_batch: int, batch: int,
-                     per_step: dict) -> dict:
+                     per_step: dict, frozen=(), **settings) -> dict:
     """35 (ViT-L-14) and 36 (ViT-L-14-336). Phase 7's card-vs-CPU step at
     ``check_batch`` with exactly ``per_step`` launches, then WARMUP_STEPS +
     TIMED_STEPS steps at ``batch`` with exactly ``per_step`` launches a step
     and none of any other wrapper: finite losses and gradient norms, median
-    step ms, pairs/s, peak memory."""
+    step ms, pairs/s, peak memory; the parameters :func:`timed_steps` holds
+    by ``frozen`` keep their bits. ``settings`` go to the model (phases
+    35-36: VITL_CUT)."""
     import torch
 
     from spatial_clip_tpu_torch.bench import synthetic_batch
 
     trainer = train_check_phase(f"{label}-check", batch_size=check_batch, model_name=model_name,
-                                want_launches=per_step)
+                                want_launches=per_step, **settings)
     data = synthetic_batch(trainer.model, batch)
     counters = every_counter()
     names = list(counters)
     counts, step_ms, history, peak = timed_steps(label, trainer, data, VITL_STEPS,
-                                                 [counters[k] for k in names])
+                                                 [counters[k] for k in names], frozen)
     launches = {k: n for k, n in zip(names, counts) if n}
     want = {k: n * VITL_STEPS for k, n in per_step.items()}
     if launches != want:
@@ -4100,7 +4146,8 @@ def long_train_phase(label: str, model_name: str, check_batch: int, batch: int,
           f"(= {VITL_STEPS} x {per_step}); losses finite {history[0][0]:.4f} -> "
           f"{history[-1][0]:.4f}, grad norms finite; median step {med:.3f} ms over "
           f"{TIMED_STEPS} ({batch * 1e3 / med:.1f} pairs/s); max_memory_allocated "
-          f"{peak / 2 ** 30:.3f} GiB", flush=True)
+          f"{peak / 2 ** 30:.3f} GiB" + (f"; every parameter ending in {frozen} kept its bits"
+                                         if frozen else ""), flush=True)
     del trainer, data
     torch.cuda.empty_cache()
     return {"launches": launches, "step_ms": med, "peak_gib": peak / 2 ** 30}
@@ -4119,7 +4166,8 @@ def so400m_phase() -> dict:
 
     t0 = time.perf_counter()
     name = "ViT-SO400M-14-SigLIP"
-    card = create_model(name, precision="bf16", seed=0, device="cuda")
+    cpu = create_model(name, precision="fp32", seed=0, device="cpu")
+    card = card_copy(cpu, name)
     cfg = card.cfg
     rng = np.random.default_rng(37)
     tiles = rng.integers(0, 256, (8, cfg.vision_cfg.size, cfg.vision_cfg.size, 3), dtype=np.uint8)
@@ -4135,7 +4183,6 @@ def so400m_phase() -> dict:
     got = {k: got[k].float().cpu().numpy() for k in ("image_features", "text_features")}
     del card
     torch.cuda.empty_cache()
-    cpu = create_model(name, precision="fp32", seed=0, device="cpu")
     with torch.inference_mode():
         want = cpu(normalize_batch(torch.from_numpy(tiles)), ids)
     cos = {k: float((got[k] * want[k].numpy()).sum(-1).min()) for k in got}
@@ -4166,9 +4213,13 @@ def timm_calls(model, training: bool) -> dict:
     tower makes, by wrapper: each kernel-route block's inference forward
     (or, in training, its forward with lse and saved-lse backward), each
     plain-route block's einsum attention (every Transformer stage of a
-    trunk, whatever attn_impl), and head_attention's calls (a MAP or
-    attention-pool head, each Swin block, each EVA block)."""
+    trunk, whatever attn_impl), head_attention's calls (a MAP or
+    attention-pool head, the modified ResNet's attention pool, each Swin
+    block, each EVA block) and encoder_attention's (each layer of a Hugging
+    Face text tower)."""
+    from spatial_clip_tpu_torch.models import hf_model, m2m_encoder
     from spatial_clip_tpu_torch.models import timm_model as tm
+    from spatial_clip_tpu_torch.models.modified_resnet import AttentionPool2d
     from spatial_clip_tpu_torch.models.transformer import MultiHeadAttention
 
     out = {}
@@ -4185,8 +4236,11 @@ def timm_calls(model, training: bool) -> dict:
                 add(BWD)
             else:
                 add(FWD)
-        elif isinstance(m, (tm.SwinBlock, tm.MAPHead, tm.AttentionPool2dHead)):
+        elif isinstance(m, (tm.SwinBlock, tm.MAPHead, tm.AttentionPool2dHead, AttentionPool2d)):
             add("attention_plain.head_attention")
+        elif isinstance(m, (hf_model.BertLayer, hf_model.T5Block,
+                            m2m_encoder.M2M100EncoderLayer)):
+            add("attention_plain.encoder_attention")
         elif isinstance(m, tm.EVATrunk):
             add("attention_plain.head_attention", m.layers)
     return out
@@ -4208,7 +4262,8 @@ def timm_forward_phase() -> dict:
     counters = every_counter()
     out, lines = {}, []
     for i, name in enumerate(TIMM_FORWARD):
-        card = create_model(name, precision="bf16", seed=0, device="cuda")
+        cpu = create_model(name, precision="fp32", seed=0, device="cpu")
+        card = card_copy(cpu, name)
         cfg = card.cfg
         rng = np.random.default_rng(47 + i)
         size = cfg.vision_cfg.size
@@ -4226,7 +4281,6 @@ def timm_forward_phase() -> dict:
         got = {k: got[k].float().cpu().numpy() for k in ("image_features", "text_features")}
         del card
         torch.cuda.empty_cache()
-        cpu = create_model(name, precision="fp32", seed=0, device="cpu")
         with torch.inference_mode():
             want = cpu(normalize_batch(torch.from_numpy(tiles)), ids)
         del cpu
@@ -4317,6 +4371,175 @@ def convnext_phase() -> dict:
           flush=True)
     return {"check": per_step, "steps": steps["launches"], "serve": serve_launches,
             "pe_core": pe_step, "step_ms": steps["step_ms"], "peak_gib": steps["peak_gib"]}
+
+
+# phase 49: one config per new tower family, at full width and depth
+RN_HF_FORWARD = ("RN50", "RN50x64", "roberta-ViT-B-32", "xlm-roberta-base-ViT-B-32",
+                 "mt5-base-ViT-B-32", "nllb-clip-base", "nllb-clip-base-siglip")
+RN_HF_BATCH = 256  # phase 50's timed steps: the bench workload's batch
+
+
+def copy_weights(src, dst):
+    """``dst`` (a model built on the meta device, no draws) on the card with
+    ``src``'s weights and buffers: the model ``create_model(...,
+    device='cuda')`` gives from the same seed, without drawing its weights a
+    second time on the host (the draws of a ViT-L take seconds)."""
+    import torch
+
+    dst.to_empty(device="cuda")
+    with torch.no_grad():
+        dst.load_state_dict(src.state_dict(), strict=True)
+        buffers = dict(src.named_buffers())
+        for key, buf in dst.named_buffers():
+            buf.copy_(buffers[key])
+    return dst
+
+
+def card_copy(cpu, name: str, precision: str = "bf16", **settings):
+    """``create_model(name, precision, seed=0, device='cuda', **settings)``
+    with ``cpu``'s weights (:func:`copy_weights`), for serving."""
+    from spatial_clip_tpu_torch import create_model
+
+    card = create_model(name, precision=precision, device="meta", **settings)
+    return copy_weights(cpu, card).eval().requires_grad_(False)
+
+
+def text_ids(model, rows: int, rng) -> np.ndarray:
+    """``rows`` id rows inside the text tower's vocab, with pad tails of
+    different lengths (row 0 has none): a Hugging Face tower's through
+    bench.hf_ids, the CLIP tower's with the CLIP BPE's pad 0."""
+    from spatial_clip_tpu_torch.bench import hf_ids
+
+    t = model.cfg.text_cfg
+    if model.hf_text:
+        return hf_ids(rng, rows, t.context_length, model.text.vocab_size, t.pad_id)
+    return hf_ids(rng, rows, t.context_length, t.vocab_size, 0)
+
+
+def rn_hf_forward_phase() -> dict:
+    """49. The modified ResNet and Hugging Face towers (RN_HF_FORWARD: RN50,
+    RN50x64 at 448 px, RoBERTa, XLM-RoBERTa, mT5, M2M100 on ViT-B-32 and on
+    a SigLIP trunk; transformers' class defaults, full width and depth, seed
+    0), each once in bf16 on the card against the same weights in f32 on the
+    CPU: 8 tiles and 8 id rows inside the tower's vocab with pad tails, per-row
+    cosine >= MIN_COSINE for both towers, and exactly the launches
+    :func:`timm_calls` counts per wrapper (the text or image transformer's
+    inference kernel, the RN attention pool's and the SigLIP trunk's einsum
+    calls, each HF layer's encoder_attention). Returns the launches by
+    config."""
+    import torch
+
+    from spatial_clip_tpu_torch import create_model
+    from spatial_clip_tpu_torch.models.transforms import normalize_batch
+
+    t0 = time.perf_counter()
+    counters = every_counter()
+    out, lines = {}, []
+    for i, name in enumerate(RN_HF_FORWARD):
+        t1 = time.perf_counter()
+        cpu = create_model(name, precision="fp32", seed=0, device="cpu")
+        card = card_copy(cpu, name)
+        rng = np.random.default_rng(49 + i)
+        size = cpu.cfg.vision_cfg.size
+        tiles = torch.from_numpy(rng.integers(0, 256, (8, size, size, 3), dtype=np.uint8))
+        ids = torch.from_numpy(text_ids(cpu, 8, rng))
+        for c in counters.values():
+            c.launches = 0
+        with torch.inference_mode():
+            got = card(normalize_batch(tiles.cuda(), dtype=card.dtype), ids.cuda())
+            torch.cuda.synchronize()
+        launches = read_launches(counters)
+        want_launches = timm_calls(card, training=False)
+        got = {k: got[k].float().cpu().numpy() for k in ("image_features", "text_features")}
+        del card
+        torch.cuda.empty_cache()
+        with torch.inference_mode():
+            want = cpu(normalize_batch(tiles), ids)
+        del cpu
+        cos = {k: float((got[k] * want[k].numpy()).sum(-1).min()) for k in got}
+        finite = all(np.isfinite(v).all() for v in got.values())
+        if launches != want_launches or min(cos.values()) < MIN_COSINE or not finite:
+            raise AssertionError(f"[rn-hf-forward] {name}: launches {launches} (want "
+                                 f"{want_launches}), cosine {cos}, finite {finite}")
+        out[name] = launches
+        lines.append(f"{name} ({size} px) image {cos['image_features']:.5f} text "
+                     f"{cos['text_features']:.5f} launches {launches} "
+                     f"{time.perf_counter() - t1:.1f} s")
+    print(f"[rn-hf-forward] bf16 card vs f32 CPU, 8 tiles and 8 id rows with pad tails each, min "
+          f"per-row cosine (>= {MIN_COSINE}) and exact launches per wrapper: " + "; ".join(lines)
+          + f"; {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def rn_hf_train_phase() -> dict:
+    """50. RN50 (bf16) at the bench workload: the card-vs-CPU step at batch
+    4, 13 steps at batch 256 (exactly the text tower's 12 forward-lse and 12
+    saved-lse backward launches and the attention pool's head_attention a
+    step) with every BatchNorm mean and variance keeping its bits; 64 raw
+    tiles through the server's /embed_image_raw against f32 on the CPU by
+    cosine (one head_attention a batch); then xlm-roberta-base-ViT-B-32 the
+    same way at batch 256 with pad tails (the image tower's 12 + 12 kernel
+    launches and 12 encoder_attention calls a step; dropout 0.1 from the
+    step's seed, the same masks on the card and the CPU)."""
+    from http.server import ThreadingHTTPServer
+
+    import torch
+
+    from spatial_clip_tpu_torch import create_model
+    from spatial_clip_tpu_torch.models.transforms import normalize_batch
+    from spatial_clip_tpu_torch.serve import EmbeddingService, make_handler
+
+    t0 = time.perf_counter()
+    out = {}
+    for name in ("RN50", "xlm-roberta-base-ViT-B-32"):
+        per_step = timm_calls(create_model(name, device="meta", training=True), training=True)
+        out[name] = {"check": per_step, **long_train_phase(
+            name.split("-")[0].lower(), name, 4, RN_HF_BATCH, per_step,
+            ("running_mean", "running_var") if name == "RN50" else ())}
+        if name != "RN50":
+            continue
+        service = EmbeddingService(name, precision="bf16", batch_size=64, device="cuda")
+        service.warmup()
+        server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(service))
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        counters = every_counter()
+        try:
+            dim = int(service.model.cfg.embed_dim)
+            tiles = np.random.default_rng(50).integers(0, 256, (64, 224, 224, 3), dtype=np.uint8)
+            for c in counters.values():
+                c.launches = 0
+            img = embeddings(post(server.server_address[1], "/embed_image_raw", tiles.tobytes()))
+            serve_launches = read_launches(counters)
+            check_embeddings("RN50 image", img, 64, dim)
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+            service.close()
+        del service
+        torch.cuda.empty_cache()
+        reference = create_model(name, precision="fp32", seed=0, device="cpu")
+        with torch.inference_mode():
+            want_img = reference.encode_image(normalize_batch(torch.from_numpy(tiles))).numpy()
+        del reference
+        cos = float((img * want_img).sum(-1).min())
+        if serve_launches != {"attention_plain.head_attention": 1} or cos < MIN_COSINE:
+            raise AssertionError(f"[rn50-serve] launches {serve_launches} (want one "
+                                 f"head_attention), min cosine vs f32 CPU {cos}")
+        print(f"[rn50-serve] RN50 bf16 batch 64 through the server: 64 raw tiles, 200 OK, unit "
+              f"norm, launches {serve_launches}; min cosine vs f32 CPU {cos:.5f} (>= "
+              f"{MIN_COSINE})", flush=True)
+        out["serve"] = serve_launches
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True).stdout.strip().splitlines()[0]
+    print(f"[rn-hf-train] phase 50 on {smi}: " + "; ".join(
+        f"{n} bf16 batch {RN_HF_BATCH} median step {out[n]['step_ms']:.3f} ms "
+        f"({RN_HF_BATCH * 1e3 / out[n]['step_ms']:.1f} pairs/s), max_memory_allocated "
+        f"{out[n]['peak_gib']:.3f} GiB" for n in ("RN50", "xlm-roberta-base-ViT-B-32"))
+        + f"; {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 def smoke_synthetic_phase() -> dict:

@@ -64,19 +64,37 @@ def gene_vectors(rng, batch: int, num_genes: int, length: int = 50) -> np.ndarra
     return out
 
 
+def hf_ids(rng, batch: int, length: int, vocab: int, pad: int) -> np.ndarray:
+    """Ids for a Hugging Face text tower: drawn in [3, vocab) (inside the
+    tower's vocab, past its special ids), each row but the first ending in
+    a pad tail of a length of its own."""
+    ids = rng.integers(3, vocab, (batch, length), dtype=np.int64)
+    for row, start in enumerate(rng.integers(1, length, batch)):
+        if row:
+            ids[row, start:] = pad
+    return ids
+
+
 def synthetic_batch(model, batch: int, seed: int = 0, device="cuda"):
     """The benchmark's batch, made with numpy from ``seed`` and moved to the
     device once: uint8 tiles, token ids (for a Gene-MLP tower, 50-gene
-    rank-weighted vectors), tile ids 0..B-1, k neighbor ids in [-1, B) and
+    rank-weighted vectors; for a Hugging Face tower, :func:`hf_ids` in its
+    vocab with pad tails), tile ids 0..B-1, k neighbor ids in [-1, B) and
     their weights in [0, 1)."""
     rng = np.random.default_rng(seed)
     size = int(model.cfg.vision_cfg.size)
     t, g = model.cfg.text_cfg, model.cfg.gene_cfg
     tile_ids = np.arange(batch, dtype=np.int64)
+    images = rng.integers(0, 255, (batch, size, size, 3), dtype=np.uint8)
+    if g is not None:
+        texts = gene_vectors(rng, batch, g.num_genes)
+    elif model.hf_text:
+        texts = hf_ids(rng, batch, t.context_length, model.text.vocab_size, t.pad_id)
+    else:
+        texts = rng.integers(0, t.vocab_size, (batch, t.context_length), dtype=np.int64)
     host = {
-        "images": rng.integers(0, 255, (batch, size, size, 3), dtype=np.uint8),
-        "texts": (gene_vectors(rng, batch, g.num_genes) if g is not None else
-                  rng.integers(0, t.vocab_size, (batch, t.context_length), dtype=np.int64)),
+        "images": images,
+        "texts": texts,
         "image_tile_ids": tile_ids,
         "text_tile_ids": tile_ids.copy(),
         "neighbor_tile_ids": rng.integers(-1, batch, (batch, NEIGHBORS)).astype(np.int64),

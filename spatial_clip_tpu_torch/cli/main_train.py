@@ -224,9 +224,20 @@ def _lock_prefixes(model, args) -> tuple:
     ``--lock-text-unlocked-layers`` text blocks left trainable; inside a
     locked text block the LayerNorms stay trainable unless
     ``--lock-text-freeze-layer-norm``. ``train/optim.py``'s ``freeze_mask``
-    matches them on whole path components."""
+    matches them on whole path components. A modified ResNet image tower
+    (a list of stage depths) is locked whole whatever the unlocked groups,
+    as in JAX. Under a Hugging Face text tower, ``--lock-text-unlocked-layers``
+    above 0 raises: JAX's prefixes (``text/token_embedding``,
+    ``text/transformer/resblocks_i``) name no parameter of that tower, so
+    JAX freezes nothing there."""
     prefixes = []
     v, t = model.cfg.vision_cfg, model.cfg.text_cfg
+    if args.lock_text_tower and args.lock_text_unlocked_layers and getattr(model, "hf_text",
+                                                                           False):
+        raise NotImplementedError(
+            f"--lock-text-unlocked-layers {args.lock_text_unlocked_layers} under the Hugging Face "
+            f"text tower ({t.hf_model_arch}): its layers are not resblocks, and the JAX "
+            "package's prefixes would freeze nothing; lock the whole tower (0) instead")
     if args.lock_image_tower:
         n = args.lock_image_unlocked_groups
         if n and isinstance(v.layers, int):

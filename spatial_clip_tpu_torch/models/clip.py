@@ -10,6 +10,13 @@ JAX's ``clip.py:47-58``), its trunk under ``visual.trunk.*`` and its heads
 beside it. With ``gene_cfg`` set, the Gene-MLP tower (:class:`GeneMLPTower`) replaces
 the text tower under ``text.*`` (``text.embed``, ``text.ln_0``, ...,
 ``text.head``), and ``text`` is a rank-weighted gene vector (B, num_genes).
+With a list of stage depths in ``vision_cfg.layers`` the image tower is the
+modified ResNet (:class:`~spatial_clip_tpu_torch.models.modified_resnet.ModifiedResNet`,
+open_clip's ``visual.conv1`` ... ``visual.attnpool``), and with
+``text_cfg.hf_model_name`` or ``hf_config`` the text tower is a Hugging Face
+encoder (:class:`~spatial_clip_tpu_torch.models.hf_model.HFTextTower`,
+``text.hf.*``, ``text.proj1``), in JAX's order (``clip.py:47-72, :115-126``:
+the gene tower first).
 
 Under ``zip_towers='on'`` (where :func:`zip_ready` holds), a forward given
 both images and text runs the two towers in lockstep (:meth:`CLIP.encode_pair`):
@@ -95,6 +102,12 @@ class CLIP(nn.Module):
                 v.timm_model_name, cfg.embed_dim, v.size, pool=v.timm_pool, proj=v.timm_proj,
                 proj_bias=v.timm_proj_bias, drop=v.timm_drop, dtype=dtype,
                 param_dtype=param_dtype or dtype, device=device)
+        elif isinstance(v.layers, (list, tuple)):  # a list of stage depths: the RN tower
+            from spatial_clip_tpu_torch.models.modified_resnet import ModifiedResNet
+
+            self.visual = ModifiedResNet(
+                tuple(v.layers), v.width, v.size, v.width * 32 // 64, cfg.embed_dim, dtype=dtype,
+                param_dtype=param_dtype or dtype, device=device)
         else:
             self.visual = VisionTransformer(
                 v.size, v.patch_size, v.width, v.layers, v.heads, v.mlp_ratio,
@@ -107,6 +120,12 @@ class CLIP(nn.Module):
                 g.num_genes, g.width, g.layers, cfg.embed_dim, gene_dropout=g.gene_dropout,
                 norm_eps=g.norm_eps, ln_stats=cfg.ln_impl, dtype=dtype,
                 param_dtype=param_dtype or dtype, device=device)
+        elif t.hf_tower:
+            from spatial_clip_tpu_torch.models.hf_model import HFTextTower
+
+            self.text = HFTextTower(
+                cfg.embed_dim, t.hf_model_arch, t.hf_config, t.hf_pooler_type, t.hf_proj_type,
+                t.pad_id, dtype=dtype, param_dtype=param_dtype or dtype, device=device)
         else:
             self.text = None
             text = TextTransformer(
@@ -141,12 +160,22 @@ class CLIP(nn.Module):
         return text_head(x, text, self.ln_final, self.text_projection, self.text_pool_type,
                          self.text_final_ln_after_pool)
 
+    @property
+    def hf_text(self) -> bool:
+        """Whether the text tower is a Hugging Face encoder (``text.hf.*``)."""
+        return self.text is not None and hasattr(self.text, "hf")
+
     def encode_text(self, text: torch.Tensor, normalize: bool = True,
-                    gene_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    gene_keep: Optional[torch.Tensor] = None,
+                    text_dropout=None) -> torch.Tensor:
         """text: (B, context_length) token ids, or with a gene tower the
         (B, num_genes) gene vectors, whose genes outside ``gene_keep`` (the
-        trainer's gene-dropout mask) are zeroed."""
-        if self.text is not None:
+        trainer's gene-dropout mask) are zeroed. ``text_dropout``: a Hugging
+        Face tower's dropout draws in a training step
+        (``hf_model.DropoutDraws``)."""
+        if self.hf_text:
+            feats = self.text(text, text_dropout)
+        elif self.text is not None:
             feats = self.text(text, gene_keep)
         else:
             feats = self._text_head(self.transformer(self._text_embed(text), self.attn_mask),
@@ -173,7 +202,8 @@ class CLIP(nn.Module):
 
     def forward(self, images: Optional[torch.Tensor] = None,
                 text: Optional[torch.Tensor] = None,
-                gene_keep: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                gene_keep: Optional[torch.Tensor] = None,
+                text_dropout=None) -> Dict[str, torch.Tensor]:
         out: Dict[str, torch.Tensor] = {}
         if images is not None and text is not None and self._zip_ready():
             out["image_features"], out["text_features"] = self.encode_pair(images, text)
@@ -181,7 +211,8 @@ class CLIP(nn.Module):
             if images is not None:
                 out["image_features"] = self.encode_image(images)
             if text is not None:
-                out["text_features"] = self.encode_text(text, gene_keep=gene_keep)
+                out["text_features"] = self.encode_text(text, gene_keep=gene_keep,
+                                                        text_dropout=text_dropout)
         out["logit_scale"] = self.logit_scale.exp()
         if self.logit_bias is not None:
             out["logit_bias"] = self.logit_bias

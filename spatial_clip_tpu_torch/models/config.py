@@ -26,13 +26,11 @@ CONFIG_DIR = REFERENCE_MODELS_DIR / "model_configs"
 # builds: open_clip's CustomTextCLIP flag (the same function here), the timm
 # trunk's pretrained flag and drop path, which the JAX package's timm towers
 # ignore as well (no trunk downloads, none has a drop path), and the settings
-# of features refused on their own (the attentional pooler, a Hugging Face
-# text tower).
+# of features refused on their own (the attentional pooler).
 IGNORED_KEYS = frozenset({
     "custom_text",
     "vision_cfg.timm_model_pretrained", "vision_cfg.timm_drop_path",
     "vision_cfg.attn_pooler_queries", "vision_cfg.attn_pooler_heads",
-    "text_cfg.hf_pooler_type", "text_cfg.hf_proj_type",
 })
 # the text pool types text_global_pool computes, as the JAX towers do
 TEXT_POOL_TYPES = ("argmax", "last", "first", "avg", "none")
@@ -108,9 +106,47 @@ class TextCfg:
     qk_norm: bool = False
     proj_bias: bool = False
     norm_eps: float = 1e-5
+    pad_id: int = 0
     hf_tokenizer_name: Optional[str] = None
+    # the Hugging Face text tower (models/hf_model.py) when hf_model_name or
+    # hf_config is set: built from the architecture's class defaults
+    # updated by hf_config, never downloaded
     hf_model_name: Optional[str] = None
+    hf_model_arch: Optional[str] = None  # None: inferred from hf_model_name
     hf_config: Optional[Dict[str, Any]] = None
+    hf_pooler_type: str = "mean_pooler"  # cls_pooler | mean_pooler | max_pooler | last
+    hf_proj_type: str = "linear"  # linear | mlp
+
+    def __post_init__(self):
+        if self.hf_model_arch is None:
+            self.hf_model_arch = (infer_hf_arch(self.hf_model_name) if self.hf_model_name
+                                  else "bert")
+        # the architecture's pad token: m2m_100 and the RoBERTa family pad
+        # with 1, BERT and T5 with 0 (JAX's TextCfg, explicit arch included)
+        if (self.hf_tower and self.hf_model_arch in ("m2m_100", "roberta", "xlm-roberta")
+                and self.pad_id == 0):
+            self.pad_id = 1
+
+    @property
+    def hf_tower(self) -> bool:
+        return bool(self.hf_model_name) or self.hf_config is not None
+
+
+def infer_hf_arch(name: str) -> str:
+    """A hub id's architecture family, matched by name as JAX's
+    ``infer_hf_arch`` does (nllb-clip's text tower is the m2m_100 encoder)."""
+    n = name.lower()
+    if "nllb" in n or "m2m" in n:
+        return "m2m_100"
+    if "xlm-roberta" in n or "xlm_roberta" in n:
+        return "xlm-roberta"
+    if "roberta" in n:
+        return "roberta"
+    if "mt5" in n:
+        return "mt5"
+    if "t5" in n:
+        return "t5"
+    return "bert"
 
 
 @dataclass
@@ -175,9 +211,11 @@ def check_ported(cfg: CLIPCfg) -> None:
     ``head_width`` that disagrees with ``heads``
     (open_clip builds width // head_width heads; these towers build
     ``heads``), a text ``pool_type`` outside :data:`TEXT_POOL_TYPES`
-    (``'eos'``), or a dropped JSON key outside :data:`IGNORED_KEYS` (the
+    (``'eos'``), a dropped JSON key outside :data:`IGNORED_KEYS` (the
     SigLIP text towers' ``norm_kwargs`` / ``act_kwargs``, a tokenizer's
-    ``tokenizer_kwargs``)."""
+    ``tokenizer_kwargs``), or a Hugging Face text tower whose architecture,
+    pooler, projection or ``hf_config`` key the port's encoders do not build
+    (``hf_model.check_hf``)."""
     v, t = cfg.vision_cfg, cfg.text_cfg
     unported = [
         ("multimodal_cfg", cfg.multimodal_cfg, cfg.multimodal_cfg is not None),
@@ -187,7 +225,9 @@ def check_ported(cfg: CLIPCfg) -> None:
         ("ln_gemm_impl", cfg.ln_gemm_impl, cfg.ln_gemm_impl not in ("dense", "pallas")),
         ("ln_impl", cfg.ln_impl, cfg.ln_impl not in ("onepass", "fp32", "pallas")),
         ("vision_cfg.timm_drop", v.timm_drop, bool(v.timm_model_name) and v.timm_drop > 0),
-        ("vision_cfg.layers", v.layers, isinstance(v.layers, (list, tuple))),
+        # open_clip's ModifiedResNet has four stages (layer1 ... layer4)
+        ("vision_cfg.layers", v.layers,
+         isinstance(v.layers, (list, tuple)) and len(v.layers) != 4),
         ("vision_cfg.qk_norm", v.qk_norm, v.qk_norm),
         ("vision_cfg.scaled_cosine", v.scaled_cosine, v.scaled_cosine),
         ("vision_cfg.attentional_pool", v.attentional_pool, v.attentional_pool),
@@ -195,8 +235,6 @@ def check_ported(cfg: CLIPCfg) -> None:
         ("vision_cfg.pos_embed_type", v.pos_embed_type, v.pos_embed_type != "learnable"),
         ("vision_cfg.patchify_impl", v.patchify_impl, v.patchify_impl != "reshape"),
         ("vision_cfg.output_tokens", v.output_tokens, v.output_tokens),
-        ("text_cfg.hf_model_name", t.hf_model_name, t.hf_model_name is not None),
-        ("text_cfg.hf_config", t.hf_config, t.hf_config is not None),
         ("text_cfg.qk_norm", t.qk_norm, t.qk_norm),
         ("text_cfg.embed_cls", t.embed_cls, t.embed_cls),
         ("vision_cfg.head_width", v.head_width,
@@ -219,6 +257,11 @@ def check_ported(cfg: CLIPCfg) -> None:
             raise NotImplementedError(
                 f"{key} is not ported to spatial_clip_tpu_torch (no field carries it, and it "
                 "changes the function)")
+    if t.hf_tower and cfg.gene_cfg is None:
+        from spatial_clip_tpu_torch.models.hf_model import check_hf
+
+        check_hf(t.hf_model_arch, t.hf_config, t.hf_pooler_type, t.hf_proj_type,
+                 t.hf_model_name)
 
 
 def list_model_configs() -> list:

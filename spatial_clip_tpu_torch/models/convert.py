@@ -14,7 +14,12 @@ A timm-style image tower (``models/timm_model.py``) keeps the flax names,
 (k, k, 1, C) -> (C, 1, k, k)), a Dense kernel (in, out) -> (out, in), a
 LayerNorm's ``scale`` its ``weight``, and a ``Transformer`` inside a trunk
 (``visual/trunk/blocks``, ``.../vit``, ``.../attn_stage``) as the ViT
-tower's blocks are mapped. :func:`to_jax_params` is the inverse.
+tower's blocks are mapped. The modified ResNet takes open_clip's names
+(``visual/layer1_0/downsample_bn/mean`` is
+``visual.layer1.0.downsample.1.running_mean``), a Hugging Face text tower
+its flax path under ``text.hf`` (``text/hf/layers.0/self_attn.q_proj/kernel``
+is ``text.hf.layers.0.self_attn.q_proj.weight``) and ``text.proj1`` /
+``text.proj2``. :func:`to_jax_params` is the inverse.
 
 :func:`from_open_clip_timm` reads the visual half of an open_clip state
 dict whose image tower is a timm ConvNeXt or ViT (``visual.trunk.*``,
@@ -230,7 +235,107 @@ def _key_pairs(has) -> List[Tuple[str, str, Optional[Tuple[int, ...]]]]:
             if has(f"visual/{name}/kernel", f"visual.{name}.weight"):
                 take_dense(f"visual/{name}", f"visual.{name}", True)
 
-    if any(present(j, t) for j, t in (("stem_conv/kernel", "stem_conv.weight"),
+    def take_bn(jprefix: str, tprefix: str):  # a frozen BatchNorm: open_clip's names
+        for j, t in (("scale", "weight"), ("bias", "bias"), ("mean", "running_mean"),
+                     ("var", "running_var")):
+            take(f"{jprefix}/{j}", f"{tprefix}.{t}")
+
+    def take_rn():
+        for i in (1, 2, 3):
+            take(f"visual/conv{i}/kernel", f"visual.conv{i}.weight", (3, 2, 0, 1))
+            take_bn(f"visual/bn{i}", f"visual.bn{i}")
+        for stage in (1, 2, 3, 4):
+            b = 0
+            j, t = f"visual/layer{stage}_{b}", f"visual.layer{stage}.{b}"
+            while has(f"{j}/conv1/kernel", f"{t}.conv1.weight"):
+                for c in (1, 2, 3):
+                    take(f"{j}/conv{c}/kernel", f"{t}.conv{c}.weight", (3, 2, 0, 1))
+                    take_bn(f"{j}/bn{c}", f"{t}.bn{c}")
+                if has(f"{j}/downsample_conv/kernel", f"{t}.downsample.0.weight"):
+                    take(f"{j}/downsample_conv/kernel", f"{t}.downsample.0.weight", (3, 2, 0, 1))
+                    take_bn(f"{j}/downsample_bn", f"{t}.downsample.1")
+                b += 1
+                j, t = f"visual/layer{stage}_{b}", f"visual.layer{stage}.{b}"
+        take("visual/attnpool/positional_embedding", "visual.attnpool.positional_embedding")
+        for name in ("q_proj", "k_proj", "v_proj", "c_proj"):
+            take_dense(f"visual/attnpool/{name}", f"visual.attnpool.{name}")
+
+    def take_hf():
+        """A Hugging Face text tower: the flax path with ``/`` as ``.`` (a
+        kernel, embedding or scale as ``weight``); the M2M encoder's flax
+        names hold dots (``layers.0/self_attn.q_proj``), mapped here one by
+        one so that the map goes both ways."""
+        J, T = "text/hf", "text.hf"
+
+        def emb(j, t):
+            take(f"{J}/{j}/embedding", f"{T}.{t}.weight")
+
+        def dense(j, t, bias=True):
+            take(f"{J}/{j}/kernel", f"{T}.{t}.weight", (1, 0))
+            if bias:
+                take(f"{J}/{j}/bias", f"{T}.{t}.bias")
+
+        def ln(j, t):
+            take_ln(f"{J}/{j}", f"{T}.{t}")
+
+        if has(f"{J}/embeddings/word_embeddings/embedding",
+               f"{T}.embeddings.word_embeddings.weight"):  # the BERT family
+            for name in ("word_embeddings", "position_embeddings", "token_type_embeddings"):
+                emb(f"embeddings/{name}", f"embeddings.{name}")
+            ln("embeddings/LayerNorm", "embeddings.LayerNorm")
+            i = 0
+            while has(f"{J}/encoder/layer/{i}/attention/self/query/kernel",
+                      f"{T}.encoder.layer.{i}.attention.self.query.weight"):
+                j, t = f"encoder/layer/{i}", f"encoder.layer.{i}"
+                for name in ("query", "key", "value"):
+                    dense(f"{j}/attention/self/{name}", f"{t}.attention.self.{name}")
+                dense(f"{j}/attention/output/dense", f"{t}.attention.output.dense")
+                ln(f"{j}/attention/output/LayerNorm", f"{t}.attention.output.LayerNorm")
+                dense(f"{j}/intermediate/dense", f"{t}.intermediate.dense")
+                dense(f"{j}/output/dense", f"{t}.output.dense")
+                ln(f"{j}/output/LayerNorm", f"{t}.output.LayerNorm")
+                i += 1
+            dense("pooler/dense", "pooler.dense")
+        elif has(f"{J}/shared/embedding", f"{T}.shared.weight"):  # the T5 family
+            emb("shared", "shared")
+            i = 0
+            while has(f"{J}/encoder/block/{i}/layer/0/SelfAttention/q/kernel",
+                      f"{T}.encoder.block.{i}.layer.0.SelfAttention.q.weight"):
+                j, t = f"encoder/block/{i}/layer", f"encoder.block.{i}.layer"
+                for name in ("q", "k", "v", "o"):
+                    dense(f"{j}/0/SelfAttention/{name}", f"{t}.0.SelfAttention.{name}", False)
+                if i == 0:
+                    emb(f"{j}/0/SelfAttention/relative_attention_bias",
+                        f"{t}.0.SelfAttention.relative_attention_bias")
+                take(f"{J}/{j}/0/layer_norm/weight", f"{T}.{t}.0.layer_norm.weight")
+                for name in ("wi", "wi_0", "wi_1", "wo"):
+                    if has(f"{J}/{j}/1/DenseReluDense/{name}/kernel",
+                           f"{T}.{t}.1.DenseReluDense.{name}.weight"):
+                        dense(f"{j}/1/DenseReluDense/{name}", f"{t}.1.DenseReluDense.{name}",
+                              False)
+                take(f"{J}/{j}/1/layer_norm/weight", f"{T}.{t}.1.layer_norm.weight")
+                i += 1
+            take(f"{J}/encoder/final_layer_norm/weight", f"{T}.encoder.final_layer_norm.weight")
+        else:  # the M2M100 encoder
+            emb("embed_tokens", "embed_tokens")
+            i = 0
+            while has(f"{J}/layers.{i}/fc1/kernel", f"{T}.layers.{i}.fc1.weight"):
+                j, t = f"layers.{i}", f"layers.{i}"
+                for name in ("self_attn_layer_norm", "final_layer_norm"):
+                    ln(f"{j}/{name}", f"{t}.{name}")
+                for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                    dense(f"{j}/self_attn.{name}", f"{t}.self_attn.{name}")
+                dense(f"{j}/fc1", f"{t}.fc1")
+                dense(f"{j}/fc2", f"{t}.fc2")
+                i += 1
+            ln("layer_norm", "layer_norm")
+        take("text/proj1/kernel", "text.proj1.weight", (1, 0))
+        if has("text/proj2/kernel", "text.proj2.weight"):
+            take("text/proj2/kernel", "text.proj2.weight", (1, 0))
+
+    if has("visual/bn1/scale", "visual.bn1.weight"):  # the modified ResNet
+        take_rn()
+    elif any(present(j, t) for j, t in (("stem_conv/kernel", "stem_conv.weight"),
                                       ("stem_conv1/kernel", "stem_conv1.weight"),
                                       ("stem1/kernel", "stem1.weight"),
                                       ("patch_embed/kernel", "patch_embed.weight"))):
@@ -255,6 +360,8 @@ def _key_pairs(has) -> List[Tuple[str, str, Optional[Tuple[int, ...]]]]:
             i += 1
         take_ln("text/ln_final", "text.ln_final")
         take_dense("text/head", "text.head")
+    elif has("text/proj1/kernel", "text.proj1.weight"):  # a Hugging Face text tower
+        take_hf()
     else:
         take_blocks("text/transformer", "transformer")
         take("text/token_embedding/embedding", "token_embedding.weight")

@@ -36,8 +36,11 @@ from spatial_clip_tpu_torch.models.tokenizer import (
     GeneTokenizer,
     GeneVectorizer,
     HashTokenizer,
+    HFTokenizer,
     SimpleTokenizer,
 )
+from spatial_clip_tpu_torch.models.hf_model import Embed
+from spatial_clip_tpu_torch.models.modified_resnet import RNConv
 from spatial_clip_tpu_torch.models.transformer import (
     Dense,
     LayerNorm,
@@ -75,7 +78,13 @@ def init_weights(model: CLIP, seed: int = 0) -> None:
     tower's other parameters come from its modules' ``init_params``, with
     JAX's initializers (normal(0.02) for class tokens, positions, the MAP
     probe and Swin's bias table, normal(C^-1/2) for the attention pool's
-    positions, 1e-6 for ConvNeXt's layer-scale)."""
+    positions, 1e-6 for ConvNeXt's layer-scale). The modified ResNet's
+    convolutions are lecun too, its frozen BatchNorms ones / zeros (mean 0,
+    var 1) and its attention pool's positions normal(C^-1/2); the Hugging
+    Face encoders draw as transformers' Flax modules do (BERT family:
+    normal(``initializer_range``) for embeddings and dense kernels; T5 its
+    per-projection stds; the M2M encoder flax's defaults), the projections
+    lecun."""
     g = torch.Generator().manual_seed(seed)
     cfg = model.cfg
 
@@ -92,9 +101,19 @@ def init_weights(model: CLIP, seed: int = 0) -> None:
 
     for name, mod in model.named_modules():
         if isinstance(mod, Dense):
-            lecun(mod.weight, mod.in_features)
+            if getattr(mod, "init_std", None) is not None:  # the HF encoders' normal(std)
+                normal(mod.weight, mod.init_std)
+            else:
+                lecun(mod.weight, mod.in_features)
             if mod.bias is not None:
                 mod.bias.zero_()
+        elif isinstance(mod, Embed):
+            if mod.init_std is not None:
+                normal(mod.weight, mod.init_std)
+            else:  # flax's default embedding init: lecun over the features
+                lecun(mod.weight, mod.weight.shape[1])
+        elif isinstance(mod, RNConv):
+            lecun(mod.weight, mod.weight[0].numel())
         elif isinstance(mod, Conv):
             lecun(mod.weight, mod.weight[0].numel())
             mod.bias.zero_()
@@ -111,12 +130,13 @@ def init_weights(model: CLIP, seed: int = 0) -> None:
             lecun(mod.weight, mod.weight[0].numel())
         if hasattr(mod, "init_params"):
             mod.init_params(normal)
-    if not cfg.vision_cfg.timm_model_name:
+    if not cfg.vision_cfg.timm_model_name and not isinstance(cfg.vision_cfg.layers, (list,
+                                                                                  tuple)):
         v_width = cfg.vision_cfg.width
         normal(model.visual.class_embedding, v_width ** -0.5)
         normal(model.visual.positional_embedding, v_width ** -0.5)
         normal(model.visual.proj, v_width ** -0.5)
-    if cfg.gene_cfg is None:  # the Gene-MLP tower is Dense and LayerNorm only
+    if model.text is None:  # the Gene-MLP and HF towers draw through their modules
         normal(model.token_embedding.weight, cfg.text_cfg.width ** -0.5)
         normal(model.positional_embedding, 0.01)
         if not isinstance(model.text_projection, Dense):
@@ -187,7 +207,8 @@ def resolve_weights(path: Union[str, Path]) -> Path:
 def read_state_dict(path: Union[str, Path]) -> Dict[str, torch.Tensor]:
     """The state dict in a weight file, in this package's (open_clip's) key
     layout: a safetensors or torch file (a ``state_dict`` entry unwrapped,
-    ``module.``/``_orig_mod.`` prefixes stripped; an open_clip timm ConvNeXt
+    ``module.``/``_orig_mod.`` prefixes stripped, a BatchNorm's
+    ``num_batches_tracked`` dropped, as JAX's RN converter drops it; an open_clip timm ConvNeXt
     or ViT image tower mapped through :func:`convert.from_open_clip_timm`),
     or a JAX-layout ``.npz`` mapped through :func:`convert.from_jax_params`."""
     from spatial_clip_tpu_torch.models.convert import from_jax_params
@@ -213,6 +234,8 @@ def read_state_dict(path: Union[str, Path]) -> Dict[str, torch.Tensor]:
         for prefix in ("module.", "_orig_mod."):
             if k.startswith(prefix):
                 k = k[len(prefix):]
+        if k.endswith(".num_batches_tracked"):  # an open_clip RN's BatchNorm counters
+            continue
         out[k] = torch.as_tensor(v)
     if "visual.trunk.stem.0.weight" in out or "visual.trunk.patch_embed.proj.weight" in out:
         from spatial_clip_tpu_torch.models.convert import from_open_clip_timm
@@ -262,7 +285,9 @@ def get_tokenizer(model_name: str = "", context_length: Optional[int] = None,
     tokenizer (from ``bpe_path`` when given), or the hashing tokenizer for
     architectures whose vocab is smaller than the BPE's (e.g. ViT-Test) or
     where no merges file is found, at ``context_length`` (default: the
-    model's). Hugging Face tokenizers are not ported."""
+    model's). A text config naming ``hf_tokenizer_name`` gets the
+    :class:`HFTokenizer` (local files only; ``kwargs`` go to its
+    ``from_pretrained``)."""
     cfg = resolve_clip_cfg(model_name) if model_name else CLIPCfg()
     ctx = context_length or cfg.text_cfg.context_length or DEFAULT_CONTEXT_LENGTH
     if cfg.gene_cfg is not None:
@@ -274,10 +299,11 @@ def get_tokenizer(model_name: str = "", context_length: Optional[int] = None,
             log.warning("gene vocab size %d != model num_genes %d; pad/truncate applies",
                         vec.num_genes, cfg.gene_cfg.num_genes)
         return vec
-    if cfg.text_cfg.hf_tokenizer_name or kwargs:
-        raise NotImplementedError(
-            f"text_cfg.hf_tokenizer_name={cfg.text_cfg.hf_tokenizer_name!r} (keywords "
-            f"{sorted(kwargs)}) is not ported to spatial_clip_tpu_torch")
+    if cfg.text_cfg.hf_tokenizer_name:
+        return HFTokenizer(cfg.text_cfg.hf_tokenizer_name, context_length=ctx, **kwargs)
+    if kwargs:
+        raise NotImplementedError(f"tokenizer keywords {sorted(kwargs)} are not ported to "
+                                  "spatial_clip_tpu_torch")
     if gene_vocab is not None:
         return GeneTokenizer(gene_vocab, context_length=ctx)
     try:

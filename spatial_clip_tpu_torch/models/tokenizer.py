@@ -1,5 +1,6 @@
 """Caption tokenizers: byte-level BPE, the hashing fallback, the closed
-gene vocabulary, and the gene vectorizer of the Gene-MLP tower.
+gene vocabulary, the gene vectorizer of the Gene-MLP tower, and a Hugging
+Face tokenizer read from local files (:class:`HFTokenizer`).
 
 Id-for-id the same as ``spatial_clip_tpu.models.tokenizer``'s
 ``SimpleTokenizer``, ``HashTokenizer`` and ``GeneTokenizer``, and value for
@@ -278,3 +279,40 @@ class GeneVectorizer:
                 if idx is not None:
                     out[i, idx] = 1.0 - (0.8 * rank / max(n, 1))
         return out
+
+
+class HFTokenizer:
+    """A Hugging Face tokenizer from local files (JAX's ``HFTokenizer``):
+    ``AutoTokenizer.from_pretrained(name, local_files_only=True)``, ids
+    padded and truncated to ``context_length``. ``transformers`` is imported
+    here, when one is built: the package does not need it otherwise. Where
+    it is not installed, or no local copy of ``tokenizer_name`` is found (a
+    directory, or the Hugging Face cache), this raises; nothing is
+    downloaded. The card's runs feed ids directly."""
+
+    def __init__(self, tokenizer_name: str, context_length: int = DEFAULT_CONTEXT_LENGTH,
+                 **kwargs):
+        try:
+            from transformers import AutoTokenizer
+        except ImportError as e:
+            raise RuntimeError(
+                f"the Hugging Face tokenizer {tokenizer_name!r} needs the transformers package, "
+                "which is not installed; tokenize elsewhere and feed ids") from e
+        try:
+            self.tokenizer = AutoTokenizer.from_pretrained(tokenizer_name, local_files_only=True,
+                                                           **kwargs)
+        except (OSError, ValueError) as e:  # a missing path that is no valid hub id: ValueError
+            raise FileNotFoundError(
+                f"no local files for the Hugging Face tokenizer {tokenizer_name!r} (a directory or "
+                "the Hugging Face cache; nothing is downloaded)") from e
+        self.context_length = context_length
+        self.vocab_size = self.tokenizer.vocab_size
+
+    def __call__(self, texts: Union[str, Sequence[str]],
+                 context_length: Optional[int] = None) -> np.ndarray:
+        if isinstance(texts, str):
+            texts = [texts]
+        enc = self.tokenizer(list(texts), return_tensors="np",
+                             max_length=context_length or self.context_length,
+                             padding="max_length", truncation=True)
+        return enc["input_ids"].astype(np.int32)

@@ -12,7 +12,8 @@ either: PyTorch's ops run them on the card and on the CPU alike. ``xla`` is
 ``jax.nn.dot_product_attention``, whose counterpart is
 ``F.scaled_dot_product_attention``. :func:`head_attention` is the einsum
 attention the timm towers write inline (unequal query and key lengths, a
-bias). Each function counts its calls in
+bias); :func:`encoder_attention` the Hugging Face encoders' (flax's
+softmax in the compute dtype). Each function counts its calls in
 ``<function>.launches``, as the kernel wrappers count theirs, so that a run
 shows which attention went where.
 """
@@ -78,6 +79,37 @@ def head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int
     return out.reshape(B, Lq, D)
 
 
+def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
+                      bias: Optional[torch.Tensor] = None, scale: Optional[str] = "div",
+                      acc_dtype=None, drop=None) -> torch.Tensor:
+    """The Hugging Face encoders' attention (``spatial_clip_tpu/models/
+    hf_model.py``: transformers' Flax BERT and T5 through flax's
+    ``dot_product_attention_weights``, and ``m2m_encoder.py``'s einsums): q,
+    k, v (B, L, heads x hd) in the compute dtype; q divided by ``sqrt(hd)``
+    in the compute dtype (``scale='div'``, flax's), multiplied by
+    ``hd^-1/2`` (``'mul'``, the M2M encoder's) or left as it is (None, T5);
+    the scores in ``acc_dtype`` (default: the compute dtype, flax's), the
+    additive ``bias`` (the padding mask, T5's relative positions) and the
+    softmax there, p cast to the compute dtype and passed through ``drop``
+    (dropout, in a training step), then ``einsum(p, v)``. Returns (B, L, heads
+    x hd)."""
+    B, L, D = q.shape
+    hd = D // heads
+    q, k, v = (t.reshape(t.shape[0], t.shape[1], heads, hd) for t in (q, k, v))
+    if scale == "div":
+        q = q / torch.tensor(hd ** 0.5, dtype=q.dtype, device=q.device)
+    elif scale == "mul":
+        q = q * hd ** -0.5
+    encoder_attention.launches += 1
+    attn = torch.einsum("bqhd,bkhd->bhqk", q, k).to(acc_dtype or q.dtype)
+    if bias is not None:
+        attn = attn + bias
+    p = torch.softmax(attn, dim=-1).to(q.dtype)
+    if drop is not None:
+        p = drop(p)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(B, L, D)
+
+
 def fold_attention(x: torch.Tensor, w_qkv: torch.Tensor, b_qkv: torch.Tensor,
                    w_out: torch.Tensor, b_out: torch.Tensor, mask: Optional[torch.Tensor],
                    heads: int, impl: str = "fold") -> torch.Tensor:
@@ -101,4 +133,5 @@ def fold_attention(x: torch.Tensor, w_qkv: torch.Tensor, b_qkv: torch.Tensor,
 
 plain_attention.launches = 0
 head_attention.launches = 0
+encoder_attention.launches = 0
 fold_attention.launches = 0

@@ -55,6 +55,7 @@ from torch import nn
 from torch.func import functional_call
 
 from spatial_clip_tpu_torch.losses import LossFn, make_loss
+from spatial_clip_tpu_torch.models.hf_model import DropoutDraws
 from spatial_clip_tpu_torch.models.transforms import (
     AugmentDraws,
     augment_normalize_batch,
@@ -328,10 +329,14 @@ class Trainer:
         return augment_normalize_batch(images, draws, pp.mean, pp.std, model.dtype)
 
     def _features(self, params, batch, draws: Optional[AugmentDraws],
-                  gene_keep: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                  gene_keep: Optional[torch.Tensor] = None, text_seed: Optional[int] = None,
+                  part: int = 0) -> Dict[str, torch.Tensor]:
         images = self.prepare_images(batch["images"], draws)
-        features = functional_call(self.model, params, (images, batch["texts"]),
-                                   {"gene_keep": gene_keep})
+        kwargs = {"gene_keep": gene_keep}
+        if text_seed is not None:  # microbatch `part`'s dropout, this rank's rows of it
+            kwargs["text_dropout"] = DropoutDraws(text_seed * 64 + part,
+                                                  self.rank * batch["texts"].shape[0])
+        features = functional_call(self.model, params, (images, batch["texts"]), kwargs)
         if self.teacher is not None:
             features.update(self._teacher_features(batch))
         return features
@@ -366,12 +371,25 @@ class Trainer:
         only in a training step (``rngs={'dropout': ...}``); evaluation
         keeps every gene."""
         tower = self.model.text
-        if tower is None or not tower.gene_dropout > 0:
+        if tower is None or not getattr(tower, "gene_dropout", 0) > 0:
             return None
         rows = texts.shape[0]
         keep = tower.draw_keep((rows * self.world, *texts.shape[1:]), state.generator,
                                texts.device)
         return self._my_rows(keep, rows)
+
+    def text_dropout_seed(self, state: TrainState) -> Optional[int]:
+        """The seed of a Hugging Face text tower's dropout masks in this
+        training step (``hf_model.DropoutDraws``), or None where the model
+        has no such tower or its rates are 0: the config's seed and the
+        step, so that a step draws the same masks on the card and on the
+        CPU, and ``grad_accum``'s two passes over a microbatch the same
+        ones. JAX applies the encoders with ``deterministic=False`` in a
+        training step, and with its own generator's masks."""
+        model = self.model
+        if not getattr(model, "hf_text", False) or not any(model.text.dropout_rates):
+            return None
+        return (self.cfg.seed * 1_000_003 + state.step) & 0xFFFFFFFF
 
     def _flat_grad(self, state: TrainState, loss: torch.Tensor) -> torch.Tensor:
         if self.cfg.debug_nans and torch.isnan(loss).item():
@@ -426,9 +444,10 @@ class Trainer:
                                      device=images.device)
             draws = AugmentDraws(*(self._my_rows(d, rows) for d in draws))
         keep = self.draw_gene_keep(state, batch["texts"])
+        seed = self.text_dropout_seed(state)
         accum = max(1, cfg.grad_accum)
         if accum == 1:
-            features = self._features(state.params, batch, draws, keep)
+            features = self._features(state.params, batch, draws, keep, seed)
             loss = self._loss({**batch, **features})
             grads = self._flat_grad(state, loss)
             img, txt, scale = (features["image_features"], features["text_features"],
@@ -444,28 +463,29 @@ class Trainer:
                 *(None if d is None else d[sl] for d in draws)) for sl in parts]
             mb_keep = [None if keep is None else keep[sl] for sl in parts]
             if cfg.grad_accum_mode == "simple":
-                loss, (img, txt, scale), grads = self._simple_accum(state, mbs, mb_draws, mb_keep)
+                loss, (img, txt, scale), grads = self._simple_accum(state, mbs, mb_draws, mb_keep,
+                                                                    seed)
             elif self.teacher is not None:  # as in JAX, whose cached pass never calls the teacher
                 raise NotImplementedError("a distillation teacher under grad_accum > 1 takes "
                                           "grad_accum_mode='simple'")
             else:
                 loss, (img, txt, scale), grads = self._cached_accum(state, batch, mbs, mb_draws,
-                                                                    mb_keep, parts)
+                                                                    mb_keep, parts, seed)
         if self.group is not None:  # once a step, the whole buffer in one fixed-order reduce
             dist.all_reduce(grads, op=dist.ReduceOp.SUM, group=self.group)
             grads.div_(self.world)
         return loss.detach(), self._logits(img, txt, scale) if logits else None, grads
 
-    def _cached_accum(self, state, batch, mbs, mb_draws, mb_keep, parts):
+    def _cached_accum(self, state, batch, mbs, mb_draws, mb_keep, parts, seed=None):
         with torch.no_grad():  # pass 1: attention takes the inference kernel
-            feats = [self._features(state.params, m, d, k)
-                     for m, d, k in zip(mbs, mb_draws, mb_keep)]
+            feats = [self._features(state.params, m, d, k, seed, j)
+                     for j, (m, d, k) in enumerate(zip(mbs, mb_draws, mb_keep))]
         all_img = torch.cat([f["image_features"] for f in feats])
         all_txt = torch.cat([f["text_features"] for f in feats])
         del feats
         grads = None
-        for m, d, k, sl in zip(mbs, mb_draws, mb_keep, parts):
-            f = self._features(state.params, m, d, k)
+        for j, (m, d, k, sl) in enumerate(zip(mbs, mb_draws, mb_keep, parts)):
+            f = self._features(state.params, m, d, k, seed, j)
             inputs = {
                 **batch,
                 "image_features": all_img.slice_scatter(
@@ -481,10 +501,10 @@ class Trainer:
             grads = g if grads is None else grads.add_(g)
         return loss, (all_img, all_txt, state.params["logit_scale"].exp()), grads
 
-    def _simple_accum(self, state, mbs, mb_draws, mb_keep):
+    def _simple_accum(self, state, mbs, mb_draws, mb_keep, seed=None):
         grads = loss_sum = None
-        for m, d, k in zip(mbs, mb_draws, mb_keep):
-            features = self._features(state.params, m, d, k)
+        for j, (m, d, k) in enumerate(zip(mbs, mb_draws, mb_keep)):
+            features = self._features(state.params, m, d, k, seed, j)
             loss = self._loss({**m, **features})
             g = self._flat_grad(state, loss)
             grads = g if grads is None else grads.add_(g)

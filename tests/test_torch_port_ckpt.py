@@ -21,11 +21,16 @@ import json
 import shutil
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from spatial_clip_tpu import create_model as jax_create_model
+from spatial_clip_tpu.models import constants as jax_constants
+from spatial_clip_tpu.models.clip import CLIP as JaxCLIP
+from spatial_clip_tpu.models.config import resolve_clip_cfg as jax_resolve_clip_cfg
+from spatial_clip_tpu.models.factory import ModelBundle
+from spatial_clip_tpu.models.transforms import PreprocessCfg
 from spatial_clip_tpu.losses import make_loss as jax_make_loss
 from spatial_clip_tpu.models.factory import load_checkpoint as jax_load_checkpoint
 from spatial_clip_tpu.models.transforms import normalize_batch as jax_normalize_batch
@@ -35,7 +40,11 @@ from spatial_clip_tpu.train.loop import Trainer as JaxTrainer
 from spatial_clip_tpu.train.loop import TrainerConfig as JaxTrainerConfig
 from spatial_clip_tpu_torch import create_model
 from spatial_clip_tpu_torch.losses import make_loss
-from spatial_clip_tpu_torch.models.convert import from_jax_params, from_jax_train_state
+from spatial_clip_tpu_torch.models.convert import (
+    from_jax_params,
+    from_jax_train_state,
+    to_jax_params,
+)
 from spatial_clip_tpu_torch.models.factory import WEIGHT_FILE_NAMES
 from spatial_clip_tpu_torch.models.transforms import normalize_batch
 from spatial_clip_tpu_torch.train import checkpoints
@@ -43,6 +52,28 @@ from spatial_clip_tpu_torch.train.loop import Trainer, TrainerConfig
 
 WIDE = dict(vision_cfg=dict(width=128, heads=2), text_cfg=dict(width=128, heads=2))
 LOSS = dict(cap_logit_scale=50.0)
+
+
+_BUNDLES: dict = {}
+
+
+def _jax_vit_test(**over):
+    """JAX's widened ViT-Test bundle (f32) on the port's seed-0 weights
+    (flax's op-by-op init takes ~3.5 s a call on this CPU, and the weights
+    are the port's either way). The numpy weights are made once per setting
+    and shared by the module's tests; each call gets its own device arrays,
+    which a JAX Trainer's step may donate."""
+    key = tuple(sorted(over.items()))
+    if key not in _BUNDLES:
+        model = create_model("ViT-Test", precision="fp32", device="cpu", training=True, **WIDE)
+        _BUNDLES[key] = (jax_resolve_clip_cfg("ViT-Test", **WIDE, **over),
+                         to_jax_params(model.state_dict()))
+    cfg, params = _BUNDLES[key]
+    return ModelBundle(
+        model=JaxCLIP(cfg=cfg, dtype=jnp.float32), params=jax.tree.map(jnp.asarray, params),
+        cfg=cfg, model_name="ViT-Test", preprocess_cfg=PreprocessCfg(
+            size=cfg.vision_cfg.image_size, mean=jax_constants.OPENAI_DATASET_MEAN,
+            std=jax_constants.OPENAI_DATASET_STD))
 
 
 def _batch(seed, B=8, size=32, ctx=16, vocab=512, k=4):
@@ -172,18 +203,17 @@ def test_resume_matches_jax_trainer_resumed_from_its_checkpoint(tmp_path):
     exactly; parameters at atol 2e-5; moments at rtol 2^-7 + atol 2e-3 of
     the tensor's largest entry; count and step equal."""
     batches = [_batch(30 + i) for i in range(4)]
-    jb = jax_create_model("ViT-Test", precision="fp32", seed=0, **WIDE)
     cfg_kw = dict(learning_rate=1e-3, warmup_steps=1, total_steps=20, augment=False, seed=0,
                   log_every=1, save_every_steps=2)
 
     def jax_trainer():
-        return JaxTrainer(jb, loss=jax_make_loss("spatial", **LOSS),
+        return JaxTrainer(_jax_vit_test(), loss=jax_make_loss("spatial", **LOSS),
                           config=JaxTrainerConfig(ckpt_dir=str(tmp_path / "jax"), **cfg_kw),
                           mesh=make_mesh(devices=jax.devices()[:1]))
 
     jax_trainer().fit(lambda: iter(batches[:2]), epochs=1)
     jstate, want = jax_trainer().fit(lambda: iter(batches[2:]), epochs=1, resume="latest")
-    params = from_jax_params(jb.params)
+    params = from_jax_params(_jax_vit_test().params)
     _trainer(tmp_path / "port", params, augment=False).fit(lambda: iter(batches[:2]), epochs=1)
     state, got = _trainer(tmp_path / "port", params, augment=False).fit(
         lambda: iter(batches[2:]), epochs=1, resume="latest")
@@ -207,7 +237,7 @@ def test_resume_matches_jax_trainer_resumed_from_its_checkpoint(tmp_path):
 
 @pytest.fixture(scope="module")
 def jax_bundle():
-    return jax_create_model("ViT-Test", precision="fp32", seed=0, **WIDE)
+    return _jax_vit_test()
 
 
 def _encode_both(model, bundle):

@@ -407,6 +407,29 @@ def test_tower_on_card_matches_cpu(device):
     torch.testing.assert_close(txt, want_txt, atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("name", ["RN50", "xlm-roberta-base-ViT-B-32"])
+def test_rn_and_hf_towers_in_bf16_on_card_match_cpu(device, name):
+    """RN50 and xlm-roberta-base-ViT-B-32 (transformers' class defaults) in
+    bf16 on the card against the same weights in f32 on the CPU: 4 tiles
+    and 4 id rows inside the tower's vocab with pad tails, per-row cosine
+    >= 0.99 for both towers."""
+    from spatial_clip_tpu_torch.bench import hf_ids
+
+    cpu = create_model(name, precision="fp32", device="cpu")
+    gpu = create_model(name, precision="bf16", device=device)
+    rng = np.random.default_rng(4)
+    u8 = torch.from_numpy(rng.integers(0, 256, (4, 224, 224, 3), np.uint8))
+    t = cpu.cfg.text_cfg
+    vocab = cpu.text.vocab_size if cpu.hf_text else t.vocab_size
+    ids = torch.from_numpy(hf_ids(rng, 4, t.context_length, vocab, t.pad_id))
+    with torch.inference_mode():
+        got = gpu(normalize_batch(u8.to(device), dtype=torch.bfloat16), ids.to(device))
+        want = cpu(normalize_batch(u8), ids)
+    for k in ("image_features", "text_features"):
+        cos = (got[k].float().cpu() * want[k]).sum(-1)
+        assert cos.min().item() >= 0.99, (k, cos)
+
+
 def test_train_step_on_card_matches_cpu(device):
     """Widened ViT-Test in f32: two Trainer steps (lr is 0 at the first) on
     the card, through the training kernels, against the CPU's plain path.

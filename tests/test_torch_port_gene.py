@@ -35,7 +35,10 @@ sys.path.insert(0, str(ROOT))
 
 import eval as jax_eval_entry  # noqa: E402
 import train as jax_train_entry  # noqa: E402
-from spatial_clip_tpu import create_model as jax_create_model  # noqa: E402
+from spatial_clip_tpu.models import constants as jax_constants  # noqa: E402
+from spatial_clip_tpu.models.config import resolve_clip_cfg as jax_resolve_clip_cfg  # noqa: E402
+from spatial_clip_tpu.models.factory import ModelBundle  # noqa: E402
+from spatial_clip_tpu.models.transforms import PreprocessCfg  # noqa: E402
 from spatial_clip_tpu.config import compose as jax_compose  # noqa: E402
 from spatial_clip_tpu.data.datasets import synthetic as jax_synthetic  # noqa: E402
 from spatial_clip_tpu.losses import make_loss as jax_make_loss  # noqa: E402
@@ -117,17 +120,33 @@ def _batch(seed, texts, B=8, size=32, k=4):
     }
 
 
+_BUNDLES: dict = {}
+
+
 def _both_models(gene_cfg=None, text_cfg=None, **kw):
-    """The JAX bundle and the port's training model (f32) on its weights."""
+    """The JAX bundle and the port's training model (f32) on the same
+    weights. The port's model is built first (its weights drawn from seed
+    0) and JAX's bundle on its weights (flax's op-by-op init takes ~3.5 s a
+    call on this CPU), the numpy weights once per configuration, shared by
+    the module's tests."""
     over = dict(WIDE)
     if text_cfg:
         over["text_cfg"] = {**WIDE["text_cfg"], **text_cfg}
     if gene_cfg:
         over["gene_cfg"] = gene_cfg
-    jb = jax_create_model("ViT-Test", precision="fp32", seed=0, **over, **kw)
     model = create_model("ViT-Test", precision="fp32", device="cpu", training=True, **over, **kw)
-    model.load_state_dict(from_jax_params(jb.params))
-    return jb, model
+    key = json.dumps([over, kw], sort_keys=True)
+    if key not in _BUNDLES:
+        _BUNDLES[key] = (jax_resolve_clip_cfg("ViT-Test", **over, **kw),
+                         to_jax_params(model.state_dict()))
+    cfg, params = _BUNDLES[key]
+    model.load_state_dict(from_jax_params(params))
+    # device arrays of its own: a JAX Trainer's step may donate them
+    return ModelBundle(
+        model=JaxCLIP(cfg=cfg, dtype=jnp.float32), params=jax.tree.map(jnp.asarray, params),
+        cfg=cfg, model_name="ViT-Test", preprocess_cfg=PreprocessCfg(
+            size=cfg.vision_cfg.image_size, mean=jax_constants.OPENAI_DATASET_MEAN,
+            std=jax_constants.OPENAI_DATASET_STD)), model
 
 
 # ---------------------------------------------------------------- tokenizers
@@ -214,7 +233,7 @@ def test_gene_tower_forward_and_gradients_match_jax(case, monkeypatch):
         f = jb.model.apply({"params": p}, jnp.asarray(x), True, method=JaxCLIP.encode_text)
         return (f * R).sum(), f
 
-    (_, want), want_g = jax.value_and_grad(jloss, has_aux=True)(jb.params)
+    (_, want), want_g = jax.jit(jax.value_and_grad(jloss, has_aux=True))(jb.params)
     feats = model.encode_text(_t(x))
     assert len(calls) == (1 if ln == "pallas" else 0)
     np.testing.assert_allclose(feats.detach().numpy(), np.asarray(want), atol=1e-5)
@@ -244,7 +263,7 @@ def test_clip_with_gene_tower_matches_jax():
         f = jb.model.apply({"params": p}, x, batch["texts"], True)
         return jl(**{**batch, **f})["contrastive_loss"], f
 
-    (want, feats), want_g = jax.value_and_grad(jloss, has_aux=True)(jb.params)
+    (want, feats), want_g = jax.jit(jax.value_and_grad(jloss, has_aux=True))(jb.params)
     tb = {k: _t(v) for k, v in batch.items()}
     out = model(_t(x), tb["texts"])
     for k in ("image_features", "text_features", "logit_scale"):

@@ -13,7 +13,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "spatial_clip_tpu_torch"
 NEVER = {"jax", "jaxlib", "flax", "optax", "spatial_clip_tpu"}  # anywhere in the port
-NOT_AT_IMPORT = {"PIL", "pandas", "triton"}  # only inside the functions that need them
+# only inside the functions that need them (transformers: the HF tokenizer)
+NOT_AT_IMPORT = {"PIL", "pandas", "triton", "transformers"}
 SOURCES = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -57,6 +58,8 @@ def test_import_pulls_in_no_jax():
         "spatial_clip_tpu_torch.ops.fused_block, spatial_clip_tpu_torch.bench_block, "
         "spatial_clip_tpu_torch.ops.attention_variants, "
         "spatial_clip_tpu_torch.models.convert, spatial_clip_tpu_torch.models.timm_model, "
+        "spatial_clip_tpu_torch.models.modified_resnet, spatial_clip_tpu_torch.models.hf_model, "
+        "spatial_clip_tpu_torch.models.m2m_encoder, "
         "spatial_clip_tpu_torch.losses, spatial_clip_tpu_torch.train.loop, "
         "spatial_clip_tpu_torch.train.optim, spatial_clip_tpu_torch.train.metrics, "
         "spatial_clip_tpu_torch.bench, spatial_clip_tpu_torch.profile_serving, "
@@ -78,3 +81,28 @@ def test_import_pulls_in_no_jax():
                          cwd=PACKAGE.parent, timeout=120, check=True).stdout
     loaded = set(ast.literal_eval(out.strip().splitlines()[-1]))
     assert not loaded & (NEVER | NOT_AT_IMPORT), loaded
+
+
+def test_hf_towers_build_without_transformers():
+    """With transformers blocked (the card's machine has none), the package
+    imports and builds each Hugging Face tower from its class defaults
+    (meta device) and a small one that encodes on the CPU; only the
+    tokenizer needs transformers, and says so."""
+    code = (
+        "import sys; sys.modules['transformers'] = None\n"
+        "import torch\n"
+        "from spatial_clip_tpu_torch import create_model, get_tokenizer\n"
+        "for name in ('roberta-ViT-B-32', 'xlm-roberta-base-ViT-B-32', 'mt5-base-ViT-B-32',\n"
+        "             'nllb-clip-base'):\n"
+        "    create_model(name, device='meta')\n"
+        "m = create_model('ViT-Test', precision='fp32', device='cpu', text_cfg=dict(\n"
+        "    hf_model_arch='mt5', hf_config=dict(vocab_size=50, d_model=32, num_layers=1,\n"
+        "    num_heads=2, d_kv=16, d_ff=64)))\n"
+        "print(tuple(m.encode_text(torch.randint(2, 50, (2, 8))).shape))\n"
+        "try:\n"
+        "    get_tokenizer('roberta-ViT-B-32')\n"
+        "except RuntimeError as e:\n"
+        "    print('transformers' in str(e))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=PACKAGE.parent, timeout=120, check=True).stdout.split()
+    assert out[-3:] == ["(2,", "32)", "True"]

@@ -20,13 +20,18 @@ and parameters at atol 2e-5 (the port's other Trainer tests').
 """
 from __future__ import annotations
 
+import json
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from spatial_clip_tpu import create_model as jax_create_model
+from spatial_clip_tpu.models import constants as _jax_constants
+from spatial_clip_tpu.models.clip import CLIP as _JaxCLIP
+from spatial_clip_tpu.models.config import resolve_clip_cfg as _jax_resolve_clip_cfg
+from spatial_clip_tpu.models.factory import ModelBundle as _JaxBundle
+from spatial_clip_tpu.models.transforms import PreprocessCfg as _JaxPreprocessCfg
 from spatial_clip_tpu.losses import make_loss as jax_make_loss
 from spatial_clip_tpu.models.transforms import normalize_batch as jax_normalize
 from spatial_clip_tpu.ops import fused_attention as jfa
@@ -35,13 +40,41 @@ from spatial_clip_tpu.train.loop import Trainer as JaxTrainer
 from spatial_clip_tpu.train.loop import TrainerConfig as JaxTrainerConfig
 from spatial_clip_tpu_torch import create_model
 from spatial_clip_tpu_torch.losses import make_loss
-from spatial_clip_tpu_torch.models.convert import from_jax_params, from_jax_train_state
+from spatial_clip_tpu_torch.models.convert import (
+    from_jax_params,
+    from_jax_train_state,
+    to_jax_params,
+)
 from spatial_clip_tpu_torch.ops import attention_variants as av
 from spatial_clip_tpu_torch.ops import fused_attention as pfa
 from spatial_clip_tpu_torch.train.loop import Trainer, TrainerConfig
 
 # two head groups in each tower: image 4 heads of 64, text 8 heads of 32
 WIDE = dict(vision_cfg=dict(width=256, heads=4), text_cfg=dict(width=256, heads=8))
+
+
+_JAX_WEIGHTS: dict = {}
+
+
+def _jax_model(name="ViT-Test", precision="fp32", seed=0, **over):
+    """JAX's bundle (``spatial_clip_tpu.create_model``'s) on the port's
+    weights drawn from ``seed``: flax's op-by-op initializers take ~3.5 s a
+    call on this CPU, and the weights are the port's either way. The numpy
+    weights are made once per setting and shared by the module's tests;
+    each call gets device arrays of its own, which a JAX Trainer's step may
+    donate."""
+    key = json.dumps([name, seed, over], sort_keys=True)
+    if key not in _JAX_WEIGHTS:
+        model = create_model(name, precision="fp32", device="cpu", seed=seed, training=True,
+                             **over)
+        _JAX_WEIGHTS[key] = to_jax_params(model.state_dict())
+    cfg = _jax_resolve_clip_cfg(name, **over)
+    return _JaxBundle(
+        model=_JaxCLIP(cfg=cfg, dtype=jnp.bfloat16 if precision == "bf16" else jnp.float32),
+        params=jax.tree.map(jnp.asarray, _JAX_WEIGHTS[key]), cfg=cfg, model_name=name,
+        preprocess_cfg=_JaxPreprocessCfg(size=cfg.vision_cfg.image_size,
+                                         mean=_jax_constants.OPENAI_DATASET_MEAN,
+                                         std=_jax_constants.OPENAI_DATASET_STD))
 SETTINGS = {
     "inter": dict(attn_impl="pallas_inter"),
     "inter_ln_gemm": dict(attn_impl="pallas_inter", ln_gemm_impl="pallas"),
@@ -315,7 +348,7 @@ def test_model_features_and_gradients_match_jax(setting, monkeypatch):
     setting's own wrapper, forward and backward, and never a standard one;
     the state dict is the default model's."""
     kw = SETTINGS[setting]
-    jb = jax_create_model("ViT-Test", precision="fp32", seed=0, **WIDE, **kw)
+    jb = _jax_model("ViT-Test", precision="fp32", seed=0, **WIDE, **kw)
     batch = _batch(3)
     x = np.array(jax_normalize(batch["images"]))
     jl = jax_make_loss("spatial", cap_logit_scale=50.0)
@@ -381,7 +414,7 @@ def test_three_train_steps_match_jax_trainer_pallas_t():
     lr is 0 at step 0): metrics at rtol 1e-5, exact R@k, parameters at atol
     2e-5 after the three steps."""
     cfg_kw = dict(learning_rate=1e-3, warmup_steps=2, total_steps=50, augment=False, seed=0)
-    jb = jax_create_model("ViT-Test", precision="fp32", seed=0, attn_impl="pallas_t", **WIDE)
+    jb = _jax_model("ViT-Test", precision="fp32", seed=0, attn_impl="pallas_t", **WIDE)
     jt = JaxTrainer(jb, loss=jax_make_loss("spatial", cap_logit_scale=50.0),
                     config=JaxTrainerConfig(**cfg_kw), mesh=make_mesh(devices=jax.devices()[:1]))
     jstep, jstate = jt.make_train_step(), jt.init_state()

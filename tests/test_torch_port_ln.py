@@ -16,6 +16,7 @@ atol 1e-4; model features at atol 1e-5, model gradients at
 """
 from __future__ import annotations
 
+import json
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +24,11 @@ import pytest
 import torch
 
 from spatial_clip_tpu import create_model as jax_create_model
+from spatial_clip_tpu.models import constants as _jax_constants
+from spatial_clip_tpu.models.clip import CLIP as _JaxCLIP
+from spatial_clip_tpu.models.config import resolve_clip_cfg as _jax_resolve_clip_cfg
+from spatial_clip_tpu.models.factory import ModelBundle as _JaxBundle
+from spatial_clip_tpu.models.transforms import PreprocessCfg as _JaxPreprocessCfg
 from spatial_clip_tpu.losses import make_loss as jax_make_loss
 from spatial_clip_tpu.models.transformer import LayerNorm as JaxLayerNorm
 from spatial_clip_tpu.models.transforms import normalize_batch as jax_normalize
@@ -33,7 +39,11 @@ from spatial_clip_tpu.train.loop import Trainer as JaxTrainer
 from spatial_clip_tpu.train.loop import TrainerConfig as JaxTrainerConfig
 from spatial_clip_tpu_torch import create_model
 from spatial_clip_tpu_torch.losses import make_loss
-from spatial_clip_tpu_torch.models.convert import from_jax_params, from_jax_train_state
+from spatial_clip_tpu_torch.models.convert import (
+    from_jax_params,
+    from_jax_train_state,
+    to_jax_params,
+)
 from spatial_clip_tpu_torch.models.transformer import LayerNorm, MLP, _ln_apply, gelu_tanh
 from spatial_clip_tpu_torch.ops import fused_ln_dense as pld
 from spatial_clip_tpu_torch.ops.fused_ln import (
@@ -46,6 +56,30 @@ from spatial_clip_tpu_torch.ops.fused_ln import (
 from spatial_clip_tpu_torch.train.loop import Trainer, TrainerConfig
 
 WIDE = dict(vision_cfg=dict(width=128, heads=2), text_cfg=dict(width=128, heads=2))
+
+
+_JAX_WEIGHTS: dict = {}
+
+
+def _jax_model(name="ViT-Test", precision="fp32", seed=0, **over):
+    """JAX's bundle (``spatial_clip_tpu.create_model``'s) on the port's
+    weights drawn from ``seed``: flax's op-by-op initializers take ~3.5 s a
+    call on this CPU, and the weights are the port's either way. The numpy
+    weights are made once per setting and shared by the module's tests;
+    each call gets device arrays of its own, which a JAX Trainer's step may
+    donate."""
+    key = json.dumps([name, seed, over], sort_keys=True)
+    if key not in _JAX_WEIGHTS:
+        model = create_model(name, precision="fp32", device="cpu", seed=seed, training=True,
+                             **over)
+        _JAX_WEIGHTS[key] = to_jax_params(model.state_dict())
+    cfg = _jax_resolve_clip_cfg(name, **over)
+    return _JaxBundle(
+        model=_JaxCLIP(cfg=cfg, dtype=jnp.bfloat16 if precision == "bf16" else jnp.float32),
+        params=jax.tree.map(jnp.asarray, _JAX_WEIGHTS[key]), cfg=cfg, model_name=name,
+        preprocess_cfg=_JaxPreprocessCfg(size=cfg.vision_cfg.image_size,
+                                         mean=_jax_constants.OPENAI_DATASET_MEAN,
+                                         std=_jax_constants.OPENAI_DATASET_STD))
 SETTINGS = {  # the JAX model's overrides; the port takes the same
     "ln_pallas": dict(ln_impl="pallas"),
     "ln_gemm_attn_pallas": dict(ln_gemm_impl="pallas", attn_impl="pallas"),
@@ -278,7 +312,7 @@ def test_model_features_and_gradients_match_jax(setting, monkeypatch):
     monkeypatch.setattr(fused_attention, "fused_attention_bwd_recompute",
                         counted(2, fused_attention.fused_attention_bwd_recompute))
     kw = SETTINGS[setting]
-    jb = jax_create_model("ViT-Test", precision="fp32", seed=0, **WIDE, **kw)
+    jb = _jax_model(**WIDE, **kw)
     batch = _batch(3)
     x = np.array(jax_normalize(batch["images"]))
     jl = jax_make_loss("spatial", cap_logit_scale=50.0)
@@ -314,7 +348,7 @@ def test_three_train_steps_match_jax_trainer_ln_pallas():
     is 0 at step 0): metrics at rtol 1e-5, exact R@k, parameters at atol
     2e-5 after the three steps (updates are ~1e-3)."""
     cfg_kw = dict(learning_rate=1e-3, warmup_steps=2, total_steps=50, augment=False, seed=0)
-    jb = jax_create_model("ViT-Test", precision="fp32", seed=0, ln_impl="pallas", **WIDE)
+    jb = _jax_model(ln_impl="pallas", **WIDE)
     jt = JaxTrainer(jb, loss=jax_make_loss("spatial", cap_logit_scale=50.0),
                     config=JaxTrainerConfig(**cfg_kw), mesh=make_mesh(devices=jax.devices()[:1]))
     jstep, jstate = jt.make_train_step(), jt.init_state()

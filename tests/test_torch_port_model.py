@@ -9,13 +9,18 @@ per-row cosine of 0.999.
 """
 from __future__ import annotations
 
+import json
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from spatial_clip_tpu import create_model as jax_create_model
+from spatial_clip_tpu.models import constants as _jax_constants
+from spatial_clip_tpu.models.clip import CLIP as _JaxCLIP
+from spatial_clip_tpu.models.config import resolve_clip_cfg as _jax_resolve_clip_cfg
+from spatial_clip_tpu.models.factory import ModelBundle as _JaxBundle
+from spatial_clip_tpu.models.transforms import PreprocessCfg as _JaxPreprocessCfg
 from spatial_clip_tpu.models.convert import jax_to_torch_state_dict
 from spatial_clip_tpu.models.tokenizer import HashTokenizer as JaxHashTokenizer
 from spatial_clip_tpu.models.tokenizer import SimpleTokenizer as JaxSimpleTokenizer
@@ -23,11 +28,35 @@ from spatial_clip_tpu.models.transforms import normalize_batch as jax_normalize_
 from spatial_clip_tpu_torch import create_model
 from spatial_clip_tpu_torch.models.clip import CLIP
 from spatial_clip_tpu_torch.models.config import resolve_clip_cfg
-from spatial_clip_tpu_torch.models.convert import from_jax_params
+from spatial_clip_tpu_torch.models.convert import from_jax_params, to_jax_params
 from spatial_clip_tpu_torch.models.tokenizer import HashTokenizer, SimpleTokenizer
 from spatial_clip_tpu_torch.models.transforms import normalize_batch
 
 WIDE = dict(vision_cfg=dict(width=128, heads=2), text_cfg=dict(width=128, heads=2))
+
+
+_JAX_WEIGHTS: dict = {}
+
+
+def _jax_model(name="ViT-Test", precision="fp32", seed=0, **over):
+    """JAX's bundle (``spatial_clip_tpu.create_model``'s) on the port's
+    weights drawn from ``seed``: flax's op-by-op initializers take ~3.5 s a
+    call on this CPU, and the weights are the port's either way. The numpy
+    weights are made once per setting and shared by the module's tests;
+    each call gets device arrays of its own, which a JAX Trainer's step may
+    donate."""
+    key = json.dumps([name, seed, over], sort_keys=True)
+    if key not in _JAX_WEIGHTS:
+        model = create_model(name, precision="fp32", device="cpu", seed=seed, training=True,
+                             **over)
+        _JAX_WEIGHTS[key] = to_jax_params(model.state_dict())
+    cfg = _jax_resolve_clip_cfg(name, **over)
+    return _JaxBundle(
+        model=_JaxCLIP(cfg=cfg, dtype=jnp.bfloat16 if precision == "bf16" else jnp.float32),
+        params=jax.tree.map(jnp.asarray, _JAX_WEIGHTS[key]), cfg=cfg, model_name=name,
+        preprocess_cfg=_JaxPreprocessCfg(size=cfg.vision_cfg.image_size,
+                                         mean=_jax_constants.OPENAI_DATASET_MEAN,
+                                         std=_jax_constants.OPENAI_DATASET_STD))
 TEXTS = ["a cell", "tumor tile with dense lymphocytes", "EPCAM KRT8 KRT18", "stroma"]
 
 
@@ -38,7 +67,7 @@ def _cosine(a, b):
 
 @pytest.fixture(scope="module")
 def jax_bundle():
-    return jax_create_model("ViT-Test", precision="fp32", seed=0, **WIDE)
+    return _jax_model("ViT-Test", precision="fp32", seed=0, **WIDE)
 
 
 @pytest.fixture(scope="module")
@@ -82,8 +111,7 @@ def test_towers_match_jax_f32(jax_bundle, inputs, attn_impl, normalize):
     """'auto' is the einsum path on the CPU; 'pallas' runs the Pallas kernel
     in interpret mode, the path the JAX package serves on the TPU."""
     u8, ids = inputs
-    ref = jax_bundle if attn_impl == "auto" else jax_create_model(
-        "ViT-Test", precision="fp32", seed=0, attn_impl=attn_impl, **WIDE)
+    ref = jax_bundle if attn_impl == "auto" else _jax_model("ViT-Test", precision="fp32", seed=0, attn_impl=attn_impl, **WIDE)
     want = _jax_encode(ref, u8, ids, jax_bundle.params, normalize=normalize)
     got = _port_encode(_port_model(jax_bundle.params), u8, ids, normalize=normalize)
     for g, w in zip(got, want):
@@ -95,7 +123,7 @@ def test_towers_match_jax_bf16(jax_bundle, inputs):
     """bf16 compute with the weights stored in bf16: the two frameworks
     round at the same points but sum in other orders."""
     u8, ids = inputs
-    ref = jax_create_model("ViT-Test", precision="bf16", seed=0, **WIDE)
+    ref = _jax_model("ViT-Test", precision="bf16", seed=0, **WIDE)
     want = _jax_encode(ref, u8, ids, jax_bundle.params, dtype=jnp.bfloat16)
     got = _port_encode(_port_model(jax_bundle.params, "bf16"), u8, ids)
     for g, w in zip(got, want):
@@ -117,7 +145,7 @@ def test_variant_config_matches_jax(inputs):
     no ln_pre, pooling before the final LN, avg/last pooling, a biased text
     projection, no causal mask (the kernel's mask-free path), logit bias."""
     u8, ids = inputs
-    ref = jax_create_model("ViT-Test", precision="fp32", seed=0, **VARIANT)
+    ref = _jax_model("ViT-Test", precision="fp32", seed=0, **VARIANT)
     want = _jax_encode(ref, u8, ids, ref.params)
     m = create_model("ViT-Test", precision="fp32", device="cpu", **VARIANT)
     m.load_state_dict(from_jax_params(ref.params))
@@ -164,10 +192,11 @@ def test_vit_b_32_layout_matches_jax_export():
     (dict(vision_cfg=dict(attentional_pool=True)), "vision_cfg.attentional_pool"),
     (dict(vision_cfg=dict(patch_dropout=0.5)), "vision_cfg.patch_dropout"),
     (dict(vision_cfg=dict(timm_model_name="vit_base")), "vision_cfg.timm_model_name"),
-    (dict(vision_cfg=dict(layers=[1, 1, 1, 1])), "vision_cfg.layers"),
+    (dict(vision_cfg=dict(layers=[1, 1, 1])), "vision_cfg.layers"),  # RN takes four stages
     (dict(vision_cfg=dict(pos_embed_type="sin_cos_2d")), "vision_cfg.pos_embed_type"),
     (dict(text_cfg=dict(qk_norm=True)), "text_cfg.qk_norm"),
-    (dict(text_cfg=dict(hf_model_name="bert-base")), "text_cfg.hf_model_name"),
+    (dict(text_cfg=dict(hf_model_name="gpt2", hf_model_arch="gpt2")),
+     "text_cfg.hf_model_name"),  # an architecture with no encoder here
     (dict(text_cfg=dict(embed_cls=True)), "text_cfg.embed_cls"),
     (dict(gene_cfg=dict(num_genes=8, hidden=4)), "gene_cfg"),  # a key GeneCfg lacks
     (dict(multimodal_cfg=dict(layers=1)), "multimodal_cfg"),

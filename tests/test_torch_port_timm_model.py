@@ -2,10 +2,12 @@
 built-in configs the port takes, the parameter trees of one full-width
 config per trunk family, and two Trainer steps of a ConvNeXt-pico CLIP.
 
-- ``check_ported`` lets through 74 of the 142 built-in configs (30 before
-  the timm towers), each built by ``create_model`` (on the meta device: the
-  largest, EVA02-E, holds 4.4e9 parameters); the SigLIP / SigLIP2 configs,
-  whose image trunks are ported, are refused on their text side.
+- ``check_ported`` lets through 91 of the 142 built-in configs (30 before
+  the timm towers, 74 before the modified ResNet and Hugging Face towers),
+  each built by ``create_model`` (on the meta device: the largest, EVA02-E,
+  holds 4.4e9 parameters); the SigLIP / SigLIP2 configs, whose image
+  trunks are ported, are refused on their text side but for the two
+  nllb-clip ones, whose text tower is the M2M100 encoder.
 - One config per family at full width on the meta device against JAX's
   tree from ``jax.eval_shape``: every parameter maps one to one, with the
   same shape after the key map's transposes, the same weight-decay mask
@@ -54,33 +56,55 @@ def _passes(name) -> bool:
     return True
 
 
+# the configs the modified ResNet and Hugging Face towers opened
+RN_CONFIGS = ["RN-Test", *(f"RN{s}{q}" for s in ("50", "101", "50x4", "50x16", "50x64")
+                           for q in ("", "-quickgelu"))]
+HF_CONFIGS = ["roberta-ViT-B-32", "xlm-roberta-base-ViT-B-32", "mt5-base-ViT-B-32",
+              "nllb-clip-base", "nllb-clip-base-siglip", "nllb-clip-large-siglip"]
+
+
 def test_74_builtin_configs_pass_and_build():
-    """74 of the 142 built-in configs pass check_ported, the 44 timm ones
-    among them, and create_model builds each (meta device)."""
+    """91 of the 142 built-in configs pass check_ported (74 before the RN
+    and HF towers): 46 with a timm trunk (44 before, and the 2 nllb-clip
+    SigLIP ones), the 11 RN ones and the 6 HF ones named above; create_model
+    builds each (meta device) with the tower its config names."""
+    from spatial_clip_tpu_torch.models.hf_model import HFTextTower
+    from spatial_clip_tpu_torch.models.modified_resnet import ModifiedResNet
+
     passing = [n for n in BUILTINS if _passes(n)]
-    assert (len(passing), len(BUILTINS)) == (74, 142)
+    assert (len(passing), len(BUILTINS)) == (91, 142)
     timm = [n for n in passing if port_config.resolve_clip_cfg(n).vision_cfg.timm_model_name]
-    assert len(timm) == 44
+    assert len(timm) == 46
+    rn = [n for n in passing if isinstance(port_config.resolve_clip_cfg(n).vision_cfg.layers,
+                                           (list, tuple))]
+    hf = [n for n in passing if port_config.resolve_clip_cfg(n).text_cfg.hf_tower]
+    assert sorted(rn) == sorted(RN_CONFIGS) and sorted(hf) == sorted(HF_CONFIGS)
     for name in passing:
         model = create_model(name, device="meta")
         if name in timm:
             assert isinstance(model.visual, TimmStyleTower), name
+        assert isinstance(model.visual, ModifiedResNet) == (name in rn), name
+        assert isinstance(model.text, HFTextTower) == (name in hf), name
 
 
 def test_siglip_configs_are_refused_on_the_text_side():
     """Each config with a SigLIP image trunk is refused, naming its text
-    tower's tokenizer_kwargs (24) or Hugging Face model (the 2 nllb-clip)."""
+    tower's tokenizer_kwargs (24), but for the 2 nllb-clip ones, whose
+    Hugging Face text tower (the M2M100 encoder) is ported."""
     names = [n for n in BUILTINS
              if "siglip" in (port_config.resolve_clip_cfg(n).vision_cfg.timm_model_name or "")]
     assert len(names) == 26
     fields = []
     for name in names:
-        with pytest.raises(NotImplementedError,
-                           match="text_cfg.tokenizer_kwargs|text_cfg.hf_model_name") as err:
+        if name.startswith("nllb-clip"):
+            assert _passes(name), name
+            continue
+        with pytest.raises(NotImplementedError, match="text_cfg.tokenizer_kwargs") as err:
             port_config.check_ported(port_config.resolve_clip_cfg(name))
         fields.append(str(err.value).split("=")[0].split(" ")[0])
     assert fields.count("text_cfg.tokenizer_kwargs") == 24
-    assert fields.count("text_cfg.hf_model_name") == 2
+    assert sorted(n for n in names if n.startswith("nllb-clip")) == [
+        "nllb-clip-base-siglip", "nllb-clip-large-siglip"]
 
 
 @pytest.mark.parametrize("name", FAMILIES)

@@ -19,7 +19,11 @@ import optax
 import pytest
 import torch
 
-from spatial_clip_tpu import create_model as jax_create_model
+from spatial_clip_tpu.models import constants as jax_constants
+from spatial_clip_tpu.models.clip import CLIP as JaxCLIP
+from spatial_clip_tpu.models.config import resolve_clip_cfg as jax_resolve_clip_cfg
+from spatial_clip_tpu.models.factory import ModelBundle
+from spatial_clip_tpu.models.transforms import PreprocessCfg
 from spatial_clip_tpu.losses import make_loss as jax_make_loss
 from spatial_clip_tpu.models.transforms import augment_normalize_batch as jax_augment
 from spatial_clip_tpu.parallel.mesh import make_mesh
@@ -33,6 +37,7 @@ from spatial_clip_tpu_torch.models.convert import (
     find_adam_state,
     from_jax_params,
     from_jax_train_state,
+    to_jax_params,
 )
 from spatial_clip_tpu_torch.models.transforms import AugmentDraws, augment_normalize_batch
 from spatial_clip_tpu_torch.ops.fused_attention import fused_attention_bwd, fused_attention_lse
@@ -42,6 +47,28 @@ from spatial_clip_tpu_torch.train.optim import AdamW, make_schedule
 
 WIDE = dict(vision_cfg=dict(width=128, heads=2), text_cfg=dict(width=128, heads=2))
 SPATIAL_KEYS = ("image_tile_ids", "text_tile_ids", "neighbor_tile_ids", "neighbor_alphas")
+
+
+_BUNDLES: dict = {}
+
+
+def _jax_vit_test(**over):
+    """JAX's widened ViT-Test bundle (f32) on the port's seed-0 weights
+    (flax's op-by-op init takes ~3.5 s a call on this CPU, and the weights
+    are the port's either way). The numpy weights are made once per setting
+    and shared by the module's tests; each call gets its own device arrays,
+    which a JAX Trainer's step may donate."""
+    key = tuple(sorted(over.items()))
+    if key not in _BUNDLES:
+        model = create_model("ViT-Test", precision="fp32", device="cpu", training=True, **WIDE)
+        _BUNDLES[key] = (jax_resolve_clip_cfg("ViT-Test", **WIDE, **over),
+                         to_jax_params(model.state_dict()))
+    cfg, params = _BUNDLES[key]
+    return ModelBundle(
+        model=JaxCLIP(cfg=cfg, dtype=jnp.float32), params=jax.tree.map(jnp.asarray, params),
+        cfg=cfg, model_name="ViT-Test", preprocess_cfg=PreprocessCfg(
+            size=cfg.vision_cfg.image_size, mean=jax_constants.OPENAI_DATASET_MEAN,
+            std=jax_constants.OPENAI_DATASET_STD))
 
 
 def _batch(seed, B=8, size=32, ctx=16, vocab=512, k=4):
@@ -249,7 +276,7 @@ def test_model_loss_gradients_match_jax_pallas3():
     `_fwd_kernel_lse` / `_bwd_kernel3_db_lse`: every parameter's gradient,
     the qkv-bias gradients the backward kernel produces included, at
     atol 1e-5 + rtol 1e-3 of its largest entry."""
-    jb = jax_create_model("ViT-Test", precision="fp32", seed=0, attn_impl="pallas3", **WIDE)
+    jb = _jax_vit_test(attn_impl="pallas3")
     batch = _batch(3, B=4)
     from spatial_clip_tpu.models.transforms import normalize_batch as jax_normalize
 
@@ -293,7 +320,7 @@ def test_three_train_steps_match_jax_trainer():
     the way."""
     cfg_kw = dict(learning_rate=1e-3, warmup_steps=2, total_steps=50, augment=False, seed=0)
     loss_kw = dict(cap_logit_scale=50.0, temp_reg_weight=0.1)
-    jb = jax_create_model("ViT-Test", precision="fp32", seed=0, **WIDE)
+    jb = _jax_vit_test()
     jt = JaxTrainer(jb, loss=jax_make_loss("spatial", **loss_kw),
                     config=JaxTrainerConfig(**cfg_kw), mesh=make_mesh(devices=jax.devices()[:1]))
     jstep, jstate = jt.make_train_step(), jt.init_state()
@@ -340,7 +367,7 @@ FUSED_LOSS = dict(cap_logit_scale=50.0, use_fused_kernel=True)
 
 def _pair(cfg_kw, loss_kw=FUSED_LOSS):
     """The JAX Trainer and the port's on the same widened ViT-Test weights."""
-    jb = jax_create_model("ViT-Test", precision="fp32", seed=0, **WIDE)
+    jb = _jax_vit_test()
     jt = JaxTrainer(jb, loss=jax_make_loss("spatial", **loss_kw),
                     config=JaxTrainerConfig(**cfg_kw), mesh=make_mesh(devices=jax.devices()[:1]))
     model = create_model("ViT-Test", precision="fp32", device="cpu", training=True, **WIDE)

@@ -10,24 +10,54 @@ in each test.
 """
 from __future__ import annotations
 
+import json
 import shutil
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from spatial_clip_tpu import create_model as jax_create_model
+from spatial_clip_tpu.models import constants as _jax_constants
+from spatial_clip_tpu.models.clip import CLIP as _JaxCLIP
+from spatial_clip_tpu.models.config import resolve_clip_cfg as _jax_resolve_clip_cfg
+from spatial_clip_tpu.models.factory import ModelBundle as _JaxBundle
+from spatial_clip_tpu.models.transforms import PreprocessCfg as _JaxPreprocessCfg
 from spatial_clip_tpu.losses import make_loss as jax_make_loss
 from spatial_clip_tpu.parallel.mesh import make_mesh
 from spatial_clip_tpu.train.loop import Trainer as JaxTrainer
 from spatial_clip_tpu.train.loop import TrainerConfig as JaxTrainerConfig
 from spatial_clip_tpu_torch import create_model
 from spatial_clip_tpu_torch.losses import make_loss
-from spatial_clip_tpu_torch.models.convert import from_jax_params
+from spatial_clip_tpu_torch.models.convert import from_jax_params, to_jax_params
 from spatial_clip_tpu_torch.train.loop import Trainer, TrainerConfig
 
 WIDE = dict(vision_cfg=dict(width=128, heads=2), text_cfg=dict(width=128, heads=2))
+
+
+_JAX_WEIGHTS: dict = {}
+
+
+def _jax_model(name="ViT-Test", precision="fp32", seed=0, **over):
+    """JAX's bundle (``spatial_clip_tpu.create_model``'s) on the port's
+    weights drawn from ``seed``: flax's op-by-op initializers take ~3.5 s a
+    call on this CPU, and the weights are the port's either way. The numpy
+    weights are made once per setting and shared by the module's tests;
+    each call gets device arrays of its own, which a JAX Trainer's step may
+    donate."""
+    key = json.dumps([name, seed, over], sort_keys=True)
+    if key not in _JAX_WEIGHTS:
+        model = create_model(name, precision="fp32", device="cpu", seed=seed, training=True,
+                             **over)
+        _JAX_WEIGHTS[key] = to_jax_params(model.state_dict())
+    cfg = _jax_resolve_clip_cfg(name, **over)
+    return _JaxBundle(
+        model=_JaxCLIP(cfg=cfg, dtype=jnp.bfloat16 if precision == "bf16" else jnp.float32),
+        params=jax.tree.map(jnp.asarray, _JAX_WEIGHTS[key]), cfg=cfg, model_name=name,
+        preprocess_cfg=_JaxPreprocessCfg(size=cfg.vision_cfg.image_size,
+                                         mean=_jax_constants.OPENAI_DATASET_MEAN,
+                                         std=_jax_constants.OPENAI_DATASET_STD))
 
 
 def _batch(seed, B=8, size=32, ctx=16, vocab=512, k=4):
@@ -87,10 +117,10 @@ def test_three_train_steps_match_jax_trainer(case):
               **c.get("cfg", {})}
     kind, loss_kw = c.get("loss", ("spatial", dict(cap_logit_scale=50.0)))
     extra = {} if "bias" not in c else {"init_logit_bias": c["bias"]}
-    jb = jax_create_model("ViT-Test", precision="fp32", seed=0, **extra, **WIDE)
+    jb = _jax_model("ViT-Test", precision="fp32", seed=0, **extra, **WIDE)
     jteacher = teacher = None
     if c.get("teacher"):
-        jteacher = jax_create_model("ViT-Test", precision="fp32", seed=5, **WIDE)
+        jteacher = _jax_model("ViT-Test", precision="fp32", seed=5, **WIDE)
         teacher = create_model("ViT-Test", precision="fp32", device="cpu", **WIDE)
         teacher.load_state_dict(from_jax_params(jteacher.params))
     jt = JaxTrainer(jb, loss=jax_make_loss(kind, **loss_kw), config=JaxTrainerConfig(**cfg_kw),
