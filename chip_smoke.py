@@ -335,6 +335,21 @@ the exit code is not 0. No JAX is imported.
            then xlm-roberta-base-ViT-B-32 the same way (pad tails, dropout
            0.1 from the step's seed; 12 + 12 image-tower kernel launches and
            12 encoder_attention calls a step)
+51. coca-forward, intermediates, pool-cls-check  coca_ViT-B-32 (bf16) at
+           batch 4 against the same weights in f32 on the CPU: both
+           features by per-row cosine, the caption logits' max error over
+           their scale, exactly JAX's plain attention calls (no kernel);
+           ViT-B-32's forward_intermediates (every block of both towers, the
+           features and logits by cosine, 12 + 12 inference kernel
+           launches); phase 7's check on ViT-B-32 with the attentional
+           pooler and the cls-token text tower (78 causal tokens; 12 + 12
+           forward-lse and backward launches)
+52. coca-check, coca-train, coca-serve, coca-generate  coca_ViT-B-32 with
+           the coca loss: phase 7's check at batch 4, 13 steps at batch 256
+           (step ms, pairs/s, peak memory), 64 raw tiles through the server
+           against f32 on the CPU, greedy and beam captions of 8 tiles at
+           seq_len 30 held to the CPU's f32 generation by teacher forcing
+           on the card, captions/s
 Phases 3, 6, 19, 23 and 26 also time PyTorch's scaled_dot_product_attention
 (efficient-attention backend) at the kernels' shapes as a yardstick (its
 backward alone, on one retained graph), phase
@@ -349,7 +364,7 @@ kernels with their launches on the gene paths, phases 29-32; the
 attention forward, forward-lse and backward and the key-tiled forward also
 with their launches in phases 39-43; the fused CE kernels also with their
 launches in phases 45-46; the attention forward, forward-lse and backward
-also with their launches in phases 47-48 and 49-50), the nvidia-smi line, and
+also with their launches in phases 47-48, 49-50 and 51-52), the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -717,6 +732,7 @@ def main() -> int:
     print(f"[device] {kind} x{count} | nvidia-smi: {smi} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 plain versions in full f32
+    cache_weight_draws()
     torch.backends.cudnn.allow_tf32 = False
 
     # 2. build
@@ -932,6 +948,8 @@ def main() -> int:
     convnext = convnext_phase()
     rn_hf_forward = rn_hf_forward_phase()
     rn_hf_train = rn_hf_train_phase()
+    coca_forward = coca_forward_phase()
+    coca_train = coca_train_phase()
 
     def gene_launches(key: str) -> dict:
         """A kernel's launches on the gene paths: phase 29's step (path B),
@@ -1235,12 +1253,23 @@ def main() -> int:
         **{f"50 {name} {VITL_STEPS} steps (batch {RN_HF_BATCH})": rn_hf_train[name]["launches"]
            for name in ("RN50", "xlm-roberta-base-ViT-B-32")},
         "50 RN50 server (64 tiles)": rn_hf_train["serve"]}
+    coca_launches = {  # phases 51-52: CoCa (no kernel), forward_intermediates, pooler + cls
+        f"51 {COCA} forward (batch {COCA_CHECK})": coca_forward["coca_forward"],
+        f"51 ViT-B-32 forward_intermediates (batch {COCA_CHECK})": coca_forward["intermediates"],
+        f"51 ViT-B-32 attentional_pool + embed_cls check (batch {COCA_CHECK})":
+            coca_forward["pool_cls_check"],
+        f"52 {COCA} check (batch {COCA_CHECK})": coca_train["check"],
+        f"52 {COCA} {VITL_STEPS} steps (batch {COCA_BATCH})": coca_train["steps"],
+        f"52 {COCA} server (64 tiles)": coca_train["serve"],
+        f"52 {COCA} greedy + beam {GEN_BEAMS} (batch {GEN_BATCH}, seq_len {GEN_LEN})":
+            coca_train["generate"]}
     for row in kernels:
         if row["name"] in ("fused_attention_fwd", "fused_attention_fwd_lse",
                            "fused_attention_bwd"):
             key = rows[row["name"]]
             row["timm_launches"] = {k: n.get(key, 0) for k, n in timm_launches.items()}
             row["rn_hf_launches"] = {k: n.get(key, 0) for k, n in rn_hf_launches.items()}
+            row["coca_launches"] = {k: n.get(key, 0) for k, n in coca_launches.items()}
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
@@ -1415,21 +1444,26 @@ def bwd_edges_phase() -> dict:
 
 
 def train_check_phase(label: str = "train-check", batch_size: int = CHECK_BATCH,
-                      model_name: str = "ViT-B-32", want_launches=None, **settings):
+                      model_name: str = "ViT-B-32", want_launches=None, loss=None,
+                      keep_cpu: bool = False, **settings):
     """7 (and 13, 16, 18 under ``settings`` or another batch, 29 on another
     model). One train step's loss and gradients, card (bf16, kernels) vs
     CPU (f32, plain path), on the same weights, batch and augmentation
     draws; with ``want_launches`` (package kernel name -> count), the card
-    step's launches of every counted wrapper must be exactly those. Returns
-    the card's trainer."""
+    step's launches of every counted wrapper must be exactly those; ``loss``
+    (a make_loss kind) in place of the bench's spatial loss. Returns the
+    card's trainer (with ``keep_cpu``, it and the CPU's)."""
     import torch
 
     from spatial_clip_tpu_torch.bench import make_trainer, synthetic_batch
+    from spatial_clip_tpu_torch.losses import make_loss
     from spatial_clip_tpu_torch.models.transforms import AugmentDraws
 
     t0 = time.perf_counter()
     cpu = make_trainer(model_name, device="cpu", precision="fp32", **settings)
     card = make_trainer(model_name, device="meta", **settings)
+    if loss is not None:
+        cpu.loss, card.loss = make_loss(loss), make_loss(loss)
     copy_weights(cpu.model, card.model)  # the same weights, drawn once
     card_state, cpu_state = card.init_state(), cpu.init_state()
     batch = synthetic_batch(cpu.model, batch_size, seed=1, device="cpu")
@@ -1471,8 +1505,8 @@ def train_check_phase(label: str = "train-check", batch_size: int = CHECK_BATCH,
           f"{cos_all:.6f} (>= {MIN_GRAD_COSINE}); qkv-bias gradient cosine q "
           f"{cos_bias['q']:.6f} v {cos_bias['v']:.6f} (k {cos_bias['k']:.3f}: zero in exact "
           f"math); {time.perf_counter() - t0:.1f} s", flush=True)
-    del cpu, cpu_state
-    return card
+    del cpu_state
+    return (card, cpu) if keep_cpu else card
 
 
 def train_phase(trainer) -> dict:
@@ -4379,6 +4413,49 @@ RN_HF_FORWARD = ("RN50", "RN50x64", "roberta-ViT-B-32", "xlm-roberta-base-ViT-B-
 RN_HF_BATCH = 256  # phase 50's timed steps: the bench workload's batch
 
 
+# the model settings that change no parameter and no draw of init_weights
+SAME_DRAWS = dict(attn_impl="auto", zip_towers="off", mlp_impl="dense", ln_gemm_impl="dense",
+                  ln_impl="onepass")
+
+
+def cache_weight_draws() -> None:
+    """Memoize ``factory.init_weights`` in this process. The script builds
+    the same configurations from the same seed dozens of times (ViT-B-32
+    in every card-vs-CPU check, entry run and server), and each host draw
+    takes seconds. A model whose parameters are all float32 keeps its
+    draws (a CPU copy of its parameters and buffers) under its class, seed,
+    configuration (the settings in SAME_DRAWS aside) and tensor names and
+    shapes; a later model under the same key, float32 or bfloat16, on any
+    device, copies them: the values ``init_weights`` would give it, which
+    draws in float32 and casts at the copy. A model on the meta device
+    draws nothing and is passed through."""
+    import dataclasses
+
+    import torch
+
+    from spatial_clip_tpu_torch.models import factory
+
+    draw, cache = factory.init_weights, {}
+
+    @torch.no_grad()
+    def init_weights(model, seed: int = 0) -> None:
+        tensors = {**dict(model.named_parameters()), **dict(model.named_buffers())}
+        if any(t.is_meta for t in tensors.values()):
+            return draw(model, seed)
+        key = (type(model).__name__, seed, repr(dataclasses.replace(model.cfg, **SAME_DRAWS)),
+               tuple((k, tuple(t.shape)) for k, t in tensors.items()))
+        if key in cache:
+            for k, t in tensors.items():
+                t.copy_(cache[key][k])
+            return None
+        draw(model, seed)
+        if all(p.dtype == torch.float32 for p in model.parameters()):
+            cache[key] = {k: t.detach().to("cpu", copy=True) for k, t in tensors.items()}
+        return None
+
+    factory.init_weights = init_weights
+
+
 def copy_weights(src, dst):
     """``dst`` (a model built on the meta device, no draws) on the card with
     ``src``'s weights and buffers: the model ``create_model(...,
@@ -4540,6 +4617,296 @@ def rn_hf_train_phase() -> dict:
         f"{out[n]['peak_gib']:.3f} GiB" for n in ("RN50", "xlm-roberta-base-ViT-B-32"))
         + f"; {time.perf_counter() - t0:.1f} s", flush=True)
     return out
+
+
+# phases 51-52: CoCa, the attentional pooler and the cls-token text tower
+COCA, TOWERS = "coca_ViT-B-32", "ViT-B-32"  # CoCa; the CLIP of the other two paths
+COCA_CHECK, COCA_BATCH = 4, 256  # the card-vs-CPU checks; the timed steps (the bench batch)
+# one CoCa forward's attention calls: 12 + 12 tower blocks and 6 decoder blocks on JAX's
+# einsum route, the pooler's einsum, 6 cross-attentions; no attention kernel
+COCA_CALLS = {"attention_plain.plain_attention": 30, "attention_plain.head_attention": 1,
+              "attention_plain.dot_product_attention": 6}
+MAX_LOGIT_REL_ERR = 5e-2  # bf16 caption logits vs f32 CPU: max abs err over max |logit|
+GEN_BATCH, GEN_LEN, GEN_BEAMS = 8, 30, 3  # caption generation (seq_len counts the SOT)
+GEN_LOGIT_TOL = 0.5  # greedy: the CPU's token's card logit within this of the card's best
+GEN_SCORE_REL = 2e-2  # beam: the CPU's beam's card score within this share of the card's best
+SOT_ID, EOT_ID = 49406, 49407
+
+
+def caption_ids(rng, rows: int, ctx: int = 77, vocab: int = 49408) -> np.ndarray:
+    """Caption-like id rows: SOT, ids in [1, SOT), EOT, then pad 0 (row 0
+    fills the context)."""
+    ids = np.zeros((rows, ctx), dtype=np.int64)
+    for r, n in enumerate(rng.integers(4, ctx - 1, rows)):
+        n = ctx - 2 if r == 0 else int(n)
+        ids[r, 0], ids[r, n + 1] = SOT_ID, EOT_ID
+        ids[r, 1:n + 1] = rng.integers(1, SOT_ID, n)
+    return ids
+
+
+def coca_forward_phase() -> dict:
+    """51. CoCa and the two tower options at full width, card (bf16) vs CPU
+    (f32) on the same weights: (a) coca_ViT-B-32's forward at batch 4
+    (caption-like id rows with pads): per-row cosine of both features,
+    the caption logits' max abs error over their max |value|, and exactly
+    COCA_CALLS (no attention kernel); (b) ViT-B-32's forward_intermediates
+    at batch 4, every block of both towers by cosine, the features and
+    logits, with the inference kernel 12 + 12 times; (c) a ViT-B-32 train
+    step with vision_cfg.attentional_pool and text_cfg.embed_cls (78 causal
+    tokens) at batch 4, phase 7's check, through the forward-lse and
+    backward kernels (12 + 12 each) and the pooler's einsum. Returns the
+    launches of each path."""
+    import torch
+
+    from spatial_clip_tpu_torch import create_model
+    from spatial_clip_tpu_torch.models.transforms import normalize_batch
+
+    t0 = time.perf_counter()
+    counters = every_counter()
+    rng = np.random.default_rng(51)
+    cpu = create_model(COCA, precision="fp32", seed=0, device="cpu")
+    card = card_copy(cpu, COCA)
+    size, t = cpu.cfg.vision_cfg.size, cpu.cfg.text_cfg
+    tiles = torch.from_numpy(rng.integers(0, 256, (COCA_CHECK, size, size, 3), dtype=np.uint8))
+    ids = torch.from_numpy(caption_ids(rng, COCA_CHECK, t.context_length, t.vocab_size))
+    for c in counters.values():
+        c.launches = 0
+    with torch.inference_mode():
+        got = card(normalize_batch(tiles.cuda(), dtype=card.dtype), ids.cuda())
+        torch.cuda.synchronize()
+    coca_launches = read_launches(counters)
+    got = {k: v.float().cpu() for k, v in got.items()}
+    del card
+    with torch.inference_mode():
+        want = cpu(normalize_batch(tiles), ids)
+    del cpu
+    cos = {k: float((got[k] * want[k]).sum(-1).min()) for k in ("image_features",
+                                                                "text_features")}
+    logits, want_logits = got["caption_logits"], want["caption_logits"]
+    logit_err = float((logits - want_logits).abs().max() / want_logits.abs().max())
+    finite = all(torch.isfinite(v).all() for v in got.values())
+    if (coca_launches != COCA_CALLS or min(cos.values()) < MIN_COSINE
+            or not logit_err <= MAX_LOGIT_REL_ERR or not finite
+            or tuple(logits.shape) != (COCA_CHECK, t.context_length - 1, t.vocab_size)):
+        raise AssertionError(f"[coca-forward] launches {coca_launches} (want {COCA_CALLS}), "
+                             f"cosine {cos}, logit rel err {logit_err}, finite {finite}, "
+                             f"logits {tuple(logits.shape)}")
+    print(f"[coca-forward] {COCA} bf16 card vs f32 CPU, {COCA_CHECK} tiles and caption rows: "
+          f"min per-row cosine image {cos['image_features']:.5f} text "
+          f"{cos['text_features']:.5f} (>= {MIN_COSINE}); caption logits "
+          f"{tuple(logits.shape)} max abs err {logit_err:.4g} of max |logit| "
+          f"{float(want_logits.abs().max()):.3f} (<= {MAX_LOGIT_REL_ERR}); launches "
+          f"{coca_launches} (no attention kernel)", flush=True)
+
+    cpu = create_model(TOWERS, precision="fp32", seed=0, device="cpu")
+    card = card_copy(cpu, TOWERS)
+    v, t = cpu.cfg.vision_cfg, cpu.cfg.text_cfg
+    grid = v.size // v.patch_size
+    tiles = torch.from_numpy(rng.integers(0, 256, (COCA_CHECK, v.size, v.size, 3),
+                                          dtype=np.uint8))
+    text = torch.from_numpy(text_ids(cpu, COCA_CHECK, rng))
+    for c in counters.values():
+        c.launches = 0
+    kw = dict(output_logits=True, normalize_intermediates=False)
+    got = card.forward_intermediates(normalize_batch(tiles.cuda(), dtype=card.dtype),
+                                     text.cuda(), **kw)
+    torch.cuda.synchronize()
+    inter_launches = read_launches(counters)
+    want = cpu.forward_intermediates(normalize_batch(tiles), text, **kw)
+    del card, cpu
+    block_cos = min(cosine(g.float().cpu().flatten(), w.flatten())
+                    for k in ("image_intermediates", "text_intermediates")
+                    for g, w in zip(got[k], want[k]))
+    feat_cos = min(float((got[k].float().cpu() * want[k]).sum(-1).min())
+                   for k in ("image_features", "text_features"))
+    logit_cos = cosine(got["image_logits"].float().cpu().flatten(),
+                       want["image_logits"].flatten())
+    shapes = (tuple(got["image_intermediates"][0].shape),
+              tuple(got["text_intermediates"][0].shape))
+    want_inter = {FWD: v.layers + t.layers}
+    if (inter_launches != want_inter or min(block_cos, feat_cos, logit_cos) < MIN_COSINE
+            or shapes != ((COCA_CHECK, v.width, grid, grid),
+                          (COCA_CHECK, t.context_length, t.width))
+            or len(got["image_intermediates"]) != v.layers):
+        raise AssertionError(f"[intermediates] launches {inter_launches} (want {want_inter}), "
+                             f"block cosine {block_cos}, features {feat_cos}, logits "
+                             f"{logit_cos}, shapes {shapes}")
+    print(f"[intermediates] {TOWERS} bf16 forward_intermediates, batch {COCA_CHECK}: "
+          f"{v.layers} + {t.layers} blocks {shapes}, min cosine vs f32 CPU over the blocks "
+          f"{block_cos:.5f}, features "
+          f"{feat_cos:.5f}, logits {logit_cos:.5f} (>= {MIN_COSINE}); launches "
+          f"{inter_launches}", flush=True)
+
+    want_pool = {LSE: v.layers + t.layers, BWD: v.layers + t.layers,
+                 "attention_plain.head_attention": 1}
+    trainer = train_check_phase("pool-cls-check", batch_size=COCA_CHECK, model_name=TOWERS,
+                                want_launches=want_pool, vision_cfg={"attentional_pool": True},
+                                text_cfg={"embed_cls": True})
+    del trainer
+    torch.cuda.empty_cache()
+    print(f"[coca-forward] phase 51: {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"coca_forward": coca_launches, "intermediates": inter_launches,
+            "pool_cls_check": want_pool}
+
+
+def teacher_forced(model, tokens, seq):
+    """(B, L - 1, vocab) f32 log-probabilities of ``model``'s decoder over
+    ``seq`` given the caption-query tokens, as the generators decode."""
+    import torch
+
+    with torch.inference_mode():
+        logits = model.decode(seq[:, :seq.shape[1] - 1], tokens)
+    return torch.log_softmax(logits.float(), dim=-1)
+
+
+def beam_score(logp, seq) -> "np.ndarray":
+    """Each row's beam-search score of ``seq`` under ``logp``: the summed
+    log-probability of its tokens up to its EOT, over its non-zero length
+    (length_penalty 1)."""
+    import torch
+
+    steps = GEN_LEN - 1
+    picked = logp[:, :steps].gather(-1, seq[:, 1:steps + 1, None])[..., 0]
+    ended = torch.cumsum((seq[:, 1:steps + 1] == EOT_ID).int(), dim=1)
+    live = (ended - (seq[:, 1:steps + 1] == EOT_ID).int()) == 0  # up to and with the EOT
+    total = (picked * live).sum(dim=1)
+    return (total / (seq != 0).sum(dim=1).clamp_min(1)).cpu().numpy()
+
+
+def coca_train_phase() -> dict:
+    """52. coca_ViT-B-32 at work: the coca loss's card-vs-CPU step at batch
+    4 with exactly COCA_CALLS; WARMUP_STEPS + TIMED_STEPS steps at batch
+    256 (COCA_CALLS a step, finite losses), step ms, pairs/s and peak
+    memory; 64 raw tiles through the server against f32 on the CPU by
+    cosine; greedy and beam (GEN_BEAMS) captions of 8 tiles at seq_len
+    GEN_LEN on the card and on the CPU (f32), held by teacher forcing: each
+    token the CPU's greedy chose has a card logit within GEN_LOGIT_TOL of
+    the card's best at its step, and the CPU's best beam scores on the card
+    within GEN_SCORE_REL of the card's own; captions/s. The weights are
+    drawn once on the host (the check's CPU model) and copied."""
+    from http.server import ThreadingHTTPServer
+
+    import torch
+
+    from spatial_clip_tpu_torch.bench import synthetic_batch
+    from spatial_clip_tpu_torch.models import coca
+    from spatial_clip_tpu_torch.models.transforms import normalize_batch
+    from spatial_clip_tpu_torch.serve import EmbeddingService, make_handler
+
+    t0 = time.perf_counter()
+    trainer, cpu = train_check_phase("coca-check", batch_size=COCA_CHECK, model_name=COCA,
+                                     want_launches=COCA_CALLS, loss="coca", keep_cpu=True)
+    data = synthetic_batch(trainer.model, COCA_BATCH)
+    counters = every_counter()
+    names = list(counters)
+    counts, step_ms, history, peak = timed_steps("coca", trainer, data, VITL_STEPS,
+                                                 [counters[k] for k in names])
+    step_launches = {k: n for k, n in zip(names, counts) if n}
+    want = {k: n * VITL_STEPS for k, n in COCA_CALLS.items()}
+    if step_launches != want:
+        raise AssertionError(f"[coca-train] launches {step_launches}, want {want}")
+    med = statistics.median(step_ms[WARMUP_STEPS:])
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True).stdout.strip().splitlines()[0]
+    print(f"[coca-train] {COCA} bf16 batch {COCA_BATCH}, coca loss, on {smi}: {VITL_STEPS} "
+          f"steps, launches {step_launches}; losses finite {history[0][0]:.4f} -> "
+          f"{history[-1][0]:.4f}; median step {med:.3f} ms over {TIMED_STEPS} "
+          f"({COCA_BATCH * 1e3 / med:.1f} pairs/s); max_memory_allocated "
+          f"{peak / 2 ** 30:.3f} GiB", flush=True)
+    del trainer, data
+    torch.cuda.empty_cache()
+
+    ref = cpu.model.eval()
+    card = card_copy(ref, COCA)
+    v, size = card.cfg.vision_cfg, card.cfg.vision_cfg.size
+    service = EmbeddingService(COCA, batch_size=64, device="cuda", model=card)
+    service.warmup()
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(service))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    tiles = np.random.default_rng(52).integers(0, 256, (64, size, size, 3), dtype=np.uint8)
+    try:
+        for c in counters.values():
+            c.launches = 0
+        img = embeddings(post(server.server_address[1], "/embed_image_raw", tiles.tobytes()))
+        serve_launches = read_launches(counters)
+        check_embeddings("coca image", img, 64, int(card.cfg.embed_dim))
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        service.close()
+    x_cpu = normalize_batch(torch.from_numpy(tiles))
+    with torch.inference_mode():
+        want_img = ref.encode_image(x_cpu).numpy()
+    cos = float((img * want_img).sum(-1).min())
+    want_serve = {"attention_plain.plain_attention": v.layers,
+                  "attention_plain.head_attention": 1}
+    if serve_launches != want_serve or cos < MIN_COSINE:
+        raise AssertionError(f"[coca-serve] launches {serve_launches} (want {want_serve}), min "
+                             f"cosine vs f32 CPU {cos}")
+    print(f"[coca-serve] {COCA} bf16 batch 64 through the server: 64 raw tiles, 200 OK, unit "
+          f"norm, launches {serve_launches}; min cosine vs f32 CPU {cos:.5f} (>= {MIN_COSINE})",
+          flush=True)
+
+    x_card = normalize_batch(torch.from_numpy(tiles[:GEN_BATCH]).cuda(), dtype=card.dtype)
+    x_cpu = x_cpu[:GEN_BATCH]
+    args = (SOT_ID, EOT_ID)
+    coca.greedy_generate(card, x_card, *args, max_len=GEN_LEN)  # warm: the library plans
+    for c in counters.values():
+        c.launches = 0
+    t1 = time.perf_counter()
+    greedy_card = coca.greedy_generate(card, x_card, *args, max_len=GEN_LEN)
+    torch.cuda.synchronize()
+    greedy_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    beam_card = coca.beam_search_generate(card, x_card, *args, max_len=GEN_LEN,
+                                          beam_size=GEN_BEAMS)
+    torch.cuda.synchronize()
+    beam_s = time.perf_counter() - t1
+    gen_launches = read_launches(counters)
+    t1 = time.perf_counter()
+    greedy_cpu = coca.greedy_generate(ref, x_cpu, *args, max_len=GEN_LEN)
+    beam_cpu = coca.beam_search_generate(ref, x_cpu, *args, max_len=GEN_LEN, beam_size=GEN_BEAMS)
+    cpu_s = time.perf_counter() - t1
+    with torch.inference_mode():
+        tokens_card = card._encode_image_full(x_card)[1]
+        tokens_cpu = ref._encode_image_full(x_cpu)[1]
+    logp = teacher_forced(card, tokens_card, greedy_cpu.cuda())
+    steps = GEN_LEN - 1
+    chosen = logp[:, :steps].gather(-1, greedy_cpu[:, 1:steps + 1, None].cuda())[..., 0]
+    gap = logp[:, :steps].max(dim=-1).values - chosen  # log-softmax gaps are logit gaps
+    done = torch.cumsum((greedy_cpu[:, 1:steps + 1] == EOT_ID).int(), dim=1).cuda()
+    live = (done - (greedy_cpu[:, 1:steps + 1] == EOT_ID).int().cuda()) == 0
+    max_gap = float(gap[live].max())
+    same = float((greedy_card.cpu() == greedy_cpu).float().mean())
+    card_of_cpu = beam_score(teacher_forced(card, tokens_card, beam_cpu.cuda()), beam_cpu.cuda())
+    card_best = beam_score(teacher_forced(card, tokens_card, beam_card), beam_card)
+    cpu_of_cpu = beam_score(teacher_forced(ref, tokens_cpu, beam_cpu), beam_cpu)
+    beam_gap = float(((card_best - card_of_cpu) / np.abs(card_best)).max())
+    score_err = float((np.abs(card_of_cpu - cpu_of_cpu) / np.abs(cpu_of_cpu)).max())
+    kernel_keys = [k for k in gen_launches if not k.startswith("attention_plain.")]
+    if (max_gap > GEN_LOGIT_TOL or beam_gap > GEN_SCORE_REL or score_err > GEN_SCORE_REL
+            or kernel_keys or (greedy_card[:, 0] != SOT_ID).any()):
+        raise AssertionError(f"[coca-generate] greedy max logit gap {max_gap} (tol "
+                             f"{GEN_LOGIT_TOL}), beam score gap {beam_gap}, score err "
+                             f"{score_err} (tol {GEN_SCORE_REL}), launches {gen_launches}")
+    captions = {"greedy": GEN_BATCH / greedy_s, "beam": GEN_BATCH / beam_s}
+    print(f"[coca-generate] {COCA} bf16, {GEN_BATCH} tiles, seq_len {GEN_LEN} (full-prefix "
+          f"re-decode, as JAX): greedy {greedy_s * 1e3:.1f} ms ({captions['greedy']:.2f} "
+          f"captions/s), beam {GEN_BEAMS} {beam_s * 1e3:.1f} ms ({captions['beam']:.2f} "
+          f"captions/s); f32 CPU generation {cpu_s:.1f} s; teacher forcing on the card: the "
+          f"CPU's greedy tokens within {max_gap:.4f} of the card's best logit (tol "
+          f"{GEN_LOGIT_TOL}), {same:.4f} of greedy tokens equal; the CPU's beam scores on the "
+          f"card within {beam_gap:.4g} of the card's beam (tol {GEN_SCORE_REL}), and within "
+          f"{score_err:.4g} of its CPU score; launches {gen_launches}; phase 52 "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del card, cpu, ref
+    torch.cuda.empty_cache()
+    return {"check": COCA_CALLS, "steps": step_launches, "serve": serve_launches,
+            "generate": gen_launches, "step_ms": med, "peak_gib": peak / 2 ** 30,
+            "captions_per_s": captions}
 
 
 def smoke_synthetic_phase() -> dict:

@@ -1,6 +1,6 @@
 """PyTorch port of spatial_clip_tpu for NVIDIA Hopper GPUs.
 
-The CLIP towers (``models``), hand-written CUDA kernels for every TPU kernel
+The CLIP towers and CoCa (``models``), hand-written CUDA kernels for every TPU kernel
 of the JAX package (``ops``), the losses, the trainer with checkpoints
 (``train``), the data layer (``data``), the config composition over the
 repository's ``configs/`` (``config``), the entry points

@@ -16,7 +16,10 @@ open_clip's ``visual.conv1`` ... ``visual.attnpool``), and with
 ``text_cfg.hf_model_name`` or ``hf_config`` the text tower is a Hugging Face
 encoder (:class:`~spatial_clip_tpu_torch.models.hf_model.HFTextTower`,
 ``text.hf.*``, ``text.proj1``), in JAX's order (``clip.py:47-72, :115-126``:
-the gene tower first).
+the gene tower first). The ViT's ``attentional_pool`` (``visual.attn_pool.*``)
+and the text tower's ``embed_cls`` (``cls_emb``) are passed as JAX's ``CLIP``
+passes them, with the model's ``attn_impl`` routes; ``vision_cfg.output_tokens``
+is not (JAX's ``CLIP`` does not read it).
 
 Under ``zip_towers='on'`` (where :func:`zip_ready` holds), a forward given
 both images and text runs the two towers in lockstep (:meth:`CLIP.encode_pair`):
@@ -37,6 +40,7 @@ from spatial_clip_tpu_torch.models.transformer import (
     VisionTransformer,
     gelu_tanh,
     quick_gelu,
+    text_embed,
     text_head,
 )
 from spatial_clip_tpu_torch.ops.attention_pair import PairAttention, pair_supported
@@ -113,7 +117,9 @@ class CLIP(nn.Module):
                 v.size, v.patch_size, v.width, v.layers, v.heads, v.mlp_ratio,
                 cfg.embed_dim, ls_init_value=v.ls_init_value, no_ln_pre=v.no_ln_pre,
                 final_ln_after_pool=v.final_ln_after_pool, pool_type=v.pool_type,
-                norm_eps=v.norm_eps, **common)
+                norm_eps=v.norm_eps, attentional_pool=v.attentional_pool,
+                attn_pooler_queries=v.attn_pooler_queries,
+                attn_pooler_heads=v.attn_pooler_heads, **common)
         if cfg.gene_cfg is not None:
             g = cfg.gene_cfg
             self.text = GeneMLPTower(
@@ -132,16 +138,18 @@ class CLIP(nn.Module):
                 t.context_length, t.vocab_size, t.width, t.heads, t.layers, t.mlp_ratio,
                 cfg.embed_dim, ls_init_value=t.ls_init_value, no_causal_mask=t.no_causal_mask,
                 pool_type=t.pool_type, final_ln_after_pool=t.final_ln_after_pool,
-                proj_bias=t.proj_bias, norm_eps=t.norm_eps, **common)
+                proj_bias=t.proj_bias, norm_eps=t.norm_eps, embed_cls=t.embed_cls, **common)
             # open_clip's layout: the text tower's modules sit on the model itself
             self.transformer = text.transformer
             self.token_embedding = text.token_embedding
+            self.cls_emb = text.cls_emb
             self.positional_embedding = text.positional_embedding
             self.ln_final = text.ln_final
             self.text_projection = text.text_projection
             self.register_buffer("attn_mask", text.attn_mask, persistent=False)
             self.text_pool_type = t.pool_type
             self.text_final_ln_after_pool = t.final_ln_after_pool
+            self.text_embed_cls = t.embed_cls
         self.logit_scale = nn.Parameter(torch.empty((), device=device))
         self.logit_bias = (nn.Parameter(torch.empty((), device=device))
                            if cfg.init_logit_bias is not None else None)
@@ -152,13 +160,13 @@ class CLIP(nn.Module):
         return l2_normalize(feats) if normalize else feats
 
     def _text_embed(self, text: torch.Tensor) -> torch.Tensor:
-        """Token + positional embedding, as TextTransformer.embed."""
-        return (self.token_embedding(text).to(self.dtype)
-                + self.positional_embedding.to(self.dtype))
+        """Token (+ cls) + positional embedding, as TextTransformer.embed."""
+        return text_embed(text, self.token_embedding, self.positional_embedding, self.dtype,
+                          self.cls_emb)
 
     def _text_head(self, x: torch.Tensor, text: torch.Tensor) -> torch.Tensor:
         return text_head(x, text, self.ln_final, self.text_projection, self.text_pool_type,
-                         self.text_final_ln_after_pool)
+                         self.text_final_ln_after_pool, self.text_embed_cls)
 
     @property
     def hf_text(self) -> bool:
@@ -199,6 +207,13 @@ class CLIP(nn.Module):
         if normalize:
             img, txt = l2_normalize(img), l2_normalize(txt)
         return img, txt
+
+    def forward_intermediates(self, image=None, text=None, **kwargs):
+        """Per-block intermediates (:func:`~spatial_clip_tpu_torch.models.
+        intermediates.forward_intermediates`)."""
+        from spatial_clip_tpu_torch.models.intermediates import forward_intermediates
+
+        return forward_intermediates(self, image=image, text=text, **kwargs)
 
     def forward(self, images: Optional[torch.Tensor] = None,
                 text: Optional[torch.Tensor] = None,

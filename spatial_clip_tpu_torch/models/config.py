@@ -25,12 +25,10 @@ CONFIG_DIR = REFERENCE_MODELS_DIR / "model_configs"
 # JSON keys that no dataclass carries and that change nothing this package
 # builds: open_clip's CustomTextCLIP flag (the same function here), the timm
 # trunk's pretrained flag and drop path, which the JAX package's timm towers
-# ignore as well (no trunk downloads, none has a drop path), and the settings
-# of features refused on their own (the attentional pooler).
+# ignore as well (no trunk downloads, none has a drop path).
 IGNORED_KEYS = frozenset({
     "custom_text",
     "vision_cfg.timm_model_pretrained", "vision_cfg.timm_drop_path",
-    "vision_cfg.attn_pooler_queries", "vision_cfg.attn_pooler_heads",
 })
 # the text pool types text_global_pool computes, as the JAX towers do
 TEXT_POOL_TYPES = ("argmax", "last", "first", "avg", "none")
@@ -63,6 +61,8 @@ class VisionCfg:
     ls_init_value: Optional[float] = None
     patch_dropout: float = 0.0
     attentional_pool: bool = False
+    attn_pooler_queries: int = 256
+    attn_pooler_heads: int = 8
     no_ln_pre: bool = False
     pos_embed_type: str = "learnable"
     final_ln_after_pool: bool = False
@@ -161,12 +161,44 @@ class GeneCfg:
 
 
 @dataclass
+class MultimodalCfg:
+    """The CoCa decoder (JAX's ``MultimodalCfg``): ``layers`` multimodal
+    blocks, ``caption_queries`` (+ 1 contrastive) attentional-pooler queries.
+
+    The other fields are open_clip's decoder keys, which JAX's
+    ``MultimodalCfg`` drops: JAX builds the decoder at the text tower's
+    width, heads, context and vocab with an MLP ratio of 4, and the pooler
+    with ``caption_queries + 1`` queries at ``vision_cfg.attn_pooler_heads``.
+    :func:`check_ported` takes each where it equals what JAX builds
+    (:meth:`jax_builds`) and refuses it otherwise, naming it."""
+    layers: int = 6
+    caption_queries: int = 64
+    caption_loss_weight: float = 2.0
+    contrastive_loss_weight: float = 1.0
+    width: Optional[int] = None
+    heads: Optional[int] = None
+    context_length: Optional[int] = None
+    vocab_size: Optional[int] = None
+    mlp_ratio: Optional[float] = None
+    dim_head: Optional[int] = None
+    n_queries: Optional[int] = None
+    attn_pooler_heads: Optional[int] = None
+
+    def jax_builds(self, vision: VisionCfg, text: TextCfg) -> Dict[str, Any]:
+        """The value JAX's CoCa builds for each open_clip decoder key."""
+        return {"width": text.width, "heads": text.heads, "context_length": text.context_length,
+                "vocab_size": text.vocab_size, "mlp_ratio": 4.0,
+                "dim_head": text.width // text.heads, "n_queries": self.caption_queries + 1,
+                "attn_pooler_heads": vision.attn_pooler_heads}
+
+
+@dataclass
 class CLIPCfg:
     embed_dim: int = 512
     vision_cfg: VisionCfg = field(default_factory=VisionCfg)
     text_cfg: TextCfg = field(default_factory=TextCfg)
     gene_cfg: Optional[GeneCfg] = None  # if set, replaces the text tower
-    multimodal_cfg: Optional[Dict[str, Any]] = None
+    multimodal_cfg: Optional[MultimodalCfg] = None  # if set, the model is CoCa
     # auto | pallas3 (the qkv GEMM and attention as one autograd function) |
     # pallas (with ln_gemm_impl='pallas': ln_1 -> qkv fused, then attention) |
     # pallas_inter | pallas_t | pallas_split (other layouts of the kernels);
@@ -192,13 +224,17 @@ class CLIPCfg:
         vision = cfg.pop("vision_cfg", {}) or {}
         text = cfg.pop("text_cfg", {}) or {}
         gene = cfg.pop("gene_cfg", None)
+        multimodal = cfg.pop("multimodal_cfg", None)
         dropped = (_dropped_keys(cls, cfg) + _dropped_keys(VisionCfg, vision, "vision_cfg.")
                    + _dropped_keys(TextCfg, text, "text_cfg.")
-                   + _dropped_keys(GeneCfg, gene or {}, "gene_cfg."))
+                   + _dropped_keys(GeneCfg, gene or {}, "gene_cfg.")
+                   + _dropped_keys(MultimodalCfg, multimodal or {}, "multimodal_cfg."))
         return cls(
             vision_cfg=VisionCfg(**_filter_kwargs(VisionCfg, vision)),
             text_cfg=TextCfg(**_filter_kwargs(TextCfg, text)),
             gene_cfg=GeneCfg(**_filter_kwargs(GeneCfg, gene)) if gene else None,
+            multimodal_cfg=(MultimodalCfg(**_filter_kwargs(MultimodalCfg, multimodal))
+                            if multimodal else None),
             **{**_filter_kwargs(cls, cfg), "dropped": dropped},
         )
 
@@ -215,10 +251,18 @@ def check_ported(cfg: CLIPCfg) -> None:
     SigLIP text towers' ``norm_kwargs`` / ``act_kwargs``, a tokenizer's
     ``tokenizer_kwargs``), or a Hugging Face text tower whose architecture,
     pooler, projection or ``hf_config`` key the port's encoders do not build
-    (``hf_model.check_hf``)."""
+    (``hf_model.check_hf``).
+
+    The attentional pooler and the cls-token text tower are the ViT's and
+    the CLIP text transformer's options: on another tower, which JAX
+    builds without them, they are refused. Under ``multimodal_cfg`` (CoCa)
+    every setting JAX's CoCa ignores is refused where it is not its default
+    (:func:`_coca_ignored`), and so is an open_clip decoder key whose value
+    is not the one JAX builds (:meth:`MultimodalCfg.jax_builds`)."""
     v, t = cfg.vision_cfg, cfg.text_cfg
+    vit = not v.timm_model_name and not isinstance(v.layers, (list, tuple))
+    clip_text = not t.hf_tower and cfg.gene_cfg is None
     unported = [
-        ("multimodal_cfg", cfg.multimodal_cfg, cfg.multimodal_cfg is not None),
         ("attn_impl", cfg.attn_impl, cfg.attn_impl not in ATTN_IMPLS),
         ("zip_towers", cfg.zip_towers, cfg.zip_towers not in ("off", "auto", "on")),
         ("mlp_impl", cfg.mlp_impl, cfg.mlp_impl not in ("dense", "pallas")),
@@ -230,17 +274,18 @@ def check_ported(cfg: CLIPCfg) -> None:
          isinstance(v.layers, (list, tuple)) and len(v.layers) != 4),
         ("vision_cfg.qk_norm", v.qk_norm, v.qk_norm),
         ("vision_cfg.scaled_cosine", v.scaled_cosine, v.scaled_cosine),
-        ("vision_cfg.attentional_pool", v.attentional_pool, v.attentional_pool),
+        ("vision_cfg.attentional_pool", v.attentional_pool, v.attentional_pool and not vit),
         ("vision_cfg.patch_dropout", v.patch_dropout, v.patch_dropout > 0),
         ("vision_cfg.pos_embed_type", v.pos_embed_type, v.pos_embed_type != "learnable"),
         ("vision_cfg.patchify_impl", v.patchify_impl, v.patchify_impl != "reshape"),
-        ("vision_cfg.output_tokens", v.output_tokens, v.output_tokens),
         ("text_cfg.qk_norm", t.qk_norm, t.qk_norm),
-        ("text_cfg.embed_cls", t.embed_cls, t.embed_cls),
+        ("text_cfg.embed_cls", t.embed_cls, t.embed_cls and not clip_text),
         ("vision_cfg.head_width", v.head_width,
          v.head_width is not None and v.head_width * v.heads != v.width),
         ("text_cfg.pool_type", t.pool_type, t.pool_type not in TEXT_POOL_TYPES),
     ]
+    if cfg.multimodal_cfg is not None:
+        unported = _coca_ignored(cfg) + unported
     if v.timm_model_name is not None:
         from spatial_clip_tpu_torch.models.timm_model import TRUNKS, UnknownTrunkError
 
@@ -257,11 +302,54 @@ def check_ported(cfg: CLIPCfg) -> None:
             raise NotImplementedError(
                 f"{key} is not ported to spatial_clip_tpu_torch (no field carries it, and it "
                 "changes the function)")
+    m = cfg.multimodal_cfg
+    if m is not None:
+        for key, want in m.jax_builds(v, t).items():
+            got = getattr(m, key)
+            if got is not None and got != want:
+                raise NotImplementedError(
+                    f"multimodal_cfg.{key}={got!r} is not ported to spatial_clip_tpu_torch: "
+                    f"JAX's CoCa drops the key and builds {want!r}")
     if t.hf_tower and cfg.gene_cfg is None:
         from spatial_clip_tpu_torch.models.hf_model import check_hf
 
         check_hf(t.hf_model_arch, t.hf_config, t.hf_pooler_type, t.hf_proj_type,
                  t.hf_model_name)
+
+
+def _coca_ignored(cfg: CLIPCfg) -> list:
+    """(field, value, refused) for each setting JAX's CoCa does not read
+    (``coca.py:122-183`` builds a ViT with the attentional pooler, the CLIP
+    text tower with the cls token, einsum attention and two-pass LayerNorm,
+    whatever these say): refused where it differs from its default. The
+    pooler's ``attn_pooler_queries`` is ``caption_queries + 1``, and the
+    tower options CoCa forces (``attentional_pool``, ``output_tokens``,
+    ``embed_cls``) are taken either way."""
+    v, t, m = cfg.vision_cfg, cfg.text_cfg, cfg.multimodal_cfg
+    return [
+        ("attn_impl", cfg.attn_impl, cfg.attn_impl != "auto"),
+        ("zip_towers", cfg.zip_towers, cfg.zip_towers != "off"),
+        ("mlp_impl", cfg.mlp_impl, cfg.mlp_impl != "dense"),
+        ("ln_gemm_impl", cfg.ln_gemm_impl, cfg.ln_gemm_impl != "dense"),
+        ("ln_impl", cfg.ln_impl, cfg.ln_impl != "onepass"),
+        ("init_logit_bias", cfg.init_logit_bias, cfg.init_logit_bias is not None),
+        ("gene_cfg", cfg.gene_cfg, cfg.gene_cfg is not None),
+        ("vision_cfg.timm_model_name", v.timm_model_name, bool(v.timm_model_name)),
+        ("vision_cfg.layers", v.layers, isinstance(v.layers, (list, tuple))),
+        ("vision_cfg.ls_init_value", v.ls_init_value, v.ls_init_value is not None),
+        ("vision_cfg.no_ln_pre", v.no_ln_pre, v.no_ln_pre),
+        ("vision_cfg.final_ln_after_pool", v.final_ln_after_pool, v.final_ln_after_pool),
+        ("vision_cfg.pool_type", v.pool_type, v.pool_type != "tok"),
+        ("vision_cfg.attn_pooler_queries", v.attn_pooler_queries,
+         v.attn_pooler_queries not in (256, m.caption_queries + 1)),
+        ("text_cfg.hf_model_name", t.hf_model_name, bool(t.hf_model_name)),
+        ("text_cfg.hf_config", t.hf_config, t.hf_config is not None),
+        ("text_cfg.ls_init_value", t.ls_init_value, t.ls_init_value is not None),
+        ("text_cfg.no_causal_mask", t.no_causal_mask, t.no_causal_mask),
+        ("text_cfg.pool_type", t.pool_type, t.pool_type != "argmax"),
+        ("text_cfg.final_ln_after_pool", t.final_ln_after_pool, t.final_ln_after_pool),
+        ("text_cfg.proj_bias", t.proj_bias, t.proj_bias),
+    ]
 
 
 def list_model_configs() -> list:

@@ -19,7 +19,14 @@ tower's blocks are mapped. The modified ResNet takes open_clip's names
 ``visual.layer1.0.downsample.1.running_mean``), a Hugging Face text tower
 its flax path under ``text.hf`` (``text/hf/layers.0/self_attn.q_proj/kernel``
 is ``text.hf.layers.0.self_attn.q_proj.weight``) and ``text.proj1`` /
-``text.proj2``. :func:`to_jax_params` is the inverse.
+``text.proj2``. The ViT's attentional pooler keeps its flax names under
+``visual.attn_pool`` (``query``, ``ln_k``, ``ln_q``, ``q_proj`` ...
+``out_proj``) and a cls-token text tower's ``text/cls_emb`` is ``cls_emb``.
+CoCa's tree (``token_embedding_dec/embedding`` present) holds its text
+tower under ``text.`` and its decoder under ``decoder.`` (``resblocks_i``
+as ``resblocks.i``, the cross-attention's ``q``, ``kv``, ``out``),
+``token_embedding_dec``, ``img_to_text_width`` and
+``dec_positional_embedding``. :func:`to_jax_params` is the inverse.
 
 :func:`from_open_clip_timm` reads the visual half of an open_clip state
 dict whose image tower is a timm ConvNeXt or ViT (``visual.trunk.*``,
@@ -333,6 +340,7 @@ def _key_pairs(has) -> List[Tuple[str, str, Optional[Tuple[int, ...]]]]:
         if has("text/proj2/kernel", "text.proj2.weight"):
             take("text/proj2/kernel", "text.proj2.weight", (1, 0))
 
+    coca = has("token_embedding_dec/embedding", "token_embedding_dec.weight")
     if has("visual/bn1/scale", "visual.bn1.weight"):  # the modified ResNet
         take_rn()
     elif any(present(j, t) for j, t in (("stem_conv/kernel", "stem_conv.weight"),
@@ -347,6 +355,12 @@ def _key_pairs(has) -> List[Tuple[str, str, Optional[Tuple[int, ...]]]]:
         take("visual/positional_embedding", "visual.positional_embedding")
         if has("visual/ln_pre/scale", "visual.ln_pre.weight"):
             take_ln("visual/ln_pre", "visual.ln_pre")
+        if has("visual/attn_pool/query", "visual.attn_pool.query"):  # the attentional pooler
+            take("visual/attn_pool/query", "visual.attn_pool.query")
+            take_ln("visual/attn_pool/ln_k", "visual.attn_pool.ln_k")
+            take_ln("visual/attn_pool/ln_q", "visual.attn_pool.ln_q")
+            for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                take_dense(f"visual/attn_pool/{name}", f"visual.attn_pool.{name}")
         take_ln("visual/ln_post", "visual.ln_post")
         take("visual/proj", "visual.proj")
 
@@ -362,15 +376,38 @@ def _key_pairs(has) -> List[Tuple[str, str, Optional[Tuple[int, ...]]]]:
         take_dense("text/head", "text.head")
     elif has("text/proj1/kernel", "text.proj1.weight"):  # a Hugging Face text tower
         take_hf()
-    else:
-        take_blocks("text/transformer", "transformer")
-        take("text/token_embedding/embedding", "token_embedding.weight")
-        take("text/positional_embedding", "positional_embedding")
-        take_ln("text/ln_final", "ln_final")
-        if has("text/text_projection/kernel", "text_projection.weight"):
-            take_dense("text/text_projection", "text_projection")
+    else:  # the CLIP text tower: on the model itself, under text. in CoCa
+        tt = "text." if coca else ""
+        take_blocks("text/transformer", f"{tt}transformer")
+        take("text/token_embedding/embedding", f"{tt}token_embedding.weight")
+        if has("text/cls_emb", f"{tt}cls_emb"):
+            take("text/cls_emb", f"{tt}cls_emb")
+        take("text/positional_embedding", f"{tt}positional_embedding")
+        take_ln("text/ln_final", f"{tt}ln_final")
+        if has("text/text_projection/kernel", f"{tt}text_projection.weight"):
+            take_dense("text/text_projection", f"{tt}text_projection")
         else:
-            take("text/text_projection", "text_projection")
+            take("text/text_projection", f"{tt}text_projection")
+
+    if coca:  # the decoder, its token embedding and positions
+        take("token_embedding_dec/embedding", "token_embedding_dec.weight")
+        take_dense("img_to_text_width", "img_to_text_width")
+        i = 0
+        while has(f"decoder/resblocks_{i}/ln_1/scale", f"decoder.resblocks.{i}.ln_1.weight"):
+            j, t = f"decoder/resblocks_{i}", f"decoder.resblocks.{i}"
+            for name in ("ln_1", "ln_1_kv", "ln_2"):
+                take_ln(f"{j}/{name}", f"{t}.{name}")
+            take(f"{j}/attn/qkv/kernel", f"{t}.attn.in_proj_weight", (1, 0))
+            take(f"{j}/attn/qkv/bias", f"{t}.attn.in_proj_bias")
+            take_dense(f"{j}/attn/out", f"{t}.attn.out_proj")
+            for name in ("q", "kv", "out"):
+                take_dense(f"{j}/cross_attn/{name}", f"{t}.cross_attn.{name}")
+            take_dense(f"{j}/mlp/c_fc", f"{t}.mlp.c_fc")
+            take_dense(f"{j}/mlp/c_proj", f"{t}.mlp.c_proj")
+            i += 1
+        take_ln("decoder/ln_final", "decoder.ln_final")
+        take("decoder/to_logits/kernel", "decoder.to_logits.weight", (1, 0))
+        take("dec_positional_embedding", "dec_positional_embedding")
 
     take("logit_scale", "logit_scale")
     if has("logit_bias", "logit_bias"):

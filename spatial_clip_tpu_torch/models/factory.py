@@ -28,6 +28,7 @@ import torch
 from torch import nn
 
 from spatial_clip_tpu_torch.models.clip import CLIP
+from spatial_clip_tpu_torch.models.coca import CoCa
 from spatial_clip_tpu_torch.models.config import CLIPCfg, resolve_clip_cfg
 from spatial_clip_tpu_torch.models.constants import OPENAI_DATASET_MEAN, OPENAI_DATASET_STD
 from spatial_clip_tpu_torch.models.timm_model import Conv
@@ -47,6 +48,7 @@ from spatial_clip_tpu_torch.models.transformer import (
     LayerScale,
     MultiHeadAttention,
     PatchEmbed,
+    TextTransformer,
 )
 from spatial_clip_tpu_torch.models.transforms import (
     AugmentationCfg,
@@ -136,11 +138,16 @@ def init_weights(model: CLIP, seed: int = 0) -> None:
         normal(model.visual.class_embedding, v_width ** -0.5)
         normal(model.visual.positional_embedding, v_width ** -0.5)
         normal(model.visual.proj, v_width ** -0.5)
-    if model.text is None:  # the Gene-MLP and HF towers draw through their modules
-        normal(model.token_embedding.weight, cfg.text_cfg.width ** -0.5)
-        normal(model.positional_embedding, 0.01)
-        if not isinstance(model.text_projection, Dense):
-            normal(model.text_projection, cfg.text_cfg.width ** -0.5)
+    # the CLIP text tower's parameters: on the model itself (CLIP) or under
+    # text (CoCa); the Gene-MLP and HF towers draw through their modules
+    text = model.text if isinstance(model.text, TextTransformer) else model
+    if model.text is None or text is not model:
+        normal(text.token_embedding.weight, cfg.text_cfg.width ** -0.5)
+        normal(text.positional_embedding, 0.01)
+        if not isinstance(text.text_projection, Dense):
+            normal(text.text_projection, cfg.text_cfg.width ** -0.5)
+        if text.cls_emb is not None:
+            normal(text.cls_emb, 0.01)
     model.logit_scale.fill_(cfg.init_logit_scale)
     if model.logit_bias is not None:
         model.logit_bias.fill_(cfg.init_logit_bias)
@@ -149,9 +156,10 @@ def init_weights(model: CLIP, seed: int = 0) -> None:
 def create_model(model_name: str, pretrained: Optional[str] = None,
                  precision: str = "bf16", seed: int = 0, device="cuda",
                  training: bool = False, force_quick_gelu: bool = False,
-                 remat: bool = False, **cfg_overrides) -> CLIP:
-    """Build a CLIP model. ``cfg_overrides`` are CLIPCfg fields, with
-    ``vision_cfg``/``text_cfg`` dicts merged into the JSON config. The model
+                 remat: bool = False, **cfg_overrides) -> Union[CLIP, CoCa]:
+    """Build a CLIP model, or CoCa where the config sets ``multimodal_cfg``.
+    ``cfg_overrides`` are CLIPCfg fields, with ``vision_cfg`` / ``text_cfg`` /
+    ``multimodal_cfg`` dicts merged into the JSON config. The model
     carries ``cfg``, ``model_name`` and ``preprocess_cfg``. ``training``
     gives float32 parameters that require grad, in train mode; the weights
     drawn from a seed are the same either way (then rounded to the compute
@@ -165,9 +173,9 @@ def create_model(model_name: str, pretrained: Optional[str] = None,
         cfg_overrides["quick_gelu"] = True
     cfg = resolve_clip_cfg(model_name, **cfg_overrides)
     dtype = PRECISION_DTYPES[precision]
-    model = CLIP(cfg, dtype=dtype, device=torch.device(device),
-                 param_dtype=torch.float32 if training else dtype, training=training,
-                 remat=remat)
+    model = (CoCa if cfg.multimodal_cfg is not None else CLIP)(
+        cfg, dtype=dtype, device=torch.device(device),
+        param_dtype=torch.float32 if training else dtype, training=training, remat=remat)
     init_weights(model, seed)
     if pretrained:
         load_checkpoint(model, pretrained)

@@ -423,8 +423,47 @@ class PatchEmbed(nn.Module):
         return patches @ self.weight.to(self.dtype).permute(2, 3, 1, 0).reshape(p * p * C, -1)
 
 
+class AttentionalPooler(nn.Module):
+    """Query-based attention pooling (JAX's ``AttentionalPooler``):
+    ``n_queries`` learned queries through ``ln_q`` and ``q_proj`` attend
+    over the tokens through ``ln_k`` and ``k_proj`` / ``v_proj``, then
+    ``out_proj``. Both LayerNorms take two-pass f32 statistics whatever the
+    tower's ``ln_stats``, as in JAX; the attention is JAX's inline einsum
+    (:func:`attention_plain.head_attention`: q scaled by hd^-1/2 in the
+    compute dtype, the scores formed there and cast to f32, the softmax in
+    f32, p cast back)."""
+
+    def __init__(self, d_model: int, heads: int, n_queries: int, norm_eps: float = 1e-5,
+                 dtype=torch.float32, param_dtype=None, device=None):
+        super().__init__()
+        param_dtype = param_dtype or dtype
+        self.heads, self.dtype = heads, dtype
+        self.query = _param(n_queries, d_model, dtype=param_dtype, device=device)
+        self.ln_k = LayerNorm(d_model, norm_eps, "fp32", dtype, device)
+        self.ln_q = LayerNorm(d_model, norm_eps, "fp32", dtype, device)
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            self.add_module(name, Dense(d_model, d_model, dtype, param_dtype, device))
+
+    def init_params(self, normal) -> None:
+        normal(self.query, 0.02)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        q = self.query.to(self.dtype).expand(x.shape[0], -1, -1)
+        x, q = self.ln_k(x), self.ln_q(q)
+        out = attention_plain.head_attention(self.q_proj(q), self.k_proj(x), self.v_proj(x),
+                                             self.heads)
+        return self.out_proj(out)
+
+
 class VisionTransformer(nn.Module):
-    """ViT image tower: NHWC normalized images -> pooled, projected features."""
+    """ViT image tower: NHWC normalized images -> pooled, projected features.
+
+    ``attentional_pool`` (JAX's ``VisionTransformer.head``): the
+    :class:`AttentionalPooler` runs over every token, class token included,
+    with no ``ln_post`` on the tokens; its first query, through ``ln_post``
+    and the projection, is the pooled feature, the others the tokens.
+    ``output_tokens``: the tower returns (pooled, tokens), the tokens
+    unprojected (the pooler's, else the blocks' past the class token)."""
 
     def __init__(self, image_size: int, patch_size: int, width: int, layers: int,
                  heads: int, mlp_ratio: float, output_dim: int,
@@ -433,7 +472,9 @@ class VisionTransformer(nn.Module):
                  norm_eps: float = 1e-5, ln_stats: str = "onepass",
                  act: Callable = gelu_tanh, dtype=torch.float32, param_dtype=None,
                  device=None, training: bool = False, attn_impl: str = "auto",
-                 ln_gemm_impl: str = "dense", mlp_impl: str = "dense", remat: bool = False):
+                 ln_gemm_impl: str = "dense", mlp_impl: str = "dense", remat: bool = False,
+                 attentional_pool: bool = False, attn_pooler_queries: int = 256,
+                 attn_pooler_heads: int = 8, output_tokens: bool = False):
         super().__init__()
         if pool_type not in ("tok", "avg", "none"):
             raise ValueError(f"unknown vision pool_type {pool_type!r}")
@@ -454,15 +495,20 @@ class VisionTransformer(nn.Module):
             param_dtype=param_dtype, device=device,
             seq_len=n_patches + 1 if training else None, attn_impl=attn_impl,
             ln_gemm_impl=ln_gemm_impl, mlp_impl=mlp_impl, remat=remat)
+        self.attn_pool = (AttentionalPooler(width, attn_pooler_heads, attn_pooler_queries,
+                                            norm_eps, dtype, param_dtype, device)
+                          if attentional_pool else None)
+        self.output_tokens = output_tokens
         self.ln_post = LayerNorm(width, norm_eps, ln_stats, dtype, device)
         self.proj = _param(width, output_dim, dtype=param_dtype, device=device)
 
-    def _pool(self, x: torch.Tensor) -> torch.Tensor:
+    def _pool(self, x: torch.Tensor):
+        """(pooled, tokens), as JAX's ``_pool``."""
         if self.pool_type == "avg":
-            return x[:, 1:].mean(dim=1)
+            return x[:, 1:].mean(dim=1), x[:, 1:]
         if self.pool_type == "tok":
-            return x[:, 0]
-        return x.mean(dim=1)
+            return x[:, 0], x[:, 1:]
+        return x.mean(dim=1), x
 
     def embed(self, images: torch.Tensor) -> torch.Tensor:
         """Patchify, class and positional embedding, ln_pre: the rows the
@@ -472,13 +518,19 @@ class VisionTransformer(nn.Module):
         x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(self.dtype)
         return self.ln_pre(x)
 
-    def head(self, x: torch.Tensor) -> torch.Tensor:
-        """Pool, ln_post and the projection, after the blocks."""
-        if self.final_ln_after_pool:
-            pooled = self.ln_post(self._pool(x))
+    def head(self, x: torch.Tensor):
+        """Pool, ln_post and the projection, after the blocks; with
+        ``output_tokens`` (pooled, tokens)."""
+        if self.attn_pool is not None:
+            x = self.attn_pool(x)
+            pooled, tokens = self.ln_post(x[:, 0]), x[:, 1:]
+        elif self.final_ln_after_pool:
+            pooled, tokens = self._pool(x)
+            pooled = self.ln_post(pooled)
         else:
-            pooled = self._pool(self.ln_post(x))
-        return pooled @ self.proj.to(self.dtype)
+            pooled, tokens = self._pool(self.ln_post(x))
+        pooled = pooled @ self.proj.to(self.dtype)
+        return (pooled, tokens) if self.output_tokens else pooled
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         return self.head(self.transformer(self.embed(images)))
@@ -503,9 +555,12 @@ def causal_mask(seq_len: int, device=None) -> torch.Tensor:
 
 
 def text_head(x: torch.Tensor, text: torch.Tensor, ln_final: nn.Module, projection,
-              pool_type: str, final_ln_after_pool: bool) -> torch.Tensor:
-    """Final LN + pool + projection (a matrix, or a Dense when proj_bias)."""
-    if final_ln_after_pool:
+              pool_type: str, final_ln_after_pool: bool, embed_cls: bool = False) -> torch.Tensor:
+    """Final LN + pool + projection (a matrix, or a Dense when proj_bias).
+    ``embed_cls``: the last row (the cls token) through ln_final alone."""
+    if embed_cls:
+        pooled = ln_final(x[:, -1])
+    elif final_ln_after_pool:
         pooled = ln_final(text_global_pool(x, text, pool_type))
     else:
         pooled = text_global_pool(ln_final(x), text, pool_type)
@@ -515,7 +570,13 @@ def text_head(x: torch.Tensor, text: torch.Tensor, ln_final: nn.Module, projecti
 
 
 class TextTransformer(nn.Module):
-    """Causal text tower: (B, context_length) token ids -> projected features."""
+    """Causal text tower: (B, context_length) token ids -> projected features.
+
+    ``embed_cls`` (JAX's ``TextTransformer`` with ``embed_cls``): a learned
+    ``cls_emb`` row is appended after the last token (after any pads), the
+    positional embedding and the causal mask cover ``context_length + 1``
+    rows, and the pooled feature is ``ln_final`` of that last row. No pad
+    mask is applied, as in JAX."""
 
     def __init__(self, context_length: int, vocab_size: int, width: int, heads: int,
                  layers: int, mlp_ratio: float, output_dim: int,
@@ -524,41 +585,56 @@ class TextTransformer(nn.Module):
                  proj_bias: bool = False, norm_eps: float = 1e-5, ln_stats: str = "onepass",
                  act: Callable = gelu_tanh, dtype=torch.float32, param_dtype=None,
                  device=None, training: bool = False, attn_impl: str = "auto",
-                 ln_gemm_impl: str = "dense", mlp_impl: str = "dense", remat: bool = False):
+                 ln_gemm_impl: str = "dense", mlp_impl: str = "dense", remat: bool = False,
+                 embed_cls: bool = False):
         super().__init__()
         param_dtype = param_dtype or dtype
-        self.pool_type, self.dtype = pool_type, dtype
+        self.pool_type, self.dtype, self.embed_cls = pool_type, dtype, embed_cls
         self.final_ln_after_pool = final_ln_after_pool
+        seq_len = context_length + (1 if embed_cls else 0)
         self.token_embedding = nn.Embedding(vocab_size, width, dtype=param_dtype, device=device,
                                             _weight=torch.empty(vocab_size, width,
                                                                 dtype=param_dtype, device=device))
-        self.positional_embedding = _param(context_length, width, dtype=param_dtype,
-                                           device=device)
+        self.cls_emb = _param(width, dtype=param_dtype, device=device) if embed_cls else None
+        self.positional_embedding = _param(seq_len, width, dtype=param_dtype, device=device)
         self.transformer = Transformer(
             width, layers, heads, mlp_ratio=mlp_ratio, ls_init_value=ls_init_value,
             norm_eps=norm_eps, ln_stats=ln_stats, act=act, dtype=dtype,
             param_dtype=param_dtype, device=device,
-            seq_len=context_length if training else None, attn_impl=attn_impl,
+            seq_len=seq_len if training else None, attn_impl=attn_impl,
             ln_gemm_impl=ln_gemm_impl, mlp_impl=mlp_impl, remat=remat)
         self.ln_final = LayerNorm(width, norm_eps, ln_stats, dtype, device)
         self.text_projection = (Dense(width, output_dim, dtype, param_dtype, device) if proj_bias
                                 else _param(width, output_dim, dtype=param_dtype, device=device))
         self.register_buffer(
-            "attn_mask", None if no_causal_mask else causal_mask(context_length, device),
+            "attn_mask", None if no_causal_mask else causal_mask(seq_len, device),
             persistent=False)
 
     def embed(self, text: torch.Tensor) -> torch.Tensor:
-        """Token + positional embedding in the compute dtype. The f32 table
-        of a training model is gathered, then cast: the same values as
-        casting the whole table first, as flax does, at a fraction of the
-        bytes."""
-        return (self.token_embedding(text).to(self.dtype)
-                + self.positional_embedding.to(self.dtype))
+        """Token (+ cls) + positional embedding in the compute dtype
+        (:func:`text_embed`)."""
+        return text_embed(text, self.token_embedding, self.positional_embedding, self.dtype,
+                          self.cls_emb)
+
+    def head(self, x: torch.Tensor, text: torch.Tensor) -> torch.Tensor:
+        return text_head(x, text, self.ln_final, self.text_projection, self.pool_type,
+                         self.final_ln_after_pool, self.embed_cls)
 
     def forward(self, text: torch.Tensor) -> torch.Tensor:
-        x = self.transformer(self.embed(text), self.attn_mask)
-        return text_head(x, text, self.ln_final, self.text_projection, self.pool_type,
-                         self.final_ln_after_pool)
+        return self.head(self.transformer(self.embed(text), self.attn_mask), text)
+
+
+def text_embed(text: torch.Tensor, token_embedding: nn.Embedding, positional: torch.Tensor,
+               dtype, cls_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token + positional embedding in the compute dtype, with ``cls_emb``
+    (when given) appended as the last row before the positions are added.
+    The f32 table of a training model is gathered, then cast: the same
+    values as casting the whole table first, as flax does, at a fraction of
+    the bytes."""
+    x = token_embedding(text).to(dtype)
+    if cls_emb is not None:
+        x = torch.cat([x, cls_emb.to(dtype).expand(x.shape[0], 1, -1)], dim=1)
+    return x + positional.to(dtype)
 
 
 class GeneMLPTower(nn.Module):

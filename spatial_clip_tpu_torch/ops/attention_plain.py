@@ -13,12 +13,15 @@ either: PyTorch's ops run them on the card and on the CPU alike. ``xla`` is
 ``F.scaled_dot_product_attention``. :func:`head_attention` is the einsum
 attention the timm towers write inline (unequal query and key lengths, a
 bias); :func:`encoder_attention` the Hugging Face encoders' (flax's
-softmax in the compute dtype). Each function counts its calls in
+softmax in the compute dtype); :func:`dot_product_attention` the XLA core
+of ``jax.nn.dot_product_attention``, CoCa's cross-attention. Each function
+counts its calls in
 ``<function>.launches``, as the kernel wrappers count theirs, so that a run
 shows which attention went where.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -131,7 +134,25 @@ def fold_attention(x: torch.Tensor, w_qkv: torch.Tensor, b_qkv: torch.Tensor,
     return torch.einsum("bhqd,whd->bqw", out, w_out.view(w_out.shape[0], heads, hd)) + b_out
 
 
+def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.dot_product_attention(q, k, v)`` with no bias or mask, as
+    its XLA core computes it (``jax/_src/nn/functions.py``,
+    ``_dot_product_attention_core``): q (B, T, N, H), k and v (B, S, N, H)
+    in the compute dtype; the logits q.k as exact products summed in f32
+    (XLA's BF16_BF16_F32 preset: the compute-dtype inputs widened to f32,
+    whose products they represent exactly), scaled by H^-1/2 in f32
+    afterwards, the softmax in f32, the probabilities rounded to the
+    compute dtype, then P.V in the compute dtype. Returns (B, T, N, H)."""
+    dot_product_attention.launches += 1
+    logits = torch.einsum("btnh,bsnh->bnts", q.float(), k.float())
+    logits = logits * torch.tensor(1.0 / math.sqrt(q.shape[-1]), dtype=torch.float32,
+                                   device=q.device)
+    probs = torch.softmax(logits, dim=-1).to(k.dtype)
+    return torch.einsum("bnts,bsnh->btnh", probs, v)
+
+
 plain_attention.launches = 0
 head_attention.launches = 0
+dot_product_attention.launches = 0
 encoder_attention.launches = 0
 fold_attention.launches = 0

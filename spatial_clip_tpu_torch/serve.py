@@ -118,15 +118,18 @@ class ServerMetrics:
 
 
 class EmbeddingService:
-    """The two encoders on one device, run in chunks of ``batch_size``."""
+    """The two encoders on one device, run in chunks of ``batch_size``.
+    ``model``: a model already built on ``device`` (``create_model`` without
+    ``training``, its weights loaded or copied) to serve in place of the
+    one drawn from seed 0."""
 
     def __init__(self, model_name: str = "ViT-B-32", batch_size: int = 64,
                  precision: str = "bf16", device: str = "cuda", max_inflight: int = 32,
-                 **model_kw):
+                 model=None, **model_kw):
         self.batch_size = batch_size
         self.device = torch.device(device)
-        self.model = create_model(model_name, precision=precision, seed=0,
-                                  device=self.device, **model_kw)
+        self.model = model if model is not None else create_model(
+            model_name, precision=precision, seed=0, device=self.device, **model_kw)
         self.tokenizer = get_tokenizer(model_name)
         self.image_size = int(self.model.cfg.vision_cfg.size)
         # one encoder call at a time: the card is the serialized resource;

@@ -245,8 +245,9 @@ class TrainState:
 
 
 class Trainer:
-    """Train step over a CLIP model built with ``create_model(...,
-    training=True)`` (f32 parameters, train mode, grad on).
+    """Train step over a CLIP or CoCa model built with ``create_model(...,
+    training=True)`` (f32 parameters, train mode, grad on); CoCa trains with
+    the ``coca`` loss, which also takes its caption logits.
 
     Batches have the JAX package's schema: ``images`` (B, H, W, 3) uint8
     (or already normalized floats), ``texts`` (B, L) token ids (for a
@@ -419,7 +420,10 @@ class Trainer:
         When the config augments, the augmentation draws (``draws``, or new
         ones from the state's generator) cover the whole batch (under a mesh
         the global batch, of which each rank takes its rows); with
-        ``grad_accum > 1`` each microbatch takes its rows of them. ``cached`` mode: pass 1 embeds
+        ``grad_accum > 1`` each microbatch takes its rows of them (a loss
+        that takes the caption logits, ``coca``, raises a TypeError in
+        ``cached`` mode, whose full-batch loss has only the features, as
+        JAX's ``_cached_accum_grads`` does). ``cached`` mode: pass 1 embeds
         every microbatch without grad; pass 2 re-embeds one microbatch at a
         time with grad, splices its features into the cached (B, D)
         matrices and backprops the full-batch loss, adding the gradients in
@@ -661,11 +665,17 @@ class Trainer:
         """Full-split retrieval eval without grad or augmentation: the mean
         of the batches' losses, the in-batch R@1/5/10 over all rows, the
         bidirectional ``clip_retrieval_metrics`` of the features gathered
-        over the split, and ``num_samples``. Under a mesh each rank passes
-        its rows of the same global batches, the features are gathered over
-        the ranks, and every rank returns the global split's metrics."""
+        over the split, and ``num_samples``; for CoCa also
+        ``val_generative_loss``, the mean over the batches of each batch's
+        caption CE (pad 0). Under a mesh each rank passes its rows of the
+        same global batches, the features are gathered over the ranks (the
+        caption CE's sums and counts added over them), and every rank
+        returns the global split's metrics."""
+        from spatial_clip_tpu_torch.models.coca import caption_nll
+
         metrics = ContrastiveMetrics()
         losses: List[float] = []
+        gen_losses: List[float] = []
         img_feats, txt_feats = [], []
         mstate = metrics.init(self.model.logit_scale.device)
         with torch.no_grad():
@@ -673,6 +683,12 @@ class Trainer:
                 dbatch = self._device_batch(batch)
                 features = self._features(state.params, dbatch, None)  # no augmentation
                 losses.append(float(self._loss({**dbatch, **features})))
+                if "caption_logits" in features:
+                    nll = torch.stack(caption_nll(features["caption_logits"],
+                                                  features["caption_labels"]))
+                    if self.group is not None:
+                        dist.all_reduce(nll, group=self.group)
+                    gen_losses.append(float(nll[0] / nll[1].clamp_min(1.0)))
                 img = all_gather(features["image_features"], self.group)
                 txt = all_gather(features["text_features"], self.group)
                 img_feats.append(img.float().cpu().numpy())
@@ -684,6 +700,8 @@ class Trainer:
             log.warning("evaluation split produced zero batches (split smaller than batch size?)")
             return {}
         result = {"loss": float(np.mean(losses))}
+        if gen_losses:
+            result["val_generative_loss"] = float(np.mean(gen_losses))
         result.update(metrics.compute(mstate))
         img, txt = np.concatenate(img_feats), np.concatenate(txt_feats)
         result.update(clip_retrieval_metrics(img, txt))

@@ -81,10 +81,14 @@ def loss_rank(rank: int, cases, inputs) -> dict:
                     "dist_image_features", "dist_text_features"):
             kw[key] = torch.tensor(rows(inputs[key], rank, world))
         kw["dist_logit_scale"] = torch.tensor(inputs["dist_scale"])
-        bias = None
+        bias = cap = None
         if kind == "siglip":
             bias = torch.tensor(inputs["bias"], requires_grad=True)
             kw["logit_bias"] = bias
+        if kind == "coca":
+            cap = torch.tensor(rows(inputs["caption_logits"], rank, world), requires_grad=True)
+            kw.update(caption_logits=cap,
+                      caption_labels=torch.tensor(rows(inputs["caption_labels"], rank, world)))
         res = make_loss(kind, **opts)(group=group, **kw)
         res["contrastive_loss"].backward()
         out[name] = {"loss": float(res["contrastive_loss"].detach()),
@@ -92,7 +96,8 @@ def loss_rank(rank: int, cases, inputs) -> dict:
                                 if k != "contrastive_loss"},
                      "img": img.grad.numpy(), "txt": txt.grad.numpy(),
                      "scale": float(scale.grad),
-                     "bias": None if bias is None else float(bias.grad)}
+                     "bias": None if bias is None else float(bias.grad),
+                     "cap": None if cap is None else cap.grad.numpy()}
     img = torch.tensor(rows(inputs["img"], rank, world), requires_grad=True)
     txt = torch.tensor(rows(inputs["txt"], rank, world), requires_grad=True)
     all_img, all_txt = gather_features(img, txt, group)

@@ -112,6 +112,7 @@ BUILD_ARGVS = [
     ["--lock-image-tower", "--lock-image-unlocked-groups", "1", "--lock-text-tower",
      "--lr-scheduler", "const-cooldown", "--epochs-cooldown", "1", "--warmup", "2"],
     ["--distill-model", "ViT-Test", "--grad-clip-norm", "1.0"],
+    ["--model", "coca_ViT-Test"],  # JAX's selection never picks the coca loss: clip
 ]
 
 

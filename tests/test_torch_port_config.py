@@ -47,9 +47,11 @@ def test_every_builtin_config_that_passes_is_built_with_no_field_dropped(name):
                                   ("text_cfg.", port_config.TextCfg, raw.get("text_cfg") or {},
                                    cfg.text_cfg),
                                   ("gene_cfg.", port_config.GeneCfg, raw.get("gene_cfg") or {},
-                                   cfg.gene_cfg)):
+                                   cfg.gene_cfg),
+                                  ("multimodal_cfg.", port_config.MultimodalCfg,
+                                   raw.get("multimodal_cfg") or {}, cfg.multimodal_cfg)):
         for key, value in sub.items():
-            if prefix == "" and key in ("vision_cfg", "text_cfg", "gene_cfg"):
+            if prefix == "" and key in ("vision_cfg", "text_cfg", "gene_cfg", "multimodal_cfg"):
                 continue
             if key in _fields(cls):
                 got = getattr(obj, key)

@@ -33,6 +33,7 @@ CASES = [
     ("distill", "distill", {}),
     ("ring", "spatial_ring", {"cap_logit_scale": 50.0}),
     *[(f"siglip_{impl}", "siglip", {"dist_impl": impl}) for impl in SIGLIP_IMPLS],
+    ("coca", "coca", {"caption_loss_weight": 2.0}),
 ]
 
 
@@ -52,6 +53,11 @@ def _inputs():
         "neighbor_alphas": rng.uniform(0, 1, (B, K)).astype(np.float32),
         "scale": np.float32(10.0), "dist_scale": np.float32(7.0), "bias": np.float32(-10.0),
         "weights": rng.normal(size=(B, D)).astype(np.float32),
+        # CoCa's caption logits over a vocab of 7; row i ends in i % 4 pads, so
+        # the ranks hold different counts of labels
+        "caption_logits": rng.normal(size=(B, 5, 7)).astype(np.float32),
+        "caption_labels": np.array([[int(v) if j < 5 - i % 4 else 0 for j, v in enumerate(row)]
+                                    for i, row in enumerate(rng.integers(1, 7, (B, 5)))]),
     }
 
 
@@ -74,7 +80,8 @@ def ranks():
 
 def _jax_global(name, kind, opts):
     """The JAX package's loss on the global batch (axis_name=None): the value,
-    the extras, and the gradients of the features, the scale (and bias)."""
+    the extras, and the gradients of the features, the scale, the bias and
+    the caption logits (zero where the kind does not take them)."""
     import jax
     import jax.numpy as jnp
 
@@ -86,16 +93,18 @@ def _jax_global(name, kind, opts):
         "dist_image_features", "dist_text_features")}
     fixed["dist_logit_scale"] = jnp.float32(INPUTS["dist_scale"])
 
-    def f(img, txt, scale, bias):
+    def f(img, txt, scale, bias, cap):
         kw = {**fixed, "image_features": img, "text_features": txt, "logit_scale": scale}
         if kind == "siglip":
             kw["logit_bias"] = bias
+        if kind == "coca":
+            kw.update(caption_logits=cap, caption_labels=jnp.asarray(INPUTS["caption_labels"]))
         out = loss(**kw)
         return out["contrastive_loss"], out
 
-    (value, out), grads = jax.value_and_grad(f, argnums=(0, 1, 2, 3), has_aux=True)(
+    (value, out), grads = jax.value_and_grad(f, argnums=(0, 1, 2, 3, 4), has_aux=True)(
         jnp.asarray(INPUTS["img"]), jnp.asarray(INPUTS["txt"]), jnp.float32(INPUTS["scale"]),
-        jnp.float32(INPUTS["bias"]))
+        jnp.float32(INPUTS["bias"]), jnp.asarray(INPUTS["caption_logits"]))
     extras = {k: float(v) for k, v in out.items() if k != "contrastive_loss"}
     return float(value), extras, [np.asarray(g) for g in grads]
 
@@ -106,9 +115,11 @@ def test_distributed_loss_is_the_global_loss(ranks, world, name, kind, opts):
     """Every rank returns JAX's global loss; the ranks' gradients, averaged
     (the features' concatenated over the ranks), are its gradients. The
     ring loss is held to JAX's dense spatial loss (unique tile ids), the
-    fused path to JAX's fused path."""
+    fused path to JAX's fused path. The coca loss's caption term is the
+    global batch's token mean (the ranks hold different counts of labels),
+    as JAX computes it on the global arrays."""
     results = [r[name] for r in ranks(world)]
-    want, want_extras, (g_img, g_txt, g_scale, g_bias) = _jax_global(name, kind, opts)
+    want, want_extras, (g_img, g_txt, g_scale, g_bias, g_cap) = _jax_global(name, kind, opts)
     siglip = kind == "siglip"
     tol = 1e-4 * max(1.0, abs(want)) if siglip else 1e-5
     for r in results:
@@ -126,6 +137,9 @@ def test_distributed_loss_is_the_global_loss(ranks, world, name, kind, opts):
     if siglip:
         bias = np.mean([r["bias"] for r in results])
         assert abs(bias - float(g_bias)) <= 1e-4 * max(1.0, abs(float(g_bias)))
+    if kind == "coca":
+        got_cap = np.concatenate([r["cap"] for r in results]) / world
+        np.testing.assert_allclose(got_cap, g_cap, rtol=0, atol=1e-5 * np.abs(g_cap).max() + 1e-7)
 
 
 @pytest.mark.parametrize("world", WORLDS)

@@ -59,7 +59,8 @@ def test_import_pulls_in_no_jax():
         "spatial_clip_tpu_torch.ops.attention_variants, "
         "spatial_clip_tpu_torch.models.convert, spatial_clip_tpu_torch.models.timm_model, "
         "spatial_clip_tpu_torch.models.modified_resnet, spatial_clip_tpu_torch.models.hf_model, "
-        "spatial_clip_tpu_torch.models.m2m_encoder, "
+        "spatial_clip_tpu_torch.models.m2m_encoder, spatial_clip_tpu_torch.models.coca, "
+        "spatial_clip_tpu_torch.models.intermediates, spatial_clip_tpu_torch.ops.flops, "
         "spatial_clip_tpu_torch.losses, spatial_clip_tpu_torch.train.loop, "
         "spatial_clip_tpu_torch.train.optim, spatial_clip_tpu_torch.train.metrics, "
         "spatial_clip_tpu_torch.bench, spatial_clip_tpu_torch.profile_serving, "

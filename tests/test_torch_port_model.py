@@ -189,7 +189,9 @@ def test_vit_b_32_layout_matches_jax_export():
     (dict(attn_impl="fold_fp8"), "attn_impl"),
     (dict(vision_cfg=dict(qk_norm=True)), "vision_cfg.qk_norm"),
     (dict(vision_cfg=dict(scaled_cosine=True)), "vision_cfg.scaled_cosine"),
-    (dict(vision_cfg=dict(attentional_pool=True)), "vision_cfg.attentional_pool"),
+    # the pooler is the ViT's option: JAX builds the other towers without it
+    (dict(vision_cfg=dict(attentional_pool=True, layers=[1, 1, 1, 1])),
+     "vision_cfg.attentional_pool"),
     (dict(vision_cfg=dict(patch_dropout=0.5)), "vision_cfg.patch_dropout"),
     (dict(vision_cfg=dict(timm_model_name="vit_base")), "vision_cfg.timm_model_name"),
     (dict(vision_cfg=dict(layers=[1, 1, 1])), "vision_cfg.layers"),  # RN takes four stages
@@ -197,9 +199,11 @@ def test_vit_b_32_layout_matches_jax_export():
     (dict(text_cfg=dict(qk_norm=True)), "text_cfg.qk_norm"),
     (dict(text_cfg=dict(hf_model_name="gpt2", hf_model_arch="gpt2")),
      "text_cfg.hf_model_name"),  # an architecture with no encoder here
-    (dict(text_cfg=dict(embed_cls=True)), "text_cfg.embed_cls"),
+    # the cls token is the CLIP text transformer's option, not the gene tower's
+    (dict(text_cfg=dict(embed_cls=True), gene_cfg=dict(num_genes=8)), "text_cfg.embed_cls"),
     (dict(gene_cfg=dict(num_genes=8, hidden=4)), "gene_cfg"),  # a key GeneCfg lacks
-    (dict(multimodal_cfg=dict(layers=1)), "multimodal_cfg"),
+    # CoCa builds; an open_clip decoder key JAX's CoCa drops, at another value, does not
+    (dict(multimodal_cfg=dict(layers=1, n_queries=3)), "multimodal_cfg"),
 ])
 def test_unported_options_raise(overrides, field):
     with pytest.raises(NotImplementedError, match=field):

@@ -64,15 +64,18 @@ HF_CONFIGS = ["roberta-ViT-B-32", "xlm-roberta-base-ViT-B-32", "mt5-base-ViT-B-3
 
 
 def test_74_builtin_configs_pass_and_build():
-    """91 of the 142 built-in configs pass check_ported (74 before the RN
-    and HF towers): 46 with a timm trunk (44 before, and the 2 nllb-clip
-    SigLIP ones), the 11 RN ones and the 6 HF ones named above; create_model
-    builds each (meta device) with the tower its config names."""
+    """93 of the 142 built-in configs pass check_ported (74 before the RN
+    and HF towers, 91 before CoCa): 46 with a timm trunk (44 before, and
+    the 2 nllb-clip SigLIP ones), the 11 RN ones and the 6 HF ones named
+    above, and coca_ViT-B-32 and coca_ViT-Test; create_model builds each
+    (meta device) with the tower its config names, CoCa for the two."""
+    from spatial_clip_tpu_torch.models.coca import CoCa
     from spatial_clip_tpu_torch.models.hf_model import HFTextTower
     from spatial_clip_tpu_torch.models.modified_resnet import ModifiedResNet
 
     passing = [n for n in BUILTINS if _passes(n)]
-    assert (len(passing), len(BUILTINS)) == (91, 142)
+    assert (len(passing), len(BUILTINS)) == (93, 142)
+    assert sorted(n for n in passing if "coca" in n) == ["coca_ViT-B-32", "coca_ViT-Test"]
     timm = [n for n in passing if port_config.resolve_clip_cfg(n).vision_cfg.timm_model_name]
     assert len(timm) == 46
     rn = [n for n in passing if isinstance(port_config.resolve_clip_cfg(n).vision_cfg.layers,
@@ -85,6 +88,7 @@ def test_74_builtin_configs_pass_and_build():
             assert isinstance(model.visual, TimmStyleTower), name
         assert isinstance(model.visual, ModifiedResNet) == (name in rn), name
         assert isinstance(model.text, HFTextTower) == (name in hf), name
+        assert isinstance(model, CoCa) == name.startswith("coca"), name
 
 
 def test_siglip_configs_are_refused_on_the_text_side():

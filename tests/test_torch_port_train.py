@@ -517,11 +517,13 @@ def test_ported_trainer_options_build(field, value):
 
 
 def test_unported_losses_and_serving_models_raise():
-    """``coca`` raises naming its ROADMAP item; ``siglip`` and ``distill``
-    (ported with the open_clip-style trainer) and ``spatial_ring`` (ported
-    with data parallelism) build."""
-    with pytest.raises(NotImplementedError, match="coca.*item 9"):
-        make_loss("coca")
+    """``coca`` (ported with CoCa), ``siglip`` and ``distill`` (ported
+    with the open_clip-style trainer) and ``spatial_ring`` (ported with
+    data parallelism) build; an unknown kind raises."""
+    coca = make_loss("coca")
+    assert coca.name == "coca" and {"caption_logits", "caption_labels"} <= coca.accepted_args
+    with pytest.raises(ValueError, match="unknown loss kind"):
+        make_loss("nope")
     assert make_loss("siglip").name == "siglip" and make_loss("distill").name == "distill"
     assert make_loss("spatial_ring").name == make_loss("ring").name == "spatial_ring"
     serving = create_model("ViT-Test", precision="fp32", device="meta", **WIDE)
