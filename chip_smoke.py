@@ -40,7 +40,7 @@ the exit code is not 0. No JAX is imported.
            and not) against the plain version on the same lse, with the
            share of dqkv elements on the plain version's bits and the mean
            signed error of each case
-7. train-check  one ViT-B-32 train step's loss and gradients at batch 32 on
+7. train-check  one ViT-B-32 train step's loss and gradients at batch 16 on
            the card (bf16, kernels) against the CPU (f32, plain path), on the
            same weights, batch and augmentation draws
 8. train   the ViT-B-32 spatial train step (bf16, batch 256, full depth, the
@@ -55,7 +55,7 @@ the exit code is not 0. No JAX is imported.
            backward's plan; then the backward's edges (D 1, 65, 511, 513,
            1536 x (B, N) (1, 1), (63, 2049), (2049, 63) x k 0 and 16), dq,
            dK and dscale the same bits on a rerun
-10. loss-check  one ViT-B-32 step at batch 32 with grad_accum=2 (cached) and
+10. loss-check  one ViT-B-32 step at batch 16 with grad_accum=2 (cached) and
            the fused loss, card (bf16, kernels) vs CPU (f32, plain path), on
            the same weights, batch and draws; and the fused loss against the
            dense one on the same f32 features on the card
@@ -81,7 +81,7 @@ the exit code is not 0. No JAX is imported.
            tiles, the same bits on a rerun, the dx plan's tiles and K-group,
            and their launches counted on the wgmma route
 13. ln-check  under ln_impl='pallas' and under ln_gemm_impl='pallas' with
-           attn_impl='pallas': phase 7's card-vs-CPU step at batch 32, and 64
+           attn_impl='pallas': phase 7's card-vs-CPU step at batch 16, and 64
            tiles and 64 texts encoded in bf16 against the f32 CPU plain path
            (per-row cosine, exact launches per encode)
 14. train-ln  phase 8's bench workload under each of the two settings:
@@ -108,7 +108,7 @@ the exit code is not 0. No JAX is imported.
            and gradient norms, median step ms beside phase 8's, peak memory
 18. route-check  JAX's attention-backward routes: the card-vs-CPU step at
            batch 12 (no lse saved: 24 inference forward and 24 recompute
-           with db launches), the same at batch 32 under BWD_FUSE='none' (24
+           with db launches), the same at batch 16 under BWD_FUSE='none' (24
            forward-lse and 24 recompute no-db launches), and three timed
            steps at batch 100 on the recompute-with-db route
 19. kernel-pair  the zipped dual-tower kernels (both towers' inference
@@ -153,7 +153,7 @@ the exit code is not 0. No JAX is imported.
            their launches are those of this phase's timed runs
 24. layouts-check  under attn_impl 'pallas_inter' (also with
            ln_gemm_impl='pallas'), 'pallas_t' and 'pallas_split': phase 7's
-           card-vs-CPU step at batch 32, and CLIP.forward on 64 tiles and 64
+           card-vs-CPU step at batch 16, and CLIP.forward on 64 tiles and 64
            texts in bf16 against the f32 CPU plain path (per-row cosine),
            with exact launches per route (24 + 24 of the setting's own
            kernels a step, 24 forward an encode, none of the others)
@@ -175,7 +175,7 @@ the exit code is not 0. No JAX is imported.
            32 / 64 / 128 x causal and not, B 1..257, Din 16..1024, 1-3
            heads), dqkv bit for bit and the same bits on a rerun
 27. dxdb-check, train-dxdb  under BWD_FUSE='dxdb': phase 7's card-vs-CPU
-           step at batch 32, then phase 8's bench workload, each with exactly
+           step at batch 16, then phase 8's bench workload, each with exactly
            24 forward-lse and 24 dx launches per step and no other attention
            backward; finite losses and gradient norms, median step ms beside
            phase 8's, peak memory
@@ -208,7 +208,7 @@ the exit code is not 0. No JAX is imported.
            median step ms beside phase 8's, one step's device busy time
 31. gene-entry  paths A (data=synthetic with model.global_hvg_path: the
            gene-vocabulary text tower, 5,120 ids) and B (experiment=gene_mlp
-           on the synthetic dataset, batch 256) through phase 28's entry
+           on the synthetic dataset, batch 128) through phase 28's entry
            runs, with a generated list of 5,000 genes: exact launches, the
            resume to the same bits, .eval's test/zero_shot_pcc within 1e-5
            of a numpy recomputation from the run's gene bank and test image
@@ -262,7 +262,7 @@ the exit code is not 0. No JAX is imported.
            pairs/s)
 40. siglip  a ViT-B-32 JSON with SigLIP's initial scale and bias through
            ``main_train --siglip`` (4 steps, exact launches), then one step
-           card vs CPU at batch 32
+           card vs CPU at batch 16
 41. distill  ``main_train --distill-model ViT-L-14`` (student ViT-B-32,
            batch 64, 4 steps): the student's 24 + 24 training launches and the
            teacher's 36 inference forwards a step, exactly; one step card vs
@@ -348,8 +348,29 @@ the exit code is not 0. No JAX is imported.
            the coca loss: phase 7's check at batch 4, 13 steps at batch 256
            (step ms, pairs/s, peak memory), 64 raw tiles through the server
            against f32 on the CPU, greedy and beam captions of 8 tiles at
-           seq_len 30 held to the CPU's f32 generation by teacher forcing
+           seq_len 20 held to the CPU's f32 generation by teacher forcing
            on the card, captions/s
+53. pretrained  ViT-B-32's seed-0 weights written to temporary caches as
+           an OpenAI-style TorchScript archive (fp16, with the three integer
+           entries) under the file name the ``openai`` tag resolves to in
+           $SPATIAL_CLIP_CACHE, and by save_for_hf as a snapshot under
+           $HF_HUB_CACHE; openclip_api.create_model_from_pretrained(
+           'ViT-B-32', 'openai') (QuickGELU on), create_model_and_transforms(
+           'hf-hub:local/vit-b-32') and the 224-px weights in ViT-B-32 at
+           256 px (resize_pos_embed), each in bf16 against the f32 CPU model
+           loaded from the same file (image and text features at batch 64,
+           per-row cosine >= 0.999), exact attention forward launches, the
+           openai model's encode times
+54. serve-pretrained  ``python -m spatial_clip_tpu_torch.serve --model
+           ViT-B-32 --pretrained openai`` on that cache in a process of its
+           own, through the port's EmbeddingClient (64 texts, 64 raw tiles,
+           two PNGs, healthz, metrics, reset_metrics) against phase 53's
+           in-process encode; a server given a tag outside the cache exits
+           non-zero before it listens
+55. profiler  ``python -m spatial_clip_tpu_torch.cli.profiler --model
+           ViT-B-32 RN50 coca_ViT-B-32 ViT-L-14-336 --train`` (counted on
+           meta copies), and phase 53's achieved rate: ViT-B-32's image
+           GFLOPs x 64 over its encode ms, as a share of the bf16 dense peak
 Phases 3, 6, 19, 23 and 26 also time PyTorch's scaled_dot_product_attention
 (efficient-attention backend) at the kernels' shapes as a yardstick (its
 backward alone, on one retained graph), phase
@@ -364,7 +385,8 @@ kernels with their launches on the gene paths, phases 29-32; the
 attention forward, forward-lse and backward and the key-tiled forward also
 with their launches in phases 39-43; the fused CE kernels also with their
 launches in phases 45-46; the attention forward, forward-lse and backward
-also with their launches in phases 47-48, 49-50 and 51-52), the nvidia-smi line, and
+also with their launches in phases 47-48, 49-50 and 51-52, the attention forward
+also in phase 53), the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -389,7 +411,9 @@ import numpy as np
 KERNEL_TOL = {"bfloat16": 2e-2, "float32": 1e-5}  # bf16: ~1 output ulp at |o| < 4
 MIN_COSINE = 0.99  # served bf16 embeddings vs the f32 CPU plain path
 LAYERS = 12  # ViT-B-32: 12 blocks in each tower, one attention launch each
-TRAIN_BATCH, CHECK_BATCH = 256, 32
+# CHECK_BATCH: the card-vs-CPU checks' batch (once 32; cut to keep the script inside its
+# limit: the f32 CPU step dominates each check)
+TRAIN_BATCH, CHECK_BATCH = 256, 16
 WARMUP_STEPS, TIMED_STEPS = 3, 10
 MAX_LOSS_REL_ERR = 2e-2  # one bf16 train step's loss vs the f32 CPU step
 MIN_GRAD_COSINE = 0.99  # its flattened gradient vs the f32 CPU step's
@@ -950,6 +974,9 @@ def main() -> int:
     rn_hf_train = rn_hf_train_phase()
     coca_forward = coca_forward_phase()
     coca_train = coca_train_phase()
+    pre = pretrained_phase()
+    serve_pretrained_phase(pre)
+    profiler_phase(pre)
 
     def gene_launches(key: str) -> dict:
         """A kernel's launches on the gene paths: phase 29's step (path B),
@@ -1270,6 +1297,10 @@ def main() -> int:
             row["timm_launches"] = {k: n.get(key, 0) for k, n in timm_launches.items()}
             row["rn_hf_launches"] = {k: n.get(key, 0) for k, n in rn_hf_launches.items()}
             row["coca_launches"] = {k: n.get(key, 0) for k, n in coca_launches.items()}
+        if row["name"] == "fused_attention_fwd":  # phase 53: weights by name
+            row["pretrained_launches"] = {
+                f"53 ViT-B-32 {k} image + text (batch {PRETRAINED_BATCH})": n
+                for k, n in pre["launches"].items()}
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
@@ -1707,7 +1738,7 @@ def loss_counters():
 
 
 def loss_check_phase(model) -> None:
-    """10. One step with grad_accum=2 and the fused loss at batch 32, card
+    """10. One step with grad_accum=2 and the fused loss at batch 16, card
     (bf16, kernels) vs CPU (f32, plain path), same weights, batch and draws;
     then the fused loss against the dense one on f32 features on the card."""
     import torch
@@ -2185,7 +2216,7 @@ def ln_counters():
 
 def ln_check_phase() -> None:
     """13. Under each fused LayerNorm setting: one ViT-B-32 train step at
-    batch 32, card (bf16, kernels) vs CPU (f32, plain path), under phase 7's
+    batch 16, card (bf16, kernels) vs CPU (f32, plain path), under phase 7's
     limits; and 64 tiles and 64 texts encoded on the card (bf16 serving
     model) against the f32 CPU plain path, per-row cosine >= MIN_COSINE."""
     import torch
@@ -2369,7 +2400,7 @@ def mlp_edges() -> dict:
 
 
 def mlp_check_phase() -> None:
-    """16. Under mlp_impl='pallas': phase 7's card-vs-CPU step at batch 32;
+    """16. Under mlp_impl='pallas': phase 7's card-vs-CPU step at batch 16;
     then the embedding server (bf16, batch 64) started with the setting
     answers 64 raw tiles and 64 texts, each one encoder batch of exactly 12
     fused MLP (and 12 attention) launches, against the same weights in f32
@@ -2522,7 +2553,7 @@ ROUTE_BATCH = 100  # not a multiple of 8: JAX's _lse_ok fails, no lse is saved
 def route_check_phase() -> dict:
     """18. JAX's attention-backward routes on the card: the card-vs-CPU step
     at batch 12 (``_lse_ok`` fails: the inference forward and the recompute
-    backward with db, 24 each, no forward-lse), the step at batch 32 under
+    backward with db, 24 each, no forward-lse), the step at batch 16 under
     BWD_FUSE='none' (24 forward-lse and 24 recompute no-db), with exact
     launch counts; then 1 warmup and 3 timed steps of the bench workload at
     batch 100 on the recompute-with-db route."""
@@ -2659,7 +2690,7 @@ def kernel_pair_phase() -> dict:
 
 
 def zip_check_phase() -> None:
-    """20. Under zip_towers='on': phase 7's card-vs-CPU step at batch 32
+    """20. Under zip_towers='on': phase 7's card-vs-CPU step at batch 16
     with exact launches (12 pair forward, 12 pair backward, no single-tower
     attention); then 64 tiles and 64 texts through CLIP.forward(images,
     text), the bf16 card against the f32 CPU plain path (per-row cosine), 12
@@ -3072,7 +3103,7 @@ def layout_counters():
 
 
 def layouts_check_phase() -> None:
-    """24. Under each layout setting: phase 7's card-vs-CPU step at batch 32
+    """24. Under each layout setting: phase 7's card-vs-CPU step at batch 16
     (24 forward and 24 backward launches of the setting's own kernels, none
     of any other attention kernel), and CLIP.forward on 64 tiles and 64
     texts in bf16 against the f32 CPU plain path, per-row cosine >=
@@ -3312,7 +3343,7 @@ def dx_edges() -> dict:
 
 def dxdb_phase(default_step_ms: float) -> dict:
     """27. Under BWD_FUSE='dxdb' (restored after): phase 7's card-vs-CPU step
-    at batch 32 and phase 8's bench workload (3 warmup and 10 timed steps),
+    at batch 16 and phase 8's bench workload (3 warmup and 10 timed steps),
     each with exactly 24 forward-lse and 24 dx launches per step and no
     other attention kernel; finite losses and gradient norms, median step
     beside phase 8's. Returns the dx launches of the bench workload."""
@@ -3693,6 +3724,9 @@ def gene_train_phase(default_step_ms: float) -> dict:
 
 
 GENE_BANK_BATCHES = -(-NUM_GENES // 256)  # evaluate.encode_gene_bank's batch of 256
+# phase 31's path B batch: once the bench batch (256), halved to keep the script inside
+# its limit (its loader renders every sample on the host, one worker)
+GENE_ENTRY_BATCH = 128
 
 
 def gene_entry_phase() -> dict:
@@ -3702,9 +3736,10 @@ def gene_entry_phase() -> dict:
     model.global_hvg_path:
     - path A, the gene-vocabulary text tower: data=synthetic (ViT-B-32,
       batch 64) with the GeneTokenizer's 5,004 ids padded to 5,120;
-    - path B, experiment=gene_mlp (ViT-B-32-GeneMLP, batch 256) on the
-      synthetic dataset (1,280 samples: 4 steps, one val and one test
-      batch), one loader worker so that the host crops are drawn in order.
+    - path B, experiment=gene_mlp (ViT-B-32-GeneMLP, batch
+      GENE_ENTRY_BATCH) on the synthetic dataset (1,280 samples: 4 steps,
+      two val and two test batches), one loader worker so that the host
+      crops are drawn in order.
     Each: exact launches, resume to the same bits, .eval with
     test/zero_shot_pcc checked by gene_bank_check, the step's time and the
     checkpoint's bytes."""
@@ -3725,13 +3760,13 @@ def gene_entry_phase() -> dict:
                 + LAYERS * GENE_BANK_BATCHES              # the bank through the text tower
                 + LAYERS * a_test // ENTRY_BATCH)},       # the PCC's test images
             gene_list=hvg)
-        b_samples, b_batch = 1280, TRAIN_BATCH
+        b_samples, b_batch = 1280, GENE_ENTRY_BATCH
         b_test = b_samples // 4 // b_batch * b_batch
         path_b = entry_phase(
             "gene-entry B", base=("experiment=gene_mlp", "data=synthetic",
                                   "data.dataset_format=synthetic",
                                   f"data.dataset_format_kwargs.num_samples={b_samples}",
-                                  f"model.global_hvg_path={hvg}"),
+                                  f"data.batch_size={b_batch}", f"model.global_hvg_path={hvg}"),
             batch=b_batch, test_samples=b_test,
             want_train={
                 "fused_attention.fused_attention_lse": LAYERS * ENTRY_STEPS,
@@ -4627,7 +4662,9 @@ COCA_CHECK, COCA_BATCH = 4, 256  # the card-vs-CPU checks; the timed steps (the 
 COCA_CALLS = {"attention_plain.plain_attention": 30, "attention_plain.head_attention": 1,
               "attention_plain.dot_product_attention": 6}
 MAX_LOGIT_REL_ERR = 5e-2  # bf16 caption logits vs f32 CPU: max abs err over max |logit|
-GEN_BATCH, GEN_LEN, GEN_BEAMS = 8, 30, 3  # caption generation (seq_len counts the SOT)
+# caption generation (seq_len counts the SOT; once 30, cut to keep the script inside its
+# limit: the f32 CPU generators took 22-26 s of it)
+GEN_BATCH, GEN_LEN, GEN_BEAMS = 8, 20, 3
 GEN_LOGIT_TOL = 0.5  # greedy: the CPU's token's card logit within this of the card's best
 GEN_SCORE_REL = 2e-2  # beam: the CPU's beam's card score within this share of the card's best
 SOT_ID, EOT_ID = 49406, 49407
@@ -5198,7 +5235,7 @@ def siglip_phase() -> dict:
     """40. SigLIP: a ViT-B-32 JSON with SigLIP's initial scale and bias
     (log 10, -10, as ViT-B-16-SigLIP.json) passed to ``--model`` by path;
     ``main_train --siglip`` for 4 steps (exact launches), then one step card
-    vs CPU at batch 32."""
+    vs CPU at batch 16."""
     from spatial_clip_tpu_torch.models.config import load_model_config
 
     root = scratch_root("siglip_")
@@ -5836,6 +5873,294 @@ def dist_gloo_phase() -> dict:
             "shapes": ranks[0]["shapes"], "step_ms": ms, "ref_ms": [s["ms"] for s in ref_steps],
             "norm_ratios": norm_ratios, "collectives": coll, "p2p": p2p}
 
+
+PRETRAINED_BATCH = 64  # phase 53's check and timing: the serving batch
+MIN_PRETRAINED_COSINE = 0.999  # phase 53: each loaded model's bf16 features vs f32 CPU, per row
+PRETRAINED_HUB = "local/vit-b-32"  # phase 53's snapshot: models--local--vit-b-32/snapshots/0
+PROFILER_MODELS = ("ViT-B-32", "RN50", "coca_ViT-B-32", "ViT-L-14-336")  # phase 55
+
+
+def pretrained_caches() -> dict:
+    """Temporary SPATIAL_CLIP_CACHE and HF_HUB_CACHE directories (under
+    build/, ignored by git) holding ViT-B-32's seed-0 weights two ways: an
+    OpenAI-style TorchScript archive (fp16, with the three integer entries)
+    under the file name the ``openai`` tag resolves to, and a
+    ``save_for_hf`` snapshot. Returns the paths."""
+    from spatial_clip_tpu_torch import create_model
+    from spatial_clip_tpu_torch.models import convert, pretrained
+    from spatial_clip_tpu_torch.models.push_to_hf_hub import save_for_hf
+
+    root = scratch_root("pretrained")
+    cache, hub = root / "cache", root / "hub"
+    cache.mkdir()
+    cpu = create_model("ViT-B-32", precision="fp32", seed=0, device="cpu")
+    url = pretrained.get_pretrained_cfg("ViT-B-32", "openai")["url"]
+    archive = pretrained.cache_path("ViT-B-32", "openai", url, str(cache))
+    convert.write_openai_archive(cpu.state_dict(), archive)
+    snap = hub / ("models--" + PRETRAINED_HUB.replace("/", "--")) / "snapshots" / "0"
+    save_for_hf(cpu, None, snap)
+    return {"root": root, "cache": cache, "hub": hub, "archive": archive, "snapshot": snap}
+
+
+def feature_cosines(card, cpu, tiles: np.ndarray, ids: np.ndarray) -> dict:
+    """Per-row cosine (min) of ``card``'s bf16 image and text features
+    against ``cpu``'s f32 ones on the same tiles and ids."""
+    import torch
+
+    from spatial_clip_tpu_torch.models.transforms import normalize_batch
+
+    pp = card.preprocess_cfg
+    with torch.inference_mode():
+        img = card.encode_image(normalize_batch(torch.from_numpy(tiles).cuda(), mean=pp.mean,
+                                                std=pp.std, dtype=card.dtype)).float().cpu()
+        txt = card.encode_text(torch.from_numpy(ids).long().cuda()).float().cpu()
+        want_img = cpu.encode_image(normalize_batch(torch.from_numpy(tiles), mean=pp.mean,
+                                                    std=pp.std))
+        want_txt = cpu.encode_text(torch.from_numpy(ids).long())
+    return {"image": float((img * want_img).sum(-1).min()),
+            "text": float((txt * want_txt).sum(-1).min())}
+
+
+def pretrained_phase() -> dict:
+    """53. Weights by name on the card: ViT-B-32's seed-0 weights written as
+    an OpenAI-style archive under the ``openai`` tag's cache file and as a
+    ``save_for_hf`` snapshot (:func:`pretrained_caches`), then
+    ``openclip_api.create_model_from_pretrained('ViT-B-32', 'openai')``
+    (QuickGELU on, the tag's preprocessing), ``create_model_and_transforms(
+    'hf-hub:local/vit-b-32')`` and the snapshot's 224-px weights in
+    ViT-B-32 at 256 px (``resize_pos_embed``: 50 positions to 65), each in
+    bf16 against the f32 CPU model loaded from the same file: image and
+    text features at batch 64, per-row cosine >= MIN_PRETRAINED_COSINE,
+    the attention forward's launches exact (12 a tower a batch). Times the
+    openai model's encodes. Leaves SPATIAL_CLIP_CACHE and HF_HUB_CACHE set
+    for phase 54, which removes them, and returns the paths, the launches
+    and the times."""
+    import os
+
+    import torch
+
+    from spatial_clip_tpu_torch import create_model, create_model_and_transforms, openclip_api
+    from spatial_clip_tpu_torch.models.transforms import normalize_batch
+    from spatial_clip_tpu_torch.ops.fused_attention import fused_attention
+
+    t_phase = time.perf_counter()
+    paths = pretrained_caches()
+    os.environ["SPATIAL_CLIP_CACHE"] = str(paths["cache"])
+    os.environ["HF_HUB_CACHE"] = str(paths["hub"])
+    write_s = time.perf_counter() - t_phase
+    rng = np.random.default_rng(53)
+    tiles = rng.integers(0, 256, (PRETRAINED_BATCH, 224, 224, 3), dtype=np.uint8)
+    tiles256 = rng.integers(0, 256, (PRETRAINED_BATCH, 256, 256, 3), dtype=np.uint8)
+    texts = [f"a tile of tissue {i} with gene {i * 7 % 97} expressed"
+             for i in range(PRETRAINED_BATCH)]
+    hub = f"hf-hub:{PRETRAINED_HUB}"
+    big = {"vision_cfg": {"image_size": 256}}
+
+    t0 = time.perf_counter()
+    openai, preprocess = openclip_api.create_model_from_pretrained("ViT-B-32", "openai",
+                                                                   device="cuda")
+    hubm, _, val_t = create_model_and_transforms(hub, device="cuda")
+    weights = str(paths["snapshot"] / "open_clip_pytorch_model.bin")
+    m256 = create_model("ViT-B-32", pretrained=weights, device="cuda", **big)
+    load_s = time.perf_counter() - t0
+    if not openai.cfg.quick_gelu or hubm.cfg.quick_gelu:
+        raise AssertionError(f"[pretrained] quick_gelu {openai.cfg.quick_gelu} under the "
+                             f"openai tag (want True), {hubm.cfg.quick_gelu} from the snapshot")
+    if m256.visual.positional_embedding.shape[0] != 65 or preprocess.cfg.size != 224:
+        raise AssertionError(f"[pretrained] 256-px positions "
+                             f"{tuple(m256.visual.positional_embedding.shape)}, preprocess "
+                             f"size {preprocess.cfg.size}")
+    ids = openclip_api.tokenize(texts)
+    cases = (("openai", openai, "openai", {}, tiles),
+             ("hf-hub", hubm, None, {}, tiles),
+             ("256px", m256, weights, big, tiles256))
+    cos, launches = {}, {}
+    for label, card, spec, over, x in cases:
+        name = hub if label == "hf-hub" else "ViT-B-32"
+        cpu = create_model(name, pretrained=spec, precision="fp32", device="cpu", **over)
+        fused_attention.launches = 0
+        cos[label] = feature_cosines(card, cpu, x, ids)
+        launches[label] = fused_attention.launches
+        del cpu
+    want = {k: 2 * LAYERS for k in launches}
+    worst = min(min(c.values()) for c in cos.values())
+    if launches != want or worst < MIN_PRETRAINED_COSINE:
+        raise AssertionError(f"[pretrained] launches {launches} (want {want}), cosines {cos} "
+                             f"(min {worst} < {MIN_PRETRAINED_COSINE}?)")
+    x64 = normalize_batch(torch.from_numpy(tiles).cuda(), dtype=openai.dtype)
+    ids64 = torch.from_numpy(ids).long().cuda()
+    with torch.inference_mode():
+        img_ms = host_median_ms(lambda: openai.encode_image(x64))
+        txt_ms = host_median_ms(lambda: openai.encode_text(ids64))
+        img_device_ms = median_ms(lambda: openai.encode_image(x64), reps=5, inner=10)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"[pretrained] ViT-B-32 bf16 on the card from local files (archive "
+          f"{paths['archive'].stat().st_size} B fp16 under the openai tag's cache name, snapshot "
+          f"{PRETRAINED_HUB}; written in {write_s:.1f} s, three models loaded in {load_s:.1f} s): "
+          f"openai tag quick_gelu {openai.cfg.quick_gelu}, hf-hub preprocess size "
+          f"{hubm.preprocess_cfg.size} mean {hubm.preprocess_cfg.mean}, 256 px positions "
+          f"50 -> 65; min per-row "
+          f"cosine vs the f32 CPU model from the same file at batch {PRETRAINED_BATCH}: "
+          + "; ".join(f"{k} image {v['image']:.6f} text {v['text']:.6f}" for k, v in cos.items())
+          + f" (>= {MIN_PRETRAINED_COSINE}); attention forward launches {launches}; openai model "
+          f"encode_image 64 tiles {img_ms:.3f} ms host clock ({img_device_ms:.3f} ms on the "
+          f"card's clock), encode_text 64 texts {txt_ms:.3f} ms; {smi}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"paths": paths, "model": openai, "tiles": tiles, "texts": texts, "launches": launches,
+            "img_ms": img_ms, "img_device_ms": img_device_ms, "txt_ms": txt_ms, "cos": cos}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def serve_pretrained_phase(pre: dict) -> dict:
+    """54. ``python -m spatial_clip_tpu_torch.serve --model ViT-B-32
+    --pretrained openai`` on phase 53's cache, in a process of its own,
+    through the port's ``EmbeddingClient``: 64 texts, 64 raw tiles, two
+    PNGs, healthz, metrics, reset_metrics; every embedding against phase
+    53's in-process encode of the same inputs (per-row cosine >=
+    MIN_COSINE, phase 4's tolerance). A server given a tag its cache does
+    not hold, started beside it, must exit non-zero without listening."""
+    import io
+    import os
+
+    import torch
+    from PIL import Image
+
+    from spatial_clip_tpu_torch.client import EmbeddingClient
+    from spatial_clip_tpu_torch.models.transforms import HostImageTransform, normalize_batch
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    model, tiles, texts = pre["model"], pre["tiles"], pre["texts"]
+    pngs = []
+    rng = np.random.default_rng(54)
+    for h, w in ((300, 260), (224, 224)):
+        buf = io.BytesIO()
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(buf, "PNG")
+        pngs.append(buf.getvalue())
+    port = free_port()
+    cmd = [sys.executable, "-m", "spatial_clip_tpu_torch.serve", "--model", "ViT-B-32",
+           "--pretrained", "openai", "--port", str(port)]
+    # a server given a tag the cache does not hold, started beside the good one
+    bad = subprocess.Popen([sys.executable, "-m", "spatial_clip_tpu_torch.serve", "--model",
+                            "ViT-B-32", "--pretrained", "laion2b_s34b_b79k", "--port",
+                            str(free_port())], cwd=root, env=dict(os.environ),
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    log = (pre["paths"]["root"] / "serve.log").open("w")
+    server = subprocess.Popen(cmd, cwd=root, env=dict(os.environ), stdout=log,
+                              stderr=subprocess.STDOUT)
+    try:
+        deadline = time.monotonic() + 300
+        client = EmbeddingClient("127.0.0.1", port, timeout=300)
+        while True:
+            if server.poll() is not None:
+                raise AssertionError(f"[serve-pretrained] the server exited with "
+                                     f"{server.returncode}: "
+                                     f"{(pre['paths']['root'] / 'serve.log').read_text()[-2000:]}")
+            try:
+                health = client.healthz()
+                break
+            except OSError:
+                client.close()
+                if time.monotonic() > deadline:
+                    raise
+                time.sleep(1.0)
+        up_s = time.perf_counter() - t_phase
+        got = {"texts": client.embed_texts(texts), "tiles": client.embed_tiles(tiles),
+               "pngs": client.embed_images(pngs)}
+        metrics = client.metrics()
+        reset = client.reset_metrics()
+        after = client.metrics()
+        client.close()
+        _, bad_err = bad.communicate(timeout=300)
+        bad_s = time.perf_counter() - t_phase
+    finally:
+        for proc in (server, bad):
+            if proc.poll() is None:
+                proc.terminate()
+                try:
+                    proc.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+        log.close()
+    transform = HostImageTransform(model.preprocess_cfg)
+    decoded = np.stack([transform(Image.open(io.BytesIO(b))) for b in pngs])
+    pp = model.preprocess_cfg
+    from spatial_clip_tpu_torch import openclip_api
+
+    with torch.inference_mode():
+        want = {
+            "texts": model.encode_text(torch.from_numpy(openclip_api.tokenize(texts)).long()
+                                       .cuda()),
+            "tiles": model.encode_image(normalize_batch(torch.from_numpy(tiles).cuda(),
+                                                        mean=pp.mean, std=pp.std,
+                                                        dtype=model.dtype)),
+            "pngs": model.encode_image(normalize_batch(torch.from_numpy(decoded).cuda(),
+                                                       mean=pp.mean, std=pp.std,
+                                                       dtype=model.dtype))}
+    cos, diff = {}, {}
+    for k, w in want.items():
+        w = w.float().cpu().numpy()
+        check_embeddings(f"serve-pretrained {k}", got[k], len(w), w.shape[1])
+        cos[k] = float((got[k] * w).sum(-1).min())
+        diff[k] = float(np.abs(got[k] - w).max())
+    if (min(cos.values()) < MIN_COSINE or metrics["requests_total"] != 3
+            or health["model"] != "ViT-B-32" or "reset" not in reset.get("status", "")
+            or after["requests_total"] != 3):
+        raise AssertionError(f"[serve-pretrained] cosines {cos}, healthz {health}, metrics "
+                             f"{metrics}, reset {reset}, after {after}")
+    if bad.returncode == 0 or "does not exist" not in bad_err or "serving" in bad_err:
+        raise AssertionError(f"[serve-pretrained] a tag outside the cache: exit "
+                             f"{bad.returncode}, stderr {bad_err[-1500:]}")
+    print(f"[serve-pretrained] `{' '.join(cmd[1:])}` up in {up_s:.1f} s (healthz {health}); "
+          f"through EmbeddingClient: 64 texts, 64 raw tiles, 2 PNGs, 200 OK; min per-row cosine "
+          f"vs phase 53's in-process encode {cos} (>= {MIN_COSINE}), max abs diff {diff}; metrics "
+          f"requests_total {metrics['requests_total']}, reset {reset}; an uncached tag "
+          f"(laion2b_s34b_b79k, started beside it) exited {bad.returncode} within {bad_s:.1f} s "
+          f"without listening: {bad_err.strip().splitlines()[-1][:160]}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    for var in ("SPATIAL_CLIP_CACHE", "HF_HUB_CACHE"):  # phase 53's caches: done with
+        os.environ.pop(var, None)
+    shutil.rmtree(pre["paths"]["root"], ignore_errors=True)
+    return {"cos": cos, "up_s": up_s}
+
+
+def profiler_phase(pre: dict) -> dict:
+    """55. ``python -m spatial_clip_tpu_torch.cli.profiler --model
+    PROFILER_MODELS --train`` (each counted on a meta copy), its rows
+    printed; then phase 53's achieved rate: ViT-B-32's image GFLOPs x 64
+    over its encode_image ms, as a share of the card's bf16 dense peak."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "spatial_clip_tpu_torch.cli.profiler", "--model",
+                          *PROFILER_MODELS, "--train"], cwd=Path(__file__).resolve().parent,
+                         capture_output=True, text=True, timeout=600)
+    rows = [json.loads(line) for line in out.stdout.splitlines() if line.startswith("{")]
+    if out.returncode != 0 or [r["model"] for r in rows] != list(PROFILER_MODELS):
+        raise AssertionError(f"[profiler] exit {out.returncode}, rows {rows}, stderr "
+                             f"{out.stderr[-1500:]}")
+    for row in rows:
+        if not all(row[k] > 0 for k in ("mparams", "image_gflops", "text_gflops", "gflops",
+                                         "train_gflops")):
+            raise AssertionError(f"[profiler] {row}")
+        print(f"[profiler] {json.dumps(row)}", flush=True)
+    vit = rows[0]
+    tflops = vit["image_gflops"] * PRETRAINED_BATCH / pre["img_ms"]  # GFLOP / ms = TFLOP/s
+    device_tflops = vit["image_gflops"] * PRETRAINED_BATCH / pre["img_device_ms"]
+    print(f"[profiler] ViT-B-32 encode_image at batch {PRETRAINED_BATCH} (phase 53): "
+          f"{vit['image_gflops']} GFLOPs x {PRETRAINED_BATCH} / {pre['img_ms']:.3f} ms = "
+          f"{tflops:.2f} TFLOP/s by host clock, {tflops * 1e12 / BF16_FLOPS:.4f} of the bf16 dense "
+          f"peak {BF16_FLOPS / 1e12:.0f} TFLOP/s; {device_tflops:.2f} TFLOP/s on the card's clock "
+          f"({device_tflops * 1e12 / BF16_FLOPS:.4f}); profiler {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return {"rows": rows, "tflops": tflops, "device_tflops": device_tflops}
 
 
 if __name__ == "__main__":

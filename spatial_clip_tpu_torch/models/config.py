@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Dict, Optional, Tuple, Union
@@ -25,10 +26,12 @@ CONFIG_DIR = REFERENCE_MODELS_DIR / "model_configs"
 # JSON keys that no dataclass carries and that change nothing this package
 # builds: open_clip's CustomTextCLIP flag (the same function here), the timm
 # trunk's pretrained flag and drop path, which the JAX package's timm towers
-# ignore as well (no trunk downloads, none has a drop path).
+# ignore as well (no trunk downloads, none has a drop path), and the JAX
+# VisionCfg's act_kwargs, which no JAX image tower reads (the JAX package's
+# save_for_hf writes it).
 IGNORED_KEYS = frozenset({
     "custom_text",
-    "vision_cfg.timm_model_pretrained", "vision_cfg.timm_drop_path",
+    "vision_cfg.timm_model_pretrained", "vision_cfg.timm_drop_path", "vision_cfg.act_kwargs",
 })
 # the text pool types text_global_pool computes, as the JAX towers do
 TEXT_POOL_TYPES = ("argmax", "last", "first", "avg", "none")
@@ -352,22 +355,90 @@ def _coca_ignored(cfg: CLIPCfg) -> list:
     ]
 
 
+# configs registered at run time (register_model_config, add_model_config):
+# consulted before the built-in JSON directory
+_EXTRA_CONFIGS: Dict[str, Dict[str, Any]] = {}
+
+
+def register_model_config(name: str, cfg: Dict[str, Any]) -> None:
+    """Register an architecture config dict under ``name``; it wins over a
+    built-in of the same name."""
+    _EXTRA_CONFIGS[name.replace("/", "-")] = dict(cfg)
+
+
+def add_model_config(path) -> None:
+    """Register every ``*.json`` model config under ``path`` (a file or a
+    directory), each under its file's stem."""
+    p = Path(path)
+    if not p.exists():
+        raise FileNotFoundError(f"add_model_config: {p} does not exist")
+    files = [p] if p.is_file() else sorted(p.glob("*.json"))
+    if not files or any(f.suffix.lower() != ".json" for f in files):
+        raise ValueError(f"add_model_config: {p} contains no .json model configs")
+    for f in files:
+        register_model_config(f.stem, json.loads(f.read_text()))
+
+
 def list_model_configs() -> list:
-    return sorted(p.stem for p in CONFIG_DIR.glob("*.json"))
+    """Every architecture name: the built-in JSONs and the registered ones."""
+    return sorted({p.stem for p in CONFIG_DIR.glob("*.json")} | set(_EXTRA_CONFIGS))
+
+
+def hf_cache_snapshot(repo: str) -> Optional[Path]:
+    """The newest snapshot of ``repo`` in a local Hugging Face hub cache
+    that holds an ``open_clip_config.json``, or None. The cache roots are
+    ``$HF_HUB_CACHE``, ``$HUGGINGFACE_HUB_CACHE`` and ``$HF_HOME/hub``
+    (default ``~/.cache/huggingface/hub``), each laid out as
+    ``models--org--name/snapshots/<revision>/``. Nothing is fetched."""
+    roots = [Path(os.environ[var]) for var in ("HF_HUB_CACHE", "HUGGINGFACE_HUB_CACHE")
+             if os.environ.get(var)]
+    roots.append(Path(os.environ.get("HF_HOME", Path.home() / ".cache" / "huggingface")) / "hub")
+    for root in roots:
+        snaps = root / ("models--" + repo.replace("/", "--")) / "snapshots"
+        if not snaps.is_dir():
+            continue
+        for snap in sorted(snaps.iterdir(), key=lambda q: q.stat().st_mtime, reverse=True):
+            if (snap / "open_clip_config.json").is_file():
+                return snap
+    return None
+
+
+def hf_hub_snapshot(model_name: str) -> Path:
+    """The cached snapshot an ``hf-hub:org/name`` model name resolves to;
+    raises ValueError where the cache holds none."""
+    repo = model_name[len("hf-hub:"):]
+    snap = hf_cache_snapshot(repo)
+    if snap is None:
+        raise ValueError(
+            f"'{model_name}' resolves through the Hugging Face hub; no cached snapshot with "
+            f"open_clip_config.json was found under the HF cache, and nothing is downloaded. "
+            f"Populate the cache (models--{repo.replace('/', '--')}/snapshots/<rev>/ under "
+            f"$HF_HUB_CACHE) or pass a local-dir: name or a .json config.")
+    return snap
 
 
 def load_model_config(model_name: str) -> Dict[str, Any]:
-    """A built-in name (``ViT-B-32``) or a path to a ``.json`` file."""
-    builtin = CONFIG_DIR / f"{model_name.replace('/', '-')}.json"
+    """The raw JSON config of ``model_name``: an ``hf-hub:org/name`` (the
+    ``model_cfg`` of its cached snapshot's ``open_clip_config.json``), a
+    registered name, a built-in name (``ViT-B-32``), a path to a ``.json``
+    file, or ``local-dir:<dir>`` (the ``model_cfg`` of
+    ``<dir>/open_clip_config.json``)."""
+    if model_name.startswith("hf-hub:"):
+        cfg = json.loads((hf_hub_snapshot(model_name) / "open_clip_config.json").read_text())
+        return cfg.get("model_cfg", cfg)
+    name = model_name.replace("/", "-")
+    if name in _EXTRA_CONFIGS:
+        return dict(_EXTRA_CONFIGS[name])
+    builtin = CONFIG_DIR / f"{name}.json"
     if builtin.exists():
         return json.loads(builtin.read_text())
     p = Path(model_name)
     if p.suffix == ".json" and p.exists():
         return json.loads(p.read_text())
-    if model_name.startswith("hf-hub:"):
-        raise NotImplementedError(
-            f"model_name={model_name!r}: hf-hub names are not ported to "
-            "spatial_clip_tpu_torch")
+    if model_name.startswith("local-dir:"):
+        cfg_file = Path(model_name[len("local-dir:"):]) / "open_clip_config.json"
+        cfg = json.loads(cfg_file.read_text())
+        return cfg.get("model_cfg", cfg)
     raise ValueError(
         f"Unknown model '{model_name}'. Built-ins: {list_model_configs()}")
 

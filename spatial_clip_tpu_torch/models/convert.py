@@ -38,10 +38,13 @@ Adam moments, with numpy leaves) to the port's
 """
 from __future__ import annotations
 
+import math
+import zipfile
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 
 def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -550,6 +553,158 @@ def from_open_clip_timm(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         if not k.startswith("visual."):
             out[k[len("text."):] if k.startswith("text.") else k] = v
     return out
+
+
+# the integer entries an OpenAI TorchScript archive holds beside the weights,
+# which open_clip drops when it builds the model
+OPENAI_ARCHIVE_INTS = ("input_resolution", "context_length", "vocab_size")
+
+
+def is_torchscript_archive(path) -> bool:
+    """Whether ``path`` is a TorchScript archive (OpenAI's CLIP weights):
+    a zip file holding scripted code, which ``torch.load`` with
+    ``weights_only=True`` refuses."""
+    if not zipfile.is_zipfile(path):
+        return False
+    with zipfile.ZipFile(path) as z:
+        return any("/code/__torch__" in name for name in z.namelist())
+
+
+def read_openai_archive(path) -> Dict[str, torch.Tensor]:
+    """The state dict of the scripted module in an OpenAI TorchScript
+    archive, without its :data:`OPENAI_ARCHIVE_INTS`. Its floats stay in
+    the archive's dtype (fp16); loading casts them to the model's."""
+    sd = torch.jit.load(str(path), map_location="cpu").state_dict()
+    return {k: v for k, v in sd.items() if k not in OPENAI_ARCHIVE_INTS}
+
+
+class _Holder(nn.Module):
+    """A scriptable module holding tensors at dotted paths."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+
+def write_openai_archive(state_dict: Dict[str, torch.Tensor], path, image_size: int = 224,
+                         context_length: int = 77, vocab_size: int = 49408) -> None:
+    """Write ``state_dict`` as OpenAI ships CLIP's weights: a TorchScript
+    archive whose module holds every tensor at its key, the floats in fp16,
+    with the three integer entries (:data:`OPENAI_ARCHIVE_INTS`)."""
+    root = _Holder()
+    ints = dict(zip(OPENAI_ARCHIVE_INTS, (image_size, context_length, vocab_size)))
+    for key, t in {**state_dict, **{k: torch.tensor(v) for k, v in ints.items()}}.items():
+        *parents, leaf = key.split(".")
+        mod = root
+        for part in parents:
+            if not hasattr(mod, part):
+                mod.add_module(part, _Holder())
+            mod = getattr(mod, part)
+        t = t.detach().cpu()
+        if t.is_floating_point():
+            mod.register_parameter(leaf, nn.Parameter(t.half(), requires_grad=False))
+        else:
+            mod.register_buffer(leaf, t)
+    torch.jit.script(root).save(str(path))
+
+
+def _resize_weights(n_in: int, n_out: int) -> torch.Tensor:
+    """(n_in, n_out) f32 weights of a bilinear resize along one axis, as
+    ``jax.image.resize`` forms them (``scale_and_translate``): half-pixel
+    sample points, the triangle kernel widened by 1 / scale when it
+    shrinks (antialiasing), each column normalized over the input samples
+    it reaches."""
+    inv_scale = n_in / n_out
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (torch.arange(n_out, dtype=torch.float32) + 0.5) * inv_scale - 0.5
+    x = (sample[None, :] - torch.arange(n_in, dtype=torch.float32)[:, None]).abs() / kernel_scale
+    w = (1.0 - x).clamp_min(0.0)
+    total = w.sum(0, keepdim=True)
+    eps = 1000.0 * float(np.finfo(np.float32).eps)
+    w = torch.where(total.abs() > eps, w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, 0.0)
+
+
+def resize_pos_embed(pe: torch.Tensor, target_len: int,
+                     num_prefix_tokens: int = 1) -> torch.Tensor:
+    """A ViT's (L, D) positional embedding bilinearly resized to
+    ``target_len`` rows, as the JAX package's ``resize_pos_embed`` does:
+    the first ``num_prefix_tokens`` rows kept, the square grid after them
+    resized (``jax.image.resize``'s bilinear, antialiased when it shrinks),
+    in f32 and returned in ``pe``'s dtype."""
+    if pe.shape[0] == target_len:
+        return pe
+    prefix, grid = pe[:num_prefix_tokens], pe[num_prefix_tokens:].float()
+    old = int(math.isqrt(grid.shape[0]))
+    new = int(math.isqrt(target_len - num_prefix_tokens))
+    w = _resize_weights(old, new)  # the same along both axes
+    g = grid.reshape(old, old, -1)
+    g = torch.einsum("hwc,hi->iwc", g, w)
+    g = torch.einsum("iwc,wj->ijc", g, w)
+    return torch.cat([prefix, g.reshape(new * new, -1).to(pe.dtype)], 0)
+
+
+def fit_positional_embeddings(state_dict: Dict[str, torch.Tensor],
+                              model_state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``state_dict`` with every 2-D ``*positional_embedding`` whose length
+    differs from the model's resized to it (:func:`resize_pos_embed`; one
+    prefix token for the image tower, none for the text tower), as the JAX
+    package's ``convert_torch_checkpoint`` does before its shape check."""
+    out = dict(state_dict)
+    for k, v in state_dict.items():
+        ref = model_state.get(k)
+        if (k.endswith("positional_embedding") and ref is not None and v.dim() == 2
+                and v.shape != ref.shape):
+            out[k] = resize_pos_embed(v, ref.shape[0], 1 if "visual" in k else 0)
+    return out
+
+
+def convert_mobileclip_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Apple's MobileCLIP checkpoint keys in open_clip's layout, as the JAX
+    package maps them: the text encoder (a CLIP text transformer under
+    other names) to the text tower's keys, its positional embedding
+    squeezed; the image encoder under ``visual.trunk.*`` as it is (the
+    FastViT trunks here are not parameter-compatible, so nothing fits
+    them); ``logit_scale`` kept."""
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in sd.items():
+        if k.startswith("text_encoder."):
+            k = k[len("text_encoder."):]
+            k = k.replace("projection_layer", "text_projection")
+            k = k.replace("embedding_layer", "token_embedding")
+            if k.startswith("positional_embedding.pos_embed.pos_embed"):
+                k = k.replace("positional_embedding.pos_embed.pos_embed", "positional_embedding")
+                v = v.squeeze()
+            k = k.replace("final_layer_norm", "ln_final")
+            k = k.replace("pre_norm_mha.0", "ln_1")
+            k = k.replace("pre_norm_mha.1", "attn")
+            k = k.replace("pre_norm_ffn.0", "ln_2")
+            k = k.replace("pre_norm_ffn.1", "mlp.c_fc")
+            k = k.replace("pre_norm_ffn.4", "mlp.c_proj")
+            k = k.replace("qkv_proj.weight", "in_proj_weight")
+            k = k.replace("qkv_proj.bias", "in_proj_bias")
+            k = k.replace("transformer.", "transformer.resblocks.")
+            out["text." + k] = v
+        elif k.startswith("image_encoder."):
+            out["visual.trunk." + k[len("image_encoder."):]] = v
+        elif k == "logit_scale":
+            out[k] = v
+    return out
+
+
+def detect_checkpoint_flavor(sd: Dict[str, Any]) -> str:
+    """``'mobileclip'``, ``'open_clip'`` or ``'unknown'``, from the keys of
+    a state dict, as the JAX package classifies them."""
+    if "image_encoder.model.patch_embed.0.rbr_conv.0.conv.weight" in sd or \
+            "image_encoder.model.patch_emb.0.block.conv.weight" in sd:
+        return "mobileclip"
+    if any(k.startswith("visual.transformer.resblocks.") for k in sd):
+        return "open_clip"
+    if "visual.trunk.stem.0.weight" in sd or "visual.trunk.patch_embed.proj.weight" in sd:
+        return "open_clip"  # the timm trunks (ConvNeXt, the ViT flavors)
+    if any(k.startswith("text_encoder.") for k in sd):
+        return "mobileclip"
+    return "unknown"
 
 
 def find_adam_state(opt_state):

@@ -8,28 +8,40 @@ in the compute dtype and no grad; with ``training=True`` it is in train mode
 with float32 parameters that require grad, cast to the compute dtype at
 each use, as the JAX package trains. ``pretrained`` loads local weights
 over them (:func:`load_checkpoint`): an open_clip state dict
-(``.safetensors``, ``.bin``, ``.pt``, ``.pth``), a JAX ``params.npz`` written
-by ``save_params_npz`` (either package's), or a directory holding one of
-open_clip's weight-file names (:data:`WEIGHT_FILE_NAMES`). Loading is
-strict: a missing or extra key, or a shape that differs, raises. Registry
-tags and ``hf-hub:`` names are not ported (ROADMAP Queue 1 item 9).
+(``.safetensors``, ``.bin``, ``.pt``, ``.pth``), an OpenAI TorchScript
+archive, a JAX ``params.npz`` written by ``save_params_npz`` (either
+package's), a directory holding one of open_clip's weight-file names
+(:data:`WEIGHT_FILE_NAMES`), a registry tag of the model
+(``models/pretrained.py``: its file in the local cache, never downloaded)
+or an ``hf-hub:`` name (its cached snapshot). An ``hf-hub:`` model name
+takes its config, weights and preprocessing from the snapshot. Loading is
+strict: a missing or extra key, or a shape that differs, raises (a ViT's
+positional embedding of another length is resized first, as JAX's
+converter does). A name that resolves to no file raises: nothing falls
+back to weights drawn from a seed.
 
 :func:`create_model_and_transforms` adds the host transforms for training
 and evaluation; :func:`get_tokenizer` takes the JAX package's keywords.
 """
 from __future__ import annotations
 
+import json
 import logging
 import math
 from pathlib import Path
-from typing import Dict, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
 from spatial_clip_tpu_torch.models.clip import CLIP
 from spatial_clip_tpu_torch.models.coca import CoCa
-from spatial_clip_tpu_torch.models.config import CLIPCfg, resolve_clip_cfg
+from spatial_clip_tpu_torch.models.config import (
+    CLIPCfg,
+    hf_hub_snapshot,
+    list_model_configs,
+    resolve_clip_cfg,
+)
 from spatial_clip_tpu_torch.models.constants import OPENAI_DATASET_MEAN, OPENAI_DATASET_STD
 from spatial_clip_tpu_torch.models.timm_model import Conv
 from spatial_clip_tpu_torch.models.tokenizer import (
@@ -42,6 +54,12 @@ from spatial_clip_tpu_torch.models.tokenizer import (
 )
 from spatial_clip_tpu_torch.models.hf_model import Embed
 from spatial_clip_tpu_torch.models.modified_resnet import RNConv
+from spatial_clip_tpu_torch.models.pretrained import (
+    download_pretrained,
+    get_pretrained_cfg,
+    list_pretrained_tags_by_model,
+    preprocess_overrides,
+)
 from spatial_clip_tpu_torch.models.transformer import (
     Dense,
     LayerNorm,
@@ -58,6 +76,12 @@ from spatial_clip_tpu_torch.models.transforms import (
 )
 
 log = logging.getLogger(__name__)
+
+
+def list_models() -> list:
+    """Every architecture name: the built-in configs and the registered ones."""
+    return list_model_configs()
+
 
 PRECISION_DTYPES = {
     "fp32": torch.float32,
@@ -164,24 +188,54 @@ def create_model(model_name: str, pretrained: Optional[str] = None,
     gives float32 parameters that require grad, in train mode; the weights
     drawn from a seed are the same either way (then rounded to the compute
     dtype for serving). ``pretrained`` names local weights that replace
-    them (:func:`load_checkpoint`). ``force_quick_gelu`` sets the config's
-    ``quick_gelu``; ``remat`` recomputes each transformer block in the
-    backward (activation checkpointing)."""
+    them (:func:`load_checkpoint`). An ``hf-hub:`` model name with no
+    ``pretrained`` loads its snapshot's weights (a snapshot with none
+    raises), and its ``preprocess_cfg`` applies. A registry tag sets
+    ``quick_gelu`` where it was trained with it (with a warning) and pins
+    its preprocess keys over the snapshot's. ``force_quick_gelu`` sets the
+    config's ``quick_gelu``; ``remat`` recomputes each transformer block in
+    the backward (activation checkpointing)."""
     if precision not in PRECISION_DTYPES:
         raise ValueError(f"unknown precision {precision!r}: {sorted(PRECISION_DTYPES)}")
     if force_quick_gelu:
         cfg_overrides["quick_gelu"] = True
     cfg = resolve_clip_cfg(model_name, **cfg_overrides)
+    hub_pp = {}
+    if model_name.startswith("hf-hub:"):
+        snap = hf_hub_snapshot(model_name)
+        raw = json.loads((snap / "open_clip_config.json").read_text())
+        fields = PreprocessCfg.__dataclass_fields__
+        hub_pp = {k: v for k, v in raw.get("preprocess_cfg", {}).items() if k in fields}
+        if pretrained is None:
+            try:
+                pretrained = str(resolve_weights(snap))
+            except FileNotFoundError as e:
+                raise FileNotFoundError(
+                    f"{e}; refusing to return weights drawn from a seed for '{model_name}'. "
+                    "Pass pretrained= to load other weights.") from None
+    tag_pp = {}
+    tag_cfg = get_pretrained_cfg(model_name, str(pretrained)) if pretrained else None
+    if tag_cfg is not None:
+        tag_pp = preprocess_overrides(tag_cfg)
+        if tag_cfg.get("quick_gelu") and not cfg.quick_gelu:
+            log.warning("Pretrained tag %s:%s was trained with QuickGELU; enabling it (use the "
+                        "'-quickgelu' model name to make this explicit).", model_name, pretrained)
+            cfg.quick_gelu = True
+    # resolved before the model is built: a name that resolves to nothing fails fast
+    weights = resolve_weights(pretrained, model_name) if pretrained else None
     dtype = PRECISION_DTYPES[precision]
     model = (CoCa if cfg.multimodal_cfg is not None else CLIP)(
         cfg, dtype=dtype, device=torch.device(device),
         param_dtype=torch.float32 if training else dtype, training=training, remat=remat)
     init_weights(model, seed)
-    if pretrained:
-        load_checkpoint(model, pretrained)
+    if weights is not None:
+        load_checkpoint(model, weights)
     model.model_name = model_name
-    model.preprocess_cfg = PreprocessCfg(
-        size=cfg.vision_cfg.image_size, mean=OPENAI_DATASET_MEAN, std=OPENAI_DATASET_STD)
+    pp_kw = dict(size=cfg.vision_cfg.image_size, mean=OPENAI_DATASET_MEAN,
+                 std=OPENAI_DATASET_STD)
+    for k, v in {**hub_pp, **tag_pp}.items():  # the snapshot's first, the tag's win
+        pp_kw[k] = tuple(v) if isinstance(v, list) else v
+    model.preprocess_cfg = PreprocessCfg(**pp_kw)
     if training:
         return model.train().requires_grad_(True)
     return model.eval().requires_grad_(False)
@@ -194,9 +248,15 @@ WEIGHT_FILE_NAMES = ("open_clip_model.safetensors", "open_clip_pytorch_model.saf
 TORCH_SUFFIXES = (".bin", ".pt", ".pth")
 
 
-def resolve_weights(path: Union[str, Path]) -> Path:
-    """The weight file ``path`` names: the file itself, or in a directory
-    the first of :data:`WEIGHT_FILE_NAMES` it holds."""
+def resolve_weights(path: Union[str, Path], model_name: str = "") -> Path:
+    """The weight file ``path`` names: the file itself; in a directory the
+    first of :data:`WEIGHT_FILE_NAMES` it holds; for an ``hf-hub:org/name``
+    that file in its cached snapshot; for a registry tag of
+    ``model_name`` its local file (``pretrained.download_pretrained``,
+    which downloads nothing). Anything else raises FileNotFoundError."""
+    spec = str(path)
+    if spec.startswith("hf-hub:"):
+        return resolve_weights(hf_hub_snapshot(spec))
     p = Path(path)
     if p.is_dir():
         for name in WEIGHT_FILE_NAMES:
@@ -205,24 +265,31 @@ def resolve_weights(path: Union[str, Path]) -> Path:
         raise FileNotFoundError(f"{p} holds none of the weight files {WEIGHT_FILE_NAMES}")
     if p.is_file():
         return p
-    if str(path).startswith("hf-hub:") or not p.suffix:
-        raise NotImplementedError(
-            f"pretrained={str(path)!r}: registry tags and hf-hub names are not ported to "
-            "spatial_clip_tpu_torch (ROADMAP Queue 1 item 9); pass a local file or directory")
-    raise FileNotFoundError(f"pretrained weights not found: {p}")
+    if get_pretrained_cfg(model_name, spec) is not None:
+        return Path(download_pretrained(model_name, spec))
+    raise FileNotFoundError(
+        f"pretrained weights {spec!r} are neither a local file or directory nor a registry tag "
+        f"of model {model_name!r} (its tags: {list_pretrained_tags_by_model(model_name)})")
 
 
-def read_state_dict(path: Union[str, Path]) -> Dict[str, torch.Tensor]:
-    """The state dict in a weight file, in this package's (open_clip's) key
-    layout: a safetensors or torch file (a ``state_dict`` entry unwrapped,
-    ``module.``/``_orig_mod.`` prefixes stripped, a BatchNorm's
-    ``num_batches_tracked`` dropped, as JAX's RN converter drops it; an open_clip timm ConvNeXt
-    or ViT image tower mapped through :func:`convert.from_open_clip_timm`),
-    or a JAX-layout ``.npz`` mapped through :func:`convert.from_jax_params`."""
-    from spatial_clip_tpu_torch.models.convert import from_jax_params
+def read_state_dict(path: Union[str, Path], model_name: str = "") -> Dict[str, torch.Tensor]:
+    """The state dict in a weight file (:func:`resolve_weights`), in this
+    package's (open_clip's) key layout: a safetensors or torch file (a
+    ``state_dict`` entry unwrapped, ``module.``/``_orig_mod.`` prefixes
+    stripped, a BatchNorm's ``num_batches_tracked`` dropped, as JAX's RN
+    converter drops it; an open_clip timm ConvNeXt or ViT image tower
+    mapped through :func:`convert.from_open_clip_timm`), an OpenAI
+    TorchScript archive (:func:`convert.read_openai_archive`: the scripted
+    module's state dict, its three integer entries dropped), or a
+    JAX-layout ``.npz`` mapped through :func:`convert.from_jax_params`."""
+    from spatial_clip_tpu_torch.models.convert import (
+        from_jax_params,
+        is_torchscript_archive,
+        read_openai_archive,
+    )
     from spatial_clip_tpu_torch.train.checkpoints import load_params_npz
 
-    p = resolve_weights(path)
+    p = resolve_weights(path, model_name)
     suffix = p.suffix.lower()
     if suffix == ".npz":
         return from_jax_params(load_params_npz(p))
@@ -230,6 +297,8 @@ def read_state_dict(path: Union[str, Path]) -> Dict[str, torch.Tensor]:
         from safetensors.torch import load_file
 
         obj = load_file(str(p))
+    elif is_torchscript_archive(p):
+        obj = read_openai_archive(p)
     elif suffix in TORCH_SUFFIXES:
         obj = torch.load(str(p), map_location="cpu", weights_only=True)
         if isinstance(obj, dict) and isinstance(obj.get("state_dict"), dict):
@@ -252,11 +321,18 @@ def read_state_dict(path: Union[str, Path]) -> Dict[str, torch.Tensor]:
     return out
 
 
-def load_checkpoint(model: CLIP, path: Union[str, Path]) -> CLIP:
-    """Load the weights at ``path`` (:func:`read_state_dict`) into
-    ``model`` strictly: a missing or extra key, or another shape, raises."""
+def load_checkpoint(model: CLIP, path: Union[str, Path], model_name: str = "") -> CLIP:
+    """Load the weights ``path`` names (:func:`read_state_dict`; a registry
+    tag is looked up under ``model_name``, default the model's own) into
+    ``model`` strictly: a missing or extra key, or another shape, raises.
+    A positional embedding of another length is resized to the model's
+    first (:func:`convert.fit_positional_embeddings`)."""
+    from spatial_clip_tpu_torch.models.convert import fit_positional_embeddings
+
+    name = model_name or getattr(model, "model_name", "")
     with torch.no_grad():
-        model.load_state_dict(read_state_dict(path), strict=True)
+        sd = fit_positional_embeddings(read_state_dict(path, name), model.state_dict())
+        model.load_state_dict(sd, strict=True)
     return model
 
 
@@ -321,3 +397,31 @@ def get_tokenizer(model_name: str = "", context_length: Optional[int] = None,
     if cfg.text_cfg.vocab_size and cfg.text_cfg.vocab_size < tok.vocab_size:
         return HashTokenizer(vocab_size=cfg.text_cfg.vocab_size, context_length=ctx)
     return tok
+
+
+def create_loss(args) -> Callable:
+    """The loss that a namespace or dict of open_clip-style options names,
+    keyed as the JAX package's ``create_loss``: ``use_spatial_loss`` (or
+    ``name='spatial'``) the spatial loss, ``siglip`` (or ``name='siglip'``)
+    SigLIP, else CLIP; the options ``cap_logit_scale``,
+    ``temp_reg_weight``, ``neighbor_alpha_scale``, ``float32_logits`` and
+    ``loss_dist_impl`` (as ``dist_impl``) go to :func:`losses.make_loss`."""
+    from spatial_clip_tpu_torch.losses import make_loss
+
+    get = (lambda k, d=None: args.get(k, d)) if isinstance(args, dict) else (
+        lambda k, d=None: getattr(args, k, d))
+    if get("use_spatial_loss") or get("name") == "spatial":
+        kind = "spatial"
+    elif get("siglip") or get("name") == "siglip":
+        kind = "siglip"
+    else:
+        kind = "clip"
+    return make_loss(
+        kind,
+        local_loss=bool(get("local_loss", True)),
+        cap_logit_scale=get("cap_logit_scale"),
+        temp_reg_weight=float(get("temp_reg_weight", 0.0) or 0.0),
+        neighbor_alpha_scale=float(get("neighbor_alpha_scale", 1.0) or 1.0),
+        float32_logits=bool(get("float32_logits", True)),
+        dist_impl=get("loss_dist_impl", "gather"),
+    )

@@ -98,6 +98,8 @@ class SimpleTokenizer:
         vocab.extend("".join(m) for m in merges)
         vocab.extend(["<start_of_text>", "<end_of_text>"])
         self.encoder = {tok: i for i, tok in enumerate(vocab)}
+        self.decoder = {i: tok for tok, i in self.encoder.items()}
+        self.byte_decoder = {c: b for b, c in self.byte_encoder.items()}
         self.bpe_ranks = {m: i for i, m in enumerate(merges)}
         self.cache = {"<start_of_text>": "<start_of_text>",
                       "<end_of_text>": "<end_of_text>"}
@@ -159,6 +161,13 @@ class SimpleTokenizer:
             tok = "".join(self.byte_encoder[b] for b in tok.encode("utf-8"))
             ids.extend(self.encoder[t] for t in self.bpe(tok).split(" "))
         return ids
+
+    def decode(self, ids: Iterable[int]) -> str:
+        """The text of ``ids``: end-of-word marks as spaces, the special
+        tokens kept, bytes outside the byte table dropped."""
+        text = "".join(self.decoder[int(i)] for i in ids)
+        raw = bytearray(self.byte_decoder[c] for c in text if c in self.byte_decoder)
+        return raw.decode("utf-8", errors="replace").replace("</w>", " ")
 
     def __call__(self, texts: Union[str, Sequence[str]],
                  context_length: Optional[int] = None) -> np.ndarray:

@@ -239,7 +239,7 @@ def fused_attention_long(qkv: torch.Tensor, mask: Optional[torch.Tensor],
     """``fused_attention.fused_attention`` at any length: the context (B, L,
     D) in qkv's dtype. Counts each launch in ``fused_attention_long.launches``."""
     _check(qkv, mask, heads)
-    if qkv.device.type == "cpu":
+    if cuda_build.plain_device(qkv):
         return reference_attention(qkv, mask, heads)
     _check_kernel_device(qkv)
     out = _fwd(qkv, mask, heads, None)
@@ -255,7 +255,7 @@ def fused_attention_long_lse(qkv: torch.Tensor, mask: Optional[torch.Tensor],
     the backward takes as ``lse`` and ``lsum``. Counts each launch in
     ``fused_attention_long_lse.launches``."""
     _check(qkv, mask, heads)
-    if qkv.device.type == "cpu":
+    if cuda_build.plain_device(qkv):
         if parts:
             return reference_attention_parts(qkv, mask, heads)
         return reference_attention_lse(qkv, mask, heads)
@@ -323,7 +323,7 @@ def _check_row_stats(stats: RowStats, qkv: torch.Tensor, heads: int) -> None:
     rows; else lse and r (heads, B, L) f32."""
     if stats.lsum is not None:
         _check_lse(stats.lsum, qkv, heads, "lsum")
-    if qkv.device.type == "cpu" or qkv.dtype != torch.bfloat16:
+    if cuda_build.plain_device(qkv) or qkv.dtype != torch.bfloat16:
         _check_lse(stats.lse, qkv, heads)
         if stats.r is None:
             raise ValueError("the f32 kernels and the plain versions take r (heads, B, L) f32")
@@ -357,7 +357,7 @@ def long_bwd_dq(qkv: torch.Tensor, mask: Optional[torch.Tensor], lse: torch.Tens
     _check_dqkv(dqkv, qkv)
     _check_part(part, qkv)
     D = qkv.shape[-1] // 3
-    if qkv.device.type == "cpu":
+    if cuda_build.plain_device(qkv):
         dqkv[..., :D] = reference_attention_bwd(qkv, mask, lse, g, heads, lsum)[0][..., :D]
         if part is not None:
             part[:, :D] = reference_db_parts(dqkv, slice(0, D))
@@ -390,7 +390,7 @@ def long_bwd_dkdv(qkv: torch.Tensor, mask: Optional[torch.Tensor], stats: RowSta
     _check_dqkv(dqkv, qkv)
     _check_part(part, qkv)
     D = qkv.shape[-1] // 3
-    if qkv.device.type == "cpu":
+    if cuda_build.plain_device(qkv):
         dqkv[..., D:] = reference_attention_bwd(qkv, mask, stats.lse, g, heads,
                                                 stats.lsum)[0][..., D:]
         if part is not None:
@@ -415,7 +415,7 @@ def long_db(dqkv: torch.Tensor, part: Optional[torch.Tensor] = None) -> torch.Te
                              or not part.is_contiguous() or part.device != dqkv.device):
         raise ValueError(f"part must be a contiguous float32 (parts, {n}) on dqkv's device; got "
                          f"{part.dtype} {tuple(part.shape)} on {part.device}")
-    if dqkv.device.type == "cpu":
+    if cuda_build.plain_device(dqkv):
         return dqkv.float().sum(dim=(0, 1)) if part is None else part.sum(dim=0)
     _check_kernel_device(dqkv)
     db = torch.empty((n,), dtype=torch.float32, device=dqkv.device)
@@ -441,7 +441,7 @@ def fused_attention_long_bwd(qkv: torch.Tensor, mask: Optional[torch.Tensor],
     f32 long_db sums dqkv. ``lsum``: as :func:`long_bwd_dq` takes it."""
     g = _check_bwd(qkv, mask, g, heads)
     _check_lse(lse, qkv, heads)
-    if qkv.device.type == "cpu":
+    if cuda_build.plain_device(qkv):
         dqkv, db_ref = reference_attention_bwd(qkv, mask, lse, g, heads, lsum)
         return dqkv, db_ref if db else None
     dqkv = torch.empty_like(qkv)
@@ -464,7 +464,7 @@ def fused_attention_long_bwd_recompute(qkv: torch.Tensor, mask: Optional[torch.T
     would round to its max. On the CPU, the plain version that recomputes p
     from the scores' max and sum."""
     g = _check_bwd(qkv, mask, g, heads)
-    if qkv.device.type == "cpu":
+    if cuda_build.plain_device(qkv):
         dqkv, db_ref = reference_attention_bwd(qkv, mask, None, g, heads)
         return dqkv, db_ref if db else None
     _, row_max, lsum = fused_attention_long_lse(qkv, mask, heads, parts=True)

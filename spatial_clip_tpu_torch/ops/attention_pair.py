@@ -93,7 +93,7 @@ def fused_attention_pair(qkv_a: torch.Tensor, mask_a: Optional[torch.Tensor],
     _check_pair(qkv_a, qkv_b)
     for qkv, heads in ((qkv_a, heads_a), (qkv_b, heads_b)):
         check_resident_qkv(qkv, heads, False, "fused_attention_pair")
-    if qkv_a.device.type == "cpu":
+    if cuda_build.plain_device(qkv_a):
         return reference_attention_pair(qkv_a, mask_a, qkv_b, mask_b, heads_a, heads_b)
     _check_kernel_device(qkv_a, qkv_b)
     out_a = qkv_a.new_empty((*qkv_a.shape[:2], qkv_a.shape[2] // 3))
@@ -127,7 +127,7 @@ def fused_attention_pair_bwd(qkv_a: torch.Tensor, mask_a: Optional[torch.Tensor]
     _check_pair(qkv_a, qkv_b)
     for qkv, heads in ((qkv_a, heads_a), (qkv_b, heads_b)):
         check_resident_qkv(qkv, heads, True, "fused_attention_pair_bwd")
-    if qkv_a.device.type == "cpu":
+    if cuda_build.plain_device(qkv_a):
         return reference_attention_pair_bwd(qkv_a, mask_a, g_a, qkv_b, mask_b, g_b, heads_a,
                                             heads_b)
     _check_kernel_device(qkv_a, g_a, qkv_b, g_b)

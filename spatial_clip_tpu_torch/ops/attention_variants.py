@@ -196,7 +196,7 @@ def fused_attention_inter(qkv: torch.Tensor, mask: Optional[torch.Tensor],
     _check(qkv, mask, heads)
     hpb = _check_inter(qkv, heads)
     check_resident_qkv(qkv, heads, False, "fused_attention_inter")
-    if qkv.device.type == "cpu":
+    if cuda_build.plain_device(qkv):
         return reference_attention_inter(qkv, mask, heads)
     _check_kernel_device(qkv)
     B, L, three_d = qkv.shape
@@ -215,7 +215,7 @@ def fused_attention_inter_bwd(qkv: torch.Tensor, mask: Optional[torch.Tensor], g
     g = _check_bwd(qkv, mask, g, heads)
     hpb = _check_inter(qkv, heads)
     check_resident_qkv(qkv, heads, True, "fused_attention_inter_bwd")
-    if qkv.device.type == "cpu":
+    if cuda_build.plain_device(qkv):
         return reference_attention_inter_bwd(qkv, mask, g, heads)
     _check_kernel_device(qkv, g)
     dqkv = torch.empty_like(qkv)
@@ -234,7 +234,7 @@ def fused_attention_slab(qkv: torch.Tensor, mask: Optional[torch.Tensor],
     ``_fwd_pallas_slab``); its bits on the card, its plain version here."""
     _check(qkv, mask, heads)
     check_resident_qkv(qkv, heads, False, "fused_attention_slab")
-    if qkv.device.type == "cpu":
+    if cuda_build.plain_device(qkv):
         return reference_attention(qkv, mask, heads)
     _check_kernel_device(qkv)
     B, L, three_d = qkv.shape
@@ -251,7 +251,7 @@ def fused_attention_slab_bwd(qkv: torch.Tensor, mask: Optional[torch.Tensor], g:
     ``_bwd_pallas_slab``): dqkv in qkv's layout, no bias gradient."""
     g = _check_bwd(qkv, mask, g, heads)
     check_resident_qkv(qkv, heads, True, "fused_attention_slab_bwd")
-    if qkv.device.type == "cpu":
+    if cuda_build.plain_device(qkv):
         return reference_attention_bwd(qkv, mask, None, g, heads)[0]
     _check_kernel_device(qkv, g)
     dqkv = torch.empty_like(qkv)
@@ -310,7 +310,7 @@ def fused_attention_t_fwd(qkv_t: torch.Tensor, bias: torch.Tensor,
     bias = _check_t(qkv_t, bias, mask, heads)
     L, _, three_d = qkv_t.shape
     check_resident(L, three_d // 3 // heads, qkv_t.dtype, False, "fused_attention_t_fwd")
-    if qkv_t.device.type == "cpu":
+    if cuda_build.plain_device(qkv_t):
         return reference_attention_t(qkv_t, bias, mask, heads)
     _check_kernel_device(qkv_t, bias)
     L, B, three_d = qkv_t.shape
@@ -336,7 +336,7 @@ def fused_attention_t_bwd(qkv_t: torch.Tensor, bias: torch.Tensor, mask: Optiona
     if g.shape != (B, L, D) or g.device != qkv_t.device:
         raise ValueError(f"g must be {(B, L, D)} on qkv_t's device; got {tuple(g.shape)}")
     g = g.to(qkv_t.dtype).contiguous()
-    if qkv_t.device.type == "cpu":
+    if cuda_build.plain_device(qkv_t):
         return reference_attention_t_bwd(qkv_t, bias, mask, g, heads)
     _check_kernel_device(qkv_t, bias, g)
     dqkv = qkv_t.new_empty((B, L, three_d))
@@ -408,7 +408,7 @@ def fused_attention_split_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     contiguous. Returns the context (B, L, D)."""
     _check_split(q, k, v, mask, heads)
     check_resident(q.shape[1], q.shape[2] // heads, q.dtype, False, "fused_attention_split_fwd")
-    if q.device.type == "cpu":
+    if cuda_build.plain_device(q):
         return reference_attention_split(q, k, v, mask, heads)
     _check_kernel_device(q, k, v)
     out = torch.empty_like(q)
@@ -428,7 +428,7 @@ def fused_attention_split_bwd(q, k, v, mask: Optional[torch.Tensor], g: torch.Te
     if g.shape != (B, L, D) or g.device != q.device:
         raise ValueError(f"g must be {(B, L, D)} on q's device; got {tuple(g.shape)}")
     g = g.to(q.dtype).contiguous()
-    if q.device.type == "cpu":
+    if cuda_build.plain_device(q):
         return reference_attention_split_bwd(q, k, v, mask, g, heads)
     _check_kernel_device(q, k, v, g)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
@@ -544,7 +544,7 @@ def fused_attention_bwd_dx(qkv: torch.Tensor, mask: Optional[torch.Tensor], g: t
     if w.dtype != qkv.dtype or w.device != qkv.device or not w.is_contiguous():
         raise ValueError(f"w must be contiguous, in qkv's dtype {qkv.dtype} and on its device; "
                          f"got {w.dtype} on {w.device}")
-    if qkv.device.type == "cpu":
+    if cuda_build.plain_device(qkv):
         return reference_attention_bwd_dx(qkv, mask, g, w, heads)
     din = w.shape[1]
     if not dx_supported(heads, three_d // 3, L, din, qkv.dtype):

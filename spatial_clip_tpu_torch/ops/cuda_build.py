@@ -21,6 +21,17 @@ from pathlib import Path
 
 import torch
 
+# the devices on which each wrapper runs its kernel's plain version: the CPU
+# (the tests) and meta (shapes only, for ops/flops.py's count); on a CUDA
+# tensor a wrapper launches its kernel, and on any other device it raises
+PLAIN_DEVICES = ("cpu", "meta")
+
+
+def plain_device(t: torch.Tensor) -> bool:
+    """Whether a wrapper given ``t`` runs its kernel's plain version."""
+    return t.device.type in PLAIN_DEVICES
+
+
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (

@@ -389,7 +389,7 @@ def fused_attention(qkv: torch.Tensor, mask: Optional[torch.Tensor],
 
         return attention_variants.fused_attention_inter(qkv, mask, heads)
     _check(qkv, mask, heads)
-    if qkv.device.type == "cpu":
+    if cuda_build.plain_device(qkv):
         return reference_attention(qkv, mask, heads)
     _check_kernel_device(qkv)
     if not _resident(qkv, heads, False):
@@ -408,7 +408,7 @@ def fused_attention_lse(qkv: torch.Tensor, mask: Optional[torch.Tensor],
     :func:`fused_attention_bwd` rebuilds the probabilities from. Counts each
     kernel launch in ``fused_attention_lse.launches``."""
     _check(qkv, mask, heads)
-    if qkv.device.type == "cpu":
+    if cuda_build.plain_device(qkv):
         return reference_attention_lse(qkv, mask, heads)
     _check_kernel_device(qkv)
     if not _resident(qkv, heads, False):
@@ -456,7 +456,7 @@ def fused_attention_bwd(qkv: torch.Tensor, mask: Optional[torch.Tensor],
     _check_lse(lse, qkv, heads)
     B, L, three_d = qkv.shape
     D = three_d // 3
-    if qkv.device.type == "cpu":
+    if cuda_build.plain_device(qkv):
         return reference_attention_bwd(qkv, mask, lse, g, heads)
     _check_kernel_device(qkv, g)
     if not _resident(qkv, heads, True):
@@ -496,7 +496,7 @@ def fused_attention_bwd_recompute(qkv: torch.Tensor, mask: Optional[torch.Tensor
 
         return attention_variants.fused_attention_inter_bwd(qkv, mask, g, heads)
     g = _check_bwd(qkv, mask, g, heads)
-    if qkv.device.type == "cpu":
+    if cuda_build.plain_device(qkv):
         return reference_attention_bwd(qkv, mask, None, g, heads)[0]
     _check_kernel_device(qkv, g)
     if not _resident(qkv, heads, True):
@@ -525,7 +525,7 @@ def fused_attention_bwd_recompute_db(qkv: torch.Tensor, mask: Optional[torch.Ten
     dqkv in a fixed order as :func:`fused_attention_bwd` sums it. Counts
     each kernel launch in ``fused_attention_bwd_recompute_db.launches``."""
     g = _check_bwd(qkv, mask, g, heads)
-    if qkv.device.type == "cpu":
+    if cuda_build.plain_device(qkv):
         return reference_attention_bwd(qkv, mask, None, g, heads)
     _check_kernel_device(qkv, g)
     if not _resident(qkv, heads, True):

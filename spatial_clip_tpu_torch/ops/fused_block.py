@@ -226,7 +226,7 @@ def fused_block_attn(x: torch.Tensor, ln_weight: torch.Tensor, ln_bias: torch.Te
     The plain version and the f32 kernel do not use it.
     """
     _check(x, ln_weight, ln_bias, w_qkv, b_qkv, w_out, b_out, mask, heads)
-    if x.device.type == "cpu":
+    if cuda_build.plain_device(x):
         return reference_block_attn(x, ln_weight, ln_bias, w_qkv, b_qkv, w_out, b_out, mask,
                                     heads, eps)
     if x.device.type != "cuda":

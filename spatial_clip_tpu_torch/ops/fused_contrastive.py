@@ -198,7 +198,7 @@ def spatial_ce_fwd(q, kmat, col_ids, gt_ids, nbr, alphas, scale):
     ``spatial_ce_fwd.launches``."""
     inputs = (q, kmat, col_ids, gt_ids, nbr, alphas, scale)
     _check(*inputs)
-    if q.device.type == "cpu":
+    if cuda_build.plain_device(q):
         return reference_spatial_ce_fwd(*inputs)
     _check_kernel_device(q)
     loss, lse, mass = torch.empty((3, q.shape[0]), dtype=torch.float32, device=q.device)
@@ -215,7 +215,7 @@ def spatial_ce_dq(q, kmat, col_ids, gt_ids, nbr, alphas, scale, lse, mass, g):
     inputs = (q, kmat, col_ids, gt_ids, nbr, alphas, scale)
     _check(*inputs)
     _check_bwd(q, lse, mass, g)
-    if q.device.type == "cpu":
+    if cuda_build.plain_device(q):
         return reference_spatial_ce_dq(*inputs, lse, mass, g)
     _check_kernel_device(q)
     dq = torch.empty_like(q)
@@ -232,7 +232,7 @@ def spatial_ce_dk(q, kmat, col_ids, gt_ids, nbr, alphas, scale, lse, mass, g):
     inputs = (q, kmat, col_ids, gt_ids, nbr, alphas, scale)
     _check(*inputs)
     _check_bwd(q, lse, mass, g)
-    if q.device.type == "cpu":
+    if cuda_build.plain_device(q):
         return reference_spatial_ce_dk(*inputs, lse, mass, g)
     _check_kernel_device(q)
     dk = torch.empty_like(kmat)

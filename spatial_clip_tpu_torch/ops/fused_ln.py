@@ -117,7 +117,7 @@ def fused_ln_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     (D,) float32. Returns y in x's dtype. Counts each kernel launch in
     ``fused_ln_fwd.launches``."""
     _check(x, gamma, beta)
-    if x.device.type == "cpu":
+    if cuda_build.plain_device(x):
         return reference_ln_fwd(x, gamma, beta, eps)
     y = torch.empty_like(x)
     lib = _check_kernel_device(x, gamma, beta, y)
@@ -142,7 +142,7 @@ def fused_ln_bwd(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
         raise ValueError(f"dy must be {tuple(x.shape)} on {x.device}; got "
                          f"{tuple(dy.shape)} on {dy.device}")
     dy = dy.to(x.dtype).contiguous()
-    if x.device.type == "cpu":
+    if cuda_build.plain_device(x):
         return reference_ln_bwd(x, gamma, dy, eps)
     dx = torch.empty_like(x)
     lib = _check_kernel_device(x, gamma, dy, dx)

@@ -131,7 +131,7 @@ def ln_dense_fwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     if b1.shape != (w1.shape[0],) or b1.dtype != torch.float32:
         raise ValueError(f"b1 must be float32 ({w1.shape[0]},); got {b1.dtype} "
                          f"{tuple(b1.shape)}")
-    if x.device.type == "cpu":
+    if cuda_build.plain_device(x):
         return reference_ln_dense_fwd(x, w1, b1, eps)
     (R, K), N = x.shape, w1.shape[0]
     y = torch.empty((R, N), dtype=x.dtype, device=x.device)
@@ -168,7 +168,7 @@ def ln_dense_bwd_dx(x: torch.Tensor, g: torch.Tensor, w1: torch.Tensor,
     if g.shape != (x.shape[0], w1.shape[0]) or g.dtype != x.dtype:
         raise ValueError(f"g must be {x.dtype} {(x.shape[0], w1.shape[0])}; got {g.dtype} "
                          f"{tuple(g.shape)}")
-    if x.device.type == "cpu":
+    if cuda_build.plain_device(x):
         return reference_ln_dense_bwd_dx(x, g, w1, eps)
     (R, K), N = x.shape, w1.shape[0]
     dx = torch.empty_like(x)

@@ -76,7 +76,7 @@ def fused_mlp_fwd(x: torch.Tensor, fc_w: torch.Tensor, fc_b: torch.Tensor,
     ``fused_mlp_fwd.launches`` and in ``fused_mlp_fwd.routes`` by the body it
     takes (:func:`_route`)."""
     _check(x, fc_w, fc_b, proj_w, proj_b)
-    if x.device.type == "cpu":
+    if cuda_build.plain_device(x):
         return reference_mlp_fwd(x, fc_w, fc_b, proj_w, proj_b)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")

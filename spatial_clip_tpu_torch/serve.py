@@ -7,6 +7,7 @@ One process serves one card. Requests are cut into chunks of at most
 for anything public.
 
     python -m spatial_clip_tpu_torch.serve --model ViT-B-32 --port 8764 [--mlp-impl pallas]
+        [--pretrained openai | <file> | <dir> | hf-hub:org/name]
     curl -X POST localhost:8764/embed_text -d '{"texts": ["a cat"]}'
 
 Endpoints:
@@ -119,17 +120,21 @@ class ServerMetrics:
 
 class EmbeddingService:
     """The two encoders on one device, run in chunks of ``batch_size``.
-    ``model``: a model already built on ``device`` (``create_model`` without
-    ``training``, its weights loaded or copied) to serve in place of the
-    one drawn from seed 0."""
+    ``pretrained``: the weights to serve (``create_model``'s: a file, a
+    directory, a registry tag of ``model_name`` or an ``hf-hub:`` name,
+    all local; one that resolves to nothing raises), else those drawn from
+    seed 0. ``model``: a model already built on ``device``
+    (``create_model`` without ``training``, its weights loaded or copied)
+    to serve in their place."""
 
     def __init__(self, model_name: str = "ViT-B-32", batch_size: int = 64,
                  precision: str = "bf16", device: str = "cuda", max_inflight: int = 32,
-                 model=None, **model_kw):
+                 model=None, pretrained=None, **model_kw):
         self.batch_size = batch_size
         self.device = torch.device(device)
         self.model = model if model is not None else create_model(
-            model_name, precision=precision, seed=0, device=self.device, **model_kw)
+            model_name, pretrained=pretrained, precision=precision, seed=0, device=self.device,
+            **model_kw)
         self.tokenizer = get_tokenizer(model_name)
         self.image_size = int(self.model.cfg.vision_cfg.size)
         # one encoder call at a time: the card is the serialized resource;
@@ -389,6 +394,9 @@ def serve(service: EmbeddingService, host: str = "127.0.0.1", port: int = 8764,
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", default="ViT-B-32")
+    ap.add_argument("--pretrained", default=None,
+                    help="weights: a file, a directory, a registry tag of --model or an hf-hub: "
+                         "name, resolved locally (default: drawn from seed 0)")
     ap.add_argument("--batch-size", type=int, default=64)
     ap.add_argument("--precision", default="bf16")
     ap.add_argument("--device", default="cuda")
@@ -403,7 +411,7 @@ def main(argv=None):
                     help="skip the boot-time kernel build and encoder warmup")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    service = EmbeddingService(args.model, batch_size=args.batch_size,
+    service = EmbeddingService(args.model, pretrained=args.pretrained, batch_size=args.batch_size,
                                precision=args.precision, device=args.device,
                                max_inflight=args.max_inflight, mlp_impl=args.mlp_impl)
     if not args.no_warmup:

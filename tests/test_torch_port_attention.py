@@ -8,6 +8,8 @@ only in summation order.
 """
 from __future__ import annotations
 
+import tests.helpers.torch_threads  # noqa: F401  (xdist workers share the cores)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -104,7 +106,10 @@ def test_rejects_what_the_kernel_does_not_take(shape, heads, dtype, why):
     assert fused_attention.launches == before
 
 
-def test_rejects_bad_layout_and_mask():
+def test_rejects_bad_layout_and_mask(monkeypatch):
+    """Layout and mask checks raise on any device; a tensor neither on the
+    CPU nor on a card reaches the kernel path and is refused there (meta (which the wrappers run as the CPU, for ops/flops.py's count) is taken off the plain devices here)."""
+    monkeypatch.setattr(cuda_build, "PLAIN_DEVICES", ("cpu",))
     qkv = torch.zeros(2, 9, 384)
     with pytest.raises(ValueError, match="contiguous"):
         fused_attention(torch.zeros(2, 384, 9).transpose(1, 2), None, 2)

@@ -18,6 +18,8 @@ of those), for both backward kernels; the projection's dx, dW, db at rtol
 """
 from __future__ import annotations
 
+import tests.helpers.torch_threads  # noqa: F401  (xdist workers share the cores)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -15,6 +15,8 @@ and the output at the same points).
 """
 from __future__ import annotations
 
+import tests.helpers.torch_threads  # noqa: F401  (xdist workers share the cores)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

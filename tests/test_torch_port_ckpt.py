@@ -17,6 +17,8 @@
 """
 from __future__ import annotations
 
+import tests.helpers.torch_threads  # noqa: F401  (xdist workers share the cores)
+
 import json
 import shutil
 
@@ -312,8 +314,8 @@ def test_strict_loading_and_refusals(tmp_path, jax_bundle):
         with pytest.raises(RuntimeError, match="visual"):
             create_model("ViT-Test", pretrained=str(tmp_path / f"{name}.pt"), precision="fp32",
                          device="cpu", **WIDE)
-    for spec, error in (("hf-hub:org/model", NotImplementedError),
-                        ("openai", NotImplementedError),
+    for spec, error in (("hf-hub:org/model", ValueError),  # no cached snapshot
+                        ("openai", FileNotFoundError),  # not a tag of ViT-Test
                         (str(tmp_path / "absent.pt"), FileNotFoundError)):
         with pytest.raises(error):
             create_model("ViT-Test", pretrained=spec, precision="fp32", device="cpu", **WIDE)

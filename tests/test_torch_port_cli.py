@@ -16,6 +16,8 @@ ViT-Test as it is (heads of 16: JAX's einsum route, and the port's), fp32.
 """
 from __future__ import annotations
 
+import tests.helpers.torch_threads  # noqa: F401  (xdist workers share the cores)
+
 import dataclasses
 import json
 import sys

@@ -7,6 +7,8 @@ from its ``step_N`` directory), ``CsvDataset``, ``ResampledDataset``,
 """
 from __future__ import annotations
 
+import tests.helpers.torch_threads  # noqa: F401  (xdist workers share the cores)
+
 import json
 from pathlib import Path
 

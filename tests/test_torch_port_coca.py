@@ -16,6 +16,8 @@ bits: only their determinism and JAX's constraints are held.
 """
 from __future__ import annotations
 
+import tests.helpers.torch_threads  # noqa: F401  (xdist workers share the cores)
+
 import dataclasses
 
 import jax

@@ -9,6 +9,8 @@ dropped key and ``check_ported`` refuses those that change the function.
 """
 from __future__ import annotations
 
+import tests.helpers.torch_threads  # noqa: F401  (xdist workers share the cores)
+
 import dataclasses
 import json
 

@@ -10,6 +10,8 @@ token ids, tile ids, neighbor ids and weights, key by key.
 """
 from __future__ import annotations
 
+import tests.helpers.torch_threads  # noqa: F401  (xdist workers share the cores)
+
 import json
 import tarfile
 from io import BytesIO

@@ -13,6 +13,8 @@ port only; JAX is imported inside the tests.
 """
 from __future__ import annotations
 
+import tests.helpers.torch_threads  # noqa: F401  (xdist workers share the cores)
+
 import io
 import tarfile
 

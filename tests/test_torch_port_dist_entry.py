@@ -6,6 +6,8 @@ loader. The spawned ranks import the port only.
 """
 from __future__ import annotations
 
+import tests.helpers.torch_threads  # noqa: F401  (xdist workers share the cores)
+
 import csv
 
 import numpy as np

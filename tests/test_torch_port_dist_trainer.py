@@ -13,6 +13,8 @@ every step. The spawned ranks import the port only.
 """
 from __future__ import annotations
 
+import tests.helpers.torch_threads  # noqa: F401  (xdist workers share the cores)
+
 import numpy as np
 import pytest
 import torch

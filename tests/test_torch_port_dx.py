@@ -16,6 +16,8 @@ in other orders of dqkv entries that may sit one step apart).
 """
 from __future__ import annotations
 
+import tests.helpers.torch_threads  # noqa: F401  (xdist workers share the cores)
+
 import math
 import re
 
@@ -32,6 +34,7 @@ from spatial_clip_tpu_torch import create_model
 from spatial_clip_tpu_torch.losses import make_loss
 from spatial_clip_tpu_torch.models.convert import from_jax_params
 from spatial_clip_tpu_torch.ops import attention_variants as pav
+from spatial_clip_tpu_torch.ops import cuda_build
 from spatial_clip_tpu_torch.ops import fused_attention as pfa
 from spatial_clip_tpu_torch.ops.attention_variants import (
     dx_supported,
@@ -309,9 +312,10 @@ def test_dx_geometry_set():
 @pytest.mark.parametrize("L,din,why", [(11, 100, "multiple of 16"), (11, 8, "multiple of 16"),
                                        (167, 128, "shared memory"),
                                        (11, 128, "no kernel for device meta")])
-def test_wrapper_refuses_what_the_kernel_does_not_take(L, din, why):
+def test_wrapper_refuses_what_the_kernel_does_not_take(L, din, why, monkeypatch):
     """Off the CPU the wrapper checks the kernel's geometry before it
-    reaches the card: tensors on the meta device take that path here."""
+    reaches the card: tensors on the meta device take that path here (meta (which the wrappers run as the CPU, for ops/flops.py's count) is taken off the plain devices here)."""
+    monkeypatch.setattr(cuda_build, "PLAIN_DEVICES", ("cpu",))
     qkv = torch.empty((2, L, 384), device="meta")
     g = torch.empty((2, L, 128), device="meta")
     w = torch.empty((384, din), device="meta")

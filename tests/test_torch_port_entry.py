@@ -21,6 +21,8 @@
 """
 from __future__ import annotations
 
+import tests.helpers.torch_threads  # noqa: F401  (xdist workers share the cores)
+
 import ast
 import json
 import subprocess
@@ -102,8 +104,12 @@ def test_instantiate_partial_and_refusals():
     assert instantiate({"x": {"_target_": "builtins.dict", "y": 3}}) == {"x": {"y": 3}}
     with pytest.raises(NotImplementedError, match="spatial_clip_tpu.cli.sweep.Sweep"):
         instantiate({"_target_": "spatial_clip_tpu.cli.sweep.Sweep"})
-    with pytest.raises(NotImplementedError, match="profiler"):
-        instantiate({"_target_": "spatial_clip_tpu.cli.profiler.main"})
+    with pytest.raises(NotImplementedError, match="quantize"):
+        instantiate({"_target_": "spatial_clip_tpu.models.quantize.quantize_array"})
+    from spatial_clip_tpu_torch.cli import profiler  # ported since: the port's main
+
+    assert instantiate({"_target_": "spatial_clip_tpu.cli.profiler.main",
+                        "_partial_": True}).func is profiler.main
 
 
 # ------------------------------------------------------------- entry points

@@ -7,6 +7,8 @@ come from numpy seeds; tolerances (f32) are stated in each test.
 """
 from __future__ import annotations
 
+import tests.helpers.torch_threads  # noqa: F401  (xdist workers share the cores)
+
 import functools
 import math
 import re

@@ -12,6 +12,8 @@ hold against JAX's interpret-mode Pallas kernels.
 """
 from __future__ import annotations
 
+import tests.helpers.torch_threads  # noqa: F401  (xdist workers share the cores)
+
 import re
 
 import numpy as np
@@ -111,10 +113,11 @@ def test_the_wrappers_take_their_plain_versions_on_the_cpu_and_count_no_launch()
                       fd.ln_dense_fwd.launches, fd.ln_dense_fwd.routes)
 
 
-def test_the_wrappers_refuse_what_the_kernels_do_not_take():
+def test_the_wrappers_refuse_what_the_kernels_do_not_take(monkeypatch):
     """Shape and dtype checks raise on any device; a tensor that is neither
     on the CPU nor on a card (meta) reaches the kernel path and is refused
-    there, with no launch counted."""
+    there, with no launch counted (meta (which the wrappers run as the CPU, for ops/flops.py's count) is taken off the plain devices here)."""
+    monkeypatch.setattr(cuda_build, "PLAIN_DEVICES", ("cpu",))
     x, fc_w, fc_b, proj_w, proj_b = _mlp_args(4, 128, 512)
     before = (fm.fused_mlp_fwd.launches, fd.ln_dense_fwd.launches)
     with pytest.raises(ValueError, match="fc_w must be"):
@@ -180,10 +183,11 @@ def test_the_dx_and_ln_forward_wrappers_take_their_plain_versions_on_the_cpu():
                       fl.fused_ln_fwd.launches)
 
 
-def test_the_dx_and_ln_forward_wrappers_refuse_what_the_kernels_do_not_take():
+def test_the_dx_and_ln_forward_wrappers_refuse_what_the_kernels_do_not_take(monkeypatch):
     """Shape and dtype checks raise on any device; a tensor on neither the
     CPU nor a card (meta) reaches the kernel path and is refused there, with
-    no launch or route counted."""
+    no launch or route counted (meta (which the wrappers run as the CPU, for ops/flops.py's count) is taken off the plain devices here)."""
+    monkeypatch.setattr(cuda_build, "PLAIN_DEVICES", ("cpu",))
     x, g, w1 = torch.zeros(4, 256), torch.zeros(4, 384), torch.zeros(384, 256)
     before = (fd.ln_dense_bwd_dx.launches, dict(fd.ln_dense_bwd_dx.routes),
               fl.fused_ln_fwd.launches)

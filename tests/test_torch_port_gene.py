@@ -20,6 +20,8 @@ CPU). Tolerances, stated in each test, are f32 summation order only.
 """
 from __future__ import annotations
 
+import tests.helpers.torch_threads  # noqa: F401  (xdist workers share the cores)
+
 import json
 import sys
 from pathlib import Path

@@ -17,6 +17,8 @@ BERT pooler takes no gradient and follows JAX by weight decay alone.
 """
 from __future__ import annotations
 
+import tests.helpers.torch_threads  # noqa: F401  (xdist workers share the cores)
+
 import functools
 import json
 import types

@@ -11,6 +11,8 @@ logits at atol 1e-5; the depth-cut run the same bits as the full one.
 """
 from __future__ import annotations
 
+import tests.helpers.torch_threads  # noqa: F401  (xdist workers share the cores)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -16,6 +16,8 @@ atol 1e-4; model features at atol 1e-5, model gradients at
 """
 from __future__ import annotations
 
+import tests.helpers.torch_threads  # noqa: F401  (xdist workers share the cores)
+
 import json
 import jax
 import jax.numpy as jnp

@@ -27,6 +27,8 @@ tests/test_torch_port_train.py holds them.
 """
 from __future__ import annotations
 
+import tests.helpers.torch_threads  # noqa: F401  (xdist workers share the cores)
+
 import dataclasses
 import functools
 import re
@@ -574,11 +576,14 @@ def test_long_db_partial_rows_plain_version():
         al.long_bwd_dkdv(tq, None, stats, tg, H, dqkv, part[:3])
 
 
-def test_long_wrappers_check_their_inputs():
+def test_long_wrappers_check_their_inputs(monkeypatch):
     """The key-tiled wrappers refuse what their kernels do not take, on the
     CPU too: a head geometry, an lse or r of the wrong shape, a dqkv buffer
     of another dtype, bf16 row statistics off the CPU without stats rows; a
-    CUDA-less device raises before any launch."""
+    CUDA-less device raises before any launch (meta, which the wrappers run
+    as the CPU for ops/flops.py's count, is taken off the plain devices
+    here)."""
+    monkeypatch.setattr(cuda_build, "PLAIN_DEVICES", ("cpu",))
     qkv, g = torch.zeros(2, 9, 384), torch.zeros(2, 9, 128)
     lse = torch.zeros(2, 2, 9)
     with pytest.raises(ValueError, match="head geometry"):

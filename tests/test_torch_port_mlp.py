@@ -17,6 +17,8 @@ gradients at 1e-5 + 1e-4 of each gradient's largest entry.
 """
 from __future__ import annotations
 
+import tests.helpers.torch_threads  # noqa: F401  (xdist workers share the cores)
+
 import json
 import jax
 import jax.numpy as jnp

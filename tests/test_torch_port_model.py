@@ -9,6 +9,8 @@ per-row cosine of 0.999.
 """
 from __future__ import annotations
 
+import tests.helpers.torch_threads  # noqa: F401  (xdist workers share the cores)
+
 import json
 import jax
 import jax.numpy as jnp

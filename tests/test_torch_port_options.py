@@ -11,6 +11,8 @@ are stated in each test.
 """
 from __future__ import annotations
 
+import tests.helpers.torch_threads  # noqa: F401  (xdist workers share the cores)
+
 import types
 
 import jax

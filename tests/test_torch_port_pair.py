@@ -20,6 +20,8 @@ atol 2e-5 (the port's other Trainer tests').
 """
 from __future__ import annotations
 
+import tests.helpers.torch_threads  # noqa: F401  (xdist workers share the cores)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

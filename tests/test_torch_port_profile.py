@@ -5,6 +5,8 @@ kernel the port writes by hand falls in a family of its own, never under
 """
 from __future__ import annotations
 
+import tests.helpers.torch_threads  # noqa: F401  (xdist workers share the cores)
+
 import re
 
 import pytest

@@ -14,6 +14,8 @@ features at atol 1e-5 (rtol 1e-4), losses at rtol 1e-5, parameters at atol
 """
 from __future__ import annotations
 
+import tests.helpers.torch_threads  # noqa: F401  (xdist workers share the cores)
+
 import functools
 import types
 

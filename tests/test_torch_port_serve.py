@@ -6,6 +6,8 @@ replies must equal direct ``encode_*`` calls on the same weights.
 """
 from __future__ import annotations
 
+import tests.helpers.torch_threads  # noqa: F401  (xdist workers share the cores)
+
 import base64
 import io
 import json

@@ -13,6 +13,8 @@ gradients at atol 1e-5 + rtol 1e-4.
 """
 from __future__ import annotations
 
+import tests.helpers.torch_threads  # noqa: F401  (xdist workers share the cores)
+
 import functools
 
 import flax.linen as fnn

@@ -17,6 +17,8 @@ config per trunk family, and two Trainer steps of a ConvNeXt-pico CLIP.
 """
 from __future__ import annotations
 
+import tests.helpers.torch_threads  # noqa: F401  (xdist workers share the cores)
+
 import json
 
 import jax
